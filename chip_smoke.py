@@ -8,13 +8,16 @@ there is no CUDA device or when the port's package is not beside this
 script. Phases (any failure exits nonzero before the final `ok` line):
 
 1. print the card's name and power limit as `nvidia-smi` reports them;
-2. build every CUDA kernel of the served path from the checkout's sources
-   (`dist_mnist_tpu_torch/csrc/`, one `nvcc` per source, all at once);
+2. build every CUDA kernel of the ported paths from the checkout's
+   sources (`dist_mnist_tpu_torch/csrc/`, one `nvcc` per source, all at
+   once) and print ptxas' registers and spills;
 3. hold each kernel against its plain PyTorch version on the card at the
-   path's shapes — LeNet-5 fc1 [M,3136]x[3136,512] and fc2 [M,512]x[512,10]
-   in bf16, the MLP's [M,784]x[784,100] and [M,100]x[100,10] in f32, for
-   M in {1, 7, 64} — within 1e-2 (bf16) and 2e-5 (f32) of the largest
-   output;
+   paths' shapes: `quant_matmul` at LeNet-5 fc1 [M,3136]x[3136,512] and
+   fc2 [M,512]x[512,10] in bf16, the MLP's [M,784]x[784,100] and
+   [M,100]x[100,10] in f32, for M in {1, 7, 64}, within 1e-2 (bf16) and
+   2e-5 (f32) of the largest output; both fused-Adam kernels at LeNet-5's
+   8 leaf sizes and n in {1, 7, 129}, m' and v' within 1e-6 and delta
+   within 1e-5 of the largest value (clip scale 0.37, weight decay on);
 4. serve `lenet5_mnist --quant=int8` (seeded fresh init) on the card
    through the serving CLI's entry point (`cli/serve.py main`: server +
    closed-loop loadgen, 512 requests), with every launch counter set to 0
@@ -25,12 +28,29 @@ script. Phases (any failure exits nonzero before the final `ok` line):
    bf16 logit bound the JAX package's tests use) and the same top-1 on
    >= 98% of rows; then time one served batch of 64 on the host clock and
    break its device time down by kernel with `torch.profiler`;
-5. time each kernel at the shapes the path gives it, beside its plain
-   version and one library call computing the same function, each as a
+5. train LeNet-5 through the port's headline bench function
+   (`bench.run_headline`: batch 200, chunks of 100, MNIST or its synthetic
+   twin resident on the card) with `optim.adam(1e-3, fused=True)`, 1,000
+   steps when the race ends after its first round, with every launch counter set to 0 just before and read
+   just after: `fused_adam_update` must launch 8 times per step (one per
+   leaf), the loss must be finite and fall, and test accuracy reach 0.97;
+6. trajectories: from one initial state and generator seed (so the same
+   batches and dropout masks), 100 steps with plain `optim.adam(1e-3)`
+   against `adam(1e-3, fused=True)`, and with
+   `chain(clip_by_global_norm(0.5), adamw(1e-3, weight_decay=0.01))`
+   against `fused_adamw(1e-3, weight_decay=0.01, clip_norm=0.5)` (whose
+   `fused_adam_clip_wd_update` launches are counted over its run): the
+   final losses within 1% and the test accuracies within 0.5 points;
+7. one training step's host wall and its device time by kernel from
+   `torch.profiler`, and the device's idle share;
+8. time each kernel at the shapes its path gives it, beside its plain
+   version and, where one exists, one library call computing the same
+   function (for the Adam kernels `torch._fused_adam_`/`_fused_adamw_`, a
+   yardstick that computes a neighbouring function in place), each as a
    CUDA graph of back-to-back calls timed with CUDA events (L2 warm), and
    compute its bound: max(bytes / memory rate, FLOPs / peak rate for the
    operands' type) for the card;
-6. print the `{"kernels": [...]}` line, then, last, the `ok` line.
+9. print the `{"kernels": [...]}` line, then, last, the `ok` line.
 """
 
 from __future__ import annotations
@@ -92,6 +112,195 @@ def graph_ms(torch, fn, calls: int = 100, rounds: int = 5) -> float:
     return statistics.median(times)
 
 
+def profile_fields(torch, prof, reps: int, wall_ms: float) -> dict:
+    """Device ms per repetition by kernel name (cut to 100 characters)
+    from a `torch.profiler` run of `reps` repetitions, their sum, the
+    device's idle share of the host wall `wall_ms`, and the device
+    operations (kernels, copies, memsets) per repetition."""
+    device_ms, n_events = {}, 0
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            n_events += 1
+            kernel = evt.name[:100]
+            device_ms[kernel] = (device_ms.get(kernel, 0.0)
+                                 + evt.time_range.elapsed_us() / 1e3 / reps)
+    busy_ms = sum(device_ms.values()) if device_ms else None
+    return {
+        "wall_ms": wall_ms,
+        "device_busy_ms": busy_ms,
+        "device_idle_share": None if busy_ms is None else 1 - busy_ms / wall_ms,
+        "device_ops_per_rep": n_events / reps,  # kernels, copies, memsets
+        "device_ms_by_kernel": dict(sorted(device_ms.items(),
+                                           key=lambda kv: -kv[1]))}
+
+
+#: LeNet-5's param leaves and their sizes (1,663,370 elements in all)
+LENET_LEAVES = {"conv1/b": 32, "conv1/w": 800, "conv2/b": 64,
+                "conv2/w": 51200, "fc1/b": 512, "fc1/w": 1605632,
+                "fc2/b": 10, "fc2/w": 5120}
+
+
+def adam_parity(torch, dev) -> dict:
+    """Both fused-Adam kernels against their plain versions on the same
+    card inputs, at LeNet-5's leaf sizes and at n = 1, 7, 129 (tails after
+    the float4 loop). Fails unless m' and v' are within 1e-6 and delta
+    within 1e-5 of the largest value. Returns the worst errors by kernel."""
+    from dist_mnist_tpu_torch.ops.kernels.fused_adam import (
+        fused_adam_clip_wd_update,
+        fused_adam_clip_wd_update_reference,
+        fused_adam_update,
+        fused_adam_update_reference,
+    )
+
+    gen = torch.Generator().manual_seed(1)
+    lr_t = torch.full((), 3.1e-3, device=dev)
+    scalars = torch.tensor([3.1e-3, 0.37, 1e-5], device=dev)  # clip < 1, wd
+    worst = {}
+    sizes = [*LENET_LEAVES.items(), ("n=1", 1), ("n=7", 7), ("n=129", 129)]
+    for label, n in sizes:
+        g = torch.randn(n, generator=gen).to(dev)
+        m = (0.1 * torch.randn(n, generator=gen)).to(dev)
+        v = (0.01 * torch.rand(n, generator=gen)).to(dev)
+        p = torch.randn(n, generator=gen).to(dev)
+        for name, fn, ref, args in (
+                ("fused_adam_update", fused_adam_update,
+                 fused_adam_update_reference, (g, m, v, lr_t)),
+                ("fused_adam_clip_wd_update", fused_adam_clip_wd_update,
+                 fused_adam_clip_wd_update_reference, (g, m, v, p, scalars))):
+            got, want = fn(*args), ref(*args)
+            torch.cuda.synchronize()
+            errs = {out: rel_err(a, b)
+                    for out, a, b in zip(("delta", "m", "v"), got, want)}
+            bitwise = all(torch.equal(a, b) for a, b in zip(got, want))
+            print(json.dumps({"phase": "adam_parity", "kernel": name,
+                              "leaf": label, "n": n, "bitwise": bitwise,
+                              **{f"{out}_max_abs_err": e[0]
+                                 for out, e in errs.items()},
+                              **{f"{out}_max_rel_err": e[1]
+                                 for out, e in errs.items()}}), flush=True)
+            for out, tol in (("delta", 1e-5), ("m", 1e-6), ("v", 1e-6)):
+                if errs[out][1] > tol:
+                    fail(f"{name} {label}: {out} rel err {errs[out][1]} > "
+                         f"{tol}")
+            w = worst.setdefault(name, {"abs": 0.0, "rel": 0.0})
+            w["abs"] = max(w["abs"], *(e[0] for e in errs.values()))
+            w["rel"] = max(w["rel"], *(e[1] for e in errs.values()))
+    return worst
+
+
+def trajectory(torch, dev, dataset, dd, optimizer, steps: int = 100):
+    """`steps` fused LeNet-5 steps from the seed-0 initial state (batch 200
+    and dropout drawn from the state's seeded generator): the per-step
+    losses (fetched once, at the end) and the final test accuracy."""
+    from dist_mnist_tpu_torch.models.registry import get_model
+    from dist_mnist_tpu_torch.train import (
+        create_train_state,
+        evaluate,
+        make_eval_step,
+        make_fused_train_step,
+    )
+
+    model = get_model("lenet5")
+    state = create_train_state(model, optimizer, 0, dataset.train_images[:1],
+                               dev)
+    step = make_fused_train_step(model, optimizer, dd, 200)
+    losses = []
+    for _ in range(steps):
+        state, out = step(state)
+        losses.append(out["loss"])
+    losses = torch.stack(losses).cpu().numpy()
+    acc = evaluate(make_eval_step(model), state, dataset.test_images,
+                   dataset.test_labels, batch_size=10_000)["accuracy"]
+    return losses, acc
+
+
+def time_adam(torch, dev, state, bw: float, f32_peak: float) -> dict:
+    """Both Adam kernels over one update of LeNet-5's 8 leaves ("step") and
+    of fc1/w alone, beside their plain versions and the nearest torch call
+    (`torch._fused_adam_` / `_fused_adamw_`: eps inside the bias
+    correction, params updated in place — a yardstick, not the same
+    function), each timed by `graph_ms`; and the bound from the bytes and
+    f32 operations each update needs (`fused_adam_cost`).
+
+    A training step finds the Adam slots cold in L2 (the forward and
+    backward ran in between), and fc1/w's 19 MB of inputs fit in the
+    card's 50 MB L2, so back-to-back calls on one set of operands would
+    beat the memory bound. Each call therefore takes the next of
+    `ROTATE` copies of its operands (>= 120 MB in all); the kernel is also
+    timed on one set (`kernel_ms_l2_warm`)."""
+    import itertools
+
+    from dist_mnist_tpu_torch.ops.kernels.fused_adam import (
+        fused_adam_clip_wd_update,
+        fused_adam_clip_wd_update_reference,
+        fused_adam_cost,
+        fused_adam_update,
+        fused_adam_update_reference,
+    )
+    from dist_mnist_tpu_torch.utils.tree import flatten_with_path
+
+    ROTATE = 6
+    flat = flatten_with_path(state.params)
+    paths = ["/".join(path) for path, _ in flat]
+    params = [p for _, p in flat]
+    ms = [x for _, x in flatten_with_path(state.opt_state["m"])]
+    vs = [x for _, x in flatten_with_path(state.opt_state["v"])]
+    gen = torch.Generator(device=dev).manual_seed(2)
+    gs = [1e-2 * torch.randn(p.shape, generator=gen, device=dev)
+          for p in params]
+    lr_t = torch.full((), 1e-3, device=dev)
+    scalars = torch.tensor([1e-3, 0.5, 1e-5], device=dev)
+    out = {}
+    for name, clip_wd in (("fused_adam_update", False),
+                          ("fused_adam_clip_wd_update", True)):
+        fn = fused_adam_clip_wd_update if clip_wd else fused_adam_update
+        ref = (fused_adam_clip_wd_update_reference if clip_wd
+               else fused_adam_update_reference)
+        yard = torch._fused_adamw_ if clip_wd else torch._fused_adam_
+        extra = (lambda p: (p, scalars)) if clip_wd else (lambda p: (lr_t,))
+        for label, idxs in (("step", range(len(params))),
+                            ("fc1/w", [paths.index("fc1/w")])):
+            # operand sets [(g, m, v, p) per leaf]; the yardstick updates
+            # its set in place
+            sets = [[tuple(t[i].clone() for t in (gs, ms, vs, params))
+                     for i in idxs] for _ in range(ROTATE)]
+            steps = [torch.ones((), device=dev) for _ in idxs]
+
+            def cycling(call):
+                it = itertools.cycle(sets)
+                return lambda: call(next(it))
+
+            def run(f):
+                return lambda s: [f(g, m, v, *extra(p)) for g, m, v, p in s]
+
+            def run_yard(s):
+                g, m, v, p = (list(x) for x in zip(*s))
+                yard(p, g, m, v, [], steps, lr=1e-3, beta1=0.9, beta2=0.999,
+                     weight_decay=0.01 if clip_wd else 0.0, eps=1e-8,
+                     amsgrad=False, maximize=False)
+
+            row = {
+                "kernel_ms": graph_ms(torch, cycling(run(fn))),
+                "kernel_ms_l2_warm": graph_ms(
+                    torch, lambda: run(fn)(sets[0])),
+                "plain_ms": graph_ms(torch, cycling(run(ref))),
+                "yardstick": f"torch.{yard.__name__}",
+                "yardstick_ms": graph_ms(torch, cycling(run_yard)),
+            }
+            cost = fused_adam_cost([params[i].numel() for i in idxs],
+                                   clip_wd=clip_wd)
+            t_bytes = cost["hbm_bytes"] / bw * 1e3
+            t_ops = cost["flops"] / f32_peak * 1e3
+            row.update(bound_ms=max(t_bytes, t_ops),
+                       bound_by="bytes" if t_bytes >= t_ops else "operations",
+                       hbm_bytes=cost["hbm_bytes"])
+            out[(name, label)] = row
+            print(json.dumps({"phase": "time", "kernel": name,
+                              "shape": label, "launches_per_call": len(idxs),
+                              **row}), flush=True)
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -107,12 +316,28 @@ def main() -> None:
 
     from dist_mnist_tpu_torch.ops import quant as quant_mod
     from dist_mnist_tpu_torch.ops.kernels import build
+    from dist_mnist_tpu_torch.ops.kernels.fused_adam import (
+        fused_adam_clip_wd_update,
+        fused_adam_update,
+    )
     from dist_mnist_tpu_torch.ops.kernels.quant_matmul import (
         quant_matmul,
         quant_matmul_cost,
         quant_matmul_reference,
     )
+    from dist_mnist_tpu_torch import optim
+    from dist_mnist_tpu_torch.bench import run_headline
     from dist_mnist_tpu_torch.cli import serve as serve_cli
+    from dist_mnist_tpu_torch.data.datasets import load_dataset
+    from dist_mnist_tpu_torch.data.pipeline import DeviceDataset
+    from dist_mnist_tpu_torch.models.registry import get_model
+    from dist_mnist_tpu_torch.train import (
+        create_train_state,
+        evaluate,
+        make_eval_step,
+        make_fused_train_step,
+        state_memory_bytes,
+    )
     from dist_mnist_tpu_torch.serve import (
         InferenceEngine,
         load_for_serving,
@@ -135,7 +360,7 @@ def main() -> None:
 
     # -- 2. build ------------------------------------------------------------
     t0 = time.perf_counter()
-    build.build_all(["quant_matmul"])
+    build.build_all(["quant_matmul", "fused_adam"])
     print(json.dumps({"phase": "build",
                       "seconds": time.perf_counter() - t0}), flush=True)
     for src, log in build.build_logs.items():
@@ -167,12 +392,26 @@ def main() -> None:
             worst["rel"] = max(worst["rel"], rel)
             operands[(label, m)] = (x, qa)
 
+    # both fused-Adam kernels against their plain versions: LeNet-5's leaf
+    # sizes and sizes that leave a tail after the float4 loads
+    adam_worst = adam_parity(torch, dev)
+
+    counters = (quant_matmul, fused_adam_update, fused_adam_clip_wd_update)
+
+    def reset_counts():
+        for fn in counters:
+            fn.launches = 0
+
+    def read_counts() -> dict:
+        return {fn.__name__: fn.launches for fn in counters}
+
     # -- 4. the served path, through the serving CLI's entry point ----------
-    quant_matmul.launches = 0
+    reset_counts()
     summary = serve_cli.main([
         "--config=lenet5_mnist", "--quant=int8", "--device=cuda:0",
         "--max_batch=64", "--requests=512", "--concurrency=64"])
-    launches = quant_matmul.launches
+    serve_counts = read_counts()
+    launches = serve_counts["quant_matmul"]
     print(json.dumps({"phase": "serve", "quant_matmul_launches": launches,
                       **{k: summary[k] for k in (
                           "ok", "errors", "p50_ms", "p99_ms", "n_batches",
@@ -229,22 +468,113 @@ def main() -> None:
             torch.profiler.ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             engine.predict(images)
-    device_ms = {}  # by kernel name, cut to 100 characters
-    for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
-            kernel = evt.name[:100]
-            device_ms[kernel] = (device_ms.get(kernel, 0.0)
-                                 + evt.time_range.elapsed_us() / 1e3 / reps)
-    busy_ms = sum(device_ms.values()) if device_ms else None
-    print(json.dumps({
-        "phase": "profile", "batch": 64, "wall_ms": wall_ms,
-        "device_busy_ms": busy_ms,
-        "device_idle_share": None if busy_ms is None else 1 - busy_ms / wall_ms,
-        "device_ms_by_kernel": dict(sorted(device_ms.items(),
-                                           key=lambda kv: -kv[1]))}),
+    print(json.dumps({"phase": "profile", "batch": 64,
+                      **profile_fields(torch, prof, reps, wall_ms)}),
           flush=True)
 
-    # -- 5. timing at the path's shapes --------------------------------------
+    # -- 5. the training path, through the port's headline bench ------------
+    dataset = load_dataset("mnist", seed=0)
+    dd = DeviceDataset(dataset, dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    run = run_headline(dev, optim.adam(1e-3, fused=True), dataset=dataset,
+                       race_rounds=2, timed_steps=700)
+    torch.cuda.synchronize()
+    train_wall = time.perf_counter() - t0
+    train_counts = read_counts()
+    final_eval = evaluate(make_eval_step(get_model("lenet5")), run.state,
+                          dataset.test_images, dataset.test_labels,
+                          batch_size=10_000)
+    extra = run.record["extra"]
+    print(json.dumps({
+        "phase": "train", "launches": train_counts, "steps": run.steps,
+        "wall_s": train_wall, "steps_per_sec": run.record["value"],
+        "examples_per_sec": extra["examples_per_sec"], "mfu": extra["mfu"],
+        "first_chunk_loss": run.first_loss, "final_chunk_loss": run.final_loss,
+        "race_test_acc": extra["accuracy_race"]["final_test_acc"],
+        "wall_to_99pct_acc_secs": extra["accuracy_race"][
+            "wall_to_99pct_acc_secs"],
+        "final_test_acc": final_eval["accuracy"],
+        "synthetic_data": run.record["synthetic_data"],
+        "state_memory_bytes": state_memory_bytes(run.state),
+        "dataset_bytes_on_card": dd.nbytes()}),
+          flush=True)
+    print(json.dumps(run.record), flush=True)
+    if train_counts["fused_adam_update"] != 8 * run.steps:
+        fail(f"train: {train_counts['fused_adam_update']} fused_adam_update "
+             f"launches for {run.steps} steps (want 8 per step, one per "
+             "LeNet-5 leaf)")
+    if not (np.isfinite(run.final_loss) and run.final_loss < run.first_loss):
+        fail(f"train: loss {run.first_loss} -> {run.final_loss}")
+    if final_eval["accuracy"] < 0.97:
+        fail(f"train: test accuracy {final_eval['accuracy']} < 0.97")
+
+    # -- 6. trajectories: kernel against plain from one initial state -------
+    traj = {}
+    for label, make_plain, make_fused, counter in (
+            ("adam", lambda: optim.adam(1e-3),
+             lambda: optim.adam(1e-3, fused=True), fused_adam_update),
+            ("clip_adamw", lambda: optim.chain(
+                optim.clip_by_global_norm(0.5),
+                optim.adamw(1e-3, weight_decay=0.01)),
+             lambda: optim.fused_adamw(1e-3, weight_decay=0.01,
+                                       clip_norm=0.5),
+             fused_adam_clip_wd_update)):
+        plain_losses, plain_acc = trajectory(torch, dev, dataset, dd,
+                                             make_plain())
+        reset_counts()
+        fused_losses, fused_acc = trajectory(torch, dev, dataset, dd,
+                                             make_fused())
+        counts = read_counts()
+        traj[label] = counts[counter.__name__]
+        loss_gap = abs(fused_losses[-1] - plain_losses[-1]) / abs(
+            plain_losses[-1])
+        print(json.dumps({
+            "phase": "trajectory", "optimizer": label,
+            "steps": len(fused_losses), "launches": counts,
+            "max_step_loss_diff": float(np.max(np.abs(fused_losses
+                                                      - plain_losses))),
+            "bitwise_equal_losses": bool(np.array_equal(fused_losses,
+                                                        plain_losses)),
+            "final_loss_plain": float(plain_losses[-1]),
+            "final_loss_kernel": float(fused_losses[-1]),
+            "test_acc_plain": plain_acc, "test_acc_kernel": fused_acc}),
+              flush=True)
+        if counts[counter.__name__] != 8 * len(fused_losses):
+            fail(f"trajectory {label}: {counts[counter.__name__]} "
+                 f"{counter.__name__} launches for {len(fused_losses)} steps")
+        if not np.isfinite(fused_losses).all() or loss_gap > 0.01:
+            fail(f"trajectory {label}: final loss {fused_losses[-1]} vs "
+                 f"plain {plain_losses[-1]}")
+        if abs(fused_acc - plain_acc) > 0.005:
+            fail(f"trajectory {label}: test accuracy {fused_acc} vs plain "
+                 f"{plain_acc}")
+
+    # -- 7. where one training step's time goes ------------------------------
+    model = get_model("lenet5")
+    opt = optim.adam(1e-3, fused=True)
+    state = create_train_state(model, opt, 0, dataset.train_images[:1], dev)
+    step = make_fused_train_step(model, opt, dd, 200)
+    for _ in range(10):  # allocator and cuDNN warm-up
+        state, out = step(state)
+    torch.cuda.synchronize()
+    reps = 50
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        state, out = step(state)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            state, out = step(state)
+        torch.cuda.synchronize()
+    print(json.dumps({"phase": "train_profile", "batch": 200,
+                      **profile_fields(torch, prof, reps, wall_ms)}),
+          flush=True)
+
+    # -- 8. timing at the paths' shapes --------------------------------------
     timed = {}
     for (label, m), (x, qa) in operands.items():
         w_deq = quant_mod.dequantize(qa, x.dtype)  # the library's operand
@@ -262,9 +592,35 @@ def main() -> None:
         timed[(label, m)] = row
         print(json.dumps({"phase": "time", "shape": label, "m": m,
                           "dtype": str(x.dtype), **row}), flush=True)
+    adam_timed = time_adam(torch, dev, state, bw, peaks["float32"])
 
-    # -- 6. result -----------------------------------------------------------
+    # -- 9. result -----------------------------------------------------------
     head = timed[("lenet5/fc1", 64)]
+    adam_rows = []
+    for name, launches_on_path, src_line in (
+            ("fused_adam_update", train_counts["fused_adam_update"], 26),
+            ("fused_adam_clip_wd_update", traj["clip_adamw"], 72)):
+        row = adam_timed[(name, "step")]
+        adam_rows.append({
+            "name": name,
+            "route": "cuda",
+            "source": "dist_mnist_tpu_torch/csrc/fused_adam.cu",
+            "replaces": f"dist_mnist_tpu/ops/pallas/fused_adam.py:{src_line}",
+            "launches": launches_on_path,
+            "max_abs_err": adam_worst[name]["abs"],
+            "max_rel_err": adam_worst[name]["rel"],
+            "shape": "LeNet-5's 8 leaves, one update step "
+                     "(1,663,370 f32 elements)",
+            "ms": row["kernel_ms"],
+            "kernel_ms": row["kernel_ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": None,  # no torch call computes this function
+            "yardstick": {"call": row["yardstick"],
+                          "ms": row["yardstick_ms"]},
+            "fc1_w_ms": adam_timed[(name, "fc1/w")]["kernel_ms"],
+        })
     print(json.dumps({"kernels": [{
         "name": "quant_matmul",
         "route": "cuda",
@@ -280,7 +636,7 @@ def main() -> None:
         "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"],
         "library_ms": head["library_ms"],
-    }], "gpu": gpu}), flush=True)
+    }, *adam_rows], "gpu": gpu}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -6,10 +6,15 @@ kernels, `[in, out]` dense kernels) so a parity test can feed both the
 same numpy inputs. This package imports `torch`, never `jax` and nothing
 of `dist_mnist_tpu`.
 
-What is ported so far: int8 weight-only classifier serving
-(`serve/`, `cli/serve.py`) of the `mlp_mnist` and `lenet5_mnist` configs,
-with every quantized dense layer on the hand-written CUDA `quant_matmul`
-kernel (`ops/kernels/quant_matmul.py`, `csrc/quant_matmul.cu`).
+What is ported so far:
+- int8 weight-only classifier serving (`serve/`, `cli/serve.py`) of the
+  `mlp_mnist` and `lenet5_mnist` configs, with every quantized dense layer
+  on the hand-written CUDA `quant_matmul` kernel
+  (`ops/kernels/quant_matmul.py`, `csrc/quant_matmul.cu`);
+- single-device training (`train/`, `optim/`, `data/`, and the headline
+  benchmark `bench.py`) of those models, with `optim.adam(fused=True)`
+  and `optim.fused_adamw` running each leaf's update as one hand-written
+  CUDA kernel (`ops/kernels/fused_adam.py`, `csrc/fused_adam.cu`).
 
 Entry points run on `cuda` unless the caller asks for `cpu`
 (`utils/device.resolve_device`); kernels build into

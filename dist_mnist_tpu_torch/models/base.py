@@ -19,8 +19,12 @@ State = dict  # mutable model state (BN running stats); {} for stateless models
 class Model(Protocol):
     """- ``init(gen, sample_input) -> (params, state)``; only the sample's
       shape is read.
-    - ``apply(params, state, x, *, train=False) -> (logits, new_state)``;
-      `x` is an NHWC float batch, logits are float32.
+    - ``apply(params, state, x, *, train=False, rng=None,
+      dropout_mask=None) -> (logits, new_state)``; `x` is an NHWC float
+      batch, logits are float32. In training, dropout draws its keep-mask
+      from the generator `rng` (on x's device), or takes `dropout_mask`.
+    - ``flops_per_example(sample_shape)``: analytic forward FLOPs per
+      example (the MFU numerator).
     """
 
     compute_dtype: torch.dtype
@@ -29,4 +33,8 @@ class Model(Protocol):
              sample_input: torch.Tensor) -> tuple[Params, State]: ...
 
     def apply(self, params: Params, state: State, x: torch.Tensor, *,
-              train: bool = False) -> tuple[torch.Tensor, State]: ...
+              train: bool = False, rng: torch.Generator | None = None,
+              dropout_mask: torch.Tensor | None = None
+              ) -> tuple[torch.Tensor, State]: ...
+
+    def flops_per_example(self, sample_shape) -> float: ...

@@ -1,7 +1,8 @@
 """2-layer MLP — the original dist_mnist.py model (port of the reference
 `models/mlp.py`): ``hid_w [784, hidden]``, ``sm_w [hidden, 10]``,
 truncated-normal init with stddev 1/sqrt(fan_in), ReLU hidden layer, raw
-f32 logits."""
+f32 logits (the `mlp_mnist` config pairs them with the clipped loss). It
+has no dropout, so training and serving run the same forward."""
 
 from __future__ import annotations
 
@@ -27,9 +28,16 @@ class MLP:
         }
         return params, {}
 
-    def apply(self, params, state, x, *, train=False):
-        if train:
-            raise NotImplementedError("the port serves only (train=False)")
+    def flops_per_example(self, sample_shape) -> float:
+        """Analytic FORWARD FLOPs per example (matmul MACs x2; elementwise
+        ignored), the MFU numerator's per-example count."""
+        in_dim = math.prod(int(d) for d in sample_shape[1:])
+        return 2.0 * (in_dim * self.hidden_units
+                      + self.hidden_units * self.num_classes)
+
+    def apply(self, params, state, x, *, train=False, rng=None,
+              dropout_mask=None):
+        del train, rng, dropout_mask  # no dropout in this model
         x = nn.flatten(x).to(self.compute_dtype)
         h = nn.relu(nn.dense(params["hid"], x))
         logits = nn.dense(params["sm"], h)

@@ -1,4 +1,4 @@
-"""Model registry: name -> constructor (the served models so far)."""
+"""Model registry: name -> constructor (the ported models so far)."""
 
 from __future__ import annotations
 

@@ -16,6 +16,7 @@ for CPU tensors; it never routes a CUDA tensor around the kernel.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -69,12 +70,13 @@ def _check(x, w_q, w_scale) -> tuple[int, int, int]:
     return m, d, h
 
 
-def _library() -> ctypes.CDLL:
-    lib = build.load("quant_matmul")
-    fn = lib.dmt_quant_matmul
+@functools.cache
+def _entry():
+    """`dmt_quant_matmul` of the built library, loaded and typed once."""
+    fn = build.load("quant_matmul").dmt_quant_matmul
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
-    return lib
+    return fn
 
 
 def quant_matmul(x: torch.Tensor, w_q: torch.Tensor,
@@ -92,10 +94,10 @@ def quant_matmul(x: torch.Tensor, w_q: torch.Tensor,
     out = torch.empty((*x.shape[:-1], h), dtype=x.dtype, device=x.device)
     if m == 0 or h == 0:
         return out
-    lib = _library()
+    fn = _entry()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.dmt_quant_matmul(
+        err = fn(
             x.data_ptr(), w_q.data_ptr(), w_scale.data_ptr(), out.data_ptr(),
             m, d, h, int(x.dtype == torch.bfloat16), stream)
     if err != 0:

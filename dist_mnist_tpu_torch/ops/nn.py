@@ -1,6 +1,6 @@
 """Functional NN layers: init fns returning param dicts + pure apply fns.
 
-Port of the reference `ops/nn.py` for the layers the served models use.
+Port of the reference `ops/nn.py` for the layers the ported models use.
 The public layouts are the reference's — NHWC images, HWIO conv kernels,
 ``[in, out]`` dense kernels — so converted reference params drop in
 unchanged. Inside, a conv runs `F.conv2d` on an NCHW view of the NHWC
@@ -122,7 +122,40 @@ def max_pool(x: torch.Tensor, window: int = 2,
 
 
 # ---------------------------------------------------------------------------
-# activations / reshapes
+# input scaling / regularization / activations
+
+
+def normalize_images(x: torch.Tensor) -> torch.Tensor:
+    """uint8 pixels -> float32 in [0, 1]: ``x / 255`` with IEEE division.
+
+    The divisor is a tensor on x's device. Torch on CUDA divides by a
+    Python number (or a CPU scalar) as a multiply by its reciprocal, which
+    gives another f32 than the reference's division for about half of the
+    256 byte values."""
+    x = x.to(torch.float32)
+    return x / torch.full((), 255.0, dtype=torch.float32, device=x.device)
+
+
+def dropout(x: torch.Tensor, rate: float, *, train: bool,
+            gen: torch.Generator | None = None,
+            mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Inverted dropout: ``where(mask, x / keep, 0)`` in x's dtype.
+
+    The keep-mask is `mask` when given (a test feeds the reference's),
+    else ``uniform[0, 1) < keep`` drawn from `gen`, a generator on x's
+    device (`jax.random.bernoulli` draws the same way). The division is by
+    a tensor of x's dtype, as the reference divides by a weakly typed
+    constant."""
+    if not train or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    if mask is None:
+        if gen is None:
+            raise ValueError("dropout needs a generator or a keep-mask")
+        mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    scaled = x / torch.full((), keep, dtype=x.dtype, device=x.device)
+    return torch.where(mask.to(x.device), scaled,
+                       torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 relu = F.relu

@@ -24,6 +24,7 @@ import time
 import numpy as np
 import torch
 
+from dist_mnist_tpu_torch.ops.nn import normalize_images
 from dist_mnist_tpu_torch.ops.quant import (
     QuantizedArray,
     is_quantized,
@@ -51,7 +52,8 @@ class InferenceEngine:
 
     `predict(images)` takes a host batch of raw uint8 images `[n, H, W, C]`
     and returns f32 logits `[n, classes]`; padding, placement and
-    unpadding are internal. Normalization is the reference's (`x/255`).
+    unpadding are internal. Normalization is the reference's (`x/255`,
+    IEEE division: `ops.nn.normalize_images`).
     """
 
     def __init__(
@@ -125,7 +127,7 @@ class InferenceEngine:
         t0 = time.monotonic()
         x = torch.from_numpy(np.ascontiguousarray(images, dtype=np.uint8))
         with torch.inference_mode():
-            x = x.to(self.device).to(torch.float32) / 255.0
+            x = normalize_images(x.to(self.device))
             logits, _ = self.model.apply(self.params, self.model_state, x)
             out = logits.cpu().numpy()
         dt = time.monotonic() - t0

@@ -34,8 +34,17 @@ def map_with_path(fn, tree, path: tuple = ()):
     return fn(path, tree)
 
 
-def tree_map(fn, tree):
-    return map_with_path(lambda _path, leaf: fn(leaf), tree)
+def tree_map(fn, tree, *rest):
+    """`fn(leaf, *matching leaves of rest)` over every leaf of `tree`;
+    each tree in `rest` has `tree`'s structure (or extends it below its
+    leaves, like `jax.tree.map`)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
+    return fn(tree, *rest)
 
 
 def leaves(tree) -> list:

@@ -16,7 +16,17 @@ import numpy as np
 import pytest
 import torch
 
+from dist_mnist_tpu_torch import bench
+from dist_mnist_tpu_torch import optim as topt
+from dist_mnist_tpu_torch.data.datasets import load_dataset
+from dist_mnist_tpu_torch.ops import nn as tnn
 from dist_mnist_tpu_torch.ops import quant as tquant
+from dist_mnist_tpu_torch.ops.kernels.fused_adam import (
+    fused_adam_clip_wd_update,
+    fused_adam_clip_wd_update_reference,
+    fused_adam_update,
+    fused_adam_update_reference,
+)
 from dist_mnist_tpu_torch.ops.kernels.quant_matmul import (
     quant_matmul,
     quant_matmul_reference,
@@ -131,3 +141,84 @@ def test_engine_on_card_matches_cpu_engine(cuda):
     assert got.shape == want.shape == (37, 10)
     assert float(np.max(np.abs(got - want))) <= 0.04
     assert float(np.mean(got.argmax(-1) == want.argmax(-1))) >= 0.98
+
+
+def test_normalize_images_on_card_is_ieee_division(cuda):
+    """All 256 byte values, bit for bit against numpy's f32 division: the
+    card must not divide by multiplying with a reciprocal."""
+    b = np.arange(256, dtype=np.uint8)
+    got = tnn.normalize_images(torch.from_numpy(b).to(cuda)).cpu().numpy()
+    want = b.astype(np.float32) / np.float32(255)
+    assert got.view(np.int32).tolist() == want.view(np.int32).tolist()
+
+
+#: LeNet-5's 8 leaf sizes, and sizes that leave a tail after float4 loads
+ADAM_SIZES = [32, 800, 64, 51200, 512, 1605632, 10, 5120, 1, 7, 129]
+
+
+def _adam_operands(n, device, seed):
+    rng = np.random.default_rng(seed)
+    g, m, p = (torch.from_numpy(rng.standard_normal(n).astype(np.float32)
+                                ).to(device) for _ in range(3))
+    v = torch.from_numpy(rng.random(n).astype(np.float32)).to(device)
+    return g, m, v, p
+
+
+@pytest.mark.parametrize("n", ADAM_SIZES)
+def test_fused_adam_kernels_match_plain_versions(cuda, n):
+    """Kernel against its plain version on the same card inputs: m' and v'
+    within 1e-6 and delta within 1e-5 of the largest value (both round
+    each operation once, in the same order, so they agree bit for bit
+    unless torch's own kernels contract or reorder)."""
+    g, m, v, p = _adam_operands(n, cuda, seed=n)
+    lr_t = torch.full((), 3e-3, device=cuda)
+    scalars = torch.tensor([3e-3, 0.37, 1e-5], device=cuda)
+    before = (fused_adam_update.launches, fused_adam_clip_wd_update.launches)
+    got1 = fused_adam_update(g, m, v, lr_t)
+    got2 = fused_adam_clip_wd_update(g, m, v, p, scalars)
+    torch.cuda.synchronize()
+    assert (fused_adam_update.launches,
+            fused_adam_clip_wd_update.launches) == (before[0] + 1,
+                                                   before[1] + 1)
+    want1 = fused_adam_update_reference(g, m, v, lr_t)
+    want2 = fused_adam_clip_wd_update_reference(g, m, v, p, scalars)
+    for got, want in ((got1, want1), (got2, want2)):
+        for out, ref, tol in zip(got, want, (1e-5, 1e-6, 1e-6)):
+            assert out.shape == ref.shape and out.dtype == torch.float32
+            assert _rel_err(out, ref) <= tol
+
+
+def test_fused_adam_kernel_takes_unaligned_views(cuda):
+    """A view that starts off a 16-byte boundary takes the scalar loop."""
+    g, m, v, _ = _adam_operands(1001, cuda, seed=3)
+    lr_t = torch.full((1,), 1e-3, device=cuda)
+    got = fused_adam_update(g[1:], m[1:], v[1:], lr_t)
+    want = fused_adam_update_reference(g[1:], m[1:], v[1:], lr_t)
+    torch.cuda.synchronize()
+    for out, ref in zip(got, want):
+        assert _rel_err(out, ref) <= 1e-5
+
+
+def test_fused_adam_wrapper_rejects_mixed_devices(cuda):
+    g, m, v, _ = _adam_operands(8, cuda, seed=1)
+    with pytest.raises(ValueError, match="different devices"):
+        fused_adam_update(g, m, v, torch.full((), 1e-3))
+
+
+def test_ten_training_steps_on_card_launch_the_fused_kernel(cuda,
+                                                           monkeypatch):
+    """The headline training function on the card, tiny: every Adam
+    update goes through the kernel, 8 launches (one per LeNet-5 leaf) per
+    step, and the loss falls."""
+    ds = load_dataset("mnist", "/nonexistent", seed=0,
+                      synthetic_sizes=(2000, 500), cache_synthetic=False)
+    monkeypatch.setattr(bench, "CHUNK", 2)
+    fused_adam_update.launches = 0
+    run = bench.run_headline(cuda, topt.adam(1e-3, fused=True), dataset=ds,
+                             race_rounds=1, timed_steps=4)
+    torch.cuda.synchronize()
+    assert run.steps == 2 * 2 + 2 + 4  # race round, warm-up, timed
+    assert fused_adam_update.launches == 8 * run.steps
+    assert np.isfinite(run.final_loss) and run.final_loss < run.first_loss
+    assert run.record["extra"]["device_kind"] == \
+        torch.cuda.get_device_name(cuda)
