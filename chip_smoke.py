@@ -9,8 +9,8 @@ script. Phases (any failure exits nonzero before the final `ok` line):
 
 1. print the card's name and power limit as `nvidia-smi` reports them;
 2. build every CUDA kernel of the ported paths from the checkout's
-   sources (`dist_mnist_tpu_torch/csrc/`, one `nvcc` per source, all at
-   once) and print ptxas' registers and spills;
+   sources (`dist_mnist_tpu_torch/csrc/`, four sources, one `nvcc` each,
+   all at once) and print ptxas' registers and spills;
 3. hold each kernel against its plain PyTorch version on the card at the
    paths' shapes: `quant_matmul` at LeNet-5 fc1 [M,3136]x[3136,512] and
    fc2 [M,512]x[512,10] in bf16, the MLP's [M,784]x[784,100] and
@@ -18,6 +18,11 @@ script. Phases (any failure exits nonzero before the final `ok` line):
    2e-5 (f32) of the largest output; both fused-Adam kernels at LeNet-5's
    8 leaf sizes and n in {1, 7, 129}, m' and v' within 1e-6 and delta
    within 1e-5 of the largest value (clip scale 0.37, weight decay on);
+   `paged_attention` (phase `paged_parity`: 9 rows, 8 heads of 16, pages
+   of 32, table widths 1 to 128, lengths 1 to 4096) and
+   `masked_flash_attention` (`masked_parity`: Sq 1 against Sk 64 and 4096,
+   Sq 7 and 128 against Sk 256) within 1e-5 of the largest output, with
+   the pages or key blocks they visit counted;
 4. serve `lenet5_mnist --quant=int8` (seeded fresh init) on the card
    through the serving CLI's entry point (`cli/serve.py main`: server +
    closed-loop loadgen, 512 requests), with every launch counter set to 0
@@ -31,9 +36,10 @@ script. Phases (any failure exits nonzero before the final `ok` line):
 5. train LeNet-5 through the port's headline bench function
    (`bench.run_headline`: batch 200, chunks of 100, MNIST or its synthetic
    twin resident on the card) with `optim.adam(1e-3, fused=True)`, 1,000
-   steps when the race ends after its first round, with every launch counter set to 0 just before and read
-   just after: `fused_adam_update` must launch 8 times per step (one per
-   leaf), the loss must be finite and fall, and test accuracy reach 0.97;
+   steps when the race ends after its first round, with every launch
+   counter set to 0 just before and read just after: `fused_adam_update`
+   must launch 8 times per step (one per leaf), the loss must be finite
+   and fall, and test accuracy reach 0.97;
 6. trajectories: from one initial state and generator seed (so the same
    batches and dropout masks), 100 steps with plain `optim.adam(1e-3)`
    against `adam(1e-3, fused=True)`, and with
@@ -43,14 +49,28 @@ script. Phases (any failure exits nonzero before the final `ok` line):
    final losses within 1% and the test accuracies within 0.5 points;
 7. one training step's host wall and its device time by kernel from
    `torch.profiler`, and the device's idle share;
-8. time each kernel at the shapes its path gives it, beside its plain
+8. decode serving: the port's `bench --serve --decode` entry point (64
+   requests, concurrency 16) with every counter set to 0 just before and
+   read just after — its three JSON lines and hard gates, and
+   `paged_attention` launched twice (depth 2) per decode step of the int8
+   engine and no other kernel (`decode_serve`); a dense engine with
+   `attention_impl="flash"` at the capacity geometry, `masked_flash_attention`
+   launched twice per decode step, teacher-forced agreement >= 0.99 with
+   the dense `"xla"` engine (`decode_flash`); incremental decode against
+   the full forward at every position, bitwise or not
+   (`decode_contract`); the host wall and device time by kernel of one
+   int8 decode step (`decode_profile`);
+9. time each kernel at the shapes its path gives it, beside its plain
    version and, where one exists, one library call computing the same
    function (for the Adam kernels `torch._fused_adam_`/`_fused_adamw_`, a
-   yardstick that computes a neighbouring function in place), each as a
-   CUDA graph of back-to-back calls timed with CUDA events (L2 warm), and
-   compute its bound: max(bytes / memory rate, FLOPs / peak rate for the
-   operands' type) for the card;
-9. print the `{"kernels": [...]}` line, then, last, the `ok` line.
+   yardstick that computes a neighbouring function in place; for
+   `paged_attention` a composite of gather, dequantize and
+   `F.scaled_dot_product_attention`), each as a CUDA graph of
+   back-to-back calls timed with CUDA events, and compute its bound:
+   max(bytes / memory rate, FLOPs / peak rate for the operands' type) for
+   the card;
+10. print the `{"kernels": [...]}` line (five kernels), then, last, the
+   `ok` line.
 """
 
 from __future__ import annotations
@@ -301,6 +321,332 @@ def time_adam(torch, dev, state, bw: float, f32_peak: float) -> dict:
     return out
 
 
+#: the decode path's shapes (`bench.py --serve --decode`'s capacity trio):
+#: 8 slots + the scratch row, 8 heads of 16, pages of 32 tokens, max_seq 4096
+DEC_ROWS, DEC_HEADS, DEC_DIM, DEC_PAGE, DEC_SEQ = 9, 8, 16, 32, 4096
+#: one decode step's lengths (pos + 1) on that path: 8 live rows of short
+#: requests (prompt <= 32, <= 32 new tokens) and the scratch row
+DEC_LENGTHS = [33, 47, 21, 58, 40, 64, 29, 51, 1]
+
+
+def _kv_pool(torch, quant_mod, gen, pages, dev):
+    x = torch.randn(pages, DEC_PAGE, DEC_HEADS, DEC_DIM, generator=gen)
+    q, scale = quant_mod.quantize_kv(x.to(dev))
+    return quant_mod.QuantizedArray(q, scale, "kv_head")
+
+
+def _paged_operands(torch, quant_mod, dev, n, lengths, seed):
+    """q, int8 K/V pools and a page table of width n for `lengths` (each
+    clipped to n pages), every row's pages distinct."""
+    gen = torch.Generator().manual_seed(seed)
+    pages = max(2 * n * DEC_ROWS, 64)
+    kp = _kv_pool(torch, quant_mod, gen, pages, dev)
+    vp = _kv_pool(torch, quant_mod, gen, pages, dev)
+    q = torch.randn(DEC_ROWS, 1, DEC_HEADS, DEC_DIM, generator=gen).to(dev)
+    table = torch.randperm(pages, generator=gen)[:DEC_ROWS * n] \
+        .reshape(DEC_ROWS, n).to(torch.int32).to(dev)
+    lens = torch.tensor([min(x, n * DEC_PAGE) for x in lengths],
+                        dtype=torch.int32).to(dev)
+    return q, kp, vp, table, lens
+
+
+def decode_kernel_parity(torch, dev) -> dict:
+    """Both decode kernels against their plain versions on the same card
+    inputs at the decode path's shapes. paged_attention: R=9, H=8, D=16,
+    T=32, table widths 1, 2, 4, 8, 128, lengths 1, 31, 32, 33, 64, 4096
+    mixed across rows (clipped to the width); masked_flash_attention:
+    Sq=1 against Sk 64 and 4096, Sq 7 and 128 against Sk 256. Fails
+    unless max abs error <= 1e-5 x the largest |out| and the visits are
+    ceil(len / T) pages (clipped to the width) or ceil(len / 32) key
+    blocks. Returns the worst absolute error per kernel."""
+    from dist_mnist_tpu_torch.ops import quant as quant_mod
+    from dist_mnist_tpu_torch.ops.kernels.masked_flash import (
+        BLOCK_K,
+        masked_flash_attention_probe,
+        masked_flash_attention_reference,
+    )
+    from dist_mnist_tpu_torch.ops.kernels.paged_attention import (
+        paged_attention_probe,
+        paged_attention_reference,
+    )
+
+    worst = {"paged_attention": 0.0, "masked_flash_attention": 0.0}
+    mix = [1, 31, 32, 33, 64, 4096, 1, 4096, 33]
+    for n in (1, 2, 4, 8, 128):
+        for shift in range(2):  # every length on more than one row
+            lengths = mix[shift:] + mix[:shift]
+            q, kp, vp, table, lens = _paged_operands(
+                torch, quant_mod, dev, n, lengths, seed=n * 10 + shift)
+            got, visits = paged_attention_probe(q, kp, vp, table, lens)
+            want = paged_attention_reference(q, kp, vp, table, lens)
+            torch.cuda.synchronize()
+            abs_err, rel = rel_err(got, want)
+            pages = -(-lens.cpu() // DEC_PAGE)
+            vis_ok = torch.equal(visits.cpu(), pages.float()[:, None]
+                                 .expand(-1, DEC_HEADS))
+            print(json.dumps({"phase": "paged_parity", "n_pages": n,
+                              "lengths": lens.cpu().tolist(),
+                              "max_abs_err": abs_err, "max_rel_err": rel,
+                              "visits_ok": vis_ok}), flush=True)
+            if rel > 1e-5 or not vis_ok:
+                fail(f"paged_attention n={n}: rel err {rel}, visits "
+                     f"{visits[:, 0].tolist()} vs pages {pages.tolist()}")
+            worst["paged_attention"] = max(worst["paged_attention"], abs_err)
+    gen = torch.Generator().manual_seed(3)
+    for sq, sk in ((1, 64), (1, DEC_SEQ), (7, 256), (128, 256)):
+        q, k, v = (torch.randn(DEC_ROWS, s, DEC_HEADS, DEC_DIM,
+                               generator=gen).to(dev) for s in (sq, sk, sk))
+        lens = torch.tensor([min(x, sk) for x in mix], dtype=torch.int32,
+                            device=dev)
+        got, visits = masked_flash_attention_probe(q, k, v, lens)
+        want = masked_flash_attention_reference(q, k, v, lens)
+        torch.cuda.synchronize()
+        abs_err, rel = rel_err(got, want)
+        blocks = -(-lens.cpu() // BLOCK_K)
+        vis_ok = torch.equal(visits.cpu(), blocks.float()[:, None, None]
+                             .expand(-1, DEC_HEADS, sq))
+        print(json.dumps({"phase": "masked_parity", "sq": sq, "sk": sk,
+                          "lengths": lens.cpu().tolist(),
+                          "max_abs_err": abs_err, "max_rel_err": rel,
+                          "visits_ok": vis_ok}), flush=True)
+        if rel > 1e-5 or not vis_ok:
+            fail(f"masked_flash_attention Sq={sq} Sk={sk}: rel err {rel}, "
+                 "or visits are not ceil(len / 32)")
+        worst["masked_flash_attention"] = max(
+            worst["masked_flash_attention"], abs_err)
+    return worst
+
+
+def decode_flash(torch, dev, reset_counts, read_counts) -> dict:
+    """A continuous engine at the capacity trio's geometry with
+    `attention_impl="flash"` (dense cache) serves the bench's seeded
+    traffic, and the int8 trio's teacher-forced replay then holds it to
+    the dense `"xla"` engine's streams (>= 0.99). Counters are set to 0
+    before the flash engine is built and read after its replay: every one
+    of its decode steps must launch masked_flash_attention once per
+    layer."""
+    from dist_mnist_tpu_torch import bench
+    from dist_mnist_tpu_torch.serve import (
+        DecodeScheduler,
+        build_decode_engine,
+        make_prompts,
+        run_decode_loadgen,
+    )
+
+    def serve(engine) -> dict:
+        engine.prewarm()
+        with DecodeScheduler(engine) as sched:
+            return run_decode_loadgen(sched, n_requests=64, concurrency=16,
+                                      seed=0, keep_streams=True,
+                                      **bench.CAPACITY_TRAFFIC)
+
+    kw = dict(max_slots=bench.DECODE_SLOTS,
+              prompt_buckets=bench.CAPACITY_PROMPT_BUCKETS,
+              **bench.CAPACITY_GEOM)
+    xla = serve(build_decode_engine(dev, **kw))
+    reset_counts()
+    engine = build_decode_engine(dev, attention_impl="flash", **kw)
+    flash = serve(engine)
+    reqs = make_prompts(64, max_seq=bench.CAPACITY_GEOM["max_seq"], seed=0,
+                        vocab_size=engine.model.vocab_size,
+                        **bench.CAPACITY_TRAFFIC)
+    hits, total = bench.decode_forced_agreement(engine, reqs, xla["streams"])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    out = {"phase": "decode_flash", "launches": counts,
+           "decode_steps": engine.decode_steps, "ok": flash["ok"],
+           "errors": flash["errors"], "forced_agreement": hits / total,
+           "forced_positions": total,
+           "free_running_streams_equal_xla": flash["streams"]
+           == xla["streams"],
+           "ttft_p99_ms": flash["ttft_p99_ms"],
+           "tokens_per_s_mean": flash["tokens_per_s_mean"],
+           "xla_tokens_per_s_mean": xla["tokens_per_s_mean"]}
+    print(json.dumps(out), flush=True)
+    depth = bench.CAPACITY_GEOM["depth"]
+    if flash["ok"] != 64 or flash["errors"]:
+        fail(f"decode_flash: {flash['ok']}/64 ok, {flash['errors']} errors")
+    if counts["masked_flash_attention"] != depth * engine.decode_steps \
+            or engine.decode_steps == 0:
+        fail(f"decode_flash: {counts['masked_flash_attention']} "
+             f"masked_flash_attention launches for {engine.decode_steps} "
+             f"decode steps (want {depth} per step)")
+    if hits / total < 0.99:
+        fail(f"decode_flash: teacher-forced agreement {hits / total} < 0.99")
+    return out
+
+
+def decode_contract(torch, dev) -> dict:
+    """Contract (c) on the card: an incremental decode of the capacity
+    geometry's dense `"xla"` model, one token per step from position 0,
+    against its full forward at every position: bitwise or not, and the
+    largest difference."""
+    from dist_mnist_tpu_torch import bench
+    from dist_mnist_tpu_torch.serve import init_lm_for_serving
+    from dist_mnist_tpu_torch.utils.tree import tree_map
+
+    model, params = init_lm_for_serving("causal_tiny", seed=0,
+                                        **bench.CAPACITY_GEOM)
+    params = tree_map(lambda t: t.to(dev), params)
+    gen = torch.Generator().manual_seed(4)
+    rows, steps = 2, 64
+    tokens = torch.randint(0, model.vocab_size, (rows, steps),
+                           generator=gen).to(torch.int32).to(dev)
+    with torch.no_grad():
+        full, _ = model.apply(params, {}, tokens)
+        cache = model.init_cache(rows, device=dev)
+        worst, bitwise = 0.0, True
+        for pos in range(steps):
+            logits, _ = model.decode_step(
+                params, cache, tokens[:, pos],
+                torch.full((rows,), pos, dtype=torch.int32, device=dev))
+            bitwise &= bool(torch.equal(logits, full[:, pos]))
+            worst = max(worst, float((logits - full[:, pos]).abs().max()))
+    out = {"phase": "decode_contract", "positions": steps, "rows": rows,
+           "bitwise": bitwise, "max_abs_diff": worst,
+           "max_abs_logit": float(full.abs().max())}
+    print(json.dumps(out), flush=True)
+    if not np.isfinite(worst) or worst > 1e-4:
+        fail(f"decode_contract: decode vs full forward differ by {worst}")
+    return out
+
+
+def decode_profile(torch, dev) -> dict:
+    """Where one int8 decode step of the capacity trio spends its time:
+    8 live slots (prompts of 32, a few steps in), the host wall of
+    `engine.decode` (dispatch to token ids on the host) and the device
+    time by kernel from `torch.profiler`."""
+    from dist_mnist_tpu_torch import bench
+    from dist_mnist_tpu_torch.serve import build_decode_engine, make_prompts
+
+    engine = build_decode_engine(
+        dev, max_slots=bench.DECODE_SLOTS,
+        prompt_buckets=bench.CAPACITY_PROMPT_BUCKETS, **bench.CAPACITY_GEOM,
+        cache_layout="paged", kv_page_tokens=32, kv_quant="int8")
+    engine.prewarm()
+    reqs = make_prompts(engine.max_slots, max_seq=DEC_SEQ, seed=5,
+                        min_prompt=32, max_prompt=32,
+                        vocab_size=engine.model.vocab_size)
+    slots = list(range(engine.max_slots))
+    for slot, (prompt, _) in zip(slots, reqs):
+        engine.try_reserve(slot, len(prompt) + 32)
+    first = engine.prefill([p for p, _ in reqs], slots)
+    tokens = np.zeros(engine.grid.rows, np.int32)
+    positions = np.zeros(engine.grid.rows, np.int32)
+    tokens[:len(slots)] = first
+    positions[:len(slots)] = 32
+    for _ in range(5):  # warm-up steps
+        tokens = engine.decode(tokens, positions)
+    reps = 20
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        tokens = engine.decode(tokens, positions)
+    wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            tokens = engine.decode(tokens, positions)
+    out = {"phase": "decode_profile", "live_slots": len(slots),
+           "lengths": (positions[:len(slots)] + 1).tolist(),
+           **profile_fields(torch, prof, reps, wall_ms)}
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def time_decode_kernels(torch, dev, bw: float, f32_peak: float) -> dict:
+    """Both decode kernels at one decode step of the path (`DEC_LENGTHS`:
+    paged_attention at table width 2, masked_flash_attention at Sq=1
+    against the dense max_seq=4096 cache) beside their plain versions, a
+    torch yardstick, and the bound, each timed by `graph_ms` (L2 warm: one
+    step's operands are a few hundred KB).
+
+    Yardsticks: no one torch call computes paged int8 attention, so kernel
+    1's is a COMPOSITE (gather the table's pages, dequantize, then
+    `F.scaled_dot_product_attention` with the prefix mask); kernel 2's is
+    the one call `F.scaled_dot_product_attention(q, k, v,
+    attn_mask=prefix_mask)` on [B, H, S, D] copies of the operands. The
+    port calls neither. Bounds: the bytes each call must move (kernel 1:
+    the ACTIVE pages' int8 tiles and scales, `paged_attention_cost`
+    "active_bytes"; kernel 2: each row's first `len` K and V rows) over
+    the memory rate, against the f32 operations over the f32 peak."""
+    import torch.nn.functional as F
+
+    from dist_mnist_tpu_torch.ops import quant as quant_mod
+    from dist_mnist_tpu_torch.ops.kernels.masked_flash import (
+        masked_flash_attention,
+        masked_flash_attention_reference,
+        masked_flash_cost,
+    )
+    from dist_mnist_tpu_torch.ops.kernels.paged_attention import (
+        paged_attention,
+        paged_attention_cost,
+        paged_attention_reference,
+    )
+
+    def bound(cost_bytes, flops):
+        t_bytes, t_ops = cost_bytes / bw * 1e3, flops / f32_peak * 1e3
+        return {"bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "bound_bytes": cost_bytes, "bound_flops": flops}
+
+    out = {}
+    for n in (2, 128):  # the path's bucket, and the widest table
+        q, kp, vp, table, lens = _paged_operands(
+            torch, quant_mod, dev, n, DEC_LENGTHS, seed=99)
+        idx = table.long()
+        mask = (torch.arange(n * DEC_PAGE, device=dev)[None, :]
+                < lens[:, None])[:, None, None, :]
+
+        def composite():
+            k = (kp.q[idx].float() * kp.scale[idx]).reshape(
+                DEC_ROWS, -1, DEC_HEADS, DEC_DIM).transpose(1, 2)
+            v = (vp.q[idx].float() * vp.scale[idx]).reshape(
+                DEC_ROWS, -1, DEC_HEADS, DEC_DIM).transpose(1, 2)
+            return F.scaled_dot_product_attention(q.transpose(1, 2), k, v,
+                                                  attn_mask=mask)
+
+        cost = paged_attention_cost(lens.cpu().numpy(), n, DEC_PAGE,
+                                    DEC_HEADS, DEC_DIM)
+        row = {"kernel_ms": graph_ms(torch, lambda: paged_attention(
+                   q, kp, vp, table, lens)),
+               "plain_ms": graph_ms(torch, lambda: paged_attention_reference(
+                   q, kp, vp, table, lens)),
+               "library_ms": None,
+               "composite": "gather + dequant + F.scaled_dot_product_attention"
+                            " (prefix mask)",
+               "composite_ms": graph_ms(torch, composite),
+               "reference_cost_hbm_bytes": cost["hbm_bytes"],
+               **bound(cost["active_bytes"], cost["flops"])}
+        out[("paged_attention", n)] = row
+        print(json.dumps({"phase": "time", "kernel": "paged_attention",
+                          "n_pages": n, "lengths": DEC_LENGTHS, **row}),
+              flush=True)
+    gen = torch.Generator().manual_seed(7)
+    q, k, v = (torch.randn(DEC_ROWS, s, DEC_HEADS, DEC_DIM,
+                           generator=gen).to(dev) for s in (1, DEC_SEQ,
+                                                            DEC_SEQ))
+    lens = torch.tensor(DEC_LENGTHS, dtype=torch.int32, device=dev)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    mask = (torch.arange(DEC_SEQ, device=dev)[None, :]
+            < lens[:, None])[:, None, None, :]
+    cost = masked_flash_cost(DEC_LENGTHS, 1, DEC_HEADS, DEC_DIM)
+    row = {"kernel_ms": graph_ms(torch, lambda: masked_flash_attention(
+               q, k, v, lens)),
+           "plain_ms": graph_ms(torch, lambda: masked_flash_attention_reference(
+               q, k, v, lens)),
+           "library": "F.scaled_dot_product_attention(q, k, v, "
+                      "attn_mask=prefix_mask)",
+           "library_ms": graph_ms(torch, lambda: F.scaled_dot_product_attention(
+               qt, kt, vt, attn_mask=mask)),
+           **bound(cost["hbm_bytes"], cost["flops"])}
+    out[("masked_flash_attention", DEC_SEQ)] = row
+    print(json.dumps({"phase": "time", "kernel": "masked_flash_attention",
+                      "sq": 1, "sk": DEC_SEQ, "lengths": DEC_LENGTHS, **row}),
+          flush=True)
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -320,12 +666,18 @@ def main() -> None:
         fused_adam_clip_wd_update,
         fused_adam_update,
     )
+    from dist_mnist_tpu_torch.ops.kernels.masked_flash import (
+        masked_flash_attention,
+    )
+    from dist_mnist_tpu_torch.ops.kernels.paged_attention import (
+        paged_attention,
+    )
     from dist_mnist_tpu_torch.ops.kernels.quant_matmul import (
         quant_matmul,
         quant_matmul_cost,
         quant_matmul_reference,
     )
-    from dist_mnist_tpu_torch import optim
+    from dist_mnist_tpu_torch import bench, optim
     from dist_mnist_tpu_torch.bench import run_headline
     from dist_mnist_tpu_torch.cli import serve as serve_cli
     from dist_mnist_tpu_torch.data.datasets import load_dataset
@@ -360,7 +712,8 @@ def main() -> None:
 
     # -- 2. build ------------------------------------------------------------
     t0 = time.perf_counter()
-    build.build_all(["quant_matmul", "fused_adam"])
+    build.build_all(["quant_matmul", "fused_adam", "paged_attention",
+                     "masked_flash_attention"])
     print(json.dumps({"phase": "build",
                       "seconds": time.perf_counter() - t0}), flush=True)
     for src, log in build.build_logs.items():
@@ -395,8 +748,11 @@ def main() -> None:
     # both fused-Adam kernels against their plain versions: LeNet-5's leaf
     # sizes and sizes that leave a tail after the float4 loads
     adam_worst = adam_parity(torch, dev)
+    # both decode kernels at the decode path's shapes
+    decode_worst = decode_kernel_parity(torch, dev)
 
-    counters = (quant_matmul, fused_adam_update, fused_adam_clip_wd_update)
+    counters = (quant_matmul, fused_adam_update, fused_adam_clip_wd_update,
+                paged_attention, masked_flash_attention)
 
     def reset_counts():
         for fn in counters:
@@ -574,7 +930,32 @@ def main() -> None:
                       **profile_fields(torch, prof, reps, wall_ms)}),
           flush=True)
 
-    # -- 8. timing at the paths' shapes --------------------------------------
+    # -- 8. decode serving: the bench's entry point, flash, contract ---------
+    reset_counts()
+    records = bench.main(["--serve", "--decode", "--device=cuda:0",
+                          "--requests=64", "--concurrency=16"])
+    torch.cuda.synchronize()
+    decode_counts = read_counts()
+    int8_steps = records[2]["extra"]["int8_decode_steps"]
+    depth = bench.CAPACITY_GEOM["depth"]
+    print(json.dumps({"phase": "decode_serve", "launches": decode_counts,
+                      "int8_decode_steps": int8_steps,
+                      "metrics": {r["metric"]: r["value"] for r in records}}),
+          flush=True)
+    if decode_counts["paged_attention"] != depth * int8_steps \
+            or int8_steps == 0:
+        fail(f"decode_serve: {decode_counts['paged_attention']} "
+             f"paged_attention launches for {int8_steps} int8 decode steps "
+             f"(want {depth} per step)")
+    others = {k: v for k, v in decode_counts.items() if k != "paged_attention"}
+    if any(others.values()):
+        fail(f"decode_serve: other kernels launched on the decode path: "
+             f"{others}")
+    flash = decode_flash(torch, dev, reset_counts, read_counts)
+    decode_contract(torch, dev)
+    decode_profile(torch, dev)
+
+    # -- 9. timing at the paths' shapes --------------------------------------
     timed = {}
     for (label, m), (x, qa) in operands.items():
         w_deq = quant_mod.dequantize(qa, x.dtype)  # the library's operand
@@ -593,8 +974,9 @@ def main() -> None:
         print(json.dumps({"phase": "time", "shape": label, "m": m,
                           "dtype": str(x.dtype), **row}), flush=True)
     adam_timed = time_adam(torch, dev, state, bw, peaks["float32"])
+    decode_timed = time_decode_kernels(torch, dev, bw, peaks["float32"])
 
-    # -- 9. result -----------------------------------------------------------
+    # -- 10. result ----------------------------------------------------------
     head = timed[("lenet5/fc1", 64)]
     adam_rows = []
     for name, launches_on_path, src_line in (
@@ -621,6 +1003,36 @@ def main() -> None:
                           "ms": row["yardstick_ms"]},
             "fc1_w_ms": adam_timed[(name, "fc1/w")]["kernel_ms"],
         })
+    decode_rows = []
+    for name, key, src, src_line, launches_on_path, shape in (
+            ("paged_attention", ("paged_attention", 2), "paged_attention",
+             "paged_attention.py:65", decode_counts["paged_attention"],
+             "one decode step: R=9, H=8, D=16, T=32, table width 2, "
+             f"lengths {DEC_LENGTHS}, int8 pages, f32 q"),
+            ("masked_flash_attention", ("masked_flash_attention", DEC_SEQ),
+             "masked_flash_attention", "flash_attention.py:527",
+             flash["launches"]["masked_flash_attention"],
+             f"one decode step: B=9, Sq=1, Sk={DEC_SEQ}, H=8, D=16, "
+             f"lengths {DEC_LENGTHS}, f32")):
+        row = decode_timed[key]
+        decode_rows.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"dist_mnist_tpu_torch/csrc/{src}.cu",
+            "replaces": f"dist_mnist_tpu/ops/pallas/{src_line}",
+            "launches": launches_on_path,
+            "max_abs_err": decode_worst[name],
+            "shape": shape,
+            "ms": row["kernel_ms"],
+            "kernel_ms": row["kernel_ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+            **({"composite": row["composite"],
+                "composite_ms": row["composite_ms"]}
+               if "composite" in row else {}),
+        })
     print(json.dumps({"kernels": [{
         "name": "quant_matmul",
         "route": "cuda",
@@ -636,7 +1048,7 @@ def main() -> None:
         "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"],
         "library_ms": head["library_ms"],
-    }, *adam_rows], "gpu": gpu}), flush=True)
+    }, *adam_rows, *decode_rows], "gpu": gpu}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

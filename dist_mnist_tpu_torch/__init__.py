@@ -14,7 +14,15 @@ What is ported so far:
 - single-device training (`train/`, `optim/`, `data/`, and the headline
   benchmark `bench.py`) of those models, with `optim.adam(fused=True)`
   and `optim.fused_adamw` running each leaf's update as one hand-written
-  CUDA kernel (`ops/kernels/fused_adam.py`, `csrc/fused_adam.cu`).
+  CUDA kernel (`ops/kernels/fused_adam.py`, `csrc/fused_adam.cu`);
+- autoregressive decode serving of the causal LM `causal_tiny`
+  (`models/causal_lm.py`, `serve/decode.py`, `cli/serve.py --decode`,
+  `bench.py --serve --decode`) with dense, paged-float and paged-int8 KV
+  caches: the int8 decode step runs the hand-written CUDA
+  `paged_attention` kernel (`ops/kernels/paged_attention.py`,
+  `csrc/paged_attention.cu`), and a dense cache with
+  ``attention_impl="flash"`` the CUDA `masked_flash_attention` forward
+  (`ops/kernels/masked_flash.py`, `csrc/masked_flash_attention.cu`).
 
 Entry points run on `cuda` unless the caller asks for `cpu`
 (`utils/device.resolve_device`); kernels build into

@@ -1,11 +1,15 @@
-"""The headline training benchmark of the port (the reference `bench.py`
-with no flags): LeNet-5 on MNIST, global batch 200, Adam 1e-3, the
-training split resident on the device, steps in chunks of 100.
+"""The port's benchmarks: the headline training run (the reference
+`bench.py` with no flags) and decode serving (`bench.py --serve
+--decode`).
 
     python -m dist_mnist_tpu_torch.bench                # on the GPU
     python -m dist_mnist_tpu_torch.bench --device=cpu --race_rounds=1 \\
         --steps=100                                     # plain CPU path
+    python -m dist_mnist_tpu_torch.bench --serve --decode \\
+        --requests 64 --concurrency 16                  # decode serving
 
+Headline: LeNet-5 on MNIST, global batch 200, Adam 1e-3, the training
+split resident on the device, steps in chunks of 100.
 Two phases, as the reference's: an accuracy race (rounds of two chunks,
 each round followed by a whole-test-set evaluation, until test accuracy
 reaches 99% or the rounds run out; wall clock from the start), then
@@ -13,7 +17,10 @@ reaches 99% or the rounds run out; wall clock from the start), then
 JSON line with the reference headline's schema: steps/sec/chip, examples
 per second, MFU against the card's bf16 peak (`utils/flops.py`), and the
 race result, labelled synthetic when the data is the procedural twin.
-Without a CUDA device and without ``--device=cpu`` it exits 1.
+
+Decode serving (`run_serve_decode`) prints three JSON lines; see its
+docstring. Without a CUDA device and without ``--device=cpu`` either
+mode exits 1.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ import dataclasses
 import json
 import time
 
+import numpy as np
 import torch
 
 from dist_mnist_tpu_torch import optim
@@ -134,12 +142,232 @@ def run_headline(device: torch.device, optimizer: optim.Optimizer | None = None,
     return HeadlineRun(record, steps, first_loss, final_loss, state)
 
 
+class DecodeGateError(RuntimeError):
+    """A correctness gate of `run_serve_decode` failed."""
+
+
+def decode_forced_agreement(engine, reqs, streams) -> tuple[int, int]:
+    """Teacher-forced next-token agreement: replay a reference engine's
+    token streams through `engine`, forcing every step's input token to
+    the reference token, and count argmax matches. Per-position fidelity
+    of the KV quantization, without one flipped near-tie cascading
+    through the rest of a free-running stream."""
+    rows = engine.grid.rows
+    match = total = 0
+    for at in range(0, len(reqs), engine.max_slots):
+        chunk = list(zip(reqs[at:at + engine.max_slots],
+                         streams[at:at + engine.max_slots]))
+        slots = list(range(len(chunk)))
+        for slot, ((prompt, _), stream) in zip(slots, chunk):
+            if not engine.try_reserve(slot, len(prompt) + len(stream)):
+                raise RuntimeError("KV page pool too small for replay")
+        first = engine.prefill([p for (p, _), _ in chunk], slots)
+        tokens = np.zeros(rows, np.int32)
+        positions = np.zeros(rows, np.int32)
+        live, plen = {}, {}
+        for slot, ((prompt, _), stream) in zip(slots, chunk):
+            match += int(first[slot] == stream[0])
+            total += 1
+            plen[slot] = len(prompt)
+            if len(stream) > 1:
+                live[slot] = 1  # index of the next position to predict
+        while live:
+            for slot, i in live.items():
+                tokens[slot] = streams[at + slot][i - 1]
+                positions[slot] = plen[slot] + i - 1
+            nxt = engine.decode(tokens, positions)
+            for slot, i in list(live.items()):
+                match += int(nxt[slot] == streams[at + slot][i])
+                total += 1
+                if i + 1 < len(streams[at + slot]):
+                    live[slot] = i + 1
+                else:
+                    del live[slot]
+        for slot in slots:
+            engine.release_slot(slot)
+    return match, total
+
+
+#: the capacity trio's geometry: the widest causal LM the reference runs,
+#: provisioned for a long max_seq and driven by short requests
+CAPACITY_GEOM = dict(dim=128, heads=8, max_seq=4096, depth=2)
+CAPACITY_TRAFFIC = dict(max_prompt=32, max_new=32)
+CAPACITY_PROMPT_BUCKETS = (16, 32)
+DECODE_SLOTS = 8
+
+
+def run_serve_decode(device: torch.device, n_requests: int,
+                     concurrency: int) -> list[dict]:
+    """Decode serving (the reference `bench.py --serve --decode`). Returns
+    its three records; raises `DecodeGateError` when a gate fails.
+
+    1. Continuous batching against the static baseline on `causal_tiny`
+       at its registry defaults (dense cache), one seeded request stream
+       each after a warm-up stream: `decode_ttft_p99_ms` of continuous.
+    2. The capacity trio at `CAPACITY_GEOM` (dense; paged float,
+       kv_page_tokens 32; paged int8, kv_page_tokens 32) under short
+       requests (`CAPACITY_TRAFFIC`): `decode_kv_bytes_ratio`, the int8
+       engine's peak resident KV over the dense allocation, and
+       `decode_tokens_per_s`, the int8 engine's mean per-request tokens/s.
+       The int8 engine's decode step runs the `paged_attention` kernel.
+
+    Hard gates (the reference's correctness contracts): every request ok;
+    continuous and static streams identical; paged-float streams identical
+    to dense; int8 teacher-forced agreement with the dense streams >=
+    0.99; peak int8 KV <= 0.35x dense. The speed orderings the reference
+    also gates on (continuous TTFT p99 below static, int8 tokens/s above
+    dense, int8 TTFT p99 no worse than dense) are reported as fields."""
+    from dist_mnist_tpu_torch.serve import (
+        DecodeScheduler,
+        build_decode_engine,
+        make_prompts,
+        run_decode_loadgen,
+    )
+    from dist_mnist_tpu_torch.utils.flops import device_kind
+
+    def run(engine, mode="continuous", **traffic) -> dict:
+        engine.prewarm()
+        with DecodeScheduler(engine, mode=mode) as sched:
+            run_decode_loadgen(sched, n_requests=2 * DECODE_SLOTS,
+                               concurrency=concurrency, seed=1, **traffic)
+            summary = run_decode_loadgen(sched, n_requests=n_requests,
+                                         concurrency=concurrency, seed=0,
+                                         keep_streams=True, **traffic)
+        if summary["errors"] or summary["ok"] != n_requests:
+            raise DecodeGateError(
+                f"{mode} run lost requests: ok={summary['ok']} "
+                f"errors={summary['errors']} of {n_requests}")
+        return summary
+
+    continuous = run(build_decode_engine(device, max_slots=DECODE_SLOTS),
+                     "continuous")
+    static = run(build_decode_engine(device, max_slots=DECODE_SLOTS),
+                 "static")
+    if continuous["streams"] != static["streams"]:
+        ndiff = sum(a != b for a, b in zip(continuous["streams"],
+                                           static["streams"]))
+        raise DecodeGateError(
+            f"token streams differ between scheduling modes ({ndiff}/"
+            f"{n_requests} requests): continuous batching changed WHAT was "
+            "computed, not just when")
+
+    def capacity(**overrides):
+        engine = build_decode_engine(
+            device, max_slots=DECODE_SLOTS,
+            prompt_buckets=CAPACITY_PROMPT_BUCKETS, **CAPACITY_GEOM,
+            **overrides)
+        return run(engine, **CAPACITY_TRAFFIC), engine
+
+    dense_cap, dense_eng = capacity()
+    paged_cap, _ = capacity(cache_layout="paged", kv_page_tokens=32)
+    int8_cap, int8_eng = capacity(cache_layout="paged", kv_page_tokens=32,
+                                  kv_quant="int8")
+    if paged_cap["streams"] != dense_cap["streams"]:
+        ndiff = sum(a != b for a, b in zip(paged_cap["streams"],
+                                           dense_cap["streams"]))
+        raise DecodeGateError(
+            f"paged-float streams differ from the dense twin's ({ndiff}/"
+            f"{n_requests} requests): paging changed the math")
+    n_replay = min(n_requests, 64)
+    reqs = make_prompts(n_replay, max_seq=CAPACITY_GEOM["max_seq"], seed=0,
+                        vocab_size=int8_eng.model.vocab_size,
+                        **CAPACITY_TRAFFIC)
+    hits, positions = decode_forced_agreement(
+        int8_eng, reqs, dense_cap["streams"][:n_replay])
+    agreement = hits / max(1, positions)
+    if agreement < 0.99:
+        raise DecodeGateError(
+            f"int8 KV teacher-forced agreement {agreement} < 0.99 "
+            f"({hits}/{positions} positions)")
+    kv = int8_eng.kv_stats()
+    dense_kv_bytes = dense_eng.kv_stats()["kv_bytes_pinned"]
+    ratio = kv["kv_bytes_peak"] / dense_kv_bytes
+    if ratio > 0.35:
+        raise DecodeGateError(
+            f"int8 paged peak resident KV {kv['kv_bytes_peak']} B is "
+            f"{ratio}x the dense allocation {dense_kv_bytes} B (> 0.35x)")
+
+    kind = device_kind(device)
+    return [{
+        "metric": "decode_ttft_p99_ms",
+        "value": continuous["ttft_p99_ms"],
+        "unit": "ms",
+        "extra": {
+            "device_kind": kind,
+            "decode_tokens_per_s": continuous["tokens_per_s_mean"],
+            "ttft_p50_ms": continuous["ttft_p50_ms"],
+            "static_ttft_p99_ms": static["ttft_p99_ms"],
+            "static_tokens_per_s": static["tokens_per_s_mean"],
+            "continuous_ttft_p99_below_static":
+                continuous["ttft_p99_ms"] < static["ttft_p99_ms"],
+            "n_requests": n_requests,
+            "concurrency": concurrency,
+            "max_slots": DECODE_SLOTS,
+            "tokens_out": continuous["tokens_out"],
+            "streams_identical": True,
+            "mean_active_slots": {
+                "continuous": continuous["scheduler"]["mean_active_slots"],
+                "static": static["scheduler"]["mean_active_slots"],
+            },
+        },
+    }, {
+        "metric": "decode_kv_bytes_ratio",
+        "value": ratio,
+        "unit": "ratio",
+        "extra": {
+            "kv_bytes_peak": kv["kv_bytes_peak"],
+            "dense_kv_bytes": dense_kv_bytes,
+            "kv_pages_total": kv["kv_pages_total"],
+            "page_tokens": kv["page_tokens"],
+            "kv_quant": kv["kv_quant"],
+            "int8_forced_agreement": agreement,
+            "int8_forced_positions": positions,
+            "paged_float_streams_bitwise": True,
+        },
+    }, {
+        "metric": "decode_tokens_per_s",
+        "value": int8_cap["tokens_per_s_mean"],
+        "unit": "tokens/s/request",
+        "extra": {
+            "device_kind": kind,
+            "dense_tokens_per_s": dense_cap["tokens_per_s_mean"],
+            "paged_float_tokens_per_s": paged_cap["tokens_per_s_mean"],
+            "speedup_vs_dense": int8_cap["tokens_per_s_mean"]
+            / dense_cap["tokens_per_s_mean"],
+            "int8_tokens_per_s_above_dense":
+                int8_cap["tokens_per_s_mean"]
+                > dense_cap["tokens_per_s_mean"],
+            "int8_ttft_p99_ms": int8_cap["ttft_p99_ms"],
+            "dense_ttft_p99_ms": dense_cap["ttft_p99_ms"],
+            "int8_ttft_p99_no_worse":
+                int8_cap["ttft_p99_ms"] <= dense_cap["ttft_p99_ms"],
+            "max_seq": CAPACITY_GEOM["max_seq"],
+            "depth": CAPACITY_GEOM["depth"],
+            # every decode step of the int8 engine (prewarm, warm-up and
+            # timed traffic, the replay) runs one paged_attention launch
+            # per layer
+            "int8_decode_steps": int8_eng.decode_steps,
+        },
+    }]
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m dist_mnist_tpu_torch.bench",
-        description="LeNet-5 MNIST training throughput and accuracy race")
+        description="LeNet-5 MNIST training throughput and accuracy race; "
+                    "with --serve --decode, decode serving")
     p.add_argument("--device", default=None,
                    help="cuda (default), cuda:N, or cpu")
+    p.add_argument("--serve", action="store_true",
+                   help="a serving benchmark (with --decode)")
+    p.add_argument("--decode", action="store_true",
+                   help="with --serve: decode serving of the causal LM "
+                        "(continuous vs static, then the dense / paged / "
+                        "int8-paged capacity trio); three JSON lines")
+    p.add_argument("--requests", type=int, default=512,
+                   help="--serve --decode: requests per timed run")
+    p.add_argument("--concurrency", type=int, default=64,
+                   help="--serve --decode: loadgen in-flight window")
     p.add_argument("--race_rounds", type=int, default=40,
                    help="accuracy-race rounds of two chunks each")
     p.add_argument("--steps", type=int, default=2000,
@@ -150,12 +378,28 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def main(argv=None) -> dict:
+def main(argv=None):
+    """Runs the mode the flags name and prints its JSON line(s); returns
+    the headline record, or the list of decode records."""
     args = build_parser().parse_args(argv)
+    if args.serve != args.decode:
+        raise SystemExit("error: --serve takes --decode (the one serving "
+                         "benchmark ported so far)")
     try:
         device = resolve_device(args.device)
     except RuntimeError as err:
         raise SystemExit(f"error: {err}") from None
+    if args.serve:
+        try:
+            records = run_serve_decode(device, args.requests,
+                                       args.concurrency)
+        except DecodeGateError as err:
+            print(json.dumps({"metric": "decode_ttft_p99_ms", "value": 0.0,
+                              "error": str(err)}), flush=True)
+            raise SystemExit(1) from None
+        for record in records:
+            print(json.dumps(record), flush=True)
+        return records
     dataset = load_dataset("mnist", args.data_dir, seed=SEED)
     result = run_headline(device, dataset=dataset,
                           race_rounds=args.race_rounds,

@@ -1,9 +1,18 @@
 """Serving entry point: build a servable model, start the inference server,
 drive it with the deterministic load generator, print a latency/batching
-summary as JSON (port of the reference `cli/serve.py`, default mode).
+summary as JSON (port of the reference `cli/serve.py`: its default mode
+and `--decode`).
 
     python -m dist_mnist_tpu_torch.cli.serve --config=lenet5_mnist \\
         --quant=int8 --max_batch 64 --requests 512 --concurrency 64
+    python -m dist_mnist_tpu_torch.cli.serve --decode --requests 64 \\
+        --concurrency 16
+
+`--decode` serves a registry causal LM (`--decode_model`, default
+`causal_tiny` at its registry defaults: dense cache) through the
+prefill/decode split with continuous batching (`--decode_mode`), drives
+it with the seeded decode loadgen and prints the TTFT/throughput
+summary; `--config` and `--quant` do not apply there.
 
 Runs on the CUDA device by default and exits with an error when there is
 none; `--device=cpu` runs the plain CPU path. Weights are a fresh init
@@ -21,10 +30,13 @@ import torch
 
 from dist_mnist_tpu_torch.configs import get_config
 from dist_mnist_tpu_torch.serve import (
+    DecodeScheduler,
     InferenceEngine,
     InferenceServer,
     ServeConfig,
+    build_decode_engine,
     load_for_serving,
+    run_decode_loadgen,
     run_loadgen,
 )
 from dist_mnist_tpu_torch.utils.device import resolve_device
@@ -56,12 +68,50 @@ def build_parser() -> argparse.ArgumentParser:
                    help="per-request deadline; 0 = none")
     p.add_argument("--prewarm", action=argparse.BooleanOptionalAction,
                    default=True, help="run every bucket once before serving")
+    p.add_argument("--decode", action="store_true",
+                   help="autoregressive decode mode: serve a registry "
+                        "causal LM through the prefill/decode split with "
+                        "continuous batching, drive it with the seeded "
+                        "decode loadgen, print the TTFT/throughput summary")
+    p.add_argument("--decode_mode", default="continuous",
+                   choices=["continuous", "static"],
+                   help="decode scheduling: admit between steps, or the "
+                        "drain-the-whole-batch baseline")
+    p.add_argument("--max_slots", type=int, default=8,
+                   help="in-flight sequence capacity in --decode mode")
+    p.add_argument("--decode_model", default="causal_tiny",
+                   help="models/registry.py name of the causal LM to serve "
+                        "in --decode mode")
     p.add_argument("--requests", type=int, default=512,
                    help="loadgen request count")
     p.add_argument("--concurrency", type=int, default=64,
                    help="loadgen in-flight window")
     p.add_argument("--seed", type=int, default=0, help="loadgen input seed")
     return p
+
+
+def _run_decode(args, device) -> dict:
+    """Decode mode: the LM engine and its continuous-batching scheduler,
+    every grid cell run once before traffic (`--prewarm`), the seeded
+    decode loadgen, the TTFT/throughput summary."""
+    engine = build_decode_engine(device, model_name=args.decode_model,
+                                 seed=args.seed, max_slots=args.max_slots)
+    if args.prewarm:
+        engine.prewarm()
+    scheduler = DecodeScheduler(engine, mode=args.decode_mode,
+                                max_queue=args.queue_depth)
+    try:
+        summary = run_decode_loadgen(scheduler, n_requests=args.requests,
+                                     concurrency=args.concurrency,
+                                     seed=args.seed)
+    finally:
+        scheduler.close()
+    summary.pop("token_times", None)
+    summary["max_slots"] = args.max_slots
+    summary["model"] = args.decode_model
+    summary["decode_steps"] = engine.decode_steps
+    summary["kv"] = engine.kv_stats()
+    return summary
 
 
 def main(argv=None) -> dict:
@@ -74,6 +124,13 @@ def main(argv=None) -> dict:
         device = resolve_device(args.device)
     except RuntimeError as err:
         raise SystemExit(f"error: {err}") from None
+    device_name = (torch.cuda.get_device_name(device)
+                   if device.type == "cuda" else "cpu")
+    if args.decode:
+        summary = _run_decode(args, device)
+        summary["device"] = device_name
+        print(json.dumps(summary, indent=2, sort_keys=True))
+        return summary
     cfg = get_config(args.config)
     bundle = load_for_serving(cfg, device, quant=args.quant)
     engine = InferenceEngine(
@@ -96,8 +153,7 @@ def main(argv=None) -> dict:
             image_shape=bundle.image_shape,
             seed=args.seed,
         )
-    summary["device"] = (torch.cuda.get_device_name(device)
-                         if device.type == "cuda" else "cpu")
+    summary["device"] = device_name
     summary["checkpoint_step"] = bundle.step
     summary["restored"] = bundle.restored
     summary["serve_state_bytes_per_device"] = engine.state_bytes_per_device()

@@ -2,12 +2,14 @@
 
 from __future__ import annotations
 
+from dist_mnist_tpu_torch.models.causal_lm import CausalLMTiny
 from dist_mnist_tpu_torch.models.lenet import LeNet5
 from dist_mnist_tpu_torch.models.mlp import MLP
 
 MODELS = {
     "mlp": MLP,
     "lenet5": LeNet5,
+    "causal_tiny": CausalLMTiny,
 }
 
 

@@ -161,6 +161,68 @@ def dropout(x: torch.Tensor, rate: float, *, train: bool,
 relu = F.relu
 
 
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """`jax.nn.gelu`, whose default is the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
+# ---------------------------------------------------------------------------
+# normalization / attention params
+
+
+def init_layer_norm(dim: int) -> Params:
+    return {"scale": torch.ones(dim), "bias": torch.zeros(dim)}
+
+
+def ordered_sum(t: torch.Tensor, dim: int,
+                keepdim: bool = False) -> torch.Tensor:
+    """`t` summed over `dim` strictly in index order, as the last prefix
+    sum of a scan along that axis.
+
+    `torch.sum` groups a reduction by its length (vector lanes and a tail
+    on the CPU) and, on CUDA, splits it among threads by the number of
+    outputs, so one row summed among 2 rows or among 200, or with masked
+    zeros appended, can round apart. A scan along an axis that is not the
+    innermost runs in index order, on the CPU and on CUDA (one thread per
+    output); an innermost axis is scanned as the middle axis of a view
+    with a trailing axis of one."""
+    dim = dim % t.ndim
+    last = dim == t.ndim - 1
+    if last:
+        t = t.unsqueeze(-1)
+    out = t.cumsum(dim).select(dim, -1)
+    if last:
+        out = out.squeeze(-1)
+    return out.unsqueeze(dim) if keepdim else out
+
+
+def layer_norm(p: Params, x: torch.Tensor, *,
+               eps: float = 1e-6) -> torch.Tensor:
+    """LayerNorm over the last axis with f32 statistics (the biased
+    variance), ``(x - mean) * rsqrt(var + eps) * scale + bias``, back in
+    x's dtype. Mean and variance are `ordered_sum`s divided (IEEE, by a
+    tensor) by the width, so a row's statistics do not depend on how many
+    rows are normalized with it."""
+    xf = x.to(torch.float32)
+    width = torch.full((), float(x.shape[-1]), device=x.device)
+    mean = ordered_sum(xf, -1, keepdim=True) / width
+    var = ordered_sum(torch.square(xf - mean), -1, keepdim=True) / width
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    return (y * p["scale"] + p["bias"]).to(x.dtype)
+
+
+def init_attention(gen, dim: int, num_heads: int) -> Params:
+    """The `qkv` ``[dim, 3*dim]`` and `out` ``[dim, dim]`` dense pairs,
+    xavier-uniform kernels and zero biases. `num_heads` is static: the
+    callers split heads, the params do not store it."""
+    del num_heads
+    return {
+        "qkv": {"w": xavier_uniform(gen, (dim, 3 * dim)),
+                "b": torch.zeros(3 * dim)},
+        "out": {"w": xavier_uniform(gen, (dim, dim)), "b": torch.zeros(dim)},
+    }
+
+
 def flatten(x: torch.Tensor) -> torch.Tensor:
     """Row-major flatten of the NHWC layout — (h, w, c) order, the order
     the reference's dense kernels were laid out for."""

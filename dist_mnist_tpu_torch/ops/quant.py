@@ -15,6 +15,11 @@ reference layout, keepdims — a dense kernel ``[D, H]`` gets scales
 per-tensor scale broadcast to the same shape (``mode="tensor"``). The
 arithmetic (``max(amax, 1e-12) / 127`` in f32, round-half-even, clip to
 ±127) is the reference's, so `q` and `scale` are bitwise equal to it.
+
+KV cache (decode serving): the int8 paged KV pools are QuantizedArray
+nodes with ``mode="kv_head"`` — int8 ``[depth, pages, page_tokens, heads,
+head_dim]`` with f32 scales ``[..., heads, 1]``, one scale per token per
+head, made by `quantize_kv` inside every decode step.
 """
 
 from __future__ import annotations
@@ -38,8 +43,9 @@ QUANT_LEAF_NAMES = ("w", "w1", "w2")
 class QuantizedArray:
     """int8 weights + float32 per-channel scales, as one parameter leaf.
 
-    `mode` is "channel" (per-output-channel scales) or "tensor" (one
-    shared scale, broadcast — the degenerate-leaf fallback)."""
+    `mode` is "channel" (per-output-channel scales), "tensor" (one
+    shared scale, broadcast — the degenerate-leaf fallback) or "kv_head"
+    (a KV-cache pool: one scale per token per head, `quantize_kv`)."""
 
     __slots__ = ("q", "scale", "mode")
 
@@ -88,6 +94,24 @@ def quantize(w: torch.Tensor) -> QuantizedArray:
     q = torch.clamp(torch.round(w.to(torch.float32) / scale),
                     -_QMAX, _QMAX).to(torch.int8)
     return QuantizedArray(q, scale.contiguous(), mode)
+
+
+def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 for KV-cache tokens: one scale per token per head
+    (amax over the LAST axis, keepdims). Returns ``(q int8, scale f32)``
+    with ``scale.shape == x.shape[:-1] + (1,)``.
+
+    Unlike `quantize` there is no degenerate-scale check (it runs inside
+    every decode step and must not wait on the device): a zero-amax token
+    lands on the `_EPS` floor and dequantizes to exact zeros. The division
+    is by tensors, as in `quantize`, so the bits on the card equal the
+    CPU's and the reference's."""
+    amax = x.abs().amax(dim=-1, keepdim=True)
+    scale = (torch.clamp(amax, min=_EPS)
+             / torch.full_like(amax, _QMAX)).to(torch.float32)
+    q = torch.clamp(torch.round(x.to(torch.float32) / scale),
+                    -_QMAX, _QMAX).to(torch.int8)
+    return q, scale
 
 
 def dequantize(qa: QuantizedArray, dtype: torch.dtype | None = None):

@@ -3,7 +3,8 @@
 `load_for_serving` serves the params it is given (e.g. carried across
 from the reference with `convert.params_from_jax`), or a fresh init
 seeded from the config, then applies the load-time int8 transform
-(`quantize_for_serving`) when asked. Checkpoint restore joins with the
+(`quantize_for_serving`) when asked; `init_lm_for_serving` is the decode
+side's seam for a registry causal LM. Checkpoint restore joins with the
 port of `checkpoint/manager.py`.
 """
 
@@ -89,3 +90,20 @@ def load_for_serving(
         quant=quant or None,
         quant_report=quant_report,
     )
+
+
+def init_lm_for_serving(model_name: str, *, seed: int = 0,
+                        **model_overrides):
+    """(model, params) for a registry causal LM (serve/decode.py).
+
+    The synthetic-token decode workload has no checkpoint lineage yet, so
+    the params are a fresh init from ``torch.Generator().manual_seed(
+    seed)`` — two engines built with the same seed serve the same
+    weights. Params stay on the host; the decode engine places them."""
+    model = get_model(model_name, **model_overrides)
+    if not hasattr(model, "decode_step"):
+        raise ValueError(
+            f"model {model_name!r} has no decode surface (decode_step/"
+            "prefill/init_cache) — decode serving needs a causal LM")
+    params, _state = model.init(torch.Generator().manual_seed(seed))
+    return model, params

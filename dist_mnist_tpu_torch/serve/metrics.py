@@ -1,5 +1,6 @@
 """Serve-side metrics: latency percentiles, batch occupancy, admission
-counters (port of the reference `serve/metrics.py ServeMetrics`).
+counters (port of the reference `serve/metrics.py`: `ServeMetrics` for
+the classifier server, `DecodeMetrics` for the decode scheduler).
 
 Host-side and lock-guarded (the batcher thread and every client thread
 record concurrently); nothing here touches a device. Percentiles come
@@ -107,4 +108,91 @@ class ServeMetrics:
         out["mean_occupancy"] = occ["mean"] if occ["count"] else 0.0
         if self.quant_error_max is not None:
             out["quant_error_max"] = self.quant_error_max
+        return out
+
+
+class DecodeMetrics:
+    """Thread-safe accumulator for one `serve.decode.DecodeScheduler`.
+
+    Decode serving's two SLOs get their own signals: **TTFT** (submit ->
+    first token, the latency_sensitive target) and **per-token
+    throughput** (tokens / generation wall time, the best_effort target).
+    Slot occupancy per decode step shows how full continuous batching
+    keeps the card — the static baseline's tail-off between batches is
+    visible here."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.submitted = 0
+        self.submitted_latency_sensitive = 0
+        self.completed = 0
+        self.rejected_queue_full = 0
+        self.rejected_shutdown = 0
+        self.failed = 0
+        self.steps = 0
+        self.tokens_out = 0
+        self.ttft_ms = StreamingHistogram()
+        self.tokens_per_s = StreamingHistogram()
+        self.active_slots = StreamingHistogram()
+
+    def record_submitted(self, request_class: str):
+        with self._lock:
+            self.submitted += 1
+            if request_class == "latency_sensitive":
+                self.submitted_latency_sensitive += 1
+
+    def record_rejected(self, reason: str):
+        with self._lock:
+            if reason == "queue_full":
+                self.rejected_queue_full += 1
+            elif reason == "shutdown":
+                self.rejected_shutdown += 1
+            else:
+                raise ValueError(f"unknown rejection reason {reason!r}")
+
+    def record_admitted(self, ttft_ms: float, request_class: str):
+        self.ttft_ms.observe(ttft_ms)
+
+    def record_completed(self, latency_ms: float, n_tokens: int,
+                         tokens_per_s: float):
+        self.tokens_per_s.observe(tokens_per_s)
+        with self._lock:
+            self.completed += 1
+            self.tokens_out += n_tokens
+
+    def record_failed(self, n: int = 1):
+        with self._lock:
+            self.failed += n
+
+    def record_step(self, n_active: int):
+        """One decode step with `n_active` live slots (of max_slots)."""
+        self.active_slots.observe(n_active)
+        with self._lock:
+            self.steps += 1
+
+    def snapshot(self) -> dict:
+        """Point-in-time summary (plain floats/ints — JSON-safe)."""
+        ttft = self.ttft_ms.snapshot()
+        tps = self.tokens_per_s.snapshot()
+        act = self.active_slots.snapshot()
+        with self._lock:
+            out = {
+                "submitted": self.submitted,
+                "submitted_latency_sensitive":
+                    self.submitted_latency_sensitive,
+                "completed": self.completed,
+                "rejected_queue_full": self.rejected_queue_full,
+                "rejected_shutdown": self.rejected_shutdown,
+                "failed": self.failed,
+                "steps": self.steps,
+                "tokens_out": self.tokens_out,
+            }
+        if ttft["count"]:
+            out["ttft_p50_ms"] = ttft["p50"]
+            out["ttft_p99_ms"] = ttft["p99"]
+            out["ttft_mean_ms"] = ttft["mean"]
+        if tps["count"]:
+            out["tokens_per_s_p50"] = tps["p50"]
+            out["tokens_per_s_mean"] = tps["mean"]
+        out["mean_active_slots"] = act["mean"] if act["count"] else 0.0
         return out

@@ -27,14 +27,27 @@ from dist_mnist_tpu_torch.ops.kernels.fused_adam import (
     fused_adam_update,
     fused_adam_update_reference,
 )
+from dist_mnist_tpu_torch.ops.kernels.masked_flash import (
+    masked_flash_attention,
+    masked_flash_attention_probe,
+    masked_flash_attention_reference,
+)
+from dist_mnist_tpu_torch.ops.kernels.paged_attention import (
+    paged_attention,
+    paged_attention_probe,
+    paged_attention_reference,
+)
 from dist_mnist_tpu_torch.ops.kernels.quant_matmul import (
     quant_matmul,
     quant_matmul_reference,
 )
 from dist_mnist_tpu_torch.serve import (
+    DecodeScheduler,
     InferenceEngine,
+    build_decode_engine,
     load_for_serving,
     make_images,
+    run_decode_loadgen,
 )
 
 pytestmark = pytest.mark.cuda
@@ -222,3 +235,125 @@ def test_ten_training_steps_on_card_launch_the_fused_kernel(cuda,
     assert np.isfinite(run.final_loss) and run.final_loss < run.first_loss
     assert run.record["extra"]["device_kind"] == \
         torch.cuda.get_device_name(cuda)
+
+
+# -- decode serving: paged attention, masked flash attention ---------------
+
+def _kv_pool(rng, pages, t, h, d, device):
+    x = torch.from_numpy(rng.standard_normal((pages, t, h, d))
+                         .astype(np.float32)).to(device)
+    q, scale = tquant.quantize_kv(x)
+    return tquant.QuantizedArray(q, scale, "kv_head")
+
+
+@pytest.mark.parametrize("n,t,h,d,dtype", [
+    (1, 32, 8, 16, torch.float32), (4, 32, 8, 16, torch.float32),
+    (128, 32, 8, 16, torch.float32), (3, 8, 2, 128, torch.float32),
+    (2, 200, 2, 64, torch.bfloat16),  # a page longer than one tile
+])
+def test_paged_attention_kernel_matches_plain_version(cuda, n, t, h, d,
+                                                      dtype):
+    rng = np.random.default_rng(n + t + d)
+    rows, pages = 9, max(2 * n, 8)
+    kp, vp = (_kv_pool(rng, pages, t, h, d, cuda) for _ in range(2))
+    q = torch.from_numpy(rng.standard_normal((rows, 1, h, d))
+                         .astype(np.float32)).to(cuda, dtype)
+    table = torch.from_numpy(np.stack([
+        rng.choice(pages, size=n, replace=False) for _ in range(rows)])
+        .astype(np.int32)).to(cuda)
+    lens = rng.integers(1, n * t + 1, size=rows).astype(np.int32)
+    lens[:3] = [1, n * t, min(t + 1, n * t)]
+    lengths = torch.from_numpy(lens).to(cuda)
+    before = paged_attention.launches
+    got, visits = paged_attention_probe(q, kp, vp, table, lengths)
+    torch.cuda.synchronize()
+    assert paged_attention.launches == before + 1
+    want = paged_attention_reference(q, kp, vp, table, lengths)
+    assert got.dtype == dtype and got.shape == want.shape
+    tol = 1e-2 if dtype == torch.bfloat16 else 1e-5
+    assert _rel_err(got, want) <= tol
+    pages_in = np.minimum(-(-lens // t), n).astype(np.float32)
+    assert np.array_equal(visits.cpu().numpy(),
+                          np.repeat(pages_in[:, None], h, axis=1))
+
+
+@pytest.mark.parametrize("b,sq,sk,dtype", [
+    (9, 1, 64, torch.float32), (9, 1, 4096, torch.float32),
+    (2, 7, 256, torch.float32), (2, 128, 256, torch.float32),
+    (3, 5, 100, torch.bfloat16),
+])
+def test_masked_flash_kernel_matches_plain_version(cuda, b, sq, sk, dtype):
+    rng = np.random.default_rng(b * sq + sk)
+    h, d = 8, 16
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape)
+                                .astype(np.float32)).to(cuda, dtype)
+               for shape in ((b, sq, h, d), (b, sk, h, d), (b, sk, h, d)))
+    lens = rng.integers(1, sk + 1, size=b).astype(np.int32)
+    lens[0], lens[-1] = 1, sk
+    lengths = torch.from_numpy(lens).to(cuda)
+    before = masked_flash_attention.launches
+    got, visits = masked_flash_attention_probe(q, k, v, lengths)
+    torch.cuda.synchronize()
+    assert masked_flash_attention.launches == before + 1
+    want = masked_flash_attention_reference(q, k, v, lengths)
+    tol = 1e-2 if dtype == torch.bfloat16 else 1e-5
+    assert got.dtype == dtype and _rel_err(got, want) <= tol
+    blocks = (-(-lens // 32)).astype(np.float32)
+    assert np.array_equal(visits.cpu().numpy(),
+                          np.broadcast_to(blocks[:, None, None], (b, h, sq)))
+
+
+def test_quantize_kv_on_card_bitwise_equal_to_cpu(cuda):
+    """The CPU result is pinned bitwise to the JAX package's
+    (tests/test_torch_paged.py), so this holds the card to it too."""
+    x = np.random.default_rng(11).standard_normal((9, 32, 8, 16)) \
+        .astype(np.float32)
+    x[2, 5, 3] = 0.0  # a zero token: the eps floor
+    want_q, want_s = tquant.quantize_kv(torch.from_numpy(x))
+    got_q, got_s = tquant.quantize_kv(torch.from_numpy(x).to(cuda))
+    assert torch.equal(got_q.cpu(), want_q)
+    assert torch.equal(got_s.cpu().view(torch.int32),
+                       want_s.view(torch.int32))
+
+
+@pytest.mark.parametrize("overrides,kernel", [
+    (dict(cache_layout="paged", kv_page_tokens=8, kv_quant="int8"),
+     paged_attention),
+    (dict(attention_impl="flash"), masked_flash_attention),
+])
+def test_decode_engine_on_card_launches_its_kernel(cuda, overrides, kernel):
+    """A small engine on the card: every decode step launches the
+    layout's kernel once per layer, and every request completes."""
+    eng = build_decode_engine(cuda, max_slots=4, vocab_size=64, dim=32,
+                              heads=2, depth=2, max_seq=64, **overrides)
+    kernel.launches = 0
+    eng.prewarm()
+    with DecodeScheduler(eng) as sched:
+        res = run_decode_loadgen(sched, n_requests=12, concurrency=6,
+                                 seed=3)
+    torch.cuda.synchronize()
+    assert res["ok"] == 12 and res["errors"] == 0
+    assert kernel.launches == 2 * eng.decode_steps > 0
+
+
+def test_incremental_decode_bit_matches_full_forward_on_card(cuda):
+    """The model's decode contract holds on the card too: every sum of
+    the `"xla"` path is index-ordered (`ops.nn.ordered_sum`) and softmax
+    rows have one length, so an incremental decode equals the full
+    forward bit for bit at every position."""
+    from dist_mnist_tpu_torch.models.causal_lm import CausalLMTiny
+    from dist_mnist_tpu_torch.utils.tree import tree_map
+
+    model = CausalLMTiny(vocab_size=64, dim=32, depth=2, heads=2, max_seq=64)
+    params, _ = model.init(torch.Generator().manual_seed(0))
+    params = tree_map(lambda t: t.to(cuda), params)
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, 64, size=(3, 20), dtype=np.int32)).to(cuda)
+    with torch.no_grad():
+        full, _ = model.apply(params, {}, tokens)
+        cache = model.init_cache(3, device=cuda)
+        for pos in range(20):
+            logits, _ = model.decode_step(
+                params, cache, tokens[:, pos],
+                torch.full((3,), pos, dtype=torch.int32, device=cuda))
+            assert torch.equal(logits, full[:, pos]), f"position {pos}"

@@ -10,6 +10,8 @@ for CPU tensors. The CUDA kernel itself runs only on the card
 
 from __future__ import annotations
 
+import tempfile
+
 import numpy as np
 import pytest
 import torch
@@ -27,6 +29,19 @@ from dist_mnist_tpu_torch.ops.kernels.quant_matmul import (
     quant_matmul_cost,
     quant_matmul_reference,
 )
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _own_temp_root(tmp_path_factory):
+    """A temp root of this module's own, set before the suite's
+    per-test leak check reads it: that check looks for stray temp dirs,
+    and tests that run at the same time in other processes make such dirs
+    under the shared root. What these tests leak still lands where the
+    check looks."""
+    shared = tempfile.tempdir
+    tempfile.tempdir = str(tmp_path_factory.mktemp("temp_root"))
+    yield
+    tempfile.tempdir = shared
 
 
 def _rel_err(got, want) -> float:
