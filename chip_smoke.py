@@ -9,7 +9,7 @@ script. Phases (any failure exits nonzero before the final `ok` line):
 
 1. print the card's name and power limit as `nvidia-smi` reports them;
 2. build every CUDA kernel of the ported paths from the checkout's
-   sources (`dist_mnist_tpu_torch/csrc/`, four sources, one `nvcc` each,
+   sources (`dist_mnist_tpu_torch/csrc/`, five sources, one `nvcc` each,
    all at once) and print ptxas' registers and spills;
 3. hold each kernel against its plain PyTorch version on the card at the
    paths' shapes: `quant_matmul` at LeNet-5 fc1 [M,3136]x[3136,512] and
@@ -22,7 +22,14 @@ script. Phases (any failure exits nonzero before the final `ok` line):
    of 32, table widths 1 to 128, lengths 1 to 4096) and
    `masked_flash_attention` (`masked_parity`: Sq 1 against Sk 64 and 4096,
    Sq 7 and 128 against Sk 256) within 1e-5 of the largest output, with
-   the pages or key blocks they visit counted;
+   the pages or key blocks they visit counted; the flash kernels (phase
+   `flash_parity`): the forward's out and lse and the backward's dq, dk,
+   dv at ViT's shape (S = 65, 3 heads of 64) for B in {1, 7, 64} in bf16
+   and f32, at S = 17 and 300 with block_k = 128, `flash_attention_lse`'s
+   autograd with a nonzero lse cotangent, and the masked backward with
+   lengths 1 to 65 (dk, dv exactly 0 past each length, key tiles entered
+   counted), within 1e-2 (bf16), 1e-5 (f32 forward, lse) and 1e-4 (f32
+   backward) of the largest value;
 4. serve `lenet5_mnist --quant=int8` (seeded fresh init) on the card
    through the serving CLI's entry point (`cli/serve.py main`: server +
    closed-loop loadgen, 512 requests), with every launch counter set to 0
@@ -60,16 +67,26 @@ script. Phases (any failure exits nonzero before the final `ok` line):
    the full forward at every position, bitwise or not
    (`decode_contract`); the host wall and device time by kernel of one
    int8 decode step (`decode_profile`);
-9. time each kernel at the shapes its path gives it, beside its plain
+9. ViT-Tiny training: the port's `bench --config vit_tiny_cifar_flash
+   --steps 300` entry point at full width (dim 192, depth 12, 3 heads,
+   S = 65, batch 64; CIFAR-10 or its synthetic twin; remat and augment)
+   with every counter set to 0 just before and read just after: per step
+   24 forward, 12 dQ and 12 dK/dV launches and no other kernel, finite
+   chunk losses, the last below the first (`vit_train`); 20 steps with
+   the kernels against the same 20 with the plain `"xla"` attention from
+   one state and generator seed (`vit_kernel_vs_plain`); one step's host
+   wall and device time by kernel (`vit_profile`);
+10. time each kernel at the shapes its path gives it, beside its plain
    version and, where one exists, one library call computing the same
    function (for the Adam kernels `torch._fused_adam_`/`_fused_adamw_`, a
    yardstick that computes a neighbouring function in place; for
    `paged_attention` a composite of gather, dequantize and
-   `F.scaled_dot_product_attention`), each as a CUDA graph of
-   back-to-back calls timed with CUDA events, and compute its bound:
-   max(bytes / memory rate, FLOPs / peak rate for the operands' type) for
-   the card;
-10. print the `{"kernels": [...]}` line (five kernels), then, last, the
+   `F.scaled_dot_product_attention`; for the flash kernels
+   `F.scaled_dot_product_attention`, forward, and forward + backward
+   through autograd), each as a CUDA graph of back-to-back calls timed
+   with CUDA events, and compute its bound: max(bytes / memory rate,
+   FLOPs / peak rate for the operands' type) for the card;
+11. print the `{"kernels": [...]}` line (eight kernels), then, last, the
    `ok` line.
 """
 
@@ -100,7 +117,7 @@ def fail(msg: str) -> None:
 
 def rel_err(got, want) -> tuple[float, float]:
     """(max abs error, max abs error / max |want|) in f32."""
-    got, want = got.float(), want.float()
+    got, want = got.detach().float(), want.detach().float()
     err = float((got - want).abs().max())
     return err, err / (float(want.abs().max()) + 1e-12)
 
@@ -647,6 +664,352 @@ def time_decode_kernels(torch, dev, bw: float, f32_peak: float) -> dict:
     return out
 
 
+
+#: ViT-Tiny's attention shape on the training path (`vit_tiny_cifar_flash`,
+#: per-chip batch 64): 64 patch tokens + CLS, 3 heads of 64
+VIT_B, VIT_S, VIT_H, VIT_D = 64, 65, 3, 64
+#: kernel-vs-plain tolerances, relative to the largest |value|: bf16
+#: outputs are rounded once from f32 sums taken in another order (one bf16
+#: ulp, 2^-8, of the largest value); f32 forward 1e-5 (as the decode
+#: kernels); f32 backward 1e-4 (dS = P (dP - delta) cancels); the f32 lse
+#: 1e-5
+FLASH_TOL = {"bfloat16": (1e-2, 1e-2), "float32": (1e-5, 1e-4)}
+LSE_TOL = 1e-5
+
+
+def _fused_qkv(torch, b, s, h, d, dtype, dev, seed):
+    """q, k, v as the ViT path gives them: strided views of one [B, S, 3,
+    H, D] projection."""
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randn(b, s, 3, h, d, generator=gen).to(dev, dtype).unbind(2)
+
+
+def flash_parity(torch, dev) -> dict:
+    """The flash kernels against their plain versions on the same card
+    inputs: the forward (out, lse) and the backward (dq, dk, dv, from the
+    kernel's own lse and delta) at ViT's shape for B in {1, 7, 64} in bf16
+    and f32, at S = 17 and S = 300 with block_k = 128 (the streamed
+    rounding at S = 300); `flash_attention_lse` through its autograd
+    Function with a nonzero lse cotangent; and the masked backward at
+    ViT's shape with lengths 1 .. 65 (B = 65): dk and dv past each length
+    exactly 0, and the key tiles each kernel entered exactly ceil(len /
+    tile). Fails on any miss. Returns the worst abs errors by kernel."""
+    from dist_mnist_tpu_torch.ops.kernels import flash_attention as fa
+    from dist_mnist_tpu_torch.ops.kernels.masked_flash import (
+        masked_flash_attention_backward_probe,
+        masked_flash_attention_forward,
+    )
+
+    worst = {"flash_attention_forward": 0.0, "flash_attention_backward": 0.0,
+             "masked_flash_attention_backward": 0.0}
+    cases = [(b, VIT_S, VIT_H, VIT_D, dt, None) for b in (1, 7, 64)
+             for dt in (torch.bfloat16, torch.float32)]
+    cases += [(2, s, 2, 64, dt, 128) for s in (17, 300)
+              for dt in (torch.bfloat16, torch.float32)]
+    for i, (b, s, h, d, dtype, block_k) in enumerate(cases):
+        q, k, v = _fused_qkv(torch, b, s, h, d, dtype, dev, seed=20 + i)
+        do = torch.randn(b, s, h, d, generator=torch.Generator()
+                         .manual_seed(40 + i)).to(dev, dtype)
+        bk = fa.quantize_block_k(block_k, s)
+        out, lse = fa.flash_attention_forward(q, k, v, bk)
+        delta = fa.attention_delta(out, do)
+        grads = (fa.flash_attention_dq(q, k, v, do, lse, delta),
+                 *fa.flash_attention_dkv(q, k, v, do, lse, delta))
+        want_out, want_lse = fa.flash_attention_forward_reference(q, k, v, bk)
+        want = fa.flash_attention_backward_reference(q, k, v, do, lse, delta)
+        torch.cuda.synchronize()
+        name = str(dtype).removeprefix("torch.")
+        fwd_tol, bwd_tol = FLASH_TOL[name]
+        errs = {"out": rel_err(out, want_out), "lse": rel_err(lse, want_lse),
+                **{g: rel_err(a, w) for g, a, w in zip(("dq", "dk", "dv"),
+                                                        grads, want)}}
+        print(json.dumps({"phase": "flash_parity", "b": b, "s": s, "h": h,
+                          "d": d, "dtype": name, "block_k": block_k,
+                          "rounding": "normalized" if bk is None
+                          else "streamed",
+                          **{f"{n}_max_abs_err": e[0]
+                             for n, e in errs.items()},
+                          **{f"{n}_max_rel_err": e[1]
+                             for n, e in errs.items()},
+                          "tol": {"fwd": fwd_tol, "lse": LSE_TOL,
+                                  "bwd": bwd_tol}}), flush=True)
+        if errs["out"][1] > fwd_tol or errs["lse"][1] > LSE_TOL:
+            fail(f"flash forward B={b} S={s} {name}: out {errs['out']}, "
+                 f"lse {errs['lse']}")
+        if any(errs[g][1] > bwd_tol for g in ("dq", "dk", "dv")):
+            fail(f"flash backward B={b} S={s} {name}: {errs}")
+        worst["flash_attention_forward"] = max(
+            worst["flash_attention_forward"], errs["out"][0])
+        worst["flash_attention_backward"] = max(
+            worst["flash_attention_backward"],
+            *(errs[g][0] for g in ("dq", "dk", "dv")))
+
+    # flash_attention_lse's autograd Function: both cotangents
+    q, k, v = (t.detach().requires_grad_() for t in _fused_qkv(
+        torch, 7, VIT_S, VIT_H, VIT_D, torch.float32, dev, seed=60))
+    out, lse = fa.flash_attention_lse(q, k, v)
+    gen = torch.Generator().manual_seed(61)
+    w_out = torch.randn(out.shape, generator=gen).to(dev)
+    w_lse = torch.randn(lse.shape, generator=gen).to(dev)
+    got = torch.autograd.grad((out * w_out).sum() + (lse * w_lse).sum(),
+                              (q, k, v))
+    with torch.no_grad():
+        r_out, r_lse = fa.flash_attention_forward_reference(q, k, v)
+        want = fa.flash_attention_backward_reference(
+            q, k, v, w_out, r_lse, fa.attention_delta(r_out, w_out, w_lse))
+    torch.cuda.synchronize()
+    errs = [rel_err(a, w) for a, w in zip(got, want)]
+    print(json.dumps({"phase": "flash_parity", "case": "flash_attention_lse "
+                      "autograd, nonzero dlse", "b": 7, "dtype": "float32",
+                      "grad_max_abs_err": max(e[0] for e in errs),
+                      "grad_max_rel_err": max(e[1] for e in errs),
+                      "lse_max_rel_err": rel_err(lse, r_lse)[1]}), flush=True)
+    if max(e[1] for e in errs) > FLASH_TOL["float32"][1]:
+        fail(f"flash_attention_lse backward with dlse: {errs}")
+
+    # the masked backward: lengths 1 .. 65, one per row
+    b = VIT_S
+    q, k, v = (t.contiguous() for t in _fused_qkv(
+        torch, b, VIT_S, VIT_H, VIT_D, torch.bfloat16, dev, seed=70))
+    lens = np.arange(1, b + 1, dtype=np.int32)
+    lengths = torch.from_numpy(lens).to(dev)
+    do = torch.randn(b, VIT_S, VIT_H, VIT_D, generator=torch.Generator()
+                     .manual_seed(71)).to(dev, torch.bfloat16)
+    dq, dk, dv, dq_vis, dkv_vis = masked_flash_attention_backward_probe(
+        q, k, v, lengths, do)
+    out, lse = masked_flash_attention_forward(q, k, v, lengths)
+    want = fa.flash_attention_backward_reference(
+        q, k, v, do, lse, fa.attention_delta(out, do), lengths)
+    torch.cuda.synchronize()
+    zeros_ok = all(int(torch.count_nonzero(g[r, n:])) == 0
+                   for g in (dk, dv) for r, n in enumerate(lens))
+    vis_ok = (torch.equal(dq_vis.cpu(), torch.from_numpy(
+        -(-lens // fa.TILE)).float()[:, None, None].expand(b, VIT_H, VIT_S))
+        and torch.equal(dkv_vis.cpu(), torch.from_numpy(
+            -(-lens // fa.KEY_BLOCK)).float()[:, None].expand(b, VIT_H)))
+    errs = [rel_err(a, w) for a, w in zip((dq, dk, dv), want)]
+    print(json.dumps({"phase": "flash_parity", "case": "masked backward, "
+                      "lengths 1..65", "b": b, "dtype": "bfloat16",
+                      "grad_max_abs_err": max(e[0] for e in errs),
+                      "grad_max_rel_err": max(e[1] for e in errs),
+                      "zeros_past_length": zeros_ok, "visits_ok": vis_ok}),
+          flush=True)
+    if not (zeros_ok and vis_ok) or max(e[1] for e in errs) > \
+            FLASH_TOL["bfloat16"][1]:
+        fail(f"masked backward: zeros {zeros_ok}, visits {vis_ok}, {errs}")
+    worst["masked_flash_attention_backward"] = max(e[0] for e in errs)
+    return worst
+
+
+def vit_state(torch, dev, dataset, attention_impl: str, **remat):
+    """`vit_tiny_cifar_flash`'s model (with `attention_impl`), optimizer,
+    initial state (seed 0) and fused step at the per-chip batch; `remat`
+    (remat, remat_policy) overrides the config's."""
+    from dist_mnist_tpu_torch import bench, optim
+    from dist_mnist_tpu_torch.configs import get_config
+    from dist_mnist_tpu_torch.data.pipeline import DeviceDataset
+    from dist_mnist_tpu_torch.models.registry import get_model
+    from dist_mnist_tpu_torch.train import (
+        create_train_state,
+        make_fused_train_step,
+    )
+
+    cfg = get_config("vit_tiny_cifar_flash")
+    model = get_model(cfg.model, **{**cfg.model_kwargs,
+                                    "attention_impl": attention_impl})
+    opt = optim.build_optimizer(cfg)
+    state = create_train_state(model, opt, 0, dataset.train_images[:1], dev)
+    batch, _ = bench.ladder_batch(cfg, 1)
+    remat = {"remat": cfg.remat, "remat_policy": cfg.remat_policy, **remat}
+    step = make_fused_train_step(model, opt, DeviceDataset(dataset, dev),
+                                 batch, augment=cfg.augment, **remat)
+    return state, step
+
+
+VIT_PLAIN_STEPS = 20
+#: |final loss, kernels - plain attention|: the plain "xla" path rounds
+#: its logits to bf16 (the scores einsum in q's dtype) where the kernel
+#: keeps them in f32, so the bf16 model's two trajectories part by bf16
+#: rounding: a loss of ~2.3 to 2 decimals
+VIT_PLAIN_TOL = 2e-2
+
+
+def vit_kernel_vs_plain(torch, dev, dataset) -> dict:
+    """From one initial state and generator seed (the same batches, crops
+    and dropout masks), `VIT_PLAIN_STEPS` steps of `vit_tiny_cifar_flash`
+    with the flash kernels against the same steps with the plain
+    `"xla"` attention: the final losses within `VIT_PLAIN_TOL`."""
+    losses = {}
+    for impl in ("flash", "xla"):
+        state, step = vit_state(torch, dev, dataset, impl)
+        seq = []
+        for _ in range(VIT_PLAIN_STEPS):
+            state, out = step(state)
+            seq.append(out["loss"])
+        losses[impl] = torch.stack(seq).cpu().numpy()
+    gap = abs(float(losses["flash"][-1] - losses["xla"][-1]))
+    out = {"phase": "vit_kernel_vs_plain", "steps": VIT_PLAIN_STEPS,
+           "final_loss_kernel": float(losses["flash"][-1]),
+           "final_loss_plain": float(losses["xla"][-1]),
+           "final_loss_gap": gap, "tol": VIT_PLAIN_TOL,
+           "max_step_loss_gap": float(np.max(np.abs(losses["flash"]
+                                                    - losses["xla"])))}
+    print(json.dumps(out), flush=True)
+    if not np.isfinite(losses["flash"]).all() or gap > VIT_PLAIN_TOL:
+        fail(f"vit_kernel_vs_plain: final loss {losses['flash'][-1]} vs "
+             f"plain {losses['xla'][-1]}")
+    return out
+
+
+def vit_profile(torch, dev, dataset) -> dict:
+    """Where one `vit_tiny_cifar_flash` training step (batch 64, remat,
+    augment) spends its time: the host wall per step (ends in a
+    synchronize) and the device time by kernel from `torch.profiler`, the
+    device operations per step and the idle share; and the host wall of
+    the same step without remat and under the `nothing` policy, which
+    shows what the selective checkpoint's dispatch mode costs the host."""
+    reps = 10
+
+    def wall(state, step):
+        for _ in range(5):  # allocator and cuBLAS warm-up
+            state, _ = step(state)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            state, _ = step(state)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / reps, state
+
+    other = {label: wall(*vit_state(torch, dev, dataset, "flash", **kw))[0]
+             for label, kw in (("no_remat", {"remat": False}),
+                               ("remat_nothing",
+                                {"remat_policy": "nothing"}))}
+    state, step = vit_state(torch, dev, dataset, "flash")
+    wall_ms, state = wall(state, step)
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            state, _ = step(state)
+        torch.cuda.synchronize()
+    out = {"phase": "vit_profile", "batch": VIT_B,
+           "remat_policy": "dots_no_batch",
+           "wall_ms_by_remat": {"dots_no_batch": wall_ms, **other},
+           **profile_fields(torch, prof, reps, wall_ms)}
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def time_flash_kernels(torch, dev, bw: float, peaks: dict) -> dict:
+    """The three new kernels at the ViT path's shape (B = 64, S = 65, H =
+    3, D = 64, bf16, q/k/v the strided views of the fused projection),
+    beside their plain versions and `F.scaled_dot_product_attention` on
+    [B, H, S, D] copies (forward alone, and forward + backward through
+    autograd, where the backward row's library time is the difference),
+    each timed by `graph_ms`. The masked backward runs at the same shape
+    with lengths 2 .. 65; its yardstick is SDPA with the boolean prefix
+    mask. Bounds (`flash_attention_cost`): the bytes each call must move
+    over the memory rate, against its products' FLOPs over the f32 peak:
+    the kernels form every product from f32 operands on the CUDA cores."""
+    import torch.nn.functional as F
+
+    from dist_mnist_tpu_torch.ops.kernels import flash_attention as fa
+    from dist_mnist_tpu_torch.ops.kernels.masked_flash import (
+        masked_flash_attention_backward,
+        masked_flash_attention_forward,
+    )
+
+    b, s, h, d = VIT_B, VIT_S, VIT_H, VIT_D
+    q, k, v = _fused_qkv(torch, b, s, h, d, torch.bfloat16, dev, seed=80)
+    do = torch.randn(b, s, h, d, generator=torch.Generator().manual_seed(81)
+                     ).to(dev, torch.bfloat16)
+    out, lse = fa.flash_attention_forward(q, k, v)
+    delta = fa.attention_delta(out, do)
+    qt, kt, vt, dot = (t.transpose(1, 2).contiguous().requires_grad_()
+                       for t in (q, k, v, do))
+    cost = fa.flash_attention_cost(b, s, h, d, torch.bfloat16)
+
+    def bound(nbytes, flops):
+        t_bytes, t_ops = nbytes / bw * 1e3, flops / peaks["float32"] * 1e3
+        return {"bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "bound_bytes": nbytes, "bound_flops": flops,
+                "bound_bf16_tensor_core_ms": max(
+                    t_bytes, flops / peaks["bfloat16"] * 1e3)}
+
+    def sdpa_fwd_bwd(mask=None):
+        o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+        torch.autograd.grad(o, (qt, kt, vt), dot.detach())
+
+    def kernel_bwd():
+        fa.flash_attention_dq(q, k, v, do, lse, delta)
+        fa.flash_attention_dkv(q, k, v, do, lse, delta)
+
+    with torch.no_grad():
+        lib_fwd = graph_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt))
+    # a capture holds the autograd backward as well as the forward
+    lib_fwd_bwd = graph_ms(torch, sdpa_fwd_bwd, calls=20)
+    rows = {
+        "flash_attention_forward": {
+            "kernel_ms": graph_ms(torch, lambda: fa.flash_attention_forward(
+                q, k, v)),
+            "plain_ms": graph_ms(
+                torch, lambda: fa.flash_attention_forward_reference(q, k, v)),
+            "library": "F.scaled_dot_product_attention (forward)",
+            "library_ms": lib_fwd,
+            **bound(cost["fwd_bytes"], cost["fwd_flops"])},
+        "flash_attention_backward": {
+            "kernel_ms": graph_ms(torch, kernel_bwd),
+            "kernel_dq_ms": graph_ms(torch, lambda: fa.flash_attention_dq(
+                q, k, v, do, lse, delta)),
+            "kernel_dkv_ms": graph_ms(torch, lambda: fa.flash_attention_dkv(
+                q, k, v, do, lse, delta)),
+            "plain_ms": graph_ms(
+                torch, lambda: fa.flash_attention_backward_reference(
+                    q, k, v, do, lse, delta)),
+            "library": "F.scaled_dot_product_attention forward + backward "
+                       "through autograd, minus its forward",
+            "library_fwd_bwd_ms": lib_fwd_bwd,
+            "library_ms": lib_fwd_bwd - lib_fwd,
+            **bound(cost["bwd_bytes"], cost["bwd_flops"])},
+    }
+    lens = torch.arange(2, b + 2, dtype=torch.int32, device=dev)
+    qc, kc, vc = (t.contiguous() for t in (q, k, v))
+    m_out, m_lse = masked_flash_attention_forward(qc, kc, vc, lens)
+    m_delta = fa.attention_delta(m_out, do)
+    mask = (torch.arange(s, device=dev)[None, :]
+            < lens[:, None])[:, None, None, :]
+    keys = float(lens.sum())  # the keys the rows attend, all told
+    el = 2  # bf16
+    # q and dO, the K and V rows before each length, lse, delta and the
+    # lengths in; dq, dk and dv (zeros past the lengths) out
+    m_bytes = (2 * b * s * h * d * el + 2 * keys * h * d * el
+               + 2 * b * h * s * 4 + 4 * b + 3 * b * s * h * d * el)
+    m_flops = 7 * 2 * s * h * d * keys
+    m_lib = graph_ms(torch, lambda: sdpa_fwd_bwd(mask), calls=20)
+    with torch.no_grad():
+        m_lib_fwd = graph_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask))
+    rows["masked_flash_attention_backward"] = {
+        "kernel_ms": graph_ms(torch, lambda: masked_flash_attention_backward(
+            qc, kc, vc, lens, do, m_lse, m_delta)),
+        "plain_ms": graph_ms(
+            torch, lambda: fa.flash_attention_backward_reference(
+                qc, kc, vc, do, m_lse, m_delta, lens)),
+        "library": "F.scaled_dot_product_attention(attn_mask=prefix) forward "
+                   "+ backward through autograd, minus its forward",
+        "library_fwd_bwd_ms": m_lib,
+        "library_ms": m_lib - m_lib_fwd,
+        "lengths": "2..65",
+        **bound(m_bytes, m_flops)}
+    for name, row in rows.items():
+        print(json.dumps({"phase": "time", "kernel": name, "b": b, "s": s,
+                          "h": h, "d": d, "dtype": "bfloat16", **row}),
+              flush=True)
+    return rows
+
+
 def main() -> None:
     import torch
 
@@ -666,8 +1029,14 @@ def main() -> None:
         fused_adam_clip_wd_update,
         fused_adam_update,
     )
+    from dist_mnist_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention_dkv,
+        flash_attention_dq,
+        flash_attention_forward,
+    )
     from dist_mnist_tpu_torch.ops.kernels.masked_flash import (
         masked_flash_attention,
+        masked_flash_attention_backward,
     )
     from dist_mnist_tpu_torch.ops.kernels.paged_attention import (
         paged_attention,
@@ -713,7 +1082,7 @@ def main() -> None:
     # -- 2. build ------------------------------------------------------------
     t0 = time.perf_counter()
     build.build_all(["quant_matmul", "fused_adam", "paged_attention",
-                     "masked_flash_attention"])
+                     "masked_flash_attention", "flash_attention"])
     print(json.dumps({"phase": "build",
                       "seconds": time.perf_counter() - t0}), flush=True)
     for src, log in build.build_logs.items():
@@ -750,9 +1119,13 @@ def main() -> None:
     adam_worst = adam_parity(torch, dev)
     # both decode kernels at the decode path's shapes
     decode_worst = decode_kernel_parity(torch, dev)
+    # the flash kernels at ViT's shapes, and the masked backward
+    flash_worst = flash_parity(torch, dev)
 
     counters = (quant_matmul, fused_adam_update, fused_adam_clip_wd_update,
-                paged_attention, masked_flash_attention)
+                paged_attention, masked_flash_attention,
+                flash_attention_forward, flash_attention_dq,
+                flash_attention_dkv, masked_flash_attention_backward)
 
     def reset_counts():
         for fn in counters:
@@ -955,7 +1328,42 @@ def main() -> None:
     decode_contract(torch, dev)
     decode_profile(torch, dev)
 
-    # -- 9. timing at the paths' shapes --------------------------------------
+    # -- 9. ViT-Tiny training, through the bench's config mode --------------
+    reset_counts()
+    t0 = time.perf_counter()
+    vit = bench.main(["--config", "vit_tiny_cifar_flash", "--steps", "300",
+                      "--device=cuda:0"])
+    torch.cuda.synchronize()
+    vit_wall = time.perf_counter() - t0
+    vit_counts = read_counts()
+    vit_steps = vit["extra"]["steps_run"]
+    chunk_losses = vit["extra"]["chunk_losses"]
+    depth = 12
+    want = {"flash_attention_forward": 2 * depth * vit_steps,
+            "flash_attention_dq": depth * vit_steps,
+            "flash_attention_dkv": depth * vit_steps}
+    print(json.dumps({
+        "phase": "vit_train", "launches": vit_counts, "steps": vit_steps,
+        "launches_per_step": {k: vit_counts[k] / vit_steps for k in want},
+        "wall_s": vit_wall, "steps_per_sec": vit["value"],
+        "examples_per_sec": vit["extra"]["examples_per_sec"],
+        "mfu": vit["extra"]["mfu"], "chunk_losses": chunk_losses,
+        "synthetic_data": vit["synthetic_data"]}), flush=True)
+    for name, n in want.items():
+        if vit_counts[name] != n:
+            fail(f"vit_train: {vit_counts[name]} {name} launches for "
+                 f"{vit_steps} steps (want {n // vit_steps} per step)")
+    others = {k: v for k, v in vit_counts.items() if k not in want and v}
+    if others:
+        fail(f"vit_train: other kernels launched on the ViT path: {others}")
+    if not (np.isfinite(chunk_losses).all()
+            and chunk_losses[-1] < chunk_losses[0]):
+        fail(f"vit_train: chunk losses {chunk_losses}")
+    cifar = load_dataset("cifar10", seed=42)  # the bench's cached twin
+    vit_kernel_vs_plain(torch, dev, cifar)
+    vit_profile(torch, dev, cifar)
+
+    # -- 10. timing at the paths' shapes -------------------------------------
     timed = {}
     for (label, m), (x, qa) in operands.items():
         w_deq = quant_mod.dequantize(qa, x.dtype)  # the library's operand
@@ -975,8 +1383,9 @@ def main() -> None:
                           "dtype": str(x.dtype), **row}), flush=True)
     adam_timed = time_adam(torch, dev, state, bw, peaks["float32"])
     decode_timed = time_decode_kernels(torch, dev, bw, peaks["float32"])
+    flash_timed = time_flash_kernels(torch, dev, bw, peaks)
 
-    # -- 10. result ----------------------------------------------------------
+    # -- 11. result ----------------------------------------------------------
     head = timed[("lenet5/fc1", 64)]
     adam_rows = []
     for name, launches_on_path, src_line in (
@@ -1033,6 +1442,40 @@ def main() -> None:
                 "composite_ms": row["composite_ms"]}
                if "composite" in row else {}),
         })
+    vit_shape = (f"ViT-Tiny training: B={VIT_B}, S={VIT_S}, H={VIT_H}, "
+                 f"D={VIT_D}, bf16, strided q/k/v of the fused projection")
+    flash_rows = []
+    for name, src_line, launches_on_path, shape in (
+            ("flash_attention_forward", "flash_attention.py:288",
+             vit_counts["flash_attention_forward"], vit_shape),
+            ("flash_attention_backward", "flash_attention.py:350",
+             vit_counts["flash_attention_dq"]
+             + vit_counts["flash_attention_dkv"], vit_shape),
+            ("masked_flash_attention_backward", "flash_attention.py:726", 0,
+             f"B={VIT_B}, S={VIT_S}, H={VIT_H}, D={VIT_D}, bf16, lengths "
+             "2..65")):
+        row = flash_timed[name]
+        flash_rows.append({
+            "name": name,
+            "route": "cuda",
+            "source": "dist_mnist_tpu_torch/csrc/flash_attention.cu",
+            "replaces": f"dist_mnist_tpu/ops/pallas/{src_line}",
+            "launches": launches_on_path,
+            "max_abs_err": flash_worst[name],
+            "shape": shape,
+            "ms": row["kernel_ms"],
+            "kernel_ms": row["kernel_ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+            "library": row["library"],
+        })
+    flash_rows[1].update(launches_dq=vit_counts["flash_attention_dq"],
+                         launches_dkv=vit_counts["flash_attention_dkv"])
+    flash_rows[2]["path"] = ("none: no training path takes a token mask; "
+                             "held against its plain version in "
+                             "flash_parity")
     print(json.dumps({"kernels": [{
         "name": "quant_matmul",
         "route": "cuda",
@@ -1048,7 +1491,7 @@ def main() -> None:
         "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"],
         "library_ms": head["library_ms"],
-    }, *adam_rows, *decode_rows], "gpu": gpu}), flush=True)
+    }, *adam_rows, *decode_rows, *flash_rows], "gpu": gpu}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

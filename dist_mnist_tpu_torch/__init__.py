@@ -22,7 +22,13 @@ What is ported so far:
   `paged_attention` kernel (`ops/kernels/paged_attention.py`,
   `csrc/paged_attention.cu`), and a dense cache with
   ``attention_impl="flash"`` the CUDA `masked_flash_attention` forward
-  (`ops/kernels/masked_flash.py`, `csrc/masked_flash_attention.cu`).
+  (`ops/kernels/masked_flash.py`, `csrc/masked_flash_attention.cu`);
+- single-device training of ViT-Tiny on CIFAR-10 (`models/vit.py`,
+  `data/augment.py`, remat in `train/step.py`, `bench.py --config
+  vit_tiny_cifar_flash`), every attention call on the hand-written CUDA
+  flash forward and its dQ and dK/dV kernels
+  (`ops/kernels/flash_attention.py`, `csrc/flash_attention.cu`), which
+  with per-row lengths are also the masked attention's backward.
 
 Entry points run on `cuda` unless the caller asks for `cpu`
 (`utils/device.resolve_device`); kernels build into

@@ -1,10 +1,13 @@
 """The port's benchmarks: the headline training run (the reference
-`bench.py` with no flags) and decode serving (`bench.py --serve
+`bench.py` with no flags), one ladder config's training throughput
+(`bench.py --config NAME`) and decode serving (`bench.py --serve
 --decode`).
 
     python -m dist_mnist_tpu_torch.bench                # on the GPU
     python -m dist_mnist_tpu_torch.bench --device=cpu --race_rounds=1 \\
         --steps=100                                     # plain CPU path
+    python -m dist_mnist_tpu_torch.bench --config vit_tiny_cifar_flash \\
+        --steps 300                                     # a ladder config
     python -m dist_mnist_tpu_torch.bench --serve --decode \\
         --requests 64 --concurrency 16                  # decode serving
 
@@ -18,9 +21,15 @@ JSON line with the reference headline's schema: steps/sec/chip, examples
 per second, MFU against the card's bf16 peak (`utils/flops.py`), and the
 race result, labelled synthetic when the data is the procedural twin.
 
+Ladder configs (`run_config`): the config's real training step (its
+optimizer via `optim.build_optimizer`, its loss, remat and augmentation)
+at the reference's per-chip batch (`ladder_batch`), timed over chunks of
+100 steps after one warm-up chunk; one JSON line with steps/sec/chip and
+MFU from the model's analytic FLOPs.
+
 Decode serving (`run_serve_decode`) prints three JSON lines; see its
-docstring. Without a CUDA device and without ``--device=cpu`` either
-mode exits 1.
+docstring. Without a CUDA device and without ``--device=cpu`` every mode
+exits 1.
 """
 
 from __future__ import annotations
@@ -34,9 +43,11 @@ import numpy as np
 import torch
 
 from dist_mnist_tpu_torch import optim
+from dist_mnist_tpu_torch.configs import CONFIGS, Config
 from dist_mnist_tpu_torch.data.datasets import Dataset, load_dataset
 from dist_mnist_tpu_torch.data.pipeline import DeviceDataset
 from dist_mnist_tpu_torch.models.registry import get_model
+from dist_mnist_tpu_torch.ops import losses
 from dist_mnist_tpu_torch.train import (
     TrainState,
     create_train_state,
@@ -140,6 +151,103 @@ def run_headline(device: torch.device, optimizer: optim.Optimizer | None = None,
         },
     }
     return HeadlineRun(record, steps, first_loss, final_loss, state)
+
+
+def ladder_batch(cfg: Config, n_chips: int) -> tuple[int, str]:
+    """Global batch for a ladder config on `n_chips` (the reference's
+    `bench.py ladder_batch`): a config's batch is sized for
+    `cfg.ladder_devices` chips, so on another count the PER-CHIP batch is
+    kept. Returns (batch, provenance note)."""
+    if n_chips != cfg.ladder_devices:
+        per_chip = max(1, cfg.batch_size // cfg.ladder_devices)
+        return per_chip * n_chips, (
+            f"per-chip geometry of the {cfg.ladder_devices}-chip ladder "
+            f"config: {per_chip}/chip x {n_chips} chips")
+    return cfg.batch_size, "config global batch"
+
+
+#: reference ladder configs the port cannot run yet, and what brings them
+LATER_CONFIGS = {
+    "lenet5_fashion": "the data-parallel slice (ROADMAP §1 item 12)",
+    "resnet20_cifar": "the ResNet slice (ROADMAP §1 item 10)",
+    "resnet20_cifar_fsdp": "the ResNet slice (ROADMAP §1 item 10)",
+    "vit_tiny_cifar_tp": "the tensor-parallel slice (ROADMAP §1 item 12)",
+    "vit_tiny_cifar_fsdp_tp": "the tensor-parallel slice (ROADMAP §1 "
+                              "item 12)",
+    **{f"vit_tiny_cifar_{v}": "the parallel-attention and model-parallel "
+                              "slice (ROADMAP §1 item 11)"
+       for v in ("ulysses", "ulysses_flash", "ring", "ring_flash", "moe",
+                 "pp")},
+}
+
+
+def run_config(cfg: Config, device: torch.device, timed_steps: int, *,
+               dataset: Dataset | None = None, data_dir=None,
+               chunk: int = CHUNK) -> dict:
+    """Train `cfg` on `device` and time it (the reference's
+    `bench_config`): the config's model, optimizer, loss, remat and
+    augmentation, at the per-chip batch of `ladder_batch`; one warm-up
+    chunk, then ``timed_steps // chunk`` timed chunks. Returns the JSON
+    record, which also carries every chunk's mean loss. The config is run
+    as given, so a test can pass one cut to a small width."""
+    if cfg.replicas_to_aggregate > 1 or cfg.sharding_rules != "dp":
+        raise NotImplementedError(
+            f"{cfg.name}: {cfg.sharding_rules} rules and gradient "
+            "accumulation join the port with the data-parallel slice "
+            "(ROADMAP §1 item 12)")
+    batch, batch_note = ladder_batch(cfg, 1)
+    dataset = dataset if dataset is not None else load_dataset(
+        cfg.dataset, data_dir, seed=cfg.seed)
+    model = get_model(cfg.model, **cfg.model_kwargs)
+    optimizer = optim.build_optimizer(cfg)
+    loss_fn = (losses.clipped_softmax_cross_entropy if cfg.loss == "clipped"
+               else losses.softmax_cross_entropy)
+    state = create_train_state(model, optimizer, SEED,
+                               dataset.train_images[:1], device)
+    inner = make_scanned_train_fn(
+        model, optimizer, DeviceDataset(dataset, device), batch, chunk,
+        loss_fn=loss_fn, remat=cfg.remat, remat_policy=cfg.remat_policy,
+        augment=cfg.augment)
+    chunk_means = []
+
+    def run(st):
+        st, out = inner(st)
+        chunk_means.append(out["loss"])
+        return st, out
+
+    n_chunks = max(1, timed_steps // chunk)
+    dt, state, _ = timed_chunks(run, state, n_chunks)
+    n_timed = n_chunks * chunk
+    dt_per_step = dt / n_timed
+    flops_step = flops.analytic_step_flops(
+        model, dataset.train_images[:1].shape, batch)
+    peak = flops.device_peak_flops(device)
+    chunk_losses = [float(x) for x in torch.stack(chunk_means).cpu()]
+    rate = n_timed / dt
+    record = {
+        "metric": f"{cfg.name}_steps_per_sec_per_chip",
+        "value": rate,
+        "unit": "steps/sec/chip",
+        "vs_baseline": 0.0,  # no published reference numbers
+        "synthetic_data": bool(dataset.synthetic),
+        "extra": {
+            "chips": 1,
+            "mesh": "one device",
+            "global_batch": batch,
+            "batch_note": batch_note,
+            "examples_per_sec": rate * batch,
+            "mfu": flops.mfu(flops_step, dt_per_step, device),
+            "flops_per_step": flops_step,
+            "flops_basis": "analytic",
+            "model_tflops_per_sec": flops_step / dt_per_step / 1e12,
+            "device_kind": flops.device_kind(device),
+            "peak_bf16_tflops": peak / 1e12 if peak else None,
+            "timed_steps": n_timed,
+            "steps_run": (n_chunks + 1) * chunk,
+            "chunk_losses": chunk_losses,
+        },
+    }
+    return record
 
 
 class DecodeGateError(RuntimeError):
@@ -355,9 +463,13 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m dist_mnist_tpu_torch.bench",
         description="LeNet-5 MNIST training throughput and accuracy race; "
-                    "with --serve --decode, decode serving")
+                    "with --config, one ladder config's training "
+                    "throughput; with --serve --decode, decode serving")
     p.add_argument("--device", default=None,
                    help="cuda (default), cuda:N, or cpu")
+    p.add_argument("--config", default=None,
+                   help="a ladder config to time (e.g. vit_tiny_cifar_flash)"
+                        f"; the port has {sorted(CONFIGS)}")
     p.add_argument("--serve", action="store_true",
                    help="a serving benchmark (with --decode)")
     p.add_argument("--decode", action="store_true",
@@ -373,18 +485,24 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--steps", type=int, default=2000,
                    help="timed steady-state steps")
     p.add_argument("--data_dir", default=None,
-                   help="IDX files, or where the synthetic twin is cached "
-                        "(default: <temp dir>/mnist-data)")
+                   help="the dataset's files, or where its synthetic twin "
+                        "is cached (default: <temp dir>/mnist-data)")
     return p
 
 
 def main(argv=None):
     """Runs the mode the flags name and prints its JSON line(s); returns
-    the headline record, or the list of decode records."""
+    the headline or config record, or the list of decode records."""
     args = build_parser().parse_args(argv)
     if args.serve != args.decode:
         raise SystemExit("error: --serve takes --decode (the one serving "
                          "benchmark ported so far)")
+    if args.config is not None and args.config not in CONFIGS:
+        later = LATER_CONFIGS.get(args.config)
+        raise SystemExit(
+            f"error: config {args.config!r} joins the port with {later}"
+            if later else f"error: unknown config {args.config!r}; the port "
+            f"has {sorted(CONFIGS)}")
     try:
         device = resolve_device(args.device)
     except RuntimeError as err:
@@ -400,6 +518,11 @@ def main(argv=None):
         for record in records:
             print(json.dumps(record), flush=True)
         return records
+    if args.config is not None:
+        record = run_config(CONFIGS[args.config], device, args.steps,
+                            data_dir=args.data_dir)
+        print(json.dumps(record), flush=True)
+        return record
     dataset = load_dataset("mnist", args.data_dir, seed=SEED)
     result = run_headline(device, dataset=dataset,
                           race_rounds=args.race_rounds,

@@ -1,8 +1,9 @@
 """The benchmark-ladder configs, copied from the reference `configs.py`.
 
-Only the entries whose model the port serves are here (`mlp_mnist`,
-`lenet5_mnist`); the others join with their slices. A test pins each
-entry field for field against the reference ladder.
+Only the entries whose model and path the port runs are here
+(`mlp_mnist`, `lenet5_mnist`, `vit_tiny_cifar`, `vit_tiny_cifar_flash`);
+the others join with their slices. A test pins each entry field for field
+against the reference ladder.
 """
 
 from __future__ import annotations
@@ -68,6 +69,42 @@ CONFIGS = {
         train_steps=2000,
         learning_rate=1e-3,
         eval_every=500,
+    ),
+    # 5) ViT-Tiny / CIFAR-10 / pod slice (stretch; attention path)
+    "vit_tiny_cifar": Config(
+        name="vit_tiny_cifar",
+        model="vit_tiny",
+        dataset="cifar10",
+        batch_size=1024,
+        train_steps=5000,
+        learning_rate=1e-3,
+        lr_schedule="cosine",
+        warmup_steps=500,
+        grad_clip_norm=1.0,
+        weight_decay=0.05,
+        remat=True,  # depth-12 attention stack: recompute, don't hold
+        augment=True,
+        model_kwargs={"scan_blocks": True},
+        mesh=MeshSpec(data=-1),
+        ladder_devices=16,
+    ),
+    # 5g) config 5 with the flash-attention kernels (forward and backward)
+    "vit_tiny_cifar_flash": Config(
+        name="vit_tiny_cifar_flash",
+        model="vit_tiny",
+        dataset="cifar10",
+        batch_size=1024,
+        train_steps=5000,
+        learning_rate=1e-3,
+        lr_schedule="cosine",
+        warmup_steps=500,
+        grad_clip_norm=1.0,
+        weight_decay=0.05,
+        remat=True,
+        augment=True,
+        model_kwargs={"attention_impl": "flash", "scan_blocks": True},
+        mesh=MeshSpec(data=-1),
+        ladder_devices=16,
     ),
 }
 

@@ -1,5 +1,6 @@
-// Variable-length (key-prefix masked) flash attention, forward only
-// (Hopper, sm_90a).
+// Variable-length (key-prefix masked) flash attention, forward (Hopper, sm_90a).
+// Its backward is the dQ and dK/dV kernels of csrc/flash_attention.cu with the
+// lengths vector.
 //
 // Replaces the forward Pallas TPU kernel `_masked_attn_fwd_kernel` of
 // dist_mnist_tpu/ops/pallas/flash_attention.py (launched by
@@ -11,7 +12,9 @@
 //   online softmax over key blocks of BK = 32 (m starts at -1e30, as the
 //   TPU kernel's m_scr does); p is rounded to v's dtype before the p @ V
 //   product, which accumulates in f32, as the TPU kernel casts p to v.dtype
-//   out[b, s, h, :] = acc / l in q's dtype;  visits[b, h, s] = blocks entered
+//   out[b, s, h, :] = acc / l in q's dtype;  visits[b, h, s] = blocks entered;
+//   lse[b, h, s] = m + log(l) in f32 when a backward will need it (lse may be
+//   null: the decode step passes none, and its output does not depend on it)
 //
 // Layouts (all contiguous): q [B, Sq, H, D], k and v [B, Sk, H, D], all f32 or
 // all bf16; lengths [B] int32 with 1 <= len <= Sk; out like q; visits [B, H, Sq]
@@ -63,8 +66,8 @@ template <typename T>
 __global__ void __launch_bounds__(THREADS)
 masked_flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const int32_t* __restrict__ lengths,
-                        T* __restrict__ out, float* __restrict__ visits, int Sq, int Sk,
-                        int H, int D, float scale) {
+                        T* __restrict__ out, float* __restrict__ visits,
+                        float* __restrict__ lse, int Sq, int Sk, int H, int D, float scale) {
     extern __shared__ float smem[];
     float* k_s = smem;                 // [BK][D + 1]
     float* v_s = k_s + BK * (D + 1);   // [BK][D]
@@ -141,6 +144,7 @@ masked_flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
             if (d < D) store_out(out + (((size_t)b * Sq + row) * H + h) * D + d, acc[i] / l);
         }
         if (lane == 0) visits[((size_t)b * H + h) * Sq + row] = (float)blocks;
+        if (lse && lane == 0) lse[((size_t)b * H + h) * Sq + row] = m + logf(l);
     }
 }
 
@@ -150,23 +154,24 @@ masked_flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // after the launch: nonzero means the launch was refused and nothing ran.
 extern "C" int dmt_masked_flash_attention(const void* q, const void* k, const void* v,
                                           const void* lengths, void* out, void* visits,
-                                          int B, int Sq, int Sk, int H, int D, int is_bf16,
-                                          float scale, void* stream) {
+                                          void* lse, int B, int Sq, int Sk, int H, int D,
+                                          int is_bf16, float scale, void* stream) {
     const dim3 grid((Sq + ROWS - 1) / ROWS, H, B);
     const size_t smem = sizeof(float) * (BK * (D + 1) + BK * D + ROWS * D);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const int32_t* lens = static_cast<const int32_t*>(lengths);
     float* vis = static_cast<float*>(visits);
+    float* ls = static_cast<float*>(lse);
     if (is_bf16) {
         masked_flash_fwd_kernel<__nv_bfloat16><<<grid, THREADS, smem, s>>>(
             static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
             static_cast<const __nv_bfloat16*>(v), lens, static_cast<__nv_bfloat16*>(out), vis,
-            Sq, Sk, H, D, scale);
+            ls, Sq, Sk, H, D, scale);
     } else {
         masked_flash_fwd_kernel<float><<<grid, THREADS, smem, s>>>(
             static_cast<const float*>(q), static_cast<const float*>(k),
-            static_cast<const float*>(v), lens, static_cast<float*>(out), vis, Sq, Sk, H, D,
-            scale);
+            static_cast<const float*>(v), lens, static_cast<float*>(out), vis, ls, Sq, Sk,
+            H, D, scale);
     }
     return static_cast<int>(cudaGetLastError());
 }

@@ -2,12 +2,14 @@
 the reference `data/datasets.py`, pure numpy).
 
 Given a data directory it loads the canonical 4-IDX-file layout (MNIST,
-and Fashion-MNIST under a ``fashion_mnist.`` prefix); when the files are
-absent it synthesizes the deterministic procedural twin
-(`data/synthetic.py`) and caches it there in the same format, with the
-same ``.<name>.synthetic-twin`` marker, so this package and the reference
-share one directory. Labels stay integer; one-hot happens in the loss.
-CIFAR-10 loading joins with the ResNet slice.
+and Fashion-MNIST under a ``fashion_mnist.`` prefix), or CIFAR-10's
+``cifar-10-batches-py`` (python pickles, also unpacked from
+``cifar-10-python.tar.gz``); when the files are absent it synthesizes the
+deterministic procedural twin (`data/synthetic.py`) and caches it there
+in the reference's format (IDX, or ``cifar10_synth.npz``), with the same
+``.<name>.synthetic-twin`` marker, so this package and the reference
+share one directory. Nothing is downloaded. Labels stay integer; one-hot
+happens in the loss.
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ from __future__ import annotations
 import dataclasses
 import logging
 import os
+import pickle
+import tarfile
 import tempfile
 from pathlib import Path
 
@@ -37,8 +41,6 @@ _MNIST_FILES = {
     "test_x": "t10k-images-idx3-ubyte",
     "test_y": "t10k-labels-idx1-ubyte",
 }
-
-_LOADERS = ("mnist", "fashion_mnist")
 
 
 def default_data_dir() -> Path:
@@ -90,33 +92,83 @@ def _load_idx(data_dir: Path, name: str) -> dict[str, np.ndarray] | None:
     return out
 
 
+def _load_cifar10_dir(data_dir: Path) -> dict[str, np.ndarray] | None:
+    """CIFAR-10's python batches (unpacking the tarball first if that is
+    what the directory holds), or None when absent."""
+    batch_dir = data_dir / "cifar-10-batches-py"
+    if not batch_dir.exists():
+        tars = list(data_dir.glob("cifar-10-python.tar.gz"))
+        if not tars:
+            return None
+        with tarfile.open(tars[0]) as tf:
+            tf.extractall(data_dir, filter="data")
+        if not batch_dir.exists():
+            return None
+
+    def load_batch(p: Path):
+        with open(p, "rb") as f:
+            d = pickle.load(f, encoding="bytes")
+        x = d[b"data"].reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1)
+        return x, np.asarray(d[b"labels"], np.int32)
+
+    train = [load_batch(batch_dir / f"data_batch_{i}") for i in range(1, 6)]
+    test_x, test_y = load_batch(batch_dir / "test_batch")
+    return {
+        "train_x": np.concatenate([t[0] for t in train]),
+        "train_y": np.concatenate([t[1] for t in train]),
+        "test_x": test_x,
+        "test_y": test_y,
+    }
+
+
+def _load_cifar10(data_dir: Path) -> dict[str, np.ndarray] | None:
+    """The reference's synthetic-twin cache (``cifar10_synth.npz``) first,
+    then the real batches."""
+    npz = data_dir / "cifar10_synth.npz"
+    if npz.exists():
+        with np.load(npz) as z:
+            return {k: z[k] for k in ("train_x", "train_y", "test_x",
+                                      "test_y")}
+    return _load_cifar10_dir(data_dir)
+
+
 def _synth(name: str, n_train: int, n_test: int, seed: int):
     gen = {"mnist": synthetic.synthetic_mnist,
-           "fashion_mnist": synthetic.synthetic_fashion_mnist}[name]
+           "fashion_mnist": synthetic.synthetic_fashion_mnist,
+           "cifar10": synthetic.synthetic_cifar10}[name]
     tx, ty = gen(n_train, seed=seed, split=0)
     vx, vy = gen(n_test, seed=seed, split=7)
     return {"train_x": tx, "train_y": ty, "test_x": vx, "test_y": vy}
 
 
 def _write_synth_cache(data_dir: Path, name: str, raw: dict) -> None:
-    """Persist the synthesized twin as IDX files (atomic tmp + rename, so a
-    concurrent or interrupted run never leaves a torn file), then the
-    marker that says these files are procedural."""
+    """Persist the synthesized twin in the reference's format (IDX files,
+    or one npz for CIFAR-10; atomic tmp + rename, so a concurrent or
+    interrupted run never leaves a torn file), then the marker that says
+    these files are procedural."""
     data_dir.mkdir(parents=True, exist_ok=True)
 
-    def atomic(path: Path, arr: np.ndarray) -> None:
+    def atomic(path: Path, write) -> None:
         tmp = path.with_name(path.name + f".tmp{os.getpid()}")
         try:
-            write_idx(tmp, arr)
+            write(tmp)
             os.replace(tmp, path)
         finally:
             tmp.unlink(missing_ok=True)
 
-    paths = _paths(data_dir, name)
-    atomic(paths["train_x"], raw["train_x"][..., 0])
-    atomic(paths["train_y"], raw["train_y"].astype(np.uint8))
-    atomic(paths["test_x"], raw["test_x"][..., 0])
-    atomic(paths["test_y"], raw["test_y"].astype(np.uint8))
+    if name == "cifar10":
+        def write_npz(p: Path) -> None:
+            with p.open("wb") as f:
+                np.savez(f, **raw)
+
+        atomic(data_dir / "cifar10_synth.npz", write_npz)
+    else:
+        paths = _paths(data_dir, name)
+        for key, arr in (("train_x", raw["train_x"][..., 0]),
+                         ("train_y", raw["train_y"].astype(np.uint8)),
+                         ("test_x", raw["test_x"][..., 0]),
+                         ("test_y", raw["test_y"].astype(np.uint8))):
+            atomic(paths[key], lambda p, arr=arr: write_idx(p, arr))
     _synth_marker(data_dir, name).touch()
 
 
@@ -133,15 +185,12 @@ def load_dataset(
     in the canonical on-disk format."""
     if name not in DATASETS:
         raise KeyError(f"unknown dataset {name!r}; have {sorted(DATASETS)}")
-    if name not in _LOADERS:
-        raise NotImplementedError(
-            f"loading {name!r} joins the port with the ResNet slice; the "
-            f"port loads {list(_LOADERS)}")
     data_dir = Path(data_dir) if data_dir is not None else default_data_dir()
     raw = None
     if data_dir.exists():
         try:
-            raw = _load_idx(data_dir, name)
+            raw = (_load_cifar10(data_dir) if name == "cifar10"
+                   else _load_idx(data_dir, name))
         except (ValueError, OSError) as e:
             # torn or corrupt files must not stop training: resynthesize
             log.warning("unreadable %s under %s (%s); falling back to "

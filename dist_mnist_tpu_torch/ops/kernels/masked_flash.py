@@ -1,4 +1,5 @@
-"""Variable-length (key-prefix masked) flash attention, forward only.
+"""Variable-length (key-prefix masked) flash attention, forward and
+backward.
 
 Counterpart of the reference Pallas kernel
 (`dist_mnist_tpu/ops/pallas/flash_attention.py`, `_masked_attn_fwd_kernel`
@@ -6,17 +7,24 @@ under `_masked_flash_fwd_impl`): q ``[B, Sq, H, D]`` against k/v
 ``[B, Sk, H, D]`` where row b attends only keys ``[0, lengths[b])`` —
 the key-prefix masks of the decode cache (``lengths = pos + 1``) and of
 zoo serving. Key blocks of `BLOCK_K` at or past a row's length do no
-work. The CUDA body is `csrc/masked_flash_attention.cu` (its header says
-how it is laid out and what bounds it).
+work. The forward's CUDA body is `csrc/masked_flash_attention.cu` (its
+header says how it is laid out and what bounds it).
 
-`masked_flash_attention` checks its inputs, then launches the kernel for
-CUDA tensors and runs `masked_flash_attention_reference` (the ``-1e30``
-masked softmax einsum) for CPU tensors; it never routes a CUDA tensor
-around the kernel. There is no backward yet (it comes with ViT training
-as a `torch.autograd.Function`), so the wrapper refuses inputs that
-require grad rather than return a silently wrong gradient.
-`masked_flash_attention.launches` counts kernel launches, the probe's
-included.
+The backward (the reference's `_masked_flash_bwd_impl`) runs the dQ and
+dK/dV kernels of `csrc/flash_attention.cu` with the lengths vector: key
+tiles at or past a row's length do no work, and dK and dV there are exact
+zeros. ``delta = rowsum(f32(dO) * f32(O))`` has no lse term here.
+
+`masked_flash_attention` checks its inputs. When a gradient is wanted it
+runs `_MaskedFlashAttention` (forward with the f32 lse saved, backward as
+above); otherwise only the forward, which writes no lse (the decode step).
+Each leaf launches its kernel for CUDA tensors and runs its plain version
+for CPU tensors (`masked_flash_attention_reference`, the ``-1e30`` masked
+softmax einsum, and `flash_attention_backward_reference`); it never routes
+a CUDA tensor around a kernel. `masked_flash_attention.launches` counts
+forward launches, the probe's included;
+`masked_flash_attention_backward.launches` counts the backward's kernel
+launches (two per backward: dQ, then dK/dV).
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ import numpy as np
 import torch
 
 from dist_mnist_tpu_torch.ops.kernels import build
+from dist_mnist_tpu_torch.ops.kernels import flash_attention as fa
 
 #: keys per kernel block (one per lane of a warp): the skip granularity,
 #: so a probe's visits are ``ceil(length / BLOCK_K)``
@@ -35,26 +44,25 @@ BLOCK_K = 32
 #: largest head_dim the kernel takes
 MAX_HEAD_DIM = 128
 _MAX_GRID_YZ = 65535
-_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float]
+_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_float]
              + [ctypes.c_void_p])
 
 
-def masked_flash_attention_reference(q, k, v, lengths):
-    """The kernel's function in plain torch: f32 scores times
-    ``D**-0.5``, ``-1e30`` on keys at or past each row's length, softmax
-    in f32, the weights cast to v's dtype, weights @ V, out in q's
-    dtype."""
-    d = q.shape[-1]
-    scores = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32),
-                          k.to(torch.float32)) * d ** -0.5
-    col = torch.arange(k.shape[1], device=q.device)
-    mask = col[None, :] < lengths[:, None]  # [B, Sk]
-    scores = torch.where(mask[:, None, None, :], scores,
-                         torch.full((), -1e30, device=q.device))
+def masked_flash_attention_forward_reference(q, k, v, lengths):
+    """The forward kernel's function in plain torch: f32 scores (f64 for
+    f64 inputs) times ``D**-0.5``, ``-1e30`` on keys at or past each row's
+    length, softmax, the weights cast to v's dtype, weights @ V, out in
+    q's dtype; and ``lse [B, H, Sq]``, the masked scores' log-sum-exp."""
+    acc = fa._acc_dtype(q)
+    scores = fa._scores(q, k, lengths)
     weights = torch.softmax(scores, dim=-1).to(v.dtype)
-    out = torch.einsum("bhqk,bkhd->bqhd", weights.to(torch.float32),
-                       v.to(torch.float32))
-    return out.to(q.dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", weights.to(acc), v.to(acc))
+    return out.to(q.dtype), torch.logsumexp(scores, dim=-1)
+
+
+def masked_flash_attention_reference(q, k, v, lengths):
+    """`masked_flash_attention_forward_reference`'s output alone."""
+    return masked_flash_attention_forward_reference(q, k, v, lengths)[0]
 
 
 def _check(q, k, v, lengths) -> None:
@@ -66,21 +74,18 @@ def _check(q, k, v, lengths) -> None:
     if k.shape != v.shape or k.shape[0] != b or tuple(k.shape[2:]) != (h, d):
         raise ValueError(f"k/v {tuple(k.shape)} do not match q "
                          f"{tuple(q.shape)} as [B, Sk, H, D]")
-    if q.dtype not in (torch.float32, torch.bfloat16) or not (
-            q.dtype == k.dtype == v.dtype):
+    dtypes = (torch.float32, torch.bfloat16) + (
+        (torch.float64,) if q.device.type == "cpu" else ())
+    if q.dtype not in dtypes or not q.dtype == k.dtype == v.dtype:
         raise TypeError(f"masked_flash_attention: q, k, v must be all "
-                        f"float32 or all bfloat16, got {q.dtype}, {k.dtype}, "
-                        f"{v.dtype}")
+                        f"float32 or all bfloat16 (float64 on the CPU), got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
     if lengths.ndim != 1 or lengths.shape[0] != b:
         raise ValueError(f"lengths must be [batch] = [{b}], got "
                          f"{tuple(lengths.shape)}")
     if lengths.dtype != torch.int32:
         raise TypeError(f"masked_flash_attention: lengths must be int32, "
                         f"got {lengths.dtype}")
-    if any(t.requires_grad for t in (q, k, v)):
-        raise RuntimeError("masked_flash_attention has no backward yet: "
-                           "call it under torch.no_grad() or on tensors "
-                           "that do not require grad")
     if d > MAX_HEAD_DIM:
         raise ValueError(f"masked_flash_attention: head_dim {d} > "
                          f"{MAX_HEAD_DIM}, the most the kernel takes")
@@ -106,37 +111,93 @@ def _entry():
     return fn
 
 
-def _launch(q, k, v, lengths):
+def _launch(q, k, v, lengths, with_lse: bool = False):
+    """(out, visits, lse or None) from one forward launch."""
     b, sq, h, d = q.shape
     out = torch.empty_like(q)
     visits = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     if out.numel() == 0:
-        return out, visits
+        return out, visits, lse
     fn = _entry()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-                 out.data_ptr(), visits.data_ptr(), b, sq, k.shape[1], h, d,
-                 int(q.dtype == torch.bfloat16), d ** -0.5, stream)
+                 out.data_ptr(), visits.data_ptr(),
+                 None if lse is None else lse.data_ptr(), b, sq, k.shape[1],
+                 h, d, int(q.dtype == torch.bfloat16), d ** -0.5, stream)
     if err != 0:
         raise RuntimeError(f"masked_flash_attention kernel launch failed: "
                            f"cudaError {err}")
     masked_flash_attention.launches += 1
-    return out, visits
+    return out, visits, lse
+
+
+def _device_check(q) -> None:
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"masked_flash_attention: unsupported device "
+                         f"{q.device}")
+
+
+def masked_flash_attention_forward(q, k, v, lengths):
+    """Leaf forward for the backward's sake: ``(out, lse [B, H, Sq]
+    f32)``."""
+    if q.device.type == "cpu":
+        return masked_flash_attention_forward_reference(q, k, v, lengths)
+    out, _, lse = _launch(q, k, v, lengths, with_lse=True)
+    return out, lse
+
+
+def masked_flash_attention_backward(q, k, v, lengths, do, lse, delta):
+    """Leaf backward: ``(dq, dk, dv)`` from the forward's lse and
+    ``delta [B, H, Sq]`` (the dQ and dK/dV kernels with the lengths)."""
+    if q.device.type == "cpu":
+        return fa.flash_attention_backward_reference(q, k, v, do, lse, delta,
+                                                     lengths)
+    if q.numel() == 0 or k.numel() == 0:
+        return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    do = do.contiguous()
+    dq = fa.launch_dq(q, k, v, do, lse, delta, lengths)
+    masked_flash_attention_backward.launches += 1
+    dk, dv = fa.launch_dkv(q, k, v, do, lse, delta, lengths)
+    masked_flash_attention_backward.launches += 1
+    return dq, dk, dv
+
+
+masked_flash_attention_backward.launches = 0
+
+
+class _MaskedFlashAttention(torch.autograd.Function):
+    """out = masked attention(q, k, v, lengths); backward by recompute
+    from (q, k, lse) with the same skipping."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, lengths):
+        out, lse = masked_flash_attention_forward(q, k, v, lengths)
+        ctx.save_for_backward(q, k, v, lengths, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, lengths, out, lse = ctx.saved_tensors
+        delta = fa.attention_delta(out, dout)
+        return (*masked_flash_attention_backward(q, k, v, lengths, dout, lse,
+                                                 delta), None)
 
 
 def masked_flash_attention(q, k, v, lengths):
     """Variable-length attention: q ``[B, Sq, H, D]`` against k/v
     ``[B, Sk, H, D]`` (all float32 or all bfloat16), row b attending keys
     ``[0, lengths[b])`` (int32, 1 <= lengths[b] <= Sk). Returns
-    ``[B, Sq, H, D]`` in q's dtype. All tensors contiguous, on one
-    device; requires D <= `MAX_HEAD_DIM`."""
+    ``[B, Sq, H, D]`` in q's dtype, differentiable in q, k and v. All
+    tensors contiguous, on one device; requires D <= `MAX_HEAD_DIM`."""
     _check(q, k, v, lengths)
+    _device_check(q)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _MaskedFlashAttention.apply(q, k, v, lengths)
     if q.device.type == "cpu":
         return masked_flash_attention_reference(q, k, v, lengths)
-    if q.device.type != "cuda":
-        raise ValueError(f"masked_flash_attention: unsupported device "
-                         f"{q.device}")
     return _launch(q, k, v, lengths)[0]
 
 
@@ -156,10 +217,42 @@ def masked_flash_attention_probe(q, k, v, lengths):
                                    BLOCK_K)
         return out, blocks.to(torch.float32)[:, None, None].expand(
             b, h, sq).contiguous()
-    if q.device.type != "cuda":
-        raise ValueError(f"masked_flash_attention: unsupported device "
-                         f"{q.device}")
-    return _launch(q, k, v, lengths)
+    _device_check(q)
+    return _launch(q, k, v, lengths)[:2]
+
+
+def masked_flash_attention_backward_probe(q, k, v, lengths, do):
+    """One masked forward and backward on `do` with the blocks each
+    backward kernel entered: ``(dq, dk, dv, dq_visits [B, H, Sq],
+    dkv_visits [B, H])``. dq_visits counts the key tiles of `fa.TILE` the
+    dQ kernel entered per query row, ``ceil(length / TILE)``; dkv_visits
+    the key blocks of `fa.KEY_BLOCK` the dK/dV kernel entered per (row,
+    head), ``ceil(length / KEY_BLOCK)``. On the CPU they are those counts,
+    computed, since no kernel runs."""
+    _check(q, k, v, lengths)
+    _device_check(q)
+    b, sq, h, _ = q.shape
+    out, lse = masked_flash_attention_forward(q, k, v, lengths)
+    delta = fa.attention_delta(out, do)
+    lens = torch.clamp(lengths, max=k.shape[1])
+    if q.device.type == "cpu":
+        dq, dk, dv = masked_flash_attention_backward(q, k, v, lengths, do,
+                                                     lse, delta)
+        dq_vis = masked_key_blocks(lens, fa.TILE).to(torch.float32)
+        dkv_vis = masked_key_blocks(lens, fa.KEY_BLOCK).to(torch.float32)
+        return (dq, dk, dv,
+                dq_vis[:, None, None].expand(b, h, sq).contiguous(),
+                dkv_vis[:, None].expand(b, h).contiguous())
+    do = do.contiguous()
+    dq_vis = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    blocks = -(-k.shape[1] // fa.KEY_BLOCK)
+    dkv_vis = torch.empty((b, h, blocks), dtype=torch.float32,
+                          device=q.device)
+    dq = fa.launch_dq(q, k, v, do, lse, delta, lengths, dq_vis)
+    masked_flash_attention_backward.launches += 1
+    dk, dv = fa.launch_dkv(q, k, v, do, lse, delta, lengths, dkv_vis)
+    masked_flash_attention_backward.launches += 1
+    return dq, dk, dv, dq_vis, dkv_vis.sum(-1)
 
 
 def masked_key_blocks(lengths, block_k: int = BLOCK_K):

@@ -227,3 +227,33 @@ def flatten(x: torch.Tensor) -> torch.Tensor:
     """Row-major flatten of the NHWC layout — (h, w, c) order, the order
     the reference's dense kernels were laid out for."""
     return x.reshape(x.shape[0], -1)
+
+
+# ---------------------------------------------------------------------------
+# attention (the plain "xla" path of ViT; the kernels live in ops/kernels)
+
+
+def multi_head_attention(p: Params, x: torch.Tensor, num_heads: int,
+                         mask: torch.Tensor | None = None) -> torch.Tensor:
+    """``[B, S, D]`` self-attention through `dot_product_attention`: the
+    fused qkv projection split into heads, attention, the out
+    projection. `mask` ``[B, S]`` marks real tokens."""
+    b, s, d = x.shape
+    qkv = dense(p["qkv"], x).reshape(b, s, 3, num_heads, d // num_heads)
+    q, k, v = qkv.unbind(2)  # each [B, S, H, Dh]
+    out = dot_product_attention(q, k, v, mask=mask)
+    return dense(p["out"], out.reshape(b, s, d))
+
+
+def dot_product_attention(q, k, v, mask: torch.Tensor | None = None):
+    """``[B, S, H, Dh] -> [B, S, H, Dh]``, the reference's rounding: the
+    scores einsum in q's dtype, then f32 times ``Dh**-0.5``; keys outside
+    `mask` ``[B, S_k]`` get ``-1e30``; softmax in f32, the weights cast to
+    q's dtype, weights @ V in q's dtype."""
+    scale = q.shape[-1] ** -0.5
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k).to(torch.float32) * scale
+    if mask is not None:
+        logits = torch.where(mask[:, None, None, :].to(torch.bool), logits,
+                             torch.full((), -1e30, device=logits.device))
+    weights = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", weights, v)

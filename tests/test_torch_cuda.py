@@ -19,8 +19,10 @@ import torch
 from dist_mnist_tpu_torch import bench
 from dist_mnist_tpu_torch import optim as topt
 from dist_mnist_tpu_torch.data.datasets import load_dataset
+from dist_mnist_tpu_torch.models.vit import ViTTiny
 from dist_mnist_tpu_torch.ops import nn as tnn
 from dist_mnist_tpu_torch.ops import quant as tquant
+from dist_mnist_tpu_torch.ops.kernels import flash_attention as tflash
 from dist_mnist_tpu_torch.ops.kernels.fused_adam import (
     fused_adam_clip_wd_update,
     fused_adam_clip_wd_update_reference,
@@ -29,6 +31,9 @@ from dist_mnist_tpu_torch.ops.kernels.fused_adam import (
 )
 from dist_mnist_tpu_torch.ops.kernels.masked_flash import (
     masked_flash_attention,
+    masked_flash_attention_backward,
+    masked_flash_attention_backward_probe,
+    masked_flash_attention_forward,
     masked_flash_attention_probe,
     masked_flash_attention_reference,
 )
@@ -49,6 +54,8 @@ from dist_mnist_tpu_torch.serve import (
     make_images,
     run_decode_loadgen,
 )
+from dist_mnist_tpu_torch.train import TrainState, make_train_step
+from dist_mnist_tpu_torch.utils.tree import tree_map
 
 pytestmark = pytest.mark.cuda
 
@@ -357,3 +364,146 @@ def test_incremental_decode_bit_matches_full_forward_on_card(cuda):
                 params, cache, tokens[:, pos],
                 torch.full((3,), pos, dtype=torch.int32, device=cuda))
             assert torch.equal(logits, full[:, pos]), f"position {pos}"
+
+
+# -- ViT training: flash attention forward and backward ---------------------
+
+def _qkv(b, s, h, d, dtype, device, seed, fused=True):
+    """q, k, v ``[B, S, H, D]``: with `fused`, the strided views of one
+    ``[B, S, 3, H, D]`` projection, as ViT makes them."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((b, s, 3, h, d))
+                         .astype(np.float32)).to(device, dtype)
+    if fused:
+        return x.unbind(2)
+    return tuple(x[:, :, i].contiguous() for i in range(3))
+
+
+#: bf16 outputs are rounded once from f32 sums taken in another order: one
+#: bf16 ulp (2^-8) of the largest value. f32: the forward 1e-5; the
+#: backward's dS = P (dP - delta) cancels, 1e-4.
+FLASH_TOL = {torch.bfloat16: (1e-2, 1e-2), torch.float32: (1e-5, 1e-4)}
+
+
+@pytest.mark.parametrize("b,s,h,d,dtype,block_k,fused", [
+    (64, 65, 3, 64, torch.bfloat16, None, True),  # ViT-Tiny's shape
+    (7, 65, 3, 64, torch.float32, None, True),
+    (1, 65, 3, 64, torch.bfloat16, None, False),
+    (2, 17, 2, 16, torch.float32, None, True),
+    (1, 300, 2, 16, torch.float32, 128, True),   # the streamed rounding
+    (2, 300, 2, 16, torch.bfloat16, 128, False),
+    (2, 33, 2, 128, torch.float32, None, True),   # > 48 KB of smem
+])
+def test_flash_kernels_match_plain_versions(cuda, b, s, h, d, dtype,
+                                            block_k, fused):
+    q, k, v = _qkv(b, s, h, d, dtype, cuda, seed=b * s + d, fused=fused)
+    rng = np.random.default_rng(s)
+    do = torch.from_numpy(rng.standard_normal((b, s, h, d))
+                          .astype(np.float32)).to(cuda, dtype)
+    bk = tflash.quantize_block_k(block_k, s)
+    before = (tflash.flash_attention_forward.launches,
+              tflash.flash_attention_dq.launches,
+              tflash.flash_attention_dkv.launches)
+    out, lse = tflash.flash_attention_forward(q, k, v, bk)
+    delta = tflash.attention_delta(out, do)
+    dq = tflash.flash_attention_dq(q, k, v, do, lse, delta)
+    dk, dv = tflash.flash_attention_dkv(q, k, v, do, lse, delta)
+    torch.cuda.synchronize()
+    assert (tflash.flash_attention_forward.launches,
+            tflash.flash_attention_dq.launches,
+            tflash.flash_attention_dkv.launches) == tuple(
+                n + 1 for n in before)
+    want_out, want_lse = tflash.flash_attention_forward_reference(q, k, v, bk)
+    want = tflash.flash_attention_backward_reference(q, k, v, do, lse, delta)
+    fwd_tol, bwd_tol = FLASH_TOL[dtype]
+    assert out.dtype == dtype and out.is_contiguous()
+    assert _rel_err(out, want_out) <= fwd_tol
+    assert _rel_err(lse, want_lse) <= 1e-5
+    for got, ref in zip((dq, dk, dv), want):
+        assert got.dtype == dtype and got.shape == ref.shape
+        assert _rel_err(got, ref) <= bwd_tol
+
+
+def test_flash_attention_lse_backward_takes_dlse_on_card(cuda):
+    """The autograd Function on the card against the plain versions on
+    the CPU, a nonzero lse cotangent included."""
+    grads = {}
+    for device in ("cpu", cuda):
+        q, k, v = (t.detach().requires_grad_() for t in _qkv(
+            3, 65, 3, 64, torch.float32, device, seed=3, fused=False))
+        out, lse = tflash.flash_attention_lse(q, k, v)
+        rng = np.random.default_rng(4)
+        w_out = torch.from_numpy(rng.standard_normal(out.shape)
+                                 .astype(np.float32)).to(device)
+        w_lse = torch.from_numpy(rng.standard_normal(lse.shape)
+                                 .astype(np.float32)).to(device)
+        ((out * w_out).sum() + (lse * w_lse).sum()).backward()
+        grads[str(device)] = [t.cpu() for t in (out, lse, q.grad, k.grad,
+                                                v.grad)]
+    for got, want in zip(grads[str(cuda)], grads["cpu"]):
+        assert _rel_err(got, want) <= 1e-4
+
+
+def test_masked_backward_zero_past_length_on_card(cuda):
+    """ViT's shape with lengths 1 .. 65: dK and dV past each row's length
+    are exact zeros, the kernels entered exactly ceil(len / tile) key
+    tiles, and the grads match the plain version."""
+    b, s, h, d = 65, 65, 3, 64
+    q, k, v = (t.contiguous() for t in _qkv(b, s, h, d, torch.bfloat16,
+                                            cuda, seed=9))
+    lens = np.arange(1, b + 1, dtype=np.int32)
+    lengths = torch.from_numpy(lens).to(cuda)
+    do = torch.randn(b, s, h, d, generator=torch.Generator().manual_seed(2)
+                     ).to(cuda, torch.bfloat16)
+    before = masked_flash_attention_backward.launches
+    dq, dk, dv, dq_vis, dkv_vis = masked_flash_attention_backward_probe(
+        q, k, v, lengths, do)
+    torch.cuda.synchronize()
+    assert masked_flash_attention_backward.launches == before + 2
+    for g in (dk, dv):
+        for row, n in enumerate(lens):
+            assert torch.count_nonzero(g[row, n:]) == 0
+            assert torch.count_nonzero(g[row, :n]) > 0
+    assert np.array_equal(dq_vis.cpu().numpy(), np.broadcast_to(
+        (-(-lens // tflash.TILE)).astype(np.float32)[:, None, None],
+        (b, h, s)))
+    assert np.array_equal(dkv_vis.cpu().numpy(), np.broadcast_to(
+        (-(-lens // tflash.KEY_BLOCK)).astype(np.float32)[:, None], (b, h)))
+    out, lse = masked_flash_attention_forward(q, k, v, lengths)
+    delta = tflash.attention_delta(out, do)
+    want = tflash.flash_attention_backward_reference(q, k, v, do, lse, delta,
+                                                     lengths)
+    for got, ref in zip((dq, dk, dv), want):
+        assert _rel_err(got, ref) <= 1e-2
+
+
+def test_vit_remat_step_launch_counts(cuda):
+    """One `dots_no_batch` remat step of the flash ViT on the card: the
+    forward kernel runs twice per layer (the forward and its recompute),
+    dQ and dK/dV once per layer, and no other kernel."""
+    depth = 3
+    model = ViTTiny(depth=depth, attention_impl="flash", scan_blocks=True)
+    params, _ = model.init(torch.Generator().manual_seed(0),
+                           torch.zeros(1, 32, 32, 3))
+    params = tree_map(lambda t: t.to(cuda), params)
+    opt = topt.adamw(1e-3, weight_decay=0.05)
+    state = TrainState(torch.zeros((), dtype=torch.int32, device=cuda),
+                       params, {}, opt.init(params),
+                       torch.Generator(device=cuda).manual_seed(1))
+    rng = np.random.default_rng(0)
+    batch = {"image": torch.from_numpy(rng.integers(
+                 0, 256, (64, 32, 32, 3), dtype=np.uint8)).to(cuda),
+             "label": torch.from_numpy(rng.integers(
+                 0, 10, 64, dtype=np.int32)).to(cuda)}
+    counters = (tflash.flash_attention_forward, tflash.flash_attention_dq,
+                tflash.flash_attention_dkv, masked_flash_attention,
+                masked_flash_attention_backward, fused_adam_update,
+                fused_adam_clip_wd_update)
+    for fn in counters:
+        fn.launches = 0
+    step = make_train_step(model, opt, remat=True, augment=True)
+    state, out = step(state, batch)
+    torch.cuda.synchronize()
+    assert [fn.launches for fn in counters] == [2 * depth, depth, depth,
+                                                0, 0, 0, 0]
+    assert np.isfinite(float(out["loss"]))
