@@ -97,18 +97,10 @@ class ViTTiny:
     # "xla" | "flash"; "ring" | "ring_flash" | "ulysses" | "ulysses_flash"
     # come with the parallel-attention slice
     attention_impl: str = "xla"
-    attention_block_k: int | None = None  # flash: the streamed rounding
     pool: str = "cls"  # "cls" | "mean"
     mlp_impl: str = "dense"  # "moe" comes with the parallel slice
-    n_experts: int = 4
-    moe_capacity_factor: float = 1.25
-    moe_top_k: int = 1
-    moe_aux_weight: float = 1e-2
     scan_blocks: bool = False  # the stacked `blocks` layout
-    block_pipeline: int = 0
-    pipeline_microbatches: int = 8
-    pipeline_skip_bubble: bool = False
-    pipeline_circular: int = 0
+    block_pipeline: int = 0  # the GPipe stack comes with the parallel slice
 
     def __post_init__(self):
         if self.attention_impl in _LATER:
@@ -213,11 +205,10 @@ class ViTTiny:
             # token masks are key prefixes: the masked kernels take
             # per-row lengths and skip key tiles past them
             lengths = mask.to(torch.int32).sum(-1, dtype=torch.int32)
-            out = masked_flash_attention_sharded(
-                q, k, v, lengths, block_k=self.attention_block_k)
+            out = masked_flash_attention_sharded(q, k, v, lengths)
         else:
-            out = flash_attention_sharded(q, k, v,
-                                          block_k=self.attention_block_k)
+            # full-K tiles, the reference's rule for every ViT call
+            out = flash_attention_sharded(q, k, v)
         return nn.dense(p["out"], out.reshape(b, s, d))
 
     def _block(self, p, x, keep=None, mask=None):

@@ -10,7 +10,9 @@ says how they are laid out and what bounds them. The same backward kernels
 take an optional lengths vector and serve the masked backward
 (`ops/kernels/masked_flash.py`).
 
-Public functions keep the reference's signatures and block quantization:
+Public functions keep the reference's signatures and its block_k
+quantization (block_q is accepted and unused: the kernels tile queries
+their own way):
 
 - `flash_attention(q, k, v)` returns ``out [B, S, H, D]`` in q's dtype;
 - `flash_attention_lse(q, k, v)` returns ``(out, lse [B, H, S])``, lse in
@@ -68,13 +70,6 @@ _ARGTYPES = {
 
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
-
-
-def quantize_block_q(block_q: int, s: int) -> int:
-    """The reference's `_quantize_block_q`: 128-aligned, capped at the
-    padded sequence. The CUDA kernels tile queries their own way; the
-    value is kept for the reference's signature."""
-    return min(_round_up(block_q, 128), _round_up(s, 128))
 
 
 def quantize_block_k(block_k: int | None, s: int) -> int | None:
@@ -385,10 +380,10 @@ class _FlashAttentionLSE(torch.autograd.Function):
 def flash_attention(q, k, v, *, block_q: int = 128,
                     block_k: int | None = None):
     """``[B, S, H, D]`` self-attention (non-causal), differentiable: the
-    reference's `flash_attention`. `block_q` is quantized as the
-    reference's (the kernels tile queries their own way); `block_k`
-    selects the rounding rule (see the module docstring)."""
-    quantize_block_q(block_q, q.shape[1])
+    reference's `flash_attention`. `block_q` is accepted for the
+    reference's signature only: the kernels tile queries their own way.
+    `block_k` selects the rounding rule (see the module docstring)."""
+    del block_q
     return _FlashAttention.apply(q, k, v,
                                  quantize_block_k(block_k, q.shape[1]))
 
@@ -396,8 +391,9 @@ def flash_attention(q, k, v, *, block_q: int = 128,
 def flash_attention_lse(q, k, v, *, block_q: int = 128,
                         block_k: int | None = None):
     """`flash_attention` that also returns ``lse [B, H, S]`` f32, the
-    merge-ready pair of blockwise attention; differentiable in both."""
-    quantize_block_q(block_q, q.shape[1])
+    merge-ready pair of blockwise attention; differentiable in both.
+    `block_q` is accepted for the reference's signature only."""
+    del block_q
     return _FlashAttentionLSE.apply(q, k, v,
                                     quantize_block_k(block_k, q.shape[1]))
 
@@ -409,18 +405,34 @@ def flash_attention_lse(q, k, v, *, block_q: int = 128,
 def flash_attention_cost(b: int, s: int, h: int, d: int,
                          dtype: torch.dtype) -> dict:
     """The work of one forward and one backward (dQ + dK/dV) call on these
-    shapes: the products' FLOPs (forward: QK^T and PV; backward: the
-    recompute split's seven, as the reference's kernels do them: QK^T,
-    dO V^T and dS K in the dQ kernel, QK^T, dO V^T, P^T dO and dS^T Q in
-    the dK/dV kernel) and the bytes each must move, every input read once
-    and every output written once (forward: q, k, v in, out and the f32
-    lse back; backward: q, k, v, dO, lse and delta in, dq, dk, dv back)."""
+    shapes. FLOPs are those of the products the function needs, keyed by
+    the type of their operands, since that type sets the card's peak for
+    them. Forward: QK^T and PV, both in the inputs' dtype (P is rounded to
+    v's dtype). Backward: QK^T and dO V^T in the inputs' dtype, and dV =
+    P^T dO, dQ = dS K and dK = dS^T Q with an f32 operand (the recomputed P,
+    dS). ``bwd_split_flops`` counts the seven products of the dQ / dK-dV
+    recompute split the kernels (and the reference's) run, all in f32.
+    Bytes: every input read once and every output written once (forward:
+    q, k, v in, out and the f32 lse back; backward: q, k, v, dO, lse and
+    delta in, dq, dk, dv back)."""
     el = torch.tensor([], dtype=dtype).element_size()
     mat = b * s * h * d * el
     vec = b * h * s * 4
     return {
-        "fwd_flops": float(2 * 2 * b * h * s * s * d),
+        "fwd_flops": attention_flops_by_type(b * h * s * s * d, dtype, 2, 0),
         "fwd_bytes": float(4 * mat + vec),
-        "bwd_flops": float(7 * 2 * b * h * s * s * d),
+        "bwd_flops": attention_flops_by_type(b * h * s * s * d, dtype, 2, 3),
+        "bwd_split_flops": float(7 * 2 * b * h * s * s * d),
         "bwd_bytes": float(4 * mat + 2 * vec + 3 * mat),
     }
+
+
+def attention_flops_by_type(macs: float, dtype: torch.dtype, n_in: int,
+                            n_f32: int) -> dict:
+    """FLOPs keyed by operand type: `n_in` products of `macs`
+    multiply-adds each whose operands are in `dtype`, and `n_f32` whose
+    operands include an f32 one."""
+    name = str(dtype).removeprefix("torch.")
+    out = {name: float(2 * macs * n_in)}
+    out["float32"] = out.get("float32", 0.0) + float(2 * macs * n_f32)
+    return {k: v for k, v in out.items() if v}

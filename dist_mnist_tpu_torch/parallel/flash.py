@@ -28,14 +28,6 @@ def _one_device(mesh: MeshSpec | None) -> None:
             "one device")
 
 
-def flash_attention_tagged(q, k, v, block_k=None, *,
-                           mesh: MeshSpec | None = None):
-    """`flash_attention_sharded`. The reference also tags the result
-    ``attn_out`` for its `save_attn` remat policy, which the port does not
-    have yet (`train/step.py`), so there is nothing to tag."""
-    return flash_attention_sharded(q, k, v, block_k=block_k, mesh=mesh)
-
-
 def flash_attention_sharded(q, k, v, block_k=None, *,
                             mesh: MeshSpec | None = None):
     """``[B, S, H, D]`` flash attention (`ops/kernels/flash_attention.py`)

@@ -8,6 +8,7 @@ from __future__ import annotations
 import ast
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
 import pytest
@@ -17,10 +18,24 @@ PORT = ROOT / "dist_mnist_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "dist_mnist_tpu")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _own_temp_root(tmp_path_factory):
+    """A temp root of this module's own, set before the suite's
+    per-test leak check reads it: that check looks for stray temp dirs,
+    and tests that run at the same time in other processes make such dirs
+    under the shared root. What these tests leak still lands where the
+    check looks."""
+    shared = tempfile.tempdir
+    tempfile.tempdir = str(tmp_path_factory.mktemp("temp_root"))
+    yield
+    tempfile.tempdir = shared
+
+
 def _sources() -> list[Path]:
-    # the card-only tests run on the GPU machine too
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                         ROOT / "tests/test_torch_cuda.py"]
+    # the card-only tests and the mutation check run on the GPU machine too
+    return sorted(PORT.rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "tests/test_torch_cuda.py",
+        ROOT / "scripts/torch_flash_mutation_check.py"]
 
 
 def _forbidden(module: str) -> bool:

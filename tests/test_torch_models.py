@@ -11,6 +11,7 @@ kernel's math, not the materialize path's.
 from __future__ import annotations
 
 import dataclasses
+import tempfile
 
 import numpy as np
 import pytest
@@ -30,6 +31,19 @@ from dist_mnist_tpu_torch.data.datasets import DATASETS as TDATASETS
 from dist_mnist_tpu_torch.models.registry import get_model as tget_model
 from dist_mnist_tpu_torch.ops import nn as tnn
 from dist_mnist_tpu_torch.ops import quant as tquant
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _own_temp_root(tmp_path_factory):
+    """A temp root of this module's own, set before the suite's
+    per-test leak check reads it: that check looks for stray temp dirs,
+    and tests that run at the same time in other processes make such dirs
+    under the shared root. What these tests leak still lands where the
+    check looks."""
+    shared = tempfile.tempdir
+    tempfile.tempdir = str(tmp_path_factory.mktemp("temp_root"))
+    yield
+    tempfile.tempdir = shared
 
 
 def _images(n, shape=(28, 28, 1), seed=0):

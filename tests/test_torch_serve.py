@@ -16,6 +16,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
 import numpy as np
@@ -49,6 +50,19 @@ from dist_mnist_tpu_torch.utils.device import resolve_device
 
 IMAGE_SHAPE = (28, 28, 1)
 ROOT = Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _own_temp_root(tmp_path_factory):
+    """A temp root of this module's own, set before the suite's
+    per-test leak check reads it: that check looks for stray temp dirs,
+    and tests that run at the same time in other processes make such dirs
+    under the shared root. What these tests leak still lands where the
+    check looks."""
+    shared = tempfile.tempdir
+    tempfile.tempdir = str(tmp_path_factory.mktemp("temp_root"))
+    yield
+    tempfile.tempdir = shared
 
 
 def _engines(mesh, name, max_bucket=64, seed=0):
