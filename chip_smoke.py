@@ -14,8 +14,12 @@ script. Phases (any failure exits nonzero before the final `ok` line):
 3. hold each kernel against its plain PyTorch version on the card at the
    paths' shapes: `quant_matmul` at LeNet-5 fc1 [M,3136]x[3136,512] and
    fc2 [M,512]x[512,10] in bf16, the MLP's [M,784]x[784,100] and
-   [M,100]x[100,10] in f32, for M in {1, 7, 64}, within 1e-2 (bf16) and
-   2e-5 (f32) of the largest output; both fused-Adam kernels at LeNet-5's
+   [M,100]x[100,10] in f32, for M in {1, 7, 64}, bf16 also at M in {16,
+   17, 65, 200} and at [M,1000]x[1000,96] (a K the split size does not
+   divide) and [M,1001]x[1001,40] (rows not 16-byte aligned), within 1e-2
+   (bf16) and 2e-5 (f32) of the largest output, and the split-K
+   reduction's bits the same twice and under another stream (fc1, M in
+   {7, 64, 200}); both fused-Adam kernels at LeNet-5's
    8 leaf sizes and n in {1, 7, 129}, m' and v' within 1e-6 and delta
    within 1e-5 of the largest value (clip scale 0.37, weight decay on);
    `paged_attention` (phase `paged_parity`: 9 rows, 8 heads of 16, pages
@@ -25,7 +29,10 @@ script. Phases (any failure exits nonzero before the final `ok` line):
    the pages or key blocks they visit counted; the flash kernels (phase
    `flash_parity`): the forward's out and lse and the backward's dq, dk,
    dv at ViT's shape (S = 65, 3 heads of 64) for B in {1, 7, 64} in bf16
-   and f32, at S = 17 and 300 with block_k = 128, `flash_attention_lse`'s
+   and f32, at S = 17 and 300 with block_k = 128, the bf16 tensor-core
+   forward alone at S in {1, 17, 65, 128, 129, 300} with and without
+   block_k = 128, at D in {16, 40, 128} and on views that are not 16-byte
+   aligned (out 1e-2, lse 1e-5), `flash_attention_lse`'s
    autograd with a nonzero lse cotangent, and the masked backward with
    lengths 1 to 65 (dk, dv exactly 0 past each length, key tiles entered
    counted), within 1e-2 (bf16), 1e-5 (f32 forward, lse) and 1e-4 (f32
@@ -671,6 +678,43 @@ def time_decode_kernels(torch, dev, bw: float, f32_peak: float) -> dict:
 #: ViT-Tiny's attention shape on the training path (`vit_tiny_cifar_flash`,
 #: per-chip batch 64): 64 patch tokens + CLS, 3 heads of 64
 VIT_B, VIT_S, VIT_H, VIT_D = 64, 65, 3, 64
+#: rows of the `quant_matmul` parity cases: every shape at 1, 7 and 64 (the
+#: timed ones), bf16 also at the split-K kernel's ragged row counts
+QMM_ROWS = (1, 7, 64)
+QMM_BF16_ROWS = (1, 7, 16, 17, 64, 65, 200)
+QMM_TIMED = ("lenet5/fc1", "lenet5/fc2", "mlp/hid", "mlp/sm")
+
+
+def split_k_repeat(torch, dev, quant_mod, quant_matmul) -> None:
+    """The bf16 split-K reduction sums its partials in split order,
+    whichever block arrives last: at fc1's shape, the same inputs give the
+    same bits twice and under another stream. Fails on any bit."""
+    from dist_mnist_tpu_torch.ops.kernels.quant_matmul import split_k_plan
+
+    gen = torch.Generator().manual_seed(1)
+    qa = quant_mod.quantize((torch.randn(3136, 512, generator=gen)
+                             / 56.0).to(dev))
+    for m in (7, 64, 200):
+        x = torch.rand(m, 3136, generator=gen).to(dev, torch.bfloat16)
+        first = quant_matmul(x, qa.q, qa.scale)
+        again = quant_matmul(x, qa.q, qa.scale)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            other = quant_matmul(x, qa.q, qa.scale)
+        torch.cuda.synchronize()
+        bits = first.view(torch.int16)
+        same = (torch.equal(bits, again.view(torch.int16))
+                and torch.equal(bits, other.view(torch.int16)))
+        print(json.dumps({"phase": "parity", "check": "split-K bitwise "
+                          "repeat (twice, and under another stream)",
+                          "shape": "lenet5/fc1", "m": m,
+                          "splits": split_k_plan(m, 3136, 512)[1],
+                          "bitwise": same}), flush=True)
+        if not same:
+            fail(f"quant_matmul bf16 M={m}: split-K repeat changed bits")
+
+
 #: kernel-vs-plain tolerances, relative to the largest |value|: bf16
 #: outputs are rounded once from f32 sums taken in another order (one bf16
 #: ulp, 2^-8, of the largest value); f32 forward 1e-5 (as the decode
@@ -746,6 +790,48 @@ def flash_parity(torch, dev) -> dict:
         worst["flash_attention_backward"] = max(
             worst["flash_attention_backward"],
             *(errs[g][0] for g in ("dq", "dk", "dv")))
+
+    # the bf16 tensor-core forward at ragged S (one pass up to 128, key
+    # tiles above; block_k = 128 streams above 128), other head dims
+    # (D = 40 zero-padded to 64) and views that are not 16-byte aligned
+    fwd_cases = [(3, s, 2, 64, "fused", bk) for s in (1, 17, 65, 128, 129, 300)
+                 for bk in (None, 128)]
+    fwd_cases += [(2, s, 2, d, "contiguous", bk) for d in (16, 40, 128)
+                  for s, bk in ((65, None), (300, None), (300, 128))]
+    fwd_cases += [(2, s, 3, 64, "unaligned", bk)
+                  for s, bk in ((65, None), (129, None), (129, 128))]
+    for i, (b, s, h, d, layout, block_k) in enumerate(fwd_cases):
+        q, k, v = _fused_qkv(torch, b, s, h, d, torch.bfloat16, dev,
+                             seed=100 + i)
+        if layout == "contiguous":
+            q, k, v = (t.contiguous() for t in (q, k, v))
+        elif layout == "unaligned":  # one element past a 16-byte start
+            q, k, v = (torch.cat([t.new_zeros(1), t.flatten()])[1:]
+                       .view(t.shape) for t in (q, k, v))
+        bk = fa.quantize_block_k(block_k, s)
+        before = fa.flash_attention_forward.launches
+        out, lse = fa.flash_attention_forward(q, k, v, bk)
+        want_out, want_lse = fa.flash_attention_forward_reference(q, k, v, bk)
+        torch.cuda.synchronize()
+        errs = {"out": rel_err(out, want_out), "lse": rel_err(lse, want_lse)}
+        launched = fa.flash_attention_forward.launches - before
+        print(json.dumps({"phase": "flash_parity", "case": "bf16 forward",
+                          "b": b, "s": s, "h": h, "d": d, "layout": layout,
+                          "aligned16": fa.views_aligned16(q, k, v),
+                          "block_k": block_k, "rounding": "normalized"
+                          if bk is None else "streamed", "launches": launched,
+                          **{f"{n}_max_abs_err": e[0]
+                             for n, e in errs.items()},
+                          **{f"{n}_max_rel_err": e[1]
+                             for n, e in errs.items()},
+                          "tol": {"fwd": FLASH_TOL["bfloat16"][0],
+                                  "lse": LSE_TOL}}), flush=True)
+        if launched != 1 or errs["out"][1] > FLASH_TOL["bfloat16"][0] \
+                or errs["lse"][1] > LSE_TOL:
+            fail(f"bf16 flash forward B={b} S={s} D={d} {layout} "
+                 f"block_k={block_k}: {launched} launches, {errs}")
+        worst["flash_attention_forward"] = max(
+            worst["flash_attention_forward"], errs["out"][0])
 
     # flash_attention_lse's autograd Function: both cotangents
     q, k, v = (t.detach().requires_grad_() for t in _fused_qkv(
@@ -1165,13 +1251,18 @@ def main() -> None:
     shapes = [("lenet5/fc1", 3136, 512, torch.bfloat16),
               ("lenet5/fc2", 512, 10, torch.bfloat16),
               ("mlp/hid", 784, 100, torch.float32),
-              ("mlp/sm", 100, 10, torch.float32)]
+              ("mlp/sm", 100, 10, torch.float32),
+              # bf16 split-K: a K the split size does not divide, and rows
+              # not 16-byte aligned (K % 8, H % 16: the plain-load staging)
+              ("ragged-k", 1000, 96, torch.bfloat16),
+              ("unaligned", 1001, 40, torch.bfloat16)]
     gen = torch.Generator().manual_seed(0)
     operands, worst = {}, {"abs": 0.0, "rel": 0.0}
     for label, d, h, dtype in shapes:
         w = torch.randn(d, h, generator=gen) / d ** 0.5
         qa = quant_mod.quantize(w.to(dev))
-        for m in (1, 7, 64):
+        ms = QMM_BF16_ROWS if dtype == torch.bfloat16 else QMM_ROWS
+        for m in ms:
             x = torch.rand(m, d, generator=gen).to(dev, dtype)
             got = quant_matmul(x, qa.q, qa.scale)
             want = quant_matmul_reference(x, qa.q, qa.scale)
@@ -1185,7 +1276,9 @@ def main() -> None:
                 fail(f"quant_matmul {label} M={m}: rel err {rel} > {tol}")
             worst["abs"] = max(worst["abs"], abs_err)
             worst["rel"] = max(worst["rel"], rel)
-            operands[(label, m)] = (x, qa)
+            if m in QMM_ROWS and label in QMM_TIMED:
+                operands[(label, m)] = (x, qa)
+    split_k_repeat(torch, dev, quant_mod, quant_matmul)
 
     # both fused-Adam kernels against their plain versions: LeNet-5's leaf
     # sizes and sizes that leave a tail after the float4 loads
@@ -1518,13 +1611,17 @@ def main() -> None:
     vit_shape = (f"ViT-Tiny training: B={VIT_B}, S={VIT_S}, H={VIT_H}, "
                  f"D={VIT_D}, bf16, strided q/k/v of the fused projection")
     flash_rows = []
-    for name, src_line, launches_on_path, shape in (
+    for name, src_line, body, launches_on_path, shape in (
             ("flash_attention_forward", "flash_attention.py:288",
+             "flash_fwd_mma_onepass (bf16, S <= 128; flash_fwd_mma_tiled "
+             "above; the f32 route: flash_fwd_kernel)",
              vit_counts["flash_attention_forward"], vit_shape),
             ("flash_attention_backward", "flash_attention.py:350",
+             "flash_dq_kernel + flash_dkv_kernel",
              vit_counts["flash_attention_dq"]
              + vit_counts["flash_attention_dkv"], vit_shape),
-            ("masked_flash_attention_backward", "flash_attention.py:726", 0,
+            ("masked_flash_attention_backward", "flash_attention.py:726",
+             "flash_dq_kernel + flash_dkv_kernel with lengths", 0,
              f"B={VIT_B}, S={VIT_S}, H={VIT_H}, D={VIT_D}, bf16, lengths "
              "2..65")):
         row = flash_timed[name]
@@ -1533,6 +1630,7 @@ def main() -> None:
             "route": "cuda",
             "source": "dist_mnist_tpu_torch/csrc/flash_attention.cu",
             "replaces": f"dist_mnist_tpu/ops/pallas/{src_line}",
+            "body": body,
             "launches": launches_on_path,
             "max_abs_err": flash_worst[name],
             "shape": shape,
@@ -1555,6 +1653,8 @@ def main() -> None:
         "route": "cuda",
         "source": "dist_mnist_tpu_torch/csrc/quant_matmul.cu",
         "replaces": "dist_mnist_tpu/ops/pallas/quant_matmul.py:50",
+        "body": "qmm_bf16_splitk_kernel (tensor-core split-K; the f32 "
+                "route: qmm_f32_kernel)",
         "launches": launches,
         "max_abs_err": worst["abs"],
         "max_rel_err": worst["rel"],

@@ -2,12 +2,13 @@
 //
 // Replaces three Pallas TPU kernels of dist_mnist_tpu/ops/pallas/flash_attention.py:
 //
-//   flash_fwd_kernel  <- `_flash_fwd_impl` (`_attn_fwd_kernel`, and the streamed
-//                        `_attn_fwd_kernel_kt`)
-//   flash_dq_kernel   <- `_flash_bwd_impl` (`_attn_dq_kernel`, `_attn_dq_kernel_kt`)
-//                        and `_masked_flash_bwd_impl` (`_masked_attn_dq_kernel`)
-//   flash_dkv_kernel  <- `_flash_bwd_impl` (`_attn_dkv_kernel`, `_attn_dkv_kernel_qt`)
-//                        and `_masked_flash_bwd_impl` (`_masked_attn_dkv_kernel`)
+//   flash_fwd_mma_onepass,  <- `_flash_fwd_impl` (`_attn_fwd_kernel`, and the streamed
+//   flash_fwd_mma_tiled,       `_attn_fwd_kernel_kt`): the first two for bf16, the
+//   flash_fwd_kernel           last for f32
+//   flash_dq_kernel         <- `_flash_bwd_impl` (`_attn_dq_kernel`, `_attn_dq_kernel_kt`)
+//                              and `_masked_flash_bwd_impl` (`_masked_attn_dq_kernel`)
+//   flash_dkv_kernel        <- `_flash_bwd_impl` (`_attn_dkv_kernel`, `_attn_dkv_kernel_qt`)
+//                              and `_masked_flash_bwd_impl` (`_masked_attn_dkv_kernel`)
 //
 // What they compute, per (batch row b, head h), with scale = D**-0.5:
 //
@@ -34,35 +35,58 @@
 // contiguous [B, H, S] f32; lengths (optional) [B] int32. The forward takes
 // Sq = Sk = S; the backward takes Sq and Sk apart (the masked decode shapes).
 //
-// Design. The TPU kernels keep a whole query tile's [block_q, S] scores in VMEM
-// and let the MXU take the three or four products. Here a block of 4 warps owns
-// ROWS = 16 rows (queries in the forward and dQ kernels, keys in the dK/dV kernel),
-// 4 per warp, and walks the other axis in tiles of TILE = 32 staged in shared
-// memory as f32, one element of the tile per lane: lane j scores its key (or
-// query) against the warp's 4 rows, a warp reduction takes the row max and sum,
-// and the products accumulate D/32 output dimensions per lane from the lanes'
-// probabilities passed round by shuffles. Rows staged with lane-indexed reads are
-// padded by one float, so 32 lanes reading one dimension of 32 rows hit 32 banks.
-// The dQ and dK/dV kernels are kept apart, as on the TPU, so that every output
-// element is written by one thread in a fixed order: no atomics, and the
-// gradients are the same bits on every run. The normalized forward takes two
-// passes over the keys (max and sum, then the product), because it divides by
-// the full row sum before rounding; the streamed one takes one. Key tiles past a
-// row's length are never entered; a dK/dV block wholly past the length writes
-// exact zeros. No loop runs past S: keys and queries beyond it are masked where
-// they could enter a softmax and read as zeros elsewhere.
+// The bf16 forward: mma.sync on the tensor cores. The product of two bf16 values is
+// exact in f32, so mma.sync m16n8k16 with an f32 accumulator forms exactly the
+// reference's f32(q) f32(k) and round_v(p) f32(v) products; only the order of the f32
+// sums changes. A warp owns 16 query rows; a block of up to 8 warps shares K and V
+// tiles staged in shared memory as bf16 by 16-byte cp.async, read in place from the
+// strided views (rows padded by 16 bytes, so ldmatrix reads them without bank
+// conflicts; D padded with zeros to 16, 32, 64 or 128). Q goes into A fragments once.
+// QK^T leaves the f32 logits in the accumulator fragments; keys at or past S are set
+// to -1e30, and a row's max and sum are taken over its quad of lanes by shuffles.
+//   * S <= 128 (every ViT call: S = 65, 80 padded keys, 40 logits a thread): one block
+//     holds the whole head (ceil(S / 16) warps; 192 blocks at ViT's B = 64, H = 3) and
+//     the whole key axis in registers: one pass of scores, max, sum, then
+//     round_bf16(exp(s - m) / l) (IEEE expf and division, no --use_fast_math), which
+//     is re-packed from the accumulator fragments as the A operand of PV
+//     (FlashAttention-2's register reuse). V's tile lands while QK^T runs.
+//   * S > 128: blocks of 8 warps over 128 query rows walk key tiles of 64: the
+//     normalized rule in two passes (max and sum, then the product), the streamed
+//     rule in one (online softmax, unnormalized rounded p, acc / l at the end).
+//   PV reads V by ldmatrix.trans and accumulates in f32; out is rounded to bf16 and
+//   lse = m + log(l) stored in f32. Views whose base or row strides are not 16-byte
+//   aligned are staged by plain loads (the VEC = false instantiations).
+//
+// The f32 forward and the backward: CUDA-core FMAs (f32 operands would be cut by
+// TF32 on the tensor cores). A block of 4 warps owns ROWS = 16 rows (queries in the
+// forward and dQ kernels, keys in the dK/dV kernel), 4 per warp, and walks the other
+// axis in tiles of TILE = 32 staged in shared memory as f32, one element of the tile
+// per lane: lane j scores its key (or query) against the warp's 4 rows, a warp
+// reduction takes the row max and sum, and the products accumulate D/32 output
+// dimensions per lane from the lanes' probabilities passed round by shuffles. Rows
+// staged with lane-indexed reads are padded by one float, so 32 lanes reading one
+// dimension of 32 rows hit 32 banks. The dQ and dK/dV kernels are kept apart, as on
+// the TPU, so that every output element is written by one thread in a fixed order:
+// no atomics, and the gradients are the same bits on every run. The normalized
+// forward takes two passes over the keys (max and sum, then the product), because it
+// divides by the full row sum before rounding; the streamed one takes one. Key tiles
+// past a row's length are never entered; a dK/dV block wholly past the length writes
+// exact zeros. No loop runs past S: keys and queries beyond it are masked where they
+// could enter a softmax and read as zeros elsewhere.
 //
 // What bounds it. At ViT-Tiny's shape (B = 64, S = 65, H = 3, D = 64, bf16) a call
-// moves a few MB and does 0.2 (forward) to 0.7 (backward) GFLOP, all of it as f32
-// FMAs on the CUDA cores, because the TPU kernels form the logits from f32
-// operands. Against the card's f32 rate the operations bound it, a few us; the
-// tensor cores (wgmma on bf16 tiles) would lift that bound, and are later work.
-// No --use_fast_math.
+// moves a few MB and does 0.2 (forward) to 0.7 (backward) GFLOP. The forward's
+// products are bf16 on the tensor cores, so its bound is the 6.4 MB it moves (1.9
+// us); what is left between it and the bound is latency: each block loads its head's
+// q, k and v once and does ~80 mma per warp. The backward's f32 FMAs on the CUDA
+// cores bound it (its tensor-core port is later work). No --use_fast_math.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "tensor_core.cuh"
 
 namespace {
 
@@ -85,9 +109,6 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162flo
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 __device__ __forceinline__ float round_to(float x, float) { return x; }
-__device__ __forceinline__ float round_to(float x, __nv_bfloat16) {
-    return __bfloat162float(__float2bfloat16(x));
-}
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -447,6 +468,317 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     }
 }
 
+// -- bf16 forward on the tensor cores -----------------------------------------
+
+constexpr int MMA_MAX_WARPS = 8;   // query rows per block: 16 a warp
+constexpr int ONE_PASS_KEYS = 128; // the whole key axis in registers up to this S
+constexpr int KEY_TILE = 64;       // keys per tile above it
+
+// rows [row0, row0 + n) of (b, h) into dst (row pitch `pitch` bf16) with D padded
+// by zeros to DP; rows at or past `limit` read as zeros. VEC: 16-byte cp.async
+// (base, strides and D all multiples of 8 elements); else plain loads and stores.
+template <int DP, bool VEC>
+__device__ __forceinline__ void stage_bf16(__nv_bfloat16* dst, int pitch,
+                                           const __nv_bfloat16* __restrict__ src, Layout L,
+                                           int b, int h, int row0, int n, int limit, int D) {
+    const __nv_bfloat16* base = src + b * L.b + h * L.h;
+    if (VEC) {
+        constexpr int GROUPS = DP / 8;
+        for (int e = threadIdx.x; e < n * GROUPS; e += blockDim.x) {
+            const int r = e / GROUPS;
+            const int c = (e - r * GROUPS) * 8;
+            const int row = row0 + r;
+            const bool ok = row < limit && c < D;
+            tc::cp_async16(dst + r * pitch + c, ok ? base + row * L.s + c : src, ok ? 16 : 0);
+        }
+    } else {
+        for (int e = threadIdx.x; e < n * DP; e += blockDim.x) {
+            const int r = e / DP;
+            const int c = e - r * DP;
+            const int row = row0 + r;
+            dst[r * pitch + c] =
+                row < limit && c < D ? base[row * L.s + c] : __float2bfloat16(0.f);
+        }
+    }
+}
+
+// Q's A fragments for the warp's 16 rows, from q_s (row pitch PITCH)
+template <int DP>
+__device__ __forceinline__ void load_q_frags(uint32_t (&qf)[DP / 16][4],
+                                             const __nv_bfloat16* q_s, int pitch) {
+    const int lane = threadIdx.x & 31;
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk)
+        tc::ldmatrix_x4(qf[kk], q_s + (lane & 15) * pitch + kk * 16 + (lane >> 4) * 8);
+}
+
+// s[2j], s[2j+1] += Q (16 rows) . K[key0 + 16j .. + 16)^T for j < groups: B from k_s
+// (row pitch PITCH) by ldmatrix; then times `scale`, -1e30 at keys >= S
+template <int DP, int NT>
+__device__ __forceinline__ void scores(float (&s)[NT][4], const uint32_t (&qf)[DP / 16][4],
+                                       const __nv_bfloat16* k_s, int pitch, int groups,
+                                       int key0, int S, float scale) {
+    const int lane = threadIdx.x & 31;
+    const int t = lane & 3;
+#pragma unroll
+    for (int j = 0; j < NT / 2; ++j) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s[2 * j][i] = s[2 * j + 1][i] = 0.f;
+        if (j < groups) {
+#pragma unroll
+            for (int kk = 0; kk < DP / 16; ++kk) {
+                uint32_t kb[4];
+                tc::ldmatrix_x4(kb, k_s + (j * 16 + (lane & 7) + (lane >> 4) * 8) * pitch +
+                                        kk * 16 + ((lane >> 3) & 1) * 8);
+                tc::mma_bf16(s[2 * j], qf[kk], kb[0], kb[1]);
+                tc::mma_bf16(s[2 * j + 1], qf[kk], kb[2], kb[3]);
+            }
+        }
+    }
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            const int key = key0 + n * 8 + 2 * t + (i & 1);
+            s[n][i] = key < S ? s[n][i] * scale : NEG;
+        }
+    }
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+    x = fmaxf(x, __shfl_xor_sync(FULL, x, 1));
+    return fmaxf(x, __shfl_xor_sync(FULL, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+    x += __shfl_xor_sync(FULL, x, 1);
+    return x + __shfl_xor_sync(FULL, x, 2);
+}
+
+// row max of the thread's two rows (g: regs 0, 1; g + 8: regs 2, 3) over the quad
+template <int NT>
+__device__ __forceinline__ void row_max(const float (&s)[NT][4], float (&mx)[2]) {
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+        mx[0] = fmaxf(mx[0], fmaxf(s[n][0], s[n][1]));
+        mx[1] = fmaxf(mx[1], fmaxf(s[n][2], s[n][3]));
+    }
+    mx[0] = quad_max(mx[0]);
+    mx[1] = quad_max(mx[1]);
+}
+
+// o[2dt], o[2dt+1] += P (16 rows x 16 keys per group, A fragments packed from the
+// probabilities p[2j], p[2j+1]) . V[16j .. + 16) for j < groups; V from v_s by
+// ldmatrix.trans
+template <int DP, int NT>
+__device__ __forceinline__ void accumulate_pv(float (&o)[DP / 8][4], const float (&p)[NT][4],
+                                              const __nv_bfloat16* v_s, int pitch,
+                                              int groups) {
+    const int lane = threadIdx.x & 31;
+#pragma unroll
+    for (int j = 0; j < NT / 2; ++j) {
+        if (j < groups) {
+            const uint32_t a[4] = {tc::pack_bf16(p[2 * j][0], p[2 * j][1]),
+                                   tc::pack_bf16(p[2 * j][2], p[2 * j][3]),
+                                   tc::pack_bf16(p[2 * j + 1][0], p[2 * j + 1][1]),
+                                   tc::pack_bf16(p[2 * j + 1][2], p[2 * j + 1][3])};
+#pragma unroll
+            for (int dt = 0; dt < DP / 16; ++dt) {
+                uint32_t vb[4];
+                tc::ldmatrix_x4_trans(
+                    vb, v_s + (j * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * pitch + dt * 16 +
+                            (lane >> 4) * 8);
+                tc::mma_bf16(o[2 * dt], a, vb[0], vb[1]);
+                tc::mma_bf16(o[2 * dt + 1], a, vb[2], vb[3]);
+            }
+        }
+    }
+}
+
+// out rows (row g and g + 8 of the warp's 16) as bf16, each divided by l first when
+// DIVIDE (the streamed rule), and their lse; rows >= S and columns >= D are not stored
+template <int DP, bool DIVIDE>
+__device__ __forceinline__ void store_rows(const float (&o)[DP / 8][4], const float (&mx)[2],
+                                           const float (&l)[2],
+                                           __nv_bfloat16* __restrict__ out,
+                                           float* __restrict__ lse, int b, int h, int row0,
+                                           int S, int H, int D) {
+    const int lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+        const int row = row0 + g + 8 * half;
+        if (row >= S) continue;
+        __nv_bfloat16* orow = out + (((size_t)b * S + row) * H + h) * D;
+#pragma unroll
+        for (int dt = 0; dt < DP / 8; ++dt) {
+            const int col = dt * 8 + 2 * t;
+            const float v0 = DIVIDE ? o[dt][2 * half] / l[half] : o[dt][2 * half];
+            const float v1 = DIVIDE ? o[dt][2 * half + 1] / l[half] : o[dt][2 * half + 1];
+            if (col + 1 < D && (D & 1) == 0) {
+                *reinterpret_cast<__nv_bfloat162*>(orow + col) = __floats2bfloat162_rn(v0, v1);
+            } else {
+                if (col < D) orow[col] = __float2bfloat16(v0);
+                if (col + 1 < D) orow[col + 1] = __float2bfloat16(v1);
+            }
+        }
+        if (t == 0) lse[((size_t)b * H + h) * S + row] = mx[half] + logf(l[half]);
+    }
+}
+
+// S <= ONE_PASS_KEYS: one block per (b, h), ceil(S / 16) warps, every key in registers
+template <int DP, bool VEC>
+__global__ void __launch_bounds__(MMA_MAX_WARPS * 32)
+flash_fwd_mma_onepass(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                      const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
+                      float* __restrict__ lse, int S, int H, int D, Layout lq, Layout lkv,
+                      float scale) {
+    constexpr int PITCH = DP + 8;
+    constexpr int NT = ONE_PASS_KEYS / 8;
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const int warps = blockDim.x >> 5;
+    const int kp = (S + 15) & ~15;  // keys padded to 16
+    __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [warps * 16][PITCH]
+    __nv_bfloat16* k_s = q_s + warps * 16 * PITCH;                       // [kp][PITCH]
+    __nv_bfloat16* v_s = k_s + kp * PITCH;                               // [kp][PITCH]
+    const int b = blockIdx.z, h = blockIdx.y;
+    const int warp = threadIdx.x >> 5;
+
+    stage_bf16<DP, VEC>(q_s, PITCH, q, lq, b, h, 0, warps * 16, S, D);
+    stage_bf16<DP, VEC>(k_s, PITCH, k, lkv, b, h, 0, kp, S, D);
+    tc::cp_async_commit();
+    stage_bf16<DP, VEC>(v_s, PITCH, v, lkv, b, h, 0, kp, S, D);
+    tc::cp_async_commit();
+    tc::cp_async_wait<1>();  // Q and K here; V still in flight
+    __syncthreads();
+
+    uint32_t qf[DP / 16][4];
+    load_q_frags<DP>(qf, q_s + warp * 16 * PITCH, PITCH);
+    float s[NT][4];
+    const int groups = kp / 16;
+    scores<DP, NT>(s, qf, k_s, PITCH, groups, 0, S, scale);
+    float mx[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
+    row_max<NT>(s, mx);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            s[n][i] = expf(s[n][i] - mx[i >> 1]);
+            l[i >> 1] += s[n][i];
+        }
+    }
+    l[0] = quad_sum(l[0]);
+    l[1] = quad_sum(l[1]);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s[n][i] = s[n][i] / l[i >> 1];  // rounded to bf16 in PV
+    }
+
+    tc::cp_async_wait<0>();
+    __syncthreads();
+    float o[DP / 8][4] = {};
+    accumulate_pv<DP, NT>(o, s, v_s, PITCH, groups);
+    store_rows<DP, false>(o, mx, l, out, lse, b, h, warp * 16, S, H, D);
+}
+
+// S > ONE_PASS_KEYS: blocks of MMA_MAX_WARPS warps over 16 * MMA_MAX_WARPS query rows,
+// key tiles of KEY_TILE; NORMALIZED: two passes, else the streamed online softmax
+template <int DP, bool VEC, bool NORMALIZED>
+__global__ void __launch_bounds__(MMA_MAX_WARPS * 32)
+flash_fwd_mma_tiled(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
+                    float* __restrict__ lse, int S, int H, int D, Layout lq, Layout lkv,
+                    float scale) {
+    constexpr int PITCH = DP + 8;
+    constexpr int NT = KEY_TILE / 8;
+    constexpr int QROWS = MMA_MAX_WARPS * 16;
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [QROWS][PITCH]
+    __nv_bfloat16* k_s = q_s + QROWS * PITCH;                            // [KEY_TILE][PITCH]
+    __nv_bfloat16* v_s = k_s + KEY_TILE * PITCH;                         // [KEY_TILE][PITCH]
+    const int b = blockIdx.z, h = blockIdx.y;
+    const int warp = threadIdx.x >> 5;
+    const int row0 = blockIdx.x * QROWS;
+    const int tiles = (S + KEY_TILE - 1) / KEY_TILE;
+
+    stage_bf16<DP, VEC>(q_s, PITCH, q, lq, b, h, row0, QROWS, S, D);
+    tc::cp_async_commit();
+    uint32_t qf[DP / 16][4];
+    float s[NT][4];
+    float mx[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
+    float o[DP / 8][4] = {};
+
+    if (NORMALIZED) {  // pass 1: each row's max and sum over every key
+        for (int kt = 0; kt < tiles; ++kt) {
+            __syncthreads();  // the previous tile's readers are done with k_s
+            stage_bf16<DP, VEC>(k_s, PITCH, k, lkv, b, h, kt * KEY_TILE, KEY_TILE, S, D);
+            tc::cp_async_commit();
+            tc::cp_async_wait<0>();
+            __syncthreads();
+            if (kt == 0) load_q_frags<DP>(qf, q_s + warp * 16 * PITCH, PITCH);
+            scores<DP, NT>(s, qf, k_s, PITCH, KEY_TILE / 16, kt * KEY_TILE, S, scale);
+            float m_new[2] = {mx[0], mx[1]};
+            row_max<NT>(s, m_new);
+            float sum[2] = {0.f, 0.f};
+#pragma unroll
+            for (int n = 0; n < NT; ++n) {
+#pragma unroll
+                for (int i = 0; i < 4; ++i) sum[i >> 1] += expf(s[n][i] - m_new[i >> 1]);
+            }
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+                l[r] = l[r] * expf(mx[r] - m_new[r]) + quad_sum(sum[r]);
+                mx[r] = m_new[r];
+            }
+        }
+    }
+
+    for (int kt = 0; kt < tiles; ++kt) {
+        __syncthreads();  // the previous tile's readers are done with k_s and v_s
+        stage_bf16<DP, VEC>(k_s, PITCH, k, lkv, b, h, kt * KEY_TILE, KEY_TILE, S, D);
+        stage_bf16<DP, VEC>(v_s, PITCH, v, lkv, b, h, kt * KEY_TILE, KEY_TILE, S, D);
+        tc::cp_async_commit();
+        tc::cp_async_wait<0>();
+        __syncthreads();
+        if (!NORMALIZED && kt == 0) load_q_frags<DP>(qf, q_s + warp * 16 * PITCH, PITCH);
+        scores<DP, NT>(s, qf, k_s, PITCH, KEY_TILE / 16, kt * KEY_TILE, S, scale);
+        if (NORMALIZED) {
+#pragma unroll
+            for (int n = 0; n < NT; ++n) {
+#pragma unroll
+                for (int i = 0; i < 4; ++i) s[n][i] = expf(s[n][i] - mx[i >> 1]) / l[i >> 1];
+            }
+        } else {
+            float m_new[2] = {mx[0], mx[1]};
+            row_max<NT>(s, m_new);
+            float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+            for (int r = 0; r < 2; ++r) alpha[r] = expf(mx[r] - m_new[r]);
+#pragma unroll
+            for (int n = 0; n < NT; ++n) {
+#pragma unroll
+                for (int i = 0; i < 4; ++i) {
+                    s[n][i] = expf(s[n][i] - m_new[i >> 1]);
+                    sum[i >> 1] += s[n][i];
+                }
+            }
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+                l[r] = l[r] * alpha[r] + quad_sum(sum[r]);
+                mx[r] = m_new[r];
+            }
+#pragma unroll
+            for (int dt = 0; dt < DP / 8; ++dt) {
+#pragma unroll
+                for (int i = 0; i < 4; ++i) o[dt][i] *= alpha[i >> 1];
+            }
+        }
+        accumulate_pv<DP, NT>(o, s, v_s, PITCH, KEY_TILE / 16);
+    }
+    store_rows<DP, !NORMALIZED>(o, mx, l, out, lse, b, h, row0 + warp * 16, S, H, D);
+}
+
 // lets `kernel` take `smem` bytes of dynamic shared memory (above 48 KB only
 // on request: D = 128 in the backward kernels)
 template <typename K>
@@ -459,6 +791,41 @@ cudaError_t allow_smem(K kernel, size_t smem) {
     return cudaSuccess;
 }
 
+
+// the bf16 forward for head dims padded to DP: one pass up to ONE_PASS_KEYS keys,
+// key tiles above
+template <int DP, bool VEC>
+cudaError_t launch_fwd_mma(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                           const __nv_bfloat16* v, __nv_bfloat16* out, float* lse, int B,
+                           int S, int H, int D, Layout lq, Layout lkv, int normalized,
+                           float scale, cudaStream_t st) {
+    cudaError_t err;
+    if (S <= ONE_PASS_KEYS) {
+        const int warps = (S + 15) / 16;
+        const size_t smem = sizeof(__nv_bfloat16) * (DP + 8) * (size_t)(3 * warps * 16);
+        err = allow_smem(flash_fwd_mma_onepass<DP, VEC>, smem);
+        if (err != cudaSuccess) return err;
+        flash_fwd_mma_onepass<DP, VEC><<<dim3(1, H, B), warps * 32, smem, st>>>(
+            q, k, v, out, lse, S, H, D, lq, lkv, scale);
+        return cudaGetLastError();
+    }
+    const dim3 grid((S + MMA_MAX_WARPS * 16 - 1) / (MMA_MAX_WARPS * 16), H, B);
+    const size_t smem =
+        sizeof(__nv_bfloat16) * (DP + 8) * (size_t)(MMA_MAX_WARPS * 16 + 2 * KEY_TILE);
+    if (normalized) {
+        err = allow_smem(flash_fwd_mma_tiled<DP, VEC, true>, smem);
+        if (err != cudaSuccess) return err;
+        flash_fwd_mma_tiled<DP, VEC, true><<<grid, MMA_MAX_WARPS * 32, smem, st>>>(
+            q, k, v, out, lse, S, H, D, lq, lkv, scale);
+    } else {
+        err = allow_smem(flash_fwd_mma_tiled<DP, VEC, false>, smem);
+        if (err != cudaSuccess) return err;
+        flash_fwd_mma_tiled<DP, VEC, false><<<grid, MMA_MAX_WARPS * 32, smem, st>>>(
+            q, k, v, out, lse, S, H, D, lq, lkv, scale);
+    }
+    return cudaGetLastError();
+}
+
 }  // namespace
 
 // Each entry point launches one kernel on `stream` (PyTorch's current stream)
@@ -469,24 +836,37 @@ extern "C" int dmt_flash_attention_fwd(const void* q, const void* k, const void*
                                        void* lse, int B, int S, int H, int D, long long qsb,
                                        long long qss, long long qsh, long long ksb,
                                        long long kss, long long ksh, int is_bf16,
-                                       int normalized, float scale, void* stream) {
-    const dim3 grid((S + ROWS - 1) / ROWS, H, B);
-    const size_t smem = sizeof(float) * (TILE * (D + 1) + TILE * D + ROWS * D);
+                                       int normalized, int vec, float scale, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     const Layout lq = {qsb, qss, qsh}, lkv = {ksb, kss, ksh};
     float* l = static_cast<float*>(lse);
     cudaError_t err;
-#define DMT_FWD(T, N)                                                                      \
-    err = allow_smem(flash_fwd_kernel<T, N>, smem);                                  \
-    if (err != cudaSuccess) return static_cast<int>(err);                                 \
-    flash_fwd_kernel<T, N><<<grid, THREADS, smem, st>>>(                                   \
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),      \
-        static_cast<T*>(out), l, S, H, D, lq, lkv, scale)
-    if (is_bf16) {
-        if (normalized) { DMT_FWD(__nv_bfloat16, true); } else { DMT_FWD(__nv_bfloat16, false); }
-    } else {
-        if (normalized) { DMT_FWD(float, true); } else { DMT_FWD(float, false); }
+    if (is_bf16) {  // the tensor-core kernels; `vec`: every view 16-byte aligned
+        const __nv_bfloat16* qb = static_cast<const __nv_bfloat16*>(q);
+        const __nv_bfloat16* kb = static_cast<const __nv_bfloat16*>(k);
+        const __nv_bfloat16* vb = static_cast<const __nv_bfloat16*>(v);
+        __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(out);
+#define DMT_FWD_MMA(DP)                                                                      \
+    err = vec ? launch_fwd_mma<DP, true>(qb, kb, vb, ob, l, B, S, H, D, lq, lkv, normalized, \
+                                         scale, st)                                        \
+              : launch_fwd_mma<DP, false>(qb, kb, vb, ob, l, B, S, H, D, lq, lkv, normalized, \
+                                          scale, st)
+        if (D <= 16) { DMT_FWD_MMA(16); }
+        else if (D <= 32) { DMT_FWD_MMA(32); }
+        else if (D <= 64) { DMT_FWD_MMA(64); }
+        else { DMT_FWD_MMA(128); }
+#undef DMT_FWD_MMA
+        return static_cast<int>(err);
     }
+    const dim3 grid((S + ROWS - 1) / ROWS, H, B);
+    const size_t smem = sizeof(float) * (TILE * (D + 1) + TILE * D + ROWS * D);
+#define DMT_FWD(N)                                                                         \
+    err = allow_smem(flash_fwd_kernel<float, N>, smem);                                   \
+    if (err != cudaSuccess) return static_cast<int>(err);                                 \
+    flash_fwd_kernel<float, N><<<grid, THREADS, smem, st>>>(                               \
+        static_cast<const float*>(q), static_cast<const float*>(k),                        \
+        static_cast<const float*>(v), static_cast<float*>(out), l, S, H, D, lq, lkv, scale)
+    if (normalized) { DMT_FWD(true); } else { DMT_FWD(false); }
 #undef DMT_FWD
     return static_cast<int>(cudaGetLastError());
 }

@@ -4,7 +4,8 @@ Each `csrc/<name>.cu` exposes a plain C interface (no PyTorch headers, so
 a build takes seconds) and compiles into its own shared library under
 `build/torch_kernels/` of the checkout, for `sm_90a` (Hopper). The file
 name carries a hash of the source and the flags, so an edited source
-rebuilds and an unchanged one is reused across processes. `build_all`
+rebuilds and an unchanged one is reused across processes; the hash also
+covers the shared headers (`csrc/*.cuh`), which a source may include. `build_all`
 starts one `nvcc` per source at once and waits for all of them.
 
 Nothing here runs at import: the CPU tests import every module, and the
@@ -49,7 +50,9 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
+                            + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 

@@ -6,9 +6,12 @@ Counterpart of the reference Pallas kernels
 full-K `_attn_fwd_kernel` and the streamed `_attn_fwd_kernel_kt`) and
 `_flash_bwd_impl` (the dQ kernel over query tiles and the dK/dV kernel
 over key tiles). The CUDA bodies are `csrc/flash_attention.cu`; its header
-says how they are laid out and what bounds them. The same backward kernels
-take an optional lengths vector and serve the masked backward
-(`ops/kernels/masked_flash.py`).
+says how they are laid out and what bounds them. The forward picks its
+body by dtype: bf16 takes the tensor-core (`mma.sync`) kernels, whose
+bf16 x bf16 products are exact in their f32 accumulators, so they keep
+the reference's numbers; f32 takes the full-precision FMA kernel. The
+same backward kernels take an optional lengths vector and serve the
+masked backward (`ops/kernels/masked_flash.py`).
 
 Public functions keep the reference's signatures and its block_k
 quantization (block_q is accepted and unused: the kernels tile queries
@@ -60,7 +63,7 @@ _VP, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 _ARGTYPES = {
     "dmt_flash_attention_fwd": [_VP] * 5 + [_I] * 4 + [_LL] * 6
-    + [_I, _I, _F, _VP],
+    + [_I, _I, _I, _F, _VP],
     "dmt_flash_attention_dq": [_VP] * 9 + [_I] * 5 + [_LL] * 6
     + [_I, _F, _VP],
     "dmt_flash_attention_dkv": [_VP] * 10 + [_I] * 5 + [_LL] * 6
@@ -218,6 +221,17 @@ def _strides(t) -> tuple[int, int, int]:
     return t.stride(0), t.stride(1), t.stride(2)
 
 
+def views_aligned16(*ts) -> bool:
+    """Whether the bf16 forward may stage these ``[B, S, H, D]`` views by
+    16-byte copies: every base pointer and every row stride (B, S, H, and
+    D itself) a whole number of 16 bytes. Otherwise it stages them by
+    plain loads (its VEC = false instantiations), never the plain
+    version."""
+    return all(t.data_ptr() % 16 == 0 and all(
+        n * t.element_size() % 16 == 0 for n in (*_strides(t), t.shape[-1]))
+        for t in ts)
+
+
 def _stream(t) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
@@ -284,8 +298,8 @@ def flash_attention_forward(q, k, v, block_k: int | None = None):
         err = _entry("dmt_flash_attention_fwd")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), b, s, h, d, *_strides(q), *_strides(k),
-            int(q.dtype == torch.bfloat16), int(block_k is None), d ** -0.5,
-            _stream(q))
+            int(q.dtype == torch.bfloat16), int(block_k is None),
+            int(views_aligned16(q, k, v)), d ** -0.5, _stream(q))
     _raise_on(err, "flash attention forward")
     flash_attention_forward.launches += 1
     return out, lse

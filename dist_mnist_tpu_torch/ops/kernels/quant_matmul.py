@@ -4,13 +4,22 @@ Counterpart of the reference Pallas kernel
 (`dist_mnist_tpu/ops/pallas/quant_matmul.py`, `_qmm_kernel` under
 `quant_matmul`): ``out[m, h] = cast_to_x_dtype(scale[h] * Σ_k f32(x[m, k])
 · f32(q[k, h]))`` — f32 accumulation, the per-channel scale applied once
-at the epilogue, no float copy of the weight ever made. The CUDA body is
-`csrc/quant_matmul.cu` (its header says how it is tiled and why).
+at the epilogue, no float copy of the weight ever made. The CUDA bodies
+are in `csrc/quant_matmul.cu` (its header says how they are tiled and
+why).
 
-`quant_matmul` checks its inputs, then launches the kernel for CUDA
-tensors and runs `quant_matmul_reference` (the same math in plain torch)
-for CPU tensors; it never routes a CUDA tensor around the kernel.
-`quant_matmul.launches` counts kernel launches.
+`quant_matmul` checks its inputs, then launches a kernel for CUDA tensors
+and runs `quant_matmul_reference` (the same math in plain torch) for CPU
+tensors; it never routes a CUDA tensor around the kernels. It picks the
+kernel by x's type: bf16 takes the tensor-core split-K kernel (whose
+products are exact, so it keeps the reference's numbers), float32 the
+full-precision FMA kernel. `quant_matmul.launches` counts kernel launches.
+
+The bf16 kernel's split of K is `split_k_plan(m, k, h)`, a function of
+the shape alone, so an input gives the same bits on any card; its
+partial tiles are summed in split order by the last block to reach a
+tile, counted by per-tile arrival counters that each launch leaves at
+zero (one zeroed buffer per device and stream, `_arrivals`).
 """
 
 from __future__ import annotations
@@ -23,10 +32,24 @@ import torch
 
 from dist_mnist_tpu_torch.ops.kernels import build
 
-_BM = 32  # activation rows per block: csrc/quant_matmul.cu BM
+#: activation rows per block of each route's grid (csrc/quant_matmul.cu:
+#: BM for float32, TC_BM for bf16); the rows axis is the grid's y axis
+_BM = {torch.float32: 32, torch.bfloat16: 64}
 _MAX_GRID_Y = 65535
 _INT_MAX = 2**31 - 1
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+#: the bf16 kernel's tile: channels per block (TC_BN) and the K chunk
+#: (TC_BK) the splits are counted in
+TC_BN, TC_BK = 32, 64
+#: blocks the split-K grid aims for: the H100 SXM's 132 SMs. A constant of
+#: the design, never read from the device, so the plan (and the bits) are
+#: the same on every card
+TARGET_BLOCKS = 132
+MAX_SPLITS = 16
+_VP, _I = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = {
+    "dmt_quant_matmul_f32": [_VP] * 4 + [_I] * 3 + [_VP],
+    "dmt_quant_matmul_bf16": [_VP] * 6 + [_I] * 7 + [_VP],
+}
 
 
 def quant_matmul_reference(x: torch.Tensor, w_q: torch.Tensor,
@@ -64,19 +87,57 @@ def _check(x, w_q, w_scale) -> tuple[int, int, int]:
         raise ValueError(f"quant_matmul: tensors on different devices "
                          f"({x.device}, {w_q.device}, {w_scale.device})")
     m = math.prod(x.shape[:-1])
-    if max(m, d, h) > _INT_MAX or -(-m // _BM) > _MAX_GRID_Y:
+    if max(m, d, h) > _INT_MAX or -(-m // _BM[x.dtype]) > _MAX_GRID_Y:
         raise ValueError(f"quant_matmul: shape [{m}, {d}] x [{d}, {h}] "
                          "exceeds the kernel's grid")
     return m, d, h
 
 
+def split_k_plan(m: int, k: int, h: int) -> tuple[int, int, int]:
+    """``(tiles, splits, chunks_per_split)`` of the bf16 kernel for an
+    ``[m, k] x [k, h]`` call: its output tiles, and its split of K in
+    chunks of `TC_BK`: enough splits that tiles x splits reach
+    `TARGET_BLOCKS` (at most `MAX_SPLITS`, at most one per chunk), then
+    as many as cover K with no empty split. A function of the shape
+    alone."""
+    tiles = -(-h // TC_BN) * -(-m // _BM[torch.bfloat16])
+    chunks = max(1, -(-k // TC_BK))
+    want = min(MAX_SPLITS, chunks, max(1, -(-TARGET_BLOCKS // tiles)))
+    per = -(-chunks // want)
+    return tiles, -(-chunks // per), per
+
+
+def vec_loads(x: torch.Tensor, w_q: torch.Tensor) -> tuple[bool, bool]:
+    """Whether the bf16 kernel may stage x and w_q by 16-byte copies:
+    each base 16-byte aligned and each row a whole number of 16 bytes.
+    Otherwise it stages that operand by plain loads (the same tiles)."""
+    row_x = x.shape[-1] * x.element_size()
+    return (x.data_ptr() % 16 == 0 and row_x % 16 == 0,
+            w_q.data_ptr() % 16 == 0 and w_q.shape[1] % 16 == 0)
+
+
 @functools.cache
-def _entry():
-    """`dmt_quant_matmul` of the built library, loaded and typed once."""
-    fn = build.load("quant_matmul").dmt_quant_matmul
-    fn.argtypes = _ARGTYPES
+def _entry(symbol: str):
+    """A function of the built library, loaded and typed once."""
+    fn = getattr(build.load("quant_matmul"), symbol)
+    fn.argtypes = _ARGTYPES[symbol]
     fn.restype = ctypes.c_int
     return fn
+
+
+_arrival_buffers: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _arrivals(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """Zeroed int32 arrival counters, at least `n`, for launches on one
+    stream of one device: launches on one stream run in order, and each
+    leaves its counters at zero, so the next one finds them so."""
+    key = (device.index, stream)
+    buf = _arrival_buffers.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+        _arrival_buffers[key] = buf
+    return buf
 
 
 def quant_matmul(x: torch.Tensor, w_q: torch.Tensor,
@@ -94,12 +155,22 @@ def quant_matmul(x: torch.Tensor, w_q: torch.Tensor,
     out = torch.empty((*x.shape[:-1], h), dtype=x.dtype, device=x.device)
     if m == 0 or h == 0:
         return out
-    fn = _entry()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(
-            x.data_ptr(), w_q.data_ptr(), w_scale.data_ptr(), out.data_ptr(),
-            m, d, h, int(x.dtype == torch.bfloat16), stream)
+        if x.dtype == torch.bfloat16:
+            tiles, splits, per = split_k_plan(m, d, h)
+            partial = torch.empty(
+                tiles * splits * _BM[torch.bfloat16] * TC_BN if splits > 1
+                else 0, dtype=torch.float32, device=x.device)
+            err = _entry("dmt_quant_matmul_bf16")(
+                x.data_ptr(), w_q.data_ptr(), w_scale.data_ptr(),
+                out.data_ptr(), partial.data_ptr(),
+                _arrivals(x.device, stream, tiles).data_ptr(), m, d, h,
+                splits, per, *map(int, vec_loads(x, w_q)), stream)
+        else:
+            err = _entry("dmt_quant_matmul_f32")(
+                x.data_ptr(), w_q.data_ptr(), w_scale.data_ptr(),
+                out.data_ptr(), m, d, h, stream)
     if err != 0:
         raise RuntimeError(f"quant_matmul kernel launch failed: "
                            f"cudaError {err}")

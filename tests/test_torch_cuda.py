@@ -42,9 +42,11 @@ from dist_mnist_tpu_torch.ops.kernels.paged_attention import (
     paged_attention_probe,
     paged_attention_reference,
 )
+from dist_mnist_tpu_torch.ops.kernels import quant_matmul as tqmm
 from dist_mnist_tpu_torch.ops.kernels.quant_matmul import (
     quant_matmul,
     quant_matmul_reference,
+    split_k_plan,
 )
 from dist_mnist_tpu_torch.serve import (
     DecodeScheduler,
@@ -118,6 +120,49 @@ def test_kernel_keeps_lead_dims_and_stream(cuda):
     before = quant_matmul.launches
     assert quant_matmul(x[:0], qa.q, qa.scale).shape == (0, 3, 100)
     assert quant_matmul.launches == before
+
+
+#: bf16 split-K shapes: LeNet-5's fc1 and fc2, a K that the split size
+#: does not divide, and one whose rows are not 16-byte aligned (K % 8, H %
+#: 16), staged by plain loads
+QMM_BF16_SHAPES = [(3136, 512), (512, 10), (1000, 96), (1001, 40)]
+
+
+@pytest.mark.parametrize("d,h", QMM_BF16_SHAPES)
+@pytest.mark.parametrize("m", [1, 7, 16, 17, 64, 65, 200])
+def test_bf16_split_k_kernel_matches_plain_version(cuda, m, d, h):
+    """The tensor-core split-K kernel against the plain version: within
+    one bf16 ulp (1e-2) of the largest output, one launch per call."""
+    x, qa = _operands(m, d, h, torch.bfloat16, cuda, seed=m + d + h)
+    before = quant_matmul.launches
+    got = quant_matmul(x, qa.q, qa.scale)
+    torch.cuda.synchronize()
+    assert quant_matmul.launches == before + 1
+    want = quant_matmul_reference(x, qa.q, qa.scale)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape == (m, h)
+    assert _rel_err(got, want) <= 1e-2
+
+
+@pytest.mark.parametrize("m", [7, 64, 200])
+def test_bf16_split_k_reduction_is_bitwise_repeatable(cuda, m):
+    """The partials are summed in split order whichever block arrives
+    last: the same inputs give the same bits, again and under another
+    stream, and every launch leaves its arrival counters at zero."""
+    x, qa = _operands(m, 3136, 512, torch.bfloat16, cuda, seed=5)
+    assert split_k_plan(m, 3136, 512)[1] > 1  # the reduction runs
+    before = quant_matmul.launches
+    first = quant_matmul(x, qa.q, qa.scale)
+    again = quant_matmul(x, qa.q, qa.scale)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        other = quant_matmul(x, qa.q, qa.scale)
+    torch.cuda.synchronize()
+    assert quant_matmul.launches == before + 3
+    assert torch.equal(first.view(torch.int16), again.view(torch.int16))
+    assert torch.equal(first.view(torch.int16), other.view(torch.int16))
+    assert all(int(buf.abs().sum()) == 0
+               for buf in tqmm._arrival_buffers.values())
 
 
 def test_wrapper_rejects_mixed_devices(cuda):
@@ -422,6 +467,54 @@ def test_flash_kernels_match_plain_versions(cuda, b, s, h, d, dtype,
     for got, ref in zip((dq, dk, dv), want):
         assert got.dtype == dtype and got.shape == ref.shape
         assert _rel_err(got, ref) <= bwd_tol
+
+
+def _check_bf16_forward(q, k, v, block_k):
+    """One bf16 forward launch against the plain version: out within
+    1e-2 and lse within 1e-5 of the largest value."""
+    bk = tflash.quantize_block_k(block_k, q.shape[1])
+    before = tflash.flash_attention_forward.launches
+    out, lse = tflash.flash_attention_forward(q, k, v, bk)
+    torch.cuda.synchronize()
+    assert tflash.flash_attention_forward.launches == before + 1
+    want_out, want_lse = tflash.flash_attention_forward_reference(q, k, v,
+                                                                  bk)
+    assert out.dtype == torch.bfloat16 and out.shape == want_out.shape
+    assert lse.shape == want_lse.shape
+    assert _rel_err(out, want_out) <= 1e-2
+    assert _rel_err(lse, want_lse) <= 1e-5
+
+
+@pytest.mark.parametrize("block_k", [None, 128])
+@pytest.mark.parametrize("s", [1, 17, 65, 128, 129, 300])
+def test_bf16_flash_forward_matches_plain_version(cuda, s, block_k):
+    """The tensor-core forward on the fused projection's strided views:
+    one pass up to S = 128, key tiles above (block_k = 128 streams at S =
+    129 and 300 and is the full-K rule below)."""
+    _check_bf16_forward(*_qkv(3, s, 2, 64, torch.bfloat16, cuda, seed=s),
+                        block_k)
+
+
+@pytest.mark.parametrize("s,block_k", [(65, None), (300, None), (300, 128)])
+@pytest.mark.parametrize("d", [16, 40, 64, 128])
+def test_bf16_flash_forward_head_dims(cuda, d, s, block_k):
+    """Contiguous q, k, v at every padded head dim, D = 40 zero-padded to
+    64."""
+    _check_bf16_forward(*_qkv(2, s, 2, d, torch.bfloat16, cuda, seed=d + s,
+                              fused=False), block_k)
+
+
+@pytest.mark.parametrize("s,block_k", [(65, None), (129, None), (129, 128)])
+def test_bf16_flash_forward_unaligned_views(cuda, s, block_k):
+    """Views one element off their buffers' 16-byte starts take the
+    plain-load staging, with the same answers."""
+    b, h, d = 2, 3, 64
+    n = b * s * h * d
+    bufs = [torch.from_numpy(np.random.default_rng(i).standard_normal(
+        n + 1).astype(np.float32)).to(cuda, torch.bfloat16) for i in range(3)]
+    q, k, v = (t[1:].view(b, s, h, d) for t in bufs)
+    assert not tflash.views_aligned16(q, k, v)
+    _check_bf16_forward(q, k, v, block_k)
 
 
 def test_flash_attention_lse_backward_takes_dlse_on_card(cuda):

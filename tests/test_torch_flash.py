@@ -291,6 +291,22 @@ def test_xla_attention_matches_reference(dtype, masked):
                                np.asarray(want.astype(jnp.float32)), **tol)
 
 
+def test_views_aligned16_picks_the_vector_loads():
+    """The bf16 forward stages by 16-byte copies only where every base and
+    every row stride is a whole number of 16 bytes: the fused projection's
+    views and contiguous tensors at D = 64 or 40 are, a view one element
+    off its buffer's start and D = 20 (40-byte rows) are not."""
+    x = torch.zeros(2, 65, 3, 3, 64, dtype=torch.bfloat16)
+    assert tfa.views_aligned16(*x.unbind(2))
+    assert tfa.views_aligned16(torch.zeros(2, 17, 2, 40,
+                                           dtype=torch.bfloat16))
+    assert not tfa.views_aligned16(torch.zeros(2, 17, 2, 20,
+                                               dtype=torch.bfloat16))
+    flat = torch.zeros(2 * 17 * 2 * 64 + 8, dtype=torch.bfloat16)
+    assert not tfa.views_aligned16(flat[1:-7].view(2, 17, 2, 64))
+    assert tfa.views_aligned16(flat[8:].view(2, 17, 2, 64))
+
+
 def test_flash_cost_counts():
     """ViT-Tiny's call: 0.208 GFLOP forward (two bf16 products), 0.519
     GFLOP backward (two bf16 products and three with an f32 operand; the

@@ -24,10 +24,13 @@ from dist_mnist_tpu.ops.pallas.quant_matmul import (
     quant_matmul_cost as jax_quant_matmul_cost,
 )
 from dist_mnist_tpu_torch.ops import quant as tquant
+from dist_mnist_tpu_torch.ops.kernels import quant_matmul as tqmm
 from dist_mnist_tpu_torch.ops.kernels.quant_matmul import (
     quant_matmul,
     quant_matmul_cost,
     quant_matmul_reference,
+    split_k_plan,
+    vec_loads,
 )
 
 
@@ -156,6 +159,58 @@ def test_wrapper_rejects_bad_inputs(case):
         s = torch.ones(2, 8)
     with pytest.raises((TypeError, ValueError)):
         quant_matmul(x, q, s)
+
+
+@pytest.mark.parametrize("dtype,rows_per_block", [(torch.float32, 32),
+                                                  (torch.bfloat16, 64)])
+def test_wrapper_grid_check_follows_each_routes_tiling(dtype,
+                                                       rows_per_block):
+    """The rows axis is the grid's y axis (at most 65535 blocks), and the
+    bf16 kernel's blocks take 64 rows where the f32 kernel's take 32: the
+    last M that fits passes, the next one raises."""
+    q = torch.ones(1, 1, dtype=torch.int8)
+    s = torch.ones(1)
+    top = 65535 * rows_per_block
+    assert quant_matmul(torch.ones(top, 1, dtype=dtype), q, s).shape == (
+        top, 1)
+    with pytest.raises(ValueError, match="grid"):
+        quant_matmul(torch.ones(top + 1, 1, dtype=dtype), q, s)
+
+
+@pytest.mark.parametrize("m", [1, 7, 16, 17, 64, 65, 200, 4096])
+def test_split_k_plan_covers_k_exactly(m):
+    """Over a grid of shapes the plan is a function of (m, k, h) alone:
+    its splits cover every K chunk, none is empty, at most `MAX_SPLITS`;
+    tiles x splits never pass `TARGET_BLOCKS` by more than one split's
+    worth of tiles."""
+    for k in (0, 1, 63, 64, 65, 100, 512, 1000, 1001, 3136, 100_000):
+        for h in (1, 10, 32, 33, 100, 512, 4096):
+            tiles, splits, per = split_k_plan(m, k, h)
+            assert (tiles, splits, per) == split_k_plan(m, k, h)
+            assert tiles == -(-h // tqmm.TC_BN) * -(-m // 64)
+            chunks = max(1, -(-k // tqmm.TC_BK))
+            assert 1 <= splits <= min(tqmm.MAX_SPLITS, chunks)
+            assert splits * per >= chunks > (splits - 1) * per
+            assert (splits - 1) * tiles < max(tqmm.TARGET_BLOCKS, tiles)
+
+
+def test_split_k_plan_fills_the_card_at_serve_batch():
+    """LeNet-5's fc1 at M <= 64: 16 tiles of 32 channels, split 9 ways
+    over K = 3136 (49 chunks, 6 a split): 144 blocks for 132 SMs."""
+    for m in (1, 7, 16, 17, 64):
+        assert split_k_plan(m, 3136, 512) == (16, 9, 6)
+    assert split_k_plan(64, 512, 10) == (1, 8, 1)  # fc2
+
+
+def test_vec_loads_needs_16_byte_rows_and_bases():
+    x = torch.zeros(4, 3136, dtype=torch.bfloat16)
+    q = torch.zeros(3136, 512, dtype=torch.int8)
+    assert vec_loads(x, q) == (True, True)
+    assert vec_loads(torch.zeros(4, 1001, dtype=torch.bfloat16),
+                     torch.zeros(1001, 10, dtype=torch.int8)) == (False,
+                                                                   False)
+    flat = torch.zeros(4 * 3136 + 1, dtype=torch.bfloat16)
+    assert vec_loads(flat[1:].view(4, 3136), q) == (False, True)
 
 
 def test_q_dot_rejects_stacked_quantized_leaf():
