@@ -30,13 +30,17 @@ script. Phases (any failure exits nonzero before the final `ok` line):
    `flash_parity`): the forward's out and lse and the backward's dq, dk,
    dv at ViT's shape (S = 65, 3 heads of 64) for B in {1, 7, 64} in bf16
    and f32, at S = 17 and 300 with block_k = 128, the bf16 tensor-core
-   forward alone at S in {1, 17, 65, 128, 129, 300} with and without
-   block_k = 128, at D in {16, 40, 128} and on views that are not 16-byte
-   aligned (out 1e-2, lse 1e-5), `flash_attention_lse`'s
-   autograd with a nonzero lse cotangent, and the masked backward with
-   lengths 1 to 65 (dk, dv exactly 0 past each length, key tiles entered
-   counted), within 1e-2 (bf16), 1e-5 (f32 forward, lse) and 1e-4 (f32
-   backward) of the largest value;
+   forward and backward at S in {1, 17, 65, 128, 129, 300} with and
+   without block_k = 128, at D in {16, 40, 128} and on views that are not
+   16-byte aligned (out 1e-2, lse 1e-5, dq/dk/dv 1e-2), the bf16 backward
+   at Sq != Sk, its bits twice and under another stream, and at ViT's
+   shape >= 90% of its dq/dk/dv equal to the plain version's bf16 values
+   (what tells the hi/lo split from P and dS rounded to bf16 once),
+   `flash_attention_lse`'s autograd with a nonzero lse cotangent, and the
+   masked backward with lengths 1 to 65 (dk, dv exactly 0 past each
+   length, key steps and blocks entered counted), within 1e-2 (bf16), 1e-5
+   (f32 forward, lse) and 1e-4 (f32 backward) of the largest value, each
+   line naming the backward's body (`bwd_route`: "mma" or "fma");
 4. serve `lenet5_mnist --quant=int8` (seeded fresh init) on the card
    through the serving CLI's entry point (`cli/serve.py main`: server +
    closed-loop loadgen, 512 requests), with every launch counter set to 0
@@ -93,9 +97,11 @@ script. Phases (any failure exits nonzero before the final `ok` line):
    `paged_attention` a composite of gather, dequantize and
    `F.scaled_dot_product_attention`; for the flash kernels
    `F.scaled_dot_product_attention`, forward, and forward + backward
-   through autograd), each as a CUDA graph of back-to-back calls timed
-   with CUDA events, and compute its bound: max(bytes / memory rate,
-   FLOPs / peak rate for the operands' type) for the card;
+   through autograd; the flash kernels' f32 route too), each as a CUDA
+   graph of back-to-back calls timed with CUDA events, and compute its
+   bound: max(bytes / memory rate, FLOPs / peak rate for the operands'
+   type) for the card, and for the flash rows the same bound for the
+   products the kernels themselves run (`design_bound_ms`);
 11. print the `{"kernels": [...]}` line (eight kernels), then, last, the
    `ok` line.
 """
@@ -724,6 +730,27 @@ FLASH_TOL = {"bfloat16": (1e-2, 1e-2), "float32": (1e-5, 1e-4)}
 LSE_TOL = 1e-5
 
 
+def grad_errs(grads, want) -> list[tuple[float, float]]:
+    """(max abs error, relative error) of each of dq, dk, dv, relative to
+    the largest value of the same gradient, or to 2^-8 of the call's
+    largest gradient where that is larger: at S = 1 dq and dk are 0 in
+    exact arithmetic, and a kernel's f32 dP - delta, summed in another
+    order than delta, leaves ~1e-7 there."""
+    top = max(float(w.detach().float().abs().max()) for w in want)
+    out = []
+    for got, ref in zip(grads, want):
+        err = float((got.detach().float() - ref.detach().float()).abs().max())
+        out.append((err, err / max(float(ref.detach().float().abs().max()),
+                                   top / 256, 1e-12)))
+    return out
+
+
+def bwd_route(torch, dtype) -> str:
+    """The backward body a dtype takes: bf16 the tensor-core kernels
+    (`flash_dq_mma`, `flash_dkv_mma`), f32 the FMA kernels."""
+    return "mma" if dtype == torch.bfloat16 else "fma"
+
+
 def _fused_qkv(torch, b, s, h, d, dtype, dev, seed):
     """q, k, v as the ViT path gives them: strided views of one [B, S, 3,
     H, D] projection."""
@@ -731,18 +758,79 @@ def _fused_qkv(torch, b, s, h, d, dtype, dev, seed):
     return torch.randn(b, s, 3, h, d, generator=gen).to(dev, dtype).unbind(2)
 
 
+#: the least share of the bf16 backward's dq, dk and dv elements at ViT's
+#: call equal to the plain version's bf16 values. The hi/lo split keeps
+#: each f32-operand term to 2^-16, so only sums within ~2^-16 of a bf16
+#: rounding boundary round the other way; P and dS rounded to bf16 once
+#: (the lo products dropped) leave ~2^-9 per term, half an ulp of the
+#: output. Emulated on the CPU (`tests/test_torch_flash.py`): 0.998 and
+#: 0.589, both within 4.2e-3 relative. An error in ulps tells them apart less well: where dS cancels,
+#: the plain value is near 0 and every ulp count is large.
+SPLIT_MATCH_MIN = 0.9
+
+
+def bf16_match_share(grads, want) -> float:
+    """The share of all the elements of `grads` equal to those of `want`."""
+    same = sum(int((a == w).sum()) for a, w in zip(grads, want))
+    return same / sum(w.numel() for w in want)
+
+
+def flash_split_share(torch, dev) -> float:
+    """The bf16 backward at ViT's call (the fused projection's strided
+    views, the kernel's own lse and delta): the share of dq, dk and dv
+    equal to the plain version's bf16 values, held to `SPLIT_MATCH_MIN`.
+    It tells the hi/lo split from P and dS rounded to bf16 once, which
+    the 1e-2 limit cannot. Fails below it; returns the share."""
+    from dist_mnist_tpu_torch.ops.kernels import flash_attention as fa
+
+    q, k, v = _fused_qkv(torch, VIT_B, VIT_S, VIT_H, VIT_D, torch.bfloat16,
+                         dev, seed=90)
+    do = torch.randn(VIT_B, VIT_S, VIT_H, VIT_D, generator=torch.Generator()
+                     .manual_seed(91)).to(dev, torch.bfloat16)
+    out, lse = fa.flash_attention_forward(q, k, v)
+    delta = fa.attention_delta(out, do)
+    grads = (fa.flash_attention_dq(q, k, v, do, lse, delta),
+             *fa.flash_attention_dkv(q, k, v, do, lse, delta))
+    want = fa.flash_attention_backward_reference(q, k, v, do, lse, delta)
+    torch.cuda.synchronize()
+    share = bf16_match_share(grads, want)
+    print(json.dumps({"phase": "flash_parity", "case": "bf16 backward, "
+                      "share equal to the plain version's bf16 values",
+                      "bwd_route": "mma", "share": share,
+                      **{f"{g}_share": bf16_match_share([a], [w])
+                         for g, a, w in zip(("dq", "dk", "dv"), grads,
+                                            want)},
+                      "min": SPLIT_MATCH_MIN,
+                      **{f"{g}_max_rel_err": rel_err(a, w)[1]
+                         for g, a, w in zip(("dq", "dk", "dv"), grads,
+                                            want)}}), flush=True)
+    if share < SPLIT_MATCH_MIN:
+        fail(f"bf16 flash backward: {share} of dq/dk/dv equal to the plain "
+             f"version's bf16 values, below {SPLIT_MATCH_MIN}")
+    return share
+
+
 def flash_parity(torch, dev) -> dict:
     """The flash kernels against their plain versions on the same card
     inputs: the forward (out, lse) and the backward (dq, dk, dv, from the
     kernel's own lse and delta) at ViT's shape for B in {1, 7, 64} in bf16
     and f32, at S = 17 and S = 300 with block_k = 128 (the streamed
-    rounding at S = 300); `flash_attention_lse` through its autograd
-    Function with a nonzero lse cotangent; and the masked backward at
-    ViT's shape with lengths 1 .. 65 (B = 65): dk and dv past each length
-    exactly 0, and the key tiles each kernel entered exactly ceil(len /
-    tile). Fails on any miss. Returns the worst abs errors by kernel."""
+    rounding at S = 300); the bf16 tensor-core forward and backward at S
+    in {1, 17, 65, 128, 129, 300} with and without block_k = 128, D in
+    {16, 40, 128} and views that are not 16-byte aligned; the bf16
+    backward at Sq != Sk, unmasked and masked; its bits at ViT's shape
+    twice and under another stream, and the share of them equal to the
+    plain version's bf16 values (`flash_split_share`, at least
+    `SPLIT_MATCH_MIN`); `flash_attention_lse` through its
+    autograd Function with a nonzero lse cotangent; and the masked
+    backward at ViT's shape with lengths 1 .. 65 (B = 65): dk and dv past
+    each length exactly 0, and the key steps and blocks each kernel
+    entered exactly ceil(len / TILE) and ceil(len / KEY_BLOCK). Each line
+    names the backward's body (`bwd_route`: "mma" or "fma"). Fails on any
+    miss. Returns the worst abs errors by kernel."""
     from dist_mnist_tpu_torch.ops.kernels import flash_attention as fa
     from dist_mnist_tpu_torch.ops.kernels.masked_flash import (
+        masked_flash_attention_backward,
         masked_flash_attention_backward_probe,
         masked_flash_attention_forward,
     )
@@ -773,7 +861,7 @@ def flash_parity(torch, dev) -> dict:
         print(json.dumps({"phase": "flash_parity", "b": b, "s": s, "h": h,
                           "d": d, "dtype": name, "block_k": block_k,
                           "rounding": "normalized" if bk is None
-                          else "streamed",
+                          else "streamed", "bwd_route": bwd_route(torch, dtype),
                           **{f"{n}_max_abs_err": e[0]
                              for n, e in errs.items()},
                           **{f"{n}_max_rel_err": e[1]
@@ -791,16 +879,20 @@ def flash_parity(torch, dev) -> dict:
             worst["flash_attention_backward"],
             *(errs[g][0] for g in ("dq", "dk", "dv")))
 
-    # the bf16 tensor-core forward at ragged S (one pass up to 128, key
-    # tiles above; block_k = 128 streams above 128), other head dims
-    # (D = 40 zero-padded to 64) and views that are not 16-byte aligned
-    fwd_cases = [(3, s, 2, 64, "fused", bk) for s in (1, 17, 65, 128, 129, 300)
-                 for bk in (None, 128)]
-    fwd_cases += [(2, s, 2, d, "contiguous", bk) for d in (16, 40, 128)
-                  for s, bk in ((65, None), (300, None), (300, 128))]
-    fwd_cases += [(2, s, 3, 64, "unaligned", bk)
-                  for s, bk in ((65, None), (129, None), (129, 128))]
-    for i, (b, s, h, d, layout, block_k) in enumerate(fwd_cases):
+    # the bf16 tensor-core forward and backward at ragged S (one pass up to
+    # 128, tiles of 64 above; block_k = 128 streams the forward above 128),
+    # other head dims (D = 40 zero-padded to 64) and views that are not
+    # 16-byte aligned; the backward from the forward's own lse and delta
+    bwd_tol = FLASH_TOL["bfloat16"][1]
+    bf16_cases = [(3, s, 2, 64, "fused", bk)
+                  for s in (1, 17, 65, 128, 129, 300) for bk in (None, 128)]
+    bf16_cases += [(2, s, 2, d, "contiguous", bk) for d in (16, 40, 128)
+                   for s, bk in ((65, None), (300, None), (300, 128))]
+    bf16_cases += [(2, s, 3, 64, "unaligned", bk)
+                   for s, bk in ((65, None), (129, None), (129, 128))]
+    counters = (fa.flash_attention_forward, fa.flash_attention_dq,
+                fa.flash_attention_dkv)
+    for i, (b, s, h, d, layout, block_k) in enumerate(bf16_cases):
         q, k, v = _fused_qkv(torch, b, s, h, d, torch.bfloat16, dev,
                              seed=100 + i)
         if layout == "contiguous":
@@ -808,30 +900,116 @@ def flash_parity(torch, dev) -> dict:
         elif layout == "unaligned":  # one element past a 16-byte start
             q, k, v = (torch.cat([t.new_zeros(1), t.flatten()])[1:]
                        .view(t.shape) for t in (q, k, v))
+        do = torch.randn(b, s, h, d, generator=torch.Generator()
+                         .manual_seed(200 + i)).to(dev, torch.bfloat16)
         bk = fa.quantize_block_k(block_k, s)
-        before = fa.flash_attention_forward.launches
+        before = [fn.launches for fn in counters]
         out, lse = fa.flash_attention_forward(q, k, v, bk)
+        delta = fa.attention_delta(out, do)
+        grads = (fa.flash_attention_dq(q, k, v, do, lse, delta),
+                 *fa.flash_attention_dkv(q, k, v, do, lse, delta))
         want_out, want_lse = fa.flash_attention_forward_reference(q, k, v, bk)
+        want = fa.flash_attention_backward_reference(q, k, v, do, lse, delta)
         torch.cuda.synchronize()
-        errs = {"out": rel_err(out, want_out), "lse": rel_err(lse, want_lse)}
-        launched = fa.flash_attention_forward.launches - before
-        print(json.dumps({"phase": "flash_parity", "case": "bf16 forward",
+        errs = {"out": rel_err(out, want_out), "lse": rel_err(lse, want_lse),
+                **dict(zip(("dq", "dk", "dv"), grad_errs(grads, want)))}
+        launched = [fn.launches - n for fn, n in zip(counters, before)]
+        print(json.dumps({"phase": "flash_parity",
+                          "case": "bf16 forward and backward",
                           "b": b, "s": s, "h": h, "d": d, "layout": layout,
                           "aligned16": fa.views_aligned16(q, k, v),
                           "block_k": block_k, "rounding": "normalized"
-                          if bk is None else "streamed", "launches": launched,
+                          if bk is None else "streamed", "bwd_route": "mma",
+                          "launches_fwd_dq_dkv": launched,
                           **{f"{n}_max_abs_err": e[0]
                              for n, e in errs.items()},
                           **{f"{n}_max_rel_err": e[1]
                              for n, e in errs.items()},
                           "tol": {"fwd": FLASH_TOL["bfloat16"][0],
-                                  "lse": LSE_TOL}}), flush=True)
-        if launched != 1 or errs["out"][1] > FLASH_TOL["bfloat16"][0] \
-                or errs["lse"][1] > LSE_TOL:
-            fail(f"bf16 flash forward B={b} S={s} D={d} {layout} "
-                 f"block_k={block_k}: {launched} launches, {errs}")
+                                  "lse": LSE_TOL, "bwd": bwd_tol}}),
+              flush=True)
+        if launched != [1, 1, 1] or errs["out"][1] > FLASH_TOL["bfloat16"][0] \
+                or errs["lse"][1] > LSE_TOL \
+                or any(errs[g][1] > bwd_tol for g in ("dq", "dk", "dv")):
+            fail(f"bf16 flash B={b} S={s} D={d} {layout} block_k={block_k}: "
+                 f"{launched} launches, {errs}")
         worst["flash_attention_forward"] = max(
             worst["flash_attention_forward"], errs["out"][0])
+        worst["flash_attention_backward"] = max(
+            worst["flash_attention_backward"],
+            *(errs[g][0] for g in ("dq", "dk", "dv")))
+
+    # Sq != Sk (the masked decode shapes): the bf16 backward kernels, through
+    # their launches unmasked and through the masked backward with lengths
+    for i, (sq, sk, masked) in enumerate(((7, 200, False), (130, 65, False),
+                                          (1, 300, True), (70, 33, True))):
+        gen = torch.Generator().manual_seed(300 + i)
+        q, k, v, do = (torch.randn(3, n, 2, 64, generator=gen).to(
+            dev, torch.bfloat16) for n in (sq, sk, sk, sq))
+        lengths = (torch.tensor([1, sk // 2, sk], dtype=torch.int32,
+                                device=dev) if masked else None)
+        if masked:
+            out, lse = masked_flash_attention_forward(q, k, v, lengths)
+            delta = fa.attention_delta(out, do)
+            grads = masked_flash_attention_backward(q, k, v, lengths, do, lse,
+                                                    delta)
+        else:
+            out, lse = fa.flash_attention_forward_reference(q, k, v)
+            delta = fa.attention_delta(out, do)
+            grads = (fa.launch_dq(q, k, v, do, lse, delta),
+                     *fa.launch_dkv(q, k, v, do, lse, delta))
+        want = fa.flash_attention_backward_reference(q, k, v, do, lse, delta,
+                                                     lengths)
+        torch.cuda.synchronize()
+        errs = grad_errs(grads, want)
+        print(json.dumps({"phase": "flash_parity", "case": "bf16 backward, "
+                          "Sq != Sk", "sq": sq, "sk": sk, "masked": masked,
+                          "bwd_route": "mma",
+                          "grad_max_abs_err": max(e[0] for e in errs),
+                          "grad_max_rel_err": max(e[1] for e in errs),
+                          "tol": bwd_tol}), flush=True)
+        if max(e[1] for e in errs) > bwd_tol:
+            fail(f"bf16 flash backward Sq={sq} Sk={sk} masked={masked}: "
+                 f"{errs}")
+        worst["flash_attention_backward"] = max(
+            worst["flash_attention_backward"], *(e[0] for e in errs))
+
+    # no atomics: the bf16 backward's bits at ViT's shape, twice and under
+    # another stream, unmasked (strided views) and masked (lengths 2..65)
+    q, k, v = _fused_qkv(torch, VIT_B, VIT_S, VIT_H, VIT_D, torch.bfloat16,
+                         dev, seed=90)
+    do = torch.randn(VIT_B, VIT_S, VIT_H, VIT_D, generator=torch.Generator()
+                     .manual_seed(91)).to(dev, torch.bfloat16)
+    out, lse = fa.flash_attention_forward(q, k, v)
+    delta = fa.attention_delta(out, do)
+    qc, kc, vc = (t.contiguous() for t in (q, k, v))
+    lengths = torch.arange(2, VIT_B + 2, dtype=torch.int32, device=dev)
+    m_out, m_lse = masked_flash_attention_forward(qc, kc, vc, lengths)
+    m_delta = fa.attention_delta(m_out, do)
+    runs = {
+        "unmasked": lambda: (fa.flash_attention_dq(q, k, v, do, lse, delta),
+                             *fa.flash_attention_dkv(q, k, v, do, lse,
+                                                     delta)),
+        "masked": lambda: masked_flash_attention_backward(
+            qc, kc, vc, lengths, do, m_lse, m_delta)}
+    for label, run in runs.items():
+        first, again = run(), run()
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            other = run()
+        torch.cuda.current_stream().wait_stream(stream)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b2) and torch.equal(a, c)
+                   for a, b2, c in zip(first, again, other))
+        print(json.dumps({"phase": "flash_parity", "case": "bf16 backward, "
+                          "bitwise repeat", "input": label, "bwd_route": "mma",
+                          "same_bits_twice_and_on_another_stream": same}),
+              flush=True)
+        if not same:
+            fail(f"bf16 flash backward ({label}): dq/dk/dv bits differ "
+                 "between repeats or streams")
+    flash_split_share(torch, dev)
 
     # flash_attention_lse's autograd Function: both cotangents
     q, k, v = (t.detach().requires_grad_() for t in _fused_qkv(
@@ -850,6 +1028,7 @@ def flash_parity(torch, dev) -> dict:
     errs = [rel_err(a, w) for a, w in zip(got, want)]
     print(json.dumps({"phase": "flash_parity", "case": "flash_attention_lse "
                       "autograd, nonzero dlse", "b": 7, "dtype": "float32",
+                      "bwd_route": "fma",
                       "grad_max_abs_err": max(e[0] for e in errs),
                       "grad_max_rel_err": max(e[1] for e in errs),
                       "lse_max_rel_err": rel_err(lse, r_lse)[1]}), flush=True)
@@ -879,6 +1058,7 @@ def flash_parity(torch, dev) -> dict:
     errs = [rel_err(a, w) for a, w in zip((dq, dk, dv), want)]
     print(json.dumps({"phase": "flash_parity", "case": "masked backward, "
                       "lengths 1..65", "b": b, "dtype": "bfloat16",
+                      "bwd_route": "mma",
                       "grad_max_abs_err": max(e[0] for e in errs),
                       "grad_max_rel_err": max(e[1] for e in errs),
                       "zeros_past_length": zeros_ok, "visits_ok": vis_ok}),
@@ -1051,6 +1231,20 @@ def vit_profile(torch, dev, dataset) -> dict:
     return out
 
 
+#: the CUDA body each timed flash row runs
+FLASH_BODIES = {
+    "flash_attention_forward": "flash_fwd_mma_onepass (bf16, S <= 128; "
+                               "flash_fwd_mma_tiled above)",
+    "flash_attention_backward": "flash_dq_mma + flash_dkv_mma (bf16, tensor "
+                                "cores, f32 operands split hi/lo)",
+    "masked_flash_attention_backward": "flash_dq_mma + flash_dkv_mma with "
+                                       "lengths (bf16)",
+    "flash_attention_forward_f32": "flash_fwd_kernel (f32 FMA)",
+    "flash_attention_backward_f32": "flash_dq_kernel + flash_dkv_kernel "
+                                    "(f32 FMA)",
+}
+
+
 def time_flash_kernels(torch, dev, bw: float, peaks: dict) -> dict:
     """The three new kernels at the ViT path's shape (B = 64, S = 65, H =
     3, D = 64, bf16, q/k/v the strided views of the fused projection),
@@ -1063,9 +1257,13 @@ def time_flash_kernels(torch, dev, bw: float, peaks: dict) -> dict:
     over the memory rate, against the products the function needs, each
     over the peak its operands' type sets: QK^T, PV and dO V^T on bf16
     operands at the bf16 tensor-core peak, dV = P^T dO, dQ = dS K and dK
-    = dS^T Q (an f32 operand) at the f32 peak. `split_f32_bound_ms` is
-    the same bound for the seven all-f32 products of the kernels' own
-    recompute split."""
+    = dS^T Q (an f32 operand) at the f32 peak. `design_bound_ms` is the
+    same bound for the products the kernels themselves run
+    (`backward_design_flops`: for bf16, QK^T and dO V^T in each of the dQ
+    and dK/dV kernels, and the three f32-operand products twice each as
+    bf16 hi and lo halves, all at the bf16 peak). The f32 route's forward
+    and backward (the FMA kernels) are timed at the same shape in f32
+    beside their plain versions and SDPA in f32."""
     import torch.nn.functional as F
 
     from dist_mnist_tpu_torch.ops.kernels import flash_attention as fa
@@ -1084,18 +1282,22 @@ def time_flash_kernels(torch, dev, bw: float, peaks: dict) -> dict:
                        for t in (q, k, v, do))
     cost = fa.flash_attention_cost(b, s, h, d, torch.bfloat16)
 
-    def bound(nbytes, flops, split_flops):
+    def ops_ms(flops):
+        return sum(n / peaks[t] * 1e3 for t, n in flops.items())
+
+    def bound(nbytes, flops, design_flops):
         t_bytes = nbytes / bw * 1e3
-        t_ops = sum(n / peaks[t] * 1e3 for t, n in flops.items())
+        t_ops = ops_ms(flops)
         return {"bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "bound_bytes": nbytes, "bound_flops": flops,
-                "split_f32_bound_ms": max(
-                    t_bytes, split_flops / peaks["float32"] * 1e3)}
+                "design_bound_ms": max(t_bytes, ops_ms(design_flops)),
+                "design_flops": design_flops}
 
-    def sdpa_fwd_bwd(mask=None):
-        o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
-        torch.autograd.grad(o, (qt, kt, vt), dot.detach())
+    def sdpa_fwd_bwd(mask=None, operands=None):
+        qq, kk, vv, dd = operands or (qt, kt, vt, dot)
+        o = F.scaled_dot_product_attention(qq, kk, vv, attn_mask=mask)
+        torch.autograd.grad(o, (qq, kk, vv), dd.detach())
 
     def kernel_bwd():
         fa.flash_attention_dq(q, k, v, do, lse, delta)
@@ -1115,7 +1317,7 @@ def time_flash_kernels(torch, dev, bw: float, peaks: dict) -> dict:
             "library": "F.scaled_dot_product_attention (forward)",
             "library_ms": lib_fwd,
             **bound(cost["fwd_bytes"], cost["fwd_flops"],
-                    cost["fwd_flops"]["bfloat16"])},
+                    cost["fwd_flops"])},
         "flash_attention_backward": {
             "kernel_ms": graph_ms(torch, kernel_bwd),
             "kernel_dq_ms": graph_ms(torch, lambda: fa.flash_attention_dq(
@@ -1161,11 +1363,50 @@ def time_flash_kernels(torch, dev, bw: float, peaks: dict) -> dict:
         "library_fwd_bwd_ms": m_lib,
         "library_ms": m_lib - m_lib_fwd,
         "lengths": "2..65",
-        **bound(m_bytes, m_flops, 7 * 2 * s * h * d * keys)}
+        **bound(m_bytes, m_flops, fa.backward_design_flops(
+            s * h * d * keys, torch.bfloat16))}
+
+    # the f32 route (flash_fwd_kernel, flash_dq_kernel + flash_dkv_kernel)
+    q32, k32, v32 = _fused_qkv(torch, b, s, h, d, torch.float32, dev,
+                               seed=80)
+    do32 = do.float()
+    out32, lse32 = fa.flash_attention_forward(q32, k32, v32)
+    delta32 = fa.attention_delta(out32, do32)
+    ops32 = tuple(t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q32, k32, v32, do32))
+    cost32 = fa.flash_attention_cost(b, s, h, d, torch.float32)
+    with torch.no_grad():
+        lib32_fwd = graph_ms(torch, lambda: F.scaled_dot_product_attention(
+            *ops32[:3]))
+    lib32_fwd_bwd = graph_ms(torch, lambda: sdpa_fwd_bwd(operands=ops32),
+                             calls=20)
+    rows["flash_attention_forward_f32"] = {
+        "kernel_ms": graph_ms(torch, lambda: fa.flash_attention_forward(
+            q32, k32, v32)),
+        "plain_ms": graph_ms(torch, lambda: fa.flash_attention_forward_reference(
+            q32, k32, v32)),
+        "library": "F.scaled_dot_product_attention (forward), f32",
+        "library_ms": lib32_fwd,
+        **bound(cost32["fwd_bytes"], cost32["fwd_flops"],
+                cost32["fwd_flops"])}
+    rows["flash_attention_backward_f32"] = {
+        "kernel_ms": graph_ms(torch, lambda: (
+            fa.flash_attention_dq(q32, k32, v32, do32, lse32, delta32),
+            fa.flash_attention_dkv(q32, k32, v32, do32, lse32, delta32))),
+        "plain_ms": graph_ms(
+            torch, lambda: fa.flash_attention_backward_reference(
+                q32, k32, v32, do32, lse32, delta32)),
+        "library": "F.scaled_dot_product_attention forward + backward "
+                   "through autograd, minus its forward, f32",
+        "library_fwd_bwd_ms": lib32_fwd_bwd,
+        "library_ms": lib32_fwd_bwd - lib32_fwd,
+        **bound(cost32["bwd_bytes"], cost32["bwd_flops"],
+                cost32["bwd_split_flops"])}
     for name, row in rows.items():
         print(json.dumps({"phase": "time", "kernel": name, "b": b, "s": s,
-                          "h": h, "d": d, "dtype": "bfloat16", **row}),
-              flush=True)
+                          "h": h, "d": d, "dtype": "float32"
+                          if name.endswith("_f32") else "bfloat16",
+                          "body": FLASH_BODIES[name], **row}), flush=True)
     return rows
 
 
@@ -1611,26 +1852,25 @@ def main() -> None:
     vit_shape = (f"ViT-Tiny training: B={VIT_B}, S={VIT_S}, H={VIT_H}, "
                  f"D={VIT_D}, bf16, strided q/k/v of the fused projection")
     flash_rows = []
-    for name, src_line, body, launches_on_path, shape in (
+    for name, src_line, launches_on_path, shape in (
             ("flash_attention_forward", "flash_attention.py:288",
-             "flash_fwd_mma_onepass (bf16, S <= 128; flash_fwd_mma_tiled "
-             "above; the f32 route: flash_fwd_kernel)",
              vit_counts["flash_attention_forward"], vit_shape),
             ("flash_attention_backward", "flash_attention.py:350",
-             "flash_dq_kernel + flash_dkv_kernel",
              vit_counts["flash_attention_dq"]
              + vit_counts["flash_attention_dkv"], vit_shape),
-            ("masked_flash_attention_backward", "flash_attention.py:726",
-             "flash_dq_kernel + flash_dkv_kernel with lengths", 0,
+            ("masked_flash_attention_backward", "flash_attention.py:726", 0,
              f"B={VIT_B}, S={VIT_S}, H={VIT_H}, D={VIT_D}, bf16, lengths "
              "2..65")):
         row = flash_timed[name]
+        f32_row = flash_timed.get(name + "_f32")
         flash_rows.append({
             "name": name,
             "route": "cuda",
             "source": "dist_mnist_tpu_torch/csrc/flash_attention.cu",
             "replaces": f"dist_mnist_tpu/ops/pallas/{src_line}",
-            "body": body,
+            "body": FLASH_BODIES[name] + (
+                f"; the f32 route: {FLASH_BODIES[name + '_f32']}"
+                if f32_row else ""),
             "launches": launches_on_path,
             "max_abs_err": flash_worst[name],
             "shape": shape,
@@ -1639,9 +1879,13 @@ def main() -> None:
             "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"],
-            "split_f32_bound_ms": row["split_f32_bound_ms"],
+            "design_bound_ms": row["design_bound_ms"],
             "library_ms": row["library_ms"],
             "library": row["library"],
+            **({"f32_kernel_ms": f32_row["kernel_ms"],
+                "f32_plain_ms": f32_row["plain_ms"],
+                "f32_bound_ms": f32_row["bound_ms"],
+                "f32_library_ms": f32_row["library_ms"]} if f32_row else {}),
         })
     flash_rows[1].update(launches_dq=vit_counts["flash_attention_dq"],
                          launches_dkv=vit_counts["flash_attention_dkv"])

@@ -5,10 +5,12 @@
 //   flash_fwd_mma_onepass,  <- `_flash_fwd_impl` (`_attn_fwd_kernel`, and the streamed
 //   flash_fwd_mma_tiled,       `_attn_fwd_kernel_kt`): the first two for bf16, the
 //   flash_fwd_kernel           last for f32
-//   flash_dq_kernel         <- `_flash_bwd_impl` (`_attn_dq_kernel`, `_attn_dq_kernel_kt`)
-//                              and `_masked_flash_bwd_impl` (`_masked_attn_dq_kernel`)
-//   flash_dkv_kernel        <- `_flash_bwd_impl` (`_attn_dkv_kernel`, `_attn_dkv_kernel_qt`)
-//                              and `_masked_flash_bwd_impl` (`_masked_attn_dkv_kernel`)
+//   flash_dq_mma,           <- `_flash_bwd_impl` (`_attn_dq_kernel`, `_attn_dq_kernel_kt`)
+//   flash_dq_kernel            and `_masked_flash_bwd_impl` (`_masked_attn_dq_kernel`):
+//                              bf16, f32
+//   flash_dkv_mma,          <- `_flash_bwd_impl` (`_attn_dkv_kernel`, `_attn_dkv_kernel_qt`)
+//   flash_dkv_kernel           and `_masked_flash_bwd_impl` (`_masked_attn_dkv_kernel`):
+//                              bf16, f32
 //
 // What they compute, per (batch row b, head h), with scale = D**-0.5:
 //
@@ -57,7 +59,25 @@
 //   lse = m + log(l) stored in f32. Views whose base or row strides are not 16-byte
 //   aligned are staged by plain loads (the VEC = false instantiations).
 //
-// The f32 forward and the backward: CUDA-core FMAs (f32 operands would be cut by
+// The bf16 backward: mma.sync too, two kernels as on the TPU (dQ over query rows, dK/dV
+// over key rows), so that every output element is written by one thread in a fixed
+// order: no atomics, the same bits on every run and every card. A warp owns 16 rows
+// (queries in flash_dq_mma, keys in flash_dkv_mma), a block up to 8 warps of one (b, h)
+// (ViT: 5 warps, 192 blocks each). The other axis (K and V, or Q and dO with lse and
+// delta) is staged in shared memory as the forward stages it, whole up to 128 rows, in
+// tiles of 64 above, and walked in steps of TILE = 32. QK^T and dO V^T (K Q^T and V dO^T
+// in dK/dV, the reference's `logits_t`) take bf16 operands and are exact products in the
+// f32 accumulators. P and dS = P (dP - delta) are formed there (IEEE expf, exactly 0 at
+// keys >= len). The three products with an f32 operand, dQ += dS K, dV += P^T dO and
+// dK += dS^T Q, re-pack that operand from the accumulator fragments as the A operand
+// (as the forward's PV does) in two bf16 halves, hi = bf16(x) and lo = bf16(x - hi), and
+// run two mma into one f32 sum: |x - hi - lo| <= 2^-16 |x|, 256 times under the bf16
+// output's rounding, where rounding x to bf16 once (FlashAttention-2) would change the
+// function. K, Q and dO are exact in bf16. The dQ kernel enters no step of keys past a
+// row's length (visits: ceil(len / TILE)); a dK/dV warp whose 16 keys (KEY_BLOCK) lie at
+// or past it writes exact zeros and does no work (visits: ceil(len / KEY_BLOCK)).
+//
+// The f32 forward and backward: CUDA-core FMAs (f32 operands would be cut by
 // TF32 on the tensor cores). A block of 4 warps owns ROWS = 16 rows (queries in the
 // forward and dQ kernels, keys in the dK/dV kernel), 4 per warp, and walks the other
 // axis in tiles of TILE = 32 staged in shared memory as f32, one element of the tile
@@ -75,11 +95,13 @@
 // could enter a softmax and read as zeros elsewhere.
 //
 // What bounds it. At ViT-Tiny's shape (B = 64, S = 65, H = 3, D = 64, bf16) a call
-// moves a few MB and does 0.2 (forward) to 0.7 (backward) GFLOP. The forward's
-// products are bf16 on the tensor cores, so its bound is the 6.4 MB it moves (1.9
-// us); what is left between it and the bound is latency: each block loads its head's
-// q, k and v once and does ~80 mma per warp. The backward's f32 FMAs on the CUDA
-// cores bound it (its tensor-core port is later work). No --use_fast_math.
+// moves a few MB and does 0.2 (forward) to 0.5 (backward) GFLOP. Every product runs
+// on the tensor cores, so the forward is bound by the 6.4 MB it moves (1.9 us) and
+// the backward kernels, whose ten bf16 products (1.0 GFLOP, the split counted) take
+// 1.1 us, by the 11.3 MB they move (3.4 us). What is left between them and the
+// kernels is latency: each block loads its head's operands once and a warp does ~80
+// (forward), ~160 (dQ) or ~240 (dK/dV) mma. The f32 route's FMAs on the CUDA cores
+// bound it. No --use_fast_math.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -105,9 +127,7 @@ struct Layout {  // element strides of a [B, S, H, D] operand (D stride 1)
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 __device__ __forceinline__ float round_to(float x, float) { return x; }
 
 __device__ __forceinline__ float warp_max(float x) {
@@ -473,6 +493,7 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 constexpr int MMA_MAX_WARPS = 8;   // query rows per block: 16 a warp
 constexpr int ONE_PASS_KEYS = 128; // the whole key axis in registers up to this S
 constexpr int KEY_TILE = 64;       // keys per tile above it
+constexpr int KEY_BLOCK = 16;      // keys a dK/dV warp owns: its skip granularity
 
 // rows [row0, row0 + n) of (b, h) into dst (row pitch `pitch` bf16) with D padded
 // by zeros to DP; rows at or past `limit` read as zeros. VEC: 16-byte cp.async
@@ -512,29 +533,37 @@ __device__ __forceinline__ void load_q_frags(uint32_t (&qf)[DP / 16][4],
         tc::ldmatrix_x4(qf[kk], q_s + (lane & 15) * pitch + kk * 16 + (lane >> 4) * 8);
 }
 
-// s[2j], s[2j+1] += Q (16 rows) . K[key0 + 16j .. + 16)^T for j < groups: B from k_s
-// (row pitch PITCH) by ldmatrix; then times `scale`, -1e30 at keys >= S
+// c[2j], c[2j+1] = A (16 rows, fragments af) . B[16j .. + 16)^T for j < groups, B's rows
+// from b_s (row pitch `pitch`) by ldmatrix; zero for j >= groups
+template <int DP, int NT>
+__device__ __forceinline__ void mma_abt(float (&c)[NT][4], const uint32_t (&af)[DP / 16][4],
+                                        const __nv_bfloat16* b_s, int pitch, int groups) {
+    const int lane = threadIdx.x & 31;
+#pragma unroll
+    for (int j = 0; j < NT / 2; ++j) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) c[2 * j][i] = c[2 * j + 1][i] = 0.f;
+        if (j < groups) {
+#pragma unroll
+            for (int kk = 0; kk < DP / 16; ++kk) {
+                uint32_t bb[4];
+                tc::ldmatrix_x4(bb, b_s + (j * 16 + (lane & 7) + (lane >> 4) * 8) * pitch +
+                                        kk * 16 + ((lane >> 3) & 1) * 8);
+                tc::mma_bf16(c[2 * j], af[kk], bb[0], bb[1]);
+                tc::mma_bf16(c[2 * j + 1], af[kk], bb[2], bb[3]);
+            }
+        }
+    }
+}
+
+// s = Q (16 rows) . K[key0 + 16j .. + 16)^T for j < groups (`mma_abt`), times `scale`,
+// -1e30 at keys >= S
 template <int DP, int NT>
 __device__ __forceinline__ void scores(float (&s)[NT][4], const uint32_t (&qf)[DP / 16][4],
                                        const __nv_bfloat16* k_s, int pitch, int groups,
                                        int key0, int S, float scale) {
-    const int lane = threadIdx.x & 31;
-    const int t = lane & 3;
-#pragma unroll
-    for (int j = 0; j < NT / 2; ++j) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) s[2 * j][i] = s[2 * j + 1][i] = 0.f;
-        if (j < groups) {
-#pragma unroll
-            for (int kk = 0; kk < DP / 16; ++kk) {
-                uint32_t kb[4];
-                tc::ldmatrix_x4(kb, k_s + (j * 16 + (lane & 7) + (lane >> 4) * 8) * pitch +
-                                        kk * 16 + ((lane >> 3) & 1) * 8);
-                tc::mma_bf16(s[2 * j], qf[kk], kb[0], kb[1]);
-                tc::mma_bf16(s[2 * j + 1], qf[kk], kb[2], kb[3]);
-            }
-        }
-    }
+    const int t = threadIdx.x & 3;
+    mma_abt<DP, NT>(s, qf, k_s, pitch, groups);
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
 #pragma unroll
@@ -779,6 +808,250 @@ flash_fwd_mma_tiled(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
     store_rows<DP, !NORMALIZED>(o, mx, l, out, lse, b, h, row0 + warp * 16, S, H, D);
 }
 
+// -- bf16 backward on the tensor cores ----------------------------------------
+
+// o[2dt], o[2dt+1] += X . M[16j .. + 16) for j < groups: X (16 rows x 16 columns per
+// group) is the f32 tile x[2j], x[2j+1], re-packed as A fragments in bf16 hi and lo
+// halves (`tc::split_bf16`), two mma into the same f32 sum; M's rows from m_s by
+// ldmatrix.trans
+template <int DP, int NT>
+__device__ __forceinline__ void accumulate_split(float (&o)[DP / 8][4], const float (&x)[NT][4],
+                                                 const __nv_bfloat16* m_s, int pitch,
+                                                 int groups) {
+    const int lane = threadIdx.x & 31;
+#pragma unroll
+    for (int j = 0; j < NT / 2; ++j) {
+        if (j < groups) {
+            uint32_t hi[4], lo[4];
+            tc::split_bf16(x[2 * j][0], x[2 * j][1], hi[0], lo[0]);
+            tc::split_bf16(x[2 * j][2], x[2 * j][3], hi[1], lo[1]);
+            tc::split_bf16(x[2 * j + 1][0], x[2 * j + 1][1], hi[2], lo[2]);
+            tc::split_bf16(x[2 * j + 1][2], x[2 * j + 1][3], hi[3], lo[3]);
+#pragma unroll
+            for (int dt = 0; dt < DP / 16; ++dt) {
+                uint32_t mb[4];
+                tc::ldmatrix_x4_trans(
+                    mb, m_s + (j * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * pitch + dt * 16 +
+                            (lane >> 4) * 8);
+                tc::mma_bf16(o[2 * dt], hi, mb[0], mb[1]);
+                tc::mma_bf16(o[2 * dt + 1], hi, mb[2], mb[3]);
+                tc::mma_bf16(o[2 * dt], lo, mb[0], mb[1]);
+                tc::mma_bf16(o[2 * dt + 1], lo, mb[2], mb[3]);
+            }
+        }
+    }
+}
+
+// rows row0 + g and row0 + g + 8 of a warp's 16 x DP f32 tile, times `mul`, as bf16 into
+// `dst` (row stride H * D); rows >= limit and columns >= D are not stored
+template <int DP>
+__device__ __forceinline__ void store_bf16_rows(const float (&o)[DP / 8][4],
+                                                __nv_bfloat16* __restrict__ dst, int row0,
+                                                int limit, int H, int D, float mul) {
+    const int lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+        const int row = row0 + g + 8 * half;
+        if (row >= limit) continue;
+        __nv_bfloat16* drow = dst + (size_t)row * H * D;
+#pragma unroll
+        for (int dt = 0; dt < DP / 8; ++dt) {
+            const int col = dt * 8 + 2 * t;
+            const float v0 = o[dt][2 * half] * mul, v1 = o[dt][2 * half + 1] * mul;
+            if (col + 1 < D && (D & 1) == 0) {
+                *reinterpret_cast<__nv_bfloat162*>(drow + col) = __floats2bfloat162_rn(v0, v1);
+            } else {
+                if (col < D) drow[col] = __float2bfloat16(v0);
+                if (col + 1 < D) drow[col + 1] = __float2bfloat16(v1);
+            }
+        }
+    }
+}
+
+// dQ: a warp owns 16 query rows, a block up to MMA_MAX_WARPS warps of one (b, h). K and V
+// are staged in tiles of `tile` keys (all of them up to ONE_PASS_KEYS, else KEY_TILE) and
+// walked in steps of TILE keys; no step starts at or past the row's length.
+template <int DP, bool VEC>
+__global__ void __launch_bounds__(MMA_MAX_WARPS * 32)
+flash_dq_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+             const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
+             const float* __restrict__ lse, const float* __restrict__ delta,
+             const int32_t* __restrict__ lengths, __nv_bfloat16* __restrict__ dq,
+             float* __restrict__ visits, int Sq, int Sk, int H, int D, Layout lq, Layout lkv,
+             int tile, float scale) {
+    constexpr int PITCH = DP + 8;
+    constexpr int NT = TILE / 8;
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const int rows = (blockDim.x >> 5) * 16;
+    __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [rows][PITCH]
+    __nv_bfloat16* do_s = q_s + rows * PITCH;                            // [rows][PITCH]
+    __nv_bfloat16* k_s = do_s + rows * PITCH;                            // [tile][PITCH]
+    __nv_bfloat16* v_s = k_s + tile * PITCH;                             // [tile][PITCH]
+    const int b = blockIdx.z, h = blockIdx.y;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int row0 = blockIdx.x * rows;  // the block's first query row
+    const int wrow0 = row0 + warp * 16;  // the warp's
+    const Layout ld = {(long long)Sq * H * D, (long long)H * D, D};
+    const int len = lengths ? min((int)lengths[b], Sk) : Sk;
+
+    stage_bf16<DP, VEC>(q_s, PITCH, q, lq, b, h, row0, rows, Sq, D);
+    stage_bf16<DP, VEC>(do_s, PITCH, dout, ld, b, h, row0, rows, Sq, D);
+    tc::cp_async_commit();
+    float lse_r[2], delta_r[2];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+        const int row = wrow0 + g + 8 * half;
+        const size_t at = ((size_t)b * H + h) * Sq + row;
+        lse_r[half] = row < Sq ? lse[at] : 0.f;
+        delta_r[half] = row < Sq ? delta[at] : 0.f;
+    }
+
+    uint32_t qf[DP / 16][4], df[DP / 16][4];
+    float acc[DP / 8][4] = {};
+    int steps = 0;
+    for (int k0 = 0; k0 < len; k0 += tile) {
+        if (k0 > 0) __syncthreads();  // the previous tile's readers are done with k_s, v_s
+        stage_bf16<DP, VEC>(k_s, PITCH, k, lkv, b, h, k0, tile, len, D);
+        stage_bf16<DP, VEC>(v_s, PITCH, v, lkv, b, h, k0, tile, len, D);
+        tc::cp_async_commit();
+        tc::cp_async_wait<0>();
+        __syncthreads();
+        if (k0 == 0) {
+            load_q_frags<DP>(qf, q_s + warp * 16 * PITCH, PITCH);
+            load_q_frags<DP>(df, do_s + warp * 16 * PITCH, PITCH);
+        }
+        const int n = min(tile, len - k0);  // keys of this tile before the length
+        for (int j0 = 0; j0 < n; j0 += TILE) {
+            ++steps;
+            if (wrow0 >= Sq) continue;
+            const int groups = min(2, (n - j0 + 15) / 16);
+            float s[NT][4], dp[NT][4];
+            mma_abt<DP, NT>(s, qf, k_s + j0 * PITCH, PITCH, groups);
+            mma_abt<DP, NT>(dp, df, v_s + j0 * PITCH, PITCH, groups);
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+                for (int i = 0; i < 4; ++i) {
+                    const int key = k0 + j0 + nt * 8 + 2 * t + (i & 1);
+                    float ds = 0.f;  // exactly 0 at keys >= len
+                    if (key < len) {
+                        const float p = expf(s[nt][i] * scale - lse_r[i >> 1]);
+                        ds = p * (dp[nt][i] - delta_r[i >> 1]);
+                    }
+                    s[nt][i] = ds;
+                }
+            }
+            accumulate_split<DP, NT>(acc, s, k_s + j0 * PITCH, PITCH, groups);
+        }
+    }
+    tc::cp_async_wait<0>();  // Q and dO, when no key tile was entered
+
+    store_bf16_rows<DP>(acc, dq + ((size_t)b * Sq * H + h) * D, wrow0, Sq, H, D, scale);
+    if (visits && t == 0) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+            const int row = wrow0 + g + 8 * half;
+            if (row < Sq) visits[((size_t)b * H + h) * Sq + row] = (float)steps;
+        }
+    }
+}
+
+// dK and dV: a warp owns 16 key rows (one key block of KEY_BLOCK), a block up to
+// MMA_MAX_WARPS warps of one (b, h). Q, dO, lse and delta are staged in tiles of `tile`
+// queries (all of them up to ONE_PASS_KEYS, else KEY_TILE) and walked in steps of TILE
+// queries. A warp whose keys all lie at or past the row's length does no work and writes
+// exact zeros; a block wholly past it stages nothing.
+template <int DP, bool VEC>
+__global__ void __launch_bounds__(MMA_MAX_WARPS * 32)
+flash_dkv_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+              const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
+              const float* __restrict__ lse, const float* __restrict__ delta,
+              const int32_t* __restrict__ lengths, __nv_bfloat16* __restrict__ dk,
+              __nv_bfloat16* __restrict__ dv, float* __restrict__ visits, int Sq, int Sk, int H,
+              int D, Layout lq, Layout lkv, int tile, float scale) {
+    constexpr int PITCH = DP + 8;
+    constexpr int NT = TILE / 8;
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const int rows = (blockDim.x >> 5) * 16;
+    __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [rows][PITCH]
+    __nv_bfloat16* v_s = k_s + rows * PITCH;                             // [rows][PITCH]
+    __nv_bfloat16* q_s = v_s + rows * PITCH;                             // [tile][PITCH]
+    __nv_bfloat16* do_s = q_s + tile * PITCH;                            // [tile][PITCH]
+    float* lse_s = reinterpret_cast<float*>(do_s + tile * PITCH);       // [tile]
+    float* delta_s = lse_s + tile;                                       // [tile]
+    const int b = blockIdx.z, h = blockIdx.y;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int key0 = blockIdx.x * rows;  // the block's first key
+    const int wkey0 = key0 + warp * 16;  // the warp's
+    const Layout ld = {(long long)Sq * H * D, (long long)H * D, D};
+    const int len = lengths ? min((int)lengths[b], Sk) : Sk;
+    const bool active = wkey0 < len;
+    __nv_bfloat16* dkh = dk + ((size_t)b * Sk * H + h) * D;  // (b, key 0, h)
+    __nv_bfloat16* dvh = dv + ((size_t)b * Sk * H + h) * D;
+
+    const int kblocks = (Sk + KEY_BLOCK - 1) / KEY_BLOCK;
+    if (visits && lane == 0 && wkey0 < Sk)
+        visits[((size_t)b * H + h) * kblocks + wkey0 / KEY_BLOCK] = active ? 1.f : 0.f;
+    float acc_k[DP / 8][4] = {}, acc_v[DP / 8][4] = {};
+    if (key0 < len) {
+        stage_bf16<DP, VEC>(k_s, PITCH, k, lkv, b, h, key0, rows, len, D);
+        stage_bf16<DP, VEC>(v_s, PITCH, v, lkv, b, h, key0, rows, len, D);
+    }
+    for (int q0 = 0; key0 < len && q0 < Sq; q0 += tile) {
+        if (q0 > 0) __syncthreads();  // the previous tile's readers are done with it
+        stage_bf16<DP, VEC>(q_s, PITCH, q, lq, b, h, q0, tile, Sq, D);
+        stage_bf16<DP, VEC>(do_s, PITCH, dout, ld, b, h, q0, tile, Sq, D);
+        tc::cp_async_commit();
+        for (int i = threadIdx.x; i < tile; i += blockDim.x) {
+            const int row = q0 + i;
+            const size_t at = ((size_t)b * H + h) * Sq + row;
+            lse_s[i] = row < Sq ? lse[at] : 0.f;
+            delta_s[i] = row < Sq ? delta[at] : 0.f;
+        }
+        tc::cp_async_wait<0>();
+        __syncthreads();
+        if (!active) continue;
+        const int n = min(tile, Sq - q0);  // queries of this tile
+        for (int j0 = 0; j0 < n; j0 += TILE) {
+            const int groups = min(2, (n - j0 + 15) / 16);
+            float s[NT][4], dp[NT][4];
+            {
+                uint32_t kf[DP / 16][4];
+                load_q_frags<DP>(kf, k_s + warp * 16 * PITCH, PITCH);
+                mma_abt<DP, NT>(s, kf, q_s + j0 * PITCH, PITCH, groups);
+            }
+            {
+                uint32_t vf[DP / 16][4];
+                load_q_frags<DP>(vf, v_s + warp * 16 * PITCH, PITCH);
+                mma_abt<DP, NT>(dp, vf, do_s + j0 * PITCH, PITCH, groups);
+            }
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+                for (int i = 0; i < 4; ++i) {
+                    const int col = j0 + nt * 8 + 2 * t + (i & 1);  // the tile's query
+                    const int key = wkey0 + g + 8 * (i >> 1);
+                    float p = 0.f, ds = 0.f;  // exactly 0 at keys >= len
+                    if (key < len && col < n) {
+                        p = expf(s[nt][i] * scale - lse_s[col]);
+                        ds = p * (dp[nt][i] - delta_s[col]);
+                    }
+                    s[nt][i] = p;    // P^T
+                    dp[nt][i] = ds;  // dS^T
+                }
+            }
+            accumulate_split<DP, NT>(acc_v, s, do_s + j0 * PITCH, PITCH, groups);
+            accumulate_split<DP, NT>(acc_k, dp, q_s + j0 * PITCH, PITCH, groups);
+        }
+    }
+
+    store_bf16_rows<DP>(acc_k, dkh, wkey0, Sk, H, D, scale);
+    store_bf16_rows<DP>(acc_v, dvh, wkey0, Sk, H, D, 1.f);
+}
+
 // lets `kernel` take `smem` bytes of dynamic shared memory (above 48 KB only
 // on request: D = 128 in the backward kernels)
 template <typename K>
@@ -826,7 +1099,68 @@ cudaError_t launch_fwd_mma(const __nv_bfloat16* q, const __nv_bfloat16* k,
     return cudaGetLastError();
 }
 
+// whether a bf16 [B, S, H, D] operand may be staged by 16-byte copies: base, row
+// strides and D all multiples of 8 elements (the rule of `views_aligned16`)
+bool aligned16(const void* p, Layout L, int D) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0 && L.b % 8 == 0 && L.s % 8 == 0 &&
+           L.h % 8 == 0 && D % 8 == 0;
+}
+
+// rows per block and the staged tile of the other axis for the bf16 backward: one block
+// of ceil(rows / 16) warps per (b, h) up to 8 warps, and the whole other axis (padded to
+// 16) up to ONE_PASS_KEYS, else tiles of KEY_TILE
+struct BwdPlan {
+    int warps, tile;
+    dim3 grid;
+};
+
+BwdPlan bwd_plan(int B, int rows, int other, int H) {
+    const int warps = min(MMA_MAX_WARPS, (rows + 15) / 16);
+    const int tile = other <= ONE_PASS_KEYS ? (other + 15) & ~15 : KEY_TILE;
+    return {warps, tile, dim3((rows + warps * 16 - 1) / (warps * 16), H, B)};
+}
+
+template <int DP, bool VEC>
+cudaError_t launch_dq_mma(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                          const __nv_bfloat16* v, const __nv_bfloat16* dout, const float* lse,
+                          const float* delta, const int32_t* lengths, __nv_bfloat16* dq,
+                          float* visits, int B, int Sq, int Sk, int H, int D, Layout lq,
+                          Layout lkv, float scale, cudaStream_t st) {
+    const BwdPlan pl = bwd_plan(B, Sq, Sk, H);
+    const size_t smem = sizeof(__nv_bfloat16) * (DP + 8) * (size_t)(2 * pl.warps * 16 + 2 * pl.tile);
+    const cudaError_t err = allow_smem(flash_dq_mma<DP, VEC>, smem);
+    if (err != cudaSuccess) return err;
+    flash_dq_mma<DP, VEC><<<pl.grid, pl.warps * 32, smem, st>>>(
+        q, k, v, dout, lse, delta, lengths, dq, visits, Sq, Sk, H, D, lq, lkv, pl.tile, scale);
+    return cudaGetLastError();
+}
+
+template <int DP, bool VEC>
+cudaError_t launch_dkv_mma(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                           const __nv_bfloat16* v, const __nv_bfloat16* dout, const float* lse,
+                           const float* delta, const int32_t* lengths, __nv_bfloat16* dk,
+                           __nv_bfloat16* dv, float* visits, int B, int Sq, int Sk, int H,
+                           int D, Layout lq, Layout lkv, float scale, cudaStream_t st) {
+    const BwdPlan pl = bwd_plan(B, Sk, Sq, H);
+    const size_t smem = sizeof(__nv_bfloat16) * (DP + 8) * (size_t)(2 * pl.warps * 16 + 2 * pl.tile) +
+                        sizeof(float) * 2 * pl.tile;
+    const cudaError_t err = allow_smem(flash_dkv_mma<DP, VEC>, smem);
+    if (err != cudaSuccess) return err;
+    flash_dkv_mma<DP, VEC><<<pl.grid, pl.warps * 32, smem, st>>>(
+        q, k, v, dout, lse, delta, lengths, dk, dv, visits, Sq, Sk, H, D, lq, lkv, pl.tile,
+        scale);
+    return cudaGetLastError();
+}
+
 }  // namespace
+
+// 1 when the bf16 backward's entry points stage a [B, S, H, D] view at `p` with these
+// strides (in elements) by 16-byte copies, else 0: their own rule, exported so that
+// the card tests hold it to `views_aligned16`, which decides for the forward
+extern "C" int dmt_flash_aligned16(const void* p, long long sb, long long ss, long long sh,
+                                   int D) {
+    return aligned16(p, Layout{sb, ss, sh}, D) ? 1 : 0;
+}
 
 // Each entry point launches one kernel on `stream` (PyTorch's current stream)
 // and returns cudaGetLastError() after the launch: nonzero means the launch was
@@ -877,8 +1211,6 @@ extern "C" int dmt_flash_attention_dq(const void* q, const void* k, const void* 
                                       int Sk, int H, int D, long long qsb, long long qss,
                                       long long qsh, long long ksb, long long kss,
                                       long long ksh, int is_bf16, float scale, void* stream) {
-    const dim3 grid((Sq + ROWS - 1) / ROWS, H, B);
-    const size_t smem = sizeof(float) * (2 * TILE * (D + 1) + 2 * ROWS * D);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     const Layout lq = {qsb, qss, qsh}, lkv = {ksb, kss, ksh};
     const float* l = static_cast<const float*>(lse);
@@ -886,6 +1218,29 @@ extern "C" int dmt_flash_attention_dq(const void* q, const void* k, const void* 
     const int32_t* lens = static_cast<const int32_t*>(lengths);
     float* vis = static_cast<float*>(visits);
     cudaError_t err;
+    if (is_bf16) {  // the tensor-core kernel
+        const __nv_bfloat16* qb = static_cast<const __nv_bfloat16*>(q);
+        const __nv_bfloat16* kb = static_cast<const __nv_bfloat16*>(k);
+        const __nv_bfloat16* vb = static_cast<const __nv_bfloat16*>(v);
+        const __nv_bfloat16* db = static_cast<const __nv_bfloat16*>(dout);
+        __nv_bfloat16* dqb = static_cast<__nv_bfloat16*>(dq);
+        const Layout ld = {(long long)Sq * H * D, (long long)H * D, D};
+        const bool vec = aligned16(q, lq, D) && aligned16(k, lkv, D) && aligned16(v, lkv, D) &&
+                         aligned16(dout, ld, D);
+#define DMT_DQ_MMA(DP)                                                                       \
+    err = vec ? launch_dq_mma<DP, true>(qb, kb, vb, db, l, dl, lens, dqb, vis, B, Sq, Sk, H, D, \
+                                        lq, lkv, scale, st)                                   \
+              : launch_dq_mma<DP, false>(qb, kb, vb, db, l, dl, lens, dqb, vis, B, Sq, Sk, H,  \
+                                         D, lq, lkv, scale, st)
+        if (D <= 16) { DMT_DQ_MMA(16); }
+        else if (D <= 32) { DMT_DQ_MMA(32); }
+        else if (D <= 64) { DMT_DQ_MMA(64); }
+        else { DMT_DQ_MMA(128); }
+#undef DMT_DQ_MMA
+        return static_cast<int>(err);
+    }
+    const dim3 grid((Sq + ROWS - 1) / ROWS, H, B);
+    const size_t smem = sizeof(float) * (2 * TILE * (D + 1) + 2 * ROWS * D);
 #define DMT_DQ(T)                                                                          \
     err = allow_smem(flash_dq_kernel<T>, smem);                                      \
     if (err != cudaSuccess) return static_cast<int>(err);                                 \
@@ -893,7 +1248,7 @@ extern "C" int dmt_flash_attention_dq(const void* q, const void* k, const void* 
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),      \
         static_cast<const T*>(dout), l, dl, lens, static_cast<T*>(dq), vis, Sq, Sk, H, D,  \
         lq, lkv, scale)
-    if (is_bf16) { DMT_DQ(__nv_bfloat16); } else { DMT_DQ(float); }
+    DMT_DQ(float);
 #undef DMT_DQ
     return static_cast<int>(cudaGetLastError());
 }
@@ -905,8 +1260,6 @@ extern "C" int dmt_flash_attention_dkv(const void* q, const void* k, const void*
                                        long long qss, long long qsh, long long ksb,
                                        long long kss, long long ksh, int is_bf16, float scale,
                                        void* stream) {
-    const dim3 grid((Sk + ROWS - 1) / ROWS, H, B);
-    const size_t smem = sizeof(float) * (2 * TILE * (D + 1) + 2 * ROWS * D + 2 * TILE);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     const Layout lq = {qsb, qss, qsh}, lkv = {ksb, kss, ksh};
     const float* l = static_cast<const float*>(lse);
@@ -914,6 +1267,30 @@ extern "C" int dmt_flash_attention_dkv(const void* q, const void* k, const void*
     const int32_t* lens = static_cast<const int32_t*>(lengths);
     float* vis = static_cast<float*>(visits);
     cudaError_t err;
+    if (is_bf16) {  // the tensor-core kernel
+        const __nv_bfloat16* qb = static_cast<const __nv_bfloat16*>(q);
+        const __nv_bfloat16* kb = static_cast<const __nv_bfloat16*>(k);
+        const __nv_bfloat16* vb = static_cast<const __nv_bfloat16*>(v);
+        const __nv_bfloat16* db = static_cast<const __nv_bfloat16*>(dout);
+        __nv_bfloat16* dkb = static_cast<__nv_bfloat16*>(dk);
+        __nv_bfloat16* dvb = static_cast<__nv_bfloat16*>(dv);
+        const Layout ld = {(long long)Sq * H * D, (long long)H * D, D};
+        const bool vec = aligned16(q, lq, D) && aligned16(k, lkv, D) && aligned16(v, lkv, D) &&
+                         aligned16(dout, ld, D);
+#define DMT_DKV_MMA(DP)                                                                      \
+    err = vec ? launch_dkv_mma<DP, true>(qb, kb, vb, db, l, dl, lens, dkb, dvb, vis, B, Sq, Sk, \
+                                         H, D, lq, lkv, scale, st)                            \
+              : launch_dkv_mma<DP, false>(qb, kb, vb, db, l, dl, lens, dkb, dvb, vis, B, Sq,   \
+                                          Sk, H, D, lq, lkv, scale, st)
+        if (D <= 16) { DMT_DKV_MMA(16); }
+        else if (D <= 32) { DMT_DKV_MMA(32); }
+        else if (D <= 64) { DMT_DKV_MMA(64); }
+        else { DMT_DKV_MMA(128); }
+#undef DMT_DKV_MMA
+        return static_cast<int>(err);
+    }
+    const dim3 grid((Sk + ROWS - 1) / ROWS, H, B);
+    const size_t smem = sizeof(float) * (2 * TILE * (D + 1) + 2 * ROWS * D + 2 * TILE);
 #define DMT_DKV(T)                                                                         \
     err = allow_smem(flash_dkv_kernel<T>, smem);                                     \
     if (err != cudaSuccess) return static_cast<int>(err);                                 \
@@ -921,7 +1298,7 @@ extern "C" int dmt_flash_attention_dkv(const void* q, const void* k, const void*
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),      \
         static_cast<const T*>(dout), l, dl, lens, static_cast<T*>(dk), static_cast<T*>(dv), \
         vis, Sq, Sk, H, D, lq, lkv, scale)
-    if (is_bf16) { DMT_DKV(__nv_bfloat16); } else { DMT_DKV(float); }
+    DMT_DKV(float);
 #undef DMT_DKV
     return static_cast<int>(cudaGetLastError());
 }

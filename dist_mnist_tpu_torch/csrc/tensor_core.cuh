@@ -9,6 +9,9 @@
 //                 lane (lanes 8i..8i+7 address matrix i); `_trans` transposes each.
 //   cp_async16    a 16-byte global -> shared copy that bypasses the registers;
 //                 `src_bytes` 0 writes 16 zero bytes and reads nothing.
+//   split_bf16    an f32 pair as two bf16 pairs, hi = bf16(x) and lo = bf16(x - hi):
+//                 |x - hi - lo| <= 2^-16 |x|, so two mma (hi, then lo) into one f32
+//                 sum take an f32 operand at 2^-16 relative per term.
 //
 // Fragment layouts (g = lane / 4, t = lane % 4):
 //   A regs a0..a3: (row g, cols 2t, 2t+1), (row g+8, cols 2t, 2t+1),
@@ -69,6 +72,16 @@ __device__ __forceinline__ void cp_async_wait() {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
     const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
     return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// (a, b) split into bf16 halves: hi = (bf16(a), bf16(b)), lo = the residues a - hi and
+// b - hi (exact in f32) rounded to bf16; lower index in the low half of each register
+__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi, uint32_t& lo) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+    const float2 hf = __bfloat1622float2(h);
+    const __nv_bfloat162 l = __floats2bfloat162_rn(a - hf.x, b - hf.y);
+    hi = *reinterpret_cast<const uint32_t*>(&h);
+    lo = *reinterpret_cast<const uint32_t*>(&l);
 }
 
 }  // namespace tc

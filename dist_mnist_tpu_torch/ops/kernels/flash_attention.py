@@ -6,12 +6,14 @@ Counterpart of the reference Pallas kernels
 full-K `_attn_fwd_kernel` and the streamed `_attn_fwd_kernel_kt`) and
 `_flash_bwd_impl` (the dQ kernel over query tiles and the dK/dV kernel
 over key tiles). The CUDA bodies are `csrc/flash_attention.cu`; its header
-says how they are laid out and what bounds them. The forward picks its
-body by dtype: bf16 takes the tensor-core (`mma.sync`) kernels, whose
-bf16 x bf16 products are exact in their f32 accumulators, so they keep
-the reference's numbers; f32 takes the full-precision FMA kernel. The
-same backward kernels take an optional lengths vector and serve the
-masked backward (`ops/kernels/masked_flash.py`).
+says how they are laid out and what bounds them. Each leaf picks its body
+by dtype. bf16 takes the tensor-core (`mma.sync`) kernels: the forward's
+bf16 x bf16 products are exact in their f32 accumulators, and the
+backward's three products with an f32 operand (the recomputed P or dS)
+split that operand into bf16 hi and lo halves, 2^-16 relative per term,
+so both keep the reference's numbers. f32 takes the full-precision FMA
+kernels. The same backward kernels take an optional lengths vector and
+serve the masked backward (`ops/kernels/masked_flash.py`).
 
 Public functions keep the reference's signatures and its block_k
 quantization (block_q is accepted and unused: the kernels tile queries
@@ -50,10 +52,11 @@ import torch
 
 from dist_mnist_tpu_torch.ops.kernels import build
 
-#: keys per tile of the forward and dQ kernels (one per lane of a warp):
-#: the dQ kernel's skip granularity
+#: keys per step of the dQ kernels (a tile of the f32 route, two 16-key
+#: groups of the bf16 route): the dQ kernel's skip granularity
 TILE = 32
-#: keys per block of the dK/dV kernel: its skip granularity
+#: keys per block (f32) or warp (bf16) of the dK/dV kernel: its skip
+#: granularity
 KEY_BLOCK = 16
 #: largest head_dim the kernels take
 MAX_HEAD_DIM = 128
@@ -68,6 +71,7 @@ _ARGTYPES = {
     + [_I, _F, _VP],
     "dmt_flash_attention_dkv": [_VP] * 10 + [_I] * 5 + [_LL] * 6
     + [_I, _F, _VP],
+    "dmt_flash_aligned16": [_VP, _LL, _LL, _LL, _I],
 }
 
 
@@ -226,7 +230,8 @@ def views_aligned16(*ts) -> bool:
     16-byte copies: every base pointer and every row stride (B, S, H, and
     D itself) a whole number of 16 bytes. Otherwise it stages them by
     plain loads (its VEC = false instantiations), never the plain
-    version."""
+    version. The backward's C entry points decide by the same rule for
+    each operand (`dmt_flash_aligned16`)."""
     return all(t.data_ptr() % 16 == 0 and all(
         n * t.element_size() % 16 == 0 for n in (*_strides(t), t.shape[-1]))
         for t in ts)
@@ -242,10 +247,13 @@ def _raise_on(err: int, what: str) -> None:
 
 
 def launch_dq(q, k, v, do, lse, delta, lengths=None, visits=None):
-    """Launch the dQ kernel: ``dq`` like q (contiguous). `k` and `v` with
-    one set of strides; `do` contiguous like q; `lse`, `delta`
-    contiguous ``[B, H, Sq]`` f32; optional int32 `lengths` ``[B]`` and
-    f32 ``visits [B, H, Sq]`` (key tiles each query row entered)."""
+    """Launch the dQ kernel (bf16: `flash_dq_mma`, f32:
+    `flash_dq_kernel`): ``dq`` like q (contiguous). `k` and `v` with one
+    set of strides; `do` contiguous like q; `lse`, `delta` contiguous
+    ``[B, H, Sq]`` f32; optional int32 `lengths` ``[B]`` and f32 ``visits
+    [B, H, Sq]`` (steps of `TILE` keys each query row entered). The bf16
+    kernel stages by 16-byte copies where `views_aligned16` would, and by
+    plain loads elsewhere (decided in the C entry point)."""
     b, sq, h, d = q.shape
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
@@ -261,9 +269,10 @@ def launch_dq(q, k, v, do, lse, delta, lengths=None, visits=None):
 
 
 def launch_dkv(q, k, v, do, lse, delta, lengths=None, visits=None):
-    """Launch the dK/dV kernel: ``(dk, dv)`` like k and v (contiguous).
-    Optional f32 ``visits [B, H, ceil(Sk / KEY_BLOCK)]``: 1 for each key
-    block the kernel entered, 0 for one it skipped."""
+    """Launch the dK/dV kernel (bf16: `flash_dkv_mma`, f32:
+    `flash_dkv_kernel`): ``(dk, dv)`` like k and v (contiguous). Optional
+    f32 ``visits [B, H, ceil(Sk / KEY_BLOCK)]``: 1 for each key block the
+    kernel entered, 0 for one it skipped."""
     b, sq, h, d = q.shape
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
@@ -424,21 +433,33 @@ def flash_attention_cost(b: int, s: int, h: int, d: int,
     them. Forward: QK^T and PV, both in the inputs' dtype (P is rounded to
     v's dtype). Backward: QK^T and dO V^T in the inputs' dtype, and dV =
     P^T dO, dQ = dS K and dK = dS^T Q with an f32 operand (the recomputed P,
-    dS). ``bwd_split_flops`` counts the seven products of the dQ / dK-dV
-    recompute split the kernels (and the reference's) run, all in f32.
-    Bytes: every input read once and every output written once (forward:
-    q, k, v in, out and the f32 lse back; backward: q, k, v, dO, lse and
-    delta in, dq, dk, dv back)."""
+    dS). ``bwd_split_flops`` counts the products the backward kernels
+    themselves run (`backward_design_flops`), keyed the same way. Bytes:
+    every input read once and every output written once
+    (forward: q, k, v in, out and the f32 lse back; backward: q, k, v, dO,
+    lse and delta in, dq, dk, dv back)."""
     el = torch.tensor([], dtype=dtype).element_size()
     mat = b * s * h * d * el
     vec = b * h * s * 4
+    macs = b * h * s * s * d
     return {
-        "fwd_flops": attention_flops_by_type(b * h * s * s * d, dtype, 2, 0),
+        "fwd_flops": attention_flops_by_type(macs, dtype, 2, 0),
         "fwd_bytes": float(4 * mat + vec),
-        "bwd_flops": attention_flops_by_type(b * h * s * s * d, dtype, 2, 3),
-        "bwd_split_flops": float(7 * 2 * b * h * s * s * d),
+        "bwd_flops": attention_flops_by_type(macs, dtype, 2, 3),
+        "bwd_split_flops": backward_design_flops(macs, dtype),
         "bwd_bytes": float(4 * mat + 2 * vec + 3 * mat),
     }
+
+
+def backward_design_flops(macs: float, dtype: torch.dtype) -> dict:
+    """FLOPs the backward kernels run for `macs` multiply-adds per
+    product, keyed by operand type. Each of the dQ and dK/dV kernels
+    recomputes QK^T and dO V^T. bf16 runs those four on bf16 operands and
+    each of the three f32-operand products twice, as bf16 hi and lo
+    halves: ten products at the bf16 rate. f32 runs the seven in f32."""
+    if dtype == torch.bfloat16:
+        return {"bfloat16": float(2 * macs * (4 + 2 * 3))}
+    return {"float32": float(2 * macs * 7)}
 
 
 def attention_flops_by_type(macs: float, dtype: torch.dtype, n_in: int,

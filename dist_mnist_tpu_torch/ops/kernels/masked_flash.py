@@ -11,9 +11,10 @@ work. The forward's CUDA body is `csrc/masked_flash_attention.cu` (its
 header says how it is laid out and what bounds it).
 
 The backward (the reference's `_masked_flash_bwd_impl`) runs the dQ and
-dK/dV kernels of `csrc/flash_attention.cu` with the lengths vector: key
-tiles at or past a row's length do no work, and dK and dV there are exact
-zeros. ``delta = rowsum(f32(dO) * f32(O))`` has no lse term here.
+dK/dV kernels of `csrc/flash_attention.cu` with the lengths vector (bf16:
+the tensor-core `flash_dq_mma` and `flash_dkv_mma`; f32: the FMA
+kernels): key steps and blocks at or past a row's length do no work, and
+dK and dV there are exact zeros. ``delta = rowsum(f32(dO) * f32(O))`` has no lse term here.
 
 `masked_flash_attention` checks its inputs. When a gradient is wanted it
 runs `_MaskedFlashAttention` (forward with the f32 lse saved, backward as
@@ -224,7 +225,7 @@ def masked_flash_attention_probe(q, k, v, lengths):
 def masked_flash_attention_backward_probe(q, k, v, lengths, do):
     """One masked forward and backward on `do` with the blocks each
     backward kernel entered: ``(dq, dk, dv, dq_visits [B, H, Sq],
-    dkv_visits [B, H])``. dq_visits counts the key tiles of `fa.TILE` the
+    dkv_visits [B, H])``. dq_visits counts the steps of `fa.TILE` keys the
     dQ kernel entered per query row, ``ceil(length / TILE)``; dkv_visits
     the key blocks of `fa.KEY_BLOCK` the dK/dV kernel entered per (row,
     head), ``ceil(length / KEY_BLOCK)``. On the CPU they are those counts,

@@ -1,0 +1,134 @@
+#!/usr/bin/env python3
+"""Time the PyTorch port's flash-attention kernels of several checkouts on
+one card, in turns. Needs one NVIDIA GPU and `nvcc`, as `chip_smoke.py`
+does.
+
+    python3 scripts/torch_flash_ab.py [--vit] TREE [TREE ...]
+
+Each TREE is the root of a checkout of this repository: this one, and an
+older commit unpacked beside it with `git archive`. The trees run in the
+order given, then in reverse: two trees run A, B, B, A. Each run is a
+fresh interpreter whose working directory is the tree: it builds and
+imports that tree's kernels and its `chip_smoke.py`.
+It times, at ViT-Tiny's attention call (B=64, S=65, H=3, D=64; q, k, v the
+strided views of one fused projection), the forward, dQ, dK/dV and the two
+together in bf16 and in f32, and in bf16 the masked backward with lengths
+2..65 (on contiguous copies). Each figure is the tree's
+`chip_smoke.graph_ms`: a CUDA graph of 100 back-to-back calls replayed
+under CUDA events, median of 5 replays, in ms per call. With `--vit`,
+each run then also calls its tree's `chip_smoke.vit_profile` (one `vit_tiny_cifar_flash` training step at
+batch 64: host wall, and device time by kernel from `torch.profiler`) and
+records the step's device busy ms, its idle share and the ms of each
+flash kernel in it. Prints the card's name and power limit, one JSON line
+per run, and last a JSON line with each tree's median per figure over its
+runs.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+# run in a fresh interpreter whose working directory is the tree under test
+RUN = r"""
+import json, sys
+sys.path.insert(0, ".")
+import torch
+import chip_smoke
+from dist_mnist_tpu_torch.ops.kernels import build
+from dist_mnist_tpu_torch.ops.kernels import flash_attention as fa
+from dist_mnist_tpu_torch.ops.kernels.masked_flash import (
+    masked_flash_attention_backward, masked_flash_attention_forward)
+
+torch.backends.cuda.matmul.allow_tf32 = False
+build.build_all(["flash_attention", "masked_flash_attention"])
+
+B, S, H, D = 64, 65, 3, 64
+rows = {}
+for name, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+    gen = torch.Generator().manual_seed(80)
+    q, k, v = torch.randn(B, S, 3, H, D, generator=gen).to(
+        "cuda", dtype).unbind(2)
+    do = torch.randn(B, S, H, D, generator=torch.Generator().manual_seed(
+        81)).to("cuda", dtype)
+    out, lse = fa.flash_attention_forward(q, k, v)
+    delta = fa.attention_delta(out, do)
+    rows[name + "_forward"] = chip_smoke.graph_ms(
+        torch, lambda: fa.flash_attention_forward(q, k, v))
+    rows[name + "_dq"] = chip_smoke.graph_ms(
+        torch, lambda: fa.flash_attention_dq(q, k, v, do, lse, delta))
+    rows[name + "_dkv"] = chip_smoke.graph_ms(
+        torch, lambda: fa.flash_attention_dkv(q, k, v, do, lse, delta))
+    rows[name + "_backward"] = chip_smoke.graph_ms(torch, lambda: (
+        fa.flash_attention_dq(q, k, v, do, lse, delta),
+        fa.flash_attention_dkv(q, k, v, do, lse, delta)))
+    if dtype == torch.bfloat16:
+        lens = torch.arange(2, B + 2, dtype=torch.int32, device="cuda")
+        qc, kc, vc = (t.contiguous() for t in (q, k, v))
+        m_out, m_lse = masked_flash_attention_forward(qc, kc, vc, lens)
+        m_delta = fa.attention_delta(m_out, do)
+        rows["bf16_masked_backward"] = chip_smoke.graph_ms(
+            torch, lambda: masked_flash_attention_backward(
+                qc, kc, vc, lens, do, m_lse, m_delta))
+if "--vit" in sys.argv:
+    import re
+
+    from dist_mnist_tpu_torch.data.datasets import load_dataset
+
+    prof = chip_smoke.vit_profile(torch, torch.device("cuda", 0),
+                                  load_dataset("cifar10", seed=42))
+    rows["vit_step_wall_ms"] = prof["wall_ms"]
+    rows["vit_step_device_busy_ms"] = prof["device_busy_ms"]
+    rows["vit_step_device_idle_share"] = prof["device_idle_share"]
+    for kernel, ms in prof["device_ms_by_kernel"].items():
+        name = re.search(r"flash_\w+", kernel)
+        if name:  # e.g. "void (anonymous namespace)::flash_dq_mma<64, true>(..."
+            key = "vit_step_ms " + name.group(0)
+            rows[key] = rows.get(key, 0.0) + ms
+print(json.dumps(rows))
+"""
+
+
+def run_tree(tree: Path, vit: bool) -> dict:
+    proc = subprocess.run([sys.executable, "-c", RUN, *(["--vit"] if vit
+                                                        else [])],
+                          cwd=tree, capture_output=True, text=True,
+                          timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{tree}: rc={proc.returncode}\n{proc.stderr}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("trees", nargs="+", type=Path)
+    parser.add_argument("--vit", action="store_true",
+                        help="also profile one ViT-Tiny training step")
+    args = parser.parse_args()
+    trees = [t.resolve() for t in args.trees]
+    for tree in trees:
+        if not (tree / "dist_mnist_tpu_torch").is_dir():
+            print(f"{tree} holds no dist_mnist_tpu_torch", file=sys.stderr)
+            return 2
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+    runs: dict[str, list[dict]] = {str(t): [] for t in trees}
+    for tree in trees + trees[::-1]:
+        rows = run_tree(tree, args.vit)
+        runs[str(tree)].append(rows)
+        print(json.dumps({"tree": str(tree), **rows}), flush=True)
+    print(json.dumps({"median_ms": {
+        tree: {key: statistics.median(run.get(key, float("nan"))
+                                      for run in rs)
+               for key in rs[0]} for tree, rs in runs.items()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,21 +1,28 @@
 #!/usr/bin/env python3
-"""Show that `chip_smoke.py`'s `vit_kernel_vs_plain` phase fails when the
-PyTorch port's flash backward kernel is wrong. Needs one NVIDIA GPU and
+"""Show that `chip_smoke.py`'s checks of the PyTorch port's flash
+backward fail when its bf16 kernels are wrong. Needs one NVIDIA GPU and
 `nvcc`, as `chip_smoke.py` does.
 
     python3 scripts/torch_flash_mutation_check.py
 
-Runs the phase on the checkout as it stands, then on copies of the
-checkout in a temporary directory, each with one fault planted in
-`dist_mnist_tpu_torch/csrc/flash_attention.cu`:
+Runs the phases `vit_kernel_vs_plain` and `flash_split_share` on the
+checkout as it stands, then on copies of the checkout in a temporary
+directory, each with one fault planted in
+`dist_mnist_tpu_torch/csrc/flash_attention.cu`, in the bf16 tensor-core
+backward that the ViT path runs, and runs there the phase that must
+catch it:
 
-- `dk_zero`: the dK/dV kernel writes dK as zero;
-- `delta_dropped`: the dK/dV kernel forms dS as ``p * dP``, without
-  ``- delta``.
+- `dk_zero` (`vit_kernel_vs_plain`): `flash_dkv_mma` writes dK as zero;
+- `delta_dropped` (`vit_kernel_vs_plain`): `flash_dkv_mma` forms dS as
+  ``p * dP``, without ``- delta``;
+- `lo_dropped` (`flash_split_share`): the three products with an f32
+  operand (dS K, dS^T Q, P^T dO) skip the operand's lo half, as if P and
+  dS were rounded to bf16 once; within the 1e-2 limits, so only the
+  share of outputs equal to the plain version's bf16 values sees it.
 
-Each run prints the phase's JSON line. Exits 0 only when the checkout
-passes the phase and every mutant fails it. The checkout itself is never
-modified.
+Each run prints its phases' JSON lines. Exits 0 only when the checkout
+passes both phases and every mutant fails its own. The checkout itself
+is never modified.
 """
 
 from __future__ import annotations
@@ -28,11 +35,15 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 KERNEL = Path("dist_mnist_tpu_torch/csrc/flash_attention.cu")
-MUTANTS = {
-    "dk_zero": ("store(dk + at + d, acc_k[r][i] * scale);",
-                "store(dk + at + d, 0.f);"),
-    "delta_dropped": ("ds[r] = p[r] * (dp[r] - delta_s[lane]);",
-                      "ds[r] = p[r] * dp[r];"),
+MUTANTS = {  # name: (line, its mutation, the phase that must catch it)
+    "dk_zero": ("store_bf16_rows<DP>(acc_k, dkh, wkey0, Sk, H, D, scale);",
+                "store_bf16_rows<DP>(acc_k, dkh, wkey0, Sk, H, D, 0.f);",
+                "vit_kernel_vs_plain"),
+    "delta_dropped": ("ds = p * (dp[nt][i] - delta_s[col]);",
+                      "ds = p * dp[nt][i];", "vit_kernel_vs_plain"),
+    "lo_dropped": ("""                tc::mma_bf16(o[2 * dt], lo, mb[0], mb[1]);
+                tc::mma_bf16(o[2 * dt + 1], lo, mb[2], mb[3]);
+""", "", "flash_split_share"),
 }
 # run in a fresh interpreter whose working directory is the tree under test
 PHASE = """
@@ -45,14 +56,19 @@ from dist_mnist_tpu_torch.ops.kernels import build
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 build.build_all(["flash_attention"])
-chip_smoke.vit_kernel_vs_plain(torch, torch.device("cuda", 0),
-                               load_dataset("cifar10", seed=42))
+dev = torch.device("cuda", 0)
+for phase in sys.argv[1:]:
+    if phase == "vit_kernel_vs_plain":
+        chip_smoke.vit_kernel_vs_plain(torch, dev,
+                                       load_dataset("cifar10", seed=42))
+    else:
+        getattr(chip_smoke, phase)(torch, dev)
 """
 
 
-def run_phase(tree: Path) -> bool:
-    """True when the phase passes on `tree`."""
-    proc = subprocess.run([sys.executable, "-c", PHASE], cwd=tree,
+def run_phases(tree: Path, *phases: str) -> bool:
+    """True when every phase passes on `tree`."""
+    proc = subprocess.run([sys.executable, "-c", PHASE, *phases], cwd=tree,
                           timeout=600)
     return proc.returncode == 0
 
@@ -61,10 +77,11 @@ def main() -> int:
     if not (ROOT / KERNEL).is_file() or not (ROOT / "chip_smoke.py").is_file():
         print(f"no {KERNEL} or chip_smoke.py under {ROOT}", file=sys.stderr)
         return 2
-    verdicts = {"checkout": run_phase(ROOT)}
+    verdicts = {"checkout": run_phases(ROOT, *sorted(
+        {phase for _, _, phase in MUTANTS.values()}))}
     src = (ROOT / KERNEL).read_text()
     with tempfile.TemporaryDirectory() as tmp:
-        for name, (old, new) in MUTANTS.items():
+        for name, (old, new, phase) in MUTANTS.items():
             if src.count(old) != 1:
                 print(f"{name}: the line to mutate is not in {KERNEL} once",
                       file=sys.stderr)
@@ -73,8 +90,8 @@ def main() -> int:
             shutil.copytree(ROOT, tree, ignore=shutil.ignore_patterns(
                 ".git", "build", "chiprun_out", "__pycache__"))
             (tree / KERNEL).write_text(src.replace(old, new))
-            print(f"== mutant {name}", flush=True)
-            verdicts[name] = run_phase(tree)
+            print(f"== mutant {name} ({phase})", flush=True)
+            verdicts[name] = run_phases(tree, phase)
     ok = verdicts["checkout"] and not any(
         verdicts[name] for name in MUTANTS)
     print({"verdicts": {k: "pass" if v else "fail"

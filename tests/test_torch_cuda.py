@@ -517,6 +517,138 @@ def test_bf16_flash_forward_unaligned_views(cuda, s, block_k):
     _check_bf16_forward(q, k, v, block_k)
 
 
+def _check_bf16_backward(q, k, v, seed, lengths=None):
+    """One bf16 dQ and one dK/dV launch (the tensor-core kernels) against
+    the plain version, from the plain forward's lse and delta: dq, dk, dv
+    within 1e-2 of the largest value of the same gradient, or of 2^-8 of
+    the call's largest gradient where that is larger (at S = 1 dq and dk
+    are 0 in exact arithmetic, and the kernel's f32 dP - delta, summed in
+    another order than delta, leaves ~1e-7 there). Returns the grads."""
+    b, sq, h, d = q.shape
+    rng = np.random.default_rng(seed)
+    do = torch.from_numpy(rng.standard_normal((b, sq, h, d))
+                          .astype(np.float32)).to(q.device, torch.bfloat16)
+    if lengths is None:
+        out, lse = tflash.flash_attention_forward_reference(q, k, v)
+    else:
+        out, lse = masked_flash_attention_forward(q, k, v, lengths)
+    delta = tflash.attention_delta(out, do)
+    lse = lse.contiguous()
+    before = masked_flash_attention_backward.launches
+    if lengths is None and sq == k.shape[1]:
+        counts = (tflash.flash_attention_dq.launches,
+                  tflash.flash_attention_dkv.launches)
+        grads = (tflash.flash_attention_dq(q, k, v, do, lse, delta),
+                 *tflash.flash_attention_dkv(q, k, v, do, lse, delta))
+        assert (tflash.flash_attention_dq.launches,
+                tflash.flash_attention_dkv.launches) == tuple(
+                    n + 1 for n in counts)
+    elif lengths is None:  # Sq != Sk: the leaves' launches, unmasked
+        grads = (tflash.launch_dq(q, k, v, do, lse, delta),
+                 *tflash.launch_dkv(q, k, v, do, lse, delta))
+    else:
+        grads = masked_flash_attention_backward(q, k, v, lengths, do, lse,
+                                                delta)
+        assert masked_flash_attention_backward.launches == before + 2
+    torch.cuda.synchronize()
+    want = tflash.flash_attention_backward_reference(q, k, v, do, lse, delta,
+                                                     lengths)
+    top = max(float(w.float().abs().max()) for w in want)
+    for got, ref in zip(grads, want):
+        assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+        scale = max(float(ref.float().abs().max()), top / 256)
+        assert float((got.float() - ref.float()).abs().max()) <= 1e-2 * scale
+    return grads
+
+
+@pytest.mark.parametrize("s", [1, 17, 65, 128, 129, 300])
+def test_bf16_flash_backward_matches_plain_version(cuda, s):
+    """The tensor-core dQ and dK/dV kernels on the fused projection's
+    strided views: the whole other axis staged up to S = 128, tiles of 64
+    above."""
+    _check_bf16_backward(*_qkv(3, s, 2, 64, torch.bfloat16, cuda, seed=s),
+                         seed=s + 1)
+
+
+@pytest.mark.parametrize("s", [65, 300])
+@pytest.mark.parametrize("d", [16, 40, 128])
+def test_bf16_flash_backward_head_dims(cuda, d, s):
+    """Contiguous q, k, v at the padded head dims, D = 40 zero-padded to
+    64, D = 128 past 48 KB of shared memory at S = 300."""
+    _check_bf16_backward(*_qkv(2, s, 2, d, torch.bfloat16, cuda, seed=d + s,
+                               fused=False), seed=d)
+
+
+@pytest.mark.parametrize("s", [65, 129])
+def test_bf16_flash_backward_unaligned_views(cuda, s):
+    """Views one element off their buffers' 16-byte starts: the backward
+    stages them by plain loads, with the same answers."""
+    b, h, d = 2, 3, 64
+    n = b * s * h * d
+    bufs = [torch.from_numpy(np.random.default_rng(i).standard_normal(
+        n + 1).astype(np.float32)).to(cuda, torch.bfloat16) for i in range(3)]
+    q, k, v = (t[1:].view(b, s, h, d) for t in bufs)
+    assert not tflash.views_aligned16(q, k, v)
+    _check_bf16_backward(q, k, v, seed=s)
+
+
+@pytest.mark.parametrize("layout,d,offset,expect", [
+    ("fused", 64, 0, True), ("contiguous", 64, 0, True),
+    ("contiguous", 64, 1, False), ("contiguous", 64, 8, True),
+    ("fused", 40, 0, True), ("contiguous", 40, 0, True),
+    ("fused", 36, 0, False), ("contiguous", 36, 0, False)])
+def test_backward_staging_rule_agrees_with_views_aligned16(
+        cuda, layout, d, offset, expect):
+    """The bf16 backward's C entry points decide 16-byte staging by their
+    own rule (`dmt_flash_aligned16`); on every view it agrees with
+    `views_aligned16`, which decides for the forward: the fused
+    projection's strided views and contiguous ones, views `offset`
+    elements past a buffer's start, D = 40 (80 bytes) and D = 36."""
+    b, s, h = 2, 65, 2
+    n = b * s * 3 * h * d if layout == "fused" else b * s * h * d
+    buf = torch.zeros(n + offset, dtype=torch.bfloat16, device=cuda)[offset:]
+    views = (buf.view(b, s, 3, h, d).unbind(2) if layout == "fused"
+             else (buf.view(b, s, h, d),))
+    rule = tflash._entry("dmt_flash_aligned16")
+    for t in views:
+        got = bool(rule(t.data_ptr(), *tflash._strides(t), d))
+        assert got == tflash.views_aligned16(t) == expect
+
+
+@pytest.mark.parametrize("sq,sk,masked", [(7, 200, False), (130, 65, False),
+                                          (1, 300, True), (70, 33, True)])
+def test_bf16_flash_backward_takes_sq_ne_sk(cuda, sq, sk, masked):
+    """The kernels take Sq and Sk apart (the masked decode shapes): a dQ
+    block walks Sk keys, a dK/dV block Sq queries."""
+    b, h, d = 3, 2, 64
+    rng = np.random.default_rng(sq + sk)
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, n, h, d)).astype(
+        np.float32)).to(cuda, torch.bfloat16) for n in (sq, sk, sk))
+    lengths = (torch.tensor([1, sk // 2, sk], dtype=torch.int32, device=cuda)
+               if masked else None)
+    _check_bf16_backward(q, k, v, seed=sq, lengths=lengths)
+
+
+def test_bf16_flash_backward_is_bitwise_repeatable(cuda):
+    """No atomics: at ViT's shape dq, dk and dv are the same bits twice
+    and under another stream, unmasked and masked."""
+    q, k, v = _qkv(64, 65, 3, 64, torch.bfloat16, cuda, seed=5)
+    lengths = torch.arange(2, 66, dtype=torch.int32, device=cuda)
+    for lens in (None, lengths):
+        qc, kc, vc = ((q, k, v) if lens is None
+                      else (t.contiguous() for t in (q, k, v)))
+        first = _check_bf16_backward(qc, kc, vc, seed=6, lengths=lens)
+        again = _check_bf16_backward(qc, kc, vc, seed=6, lengths=lens)
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            other = _check_bf16_backward(qc, kc, vc, seed=6, lengths=lens)
+        torch.cuda.current_stream().wait_stream(stream)
+        torch.cuda.synchronize()
+        for a, b2, c in zip(first, again, other):
+            assert torch.equal(a, b2) and torch.equal(a, c)
+
+
 def test_flash_attention_lse_backward_takes_dlse_on_card(cuda):
     """The autograd Function on the card against the plain versions on
     the CPU, a nonzero lse cotangent included."""

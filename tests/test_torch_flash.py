@@ -15,7 +15,9 @@ gradients (the dS = P (dP - delta) cancellation amplifies it).
 from __future__ import annotations
 
 import importlib
+import importlib.util
 import tempfile
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -148,6 +150,111 @@ def test_bf16_rounding_follows_the_reference_selection(s, block_k):
     other = None if block_k else 128
     other_out, _ = tfa.flash_attention_forward_reference(tq, tk, tv, other)
     assert np.mean(other_out.float().numpy() != want) >= 0.1
+
+
+# -- the bf16 backward's hi/lo split, emulated --------------------------------
+
+def _split_bf16(x):
+    """The bf16 kernels' split of an f32 operand: hi = bf16(x), lo =
+    bf16(x - hi)."""
+    hi = x.to(torch.bfloat16)
+    return hi, (x - hi.float()).to(torch.bfloat16)
+
+
+def _split_backward(q, k, v, do, lse, delta, keep_lo=True):
+    """The bf16 dQ and dK/dV kernels' arithmetic in plain torch: the f32
+    recompute of P and dS, then dS K, dS^T Q and P^T dO with the f32
+    operand split into bf16 hi and lo halves and the products summed in
+    f64. Checks that each split product is within 2^-16 relative per term
+    of the f32 operand's; returns (dq, dk, dv) rounded to bf16 as the
+    kernels store them. Without `keep_lo`, the lo halves are dropped (P
+    and dS rounded to bf16 once) and nothing is checked."""
+    scale = q.shape[-1] ** -0.5
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    p = torch.exp(s - lse[..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+    ds = p * (dp - delta[..., None])
+    grads = []
+    for eq, x, m, mul in (("bhqk,bkhd->bqhd", ds, k, scale),
+                          ("bhqk,bqhd->bkhd", ds, q, scale),
+                          ("bhqk,bqhd->bkhd", p, do, 1.0)):
+        hi, lo = _split_bf16(x)
+        xd, md = x.double(), m.double()
+        if not keep_lo:
+            grads.append((torch.einsum(eq, hi.double(), md) * mul).float()
+                         .to(torch.bfloat16))
+            continue
+        resid = (xd - hi.double() - lo.double()).abs()
+        assert bool((resid <= 2.0 ** -16 * xd.abs()).all())
+        split = (torch.einsum(eq, hi.double(), md)
+                 + torch.einsum(eq, lo.double(), md))
+        exact = torch.einsum(eq, xd, md)
+        per_term = torch.einsum(eq, xd.abs(), md.abs())
+        assert bool(((split - exact).abs() <= 2.0 ** -16 * per_term).all())
+        grads.append((split * mul).float().to(torch.bfloat16))
+    return grads
+
+
+def test_bf16_backward_split_stays_within_the_reference():
+    """A CPU witness of the tensor-core backward's tolerance at ViT's call
+    (B=64, S=65, H=3, D=64, bf16): splitting the recomputed P and dS into
+    bf16 hi and lo halves keeps dS K, dS^T Q and P^T dO within 2^-16
+    relative per term of the f32-operand products, and the resulting bf16
+    dq, dk, dv within 1e-2 of the largest value of the plain version's."""
+    arrs = _arrays(13, *[(64, 65, 3, 64)] * 4)
+    q, k, v, g = (torch.from_numpy(a).to(torch.bfloat16) for a in arrs)
+    out, lse = tfa.flash_attention_forward_reference(q, k, v)
+    delta = tfa.attention_delta(out, g)
+    got = _split_backward(q, k, v, g, lse, delta)
+    want = tfa.flash_attention_backward_reference(q, k, v, g, lse, delta)
+    for name, a, w in zip("qkv", got, want):
+        err = float((a.float() - w.float()).abs().max())
+        assert err <= 1e-2 * float(w.float().abs().max()), f"d{name}"
+
+
+def test_split_share_tells_the_split_from_rounding_once():
+    """`chip_smoke.flash_split_share`'s limit, emulated on its inputs (ViT's
+    call, seeds 90 and 91): the hi/lo split leaves at least
+    `SPLIT_MATCH_MIN` of dq, dk and dv equal to the plain version's bf16
+    values; P and dS rounded to bf16 once (the lo halves dropped) leave
+    fewer, though every gradient stays within 1e-2 of the plain
+    version's largest value, where the card's error limit cannot see it."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    q, k, v = torch.randn(64, 65, 3, 3, 64, generator=torch.Generator()
+                          .manual_seed(90)).to(torch.bfloat16).unbind(2)
+    g = torch.randn(64, 65, 3, 64, generator=torch.Generator()
+                    .manual_seed(91)).to(torch.bfloat16)
+    out, lse = tfa.flash_attention_forward_reference(q, k, v)
+    delta = tfa.attention_delta(out, g)
+    want = tfa.flash_attention_backward_reference(q, k, v, g, lse, delta)
+    split = _split_backward(q, k, v, g, lse, delta)
+    once = _split_backward(q, k, v, g, lse, delta, keep_lo=False)
+    assert smoke.bf16_match_share(split, want) >= smoke.SPLIT_MATCH_MIN
+    assert smoke.bf16_match_share(once, want) < smoke.SPLIT_MATCH_MIN
+    for a, w in zip(once, want):
+        err = float((a.float() - w.float()).abs().max())
+        assert err <= 1e-2 * float(w.float().abs().max())
+
+
+def test_bf16_backward_split_matches_jax_vjp():
+    """The same emulated split backward against the JAX package's bf16
+    flash backward (Pallas interpret mode) at ViT's widths, B=2: dq, dk,
+    dv within 1e-2 of the largest value."""
+    q, k, v, g = _arrays(14, *[(2, 65, 3, 64)] * 4)
+    jq, jk, jv, jg = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v, g))
+    _, vjp = jax.vjp(jfa.flash_attention, jq, jk, jv)
+    want = vjp(jg)
+    tq, tk, tv, tg = (torch.from_numpy(a).to(torch.bfloat16)
+                      for a in (q, k, v, g))
+    out, lse = tfa.flash_attention_forward_reference(tq, tk, tv)
+    got = _split_backward(tq, tk, tv, tg, lse, tfa.attention_delta(out, tg))
+    for name, a, w in zip("qkv", got, want):
+        w = np.asarray(w.astype(jnp.float32))
+        err = float(np.max(np.abs(a.float().numpy() - w)))
+        assert err <= 1e-2 * float(np.max(np.abs(w))), f"d{name}"
 
 
 # -- the masked backward -----------------------------------------------------
@@ -310,16 +417,18 @@ def test_views_aligned16_picks_the_vector_loads():
 def test_flash_cost_counts():
     """ViT-Tiny's call: 0.208 GFLOP forward (two bf16 products), 0.519
     GFLOP backward (two bf16 products and three with an f32 operand; the
-    kernels' recompute split runs seven), and every operand moved once."""
+    bf16 kernels run ten bf16 products, the f32 ones seven f32), and every
+    operand moved once."""
     prod = 2 * 64 * 3 * 65 * 65 * 64
     c = tfa.flash_attention_cost(64, 65, 3, 64, torch.bfloat16)
     mat = 64 * 65 * 3 * 64 * 2
     assert c["fwd_flops"] == {"bfloat16": 2 * prod} == {
         "bfloat16": 207_667_200}
     assert c["bwd_flops"] == {"bfloat16": 2 * prod, "float32": 3 * prod}
-    assert c["bwd_split_flops"] == 7 * prod
+    assert c["bwd_split_flops"] == {"bfloat16": 10 * prod}
     assert c["fwd_bytes"] == 4 * mat + 64 * 3 * 65 * 4
     assert c["bwd_bytes"] == 7 * mat + 2 * 64 * 3 * 65 * 4
     f32 = tfa.flash_attention_cost(64, 65, 3, 64, torch.float32)
     assert f32["fwd_flops"] == {"float32": 2 * prod}
     assert f32["bwd_flops"] == {"float32": 5 * prod}
+    assert f32["bwd_split_flops"] == {"float32": 7 * prod}
