@@ -13,13 +13,14 @@ script. Phases (any failure exits nonzero before the final `ok` line):
    all at once) and print ptxas' registers and spills;
 3. hold each kernel against its plain PyTorch version on the card at the
    paths' shapes: `quant_matmul` at LeNet-5 fc1 [M,3136]x[3136,512] and
-   fc2 [M,512]x[512,10] in bf16, the MLP's [M,784]x[784,100] and
-   [M,100]x[100,10] in f32, for M in {1, 7, 64}, bf16 also at M in {16,
-   17, 65, 200} and at [M,1000]x[1000,96] (a K the split size does not
-   divide) and [M,1001]x[1001,40] (rows not 16-byte aligned), within 1e-2
-   (bf16) and 2e-5 (f32) of the largest output, and the split-K
-   reduction's bits the same twice and under another stream (fc1, M in
-   {7, 64, 200}); both fused-Adam kernels at LeNet-5's
+   fc2 [M,512]x[512,10] in bf16 (M in {1, 7, 16, 17, 64, 65, 200}), the
+   MLP's [M,784]x[784,100] and [M,100]x[100,10] in f32 (M in {1, 2, 7,
+   16, 17, 64, 65, 200}), and in both dtypes at [M,1000]x[1000,96] (a K
+   the split size does not divide) and [M,1001]x[1001,40] (rows not
+   aligned), within 1e-2 (bf16) and 2e-5 (f32) of the largest output, and
+   both split-K reductions' bits the same twice and under another stream
+   (bf16 fc1, M in {7, 64, 200}; f32 MLP hid, M in {1, 7, 64, 200}); both
+   fused-Adam kernels at LeNet-5's
    8 leaf sizes and n in {1, 7, 129}, m' and v' within 1e-6 and delta
    within 1e-5 of the largest value (clip scale 0.37, weight decay on);
    `paged_attention` (phase `paged_parity`: 9 rows, 8 heads of 16, pages
@@ -40,7 +41,10 @@ script. Phases (any failure exits nonzero before the final `ok` line):
    masked backward with lengths 1 to 65 (dk, dv exactly 0 past each
    length, key steps and blocks entered counted), within 1e-2 (bf16), 1e-5
    (f32 forward, lse) and 1e-4 (f32 backward) of the largest value, each
-   line naming the backward's body (`bwd_route`: "mma" or "fma");
+   line naming the backward's body (`bwd_route`: "mma" or "fma"); and
+   the f32 forward at every case of the bf16 forward (S, block_k, D,
+   unaligned views) and at ViT's shape for B in {1, 7, 64}, out and lse
+   within 1e-5, the f32 backward from its lse within 1e-4;
 4. serve `lenet5_mnist --quant=int8` (seeded fresh init) on the card
    through the serving CLI's entry point (`cli/serve.py main`: server +
    closed-loop loadgen, 512 requests), with every launch counter set to 0
@@ -50,7 +54,12 @@ script. Phases (any failure exits nonzero before the final `ok` line):
    kernel swapped for its plain version: max abs difference <= 0.04 (the
    bf16 logit bound the JAX package's tests use) and the same top-1 on
    >= 98% of rows; then time one served batch of 64 on the host clock and
-   break its device time down by kernel with `torch.profiler`;
+   break its device time down by kernel with `torch.profiler`; then the
+   same for the CLI's default config, `mlp_mnist` (f32) served int8
+   (`mlp_serve`): 2 f32 `quant_matmul` launches per batch the engine ran
+   and no other kernel, one fixed batch of 64 logits within 1e-4 of the
+   largest against the plain version and the same top-1 on >= 98% of
+   rows, and one served batch's host wall and device time by kernel;
 5. train LeNet-5 through the port's headline bench function
    (`bench.run_headline`: batch 200, chunks of 100, MNIST or its synthetic
    twin resident on the card) with `optim.adam(1e-3, fused=True)`, 1,000
@@ -681,44 +690,208 @@ def time_decode_kernels(torch, dev, bw: float, f32_peak: float) -> dict:
 
 
 
+#: the int8 MLP's served logits against the plain engine's: f32 sums in
+#: another order, relative to the largest logit
+MLP_LOGIT_TOL = 1e-4
+
+
+def mlp_serve(torch, dev, reset_counts, read_counts) -> dict:
+    """The serving CLI's default config (`mlp_mnist`, f32 compute) served
+    `--quant=int8` through its entry point (`cli/serve.py main`, fresh
+    seeded init, 512 requests, concurrency 64), with every launch counter
+    set to 0 just before and read just after: exactly 2 `quant_matmul`
+    launches (hid, sm) per batch the engine ran, prewarm included, every
+    one on the f32 route, and no launch of any other kernel. Then one
+    fixed batch of 64 served logits against the same engine with the
+    kernel swapped for its plain version (within `MLP_LOGIT_TOL` of the
+    largest logit, the same top-1 on >= 98% of rows), and the host wall
+    and device time by kernel of one served batch of 64. Fails on any
+    miss; returns the phase's record."""
+    from dist_mnist_tpu_torch.cli import serve as serve_cli
+    from dist_mnist_tpu_torch.ops import quant as quant_mod
+    from dist_mnist_tpu_torch.ops.kernels.quant_matmul import (
+        quant_matmul,
+        quant_matmul_reference,
+    )
+    from dist_mnist_tpu_torch.serve import (
+        InferenceEngine,
+        load_for_serving,
+        make_images,
+    )
+
+    reset_counts()
+    quant_matmul.f32_launches = 0
+    summary = serve_cli.main([
+        "--quant=int8", f"--device={dev}", "--max_batch=64",
+        "--requests=512", "--concurrency=64"])
+    counts = read_counts()
+    f32_launches = quant_matmul.f32_launches
+    n_runs = summary["cache"]["hits"] + summary["cache"]["misses"]
+    out = {"phase": "mlp_serve", "config": "mlp_mnist", "launches": counts,
+           "quant_matmul_f32_launches": f32_launches, "batches_run": n_runs,
+           **{k: summary[k] for k in ("ok", "errors", "p50_ms", "p99_ms",
+                                      "n_batches", "mean_batch_size",
+                                      "cache")}}
+    if summary["ok"] != 512 or summary["errors"] != 0:
+        fail(f"mlp_serve: {summary['ok']}/512 ok, {summary['errors']} errors")
+    if counts["quant_matmul"] != 2 * n_runs or n_runs == 0 \
+            or f32_launches != counts["quant_matmul"]:
+        fail(f"mlp_serve: {counts['quant_matmul']} quant_matmul launches "
+             f"({f32_launches} f32) for {n_runs} MLP batches (want 2 per "
+             "batch, hid and sm, all f32)")
+    others = {k: v for k, v in counts.items() if k != "quant_matmul" and v}
+    if others:
+        fail(f"mlp_serve: other kernels launched on the MLP path: {others}")
+
+    bundle = load_for_serving("mlp_mnist", dev, quant="int8")
+    engine = InferenceEngine(
+        bundle.model, bundle.params, bundle.model_state, device=dev,
+        image_shape=bundle.image_shape, max_bucket=64)
+    images = make_images(bundle.image_shape, seed=123, n=64)
+    served = engine.predict(images)
+    quant_mod.quant_matmul = quant_matmul_reference
+    try:
+        plain = engine.predict(images)
+    finally:
+        quant_mod.quant_matmul = quant_matmul
+    top = float(np.max(np.abs(plain)))
+    diff = float(np.max(np.abs(served - plain)))
+    agree = float(np.mean(served.argmax(-1) == plain.argmax(-1)))
+    out.update(logits_shape=list(served.shape), max_abs_logit=top,
+               max_abs_diff_vs_plain=diff,
+               max_rel_diff_vs_plain=diff / (top + 1e-12),
+               top1_agreement=agree, tol=MLP_LOGIT_TOL)
+    if served.shape != (64, 10) or not np.isfinite(served).all():
+        fail(f"mlp_serve logits: shape {served.shape} or non-finite values")
+    if not diff <= MLP_LOGIT_TOL * top or agree < 0.98:
+        fail(f"mlp_serve logits vs plain path: max abs {diff} (largest "
+             f"{top}), top-1 {agree}")
+
+    reps = 20
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        engine.predict(images)
+    wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            engine.predict(images)
+    out["profile"] = {"batch": 64, **profile_fields(torch, prof, reps,
+                                                    wall_ms)}
+    print(json.dumps(out), flush=True)
+    return out
+
+
 #: ViT-Tiny's attention shape on the training path (`vit_tiny_cifar_flash`,
 #: per-chip batch 64): 64 patch tokens + CLS, 3 heads of 64
 VIT_B, VIT_S, VIT_H, VIT_D = 64, 65, 3, 64
-#: rows of the `quant_matmul` parity cases: every shape at 1, 7 and 64 (the
-#: timed ones), bf16 also at the split-K kernel's ragged row counts
+#: rows of the `quant_matmul` parity cases: the timed ones (1, 7 and 64),
+#: and each route's tile edges (bf16: 64 rows a tile; f32: M rounded up to
+#: a power of two, at most 16 rows a tile). The f32 rows take in every
+#: batch bucket the serving engine pads the MLP's batches to (1 .. 64), so
+#: each of the kernel's row counts runs here at the path's own shapes
 QMM_ROWS = (1, 7, 64)
 QMM_BF16_ROWS = (1, 7, 16, 17, 64, 65, 200)
+QMM_F32_ROWS = (1, 2, 4, 7, 8, 16, 17, 32, 64, 65, 200)
 QMM_TIMED = ("lenet5/fc1", "lenet5/fc2", "mlp/hid", "mlp/sm")
 
 
-def split_k_repeat(torch, dev, quant_mod, quant_matmul) -> None:
-    """The bf16 split-K reduction sums its partials in split order,
-    whichever block arrives last: at fc1's shape, the same inputs give the
-    same bits twice and under another stream. Fails on any bit."""
-    from dist_mnist_tpu_torch.ops.kernels.quant_matmul import split_k_plan
+#: `quant_matmul` parity shapes: (label, K, H, dtypes). LeNet-5's fc1 and
+#: fc2 in bf16, the MLP's layers in f32, and in both routes a K the split
+#: size does not divide and rows that are not aligned (K % 8, H % 16: the
+#: plain-load staging in bf16, plain x loads in f32)
+QMM_SHAPES = (("lenet5/fc1", 3136, 512, ("bfloat16",)),
+              ("lenet5/fc2", 512, 10, ("bfloat16",)),
+              ("mlp/hid", 784, 100, ("float32",)),
+              ("mlp/sm", 100, 10, ("float32",)),
+              ("ragged-k", 1000, 96, ("bfloat16", "float32")),
+              ("unaligned", 1001, 40, ("bfloat16", "float32")))
+#: kernel-vs-plain limits relative to the largest output: one bf16 ulp;
+#: f32 sums taken in another order
+QMM_TOL = {"bfloat16": 1e-2, "float32": 2e-5}
+
+
+def qmm_parity(torch, dev) -> tuple[dict, dict]:
+    """`quant_matmul` against its plain version on the same card inputs at
+    `QMM_SHAPES`, bf16 at `QMM_BF16_ROWS` rows and f32 at `QMM_F32_ROWS`,
+    within `QMM_TOL` of the largest output. Fails on any miss. Returns the
+    timed shapes' operands and the worst errors."""
+    from dist_mnist_tpu_torch.ops import quant as quant_mod
+    from dist_mnist_tpu_torch.ops.kernels.quant_matmul import (
+        quant_matmul,
+        quant_matmul_reference,
+    )
+
+    gen = torch.Generator().manual_seed(0)
+    operands, worst = {}, {"abs": 0.0, "rel": 0.0}
+    for label, d, h, dtypes in QMM_SHAPES:
+        w = torch.randn(d, h, generator=gen) / d ** 0.5
+        qa = quant_mod.quantize(w.to(dev))
+        for name in dtypes:
+            dtype = getattr(torch, name)
+            ms = QMM_BF16_ROWS if name == "bfloat16" else QMM_F32_ROWS
+            for m in ms:
+                x = torch.rand(m, d, generator=gen).to(dev, dtype)
+                got = quant_matmul(x, qa.q, qa.scale)
+                want = quant_matmul_reference(x, qa.q, qa.scale)
+                torch.cuda.synchronize()
+                abs_err, rel = rel_err(got, want)
+                tol = QMM_TOL[name]
+                print(json.dumps({"phase": "parity", "shape": label, "m": m,
+                                  "dtype": str(dtype), "max_abs_err": abs_err,
+                                  "max_rel_err": rel, "tol": tol}),
+                      flush=True)
+                if not (got.shape == want.shape and rel <= tol):
+                    fail(f"quant_matmul {label} {name} M={m}: rel err {rel} "
+                         f"> {tol}")
+                worst["abs"] = max(worst["abs"], abs_err)
+                worst["rel"] = max(worst["rel"], rel)
+                if m in QMM_ROWS and label in QMM_TIMED:
+                    operands[(label, m)] = (x, qa)
+    return operands, worst
+
+
+def split_k_repeat(torch, dev) -> None:
+    """Both split-K reductions sum their partials in split order,
+    whichever block arrives last: at fc1's shape (bf16) and the MLP's
+    hidden layer (f32), the same inputs give the same bits twice and under
+    another stream. Fails on any bit."""
+    from dist_mnist_tpu_torch.ops import quant as quant_mod
+    from dist_mnist_tpu_torch.ops.kernels.quant_matmul import (
+        quant_matmul,
+        route_tile,
+        split_k_plan,
+    )
 
     gen = torch.Generator().manual_seed(1)
-    qa = quant_mod.quantize((torch.randn(3136, 512, generator=gen)
-                             / 56.0).to(dev))
-    for m in (7, 64, 200):
-        x = torch.rand(m, 3136, generator=gen).to(dev, torch.bfloat16)
-        first = quant_matmul(x, qa.q, qa.scale)
-        again = quant_matmul(x, qa.q, qa.scale)
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            other = quant_matmul(x, qa.q, qa.scale)
-        torch.cuda.synchronize()
-        bits = first.view(torch.int16)
-        same = (torch.equal(bits, again.view(torch.int16))
-                and torch.equal(bits, other.view(torch.int16)))
-        print(json.dumps({"phase": "parity", "check": "split-K bitwise "
-                          "repeat (twice, and under another stream)",
-                          "shape": "lenet5/fc1", "m": m,
-                          "splits": split_k_plan(m, 3136, 512)[1],
-                          "bitwise": same}), flush=True)
-        if not same:
-            fail(f"quant_matmul bf16 M={m}: split-K repeat changed bits")
+    for label, d, h, dtype, bits, ms in (
+            ("lenet5/fc1", 3136, 512, torch.bfloat16, torch.int16,
+             (7, 64, 200)),
+            ("mlp/hid", 784, 100, torch.float32, torch.int32,
+             (1, 7, 64, 200))):
+        qa = quant_mod.quantize((torch.randn(d, h, generator=gen)
+                                 / d ** 0.5).to(dev))
+        for m in ms:
+            x = torch.rand(m, d, generator=gen).to(dev, dtype)
+            first = quant_matmul(x, qa.q, qa.scale)
+            again = quant_matmul(x, qa.q, qa.scale)
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                other = quant_matmul(x, qa.q, qa.scale)
+            torch.cuda.synchronize()
+            same = (torch.equal(first.view(bits), again.view(bits))
+                    and torch.equal(first.view(bits), other.view(bits)))
+            print(json.dumps({"phase": "parity", "check": "split-K bitwise "
+                              "repeat (twice, and under another stream)",
+                              "shape": label, "dtype": str(dtype), "m": m,
+                              "splits": split_k_plan(
+                                  m, d, h, route_tile(dtype, m))[1],
+                              "bitwise": same}), flush=True)
+            if not same:
+                fail(f"quant_matmul {label} M={m}: split-K repeat changed "
+                     "bits")
 
 
 #: kernel-vs-plain tolerances, relative to the largest |value|: bf16
@@ -815,10 +988,12 @@ def flash_parity(torch, dev) -> dict:
     inputs: the forward (out, lse) and the backward (dq, dk, dv, from the
     kernel's own lse and delta) at ViT's shape for B in {1, 7, 64} in bf16
     and f32, at S = 17 and S = 300 with block_k = 128 (the streamed
-    rounding at S = 300); the bf16 tensor-core forward and backward at S
-    in {1, 17, 65, 128, 129, 300} with and without block_k = 128, D in
-    {16, 40, 128} and views that are not 16-byte aligned; the bf16
-    backward at Sq != Sk, unmasked and masked; its bits at ViT's shape
+    rounding at S = 300); in bf16 (the tensor-core kernels) and f32 (the
+    register-tiled forward, the FMA backward) the forward and backward at
+    S in {1, 17, 65, 128, 129, 300} with and without block_k = 128, D in
+    {16, 40, 64, 128} and views that are not 16-byte aligned, one launch
+    of each kernel a case; the bf16 backward at Sq != Sk, unmasked and
+    masked; its bits at ViT's shape
     twice and under another stream, and the share of them equal to the
     plain version's bf16 values (`flash_split_share`, at least
     `SPLIT_MATCH_MIN`); `flash_attention_lse` through its
@@ -879,68 +1054,74 @@ def flash_parity(torch, dev) -> dict:
             worst["flash_attention_backward"],
             *(errs[g][0] for g in ("dq", "dk", "dv")))
 
-    # the bf16 tensor-core forward and backward at ragged S (one pass up to
-    # 128, tiles of 64 above; block_k = 128 streams the forward above 128),
-    # other head dims (D = 40 zero-padded to 64) and views that are not
-    # 16-byte aligned; the backward from the forward's own lse and delta
-    bwd_tol = FLASH_TOL["bfloat16"][1]
-    bf16_cases = [(3, s, 2, 64, "fused", bk)
-                  for s in (1, 17, 65, 128, 129, 300) for bk in (None, 128)]
-    bf16_cases += [(2, s, 2, d, "contiguous", bk) for d in (16, 40, 128)
-                   for s, bk in ((65, None), (300, None), (300, 128))]
-    bf16_cases += [(2, s, 3, 64, "unaligned", bk)
-                   for s, bk in ((65, None), (129, None), (129, 128))]
+    # both routes' forward and backward at ragged S (bf16: one pass up to
+    # 128, tiles of 64 above; f32: one tile of every key up to 128, tiles
+    # of 64 above; block_k = 128 streams above 128), every padded head dim
+    # (D = 40 zero-padded to 64) and views that are not 16-byte aligned;
+    # the backward from the forward's own lse and delta
+    ragged = [(3, s, 2, 64, "fused", bk)
+              for s in (1, 17, 65, 128, 129, 300) for bk in (None, 128)]
+    ragged += [(2, s, 2, d, "contiguous", bk) for d in (16, 40, 64, 128)
+               for s, bk in ((65, None), (300, None), (300, 128))]
+    ragged += [(2, s, 3, 64, "unaligned", bk)
+               for s, bk in ((65, None), (129, None), (129, 128))]
     counters = (fa.flash_attention_forward, fa.flash_attention_dq,
                 fa.flash_attention_dkv)
-    for i, (b, s, h, d, layout, block_k) in enumerate(bf16_cases):
-        q, k, v = _fused_qkv(torch, b, s, h, d, torch.bfloat16, dev,
-                             seed=100 + i)
-        if layout == "contiguous":
-            q, k, v = (t.contiguous() for t in (q, k, v))
-        elif layout == "unaligned":  # one element past a 16-byte start
-            q, k, v = (torch.cat([t.new_zeros(1), t.flatten()])[1:]
-                       .view(t.shape) for t in (q, k, v))
-        do = torch.randn(b, s, h, d, generator=torch.Generator()
-                         .manual_seed(200 + i)).to(dev, torch.bfloat16)
-        bk = fa.quantize_block_k(block_k, s)
-        before = [fn.launches for fn in counters]
-        out, lse = fa.flash_attention_forward(q, k, v, bk)
-        delta = fa.attention_delta(out, do)
-        grads = (fa.flash_attention_dq(q, k, v, do, lse, delta),
-                 *fa.flash_attention_dkv(q, k, v, do, lse, delta))
-        want_out, want_lse = fa.flash_attention_forward_reference(q, k, v, bk)
-        want = fa.flash_attention_backward_reference(q, k, v, do, lse, delta)
-        torch.cuda.synchronize()
-        errs = {"out": rel_err(out, want_out), "lse": rel_err(lse, want_lse),
-                **dict(zip(("dq", "dk", "dv"), grad_errs(grads, want)))}
-        launched = [fn.launches - n for fn, n in zip(counters, before)]
-        print(json.dumps({"phase": "flash_parity",
-                          "case": "bf16 forward and backward",
-                          "b": b, "s": s, "h": h, "d": d, "layout": layout,
-                          "aligned16": fa.views_aligned16(q, k, v),
-                          "block_k": block_k, "rounding": "normalized"
-                          if bk is None else "streamed", "bwd_route": "mma",
-                          "launches_fwd_dq_dkv": launched,
-                          **{f"{n}_max_abs_err": e[0]
-                             for n, e in errs.items()},
-                          **{f"{n}_max_rel_err": e[1]
-                             for n, e in errs.items()},
-                          "tol": {"fwd": FLASH_TOL["bfloat16"][0],
-                                  "lse": LSE_TOL, "bwd": bwd_tol}}),
-              flush=True)
-        if launched != [1, 1, 1] or errs["out"][1] > FLASH_TOL["bfloat16"][0] \
-                or errs["lse"][1] > LSE_TOL \
-                or any(errs[g][1] > bwd_tol for g in ("dq", "dk", "dv")):
-            fail(f"bf16 flash B={b} S={s} D={d} {layout} block_k={block_k}: "
-                 f"{launched} launches, {errs}")
-        worst["flash_attention_forward"] = max(
-            worst["flash_attention_forward"], errs["out"][0])
-        worst["flash_attention_backward"] = max(
-            worst["flash_attention_backward"],
-            *(errs[g][0] for g in ("dq", "dk", "dv")))
+    for dtype, seed in ((torch.bfloat16, 100), (torch.float32, 400)):
+        name = str(dtype).removeprefix("torch.")
+        fwd_tol, bwd_tol = FLASH_TOL[name]
+        for i, (b, s, h, d, layout, block_k) in enumerate(ragged):
+            q, k, v = _fused_qkv(torch, b, s, h, d, dtype, dev, seed=seed + i)
+            if layout == "contiguous":
+                q, k, v = (t.contiguous() for t in (q, k, v))
+            elif layout == "unaligned":  # one element past a 16-byte start
+                q, k, v = (torch.cat([t.new_zeros(1), t.flatten()])[1:]
+                           .view(t.shape) for t in (q, k, v))
+            do = torch.randn(b, s, h, d, generator=torch.Generator()
+                             .manual_seed(seed + 100 + i)).to(dev, dtype)
+            bk = fa.quantize_block_k(block_k, s)
+            before = [fn.launches for fn in counters]
+            out, lse = fa.flash_attention_forward(q, k, v, bk)
+            delta = fa.attention_delta(out, do)
+            grads = (fa.flash_attention_dq(q, k, v, do, lse, delta),
+                     *fa.flash_attention_dkv(q, k, v, do, lse, delta))
+            want_out, want_lse = fa.flash_attention_forward_reference(
+                q, k, v, bk)
+            want = fa.flash_attention_backward_reference(q, k, v, do, lse,
+                                                         delta)
+            torch.cuda.synchronize()
+            errs = {"out": rel_err(out, want_out),
+                    "lse": rel_err(lse, want_lse),
+                    **dict(zip(("dq", "dk", "dv"), grad_errs(grads, want)))}
+            launched = [fn.launches - n for fn, n in zip(counters, before)]
+            print(json.dumps({
+                "phase": "flash_parity", "case": f"{name} forward and "
+                "backward", "dtype": name, "b": b, "s": s, "h": h, "d": d,
+                "layout": layout, "aligned16": fa.views_aligned16(q, k, v),
+                "fwd_plan": fa.f32_forward_plan(b, s, h, d)
+                if dtype == torch.float32 else None,
+                "block_k": block_k, "rounding": "normalized"
+                if bk is None else "streamed",
+                "bwd_route": bwd_route(torch, dtype),
+                "launches_fwd_dq_dkv": launched,
+                **{f"{n}_max_abs_err": e[0] for n, e in errs.items()},
+                **{f"{n}_max_rel_err": e[1] for n, e in errs.items()},
+                "tol": {"fwd": fwd_tol, "lse": LSE_TOL, "bwd": bwd_tol}}),
+                flush=True)
+            if launched != [1, 1, 1] or errs["out"][1] > fwd_tol \
+                    or errs["lse"][1] > LSE_TOL \
+                    or any(errs[g][1] > bwd_tol for g in ("dq", "dk", "dv")):
+                fail(f"{name} flash B={b} S={s} D={d} {layout} "
+                     f"block_k={block_k}: {launched} launches, {errs}")
+            worst["flash_attention_forward"] = max(
+                worst["flash_attention_forward"], errs["out"][0])
+            worst["flash_attention_backward"] = max(
+                worst["flash_attention_backward"],
+                *(errs[g][0] for g in ("dq", "dk", "dv")))
 
     # Sq != Sk (the masked decode shapes): the bf16 backward kernels, through
     # their launches unmasked and through the masked backward with lengths
+    bwd_tol = FLASH_TOL["bfloat16"][1]
     for i, (sq, sk, masked) in enumerate(((7, 200, False), (130, 65, False),
                                           (1, 300, True), (70, 33, True))):
         gen = torch.Generator().manual_seed(300 + i)
@@ -1239,7 +1420,8 @@ FLASH_BODIES = {
                                 "cores, f32 operands split hi/lo)",
     "masked_flash_attention_backward": "flash_dq_mma + flash_dkv_mma with "
                                        "lengths (bf16)",
-    "flash_attention_forward_f32": "flash_fwd_kernel (f32 FMA)",
+    "flash_attention_forward_f32": "flash_fwd_f32 (f32, CUDA cores, "
+                                   "register-tiled QK^T and PV)",
     "flash_attention_backward_f32": "flash_dq_kernel + flash_dkv_kernel "
                                     "(f32 FMA)",
 }
@@ -1366,7 +1548,7 @@ def time_flash_kernels(torch, dev, bw: float, peaks: dict) -> dict:
         **bound(m_bytes, m_flops, fa.backward_design_flops(
             s * h * d * keys, torch.bfloat16))}
 
-    # the f32 route (flash_fwd_kernel, flash_dq_kernel + flash_dkv_kernel)
+    # the f32 route (flash_fwd_f32, flash_dq_kernel + flash_dkv_kernel)
     q32, k32, v32 = _fused_qkv(torch, b, s, h, d, torch.float32, dev,
                                seed=80)
     do32 = do.float()
@@ -1489,37 +1671,8 @@ def main() -> None:
         print(f"--- nvcc {src}.cu ---\n{log.strip()}", flush=True)
 
     # -- 3. kernel vs plain version at the path's shapes ---------------------
-    shapes = [("lenet5/fc1", 3136, 512, torch.bfloat16),
-              ("lenet5/fc2", 512, 10, torch.bfloat16),
-              ("mlp/hid", 784, 100, torch.float32),
-              ("mlp/sm", 100, 10, torch.float32),
-              # bf16 split-K: a K the split size does not divide, and rows
-              # not 16-byte aligned (K % 8, H % 16: the plain-load staging)
-              ("ragged-k", 1000, 96, torch.bfloat16),
-              ("unaligned", 1001, 40, torch.bfloat16)]
-    gen = torch.Generator().manual_seed(0)
-    operands, worst = {}, {"abs": 0.0, "rel": 0.0}
-    for label, d, h, dtype in shapes:
-        w = torch.randn(d, h, generator=gen) / d ** 0.5
-        qa = quant_mod.quantize(w.to(dev))
-        ms = QMM_BF16_ROWS if dtype == torch.bfloat16 else QMM_ROWS
-        for m in ms:
-            x = torch.rand(m, d, generator=gen).to(dev, dtype)
-            got = quant_matmul(x, qa.q, qa.scale)
-            want = quant_matmul_reference(x, qa.q, qa.scale)
-            torch.cuda.synchronize()
-            abs_err, rel = rel_err(got, want)
-            tol = 1e-2 if dtype == torch.bfloat16 else 2e-5
-            print(json.dumps({"phase": "parity", "shape": label, "m": m,
-                              "dtype": str(dtype), "max_abs_err": abs_err,
-                              "max_rel_err": rel, "tol": tol}), flush=True)
-            if not (got.shape == want.shape and rel <= tol):
-                fail(f"quant_matmul {label} M={m}: rel err {rel} > {tol}")
-            worst["abs"] = max(worst["abs"], abs_err)
-            worst["rel"] = max(worst["rel"], rel)
-            if m in QMM_ROWS and label in QMM_TIMED:
-                operands[(label, m)] = (x, qa)
-    split_k_repeat(torch, dev, quant_mod, quant_matmul)
+    operands, worst = qmm_parity(torch, dev)
+    split_k_repeat(torch, dev)
 
     # both fused-Adam kernels against their plain versions: LeNet-5's leaf
     # sizes and sizes that leave a tail after the float4 loads
@@ -1607,6 +1760,8 @@ def main() -> None:
     print(json.dumps({"phase": "profile", "batch": 64,
                       **profile_fields(torch, prof, reps, wall_ms)}),
           flush=True)
+    # the MLP (the CLI's default config) served int8: the f32 route
+    mlp = mlp_serve(torch, dev, reset_counts, read_counts)
 
     # -- 5. the training path, through the port's headline bench ------------
     dataset = load_dataset("mnist", seed=0)
@@ -1892,13 +2047,14 @@ def main() -> None:
     flash_rows[2]["path"] = ("none: no training path takes a token mask; "
                              "held against its plain version in "
                              "flash_parity")
+    mlp_hid = {m: timed[("mlp/hid", m)] for m in (1, 64)}
     print(json.dumps({"kernels": [{
         "name": "quant_matmul",
         "route": "cuda",
         "source": "dist_mnist_tpu_torch/csrc/quant_matmul.cu",
         "replaces": "dist_mnist_tpu/ops/pallas/quant_matmul.py:50",
         "body": "qmm_bf16_splitk_kernel (tensor-core split-K; the f32 "
-                "route: qmm_f32_kernel)",
+                "route: qmm_f32_splitk_kernel, CUDA-core split-K)",
         "launches": launches,
         "max_abs_err": worst["abs"],
         "max_rel_err": worst["rel"],
@@ -1909,6 +2065,10 @@ def main() -> None:
         "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"],
         "library_ms": head["library_ms"],
+        "f32_shape": "mlp/hid [M,784]x[784,100] f32, M in {1, 64}",
+        "f32_launches_mlp_serve": mlp["quant_matmul_f32_launches"],
+        **{f"f32_{key}_m{m}": row[key] for m, row in mlp_hid.items()
+           for key in ("kernel_ms", "plain_ms", "library_ms", "bound_ms")},
     }, *adam_rows, *decode_rows, *flash_rows], "gpu": gpu}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

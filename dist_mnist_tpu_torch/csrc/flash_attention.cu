@@ -4,7 +4,7 @@
 //
 //   flash_fwd_mma_onepass,  <- `_flash_fwd_impl` (`_attn_fwd_kernel`, and the streamed
 //   flash_fwd_mma_tiled,       `_attn_fwd_kernel_kt`): the first two for bf16, the
-//   flash_fwd_kernel           last for f32
+//   flash_fwd_f32              last for f32
 //   flash_dq_mma,           <- `_flash_bwd_impl` (`_attn_dq_kernel`, `_attn_dq_kernel_kt`)
 //   flash_dq_kernel            and `_masked_flash_bwd_impl` (`_masked_attn_dq_kernel`):
 //                              bf16, f32
@@ -77,19 +77,28 @@
 // row's length (visits: ceil(len / TILE)); a dK/dV warp whose 16 keys (KEY_BLOCK) lie at
 // or past it writes exact zeros and does no work (visits: ceil(len / KEY_BLOCK)).
 //
-// The f32 forward and backward: CUDA-core FMAs (f32 operands would be cut by
-// TF32 on the tensor cores). A block of 4 warps owns ROWS = 16 rows (queries in the
-// forward and dQ kernels, keys in the dK/dV kernel), 4 per warp, and walks the other
-// axis in tiles of TILE = 32 staged in shared memory as f32, one element of the tile
-// per lane: lane j scores its key (or query) against the warp's 4 rows, a warp
-// reduction takes the row max and sum, and the products accumulate D/32 output
-// dimensions per lane from the lanes' probabilities passed round by shuffles. Rows
-// staged with lane-indexed reads are padded by one float, so 32 lanes reading one
-// dimension of 32 rows hit 32 banks. The dQ and dK/dV kernels are kept apart, as on
-// the TPU, so that every output element is written by one thread in a fixed order:
-// no atomics, and the gradients are the same bits on every run. The normalized
-// forward takes two passes over the keys (max and sum, then the product), because it
-// divides by the full row sum before rounding; the streamed one takes one. Key tiles
+// The f32 forward (`flash_fwd_f32`): CUDA-core FMAs (f32 operands would be cut by TF32
+// on the tensor cores), tiled as an SGEMM is. A block owns a group of query rows of one
+// (b, h) (ViT: 2 groups of 36 rows, 384 blocks of 160 threads) and stages its Q rows
+// once, then K and V once per key tile (S <= 128: one tile of every key, so the
+// normalized rule takes one pass), by 16-byte cp.async where the views are aligned.
+// QK^T and PV are register-tiled: a thread owns 4 x 4 scores, then up to two 4 x 4
+// tiles of the output, reading float4 rows of Q and K, or of P and V, from shared
+// memory; the scores pass through shared memory, where a warp per row takes the max
+// and sum by shuffles. Rows are padded by 4 floats, so lanes reading consecutive rows
+// at one offset spread over the banks. Above S = 128, key tiles of 64: the normalized
+// rule walks K once more first for each row's max and sum, the streamed one keeps a
+// running max and rescales its sums (online softmax).
+//
+// The f32 backward: CUDA-core FMAs. A block of 4 warps owns ROWS = 16 rows (queries in
+// the dQ kernel, keys in the dK/dV kernel), 4 per warp, and walks the other axis in
+// tiles of TILE = 32 staged in shared memory as f32, one element of the tile per lane:
+// lane j scores its key (or query) against the warp's 4 rows, and the products
+// accumulate D/32 output dimensions per lane from the lanes' values passed round by
+// shuffles. Rows staged with lane-indexed reads are padded by one float, so 32 lanes
+// reading one dimension of 32 rows hit 32 banks. The dQ and dK/dV kernels are kept
+// apart, as on the TPU, so that every output element is written by one thread in a
+// fixed order: no atomics, and the gradients are the same bits on every run. Key tiles
 // past a row's length are never entered; a dK/dV block wholly past the length writes
 // exact zeros. No loop runs past S: keys and queries beyond it are masked where they
 // could enter a softmax and read as zeros elsewhere.
@@ -128,7 +137,6 @@ struct Layout {  // element strides of a [B, S, H, D] operand (D stride 1)
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ float round_to(float x, float) { return x; }
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -153,118 +161,6 @@ __device__ __forceinline__ void stage(float* dst, int pitch, const T* __restrict
         const int row = row0 + r;
         dst[r * pitch + d] =
             row < limit ? to_f32(src[b * L.b + row * L.s + h * L.h + d]) : 0.f;
-    }
-}
-
-template <typename T, bool NORMALIZED>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ out, float* __restrict__ lse, int S, int H, int D, Layout lq,
-                 Layout lkv, float scale) {
-    extern __shared__ float smem[];
-    float* k_s = smem;                  // [TILE][D + 1]
-    float* v_s = k_s + TILE * (D + 1);  // [TILE][D]
-    float* q_s = v_s + TILE * D;        // [ROWS][D]
-
-    const int b = blockIdx.z;
-    const int h = blockIdx.y;
-    const int warp = threadIdx.x >> 5;
-    const int lane = threadIdx.x & 31;
-    const int row0 = blockIdx.x * ROWS;
-    const float* qw = q_s + warp * RPW * D;
-    const float* kr = k_s + lane * (D + 1);
-
-    stage(q_s, D, q, lq, b, h, row0, ROWS, S, D);
-
-    float m[RPW], l[RPW], acc[RPW][DPL];
-#pragma unroll
-    for (int r = 0; r < RPW; ++r) {
-        m[r] = NEG;
-        l[r] = 0.f;
-#pragma unroll
-        for (int i = 0; i < DPL; ++i) acc[r][i] = 0.f;
-    }
-    const int tiles = (S + TILE - 1) / TILE;
-
-    if (NORMALIZED) {  // pass 1: each row's max and sum over every key
-        for (int kt = 0; kt < tiles; ++kt) {
-            stage(k_s, D + 1, k, lkv, b, h, kt * TILE, TILE, S, D);
-            __syncthreads();  // also publishes q_s on the first tile
-            float s[RPW] = {};
-            for (int d = 0; d < D; ++d) {
-                const float kd = kr[d];
-#pragma unroll
-                for (int r = 0; r < RPW; ++r) s[r] = fmaf(qw[r * D + d], kd, s[r]);
-            }
-            const bool real = kt * TILE + lane < S;
-#pragma unroll
-            for (int r = 0; r < RPW; ++r) {
-                const float x = real ? s[r] * scale : NEG;
-                const float m_new = fmaxf(m[r], warp_max(x));
-                l[r] = l[r] * expf(m[r] - m_new) + warp_sum(expf(x - m_new));
-                m[r] = m_new;
-            }
-            __syncthreads();  // the next tile overwrites k_s
-        }
-    }
-
-    for (int kt = 0; kt < tiles; ++kt) {
-        stage(k_s, D + 1, k, lkv, b, h, kt * TILE, TILE, S, D);
-        stage(v_s, D, v, lkv, b, h, kt * TILE, TILE, S, D);
-        __syncthreads();
-        float s[RPW] = {};
-        for (int d = 0; d < D; ++d) {
-            const float kd = kr[d];
-#pragma unroll
-            for (int r = 0; r < RPW; ++r) s[r] = fmaf(qw[r * D + d], kd, s[r]);
-        }
-        const bool real = kt * TILE + lane < S;
-        float pv[RPW];
-#pragma unroll
-        for (int r = 0; r < RPW; ++r) {
-            const float x = real ? s[r] * scale : NEG;
-            if (NORMALIZED) {
-                pv[r] = round_to(expf(x - m[r]) / l[r], T());
-            } else {
-                const float m_new = fmaxf(m[r], warp_max(x));
-                const float alpha = expf(m[r] - m_new);
-                const float p = expf(x - m_new);
-                l[r] = l[r] * alpha + warp_sum(p);
-#pragma unroll
-                for (int i = 0; i < DPL; ++i) acc[r][i] *= alpha;
-                m[r] = m_new;
-                pv[r] = round_to(p, T());
-            }
-        }
-        const int nk = min(TILE, S - kt * TILE);
-        for (int kk = 0; kk < nk; ++kk) {
-            float vv[DPL];
-#pragma unroll
-            for (int i = 0; i < DPL; ++i) {
-                const int d = lane + 32 * i;
-                vv[i] = d < D ? v_s[kk * D + d] : 0.f;
-            }
-#pragma unroll
-            for (int r = 0; r < RPW; ++r) {
-                const float pk = __shfl_sync(FULL, pv[r], kk);
-#pragma unroll
-                for (int i = 0; i < DPL; ++i) acc[r][i] = fmaf(pk, vv[i], acc[r][i]);
-            }
-        }
-        __syncthreads();
-    }
-
-#pragma unroll
-    for (int r = 0; r < RPW; ++r) {
-        const int row = row0 + warp * RPW + r;
-        if (row >= S) continue;
-        T* o = out + (((size_t)b * S + row) * H + h) * D;
-#pragma unroll
-        for (int i = 0; i < DPL; ++i) {
-            const int d = lane + 32 * i;
-            if (d < D) store(o + d, NORMALIZED ? acc[r][i] : acc[r][i] / l[r]);
-        }
-        if (lane == 0) lse[((size_t)b * H + h) * S + row] = m[r] + logf(l[r]);
     }
 }
 
@@ -485,6 +381,256 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
                 store(dv + at + d, acc_v[r][i]);
             }
         }
+    }
+}
+
+// -- f32 forward on the CUDA cores ----------------------------------------------
+
+constexpr int F32_MAX_THREADS = 256;
+constexpr int F32_OUT_TILES = 2;  // 4 x 4 output tiles a thread owns, at most
+
+// rows [row0, row0 + n) of (b, h) into dst (row pitch `pitch` floats) with D padded
+// by zeros to DP; rows at or past `limit` read as zeros. VEC: 16-byte cp.async
+// (base, strides and D all multiples of 4 elements); else plain loads and stores.
+template <int DP, bool VEC>
+__device__ __forceinline__ void stage_f32(float* dst, int pitch, const float* __restrict__ src,
+                                          Layout L, int b, int h, int row0, int n, int limit,
+                                          int D) {
+    const float* base = src + b * L.b + h * L.h;
+    if (VEC) {
+        constexpr int GROUPS = DP / 4;
+        for (int e = threadIdx.x; e < n * GROUPS; e += blockDim.x) {
+            const int r = e / GROUPS;
+            const int c = (e - r * GROUPS) * 4;
+            const int row = row0 + r;
+            const bool ok = row < limit && c < D;
+            tc::cp_async16(dst + r * pitch + c, ok ? base + row * L.s + c : src, ok ? 16 : 0);
+        }
+    } else {
+        for (int e = threadIdx.x; e < n * DP; e += blockDim.x) {
+            const int r = e / DP;
+            const int c = e - r * DP;
+            const int row = row0 + r;
+            dst[r * pitch + c] = row < limit && c < D ? base[row * L.s + c] : 0.f;
+        }
+    }
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+    return *reinterpret_cast<const float4*>(p);
+}
+
+// One block per (group of `rows` query rows, h, b), `threads` threads (the wrapper's
+// plan: rows and ktile multiples of 4, rows <= 64, ktile <= 128). It stages its Q
+// rows once and walks the keys in tiles of `ktile`, each K and V tile staged once for
+// all its rows: S <= 128 is one tile of every key, so the normalized rule takes one
+// pass (scores, max, sum, divide). Per tile:
+//   scores  a thread owns 4 query rows x 4 keys (keys kg + j * ktile / 4: lanes read
+//           consecutive K rows, which the pitch of DP + 4 floats spreads over the
+//           banks), f32 FMAs over D from float4 reads of Q and K; s * scale into P;
+//   softmax a warp per row over P: keys >= S at -1e30, the row's max and sum by
+//           shuffles, P replaced by the probabilities (NORMALIZED: exp(s - m) / l,
+//           with m and l from the one tile or from pass 1; streamed: exp(s - m_new),
+//           the rescale exp(m - m_new) kept for the row);
+//   PV      a thread owns up to F32_OUT_TILES tiles of 4 rows x 4 dims of the
+//           output in registers across the tiles, keys ascending, float4 reads of P
+//           and V.
+// NORMALIZED with more than one tile first walks K alone for each row's max and sum.
+template <int DP, bool VEC, bool NORMALIZED>
+__global__ void __launch_bounds__(F32_MAX_THREADS)
+flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, float* __restrict__ out, float* __restrict__ lse,
+              int S, int H, int D, Layout lq, Layout lkv, float scale, int rows, int ktile) {
+    constexpr int PITCH = DP + 4;
+    extern __shared__ __align__(16) float fsm[];
+    const int pp = ktile + 4;
+    float* q_s = fsm;                 // [rows][PITCH]
+    float* k_s = q_s + rows * PITCH;  // [ktile][PITCH]
+    float* v_s = k_s + ktile * PITCH; // [ktile][PITCH]
+    float* p_s = v_s + ktile * PITCH; // [rows][pp]: scores, then probabilities
+    float* m_s = p_s + rows * pp;     // [rows] running row max
+    float* l_s = m_s + rows;          // [rows] running row sum
+    float* a_s = l_s + rows;          // [rows] the streamed rule's rescale
+    const int b = blockIdx.z, h = blockIdx.y, row0 = blockIdx.x * rows;
+    const int tid = threadIdx.x, threads = blockDim.x;
+    const int warp = tid >> 5, lane = tid & 31, warps = threads >> 5;
+    const int rq = rows / 4, nk = ktile / 4, nd = DP / 4;
+    const int tiles = (S + ktile - 1) / ktile;
+
+    stage_f32<DP, VEC>(q_s, PITCH, q, lq, b, h, row0, rows, S, D);
+    tc::cp_async_commit();
+    for (int r = tid; r < rows; r += threads) {
+        m_s[r] = NEG;
+        l_s[r] = 0.f;
+    }
+
+    // P = Q K^T * scale for the tile staged in k_s
+    auto scores = [&]() {
+        for (int t = tid; t < rq * nk; t += threads) {
+            const int ri = t / nk, kg = t - ri * nk;
+            const float* qr = q_s + 4 * ri * PITCH;
+            const float* kr = k_s + kg * PITCH;
+            float s[4][4] = {};
+#pragma unroll
+            for (int d = 0; d < DP; d += 4) {
+                float4 a[4], c[4];
+#pragma unroll
+                for (int i = 0; i < 4; ++i) {
+                    a[i] = ld4(qr + i * PITCH + d);
+                    c[i] = ld4(kr + i * nk * PITCH + d);
+                }
+#pragma unroll
+                for (int i = 0; i < 4; ++i) {
+#pragma unroll
+                    for (int j = 0; j < 4; ++j) {
+                        s[i][j] = fmaf(a[i].x, c[j].x, s[i][j]);
+                        s[i][j] = fmaf(a[i].y, c[j].y, s[i][j]);
+                        s[i][j] = fmaf(a[i].z, c[j].z, s[i][j]);
+                        s[i][j] = fmaf(a[i].w, c[j].w, s[i][j]);
+                    }
+                }
+            }
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+#pragma unroll
+                for (int j = 0; j < 4; ++j) p_s[(4 * ri + i) * pp + kg + j * nk] = s[i][j] * scale;
+            }
+        }
+    };
+    // each row's logits of key tile kt (up to 4 a lane), -1e30 at keys >= S
+    auto logits = [&](int r, int kt, float (&x)[4]) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            const int j = lane + 32 * i;
+            x[i] = j < ktile && kt * ktile + j < S ? p_s[r * pp + j] : NEG;
+        }
+    };
+
+    if (NORMALIZED && tiles > 1) {  // pass 1: each row's max and sum over every key
+        for (int kt = 0; kt < tiles; ++kt) {
+            __syncthreads();  // the previous tile's readers are done with k_s and p_s
+            stage_f32<DP, VEC>(k_s, PITCH, k, lkv, b, h, kt * ktile, ktile, S, D);
+            tc::cp_async_commit();
+            tc::cp_async_wait<0>();
+            __syncthreads();
+            scores();
+            __syncthreads();
+            for (int r = warp; r < rows; r += warps) {
+                float x[4];
+                logits(r, kt, x);
+                const float m_new = fmaxf(m_s[r], warp_max(fmaxf(fmaxf(x[0], x[1]),
+                                                                 fmaxf(x[2], x[3]))));
+                const float e = expf(x[0] - m_new) + expf(x[1] - m_new) +
+                                expf(x[2] - m_new) + expf(x[3] - m_new);
+                const float l = l_s[r] * expf(m_s[r] - m_new) + warp_sum(e);
+                __syncwarp();
+                if (lane == 0) {
+                    m_s[r] = m_new;
+                    l_s[r] = l;
+                }
+            }
+        }
+    }
+
+    float acc[F32_OUT_TILES][4][4] = {};
+    for (int kt = 0; kt < tiles; ++kt) {  // the main pass
+        __syncthreads();  // the previous tile's readers are done with k_s, v_s and p_s
+        stage_f32<DP, VEC>(k_s, PITCH, k, lkv, b, h, kt * ktile, ktile, S, D);
+        tc::cp_async_commit();
+        stage_f32<DP, VEC>(v_s, PITCH, v, lkv, b, h, kt * ktile, ktile, S, D);
+        tc::cp_async_commit();
+        tc::cp_async_wait<1>();  // Q and K here; V still in flight
+        __syncthreads();
+        scores();
+        tc::cp_async_wait<0>();
+        __syncthreads();
+        for (int r = warp; r < rows; r += warps) {
+            float x[4];
+            logits(r, kt, x);
+            float m = m_s[r], l = l_s[r], alpha = 1.f;
+            if (!NORMALIZED || tiles == 1) {
+                const float m_new = fmaxf(m, warp_max(fmaxf(fmaxf(x[0], x[1]),
+                                                            fmaxf(x[2], x[3]))));
+#pragma unroll
+                for (int i = 0; i < 4; ++i) x[i] = expf(x[i] - m_new);
+                alpha = expf(m - m_new);
+                l = l * alpha + warp_sum(x[0] + x[1] + x[2] + x[3]);
+                m = m_new;
+            } else {
+#pragma unroll
+                for (int i = 0; i < 4; ++i) x[i] = expf(x[i] - m);
+            }
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+                const int j = lane + 32 * i;
+                if (j < ktile) p_s[r * pp + j] = NORMALIZED ? x[i] / l : x[i];
+            }
+            __syncwarp();
+            if (lane == 0) {
+                m_s[r] = m;
+                l_s[r] = l;
+                a_s[r] = alpha;
+            }
+        }
+        __syncthreads();
+        const int nkeys = min(ktile, (S - kt * ktile + 3) & ~3);  // keys past S: p = 0
+#pragma unroll
+        for (int o = 0; o < F32_OUT_TILES; ++o) {
+            const int t = tid + o * threads;
+            if (t >= rq * nd) continue;
+            const int ri = t / nd, dj = t - ri * nd;
+            const float* pr = p_s + 4 * ri * pp;
+            const float* vc = v_s + 4 * dj;
+            if (!NORMALIZED) {
+#pragma unroll
+                for (int i = 0; i < 4; ++i) {
+                    const float al = a_s[4 * ri + i];
+#pragma unroll
+                    for (int c = 0; c < 4; ++c) acc[o][i][c] *= al;
+                }
+            }
+            for (int j = 0; j < nkeys; j += 4) {
+                float4 p[4], w[4];
+#pragma unroll
+                for (int i = 0; i < 4; ++i) {
+                    p[i] = ld4(pr + i * pp + j);
+                    w[i] = ld4(vc + (j + i) * PITCH);
+                }
+#pragma unroll
+                for (int i = 0; i < 4; ++i) {
+                    const float pi[4] = {p[i].x, p[i].y, p[i].z, p[i].w};
+#pragma unroll
+                    for (int jj = 0; jj < 4; ++jj) {
+                        acc[o][i][0] = fmaf(pi[jj], w[jj].x, acc[o][i][0]);
+                        acc[o][i][1] = fmaf(pi[jj], w[jj].y, acc[o][i][1]);
+                        acc[o][i][2] = fmaf(pi[jj], w[jj].z, acc[o][i][2]);
+                        acc[o][i][3] = fmaf(pi[jj], w[jj].w, acc[o][i][3]);
+                    }
+                }
+            }
+        }
+    }
+
+#pragma unroll
+    for (int o = 0; o < F32_OUT_TILES; ++o) {
+        const int t = tid + o * threads;
+        if (t >= rq * nd) continue;
+        const int ri = t / nd, dj = t - ri * nd;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            const int r = 4 * ri + i, row = row0 + r;
+            if (row >= S) continue;
+            const float div = NORMALIZED ? 1.f : l_s[r];
+            float* orow = out + (((size_t)b * S + row) * H + h) * D;
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+                const int d = 4 * dj + c;
+                if (d < D) orow[d] = NORMALIZED ? acc[o][i][c] : acc[o][i][c] / div;
+            }
+        }
+    }
+    for (int r = tid; r < rows; r += threads) {
+        if (row0 + r < S) lse[((size_t)b * H + h) * S + row0 + r] = m_s[r] + logf(l_s[r]);
     }
 }
 
@@ -1099,6 +1245,31 @@ cudaError_t launch_fwd_mma(const __nv_bfloat16* q, const __nv_bfloat16* k,
     return cudaGetLastError();
 }
 
+// the f32 forward for head dims padded to DP, by the wrapper's plan: blocks of
+// `threads` threads over `rows` query rows, key tiles of `ktile`
+template <int DP, bool VEC>
+cudaError_t launch_fwd_f32(const float* q, const float* k, const float* v, float* out,
+                           float* lse, int B, int S, int H, int D, Layout lq, Layout lkv,
+                           int normalized, float scale, int rows, int ktile, int threads,
+                           cudaStream_t st) {
+    const dim3 grid((S + rows - 1) / rows, H, B);
+    const size_t smem = sizeof(float) * ((size_t)(rows + 2 * ktile) * (DP + 4) +
+                                         (size_t)rows * (ktile + 4) + 3 * rows);
+    cudaError_t err;
+    if (normalized) {
+        err = allow_smem(flash_fwd_f32<DP, VEC, true>, smem);
+        if (err != cudaSuccess) return err;
+        flash_fwd_f32<DP, VEC, true><<<grid, threads, smem, st>>>(q, k, v, out, lse, S, H, D,
+                                                                  lq, lkv, scale, rows, ktile);
+    } else {
+        err = allow_smem(flash_fwd_f32<DP, VEC, false>, smem);
+        if (err != cudaSuccess) return err;
+        flash_fwd_f32<DP, VEC, false><<<grid, threads, smem, st>>>(q, k, v, out, lse, S, H, D,
+                                                                   lq, lkv, scale, rows, ktile);
+    }
+    return cudaGetLastError();
+}
+
 // whether a bf16 [B, S, H, D] operand may be staged by 16-byte copies: base, row
 // strides and D all multiples of 8 elements (the rule of `views_aligned16`)
 bool aligned16(const void* p, Layout L, int D) {
@@ -1170,7 +1341,8 @@ extern "C" int dmt_flash_attention_fwd(const void* q, const void* k, const void*
                                        void* lse, int B, int S, int H, int D, long long qsb,
                                        long long qss, long long qsh, long long ksb,
                                        long long kss, long long ksh, int is_bf16,
-                                       int normalized, int vec, float scale, void* stream) {
+                                       int normalized, int vec, int rows, int ktile,
+                                       int threads, float scale, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     const Layout lq = {qsb, qss, qsh}, lkv = {ksb, kss, ksh};
     float* l = static_cast<float*>(lse);
@@ -1192,17 +1364,21 @@ extern "C" int dmt_flash_attention_fwd(const void* q, const void* k, const void*
 #undef DMT_FWD_MMA
         return static_cast<int>(err);
     }
-    const dim3 grid((S + ROWS - 1) / ROWS, H, B);
-    const size_t smem = sizeof(float) * (TILE * (D + 1) + TILE * D + ROWS * D);
-#define DMT_FWD(N)                                                                         \
-    err = allow_smem(flash_fwd_kernel<float, N>, smem);                                   \
-    if (err != cudaSuccess) return static_cast<int>(err);                                 \
-    flash_fwd_kernel<float, N><<<grid, THREADS, smem, st>>>(                               \
-        static_cast<const float*>(q), static_cast<const float*>(k),                        \
-        static_cast<const float*>(v), static_cast<float*>(out), l, S, H, D, lq, lkv, scale)
-    if (normalized) { DMT_FWD(true); } else { DMT_FWD(false); }
-#undef DMT_FWD
-    return static_cast<int>(cudaGetLastError());
+    const float* qf = static_cast<const float*>(q);
+    const float* kf = static_cast<const float*>(k);
+    const float* vf = static_cast<const float*>(v);
+    float* of = static_cast<float*>(out);
+#define DMT_FWD_F32(DP)                                                                     \
+    err = vec ? launch_fwd_f32<DP, true>(qf, kf, vf, of, l, B, S, H, D, lq, lkv, normalized, \
+                                         scale, rows, ktile, threads, st)                 \
+              : launch_fwd_f32<DP, false>(qf, kf, vf, of, l, B, S, H, D, lq, lkv,         \
+                                          normalized, scale, rows, ktile, threads, st)
+    if (D <= 16) { DMT_FWD_F32(16); }
+    else if (D <= 32) { DMT_FWD_F32(32); }
+    else if (D <= 64) { DMT_FWD_F32(64); }
+    else { DMT_FWD_F32(128); }
+#undef DMT_FWD_F32
+    return static_cast<int>(err);
 }
 
 extern "C" int dmt_flash_attention_dq(const void* q, const void* k, const void* v,

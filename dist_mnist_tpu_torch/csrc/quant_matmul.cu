@@ -44,11 +44,29 @@
 //   * Operands whose rows are not 16-byte aligned (K % 8 for x, H % 16 for q)
 //     are staged by plain loads instead of cp.async: same tiles, same sums.
 //
-// f32 (`qmm_f32_kernel`): the f32 products must stay full f32 (TF32 would cut
-// the activations), so this route is CUDA-core FMAs: one block per (32-row,
-// 16-channel) tile, 128 threads, K in chunks of 32 staged as f32 in shared
-// memory with the next chunk's loads in flight, a 2 x 2 micro-tile of f32
-// accumulators per thread summed over k in order (fmaf).
+// f32 (`qmm_f32_splitk_kernel`): split-K on the CUDA cores. The f32 products must
+// stay full f32 (TF32, or bf16 tensor cores, would cut the activations), and the
+// MLP's layers ([M,784]x[784,100], [M,100]x[100,10]) are latency-bound, not
+// FLOP-bound (10 MFLOP at M = 64): what the kernel has to do is put every SM to
+// work on a short stretch of K.
+//   * One block of 128 threads per (ROWS-row, 32-channel) output tile and split
+//     of K. ROWS is M rounded up to a power of two, at most 16, so M = 1 computes
+//     one row: the lanes of a channel group that rows cannot use take k slices
+//     instead, summed in slice order through shared memory. K is split by the
+//     bf16 route's plan with this route's tile (chunks of 32, at most 32
+//     splits, two blocks per SM): hid at M = 1 is 4 tiles x 25 splits of one
+//     chunk, at M = 64 16 tiles x 13 splits of two.
+//   * Each chunk of 32 k is staged in shared memory by cp.async in a
+//     two-slot ring (x by 16 bytes when K % 4 == 0, q by 4 when H % 4 == 0:
+//     the MLP's rows of 100 int8; else plain loads), and q is widened to f32
+//     there once per block, not once per row. A thread keeps 4 f32 sums, k
+//     ascending (fmaf), reading a float4 of weights and one activation per
+//     k. A split's loads are one round trip to memory (loading into
+//     registers a group of 4 k at a time cost ~1 us a group on an H100).
+//   * The same reduction as the bf16 route: f32 partial tiles summed in split
+//     order by the last block to arrive (its loads of up to 16 splits' float4
+//     partials in flight at once), so an input gives the same bits on any
+//     card, run or stream.
 //
 // Both epilogues round with __float2bfloat16 (round-to-nearest-even, as
 // torch's cast) or store f32.
@@ -63,90 +81,199 @@ namespace {
 
 // -- f32 route ---------------------------------------------------------------
 
-constexpr int BM = 32;                             // activation rows per block
-constexpr int BN = 16;                             // output channels per block
-constexpr int BK = 32;                             // contraction chunk per step
-constexpr int TM = 2;                              // rows per thread
-constexpr int TN = 2;                              // channels per thread
-constexpr int THREADS = (BM / TM) * (BN / TN);     // 128
-constexpr int X_PER_THREAD = BM * BK / THREADS;    // 8
-constexpr int W_PER_THREAD = BK * BN / THREADS;    // 4
-constexpr int XS_LD = BM + 2;                      // padded, keeps float2 alignment
+constexpr int F_THREADS = 128;
+constexpr int F_BN = 32;                           // output channels per tile
+constexpr int F_CG = F_BN / 4;                     // channel groups: one char4 of q each
+constexpr int F_BK = 32;                           // the K chunk the splits are counted in
+constexpr int F_LANES = F_THREADS / F_CG;          // 16: rows x k slices
 
-static_assert(BM * BK % THREADS == 0 && BK * BN % THREADS == 0, "tile split");
-static_assert(TM == 2 && TN == 2, "the inner loop reads float2 pairs");
+constexpr int F_XP = F_BK + 4;                     // staged x row pitch (floats)
+constexpr int F_SUM_F4 = 16;                       // float4 partials a thread loads at once
 
-__global__ void __launch_bounds__(THREADS)
-qmm_f32_kernel(const float* __restrict__ x, const int8_t* __restrict__ q,
-               const float* __restrict__ scale, float* __restrict__ out,
-               int M, int K, int H) {
-    __shared__ __align__(16) float xs[BK][XS_LD];  // x chunk, transposed: xs[k][m]
-    __shared__ __align__(16) float ws[BK][BN];     // weight chunk: ws[k][h]
+// One block of 128 threads per (ROWS-row, 32-channel) output tile and split of K.
+// Thread (cg, row, ks) owns channels [4 cg, 4 cg + 4) of one row and the k ks,
+// ks + KS, ... of each chunk of 32: with fewer than 16 rows the lanes that would hold
+// padding rows take k slices instead. Each chunk of x (f32) and q
+// (int8) is staged in shared memory by cp.async in a two-slot ring, the next chunk
+// in flight while this one is used; q is widened to f32 there once per block.
+template <int ROWS>
+__global__ void __launch_bounds__(F_THREADS)
+qmm_f32_splitk_kernel(const float* __restrict__ x, const int8_t* __restrict__ q,
+                      const float* __restrict__ scale, float* __restrict__ out,
+                      float* __restrict__ partial, unsigned int* __restrict__ arrivals, int M,
+                      int K, int H, int chunks_per_split, int vec_x, int vec_w) {
+    constexpr int KS = F_LANES / ROWS;                    // k slices
+    constexpr int TILE_N = ROWS * F_BN;                   // sums of a tile
+    constexpr int PER_THREAD = (TILE_N + F_THREADS - 1) / F_THREADS;
+    constexpr int TILE_F4 = TILE_N / 4;
+    constexpr int F4_PER_THREAD = (TILE_F4 + F_THREADS - 1) / F_THREADS;
+    constexpr int SUM_BATCH = F_SUM_F4 / F4_PER_THREAD;   // splits loaded at once
+    static_assert(ROWS * KS == F_LANES, "ROWS: a power of two <= 16");
+    __shared__ __align__(16) float x_s[2][ROWS][F_XP];          // x chunks, [row][k]
+    __shared__ __align__(16) unsigned char q_s[2][F_BK][F_BN];  // q chunks, [k][channel]
+    __shared__ __align__(16) float w_s[F_BK][F_BN];             // this chunk's q in f32
+    __shared__ __align__(16) float red[KS * TILE_N];            // [ks][row][channel]
+    __shared__ int last_block;
 
     const int tid = threadIdx.x;
-    const int tx = tid % (BN / TN);  // channel group
-    const int ty = tid / (BN / TN);  // row group
-    const int m0 = blockIdx.y * BM;
-    const int h0 = blockIdx.x * BN;
+    const int cg = tid % F_CG;
+    const int row = (tid / F_CG) % ROWS;
+    const int ks = tid / (F_CG * ROWS);
+    const int h0 = blockIdx.x * F_BN, m0 = blockIdx.y * ROWS;
+    const int split = blockIdx.z, splits = gridDim.z;
+    const int c0 = split * chunks_per_split;
+    const int nch = min(chunks_per_split, (K + F_BK - 1) / F_BK - c0);
 
-    float xr[X_PER_THREAD];
-    float wr[W_PER_THREAD];
-
-    // Global -> registers for the chunk starting at k0. Consecutive threads
-    // take consecutive k (x) and consecutive h (q): coalesced along the
-    // contiguous axis of each operand. Out-of-range elements load as 0.
-    auto load_chunk = [&](int k0) {
-#pragma unroll
-        for (int i = 0; i < X_PER_THREAD; ++i) {
-            const int e = tid + i * THREADS;
-            const int m = m0 + e / BK, k = k0 + e % BK;
-            xr[i] = (m < M && k < K) ? x[(size_t)m * K + k] : 0.f;
+    // chunk c (of the whole K axis) into ring slot st; out of range reads as 0. x by
+    // 16 bytes (vec_x: K % 4 == 0 and a 16-byte base, so a group of 4 k is wholly in
+    // or out), q by 4 (vec_w: H % 4 == 0 and a 4-byte base: 4 channels); else plain
+    // loads.
+    auto load = [&](int c, int st) {
+        const int k0 = c * F_BK;
+        if (vec_x) {
+            for (int e = tid; e < ROWS * (F_BK / 4); e += F_THREADS) {
+                const int r = e / (F_BK / 4), kk = (e % (F_BK / 4)) * 4;
+                const bool ok = m0 + r < M && k0 + kk < K;
+                tc::cp_async16(&x_s[st][r][kk], ok ? x + (size_t)(m0 + r) * K + k0 + kk : x,
+                               ok ? 16 : 0);
+            }
+        } else {
+            for (int e = tid; e < ROWS * F_BK; e += F_THREADS) {
+                const int r = e / F_BK, kk = e % F_BK;
+                x_s[st][r][kk] = m0 + r < M && k0 + kk < K ? x[(size_t)(m0 + r) * K + k0 + kk]
+                                                            : 0.f;
+            }
         }
-#pragma unroll
-        for (int i = 0; i < W_PER_THREAD; ++i) {
-            const int e = tid + i * THREADS;
-            const int k = k0 + e / BN, h = h0 + e % BN;
-            wr[i] = (k < K && h < H) ? (float)q[(size_t)k * H + h] : 0.f;
+        if (vec_w) {
+            for (int e = tid; e < F_BK * F_CG; e += F_THREADS) {
+                const int kk = e / F_CG, n = (e % F_CG) * 4;
+                const bool ok = k0 + kk < K && h0 + n < H;
+                tc::cp_async4(&q_s[st][kk][n], ok ? q + (size_t)(k0 + kk) * H + h0 + n : q,
+                              ok ? 4 : 0);
+            }
+        } else {
+            for (int e = tid; e < F_BK * F_BN; e += F_THREADS) {
+                const int kk = e / F_BN, n = e % F_BN;
+                q_s[st][kk][n] = k0 + kk < K && h0 + n < H
+                                     ? (unsigned char)q[(size_t)(k0 + kk) * H + h0 + n]
+                                     : 0;
+            }
         }
     };
 
-    float acc[TM][TN] = {};
-    load_chunk(0);
-    for (int k0 = 0; k0 < K; k0 += BK) {
-#pragma unroll
-        for (int i = 0; i < X_PER_THREAD; ++i) {
-            const int e = tid + i * THREADS;
-            xs[e % BK][e / BK] = xr[i];
-        }
-#pragma unroll
-        for (int i = 0; i < W_PER_THREAD; ++i) {
-            const int e = tid + i * THREADS;
-            ws[e / BN][e % BN] = wr[i];
-        }
-        __syncthreads();
-        if (k0 + BK < K) load_chunk(k0 + BK);  // in flight during the FMAs below
-#pragma unroll
-        for (int kk = 0; kk < BK; ++kk) {
-            const float2 a = *reinterpret_cast<const float2*>(&xs[kk][ty * TM]);
-            const float2 b = *reinterpret_cast<const float2*>(&ws[kk][tx * TN]);
-            acc[0][0] = fmaf(a.x, b.x, acc[0][0]);
-            acc[0][1] = fmaf(a.x, b.y, acc[0][1]);
-            acc[1][0] = fmaf(a.y, b.x, acc[1][0]);
-            acc[1][1] = fmaf(a.y, b.y, acc[1][1]);
+    // k ascending within the thread (chunks in order, its k in order in a chunk)
+    float acc[4] = {};
+    if (nch > 0) load(c0, 0);
+    tc::cp_async_commit();
+    for (int i = 0; i < nch; ++i) {
+        if (i + 1 < nch) load(c0 + i + 1, (i + 1) & 1);
+        tc::cp_async_commit();
+        tc::cp_async_wait<1>();  // chunk i has landed, for this thread
+        __syncthreads();         // ... for all
+        for (int e = tid; e < F_BK * F_CG; e += F_THREADS) {  // widen q once (exact)
+            const int kk = e / F_CG, n = (e % F_CG) * 4;
+            const char4 b = *reinterpret_cast<const char4*>(&q_s[i & 1][kk][n]);
+            *reinterpret_cast<float4*>(&w_s[kk][n]) = make_float4(b.x, b.y, b.z, b.w);
         }
         __syncthreads();
+#pragma unroll
+        for (int j = 0; j < F_BK / KS; ++j) {
+            const int kk = ks + KS * j;
+            const float4 w = *reinterpret_cast<const float4*>(&w_s[kk][4 * cg]);
+            const float xk = x_s[i & 1][row][kk];
+            acc[0] = fmaf(xk, w.x, acc[0]);
+            acc[1] = fmaf(xk, w.y, acc[1]);
+            acc[2] = fmaf(xk, w.z, acc[2]);
+            acc[3] = fmaf(xk, w.w, acc[3]);
+        }
+        __syncthreads();  // slot i & 1 and w_s are free for the next chunk
+    }
+    tc::cp_async_wait<0>();
+
+    // the block's sums: each tile element adds its k slices in slice order
+#pragma unroll
+    for (int c = 0; c < 4; ++c) red[(ks * ROWS + row) * F_BN + 4 * cg + c] = acc[c];
+    __syncthreads();
+    float sum[PER_THREAD];
+#pragma unroll
+    for (int j = 0; j < PER_THREAD; ++j) {
+        const int e = tid + j * F_THREADS;
+        sum[j] = 0.f;
+        if (e < TILE_N) {
+            sum[j] = red[e];
+#pragma unroll
+            for (int s = 1; s < KS; ++s) sum[j] += red[s * TILE_N + e];
+        }
     }
 
+    // element e of a tile is (row e / F_BN, channel e % F_BN)
+    auto store = [&](int e, float v) {
+        const int m = m0 + e / F_BN, hh = h0 + e % F_BN;
+        if (e < TILE_N && m < M && hh < H) out[(size_t)m * H + hh] = v * scale[hh];
+    };
+    if (splits == 1) {
 #pragma unroll
-    for (int j = 0; j < TN; ++j) {
-        const int h = h0 + tx * TN + j;
-        if (h >= H) continue;
-        const float s = scale[h];
+        for (int j = 0; j < PER_THREAD; ++j) store(tid + j * F_THREADS, sum[j]);
+        return;
+    }
+
+    // split-K: this split's partial tile, then the bf16 route's ordered last-block sum
+    const int tile = blockIdx.y * gridDim.x + blockIdx.x;
+    float* tile_base = partial + (size_t)tile * splits * TILE_N;
 #pragma unroll
-        for (int i = 0; i < TM; ++i) {
-            const int m = m0 + ty * TM + i;
-            if (m < M) out[(size_t)m * H + h] = acc[i][j] * s;
+    for (int j = 0; j < PER_THREAD; ++j) {
+        const int e = tid + j * F_THREADS;
+        if (e < TILE_N) tile_base[(size_t)split * TILE_N + e] = sum[j];
+    }
+    __threadfence();  // the partial is visible device-wide before the arrival
+    __syncthreads();
+    if (tid == 0) {
+        const unsigned int arrived = atomicAdd(&arrivals[tile], 1u);
+        __threadfence();
+        last_block = arrived == (unsigned int)(splits - 1);
+        if (last_block) arrivals[tile] = 0;  // every split has arrived: reset for the next launch
+    }
+    __syncthreads();
+    if (!last_block) return;
+
+    // the last block: each float4 of the tile summed over the splits in split order,
+    // SUM_BATCH splits' loads in flight at once
+    const float4* parts = reinterpret_cast<const float4*>(tile_base);
+    float4 tot[F4_PER_THREAD];
+#pragma unroll
+    for (int j = 0; j < F4_PER_THREAD; ++j) tot[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int p0 = 0; p0 < splits; p0 += SUM_BATCH) {
+        float4 v[F4_PER_THREAD][SUM_BATCH];
+#pragma unroll
+        for (int j = 0; j < F4_PER_THREAD; ++j) {
+            const int e = tid + j * F_THREADS;
+#pragma unroll
+            for (int r = 0; r < SUM_BATCH; ++r)
+                v[j][r] = e < TILE_F4 && p0 + r < splits
+                              ? __ldcg(parts + (size_t)(p0 + r) * TILE_F4 + e)
+                              : make_float4(0.f, 0.f, 0.f, 0.f);
         }
+#pragma unroll
+        for (int j = 0; j < F4_PER_THREAD; ++j) {
+#pragma unroll
+            for (int r = 0; r < SUM_BATCH; ++r) {
+                if (p0 + r < splits) {  // in split order
+                    tot[j].x += v[j][r].x;
+                    tot[j].y += v[j][r].y;
+                    tot[j].z += v[j][r].z;
+                    tot[j].w += v[j][r].w;
+                }
+            }
+        }
+    }
+#pragma unroll
+    for (int j = 0; j < F4_PER_THREAD; ++j) {
+        const int e = tid + j * F_THREADS;
+        if (e >= TILE_F4) continue;
+        store(4 * e, tot[j].x);
+        store(4 * e + 1, tot[j].y);
+        store(4 * e + 2, tot[j].z);
+        store(4 * e + 3, tot[j].w);
     }
 }
 
@@ -348,12 +475,34 @@ qmm_bf16_splitk_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __rest
 // returns cudaGetLastError() after the launch: nonzero means the launch was
 // refused and nothing ran.
 
+// `rows` (a power of two <= 16), `splits` and `chunks_per_split` (chunks of 32 along
+// K) come from the wrapper's plan, which also allocates `partial` (f32, tiles x splits
+// x rows x 32; unused with one split) and owns `arrivals` (one zeroed counter per
+// output tile, left zeroed).
 extern "C" int dmt_quant_matmul_f32(const void* x, const void* q, const void* scale, void* out,
-                                    int M, int K, int H, void* stream) {
-    const dim3 grid((H + BN - 1) / BN, (M + BM - 1) / BM);
-    qmm_f32_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(x), static_cast<const int8_t*>(q),
-        static_cast<const float*>(scale), static_cast<float*>(out), M, K, H);
+                                    void* partial, void* arrivals, int M, int K, int H,
+                                    int rows, int splits, int chunks_per_split, int vec_x,
+                                    int vec_w, void* stream) {
+    const dim3 grid((H + F_BN - 1) / F_BN, (M + rows - 1) / rows, splits);
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const float* xf = static_cast<const float*>(x);
+    const int8_t* qi = static_cast<const int8_t*>(q);
+    const float* sc = static_cast<const float*>(scale);
+    float* o = static_cast<float*>(out);
+    float* part = static_cast<float*>(partial);
+    unsigned int* arr = static_cast<unsigned int*>(arrivals);
+#define DMT_QMM_F32(R)                                                                      \
+    qmm_f32_splitk_kernel<R><<<grid, F_THREADS, 0, st>>>(xf, qi, sc, o, part, arr, M, K, H, \
+                                                         chunks_per_split, vec_x, vec_w)
+    switch (rows) {
+        case 1: DMT_QMM_F32(1); break;
+        case 2: DMT_QMM_F32(2); break;
+        case 4: DMT_QMM_F32(4); break;
+        case 8: DMT_QMM_F32(8); break;
+        case 16: DMT_QMM_F32(16); break;
+        default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+#undef DMT_QMM_F32
     return static_cast<int>(cudaGetLastError());
 }
 

@@ -9,6 +9,7 @@
 //                 lane (lanes 8i..8i+7 address matrix i); `_trans` transposes each.
 //   cp_async16    a 16-byte global -> shared copy that bypasses the registers;
 //                 `src_bytes` 0 writes 16 zero bytes and reads nothing.
+//   cp_async4     the same for 4 bytes (through L1: .ca).
 //   split_bf16    an f32 pair as two bf16 pairs, hi = bf16(x) and lo = bf16(x - hi):
 //                 |x - hi - lo| <= 2^-16 |x|, so two mma (hi, then lo) into one f32
 //                 sum take an f32 operand at 2^-16 relative per term.
@@ -54,6 +55,12 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* 
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
                  :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes)
                  : "memory");
 }

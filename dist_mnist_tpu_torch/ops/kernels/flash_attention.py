@@ -11,7 +11,9 @@ by dtype. bf16 takes the tensor-core (`mma.sync`) kernels: the forward's
 bf16 x bf16 products are exact in their f32 accumulators, and the
 backward's three products with an f32 operand (the recomputed P or dS)
 split that operand into bf16 hi and lo halves, 2^-16 relative per term,
-so both keep the reference's numbers. f32 takes the full-precision FMA
+so both keep the reference's numbers. f32 takes full-precision kernels on
+the CUDA cores: the forward register-tiled as an SGEMM is, over blocks of
+query rows that `f32_forward_plan` picks, and the backward by FMA
 kernels. The same backward kernels take an optional lengths vector and
 serve the masked backward (`ops/kernels/masked_flash.py`).
 
@@ -61,12 +63,21 @@ KEY_BLOCK = 16
 #: largest head_dim the kernels take
 MAX_HEAD_DIM = 128
 _MAX_GRID_YZ = 65535
+#: the f32 forward's plan (csrc/flash_attention.cu `flash_fwd_f32`): the
+#: most keys it holds in one tile, its key tile above that, and its limits
+#: on query rows and threads per block and on the 4 x 4 output tiles a
+#: thread owns
+ONE_PASS_KEYS, F32_KEY_TILE = 128, 64
+F32_MAX_ROWS, F32_MAX_THREADS, F32_OUT_TILES = 64, 256, 2
+#: the blocks the f32 forward aims for: two per SM of the H100 SXM. A
+#: constant of the design, never read from the device
+F32_TARGET_BLOCKS = 264
 _NEG = -1e30
 _VP, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 _ARGTYPES = {
     "dmt_flash_attention_fwd": [_VP] * 5 + [_I] * 4 + [_LL] * 6
-    + [_I, _I, _I, _F, _VP],
+    + [_I] * 6 + [_F, _VP],
     "dmt_flash_attention_dq": [_VP] * 9 + [_I] * 5 + [_LL] * 6
     + [_I, _F, _VP],
     "dmt_flash_attention_dkv": [_VP] * 10 + [_I] * 5 + [_LL] * 6
@@ -225,12 +236,35 @@ def _strides(t) -> tuple[int, int, int]:
     return t.stride(0), t.stride(1), t.stride(2)
 
 
+def padded_head_dim(d: int) -> int:
+    """The head dim the kernels are instantiated for: 16, 32, 64 or 128."""
+    return next(p for p in (16, 32, 64, 128) if d <= p)
+
+
+def f32_forward_plan(b: int, s: int, h: int, d: int) -> tuple[int, int, int]:
+    """``(rows, key_tile, threads)`` of the f32 forward for ``[b, s, h,
+    d]``: every key in one tile up to `ONE_PASS_KEYS` (S rounded up to 4),
+    tiles of `F32_KEY_TILE` above; each (b, h)'s query rows split into
+    groups of `rows` (a multiple of 4, at most `F32_MAX_ROWS`), enough
+    groups that the grid reaches `F32_TARGET_BLOCKS` (none under 16 rows);
+    threads enough for one 4 x 4 tile of scores each and at most
+    `F32_OUT_TILES` tiles of the output, in whole warps, 64 to
+    `F32_MAX_THREADS`. A function of the shape alone."""
+    ktile = _round_up(s, 4) if s <= ONE_PASS_KEYS else F32_KEY_TILE
+    groups = max(-(-s // F32_MAX_ROWS),
+                 min(-(-s // 16), -(-F32_TARGET_BLOCKS // (b * h))))
+    rows = _round_up(-(-s // groups), 4)
+    tiles = max(rows // 4 * (ktile // 4),
+                -(-(rows // 4) * (padded_head_dim(d) // 4) // F32_OUT_TILES))
+    return rows, ktile, min(F32_MAX_THREADS, max(64, _round_up(tiles, 32)))
+
+
 def views_aligned16(*ts) -> bool:
-    """Whether the bf16 forward may stage these ``[B, S, H, D]`` views by
+    """Whether the forward may stage these ``[B, S, H, D]`` views by
     16-byte copies: every base pointer and every row stride (B, S, H, and
     D itself) a whole number of 16 bytes. Otherwise it stages them by
     plain loads (its VEC = false instantiations), never the plain
-    version. The backward's C entry points decide by the same rule for
+    version. The bf16 backward's C entry points decide by the same rule for
     each operand (`dmt_flash_aligned16`)."""
     return all(t.data_ptr() % 16 == 0 and all(
         n * t.element_size() % 16 == 0 for n in (*_strides(t), t.shape[-1]))
@@ -308,7 +342,8 @@ def flash_attention_forward(q, k, v, block_k: int | None = None):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), b, s, h, d, *_strides(q), *_strides(k),
             int(q.dtype == torch.bfloat16), int(block_k is None),
-            int(views_aligned16(q, k, v)), d ** -0.5, _stream(q))
+            int(views_aligned16(q, k, v)), *f32_forward_plan(b, s, h, d),
+            d ** -0.5, _stream(q))
     _raise_on(err, "flash attention forward")
     flash_attention_forward.launches += 1
     return out, lse

@@ -13,13 +13,16 @@ and runs `quant_matmul_reference` (the same math in plain torch) for CPU
 tensors; it never routes a CUDA tensor around the kernels. It picks the
 kernel by x's type: bf16 takes the tensor-core split-K kernel (whose
 products are exact, so it keeps the reference's numbers), float32 the
-full-precision FMA kernel. `quant_matmul.launches` counts kernel launches.
+full-precision split-K kernel on the CUDA cores.
+`quant_matmul.launches` counts kernel launches, and
+`quant_matmul.f32_launches` those of the float32 route.
 
-The bf16 kernel's split of K is `split_k_plan(m, k, h)`, a function of
-the shape alone, so an input gives the same bits on any card; its
-partial tiles are summed in split order by the last block to reach a
-tile, counted by per-tile arrival counters that each launch leaves at
-zero (one zeroed buffer per device and stream, `_arrivals`).
+Both kernels split K by `split_k_plan(m, k, h, tile)`, a function of the
+shape and the route's tile (`route_tile`) alone, so an input gives the
+same bits on any card; their partial tiles are summed in split order by
+the last block to reach a tile, counted by per-tile arrival counters that
+each launch leaves at zero (one zeroed buffer per device and stream,
+`_arrivals`, shared by the routes).
 """
 
 from __future__ import annotations
@@ -27,27 +30,54 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from typing import NamedTuple
 
 import torch
 
 from dist_mnist_tpu_torch.ops.kernels import build
 
-#: activation rows per block of each route's grid (csrc/quant_matmul.cu:
-#: BM for float32, TC_BM for bf16); the rows axis is the grid's y axis
-_BM = {torch.float32: 32, torch.bfloat16: 64}
 _MAX_GRID_Y = 65535
 _INT_MAX = 2**31 - 1
-#: the bf16 kernel's tile: channels per block (TC_BN) and the K chunk
-#: (TC_BK) the splits are counted in
-TC_BN, TC_BK = 32, 64
-#: blocks the split-K grid aims for: the H100 SXM's 132 SMs. A constant of
-#: the design, never read from the device, so the plan (and the bits) are
-#: the same on every card
-TARGET_BLOCKS = 132
-MAX_SPLITS = 16
+#: the H100 SXM's 132 SMs, which the split-K grids aim to fill. A constant
+#: of the design, never read from the device, so the plan (and the bits)
+#: are the same on every card
+SMS = 132
+
+
+class Tile(NamedTuple):
+    """A route's block tile: activation rows and output channels per
+    block, the K chunk its splits are counted in, its most splits, and the
+    blocks its grid aims for."""
+
+    rows: int
+    cols: int
+    chunk: int
+    max_splits: int
+    blocks: int
+
+
+#: the bf16 kernel's tile (csrc/quant_matmul.cu: TC_BM, TC_BN, TC_BK), one
+#: block per SM
+BF16_TILE = Tile(64, 32, 64, 16, SMS)
+#: the f32 kernel's channels per block and K chunk (F_BN, F_BK) and its most
+#: rows per block (its rows are M's power of two up to that); its blocks,
+#: a chunk or two of loads and FMAs each, aim for two per SM
+F32_COLS, F32_CHUNK, F32_MAX_ROWS, F32_MAX_SPLITS = 32, 32, 16, 32
+
+
+def route_tile(dtype: torch.dtype, m: int) -> Tile:
+    """The tile of the kernel that takes x of `dtype` with `m` rows: bf16
+    a fixed 64 x 32; f32 `m` rounded up to a power of two (at most 16)
+    rows, so one row computes no padding rows."""
+    if dtype == torch.bfloat16:
+        return BF16_TILE
+    rows = min(F32_MAX_ROWS, 1 << max(0, m - 1).bit_length())
+    return Tile(rows, F32_COLS, F32_CHUNK, F32_MAX_SPLITS, 2 * SMS)
+
+
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
-    "dmt_quant_matmul_f32": [_VP] * 4 + [_I] * 3 + [_VP],
+    "dmt_quant_matmul_f32": [_VP] * 6 + [_I] * 8 + [_VP],
     "dmt_quant_matmul_bf16": [_VP] * 6 + [_I] * 7 + [_VP],
 }
 
@@ -87,33 +117,38 @@ def _check(x, w_q, w_scale) -> tuple[int, int, int]:
         raise ValueError(f"quant_matmul: tensors on different devices "
                          f"({x.device}, {w_q.device}, {w_scale.device})")
     m = math.prod(x.shape[:-1])
-    if max(m, d, h) > _INT_MAX or -(-m // _BM[x.dtype]) > _MAX_GRID_Y:
+    if max(m, d, h) > _INT_MAX or \
+            -(-m // route_tile(x.dtype, m).rows) > _MAX_GRID_Y:
         raise ValueError(f"quant_matmul: shape [{m}, {d}] x [{d}, {h}] "
                          "exceeds the kernel's grid")
     return m, d, h
 
 
-def split_k_plan(m: int, k: int, h: int) -> tuple[int, int, int]:
-    """``(tiles, splits, chunks_per_split)`` of the bf16 kernel for an
-    ``[m, k] x [k, h]`` call: its output tiles, and its split of K in
-    chunks of `TC_BK`: enough splits that tiles x splits reach
-    `TARGET_BLOCKS` (at most `MAX_SPLITS`, at most one per chunk), then
-    as many as cover K with no empty split. A function of the shape
-    alone."""
-    tiles = -(-h // TC_BN) * -(-m // _BM[torch.bfloat16])
-    chunks = max(1, -(-k // TC_BK))
-    want = min(MAX_SPLITS, chunks, max(1, -(-TARGET_BLOCKS // tiles)))
+def split_k_plan(m: int, k: int, h: int,
+                 tile: Tile) -> tuple[int, int, int]:
+    """``(tiles, splits, chunks_per_split)`` of the kernel with `tile` for
+    an ``[m, k] x [k, h]`` call: its output tiles, and its split of K in
+    chunks of ``tile.chunk``: enough splits that tiles x splits reach
+    ``tile.blocks`` (at most ``tile.max_splits``, at most one per chunk),
+    then as many as cover K with no empty split. A function of the shape
+    and the tile alone."""
+    tiles = -(-h // tile.cols) * -(-m // tile.rows)
+    chunks = max(1, -(-k // tile.chunk))
+    want = min(tile.max_splits, chunks, max(1, -(-tile.blocks // tiles)))
     per = -(-chunks // want)
     return tiles, -(-chunks // per), per
 
 
 def vec_loads(x: torch.Tensor, w_q: torch.Tensor) -> tuple[bool, bool]:
-    """Whether the bf16 kernel may stage x and w_q by 16-byte copies:
-    each base 16-byte aligned and each row a whole number of 16 bytes.
-    Otherwise it stages that operand by plain loads (the same tiles)."""
+    """Whether the kernel for x's type may load x and w_q by vectors: x
+    by 16 bytes in both routes (a 16-byte base and rows a whole number of
+    16 bytes), w_q by 16 bytes in the bf16 route and 4 in the f32 route
+    (its base and H a multiple of that). Otherwise that operand takes
+    plain loads (the same tiles)."""
     row_x = x.shape[-1] * x.element_size()
+    width = 16 if x.dtype == torch.bfloat16 else 4
     return (x.data_ptr() % 16 == 0 and row_x % 16 == 0,
-            w_q.data_ptr() % 16 == 0 and w_q.shape[1] % 16 == 0)
+            w_q.data_ptr() % width == 0 and w_q.shape[1] % width == 0)
 
 
 @functools.cache
@@ -155,30 +190,34 @@ def quant_matmul(x: torch.Tensor, w_q: torch.Tensor,
     out = torch.empty((*x.shape[:-1], h), dtype=x.dtype, device=x.device)
     if m == 0 or h == 0:
         return out
+    tile = route_tile(x.dtype, m)
+    tiles, splits, per = split_k_plan(m, d, h, tile)
+    partial = torch.empty(tiles * splits * tile.rows * tile.cols
+                          if splits > 1 else 0, dtype=torch.float32,
+                          device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        if x.dtype == torch.bfloat16:
-            tiles, splits, per = split_k_plan(m, d, h)
-            partial = torch.empty(
-                tiles * splits * _BM[torch.bfloat16] * TC_BN if splits > 1
-                else 0, dtype=torch.float32, device=x.device)
-            err = _entry("dmt_quant_matmul_bf16")(
-                x.data_ptr(), w_q.data_ptr(), w_scale.data_ptr(),
+        args = (x.data_ptr(), w_q.data_ptr(), w_scale.data_ptr(),
                 out.data_ptr(), partial.data_ptr(),
-                _arrivals(x.device, stream, tiles).data_ptr(), m, d, h,
-                splits, per, *map(int, vec_loads(x, w_q)), stream)
+                _arrivals(x.device, stream, tiles).data_ptr(), m, d, h)
+        vec = tuple(map(int, vec_loads(x, w_q)))
+        if x.dtype == torch.bfloat16:
+            err = _entry("dmt_quant_matmul_bf16")(*args, splits, per, *vec,
+                                                  stream)
         else:
-            err = _entry("dmt_quant_matmul_f32")(
-                x.data_ptr(), w_q.data_ptr(), w_scale.data_ptr(),
-                out.data_ptr(), m, d, h, stream)
+            err = _entry("dmt_quant_matmul_f32")(*args, tile.rows, splits,
+                                                 per, *vec, stream)
     if err != 0:
         raise RuntimeError(f"quant_matmul kernel launch failed: "
                            f"cudaError {err}")
     quant_matmul.launches += 1
+    if x.dtype == torch.float32:
+        quant_matmul.f32_launches += 1
     return out
 
 
 quant_matmul.launches = 0
+quant_matmul.f32_launches = 0
 
 
 def quant_matmul_cost(x_shape, w_shape, x_dtype=torch.float32) -> dict:

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Time the PyTorch port's flash-attention kernels of several checkouts on
-one card, in turns. Needs one NVIDIA GPU and `nvcc`, as `chip_smoke.py`
-does.
+"""Time the PyTorch port's flash-attention and `quant_matmul` kernels of
+several checkouts on one card, in turns. Needs one NVIDIA GPU and `nvcc`,
+as `chip_smoke.py` does.
 
-    python3 scripts/torch_flash_ab.py [--vit] TREE [TREE ...]
+    python3 scripts/torch_flash_ab.py [--f32] [--qmm] [--vit] TREE [TREE ...]
 
 Each TREE is the root of a checkout of this repository: this one, and an
 older commit unpacked beside it with `git archive`. The trees run in the
@@ -13,11 +13,19 @@ imports that tree's kernels and its `chip_smoke.py`.
 It times, at ViT-Tiny's attention call (B=64, S=65, H=3, D=64; q, k, v the
 strided views of one fused projection), the forward, dQ, dK/dV and the two
 together in bf16 and in f32, and in bf16 the masked backward with lengths
-2..65 (on contiguous copies). Each figure is the tree's
+2..65 (on contiguous copies); with `--f32`, only the f32 figures. With
+`--qmm`, it also times `quant_matmul` at the MLP's f32 layers
+([M,784]x[784,100] and [M,100]x[100,10], M in {1, 64}) and LeNet-5's
+bf16 fc1 and fc2 at M = 64, and beside each f32 row `torch.matmul` on the
+dequantized weight (the library call, the same in every tree). Each
+figure is the tree's
 `chip_smoke.graph_ms`: a CUDA graph of 100 back-to-back calls replayed
 under CUDA events, median of 5 replays, in ms per call. With `--vit`,
-each run then also calls its tree's `chip_smoke.vit_profile` (one `vit_tiny_cifar_flash` training step at
-batch 64: host wall, and device time by kernel from `torch.profiler`) and
+each run then also trains `vit_tiny_cifar_flash` 20 steps from its tree's
+`chip_smoke.vit_state` (seed-0 state, batch 64) and records the last
+loss and a 48-bit hash of the 20 losses' bits (equal hashes: the same
+bits), then calls its tree's `chip_smoke.vit_profile` (one training
+step: host wall, and device time by kernel from `torch.profiler`) and
 records the step's device busy ms, its idle share and the ms of each
 flash kernel in it. Prints the card's name and power limit, one JSON line
 per run, and last a JSON line with each tree's median per figure over its
@@ -45,11 +53,15 @@ from dist_mnist_tpu_torch.ops.kernels.masked_flash import (
     masked_flash_attention_backward, masked_flash_attention_forward)
 
 torch.backends.cuda.matmul.allow_tf32 = False
-build.build_all(["flash_attention", "masked_flash_attention"])
+build.build_all(["flash_attention", "masked_flash_attention"]
+                + (["quant_matmul"] if "--qmm" in sys.argv else []))
 
 B, S, H, D = 64, 65, 3, 64
 rows = {}
-for name, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+routes = [("f32", torch.float32)]
+if "--f32" not in sys.argv:
+    routes.insert(0, ("bf16", torch.bfloat16))
+for name, dtype in routes:
     gen = torch.Generator().manual_seed(80)
     q, k, v = torch.randn(B, S, 3, H, D, generator=gen).to(
         "cuda", dtype).unbind(2)
@@ -74,13 +86,45 @@ for name, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
         rows["bf16_masked_backward"] = chip_smoke.graph_ms(
             torch, lambda: masked_flash_attention_backward(
                 qc, kc, vc, lens, do, m_lse, m_delta))
+if "--qmm" in sys.argv:
+    from dist_mnist_tpu_torch.ops import quant
+    from dist_mnist_tpu_torch.ops.kernels.quant_matmul import quant_matmul
+
+    gen = torch.Generator().manual_seed(0)
+    for label, d, h, dtype, ms in (
+            ("mlp_hid", 784, 100, torch.float32, (1, 64)),
+            ("mlp_sm", 100, 10, torch.float32, (1, 64)),
+            ("fc1", 3136, 512, torch.bfloat16, (64,)),
+            ("fc2", 512, 10, torch.bfloat16, (64,))):
+        qa = quant.quantize((torch.randn(d, h, generator=gen)
+                             / d ** 0.5).to("cuda"))
+        w_deq = quant.dequantize(qa, dtype)
+        for m in ms:
+            x = torch.rand(m, d, generator=gen).to("cuda", dtype)
+            key = f"qmm_{label}_m{m}_{str(dtype).removeprefix('torch.')}"
+            rows[key] = chip_smoke.graph_ms(
+                torch, lambda: quant_matmul(x, qa.q, qa.scale))
+            if dtype == torch.float32:
+                rows[key + "_library"] = chip_smoke.graph_ms(
+                    torch, lambda: torch.matmul(x, w_deq))
 if "--vit" in sys.argv:
+    import hashlib
     import re
 
     from dist_mnist_tpu_torch.data.datasets import load_dataset
 
-    prof = chip_smoke.vit_profile(torch, torch.device("cuda", 0),
-                                  load_dataset("cifar10", seed=42))
+    cifar = load_dataset("cifar10", seed=42)
+    state, step, _, _ = chip_smoke.vit_state(torch, torch.device("cuda", 0),
+                                             cifar, "flash")
+    losses = []
+    for _ in range(20):
+        state, out = step(state)
+        losses.append(out["loss"])
+    losses = torch.stack(losses).float().cpu().numpy()
+    rows["vit_20_steps_final_loss"] = float(losses[-1])
+    rows["vit_20_steps_loss_bits"] = int(hashlib.sha256(
+        losses.tobytes()).hexdigest()[:12], 16)
+    prof = chip_smoke.vit_profile(torch, torch.device("cuda", 0), cifar)
     rows["vit_step_wall_ms"] = prof["wall_ms"]
     rows["vit_step_device_busy_ms"] = prof["device_busy_ms"]
     rows["vit_step_device_idle_share"] = prof["device_idle_share"]
@@ -93,11 +137,9 @@ print(json.dumps(rows))
 """
 
 
-def run_tree(tree: Path, vit: bool) -> dict:
-    proc = subprocess.run([sys.executable, "-c", RUN, *(["--vit"] if vit
-                                                        else [])],
-                          cwd=tree, capture_output=True, text=True,
-                          timeout=600)
+def run_tree(tree: Path, flags: list[str]) -> dict:
+    proc = subprocess.run([sys.executable, "-c", RUN, *flags], cwd=tree,
+                          capture_output=True, text=True, timeout=600)
     if proc.returncode != 0:
         raise RuntimeError(f"{tree}: rc={proc.returncode}\n{proc.stderr}")
     return json.loads(proc.stdout.strip().splitlines()[-1])
@@ -108,7 +150,13 @@ def main() -> int:
     parser.add_argument("trees", nargs="+", type=Path)
     parser.add_argument("--vit", action="store_true",
                         help="also profile one ViT-Tiny training step")
+    parser.add_argument("--f32", action="store_true",
+                        help="time the f32 flash kernels only")
+    parser.add_argument("--qmm", action="store_true",
+                        help="also time quant_matmul (MLP f32, LeNet-5 bf16)")
     args = parser.parse_args()
+    flags = [f"--{name}" for name in ("vit", "f32", "qmm")
+             if getattr(args, name)]
     trees = [t.resolve() for t in args.trees]
     for tree in trees:
         if not (tree / "dist_mnist_tpu_torch").is_dir():
@@ -120,7 +168,7 @@ def main() -> int:
     print(smi.stdout.strip().splitlines()[0], flush=True)
     runs: dict[str, list[dict]] = {str(t): [] for t in trees}
     for tree in trees + trees[::-1]:
-        rows = run_tree(tree, args.vit)
+        rows = run_tree(tree, flags)
         runs[str(tree)].append(rows)
         print(json.dumps({"tree": str(tree), **rows}), flush=True)
     print(json.dumps({"median_ms": {

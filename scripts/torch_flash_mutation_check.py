@@ -1,16 +1,16 @@
 #!/usr/bin/env python3
-"""Show that `chip_smoke.py`'s checks of the PyTorch port's flash
-backward fail when its bf16 kernels are wrong. Needs one NVIDIA GPU and
+"""Show that `chip_smoke.py`'s checks of the PyTorch port's redesigned
+kernels fail when those kernels are wrong. Needs one NVIDIA GPU and
 `nvcc`, as `chip_smoke.py` does.
 
     python3 scripts/torch_flash_mutation_check.py
 
-Runs the phases `vit_kernel_vs_plain` and `flash_split_share` on the
-checkout as it stands, then on copies of the checkout in a temporary
-directory, each with one fault planted in
-`dist_mnist_tpu_torch/csrc/flash_attention.cu`, in the bf16 tensor-core
-backward that the ViT path runs, and runs there the phase that must
-catch it:
+Runs the phases `vit_kernel_vs_plain`, `flash_split_share`, `qmm_parity`
+and `flash_parity` on the checkout as it stands, then on copies of
+the checkout in a temporary directory, each with one fault planted in a
+kernel under `dist_mnist_tpu_torch/csrc/`, and runs there the phase that
+must catch it. In the bf16 tensor-core flash backward that the ViT path
+runs (`flash_attention.cu`):
 
 - `dk_zero` (`vit_kernel_vs_plain`): `flash_dkv_mma` writes dK as zero;
 - `delta_dropped` (`vit_kernel_vs_plain`): `flash_dkv_mma` forms dS as
@@ -20,8 +20,17 @@ catch it:
   dS were rounded to bf16 once; within the 1e-2 limits, so only the
   share of outputs equal to the plain version's bf16 values sees it.
 
+In the f32 kernels:
+
+- `qmm_split_dropped` (`qmm_parity`): the last block of the f32
+  `quant_matmul` (`quant_matmul.cu`) sums every split's partial but the
+  second's;
+- `f32_last_tile_skipped` (`flash_parity`): the f32 flash forward
+  (`flash_fwd_f32`) skips its last key tile, which at S <= 128 is every
+  key.
+
 Each run prints its phases' JSON lines. Exits 0 only when the checkout
-passes both phases and every mutant fails its own. The checkout itself
+passes every phase and every mutant fails its own. The checkout itself
 is never modified.
 """
 
@@ -34,16 +43,26 @@ import tempfile
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
-KERNEL = Path("dist_mnist_tpu_torch/csrc/flash_attention.cu")
-MUTANTS = {  # name: (line, its mutation, the phase that must catch it)
-    "dk_zero": ("store_bf16_rows<DP>(acc_k, dkh, wkey0, Sk, H, D, scale);",
+FLASH = Path("dist_mnist_tpu_torch/csrc/flash_attention.cu")
+QMM = Path("dist_mnist_tpu_torch/csrc/quant_matmul.cu")
+MUTANTS = {  # name: (source, line, its mutation, the phase that must catch it)
+    "dk_zero": (FLASH,
+                "store_bf16_rows<DP>(acc_k, dkh, wkey0, Sk, H, D, scale);",
                 "store_bf16_rows<DP>(acc_k, dkh, wkey0, Sk, H, D, 0.f);",
                 "vit_kernel_vs_plain"),
-    "delta_dropped": ("ds = p * (dp[nt][i] - delta_s[col]);",
+    "delta_dropped": (FLASH, "ds = p * (dp[nt][i] - delta_s[col]);",
                       "ds = p * dp[nt][i];", "vit_kernel_vs_plain"),
-    "lo_dropped": ("""                tc::mma_bf16(o[2 * dt], lo, mb[0], mb[1]);
+    "lo_dropped": (FLASH, """                tc::mma_bf16(o[2 * dt], lo, mb[0], mb[1]);
                 tc::mma_bf16(o[2 * dt + 1], lo, mb[2], mb[3]);
 """, "", "flash_split_share"),
+    "qmm_split_dropped": (
+        QMM, "if (p0 + r < splits) {  // in split order",
+        "if (p0 + r < splits && p0 + r != 1) {  // in split order",
+        "qmm_parity"),
+    "f32_last_tile_skipped": (
+        FLASH, "for (int kt = 0; kt < tiles; ++kt) {  // the main pass",
+        "for (int kt = 0; kt < tiles - 1; ++kt) {  // the main pass",
+        "flash_parity"),
 }
 # run in a fresh interpreter whose working directory is the tree under test
 PHASE = """
@@ -55,7 +74,8 @@ from dist_mnist_tpu_torch.data.datasets import load_dataset
 from dist_mnist_tpu_torch.ops.kernels import build
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
-build.build_all(["flash_attention"])
+build.build_all(["flash_attention", "masked_flash_attention",
+                 "quant_matmul"])
 dev = torch.device("cuda", 0)
 for phase in sys.argv[1:]:
     if phase == "vit_kernel_vs_plain":
@@ -74,22 +94,23 @@ def run_phases(tree: Path, *phases: str) -> bool:
 
 
 def main() -> int:
-    if not (ROOT / KERNEL).is_file() or not (ROOT / "chip_smoke.py").is_file():
-        print(f"no {KERNEL} or chip_smoke.py under {ROOT}", file=sys.stderr)
+    if not all((ROOT / p).is_file() for p in (FLASH, QMM, "chip_smoke.py")):
+        print(f"no {FLASH}, {QMM} or chip_smoke.py under {ROOT}",
+              file=sys.stderr)
         return 2
     verdicts = {"checkout": run_phases(ROOT, *sorted(
-        {phase for _, _, phase in MUTANTS.values()}))}
-    src = (ROOT / KERNEL).read_text()
+        {phase for *_, phase in MUTANTS.values()}))}
     with tempfile.TemporaryDirectory() as tmp:
-        for name, (old, new, phase) in MUTANTS.items():
+        for name, (kernel, old, new, phase) in MUTANTS.items():
+            src = (ROOT / kernel).read_text()
             if src.count(old) != 1:
-                print(f"{name}: the line to mutate is not in {KERNEL} once",
+                print(f"{name}: the line to mutate is not in {kernel} once",
                       file=sys.stderr)
                 return 2
             tree = Path(tmp) / name
             shutil.copytree(ROOT, tree, ignore=shutil.ignore_patterns(
                 ".git", "build", "chiprun_out", "__pycache__"))
-            (tree / KERNEL).write_text(src.replace(old, new))
+            (tree / kernel).write_text(src.replace(old, new))
             print(f"== mutant {name} ({phase})", flush=True)
             verdicts[name] = run_phases(tree, phase)
     ok = verdicts["checkout"] and not any(

@@ -46,6 +46,7 @@ from dist_mnist_tpu_torch.ops.kernels import quant_matmul as tqmm
 from dist_mnist_tpu_torch.ops.kernels.quant_matmul import (
     quant_matmul,
     quant_matmul_reference,
+    route_tile,
     split_k_plan,
 )
 from dist_mnist_tpu_torch.serve import (
@@ -149,7 +150,8 @@ def test_bf16_split_k_reduction_is_bitwise_repeatable(cuda, m):
     last: the same inputs give the same bits, again and under another
     stream, and every launch leaves its arrival counters at zero."""
     x, qa = _operands(m, 3136, 512, torch.bfloat16, cuda, seed=5)
-    assert split_k_plan(m, 3136, 512)[1] > 1  # the reduction runs
+    # the reduction runs
+    assert split_k_plan(m, 3136, 512, route_tile(torch.bfloat16, m))[1] > 1
     before = quant_matmul.launches
     first = quant_matmul(x, qa.q, qa.scale)
     again = quant_matmul(x, qa.q, qa.scale)
@@ -161,6 +163,49 @@ def test_bf16_split_k_reduction_is_bitwise_repeatable(cuda, m):
     assert quant_matmul.launches == before + 3
     assert torch.equal(first.view(torch.int16), again.view(torch.int16))
     assert torch.equal(first.view(torch.int16), other.view(torch.int16))
+    assert all(int(buf.abs().sum()) == 0
+               for buf in tqmm._arrival_buffers.values())
+
+
+#: f32 split-K shapes: the MLP's hidden and output layers, a K that the
+#: split size does not divide, and one whose x rows take plain loads (K %
+#: 4) and whose H is not a multiple of 16
+QMM_F32_SHAPES = [(784, 100), (100, 10), (1000, 96), (1001, 40)]
+
+
+@pytest.mark.parametrize("d,h", QMM_F32_SHAPES)
+@pytest.mark.parametrize("m", [1, 2, 4, 7, 8, 16, 17, 32, 64, 65, 200])
+def test_f32_split_k_kernel_matches_plain_version(cuda, m, d, h):
+    """The CUDA-core split-K kernel against the plain version: within
+    2e-5 of the largest output (f32 sums in another order), one launch
+    per call, counted as an f32 launch."""
+    x, qa = _operands(m, d, h, torch.float32, cuda, seed=m + d + h)
+    before = quant_matmul.launches, quant_matmul.f32_launches
+    got = quant_matmul(x, qa.q, qa.scale)
+    torch.cuda.synchronize()
+    assert (quant_matmul.launches, quant_matmul.f32_launches) == (
+        before[0] + 1, before[1] + 1)
+    want = quant_matmul_reference(x, qa.q, qa.scale)
+    assert got.dtype == torch.float32 and got.shape == want.shape == (m, h)
+    assert _rel_err(got, want) <= 2e-5
+
+
+@pytest.mark.parametrize("m", [1, 7, 64, 200])
+def test_f32_split_k_reduction_is_bitwise_repeatable(cuda, m):
+    """The f32 route sums its partials in split order too: at the MLP's
+    hidden layer the same inputs give the same bits, again and under
+    another stream, and the arrival counters are left at zero."""
+    x, qa = _operands(m, 784, 100, torch.float32, cuda, seed=6)
+    assert split_k_plan(m, 784, 100, route_tile(torch.float32, m))[1] > 1
+    first = quant_matmul(x, qa.q, qa.scale)
+    again = quant_matmul(x, qa.q, qa.scale)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        other = quant_matmul(x, qa.q, qa.scale)
+    torch.cuda.synchronize()
+    assert torch.equal(first.view(torch.int32), again.view(torch.int32))
+    assert torch.equal(first.view(torch.int32), other.view(torch.int32))
     assert all(int(buf.abs().sum()) == 0
                for buf in tqmm._arrival_buffers.values())
 
@@ -432,7 +477,9 @@ FLASH_TOL = {torch.bfloat16: (1e-2, 1e-2), torch.float32: (1e-5, 1e-4)}
 
 @pytest.mark.parametrize("b,s,h,d,dtype,block_k,fused", [
     (64, 65, 3, 64, torch.bfloat16, None, True),  # ViT-Tiny's shape
+    (64, 65, 3, 64, torch.float32, None, True),
     (7, 65, 3, 64, torch.float32, None, True),
+    (1, 65, 3, 64, torch.float32, None, True),
     (1, 65, 3, 64, torch.bfloat16, None, False),
     (2, 17, 2, 16, torch.float32, None, True),
     (1, 300, 2, 16, torch.float32, 128, True),   # the streamed rounding
@@ -469,9 +516,9 @@ def test_flash_kernels_match_plain_versions(cuda, b, s, h, d, dtype,
         assert _rel_err(got, ref) <= bwd_tol
 
 
-def _check_bf16_forward(q, k, v, block_k):
-    """One bf16 forward launch against the plain version: out within
-    1e-2 and lse within 1e-5 of the largest value."""
+def _check_forward(q, k, v, block_k):
+    """One forward launch against the plain version: out within the
+    dtype's `FLASH_TOL` and lse within 1e-5 of the largest value."""
     bk = tflash.quantize_block_k(block_k, q.shape[1])
     before = tflash.flash_attention_forward.launches
     out, lse = tflash.flash_attention_forward(q, k, v, bk)
@@ -479,42 +526,49 @@ def _check_bf16_forward(q, k, v, block_k):
     assert tflash.flash_attention_forward.launches == before + 1
     want_out, want_lse = tflash.flash_attention_forward_reference(q, k, v,
                                                                   bk)
-    assert out.dtype == torch.bfloat16 and out.shape == want_out.shape
+    assert out.dtype == q.dtype and out.shape == want_out.shape
     assert lse.shape == want_lse.shape
-    assert _rel_err(out, want_out) <= 1e-2
+    assert _rel_err(out, want_out) <= FLASH_TOL[q.dtype][0]
     assert _rel_err(lse, want_lse) <= 1e-5
 
 
+FORWARD_DTYPES = [torch.bfloat16, torch.float32]
+
+
+@pytest.mark.parametrize("dtype", FORWARD_DTYPES)
 @pytest.mark.parametrize("block_k", [None, 128])
 @pytest.mark.parametrize("s", [1, 17, 65, 128, 129, 300])
-def test_bf16_flash_forward_matches_plain_version(cuda, s, block_k):
-    """The tensor-core forward on the fused projection's strided views:
-    one pass up to S = 128, key tiles above (block_k = 128 streams at S =
-    129 and 300 and is the full-K rule below)."""
-    _check_bf16_forward(*_qkv(3, s, 2, 64, torch.bfloat16, cuda, seed=s),
-                        block_k)
+def test_flash_forward_matches_plain_version(cuda, s, block_k, dtype):
+    """Both forward routes on the fused projection's strided views: bf16
+    the tensor-core kernel (one pass up to S = 128, key tiles above), f32
+    the register-tiled one (one tile of every key up to S = 128, tiles of
+    64 above); block_k = 128 streams at S = 129 and 300 and is the full-K
+    rule below."""
+    _check_forward(*_qkv(3, s, 2, 64, dtype, cuda, seed=s), block_k)
 
 
+@pytest.mark.parametrize("dtype", FORWARD_DTYPES)
 @pytest.mark.parametrize("s,block_k", [(65, None), (300, None), (300, 128)])
 @pytest.mark.parametrize("d", [16, 40, 64, 128])
-def test_bf16_flash_forward_head_dims(cuda, d, s, block_k):
+def test_flash_forward_head_dims(cuda, d, s, block_k, dtype):
     """Contiguous q, k, v at every padded head dim, D = 40 zero-padded to
-    64."""
-    _check_bf16_forward(*_qkv(2, s, 2, d, torch.bfloat16, cuda, seed=d + s,
-                              fused=False), block_k)
+    64; D = 128 at S = 300 takes the most shared memory of an f32 tile."""
+    _check_forward(*_qkv(2, s, 2, d, dtype, cuda, seed=d + s, fused=False),
+                   block_k)
 
 
+@pytest.mark.parametrize("dtype", FORWARD_DTYPES)
 @pytest.mark.parametrize("s,block_k", [(65, None), (129, None), (129, 128)])
-def test_bf16_flash_forward_unaligned_views(cuda, s, block_k):
+def test_flash_forward_unaligned_views(cuda, s, block_k, dtype):
     """Views one element off their buffers' 16-byte starts take the
     plain-load staging, with the same answers."""
     b, h, d = 2, 3, 64
     n = b * s * h * d
     bufs = [torch.from_numpy(np.random.default_rng(i).standard_normal(
-        n + 1).astype(np.float32)).to(cuda, torch.bfloat16) for i in range(3)]
+        n + 1).astype(np.float32)).to(cuda, dtype) for i in range(3)]
     q, k, v = (t[1:].view(b, s, h, d) for t in bufs)
     assert not tflash.views_aligned16(q, k, v)
-    _check_bf16_forward(q, k, v, block_k)
+    _check_forward(q, k, v, block_k)
 
 
 def _check_bf16_backward(q, k, v, seed, lengths=None):

@@ -32,11 +32,10 @@ def _own_temp_root(tmp_path_factory):
 
 
 def _sources() -> list[Path]:
-    # the card-only tests and the flash scripts run on the GPU machine too
+    # the card-only tests and the port's scripts run on the GPU machine too
     return sorted(PORT.rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "tests/test_torch_cuda.py",
-        ROOT / "scripts/torch_flash_mutation_check.py",
-        ROOT / "scripts/torch_flash_ab.py"]
+        *sorted((ROOT / "scripts").glob("torch_*.py"))]
 
 
 def _forbidden(module: str) -> bool:

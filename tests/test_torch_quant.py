@@ -29,6 +29,7 @@ from dist_mnist_tpu_torch.ops.kernels.quant_matmul import (
     quant_matmul,
     quant_matmul_cost,
     quant_matmul_reference,
+    route_tile,
     split_k_plan,
     vec_loads,
 )
@@ -161,13 +162,13 @@ def test_wrapper_rejects_bad_inputs(case):
         quant_matmul(x, q, s)
 
 
-@pytest.mark.parametrize("dtype,rows_per_block", [(torch.float32, 32),
+@pytest.mark.parametrize("dtype,rows_per_block", [(torch.float32, 16),
                                                   (torch.bfloat16, 64)])
 def test_wrapper_grid_check_follows_each_routes_tiling(dtype,
                                                        rows_per_block):
     """The rows axis is the grid's y axis (at most 65535 blocks), and the
-    bf16 kernel's blocks take 64 rows where the f32 kernel's take 32: the
-    last M that fits passes, the next one raises."""
+    bf16 kernel's blocks take 64 rows where the f32 kernel's take at most
+    16: the last M that fits passes, the next one raises."""
     q = torch.ones(1, 1, dtype=torch.int8)
     s = torch.ones(1)
     top = 65535 * rows_per_block
@@ -177,29 +178,51 @@ def test_wrapper_grid_check_follows_each_routes_tiling(dtype,
         quant_matmul(torch.ones(top + 1, 1, dtype=dtype), q, s)
 
 
-@pytest.mark.parametrize("m", [1, 7, 16, 17, 64, 65, 200, 4096])
-def test_split_k_plan_covers_k_exactly(m):
-    """Over a grid of shapes the plan is a function of (m, k, h) alone:
-    its splits cover every K chunk, none is empty, at most `MAX_SPLITS`;
-    tiles x splits never pass `TARGET_BLOCKS` by more than one split's
-    worth of tiles."""
-    for k in (0, 1, 63, 64, 65, 100, 512, 1000, 1001, 3136, 100_000):
-        for h in (1, 10, 32, 33, 100, 512, 4096):
-            tiles, splits, per = split_k_plan(m, k, h)
-            assert (tiles, splits, per) == split_k_plan(m, k, h)
-            assert tiles == -(-h // tqmm.TC_BN) * -(-m // 64)
-            chunks = max(1, -(-k // tqmm.TC_BK))
-            assert 1 <= splits <= min(tqmm.MAX_SPLITS, chunks)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m", [1, 2, 7, 16, 17, 64, 65, 200, 4096])
+def test_split_k_plan_covers_k_exactly(m, dtype):
+    """Over a grid of shapes, the MLP's among them, each route's plan is a
+    function of (m, k, h) alone: its splits cover every K chunk of its
+    tile, none is empty, at most its tile's most splits; tiles x splits
+    never pass the tile's blocks by more than one split's worth of tiles.
+    The f32 tile's rows are m's power of two, at most 16."""
+    tile = route_tile(dtype, m)
+    if dtype == torch.float32:
+        assert tile.rows == min(16, 1 << (m - 1).bit_length()) >= min(m, 16)
+    for k in (0, 1, 63, 64, 65, 100, 512, 784, 1000, 1001, 3136, 100_000):
+        for h in (1, 10, 32, 33, 40, 100, 512, 4096):
+            tiles, splits, per = split_k_plan(m, k, h, tile)
+            assert (tiles, splits, per) == split_k_plan(m, k, h, tile)
+            assert tiles == -(-h // tile.cols) * -(-m // tile.rows)
+            chunks = max(1, -(-k // tile.chunk))
+            assert 1 <= splits <= min(tile.max_splits, chunks)
             assert splits * per >= chunks > (splits - 1) * per
-            assert (splits - 1) * tiles < max(tqmm.TARGET_BLOCKS, tiles)
+            assert (splits - 1) * tiles < max(tile.blocks, tiles)
 
 
-def test_split_k_plan_fills_the_card_at_serve_batch():
-    """LeNet-5's fc1 at M <= 64: 16 tiles of 32 channels, split 9 ways
-    over K = 3136 (49 chunks, 6 a split): 144 blocks for 132 SMs."""
-    for m in (1, 7, 16, 17, 64):
-        assert split_k_plan(m, 3136, 512) == (16, 9, 6)
-    assert split_k_plan(64, 512, 10) == (1, 8, 1)  # fc2
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_split_k_plan_fills_the_card_at_serve_batch(dtype):
+    """bf16, LeNet-5's fc1 at M <= 64: 16 tiles of 32 channels, split 9
+    ways over K = 3136 (49 chunks, 6 a split): 144 blocks for 132 SMs.
+    f32 (two blocks per SM), the MLP's hidden layer [M, 784] x [784, 100]:
+    at M = 1 4 tiles of one row, every one of the 25 chunks of 32 its own
+    split (100 blocks); at M = 64 16 tiles of 16 rows x 13 splits (208
+    blocks); the output layer (K = 100) has 4 chunks to split."""
+    def plan(m, k, h):
+        return split_k_plan(m, k, h, route_tile(dtype, m))
+
+    if dtype == torch.bfloat16:
+        for m in (1, 7, 16, 17, 64):
+            assert plan(m, 3136, 512) == (16, 9, 6)
+        assert plan(64, 512, 10) == (1, 8, 1)  # fc2
+        return
+    assert plan(1, 784, 100) == (4, 25, 1)
+    assert plan(64, 784, 100) == (16, 13, 2)
+    for m in (1, 2, 7, 16, 17, 64):  # the card's SMs, or every chunk split
+        tiles, splits, _ = plan(m, 784, 100)
+        assert tiles * splits >= min(tqmm.SMS, tiles * 25)
+    assert plan(1, 100, 10) == (1, 4, 1)
+    assert plan(64, 100, 10) == (4, 4, 1)
 
 
 def test_vec_loads_needs_16_byte_rows_and_bases():
@@ -211,6 +234,22 @@ def test_vec_loads_needs_16_byte_rows_and_bases():
                                                                    False)
     flat = torch.zeros(4 * 3136 + 1, dtype=torch.bfloat16)
     assert vec_loads(flat[1:].view(4, 3136), q) == (False, True)
+
+
+def test_vec_loads_f32_route_takes_4_byte_weight_rows():
+    """The f32 route loads x by 16 bytes and q by 4 (one char4 of four
+    channels): the MLP's hidden layer (rows of 100 bytes) takes vector
+    loads, its output layer (10 bytes) and a K that is not a multiple of 4
+    plain ones."""
+    assert vec_loads(torch.zeros(4, 784), torch.zeros(
+        784, 100, dtype=torch.int8)) == (True, True)
+    assert vec_loads(torch.zeros(4, 100), torch.zeros(
+        100, 10, dtype=torch.int8)) == (True, False)
+    assert vec_loads(torch.zeros(4, 1001), torch.zeros(
+        1001, 40, dtype=torch.int8)) == (False, True)
+    flat = torch.zeros(4 * 784 + 1)
+    assert vec_loads(flat[1:].view(4, 784), torch.zeros(
+        784, 100, dtype=torch.int8)) == (False, True)
 
 
 def test_q_dot_rejects_stacked_quantized_leaf():
