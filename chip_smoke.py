@@ -22,7 +22,9 @@ script. Phases (any failure exits nonzero before the final `ok` line):
    (bf16 fc1, M in {7, 64, 200}; f32 MLP hid, M in {1, 7, 64, 200}); both
    fused-Adam kernels at LeNet-5's
    8 leaf sizes and n in {1, 7, 129}, m' and v' within 1e-6 and delta
-   within 1e-5 of the largest value (clip scale 0.37, weight decay on);
+   within 1e-5 of the largest value (clip scale 0.37, weight decay on),
+   and each over LeNet-5's 8 leaves in one launch, every leaf's outputs
+   the plain version's bits;
    `paged_attention` (phase `paged_parity`: 9 rows, 8 heads of 16, pages
    of 32, table widths 1 to 128, lengths 1 to 4096) and
    `masked_flash_attention` (`masked_parity`: Sq 1 against Sk 64 and 4096,
@@ -33,18 +35,18 @@ script. Phases (any failure exits nonzero before the final `ok` line):
    and f32, at S = 17 and 300 with block_k = 128, the bf16 tensor-core
    forward and backward at S in {1, 17, 65, 128, 129, 300} with and
    without block_k = 128, at D in {16, 40, 128} and on views that are not
-   16-byte aligned (out 1e-2, lse 1e-5, dq/dk/dv 1e-2), the bf16 backward
-   at Sq != Sk, its bits twice and under another stream, and at ViT's
-   shape >= 90% of its dq/dk/dv equal to the plain version's bf16 values
-   (what tells the hi/lo split from P and dS rounded to bf16 once),
-   `flash_attention_lse`'s autograd with a nonzero lse cotangent, and the
-   masked backward with lengths 1 to 65 (dk, dv exactly 0 past each
-   length, key steps and blocks entered counted), within 1e-2 (bf16), 1e-5
-   (f32 forward, lse) and 1e-4 (f32 backward) of the largest value, each
-   line naming the backward's body (`bwd_route`: "mma" or "fma"); and
-   the f32 forward at every case of the bf16 forward (S, block_k, D,
-   unaligned views) and at ViT's shape for B in {1, 7, 64}, out and lse
-   within 1e-5, the f32 backward from its lse within 1e-4;
+   16-byte aligned (out 1e-2, lse 1e-5, dq/dk/dv 1e-2), the backward at
+   Sq != Sk, its bits twice and under another stream, the bf16 one at
+   ViT's shape >= 90% of its dq/dk/dv equal to the plain version's bf16
+   values (what tells the hi/lo split from P and dS rounded to bf16
+   once), `flash_attention_lse`'s autograd with a nonzero lse cotangent,
+   and the masked backward with lengths 1 to 65 (dk, dv exactly 0 past
+   each length, key steps and blocks entered counted), within 1e-2
+   (bf16), 1e-5 (f32 forward, lse) and 1e-4 (f32 backward) of the largest
+   value, each line naming the backward's body (`bwd_route`: "mma" or
+   "fma"); every case in f32 as well as bf16 (the f32 forward at every
+   case of the bf16 forward and at ViT's shape for B in {1, 7, 64}, out
+   and lse within 1e-5, the f32 backward within 1e-4);
 4. serve `lenet5_mnist --quant=int8` (seeded fresh init) on the card
    through the serving CLI's entry point (`cli/serve.py main`: server +
    closed-loop loadgen, 512 requests), with every launch counter set to 0
@@ -65,15 +67,16 @@ script. Phases (any failure exits nonzero before the final `ok` line):
    twin resident on the card) with `optim.adam(1e-3, fused=True)`, 1,000
    steps when the race ends after its first round, with every launch
    counter set to 0 just before and read just after: `fused_adam_update`
-   must launch 8 times per step (one per leaf), the loss must be finite
+   must launch once per step (over all 8 leaves), the loss must be finite
    and fall, and test accuracy reach 0.97;
 6. trajectories: from one initial state and generator seed (so the same
    batches and dropout masks), 100 steps with plain `optim.adam(1e-3)`
    against `adam(1e-3, fused=True)`, and with
    `chain(clip_by_global_norm(0.5), adamw(1e-3, weight_decay=0.01))`
    against `fused_adamw(1e-3, weight_decay=0.01, clip_norm=0.5)` (whose
-   `fused_adam_clip_wd_update` launches are counted over its run): the
-   final losses within 1% and the test accuracies within 0.5 points;
+   `fused_adam_clip_wd_update` launches are counted over its run, once
+   per step): the final losses within 1% and the test accuracies within
+   0.5 points;
 7. one training step's host wall and its device time by kernel from
    `torch.profiler`, and the device's idle share;
 8. decode serving: the port's `bench --serve --decode` entry point (64
@@ -106,7 +109,8 @@ script. Phases (any failure exits nonzero before the final `ok` line):
    `paged_attention` a composite of gather, dequantize and
    `F.scaled_dot_product_attention`; for the flash kernels
    `F.scaled_dot_product_attention`, forward, and forward + backward
-   through autograd; the flash kernels' f32 route too), each as a CUDA
+   through autograd; the flash kernels' f32 route too, its masked
+   backward beside SDPA f32 with the prefix mask), each as a CUDA
    graph of back-to-back calls timed with CUDA events, and compute its
    bound: max(bytes / memory rate, FLOPs / peak rate for the operands'
    type) for the card, and for the flash rows the same bound for the
@@ -205,12 +209,18 @@ LENET_LEAVES = {"conv1/b": 32, "conv1/w": 800, "conv2/b": 64,
 def adam_parity(torch, dev) -> dict:
     """Both fused-Adam kernels against their plain versions on the same
     card inputs, at LeNet-5's leaf sizes and at n = 1, 7, 129 (tails after
-    the float4 loop). Fails unless m' and v' are within 1e-6 and delta
-    within 1e-5 of the largest value. Returns the worst errors by kernel."""
+    the float4 loop), one leaf a launch; then each kernel over LeNet-5's 8
+    leaves in one launch (the ``*_leaves`` functions, as the optimizers
+    call them). Fails unless m' and v' are within 1e-6 and delta within
+    1e-5 of the largest value, and unless every leaf's delta, m' and v'
+    from the one launch are the plain version's bits. Returns the worst
+    errors by kernel."""
     from dist_mnist_tpu_torch.ops.kernels.fused_adam import (
         fused_adam_clip_wd_update,
+        fused_adam_clip_wd_update_leaves,
         fused_adam_clip_wd_update_reference,
         fused_adam_update,
+        fused_adam_update_leaves,
         fused_adam_update_reference,
     )
 
@@ -247,6 +257,35 @@ def adam_parity(torch, dev) -> dict:
             w = worst.setdefault(name, {"abs": 0.0, "rel": 0.0})
             w["abs"] = max(w["abs"], *(e[0] for e in errs.values()))
             w["rel"] = max(w["rel"], *(e[1] for e in errs.values()))
+
+    # every LeNet-5 leaf in one launch: each leaf's outputs the plain bits
+    leaves = [[(s * torch.randn(n, generator=gen)).abs() if i == 2 else
+               s * torch.randn(n, generator=gen)
+               for n in LENET_LEAVES.values()]
+              for i, s in enumerate((1.0, 0.1, 0.01, 1.0))]
+    g, m, v, p = ([t.to(dev) for t in ts] for ts in leaves)
+    for name, fn, ref, args, counter in (
+            ("fused_adam_update", fused_adam_update_leaves,
+             fused_adam_update_reference, (g, m, v, lr_t), fused_adam_update),
+            ("fused_adam_clip_wd_update", fused_adam_clip_wd_update_leaves,
+             fused_adam_clip_wd_update_reference, (g, m, v, p, scalars),
+             fused_adam_clip_wd_update)):
+        before = counter.launches
+        got = fn(*args)
+        launches = counter.launches - before
+        torch.cuda.synchronize()
+        bitwise = {}
+        for i, label in enumerate(LENET_LEAVES):
+            want = ref(*(a[i] if isinstance(a, list) else a for a in args))
+            bitwise[label] = all(torch.equal(got[j][i], want[j])
+                                 for j in range(3))
+        print(json.dumps({"phase": "adam_parity", "kernel": name,
+                          "leaf": "LeNet-5's 8 leaves, one launch",
+                          "launches": launches, "bitwise_by_leaf": bitwise}),
+              flush=True)
+        if launches != 1 or not all(bitwise.values()):
+            fail(f"{name} over 8 leaves: {launches} launches, bitwise "
+                 f"{bitwise}")
     return worst
 
 
@@ -277,8 +316,10 @@ def trajectory(torch, dev, dataset, dd, optimizer, steps: int = 100):
 
 
 def time_adam(torch, dev, state, bw: float, f32_peak: float) -> dict:
-    """Both Adam kernels over one update of LeNet-5's 8 leaves ("step") and
-    of fc1/w alone, beside their plain versions and the nearest torch call
+    """Both Adam kernels over one update of LeNet-5's 8 leaves ("step": one
+    launch of the ``*_leaves`` function, as the optimizers make it) and of
+    fc1/w alone (the one-leaf function), beside their plain versions (leaf
+    by leaf) and the nearest torch call
     (`torch._fused_adam_` / `_fused_adamw_`: eps inside the bias
     correction, params updated in place — a yardstick, not the same
     function), each timed by `graph_ms`; and the bound from the bytes and
@@ -293,10 +334,13 @@ def time_adam(torch, dev, state, bw: float, f32_peak: float) -> dict:
     import itertools
 
     from dist_mnist_tpu_torch.ops.kernels.fused_adam import (
+        adam_leaf_plan,
         fused_adam_clip_wd_update,
+        fused_adam_clip_wd_update_leaves,
         fused_adam_clip_wd_update_reference,
         fused_adam_cost,
         fused_adam_update,
+        fused_adam_update_leaves,
         fused_adam_update_reference,
     )
     from dist_mnist_tpu_torch.utils.tree import flatten_with_path
@@ -316,6 +360,8 @@ def time_adam(torch, dev, state, bw: float, f32_peak: float) -> dict:
     for name, clip_wd in (("fused_adam_update", False),
                           ("fused_adam_clip_wd_update", True)):
         fn = fused_adam_clip_wd_update if clip_wd else fused_adam_update
+        leaves_fn = (fused_adam_clip_wd_update_leaves if clip_wd
+                     else fused_adam_update_leaves)
         ref = (fused_adam_clip_wd_update_reference if clip_wd
                else fused_adam_update_reference)
         yard = torch._fused_adamw_ if clip_wd else torch._fused_adam_
@@ -335,6 +381,13 @@ def time_adam(torch, dev, state, bw: float, f32_peak: float) -> dict:
             def run(f):
                 return lambda s: [f(g, m, v, *extra(p)) for g, m, v, p in s]
 
+            def run_leaves(s):
+                g, m, v, p = (list(x) for x in zip(*s))
+                return leaves_fn(g, m, v, *((p, scalars) if clip_wd
+                                            else (lr_t,)))
+
+            kernel = run_leaves if label == "step" else run(fn)
+
             def run_yard(s):
                 g, m, v, p = (list(x) for x in zip(*s))
                 yard(p, g, m, v, [], steps, lr=1e-3, beta1=0.9, beta2=0.999,
@@ -342,9 +395,9 @@ def time_adam(torch, dev, state, bw: float, f32_peak: float) -> dict:
                      amsgrad=False, maximize=False)
 
             row = {
-                "kernel_ms": graph_ms(torch, cycling(run(fn))),
+                "kernel_ms": graph_ms(torch, cycling(kernel)),
                 "kernel_ms_l2_warm": graph_ms(
-                    torch, lambda: run(fn)(sets[0])),
+                    torch, lambda: kernel(sets[0])),
                 "plain_ms": graph_ms(torch, cycling(run(ref))),
                 "yardstick": f"torch.{yard.__name__}",
                 "yardstick_ms": graph_ms(torch, cycling(run_yard)),
@@ -357,8 +410,10 @@ def time_adam(torch, dev, state, bw: float, f32_peak: float) -> dict:
                        bound_by="bytes" if t_bytes >= t_ops else "operations",
                        hbm_bytes=cost["hbm_bytes"])
             out[(name, label)] = row
+            launches = len(adam_leaf_plan([params[i].numel()
+                                           for i in idxs]).tables)
             print(json.dumps({"phase": "time", "kernel": name,
-                              "shape": label, "launches_per_call": len(idxs),
+                              "shape": label, "launches_per_call": launches,
                               **row}), flush=True)
     return out
 
@@ -920,7 +975,8 @@ def grad_errs(grads, want) -> list[tuple[float, float]]:
 
 def bwd_route(torch, dtype) -> str:
     """The backward body a dtype takes: bf16 the tensor-core kernels
-    (`flash_dq_mma`, `flash_dkv_mma`), f32 the FMA kernels."""
+    (`flash_dq_mma`, `flash_dkv_mma`), f32 the register-tiled FMA kernels
+    on the CUDA cores (`flash_dq_f32`, `flash_dkv_f32`)."""
     return "mma" if dtype == torch.bfloat16 else "fma"
 
 
@@ -1119,14 +1175,17 @@ def flash_parity(torch, dev) -> dict:
                 worst["flash_attention_backward"],
                 *(errs[g][0] for g in ("dq", "dk", "dv")))
 
-    # Sq != Sk (the masked decode shapes): the bf16 backward kernels, through
-    # their launches unmasked and through the masked backward with lengths
-    bwd_tol = FLASH_TOL["bfloat16"][1]
-    for i, (sq, sk, masked) in enumerate(((7, 200, False), (130, 65, False),
-                                          (1, 300, True), (70, 33, True))):
-        gen = torch.Generator().manual_seed(300 + i)
+    # Sq != Sk (the masked decode shapes): both routes' backward kernels,
+    # through their launches unmasked and through the masked backward with
+    # lengths
+    sq_sk = ((7, 200, False), (130, 65, False), (1, 300, True), (70, 33, True))
+    for i, (dtype, (sq, sk, masked)) in enumerate(
+            (dt, c) for dt in (torch.bfloat16, torch.float32) for c in sq_sk):
+        name = str(dtype).removeprefix("torch.")
+        bwd_tol = FLASH_TOL[name][1]
+        gen = torch.Generator().manual_seed(300 + i % len(sq_sk))
         q, k, v, do = (torch.randn(3, n, 2, 64, generator=gen).to(
-            dev, torch.bfloat16) for n in (sq, sk, sk, sq))
+            dev, dtype) for n in (sq, sk, sk, sq))
         lengths = (torch.tensor([1, sk // 2, sk], dtype=torch.int32,
                                 device=dev) if masked else None)
         if masked:
@@ -1143,53 +1202,56 @@ def flash_parity(torch, dev) -> dict:
                                                      lengths)
         torch.cuda.synchronize()
         errs = grad_errs(grads, want)
-        print(json.dumps({"phase": "flash_parity", "case": "bf16 backward, "
-                          "Sq != Sk", "sq": sq, "sk": sk, "masked": masked,
-                          "bwd_route": "mma",
+        print(json.dumps({"phase": "flash_parity", "case": f"{name} backward,"
+                          " Sq != Sk", "sq": sq, "sk": sk, "masked": masked,
+                          "bwd_route": bwd_route(torch, dtype),
                           "grad_max_abs_err": max(e[0] for e in errs),
                           "grad_max_rel_err": max(e[1] for e in errs),
                           "tol": bwd_tol}), flush=True)
         if max(e[1] for e in errs) > bwd_tol:
-            fail(f"bf16 flash backward Sq={sq} Sk={sk} masked={masked}: "
+            fail(f"{name} flash backward Sq={sq} Sk={sk} masked={masked}: "
                  f"{errs}")
         worst["flash_attention_backward"] = max(
             worst["flash_attention_backward"], *(e[0] for e in errs))
 
-    # no atomics: the bf16 backward's bits at ViT's shape, twice and under
+    # no atomics: both routes' backward bits at ViT's shape, twice and under
     # another stream, unmasked (strided views) and masked (lengths 2..65)
-    q, k, v = _fused_qkv(torch, VIT_B, VIT_S, VIT_H, VIT_D, torch.bfloat16,
-                         dev, seed=90)
-    do = torch.randn(VIT_B, VIT_S, VIT_H, VIT_D, generator=torch.Generator()
-                     .manual_seed(91)).to(dev, torch.bfloat16)
-    out, lse = fa.flash_attention_forward(q, k, v)
-    delta = fa.attention_delta(out, do)
-    qc, kc, vc = (t.contiguous() for t in (q, k, v))
-    lengths = torch.arange(2, VIT_B + 2, dtype=torch.int32, device=dev)
-    m_out, m_lse = masked_flash_attention_forward(qc, kc, vc, lengths)
-    m_delta = fa.attention_delta(m_out, do)
-    runs = {
-        "unmasked": lambda: (fa.flash_attention_dq(q, k, v, do, lse, delta),
-                             *fa.flash_attention_dkv(q, k, v, do, lse,
-                                                     delta)),
-        "masked": lambda: masked_flash_attention_backward(
-            qc, kc, vc, lengths, do, m_lse, m_delta)}
-    for label, run in runs.items():
-        first, again = run(), run()
-        stream = torch.cuda.Stream()
-        stream.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(stream):
-            other = run()
-        torch.cuda.current_stream().wait_stream(stream)
-        torch.cuda.synchronize()
-        same = all(torch.equal(a, b2) and torch.equal(a, c)
-                   for a, b2, c in zip(first, again, other))
-        print(json.dumps({"phase": "flash_parity", "case": "bf16 backward, "
-                          "bitwise repeat", "input": label, "bwd_route": "mma",
-                          "same_bits_twice_and_on_another_stream": same}),
-              flush=True)
-        if not same:
-            fail(f"bf16 flash backward ({label}): dq/dk/dv bits differ "
-                 "between repeats or streams")
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).removeprefix("torch.")
+        q, k, v = _fused_qkv(torch, VIT_B, VIT_S, VIT_H, VIT_D, dtype, dev,
+                             seed=90)
+        do = torch.randn(VIT_B, VIT_S, VIT_H, VIT_D, generator=torch
+                         .Generator().manual_seed(91)).to(dev, dtype)
+        out, lse = fa.flash_attention_forward(q, k, v)
+        delta = fa.attention_delta(out, do)
+        qc, kc, vc = (t.contiguous() for t in (q, k, v))
+        lengths = torch.arange(2, VIT_B + 2, dtype=torch.int32, device=dev)
+        m_out, m_lse = masked_flash_attention_forward(qc, kc, vc, lengths)
+        m_delta = fa.attention_delta(m_out, do)
+        runs = {
+            "unmasked": lambda: (
+                fa.flash_attention_dq(q, k, v, do, lse, delta),
+                *fa.flash_attention_dkv(q, k, v, do, lse, delta)),
+            "masked": lambda: masked_flash_attention_backward(
+                qc, kc, vc, lengths, do, m_lse, m_delta)}
+        for label, run in runs.items():
+            first, again = run(), run()
+            stream = torch.cuda.Stream()
+            stream.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(stream):
+                other = run()
+            torch.cuda.current_stream().wait_stream(stream)
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b2) and torch.equal(a, c)
+                       for a, b2, c in zip(first, again, other))
+            print(json.dumps({"phase": "flash_parity", "case": f"{name} "
+                              "backward, bitwise repeat", "input": label,
+                              "bwd_route": bwd_route(torch, dtype),
+                              "same_bits_twice_and_on_another_stream": same}),
+                  flush=True)
+            if not same:
+                fail(f"{name} flash backward ({label}): dq/dk/dv bits differ "
+                     "between repeats or streams")
     flash_split_share(torch, dev)
 
     # flash_attention_lse's autograd Function: both cotangents
@@ -1216,38 +1278,43 @@ def flash_parity(torch, dev) -> dict:
     if max(e[1] for e in errs) > FLASH_TOL["float32"][1]:
         fail(f"flash_attention_lse backward with dlse: {errs}")
 
-    # the masked backward: lengths 1 .. 65, one per row
+    # the masked backward in both routes: lengths 1 .. 65, one per row
     b = VIT_S
-    q, k, v = (t.contiguous() for t in _fused_qkv(
-        torch, b, VIT_S, VIT_H, VIT_D, torch.bfloat16, dev, seed=70))
     lens = np.arange(1, b + 1, dtype=np.int32)
     lengths = torch.from_numpy(lens).to(dev)
-    do = torch.randn(b, VIT_S, VIT_H, VIT_D, generator=torch.Generator()
-                     .manual_seed(71)).to(dev, torch.bfloat16)
-    dq, dk, dv, dq_vis, dkv_vis = masked_flash_attention_backward_probe(
-        q, k, v, lengths, do)
-    out, lse = masked_flash_attention_forward(q, k, v, lengths)
-    want = fa.flash_attention_backward_reference(
-        q, k, v, do, lse, fa.attention_delta(out, do), lengths)
-    torch.cuda.synchronize()
-    zeros_ok = all(int(torch.count_nonzero(g[r, n:])) == 0
-                   for g in (dk, dv) for r, n in enumerate(lens))
-    vis_ok = (torch.equal(dq_vis.cpu(), torch.from_numpy(
-        -(-lens // fa.TILE)).float()[:, None, None].expand(b, VIT_H, VIT_S))
-        and torch.equal(dkv_vis.cpu(), torch.from_numpy(
-            -(-lens // fa.KEY_BLOCK)).float()[:, None].expand(b, VIT_H)))
-    errs = [rel_err(a, w) for a, w in zip((dq, dk, dv), want)]
-    print(json.dumps({"phase": "flash_parity", "case": "masked backward, "
-                      "lengths 1..65", "b": b, "dtype": "bfloat16",
-                      "bwd_route": "mma",
-                      "grad_max_abs_err": max(e[0] for e in errs),
-                      "grad_max_rel_err": max(e[1] for e in errs),
-                      "zeros_past_length": zeros_ok, "visits_ok": vis_ok}),
-          flush=True)
-    if not (zeros_ok and vis_ok) or max(e[1] for e in errs) > \
-            FLASH_TOL["bfloat16"][1]:
-        fail(f"masked backward: zeros {zeros_ok}, visits {vis_ok}, {errs}")
-    worst["masked_flash_attention_backward"] = max(e[0] for e in errs)
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).removeprefix("torch.")
+        q, k, v = (t.contiguous() for t in _fused_qkv(
+            torch, b, VIT_S, VIT_H, VIT_D, dtype, dev, seed=70))
+        do = torch.randn(b, VIT_S, VIT_H, VIT_D, generator=torch.Generator()
+                         .manual_seed(71)).to(dev, dtype)
+        dq, dk, dv, dq_vis, dkv_vis = masked_flash_attention_backward_probe(
+            q, k, v, lengths, do)
+        out, lse = masked_flash_attention_forward(q, k, v, lengths)
+        want = fa.flash_attention_backward_reference(
+            q, k, v, do, lse, fa.attention_delta(out, do), lengths)
+        torch.cuda.synchronize()
+        zeros_ok = all(int(torch.count_nonzero(g[r, n:])) == 0
+                       for g in (dk, dv) for r, n in enumerate(lens))
+        vis_ok = (torch.equal(dq_vis.cpu(), torch.from_numpy(
+            -(-lens // fa.TILE)).float()[:, None, None].expand(
+                b, VIT_H, VIT_S))
+            and torch.equal(dkv_vis.cpu(), torch.from_numpy(
+                -(-lens // fa.KEY_BLOCK)).float()[:, None].expand(b, VIT_H)))
+        errs = [rel_err(a, w) for a, w in zip((dq, dk, dv), want)]
+        print(json.dumps({"phase": "flash_parity", "case": "masked backward, "
+                          "lengths 1..65", "b": b, "dtype": name,
+                          "bwd_route": bwd_route(torch, dtype),
+                          "grad_max_abs_err": max(e[0] for e in errs),
+                          "grad_max_rel_err": max(e[1] for e in errs),
+                          "zeros_past_length": zeros_ok, "visits_ok": vis_ok}),
+              flush=True)
+        if not (zeros_ok and vis_ok) or max(e[1] for e in errs) > \
+                FLASH_TOL[name][1]:
+            fail(f"{name} masked backward: zeros {zeros_ok}, visits "
+                 f"{vis_ok}, {errs}")
+        worst["masked_flash_attention_backward"] = max(
+            worst["masked_flash_attention_backward"], *(e[0] for e in errs))
     return worst
 
 
@@ -1422,8 +1489,10 @@ FLASH_BODIES = {
                                        "lengths (bf16)",
     "flash_attention_forward_f32": "flash_fwd_f32 (f32, CUDA cores, "
                                    "register-tiled QK^T and PV)",
-    "flash_attention_backward_f32": "flash_dq_kernel + flash_dkv_kernel "
-                                    "(f32 FMA)",
+    "flash_attention_backward_f32": "flash_dq_f32 + flash_dkv_f32 (f32, "
+                                    "CUDA cores, register-tiled)",
+    "masked_flash_attention_backward_f32": "flash_dq_f32 + flash_dkv_f32 "
+                                           "with lengths (f32)",
 }
 
 
@@ -1443,9 +1512,10 @@ def time_flash_kernels(torch, dev, bw: float, peaks: dict) -> dict:
     same bound for the products the kernels themselves run
     (`backward_design_flops`: for bf16, QK^T and dO V^T in each of the dQ
     and dK/dV kernels, and the three f32-operand products twice each as
-    bf16 hi and lo halves, all at the bf16 peak). The f32 route's forward
-    and backward (the FMA kernels) are timed at the same shape in f32
-    beside their plain versions and SDPA in f32."""
+    bf16 hi and lo halves, all at the bf16 peak). The f32 route's forward,
+    backward and masked backward (the register-tiled CUDA-core kernels)
+    are timed at the same shape in f32 beside their plain versions and
+    SDPA in f32 (with the prefix mask for the masked row)."""
     import torch.nn.functional as F
 
     from dist_mnist_tpu_torch.ops.kernels import flash_attention as fa
@@ -1523,11 +1593,14 @@ def time_flash_kernels(torch, dev, bw: float, peaks: dict) -> dict:
     mask = (torch.arange(s, device=dev)[None, :]
             < lens[:, None])[:, None, None, :]
     keys = float(lens.sum())  # the keys the rows attend, all told
-    el = 2  # bf16
-    # q and dO, the K and V rows before each length, lse, delta and the
-    # lengths in; dq, dk and dv (zeros past the lengths) out
-    m_bytes = (2 * b * s * h * d * el + 2 * keys * h * d * el
-               + 2 * b * h * s * 4 + 4 * b + 3 * b * s * h * d * el)
+
+    def masked_bytes(el):
+        # q and dO, the K and V rows before each length, lse, delta and the
+        # lengths in; dq, dk and dv (zeros past the lengths) out
+        return (2 * b * s * h * d * el + 2 * keys * h * d * el
+                + 2 * b * h * s * 4 + 4 * b + 3 * b * s * h * d * el)
+
+    m_bytes = masked_bytes(2)  # bf16
     m_flops = fa.attention_flops_by_type(s * h * d * keys, torch.bfloat16,
                                          2, 3)
     m_lib = graph_ms(torch, lambda: sdpa_fwd_bwd(mask), calls=20)
@@ -1548,7 +1621,7 @@ def time_flash_kernels(torch, dev, bw: float, peaks: dict) -> dict:
         **bound(m_bytes, m_flops, fa.backward_design_flops(
             s * h * d * keys, torch.bfloat16))}
 
-    # the f32 route (flash_fwd_f32, flash_dq_kernel + flash_dkv_kernel)
+    # the f32 route (flash_fwd_f32, flash_dq_f32 + flash_dkv_f32)
     q32, k32, v32 = _fused_qkv(torch, b, s, h, d, torch.float32, dev,
                                seed=80)
     do32 = do.float()
@@ -1584,6 +1657,29 @@ def time_flash_kernels(torch, dev, bw: float, peaks: dict) -> dict:
         "library_ms": lib32_fwd_bwd - lib32_fwd,
         **bound(cost32["bwd_bytes"], cost32["bwd_flops"],
                 cost32["bwd_split_flops"])}
+    # the f32 masked backward at the same lengths, beside SDPA f32 with the
+    # prefix mask
+    qc32, kc32, vc32 = (t.contiguous() for t in (q32, k32, v32))
+    m_out32, m_lse32 = masked_flash_attention_forward(qc32, kc32, vc32, lens)
+    m_delta32 = fa.attention_delta(m_out32, do32)
+    m32_lib = graph_ms(torch, lambda: sdpa_fwd_bwd(mask, ops32), calls=20)
+    with torch.no_grad():
+        m32_lib_fwd = graph_ms(torch, lambda: F.scaled_dot_product_attention(
+            *ops32[:3], attn_mask=mask))
+    rows["masked_flash_attention_backward_f32"] = {
+        "kernel_ms": graph_ms(torch, lambda: masked_flash_attention_backward(
+            qc32, kc32, vc32, lens, do32, m_lse32, m_delta32)),
+        "plain_ms": graph_ms(
+            torch, lambda: fa.flash_attention_backward_reference(
+                qc32, kc32, vc32, do32, m_lse32, m_delta32, lens)),
+        "library": "F.scaled_dot_product_attention(attn_mask=prefix) forward "
+                   "+ backward through autograd, minus its forward, f32",
+        "library_fwd_bwd_ms": m32_lib,
+        "library_ms": m32_lib - m32_lib_fwd,
+        "lengths": "2..65",
+        **bound(masked_bytes(4), fa.attention_flops_by_type(
+            s * h * d * keys, torch.float32, 2, 3), fa.backward_design_flops(
+                s * h * d * keys, torch.float32))}
     for name, row in rows.items():
         print(json.dumps({"phase": "time", "kernel": name, "b": b, "s": s,
                           "h": h, "d": d, "dtype": "float32"
@@ -1608,6 +1704,7 @@ def main() -> None:
     from dist_mnist_tpu_torch.ops import quant as quant_mod
     from dist_mnist_tpu_torch.ops.kernels import build
     from dist_mnist_tpu_torch.ops.kernels.fused_adam import (
+        adam_leaf_plan,
         fused_adam_clip_wd_update,
         fused_adam_update,
     )
@@ -1764,6 +1861,8 @@ def main() -> None:
     mlp = mlp_serve(torch, dev, reset_counts, read_counts)
 
     # -- 5. the training path, through the port's headline bench ------------
+    # one launch per step over every LeNet-5 leaf (a table holds them all)
+    adam_per_step = len(adam_leaf_plan(list(LENET_LEAVES.values())).tables)
     dataset = load_dataset("mnist", seed=0)
     dd = DeviceDataset(dataset, dev)
     reset_counts()
@@ -1791,10 +1890,10 @@ def main() -> None:
         "dataset_bytes_on_card": dd.nbytes()}),
           flush=True)
     print(json.dumps(run.record), flush=True)
-    if train_counts["fused_adam_update"] != 8 * run.steps:
+    if train_counts["fused_adam_update"] != adam_per_step * run.steps:
         fail(f"train: {train_counts['fused_adam_update']} fused_adam_update "
-             f"launches for {run.steps} steps (want 8 per step, one per "
-             "LeNet-5 leaf)")
+             f"launches for {run.steps} steps (want {adam_per_step} per step, "
+             "one over all of LeNet-5's leaves)")
     if not (np.isfinite(run.final_loss) and run.final_loss < run.first_loss):
         fail(f"train: loss {run.first_loss} -> {run.final_loss}")
     if final_eval["accuracy"] < 0.97:
@@ -1831,7 +1930,7 @@ def main() -> None:
             "final_loss_kernel": float(fused_losses[-1]),
             "test_acc_plain": plain_acc, "test_acc_kernel": fused_acc}),
               flush=True)
-        if counts[counter.__name__] != 8 * len(fused_losses):
+        if counts[counter.__name__] != adam_per_step * len(fused_losses):
             fail(f"trajectory {label}: {counts[counter.__name__]} "
                  f"{counter.__name__} launches for {len(fused_losses)} steps")
         if not np.isfinite(fused_losses).all() or loss_gap > 0.01:

@@ -13,8 +13,9 @@ What is ported so far:
   (`ops/kernels/quant_matmul.py`, `csrc/quant_matmul.cu`);
 - single-device training (`train/`, `optim/`, `data/`, and the headline
   benchmark `bench.py`) of those models, with `optim.adam(fused=True)`
-  and `optim.fused_adamw` running each leaf's update as one hand-written
-  CUDA kernel (`ops/kernels/fused_adam.py`, `csrc/fused_adam.cu`);
+  and `optim.fused_adamw` running every leaf's update in one launch of a
+  hand-written CUDA kernel (`ops/kernels/fused_adam.py`,
+  `csrc/fused_adam.cu`);
 - autoregressive decode serving of the causal LM `causal_tiny`
   (`models/causal_lm.py`, `serve/decode.py`, `cli/serve.py --decode`,
   `bench.py --serve --decode`) with dense, paged-float and paged-int8 KV

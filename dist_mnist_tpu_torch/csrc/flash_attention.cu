@@ -6,10 +6,10 @@
 //   flash_fwd_mma_tiled,       `_attn_fwd_kernel_kt`): the first two for bf16, the
 //   flash_fwd_f32              last for f32
 //   flash_dq_mma,           <- `_flash_bwd_impl` (`_attn_dq_kernel`, `_attn_dq_kernel_kt`)
-//   flash_dq_kernel            and `_masked_flash_bwd_impl` (`_masked_attn_dq_kernel`):
+//   flash_dq_f32               and `_masked_flash_bwd_impl` (`_masked_attn_dq_kernel`):
 //                              bf16, f32
 //   flash_dkv_mma,          <- `_flash_bwd_impl` (`_attn_dkv_kernel`, `_attn_dkv_kernel_qt`)
-//   flash_dkv_kernel           and `_masked_flash_bwd_impl` (`_masked_attn_dkv_kernel`):
+//   flash_dkv_f32              and `_masked_flash_bwd_impl` (`_masked_attn_dkv_kernel`):
 //                              bf16, f32
 //
 // What they compute, per (batch row b, head h), with scale = D**-0.5:
@@ -90,18 +90,24 @@
 // rule walks K once more first for each row's max and sum, the streamed one keeps a
 // running max and rescales its sums (online softmax).
 //
-// The f32 backward: CUDA-core FMAs. A block of 4 warps owns ROWS = 16 rows (queries in
-// the dQ kernel, keys in the dK/dV kernel), 4 per warp, and walks the other axis in
-// tiles of TILE = 32 staged in shared memory as f32, one element of the tile per lane:
-// lane j scores its key (or query) against the warp's 4 rows, and the products
-// accumulate D/32 output dimensions per lane from the lanes' values passed round by
-// shuffles. Rows staged with lane-indexed reads are padded by one float, so 32 lanes
-// reading one dimension of 32 rows hit 32 banks. The dQ and dK/dV kernels are kept
-// apart, as on the TPU, so that every output element is written by one thread in a
-// fixed order: no atomics, and the gradients are the same bits on every run. Key tiles
-// past a row's length are never entered; a dK/dV block wholly past the length writes
-// exact zeros. No loop runs past S: keys and queries beyond it are masked where they
-// could enter a softmax and read as zeros elsewhere.
+// The f32 backward (`flash_dq_f32`, `flash_dkv_f32`): CUDA-core FMAs, register-tiled as
+// the f32 forward is, two kernels kept apart as on the TPU so that every output element
+// is written by one thread in a fixed order (no atomics: the same bits on every run and
+// stream). A block owns a group of rows of one (b, h), query rows in dQ and key rows in
+// dK/dV, by the plan `f32_bwd_plan` (the wrapper's `f32_backward_plan`; ViT: 2 groups of
+// 36 rows, 384 blocks of 160 threads a kernel). It stages its rows once (Q and dO, or K
+// and V) and the other axis once when it has at most ONE_PASS_KEYS rows (K and V; Q, dO,
+// lse and delta), else in tiles of F32_KEY_TILE, by 16-byte cp.async where the views are
+// aligned, rows padded by 4 floats and D by zeros to DP. Per tile a thread owns 4 x 4 of
+// S = Q K^T and dP = dO V^T (S^T = K Q^T and dP^T = V dO^T in dK/dV) from float4 reads of
+// shared memory, forms P = exp(s * scale - lse) and dS = P (dP - delta) in registers
+// (exactly 0 at keys >= len) and writes dS (and P^T) to shared memory; then dQ = scale dS
+// K (dV = P^T dO, dK = scale dS^T Q) is register-tiled, 4 rows x 4 dims a thread, the
+// other axis in ascending order. The dQ kernel reads no key past a row's length (its
+// visits: the steps of TILE keys it entered, ceil(len / TILE)); the dK/dV kernel does no
+// work for a 4-key group at or past the length, so a 16-key KEY_BLOCK whose first key is
+// at or past it does none (its visits entry 0, the others 1), and a block wholly past it
+// stages nothing and writes exact zeros.
 //
 // What bounds it. At ViT-Tiny's shape (B = 64, S = 65, H = 3, D = 64, bf16) a call
 // moves a few MB and does 0.2 (forward) to 0.5 (backward) GFLOP. Every product runs
@@ -110,7 +116,8 @@
 // 1.1 us, by the 11.3 MB they move (3.4 us). What is left between them and the
 // kernels is latency: each block loads its head's operands once and a warp does ~80
 // (forward), ~160 (dQ) or ~240 (dK/dV) mma. The f32 route's FMAs on the CUDA cores
-// bound it. No --use_fast_math.
+// bound it (the backward's seven f32 products: 10.9 us at the f32 peak at ViT's shape),
+// and the shared-memory reads that feed them. No --use_fast_math.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -121,22 +128,13 @@
 
 namespace {
 
-constexpr int WARPS = 4;
-constexpr int THREADS = WARPS * 32;
-constexpr int TILE = 32;           // keys (fwd, dQ) or queries (dK/dV) per tile: one per lane
-constexpr int RPW = 4;             // rows a warp owns
-constexpr int ROWS = WARPS * RPW;  // rows a block owns
-constexpr int MAX_D = 128;
-constexpr int DPL = MAX_D / 32;    // output dimensions per lane
+constexpr int TILE = 32;           // keys per step of a dQ kernel: its skip granularity
 constexpr float NEG = -1e30f;      // the reference's mask value
 constexpr unsigned FULL = 0xffffffffu;
 
 struct Layout {  // element strides of a [B, S, H, D] operand (D stride 1)
     long long b, s, h;
 };
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -148,240 +146,6 @@ __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(FULL, x, o);
     return x;
-}
-
-// rows [row0, row0 + n) of (b, h) into dst (row pitch `pitch` floats) as f32;
-// rows at or past `limit` read as zeros
-template <typename T>
-__device__ __forceinline__ void stage(float* dst, int pitch, const T* __restrict__ src, Layout L,
-                                      int b, int h, int row0, int n, int limit, int D) {
-    for (int e = threadIdx.x; e < n * D; e += THREADS) {
-        const int r = e / D;
-        const int d = e - r * D;
-        const int row = row0 + r;
-        dst[r * pitch + d] =
-            row < limit ? to_f32(src[b * L.b + row * L.s + h * L.h + d]) : 0.f;
-    }
-}
-
-// dQ over query tiles of ROWS, keys streamed in tiles of TILE up to the row's length.
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                const T* __restrict__ dout, const float* __restrict__ lse,
-                const float* __restrict__ delta, const int32_t* __restrict__ lengths,
-                T* __restrict__ dq, float* __restrict__ visits, int Sq, int Sk, int H, int D,
-                Layout lq, Layout lkv, float scale) {
-    extern __shared__ float smem[];
-    float* k_s = smem;                   // [TILE][D + 1]
-    float* v_s = k_s + TILE * (D + 1);   // [TILE][D + 1]
-    float* q_s = v_s + TILE * (D + 1);   // [ROWS][D]
-    float* do_s = q_s + ROWS * D;        // [ROWS][D]
-
-    const int b = blockIdx.z;
-    const int h = blockIdx.y;
-    const int warp = threadIdx.x >> 5;
-    const int lane = threadIdx.x & 31;
-    const int row0 = blockIdx.x * ROWS;
-    const Layout ld = {(long long)Sq * H * D, (long long)H * D, D};
-    const float* qw = q_s + warp * RPW * D;
-    const float* dow = do_s + warp * RPW * D;
-    const float* kr = k_s + lane * (D + 1);
-    const float* vr = v_s + lane * (D + 1);
-
-    stage(q_s, D, q, lq, b, h, row0, ROWS, Sq, D);
-    stage(do_s, D, dout, ld, b, h, row0, ROWS, Sq, D);
-    const int len = lengths ? min((int)lengths[b], Sk) : Sk;
-    const int tiles = len > 0 ? (len + TILE - 1) / TILE : 0;
-
-    float lse_r[RPW], delta_r[RPW], acc[RPW][DPL];
-#pragma unroll
-    for (int r = 0; r < RPW; ++r) {
-        const int row = row0 + warp * RPW + r;
-        const size_t at = ((size_t)b * H + h) * Sq + row;
-        lse_r[r] = row < Sq ? lse[at] : 0.f;
-        delta_r[r] = row < Sq ? delta[at] : 0.f;
-#pragma unroll
-        for (int i = 0; i < DPL; ++i) acc[r][i] = 0.f;
-    }
-
-    for (int kt = 0; kt < tiles; ++kt) {
-        stage(k_s, D + 1, k, lkv, b, h, kt * TILE, TILE, Sk, D);
-        stage(v_s, D + 1, v, lkv, b, h, kt * TILE, TILE, Sk, D);
-        __syncthreads();
-        float s[RPW] = {}, dp[RPW] = {};
-        for (int d = 0; d < D; ++d) {
-            const float kd = kr[d];
-            const float vd = vr[d];
-#pragma unroll
-            for (int r = 0; r < RPW; ++r) {
-                s[r] = fmaf(qw[r * D + d], kd, s[r]);
-                dp[r] = fmaf(dow[r * D + d], vd, dp[r]);
-            }
-        }
-        const bool real = kt * TILE + lane < len;
-        float ds[RPW];
-#pragma unroll
-        for (int r = 0; r < RPW; ++r) {
-            const float p = real ? expf(s[r] * scale - lse_r[r]) : 0.f;
-            ds[r] = p * (dp[r] - delta_r[r]);
-        }
-        const int nk = min(TILE, len - kt * TILE);
-        for (int kk = 0; kk < nk; ++kk) {
-            float kv[DPL];
-#pragma unroll
-            for (int i = 0; i < DPL; ++i) {
-                const int d = lane + 32 * i;
-                kv[i] = d < D ? k_s[kk * (D + 1) + d] : 0.f;
-            }
-#pragma unroll
-            for (int r = 0; r < RPW; ++r) {
-                const float dsk = __shfl_sync(FULL, ds[r], kk);
-#pragma unroll
-                for (int i = 0; i < DPL; ++i) acc[r][i] = fmaf(dsk, kv[i], acc[r][i]);
-            }
-        }
-        __syncthreads();
-    }
-
-#pragma unroll
-    for (int r = 0; r < RPW; ++r) {
-        const int row = row0 + warp * RPW + r;
-        if (row >= Sq) continue;
-        T* o = dq + (((size_t)b * Sq + row) * H + h) * D;
-#pragma unroll
-        for (int i = 0; i < DPL; ++i) {
-            const int d = lane + 32 * i;
-            if (d < D) store(o + d, acc[r][i] * scale);
-        }
-        if (visits && lane == 0) visits[((size_t)b * H + h) * Sq + row] = (float)tiles;
-    }
-}
-
-// dK and dV over key blocks of ROWS, queries streamed in tiles of TILE. A block
-// wholly at or past the row's length does no work and writes exact zeros.
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 const T* __restrict__ dout, const float* __restrict__ lse,
-                 const float* __restrict__ delta, const int32_t* __restrict__ lengths,
-                 T* __restrict__ dk, T* __restrict__ dv, float* __restrict__ visits, int Sq,
-                 int Sk, int H, int D, Layout lq, Layout lkv, float scale) {
-    extern __shared__ float smem[];
-    float* q_s = smem;                    // [TILE][D + 1]
-    float* do_s = q_s + TILE * (D + 1);   // [TILE][D + 1]
-    float* k_s = do_s + TILE * (D + 1);   // [ROWS][D]
-    float* v_s = k_s + ROWS * D;          // [ROWS][D]
-    float* lse_s = v_s + ROWS * D;        // [TILE]
-    float* delta_s = lse_s + TILE;        // [TILE]
-
-    const int b = blockIdx.z;
-    const int h = blockIdx.y;
-    const int warp = threadIdx.x >> 5;
-    const int lane = threadIdx.x & 31;
-    const int key0 = blockIdx.x * ROWS;
-    const Layout ld = {(long long)Sq * H * D, (long long)H * D, D};
-    const int len = lengths ? min((int)lengths[b], Sk) : Sk;
-    const bool active = key0 < len;
-
-    if (visits && threadIdx.x == 0)
-        visits[((size_t)b * H + h) * gridDim.x + blockIdx.x] = active ? 1.f : 0.f;
-    if (!active) {
-        for (int e = threadIdx.x; e < ROWS * D; e += THREADS) {
-            const int r = e / D;
-            const int d = e - r * D;
-            const int key = key0 + r;
-            if (key < Sk) {
-                const size_t at = (((size_t)b * Sk + key) * H + h) * D + d;
-                store(dk + at, 0.f);
-                store(dv + at, 0.f);
-            }
-        }
-        return;
-    }
-
-    stage(k_s, D, k, lkv, b, h, key0, ROWS, Sk, D);
-    stage(v_s, D, v, lkv, b, h, key0, ROWS, Sk, D);
-    const float* kw = k_s + warp * RPW * D;
-    const float* vw = v_s + warp * RPW * D;
-    const float* qr = q_s + lane * (D + 1);
-    const float* dr = do_s + lane * (D + 1);
-
-    float acc_k[RPW][DPL], acc_v[RPW][DPL];
-#pragma unroll
-    for (int r = 0; r < RPW; ++r) {
-#pragma unroll
-        for (int i = 0; i < DPL; ++i) {
-            acc_k[r][i] = 0.f;
-            acc_v[r][i] = 0.f;
-        }
-    }
-    const int qtiles = (Sq + TILE - 1) / TILE;
-    for (int qt = 0; qt < qtiles; ++qt) {
-        stage(q_s, D + 1, q, lq, b, h, qt * TILE, TILE, Sq, D);
-        stage(do_s, D + 1, dout, ld, b, h, qt * TILE, TILE, Sq, D);
-        for (int i = threadIdx.x; i < TILE; i += THREADS) {
-            const int row = qt * TILE + i;
-            const size_t at = ((size_t)b * H + h) * Sq + row;
-            lse_s[i] = row < Sq ? lse[at] : 0.f;
-            delta_s[i] = row < Sq ? delta[at] : 0.f;
-        }
-        __syncthreads();  // also publishes k_s / v_s on the first tile
-        float s[RPW] = {}, dp[RPW] = {};
-        for (int d = 0; d < D; ++d) {
-            const float qd = qr[d];
-            const float dd = dr[d];
-#pragma unroll
-            for (int r = 0; r < RPW; ++r) {
-                s[r] = fmaf(qd, kw[r * D + d], s[r]);
-                dp[r] = fmaf(dd, vw[r * D + d], dp[r]);
-            }
-        }
-        const bool q_real = qt * TILE + lane < Sq;
-        float p[RPW], ds[RPW];
-#pragma unroll
-        for (int r = 0; r < RPW; ++r) {
-            const int key = key0 + warp * RPW + r;
-            p[r] = q_real && key < len ? expf(s[r] * scale - lse_s[lane]) : 0.f;
-            ds[r] = p[r] * (dp[r] - delta_s[lane]);
-        }
-        const int nq = min(TILE, Sq - qt * TILE);
-        for (int ii = 0; ii < nq; ++ii) {
-            float qv[DPL], dov[DPL];
-#pragma unroll
-            for (int i = 0; i < DPL; ++i) {
-                const int d = lane + 32 * i;
-                qv[i] = d < D ? q_s[ii * (D + 1) + d] : 0.f;
-                dov[i] = d < D ? do_s[ii * (D + 1) + d] : 0.f;
-            }
-#pragma unroll
-            for (int r = 0; r < RPW; ++r) {
-                const float pi = __shfl_sync(FULL, p[r], ii);
-                const float dsi = __shfl_sync(FULL, ds[r], ii);
-#pragma unroll
-                for (int i = 0; i < DPL; ++i) {
-                    acc_v[r][i] = fmaf(pi, dov[i], acc_v[r][i]);
-                    acc_k[r][i] = fmaf(dsi, qv[i], acc_k[r][i]);
-                }
-            }
-        }
-        __syncthreads();  // the next tile overwrites q_s / do_s
-    }
-
-#pragma unroll
-    for (int r = 0; r < RPW; ++r) {
-        const int key = key0 + warp * RPW + r;
-        if (key >= Sk) continue;
-        const size_t at = (((size_t)b * Sk + key) * H + h) * D;
-#pragma unroll
-        for (int i = 0; i < DPL; ++i) {
-            const int d = lane + 32 * i;
-            if (d < D) {
-                store(dk + at + d, acc_k[r][i] * scale);
-                store(dv + at + d, acc_v[r][i]);
-            }
-        }
-    }
 }
 
 // -- f32 forward on the CUDA cores ----------------------------------------------
@@ -1198,8 +962,290 @@ flash_dkv_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
     store_bf16_rows<DP>(acc_v, dvh, wkey0, Sk, H, D, 1.f);
 }
 
+// -- f32 backward on the CUDA cores ---------------------------------------------
+
+constexpr int F32_KEY_TILE = 64;        // the other axis's tile above ONE_PASS_KEYS
+constexpr int F32_MAX_ROWS = 64;        // rows a block owns, at most
+constexpr int F32_TARGET_BLOCKS = 264;  // two per SM of the H100 SXM: a design constant
+constexpr size_t SMEM_LIMIT = 232448;   // dynamic shared memory a block may take
+
+// the row pitch (in floats) of dS and P^T for a tile of `tile` columns: 4 more than a
+// multiple of 8, so that the rows 4 apart that the two halves of a warp read in the
+// products (4 * pitch floats apart) fall in different banks
+__host__ __device__ __forceinline__ int score_pitch(int tile) {
+    return tile % 8 == 0 ? tile + 4 : tile;
+}
+
+// s[i][j] = sum over DP of a[i * ap + d] * c[j * cs + d]: 4 rows of a against 4 of c
+// (rows padded with zeros past D), from float4 reads of shared memory
+template <int DP>
+__device__ __forceinline__ void dots4x4(float (&s)[4][4], const float* a, int ap,
+                                        const float* c, int cs) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+    }
+#pragma unroll
+    for (int d = 0; d < DP; d += 4) {
+        float4 x[4], y[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            x[i] = ld4(a + i * ap + d);
+            y[i] = ld4(c + i * cs + d);
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+                s[i][j] = fmaf(x[i].x, y[j].x, s[i][j]);
+                s[i][j] = fmaf(x[i].y, y[j].y, s[i][j]);
+                s[i][j] = fmaf(x[i].z, y[j].z, s[i][j]);
+                s[i][j] = fmaf(x[i].w, y[j].w, s[i][j]);
+            }
+        }
+    }
+}
+
+// acc[i][c] += sum over j < n (ascending) of x[i * xp + j] * m[j * mp + c]: 4 rows of x
+// (row pitch xp) times rows 0 .. n of m (row pitch mp), 4 columns; n a multiple of 4
+__device__ __forceinline__ void accumulate4x4(float (&acc)[4][4], const float* x, int xp,
+                                              const float* m, int mp, int n) {
+    for (int j = 0; j < n; j += 4) {
+        float4 p[4], w[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            p[i] = ld4(x + i * xp + j);
+            w[i] = ld4(m + (j + i) * mp);
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            const float pi[4] = {p[i].x, p[i].y, p[i].z, p[i].w};
+#pragma unroll
+            for (int jj = 0; jj < 4; ++jj) {
+                acc[i][0] = fmaf(pi[jj], w[jj].x, acc[i][0]);
+                acc[i][1] = fmaf(pi[jj], w[jj].y, acc[i][1]);
+                acc[i][2] = fmaf(pi[jj], w[jj].z, acc[i][2]);
+                acc[i][3] = fmaf(pi[jj], w[jj].w, acc[i][3]);
+            }
+        }
+    }
+}
+
+// dQ: one block per (group of `rows` query rows, h, b), `threads` threads, K and V staged
+// in tiles of `ktile` keys (all of them up to ONE_PASS_KEYS) up to the row's length.
+// Per tile: dS into ds_s (a thread 4 rows x 4 keys: keys kg + j * nk, so lanes read
+// consecutive K rows, which the pitch spreads over the banks), then dQ += dS K in
+// registers (a thread up to F32_OUT_TILES tiles of 4 rows x 4 dims).
+template <int DP, bool VEC>
+__global__ void __launch_bounds__(F32_MAX_THREADS)
+flash_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, const float* __restrict__ dout,
+             const float* __restrict__ lse, const float* __restrict__ delta,
+             const int32_t* __restrict__ lengths, float* __restrict__ dq,
+             float* __restrict__ visits, int Sq, int Sk, int H, int D, Layout lq, Layout lkv,
+             float scale, int rows, int ktile) {
+    constexpr int PITCH = DP + 4;
+    extern __shared__ __align__(16) float fsm[];
+    const int pp = score_pitch(ktile);
+    float* q_s = fsm;                   // [rows][PITCH]
+    float* do_s = q_s + rows * PITCH;   // [rows][PITCH]
+    float* k_s = do_s + rows * PITCH;   // [ktile][PITCH]
+    float* v_s = k_s + ktile * PITCH;   // [ktile][PITCH]
+    float* ds_s = v_s + ktile * PITCH;  // [rows][pp]
+    float* lse_s = ds_s + rows * pp;    // [rows]
+    float* delta_s = lse_s + rows;      // [rows]
+    const int b = blockIdx.z, h = blockIdx.y, row0 = blockIdx.x * rows;
+    const int tid = threadIdx.x, threads = blockDim.x;
+    const int rq = rows / 4, nd = DP / 4;
+    const Layout ld = {(long long)Sq * H * D, (long long)H * D, D};
+    const int len = lengths ? min((int)lengths[b], Sk) : Sk;
+
+    stage_f32<DP, VEC>(q_s, PITCH, q, lq, b, h, row0, rows, Sq, D);
+    stage_f32<DP, VEC>(do_s, PITCH, dout, ld, b, h, row0, rows, Sq, D);
+    tc::cp_async_commit();
+    for (int r = tid; r < rows; r += threads) {
+        const int row = row0 + r;
+        const size_t at = ((size_t)b * H + h) * Sq + row;
+        lse_s[r] = row < Sq ? lse[at] : 0.f;
+        delta_s[r] = row < Sq ? delta[at] : 0.f;
+    }
+
+    float acc[F32_OUT_TILES][4][4] = {};
+    int steps = 0;
+    for (int k0 = 0; k0 < len; k0 += ktile) {
+        __syncthreads();  // the previous tile's readers are done with k_s, v_s and ds_s
+        stage_f32<DP, VEC>(k_s, PITCH, k, lkv, b, h, k0, ktile, len, D);
+        stage_f32<DP, VEC>(v_s, PITCH, v, lkv, b, h, k0, ktile, len, D);
+        tc::cp_async_commit();
+        tc::cp_async_wait<0>();
+        __syncthreads();
+        const int n = min(ktile, len - k0);  // keys of this tile before the length
+        const int nk = (n + 3) / 4;          // groups of 4 keys
+        steps += (n + TILE - 1) / TILE;
+        for (int t = tid; t < rq * nk; t += threads) {
+            const int ri = t / nk, kg = t - ri * nk;
+            float s[4][4], dp[4][4];
+            dots4x4<DP>(s, q_s + 4 * ri * PITCH, PITCH, k_s + kg * PITCH, nk * PITCH);
+            dots4x4<DP>(dp, do_s + 4 * ri * PITCH, PITCH, v_s + kg * PITCH, nk * PITCH);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+                const int r = 4 * ri + i;
+#pragma unroll
+                for (int j = 0; j < 4; ++j) {
+                    const int key = kg + j * nk;
+                    float ds = 0.f;  // exactly 0 at keys >= len
+                    if (k0 + key < len) {
+                        const float p = expf(s[i][j] * scale - lse_s[r]);
+                        ds = p * (dp[i][j] - delta_s[r]);
+                    }
+                    ds_s[r * pp + key] = ds;
+                }
+            }
+        }
+        __syncthreads();
+#pragma unroll
+        for (int o = 0; o < F32_OUT_TILES; ++o) {  // dQ += dS K, keys ascending
+            const int t = tid + o * threads;
+            if (t >= rq * nd) continue;
+            const int ri = t / nd, dj = t - ri * nd;
+            accumulate4x4(acc[o], ds_s + 4 * ri * pp, pp, k_s + 4 * dj, PITCH, 4 * nk);
+        }
+    }
+    tc::cp_async_wait<0>();  // Q and dO, when no key tile was entered
+
+#pragma unroll
+    for (int o = 0; o < F32_OUT_TILES; ++o) {
+        const int t = tid + o * threads;
+        if (t >= rq * nd) continue;
+        const int ri = t / nd, dj = t - ri * nd;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            const int row = row0 + 4 * ri + i;
+            if (row >= Sq) continue;
+            float* orow = dq + (((size_t)b * Sq + row) * H + h) * D;
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+                const int d = 4 * dj + c;
+                if (d < D) orow[d] = acc[o][i][c] * scale;
+            }
+        }
+    }
+    for (int r = tid; visits && r < rows; r += threads) {
+        if (row0 + r < Sq) visits[((size_t)b * H + h) * Sq + row0 + r] = (float)steps;
+    }
+}
+
+// dK and dV: one block per (group of `rows` key rows, h, b), `threads` threads, Q, dO,
+// lse and delta staged in tiles of `qtile` queries (all of them up to ONE_PASS_KEYS).
+// Only the block's keys before the length take part, in groups of 4: a group at or
+// past it does no work and its dK and dV are exact zeros. Per tile: P^T and dS^T into
+// p_s and ds_s (a thread 4 keys x 4 queries: queries qg + j * nq), then dV += P^T dO and
+// dK += dS^T Q in registers (a thread one tile of 4 keys x 4 dims of each: the plan
+// gives every tile a thread, and the kernel at most 128 registers a thread, so that
+// three blocks of 160 threads share an SM at ViT's shape).
+template <int DP, bool VEC>
+__global__ void __launch_bounds__(F32_MAX_THREADS, 2)
+flash_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, const float* __restrict__ dout,
+              const float* __restrict__ lse, const float* __restrict__ delta,
+              const int32_t* __restrict__ lengths, float* __restrict__ dk,
+              float* __restrict__ dv, float* __restrict__ visits, int Sq, int Sk, int H, int D,
+              Layout lq, Layout lkv, float scale, int rows, int qtile) {
+    constexpr int PITCH = DP + 4;
+    extern __shared__ __align__(16) float fsm[];
+    const int pp = score_pitch(qtile);
+    float* k_s = fsm;                    // [rows][PITCH]
+    float* v_s = k_s + rows * PITCH;     // [rows][PITCH]
+    float* q_s = v_s + rows * PITCH;     // [qtile][PITCH]
+    float* do_s = q_s + qtile * PITCH;   // [qtile][PITCH]
+    float* p_s = do_s + qtile * PITCH;   // [rows][pp]: P^T
+    float* ds_s = p_s + rows * pp;       // [rows][pp]: dS^T
+    float* lse_s = ds_s + rows * pp;     // [qtile]
+    float* delta_s = lse_s + qtile;      // [qtile]
+    const int b = blockIdx.z, h = blockIdx.y, key0 = blockIdx.x * rows;
+    const int tid = threadIdx.x, threads = blockDim.x;
+    const int rq = rows / 4, nd = DP / 4;
+    const Layout ld = {(long long)Sq * H * D, (long long)H * D, D};
+    const int len = lengths ? min((int)lengths[b], Sk) : Sk;
+    const int rk = (min(max(len - key0, 0), rows) + 3) / 4;  // key groups with work
+    const int ko = tid / nd, dj = tid - ko * nd;  // the thread's output tile
+
+    if (visits) {  // each KEY_BLOCK whose first key is this block's: 1 if before the length
+        const int kblocks = (Sk + KEY_BLOCK - 1) / KEY_BLOCK;
+        const int end = min(key0 + rows, Sk);
+        for (int kb = (key0 + KEY_BLOCK - 1) / KEY_BLOCK + tid; kb * KEY_BLOCK < end;
+             kb += threads)
+            visits[((size_t)b * H + h) * kblocks + kb] = kb * KEY_BLOCK < len ? 1.f : 0.f;
+    }
+    float acc_k[4][4] = {}, acc_v[4][4] = {};
+    if (rk > 0) {
+        stage_f32<DP, VEC>(k_s, PITCH, k, lkv, b, h, key0, rows, len, D);
+        stage_f32<DP, VEC>(v_s, PITCH, v, lkv, b, h, key0, rows, len, D);
+        tc::cp_async_commit();
+        for (int q0 = 0; q0 < Sq; q0 += qtile) {
+            __syncthreads();  // the previous tile's readers are done with it
+            stage_f32<DP, VEC>(q_s, PITCH, q, lq, b, h, q0, qtile, Sq, D);
+            stage_f32<DP, VEC>(do_s, PITCH, dout, ld, b, h, q0, qtile, Sq, D);
+            tc::cp_async_commit();
+            for (int i = tid; i < qtile; i += threads) {
+                const int row = q0 + i;
+                const size_t at = ((size_t)b * H + h) * Sq + row;
+                lse_s[i] = row < Sq ? lse[at] : 0.f;
+                delta_s[i] = row < Sq ? delta[at] : 0.f;
+            }
+            tc::cp_async_wait<0>();
+            __syncthreads();
+            const int n = min(qtile, Sq - q0);  // queries of this tile
+            const int nq = (n + 3) / 4;         // groups of 4 queries
+            for (int t = tid; t < rk * nq; t += threads) {
+                const int ki = t / nq, qg = t - ki * nq;
+                float s[4][4], dp[4][4];
+                dots4x4<DP>(s, k_s + 4 * ki * PITCH, PITCH, q_s + qg * PITCH, nq * PITCH);
+                dots4x4<DP>(dp, v_s + 4 * ki * PITCH, PITCH, do_s + qg * PITCH, nq * PITCH);
+#pragma unroll
+                for (int i = 0; i < 4; ++i) {
+                    const int r = 4 * ki + i;
+#pragma unroll
+                    for (int j = 0; j < 4; ++j) {
+                        const int col = qg + j * nq;  // the tile's query
+                        float p = 0.f, ds = 0.f;      // exactly 0 at keys >= len
+                        if (key0 + r < len && col < n) {
+                            p = expf(s[i][j] * scale - lse_s[col]);
+                            ds = p * (dp[i][j] - delta_s[col]);
+                        }
+                        p_s[r * pp + col] = p;
+                        ds_s[r * pp + col] = ds;
+                    }
+                }
+            }
+            __syncthreads();
+            if (ko < rk) {  // queries ascending
+                accumulate4x4(acc_v, p_s + 4 * ko * pp, pp, do_s + 4 * dj, PITCH, 4 * nq);
+                accumulate4x4(acc_k, ds_s + 4 * ko * pp, pp, q_s + 4 * dj, PITCH, 4 * nq);
+            }
+        }
+    }
+
+    if (ko >= rq) return;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        const int key = key0 + 4 * ko + i;
+        if (key >= Sk) continue;
+        const size_t at = (((size_t)b * Sk + key) * H + h) * D;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+            const int d = 4 * dj + c;
+            if (d < D) {
+                dk[at + d] = acc_k[i][c] * scale;
+                dv[at + d] = acc_v[i][c];
+            }
+        }
+    }
+}
+
 // lets `kernel` take `smem` bytes of dynamic shared memory (above 48 KB only
-// on request: D = 128 in the backward kernels)
+// on request: the f32 backward at ViT's shape, and D = 128)
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t smem) {
     if (smem > 48 * 1024) {
@@ -1270,11 +1316,13 @@ cudaError_t launch_fwd_f32(const float* q, const float* k, const float* v, float
     return cudaGetLastError();
 }
 
-// whether a bf16 [B, S, H, D] operand may be staged by 16-byte copies: base, row
-// strides and D all multiples of 8 elements (the rule of `views_aligned16`)
-bool aligned16(const void* p, Layout L, int D) {
-    return reinterpret_cast<uintptr_t>(p) % 16 == 0 && L.b % 8 == 0 && L.s % 8 == 0 &&
-           L.h % 8 == 0 && D % 8 == 0;
+// whether a [B, S, H, D] operand of `el`-byte elements (bf16 by default) may be staged
+// by 16-byte copies: base 16-byte aligned, row strides and D whole multiples of 16
+// bytes (the rule of `views_aligned16`)
+bool aligned16(const void* p, Layout L, int D, int el = 2) {
+    const int n = 16 / el;  // elements per 16 bytes
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0 && L.b % n == 0 && L.s % n == 0 &&
+           L.h % n == 0 && D % n == 0;
 }
 
 // rows per block and the staged tile of the other axis for the bf16 backward: one block
@@ -1323,6 +1371,80 @@ cudaError_t launch_dkv_mma(const __nv_bfloat16* q, const __nv_bfloat16* k,
     return cudaGetLastError();
 }
 
+int padded_dim(int D) { return D <= 16 ? 16 : D <= 32 ? 32 : D <= 64 ? 64 : 128; }
+
+// shared-memory bytes of one f32 backward block: its rows and the other axis's tile (both
+// padded by 4 floats to DP + 4), dS (and P^T in dK/dV) and two row statistics
+size_t f32_bwd_smem(bool dkv, int rows, int tile, int DP) {
+    const size_t pitch = DP + 4, pp = score_pitch(tile);
+    return sizeof(float) * ((2 * (size_t)rows + 2 * (size_t)tile) * pitch +
+                            (dkv ? 2 : 1) * (size_t)rows * pp + 2 * (size_t)(dkv ? tile : rows));
+}
+
+// the f32 backward's plan for a kernel owning `own` rows per (b, h) against `other`
+// (the wrapper's `f32_backward_plan`, a function of the shape alone): the other axis in
+// one tile up to ONE_PASS_KEYS (rounded up to 4), tiles of F32_KEY_TILE above; the rows
+// in enough groups to reach F32_TARGET_BLOCKS (none under 16 rows, at most F32_MAX_ROWS
+// a group), rounded up to 4, then cut by 4 while the output needs more tiles than the
+// threads hold (F32_OUT_TILES a thread in dQ, one in dK/dV) or the block's shared
+// memory does not fit; threads enough for one 4 x 4 tile of scores each and those
+// output tiles, in whole warps, 64 to F32_MAX_THREADS
+struct F32Plan {
+    int rows, tile, threads;
+};
+
+F32Plan f32_bwd_plan(int B, int own, int other, int H, int D, bool dkv) {
+    const int tile = other <= ONE_PASS_KEYS ? (max(other, 1) + 3) & ~3 : F32_KEY_TILE;
+    const int target = (F32_TARGET_BLOCKS + B * H - 1) / (B * H);
+    const int groups = max((own + F32_MAX_ROWS - 1) / F32_MAX_ROWS, min((own + 15) / 16, target));
+    const int DP = padded_dim(D), per = dkv ? 1 : F32_OUT_TILES;
+    int rows = (((own + groups - 1) / groups) + 3) & ~3;
+    while (rows > 4 && (rows / 4 * (DP / 4) > per * F32_MAX_THREADS ||
+                        f32_bwd_smem(dkv, rows, tile, DP) > SMEM_LIMIT))
+        rows -= 4;
+    const int out_tiles = (rows / 4 * (DP / 4) + per - 1) / per;
+    const int tiles = max(rows / 4 * (tile / 4), out_tiles);
+    return {rows, tile, min(F32_MAX_THREADS, max(64, (tiles + 31) & ~31))};
+}
+
+template <int DP, bool VEC>
+cudaError_t launch_dq_f32(const float* q, const float* k, const float* v, const float* dout,
+                          const float* lse, const float* delta, const int32_t* lengths,
+                          float* dq, float* visits, int B, int Sq, int Sk, int H, int D,
+                          Layout lq, Layout lkv, float scale, cudaStream_t st) {
+    const F32Plan pl = f32_bwd_plan(B, Sq, Sk, H, D, false);
+    const size_t smem = f32_bwd_smem(false, pl.rows, pl.tile, DP);
+    const cudaError_t err = allow_smem(flash_dq_f32<DP, VEC>, smem);
+    if (err != cudaSuccess) return err;
+    flash_dq_f32<DP, VEC><<<dim3((Sq + pl.rows - 1) / pl.rows, H, B), pl.threads, smem, st>>>(
+        q, k, v, dout, lse, delta, lengths, dq, visits, Sq, Sk, H, D, lq, lkv, scale, pl.rows,
+        pl.tile);
+    return cudaGetLastError();
+}
+
+template <int DP, bool VEC>
+cudaError_t launch_dkv_f32(const float* q, const float* k, const float* v, const float* dout,
+                           const float* lse, const float* delta, const int32_t* lengths,
+                           float* dk, float* dv, float* visits, int B, int Sq, int Sk, int H,
+                           int D, Layout lq, Layout lkv, float scale, cudaStream_t st) {
+    const F32Plan pl = f32_bwd_plan(B, Sk, Sq, H, D, true);
+    const size_t smem = f32_bwd_smem(true, pl.rows, pl.tile, DP);
+    const cudaError_t err = allow_smem(flash_dkv_f32<DP, VEC>, smem);
+    if (err != cudaSuccess) return err;
+    flash_dkv_f32<DP, VEC><<<dim3((Sk + pl.rows - 1) / pl.rows, H, B), pl.threads, smem, st>>>(
+        q, k, v, dout, lse, delta, lengths, dk, dv, visits, Sq, Sk, H, D, lq, lkv, scale,
+        pl.rows, pl.tile);
+    return cudaGetLastError();
+}
+
+// whether every operand of an f32 backward call may be staged by 16-byte copies
+bool f32_bwd_vec(const void* q, const void* k, const void* v, const void* dout, Layout lq,
+                 Layout lkv, int Sq, int H, int D) {
+    const Layout ld = {(long long)Sq * H * D, (long long)H * D, D};
+    return aligned16(q, lq, D, 4) && aligned16(k, lkv, D, 4) && aligned16(v, lkv, D, 4) &&
+           aligned16(dout, ld, D, 4);
+}
+
 }  // namespace
 
 // 1 when the bf16 backward's entry points stage a [B, S, H, D] view at `p` with these
@@ -1331,6 +1453,16 @@ cudaError_t launch_dkv_mma(const __nv_bfloat16* q, const __nv_bfloat16* k,
 extern "C" int dmt_flash_aligned16(const void* p, long long sb, long long ss, long long sh,
                                    int D) {
     return aligned16(p, Layout{sb, ss, sh}, D) ? 1 : 0;
+}
+
+// the f32 backward's plans for [B, Sq | Sk, H, D] into out[0..5]: the dQ kernel's rows,
+// key tile and threads, then the dK/dV kernel's rows, query tile and threads; exported
+// so that the card tests hold it to the wrapper's `f32_backward_plan`
+extern "C" void dmt_flash_f32_backward_plan(int B, int Sq, int Sk, int H, int D, int* out) {
+    const F32Plan dq = f32_bwd_plan(B, Sq, Sk, H, D, false);
+    const F32Plan dkv = f32_bwd_plan(B, Sk, Sq, H, D, true);
+    const int plan[6] = {dq.rows, dq.tile, dq.threads, dkv.rows, dkv.tile, dkv.threads};
+    for (int i = 0; i < 6; ++i) out[i] = plan[i];
 }
 
 // Each entry point launches one kernel on `stream` (PyTorch's current stream)
@@ -1415,18 +1547,23 @@ extern "C" int dmt_flash_attention_dq(const void* q, const void* k, const void* 
 #undef DMT_DQ_MMA
         return static_cast<int>(err);
     }
-    const dim3 grid((Sq + ROWS - 1) / ROWS, H, B);
-    const size_t smem = sizeof(float) * (2 * TILE * (D + 1) + 2 * ROWS * D);
-#define DMT_DQ(T)                                                                          \
-    err = allow_smem(flash_dq_kernel<T>, smem);                                      \
-    if (err != cudaSuccess) return static_cast<int>(err);                                 \
-    flash_dq_kernel<T><<<grid, THREADS, smem, st>>>(                                       \
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),      \
-        static_cast<const T*>(dout), l, dl, lens, static_cast<T*>(dq), vis, Sq, Sk, H, D,  \
-        lq, lkv, scale)
-    DMT_DQ(float);
-#undef DMT_DQ
-    return static_cast<int>(cudaGetLastError());
+    const float* qf = static_cast<const float*>(q);  // the CUDA-core kernel
+    const float* kf = static_cast<const float*>(k);
+    const float* vf = static_cast<const float*>(v);
+    const float* df = static_cast<const float*>(dout);
+    float* dqf = static_cast<float*>(dq);
+    const bool vec = f32_bwd_vec(q, k, v, dout, lq, lkv, Sq, H, D);
+#define DMT_DQ_F32(DP)                                                                       \
+    err = vec ? launch_dq_f32<DP, true>(qf, kf, vf, df, l, dl, lens, dqf, vis, B, Sq, Sk, H, D, \
+                                        lq, lkv, scale, st)                                   \
+              : launch_dq_f32<DP, false>(qf, kf, vf, df, l, dl, lens, dqf, vis, B, Sq, Sk, H,  \
+                                         D, lq, lkv, scale, st)
+    if (D <= 16) { DMT_DQ_F32(16); }
+    else if (D <= 32) { DMT_DQ_F32(32); }
+    else if (D <= 64) { DMT_DQ_F32(64); }
+    else { DMT_DQ_F32(128); }
+#undef DMT_DQ_F32
+    return static_cast<int>(err);
 }
 
 extern "C" int dmt_flash_attention_dkv(const void* q, const void* k, const void* v,
@@ -1465,16 +1602,22 @@ extern "C" int dmt_flash_attention_dkv(const void* q, const void* k, const void*
 #undef DMT_DKV_MMA
         return static_cast<int>(err);
     }
-    const dim3 grid((Sk + ROWS - 1) / ROWS, H, B);
-    const size_t smem = sizeof(float) * (2 * TILE * (D + 1) + 2 * ROWS * D + 2 * TILE);
-#define DMT_DKV(T)                                                                         \
-    err = allow_smem(flash_dkv_kernel<T>, smem);                                     \
-    if (err != cudaSuccess) return static_cast<int>(err);                                 \
-    flash_dkv_kernel<T><<<grid, THREADS, smem, st>>>(                                      \
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),      \
-        static_cast<const T*>(dout), l, dl, lens, static_cast<T*>(dk), static_cast<T*>(dv), \
-        vis, Sq, Sk, H, D, lq, lkv, scale)
-    DMT_DKV(float);
-#undef DMT_DKV
-    return static_cast<int>(cudaGetLastError());
+    const float* qf = static_cast<const float*>(q);  // the CUDA-core kernel
+    const float* kf = static_cast<const float*>(k);
+    const float* vf = static_cast<const float*>(v);
+    const float* df = static_cast<const float*>(dout);
+    float* dkf = static_cast<float*>(dk);
+    float* dvf = static_cast<float*>(dv);
+    const bool vec = f32_bwd_vec(q, k, v, dout, lq, lkv, Sq, H, D);
+#define DMT_DKV_F32(DP)                                                                      \
+    err = vec ? launch_dkv_f32<DP, true>(qf, kf, vf, df, l, dl, lens, dkf, dvf, vis, B, Sq, Sk, \
+                                         H, D, lq, lkv, scale, st)                            \
+              : launch_dkv_f32<DP, false>(qf, kf, vf, df, l, dl, lens, dkf, dvf, vis, B, Sq,   \
+                                          Sk, H, D, lq, lkv, scale, st)
+    if (D <= 16) { DMT_DKV_F32(16); }
+    else if (D <= 32) { DMT_DKV_F32(32); }
+    else if (D <= 64) { DMT_DKV_F32(64); }
+    else { DMT_DKV_F32(128); }
+#undef DMT_DKV_F32
+    return static_cast<int>(err);
 }

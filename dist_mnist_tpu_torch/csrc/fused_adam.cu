@@ -9,34 +9,40 @@
 //   `_adam_clip_wd_kernel` (launched by `fused_adam_clip_wd_update`): the same
 //   with g := g*clip_scale before the moments and `- lr_wd*p` added to delta.
 //
-// All tensors are contiguous f32 of n elements; delta, m' and v' go to new
-// buffers, as the JAX functions return new arrays. The per-step scalars stay
-// on the device: `sc` points to [lr_t] (kernel 1) or [lr_t, clip_scale, lr*wd]
-// (kernel 2), as the Pallas kernels read them from SMEM, so no step reads a
-// device value back to the host. b1, b2, eps, (1-b1) and (1-b2) are
-// launch arguments: the host computes 1-b in double and rounds once to f32,
-// as JAX does (1.0f - 0.9f would give 0.100000024, not 0.1f).
+// Inputs are contiguous f32 leaves; delta, m' and v' go to new buffers, as the
+// JAX functions return new arrays. The per-step scalars stay on the device: `sc`
+// points to [lr_t] (kernel 1) or [lr_t, clip_scale, lr*wd] (kernel 2), as the
+// Pallas kernels read them from SMEM, so no step reads a device value back to the
+// host. b1, b2, eps, (1-b1) and (1-b2) are launch arguments: the host computes
+// 1-b in double and rounds once to f32, as JAX does (1.0f - 0.9f would give
+// 0.100000024, not 0.1f).
 //
 // Rounding. No --use_fast_math: sqrt and division are IEEE (round to nearest).
-// Every product and sum is rounded on its own (__fmul_rn / __fadd_rn, which
-// nvcc never contracts into an FMA), in the order the JAX expressions and the
-// plain torch version in ops/kernels/fused_adam.py evaluate them, so on the
-// same inputs the kernel and the plain version give the same bits.
+// Every product and sum is rounded on its own (__fmul_rn / __fadd_rn, which nvcc
+// never contracts into an FMA), in the order the JAX expressions and the plain
+// torch version in ops/kernels/fused_adam.py evaluate them, so on the same inputs
+// the kernel and the plain version give the same bits.
 //
-// What bounds it. An elementwise pass: kernel 1 reads g, m, v and writes
-// delta, m', v' (24 B per element), kernel 2 also reads p (28 B), against
-// about a dozen f32 operations per element, so the bound is device-memory
-// bytes. LeNet-5's 8 leaves (1,663,370 elements) move 39.9 MB per step under
-// kernel 1: 11.9 us at 3.35 TB/s. The design serves that bound: one pass,
-// each byte read or written once, float4 (16 B) loads and stores on
-// neighbouring threads where n and every pointer allow it, and a grid-stride
-// loop over at most 16 blocks of 256 threads per SM.
+// What bounds it. An elementwise pass: kernel 1 reads g, m, v and writes delta,
+// m', v' (24 B per element), kernel 2 also reads p (28 B), against about a dozen
+// f32 operations per element, so the bound is device-memory bytes. LeNet-5's 8
+// leaves (1,663,370 elements) move 39.9 MB per step under kernel 1: 11.9 us at
+// 3.35 TB/s. One pass, each byte read or written once, float4 (16 B) loads and
+// stores on neighbouring threads where a leaf's pointers allow it.
 //
-// Ragged leaves. Sizes run from 10 (fc2/b) to 1,605,632 (fc1/w); a 0-d leaf
-// has n = 1. The TPU path pads to 128 lanes; here the vector loop covers the
-// first 4*(n/4) elements and a scalar loop the rest, so nothing is padded or
-// copied. One launch per leaf, as on the TPU; a launch over all leaves at
-// once is later work.
+// One launch over every leaf. The TPU launches once per leaf; here a step's
+// leaves (10 elements for fc2/b up to 1,605,632 for fc1/w) share one launch, so
+// the small ones pay no launch and tail of their own. The host passes a table
+// (`Table`, by value as a __grid_constant__ kernel parameter, under the 4 KB a
+// launch's parameters may take): for each leaf its input pointers, n, its
+// element offset in the three flat output buffers (a multiple of 4, so every
+// leaf's outputs, and the next step's m and v, start 16-byte aligned) and its
+// first chunk. Leaves past one table's TABLE_LEAVES go in a further launch. Each
+// block takes one chunk of CHUNK elements (256 threads x 4 float4) and finds its
+// leaf in the table. A leaf whose pointers are all 16-byte aligned runs the
+// float4 loop over its chunk, and its last chunk a scalar loop over the tail
+// (< 4 elements); any other leaf runs the scalar loop throughout. Nothing is
+// padded or copied; a 0-d leaf has n = 1.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -44,7 +50,9 @@
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int BLOCKS_PER_SM = 16;
+constexpr int PER_THREAD = 4;                       // float4 a thread takes per chunk
+constexpr int CHUNK = THREADS * PER_THREAD * 4;     // elements per block
+constexpr int TABLE_LEAVES = 64;                    // leaves one launch takes
 
 struct Consts {
     float b1, b2, omb1, omb2, eps;
@@ -53,6 +61,26 @@ struct Consts {
 struct Scalars {
     float lr_t, clip, lr_wd;
 };
+
+struct Leaf {
+    const float* g;
+    const float* m;
+    const float* v;
+    const float* p;    // the clip-wd kernel's params (unused by kernel 1)
+    long long n;       // elements
+    long long off;     // element offset of its outputs in d_out, m_out, v_out
+    int chunk0;        // its first chunk (block) of the launch
+    int vec;           // 1: every pointer 16-byte aligned, the float4 loop
+};
+
+struct Table {
+    Leaf leaf[TABLE_LEAVES];
+    int count;
+};
+
+// the launch's parameters: the table, four pointers and the constants
+static_assert(sizeof(Table) + 4 * sizeof(void*) + sizeof(Consts) <= 4096,
+              "a launch's parameters must fit in 4 KB");
 
 template <bool kClipWd>
 __device__ __forceinline__ void adam_elem(float g, float m, float v, float p,
@@ -68,47 +96,61 @@ __device__ __forceinline__ void adam_elem(float g, float m, float v, float p,
     v_out = v2;
 }
 
-template <bool kClipWd, bool kVec>
+template <bool kClipWd>
 __global__ void __launch_bounds__(THREADS)
-adam_kernel(const float* __restrict__ g, const float* __restrict__ m,
-            const float* __restrict__ v, const float* __restrict__ p,
-            const float* __restrict__ sc, float* __restrict__ d_out,
-            float* __restrict__ m_out, float* __restrict__ v_out,
-            long long n, Consts c) {
+adam_kernel(const __grid_constant__ Table t, const float* __restrict__ sc,
+            float* __restrict__ d_out, float* __restrict__ m_out,
+            float* __restrict__ v_out, Consts c) {
     Scalars s;
     s.lr_t = sc[0];
     s.clip = kClipWd ? sc[1] : 1.f;
     s.lr_wd = kClipWd ? sc[2] : 0.f;
-    const long long stride = (long long)gridDim.x * THREADS;
-    long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
-    long long done = 0;
-    if (kVec) {
-        const long long n4 = n / 4;
-        const float4* g4 = reinterpret_cast<const float4*>(g);
-        const float4* m4 = reinterpret_cast<const float4*>(m);
-        const float4* v4 = reinterpret_cast<const float4*>(v);
-        const float4* p4 = reinterpret_cast<const float4*>(p);
-        float4* d4o = reinterpret_cast<float4*>(d_out);
-        float4* m4o = reinterpret_cast<float4*>(m_out);
-        float4* v4o = reinterpret_cast<float4*>(v_out);
-        for (long long j = i; j < n4; j += stride) {
-            const float4 gg = g4[j], mm = m4[j], vv = v4[j];
-            const float4 pp = kClipWd ? p4[j] : make_float4(0.f, 0.f, 0.f, 0.f);
-            float4 dd, mo, vo;
-            adam_elem<kClipWd>(gg.x, mm.x, vv.x, pp.x, s, c, dd.x, mo.x, vo.x);
-            adam_elem<kClipWd>(gg.y, mm.y, vv.y, pp.y, s, c, dd.y, mo.y, vo.y);
-            adam_elem<kClipWd>(gg.z, mm.z, vv.z, pp.z, s, c, dd.z, mo.z, vo.z);
-            adam_elem<kClipWd>(gg.w, mm.w, vv.w, pp.w, s, c, dd.w, mo.w, vo.w);
-            d4o[j] = dd;
-            m4o[j] = mo;
-            v4o[j] = vo;
+    int l = 0;  // the block's leaf: the last whose first chunk is at or before it
+    while (l + 1 < t.count && t.leaf[l + 1].chunk0 <= (int)blockIdx.x) ++l;
+    const Leaf& L = t.leaf[l];
+    const long long c0 = (long long)((int)blockIdx.x - L.chunk0) * CHUNK;
+    const long long c1 = min(c0 + CHUNK, L.n);
+    float* d = d_out + L.off;
+    float* mo = m_out + L.off;
+    float* vo = v_out + L.off;
+    long long done = c0;
+    if (L.vec) {
+        const float4* g4 = reinterpret_cast<const float4*>(L.g);
+        const float4* m4 = reinterpret_cast<const float4*>(L.m);
+        const float4* v4 = reinterpret_cast<const float4*>(L.v);
+        const float4* p4 = reinterpret_cast<const float4*>(L.p);
+        const long long e4 = c1 / 4;
+        float4 gg[PER_THREAD], mm[PER_THREAD], vv[PER_THREAD], pp[PER_THREAD];
+#pragma unroll
+        for (int u = 0; u < PER_THREAD; ++u) {  // every load in flight first
+            const long long j = c0 / 4 + u * THREADS + threadIdx.x;
+            if (j < e4) {
+                gg[u] = g4[j];
+                mm[u] = m4[j];
+                vv[u] = v4[j];
+                pp[u] = kClipWd ? p4[j] : make_float4(0.f, 0.f, 0.f, 0.f);
+            }
         }
-        done = n4 * 4;
+#pragma unroll
+        for (int u = 0; u < PER_THREAD; ++u) {
+            const long long j = c0 / 4 + u * THREADS + threadIdx.x;
+            if (j < e4) {
+                float4 dd, mn, vn;
+                adam_elem<kClipWd>(gg[u].x, mm[u].x, vv[u].x, pp[u].x, s, c, dd.x, mn.x, vn.x);
+                adam_elem<kClipWd>(gg[u].y, mm[u].y, vv[u].y, pp[u].y, s, c, dd.y, mn.y, vn.y);
+                adam_elem<kClipWd>(gg[u].z, mm[u].z, vv[u].z, pp[u].z, s, c, dd.z, mn.z, vn.z);
+                adam_elem<kClipWd>(gg[u].w, mm[u].w, vv[u].w, pp[u].w, s, c, dd.w, mn.w, vn.w);
+                reinterpret_cast<float4*>(d)[j] = dd;
+                reinterpret_cast<float4*>(mo)[j] = mn;
+                reinterpret_cast<float4*>(vo)[j] = vn;
+            }
+        }
+        done = e4 * 4;
     }
-    // scalar loop: the whole leaf without vector access, else its tail (< 4)
-    for (long long j = done + i; j < n; j += stride) {
-        adam_elem<kClipWd>(g[j], m[j], v[j], kClipWd ? p[j] : 0.f, s, c,
-                           d_out[j], m_out[j], v_out[j]);
+    // scalar loop: the whole chunk without vector access, else the leaf's tail (< 4)
+    for (long long j = done + threadIdx.x; j < c1; j += THREADS) {
+        adam_elem<kClipWd>(L.g[j], L.m[j], L.v[j], kClipWd ? L.p[j] : 0.f, s, c, d[j], mo[j],
+                           vo[j]);
     }
 }
 
@@ -116,65 +158,47 @@ bool aligned16(const void* ptr) {
     return (reinterpret_cast<uintptr_t>(ptr) & 15u) == 0;
 }
 
-template <bool kClipWd>
-int launch(const void* g, const void* m, const void* v, const void* p,
-           const void* sc, void* d_out, void* m_out, void* v_out, long long n,
-           float b1, float b2, float omb1, float omb2, float eps, void* stream) {
-    const Consts c{b1, b2, omb1, omb2, eps};
-    const bool vec = n >= 4 && aligned16(g) && aligned16(m) && aligned16(v) &&
-                     (!kClipWd || aligned16(p)) && aligned16(d_out) &&
-                     aligned16(m_out) && aligned16(v_out);
-    static int sm_count[64] = {};  // per device; a launch asks the CUDA runtime once
-    int device = 0;
-    cudaGetDevice(&device);
-    int sms = device < 64 ? sm_count[device] : 0;
-    if (sms == 0) {
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-        if (device < 64) sm_count[device] = sms;
+}  // namespace
+
+// sizeof(Table): the wrapper's plan holds its tables to it
+extern "C" int dmt_fused_adam_table_bytes() { return static_cast<int>(sizeof(Table)); }
+
+// One launch over `count` (<= TABLE_LEAVES) leaves on `stream` (PyTorch's current
+// stream). `desc` (host memory) holds 7 int64 per leaf: the g, m, v and p pointers
+// (p 0 for kernel 1), n, the output offset (a multiple of 4) and the first chunk;
+// `chunks` is the launch's block count. Returns cudaGetLastError() after the
+// launch: nonzero means the launch was refused and nothing ran.
+extern "C" int dmt_fused_adam_leaves(const long long* desc, int count, int chunks,
+                                     const void* sc, void* d_out, void* m_out, void* v_out,
+                                     float b1, float b2, float omb1, float omb2, float eps,
+                                     int clip_wd, void* stream) {
+    if (count < 1 || count > TABLE_LEAVES || chunks < 1) return static_cast<int>(cudaErrorInvalidValue);
+    Table t;
+    t.count = count;
+    const bool outs = aligned16(d_out) && aligned16(m_out) && aligned16(v_out);
+    for (int i = 0; i < count; ++i) {
+        const long long* e = desc + 7 * i;
+        Leaf& L = t.leaf[i];
+        L.g = reinterpret_cast<const float*>(e[0]);
+        L.m = reinterpret_cast<const float*>(e[1]);
+        L.v = reinterpret_cast<const float*>(e[2]);
+        L.p = reinterpret_cast<const float*>(e[3]);
+        L.n = e[4];
+        L.off = e[5];
+        L.chunk0 = static_cast<int>(e[6]);
+        L.vec = outs && L.off % 4 == 0 && aligned16(L.g) && aligned16(L.m) && aligned16(L.v) &&
+                (!clip_wd || aligned16(L.p));
     }
-    const long long work = vec ? (n / 4) : n;
-    long long blocks = (work + THREADS - 1) / THREADS;
-    const long long cap = (long long)(sms > 0 ? sms : 1) * BLOCKS_PER_SM;
-    if (blocks > cap) blocks = cap;
-    if (blocks < 1) blocks = 1;
+    const Consts c{b1, b2, omb1, omb2, eps};
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const float* gf = static_cast<const float*>(g);
-    const float* mf = static_cast<const float*>(m);
-    const float* vf = static_cast<const float*>(v);
-    const float* pf = static_cast<const float*>(p);
     const float* scf = static_cast<const float*>(sc);
     float* dof = static_cast<float*>(d_out);
     float* mof = static_cast<float*>(m_out);
     float* vof = static_cast<float*>(v_out);
-    if (vec) {
-        adam_kernel<kClipWd, true><<<(unsigned)blocks, THREADS, 0, s>>>(
-            gf, mf, vf, pf, scf, dof, mof, vof, n, c);
+    if (clip_wd) {
+        adam_kernel<true><<<chunks, THREADS, 0, s>>>(t, scf, dof, mof, vof, c);
     } else {
-        adam_kernel<kClipWd, false><<<(unsigned)blocks, THREADS, 0, s>>>(
-            gf, mf, vf, pf, scf, dof, mof, vof, n, c);
+        adam_kernel<false><<<chunks, THREADS, 0, s>>>(t, scf, dof, mof, vof, c);
     }
     return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace
-
-// Launch on `stream` (PyTorch's current stream). Each returns
-// cudaGetLastError() after the launch: nonzero means the launch was refused
-// and nothing ran.
-extern "C" int dmt_fused_adam(const void* g, const void* m, const void* v,
-                              const void* lr_t, void* d_out, void* m_out,
-                              void* v_out, long long n, float b1, float b2,
-                              float omb1, float omb2, float eps, void* stream) {
-    return launch<false>(g, m, v, nullptr, lr_t, d_out, m_out, v_out, n, b1,
-                         b2, omb1, omb2, eps, stream);
-}
-
-extern "C" int dmt_fused_adam_clip_wd(const void* g, const void* m,
-                                      const void* v, const void* p,
-                                      const void* scalars, void* d_out,
-                                      void* m_out, void* v_out, long long n,
-                                      float b1, float b2, float omb1,
-                                      float omb2, float eps, void* stream) {
-    return launch<true>(g, m, v, p, scalars, d_out, m_out, v_out, n, b1, b2,
-                        omb1, omb2, eps, stream);
 }

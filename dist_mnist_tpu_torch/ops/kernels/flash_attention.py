@@ -12,10 +12,11 @@ bf16 x bf16 products are exact in their f32 accumulators, and the
 backward's three products with an f32 operand (the recomputed P or dS)
 split that operand into bf16 hi and lo halves, 2^-16 relative per term,
 so both keep the reference's numbers. f32 takes full-precision kernels on
-the CUDA cores: the forward register-tiled as an SGEMM is, over blocks of
-query rows that `f32_forward_plan` picks, and the backward by FMA
-kernels. The same backward kernels take an optional lengths vector and
-serve the masked backward (`ops/kernels/masked_flash.py`).
+the CUDA cores, register-tiled as an SGEMM is: the forward over blocks
+of query rows that `f32_forward_plan` picks, the dQ and dK/dV kernels
+over blocks of query and key rows that `f32_backward_plan` picks. The
+same backward kernels take an optional lengths vector and serve the
+masked backward (`ops/kernels/masked_flash.py`).
 
 Public functions keep the reference's signatures and its block_k
 quantization (block_q is accepted and unused: the kernels tile queries
@@ -54,24 +55,27 @@ import torch
 
 from dist_mnist_tpu_torch.ops.kernels import build
 
-#: keys per step of the dQ kernels (a tile of the f32 route, two 16-key
-#: groups of the bf16 route): the dQ kernel's skip granularity
-TILE = 32
-#: keys per block (f32) or warp (bf16) of the dK/dV kernel: its skip
+#: keys per step of the dQ kernels (two 16-key groups of the bf16 route;
+#: the f32 route counts its keys in such steps): the dQ kernel's skip
 #: granularity
+TILE = 32
+#: keys per warp (bf16) of the dK/dV kernel: its skip granularity (the f32
+#: route skips groups of 4 keys, so every block of 16 past the length)
 KEY_BLOCK = 16
 #: largest head_dim the kernels take
 MAX_HEAD_DIM = 128
 _MAX_GRID_YZ = 65535
-#: the f32 forward's plan (csrc/flash_attention.cu `flash_fwd_f32`): the
-#: most keys it holds in one tile, its key tile above that, and its limits
-#: on query rows and threads per block and on the 4 x 4 output tiles a
-#: thread owns
+#: the f32 kernels' plans (csrc/flash_attention.cu `flash_fwd_f32`,
+#: `flash_dq_f32`, `flash_dkv_f32`): the most rows of the other axis they
+#: hold in one tile, their tile above that, and their limits on rows and
+#: threads per block and on the 4 x 4 output tiles a thread owns
 ONE_PASS_KEYS, F32_KEY_TILE = 128, 64
 F32_MAX_ROWS, F32_MAX_THREADS, F32_OUT_TILES = 64, 256, 2
-#: the blocks the f32 forward aims for: two per SM of the H100 SXM. A
+#: the blocks the f32 kernels aim for: two per SM of the H100 SXM. A
 #: constant of the design, never read from the device
 F32_TARGET_BLOCKS = 264
+#: the dynamic shared memory one block may take on an H100 (227 KB)
+SMEM_LIMIT = 232_448
 _NEG = -1e30
 _VP, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
@@ -83,6 +87,7 @@ _ARGTYPES = {
     "dmt_flash_attention_dkv": [_VP] * 10 + [_I] * 5 + [_LL] * 6
     + [_I, _F, _VP],
     "dmt_flash_aligned16": [_VP, _LL, _LL, _LL, _I],
+    "dmt_flash_f32_backward_plan": [_I] * 5 + [_VP],
 }
 
 
@@ -241,22 +246,64 @@ def padded_head_dim(d: int) -> int:
     return next(p for p in (16, 32, 64, 128) if d <= p)
 
 
+def _f32_plan(b: int, own: int, other: int, h: int, d: int, smem=None,
+              per: int = F32_OUT_TILES) -> tuple[int, int, int]:
+    """``(rows, tile, threads)`` of an f32 kernel that owns `own` rows of
+    each (b, h) and walks `other` rows of the other axis: that axis in one
+    tile up to `ONE_PASS_KEYS` (rounded up to 4), tiles of `F32_KEY_TILE`
+    above; the owned rows split into groups of `rows` (a multiple of 4, at
+    most `F32_MAX_ROWS`), enough groups that the grid reaches
+    `F32_TARGET_BLOCKS` (none under 16 rows), then `rows` cut by 4 while
+    the output needs more 4 x 4 tiles than `F32_MAX_THREADS` threads of
+    `per` tiles hold or `smem(rows, tile, d)` exceeds `SMEM_LIMIT`;
+    threads enough for one 4 x 4 tile of scores each and `per` tiles of
+    the output, in whole warps, 64 to `F32_MAX_THREADS`. A function of
+    the shape alone."""
+    tile = _round_up(max(other, 1), 4) if other <= ONE_PASS_KEYS \
+        else F32_KEY_TILE
+    groups = max(-(-own // F32_MAX_ROWS),
+                 min(-(-own // 16), -(-F32_TARGET_BLOCKS // (b * h))))
+    rows = _round_up(-(-own // groups), 4)
+    dims = padded_head_dim(d) // 4
+    while smem is not None and rows > 4 and (
+            rows // 4 * dims > per * F32_MAX_THREADS
+            or smem(rows, tile, d) > SMEM_LIMIT):
+        rows -= 4
+    tiles = max(rows // 4 * (tile // 4), -(-(rows // 4) * dims // per))
+    return rows, tile, min(F32_MAX_THREADS, max(64, _round_up(tiles, 32)))
+
+
 def f32_forward_plan(b: int, s: int, h: int, d: int) -> tuple[int, int, int]:
     """``(rows, key_tile, threads)`` of the f32 forward for ``[b, s, h,
-    d]``: every key in one tile up to `ONE_PASS_KEYS` (S rounded up to 4),
-    tiles of `F32_KEY_TILE` above; each (b, h)'s query rows split into
-    groups of `rows` (a multiple of 4, at most `F32_MAX_ROWS`), enough
-    groups that the grid reaches `F32_TARGET_BLOCKS` (none under 16 rows);
-    threads enough for one 4 x 4 tile of scores each and at most
-    `F32_OUT_TILES` tiles of the output, in whole warps, 64 to
-    `F32_MAX_THREADS`. A function of the shape alone."""
-    ktile = _round_up(s, 4) if s <= ONE_PASS_KEYS else F32_KEY_TILE
-    groups = max(-(-s // F32_MAX_ROWS),
-                 min(-(-s // 16), -(-F32_TARGET_BLOCKS // (b * h))))
-    rows = _round_up(-(-s // groups), 4)
-    tiles = max(rows // 4 * (ktile // 4),
-                -(-(rows // 4) * (padded_head_dim(d) // 4) // F32_OUT_TILES))
-    return rows, ktile, min(F32_MAX_THREADS, max(64, _round_up(tiles, 32)))
+    d]`` (`_f32_plan` over query rows against the keys; its block always
+    fits)."""
+    return _f32_plan(b, s, s, h, d)
+
+
+def f32_backward_smem(kernel: str, rows: int, tile: int, d: int) -> int:
+    """Shared-memory bytes of one block of the f32 ``"dq"`` or ``"dkv"``
+    kernel: its rows and the other axis's tile, both padded to the head
+    dim's `padded_head_dim` + 4 floats; dS (and P^T in dK/dV) with rows
+    of 4 more than a multiple of 8 floats (the tile, plus 4 where it is a
+    multiple of 8); and two statistics (lse, delta) per query row held."""
+    pitch = padded_head_dim(d) + 4
+    pp = tile + 4 if tile % 8 == 0 else tile
+    dkv = kernel == "dkv"
+    return 4 * ((2 * rows + 2 * tile) * pitch + (2 if dkv else 1) * rows
+                * pp + 2 * (tile if dkv else rows))
+
+
+def f32_backward_plan(b: int, sq: int, sk: int, h: int, d: int):
+    """The f32 backward's plans, ``((rows, key_tile, threads) of dQ,
+    (rows, query_tile, threads) of dK/dV)``: `_f32_plan` over query rows
+    against the keys (up to `F32_OUT_TILES` output tiles a thread) and
+    over key rows against the queries (one tile of dK and one of dV a
+    thread), each block held to `SMEM_LIMIT`. The C entry points compute
+    the same plans (`dmt_flash_f32_backward_plan`)."""
+    return (_f32_plan(b, sq, sk, h, d,
+                      functools.partial(f32_backward_smem, "dq")),
+            _f32_plan(b, sk, sq, h, d,
+                      functools.partial(f32_backward_smem, "dkv"), per=1))
 
 
 def views_aligned16(*ts) -> bool:
@@ -281,13 +328,14 @@ def _raise_on(err: int, what: str) -> None:
 
 
 def launch_dq(q, k, v, do, lse, delta, lengths=None, visits=None):
-    """Launch the dQ kernel (bf16: `flash_dq_mma`, f32:
-    `flash_dq_kernel`): ``dq`` like q (contiguous). `k` and `v` with one
+    """Launch the dQ kernel (bf16: `flash_dq_mma`, f32: `flash_dq_f32`):
+    ``dq`` like q (contiguous). `k` and `v` with one
     set of strides; `do` contiguous like q; `lse`, `delta` contiguous
     ``[B, H, Sq]`` f32; optional int32 `lengths` ``[B]`` and f32 ``visits
-    [B, H, Sq]`` (steps of `TILE` keys each query row entered). The bf16
-    kernel stages by 16-byte copies where `views_aligned16` would, and by
-    plain loads elsewhere (decided in the C entry point)."""
+    [B, H, Sq]`` (steps of `TILE` keys each query row entered). Both
+    kernels stage by 16-byte copies where `views_aligned16` would, and by
+    plain loads elsewhere (decided in the C entry point); the f32 kernel
+    runs by `f32_backward_plan`."""
     b, sq, h, d = q.shape
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
@@ -304,7 +352,7 @@ def launch_dq(q, k, v, do, lse, delta, lengths=None, visits=None):
 
 def launch_dkv(q, k, v, do, lse, delta, lengths=None, visits=None):
     """Launch the dK/dV kernel (bf16: `flash_dkv_mma`, f32:
-    `flash_dkv_kernel`): ``(dk, dv)`` like k and v (contiguous). Optional
+    `flash_dkv_f32`): ``(dk, dv)`` like k and v (contiguous). Optional
     f32 ``visits [B, H, ceil(Sk / KEY_BLOCK)]``: 1 for each key block the
     kernel entered, 0 for one it skipped."""
     b, sq, h, d = q.shape

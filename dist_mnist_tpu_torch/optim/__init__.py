@@ -1,8 +1,8 @@
 """Optimizers on the gradient-transformation pattern (port of the
 reference `optim/`): pure ``init``/``update`` pairs over nested-dict
 trees of tensors, composable with `chain`. `adam(fused=True)` and
-`fused_adamw` run each leaf's update as one hand-written CUDA kernel
-(`ops/kernels/fused_adam.py`).
+`fused_adamw` run every leaf's update in one launch of a hand-written
+CUDA kernel (`ops/kernels/fused_adam.py`).
 
 `build_optimizer` builds a config's optimizer as the reference's
 `cli/train.py build_optimizer` does. The reference's

@@ -12,11 +12,12 @@ with a step counter in place of beta-power variables. The state is
 computed from `count` and the grads, so no update reads a value back to
 the host.
 
-`fused=True` (and `fused_adamw`) run each leaf's update as one CUDA
-kernel (`ops/kernels/fused_adam.py`), the counterpart of the reference's
-Pallas kernels. The unfused path runs the kernel's plain version, the
-same torch arithmetic on any device, so the order of the roundings is
-written down once.
+`fused=True` (and `fused_adamw`) run every leaf's update in one launch
+of a CUDA kernel (`ops/kernels/fused_adam.py`, the ``*_leaves``
+functions), the counterpart of the reference's per-leaf Pallas kernels.
+The unfused path runs the kernel's plain version leaf by leaf, the same
+torch arithmetic on any device, so the order of the roundings is written
+down once.
 """
 
 from __future__ import annotations
@@ -26,9 +27,9 @@ from typing import Callable
 import torch
 
 from dist_mnist_tpu_torch.ops.kernels.fused_adam import (
-    fused_adam_clip_wd_update,
-    fused_adam_update,
-    fused_adam_update_reference,
+    fused_adam_clip_wd_update_leaves,
+    fused_adam_update_leaves,
+    fused_adam_update_leaves_reference,
 )
 from dist_mnist_tpu_torch.optim.base import (
     Optimizer,
@@ -60,17 +61,20 @@ def _init(params):
                                  device=tree_device(params))}
 
 
-def _per_leaf(update_leaf, g32, state, params=None):
-    """Run `update_leaf(g, m, v[, p]) -> (delta, m, v)` on every leaf and
-    regroup the results into (updates, m, v) trees."""
-    m = dict(flatten_with_path(state["m"]))
-    v = dict(flatten_with_path(state["v"]))
-    p = dict(flatten_with_path(params)) if params is not None else None
-    outs = {path: update_leaf(g, m[path], v[path],
-                              *((p[path],) if p is not None else ()))
-            for path, g in flatten_with_path(g32)}
-    return tuple(map_with_path(lambda path, _: outs[path][i], g32)
-                 for i in range(3))
+def _all_leaves(update_leaves, g32, state, params=None):
+    """Run `update_leaves(gs, ms, vs[, ps]) -> (deltas, ms, vs)` once over
+    every leaf (lists in the grads' leaf order) and regroup the results
+    into (updates, m, v) trees."""
+    flat = flatten_with_path(g32)
+    paths = [path for path, _ in flat]
+    trees = [state["m"], state["v"]] + ([params] if params is not None
+                                        else [])
+    args = [[g for _, g in flat]] + [
+        [d[path] for path in paths]
+        for d in (dict(flatten_with_path(t)) for t in trees)]
+    outs = [dict(zip(paths, out)) for out in update_leaves(*args)]
+    return tuple(map_with_path(lambda path, _: out[path], g32)
+                 for out in outs)
 
 
 def adam(
@@ -81,20 +85,21 @@ def adam(
     *,
     fused: bool = False,
 ) -> Optimizer:
-    """`fused=True` routes each leaf's slot and delta update through the
-    one-pass CUDA kernel (`fused_adam_update`) instead of torch ops; same
-    math, one pass over device memory."""
+    """`fused=True` routes the slot and delta update of every leaf through
+    one launch of the one-pass CUDA kernel (`fused_adam_update_leaves`)
+    instead of torch ops; same math, one pass over device memory."""
 
-    leaf_update = fused_adam_update if fused else fused_adam_update_reference
+    leaves_update = (fused_adam_update_leaves if fused
+                     else fused_adam_update_leaves_reference)
 
     def update(grads, state, params):
         del params
         count = state["count"] + 1
         lr_t = _bias_corrected(_lr_at(learning_rate, count), count, b1, b2)
         g32 = tree_map(lambda g: g.to(torch.float32), grads)
-        updates, m, v = _per_leaf(
-            lambda g, m_, v_: leaf_update(g, m_, v_, lr_t, b1=b1, b2=b2,
-                                          eps=eps),
+        updates, m, v = _all_leaves(
+            lambda gs, ms, vs: leaves_update(gs, ms, vs, lr_t, b1=b1, b2=b2,
+                                             eps=eps),
             g32, state)
         return updates, {"m": m, "v": v, "count": count}
 
@@ -132,9 +137,10 @@ def fused_adamw(
     clip_norm: float | None = None,
 ) -> Optimizer:
     """One-pass fused `clip_by_global_norm >> adamw`: the global-norm clip
-    factor is computed ONCE over the tree, then each leaf runs one CUDA
-    kernel doing clip scale, m/v slots, Adam delta and the decoupled
-    `-lr*wd*param` term (`fused_adam_clip_wd_update`). The same math as
+    factor is computed ONCE over the tree, then one launch of a CUDA kernel
+    does clip scale, m/v slots, Adam delta and the decoupled
+    `-lr*wd*param` term for every leaf
+    (`fused_adam_clip_wd_update_leaves`). The same math as
     `chain(clip_by_global_norm(clip_norm), adamw(...))`; with
     `weight_decay=0` and `clip_norm=None` it routes to the `fused_adam_update`
     kernel, bit-identical to `adam(fused=True)`."""
@@ -146,9 +152,9 @@ def fused_adamw(
         lr_t = _bias_corrected(lr, count, b1, b2)
         g32 = tree_map(lambda g: g.to(torch.float32), grads)
         if plain:
-            updates, m, v = _per_leaf(
-                lambda g, m_, v_: fused_adam_update(g, m_, v_, lr_t, b1=b1,
-                                                    b2=b2, eps=eps),
+            updates, m, v = _all_leaves(
+                lambda gs, ms, vs: fused_adam_update_leaves(
+                    gs, ms, vs, lr_t, b1=b1, b2=b2, eps=eps),
                 g32, state)
             return updates, {"m": m, "v": v, "count": count}
         device = count.device
@@ -164,10 +170,10 @@ def fused_adamw(
         scalars = torch.stack([lr_t.to(torch.float32).reshape(()),
                                clip_scale.reshape(()),
                                wd_step.to(torch.float32).reshape(())])
-        updates, m, v = _per_leaf(
-            lambda g, m_, v_, p_: fused_adam_clip_wd_update(
-                g, m_, v_, p_.to(torch.float32), scalars, b1=b1, b2=b2,
-                eps=eps),
+        updates, m, v = _all_leaves(
+            lambda gs, ms, vs, ps: fused_adam_clip_wd_update_leaves(
+                gs, ms, vs, [p.to(torch.float32) for p in ps], scalars,
+                b1=b1, b2=b2, eps=eps),
             g32, state, params)
         return updates, {"m": m, "v": v, "count": count}
 

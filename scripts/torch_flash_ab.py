@@ -3,7 +3,7 @@
 several checkouts on one card, in turns. Needs one NVIDIA GPU and `nvcc`,
 as `chip_smoke.py` does.
 
-    python3 scripts/torch_flash_ab.py [--f32] [--qmm] [--vit] TREE [TREE ...]
+    python3 scripts/torch_flash_ab.py [--f32] [--qmm] [--adam] [--vit] TREE [TREE ...]
 
 Each TREE is the root of a checkout of this repository: this one, and an
 older commit unpacked beside it with `git archive`. The trees run in the
@@ -12,12 +12,16 @@ fresh interpreter whose working directory is the tree: it builds and
 imports that tree's kernels and its `chip_smoke.py`.
 It times, at ViT-Tiny's attention call (B=64, S=65, H=3, D=64; q, k, v the
 strided views of one fused projection), the forward, dQ, dK/dV and the two
-together in bf16 and in f32, and in bf16 the masked backward with lengths
+together in bf16 and in f32, and in both the masked backward with lengths
 2..65 (on contiguous copies); with `--f32`, only the f32 figures. With
 `--qmm`, it also times `quant_matmul` at the MLP's f32 layers
 ([M,784]x[784,100] and [M,100]x[100,10], M in {1, 64}) and LeNet-5's
 bf16 fc1 and fc2 at M = 64, and beside each f32 row `torch.matmul` on the
-dequantized weight (the library call, the same in every tree). Each
+dequantized weight (the library call, the same in every tree). With
+`--adam`, it also times both fused-Adam kernels through its tree's
+`chip_smoke.time_adam`: one update of LeNet-5's 8 leaves as the tree's
+optimizers make it (one launch per leaf before the leaf table, one
+launch after) and of fc1/w alone, each on operands cold in L2. Each
 figure is the tree's
 `chip_smoke.graph_ms`: a CUDA graph of 100 back-to-back calls replayed
 under CUDA events, median of 5 replays, in ms per call. With `--vit`,
@@ -54,7 +58,8 @@ from dist_mnist_tpu_torch.ops.kernels.masked_flash import (
 
 torch.backends.cuda.matmul.allow_tf32 = False
 build.build_all(["flash_attention", "masked_flash_attention"]
-                + (["quant_matmul"] if "--qmm" in sys.argv else []))
+                + (["quant_matmul"] if "--qmm" in sys.argv else [])
+                + (["fused_adam"] if "--adam" in sys.argv else []))
 
 B, S, H, D = 64, 65, 3, 64
 rows = {}
@@ -78,14 +83,13 @@ for name, dtype in routes:
     rows[name + "_backward"] = chip_smoke.graph_ms(torch, lambda: (
         fa.flash_attention_dq(q, k, v, do, lse, delta),
         fa.flash_attention_dkv(q, k, v, do, lse, delta)))
-    if dtype == torch.bfloat16:
-        lens = torch.arange(2, B + 2, dtype=torch.int32, device="cuda")
-        qc, kc, vc = (t.contiguous() for t in (q, k, v))
-        m_out, m_lse = masked_flash_attention_forward(qc, kc, vc, lens)
-        m_delta = fa.attention_delta(m_out, do)
-        rows["bf16_masked_backward"] = chip_smoke.graph_ms(
-            torch, lambda: masked_flash_attention_backward(
-                qc, kc, vc, lens, do, m_lse, m_delta))
+    lens = torch.arange(2, B + 2, dtype=torch.int32, device="cuda")
+    qc, kc, vc = (t.contiguous() for t in (q, k, v))
+    m_out, m_lse = masked_flash_attention_forward(qc, kc, vc, lens)
+    m_delta = fa.attention_delta(m_out, do)
+    rows[name + "_masked_backward"] = chip_smoke.graph_ms(
+        torch, lambda: masked_flash_attention_backward(
+            qc, kc, vc, lens, do, m_lse, m_delta))
 if "--qmm" in sys.argv:
     from dist_mnist_tpu_torch.ops import quant
     from dist_mnist_tpu_torch.ops.kernels.quant_matmul import quant_matmul
@@ -107,6 +111,19 @@ if "--qmm" in sys.argv:
             if dtype == torch.float32:
                 rows[key + "_library"] = chip_smoke.graph_ms(
                     torch, lambda: torch.matmul(x, w_deq))
+if "--adam" in sys.argv:
+    import numpy as np
+
+    from dist_mnist_tpu_torch import optim
+    from dist_mnist_tpu_torch.models.registry import get_model
+    from dist_mnist_tpu_torch.train import create_train_state
+
+    state = create_train_state(get_model("lenet5"), optim.adam(
+        1e-3, fused=True), 0, np.zeros((1, 28, 28, 1), np.uint8), "cuda")
+    for (name, label), row in chip_smoke.time_adam(
+            torch, torch.device("cuda", 0), state, 3.35e12, 67e12).items():
+        for key in ("kernel_ms", "kernel_ms_l2_warm"):
+            rows[f"adam {name} {label} {key}"] = row[key]
 if "--vit" in sys.argv:
     import hashlib
     import re
@@ -154,8 +171,10 @@ def main() -> int:
                         help="time the f32 flash kernels only")
     parser.add_argument("--qmm", action="store_true",
                         help="also time quant_matmul (MLP f32, LeNet-5 bf16)")
+    parser.add_argument("--adam", action="store_true",
+                        help="also time the fused-Adam kernels (LeNet-5)")
     args = parser.parse_args()
-    flags = [f"--{name}" for name in ("vit", "f32", "qmm")
+    flags = [f"--{name}" for name in ("vit", "f32", "qmm", "adam")
              if getattr(args, name)]
     trees = [t.resolve() for t in args.trees]
     for tree in trees:

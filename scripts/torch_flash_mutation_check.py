@@ -27,7 +27,9 @@ In the f32 kernels:
   second's;
 - `f32_last_tile_skipped` (`flash_parity`): the f32 flash forward
   (`flash_fwd_f32`) skips its last key tile, which at S <= 128 is every
-  key.
+  key;
+- `f32_delta_dropped` (`flash_parity`): the f32 dQ kernel
+  (`flash_dq_f32`) forms dS as ``p * dP``, without ``- delta``.
 
 Each run prints its phases' JSON lines. Exits 0 only when the checkout
 passes every phase and every mutant fails its own. The checkout itself
@@ -63,6 +65,8 @@ MUTANTS = {  # name: (source, line, its mutation, the phase that must catch it)
         FLASH, "for (int kt = 0; kt < tiles; ++kt) {  // the main pass",
         "for (int kt = 0; kt < tiles - 1; ++kt) {  // the main pass",
         "flash_parity"),
+    "f32_delta_dropped": (FLASH, "ds = p * (dp[i][j] - delta_s[r]);",
+                          "ds = p * dp[i][j];", "flash_parity"),
 }
 # run in a fresh interpreter whose working directory is the tree under test
 PHASE = """

@@ -23,10 +23,13 @@ from dist_mnist_tpu_torch.models.vit import ViTTiny
 from dist_mnist_tpu_torch.ops import nn as tnn
 from dist_mnist_tpu_torch.ops import quant as tquant
 from dist_mnist_tpu_torch.ops.kernels import flash_attention as tflash
+from dist_mnist_tpu_torch.ops.kernels import fused_adam as tadam
 from dist_mnist_tpu_torch.ops.kernels.fused_adam import (
     fused_adam_clip_wd_update,
+    fused_adam_clip_wd_update_leaves,
     fused_adam_clip_wd_update_reference,
     fused_adam_update,
+    fused_adam_update_leaves,
     fused_adam_update_reference,
 )
 from dist_mnist_tpu_torch.ops.kernels.masked_flash import (
@@ -315,11 +318,65 @@ def test_fused_adam_wrapper_rejects_mixed_devices(cuda):
         fused_adam_update(g, m, v, torch.full((), 1e-3))
 
 
+def _leaves_against_one_leaf(leaves, cuda, tables):
+    """Both kernels over `leaves` ((g, m, v, p) each) in `tables`
+    launches: every leaf's delta, m' and v' the bits of the one-leaf
+    launch on it."""
+    lr_t = torch.full((), 3e-3, device=cuda)
+    scalars = torch.tensor([3e-3, 0.37, 1e-5], device=cuda)
+    g, m, v, p = (list(x) for x in zip(*leaves))
+    for fn, one, args, extra, counter in (
+            (fused_adam_update_leaves, fused_adam_update, (g, m, v), (lr_t,),
+             fused_adam_update),
+            (fused_adam_clip_wd_update_leaves, fused_adam_clip_wd_update,
+             (g, m, v, p), (scalars,), fused_adam_clip_wd_update)):
+        before = counter.launches
+        got = fn(*args, *extra)
+        torch.cuda.synchronize()
+        assert counter.launches == before + tables
+        for i in range(len(g)):
+            want = one(*(a[i] for a in args), *extra)
+            for out, ref in zip((x[i] for x in got), want):
+                assert out.shape == ref.shape and out.is_contiguous()
+                assert out.data_ptr() % 16 == 0  # the next step's float4 loop
+                assert torch.equal(out, ref)
+
+
+def test_fused_adam_leaves_equal_one_leaf_kernel_bitwise(cuda):
+    """Every ADAM_SIZES leaf in one launch: the same bits as one launch
+    per leaf (each held to the plain version above)."""
+    _leaves_against_one_leaf([_adam_operands(n, cuda, seed=n)
+                              for n in ADAM_SIZES], cuda, tables=1)
+
+
+def test_fused_adam_leaves_take_an_unaligned_leaf(cuda):
+    """One leaf whose views start off a 16-byte boundary (the scalar loop)
+    among aligned ones (the float4 loop), in one launch."""
+    leaves = [_adam_operands(n, cuda, seed=n) for n in (5120, 1001, 129)]
+    leaves[1] = tuple(t[1:] for t in leaves[1])
+    assert leaves[1][0].data_ptr() % 16 != 0
+    _leaves_against_one_leaf(leaves, cuda, tables=1)
+
+
+def test_fused_adam_leaves_past_one_table(cuda):
+    """150 leaves, more than one table holds (ViT-Tiny has 152): one
+    launch per table of `TABLE_LEAVES`."""
+    sizes = [(7 * i) % 300 + 1 for i in range(150)]
+    tables = len(tadam.adam_leaf_plan(sizes).tables)
+    assert tables == -(-150 // tadam.TABLE_LEAVES) > 1
+    _leaves_against_one_leaf([_adam_operands(n, cuda, seed=i)
+                              for i, n in enumerate(sizes)], cuda, tables)
+
+
+def test_fused_adam_table_is_the_size_the_plan_counts(cuda):
+    assert tadam._entry("dmt_fused_adam_table_bytes")() == tadam.TABLE_BYTES
+
+
 def test_ten_training_steps_on_card_launch_the_fused_kernel(cuda,
                                                            monkeypatch):
     """The headline training function on the card, tiny: every Adam
-    update goes through the kernel, 8 launches (one per LeNet-5 leaf) per
-    step, and the loss falls."""
+    update goes through the kernel, one launch over all of LeNet-5's
+    leaves per step, and the loss falls."""
     ds = load_dataset("mnist", "/nonexistent", seed=0,
                       synthetic_sizes=(2000, 500), cache_synthetic=False)
     monkeypatch.setattr(bench, "CHUNK", 2)
@@ -328,7 +385,7 @@ def test_ten_training_steps_on_card_launch_the_fused_kernel(cuda,
                              race_rounds=1, timed_steps=4)
     torch.cuda.synchronize()
     assert run.steps == 2 * 2 + 2 + 4  # race round, warm-up, timed
-    assert fused_adam_update.launches == 8 * run.steps
+    assert fused_adam_update.launches == run.steps
     assert np.isfinite(run.final_loss) and run.final_loss < run.first_loss
     assert run.record["extra"]["device_kind"] == \
         torch.cuda.get_device_name(cuda)
@@ -571,17 +628,18 @@ def test_flash_forward_unaligned_views(cuda, s, block_k, dtype):
     _check_forward(q, k, v, block_k)
 
 
-def _check_bf16_backward(q, k, v, seed, lengths=None):
-    """One bf16 dQ and one dK/dV launch (the tensor-core kernels) against
-    the plain version, from the plain forward's lse and delta: dq, dk, dv
-    within 1e-2 of the largest value of the same gradient, or of 2^-8 of
+def _check_backward(q, k, v, seed, lengths=None):
+    """One dQ and one dK/dV launch (bf16: the tensor-core kernels, f32: the
+    register-tiled CUDA-core ones) against the plain version, from the
+    plain forward's lse and delta: dq, dk, dv within the dtype's
+    `FLASH_TOL` of the largest value of the same gradient, or of 2^-8 of
     the call's largest gradient where that is larger (at S = 1 dq and dk
     are 0 in exact arithmetic, and the kernel's f32 dP - delta, summed in
     another order than delta, leaves ~1e-7 there). Returns the grads."""
     b, sq, h, d = q.shape
     rng = np.random.default_rng(seed)
     do = torch.from_numpy(rng.standard_normal((b, sq, h, d))
-                          .astype(np.float32)).to(q.device, torch.bfloat16)
+                          .astype(np.float32)).to(q.device, q.dtype)
     if lengths is None:
         out, lse = tflash.flash_attention_forward_reference(q, k, v)
     else:
@@ -607,43 +665,48 @@ def _check_bf16_backward(q, k, v, seed, lengths=None):
     torch.cuda.synchronize()
     want = tflash.flash_attention_backward_reference(q, k, v, do, lse, delta,
                                                      lengths)
+    tol = FLASH_TOL[q.dtype][1]
     top = max(float(w.float().abs().max()) for w in want)
     for got, ref in zip(grads, want):
-        assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+        assert got.dtype == q.dtype and got.shape == ref.shape
         scale = max(float(ref.float().abs().max()), top / 256)
-        assert float((got.float() - ref.float()).abs().max()) <= 1e-2 * scale
+        assert float((got.float() - ref.float()).abs().max()) <= tol * scale
     return grads
 
 
+BACKWARD_DTYPES = [torch.bfloat16, torch.float32]
+
+
+@pytest.mark.parametrize("dtype", BACKWARD_DTYPES)
 @pytest.mark.parametrize("s", [1, 17, 65, 128, 129, 300])
-def test_bf16_flash_backward_matches_plain_version(cuda, s):
-    """The tensor-core dQ and dK/dV kernels on the fused projection's
-    strided views: the whole other axis staged up to S = 128, tiles of 64
-    above."""
-    _check_bf16_backward(*_qkv(3, s, 2, 64, torch.bfloat16, cuda, seed=s),
-                         seed=s + 1)
+def test_flash_backward_matches_plain_version(cuda, s, dtype):
+    """Both backward routes on the fused projection's strided views: the
+    whole other axis staged up to S = 128, tiles of 64 above."""
+    _check_backward(*_qkv(3, s, 2, 64, dtype, cuda, seed=s), seed=s + 1)
 
 
+@pytest.mark.parametrize("dtype", BACKWARD_DTYPES)
 @pytest.mark.parametrize("s", [65, 300])
 @pytest.mark.parametrize("d", [16, 40, 128])
-def test_bf16_flash_backward_head_dims(cuda, d, s):
+def test_flash_backward_head_dims(cuda, d, s, dtype):
     """Contiguous q, k, v at the padded head dims, D = 40 zero-padded to
     64, D = 128 past 48 KB of shared memory at S = 300."""
-    _check_bf16_backward(*_qkv(2, s, 2, d, torch.bfloat16, cuda, seed=d + s,
-                               fused=False), seed=d)
+    _check_backward(*_qkv(2, s, 2, d, dtype, cuda, seed=d + s, fused=False),
+                    seed=d)
 
 
+@pytest.mark.parametrize("dtype", BACKWARD_DTYPES)
 @pytest.mark.parametrize("s", [65, 129])
-def test_bf16_flash_backward_unaligned_views(cuda, s):
+def test_flash_backward_unaligned_views(cuda, s, dtype):
     """Views one element off their buffers' 16-byte starts: the backward
     stages them by plain loads, with the same answers."""
     b, h, d = 2, 3, 64
     n = b * s * h * d
     bufs = [torch.from_numpy(np.random.default_rng(i).standard_normal(
-        n + 1).astype(np.float32)).to(cuda, torch.bfloat16) for i in range(3)]
+        n + 1).astype(np.float32)).to(cuda, dtype) for i in range(3)]
     q, k, v = (t[1:].view(b, s, h, d) for t in bufs)
     assert not tflash.views_aligned16(q, k, v)
-    _check_bf16_backward(q, k, v, seed=s)
+    _check_backward(q, k, v, seed=s)
 
 
 @pytest.mark.parametrize("layout,d,offset,expect", [
@@ -669,34 +732,53 @@ def test_backward_staging_rule_agrees_with_views_aligned16(
         assert got == tflash.views_aligned16(t) == expect
 
 
+@pytest.mark.parametrize("b,h", [(1, 1), (2, 2), (64, 3), (1024, 8)])
+def test_f32_backward_plan_agrees_with_the_c_entry(cuda, b, h):
+    """The C entry points compute the f32 backward's plans themselves
+    (`dmt_flash_f32_backward_plan`); at every shape they are the
+    wrapper's `f32_backward_plan`."""
+    import ctypes
+
+    rule = tflash._entry("dmt_flash_f32_backward_plan")
+    for sq, sk in ((1, 1), (65, 65), (128, 128), (129, 129), (300, 300),
+                   (1, 4096), (7, 200), (130, 65)):
+        for d in (16, 40, 64, 128):
+            out = (ctypes.c_int * 6)()
+            rule(b, sq, sk, h, d, out)
+            want = tflash.f32_backward_plan(b, sq, sk, h, d)
+            assert tuple(out) == (*want[0], *want[1]), (b, sq, sk, h, d)
+
+
+@pytest.mark.parametrize("dtype", BACKWARD_DTYPES)
 @pytest.mark.parametrize("sq,sk,masked", [(7, 200, False), (130, 65, False),
                                           (1, 300, True), (70, 33, True)])
-def test_bf16_flash_backward_takes_sq_ne_sk(cuda, sq, sk, masked):
+def test_flash_backward_takes_sq_ne_sk(cuda, sq, sk, masked, dtype):
     """The kernels take Sq and Sk apart (the masked decode shapes): a dQ
     block walks Sk keys, a dK/dV block Sq queries."""
     b, h, d = 3, 2, 64
     rng = np.random.default_rng(sq + sk)
     q, k, v = (torch.from_numpy(rng.standard_normal((b, n, h, d)).astype(
-        np.float32)).to(cuda, torch.bfloat16) for n in (sq, sk, sk))
+        np.float32)).to(cuda, dtype) for n in (sq, sk, sk))
     lengths = (torch.tensor([1, sk // 2, sk], dtype=torch.int32, device=cuda)
                if masked else None)
-    _check_bf16_backward(q, k, v, seed=sq, lengths=lengths)
+    _check_backward(q, k, v, seed=sq, lengths=lengths)
 
 
-def test_bf16_flash_backward_is_bitwise_repeatable(cuda):
+@pytest.mark.parametrize("dtype", BACKWARD_DTYPES)
+def test_flash_backward_is_bitwise_repeatable(cuda, dtype):
     """No atomics: at ViT's shape dq, dk and dv are the same bits twice
     and under another stream, unmasked and masked."""
-    q, k, v = _qkv(64, 65, 3, 64, torch.bfloat16, cuda, seed=5)
+    q, k, v = _qkv(64, 65, 3, 64, dtype, cuda, seed=5)
     lengths = torch.arange(2, 66, dtype=torch.int32, device=cuda)
     for lens in (None, lengths):
         qc, kc, vc = ((q, k, v) if lens is None
                       else (t.contiguous() for t in (q, k, v)))
-        first = _check_bf16_backward(qc, kc, vc, seed=6, lengths=lens)
-        again = _check_bf16_backward(qc, kc, vc, seed=6, lengths=lens)
+        first = _check_backward(qc, kc, vc, seed=6, lengths=lens)
+        again = _check_backward(qc, kc, vc, seed=6, lengths=lens)
         stream = torch.cuda.Stream()
         stream.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(stream):
-            other = _check_bf16_backward(qc, kc, vc, seed=6, lengths=lens)
+            other = _check_backward(qc, kc, vc, seed=6, lengths=lens)
         torch.cuda.current_stream().wait_stream(stream)
         torch.cuda.synchronize()
         for a, b2, c in zip(first, again, other):
@@ -723,17 +805,17 @@ def test_flash_attention_lse_backward_takes_dlse_on_card(cuda):
         assert _rel_err(got, want) <= 1e-4
 
 
-def test_masked_backward_zero_past_length_on_card(cuda):
-    """ViT's shape with lengths 1 .. 65: dK and dV past each row's length
-    are exact zeros, the kernels entered exactly ceil(len / tile) key
-    tiles, and the grads match the plain version."""
+@pytest.mark.parametrize("dtype", BACKWARD_DTYPES)
+def test_masked_backward_zero_past_length_on_card(cuda, dtype):
+    """ViT's shape with lengths 1 .. 65, both routes: dK and dV past each
+    row's length are exact zeros, the kernels entered exactly ceil(len /
+    tile) key tiles, and the grads match the plain version."""
     b, s, h, d = 65, 65, 3, 64
-    q, k, v = (t.contiguous() for t in _qkv(b, s, h, d, torch.bfloat16,
-                                            cuda, seed=9))
+    q, k, v = (t.contiguous() for t in _qkv(b, s, h, d, dtype, cuda, seed=9))
     lens = np.arange(1, b + 1, dtype=np.int32)
     lengths = torch.from_numpy(lens).to(cuda)
     do = torch.randn(b, s, h, d, generator=torch.Generator().manual_seed(2)
-                     ).to(cuda, torch.bfloat16)
+                     ).to(cuda, dtype)
     before = masked_flash_attention_backward.launches
     dq, dk, dv, dq_vis, dkv_vis = masked_flash_attention_backward_probe(
         q, k, v, lengths, do)
@@ -753,7 +835,7 @@ def test_masked_backward_zero_past_length_on_card(cuda):
     want = tflash.flash_attention_backward_reference(q, k, v, do, lse, delta,
                                                      lengths)
     for got, ref in zip((dq, dk, dv), want):
-        assert _rel_err(got, ref) <= 1e-2
+        assert _rel_err(got, ref) <= FLASH_TOL[dtype][1]
 
 
 def test_vit_remat_step_launch_counts(cuda):

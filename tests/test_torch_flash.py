@@ -476,3 +476,74 @@ def test_f32_forward_plan_at_vit_shape():
     assert _f32_forward_smem(rows, ktile, 64) == 57_584
     x = torch.zeros(2, 65, 3, 3, 64)
     assert tfa.views_aligned16(*x.unbind(2))  # 16-byte cp.async staging
+
+
+@pytest.mark.parametrize("sq,sk", [(1, 1), (17, 17), (65, 65), (128, 128),
+                                   (129, 129), (300, 300), (1000, 1000),
+                                   (1, 4096), (7, 200), (130, 65)])
+@pytest.mark.parametrize("b,h", [(1, 1), (2, 2), (64, 3), (1024, 8)])
+def test_f32_backward_plan_covers_the_rows_and_fits_a_block(b, h, sq, sk):
+    """The f32 backward's plans, functions of the shape alone: dQ's groups
+    of query rows and dK/dV's groups of key rows cover every row exactly
+    once, in multiples of 4 up to 64; the other axis in one tile up to 128
+    rows and tiles of 64 above; whole warps up to 256 threads with at most
+    two 4 x 4 output tiles each in dQ and one of dK and of dV each in
+    dK/dV; and at every head dim a block's shared memory fits the 227 KB
+    an H100 block may take."""
+    for d in (1, 16, 17, 40, 64, 65, 128):
+        plans = tfa.f32_backward_plan(b, sq, sk, h, d)
+        assert plans == tfa.f32_backward_plan(b, sq, sk, h, d)
+        for kernel, (rows, tile, threads), own, other in zip(
+                ("dq", "dkv"), plans, (sq, sk), (sk, sq)):
+            assert rows % 4 == 0 and 4 <= rows <= 64
+            groups = -(-own // rows)
+            covered = [r for g in range(groups)
+                       for r in range(g * rows, min((g + 1) * rows, own))]
+            assert covered == list(range(own))
+            assert tile % 4 == 0 and (tile >= other if other <= 128
+                                      else tile == 64)
+            assert threads % 32 == 0 and 64 <= threads <= 256
+            out_tiles = rows // 4 * (tfa.padded_head_dim(d) // 4)
+            per = tfa.F32_OUT_TILES if kernel == "dq" else 1
+            assert out_tiles <= per * threads
+            assert tfa.f32_backward_smem(kernel, rows, tile, d) <= 232_448
+
+
+def _f32_backward_smem(kernel: str, rows: int, tile: int, d: int) -> int:
+    """Shared-memory bytes of one f32 backward block (csrc/flash_attention.cu
+    `f32_bwd_smem`): the block's rows and the other axis's tile (Q, dO and
+    K, V), rows padded by 4 floats; dS (and P^T in dK/dV) in rows of 4
+    more than a multiple of 8 floats; lse and delta of the query rows it
+    holds."""
+    pitch = tfa.padded_head_dim(d) + 4
+    pp = tile + 4 if tile % 8 == 0 else tile
+    if kernel == "dq":
+        return 4 * ((2 * rows + 2 * tile) * pitch + rows * pp + 2 * rows)
+    return 4 * ((2 * rows + 2 * tile) * pitch + 2 * rows * pp + 2 * tile)
+
+
+def test_f32_backward_plan_at_vit_shape():
+    """ViT-Tiny's call in f32 (B = 64, S = 65, H = 3, D = 64): both kernels
+    take each (b, h) in two groups of 36 rows (384 blocks each) against the
+    other axis's 65 rows in one tile of 68, 160 threads; a dQ block takes
+    66,656 bytes of shared memory, a dK/dV block 76,704, so three of either
+    fit an SM (233,472 bytes, 1 KB of it reserved per block). At D = 128
+    and S = 300 the blocks still fit, and at S = 128 with many (b, h) the
+    blocks' rows are cut: dQ's to fit the shared memory, dK/dV's so that
+    256 threads hold one tile of its output each."""
+    vit = tfa.f32_backward_plan(64, 65, 65, 3, 64)
+    assert vit == ((36, 68, 160), (36, 68, 160))
+    assert 64 * 3 * -(-65 // 36) == 384
+    assert tfa.f32_backward_smem("dq", 36, 68, 64) == _f32_backward_smem(
+        "dq", 36, 68, 64) == 66_656
+    assert tfa.f32_backward_smem("dkv", 36, 68, 64) == _f32_backward_smem(
+        "dkv", 36, 68, 64) == 76_704
+    assert 3 * (76_704 + 1024) <= 233_472
+    for b, s in ((1, 300), (1024, 300), (1024, 128)):
+        for kernel, (rows, tile, _) in zip(
+                ("dq", "dkv"), tfa.f32_backward_plan(b, s, s, 8, 128)):
+            assert _f32_backward_smem(kernel, rows, tile, 128) <= 232_448
+            assert tfa.f32_backward_smem(kernel, rows, tile, 128) == \
+                _f32_backward_smem(kernel, rows, tile, 128)
+    assert tfa.f32_backward_plan(1024, 128, 128, 8, 128) == (
+        (60, 128, 256), (32, 128, 256))

@@ -26,10 +26,15 @@ from dist_mnist_tpu import optim as jopt
 from dist_mnist_tpu_torch import configs as tconfigs
 from dist_mnist_tpu_torch import optim as topt
 from dist_mnist_tpu_torch.convert import params_from_jax
+from dist_mnist_tpu.ops.pallas import fused_adam as jfused
+from dist_mnist_tpu_torch.ops.kernels import fused_adam as tfused
 from dist_mnist_tpu_torch.ops.kernels.fused_adam import (
+    adam_leaf_plan,
     fused_adam_clip_wd_update,
+    fused_adam_clip_wd_update_leaves,
     fused_adam_cost,
     fused_adam_update,
+    fused_adam_update_leaves,
 )
 from dist_mnist_tpu_torch.utils.tree import flatten_with_path
 
@@ -214,3 +219,107 @@ def test_cost_counts_the_bytes_each_pass_must_move():
     assert fused_adam_cost(numels)["hbm_bytes"] == 24 * 1_663_370
     assert fused_adam_cost(numels, clip_wd=True)["hbm_bytes"] == \
         28 * 1_663_370
+
+
+#: LeNet-5's leaf sizes; ViT-Tiny's 152 (depth 12: per block two layer
+#: norms' scale and bias, qkv, out, two MLP layers' weight and bias; then
+#: the patch embedding, class token, position embedding, the final norm
+#: and the head at 10 classes), in `flatten_with_path` order
+LENET_NUMELS = [32, 800, 64, 51200, 512, 1605632, 10, 5120]
+VIT_NUMELS = [192, 36864, 576, 110592, 192, 192, 192, 192, 768, 147456,
+              192, 147456] * 12 + [192, 192, 192, 10, 1920, 192, 9216, 12480]
+
+
+def test_vit_numels_are_vit_tiny_leaves():
+    from dist_mnist_tpu_torch.models.vit import ViTTiny
+
+    params, _ = ViTTiny().init(torch.Generator().manual_seed(0),
+                               torch.zeros(1, 32, 32, 3))
+    assert [t.numel() for _, t in flatten_with_path(params)] == VIT_NUMELS
+
+
+@pytest.mark.parametrize("numels", [LENET_NUMELS, VIT_NUMELS, [1, 7, 129],
+                                    [0, 5, 0, 4096, 4097, 3]],
+                         ids=["lenet5", "vit_tiny", "ragged", "empty"])
+def test_adam_leaf_plan_offsets_are_multiples_of_4(numels):
+    """Every leaf's outputs start on a multiple of 4 elements (16 bytes,
+    so the next step's m and v take the float4 loop) and do not overlap."""
+    plan = adam_leaf_plan(numels)
+    assert len(plan.offsets) == len(numels)
+    ends = 0
+    for off, n in zip(plan.offsets, numels):
+        assert off % 4 == 0 and off >= ends
+        ends = off + n
+    assert plan.total >= ends and plan.total % 4 == 0
+
+
+@pytest.mark.parametrize("numels", [LENET_NUMELS, VIT_NUMELS, [1, 7, 129],
+                                    [0, 5, 0, 4096, 4097, 3]],
+                         ids=["lenet5", "vit_tiny", "ragged", "empty"])
+def test_adam_leaf_plan_chunks_cover_each_leaf_once(numels):
+    """Each table's chunks (one block each) run 0 .. chunks - 1, each leaf
+    takes ceil(n / CHUNK) consecutive ones from its first, and every leaf
+    with elements is in exactly one table, in order."""
+    plan = adam_leaf_plan(numels)
+    seen = []
+    for leaves, firsts, chunks in plan.tables:
+        owner = []
+        for i, first in zip(leaves, firsts):
+            assert first == len(owner)
+            owner += [i] * -(-numels[i] // tfused.CHUNK)
+        assert len(owner) == chunks > 0
+        for i in leaves:  # the chunks of a leaf hold its elements once
+            assert owner.count(i) * tfused.CHUNK >= numels[i] > (
+                owner.count(i) - 1) * tfused.CHUNK
+        seen += leaves
+    assert seen == [i for i, n in enumerate(numels) if n > 0]
+
+
+def test_adam_leaf_plan_splits_vit_tiny_into_tables_that_fit_4kb():
+    """ViT-Tiny's 152 leaves: more than one table, each of at most
+    `TABLE_LEAVES` leaves, whose bytes with the launch's four pointers and
+    five f32 constants fit the 4 KB a launch's parameters may take."""
+    assert len(VIT_NUMELS) == 152
+    plan = adam_leaf_plan(VIT_NUMELS)
+    assert [len(t[0]) for t in plan.tables] == [64, 64, 24]
+    assert all(len(t[0]) <= tfused.TABLE_LEAVES for t in plan.tables)
+    assert tfused.TABLE_BYTES + 4 * 8 + 5 * 4 <= 4096
+    assert len(adam_leaf_plan(LENET_NUMELS).tables) == 1
+
+
+def _leaf_arrays(seed):
+    rng = np.random.default_rng(seed)
+    shapes = [leaf for layer in LENET_SHAPES.values()
+              for leaf in layer.values()]
+    return [[rng.standard_normal(sh).astype(np.float32) * scale
+             for sh in shapes] for scale in (1.0, 0.1, 0.01, 1.0)]
+
+
+@pytest.mark.parametrize("clip_wd", [False, True], ids=["adam", "clip_wd"])
+def test_leaves_update_matches_jax_kernel_leaf_by_leaf(clip_wd):
+    """LeNet-5's 8 leaves through one `*_leaves` call (on the CPU: the
+    plain version, leaf by leaf) against the JAX Pallas kernels (interpret
+    mode) one leaf at a time: delta, m' and v' within `TOL` of the largest
+    value per leaf."""
+    g, m, v, p = _leaf_arrays(3)
+    v = [np.abs(x) for x in v]
+    lr_t, clip, wd = np.float32(3e-3), np.float32(0.37), np.float32(1e-5)
+    tg, tm, tv, tp = ([torch.from_numpy(x.copy()) for x in xs]
+                      for xs in (g, m, v, p))
+    if clip_wd:
+        got = fused_adam_clip_wd_update_leaves(
+            tg, tm, tv, tp, torch.tensor([lr_t, clip, wd]))
+    else:
+        got = fused_adam_update_leaves(tg, tm, tv, torch.tensor(lr_t))
+    for i in range(len(g)):
+        if clip_wd:
+            want = jfused.fused_adam_clip_wd_update(
+                jnp.asarray(g[i]), jnp.asarray(m[i]), jnp.asarray(v[i]),
+                jnp.asarray(p[i]), lr_t, clip, wd)
+        else:
+            want = jfused.fused_adam_update(
+                jnp.asarray(g[i]), jnp.asarray(m[i]), jnp.asarray(v[i]),
+                lr_t)
+        for out, ref in zip((x[i] for x in got), want):
+            assert out.shape == ref.shape
+            assert _rel_err(out.numpy(), ref) <= TOL
