@@ -29,7 +29,9 @@ script. Phases (any failure exits nonzero before the final `ok` line):
    of 32, table widths 1 to 128, lengths 1 to 4096) and
    `masked_flash_attention` (`masked_parity`: Sq 1 against Sk 64 and 4096,
    Sq 7 and 128 against Sk 256) within 1e-5 of the largest output, with
-   the pages or key blocks they visit counted; the flash kernels (phase
+   the pages or key blocks they visit counted, and each decode kernel's
+   bits the same on a second call and on a second stream
+   (`decode_repeat`); the flash kernels (phase
    `flash_parity`): the forward's out and lse and the backward's dq, dk,
    dv at ViT's shape (S = 65, 3 heads of 64) for B in {1, 7, 64} in bf16
    and f32, at S = 17 and 300 with block_k = 128, the bf16 tensor-core
@@ -114,7 +116,11 @@ script. Phases (any failure exits nonzero before the final `ok` line):
    graph of back-to-back calls timed with CUDA events, and compute its
    bound: max(bytes / memory rate, FLOPs / peak rate for the operands'
    type) for the card, and for the flash rows the same bound for the
-   products the kernels themselves run (`design_bound_ms`);
+   products the kernels themselves run (`design_bound_ms`); the decode
+   kernels also at every length 4096 (the long context) and the masked
+   forward at Sq > 1 (B = 64, S = 65, H = 3, D = 64, bf16 and f32), each
+   beside its launch floor (an empty kernel of the same grid, block and
+   arguments);
 11. print the `{"kernels": [...]}` line (eight kernels), then, last, the
    `ok` line.
 """
@@ -424,6 +430,9 @@ DEC_ROWS, DEC_HEADS, DEC_DIM, DEC_PAGE, DEC_SEQ = 9, 8, 16, 32, 4096
 #: one decode step's lengths (pos + 1) on that path: 8 live rows of short
 #: requests (prompt <= 32, <= 32 new tokens) and the scratch row
 DEC_LENGTHS = [33, 47, 21, 58, 40, 64, 29, 51, 1]
+#: the parity mix of lengths (every edge of a 32-token page and a 32-key
+#: block, and the full cache)
+DEC_MIX = [1, 31, 32, 33, 64, 4096, 1, 4096, 33]
 
 
 def _kv_pool(torch, quant_mod, gen, pages, dev):
@@ -468,7 +477,7 @@ def decode_kernel_parity(torch, dev) -> dict:
     )
 
     worst = {"paged_attention": 0.0, "masked_flash_attention": 0.0}
-    mix = [1, 31, 32, 33, 64, 4096, 1, 4096, 33]
+    mix = DEC_MIX
     for n in (1, 2, 4, 8, 128):
         for shift in range(2):  # every length on more than one row
             lengths = mix[shift:] + mix[:shift]
@@ -651,46 +660,109 @@ def decode_profile(torch, dev) -> dict:
     return out
 
 
-def time_decode_kernels(torch, dev, bw: float, f32_peak: float) -> dict:
-    """Both decode kernels at one decode step of the path (`DEC_LENGTHS`:
-    paged_attention at table width 2, masked_flash_attention at Sq=1
-    against the dense max_seq=4096 cache) beside their plain versions, a
-    torch yardstick, and the bound, each timed by `graph_ms` (L2 warm: one
-    step's operands are a few hundred KB).
+def _same_bits(torch, a, b) -> bool:
+    return torch.equal(a.contiguous().view(torch.uint8),
+                       b.contiguous().view(torch.uint8))
 
-    Yardsticks: no one torch call computes paged int8 attention, so kernel
-    1's is a COMPOSITE (gather the table's pages, dequantize, then
-    `F.scaled_dot_product_attention` with the prefix mask); kernel 2's is
-    the one call `F.scaled_dot_product_attention(q, k, v,
+
+def decode_repeat(torch, dev) -> dict:
+    """Each decode kernel gives the same bits on a second call and on a
+    second stream: `paged_attention` at table widths 2 (`DEC_LENGTHS`) and
+    128 (`DEC_MIX`), the masked forward at Sq = 1 against Sk = 4096
+    (`DEC_MIX`) in f32 and bf16. Fails on any difference."""
+    from dist_mnist_tpu_torch.ops import quant as quant_mod
+    from dist_mnist_tpu_torch.ops.kernels.masked_flash import (
+        masked_flash_attention,
+    )
+    from dist_mnist_tpu_torch.ops.kernels.paged_attention import (
+        paged_attention,
+    )
+
+    cases = []
+    for n, lengths in ((2, DEC_LENGTHS), (128, DEC_MIX)):
+        ops = _paged_operands(torch, quant_mod, dev, n, lengths, seed=200 + n)
+        cases.append((f"paged_attention n_pages={n}",
+                       lambda ops=ops: paged_attention(*ops)))
+    gen = torch.Generator().manual_seed(11)
+    lens = torch.tensor(DEC_MIX, dtype=torch.int32, device=dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        qkv = tuple(torch.randn(DEC_ROWS, s, DEC_HEADS, DEC_DIM, generator=gen)
+                    .to(dev, dtype) for s in (1, DEC_SEQ, DEC_SEQ))
+        cases.append((f"masked_flash_attention sq=1 sk={DEC_SEQ} {dtype}",
+                      lambda qkv=qkv: masked_flash_attention(*qkv, lens)))
+    out = {}
+    for name, fn in cases:
+        first, again = fn(), fn()
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            other = fn()
+        torch.cuda.current_stream().wait_stream(stream)
+        torch.cuda.synchronize()
+        same = (_same_bits(torch, first, again)
+                and _same_bits(torch, first, other))
+        out[name] = same
+        print(json.dumps({"phase": "decode_repeat", "case": name,
+                          "bitwise_twice_and_other_stream": same}),
+              flush=True)
+        if not same:
+            fail(f"decode_repeat: {name} gives other bits on a second call "
+                 "or stream")
+    return out
+
+
+def time_decode_kernels(torch, dev, bw: float, f32_peak: float,
+                        bf16_peak: float = 989e12) -> dict:
+    """Both decode kernels at one decode step of the path (`DEC_LENGTHS`:
+    paged_attention at table widths 2 and 128, masked_flash_attention at
+    Sq=1 against the dense max_seq=4096 cache), at every length 4096 (the
+    long context: paged width 128, masked Sq = 1 against Sk = 4096), and
+    the masked forward's Sq > 1 route at the masked backward's shape (B =
+    64, S = 65, H = 3, D = 64, lengths 2..65, bf16 and f32), beside their
+    plain versions, a torch yardstick, the bound and the launch floor,
+    each timed by `graph_ms` (L2 warm).
+
+    Yardsticks: no one torch call computes paged int8 attention, so the
+    paged rows' is a COMPOSITE (gather the table's pages, dequantize, then
+    `F.scaled_dot_product_attention` with the prefix mask); the masked
+    rows' is the one call `F.scaled_dot_product_attention(q, k, v,
     attn_mask=prefix_mask)` on [B, H, S, D] copies of the operands. The
-    port calls neither. Bounds: the bytes each call must move (kernel 1:
-    the ACTIVE pages' int8 tiles and scales, `paged_attention_cost`
-    "active_bytes"; kernel 2: each row's first `len` K and V rows) over
-    the memory rate, against the f32 operations over the f32 peak."""
+    port calls neither. Bounds: the bytes each call must move (paged: the
+    ACTIVE pages' int8 tiles and scales, `paged_attention_cost`
+    "active_bytes"; masked: each row's first `len` K and V rows) over the
+    memory rate, against the operations over the operands' peak (f32, or
+    bf16 for the bf16 row). `launch_floor_ms`: an empty kernel with the
+    kernel's grid, block and arguments (`*_launch_floor`)."""
     import torch.nn.functional as F
 
     from dist_mnist_tpu_torch.ops import quant as quant_mod
     from dist_mnist_tpu_torch.ops.kernels.masked_flash import (
         masked_flash_attention,
+        masked_flash_attention_launch_floor,
         masked_flash_attention_reference,
         masked_flash_cost,
     )
     from dist_mnist_tpu_torch.ops.kernels.paged_attention import (
         paged_attention,
         paged_attention_cost,
+        paged_attention_launch_floor,
         paged_attention_reference,
     )
 
-    def bound(cost_bytes, flops):
-        t_bytes, t_ops = cost_bytes / bw * 1e3, flops / f32_peak * 1e3
+    def bound(cost_bytes, flops, peak=f32_peak):
+        t_bytes, t_ops = cost_bytes / bw * 1e3, flops / peak * 1e3
         return {"bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "bound_bytes": cost_bytes, "bound_flops": flops}
 
     out = {}
-    for n in (2, 128):  # the path's bucket, and the widest table
+    # the path's bucket, the widest table, and the widest table full
+    for key, n, lengths in ((("paged_attention", 2), 2, DEC_LENGTHS),
+                            (("paged_attention", 128), 128, DEC_LENGTHS),
+                            (("paged_attention", 128, "len4096"), 128,
+                             [DEC_SEQ] * DEC_ROWS)):
         q, kp, vp, table, lens = _paged_operands(
-            torch, quant_mod, dev, n, DEC_LENGTHS, seed=99)
+            torch, quant_mod, dev, n, lengths, seed=99)
         idx = table.long()
         mask = (torch.arange(n * DEC_PAGE, device=dev)[None, :]
                 < lens[:, None])[:, None, None, :]
@@ -707,6 +779,9 @@ def time_decode_kernels(torch, dev, bw: float, f32_peak: float) -> dict:
                                     DEC_HEADS, DEC_DIM)
         row = {"kernel_ms": graph_ms(torch, lambda: paged_attention(
                    q, kp, vp, table, lens)),
+               "launch_floor_ms": graph_ms(
+                   torch, lambda: paged_attention_launch_floor(
+                       q, kp, vp, table, lens)),
                "plain_ms": graph_ms(torch, lambda: paged_attention_reference(
                    q, kp, vp, table, lens)),
                "library_ms": None,
@@ -715,34 +790,58 @@ def time_decode_kernels(torch, dev, bw: float, f32_peak: float) -> dict:
                "composite_ms": graph_ms(torch, composite),
                "reference_cost_hbm_bytes": cost["hbm_bytes"],
                **bound(cost["active_bytes"], cost["flops"])}
-        out[("paged_attention", n)] = row
+        out[key] = row
         print(json.dumps({"phase": "time", "kernel": "paged_attention",
-                          "n_pages": n, "lengths": DEC_LENGTHS, **row}),
-              flush=True)
+                          "n_pages": n, "lengths": lens.cpu().tolist(),
+                          **row}), flush=True)
+
+    def masked_row(key, q, k, v, lens, peak, **fields):
+        b, sq, h, d = q.shape
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        mask = (torch.arange(k.shape[1], device=dev)[None, :]
+                < lens[:, None])[:, None, None, :]
+        cost = masked_flash_cost(lens.cpu().numpy(), sq, h, d,
+                                 itemsize=q.element_size())
+        row = {"kernel_ms": graph_ms(torch, lambda: masked_flash_attention(
+                   q, k, v, lens)),
+               "launch_floor_ms": graph_ms(
+                   torch, lambda: masked_flash_attention_launch_floor(
+                       q, k, v, lens)),
+               "plain_ms": graph_ms(
+                   torch, lambda: masked_flash_attention_reference(
+                       q, k, v, lens)),
+               "library": "F.scaled_dot_product_attention(q, k, v, "
+                          "attn_mask=prefix_mask)",
+               "library_ms": graph_ms(
+                   torch, lambda: F.scaled_dot_product_attention(
+                       qt, kt, vt, attn_mask=mask)),
+               **bound(cost["hbm_bytes"], cost["flops"], peak)}
+        out[key] = row
+        print(json.dumps({"phase": "time", "kernel": "masked_flash_attention",
+                          "sq": sq, "sk": k.shape[1], "dtype": str(q.dtype),
+                          **fields, **row}), flush=True)
+
     gen = torch.Generator().manual_seed(7)
     q, k, v = (torch.randn(DEC_ROWS, s, DEC_HEADS, DEC_DIM,
                            generator=gen).to(dev) for s in (1, DEC_SEQ,
                                                             DEC_SEQ))
-    lens = torch.tensor(DEC_LENGTHS, dtype=torch.int32, device=dev)
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    mask = (torch.arange(DEC_SEQ, device=dev)[None, :]
-            < lens[:, None])[:, None, None, :]
-    cost = masked_flash_cost(DEC_LENGTHS, 1, DEC_HEADS, DEC_DIM)
-    row = {"kernel_ms": graph_ms(torch, lambda: masked_flash_attention(
-               q, k, v, lens)),
-           "plain_ms": graph_ms(torch, lambda: masked_flash_attention_reference(
-               q, k, v, lens)),
-           "library": "F.scaled_dot_product_attention(q, k, v, "
-                      "attn_mask=prefix_mask)",
-           "library_ms": graph_ms(torch, lambda: F.scaled_dot_product_attention(
-               qt, kt, vt, attn_mask=mask)),
-           **bound(cost["hbm_bytes"], cost["flops"])}
-    out[("masked_flash_attention", DEC_SEQ)] = row
-    print(json.dumps({"phase": "time", "kernel": "masked_flash_attention",
-                      "sq": 1, "sk": DEC_SEQ, "lengths": DEC_LENGTHS, **row}),
-          flush=True)
+    masked_row(("masked_flash_attention", DEC_SEQ), q, k, v,
+               torch.tensor(DEC_LENGTHS, dtype=torch.int32, device=dev),
+               f32_peak, lengths=DEC_LENGTHS)
+    masked_row(("masked_flash_attention", DEC_SEQ, "len4096"), q, k, v,
+               torch.full((DEC_ROWS,), DEC_SEQ, dtype=torch.int32, device=dev),
+               f32_peak, lengths=f"{DEC_SEQ} x {DEC_ROWS}")
+    # the route this decode work leaves as it was: Sq > 1 at the masked
+    # backward's shape
+    gen = torch.Generator().manual_seed(8)
+    b, s_len, h, d = 64, 65, 3, 64
+    lens = torch.arange(2, b + 2, dtype=torch.int32, device=dev)
+    for dtype, peak in ((torch.bfloat16, bf16_peak), (torch.float32, f32_peak)):
+        q, k, v = (torch.randn(b, s_len, h, d, generator=gen).to(dev, dtype)
+                   for _ in range(3))
+        masked_row(("masked_flash_attention_sq65", str(dtype)), q, k, v, lens,
+                   peak, lengths="2..65")
     return out
-
 
 
 #: the int8 MLP's served logits against the plain engine's: f32 sums in
@@ -1716,6 +1815,7 @@ def main() -> None:
     from dist_mnist_tpu_torch.ops.kernels.masked_flash import (
         masked_flash_attention,
         masked_flash_attention_backward,
+        masked_forward_body,
     )
     from dist_mnist_tpu_torch.ops.kernels.paged_attention import (
         paged_attention,
@@ -1774,8 +1874,9 @@ def main() -> None:
     # both fused-Adam kernels against their plain versions: LeNet-5's leaf
     # sizes and sizes that leave a tail after the float4 loads
     adam_worst = adam_parity(torch, dev)
-    # both decode kernels at the decode path's shapes
+    # both decode kernels at the decode path's shapes, and their bits
     decode_worst = decode_kernel_parity(torch, dev)
+    decode_repeat(torch, dev)
     # the flash kernels at ViT's shapes, and the masked backward
     flash_worst = flash_parity(torch, dev)
 
@@ -2043,7 +2144,8 @@ def main() -> None:
         print(json.dumps({"phase": "time", "shape": label, "m": m,
                           "dtype": str(x.dtype), **row}), flush=True)
     adam_timed = time_adam(torch, dev, state, bw, peaks["float32"])
-    decode_timed = time_decode_kernels(torch, dev, bw, peaks["float32"])
+    decode_timed = time_decode_kernels(torch, dev, bw, peaks["float32"],
+                                       peaks["bfloat16"])
     flash_timed = time_flash_kernels(torch, dev, bw, peaks)
 
     # -- 11. result ----------------------------------------------------------
@@ -2074,22 +2176,30 @@ def main() -> None:
             "fc1_w_ms": adam_timed[(name, "fc1/w")]["kernel_ms"],
         })
     decode_rows = []
-    for name, key, src, src_line, launches_on_path, shape in (
-            ("paged_attention", ("paged_attention", 2), "paged_attention",
+    for name, key, long_key, src, src_line, launches_on_path, body, shape in (
+            ("paged_attention", ("paged_attention", 2),
+             ("paged_attention", 128, "len4096"), "paged_attention",
              "paged_attention.py:65", decode_counts["paged_attention"],
+             "paged_attn_kernel (one warp per (row, head), two slices of "
+             "tokens in flight ahead of the arithmetic, a softmax per lane "
+             "merged by fixed butterflies)",
              "one decode step: R=9, H=8, D=16, T=32, table width 2, "
              f"lengths {DEC_LENGTHS}, int8 pages, f32 q"),
             ("masked_flash_attention", ("masked_flash_attention", DEC_SEQ),
+             ("masked_flash_attention", DEC_SEQ, "len4096"),
              "masked_flash_attention", "flash_attention.py:527",
              flash["launches"]["masked_flash_attention"],
+             f"{masked_forward_body(1)} (Sq = 1: one warp per (b, h)); "
+             f"{masked_forward_body(2)} (Sq > 1)",
              f"one decode step: B=9, Sq=1, Sk={DEC_SEQ}, H=8, D=16, "
              f"lengths {DEC_LENGTHS}, f32")):
-        row = decode_timed[key]
+        row, long_row = decode_timed[key], decode_timed[long_key]
         decode_rows.append({
             "name": name,
             "route": "cuda",
             "source": f"dist_mnist_tpu_torch/csrc/{src}.cu",
             "replaces": f"dist_mnist_tpu/ops/pallas/{src_line}",
+            "body": body,
             "launches": launches_on_path,
             "max_abs_err": decode_worst[name],
             "shape": shape,
@@ -2098,11 +2208,22 @@ def main() -> None:
             "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"],
+            "launch_floor_ms": row["launch_floor_ms"],
             "library_ms": row["library_ms"],
             **({"composite": row["composite"],
                 "composite_ms": row["composite_ms"]}
                if "composite" in row else {}),
+            "len4096_kernel_ms": long_row["kernel_ms"],
+            "len4096_bound_ms": long_row["bound_ms"],
+            "len4096_library_or_composite_ms": long_row.get(
+                "composite_ms", long_row["library_ms"]),
         })
+    for dtype in ("torch.bfloat16", "torch.float32"):
+        row = decode_timed[("masked_flash_attention_sq65", dtype)]
+        tag = "sq65_" + dtype.removeprefix("torch.")
+        decode_rows[1].update({f"{tag}_{k}": row[k] for k in (
+            "kernel_ms", "plain_ms", "bound_ms", "launch_floor_ms",
+            "library_ms")})
     vit_shape = (f"ViT-Tiny training: B={VIT_B}, S={VIT_S}, H={VIT_H}, "
                  f"D={VIT_D}, bf16, strided q/k/v of the fused projection")
     flash_rows = []

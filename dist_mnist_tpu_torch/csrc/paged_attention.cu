@@ -16,28 +16,38 @@
 // ks, vs [P, T, H] f32 (the pools' [.., 1] scale axis); table [R, n] int32;
 // lengths [R] int32; out [R, H, D] like q; visits [R, H] f32.
 //
-// Grid and skipping. The TPU kernel runs a sequential grid over (r, h, page)
-// and still DMAs pages past the length (it only skips their math). Here one
-// block of 128 threads owns one (r, h) and loops over its pages in order, and
-// only over j < min(n, ceil(len / T)): a page at or past the length is never
-// read. Nothing carries between blocks, so no cross-block reduction is
-// needed. Page ids are clamped into [0, P) so a bad table cannot read outside
-// the pool; lengths must be 1 <= len <= n*T, as in the reference.
+// Grid. The TPU kernel runs a sequential grid over (r, h, page) and still DMAs
+// pages past the length (it only skips their math). Here one warp owns one
+// (r, h) (csrc/decode_attention.cuh: G lanes a token, 16 dimensions a lane,
+// SLICE = 32 / G tokens at a time; at the decode path's D = 16 lane i owns
+// token i of a 32-token slice) and walks the row's positions [0, L), L =
+// min(len, n*T), in slices. A slice may end inside a page (T = 200) or span
+// several (T = 8); each lane steps its own token's page and offset from slice to
+// slice without a division. Positions at or past L are never read, so a page at
+// or past ceil(len / T) is never read. Page ids are clamped into [0, P) so a bad
+// table cannot read outside the pool; lengths must be 1 <= len <= n*T, as in the
+// reference.
 //
-// Inside a page the block takes T tokens at a time (128 per tile): thread i
-// scores token i (a D-long dot over its int8 row, dequantized in registers),
-// block reductions give the tile's max and sum, and thread d < D then
-// accumulates dimension d of p @ V over the tile. The running max, sum and
-// accumulator live in registers across pages, as the TPU kernel keeps them in
-// VMEM scratch across its grid steps.
-//
-// What bounds it. The decode step reads each active page's int8 K and V tiles
+// What bounds it. The decode step reads each active page's int8 K and V rows
 // and f32 scales once per (row, head): (D + 4) bytes per token per head for K
-// and the same for V, against 4*D operations per token — far below the card's
-// operations per byte, so device-memory bytes bound it. At the serving path's
-// shapes (R = 9, H = 8, D = 16, T = 32, a few pages per row) the work is a few
-// hundred KB, so launch latency and the serial page loop of each block bound
-// it in practice; a split over pages with a second merge pass is later work.
+// and the same for V, against 4*D operations per token, so device-memory bytes
+// bound it. At the serving path's shapes (R = 9, H = 8, D = 16, T = 32, one or
+// two pages per row) those bytes are a few hundred KB, and the time goes to
+// chains of dependent memory round trips and instructions. The design keeps that
+// chain short:
+//   - the length, q and the first three slices' page ids are loaded together
+//     (the ids speculatively, anywhere inside the row's table);
+//   - a lane's K row, V row and both scales are requested together (one 16-byte
+//     load each at D = 16), and slice c + 2's loads (and slice c + 3's page
+//     ids) are requested before slice c's arithmetic: a row with two active pages
+//     waits on about two round trips (ids, then rows) instead of one per token;
+//   - the score is dequantized in registers as the reference does
+//     (f32(kq) * ks rounded, then an FMA with q, four partial sums); each lane
+//     runs its own online softmax over its tokens (m, l and p @ V, rescaled by
+//     alpha when its max grows), and the lanes are merged once at the end by
+//     fixed butterflies (`decode::finish`): no shuffle in the slice loop and
+//     no barrier anywhere.
+// A split over pages with an ordered merge, for long rows, is later work.
 // No --use_fast_math: expf and the final division are IEEE-accurate.
 
 #include <cuda_bf16.h>
@@ -45,106 +55,181 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "decode_attention.cuh"
+
 namespace {
 
-constexpr int THREADS = 128;
-constexpr int WARPS = THREADS / 32;
-constexpr int MAX_D = 128;
+using decode::DIMS;
+using decode::Raw;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_out(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+// One lane's share of one token: its 16 int8 K and V elements and the scales.
+struct Token {
+    Raw<4> k, v;
+    float ks, vs;
+};
 
-// Block-wide max / sum; every thread gets the result. `red` holds WARPS
-// floats; the trailing barrier lets the next reduction reuse it.
-__device__ __forceinline__ float block_max(float v, float* red) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-    if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-    __syncthreads();
-    float r = red[0];
-#pragma unroll
-    for (int w = 1; w < WARPS; ++w) r = fmaxf(r, red[w]);
-    __syncthreads();
-    return r;
-}
+// Where a lane's token of a slice lives: the page id as the table holds it and
+// the token's offset in that page.
+struct Where {
+    int page, t;
+};
 
-__device__ __forceinline__ float block_sum(float v, float* red) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-    if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-    __syncthreads();
-    float r = red[0];
-#pragma unroll
-    for (int w = 1; w < WARPS; ++w) r += red[w];
-    __syncthreads();
-    return r;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
+template <typename T, int G, bool VEC>
+__global__ void __launch_bounds__(decode::THREADS)
 paged_attn_kernel(const T* __restrict__ q, const int8_t* __restrict__ kq,
                   const float* __restrict__ ks, const int8_t* __restrict__ vq,
                   const float* __restrict__ vs, const int32_t* __restrict__ table,
                   const int32_t* __restrict__ lengths, T* __restrict__ out,
                   float* __restrict__ visits, int H, int D, int Tp, int P, int n,
                   float scale) {
+    constexpr int SLICE = 32 / G;  // tokens a warp takes at a time
     const int h = blockIdx.x;
     const int r = blockIdx.y;
-    const int tid = threadIdx.x;
+    const int lane = threadIdx.x;
+    const int slot = lane / G;         // token of the slice
+    const int d0 = (lane % G) * DIMS;  // first dimension this lane holds
+    const int dn = min(DIMS, D - d0);  // dimensions it holds (<= 0: none)
+    const int span = n * Tp;           // positions the table covers
+    const int32_t* row_table = table + static_cast<size_t>(r) * n;
+    const size_t rh = static_cast<size_t>(r) * H + h;
 
-    __shared__ float q_s[MAX_D];
-    __shared__ float p_s[THREADS];
-    __shared__ float red[WARPS];
-
-    for (int d = tid; d < D; d += THREADS) q_s[d] = to_f32(q[((size_t)r * H + h) * D + d]);
-    const int len = lengths[r];
-    const int active = len > 0 ? min(n, (len + Tp - 1) / Tp) : 0;
-    __syncthreads();
-
-    float m = -INFINITY;  // running max, as the TPU kernel's m_scr starts
-    float l = 0.f;        // running denominator
-    float acc = 0.f;      // thread d < D: dimension d of the running p @ V
-
-    for (int j = 0; j < active; ++j) {
-        const int page = min(max(table[(size_t)r * n + j], 0), P - 1);
-        const size_t page_row = (size_t)page * Tp;
-        for (int t0 = 0; t0 < Tp; t0 += THREADS) {
-            const int t = t0 + tid;
-            const int nt = min(THREADS, Tp - t0);
-            float s = -INFINITY;  // no token in this lane of the tile
-            if (t < Tp) {
-                const size_t row = (page_row + t) * H + h;
-                const int8_t* k_row = kq + row * D;
-                const float k_scale = ks[row];
-                float dot = 0.f;
-                for (int d = 0; d < D; ++d)
-                    dot = fmaf(q_s[d], __fmul_rn((float)k_row[d], k_scale), dot);
-                s = j * Tp + t < len ? dot * scale : -1e30f;
-            }
-            const float m_new = fmaxf(m, block_max(s, red));
-            const float alpha = expf(m - m_new);
-            const float p = t < Tp ? expf(s - m_new) : 0.f;
-            p_s[tid] = p;
-            l = l * alpha + block_sum(p, red);  // its barriers publish p_s
-            if (tid < D) {
-                float pv = 0.f;
-                for (int i = 0; i < nt; ++i) {
-                    const size_t row = (page_row + t0 + i) * H + h;
-                    pv = fmaf(p_s[i], __fmul_rn((float)vq[row * D + tid], vs[row]), pv);
-                }
-                acc = acc * alpha + pv;
-            }
-            m = m_new;
-            __syncthreads();  // p_s is rewritten by the next tile
+    // a lane's position walks SLICE tokens a slice: step_j pages and step_t tokens
+    const int step_j = SLICE / Tp;
+    const int step_t = SLICE - step_j * Tp;
+    int walk_j = slot / Tp;  // page index and token of the next slice to look up
+    int walk_t = slot - walk_j * Tp;
+    // the page id of slice c's token (read while the position is below `limit`)
+    auto where = [&](int c, int limit) -> Where {
+        const Where w{c * SLICE + slot < limit ? row_table[walk_j] : 0, walk_t};
+        walk_t += step_t;
+        walk_j += step_j;
+        if (walk_t >= Tp) {
+            walk_t -= Tp;
+            ++walk_j;
         }
+        return w;
+    };
+    // this lane's share of slice c's token, or zeros past the length
+    auto load = [&](int c, Where w, int limit) -> Token {
+        Token tok;
+        if (c * SLICE + slot < limit) {
+            const int page = min(max(w.page, 0), P - 1);
+            const size_t row = (static_cast<size_t>(page) * Tp + w.t) * H + h;
+            tok.ks = ks[row];
+            tok.vs = vs[row];
+            if constexpr (VEC) {
+                if (dn > 0) {
+                    decode::load_vec(tok.k, kq + row * D + d0);
+                    decode::load_vec(tok.v, vq + row * D + d0);
+                } else {
+                    tok.k = Raw<4>{};
+                    tok.v = Raw<4>{};
+                }
+            } else {
+                decode::load_each(tok.k, kq + row * D + d0, dn);
+                decode::load_each(tok.v, vq + row * D + d0, dn);
+            }
+        } else {
+            tok.k = Raw<4>{};
+            tok.v = Raw<4>{};
+            tok.ks = 0.f;
+            tok.vs = 0.f;
+        }
+        return tok;
+    };
+
+    // requested together: the length, q and the first three slices' page ids
+    const int len = lengths[r];
+    const Where w0 = where(0, span);
+    const Where w1 = where(1, span);
+    Where w2 = where(2, span);
+    float qf[DIMS];
+    const T* q_row = q + rh * D + d0;
+#pragma unroll
+    for (int e = 0; e < DIMS; ++e) qf[e] = e < dn ? decode::to_f32(q_row[e]) : 0.f;
+    const int L = min(len, span);
+    const int slices = L > 0 ? (L + SLICE - 1) / SLICE : 0;
+
+    float m = -INFINITY;  // this lane's running max (m_scr starts at -inf)
+    float l = 0.f;        // its running denominator, relative to m
+    float acc[DIMS];      // its running p @ V, dimensions d0 .., relative to m
+#pragma unroll
+    for (int e = 0; e < DIMS; ++e) acc[e] = 0.f;
+
+    Token cur = load(0, w0, L);
+    Token next = load(1, w1, L);
+    for (int c = 0; c < slices; ++c) {
+        // slice c + 2's rows and slice c + 3's page ids, before any math
+        const Where w3 = where(c + 3, L);
+        const Token after = load(c + 2, w2, L);
+        const bool live = c * SLICE + slot < L;
+
+        float part[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int e = 0; e < DIMS; ++e)
+            part[e & 3] = fmaf(qf[e], __fmul_rn(decode::elem_i8(cur.k, e), cur.ks), part[e & 3]);
+        // every lane: the butterfly needs the whole warp
+        const float dot = decode::token_sum<G>((part[0] + part[1]) + (part[2] + part[3]));
+        const float s = dot * scale;
+        // this lane's own online softmax; a lane without a live token keeps its state
+        const float m_new = live ? fmaxf(m, s) : m;
+        const float alpha = live ? expf(m - m_new) : 1.f;
+        const float p = live ? expf(s - m_new) : 0.f;
+        l = l * alpha + p;
+#pragma unroll
+        for (int e = 0; e < DIMS; ++e)
+            acc[e] = fmaf(p, __fmul_rn(decode::elem_i8(cur.v, e), cur.vs), acc[e] * alpha);
+        m = m_new;
+
+        cur = next;
+        next = after;
+        w2 = w3;
     }
-    if (tid < D) store_out(out + ((size_t)r * H + h) * D + tid, acc / l);
-    if (tid == 0) visits[(size_t)r * H + h] = (float)active;
+
+    decode::finish<G>(m, l, acc, out + rh * D + d0, dn, lane);
+    if (lane == 0) visits[rh] = static_cast<float>(len > 0 ? min(n, (len + Tp - 1) / Tp) : 0);
+}
+
+// The empty kernel with the same arguments, grid and block: the launch floor.
+__global__ void paged_attn_empty(const void*, const void*, const void*, const void*,
+                                 const void*, const void*, const void*, void*, void*, int,
+                                 int, int, int, int, float) {}
+
+template <typename T, int G>
+void launch_g(bool vec, dim3 grid, cudaStream_t s, const void* q, const int8_t* kq,
+              const float* ks, const int8_t* vq, const float* vs, const int32_t* tab,
+              const int32_t* lens, void* out, float* vis, int H, int D, int Tp, int P,
+              int n, float scale) {
+    const T* qt = static_cast<const T*>(q);
+    T* ot = static_cast<T*>(out);
+    if (vec)
+        paged_attn_kernel<T, G, true><<<grid, decode::THREADS, 0, s>>>(
+            qt, kq, ks, vq, vs, tab, lens, ot, vis, H, D, Tp, P, n, scale);
+    else
+        paged_attn_kernel<T, G, false><<<grid, decode::THREADS, 0, s>>>(
+            qt, kq, ks, vq, vs, tab, lens, ot, vis, H, D, Tp, P, n, scale);
+}
+
+template <typename T>
+void launch_t(int G, bool vec, dim3 grid, cudaStream_t s, const void* q, const int8_t* kq,
+              const float* ks, const int8_t* vq, const float* vs, const int32_t* tab,
+              const int32_t* lens, void* out, float* vis, int H, int D, int Tp, int P,
+              int n, float scale) {
+    switch (G) {
+        case 1: launch_g<T, 1>(vec, grid, s, q, kq, ks, vq, vs, tab, lens, out, vis, H, D, Tp, P, n, scale); break;
+        case 2: launch_g<T, 2>(vec, grid, s, q, kq, ks, vq, vs, tab, lens, out, vis, H, D, Tp, P, n, scale); break;
+        case 4: launch_g<T, 4>(vec, grid, s, q, kq, ks, vq, vs, tab, lens, out, vis, H, D, Tp, P, n, scale); break;
+        default: launch_g<T, 8>(vec, grid, s, q, kq, ks, vq, vs, tab, lens, out, vis, H, D, Tp, P, n, scale); break;
+    }
 }
 
 }  // namespace
+
+// Lanes per token, grid (H, R) and threads of a launch on R rows, H heads, head_dim D
+// (`decode::plan`; the wrapper's `decode_launch_plan` computes the same).
+extern "C" void dmt_paged_attention_plan(int R, int H, int D, int* out) {
+    decode::plan(R, H, D, out);
+}
 
 // Launch on `stream` (PyTorch's current stream). Returns cudaGetLastError()
 // after the launch: nonzero means the launch was refused and nothing ran.
@@ -153,7 +238,12 @@ extern "C" int dmt_paged_attention(const void* q, const void* kq, const void* ks
                                    const void* lengths, void* out, void* visits, int R,
                                    int H, int D, int Tp, int P, int n, int q_is_bf16,
                                    float scale, void* stream) {
-    const dim3 grid(H, R);
+    int plan[4];
+    decode::plan(R, H, D, plan);
+    const dim3 grid(plan[1], plan[2]);
+    // 16-byte loads need 16-byte aligned rows: D a multiple of 16, aligned pools
+    const bool vec = D % 16 == 0 &&
+                     ((reinterpret_cast<uintptr_t>(kq) | reinterpret_cast<uintptr_t>(vq)) & 15) == 0;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const int8_t* kq8 = static_cast<const int8_t*>(kq);
     const int8_t* vq8 = static_cast<const int8_t*>(vq);
@@ -162,14 +252,26 @@ extern "C" int dmt_paged_attention(const void* q, const void* kq, const void* ks
     const int32_t* tab = static_cast<const int32_t*>(table);
     const int32_t* lens = static_cast<const int32_t*>(lengths);
     float* vis = static_cast<float*>(visits);
-    if (q_is_bf16) {
-        paged_attn_kernel<__nv_bfloat16><<<grid, THREADS, 0, s>>>(
-            static_cast<const __nv_bfloat16*>(q), kq8, ksf, vq8, vsf, tab, lens,
-            static_cast<__nv_bfloat16*>(out), vis, H, D, Tp, P, n, scale);
-    } else {
-        paged_attn_kernel<float><<<grid, THREADS, 0, s>>>(
-            static_cast<const float*>(q), kq8, ksf, vq8, vsf, tab, lens,
-            static_cast<float*>(out), vis, H, D, Tp, P, n, scale);
-    }
+    if (q_is_bf16)
+        launch_t<__nv_bfloat16>(plan[0], vec, grid, s, q, kq8, ksf, vq8, vsf, tab, lens, out,
+                                vis, H, D, Tp, P, n, scale);
+    else
+        launch_t<float>(plan[0], vec, grid, s, q, kq8, ksf, vq8, vsf, tab, lens, out, vis, H,
+                        D, Tp, P, n, scale);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// The same arguments into an empty kernel of the same grid and block: what a
+// launch costs before the kernel does anything.
+extern "C" int dmt_paged_attention_empty(const void* q, const void* kq, const void* ks,
+                                         const void* vq, const void* vs, const void* table,
+                                         const void* lengths, void* out, void* visits, int R,
+                                         int H, int D, int Tp, int P, int n, int q_is_bf16,
+                                         float scale, void* stream) {
+    (void)q_is_bf16;
+    int plan[4];
+    decode::plan(R, H, D, plan);
+    paged_attn_empty<<<dim3(plan[1], plan[2]), plan[3], 0, static_cast<cudaStream_t>(stream)>>>(
+        q, kq, ks, vq, vs, table, lengths, out, visits, H, D, Tp, P, n, scale);
     return static_cast<int>(cudaGetLastError());
 }

@@ -23,7 +23,11 @@ Each leaf launches its kernel for CUDA tensors and runs its plain version
 for CPU tensors (`masked_flash_attention_reference`, the ``-1e30`` masked
 softmax einsum, and `flash_attention_backward_reference`); it never routes
 a CUDA tensor around a kernel. `masked_flash_attention.launches` counts
-forward launches, the probe's included;
+forward launches, the probe's included, on both of the forward's routes
+(`masked_forward_body`: Sq = 1, the decode step, takes a warp per (b, h)
+as `paged_attention` does; Sq > 1 a block per 4 query rows);
+`masked_flash_attention_launch_floor` launches an empty kernel of the
+route's grid and block, for timing what a launch costs;
 `masked_flash_attention_backward.launches` counts the backward's kernel
 launches (two per backward: dQ, then dK/dV).
 """
@@ -102,18 +106,28 @@ def _check(q, k, v, lengths) -> None:
                          "contiguous")
 
 
+def masked_forward_body(sq: int) -> str:
+    """The CUDA kernel the forward's C entry takes for ``sq`` query rows:
+    the decode kernel at Sq = 1 (launched as
+    `paged_attention.decode_launch_plan` says), the row-block kernel
+    above."""
+    return ("masked_flash_decode_kernel" if sq == 1
+            else "masked_flash_fwd_kernel")
+
+
 @functools.cache
-def _entry():
-    """`dmt_masked_flash_attention` of the built library, loaded and typed
-    once."""
-    fn = build.load("masked_flash_attention").dmt_masked_flash_attention
+def _entry(name: str = "dmt_masked_flash_attention"):
+    """A launch entry of the built library (`dmt_masked_flash_attention`
+    or its empty twin), loaded and typed once."""
+    fn = getattr(build.load("masked_flash_attention"), name)
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(q, k, v, lengths, with_lse: bool = False):
-    """(out, visits, lse or None) from one forward launch."""
+def _launch(q, k, v, lengths, with_lse: bool = False, empty: bool = False):
+    """(out, visits, lse or None) from one forward launch (with `empty`,
+    of the empty kernel: nothing is written or counted)."""
     b, sq, h, d = q.shape
     out = torch.empty_like(q)
     visits = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
@@ -121,7 +135,8 @@ def _launch(q, k, v, lengths, with_lse: bool = False):
            if with_lse else None)
     if out.numel() == 0:
         return out, visits, lse
-    fn = _entry()
+    fn = _entry("dmt_masked_flash_attention_empty" if empty else
+                "dmt_masked_flash_attention")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
@@ -131,8 +146,20 @@ def _launch(q, k, v, lengths, with_lse: bool = False):
     if err != 0:
         raise RuntimeError(f"masked_flash_attention kernel launch failed: "
                            f"cudaError {err}")
-    masked_flash_attention.launches += 1
+    if not empty:
+        masked_flash_attention.launches += 1
     return out, visits, lse
+
+
+def masked_flash_attention_launch_floor(q, k, v, lengths) -> None:
+    """Launch an empty kernel with the grid, block, shared memory and
+    arguments the forward would launch on these CUDA inputs: what a
+    launch costs before the kernel does any work. Counts no launch."""
+    _check(q, k, v, lengths)
+    if q.device.type != "cuda":
+        raise ValueError(f"masked_flash_attention_launch_floor: needs CUDA "
+                         f"tensors, got {q.device}")
+    _launch(q, k, v, lengths, empty=True)
 
 
 def _device_check(q) -> None:
@@ -272,17 +299,18 @@ def masked_flash_flops(lengths, sq: int, heads: int, head_dim: int,
     return float((2 * 2 * sq * head_dim * heads * active).sum())
 
 
-def masked_flash_cost(lengths, sq: int, heads: int, head_dim: int) -> dict:
-    """The least work one call on f32 operands needs on these inputs: the
-    two products over each row's ``lengths[b]`` keys, and the bytes of q
-    in, out back, the first ``lengths[b]`` K and V rows of each (b, head),
-    and the lengths."""
+def masked_flash_cost(lengths, sq: int, heads: int, head_dim: int,
+                      itemsize: int = 4) -> dict:
+    """The least work one call needs on these inputs, operands of
+    ``itemsize`` bytes (4: f32, 2: bf16): the two products over each row's
+    ``lengths[b]`` keys, and the bytes of q in, out back, the first
+    ``lengths[b]`` K and V rows of each (b, head), and the lengths."""
     lengths = np.asarray(lengths, dtype=np.int64)
     b = len(lengths)
     keys = int(lengths.sum())
     return {
         "flops": float(2 * 2 * sq * head_dim * heads * keys),
-        "hbm_bytes": float(2 * b * sq * heads * head_dim * 4
-                           + 2 * keys * heads * head_dim * 4
+        "hbm_bytes": float(2 * b * sq * heads * head_dim * itemsize
+                           + 2 * keys * heads * head_dim * itemsize
                            + 4 * b),
     }

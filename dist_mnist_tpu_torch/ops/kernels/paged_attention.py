@@ -15,7 +15,10 @@ never writes a float copy of the pages.
 tensors and runs `paged_attention_reference` (gather, dequantize, masked
 softmax, weight V — the reference's XLA path) for CPU tensors; it never
 routes a CUDA tensor around the kernel. `paged_attention.launches`
-counts kernel launches, `paged_attention_probe`'s included.
+counts kernel launches, `paged_attention_probe`'s included. The kernel
+runs one warp per (row, head) (`decode_launch_plan`, which the C entry
+computes too); `paged_attention_launch_floor` launches an empty kernel
+of the same grid, block and arguments, for timing what a launch costs.
 """
 
 from __future__ import annotations
@@ -29,8 +32,10 @@ import torch
 from dist_mnist_tpu_torch.ops.kernels import build
 from dist_mnist_tpu_torch.ops.quant import QuantizedArray
 
-#: largest head_dim the kernel takes (one thread per dimension of a block)
+#: largest head_dim the kernel takes (8 lanes of 16 dimensions a token)
 MAX_HEAD_DIM = 128
+#: dimensions of a token's row one lane of a decode kernel holds
+DECODE_LANE_DIMS = 16
 _MAX_GRID_Y = 65535
 _ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_float]
              + [ctypes.c_void_p])
@@ -112,16 +117,32 @@ def _check(q, k_pool, v_pool, page_table, lengths) -> None:
         raise ValueError("paged_attention: tensors must be contiguous")
 
 
+def decode_launch_plan(rows: int, heads: int, head_dim: int
+                       ) -> tuple[int, int, int, int]:
+    """``(lanes, grid_x, grid_y, threads)`` of a decode-kernel launch (this
+    one and the Sq = 1 route of the masked forward): one warp per (row,
+    head), a block of its own, on the grid ``(heads, rows)``; ``lanes``
+    lanes share a token, each holding `DECODE_LANE_DIMS` of its dimensions
+    (the power of two that covers head_dim), so a warp takes
+    ``32 // lanes`` tokens at a time. The C entries compute the same
+    (`dmt_paged_attention_plan`, `dmt_masked_flash_decode_plan`)."""
+    lanes = 1
+    while lanes * DECODE_LANE_DIMS < head_dim:
+        lanes *= 2
+    return (lanes, heads, rows, 32)
+
+
 @functools.cache
-def _entry():
-    """`dmt_paged_attention` of the built library, loaded and typed once."""
-    fn = build.load("paged_attention").dmt_paged_attention
+def _entry(name: str = "dmt_paged_attention"):
+    """A launch entry of the built library (`dmt_paged_attention` or its
+    empty twin), loaded and typed once."""
+    fn = getattr(build.load("paged_attention"), name)
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(q, k_pool, v_pool, page_table, lengths):
+def _launch(q, k_pool, v_pool, page_table, lengths, empty: bool = False):
     r, _, h, d = q.shape
     p, t = k_pool.q.shape[:2]
     n = page_table.shape[1]
@@ -129,7 +150,8 @@ def _launch(q, k_pool, v_pool, page_table, lengths):
     visits = torch.empty((r, h), dtype=torch.float32, device=q.device)
     if r == 0 or h == 0:
         return out, visits
-    fn = _entry()
+    fn = _entry("dmt_paged_attention_empty" if empty else
+                "dmt_paged_attention")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k_pool.q.data_ptr(), k_pool.scale.data_ptr(),
@@ -140,7 +162,8 @@ def _launch(q, k_pool, v_pool, page_table, lengths):
     if err != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: "
                            f"cudaError {err}")
-    paged_attention.launches += 1
+    if not empty:
+        paged_attention.launches += 1
     return out, visits
 
 
@@ -180,6 +203,20 @@ def paged_attention_probe(q, k_pool: QuantizedArray, v_pool: QuantizedArray,
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention: unsupported device {q.device}")
     return _launch(q, k_pool, v_pool, page_table, lengths)
+
+
+def paged_attention_launch_floor(q, k_pool: QuantizedArray,
+                                 v_pool: QuantizedArray, page_table, lengths
+                                 ) -> None:
+    """Launch an empty kernel with the grid, block and arguments
+    `paged_attention` would launch on these CUDA inputs: what a launch
+    costs before the kernel does any work. Counts no launch; its outputs
+    are never written."""
+    _check(q, k_pool, v_pool, page_table, lengths)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_attention_launch_floor: needs CUDA "
+                         f"tensors, got {q.device}")
+    _launch(q, k_pool, v_pool, page_table, lengths, empty=True)
 
 
 def paged_attention_pages(lengths, page_tokens: int):

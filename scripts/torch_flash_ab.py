@@ -3,7 +3,7 @@
 several checkouts on one card, in turns. Needs one NVIDIA GPU and `nvcc`,
 as `chip_smoke.py` does.
 
-    python3 scripts/torch_flash_ab.py [--f32] [--qmm] [--adam] [--vit] TREE [TREE ...]
+    python3 scripts/torch_flash_ab.py [--f32] [--qmm] [--adam] [--decode] [--vit] TREE [TREE ...]
 
 Each TREE is the root of a checkout of this repository: this one, and an
 older commit unpacked beside it with `git archive`. The trees run in the
@@ -21,8 +21,13 @@ dequantized weight (the library call, the same in every tree). With
 `--adam`, it also times both fused-Adam kernels through its tree's
 `chip_smoke.time_adam`: one update of LeNet-5's 8 leaves as the tree's
 optimizers make it (one launch per leaf before the leaf table, one
-launch after) and of fc1/w alone, each on operands cold in L2. Each
-figure is the tree's
+launch after) and of fc1/w alone, each on operands cold in L2. With
+`--decode`, it also times both decode kernels through its tree's
+`chip_smoke.time_decode_kernels`: `paged_attention` at one decode step
+(9 rows, 8 heads of 16, pages of 32, table widths 2 and 128) and the
+masked forward at Sq = 1 against Sk = 4096, and in trees that have them
+the rows at every length 4096, the masked forward at Sq > 1 and each
+row's launch floor. Each figure is the tree's
 `chip_smoke.graph_ms`: a CUDA graph of 100 back-to-back calls replayed
 under CUDA events, median of 5 replays, in ms per call. With `--vit`,
 each run then also trains `vit_tiny_cifar_flash` 20 steps from its tree's
@@ -59,7 +64,8 @@ from dist_mnist_tpu_torch.ops.kernels.masked_flash import (
 torch.backends.cuda.matmul.allow_tf32 = False
 build.build_all(["flash_attention", "masked_flash_attention"]
                 + (["quant_matmul"] if "--qmm" in sys.argv else [])
-                + (["fused_adam"] if "--adam" in sys.argv else []))
+                + (["fused_adam"] if "--adam" in sys.argv else [])
+                + (["paged_attention"] if "--decode" in sys.argv else []))
 
 B, S, H, D = 64, 65, 3, 64
 rows = {}
@@ -124,6 +130,13 @@ if "--adam" in sys.argv:
             torch, torch.device("cuda", 0), state, 3.35e12, 67e12).items():
         for key in ("kernel_ms", "kernel_ms_l2_warm"):
             rows[f"adam {name} {label} {key}"] = row[key]
+if "--decode" in sys.argv:
+    for key, row in chip_smoke.time_decode_kernels(
+            torch, torch.device("cuda", 0), 3.35e12, 67e12).items():
+        label = "decode " + " ".join(str(part) for part in key)
+        rows[label] = row["kernel_ms"]
+        if "launch_floor_ms" in row:
+            rows[label + " launch_floor"] = row["launch_floor_ms"]
 if "--vit" in sys.argv:
     import hashlib
     import re
@@ -173,8 +186,10 @@ def main() -> int:
                         help="also time quant_matmul (MLP f32, LeNet-5 bf16)")
     parser.add_argument("--adam", action="store_true",
                         help="also time the fused-Adam kernels (LeNet-5)")
+    parser.add_argument("--decode", action="store_true",
+                        help="also time both decode kernels")
     args = parser.parse_args()
-    flags = [f"--{name}" for name in ("vit", "f32", "qmm", "adam")
+    flags = [f"--{name}" for name in ("vit", "f32", "qmm", "adam", "decode")
              if getattr(args, name)]
     trees = [t.resolve() for t in args.trees]
     for tree in trees:

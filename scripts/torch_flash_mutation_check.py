@@ -5,11 +5,11 @@ kernels fail when those kernels are wrong. Needs one NVIDIA GPU and
 
     python3 scripts/torch_flash_mutation_check.py
 
-Runs the phases `vit_kernel_vs_plain`, `flash_split_share`, `qmm_parity`
-and `flash_parity` on the checkout as it stands, then on copies of
-the checkout in a temporary directory, each with one fault planted in a
-kernel under `dist_mnist_tpu_torch/csrc/`, and runs there the phase that
-must catch it. In the bf16 tensor-core flash backward that the ViT path
+Runs the phases `vit_kernel_vs_plain`, `flash_split_share`, `qmm_parity`,
+`flash_parity` and `decode_kernel_parity` on the checkout as it stands,
+then on copies of the checkout in a temporary directory, each with one
+fault planted in a kernel under `dist_mnist_tpu_torch/csrc/`, and runs
+there the phase that must catch it. In the bf16 tensor-core flash backward that the ViT path
 runs (`flash_attention.cu`):
 
 - `dk_zero` (`vit_kernel_vs_plain`): `flash_dkv_mma` writes dK as zero;
@@ -31,7 +31,18 @@ In the f32 kernels:
 - `f32_delta_dropped` (`flash_parity`): the f32 dQ kernel
   (`flash_dq_f32`) forms dS as ``p * dP``, without ``- delta``.
 
-Each run prints its phases' JSON lines. Exits 0 only when the checkout
+In the decode kernels:
+
+- `paged_rescale_dropped` (`decode_kernel_parity`): `paged_attn_kernel`
+  (`paged_attention.cu`) does not rescale its running p @ V by alpha when
+  a later slice raises the running max, which a table of two or more
+  pages reaches;
+- `masked_decode_len_off_by_one` (`decode_kernel_parity`): the Sq = 1
+  kernel of `masked_flash_attention.cu` admits key ``len``, one past the
+  row's length.
+
+Each mutant's copy starts from the checkout's built kernels, so only its
+mutated source is compiled again. Each run prints its phases' JSON lines. Exits 0 only when the checkout
 passes every phase and every mutant fails its own. The checkout itself
 is never modified.
 """
@@ -47,6 +58,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 FLASH = Path("dist_mnist_tpu_torch/csrc/flash_attention.cu")
 QMM = Path("dist_mnist_tpu_torch/csrc/quant_matmul.cu")
+PAGED = Path("dist_mnist_tpu_torch/csrc/paged_attention.cu")
+MASKED = Path("dist_mnist_tpu_torch/csrc/masked_flash_attention.cu")
+BUILT = Path("build/torch_kernels")
 MUTANTS = {  # name: (source, line, its mutation, the phase that must catch it)
     "dk_zero": (FLASH,
                 "store_bf16_rows<DP>(acc_k, dkh, wkey0, Sk, H, D, scale);",
@@ -67,6 +81,12 @@ MUTANTS = {  # name: (source, line, its mutation, the phase that must catch it)
         "flash_parity"),
     "f32_delta_dropped": (FLASH, "ds = p * (dp[i][j] - delta_s[r]);",
                           "ds = p * dp[i][j];", "flash_parity"),
+    "paged_rescale_dropped": (PAGED, "cur.vs), acc[e] * alpha);",
+                              "cur.vs), acc[e]);", "decode_kernel_parity"),
+    "masked_decode_len_off_by_one": (
+        MASKED, "auto admitted = [&](int key) { return key < len; };",
+        "auto admitted = [&](int key) { return key <= len; };",
+        "decode_kernel_parity"),
 }
 # run in a fresh interpreter whose working directory is the tree under test
 PHASE = """
@@ -79,7 +99,7 @@ from dist_mnist_tpu_torch.ops.kernels import build
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 build.build_all(["flash_attention", "masked_flash_attention",
-                 "quant_matmul"])
+                 "quant_matmul", "paged_attention"])
 dev = torch.device("cuda", 0)
 for phase in sys.argv[1:]:
     if phase == "vit_kernel_vs_plain":
@@ -98,8 +118,9 @@ def run_phases(tree: Path, *phases: str) -> bool:
 
 
 def main() -> int:
-    if not all((ROOT / p).is_file() for p in (FLASH, QMM, "chip_smoke.py")):
-        print(f"no {FLASH}, {QMM} or chip_smoke.py under {ROOT}",
+    sources = {kernel for kernel, *_ in MUTANTS.values()}
+    if not all((ROOT / p).is_file() for p in (*sources, "chip_smoke.py")):
+        print(f"a kernel source or chip_smoke.py is missing under {ROOT}",
               file=sys.stderr)
         return 2
     verdicts = {"checkout": run_phases(ROOT, *sorted(
@@ -114,6 +135,8 @@ def main() -> int:
             tree = Path(tmp) / name
             shutil.copytree(ROOT, tree, ignore=shutil.ignore_patterns(
                 ".git", "build", "chiprun_out", "__pycache__"))
+            if (ROOT / BUILT).is_dir():  # by content hash: reused if unchanged
+                shutil.copytree(ROOT / BUILT, tree / BUILT)
             (tree / kernel).write_text(src.replace(old, new))
             print(f"== mutant {name} ({phase})", flush=True)
             verdicts[name] = run_phases(tree, phase)

@@ -37,11 +37,16 @@ from dist_mnist_tpu_torch.ops.kernels.masked_flash import (
     masked_flash_attention_backward,
     masked_flash_attention_backward_probe,
     masked_flash_attention_forward,
+    masked_flash_attention_forward_reference,
+    masked_flash_attention_launch_floor,
     masked_flash_attention_probe,
     masked_flash_attention_reference,
+    masked_forward_body,
 )
 from dist_mnist_tpu_torch.ops.kernels.paged_attention import (
+    decode_launch_plan,
     paged_attention,
+    paged_attention_launch_floor,
     paged_attention_probe,
     paged_attention_reference,
 )
@@ -455,6 +460,158 @@ def test_masked_flash_kernel_matches_plain_version(cuda, b, sq, sk, dtype):
     blocks = (-(-lens // 32)).astype(np.float32)
     assert np.array_equal(visits.cpu().numpy(),
                           np.broadcast_to(blocks[:, None, None], (b, h, sq)))
+
+
+def _paged_case(rng, t, d, dtype, device, lens, n=3, h=2):
+    """q, pools of 2n pages and a table of width n for rows of `lens`."""
+    pages = 2 * n
+    kp, vp = (_kv_pool(rng, pages, t, h, d, device) for _ in range(2))
+    q = torch.from_numpy(rng.standard_normal((len(lens), 1, h, d))
+                         .astype(np.float32)).to(device, dtype)
+    table = torch.from_numpy(np.stack([
+        rng.choice(pages, size=n, replace=False) for _ in lens])
+        .astype(np.int32)).to(device)
+    return q, kp, vp, table, torch.tensor(lens, dtype=torch.int32,
+                                          device=device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 64, 128])
+@pytest.mark.parametrize("t", [8, 32, 200])
+def test_paged_attention_decode_kernel_page_sizes(cuda, t, d, dtype):
+    """The warp-per-(row, head) kernel at every page size the wrapper
+    takes: a slice of 32 // lanes tokens spans pages (T = 8), is one page
+    (T = 32 at D = 16) or ends inside one (T = 200); lengths 1, T, T + 1
+    and n * T."""
+    n = 3
+    lens = [1, t, t + 1, n * t]
+    ops = _paged_case(np.random.default_rng(t * d), t, d, dtype, cuda, lens,
+                      n=n)
+    got, visits = paged_attention_probe(*ops)
+    torch.cuda.synchronize()
+    want = paged_attention_reference(*ops)
+    assert got.dtype == dtype and got.shape == want.shape
+    assert _rel_err(got, want) <= (1e-2 if dtype == torch.bfloat16 else 1e-5)
+    pages_in = np.minimum(-(-np.asarray(lens) // t), n).astype(np.float32)
+    assert np.array_equal(visits.cpu().numpy(),
+                          np.repeat(pages_in[:, None], 2, axis=1))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 64, 128])
+def test_masked_decode_kernel_out_and_lse(cuda, d, dtype):
+    """Sq = 1 takes the decode kernel: out within the dtype's limit and
+    lse within 1e-5 of the plain version's on the same card inputs."""
+    assert masked_forward_body(1) == "masked_flash_decode_kernel"
+    rng = np.random.default_rng(d)
+    b, sk, h = 4, 300, 2
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape)
+                                .astype(np.float32)).to(cuda, dtype)
+               for shape in ((b, 1, h, d), (b, sk, h, d), (b, sk, h, d)))
+    lengths = torch.tensor([1, 32, 33, sk], dtype=torch.int32, device=cuda)
+    before = masked_flash_attention.launches
+    out, lse = masked_flash_attention_forward(q, k, v, lengths)
+    torch.cuda.synchronize()
+    assert masked_flash_attention.launches == before + 1
+    want_out, want_lse = masked_flash_attention_forward_reference(
+        q, k, v, lengths)
+    assert out.dtype == dtype and lse.shape == want_lse.shape == (b, h, 1)
+    assert _rel_err(out, want_out) <= (1e-2 if dtype == torch.bfloat16
+                                       else 1e-5)
+    assert _rel_err(lse, want_lse) <= 1e-5
+
+
+def _same_bits(a, b) -> bool:
+    return torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", ["paged", "masked"])
+def test_decode_kernels_bitwise_twice_and_on_another_stream(cuda, kernel,
+                                                            dtype):
+    """No atomics, fixed butterflies: the same inputs give the same bits
+    on a second call and under a second stream."""
+    rng = np.random.default_rng(21)
+    if kernel == "paged":
+        ops = _paged_case(rng, 32, 16, dtype, cuda, [1, 31, 33, 64, 96], n=3,
+                          h=8)
+
+        def call():
+            return paged_attention(*ops)
+    else:
+        q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(cuda, dtype)
+            for shape in ((9, 1, 8, 16), (9, 512, 8, 16), (9, 512, 8, 16)))
+        lengths = torch.tensor([1, 31, 32, 33, 64, 512, 1, 200, 33],
+                               dtype=torch.int32, device=cuda)
+
+        def call():
+            return masked_flash_attention(q, k, v, lengths)
+    first, again = call(), call()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        other = call()
+    torch.cuda.current_stream().wait_stream(stream)
+    torch.cuda.synchronize()
+    assert _same_bits(first, again) and _same_bits(first, other)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_masked_forward_sq2_keeps_the_row_block_route(cuda, dtype):
+    """Sq = 2 takes the row-block kernel, which the decode work left as it
+    was: out within the dtype's limit, lse within 1e-5, visits
+    ceil(len / 32) for both query rows."""
+    assert masked_forward_body(2) == "masked_flash_fwd_kernel"
+    rng = np.random.default_rng(2)
+    b, sk, h, d = 3, 100, 2, 16
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape)
+                                .astype(np.float32)).to(cuda, dtype)
+               for shape in ((b, 2, h, d), (b, sk, h, d), (b, sk, h, d)))
+    lens = np.array([1, 33, sk], dtype=np.int32)
+    lengths = torch.from_numpy(lens).to(cuda)
+    got, visits = masked_flash_attention_probe(q, k, v, lengths)
+    out, lse = masked_flash_attention_forward(q, k, v, lengths)
+    torch.cuda.synchronize()
+    want_out, want_lse = masked_flash_attention_forward_reference(
+        q, k, v, lengths)
+    tol = 1e-2 if dtype == torch.bfloat16 else 1e-5
+    assert _rel_err(got, want_out) <= tol and _rel_err(out, want_out) <= tol
+    assert _rel_err(lse, want_lse) <= 1e-5
+    blocks = (-(-lens // 32)).astype(np.float32)
+    assert np.array_equal(visits.cpu().numpy(),
+                          np.broadcast_to(blocks[:, None, None], (b, h, 2)))
+
+
+@pytest.mark.parametrize("rows,heads,d", [(9, 8, 16), (9, 8, 17), (3, 2, 64),
+                                          (1, 1, 128), (1025, 3, 40)])
+def test_decode_plan_agrees_with_the_c_entries(cuda, rows, heads, d):
+    """Both C entries launch the plan the wrapper's `decode_launch_plan`
+    computes: lanes per token, the grid (heads, rows), threads."""
+    import ctypes
+
+    from dist_mnist_tpu_torch.ops.kernels import build
+
+    for lib, name in (("paged_attention", "dmt_paged_attention_plan"),
+                      ("masked_flash_attention",
+                       "dmt_masked_flash_decode_plan")):
+        entry = getattr(build.load(lib), name)
+        out = (ctypes.c_int * 4)()
+        entry(rows, heads, d, out)
+        assert tuple(out) == decode_launch_plan(rows, heads, d), name
+
+
+def test_launch_floors_write_and_count_nothing(cuda):
+    rng = np.random.default_rng(5)
+    ops = _paged_case(rng, 32, 16, torch.float32, cuda, [1, 40])
+    q, k, v = (torch.zeros(2, s, 2, 16, device=cuda) for s in (1, 64, 64))
+    lengths = torch.tensor([1, 64], dtype=torch.int32, device=cuda)
+    counts = (paged_attention.launches, masked_flash_attention.launches)
+    paged_attention_launch_floor(*ops)
+    masked_flash_attention_launch_floor(q, k, v, lengths)
+    torch.cuda.synchronize()
+    assert (paged_attention.launches,
+            masked_flash_attention.launches) == counts
 
 
 def test_quantize_kv_on_card_bitwise_equal_to_cpu(cuda):

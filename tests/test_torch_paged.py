@@ -38,13 +38,18 @@ from dist_mnist_tpu_torch.models.causal_lm import CausalLMTiny
 from dist_mnist_tpu_torch.ops.kernels.masked_flash import (
     BLOCK_K,
     masked_flash_attention,
+    masked_flash_attention_launch_floor,
     masked_flash_attention_probe,
+    masked_flash_cost,
     masked_flash_flops,
+    masked_forward_body,
     masked_key_blocks,
 )
 from dist_mnist_tpu_torch.ops.kernels.paged_attention import (
+    decode_launch_plan,
     paged_attention,
     paged_attention_cost,
+    paged_attention_launch_floor,
     paged_attention_pages,
     paged_attention_probe,
 )
@@ -288,6 +293,61 @@ def test_masked_flash_rejects_bad_inputs(case):
         q, k, v = (torch.zeros(2, s, 2, 160) for s in (1, 8, 8))
     with pytest.raises(err):
         masked_flash_attention(q, k, v, lengths)
+
+
+@pytest.mark.parametrize("rows,heads,d,lanes", [
+    (9, 8, 16, 1),  # the decode path: a lane a token, 72 warps
+    (9, 8, 8, 1),
+    (9, 8, 17, 2),
+    (3, 2, 32, 2),
+    (3, 2, 64, 4),  # the masked backward's Sq = 1 case
+    (1, 1, 65, 8),
+    (1, 1, 128, 8),
+    (1025, 3, 40, 4),
+])
+def test_decode_launch_plan(rows, heads, d, lanes):
+    """One warp per (row, head), a block each on the grid (heads, rows);
+    the lanes that share a token cover head_dim 16 dimensions each, the
+    fewest such lanes that is a power of two."""
+    assert decode_launch_plan(rows, heads, d) == (lanes, heads, rows, 32)
+    assert 32 % lanes == 0 and lanes * 16 >= d
+    assert lanes == 1 or lanes * 8 < d
+
+
+@pytest.mark.parametrize("sq,body", [(1, "masked_flash_decode_kernel"),
+                                     (2, "masked_flash_fwd_kernel"),
+                                     (65, "masked_flash_fwd_kernel")])
+def test_masked_forward_body(sq, body):
+    assert masked_forward_body(sq) == body
+
+
+def test_launch_floors_refuse_cpu_tensors():
+    """The empty-kernel launches time the card's launch floor; on the CPU
+    there is nothing to launch, and they say so."""
+    rng = np.random.default_rng(4)
+    pool = QuantizedArray(*quantize_kv(torch.from_numpy(
+        rng.standard_normal((4, PAGE_T, 2, 16)).astype(np.float32))),
+        "kv_head")
+    q = torch.zeros(2, 1, 2, 16)
+    table = torch.zeros(2, 2, dtype=torch.int32)
+    lengths = torch.ones(2, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        paged_attention_launch_floor(q, pool, pool, table, lengths)
+    k = torch.zeros(2, 8, 2, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        masked_flash_attention_launch_floor(q, k, k, lengths)
+
+
+def test_masked_flash_cost_by_operand_size():
+    """The bytes scale with the operands' size and the lengths' 4 bytes do
+    not; the operations do not depend on the dtype."""
+    lengths = [2, 33, 65]
+    f32 = masked_flash_cost(lengths, 65, 3, 64)
+    bf16 = masked_flash_cost(lengths, 65, 3, 64, itemsize=2)
+    assert f32["flops"] == bf16["flops"] == 2 * 2 * 65 * 64 * 3 * 100
+    assert f32["hbm_bytes"] - 12 == 2 * (bf16["hbm_bytes"] - 12)
+    assert f32["hbm_bytes"] == (2 * 3 * 65 * 3 * 64 + 2 * 100 * 3 * 64) * 4 \
+        + 12
 
 
 # -- the paged model and engine ----------------------------------------------
