@@ -28,10 +28,16 @@ script. Phases (any failure exits nonzero before the final `ok` line):
    `paged_attention` (phase `paged_parity`: 9 rows, 8 heads of 16, pages
    of 32, table widths 1 to 128, lengths 1 to 4096) and
    `masked_flash_attention` (`masked_parity`: Sq 1 against Sk 64 and 4096,
-   Sq 7 and 128 against Sk 256) within 1e-5 of the largest output, with
-   the pages or key blocks they visit counted, and each decode kernel's
-   bits the same on a second call and on a second stream
-   (`decode_repeat`); the flash kernels (phase
+   Sq 7 and 128 against Sk 256, f32; and its Sq > 1 route, the flash
+   forward kernels with per-row lengths, at `vit_masked_forward`'s shape
+   and lengths (B = 64, S = 33, lengths 25 and 33) and at (B, Sq, Sk) =
+   (64, 65, 65), (8, 300, 300), (3, 5, 100), (2, 200, 128) and (64, 33,
+   33), H = 3, D = 64, lengths 1 to Sk, in bf16 and f32, with the lse)
+   within 1e-5 of the largest output
+   (bf16 1e-2; the lse 1e-5), with the pages or key blocks they visit
+   counted, and each decode kernel's bits, and the Sq > 1 route's out and
+   lse at Sq = Sk = 65 and 300, the same on a second call and on a second
+   stream (`decode_repeat`); the flash kernels (phase
    `flash_parity`): the forward's out and lse and the backward's dq, dk,
    dv at ViT's shape (S = 65, 3 heads of 64) for B in {1, 7, 64} in bf16
    and f32, at S = 17 and 300 with block_k = 128, the bf16 tensor-core
@@ -103,7 +109,14 @@ script. Phases (any failure exits nonzero before the final `ok` line):
    k and v parts apart, within 5e-2 relative L2 error), and 20 steps of
    each whose losses stay within 1e-2 at every step
    (`vit_kernel_vs_plain`); one step's host wall and device time by
-   kernel (`vit_profile`);
+   kernel (`vit_profile`); then one eval forward of ViT-Tiny at full width
+   (seeded weights) on 64 images of the zoo's height-16 bucket (S = 33,
+   real heights 9..16, the token mask `SeqGrid.mask` builds) through
+   `ViTTiny.apply(..., mask=)`, counters set to 0 just before and read
+   just after: 12 masked-forward launches (one a layer) and no other
+   kernel, logits within 2e-2 of the largest logit of the same forward
+   with the plain `"xla"` attention and the same top-1 on >= 98% of rows,
+   and its host wall and device time by kernel (`vit_masked_forward`);
 10. time each kernel at the shapes its path gives it, beside its plain
    version and, where one exists, one library call computing the same
    function (for the Adam kernels `torch._fused_adam_`/`_fused_adamw_`, a
@@ -118,11 +131,12 @@ script. Phases (any failure exits nonzero before the final `ok` line):
    type) for the card, and for the flash rows the same bound for the
    products the kernels themselves run (`design_bound_ms`); the decode
    kernels also at every length 4096 (the long context) and the masked
-   forward at Sq > 1 (B = 64, S = 65, H = 3, D = 64, bf16 and f32), each
-   beside its launch floor (an empty kernel of the same grid, block and
-   arguments);
-11. print the `{"kernels": [...]}` line (eight kernels), then, last, the
-   `ok` line.
+   forward at Sq > 1 (B = 64, S = 33 with `vit_masked_forward`'s lengths,
+   B = 64, S = 65 and B = 8, S = 300; H = 3, D = 64, bf16 and f32; the
+   kernels line takes the first), each beside its launch floor (an empty
+   kernel of the same grid, block and arguments);
+11. print the `{"kernels": [...]}` line (nine kernels: the masked forward's
+   Sq > 1 route apart from its Sq = 1 route), then, last, the `ok` line.
 """
 
 from __future__ import annotations
@@ -456,27 +470,39 @@ def _paged_operands(torch, quant_mod, dev, n, lengths, seed):
     return q, kp, vp, table, lens
 
 
+#: the masked forward's Sq > 1 cases in `masked_parity` as (B, Sq, Sk), H = 3,
+#: D = 64, lengths from 1 to Sk: ViT's shape (the one-pass kernel), above 128
+#: keys (the tiled one), Sq != Sk, Sq > 128 against Sk <= 128, and the
+#: height-16 bucket's S = 33 (keys padded to 48)
+MASKED_SQ_CASES = ((64, 65, 65), (8, 300, 300), (3, 5, 100), (2, 200, 128),
+                   (64, 33, 33))
+
+
+def masked_lengths(b: int, sk: int) -> list[int]:
+    """`b` lengths spread from 1 to `sk`, both ends included."""
+    return np.linspace(1, sk, b).round().astype(int).tolist()
+
+
 def decode_kernel_parity(torch, dev) -> dict:
     """Both decode kernels against their plain versions on the same card
     inputs at the decode path's shapes. paged_attention: R=9, H=8, D=16,
     T=32, table widths 1, 2, 4, 8, 128, lengths 1, 31, 32, 33, 64, 4096
     mixed across rows (clipped to the width); masked_flash_attention:
-    Sq=1 against Sk 64 and 4096, Sq 7 and 128 against Sk 256. Fails
-    unless max abs error <= 1e-5 x the largest |out| and the visits are
-    ceil(len / T) pages (clipped to the width) or ceil(len / 32) key
-    blocks. Returns the worst absolute error per kernel."""
+    Sq=1 against Sk 64 and 4096, Sq 7 and 128 against Sk 256 (f32), and
+    its Sq > 1 route at `vit_masked_forward`'s shape and lengths
+    (`masked_vit_path_parity`) and at `MASKED_SQ_CASES`, in bf16 and f32
+    with the lse (`masked_parity`). Fails unless max abs error <= 1e-5 x
+    the largest |out| (paged_attention, and every f32 masked case) and the
+    visits are ceil(len / T) pages (clipped to the width). Returns the
+    worst absolute error per kernel, the masked forward's routes apart."""
     from dist_mnist_tpu_torch.ops import quant as quant_mod
-    from dist_mnist_tpu_torch.ops.kernels.masked_flash import (
-        BLOCK_K,
-        masked_flash_attention_probe,
-        masked_flash_attention_reference,
-    )
     from dist_mnist_tpu_torch.ops.kernels.paged_attention import (
         paged_attention_probe,
         paged_attention_reference,
     )
 
-    worst = {"paged_attention": 0.0, "masked_flash_attention": 0.0}
+    worst = {"paged_attention": 0.0, "masked_flash_attention": 0.0,
+             "masked_flash_attention_sq_gt1": 0.0}
     mix = DEC_MIX
     for n in (1, 2, 4, 8, 128):
         for shift in range(2):  # every length on more than one row
@@ -498,29 +524,82 @@ def decode_kernel_parity(torch, dev) -> dict:
                 fail(f"paged_attention n={n}: rel err {rel}, visits "
                      f"{visits[:, 0].tolist()} vs pages {pages.tolist()}")
             worst["paged_attention"] = max(worst["paged_attention"], abs_err)
-    gen = torch.Generator().manual_seed(3)
-    for sq, sk in ((1, 64), (1, DEC_SEQ), (7, 256), (128, 256)):
-        q, k, v = (torch.randn(DEC_ROWS, s, DEC_HEADS, DEC_DIM,
-                               generator=gen).to(dev) for s in (sq, sk, sk))
-        lens = torch.tensor([min(x, sk) for x in mix], dtype=torch.int32,
-                            device=dev)
+    worst.update(masked_vit_path_parity(torch, dev))
+    cases = [(DEC_ROWS, sq, sk, DEC_HEADS, DEC_DIM, torch.float32,
+              [min(x, sk) for x in mix])
+             for sq, sk in ((1, 64), (1, DEC_SEQ), (7, 256), (128, 256))]
+    cases += [(b, sq, sk, 3, 64, dtype, masked_lengths(b, sk))
+              for b, sq, sk in MASKED_SQ_CASES
+              for dtype in (torch.bfloat16, torch.float32)]
+    masked_parity(torch, dev, cases, torch.Generator().manual_seed(3), worst)
+    return worst
+
+
+def masked_vit_path_parity(torch, dev) -> dict:
+    """The masked forward's Sq > 1 route at the shape and lengths that
+    `vit_masked_forward` gives it (B = 64, Sq = Sk = 33, H = 3, D = 64,
+    the bucket's lengths 25 and 33 from `vit_bucket_rows`), in bf16 (the
+    path's dtype) and f32, through `masked_parity`. Returns the worst
+    absolute error per route (the Sq = 1 one 0)."""
+    lengths = (vit_bucket_rows(np.random.default_rng(0))[1] + 1).tolist()
+    worst = {"masked_flash_attention": 0.0,
+             "masked_flash_attention_sq_gt1": 0.0}
+    masked_parity(torch, dev,
+                  [(VIT_B, VIT_MASK_S, VIT_MASK_S, VIT_H, VIT_D, dtype,
+                    lengths) for dtype in (torch.bfloat16, torch.float32)],
+                  torch.Generator().manual_seed(33), worst)
+    return worst
+
+
+def masked_parity(torch, dev, cases, gen, worst: dict) -> None:
+    """Each case (B, Sq, Sk, H, D, dtype, lengths) of masked_flash_attention
+    on the card, q/k/v drawn from `gen`, against its plain version: out
+    within `FLASH_TOL`'s forward limit of the largest |out| (f32 1e-5, bf16
+    1e-2), the lse (Sq > 1, the route that writes it) within `LSE_TOL`,
+    and visits ceil(len / 32) key blocks. Fails on any miss; raises
+    `worst`'s entry of the case's route to its absolute error."""
+    from dist_mnist_tpu_torch.ops.kernels.masked_flash import (
+        BLOCK_K,
+        masked_flash_attention_forward,
+        masked_flash_attention_forward_reference,
+        masked_flash_attention_probe,
+        masked_flash_attention_reference,
+        masked_forward_body,
+    )
+
+    for b, sq, sk, h, d, dtype, lengths in cases:
+        q, k, v = (torch.randn(b, s, h, d, generator=gen).to(dev, dtype)
+                   for s in (sq, sk, sk))
+        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
         got, visits = masked_flash_attention_probe(q, k, v, lens)
         want = masked_flash_attention_reference(q, k, v, lens)
+        lse_err = None
+        if sq > 1:  # the route that writes the lse the backward reads
+            _, lse = masked_flash_attention_forward(q, k, v, lens)
+            lse_err = rel_err(lse, masked_flash_attention_forward_reference(
+                q, k, v, lens)[1])[1]
         torch.cuda.synchronize()
         abs_err, rel = rel_err(got, want)
         blocks = -(-lens.cpu() // BLOCK_K)
         vis_ok = torch.equal(visits.cpu(), blocks.float()[:, None, None]
-                             .expand(-1, DEC_HEADS, sq))
-        print(json.dumps({"phase": "masked_parity", "sq": sq, "sk": sk,
+                             .expand(-1, h, sq))
+        name = str(dtype).removeprefix("torch.")
+        tol = FLASH_TOL[name][0]  # the forward's, as the flash forward's
+        print(json.dumps({"phase": "masked_parity", "b": b, "sq": sq,
+                          "sk": sk, "h": h, "d": d, "dtype": name,
+                          "body": masked_forward_body(sq, sk, dtype),
                           "lengths": lens.cpu().tolist(),
                           "max_abs_err": abs_err, "max_rel_err": rel,
+                          "lse_max_rel_err": lse_err, "tol": tol,
                           "visits_ok": vis_ok}), flush=True)
-        if rel > 1e-5 or not vis_ok:
-            fail(f"masked_flash_attention Sq={sq} Sk={sk}: rel err {rel}, "
-                 "or visits are not ceil(len / 32)")
-        worst["masked_flash_attention"] = max(
-            worst["masked_flash_attention"], abs_err)
-    return worst
+        if rel > tol or not vis_ok or (lse_err is not None
+                                       and lse_err > LSE_TOL):
+            fail(f"masked_flash_attention B={b} Sq={sq} Sk={sk} {name}: rel "
+                 f"err {rel}, lse {lse_err}, or visits are not "
+                 "ceil(len / 32)")
+        key = ("masked_flash_attention" if sq == 1
+               else "masked_flash_attention_sq_gt1")
+        worst[key] = max(worst[key], abs_err)
 
 
 def decode_flash(torch, dev, reset_counts, read_counts) -> dict:
@@ -666,13 +745,17 @@ def _same_bits(torch, a, b) -> bool:
 
 
 def decode_repeat(torch, dev) -> dict:
-    """Each decode kernel gives the same bits on a second call and on a
-    second stream: `paged_attention` at table widths 2 (`DEC_LENGTHS`) and
-    128 (`DEC_MIX`), the masked forward at Sq = 1 against Sk = 4096
-    (`DEC_MIX`) in f32 and bf16. Fails on any difference."""
+    """Each decode kernel, and the masked forward's Sq > 1 route, gives the
+    same bits on a second call and on a second stream: `paged_attention`
+    at table widths 2 (`DEC_LENGTHS`) and 128 (`DEC_MIX`), the masked
+    forward at Sq = 1 against Sk = 4096 (`DEC_MIX`) in f32 and bf16, and at
+    Sq > 1 (out and lse) at ViT's shape (B = 64, Sq = Sk = 65, the one-pass
+    kernel) and above 128 keys (B = 8, Sq = Sk = 300, the tiled kernel),
+    H = 3, D = 64, in bf16 and f32. Fails on any difference."""
     from dist_mnist_tpu_torch.ops import quant as quant_mod
     from dist_mnist_tpu_torch.ops.kernels.masked_flash import (
         masked_flash_attention,
+        masked_flash_attention_forward,
     )
     from dist_mnist_tpu_torch.ops.kernels.paged_attention import (
         paged_attention,
@@ -682,14 +765,25 @@ def decode_repeat(torch, dev) -> dict:
     for n, lengths in ((2, DEC_LENGTHS), (128, DEC_MIX)):
         ops = _paged_operands(torch, quant_mod, dev, n, lengths, seed=200 + n)
         cases.append((f"paged_attention n_pages={n}",
-                       lambda ops=ops: paged_attention(*ops)))
+                       lambda ops=ops: (paged_attention(*ops),)))
     gen = torch.Generator().manual_seed(11)
     lens = torch.tensor(DEC_MIX, dtype=torch.int32, device=dev)
     for dtype in (torch.float32, torch.bfloat16):
         qkv = tuple(torch.randn(DEC_ROWS, s, DEC_HEADS, DEC_DIM, generator=gen)
                     .to(dev, dtype) for s in (1, DEC_SEQ, DEC_SEQ))
         cases.append((f"masked_flash_attention sq=1 sk={DEC_SEQ} {dtype}",
-                      lambda qkv=qkv: masked_flash_attention(*qkv, lens)))
+                      lambda qkv=qkv: (masked_flash_attention(*qkv, lens),)))
+    for b, s_len in ((64, 65), (8, 300)):
+        lens_s = torch.tensor(masked_lengths(b, s_len), dtype=torch.int32,
+                              device=dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            qkv = tuple(torch.randn(b, s_len, 3, 64, generator=gen)
+                        .to(dev, dtype) for _ in range(3))
+            cases.append((
+                f"masked_flash_attention sq={s_len} sk={s_len} {dtype} "
+                "(out, lse)",
+                lambda qkv=qkv, lens_s=lens_s: masked_flash_attention_forward(
+                    *qkv, lens_s)))
     out = {}
     for name, fn in cases:
         first, again = fn(), fn()
@@ -699,8 +793,8 @@ def decode_repeat(torch, dev) -> dict:
             other = fn()
         torch.cuda.current_stream().wait_stream(stream)
         torch.cuda.synchronize()
-        same = (_same_bits(torch, first, again)
-                and _same_bits(torch, first, other))
+        same = all(_same_bits(torch, a, b) and _same_bits(torch, a, c)
+                   for a, b, c in zip(first, again, other))
         out[name] = same
         print(json.dumps({"phase": "decode_repeat", "case": name,
                           "bitwise_twice_and_other_stream": same}),
@@ -718,9 +812,11 @@ def time_decode_kernels(torch, dev, bw: float, f32_peak: float,
     Sq=1 against the dense max_seq=4096 cache), at every length 4096 (the
     long context: paged width 128, masked Sq = 1 against Sk = 4096), and
     the masked forward's Sq > 1 route at the masked backward's shape (B =
-    64, S = 65, H = 3, D = 64, lengths 2..65, bf16 and f32), beside their
-    plain versions, a torch yardstick, the bound and the launch floor,
-    each timed by `graph_ms` (L2 warm).
+    64, S = 65, H = 3, D = 64, lengths 2..65), above 128 keys (B = 8,
+    S = 300, lengths 2..300) and at `vit_masked_forward`'s shape (B = 64,
+    S = 33, the bucket's lengths), bf16 and f32, beside their plain versions,
+    a torch yardstick, the bound and the launch floor, each timed by
+    `graph_ms` (L2 warm).
 
     Yardsticks: no one torch call computes paged int8 attention, so the
     paged rows' is a COMPOSITE (gather the table's pages, dequantize, then
@@ -741,6 +837,7 @@ def time_decode_kernels(torch, dev, bw: float, f32_peak: float,
         masked_flash_attention_launch_floor,
         masked_flash_attention_reference,
         masked_flash_cost,
+        masked_forward_body,
     )
     from dist_mnist_tpu_torch.ops.kernels.paged_attention import (
         paged_attention,
@@ -831,16 +928,27 @@ def time_decode_kernels(torch, dev, bw: float, f32_peak: float,
     masked_row(("masked_flash_attention", DEC_SEQ, "len4096"), q, k, v,
                torch.full((DEC_ROWS,), DEC_SEQ, dtype=torch.int32, device=dev),
                f32_peak, lengths=f"{DEC_SEQ} x {DEC_ROWS}")
-    # the route this decode work leaves as it was: Sq > 1 at the masked
-    # backward's shape
-    gen = torch.Generator().manual_seed(8)
-    b, s_len, h, d = 64, 65, 3, 64
-    lens = torch.arange(2, b + 2, dtype=torch.int32, device=dev)
-    for dtype, peak in ((torch.bfloat16, bf16_peak), (torch.float32, f32_peak)):
-        q, k, v = (torch.randn(b, s_len, h, d, generator=gen).to(dev, dtype)
-                   for _ in range(3))
-        masked_row(("masked_flash_attention_sq65", str(dtype)), q, k, v, lens,
-                   peak, lengths="2..65")
+    # the Sq > 1 route (the flash forward's kernels with the lengths): at
+    # the masked backward's shape (the one-pass kernel in bf16), above 128
+    # keys (the tiled kernel in bf16), and at `vit_masked_forward`'s shape
+    # and lengths
+    h, d = 3, 64
+    path_lens = (vit_bucket_rows(np.random.default_rng(0))[1] + 1).tolist()
+    for b, s_len, seed, lengths in (
+            (64, 65, 8, np.linspace(2, 65, 64).round().astype(int).tolist()),
+            (8, 300, 9, np.linspace(2, 300, 8).round().astype(int).tolist()),
+            (VIT_B, VIT_MASK_S, 10, path_lens)):
+        gen = torch.Generator().manual_seed(seed)
+        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        label = ("the bucket's 25 and 33" if s_len == VIT_MASK_S
+                 else f"2..{s_len}")
+        for dtype, peak in ((torch.bfloat16, bf16_peak),
+                            (torch.float32, f32_peak)):
+            q, k, v = (torch.randn(b, s_len, h, d, generator=gen)
+                       .to(dev, dtype) for _ in range(3))
+            masked_row((f"masked_flash_attention_sq{s_len}", str(dtype)), q,
+                       k, v, lens, peak, lengths=label,
+                       body=masked_forward_body(s_len, s_len, dtype))
     return out
 
 
@@ -1253,7 +1361,7 @@ def flash_parity(torch, dev) -> dict:
                 "phase": "flash_parity", "case": f"{name} forward and "
                 "backward", "dtype": name, "b": b, "s": s, "h": h, "d": d,
                 "layout": layout, "aligned16": fa.views_aligned16(q, k, v),
-                "fwd_plan": fa.f32_forward_plan(b, s, h, d)
+                "fwd_plan": fa.f32_forward_plan(b, s, s, h, d)
                 if dtype == torch.float32 else None,
                 "block_k": block_k, "rounding": "normalized"
                 if bk is None else "streamed",
@@ -1575,6 +1683,115 @@ def vit_profile(torch, dev, dataset) -> dict:
            "wall_ms_by_remat": {"dots_no_batch": wall_ms, **other},
            **profile_fields(torch, prof, reps, wall_ms)}
     print(json.dumps(out), flush=True)
+    return out
+
+
+#: the zoo's height-16 bucket of ViT-Tiny (`serve/zoo.py default_seq_grid` of
+#: 32 x 32 images, patch 4): 4 patch rows of 8 tokens, and the real heights
+#: its rows hold (a height above 8 and at most 16 takes this bucket)
+VIT_MASK_HEIGHT, VIT_MASK_REAL = 16, (9, 16)
+#: the bucket's attention length: 32 patch tokens and CLS
+VIT_MASK_S = VIT_MASK_HEIGHT // 4 * 32 // 4 + 1
+#: |logits with the kernels - logits with the plain "xla" attention|,
+#: relative to the largest plain logit, and the least share of rows whose
+#: top-1 must agree
+VIT_MASK_TOL, VIT_MASK_TOP1 = 2e-2, 0.98
+
+
+def vit_bucket_rows(rng) -> tuple[np.ndarray, np.ndarray]:
+    """`VIT_B` real heights of the height-16 bucket's rows drawn from `rng`,
+    and each row's real patch tokens (`SeqGrid.n_tokens` of 32 x 32 images
+    in patches of 4): 24 or 32, so 25 or 33 keys with CLS."""
+    heights = rng.integers(VIT_MASK_REAL[0], VIT_MASK_REAL[1] + 1, size=VIT_B)
+    return heights, -(-heights // 4) * (32 // 4)
+
+
+def vit_masked_forward(torch, dev, reset_counts, read_counts) -> dict:
+    """ViT-Tiny at `vit_tiny_cifar_flash`'s full width (dim 192, depth 12,
+    3 heads of 64, patch 4, bf16 activations; weights from seed 0) serving
+    a sub-native bucket as the zoo does: 64 images 16 rows high (32 patch
+    tokens and CLS, S = 33), each row's real height drawn from 9..16 (seed
+    0) with the rows below it zero, and the token mask `SeqGrid.mask`
+    builds for it (33 or 25 real tokens with CLS). One eval forward
+    through `ViTTiny.apply(..., mask=)`, with every launch counter set to
+    0 just before and read just after: the masked forward launched once a
+    layer (12) and no other kernel; logits finite, within `VIT_MASK_TOL` of
+    the largest logit of the same forward with `attention_impl="xla"`, and
+    the same top-1 on at least `VIT_MASK_TOP1` of the rows. Then the
+    forward's host wall (ends in a synchronize) and its device time by
+    kernel from `torch.profiler`."""
+    from dist_mnist_tpu_torch.configs import get_config
+    from dist_mnist_tpu_torch.models.registry import get_model
+    from dist_mnist_tpu_torch.utils.tree import tree_map
+
+    cfg = get_config("vit_tiny_cifar_flash")
+    model = get_model(cfg.model, **cfg.model_kwargs)
+    plain = get_model(cfg.model, **{**cfg.model_kwargs,
+                                    "attention_impl": "xla"})
+    params, state = model.init(torch.Generator().manual_seed(0),
+                               torch.zeros(1, 32, 32, 3))
+    params = tree_map(lambda t: t.to(dev), params)
+    if model.patch != 4:
+        fail(f"vit_masked_forward: patch {model.patch}, the bucket's is 4")
+    rng = np.random.default_rng(0)
+    heights, tokens = vit_bucket_rows(rng)
+    images = rng.random((VIT_B, VIT_MASK_HEIGHT, 32, 3), dtype=np.float32)
+    for row, h in enumerate(heights):
+        images[row, h:] = 0.0  # the bucket's padding rows
+    mask = np.arange(VIT_MASK_S - 1)[None, :] < tokens[:, None]
+    x = torch.from_numpy(images).to(dev)
+    m = torch.from_numpy(mask).to(dev)
+
+    def forward(mdl):
+        with torch.no_grad():
+            return mdl.apply(params, state, x, train=False, mask=m)[0]
+
+    reset_counts()
+    logits = forward(model)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want = forward(plain)
+    torch.cuda.synchronize()
+    got_np, want_np = logits.cpu().numpy(), want.cpu().numpy()
+    diff = float(np.max(np.abs(got_np - want_np)))
+    largest = float(np.max(np.abs(want_np)))
+    agree = float(np.mean(got_np.argmax(-1) == want_np.argmax(-1)))
+    reps = 20
+    for _ in range(5):  # allocator and cuBLAS warm-up
+        forward(model)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        forward(model)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            forward(model)
+        torch.cuda.synchronize()
+    depth = model.depth
+    out = {"phase": "vit_masked_forward", "batch": VIT_B,
+           "bucket_height": VIT_MASK_HEIGHT, "seq": int(mask.shape[1]) + 1,
+           "lengths": sorted({int(n) + 1 for n in tokens}),
+           "launches": counts, "launches_per_layer":
+           counts["masked_flash_attention"] / depth,
+           "shape": list(got_np.shape), "max_abs_diff_vs_xla": diff,
+           "max_abs_logit_xla": largest, "tol": VIT_MASK_TOL * largest,
+           "top1_agreement": agree,
+           **profile_fields(torch, prof, reps, wall_ms)}
+    print(json.dumps(out), flush=True)
+    others = {k: v for k, v in counts.items()
+              if k != "masked_flash_attention" and v}
+    if counts["masked_flash_attention"] != depth or others:
+        fail(f"vit_masked_forward: launches {counts} (want "
+             f"{depth} masked_flash_attention, no other kernel)")
+    if got_np.shape != (VIT_B, 10) or not np.isfinite(got_np).all():
+        fail(f"vit_masked_forward: logits {got_np.shape} or non-finite")
+    if diff > VIT_MASK_TOL * largest or agree < VIT_MASK_TOP1:
+        fail(f"vit_masked_forward: logits {diff} from the plain attention's "
+             f"(largest {largest}), top-1 agreement {agree}")
     return out
 
 
@@ -2124,6 +2341,8 @@ def main() -> None:
     cifar = load_dataset("cifar10", seed=42)  # the bench's cached twin
     vit_kernel_vs_plain(torch, dev, cifar)
     vit_profile(torch, dev, cifar)
+    # the masked forward at Sq > 1 on a real model: a sub-native bucket
+    vit_masked = vit_masked_forward(torch, dev, reset_counts, read_counts)
 
     # -- 10. timing at the paths' shapes -------------------------------------
     timed = {}
@@ -2189,8 +2408,8 @@ def main() -> None:
              ("masked_flash_attention", DEC_SEQ, "len4096"),
              "masked_flash_attention", "flash_attention.py:527",
              flash["launches"]["masked_flash_attention"],
-             f"{masked_forward_body(1)} (Sq = 1: one warp per (b, h)); "
-             f"{masked_forward_body(2)} (Sq > 1)",
+             f"{masked_forward_body(1, DEC_SEQ, torch.float32)} (Sq = 1: one "
+             "warp per (b, h))",
              f"one decode step: B=9, Sq=1, Sk={DEC_SEQ}, H=8, D=16, "
              f"lengths {DEC_LENGTHS}, f32")):
         row, long_row = decode_timed[key], decode_timed[long_key]
@@ -2218,12 +2437,36 @@ def main() -> None:
             "len4096_library_or_composite_ms": long_row.get(
                 "composite_ms", long_row["library_ms"]),
         })
-    for dtype in ("torch.bfloat16", "torch.float32"):
-        row = decode_timed[("masked_flash_attention_sq65", dtype)]
-        tag = "sq65_" + dtype.removeprefix("torch.")
-        decode_rows[1].update({f"{tag}_{k}": row[k] for k in (
-            "kernel_ms", "plain_ms", "bound_ms", "launch_floor_ms",
-            "library_ms")})
+    # the Sq > 1 route: the flash forward's kernels with the lengths
+    sq_row = decode_timed[(f"masked_flash_attention_sq{VIT_MASK_S}",
+                           "torch.bfloat16")]
+    masked_sq_row = {
+        "name": "masked_flash_attention_sq_gt1",
+        "route": "cuda",
+        "source": "dist_mnist_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "dist_mnist_tpu/ops/pallas/flash_attention.py:527",
+        "body": f"{masked_forward_body(65, 65, torch.bfloat16)} (bf16, Sk <= "
+                f"128), {masked_forward_body(300, 300, torch.bfloat16)} "
+                f"(bf16 above), {masked_forward_body(65, 65, torch.float32)}"
+                " (f32), with per-row lengths and the streamed rule",
+        "launches": vit_masked["launches"]["masked_flash_attention"],
+        "path": "vit_masked_forward: one ViT-Tiny eval forward at full "
+                "width, B=64, the height-16 bucket (S=33), bf16",
+        "max_abs_err": decode_worst["masked_flash_attention_sq_gt1"],
+        "shape": f"B={VIT_B}, Sq=Sk={VIT_MASK_S}, H={VIT_H}, D={VIT_D}, "
+                 "bf16, the bucket's lengths 25 and 33 (vit_masked_forward's)",
+        "ms": sq_row["kernel_ms"],
+        **{k: sq_row[k] for k in ("kernel_ms", "plain_ms", "bound_ms",
+                                  "bound_by", "launch_floor_ms",
+                                  "library_ms")},
+    }
+    for s_len in (VIT_MASK_S, 65, 300):
+        for dtype in ("torch.bfloat16", "torch.float32"):
+            row = decode_timed[(f"masked_flash_attention_sq{s_len}", dtype)]
+            tag = f"sq{s_len}_" + dtype.removeprefix("torch.")
+            masked_sq_row.update({f"{tag}_{k}": row[k] for k in (
+                "kernel_ms", "plain_ms", "bound_ms", "launch_floor_ms",
+                "library_ms")})
     vit_shape = (f"ViT-Tiny training: B={VIT_B}, S={VIT_S}, H={VIT_H}, "
                  f"D={VIT_D}, bf16, strided q/k/v of the fused projection")
     flash_rows = []
@@ -2289,7 +2532,8 @@ def main() -> None:
         "f32_launches_mlp_serve": mlp["quant_matmul_f32_launches"],
         **{f"f32_{key}_m{m}": row[key] for m, row in mlp_hid.items()
            for key in ("kernel_ms", "plain_ms", "library_ms", "bound_ms")},
-    }, *adam_rows, *decode_rows, *flash_rows], "gpu": gpu}), flush=True)
+    }, *adam_rows, *decode_rows, masked_sq_row, *flash_rows], "gpu": gpu}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -3,8 +3,9 @@
 // Replaces three Pallas TPU kernels of dist_mnist_tpu/ops/pallas/flash_attention.py:
 //
 //   flash_fwd_mma_onepass,  <- `_flash_fwd_impl` (`_attn_fwd_kernel`, and the streamed
-//   flash_fwd_mma_tiled,       `_attn_fwd_kernel_kt`): the first two for bf16, the
-//   flash_fwd_f32              last for f32
+//   flash_fwd_mma_tiled,       `_attn_fwd_kernel_kt`) and, with per-row lengths,
+//   flash_fwd_f32              `_masked_flash_fwd_impl` (`_masked_attn_fwd_kernel`) at
+//                              Sq > 1: the first two for bf16, the last for f32
 //   flash_dq_mma,           <- `_flash_bwd_impl` (`_attn_dq_kernel`, `_attn_dq_kernel_kt`)
 //   flash_dq_f32               and `_masked_flash_bwd_impl` (`_masked_attn_dq_kernel`):
 //                              bf16, f32
@@ -14,13 +15,14 @@
 //
 // What they compute, per (batch row b, head h), with scale = D**-0.5:
 //
-//   s_ij  = dot(f32(q_i), f32(k_j)) * scale; -1e30 for keys j >= len (len = S, or
-//           lengths[b] in the masked backward)
+//   s_ij  = dot(f32(q_i), f32(k_j)) * scale; -1e30 for keys j >= len (len = Sk, or
+//           lengths[b] in the masked forward and backward)
 //   forward: m_i = max_j s_ij, l_i = sum_j exp(s_ij - m_i), lse_i = m_i + log(l_i)
 //     normalized = 1 (the reference's full-K kernel, which every call with one
 //       128-key tile takes): out_i = sum_j round_v(exp(s_ij - m_i) / l_i) * f32(v_j)
-//     normalized = 0 (the reference's streamed kernel): online softmax over the
-//       key tiles; out_i = (sum_j round_v(exp(s_ij - m_cur)) * f32(v_j)) / l_i
+//     normalized = 0 (the reference's streamed kernel, and its masked kernel): online
+//       softmax over the key tiles; out_i = (sum_j round_v(exp(s_ij - m_cur)) *
+//       f32(v_j)) / l_i
 //     round_v rounds to v's dtype (identity for f32); accumulation in f32; out in
 //     q's dtype
 //   backward, from the forward's lse and delta_i = rowsum(f32(dO_i) * f32(O_i))
@@ -34,8 +36,15 @@
 // element strides along B, S and H (passed in), so the strided q/k/v views of a
 // fused qkv projection are read in place; q has its own strides, k and v share
 // one set. dO, out, dq, dk, dv are contiguous [B, S, H, D]; lse and delta are
-// contiguous [B, H, S] f32; lengths (optional) [B] int32. The forward takes
-// Sq = Sk = S; the backward takes Sq and Sk apart (the masked decode shapes).
+// contiguous [B, H, S] f32; lengths (optional) [B] int32; visits (optional) [B, H, Sq]
+// f32. Every kernel takes Sq and Sk apart (the masked shapes; unmasked self-attention
+// has Sq = Sk = S).
+//
+// With lengths (the masked forward at Sq > 1), a forward kernel stages and computes
+// only the whole groups of TILE = 32 keys before a row's length (rows at and past the
+// length within the last group read as zeros and score -1e30), enters no key tile past
+// it, and counts the groups it entered per query row into visits, ceil(len / TILE);
+// the rule is the streamed one. Without lengths the same code runs with len = Sk.
 //
 // The bf16 forward: mma.sync on the tensor cores. The product of two bf16 values is
 // exact in f32, so mma.sync m16n8k16 with an f32 accumulator forms exactly the
@@ -44,17 +53,19 @@
 // tiles staged in shared memory as bf16 by 16-byte cp.async, read in place from the
 // strided views (rows padded by 16 bytes, so ldmatrix reads them without bank
 // conflicts; D padded with zeros to 16, 32, 64 or 128). Q goes into A fragments once.
-// QK^T leaves the f32 logits in the accumulator fragments; keys at or past S are set
-// to -1e30, and a row's max and sum are taken over its quad of lanes by shuffles.
-//   * S <= 128 (every ViT call: S = 65, 80 padded keys, 40 logits a thread): one block
-//     holds the whole head (ceil(S / 16) warps; 192 blocks at ViT's B = 64, H = 3) and
-//     the whole key axis in registers: one pass of scores, max, sum, then
-//     round_bf16(exp(s - m) / l) (IEEE expf and division, no --use_fast_math), which
-//     is re-packed from the accumulator fragments as the A operand of PV
-//     (FlashAttention-2's register reuse). V's tile lands while QK^T runs.
-//   * S > 128: blocks of 8 warps over 128 query rows walk key tiles of 64: the
-//     normalized rule in two passes (max and sum, then the product), the streamed
-//     rule in one (online softmax, unnormalized rounded p, acc / l at the end).
+// QK^T leaves the f32 logits in the accumulator fragments; keys at or past the length
+// are set to -1e30, and a row's max and sum are taken over its quad of lanes by
+// shuffles. A block owns up to 8 warps of query rows (ceil(Sq / 16) warps).
+//   * Sk <= 128 (every ViT call: S = 65, 80 padded keys, 40 logits a thread): one block
+//     holds the whole head up to 128 query rows (192 blocks of 5 warps at ViT's B = 64,
+//     H = 3) and the whole key axis in registers: one pass of scores, max, sum, then
+//     round_bf16(exp(s - m) / l) (IEEE expf and division, no --use_fast_math; the
+//     streamed rule: round_bf16(exp(s - m)), acc / l at the store), which is re-packed
+//     from the accumulator fragments as the A operand of PV (FlashAttention-2's
+//     register reuse). V's tile lands while QK^T runs.
+//   * Sk > 128: the blocks walk key tiles of 64: the normalized rule in two passes (max
+//     and sum, then the product), the streamed rule in one (online softmax,
+//     unnormalized rounded p, acc / l at the end).
 //   PV reads V by ldmatrix.trans and accumulates in f32; out is rounded to bf16 and
 //   lse = m + log(l) stored in f32. Views whose base or row strides are not 16-byte
 //   aligned are staged by plain loads (the VEC = false instantiations).
@@ -80,13 +91,13 @@
 // The f32 forward (`flash_fwd_f32`): CUDA-core FMAs (f32 operands would be cut by TF32
 // on the tensor cores), tiled as an SGEMM is. A block owns a group of query rows of one
 // (b, h) (ViT: 2 groups of 36 rows, 384 blocks of 160 threads) and stages its Q rows
-// once, then K and V once per key tile (S <= 128: one tile of every key, so the
+// once, then K and V once per key tile (Sk <= 128: one tile of every key, so the
 // normalized rule takes one pass), by 16-byte cp.async where the views are aligned.
 // QK^T and PV are register-tiled: a thread owns 4 x 4 scores, then up to two 4 x 4
 // tiles of the output, reading float4 rows of Q and K, or of P and V, from shared
 // memory; the scores pass through shared memory, where a warp per row takes the max
 // and sum by shuffles. Rows are padded by 4 floats, so lanes reading consecutive rows
-// at one offset spread over the banks. Above S = 128, key tiles of 64: the normalized
+// at one offset spread over the banks. Above Sk = 128, key tiles of 64: the normalized
 // rule walks K once more first for each row's max and sum, the streamed one keeps a
 // running max and rescales its sums (online softmax).
 //
@@ -94,7 +105,7 @@
 // the f32 forward is, two kernels kept apart as on the TPU so that every output element
 // is written by one thread in a fixed order (no atomics: the same bits on every run and
 // stream). A block owns a group of rows of one (b, h), query rows in dQ and key rows in
-// dK/dV, by the plan `f32_bwd_plan` (the wrapper's `f32_backward_plan`; ViT: 2 groups of
+// dK/dV, by the plan `f32_plan` (the wrapper's `f32_backward_plan`; ViT: 2 groups of
 // 36 rows, 384 blocks of 160 threads a kernel). It stages its rows once (Q and dO, or K
 // and V) and the other axis once when it has at most ONE_PASS_KEYS rows (K and V; Q, dO,
 // lse and delta), else in tiles of F32_KEY_TILE, by 16-byte cp.async where the views are
@@ -117,7 +128,10 @@
 // kernels is latency: each block loads its head's operands once and a warp does ~80
 // (forward), ~160 (dQ) or ~240 (dK/dV) mma. The f32 route's FMAs on the CUDA cores
 // bound it (the backward's seven f32 products: 10.9 us at the f32 peak at ViT's shape),
-// and the shared-memory reads that feed them. No --use_fast_math.
+// and the shared-memory reads that feed them. With lengths, a forward moves only each
+// row's active K and V rows and multiplies only them (ViT's shape with lengths 2..65,
+// bf16: 4.8 MB, 1.4 us at 3.35 TB/s), so the masked forward is bound the same way and
+// skipping past the length is what moves it. No --use_fast_math.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -147,6 +161,14 @@ __device__ __forceinline__ float warp_sum(float x) {
     for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(FULL, x, o);
     return x;
 }
+
+// a row's length: lengths[b] clipped to Sk, or Sk when there are no lengths
+__device__ __forceinline__ int row_length(const int32_t* __restrict__ lengths, int b, int Sk) {
+    return lengths ? min((int)lengths[b], Sk) : Sk;
+}
+
+// the forward's mask: a key is scored when it lies before the row's length
+__device__ __forceinline__ bool key_live(int key, int len) { return key < len; }
 
 // -- f32 forward on the CUDA cores ----------------------------------------------
 
@@ -184,27 +206,33 @@ __device__ __forceinline__ float4 ld4(const float* p) {
     return *reinterpret_cast<const float4*>(p);
 }
 
-// One block per (group of `rows` query rows, h, b), `threads` threads (the wrapper's
-// plan: rows and ktile multiples of 4, rows <= 64, ktile <= 128). It stages its Q
-// rows once and walks the keys in tiles of `ktile`, each K and V tile staged once for
-// all its rows: S <= 128 is one tile of every key, so the normalized rule takes one
-// pass (scores, max, sum, divide). Per tile:
-//   scores  a thread owns 4 query rows x 4 keys (keys kg + j * ktile / 4: lanes read
-//           consecutive K rows, which the pitch of DP + 4 floats spreads over the
-//           banks), f32 FMAs over D from float4 reads of Q and K; s * scale into P;
-//   softmax a warp per row over P: keys >= S at -1e30, the row's max and sum by
-//           shuffles, P replaced by the probabilities (NORMALIZED: exp(s - m) / l,
-//           with m and l from the one tile or from pass 1; streamed: exp(s - m_new),
-//           the rescale exp(m - m_new) kept for the row);
+// One block per (group of `rows` query rows, h, b), `threads` threads (the plan
+// `f32_plan`: rows and ktile multiples of 4, rows <= 64, ktile <= 128). It stages its Q
+// rows once and walks the keys before the row's length in tiles of `ktile`, each K and V
+// tile staged once for all its rows: Sk <= 128 is one tile of every key, so the
+// normalized rule takes one pass (scores, max, sum, divide). A tile's keys before the
+// length, rounded up to 4, are staged (zeros at and past the length) and computed; no
+// key past them is. Per tile:
+//   scores  a thread owns 4 query rows x 4 keys (keys kg + j * nk for the tile's nk
+//           groups of 4: lanes read consecutive K rows, which the pitch of DP + 4 floats
+//           spreads over the banks), f32 FMAs over D from float4 reads of Q and K;
+//           s * scale into P;
+//   softmax a warp per row over P: keys at or past the length at -1e30, the row's max
+//           and sum by shuffles, P replaced by the probabilities (NORMALIZED:
+//           exp(s - m) / l, with m and l from the one tile or from pass 1; streamed:
+//           exp(s - m_new), the rescale exp(m - m_new) kept for the row);
 //   PV      a thread owns up to F32_OUT_TILES tiles of 4 rows x 4 dims of the
 //           output in registers across the tiles, keys ascending, float4 reads of P
 //           and V.
 // NORMALIZED with more than one tile first walks K alone for each row's max and sum.
+// visits (optional): the steps of TILE keys each query row entered, ceil(len / TILE).
 template <int DP, bool VEC, bool NORMALIZED>
 __global__ void __launch_bounds__(F32_MAX_THREADS)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, float* __restrict__ out, float* __restrict__ lse,
-              int S, int H, int D, Layout lq, Layout lkv, float scale, int rows, int ktile) {
+              const float* __restrict__ v, const int32_t* __restrict__ lengths,
+              float* __restrict__ out, float* __restrict__ lse, float* __restrict__ visits,
+              int Sq, int Sk, int H, int D, Layout lq, Layout lkv, float scale, int rows,
+              int ktile) {
     constexpr int PITCH = DP + 4;
     extern __shared__ __align__(16) float fsm[];
     const int pp = ktile + 4;
@@ -218,18 +246,22 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     const int b = blockIdx.z, h = blockIdx.y, row0 = blockIdx.x * rows;
     const int tid = threadIdx.x, threads = blockDim.x;
     const int warp = tid >> 5, lane = tid & 31, warps = threads >> 5;
-    const int rq = rows / 4, nk = ktile / 4, nd = DP / 4;
-    const int tiles = (S + ktile - 1) / ktile;
+    const int rq = rows / 4, nd = DP / 4;
+    const int len = row_length(lengths, b, Sk);
+    const int tiles = (len + ktile - 1) / ktile;  // key tiles before the length
 
-    stage_f32<DP, VEC>(q_s, PITCH, q, lq, b, h, row0, rows, S, D);
+    stage_f32<DP, VEC>(q_s, PITCH, q, lq, b, h, row0, rows, Sq, D);
     tc::cp_async_commit();
     for (int r = tid; r < rows; r += threads) {
         m_s[r] = NEG;
         l_s[r] = 0.f;
     }
 
-    // P = Q K^T * scale for the tile staged in k_s
-    auto scores = [&]() {
+    // keys of tile kt before the length, rounded up to 4: the K and V rows staged and
+    // the keys scored
+    auto tile_keys = [&](int kt) { return (min(ktile, len - kt * ktile) + 3) & ~3; };
+    // P = Q K^T * scale for the first 4 * nk keys of the tile staged in k_s
+    auto scores = [&](int nk) {
         for (int t = tid; t < rq * nk; t += threads) {
             const int ri = t / nk, kg = t - ri * nk;
             const float* qr = q_s + 4 * ri * PITCH;
@@ -261,23 +293,25 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
             }
         }
     };
-    // each row's logits of key tile kt (up to 4 a lane), -1e30 at keys >= S
+    // each row's logits of key tile kt (up to 4 a lane), -1e30 at keys at or past the
+    // length
     auto logits = [&](int r, int kt, float (&x)[4]) {
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
             const int j = lane + 32 * i;
-            x[i] = j < ktile && kt * ktile + j < S ? p_s[r * pp + j] : NEG;
+            x[i] = j < ktile && key_live(kt * ktile + j, len) ? p_s[r * pp + j] : NEG;
         }
     };
 
     if (NORMALIZED && tiles > 1) {  // pass 1: each row's max and sum over every key
         for (int kt = 0; kt < tiles; ++kt) {
             __syncthreads();  // the previous tile's readers are done with k_s and p_s
-            stage_f32<DP, VEC>(k_s, PITCH, k, lkv, b, h, kt * ktile, ktile, S, D);
+            const int nkeys = tile_keys(kt);
+            stage_f32<DP, VEC>(k_s, PITCH, k, lkv, b, h, kt * ktile, nkeys, len, D);
             tc::cp_async_commit();
             tc::cp_async_wait<0>();
             __syncthreads();
-            scores();
+            scores(nkeys / 4);
             __syncthreads();
             for (int r = warp; r < rows; r += warps) {
                 float x[4];
@@ -297,15 +331,18 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     }
 
     float acc[F32_OUT_TILES][4][4] = {};
+    int steps = 0;
     for (int kt = 0; kt < tiles; ++kt) {  // the main pass
         __syncthreads();  // the previous tile's readers are done with k_s, v_s and p_s
-        stage_f32<DP, VEC>(k_s, PITCH, k, lkv, b, h, kt * ktile, ktile, S, D);
+        const int nkeys = tile_keys(kt);
+        steps += (min(ktile, len - kt * ktile) + TILE - 1) / TILE;
+        stage_f32<DP, VEC>(k_s, PITCH, k, lkv, b, h, kt * ktile, nkeys, len, D);
         tc::cp_async_commit();
-        stage_f32<DP, VEC>(v_s, PITCH, v, lkv, b, h, kt * ktile, ktile, S, D);
+        stage_f32<DP, VEC>(v_s, PITCH, v, lkv, b, h, kt * ktile, nkeys, len, D);
         tc::cp_async_commit();
         tc::cp_async_wait<1>();  // Q and K here; V still in flight
         __syncthreads();
-        scores();
+        scores(nkeys / 4);
         tc::cp_async_wait<0>();
         __syncthreads();
         for (int r = warp; r < rows; r += warps) {
@@ -337,7 +374,6 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
             }
         }
         __syncthreads();
-        const int nkeys = min(ktile, (S - kt * ktile + 3) & ~3);  // keys past S: p = 0
 #pragma unroll
         for (int o = 0; o < F32_OUT_TILES; ++o) {
             const int t = tid + o * threads;
@@ -353,7 +389,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
                     for (int c = 0; c < 4; ++c) acc[o][i][c] *= al;
                 }
             }
-            for (int j = 0; j < nkeys; j += 4) {
+            for (int j = 0; j < nkeys; j += 4) {  // keys past the length: p = 0
                 float4 p[4], w[4];
 #pragma unroll
                 for (int i = 0; i < 4; ++i) {
@@ -374,6 +410,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
             }
         }
     }
+    tc::cp_async_wait<0>();  // Q, when no key tile was entered
 
 #pragma unroll
     for (int o = 0; o < F32_OUT_TILES; ++o) {
@@ -383,9 +420,9 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
             const int r = 4 * ri + i, row = row0 + r;
-            if (row >= S) continue;
+            if (row >= Sq) continue;
             const float div = NORMALIZED ? 1.f : l_s[r];
-            float* orow = out + (((size_t)b * S + row) * H + h) * D;
+            float* orow = out + (((size_t)b * Sq + row) * H + h) * D;
 #pragma unroll
             for (int c = 0; c < 4; ++c) {
                 const int d = 4 * dj + c;
@@ -394,7 +431,10 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
         }
     }
     for (int r = tid; r < rows; r += threads) {
-        if (row0 + r < S) lse[((size_t)b * H + h) * S + row0 + r] = m_s[r] + logf(l_s[r]);
+        if (row0 + r >= Sq) continue;
+        const size_t at = ((size_t)b * H + h) * Sq + row0 + r;
+        lse[at] = m_s[r] + logf(l_s[r]);
+        if (visits) visits[at] = (float)steps;
     }
 }
 
@@ -467,11 +507,11 @@ __device__ __forceinline__ void mma_abt(float (&c)[NT][4], const uint32_t (&af)[
 }
 
 // s = Q (16 rows) . K[key0 + 16j .. + 16)^T for j < groups (`mma_abt`), times `scale`,
-// -1e30 at keys >= S
+// -1e30 at keys at or past the row's length
 template <int DP, int NT>
 __device__ __forceinline__ void scores(float (&s)[NT][4], const uint32_t (&qf)[DP / 16][4],
                                        const __nv_bfloat16* k_s, int pitch, int groups,
-                                       int key0, int S, float scale) {
+                                       int key0, int len, float scale) {
     const int t = threadIdx.x & 3;
     mma_abt<DP, NT>(s, qf, k_s, pitch, groups);
 #pragma unroll
@@ -479,7 +519,7 @@ __device__ __forceinline__ void scores(float (&s)[NT][4], const uint32_t (&qf)[D
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
             const int key = key0 + n * 8 + 2 * t + (i & 1);
-            s[n][i] = key < S ? s[n][i] * scale : NEG;
+            s[n][i] = key_live(key, len) ? s[n][i] * scale : NEG;
         }
     }
 }
@@ -535,20 +575,22 @@ __device__ __forceinline__ void accumulate_pv(float (&o)[DP / 8][4], const float
 }
 
 // out rows (row g and g + 8 of the warp's 16) as bf16, each divided by l first when
-// DIVIDE (the streamed rule), and their lse; rows >= S and columns >= D are not stored
+// DIVIDE (the streamed rule), their lse, and (when `visits` is given) the steps of TILE
+// keys each entered; rows >= Sq and columns >= D are not stored
 template <int DP, bool DIVIDE>
 __device__ __forceinline__ void store_rows(const float (&o)[DP / 8][4], const float (&mx)[2],
                                            const float (&l)[2],
                                            __nv_bfloat16* __restrict__ out,
-                                           float* __restrict__ lse, int b, int h, int row0,
-                                           int S, int H, int D) {
+                                           float* __restrict__ lse, float* __restrict__ visits,
+                                           int steps, int b, int h, int row0, int Sq, int H,
+                                           int D) {
     const int lane = threadIdx.x & 31;
     const int g = lane >> 2, t = lane & 3;
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
         const int row = row0 + g + 8 * half;
-        if (row >= S) continue;
-        __nv_bfloat16* orow = out + (((size_t)b * S + row) * H + h) * D;
+        if (row >= Sq) continue;
+        __nv_bfloat16* orow = out + (((size_t)b * Sq + row) * H + h) * D;
 #pragma unroll
         for (int dt = 0; dt < DP / 8; ++dt) {
             const int col = dt * 8 + 2 * t;
@@ -561,32 +603,45 @@ __device__ __forceinline__ void store_rows(const float (&o)[DP / 8][4], const fl
                 if (col + 1 < D) orow[col + 1] = __float2bfloat16(v1);
             }
         }
-        if (t == 0) lse[((size_t)b * H + h) * S + row] = mx[half] + logf(l[half]);
+        if (t == 0) {
+            const size_t at = ((size_t)b * H + h) * Sq + row;
+            lse[at] = mx[half] + logf(l[half]);
+            if (visits) visits[at] = (float)steps;
+        }
     }
 }
 
-// S <= ONE_PASS_KEYS: one block per (b, h), ceil(S / 16) warps, every key in registers
-template <int DP, bool VEC>
+// Sk <= ONE_PASS_KEYS: blocks of up to MMA_MAX_WARPS warps over the query rows (one
+// block per (b, h) up to 128 rows), every key in registers. The keys staged and
+// computed are the whole TILE-key groups before the row's length (zeros at and past
+// it), padded to 16 at Sk: no QK^T or PV mma is issued for a group past them.
+// NORMALIZED: p = exp(s - m) / l rounded to bf16 before PV (the reference's full-K
+// rule); else the streamed rule's one tile: exp(s - m) rounded, out = acc / l.
+template <int DP, bool VEC, bool NORMALIZED>
 __global__ void __launch_bounds__(MMA_MAX_WARPS * 32)
 flash_fwd_mma_onepass(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                      const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
-                      float* __restrict__ lse, int S, int H, int D, Layout lq, Layout lkv,
-                      float scale) {
+                      const __nv_bfloat16* __restrict__ v, const int32_t* __restrict__ lengths,
+                      __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                      float* __restrict__ visits, int Sq, int Sk, int H, int D, Layout lq,
+                      Layout lkv, float scale) {
     constexpr int PITCH = DP + 8;
     constexpr int NT = ONE_PASS_KEYS / 8;
     extern __shared__ __align__(16) unsigned char smem_raw[];
-    const int warps = blockDim.x >> 5;
-    const int kp = (S + 15) & ~15;  // keys padded to 16
-    __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [warps * 16][PITCH]
-    __nv_bfloat16* k_s = q_s + warps * 16 * PITCH;                       // [kp][PITCH]
+    const int rows = (blockDim.x >> 5) * 16;
+    const int kp = (Sk + 15) & ~15;  // keys padded to 16
+    __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [rows][PITCH]
+    __nv_bfloat16* k_s = q_s + rows * PITCH;                             // [kp][PITCH]
     __nv_bfloat16* v_s = k_s + kp * PITCH;                               // [kp][PITCH]
     const int b = blockIdx.z, h = blockIdx.y;
     const int warp = threadIdx.x >> 5;
+    const int row0 = blockIdx.x * rows;
+    const int len = row_length(lengths, b, Sk);
+    const int keys = min(kp, (len + TILE - 1) / TILE * TILE);  // staged and computed
 
-    stage_bf16<DP, VEC>(q_s, PITCH, q, lq, b, h, 0, warps * 16, S, D);
-    stage_bf16<DP, VEC>(k_s, PITCH, k, lkv, b, h, 0, kp, S, D);
+    stage_bf16<DP, VEC>(q_s, PITCH, q, lq, b, h, row0, rows, Sq, D);
+    stage_bf16<DP, VEC>(k_s, PITCH, k, lkv, b, h, 0, keys, len, D);
     tc::cp_async_commit();
-    stage_bf16<DP, VEC>(v_s, PITCH, v, lkv, b, h, 0, kp, S, D);
+    stage_bf16<DP, VEC>(v_s, PITCH, v, lkv, b, h, 0, keys, len, D);
     tc::cp_async_commit();
     tc::cp_async_wait<1>();  // Q and K here; V still in flight
     __syncthreads();
@@ -594,8 +649,8 @@ flash_fwd_mma_onepass(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
     uint32_t qf[DP / 16][4];
     load_q_frags<DP>(qf, q_s + warp * 16 * PITCH, PITCH);
     float s[NT][4];
-    const int groups = kp / 16;
-    scores<DP, NT>(s, qf, k_s, PITCH, groups, 0, S, scale);
+    const int groups = keys / 16;
+    scores<DP, NT>(s, qf, k_s, PITCH, groups, 0, len, scale);
     float mx[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
     row_max<NT>(s, mx);
 #pragma unroll
@@ -608,40 +663,48 @@ flash_fwd_mma_onepass(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
     }
     l[0] = quad_sum(l[0]);
     l[1] = quad_sum(l[1]);
+    if (NORMALIZED) {
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
+        for (int n = 0; n < NT; ++n) {
 #pragma unroll
-        for (int i = 0; i < 4; ++i) s[n][i] = s[n][i] / l[i >> 1];  // rounded to bf16 in PV
+            for (int i = 0; i < 4; ++i) s[n][i] = s[n][i] / l[i >> 1];  // rounded to bf16 in PV
+        }
     }
 
     tc::cp_async_wait<0>();
     __syncthreads();
     float o[DP / 8][4] = {};
     accumulate_pv<DP, NT>(o, s, v_s, PITCH, groups);
-    store_rows<DP, false>(o, mx, l, out, lse, b, h, warp * 16, S, H, D);
+    store_rows<DP, !NORMALIZED>(o, mx, l, out, lse, visits, (groups + 1) / 2, b, h,
+                                row0 + warp * 16, Sq, H, D);
 }
 
-// S > ONE_PASS_KEYS: blocks of MMA_MAX_WARPS warps over 16 * MMA_MAX_WARPS query rows,
-// key tiles of KEY_TILE; NORMALIZED: two passes, else the streamed online softmax
+// Sk > ONE_PASS_KEYS: blocks of up to MMA_MAX_WARPS warps over the query rows, key tiles
+// of KEY_TILE up to the row's length, each tile's whole TILE-key groups before it staged
+// and computed; NORMALIZED: two passes, else the streamed online softmax
 template <int DP, bool VEC, bool NORMALIZED>
 __global__ void __launch_bounds__(MMA_MAX_WARPS * 32)
 flash_fwd_mma_tiled(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
-                    float* __restrict__ lse, int S, int H, int D, Layout lq, Layout lkv,
-                    float scale) {
+                    const __nv_bfloat16* __restrict__ v, const int32_t* __restrict__ lengths,
+                    __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                    float* __restrict__ visits, int Sq, int Sk, int H, int D, Layout lq,
+                    Layout lkv, float scale) {
     constexpr int PITCH = DP + 8;
     constexpr int NT = KEY_TILE / 8;
-    constexpr int QROWS = MMA_MAX_WARPS * 16;
     extern __shared__ __align__(16) unsigned char smem_raw[];
-    __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [QROWS][PITCH]
-    __nv_bfloat16* k_s = q_s + QROWS * PITCH;                            // [KEY_TILE][PITCH]
+    const int rows = (blockDim.x >> 5) * 16;
+    __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [rows][PITCH]
+    __nv_bfloat16* k_s = q_s + rows * PITCH;                             // [KEY_TILE][PITCH]
     __nv_bfloat16* v_s = k_s + KEY_TILE * PITCH;                         // [KEY_TILE][PITCH]
     const int b = blockIdx.z, h = blockIdx.y;
     const int warp = threadIdx.x >> 5;
-    const int row0 = blockIdx.x * QROWS;
-    const int tiles = (S + KEY_TILE - 1) / KEY_TILE;
+    const int row0 = blockIdx.x * rows;
+    const int len = row_length(lengths, b, Sk);
+    const int end = (len + TILE - 1) / TILE * TILE;  // keys staged and computed
+    // the keys of the tile at k0 that are staged and computed: whole TILE-key groups
+    auto tile_keys = [&](int k0) { return min(KEY_TILE, end - k0); };
 
-    stage_bf16<DP, VEC>(q_s, PITCH, q, lq, b, h, row0, QROWS, S, D);
+    stage_bf16<DP, VEC>(q_s, PITCH, q, lq, b, h, row0, rows, Sq, D);
     tc::cp_async_commit();
     uint32_t qf[DP / 16][4];
     float s[NT][4];
@@ -649,14 +712,15 @@ flash_fwd_mma_tiled(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
     float o[DP / 8][4] = {};
 
     if (NORMALIZED) {  // pass 1: each row's max and sum over every key
-        for (int kt = 0; kt < tiles; ++kt) {
+        for (int k0 = 0; k0 < len; k0 += KEY_TILE) {
             __syncthreads();  // the previous tile's readers are done with k_s
-            stage_bf16<DP, VEC>(k_s, PITCH, k, lkv, b, h, kt * KEY_TILE, KEY_TILE, S, D);
+            const int nk = tile_keys(k0);
+            stage_bf16<DP, VEC>(k_s, PITCH, k, lkv, b, h, k0, nk, len, D);
             tc::cp_async_commit();
             tc::cp_async_wait<0>();
             __syncthreads();
-            if (kt == 0) load_q_frags<DP>(qf, q_s + warp * 16 * PITCH, PITCH);
-            scores<DP, NT>(s, qf, k_s, PITCH, KEY_TILE / 16, kt * KEY_TILE, S, scale);
+            if (k0 == 0) load_q_frags<DP>(qf, q_s + warp * 16 * PITCH, PITCH);
+            scores<DP, NT>(s, qf, k_s, PITCH, nk / 16, k0, len, scale);
             float m_new[2] = {mx[0], mx[1]};
             row_max<NT>(s, m_new);
             float sum[2] = {0.f, 0.f};
@@ -673,15 +737,18 @@ flash_fwd_mma_tiled(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
         }
     }
 
-    for (int kt = 0; kt < tiles; ++kt) {
+    int steps = 0;
+    for (int k0 = 0; k0 < len; k0 += KEY_TILE) {
         __syncthreads();  // the previous tile's readers are done with k_s and v_s
-        stage_bf16<DP, VEC>(k_s, PITCH, k, lkv, b, h, kt * KEY_TILE, KEY_TILE, S, D);
-        stage_bf16<DP, VEC>(v_s, PITCH, v, lkv, b, h, kt * KEY_TILE, KEY_TILE, S, D);
+        const int nk = tile_keys(k0);
+        steps += nk / TILE;
+        stage_bf16<DP, VEC>(k_s, PITCH, k, lkv, b, h, k0, nk, len, D);
+        stage_bf16<DP, VEC>(v_s, PITCH, v, lkv, b, h, k0, nk, len, D);
         tc::cp_async_commit();
         tc::cp_async_wait<0>();
         __syncthreads();
-        if (!NORMALIZED && kt == 0) load_q_frags<DP>(qf, q_s + warp * 16 * PITCH, PITCH);
-        scores<DP, NT>(s, qf, k_s, PITCH, KEY_TILE / 16, kt * KEY_TILE, S, scale);
+        if (!NORMALIZED && k0 == 0) load_q_frags<DP>(qf, q_s + warp * 16 * PITCH, PITCH);
+        scores<DP, NT>(s, qf, k_s, PITCH, nk / 16, k0, len, scale);
         if (NORMALIZED) {
 #pragma unroll
             for (int n = 0; n < NT; ++n) {
@@ -713,9 +780,11 @@ flash_fwd_mma_tiled(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
                 for (int i = 0; i < 4; ++i) o[dt][i] *= alpha[i >> 1];
             }
         }
-        accumulate_pv<DP, NT>(o, s, v_s, PITCH, KEY_TILE / 16);
+        accumulate_pv<DP, NT>(o, s, v_s, PITCH, nk / 16);
     }
-    store_rows<DP, !NORMALIZED>(o, mx, l, out, lse, b, h, row0 + warp * 16, S, H, D);
+    tc::cp_async_wait<0>();  // Q, when no key tile was entered
+    store_rows<DP, !NORMALIZED>(o, mx, l, out, lse, visits, steps, b, h, row0 + warp * 16, Sq,
+                                H, D);
 }
 
 // -- bf16 backward on the tensor cores ----------------------------------------
@@ -1257,65 +1326,6 @@ cudaError_t allow_smem(K kernel, size_t smem) {
 }
 
 
-// the bf16 forward for head dims padded to DP: one pass up to ONE_PASS_KEYS keys,
-// key tiles above
-template <int DP, bool VEC>
-cudaError_t launch_fwd_mma(const __nv_bfloat16* q, const __nv_bfloat16* k,
-                           const __nv_bfloat16* v, __nv_bfloat16* out, float* lse, int B,
-                           int S, int H, int D, Layout lq, Layout lkv, int normalized,
-                           float scale, cudaStream_t st) {
-    cudaError_t err;
-    if (S <= ONE_PASS_KEYS) {
-        const int warps = (S + 15) / 16;
-        const size_t smem = sizeof(__nv_bfloat16) * (DP + 8) * (size_t)(3 * warps * 16);
-        err = allow_smem(flash_fwd_mma_onepass<DP, VEC>, smem);
-        if (err != cudaSuccess) return err;
-        flash_fwd_mma_onepass<DP, VEC><<<dim3(1, H, B), warps * 32, smem, st>>>(
-            q, k, v, out, lse, S, H, D, lq, lkv, scale);
-        return cudaGetLastError();
-    }
-    const dim3 grid((S + MMA_MAX_WARPS * 16 - 1) / (MMA_MAX_WARPS * 16), H, B);
-    const size_t smem =
-        sizeof(__nv_bfloat16) * (DP + 8) * (size_t)(MMA_MAX_WARPS * 16 + 2 * KEY_TILE);
-    if (normalized) {
-        err = allow_smem(flash_fwd_mma_tiled<DP, VEC, true>, smem);
-        if (err != cudaSuccess) return err;
-        flash_fwd_mma_tiled<DP, VEC, true><<<grid, MMA_MAX_WARPS * 32, smem, st>>>(
-            q, k, v, out, lse, S, H, D, lq, lkv, scale);
-    } else {
-        err = allow_smem(flash_fwd_mma_tiled<DP, VEC, false>, smem);
-        if (err != cudaSuccess) return err;
-        flash_fwd_mma_tiled<DP, VEC, false><<<grid, MMA_MAX_WARPS * 32, smem, st>>>(
-            q, k, v, out, lse, S, H, D, lq, lkv, scale);
-    }
-    return cudaGetLastError();
-}
-
-// the f32 forward for head dims padded to DP, by the wrapper's plan: blocks of
-// `threads` threads over `rows` query rows, key tiles of `ktile`
-template <int DP, bool VEC>
-cudaError_t launch_fwd_f32(const float* q, const float* k, const float* v, float* out,
-                           float* lse, int B, int S, int H, int D, Layout lq, Layout lkv,
-                           int normalized, float scale, int rows, int ktile, int threads,
-                           cudaStream_t st) {
-    const dim3 grid((S + rows - 1) / rows, H, B);
-    const size_t smem = sizeof(float) * ((size_t)(rows + 2 * ktile) * (DP + 4) +
-                                         (size_t)rows * (ktile + 4) + 3 * rows);
-    cudaError_t err;
-    if (normalized) {
-        err = allow_smem(flash_fwd_f32<DP, VEC, true>, smem);
-        if (err != cudaSuccess) return err;
-        flash_fwd_f32<DP, VEC, true><<<grid, threads, smem, st>>>(q, k, v, out, lse, S, H, D,
-                                                                  lq, lkv, scale, rows, ktile);
-    } else {
-        err = allow_smem(flash_fwd_f32<DP, VEC, false>, smem);
-        if (err != cudaSuccess) return err;
-        flash_fwd_f32<DP, VEC, false><<<grid, threads, smem, st>>>(q, k, v, out, lse, S, H, D,
-                                                                   lq, lkv, scale, rows, ktile);
-    }
-    return cudaGetLastError();
-}
-
 // whether a [B, S, H, D] operand of `el`-byte elements (bf16 by default) may be staged
 // by 16-byte copies: base 16-byte aligned, row strides and D whole multiples of 16
 // bytes (the rule of `views_aligned16`)
@@ -1373,38 +1383,119 @@ cudaError_t launch_dkv_mma(const __nv_bfloat16* q, const __nv_bfloat16* k,
 
 int padded_dim(int D) { return D <= 16 ? 16 : D <= 32 ? 32 : D <= 64 ? 64 : 128; }
 
-// shared-memory bytes of one f32 backward block: its rows and the other axis's tile (both
-// padded by 4 floats to DP + 4), dS (and P^T in dK/dV) and two row statistics
-size_t f32_bwd_smem(bool dkv, int rows, int tile, int DP) {
-    const size_t pitch = DP + 4, pp = score_pitch(tile);
+// the f32 kernels, each with its own shared-memory layout and its own output tiles a
+// thread owns (F32_OUT_TILES in the forward and dQ, one of dK and one of dV in dK/dV)
+enum F32Kernel { F32_FWD, F32_DQ, F32_DKV };
+
+// shared-memory bytes of one f32 block owning `rows` rows against a tile of `tile` rows
+// of the other axis (both padded by 4 floats to DP + 4). Forward: the scores (rows of
+// tile + 4 floats) and three row statistics. Backward: dS (and P^T in dK/dV) and two
+// statistics per query row held.
+size_t f32_smem(F32Kernel kind, int rows, int tile, int DP) {
+    const size_t pitch = DP + 4;
+    if (kind == F32_FWD)
+        return sizeof(float) * (((size_t)rows + 2 * (size_t)tile) * pitch +
+                                (size_t)rows * (tile + 4) + 3 * (size_t)rows);
+    const bool dkv = kind == F32_DKV;
+    const size_t pp = score_pitch(tile);
     return sizeof(float) * ((2 * (size_t)rows + 2 * (size_t)tile) * pitch +
                             (dkv ? 2 : 1) * (size_t)rows * pp + 2 * (size_t)(dkv ? tile : rows));
 }
 
-// the f32 backward's plan for a kernel owning `own` rows per (b, h) against `other`
-// (the wrapper's `f32_backward_plan`, a function of the shape alone): the other axis in
-// one tile up to ONE_PASS_KEYS (rounded up to 4), tiles of F32_KEY_TILE above; the rows
-// in enough groups to reach F32_TARGET_BLOCKS (none under 16 rows, at most F32_MAX_ROWS
-// a group), rounded up to 4, then cut by 4 while the output needs more tiles than the
-// threads hold (F32_OUT_TILES a thread in dQ, one in dK/dV) or the block's shared
-// memory does not fit; threads enough for one 4 x 4 tile of scores each and those
-// output tiles, in whole warps, 64 to F32_MAX_THREADS
+// an f32 kernel's plan for `own` rows per (b, h) against `other` (the wrapper's
+// `f32_forward_plan` and `f32_backward_plan`, functions of the shape alone): the other
+// axis in one tile up to ONE_PASS_KEYS (rounded up to 4), tiles of F32_KEY_TILE above;
+// the rows in enough groups to reach F32_TARGET_BLOCKS (none under 16 rows, at most
+// F32_MAX_ROWS a group), rounded up to 4, then cut by 4 while the output needs more
+// tiles than the threads hold or the block's shared memory does not fit; threads enough
+// for one 4 x 4 tile of scores each and those output tiles, in whole warps, 64 to
+// F32_MAX_THREADS
 struct F32Plan {
     int rows, tile, threads;
 };
 
-F32Plan f32_bwd_plan(int B, int own, int other, int H, int D, bool dkv) {
+F32Plan f32_plan(F32Kernel kind, int B, int own, int other, int H, int D) {
     const int tile = other <= ONE_PASS_KEYS ? (max(other, 1) + 3) & ~3 : F32_KEY_TILE;
     const int target = (F32_TARGET_BLOCKS + B * H - 1) / (B * H);
     const int groups = max((own + F32_MAX_ROWS - 1) / F32_MAX_ROWS, min((own + 15) / 16, target));
-    const int DP = padded_dim(D), per = dkv ? 1 : F32_OUT_TILES;
+    const int DP = padded_dim(D), per = kind == F32_DKV ? 1 : F32_OUT_TILES;
     int rows = (((own + groups - 1) / groups) + 3) & ~3;
     while (rows > 4 && (rows / 4 * (DP / 4) > per * F32_MAX_THREADS ||
-                        f32_bwd_smem(dkv, rows, tile, DP) > SMEM_LIMIT))
+                        f32_smem(kind, rows, tile, DP) > SMEM_LIMIT))
         rows -= 4;
     const int out_tiles = (rows / 4 * (DP / 4) + per - 1) / per;
     const int tiles = max(rows / 4 * (tile / 4), out_tiles);
     return {rows, tile, min(F32_MAX_THREADS, max(64, (tiles + 31) & ~31))};
+}
+
+// the forward's launch for [B, Sq | Sk, H, D]: the grid, threads and dynamic shared memory
+// of its kernel, and the query rows a block owns and the keys it stages at a time.
+// bf16: blocks of ceil(Sq / 16) warps up to MMA_MAX_WARPS, every key (padded to 16) up to
+// ONE_PASS_KEYS (`flash_fwd_mma_onepass`), tiles of KEY_TILE above (`flash_fwd_mma_tiled`);
+// f32 (`flash_fwd_f32`): `f32_plan` over the query rows against the keys.
+struct FwdPlan {
+    dim3 grid;
+    int threads;
+    size_t smem;
+    int rows, tile;
+};
+
+FwdPlan fwd_plan(int B, int Sq, int Sk, int H, int D, bool bf16) {
+    const int DP = padded_dim(D);
+    if (bf16) {
+        const int warps = min(MMA_MAX_WARPS, (Sq + 15) / 16), rows = warps * 16;
+        const int tile = Sk <= ONE_PASS_KEYS ? (Sk + 15) & ~15 : KEY_TILE;
+        return {dim3((Sq + rows - 1) / rows, H, B), warps * 32,
+                sizeof(__nv_bfloat16) * (DP + 8) * (size_t)(rows + 2 * tile), rows, tile};
+    }
+    const F32Plan p = f32_plan(F32_FWD, B, Sq, Sk, H, D);
+    return {dim3((Sq + p.rows - 1) / p.rows, H, B), p.threads,
+            f32_smem(F32_FWD, p.rows, p.tile, DP), p.rows, p.tile};
+}
+
+// The empty kernel with the forward's arguments: its launch floor.
+__global__ void flash_fwd_empty(const void*, const void*, const void*, const int32_t*, void*,
+                                float*, float*, int, int, int, int, Layout, Layout, float, int,
+                                int) {}
+
+// `kernel` on the plan's grid, block and shared memory, on stream `st`
+template <typename K, typename... Args>
+cudaError_t launch_fwd(K kernel, const FwdPlan& pl, cudaStream_t st, Args... args) {
+    const cudaError_t err = allow_smem(kernel, pl.smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<pl.grid, pl.threads, pl.smem, st>>>(args...);
+    return cudaGetLastError();
+}
+
+// the forward for head dims padded to DP: the bf16 kernels on the tensor cores (one pass
+// up to ONE_PASS_KEYS keys, key tiles above) or the f32 kernel, by the plan; `normalized`
+// picks the rounding rule
+template <int DP, bool VEC>
+cudaError_t launch_fwd_dp(const void* q, const void* k, const void* v, const int32_t* lens,
+                          void* out, float* lse, float* vis, int Sq, int Sk, int H, int D,
+                          Layout lq, Layout lkv, bool bf16, bool normalized, float scale,
+                          const FwdPlan& pl, cudaStream_t st) {
+    if (bf16) {
+        const __nv_bfloat16* qb = static_cast<const __nv_bfloat16*>(q);
+        const __nv_bfloat16* kb = static_cast<const __nv_bfloat16*>(k);
+        const __nv_bfloat16* vb = static_cast<const __nv_bfloat16*>(v);
+        __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(out);
+        if (Sk <= ONE_PASS_KEYS) {
+            auto kernel = normalized ? flash_fwd_mma_onepass<DP, VEC, true>
+                                     : flash_fwd_mma_onepass<DP, VEC, false>;
+            return launch_fwd(kernel, pl, st, qb, kb, vb, lens, ob, lse, vis, Sq, Sk, H, D, lq,
+                              lkv, scale);
+        }
+        auto kernel = normalized ? flash_fwd_mma_tiled<DP, VEC, true>
+                                 : flash_fwd_mma_tiled<DP, VEC, false>;
+        return launch_fwd(kernel, pl, st, qb, kb, vb, lens, ob, lse, vis, Sq, Sk, H, D, lq, lkv,
+                          scale);
+    }
+    auto kernel = normalized ? flash_fwd_f32<DP, VEC, true> : flash_fwd_f32<DP, VEC, false>;
+    return launch_fwd(kernel, pl, st, static_cast<const float*>(q),
+                      static_cast<const float*>(k), static_cast<const float*>(v), lens,
+                      static_cast<float*>(out), lse, vis, Sq, Sk, H, D, lq, lkv, scale, pl.rows,
+                      pl.tile);
 }
 
 template <int DP, bool VEC>
@@ -1412,8 +1503,8 @@ cudaError_t launch_dq_f32(const float* q, const float* k, const float* v, const 
                           const float* lse, const float* delta, const int32_t* lengths,
                           float* dq, float* visits, int B, int Sq, int Sk, int H, int D,
                           Layout lq, Layout lkv, float scale, cudaStream_t st) {
-    const F32Plan pl = f32_bwd_plan(B, Sq, Sk, H, D, false);
-    const size_t smem = f32_bwd_smem(false, pl.rows, pl.tile, DP);
+    const F32Plan pl = f32_plan(F32_DQ, B, Sq, Sk, H, D);
+    const size_t smem = f32_smem(F32_DQ, pl.rows, pl.tile, DP);
     const cudaError_t err = allow_smem(flash_dq_f32<DP, VEC>, smem);
     if (err != cudaSuccess) return err;
     flash_dq_f32<DP, VEC><<<dim3((Sq + pl.rows - 1) / pl.rows, H, B), pl.threads, smem, st>>>(
@@ -1427,8 +1518,8 @@ cudaError_t launch_dkv_f32(const float* q, const float* k, const float* v, const
                            const float* lse, const float* delta, const int32_t* lengths,
                            float* dk, float* dv, float* visits, int B, int Sq, int Sk, int H,
                            int D, Layout lq, Layout lkv, float scale, cudaStream_t st) {
-    const F32Plan pl = f32_bwd_plan(B, Sk, Sq, H, D, true);
-    const size_t smem = f32_bwd_smem(true, pl.rows, pl.tile, DP);
+    const F32Plan pl = f32_plan(F32_DKV, B, Sk, Sq, H, D);
+    const size_t smem = f32_smem(F32_DKV, pl.rows, pl.tile, DP);
     const cudaError_t err = allow_smem(flash_dkv_f32<DP, VEC>, smem);
     if (err != cudaSuccess) return err;
     flash_dkv_f32<DP, VEC><<<dim3((Sk + pl.rows - 1) / pl.rows, H, B), pl.threads, smem, st>>>(
@@ -1459,58 +1550,75 @@ extern "C" int dmt_flash_aligned16(const void* p, long long sb, long long ss, lo
 // key tile and threads, then the dK/dV kernel's rows, query tile and threads; exported
 // so that the card tests hold it to the wrapper's `f32_backward_plan`
 extern "C" void dmt_flash_f32_backward_plan(int B, int Sq, int Sk, int H, int D, int* out) {
-    const F32Plan dq = f32_bwd_plan(B, Sq, Sk, H, D, false);
-    const F32Plan dkv = f32_bwd_plan(B, Sk, Sq, H, D, true);
+    const F32Plan dq = f32_plan(F32_DQ, B, Sq, Sk, H, D);
+    const F32Plan dkv = f32_plan(F32_DKV, B, Sk, Sq, H, D);
     const int plan[6] = {dq.rows, dq.tile, dq.threads, dkv.rows, dkv.tile, dkv.threads};
     for (int i = 0; i < 6; ++i) out[i] = plan[i];
+}
+
+// the forward's launch plan for [B, Sq | Sk, H, D] into out[0..6]: the grid's x, y and z,
+// the threads, the dynamic shared-memory bytes, the query rows a block owns and the keys
+// it stages at a time; exported so that the card tests hold it to the wrapper's
+// `forward_plan`
+extern "C" void dmt_flash_forward_plan(int B, int Sq, int Sk, int H, int D, int is_bf16,
+                                       int* out) {
+    const FwdPlan p = fwd_plan(B, Sq, Sk, H, D, is_bf16 != 0);
+    const int plan[7] = {(int)p.grid.x, (int)p.grid.y, (int)p.grid.z, p.threads, (int)p.smem,
+                         p.rows, p.tile};
+    for (int i = 0; i < 7; ++i) out[i] = plan[i];
 }
 
 // Each entry point launches one kernel on `stream` (PyTorch's current stream)
 // and returns cudaGetLastError() after the launch: nonzero means the launch was
 // refused and nothing ran. Strides are in elements.
 
-extern "C" int dmt_flash_attention_fwd(const void* q, const void* k, const void* v, void* out,
-                                       void* lse, int B, int S, int H, int D, long long qsb,
+// The forward: q [B, Sq, H, D] against k and v [B, Sk, H, D] (k and v with one set of
+// strides); `lengths` (optional, int32 [B]) masks each row's keys at and past its length
+// and takes the streamed rule; `visits` (optional, f32 [B, H, Sq]) gets the steps of TILE
+// keys each query row entered; `vec`: every view may be staged by 16-byte copies
+extern "C" int dmt_flash_attention_fwd(const void* q, const void* k, const void* v,
+                                       const void* lengths, void* out, void* lse, void* visits,
+                                       int B, int Sq, int Sk, int H, int D, long long qsb,
                                        long long qss, long long qsh, long long ksb,
                                        long long kss, long long ksh, int is_bf16,
-                                       int normalized, int vec, int rows, int ktile,
-                                       int threads, float scale, void* stream) {
+                                       int normalized, int vec, float scale, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     const Layout lq = {qsb, qss, qsh}, lkv = {ksb, kss, ksh};
+    const int32_t* lens = static_cast<const int32_t*>(lengths);
     float* l = static_cast<float*>(lse);
-    cudaError_t err;
-    if (is_bf16) {  // the tensor-core kernels; `vec`: every view 16-byte aligned
-        const __nv_bfloat16* qb = static_cast<const __nv_bfloat16*>(q);
-        const __nv_bfloat16* kb = static_cast<const __nv_bfloat16*>(k);
-        const __nv_bfloat16* vb = static_cast<const __nv_bfloat16*>(v);
-        __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(out);
-#define DMT_FWD_MMA(DP)                                                                      \
-    err = vec ? launch_fwd_mma<DP, true>(qb, kb, vb, ob, l, B, S, H, D, lq, lkv, normalized, \
-                                         scale, st)                                        \
-              : launch_fwd_mma<DP, false>(qb, kb, vb, ob, l, B, S, H, D, lq, lkv, normalized, \
-                                          scale, st)
-        if (D <= 16) { DMT_FWD_MMA(16); }
-        else if (D <= 32) { DMT_FWD_MMA(32); }
-        else if (D <= 64) { DMT_FWD_MMA(64); }
-        else { DMT_FWD_MMA(128); }
-#undef DMT_FWD_MMA
-        return static_cast<int>(err);
-    }
-    const float* qf = static_cast<const float*>(q);
-    const float* kf = static_cast<const float*>(k);
-    const float* vf = static_cast<const float*>(v);
-    float* of = static_cast<float*>(out);
-#define DMT_FWD_F32(DP)                                                                     \
-    err = vec ? launch_fwd_f32<DP, true>(qf, kf, vf, of, l, B, S, H, D, lq, lkv, normalized, \
-                                         scale, rows, ktile, threads, st)                 \
-              : launch_fwd_f32<DP, false>(qf, kf, vf, of, l, B, S, H, D, lq, lkv,         \
-                                          normalized, scale, rows, ktile, threads, st)
-    if (D <= 16) { DMT_FWD_F32(16); }
-    else if (D <= 32) { DMT_FWD_F32(32); }
-    else if (D <= 64) { DMT_FWD_F32(64); }
-    else { DMT_FWD_F32(128); }
-#undef DMT_FWD_F32
-    return static_cast<int>(err);
+    float* vis = static_cast<float*>(visits);
+    const FwdPlan pl = fwd_plan(B, Sq, Sk, H, D, is_bf16 != 0);
+    const bool bf16 = is_bf16 != 0, norm = normalized != 0;
+#define DMT_FWD(DP)                                                                          \
+    return static_cast<int>(                                                                 \
+        vec ? launch_fwd_dp<DP, true>(q, k, v, lens, out, l, vis, Sq, Sk, H, D, lq, lkv, bf16, \
+                                      norm, scale, pl, st)                                   \
+            : launch_fwd_dp<DP, false>(q, k, v, lens, out, l, vis, Sq, Sk, H, D, lq, lkv,    \
+                                       bf16, norm, scale, pl, st))
+    if (D <= 16) { DMT_FWD(16); }
+    if (D <= 32) { DMT_FWD(32); }
+    if (D <= 64) { DMT_FWD(64); }
+    DMT_FWD(128);
+#undef DMT_FWD
+}
+
+// The same arguments into an empty kernel of the forward's grid, block and shared
+// memory: what a launch costs before the kernel does anything.
+extern "C" int dmt_flash_attention_fwd_empty(const void* q, const void* k, const void* v,
+                                             const void* lengths, void* out, void* lse,
+                                             void* visits, int B, int Sq, int Sk, int H, int D,
+                                             long long qsb, long long qss, long long qsh,
+                                             long long ksb, long long kss, long long ksh,
+                                             int is_bf16, int normalized, int vec, float scale,
+                                             void* stream) {
+    (void)normalized;
+    (void)vec;
+    const FwdPlan pl = fwd_plan(B, Sq, Sk, H, D, is_bf16 != 0);
+    return static_cast<int>(launch_fwd(
+        flash_fwd_empty, pl, static_cast<cudaStream_t>(stream), q, k, v,
+        static_cast<const int32_t*>(lengths), out, static_cast<float*>(lse),
+        static_cast<float*>(visits), Sq, Sk, H, D, Layout{qsb, qss, qsh}, Layout{ksb, kss, ksh},
+        scale, pl.rows, pl.tile));
 }
 
 extern "C" int dmt_flash_attention_dq(const void* q, const void* k, const void* v,

@@ -16,41 +16,32 @@
 //   lse[b, h, s] = m + log(l) in f32 when a backward will need it (lse may be
 //   null: the decode step passes none, and its output does not depend on it)
 //
-// Layouts (all contiguous): q [B, Sq, H, D], k and v [B, Sk, H, D], all f32 or
-// all bf16; lengths [B] int32 with 1 <= len <= Sk; out like q; visits [B, H, Sq]
-// f32. The one C entry takes two routes by Sq.
+// Layouts (all contiguous): q [B, 1, H, D], k and v [B, Sk, H, D], all f32 or all
+// bf16; lengths [B] int32 with 1 <= len <= Sk; out like q; visits [B, H, 1] f32.
 //
-// Sq = 1, the decode step (`masked_flash_decode_kernel`). One warp owns one
-// (b, h) (csrc/decode_attention.cuh: G lanes a key, 16 dimensions a lane; at the
-// decode path's D = 16 lane i owns key i of a 32-key block, and at D = 64 four
-// lanes share a key and a block takes four slices). A key at or past the row's
-// length is never read; visits count the 32-key blocks entered,
-// ceil(len / 32). At the serving path's shapes (B = 9, H = 8, D = 16, Sk =
-// 4096, lengths of a few dozen) the bytes are a few hundred KB and the time goes
-// to dependent memory round trips, so: the length and q are loaded together; a
-// lane's K and V rows are requested together as 16-byte vectors (four float4 each
-// in f32, two in bf16 at D = 16), slice c + 2's before slice c's arithmetic (a
-// register ring); each lane runs its own online softmax over its keys, and the
-// lanes are merged once at the end by fixed butterflies (`decode::finish`, which
-// also gives the lse's max and sum). No barrier.
+// This file holds the Sq = 1 route, the decode step (`masked_flash_decode_kernel`).
+// One warp owns one (b, h) (csrc/decode_attention.cuh: G lanes a key, 16 dimensions a
+// lane; at the decode path's D = 16 lane i owns key i of a 32-key block, and at D = 64
+// four lanes share a key and a block takes four slices). A key at or past the row's
+// length is never read; visits count the 32-key blocks entered, ceil(len / 32). At
+// the serving path's shapes (B = 9, H = 8, D = 16, Sk = 4096, lengths of a few dozen)
+// the bytes are a few hundred KB and the time goes to dependent memory round trips,
+// so: the length and q are loaded together; a lane's K and V rows are requested
+// together as 16-byte vectors (four float4 each in f32, two in bf16 at D = 16), slice
+// c + 2's before slice c's arithmetic (a register ring); each lane runs its own online
+// softmax over its keys, and the lanes are merged once at the end by fixed butterflies
+// (`decode::finish`, which also gives the lse's max and sum). No barrier.
 //
-// Sq > 1 (`masked_flash_fwd_kernel`: zoo and ViT masked buckets, and the lse
-// the masked backward reads). One block of 4 warps per (4 query rows, head,
-// batch row); each warp owns one query row, and lane i of a warp owns key i of
-// the current key block. The block stages a key block of K and V (BK x D, as
-// f32) in shared memory, padded by one float per K row so that 32 lanes reading
-// 32 keys at one dimension hit 32 banks, and every warp scores it against its
-// row. Blocks are entered only for kb*BK < len: a key block at or past the
-// row's length is neither read nor computed, as the TPU kernel's `pl.when`
-// skips its math. Key positions past Sk (the ragged last block) read as zeros
-// and are masked like any key past the length. For large Sq the K/V tile would
-// be better shared by more query rows and fed to the tensor cores; that is
-// later work.
+// Sq > 1 (zoo and ViT masked buckets, and the lse the masked backward reads) runs the
+// flash forward kernels of csrc/flash_attention.cu with the lengths vector and the
+// streamed rule: `flash_fwd_mma_onepass` (bf16, Sk <= 128) or `flash_fwd_mma_tiled`
+// (bf16 above) on the tensor cores, `flash_fwd_f32` (f32) on the CUDA cores, each
+// block of query rows staging K and V once for all its rows and entering no 32-key
+// group at or past a row's length (ops/kernels/masked_flash.py routes the call).
 //
-// What bounds it. Each (b, h) reads its active K and V rows once per block of
-// query rows and the queries once: at Sq = 1 the work is bytes of the active
-// prefix of the cache (2*len*D elements per head) against 4*len*D operations,
-// so device-memory bytes bound it. No --use_fast_math.
+// What bounds it. At Sq = 1 the work is bytes of the active prefix of the cache
+// (2*len*D elements per head) against 4*len*D operations, so device-memory bytes
+// bound it. No --use_fast_math.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -61,106 +52,12 @@
 
 namespace {
 
-constexpr int ROWS = 4;  // warps per block, one query row each
-constexpr int THREADS = ROWS * 32;
-constexpr int BK = 32;  // keys per block: one per lane
-constexpr int MAX_D = 128;
-constexpr int D_PER_LANE = MAX_D / 32;
+constexpr int BK = 32;  // keys per visit: the skip granularity
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_out(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 // p in v's dtype, back in f32 for the f32 accumulation
 __device__ __forceinline__ float round_to(float x, float) { return x; }
 __device__ __forceinline__ float round_to(float x, __nv_bfloat16) {
     return __bfloat162float(__float2bfloat16(x));
-}
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-masked_flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const int32_t* __restrict__ lengths,
-                        T* __restrict__ out, float* __restrict__ visits,
-                        float* __restrict__ lse, int Sq, int Sk, int H, int D, float scale) {
-    extern __shared__ float smem[];
-    float* k_s = smem;                 // [BK][D + 1]
-    float* v_s = k_s + BK * (D + 1);   // [BK][D]
-    float* q_s = v_s + BK * D;         // [ROWS][D]
-
-    const int b = blockIdx.z;
-    const int h = blockIdx.y;
-    const int warp = threadIdx.x >> 5;
-    const int lane = threadIdx.x & 31;
-    const int row = blockIdx.x * ROWS + warp;
-    const bool live = row < Sq;
-
-    const int len = min(lengths[b], Sk);
-    const int blocks = len > 0 ? (len + BK - 1) / BK : 0;
-
-    for (int d = lane; d < D; d += 32)
-        q_s[warp * D + d] = live ? to_f32(q[(((size_t)b * Sq + row) * H + h) * D + d]) : 0.f;
-
-    float m = -1e30f;
-    float l = 0.f;
-    float acc[D_PER_LANE];
-#pragma unroll
-    for (int i = 0; i < D_PER_LANE; ++i) acc[i] = 0.f;
-
-    for (int kb = 0; kb < blocks; ++kb) {
-        for (int e = threadIdx.x; e < BK * D; e += THREADS) {
-            const int kk = e / D;
-            const int d = e - kk * D;
-            const int key = kb * BK + kk;
-            float kx = 0.f, vx = 0.f;
-            if (key < Sk) {
-                const size_t off = (((size_t)b * Sk + key) * H + h) * D + d;
-                kx = to_f32(k[off]);
-                vx = to_f32(v[off]);
-            }
-            k_s[kk * (D + 1) + d] = kx;
-            v_s[kk * D + d] = vx;
-        }
-        __syncthreads();  // also publishes q_s on the first block
-        if (live) {
-            float s = 0.f;
-            for (int d = 0; d < D; ++d) s = fmaf(q_s[warp * D + d], k_s[lane * (D + 1) + d], s);
-            s = kb * BK + lane < len ? s * scale : -1e30f;
-            float m_blk = s;
-#pragma unroll
-            for (int o = 16; o > 0; o >>= 1)
-                m_blk = fmaxf(m_blk, __shfl_xor_sync(0xffffffffu, m_blk, o));
-            const float m_new = fmaxf(m, m_blk);
-            const float alpha = expf(m - m_new);
-            const float p = expf(s - m_new);
-            float p_sum = p;
-#pragma unroll
-            for (int o = 16; o > 0; o >>= 1) p_sum += __shfl_xor_sync(0xffffffffu, p_sum, o);
-            l = l * alpha + p_sum;
-            const float p_v = round_to(p, T());
-#pragma unroll
-            for (int i = 0; i < D_PER_LANE; ++i) acc[i] *= alpha;
-            for (int kk = 0; kk < BK; ++kk) {
-                const float pk = __shfl_sync(0xffffffffu, p_v, kk);
-#pragma unroll
-                for (int i = 0; i < D_PER_LANE; ++i) {
-                    const int d = lane + 32 * i;
-                    if (d < D) acc[i] = fmaf(pk, v_s[kk * D + d], acc[i]);
-                }
-            }
-            m = m_new;
-        }
-        __syncthreads();  // the next block overwrites k_s / v_s
-    }
-    if (live) {
-#pragma unroll
-        for (int i = 0; i < D_PER_LANE; ++i) {
-            const int d = lane + 32 * i;
-            if (d < D) store_out(out + (((size_t)b * Sq + row) * H + h) * D + d, acc[i] / l);
-        }
-        if (lane == 0) visits[((size_t)b * H + h) * Sq + row] = (float)blocks;
-        if (lse && lane == 0) lse[((size_t)b * H + h) * Sq + row] = m + logf(l);
-    }
 }
 
 // Sq = 1: one warp per (b, h), G lanes a key, two slices of rows in flight ahead
@@ -261,7 +158,7 @@ masked_flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 }
 
-// The empty kernel with either route's arguments: the launch floor.
+// The empty kernel with the decode route's arguments: the launch floor.
 __global__ void masked_flash_empty(const void*, const void*, const void*, const void*, void*,
                                    void*, void*, int, int, int, int, float) {}
 
@@ -301,68 +198,46 @@ extern "C" void dmt_masked_flash_decode_plan(int B, int H, int D, int* out) {
     decode::plan(B, H, D, out);
 }
 
-// Launch on `stream` (PyTorch's current stream): Sq = 1 takes
-// `masked_flash_decode_kernel`, Sq > 1 `masked_flash_fwd_kernel`. Returns
+// Launch `masked_flash_decode_kernel` on `stream` (PyTorch's current stream). Returns
 // cudaGetLastError() after the launch: nonzero means the launch was refused and
-// nothing ran.
+// nothing ran. Sq must be 1 (cudaErrorInvalidValue else): the wrapper sends Sq > 1 to
+// the flash forward entry of csrc/flash_attention.cu.
 extern "C" int dmt_masked_flash_attention(const void* q, const void* k, const void* v,
                                           const void* lengths, void* out, void* visits,
                                           void* lse, int B, int Sq, int Sk, int H, int D,
                                           int is_bf16, float scale, void* stream) {
+    if (Sq != 1) return static_cast<int>(cudaErrorInvalidValue);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const int32_t* lens = static_cast<const int32_t*>(lengths);
     float* vis = static_cast<float*>(visits);
     float* ls = static_cast<float*>(lse);
-    if (Sq == 1) {
-        int plan[4];
-        decode::plan(B, H, D, plan);
-        const dim3 grid(plan[1], plan[2]);
-        // 16-byte loads need 16-byte aligned rows: D a multiple of 16, aligned k and v
-        const bool vec = D % 16 == 0 &&
-                         ((reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) & 15) == 0;
-        if (is_bf16)
-            launch_decode<__nv_bfloat16>(plan[0], vec, grid, s, q, k, v, lens, out, vis, ls, Sk,
-                                         H, D, scale);
-        else
-            launch_decode<float>(plan[0], vec, grid, s, q, k, v, lens, out, vis, ls, Sk, H, D,
-                                 scale);
-        return static_cast<int>(cudaGetLastError());
-    }
-    const dim3 grid((Sq + ROWS - 1) / ROWS, H, B);
-    const size_t smem = sizeof(float) * (BK * (D + 1) + BK * D + ROWS * D);
-    if (is_bf16) {
-        masked_flash_fwd_kernel<__nv_bfloat16><<<grid, THREADS, smem, s>>>(
-            static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-            static_cast<const __nv_bfloat16*>(v), lens, static_cast<__nv_bfloat16*>(out), vis,
-            ls, Sq, Sk, H, D, scale);
-    } else {
-        masked_flash_fwd_kernel<float><<<grid, THREADS, smem, s>>>(
-            static_cast<const float*>(q), static_cast<const float*>(k),
-            static_cast<const float*>(v), lens, static_cast<float*>(out), vis, ls, Sq, Sk,
-            H, D, scale);
-    }
+    int plan[4];
+    decode::plan(B, H, D, plan);
+    const dim3 grid(plan[1], plan[2]);
+    // 16-byte loads need 16-byte aligned rows: D a multiple of 16, aligned k and v
+    const bool vec = D % 16 == 0 &&
+                     ((reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) & 15) == 0;
+    if (is_bf16)
+        launch_decode<__nv_bfloat16>(plan[0], vec, grid, s, q, k, v, lens, out, vis, ls, Sk, H,
+                                     D, scale);
+    else
+        launch_decode<float>(plan[0], vec, grid, s, q, k, v, lens, out, vis, ls, Sk, H, D,
+                             scale);
     return static_cast<int>(cudaGetLastError());
 }
 
-// The same arguments into an empty kernel of the route's grid, block and shared
-// memory: what a launch costs before the kernel does anything.
+// The same arguments into an empty kernel of the decode route's grid and block: what a
+// launch costs before the kernel does anything. Sq must be 1, as above.
 extern "C" int dmt_masked_flash_attention_empty(const void* q, const void* k, const void* v,
                                                 const void* lengths, void* out, void* visits,
                                                 void* lse, int B, int Sq, int Sk, int H, int D,
                                                 int is_bf16, float scale, void* stream) {
     (void)is_bf16;
+    if (Sq != 1) return static_cast<int>(cudaErrorInvalidValue);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (Sq == 1) {
-        int plan[4];
-        decode::plan(B, H, D, plan);
-        masked_flash_empty<<<dim3(plan[1], plan[2]), plan[3], 0, s>>>(q, k, v, lengths, out,
-                                                                      visits, lse, B, Sk, H, D,
-                                                                      scale);
-    } else {
-        const dim3 grid((Sq + ROWS - 1) / ROWS, H, B);
-        const size_t smem = sizeof(float) * (BK * (D + 1) + BK * D + ROWS * D);
-        masked_flash_empty<<<grid, THREADS, smem, s>>>(q, k, v, lengths, out, visits, lse, Sq,
-                                                       Sk, H, D, scale);
-    }
+    int plan[4];
+    decode::plan(B, H, D, plan);
+    masked_flash_empty<<<dim3(plan[1], plan[2]), plan[3], 0, s>>>(q, k, v, lengths, out, visits,
+                                                                  lse, B, Sk, H, D, scale);
     return static_cast<int>(cudaGetLastError());
 }

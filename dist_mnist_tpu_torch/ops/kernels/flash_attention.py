@@ -15,8 +15,9 @@ so both keep the reference's numbers. f32 takes full-precision kernels on
 the CUDA cores, register-tiled as an SGEMM is: the forward over blocks
 of query rows that `f32_forward_plan` picks, the dQ and dK/dV kernels
 over blocks of query and key rows that `f32_backward_plan` picks. The
-same backward kernels take an optional lengths vector and serve the
-masked backward (`ops/kernels/masked_flash.py`).
+same kernels take Sq and Sk apart and an optional lengths vector, and
+serve the masked forward at Sq > 1 (`launch_forward`) and the masked
+backward (`ops/kernels/masked_flash.py`).
 
 Public functions keep the reference's signatures and its block_k
 quantization (block_q is accepted and unused: the kernels tile queries
@@ -70,6 +71,9 @@ _MAX_GRID_YZ = 65535
 #: hold in one tile, their tile above that, and their limits on rows and
 #: threads per block and on the 4 x 4 output tiles a thread owns
 ONE_PASS_KEYS, F32_KEY_TILE = 128, 64
+#: the bf16 forward's plan: warps of 16 query rows a block, at most, and
+#: its key tile above `ONE_PASS_KEYS`
+MMA_MAX_WARPS, KEY_TILE = 8, 64
 F32_MAX_ROWS, F32_MAX_THREADS, F32_OUT_TILES = 64, 256, 2
 #: the blocks the f32 kernels aim for: two per SM of the H100 SXM. A
 #: constant of the design, never read from the device
@@ -79,9 +83,11 @@ SMEM_LIMIT = 232_448
 _NEG = -1e30
 _VP, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
+_FWD_ARGTYPES = [_VP] * 7 + [_I] * 5 + [_LL] * 6 + [_I] * 3 + [_F, _VP]
 _ARGTYPES = {
-    "dmt_flash_attention_fwd": [_VP] * 5 + [_I] * 4 + [_LL] * 6
-    + [_I] * 6 + [_F, _VP],
+    "dmt_flash_attention_fwd": _FWD_ARGTYPES,
+    "dmt_flash_attention_fwd_empty": _FWD_ARGTYPES,
+    "dmt_flash_forward_plan": [_I] * 6 + [_VP],
     "dmt_flash_attention_dq": [_VP] * 9 + [_I] * 5 + [_LL] * 6
     + [_I, _F, _VP],
     "dmt_flash_attention_dkv": [_VP] * 10 + [_I] * 5 + [_LL] * 6
@@ -273,11 +279,50 @@ def _f32_plan(b: int, own: int, other: int, h: int, d: int, smem=None,
     return rows, tile, min(F32_MAX_THREADS, max(64, _round_up(tiles, 32)))
 
 
-def f32_forward_plan(b: int, s: int, h: int, d: int) -> tuple[int, int, int]:
-    """``(rows, key_tile, threads)`` of the f32 forward for ``[b, s, h,
-    d]`` (`_f32_plan` over query rows against the keys; its block always
-    fits)."""
-    return _f32_plan(b, s, s, h, d)
+def f32_forward_smem(rows: int, tile: int, d: int) -> int:
+    """Shared-memory bytes of one f32 forward block: its query rows and a K
+    and a V tile, padded to the head dim's `padded_head_dim` + 4 floats;
+    the scores (rows of the tile + 4 floats) and three statistics per
+    row."""
+    pitch = padded_head_dim(d) + 4
+    return 4 * ((rows + 2 * tile) * pitch + rows * (tile + 4) + 3 * rows)
+
+
+def f32_forward_plan(b: int, sq: int, sk: int, h: int,
+                     d: int) -> tuple[int, int, int]:
+    """``(rows, key_tile, threads)`` of the f32 forward for q ``[b, sq, h,
+    d]`` against k and v ``[b, sk, h, d]`` (`_f32_plan` over query rows
+    against the keys, held to `SMEM_LIMIT`, which its block always
+    meets)."""
+    return _f32_plan(b, sq, sk, h, d, f32_forward_smem)
+
+
+def forward_plan(b: int, sq: int, sk: int, h: int, d: int,
+                 dtype: torch.dtype) -> tuple[int, ...]:
+    """The forward's launch for q ``[b, sq, h, d]`` against k and v ``[b,
+    sk, h, d]``: ``(grid_x, grid_y, grid_z, threads, smem_bytes, rows,
+    key_tile)``, the query rows a block owns and the keys it stages at a
+    time. bf16: blocks of ceil(sq / 16) warps up to 8 (128 rows), every
+    key (padded to 16) up to `ONE_PASS_KEYS`, tiles of `KEY_TILE` above;
+    f32: `f32_forward_plan`. The C entry point computes the same plan
+    (`dmt_flash_forward_plan`)."""
+    if dtype == torch.bfloat16:
+        warps = min(MMA_MAX_WARPS, -(-sq // 16))
+        rows = 16 * warps
+        tile = _round_up(sk, 16) if sk <= ONE_PASS_KEYS else KEY_TILE
+        smem = 2 * (padded_head_dim(d) + 8) * (rows + 2 * tile)
+        return -(-sq // rows), h, b, 32 * warps, smem, rows, tile
+    rows, tile, threads = f32_forward_plan(b, sq, sk, h, d)
+    return (-(-sq // rows), h, b, threads, f32_forward_smem(rows, tile, d),
+            rows, tile)
+
+
+def forward_body(sk: int, dtype: torch.dtype) -> str:
+    """The CUDA kernel the forward runs against `sk` keys in `dtype`."""
+    if dtype == torch.bfloat16:
+        return ("flash_fwd_mma_onepass" if sk <= ONE_PASS_KEYS
+                else "flash_fwd_mma_tiled")
+    return "flash_fwd_f32"
 
 
 def f32_backward_smem(kernel: str, rows: int, tile: int, d: int) -> int:
@@ -370,6 +415,40 @@ def launch_dkv(q, k, v, do, lse, delta, lengths=None, visits=None):
     return dk, dv
 
 
+def launch_forward(q, k, v, *, normalized: bool = True, lengths=None,
+                   empty: bool = False):
+    """One launch of the forward entry point (with `empty`, of its empty
+    twin: the same grid, block and shared memory, nothing written) on
+    CUDA tensors: ``(out [B, Sq, H, D] in q's dtype, lse [B, H, Sq] f32,
+    visits)``. q ``[B, Sq, H, D]`` against k and v ``[B, Sk, H, D]`` (one
+    set of strides); `normalized` picks the full-K rounding rule, else the
+    streamed one; optional int32 `lengths` ``[B]`` masks each row's keys at
+    and past its length (the masked forward: streamed), and then visits
+    ``[B, H, Sq]`` f32 holds the steps of `TILE` keys each query row
+    entered (None without lengths). The kernel runs by `forward_plan`; it
+    stages by 16-byte copies where `views_aligned16` allows. Counts
+    nothing: the callers count their launches."""
+    b, sq, h, d = q.shape
+    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    visits = (None if lengths is None else
+              torch.empty((b, h, sq), dtype=torch.float32, device=q.device))
+    if out.numel() == 0:
+        return out, lse, visits
+    entry = _entry("dmt_flash_attention_fwd_empty" if empty
+                   else "dmt_flash_attention_fwd")
+    with torch.cuda.device(q.device):
+        err = entry(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if lengths is None else lengths.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), None if visits is None else visits.data_ptr(), b,
+            sq, k.shape[1], h, d, *_strides(q), *_strides(k),
+            int(q.dtype == torch.bfloat16), int(normalized),
+            int(views_aligned16(q, k, v)), d ** -0.5, _stream(q))
+    _raise_on(err, "flash attention forward")
+    return out, lse, visits
+
+
 # ---------------------------------------------------------------------------
 # leaf functions: the kernel for CUDA tensors, the plain version for CPU ones
 
@@ -380,20 +459,9 @@ def flash_attention_forward(q, k, v, block_k: int | None = None):
     check_qkv("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return flash_attention_forward_reference(q, k, v, block_k)
-    b, s, h, d = q.shape
-    out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
-    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    if out.numel() == 0:
-        return out, lse
-    with torch.cuda.device(q.device):
-        err = _entry("dmt_flash_attention_fwd")(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), b, s, h, d, *_strides(q), *_strides(k),
-            int(q.dtype == torch.bfloat16), int(block_k is None),
-            int(views_aligned16(q, k, v)), *f32_forward_plan(b, s, h, d),
-            d ** -0.5, _stream(q))
-    _raise_on(err, "flash attention forward")
-    flash_attention_forward.launches += 1
+    out, lse, _ = launch_forward(q, k, v, normalized=block_k is None)
+    if out.numel():
+        flash_attention_forward.launches += 1
     return out, lse
 
 

@@ -7,8 +7,14 @@ under `_masked_flash_fwd_impl`): q ``[B, Sq, H, D]`` against k/v
 ``[B, Sk, H, D]`` where row b attends only keys ``[0, lengths[b])`` —
 the key-prefix masks of the decode cache (``lengths = pos + 1``) and of
 zoo serving. Key blocks of `BLOCK_K` at or past a row's length do no
-work. The forward's CUDA body is `csrc/masked_flash_attention.cu` (its
-header says how it is laid out and what bounds it).
+work. The forward has two routes (`masked_forward_body`): Sq = 1, the
+decode step, runs `csrc/masked_flash_attention.cu` (a warp per (b, h),
+as `paged_attention` does; its header says how it is laid out and what
+bounds it); Sq > 1 runs the flash forward kernels of
+`csrc/flash_attention.cu` with the lengths vector and the streamed rule
+(`flash_attention.launch_forward`: bf16 on the tensor cores, one pass up
+to 128 keys and key tiles above, f32 register-tiled on the CUDA cores),
+a block of query rows staging K and V once.
 
 The backward (the reference's `_masked_flash_bwd_impl`) runs the dQ and
 dK/dV kernels of `csrc/flash_attention.cu` with the lengths vector (bf16:
@@ -18,16 +24,17 @@ dK and dV there are exact zeros. ``delta = rowsum(f32(dO) * f32(O))`` has no lse
 
 `masked_flash_attention` checks its inputs. When a gradient is wanted it
 runs `_MaskedFlashAttention` (forward with the f32 lse saved, backward as
-above); otherwise only the forward, which writes no lse (the decode step).
+above); otherwise only the forward, which writes no lse at Sq = 1 (the
+decode step).
 Each leaf launches its kernel for CUDA tensors and runs its plain version
 for CPU tensors (`masked_flash_attention_reference`, the ``-1e30`` masked
 softmax einsum, and `flash_attention_backward_reference`); it never routes
 a CUDA tensor around a kernel. `masked_flash_attention.launches` counts
 forward launches, the probe's included, on both of the forward's routes
-(`masked_forward_body`: Sq = 1, the decode step, takes a warp per (b, h)
-as `paged_attention` does; Sq > 1 a block per 4 query rows);
-`masked_flash_attention_launch_floor` launches an empty kernel of the
-route's grid and block, for timing what a launch costs;
+(the flash forward's own counter, `flash_attention_forward.launches`,
+counts none of them); `masked_flash_attention_launch_floor` launches an
+empty kernel of the route's grid, block and shared memory, for timing
+what a launch costs;
 `masked_flash_attention_backward.launches` counts the backward's kernel
 launches (two per backward: dQ, then dK/dV).
 """
@@ -43,7 +50,8 @@ import torch
 from dist_mnist_tpu_torch.ops.kernels import build
 from dist_mnist_tpu_torch.ops.kernels import flash_attention as fa
 
-#: keys per kernel block (one per lane of a warp): the skip granularity,
+#: keys per visit of either route (a lane's key of a warp at Sq = 1, the
+#: flash forward's step of `fa.TILE` keys above): the skip granularity,
 #: so a probe's visits are ``ceil(length / BLOCK_K)``
 BLOCK_K = 32
 #: largest head_dim the kernel takes
@@ -106,13 +114,15 @@ def _check(q, k, v, lengths) -> None:
                          "contiguous")
 
 
-def masked_forward_body(sq: int) -> str:
-    """The CUDA kernel the forward's C entry takes for ``sq`` query rows:
-    the decode kernel at Sq = 1 (launched as
-    `paged_attention.decode_launch_plan` says), the row-block kernel
-    above."""
+def masked_forward_body(sq: int, sk: int, dtype: torch.dtype) -> str:
+    """The CUDA kernel the forward runs for ``sq`` query rows against
+    ``sk`` keys in `dtype`: the decode kernel at Sq = 1 (launched as
+    `paged_attention.decode_launch_plan` says), above it the flash
+    forward's (`flash_attention.forward_body`: `flash_fwd_mma_onepass` for
+    bf16 up to 128 keys, `flash_fwd_mma_tiled` above, `flash_fwd_f32` for
+    f32), launched as `flash_attention.forward_plan` says."""
     return ("masked_flash_decode_kernel" if sq == 1
-            else "masked_flash_fwd_kernel")
+            else fa.forward_body(sk, dtype))
 
 
 @functools.cache
@@ -127,8 +137,15 @@ def _entry(name: str = "dmt_masked_flash_attention"):
 
 def _launch(q, k, v, lengths, with_lse: bool = False, empty: bool = False):
     """(out, visits, lse or None) from one forward launch (with `empty`,
-    of the empty kernel: nothing is written or counted)."""
+    of the empty kernel: nothing is written or counted). Sq > 1 takes the
+    flash forward entry, which always writes the lse."""
     b, sq, h, d = q.shape
+    if sq > 1:
+        out, lse, visits = fa.launch_forward(q, k, v, normalized=False,
+                                             lengths=lengths, empty=empty)
+        if out.numel() and not empty:
+            masked_flash_attention.launches += 1
+        return out, visits, lse
     out = torch.empty_like(q)
     visits = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)

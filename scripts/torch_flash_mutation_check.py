@@ -6,8 +6,9 @@ kernels fail when those kernels are wrong. Needs one NVIDIA GPU and
     python3 scripts/torch_flash_mutation_check.py
 
 Runs the phases `vit_kernel_vs_plain`, `flash_split_share`, `qmm_parity`,
-`flash_parity` and `decode_kernel_parity` on the checkout as it stands,
-then on copies of the checkout in a temporary directory, each with one
+`flash_parity`, `decode_kernel_parity` and `masked_vit_path_parity` on the
+checkout as it stands, then on copies of the checkout in a temporary
+directory, each with one
 fault planted in a kernel under `dist_mnist_tpu_torch/csrc/`, and runs
 there the phase that must catch it. In the bf16 tensor-core flash backward that the ViT path
 runs (`flash_attention.cu`):
@@ -40,6 +41,16 @@ In the decode kernels:
 - `masked_decode_len_off_by_one` (`decode_kernel_parity`): the Sq = 1
   kernel of `masked_flash_attention.cu` admits key ``len``, one past the
   row's length.
+
+In the masked forward at Sq > 1 (the flash forward kernels with lengths):
+
+- `fwd_len_off_by_one` (`decode_kernel_parity`, whose `masked_parity`
+  holds the Sq > 1 route): the forward kernels' mask (`key_live` in
+  `flash_attention.cu`, which the bf16 one-pass and tiled kernels and the
+  f32 kernel share) scores key ``len``, one past the row's length;
+- `fwd_len_off_by_one_vit_path` (`masked_vit_path_parity`): the same
+  fault, which the Sq > 1 cases at `vit_masked_forward`'s own shape and
+  lengths (S = 33, lengths 25 and 33) must catch alone.
 
 Each mutant's copy starts from the checkout's built kernels, so only its
 mutated source is compiled again. Each run prints its phases' JSON lines. Exits 0 only when the checkout
@@ -87,6 +98,11 @@ MUTANTS = {  # name: (source, line, its mutation, the phase that must catch it)
         MASKED, "auto admitted = [&](int key) { return key < len; };",
         "auto admitted = [&](int key) { return key <= len; };",
         "decode_kernel_parity"),
+    "fwd_len_off_by_one": (FLASH, "return key < len;", "return key <= len;",
+                           "decode_kernel_parity"),
+    "fwd_len_off_by_one_vit_path": (
+        FLASH, "return key < len;", "return key <= len;",
+        "masked_vit_path_parity"),
 }
 # run in a fresh interpreter whose working directory is the tree under test
 PHASE = """

@@ -502,9 +502,9 @@ def test_paged_attention_decode_kernel_page_sizes(cuda, t, d, dtype):
 def test_masked_decode_kernel_out_and_lse(cuda, d, dtype):
     """Sq = 1 takes the decode kernel: out within the dtype's limit and
     lse within 1e-5 of the plain version's on the same card inputs."""
-    assert masked_forward_body(1) == "masked_flash_decode_kernel"
     rng = np.random.default_rng(d)
     b, sk, h = 4, 300, 2
+    assert masked_forward_body(1, sk, dtype) == "masked_flash_decode_kernel"
     q, k, v = (torch.from_numpy(rng.standard_normal(shape)
                                 .astype(np.float32)).to(cuda, dtype)
                for shape in ((b, 1, h, d), (b, sk, h, d), (b, sk, h, d)))
@@ -557,30 +557,120 @@ def test_decode_kernels_bitwise_twice_and_on_another_stream(cuda, kernel,
     assert _same_bits(first, again) and _same_bits(first, other)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_masked_forward_sq2_keeps_the_row_block_route(cuda, dtype):
-    """Sq = 2 takes the row-block kernel, which the decode work left as it
-    was: out within the dtype's limit, lse within 1e-5, visits
-    ceil(len / 32) for both query rows."""
-    assert masked_forward_body(2) == "masked_flash_fwd_kernel"
-    rng = np.random.default_rng(2)
-    b, sk, h, d = 3, 100, 2, 16
+def _masked_case(rng, b, sq, sk, h, d, dtype, device, lens=None):
+    """q, k, v and lengths (1 and Sk among them unless given)."""
     q, k, v = (torch.from_numpy(rng.standard_normal(shape)
-                                .astype(np.float32)).to(cuda, dtype)
-               for shape in ((b, 2, h, d), (b, sk, h, d), (b, sk, h, d)))
-    lens = np.array([1, 33, sk], dtype=np.int32)
-    lengths = torch.from_numpy(lens).to(cuda)
+                                .astype(np.float32)).to(device, dtype)
+               for shape in ((b, sq, h, d), (b, sk, h, d), (b, sk, h, d)))
+    if lens is None:
+        lens = rng.integers(1, sk + 1, size=b)
+        lens[0], lens[-1] = 1, sk
+    return q, k, v, np.asarray(lens, dtype=np.int32)
+
+
+def _check_masked_forward(q, k, v, lens, device):
+    """One probe and one forward: out within the dtype's limit and lse
+    within 1e-5 of the plain version's, visits ceil(len / 32) for every
+    query row, one launch each on the masked counter and none on the
+    flash forward's."""
+    b, sq, h, _ = q.shape
+    lengths = torch.from_numpy(lens).to(device)
+    before = (masked_flash_attention.launches,
+              tflash.flash_attention_forward.launches)
     got, visits = masked_flash_attention_probe(q, k, v, lengths)
     out, lse = masked_flash_attention_forward(q, k, v, lengths)
     torch.cuda.synchronize()
+    assert (masked_flash_attention.launches,
+            tflash.flash_attention_forward.launches) == (before[0] + 2,
+                                                         before[1])
     want_out, want_lse = masked_flash_attention_forward_reference(
         q, k, v, lengths)
-    tol = 1e-2 if dtype == torch.bfloat16 else 1e-5
+    tol = 1e-2 if q.dtype == torch.bfloat16 else 1e-5
+    assert got.dtype == q.dtype and lse.shape == (b, h, sq)
     assert _rel_err(got, want_out) <= tol and _rel_err(out, want_out) <= tol
     assert _rel_err(lse, want_lse) <= 1e-5
     blocks = (-(-lens // 32)).astype(np.float32)
     assert np.array_equal(visits.cpu().numpy(),
-                          np.broadcast_to(blocks[:, None, None], (b, h, 2)))
+                          np.broadcast_to(blocks[:, None, None], (b, h, sq)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_masked_forward_sq2_takes_the_flash_forward(cuda, dtype):
+    """Sq = 2 takes the flash forward's kernels with the lengths (bf16:
+    the one-pass tensor-core kernel at Sk = 100; f32: the register-tiled
+    one): out within the dtype's limit, lse within 1e-5, visits
+    ceil(len / 32) for both query rows."""
+    assert masked_forward_body(2, 100, dtype) == (
+        "flash_fwd_mma_onepass" if dtype == torch.bfloat16
+        else "flash_fwd_f32")
+    rng = np.random.default_rng(2)
+    _check_masked_forward(*_masked_case(rng, 3, 2, 100, 2, 16, dtype, cuda,
+                                        lens=[1, 33, 100]), cuda)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,sk,h,d", [
+    (64, 65, 65, 3, 64),   # ViT's shape, the one-pass kernel
+    (64, 33, 33, 3, 64),   # the zoo's height-16 bucket: keys padded to 48
+    (8, 300, 300, 3, 64),  # above 128 keys: the tiled kernel
+    (3, 5, 200, 2, 64),    # Sq != Sk, tiled
+    (2, 200, 128, 3, 64),  # Sq > 128 against Sk <= 128: two blocks of rows
+    (2, 129, 33, 2, 64),
+    (4, 65, 65, 2, 16), (4, 65, 65, 2, 40), (4, 65, 65, 2, 128),
+    (4, 7, 300, 2, 16), (4, 7, 300, 2, 40), (4, 130, 300, 2, 128),
+])
+def test_masked_forward_sq_gt1_matches_plain_version(cuda, b, sq, sk, h, d,
+                                                     dtype):
+    """The masked forward at Sq > 1 on both routes of each dtype, at Sk
+    up to 128 and above it, Sq above 128 against Sk at most 128, and
+    every padded head dim: out, lse and visits against the plain
+    version, lengths 1 and Sk among the rows."""
+    rng = np.random.default_rng(b * sq + sk + d)
+    _check_masked_forward(*_masked_case(rng, b, sq, sk, h, d, dtype, cuda),
+                          cuda)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sq,sk", [(65, 65), (300, 300)])
+def test_masked_forward_sq_gt1_bitwise_twice_and_on_another_stream(
+        cuda, sq, sk, dtype):
+    """No atomics in the flash forward: out and lse keep their bits on a
+    second call and under a second stream."""
+    rng = np.random.default_rng(23)
+    q, k, v, lens = _masked_case(rng, 8, sq, sk, 3, 64, dtype, cuda)
+    lengths = torch.from_numpy(lens).to(cuda)
+
+    def call():
+        return masked_flash_attention_forward(q, k, v, lengths)
+    first, again = call(), call()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        other = call()
+    torch.cuda.current_stream().wait_stream(stream)
+    torch.cuda.synchronize()
+    for a, b2, c in zip(first, again, other):
+        assert _same_bits(a, b2) and _same_bits(a, c)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,sk,h,d", [
+    (64, 65, 65, 3, 64), (8, 300, 300, 3, 64), (3, 5, 100, 2, 16),
+    (2, 200, 128, 3, 40), (1, 2, 129, 1, 128), (1024, 1000, 1000, 8, 64),
+])
+def test_forward_plan_agrees_with_the_c_entry(cuda, b, sq, sk, h, d,
+                                              dtype):
+    """The forward's C entry launches the plan the wrapper's
+    `forward_plan` computes: grid, threads, shared memory, rows a block
+    owns and the keys it stages at a time."""
+    import ctypes
+
+    from dist_mnist_tpu_torch.ops.kernels import build
+
+    entry = build.load("flash_attention").dmt_flash_forward_plan
+    out = (ctypes.c_int * 7)()
+    entry(b, sq, sk, h, d, int(dtype == torch.bfloat16), out)
+    assert tuple(out) == tflash.forward_plan(b, sq, sk, h, d, dtype)
 
 
 @pytest.mark.parametrize("rows,heads,d", [(9, 8, 16), (9, 8, 17), (3, 2, 64),
@@ -606,12 +696,16 @@ def test_launch_floors_write_and_count_nothing(cuda):
     ops = _paged_case(rng, 32, 16, torch.float32, cuda, [1, 40])
     q, k, v = (torch.zeros(2, s, 2, 16, device=cuda) for s in (1, 64, 64))
     lengths = torch.tensor([1, 64], dtype=torch.int32, device=cuda)
-    counts = (paged_attention.launches, masked_flash_attention.launches)
+    counts = (paged_attention.launches, masked_flash_attention.launches,
+              tflash.flash_attention_forward.launches)
     paged_attention_launch_floor(*ops)
     masked_flash_attention_launch_floor(q, k, v, lengths)
+    for dtype in (torch.float32, torch.bfloat16):  # Sq > 1: the flash forward's
+        masked_flash_attention_launch_floor(*(t.to(dtype) for t in (
+            torch.zeros(2, 65, 2, 16, device=cuda), k, v)), lengths)
     torch.cuda.synchronize()
-    assert (paged_attention.launches,
-            masked_flash_attention.launches) == counts
+    assert (paged_attention.launches, masked_flash_attention.launches,
+            tflash.flash_attention_forward.launches) == counts
 
 
 def test_quantize_kv_on_card_bitwise_equal_to_cpu(cuda):

@@ -434,14 +434,6 @@ def test_flash_cost_counts():
     assert f32["bwd_split_flops"] == {"float32": 7 * prod}
 
 
-def _f32_forward_smem(rows: int, ktile: int, d: int) -> int:
-    """Shared-memory bytes of one f32 forward block
-    (csrc/flash_attention.cu `launch_fwd_f32`): Q rows, a K and a V tile
-    (rows padded by 4 floats), the scores and three row statistics."""
-    pitch = tfa.padded_head_dim(d) + 4
-    return 4 * ((rows + 2 * ktile) * pitch + rows * (ktile + 4) + 3 * rows)
-
-
 @pytest.mark.parametrize("s", [1, 17, 65, 128, 129, 300, 1000])
 @pytest.mark.parametrize("b,h", [(1, 1), (2, 2), (64, 3), (1024, 8)])
 def test_f32_forward_plan_covers_the_rows_and_fits_a_block(b, h, s):
@@ -452,8 +444,8 @@ def test_f32_forward_plan_covers_the_rows_and_fits_a_block(b, h, s):
     most two 4 x 4 output tiles each, and at every head dim the shared
     memory one block may take on an H100 (227 KB)."""
     for d in (1, 16, 17, 40, 64, 65, 128):
-        rows, ktile, threads = tfa.f32_forward_plan(b, s, h, d)
-        assert (rows, ktile, threads) == tfa.f32_forward_plan(b, s, h, d)
+        rows, ktile, threads = tfa.f32_forward_plan(b, s, s, h, d)
+        assert (rows, ktile, threads) == tfa.f32_forward_plan(b, s, s, h, d)
         assert rows % 4 == 0 and 4 <= rows <= 64
         assert -(-s // rows) * rows >= s > (-(-s // rows) - 1) * rows
         assert ktile % 4 == 0 and (ktile >= s if s <= 128 else ktile == 64)
@@ -462,7 +454,7 @@ def test_f32_forward_plan_covers_the_rows_and_fits_a_block(b, h, s):
         out_tiles = rows // 4 * (tfa.padded_head_dim(d) // 4)
         assert score_tiles <= threads or threads == 256
         assert out_tiles <= tfa.F32_OUT_TILES * threads
-        assert _f32_forward_smem(rows, ktile, d) <= 232_448
+        assert tfa.f32_forward_smem(rows, ktile, d) <= 232_448
 
 
 def test_f32_forward_plan_at_vit_shape():
@@ -470,10 +462,10 @@ def test_f32_forward_plan_at_vit_shape():
     in two groups of 36 query rows (384 blocks, about three per SM), the 65
     keys in one tile of 68, 160 threads: 153 tiles of scores, 144 of the
     output, 57,584 bytes of shared memory a block."""
-    rows, ktile, threads = tfa.f32_forward_plan(64, 65, 3, 64)
+    rows, ktile, threads = tfa.f32_forward_plan(64, 65, 65, 3, 64)
     assert (rows, ktile, threads) == (36, 68, 160)
     assert 64 * 3 * -(-65 // rows) == 384
-    assert _f32_forward_smem(rows, ktile, 64) == 57_584
+    assert tfa.f32_forward_smem(rows, ktile, 64) == 57_584
     x = torch.zeros(2, 65, 3, 3, 64)
     assert tfa.views_aligned16(*x.unbind(2))  # 16-byte cp.async staging
 

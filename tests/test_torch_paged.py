@@ -314,11 +314,19 @@ def test_decode_launch_plan(rows, heads, d, lanes):
     assert lanes == 1 or lanes * 8 < d
 
 
-@pytest.mark.parametrize("sq,body", [(1, "masked_flash_decode_kernel"),
-                                     (2, "masked_flash_fwd_kernel"),
-                                     (65, "masked_flash_fwd_kernel")])
-def test_masked_forward_body(sq, body):
-    assert masked_forward_body(sq) == body
+@pytest.mark.parametrize("sq,sk,dtype,body", [
+    (1, 4096, torch.float32, "masked_flash_decode_kernel"),
+    (2, 100, torch.bfloat16, "flash_fwd_mma_onepass"),
+    (65, 65, torch.bfloat16, "flash_fwd_mma_onepass"),
+    (300, 300, torch.bfloat16, "flash_fwd_mma_tiled"),
+    (7, 256, torch.float32, "flash_fwd_f32"),
+    (128, 256, torch.float32, "flash_fwd_f32"),
+])
+def test_masked_forward_body(sq, sk, dtype, body):
+    """Sq = 1 takes the decode kernel; above it the flash forward's
+    kernels with the lengths: bf16 one pass up to 128 keys and tiles
+    above, f32 the register-tiled kernel."""
+    assert masked_forward_body(sq, sk, dtype) == body
 
 
 def test_launch_floors_refuse_cpu_tensors():
