@@ -5,8 +5,16 @@ and `--decode`).
 
     python -m dist_mnist_tpu_torch.cli.serve --config=lenet5_mnist \\
         --quant=int8 --max_batch 64 --requests 512 --concurrency 64
+    python -m dist_mnist_tpu_torch.cli.serve --config=vit_tiny_cifar \\
+        --seq_buckets=auto --max_batch 32
     python -m dist_mnist_tpu_torch.cli.serve --decode --requests 64 \\
         --concurrency 16
+
+The classifier engine comes from `serve/zoo.build_zoo_engine`:
+`--seq_buckets` adds the height axis of its grid for a model that can
+mask tokens (the ViT; other models keep the native-only grid, with a
+warning), and the summary then carries `seq_buckets` and
+`seq_bucket_counts`.
 
 `--decode` serves a registry causal LM (`--decode_model`, default
 `causal_tiny` at its registry defaults: dense cache) through the
@@ -31,10 +39,10 @@ import torch
 from dist_mnist_tpu_torch.configs import get_config
 from dist_mnist_tpu_torch.serve import (
     DecodeScheduler,
-    InferenceEngine,
     InferenceServer,
     ServeConfig,
     build_decode_engine,
+    build_zoo_engine,
     load_for_serving,
     run_decode_loadgen,
     run_loadgen,
@@ -67,7 +75,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--deadline_ms", type=float, default=0,
                    help="per-request deadline; 0 = none")
     p.add_argument("--prewarm", action=argparse.BooleanOptionalAction,
-                   default=True, help="run every bucket once before serving")
+                   default=True, help="run every (batch, height) cell once "
+                                      "before serving")
+    p.add_argument("--seq_buckets", default=None,
+                   help='variable-length serving: "auto" for the '
+                        "power-of-two height ladder, \"h1,h2,...\" for "
+                        "explicit bucket ceilings (native appended), unset "
+                        "for the native-only engine. Shorter requests are "
+                        "right-padded and masked; the native bucket keeps "
+                        "the maskless program (serve/zoo.py)")
     p.add_argument("--decode", action="store_true",
                    help="autoregressive decode mode: serve a registry "
                         "causal LM through the prefill/decode split with "
@@ -133,11 +149,10 @@ def main(argv=None) -> dict:
         return summary
     cfg = get_config(args.config)
     bundle = load_for_serving(cfg, device, quant=args.quant)
-    engine = InferenceEngine(
-        bundle.model, bundle.params, bundle.model_state, device=device,
-        image_shape=bundle.image_shape,
-        max_bucket=max(args.max_batch, 1), quant=bundle.quant,
-        quant_report=bundle.quant_report)
+    engine = build_zoo_engine(
+        bundle, device, model_name=cfg.model,
+        max_bucket=max(args.max_batch, 1),
+        seq_buckets=args.seq_buckets or None)
     server = InferenceServer(engine, ServeConfig(
         max_batch=args.max_batch,
         max_wait_ms=args.max_wait_ms,
@@ -162,6 +177,10 @@ def main(argv=None) -> dict:
         summary["quant_error_max"] = bundle.quant_report["max_abs_err"]
         summary["quant_rel_err_max"] = bundle.quant_report["max_rel_err"]
         summary["quant_leaves"] = bundle.quant_report["n_quantized"]
+    if engine.seq_grid is not None:
+        summary["seq_buckets"] = list(engine.seq_grid.heights)
+        summary["seq_bucket_counts"] = {
+            str(k): v for k, v in sorted(engine.seq_bucket_counts.items())}
     print(json.dumps(summary, indent=2, sort_keys=True))
     return summary
 

@@ -132,14 +132,17 @@ def _scores(q, k, lengths=None):
     return s
 
 
-def flash_attention_forward_reference(q, k, v, block_k: int | None = None):
-    """The forward kernel's function in plain torch: ``(out [B, S, H, D]
-    in q's dtype, lse [B, H, S] f32)``. ``block_k=None``: the full-K rule
+def flash_attention_forward_reference(q, k, v, block_k: int | None = None,
+                                      lengths=None):
+    """The forward kernel's function in plain torch: ``(out [B, Sq, H, D]
+    in q's dtype, lse [B, H, Sq] f32)``. ``block_k=None``: the full-K rule
     (normalized p rounded to v's dtype); otherwise the streamed rule over
     key tiles of block_k (unnormalized p rounded, ``acc / l`` at the
-    end)."""
+    end). With `lengths`, keys at or past each row's length score
+    ``-1e30``: a tile wholly past the length then adds exactly nothing,
+    as a tile the reference's masked kernel skips."""
     acc = _acc_dtype(q)
-    s = _scores(q, k)
+    s = _scores(q, k, lengths)
     vf = v.to(acc)
     if block_k is None:
         m = s.amax(-1, keepdim=True)

@@ -27,8 +27,9 @@ runs `_MaskedFlashAttention` (forward with the f32 lse saved, backward as
 above); otherwise only the forward, which writes no lse at Sq = 1 (the
 decode step).
 Each leaf launches its kernel for CUDA tensors and runs its plain version
-for CPU tensors (`masked_flash_attention_reference`, the ``-1e30`` masked
-softmax einsum, and `flash_attention_backward_reference`); it never routes
+for CPU tensors (`masked_flash_attention_reference`, the reference's
+streamed softmax over 128-key blocks under the ``-1e30`` mask, and
+`flash_attention_backward_reference`); it never routes
 a CUDA tensor around a kernel. `masked_flash_attention.launches` counts
 forward launches, the probe's included, on both of the forward's routes
 (the flash forward's own counter, `flash_attention_forward.launches`,
@@ -54,6 +55,12 @@ from dist_mnist_tpu_torch.ops.kernels import flash_attention as fa
 #: flash forward's step of `fa.TILE` keys above): the skip granularity,
 #: so a probe's visits are ``ceil(length / BLOCK_K)``
 BLOCK_K = 32
+#: the reference's key block (`masked_flash_attention`'s ``block_k``, 128
+#: for every Sk): the plain version streams over it. The one-pass kernel
+#: (Sk <= 128) holds every key in one tile, the reference's one block; the
+#: tiled bf16 kernel (Sk > 128) rescales every `fa.KEY_TILE` (64) keys, a
+#: stated departure from it
+REFERENCE_BLOCK_K = 128
 #: largest head_dim the kernel takes
 MAX_HEAD_DIM = 128
 _MAX_GRID_YZ = 65535
@@ -62,15 +69,15 @@ _ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_float]
 
 
 def masked_flash_attention_forward_reference(q, k, v, lengths):
-    """The forward kernel's function in plain torch: f32 scores (f64 for
-    f64 inputs) times ``D**-0.5``, ``-1e30`` on keys at or past each row's
-    length, softmax, the weights cast to v's dtype, weights @ V, out in
+    """The forward kernel's function in plain torch, by the reference's
+    rule (`_masked_attn_fwd_kernel`: the streamed online softmax over
+    key blocks of `REFERENCE_BLOCK_K`): f32 scores (f64 for f64 inputs)
+    times ``D**-0.5``, ``-1e30`` on keys at or past each row's length, a
+    running max, the unnormalized ``p = exp(s - m)`` cast to v's dtype
+    before ``p @ V``, one division by the running sum at the end, out in
     q's dtype; and ``lse [B, H, Sq]``, the masked scores' log-sum-exp."""
-    acc = fa._acc_dtype(q)
-    scores = fa._scores(q, k, lengths)
-    weights = torch.softmax(scores, dim=-1).to(v.dtype)
-    out = torch.einsum("bhqk,bkhd->bqhd", weights.to(acc), v.to(acc))
-    return out.to(q.dtype), torch.logsumexp(scores, dim=-1)
+    return fa.flash_attention_forward_reference(
+        q, k, v, block_k=REFERENCE_BLOCK_K, lengths=lengths)
 
 
 def masked_flash_attention_reference(q, k, v, lengths):

@@ -30,10 +30,24 @@ Params = dict
 
 def truncated_normal(gen: torch.Generator, shape, stddev: float,
                      dtype=torch.float32) -> torch.Tensor:
-    """2-sigma truncated normal scaled by `stddev`."""
-    t = torch.empty(tuple(shape), dtype=dtype)
-    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return stddev * t
+    """2-sigma truncated normal scaled by `stddev`: standard normals drawn
+    from `gen`, each one outside [-2, 2] drawn again (all of them at once,
+    in turns) until none is left.
+
+    The port samples this itself rather than through
+    `torch.nn.init.trunc_normal_`, whose algorithm changed between torch
+    releases (an inverted uniform CDF before 2.13, this rejection loop
+    since): with it, one seed gave the CPU tests one LeNet-5 or MLP and
+    the card another. This loop is 2.13's, so one seed now gives the
+    weights the CPU tests hold, under any torch."""
+    t = torch.empty(tuple(shape), dtype=dtype).normal_(0.0, 1.0,
+                                                        generator=gen)
+    while True:
+        out = (t < -2.0) | (t > 2.0)
+        if not out.any():
+            return stddev * t
+        t = torch.where(out, torch.empty_like(t).normal_(0.0, 1.0,
+                                                         generator=gen), t)
 
 
 def fan_in_trunc_normal(gen, shape, dtype=torch.float32):

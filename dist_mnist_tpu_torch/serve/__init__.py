@@ -1,7 +1,8 @@
 """Online inference serving (port of the reference `serve/`): admission
-queue -> continuous batcher -> bucketed engine on one device for the
-classifiers; prefill/decode engine + continuous-batching scheduler for
-the causal LM (`serve/decode.py`)."""
+queue -> continuous batcher -> (batch, height) grid engine on one device
+for the classifiers (`serve/zoo.py` plans the height buckets);
+prefill/decode engine + continuous-batching scheduler for the causal LM
+(`serve/decode.py`)."""
 
 from dist_mnist_tpu_torch.serve.admission import (
     DeadlineExceededError,
@@ -24,8 +25,10 @@ from dist_mnist_tpu_torch.serve.loader import (
 from dist_mnist_tpu_torch.serve.loadgen import (
     make_images,
     make_prompts,
+    make_varlen_images,
     run_decode_loadgen,
     run_loadgen,
+    run_longctx_loadgen,
 )
 from dist_mnist_tpu_torch.serve.metrics import DecodeMetrics, ServeMetrics
 from dist_mnist_tpu_torch.serve.router import (
@@ -37,8 +40,14 @@ from dist_mnist_tpu_torch.serve.router import (
 from dist_mnist_tpu_torch.serve.server import InferenceServer, ServeConfig
 from dist_mnist_tpu_torch.serve.zoo import (
     DecodeGrid,
+    SeqGrid,
     build_decode_engine,
+    build_zoo_engine,
     default_decode_grid,
+    default_seq_grid,
+    parse_seq_buckets,
+    per_device_state_bytes,
+    supports_mask,
 )
 
 __all__ = [
@@ -56,17 +65,25 @@ __all__ = [
     "LATENCY_SENSITIVE",
     "QueueFullError",
     "REQUEST_CLASSES",
+    "SeqGrid",
     "ServeConfig",
     "ServeMetrics",
     "ServingBundle",
     "ShuttingDownError",
     "build_decode_engine",
+    "build_zoo_engine",
     "default_decode_grid",
+    "default_seq_grid",
     "init_lm_for_serving",
     "load_for_serving",
     "make_images",
     "make_prompts",
+    "make_varlen_images",
+    "parse_seq_buckets",
+    "per_device_state_bytes",
     "quantize_for_serving",
     "run_decode_loadgen",
     "run_loadgen",
+    "run_longctx_loadgen",
+    "supports_mask",
 ]

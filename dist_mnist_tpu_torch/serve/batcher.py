@@ -93,13 +93,22 @@ class DynamicBatcher:
                     f"{(now - req.t_submit) * 1e3:.1f} ms"))
             else:
                 live.append(req)
-        for i in range(0, len(live), self.engine.max_bucket):
-            self._execute(live[i:i + self.engine.max_bucket])
+        # variable-length serving: one engine batch per image shape (the
+        # engine pads each group to its own (batch, height) cell), in
+        # submission order within a group; a group larger than the
+        # engine's bucket ceiling is split into max_bucket-sized batches
+        groups: dict[tuple, list[Request]] = {}
+        for req in live:
+            groups.setdefault(tuple(req.image.shape), []).append(req)
+        for reqs in groups.values():
+            for i in range(0, len(reqs), self.engine.max_bucket):
+                self._execute(reqs[i:i + self.engine.max_bucket])
 
     def _execute(self, reqs: list[Request]) -> None:
-        """One engine call for `reqs` (<= max_bucket of them)."""
+        """One engine call for same-shaped `reqs` (<= max_bucket of them)."""
         try:
-            logits = self.engine.predict(np.stack([r.image for r in reqs]))
+            images = np.stack([r.image for r in reqs])
+            logits = self.engine.predict(images)
         except Exception as err:  # fail the batch, keep the server
             log.exception("batch of %d failed", len(reqs))
             self.metrics.record_failed(len(reqs))
@@ -108,12 +117,22 @@ class DynamicBatcher:
             return
         done = time.monotonic()
         self.metrics.record_batch(len(reqs),
-                                  self.engine.bucket_for(len(reqs)))
+                                  self.engine.bucket_for(len(reqs)),
+                                  seq_occupancy=self._seq_occupancy(images))
         for req, row in zip(reqs, logits):
             latency_ms = (done - req.t_submit) * 1e3
             self.metrics.record_latency(latency_ms)
             req.future.set_result(InferenceResult(
                 logits=row, label=int(row.argmax()), latency_ms=latency_ms))
+
+    def _seq_occupancy(self, images) -> float | None:
+        """Real tokens / padded tokens of one executed group; None for an
+        engine without a seq grid (no sequence padding to attribute)."""
+        grid = getattr(self.engine, "seq_grid", None)
+        if grid is None:
+            return None
+        h = images.shape[1]
+        return grid.n_tokens(h) / grid.n_tokens(self.engine.seq_bucket_for(h))
 
     def _loop(self) -> None:
         while True:

@@ -1,16 +1,19 @@
-"""The inference engine: power-of-two batch buckets over one device (port
-of the reference `serve/engine.py InferenceEngine`).
+"""The inference engine: a (batch, height) grid of cells over one device
+(port of the reference `serve/engine.py InferenceEngine`).
 
 Why buckets: a continuous batcher produces a different batch size every
 tick. Rounding up to a power of two caps the distinct shapes the device
 sees at log2(max_batch)+1 while wasting at most 2x compute on padding —
 and padding rows are sliced off before any result leaves the engine.
+With a `serve/zoo.SeqGrid` the grid gains a height axis: a batch of
+shorter images is padded up to its height bucket and served with a token
+mask (the variant contract under `predict`).
 
 There is no XLA compile cache to port: PyTorch runs eagerly. What the
 reference's AOT cache did for a first request — move the one-time cost
-out of live traffic — `prewarm()` does here by running every bucket once
+out of live traffic — `prewarm()` does here by running every cell once
 (building the CUDA kernels and initializing the cuBLAS/cuDNN handles).
-`cache_stats()` counts, per bucket, that first run as a miss and every
+`cache_stats()` counts, per cell, that first run as a miss and every
 later run as a hit, so the serve summary keeps the reference's shape,
 and sums the runs' host-clock seconds as the reference's `execute_secs`.
 """
@@ -50,10 +53,11 @@ def _nbytes(leaf) -> int:
 class InferenceEngine:
     """Stateless-forward inference over a fixed (model, weights, device).
 
-    `predict(images)` takes a host batch of raw uint8 images `[n, H, W, C]`
+    `predict(images)` takes a host batch of raw uint8 images `[n, h, W, C]`
     and returns f32 logits `[n, classes]`; padding, placement and
     unpadding are internal. Normalization is the reference's (`x/255`,
-    IEEE division: `ops.nn.normalize_images`).
+    IEEE division: `ops.nn.normalize_images`). Without a `seq_grid` only
+    the native height `image_shape[0]` is servable.
     """
 
     def __init__(
@@ -65,12 +69,25 @@ class InferenceEngine:
         device: str | torch.device | None = None,
         image_shape: tuple[int, ...],
         max_bucket: int = 256,
+        seq_grid=None,
         quant: str | None = None,
         quant_report: dict | None = None,
     ):
         self.model = model
         self.device = resolve_device(device)
         self.image_shape = tuple(image_shape)
+        #: serve/zoo.SeqGrid (or None): the height axis of the 2-D
+        #: (batch, height) grid; None = the 1-D batch grid at the native
+        #: image shape
+        self.seq_grid = seq_grid
+        if seq_grid is not None and (
+                seq_grid.native_height != self.image_shape[0]
+                or (seq_grid.width, seq_grid.channels)
+                != tuple(self.image_shape[1:])):
+            raise ValueError(
+                f"seq_grid native shape ({seq_grid.native_height}, "
+                f"{seq_grid.width}, {seq_grid.channels}) != engine image "
+                f"shape {self.image_shape}")
         # weight-only quantized serving (ops/quant.py): an already-
         # quantized tree tags the engine; quant="int8" quantizes a float one
         if quant is None and is_quantized(params):
@@ -86,8 +103,12 @@ class InferenceEngine:
         self.model_state = tree_map(lambda t: t.to(self.device), model_state)
         self.max_bucket = max(max_bucket, 1)
         self._lock = threading.Lock()
-        self._runs: dict[int, int] = {}  # bucket -> executed batches
+        # (batch bucket, height bucket, "dense" | "masked") -> batches run
+        self._runs: dict[tuple[int, int, str], int] = {}
         self._execute_secs = 0.0
+        #: batches `predict` ran per height bucket (the benches' routing
+        #: counts; prewarm's runs are not traffic)
+        self.seq_bucket_counts: dict[int, int] = {}
 
     def state_bytes_per_device(self) -> dict:
         """Resident bytes of the SERVED weights (int8 leaves at 1 byte per
@@ -112,6 +133,17 @@ class InferenceEngine:
             )
         return b
 
+    def seq_bucket_for(self, height: int) -> int:
+        """Height bucket for one request height; without a seq grid only
+        the native height is servable."""
+        if self.seq_grid is None:
+            if height != self.image_shape[0]:
+                raise ValueError(
+                    f"height {height} != native {self.image_shape[0]} and "
+                    "this engine has no seq grid (serve/zoo.py)")
+            return height
+        return self.seq_grid.bucket_for(height)
+
     def buckets(self) -> list[int]:
         """Every batch bucket this engine can execute, smallest first."""
         out, b = [], 1
@@ -120,58 +152,146 @@ class InferenceEngine:
             b *= 2
         return out
 
+    def grid(self) -> list[tuple[int, int]]:
+        """Every (batch bucket, height bucket) pair, smallest first; without
+        a seq grid one native-height column."""
+        heights = (list(self.seq_grid.heights) if self.seq_grid is not None
+                   else [self.image_shape[0]])
+        return [(b, h) for b in self.buckets() for h in heights]
+
     # -- execution -----------------------------------------------------------
-    def _run(self, images: np.ndarray) -> np.ndarray:
-        """One padded bucket through the model. The execute clock stops on
+    # Variant contract (the reference's): `mask=None` is the maskless
+    # NATIVE program; every masked cell takes a token mask, the masked
+    # native-shaped cell included — a real height between the largest
+    # sub-native bucket and native rounds UP into the native bucket but
+    # still needs its padding masked.
+
+    def _run(self, images: np.ndarray, mask: np.ndarray | None) -> np.ndarray:
+        """One padded cell through the model. The execute clock stops on
         the `.cpu()` of the logits, which waits for the device."""
         t0 = time.monotonic()
         x = torch.from_numpy(np.ascontiguousarray(images, dtype=np.uint8))
         with torch.inference_mode():
             x = normalize_images(x.to(self.device))
-            logits, _ = self.model.apply(self.params, self.model_state, x)
+            if mask is None:
+                logits, _ = self.model.apply(self.params, self.model_state, x)
+            else:
+                m = torch.from_numpy(np.ascontiguousarray(mask)).to(
+                    self.device)
+                logits, _ = self.model.apply(self.params, self.model_state,
+                                             x, mask=m)
             out = logits.cpu().numpy()
         dt = time.monotonic() - t0
+        cell = (images.shape[0], images.shape[1],
+                "dense" if mask is None else "masked")
         with self._lock:
-            self._runs[len(images)] = self._runs.get(len(images), 0) + 1
+            self._runs[cell] = self._runs.get(cell, 0) + 1
             self._execute_secs += dt
         return out
 
-    def prewarm(self, buckets: list[int] | None = None) -> int:
-        """Run each not-yet-run bucket once (all of them by default) so
-        live traffic never pays a first-run cost. Returns how many ran."""
+    def _warm(self, bucket: int, height: int | None) -> int:
+        """Run cell (bucket, height) once on zero images if it never ran:
+        `height=None` the dense native cell, else the masked one with every
+        token real. Returns 1 when it ran."""
+        h = self.image_shape[0] if height is None else height
+        if (bucket, h, "dense" if height is None else "masked") in self._runs:
+            return 0
+        mask = None
+        if height is not None:
+            mask = np.ones((bucket, self.seq_grid.n_tokens(h)), dtype=bool)
+        self._run(np.zeros((bucket, h, *self.image_shape[1:]), np.uint8),
+                  mask)
+        return 1
+
+    def prewarm(self, buckets: list[int] | None = None,
+                heights: list[int] | None = None) -> int:
+        """Run each not-yet-run cell of the (batch, height) grid once (all
+        of it by default) so live traffic never pays a first-run cost:
+        per batch bucket the dense native cell, then — variable-length
+        engines — the masked cell per height, the masked native-shaped
+        one included. Returns how many ran."""
+        variable = self.seq_grid is not None and not self.seq_grid.native_only
+        if heights is None:
+            heights = list(self.seq_grid.heights) if variable else []
         n = 0
         for b in buckets if buckets is not None else self.buckets():
             bb = self.bucket_for(b)
-            if bb not in self._runs:
-                self._run(np.zeros((bb, *self.image_shape), np.uint8))
-                n += 1
+            n += self._warm(bb, None)
+            for h in heights:
+                n += self._warm(bb, self.seq_bucket_for(h))
         return n
 
-    def predict(self, images: np.ndarray) -> np.ndarray:
-        """Logits for `images` [n, H, W, C]; pads to the bucket, runs,
-        unpads."""
+    def predict(self, images: np.ndarray,
+                heights: np.ndarray | None = None) -> np.ndarray:
+        """Logits for `images` [n, h, W, C]; pads to the (batch, height)
+        cell, runs, unpads. `h` may be any servable height when the engine
+        has a seq grid (the batcher groups requests by shape first);
+        `heights` optionally carries each row's REAL height when rows were
+        already padded to a common `h`."""
         images = np.asarray(images)
-        if images.ndim != 4 or images.shape[1:] != self.image_shape:
+        if images.ndim != 4 or images.shape[2:] != self.image_shape[1:]:
             raise ValueError(
                 f"image shape {images.shape[1:]} != engine's {self.image_shape}"
             )
-        n = images.shape[0]
+        n, h = images.shape[0], images.shape[1]
         bucket = self.bucket_for(n)
+        h_bucket = self.seq_bucket_for(h)
+        real_h = (np.full((n,), h) if heights is None
+                  else np.asarray(heights))
+        # the native cell runs the maskless program only when no row is
+        # short; short rows rounded into the native bucket take the masked
+        # native-shaped cell
+        masked = h_bucket != self.image_shape[0] or bool(
+            np.any(real_h < self.image_shape[0]))
+        if masked and self.seq_grid is None:
+            raise ValueError(
+                "variable-length rows need a seq grid (serve/zoo.py)")
+        images = images.astype(np.uint8)
+        if h < h_bucket:
+            pad = np.zeros((n, h_bucket - h, *self.image_shape[1:]),
+                           dtype=np.uint8)
+            images = np.concatenate([images, pad], axis=1)
         if n < bucket:
-            pad = np.zeros((bucket - n, *self.image_shape), dtype=np.uint8)
-            images = np.concatenate([images.astype(np.uint8), pad])
-        return self._run(images)[:n]
+            pad = np.zeros((bucket - n, h_bucket, *self.image_shape[1:]),
+                           dtype=np.uint8)
+            images = np.concatenate([images, pad])
+        mask = None
+        if masked:
+            mask = np.zeros((bucket, self.seq_grid.n_tokens(h_bucket)),
+                            dtype=bool)
+            mask[:n] = self.seq_grid.mask(real_h, h_bucket)
+        with self._lock:
+            self.seq_bucket_counts[h_bucket] = \
+                self.seq_bucket_counts.get(h_bucket, 0) + 1
+        return self._run(images, mask)[:n]
+
+    @property
+    def misses(self) -> int:
+        """Cells run for the first time so far (the reference's
+        `engine.cache.misses`): a miss during traffic after a full prewarm
+        is a first-run cost on the hot path."""
+        with self._lock:
+            return len(self._runs)
 
     def cache_stats(self) -> dict:
-        """Per-bucket first runs (misses) and later runs (hits), and the
-        host-clock seconds of every run, prewarm included."""
+        """Per-cell first runs (misses) and later runs (hits), the runs per
+        batch bucket, and the host-clock seconds of every run, prewarm
+        included. A seq-grid engine also reports the runs per cell,
+        ``"<bucket>x<height>/<dense|masked>"``."""
         with self._lock:
             runs = dict(self._runs)
             execute_secs = self._execute_secs
-        return {
+        per_bucket: dict[int, int] = {}
+        for (b, _, _), r in runs.items():
+            per_bucket[b] = per_bucket.get(b, 0) + r
+        out = {
             "hits": sum(runs.values()) - len(runs),
             "misses": len(runs),
-            "per_bucket": {str(b): runs[b] for b in sorted(runs)},
+            "per_bucket": {str(b): per_bucket[b] for b in sorted(per_bucket)},
             "execute_secs": execute_secs,
             "execute_count": sum(runs.values()),
         }
+        if self.seq_grid is not None:
+            out["per_cell"] = {f"{b}x{h}/{v}": runs[(b, h, v)]
+                               for b, h, v in sorted(runs)}
+        return out

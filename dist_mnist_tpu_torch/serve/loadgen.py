@@ -1,6 +1,8 @@
 """Deterministic closed-loop load generators (port of the reference
 `serve/loadgen.py`: `run_loadgen` for the classifier server,
-`make_prompts` and `run_decode_loadgen` for the decode scheduler).
+`make_varlen_images` and `run_longctx_loadgen` for its variable-height
+zoo grid, `make_prompts` and `run_decode_loadgen` for the decode
+scheduler).
 
 Closed loop with a fixed concurrency window: at most `concurrency`
 requests are in flight; each completion releases a slot for the next
@@ -38,15 +40,19 @@ def run_loadgen(
     *,
     n_requests: int,
     concurrency: int,
-    image_shape: tuple[int, ...],
+    image_shape: tuple[int, ...] | None = None,
     seed: int = 0,
     deadline_ms: float | None = None,
     timeout: float = 120.0,
+    images=None,
 ) -> dict:
     """Drive `server` and return a summary dict (latency percentiles,
-    rejection counts, batching stats, bucket stats). Deterministic inputs;
-    raises on a hung run rather than reporting partial numbers."""
-    images = make_images(image_shape, seed=seed)
+    rejection counts, batching stats, bucket stats). Deterministic inputs:
+    the seeded pool of `image_shape` images, or `images` when given
+    (`run_longctx_loadgen`'s variable-height pool); raises on a hung run
+    rather than reporting partial numbers."""
+    if images is None:
+        images = make_images(image_shape, seed=seed)
     window = threading.Semaphore(concurrency)
     futures = []
     rejected_queue_full = 0
@@ -103,6 +109,60 @@ def run_loadgen(
     summary["mean_occupancy"] = stats["mean_occupancy"]
     summary["n_batches"] = stats["n_batches"]
     summary["cache"] = stats["cache"]
+    return summary
+
+
+def make_varlen_images(image_shape: tuple[int, ...], patch: int,
+                       seed: int = 0, n: int = _POOL) -> list[np.ndarray]:
+    """Seeded pool of variable-HEIGHT images for the zoo's long-context
+    path (the reference's draws): each entry's height a patch multiple
+    drawn uniformly from [patch, native], width and channels fixed, so
+    every patch token is wholly real."""
+    native_h = image_shape[0]
+    rest = tuple(image_shape[1:])
+    rng = np.random.default_rng(seed)
+    ks = rng.integers(1, native_h // patch + 1, size=n)
+    return [rng.integers(0, 256, size=(int(k) * patch, *rest),
+                         dtype=np.uint8) for k in ks]
+
+
+def run_longctx_loadgen(
+    server,
+    *,
+    n_requests: int,
+    concurrency: int,
+    seed: int = 0,
+    deadline_ms: float | None = None,
+    timeout: float = 240.0,
+) -> dict:
+    """`run_loadgen` for a zoo engine's 2-D grid: variable-height seeded
+    traffic, plus the per-seq-bucket routing counts and the engine's
+    first-run (miss) delta, which shows the grid absorbed every shape
+    without a first run on the hot path. Requires `server.engine.seq_grid`."""
+    engine = server.engine
+    grid = getattr(engine, "seq_grid", None)
+    if grid is None:
+        raise ValueError("run_longctx_loadgen needs a seq-grid engine "
+                         "(serve/zoo.py build_zoo_engine seq_buckets=...)")
+    images = make_varlen_images(
+        (grid.native_height, grid.width, grid.channels), grid.patch,
+        seed=seed)
+    misses0 = engine.misses
+    buckets0 = dict(engine.seq_bucket_counts)
+    summary = run_loadgen(server, n_requests=n_requests,
+                          concurrency=concurrency, deadline_ms=deadline_ms,
+                          timeout=timeout, images=images)
+    # first runs DURING the traffic: 0 after a full prewarm is the zoo's
+    # guarantee that no request paid one
+    summary["recompiles_during_traffic"] = engine.misses - misses0
+    counts = engine.seq_bucket_counts
+    summary["seq_bucket_counts"] = {
+        str(h): counts.get(h, 0) - buckets0.get(h, 0)
+        for h in grid.heights
+        if counts.get(h, 0) - buckets0.get(h, 0)
+    }
+    summary["mean_seq_occupancy"] = server.stats().get(
+        "mean_seq_occupancy", 1.0)
     return summary
 
 

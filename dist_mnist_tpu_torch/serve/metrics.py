@@ -22,7 +22,9 @@ class ServeMetrics:
     Counters:   admitted, completed, rejected_queue_full, rejected_deadline,
                 rejected_shutdown, failed, cancelled.
     Histograms: request latency (ms, submit->result), executed batch sizes
-                (real rows), bucket occupancy (real rows / padded bucket).
+                (real rows), bucket occupancy (real rows / padded bucket),
+                sequence occupancy (real tokens / padded tokens, seq-grid
+                engines).
     Gauge:      the largest per-leaf int8 quantization error.
     """
 
@@ -38,6 +40,7 @@ class ServeMetrics:
         self.latency_ms = StreamingHistogram()
         self.batch_size = StreamingHistogram()
         self.batch_occupancy = StreamingHistogram()
+        self.seq_occupancy = StreamingHistogram()
         self.quant_error_max: float | None = None
 
     def record_quant_report(self, report: dict) -> None:
@@ -69,10 +72,15 @@ class ServeMetrics:
         with self._lock:
             self.cancelled += n
 
-    def record_batch(self, n_real: int, bucket: int):
-        """One executed batch: `n_real` genuine requests padded to `bucket`."""
+    def record_batch(self, n_real: int, bucket: int,
+                     seq_occupancy: float | None = None):
+        """One executed batch: `n_real` genuine requests padded to `bucket`;
+        `seq_occupancy` (real tokens / padded tokens, serve/zoo.py seq
+        buckets) when the engine has a seq grid."""
         self.batch_size.observe(n_real)
         self.batch_occupancy.observe(n_real / bucket)
+        if seq_occupancy is not None:
+            self.seq_occupancy.observe(seq_occupancy)
 
     def record_latency(self, ms: float, n: int = 1):
         self.latency_ms.observe(ms)
@@ -106,6 +114,9 @@ class ServeMetrics:
         out.update(pct)
         out["mean_batch_size"] = sizes["mean"] if sizes["count"] else 0.0
         out["mean_occupancy"] = occ["mean"] if occ["count"] else 0.0
+        seq = self.seq_occupancy.snapshot()
+        if seq["count"]:
+            out["mean_seq_occupancy"] = seq["mean"]
         if self.quant_error_max is not None:
             out["quant_error_max"] = self.quant_error_max
         return out

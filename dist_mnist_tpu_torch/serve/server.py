@@ -3,10 +3,13 @@ owning the shutdown order (port of the reference `serve/server.py`).
 
 Lifecycle contract:
 
-    start():  prewarm every bucket up to max_batch (default — a first run
-              inside live traffic is a latency hole), then start the
-              batcher thread.
-    submit(): admission only; raises QueueFullError / ShuttingDownError
+    start():  prewarm every cell of the (batch, height) grid up to
+              max_batch (default — a first run inside live traffic is a
+              latency hole), then start the batcher thread.
+    submit(): an image of any height the engine serves (its native one,
+              or any up to it with a seq grid); the batcher groups a
+              window's requests by shape.
+              Admission only; raises QueueFullError / ShuttingDownError
               rather than ever blocking a client.
     close():  (1) close admission; (2) drain — the batcher finishes every
               already-admitted request; (3) join the batcher thread.
@@ -34,7 +37,7 @@ class ServeConfig:
     max_wait_ms: float = 2.0  # coalesce window opened by the first request
     queue_depth: int = 256  # admission bound; beyond it -> QueueFullError
     default_deadline_ms: float | None = None  # per-request override wins
-    prewarm: bool = True  # run every bucket once before serving
+    prewarm: bool = True  # run every (batch, height) cell once first
 
 
 class InferenceServer:
@@ -62,7 +65,7 @@ class InferenceServer:
             buckets = [b for b in self.engine.buckets()
                        if b <= max(self.config.max_batch, 1)]
             n = self.engine.prewarm(buckets)
-            log.info("prewarmed %d bucket(s) of %s", n, buckets)
+            log.info("prewarmed %d cell(s) over buckets %s", n, buckets)
         self._batcher.start()
         self._started = True
         return self

@@ -1,11 +1,242 @@
-"""The decode grid and its engine builder (port of the decode part of the
-reference `serve/zoo.py`: `DecodeGrid`, `default_decode_grid`,
-`build_decode_engine`; the classifier zoo joins with the zoo slice).
+"""Model-zoo serving: the (batch, height) grid of the classifiers and the
+decode grid (port of the reference `serve/zoo.py`: `SeqGrid`,
+`default_seq_grid`, `parse_seq_buckets`, `supports_mask`,
+`per_device_state_bytes`, `build_zoo_engine`; `DecodeGrid`,
+`default_decode_grid`, `build_decode_engine`).
+
+This module PLANS: it picks the height buckets, builds token masks,
+counts resident bytes and wires an `InferenceEngine`; the engine
+(`serve/engine.py`) executes the grid.
+
+Variable length: a request shorter than the native image (fewer rows,
+so fewer ViT patch tokens) is right-padded up to a power-of-two height
+bucket and served with a token mask (`models/vit.py apply(mask=...)`),
+so its logits are those of the short image alone, and the grid holds
+O(log2(max_batch) * log2(native_h)) cells, not one per request shape.
+The native bucket keeps the maskless program. With
+``attention_impl="flash"`` the masked cells run the masked flash
+forward at Sq > 1 (`ops/kernels/masked_flash.py`), the dense native
+cell the flash forward.
+
+The reference's zoo also serves MoE checkpoints at an inference-time
+capacity, sharded weights and a memory budget over a compiled-model
+cache; `build_zoo_engine` refuses those arguments, naming the ROADMAP
+item each waits for.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import inspect
+import logging
+
+import numpy as np
+
+from dist_mnist_tpu_torch.serve.engine import InferenceEngine, _nbytes
+from dist_mnist_tpu_torch.utils.tree import leaves
+
+log = logging.getLogger(__name__)
+
+
+# ---------------------------------------------------------------------------
+# sequence (height) bucketing
+
+
+@dataclasses.dataclass(frozen=True)
+class SeqGrid:
+    """The sequence-bucket axis of the 2-D serve grid.
+
+    A ViT's token count follows the image HEIGHT: ceil(h / patch)
+    patch-rows of (width / patch) tokens, in row-major order. So
+    right-padding image rows pads whole trailing patch tokens, and the
+    learned position table's leading rows are exactly the real tokens'.
+    `heights` are the bucket ceilings, ascending, multiples of `patch`,
+    the native height always last: the native bucket serves the maskless
+    program, every sub-native bucket the masked one."""
+
+    native_height: int
+    width: int
+    channels: int
+    patch: int
+    heights: tuple[int, ...]
+
+    def __post_init__(self):
+        hs = tuple(sorted(set(int(h) for h in self.heights)))
+        if not hs or hs[-1] != self.native_height:
+            hs = tuple(h for h in hs if h < self.native_height) \
+                + (self.native_height,)
+        for h in hs:
+            if h < 1 or h > self.native_height:
+                raise ValueError(
+                    f"seq bucket height {h} outside (0, native "
+                    f"{self.native_height}]")
+            if h % self.patch:
+                raise ValueError(
+                    f"seq bucket height {h} not a multiple of patch "
+                    f"{self.patch} — a partial patch-row would drop real "
+                    "pixels in the VALID patch conv")
+        object.__setattr__(self, "heights", hs)
+
+    @property
+    def native_only(self) -> bool:
+        return self.heights == (self.native_height,)
+
+    def bucket_for(self, h: int) -> int:
+        """Smallest bucket ceiling >= h; raises above native (the learned
+        position table has no rows for unseen tokens)."""
+        if h < 1:
+            raise ValueError("empty image (height < 1)")
+        for b in self.heights:
+            if h <= b:
+                return b
+        raise ValueError(
+            f"height {h} > native {self.native_height}: the checkpoint's "
+            "position table ends there; retrain with a larger native shape")
+
+    def n_tokens(self, h: int) -> int:
+        """Patch tokens (excluding any CLS) for an image of height `h`."""
+        return (-(-h // self.patch)) * (self.width // self.patch)
+
+    def mask(self, real_heights, bucket_h: int) -> np.ndarray:
+        """[B, n_tokens(bucket_h)] bool — True on each row's real patch
+        tokens, its first `n_tokens(real_heights[i])` (row-major order)."""
+        real_heights = np.asarray(real_heights, dtype=np.int64)
+        s = self.n_tokens(bucket_h)
+        real = np.array([self.n_tokens(int(h)) for h in real_heights])
+        return (np.arange(s)[None, :] < real[:, None])
+
+
+def default_seq_grid(image_shape, patch: int) -> SeqGrid:
+    """Power-of-two height ladder: patch, 2*patch, 4*patch, ... up to (and
+    always including) the native height."""
+    native_h, width, channels = (int(d) for d in image_shape)
+    heights, h = [], patch
+    while h < native_h:
+        heights.append(h)
+        h *= 2
+    heights.append(native_h)
+    return SeqGrid(native_height=native_h, width=width, channels=channels,
+                   patch=patch, heights=tuple(heights))
+
+
+def parse_seq_buckets(spec: str | None, image_shape,
+                      patch: int) -> SeqGrid | None:
+    """CLI surface: None/"" -> no seq grid (the native-only engine);
+    "auto" -> `default_seq_grid`; "h1,h2,..." -> explicit bucket ceilings
+    (native appended if missing)."""
+    if not spec:
+        return None
+    if spec == "auto":
+        return default_seq_grid(image_shape, patch)
+    native_h, width, channels = (int(d) for d in image_shape)
+    heights = tuple(int(tok) for tok in spec.split(","))
+    return SeqGrid(native_height=native_h, width=width, channels=channels,
+                   patch=patch, heights=heights)
+
+
+def supports_mask(model) -> bool:
+    """True when `model.apply` can honor a token mask: it takes a `mask`
+    kwarg AND its attention is maskable — "xla" (the -1e30 pre-softmax
+    einsum) or "flash" (the masked flash kernels, which turn the zoo's
+    key-prefix masks into per-row lengths and skip key tiles past them).
+    Ring/Ulysses attention and a block pipeline take no mask; models
+    without mask support fall back to the native-only grid."""
+    try:
+        if "mask" not in inspect.signature(model.apply).parameters:
+            return False
+    except (TypeError, ValueError):
+        return False
+    if getattr(model, "attention_impl", "xla") not in ("xla", "flash"):
+        return False
+    if getattr(model, "block_pipeline", 0):
+        return False
+    return True
+
+
+# ---------------------------------------------------------------------------
+# resident bytes
+
+
+def per_device_state_bytes(params, model_state) -> dict:
+    """Bytes the device holds for the served weights: int8 leaves at one
+    byte per element plus their f32 scales (`serve/engine.py _nbytes`).
+    One device holds every leaf whole; the reference's sharded placements
+    divide this and come with ROADMAP §1 item 12."""
+    out = {
+        "param_bytes": sum(_nbytes(x) for x in leaves(params)),
+        "model_state_bytes": sum(_nbytes(x) for x in leaves(model_state)),
+    }
+    out["total_bytes"] = out["param_bytes"] + out["model_state_bytes"]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# engine construction
+
+
+def build_zoo_engine(
+    bundle,
+    device=None,
+    *,
+    model_name: str,
+    max_bucket: int = 256,
+    seq_buckets: str | SeqGrid | None = None,
+    moe_capacity_factor: float | None = None,
+    memory_budget_mb: float | None = None,
+    store=None,
+    mesh=None,
+) -> InferenceEngine:
+    """An `InferenceEngine` for a `loader.ServingBundle` on one device:
+    the seq grid when the model can honor masks (else the native-only
+    grid, with a warning when buckets were asked for) and the bundle's
+    quant mode. With every knob at its default this is the plain engine.
+
+    Refused until their slices land: `moe_capacity_factor` (MoE blocks,
+    ROADMAP §1 item 11), `memory_budget_mb` and `store` (the budgeted
+    cache and the executable store, items 13 and 15), and a `mesh` of
+    more than one device (sharded placement, item 12)."""
+    if moe_capacity_factor is not None:
+        raise ValueError(
+            "moe_capacity_factor: MoE serving joins the port with the "
+            "parallel slice (ROADMAP §1 item 11)")
+    if memory_budget_mb is not None or store is not None:
+        raise ValueError(
+            "a serve memory budget and an executable store join the port "
+            "with ROADMAP §1 items 13 and 15; the port's engine runs each "
+            "cell eagerly and holds no executables")
+    if mesh is not None and any(
+            getattr(mesh, axis, 1) not in (1, -1)
+            for axis in ("data", "model", "seq", "pipe")):
+        raise ValueError(
+            f"sharded placement over {mesh} joins the port with the "
+            "data- and tensor-parallel slice (ROADMAP §1 item 12); the "
+            "zoo engine serves on one device")
+    model = bundle.model
+    grid = seq_buckets
+    if isinstance(seq_buckets, str):
+        grid = parse_seq_buckets(
+            seq_buckets, bundle.image_shape, getattr(model, "patch", 1))
+    if grid is not None and not supports_mask(model):
+        if not grid.native_only:
+            log.warning(
+                "model %r cannot honor token masks (no mask kwarg, kernel "
+                "attention, or block pipeline) — variable-length buckets "
+                "%s collapse to the native-only grid",
+                model_name, grid.heights)
+        grid = SeqGrid(native_height=grid.native_height, width=grid.width,
+                       channels=grid.channels, patch=grid.patch,
+                       heights=(grid.native_height,))
+    return InferenceEngine(
+        model, bundle.params, bundle.model_state, device=device,
+        image_shape=bundle.image_shape,
+        max_bucket=max_bucket, seq_grid=grid,
+        quant=getattr(bundle, "quant", None),
+        quant_report=getattr(bundle, "quant_report", None),
+    )
+
+
+# ---------------------------------------------------------------------------
+# autoregressive decode grid (serve/decode.py executes it)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -3,13 +3,13 @@
 kernels fail when those kernels are wrong. Needs one NVIDIA GPU and
 `nvcc`, as `chip_smoke.py` does.
 
-    python3 scripts/torch_flash_mutation_check.py
+    python3 scripts/torch_flash_mutation_check.py [MUTANT ...]
 
 Runs the phases `vit_kernel_vs_plain`, `flash_split_share`, `qmm_parity`,
-`flash_parity`, `decode_kernel_parity` and `masked_vit_path_parity` on the
-checkout as it stands, then on copies of the checkout in a temporary
-directory, each with one
-fault planted in a kernel under `dist_mnist_tpu_torch/csrc/`, and runs
+`flash_parity`, `decode_kernel_parity`, `masked_vit_path_parity`,
+`masked_zoo_path_parity` and `masked_share` on the checkout as it stands, then on copies of the
+checkout in a temporary directory, each with one fault planted in a
+kernel under `dist_mnist_tpu_torch/csrc/`, and runs
 there the phase that must catch it. In the bf16 tensor-core flash backward that the ViT path
 runs (`flash_attention.cu`):
 
@@ -50,8 +50,18 @@ In the masked forward at Sq > 1 (the flash forward kernels with lengths):
   f32 kernel share) scores key ``len``, one past the row's length;
 - `fwd_len_off_by_one_vit_path` (`masked_vit_path_parity`): the same
   fault, which the Sq > 1 cases at `vit_masked_forward`'s own shape and
-  lengths (S = 33, lengths 25 and 33) must catch alone.
+  lengths (S = 33, lengths 25 and 33) must catch alone;
+- `fwd_len_off_by_one_zoo_path` (`masked_zoo_path_parity`): the same
+  fault, which the cases at the zoo grid's masked cells must catch alone;
+  they run smallest first, so the first failing line is S = 9's (keys
+  padded to 32, every row full: key 9 is the first padded one);
+- `masked_normalized_rule` (`masked_share`): the masked one-pass bf16
+  kernel (Sk <= 128) runs its normalized instantiation, p / l rounded to
+  bf16 before p @ V, instead of the reference's streamed rule. It stays
+  within the 1e-2 limits of `masked_parity`; only the share of outputs
+  equal to the plain version's bf16 values (`MASKED_MATCH_MIN`) sees it.
 
+Named mutants run alone (with the checkout's run of their phases only).
 Each mutant's copy starts from the checkout's built kernels, so only its
 mutated source is compiled again. Each run prints its phases' JSON lines. Exits 0 only when the checkout
 passes every phase and every mutant fails its own. The checkout itself
@@ -103,6 +113,14 @@ MUTANTS = {  # name: (source, line, its mutation, the phase that must catch it)
     "fwd_len_off_by_one_vit_path": (
         FLASH, "return key < len;", "return key <= len;",
         "masked_vit_path_parity"),
+    "fwd_len_off_by_one_zoo_path": (
+        FLASH, "return key < len;", "return key <= len;",
+        "masked_zoo_path_parity"),
+    "masked_normalized_rule": (
+        FLASH, "auto kernel = normalized ? flash_fwd_mma_onepass<DP, VEC, true>",
+        "auto kernel = (normalized || lens != nullptr)\n"
+        "                ? flash_fwd_mma_onepass<DP, VEC, true>",
+        "masked_share"),
 }
 # run in a fresh interpreter whose working directory is the tree under test
 PHASE = """
@@ -133,16 +151,22 @@ def run_phases(tree: Path, *phases: str) -> bool:
     return proc.returncode == 0
 
 
-def main() -> int:
-    sources = {kernel for kernel, *_ in MUTANTS.values()}
+def main(argv: list[str]) -> int:
+    unknown = sorted(set(argv) - set(MUTANTS))
+    if unknown:
+        print(f"unknown mutants {unknown}; have {sorted(MUTANTS)}",
+              file=sys.stderr)
+        return 2
+    mutants = {name: MUTANTS[name] for name in argv} if argv else MUTANTS
+    sources = {kernel for kernel, *_ in mutants.values()}
     if not all((ROOT / p).is_file() for p in (*sources, "chip_smoke.py")):
         print(f"a kernel source or chip_smoke.py is missing under {ROOT}",
               file=sys.stderr)
         return 2
     verdicts = {"checkout": run_phases(ROOT, *sorted(
-        {phase for *_, phase in MUTANTS.values()}))}
+        {phase for *_, phase in mutants.values()}))}
     with tempfile.TemporaryDirectory() as tmp:
-        for name, (kernel, old, new, phase) in MUTANTS.items():
+        for name, (kernel, old, new, phase) in mutants.items():
             src = (ROOT / kernel).read_text()
             if src.count(old) != 1:
                 print(f"{name}: the line to mutate is not in {kernel} once",
@@ -157,11 +181,11 @@ def main() -> int:
             print(f"== mutant {name} ({phase})", flush=True)
             verdicts[name] = run_phases(tree, phase)
     ok = verdicts["checkout"] and not any(
-        verdicts[name] for name in MUTANTS)
+        verdicts[name] for name in mutants)
     print({"verdicts": {k: "pass" if v else "fail"
                         for k, v in verdicts.items()}, "ok": ok}, flush=True)
     return 0 if ok else 1
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -12,6 +12,10 @@ inputs, in the working dtype.
 
 from __future__ import annotations
 
+import dataclasses
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -628,6 +632,86 @@ def test_masked_forward_sq_gt1_matches_plain_version(cuda, b, sq, sk, h, d,
     rng = np.random.default_rng(b * sq + sk + d)
     _check_masked_forward(*_masked_case(rng, b, sq, sk, h, d, dtype, cuda),
                           cuda)
+
+
+def _chip_smoke():
+    """The repo's `chip_smoke.py` as a module (its limits and helpers)."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+@pytest.mark.parametrize("b,s", [(64, 33), (64, 65), (3, 128), (8, 17),
+                                 (32, 9), (32, 17)])
+def test_masked_onepass_bf16_share_equal_to_plain_version(cuda, b, s):
+    """At Sk <= 128 the one-pass kernel's single tile is the reference's
+    one 128-key block, so at least `chip_smoke.MASKED_MATCH_MIN` of its
+    bf16 outputs equal the plain version's (the reference's streamed
+    rule) bit for bit."""
+    smoke = _chip_smoke()
+    rng = np.random.default_rng(b + s)
+    q, k, v, lens = _masked_case(rng, b, s, s, 3, 64, torch.bfloat16, cuda)
+    lengths = torch.from_numpy(lens).to(cuda)
+    assert masked_forward_body(s, s, torch.bfloat16) == \
+        "flash_fwd_mma_onepass"
+    got = masked_flash_attention(q, k, v, lengths)
+    want = masked_flash_attention_reference(q, k, v, lengths)
+    torch.cuda.synchronize()
+    assert smoke.bf16_match_share([got], [want]) >= smoke.MASKED_MATCH_MIN
+
+
+def test_seeded_init_on_card_machine_equals_the_cpu_tests(cuda):
+    """The truncated normal of LeNet-5's and the MLP's fresh init draws
+    on this machine's torch what it draws for the CPU tests
+    (tests/test_torch_models.py pins the same values): one seed, one
+    model, wherever the port runs."""
+    got = tnn.truncated_normal(torch.Generator().manual_seed(0), (6,), 1.0)
+    assert got.tolist() == [1.5409960746765137, -0.293428897857666,
+                            -0.7192575931549072, 0.5684312582015991,
+                            -1.0845223665237427, -1.3985954523086548]
+    bundle = load_for_serving("mlp_mnist", cuda, quant="int8")
+    assert [int(bundle.params[k]["w"].q.abs().sum()) for k in ("hid", "sm")
+            ] == [3620061, 50513]
+
+
+def test_zoo_engine_on_card_runs_each_cell_and_counts_launches(cuda):
+    """A small flash ViT (depth 2, bf16) behind the zoo's auto height
+    ladder on the card: prewarm runs every cell once, each masked cell's
+    batch launches the masked forward once a layer and the dense native
+    cell's the flash forward, and traffic over the grid after prewarm
+    runs no cell for the first time."""
+    from dist_mnist_tpu_torch.configs import get_config
+    from dist_mnist_tpu_torch.serve import build_zoo_engine
+
+    cfg = get_config("vit_tiny_cifar_flash")
+    cfg = dataclasses.replace(cfg, model_kwargs={
+        **cfg.model_kwargs, "dim": 64, "depth": 2, "heads": 2})
+    eng = build_zoo_engine(load_for_serving(cfg, cuda), cuda,
+                           model_name="vit", max_bucket=4,
+                           seq_buckets="auto")
+    masked_flash_attention.launches = 0
+    tflash.flash_attention_forward.launches = 0
+    cells = eng.prewarm()
+    torch.cuda.synchronize()
+    n_heights = len(eng.seq_grid.heights)
+    assert cells == len(eng.buckets()) * (1 + n_heights) == eng.misses
+    assert masked_flash_attention.launches == 2 * len(eng.buckets()) \
+        * n_heights
+    assert tflash.flash_attention_forward.launches == 2 * len(eng.buckets())
+    rng = np.random.default_rng(0)
+    for n, h in ((3, 4), (1, 12), (4, 32), (2, 20), (4, 7)):
+        images = rng.integers(0, 256, size=(n, h, 32, 3), dtype=np.uint8)
+        out = eng.predict(images)
+        assert out.shape == (n, 10) and np.isfinite(out).all()
+    torch.cuda.synchronize()
+    assert eng.misses == cells
+    runs = eng.cache_stats()["per_cell"]
+    assert masked_flash_attention.launches == 2 * sum(
+        r for c, r in runs.items() if c.endswith("/masked"))
+    assert tflash.flash_attention_forward.launches == 2 * sum(
+        r for c, r in runs.items() if c.endswith("/dense"))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

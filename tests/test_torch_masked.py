@@ -10,16 +10,19 @@ interpret mode (`_masked_flash_fwd_impl`, out and lse), and a ViT-Tiny
 forward under a zoo bucket's token mask against the JAX package's.
 
 The same numpy-seeded inputs go to both packages. Tolerances: out within
-1e-2 (bf16: the reference rounds the streamed rule's unnormalized p to
-bf16, the plain version the normalized one) or 1e-5 (f32: sums in another
-order) of the largest value, the lse within 1e-5 of the largest, the ViT's
-f32 logits within 1e-4 of the largest.
+1e-2 (bf16) or 1e-5 (f32: sums in another order) of the largest value,
+the lse within 1e-5 of the largest, the ViT's f32 logits within 1e-4 of
+the largest; and in bf16 at least 0.999 of the outputs equal to the
+reference's, since the plain version follows its streamed rule (the
+unnormalized p rounded to bf16, over blocks of 128 keys).
 """
 
 from __future__ import annotations
 
 import importlib
+import importlib.util
 import tempfile
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -139,6 +142,70 @@ def test_masked_forward_out_and_lse_match_jax(sq, sk, dtype):
     _, vis = tmf.masked_flash_attention_probe(tq, tk, tv,
                                               torch.from_numpy(lens))
     np.testing.assert_array_equal(vis[:, 0, 0].numpy(), -(-lens // 32))
+
+
+#: the least share of bf16 outputs equal to the reference's: the plain
+#: version follows its streamed rule over 128-key blocks, so only an exp or
+#: a sum that rounds the other way sets one apart (the normalized rule,
+#: the plain version's before, matched 0.58-0.71 of them)
+BF16_EQUAL_MIN = 0.999
+
+
+@pytest.mark.parametrize("sq,sk", [(65, 65), (5, 200)])
+def test_masked_forward_bf16_equals_jax(sq, sk):
+    """The port's bf16 masked forward on the CPU against the JAX package's
+    `masked_flash_attention` in interpret mode (its default block_k 128),
+    the same numpy-seeded inputs at B = 3, H = 2, D = 16 and lengths 1, a
+    middle one and Sk: at least `BF16_EQUAL_MIN` of the outputs equal
+    bit for bit, the rest within one bf16 ulp of the largest output."""
+    b, h, d = 3, 2, 16
+    rng = np.random.default_rng(7 * sq + sk)
+    q, k, v = (rng.standard_normal(s).astype(np.float32)
+               for s in ((b, sq, h, d), (b, sk, h, d), (b, sk, h, d)))
+    lens = np.asarray([1, sk // 2 + 3, sk], np.int32)
+    want = jfa.masked_flash_attention(
+        *(jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v)),
+        jnp.asarray(lens), interpret=True)
+    want = torch.from_numpy(np.array(want.astype(jnp.float32)))
+    got = tmf.masked_flash_attention(
+        *(torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)),
+        torch.from_numpy(lens)).float()
+    share = float((got == want).float().mean())
+    assert share >= BF16_EQUAL_MIN, share
+    assert float((got - want).abs().max()) <= 2 ** -7 * float(
+        want.abs().max())
+
+
+def test_masked_share_tells_the_streamed_rule_from_the_normalized_one():
+    """`chip_smoke.masked_share`'s limit, on its shapes (B = 64, S = 33
+    and 65, and the zoo grid's B = 32, S = 9 and 17 with its lengths; H =
+    3, D = 64, bf16): the normalized rule (p / l rounded to
+    bf16 before p @ V, what the `masked_normalized_rule` mutant makes the
+    one-pass kernel compute) stays within the 1e-2 limit of
+    `masked_parity` yet leaves fewer than `MASKED_MATCH_MIN` of the
+    outputs equal to the plain version's bf16 values."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    gen = torch.Generator().manual_seed(35)
+    zoo = smoke.zoo_cell_lengths(np.random.default_rng(9))
+    for b, s_len, lengths in ((64, 33, smoke.masked_lengths(64, 33)),
+                              (64, 65, smoke.masked_lengths(64, 65)),
+                              (smoke.ZOO_B, 9, zoo[9]),
+                              (smoke.ZOO_B, 17, zoo[17])):
+        q, k, v = (torch.randn(b, s_len, 3, 64, generator=gen)
+                   .to(torch.bfloat16) for _ in range(3))
+        lens = torch.tensor(lengths, dtype=torch.int32)
+        want = tmf.masked_flash_attention_reference(q, k, v, lens)
+        w = torch.softmax(tfa._scores(q, k, lens), dim=-1).to(torch.bfloat16)
+        normalized = torch.einsum("bhqk,bkhd->bqhd", w.float(),
+                                  v.float()).to(torch.bfloat16)
+        err = float((normalized.float() - want.float()).abs().max())
+        assert err <= 1e-2 * float(want.float().abs().max())
+        assert smoke.bf16_match_share([want], [want]) == 1.0
+        assert smoke.bf16_match_share([normalized], [want]) < \
+            smoke.MASKED_MATCH_MIN
 
 
 # -- a ViT forward under a zoo bucket's token mask ----------------------------

@@ -113,6 +113,34 @@ def test_initializers_match_reference_distribution(init, want_std):
     assert float(got.abs().max()) <= float(np.abs(ref).max()) * 1.05
 
 
+#: `truncated_normal(Generator().manual_seed(0), (6,), 1.0)`: standard
+#: normals from seed 0 with the third (-2.1788) drawn again
+SEED0_TRUNC_NORMAL = [1.5409960746765137, -0.293428897857666,
+                      -0.7192575931549072, 0.5684312582015991,
+                      -1.0845223665237427, -1.3985954523086548]
+
+
+def test_truncated_normal_is_pinned():
+    """The port's truncated normal is its own rejection loop: the same
+    draws for one seed under any torch (the card's machine runs another
+    torch than the CPU tests; tests/test_torch_cuda.py holds it there to
+    the same values), within [-2, 2] times the stddev, and at LeNet-5's
+    and the MLP's shapes equal to this torch's own `trunc_normal_`
+    (which since torch 2.13 runs the same loop)."""
+    got = tnn.truncated_normal(torch.Generator().manual_seed(0), (6,), 1.0)
+    assert got.tolist() == SEED0_TRUNC_NORMAL
+    for shape in ((784, 100), (5, 5, 1, 32), (3136, 512)):
+        t = tnn.truncated_normal(torch.Generator().manual_seed(42), shape,
+                                 0.5)
+        assert float(t.abs().max()) <= 1.0 and t.dtype == torch.float32
+        if torch.__version__ >= (2, 13):
+            want = torch.empty(shape)
+            torch.nn.init.trunc_normal_(want, 0.0, 1.0, -2.0, 2.0,
+                                        generator=torch.Generator()
+                                        .manual_seed(42))
+            assert torch.equal(t, 0.5 * want)
+
+
 @pytest.mark.parametrize("name", ["mlp", "lenet5"])
 def test_init_shapes_match_reference(name):
     sample = np.zeros((1, 28, 28, 1), np.float32)
