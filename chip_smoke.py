@@ -137,7 +137,39 @@ script. Phases (any failure exits nonzero before the final `ok` line):
    grid with the "xla" attention, within `ZOO_LOGIT_TOL` of the largest
    logit and the same top-1 on `ZOO_TOP1` of the rows that limit decides
    (`zoo_flash_serve`);
-11. time each kernel at the shapes its path gives it, beside its plain
+11. the training CLI (`cli.train.main` in-process, every counter set to
+   0 just before each command and read just after; `train_cli`):
+   LeNet-5 for 1,000 steps on the host batcher, prefetched two batches
+   ahead on a side stream, checkpoints every 250 steps: step 1,000
+   reached, test accuracy >= 0.97, a commit marker at every cadence
+   step, the reference's record names in `metrics.csv` and
+   `events.jsonl`, no kernel launched; the same run resumed to step
+   1,200 (logs restored=True, starts at 1,000); `cli.train.run_config`
+   with a hook that raises `PreemptionError` once at step 600 and
+   max_recoveries=1: restores step 500, replays, and ends with params,
+   Adam slots and generator equal to the first run's bit for bit (cuDNN
+   deterministic for both runs); `vit_tiny_cifar_flash` at full width and
+   its own batch 1,024 for 30 steps with an eval at step 30 and
+   checkpoints every 15: 24 forward, 12 dQ and 12 dK/dV launches a step
+   plus 12 forward launches per eval batch (10 of 1,000 images) and no
+   other kernel, finite losses, markers at 0, 15 and 30; then
+   `cli.serve.main --checkpoint_dir=... --seq_buckets=auto` (256
+   requests, concurrency 64): checkpoint_step 30, every request ok, the
+   engine's params the checkpoint's bits (the same paths, leaf by leaf),
+   12 masked-forward launches per masked batch and 12 forward launches
+   per dense batch, no other kernel, no cell run for the first time after
+   prewarm (that loadgen sends native-height images, as the reference's
+   does, so only prewarm runs the masked cells there); then the same
+   checkpoint through `load_for_serving` behind the zoo grid under
+   `run_longctx_loadgen`'s mixed heights (512 requests, concurrency 64),
+   counted from the traffic alone: every request ok, no first run, at
+   least one masked batch, 12 masked-forward launches per masked batch
+   and 12 forward launches per dense batch and no other kernel, and one
+   fixed batch per height bucket within `ZOO_LOGIT_TOL` of the same
+   engine's logits on the plain versions (`served_checkpoint_varlen`);
+   it prints each run's steps/s, goodput, feed wait, prefetched bytes, checkpoint save
+   and restore times and launch counts;
+12. time each kernel at the shapes its path gives it, beside its plain
    version and, where one exists, one library call computing the same
    function (for the Adam kernels `torch._fused_adam_`/`_fused_adamw_`, a
    yardstick that computes a neighbouring function in place; for
@@ -155,7 +187,7 @@ script. Phases (any failure exits nonzero before the final `ok` line):
    B = 64, S = 65 and B = 8, S = 300; H = 3, D = 64, bf16 and f32; the
    kernels line takes the first), each beside its launch floor (an empty
    kernel of the same grid, block and arguments);
-12. print the `{"kernels": [...]}` line (nine kernels: the masked forward's
+13. print the `{"kernels": [...]}` line (nine kernels: the masked forward's
    Sq > 1 route apart from its Sq = 1 route), then, last, the `ok` line.
 
 A failure prints `{"phase": "fail", "error": ...}` on stdout and the
@@ -164,6 +196,7 @@ same message on stderr, and exits 1.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -2003,6 +2036,53 @@ def serve_benches(torch, dev, reset_counts, read_counts) -> dict:
 ZOO_LOGIT_TOL, ZOO_TOP1 = 4e-2, 0.98
 
 
+def zoo_fixed_batches(grid, seed: int = 12) -> list:
+    """One fixed batch of 32 images per seq bucket of the zoo `grid`, their
+    real heights drawn within the bucket (row 0 at the bucket's full
+    height, the rows past each real height zeroed), and one batch of full
+    height for the dense native cell: ``[(name, images, heights)]``."""
+    rng = np.random.default_rng(seed)
+    batches, low = [], 0
+    for h in (*grid.heights, None):
+        b_h = grid.native_height if h is None else h
+        real = (np.full(32, b_h) if h is None
+                else rng.integers(low + 1, h + 1, size=32))
+        real[0] = b_h  # every bucket holds its full height too
+        images = rng.integers(0, 256, size=(32, b_h, grid.width,
+                                            grid.channels), dtype=np.uint8)
+        for row, r in enumerate(real):
+            images[row, r:] = 0  # the rows past each real height
+        batches.append(("dense" if h is None else f"masked {b_h}", images,
+                        real))
+        low = b_h if h is not None else low
+    return batches
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """The ViT's flash and masked flash forward calls swapped for their
+    plain versions while the block runs."""
+    from dist_mnist_tpu_torch.ops.kernels import flash_attention as fa
+    from dist_mnist_tpu_torch.ops.kernels import masked_flash as mf
+    from dist_mnist_tpu_torch.parallel import flash as pflash
+
+    kernels = (pflash.flash_attention, pflash.masked_flash_attention)
+    pflash.flash_attention = (lambda q, k, v, block_k=None:
+                              fa.flash_attention_forward_reference(
+                                  q, k, v, block_k)[0])
+    pflash.masked_flash_attention = mf.masked_flash_attention_reference
+    try:
+        yield
+    finally:
+        pflash.flash_attention, pflash.masked_flash_attention = kernels
+
+
+def rel_logit_diffs(a, b) -> list[float]:
+    """Per batch, the largest |a - b| over the largest |b|."""
+    return [float(np.max(np.abs(x - y))) / float(np.max(np.abs(y)))
+            for x, y in zip(a, b)]
+
+
 def zoo_flash_serve(torch, dev, reset_counts, read_counts) -> dict:
     """`bench.run_serve_longctx` through `vit_tiny_cifar_flash` (bf16, full
     width: dim 192, depth 12, 3 heads; seeded fresh init) at the
@@ -2022,9 +2102,6 @@ def zoo_flash_serve(torch, dev, reset_counts, read_counts) -> dict:
     comparison's noise floor). Fails on any miss; returns the phase's
     record."""
     from dist_mnist_tpu_torch import bench
-    from dist_mnist_tpu_torch.ops.kernels import flash_attention as fa
-    from dist_mnist_tpu_torch.ops.kernels import masked_flash as mf
-    from dist_mnist_tpu_torch.parallel import flash as pflash
     from dist_mnist_tpu_torch.serve import build_zoo_engine, load_for_serving
     from dist_mnist_tpu_torch.utils.tree import leaves
 
@@ -2066,37 +2143,14 @@ def zoo_flash_serve(torch, dev, reset_counts, read_counts) -> dict:
                                                   leaves(plain.params))):
         fail("zoo_flash_serve: the flash and xla configs' seeded weights "
              "differ")
-    rng = np.random.default_rng(12)
-    grid = flash.seq_grid
-    batches, low = [], 0
-    for h in (*grid.heights, None):
-        b_h = grid.native_height if h is None else h
-        real = (np.full(32, b_h) if h is None
-                else rng.integers(low + 1, h + 1, size=32))
-        real[0] = b_h  # every bucket holds its full height too
-        images = rng.integers(0, 256, size=(32, b_h, 32, 3), dtype=np.uint8)
-        for row, r in enumerate(real):
-            images[row, r:] = 0  # the rows past each real height
-        batches.append(("dense" if h is None else f"masked {b_h}", images,
-                        real))
-        low = b_h if h is not None else low
+    batches = zoo_fixed_batches(flash.seq_grid)
     got = [flash.predict(x, heights=r) for _, x, r in batches]
     ref = [plain.predict(x, heights=r) for _, x, r in batches]
     # the same flash engine with the kernels swapped for their plain
     # versions: the noise floor of this bf16 comparison, reported beside it
-    kernels = (pflash.flash_attention, pflash.masked_flash_attention)
-    pflash.flash_attention = (lambda q, k, v, block_k=None:
-                              fa.flash_attention_forward_reference(
-                                  q, k, v, block_k)[0])
-    pflash.masked_flash_attention = mf.masked_flash_attention_reference
-    try:
+    with plain_attention():
         swapped = [flash.predict(x, heights=r) for _, x, r in batches]
-    finally:
-        pflash.flash_attention, pflash.masked_flash_attention = kernels
-
-    def rel(a, b):
-        return [float(np.max(np.abs(x - y))) / float(np.max(np.abs(y)))
-                for x, y in zip(a, b)]
+    rel = rel_logit_diffs
 
     if any(g.shape != (32, 10) or not np.isfinite(g).all() for g in got):
         fail("zoo_flash_serve: logits of a fixed batch not [32, 10] or "
@@ -2127,6 +2181,381 @@ def zoo_flash_serve(torch, dev, reset_counts, read_counts) -> dict:
              f"engine's and {vs_plain} from the plain versions' (limit "
              f"{ZOO_LOGIT_TOL}), top-1 {agree} over the "
              f"{int(decided.sum())} of {len(decided)} rows it decides")
+    return out
+
+
+#: the train_cli phase's LeNet-5 runs: steps, checkpoint cadence, the
+#: resumed run's end, and the step at which the recovery run is preempted
+CLI_STEPS, CLI_EVERY, CLI_RESUME_TO, CLI_PREEMPT_AT = 1000, 250, 1200, 600
+#: the ViT-Tiny run through the CLI: steps, eval and checkpoint cadence
+CLI_VIT_STEPS, CLI_VIT_EVERY = 30, 15
+CLI_VIT_EVAL_BATCHES = 10  # 10,000 test images in batches of 1,000
+#: record names the reference's CLI writes that the port's must too
+CLI_CSV_TAGS = ("steps_per_sec", "loss", "accuracy", "test/loss",
+                "test/accuracy", "step_time/p50_ms", "goodput/productive_s",
+                "input/feed_stall_ms_per_step", "input/h2d_mbytes_per_step",
+                "memory/param_bytes_per_device", "memory/bytes_in_use")
+CLI_EVENTS = ("run_start", "first_step", "checkpoint_save",
+              "checkpoint_commit", "checkpoint_restore", "span", "run_stop")
+
+
+class _PreemptOnce:
+    """A hook that raises PreemptionError once, after step `at`."""
+
+    def __init__(self, error, at: int):
+        self.error, self.at, self.fired = error, at, False
+
+    def begin(self, loop):
+        pass
+
+    def before_step(self, step):
+        pass
+
+    def after_step(self, step, state, outputs):
+        if step == self.at and not self.fired:
+            self.fired = True
+            raise self.error(f"injected at step {step}")
+
+    def end(self, state):
+        pass
+
+
+def served_checkpoint_varlen(torch, dev, checkpoint_dir, reset_counts,
+                             read_counts) -> dict:
+    """The `vit_tiny_cifar_flash` checkpoint in `checkpoint_dir`, restored
+    by `load_for_serving`, behind the zoo grid (auto heights, max batch
+    `bench.LONGCTX_MAX_BATCH`, every cell prewarmed) under
+    `run_longctx_loadgen`'s mixed-height traffic (`SERVE_REQUESTS` at
+    `SERVE_CONCURRENCY`), the launch counters set to 0 after prewarm and
+    read after the traffic: every request ok, no first run of a cell, at
+    least one masked batch, and 12 masked-forward launches per masked
+    batch and 12 forward launches per dense batch of the traffic, no
+    other kernel. Then `zoo_fixed_batches` through the engine, on the
+    kernels and on their plain versions: finite [32, 10] logits within
+    `ZOO_LOGIT_TOL` of the plain versions' largest logit. Fails on any
+    miss; returns the record."""
+    from dist_mnist_tpu_torch import bench
+    from dist_mnist_tpu_torch.configs import get_config
+    from dist_mnist_tpu_torch.serve import (
+        InferenceServer,
+        ServeConfig,
+        build_zoo_engine,
+        load_for_serving,
+        run_longctx_loadgen,
+    )
+
+    cfg = get_config("vit_tiny_cifar_flash")
+    bundle = load_for_serving(cfg, dev, checkpoint_dir=checkpoint_dir)
+    engine = build_zoo_engine(bundle, dev, model_name=cfg.model,
+                              max_bucket=bench.LONGCTX_MAX_BATCH,
+                              seq_buckets="auto")
+
+    def runs(kind):
+        return sum(n for c, n in engine.cache_stats()["per_cell"].items()
+                   if c.endswith("/" + kind))
+
+    server = InferenceServer(engine, ServeConfig(
+        max_batch=bench.LONGCTX_MAX_BATCH, max_wait_ms=2.0,
+        queue_depth=4 * SERVE_CONCURRENCY))
+    with server:
+        masked0, dense0 = runs("masked"), runs("dense")
+        reset_counts()
+        summary = run_longctx_loadgen(server, n_requests=SERVE_REQUESTS,
+                                      concurrency=SERVE_CONCURRENCY, seed=0)
+        torch.cuda.synchronize()
+        counts = read_counts()
+    masked, dense = runs("masked") - masked0, runs("dense") - dense0
+    depth = 12
+    want = {k: v for k, v in (("masked_flash_attention", depth * masked),
+                              ("flash_attention_forward", depth * dense))
+            if v}
+    batches = zoo_fixed_batches(engine.seq_grid)
+    got = [engine.predict(x, heights=r) for _, x, r in batches]
+    with plain_attention():
+        plain = [engine.predict(x, heights=r) for _, x, r in batches]
+    diffs = rel_logit_diffs(got, plain)
+    out = {"checkpoint_step": bundle.step, "restored": bundle.restored,
+           "ok": summary["ok"], "errors": summary["errors"],
+           "p99_ms": summary["p99_ms"],
+           "seq_bucket_counts": summary["seq_bucket_counts"],
+           "recompiles_during_traffic":
+               summary["recompiles_during_traffic"],
+           "masked_batches": masked, "dense_batches": dense,
+           "launches": counts, "want": want,
+           "fixed_batches": [name for name, _, _ in batches],
+           "kernels_vs_plain_rel_logit_diff": diffs, "tol": ZOO_LOGIT_TOL}
+    print(json.dumps({"phase": "train_cli", "serve_varlen": out}),
+          flush=True)
+    if (not bundle.restored or bundle.step != CLI_VIT_STEPS
+            or summary["ok"] != SERVE_REQUESTS or summary["errors"]
+            or summary["recompiles_during_traffic"]):
+        fail(f"train_cli: the checkpoint under mixed-height traffic {out}")
+    if {k: v for k, v in counts.items() if v} != want or not masked:
+        fail(f"train_cli: mixed-height traffic launches {counts} (want "
+             f"{want}, at least one masked batch, no other kernel)")
+    if any(g.shape != (32, 10) or not np.isfinite(g).all() for g in got) \
+            or max(diffs) > ZOO_LOGIT_TOL:
+        fail(f"train_cli: the trained weights' logits {diffs} of the "
+             f"largest from the plain versions' (limit {ZOO_LOGIT_TOL})")
+    return out
+
+
+def train_cli(torch, dev, reset_counts, read_counts) -> dict:
+    """The training CLI on the card (`cli.train.main` in-process), every
+    launch counter set to 0 just before each command and read just after:
+    LeNet-5 for `CLI_STEPS` steps (python pipeline, prefetch depth 2,
+    checkpoints every `CLI_EVERY`): step reached, test accuracy >= 0.97,
+    a commit marker at every cadence step, the reference's metric and
+    journal record names, no kernel launched; the same run resumed to
+    `CLI_RESUME_TO` (restored=True, from step `CLI_STEPS`); `run_config`
+    with a hook that raises PreemptionError once at `CLI_PREEMPT_AT` and
+    max_recoveries=1: restored, replayed, and its final params, optimizer
+    slots and generator equal to the first run's bit for bit (cuDNN set
+    deterministic for those two runs). Then `vit_tiny_cifar_flash` at full
+    width and its own batch 1,024 for `CLI_VIT_STEPS` steps: 24 forward,
+    12 dQ and 12 dK/dV launches a step plus 12 forward launches per eval
+    batch and no other kernel, finite losses, checkpoints at every
+    `CLI_VIT_EVERY`; and that checkpoint served by `cli.serve.main
+    --seq_buckets=auto`: checkpoint_step, every request ok, the engine's
+    params the checkpoint's bits, 12 masked-forward launches per masked
+    batch and 12 forward launches per dense batch, no cell run for the
+    first time after prewarm; then `served_checkpoint_varlen`. Fails on
+    any miss; returns the record."""
+    import logging
+    import shutil
+    import tempfile
+
+    from dist_mnist_tpu_torch.cli import serve as serve_cli
+    from dist_mnist_tpu_torch.cli import train as cli
+    from dist_mnist_tpu_torch.configs import get_config
+    from dist_mnist_tpu_torch.hooks import StepCounterHook
+    from dist_mnist_tpu_torch.obs.events import read_journal
+    from dist_mnist_tpu_torch.train.loop import PreemptionError
+    from dist_mnist_tpu_torch.utils.tree import flatten_with_path
+
+    work = Path(tempfile.mkdtemp(prefix="train_cli_"))
+    d1, l1, d2, l2 = (str(work / n) for n in ("d1", "l1", "d2", "l2"))
+    j3 = str(work / "j3.jsonl")
+    out = {"phase": "train_cli"}
+    records = []
+
+    class _Capture(logging.Handler):
+        def emit(self, record):
+            records.append(record.getMessage())
+
+    capture = _Capture(level=logging.INFO)
+    logging.getLogger("dist_mnist_tpu_torch").addHandler(capture)
+
+    def rate(ctx):
+        return next(h.last_rate for h in ctx["loop"].hooks
+                    if isinstance(h, StepCounterHook))
+
+    def counted(fn, *a, **k):
+        reset_counts()
+        t0 = time.perf_counter()
+        result = fn(*a, **k)
+        torch.cuda.synchronize()
+        return result, read_counts(), time.perf_counter() - t0
+
+    def deterministic(fn, *a, **k):
+        cudnn = torch.backends.cudnn
+        prev = cudnn.deterministic, cudnn.benchmark
+        cudnn.deterministic, cudnn.benchmark = True, False
+        try:
+            return counted(fn, *a, **k)
+        finally:
+            cudnn.deterministic, cudnn.benchmark = prev
+
+    def run_record(ctx, wall, counts):
+        return {"steps_per_sec": rate(ctx), "wall_s": wall,
+                "goodput": ctx["loop"].goodput.snapshot(),
+                "feed_wait_s": ctx["loop"].feed_wait_s,
+                "h2d_bytes": (ctx["prefetch"] or {}).get("h2d_bytes"),
+                "launches": counts}
+
+    def leaf_diffs(a, b) -> dict:
+        """Each leaf's largest |a - b| by path; fails unless the two trees
+        hold the same paths, at least one."""
+        fa_, fb_ = flatten_with_path(a), flatten_with_path(b)
+        if not fa_ or [p for p, _ in fa_] != [p for p, _ in fb_]:
+            fail(f"train_cli: trees of other paths: {len(fa_)} leaves "
+                 f"against {len(fb_)}")
+        return {"/".join(str(p) for p in path): (
+            0.0 if torch.equal(x.cpu(), y.cpu()) else float(
+                (x.double().cpu() - y.double().cpu()).abs().max()))
+            for (path, x), (_, y) in zip(fa_, fb_)}
+
+    def journal_ms(path, event, **match):
+        return [r["dur_ms"] for r in read_journal(path)
+                if r["event"] == event
+                and all(r.get(k) == v for k, v in match.items())]
+
+    try:
+        lenet = ["--config=lenet5_mnist", "--device=cuda:0",
+                 f"--checkpoint_dir={d1}", f"--checkpoint_every_steps="
+                 f"{CLI_EVERY}", f"--logdir={l1}"]
+        # 1. LeNet-5 through the CLI
+        (s1, f1, c1), n1, w1 = deterministic(
+            cli.main, lenet + [f"--train_steps={CLI_STEPS}"])
+        out["lenet"] = {**run_record(c1, w1, n1), "step": s1.step_int,
+                        "test_acc": f1["accuracy"],
+                        "synthetic_data": c1["dataset"].synthetic}
+        markers = sorted(int(p.name.split(".")[0])
+                         for p in Path(d1, "commits").iterdir())
+        tags = {row.split(",")[1] for row in
+                Path(l1, "metrics.csv").read_text().splitlines()[1:]}
+        names = {r["event"] for r in read_journal(Path(l1, "events.jsonl"))}
+        print(json.dumps(out), flush=True)
+        if s1.step_int != CLI_STEPS or f1["accuracy"] < 0.97:
+            fail(f"train_cli: LeNet-5 ended at step {s1.step_int} with test "
+                 f"accuracy {f1['accuracy']} (want {CLI_STEPS}, >= 0.97)")
+        want_markers = list(range(0, CLI_STEPS + 1, CLI_EVERY))
+        if markers != want_markers:
+            fail(f"train_cli: commit markers {markers}, want {want_markers}")
+        missing = (set(CLI_CSV_TAGS) - tags) | (
+            set(CLI_EVENTS) - {"checkpoint_restore"} - names)
+        if missing:
+            fail(f"train_cli: record names missing from metrics.csv or "
+                 f"events.jsonl: {sorted(missing)}")
+        if any(n1.values()):
+            fail(f"train_cli: LeNet-5 through the CLI launched kernels {n1}")
+        # 2. resumed to CLI_RESUME_TO
+        records.clear()
+        (s2, _, c2), n2, w2 = counted(
+            cli.main, lenet + [f"--train_steps={CLI_RESUME_TO}"])
+        logged_restored = any("restored=True" in m for m in records)
+        out["resume"] = {**run_record(c2, w2, n2), "step": s2.step_int,
+                         "initial_step": c2["initial_step"],
+                         "logged_restored": logged_restored,
+                         "restore_ms": journal_ms(Path(l1, "events.jsonl"),
+                                                  "checkpoint_restore")}
+        if not (logged_restored and c2["initial_step"] == CLI_STEPS
+                and s2.step_int == CLI_RESUME_TO) or any(n2.values()):
+            fail(f"train_cli: resume {out['resume']}")
+        # 3. preempted at CLI_PREEMPT_AT, recovered, equal to run 1
+        hook = _PreemptOnce(PreemptionError, CLI_PREEMPT_AT)
+        (s3, _, c3), n3, w3 = deterministic(
+            cli.run_config, get_config("lenet5_mnist",
+                                       train_steps=CLI_STEPS),
+            device=dev, checkpoint_dir=str(work / "d3"),
+            checkpoint_every_steps=CLI_EVERY, max_recoveries=1,
+            prefetch_depth=2, extra_hooks=[hook], journal=j3)
+        diffs = {}
+        for tree in ("params", "opt_state"):
+            diffs.update({f"{tree}/{k}": v for k, v in leaf_diffs(
+                getattr(s3, tree), getattr(s1, tree)).items()})
+        same_rng = torch.equal(s3.rng.get_state(), s1.rng.get_state())
+        out["recovery"] = {
+            **run_record(c3, w3, n3), "step": s3.step_int,
+            "fired": hook.fired,
+            "restore_ms": journal_ms(j3, "checkpoint_restore"),
+            "bitwise_equal_to_run_1": same_rng and not any(diffs.values()),
+            "rng_equal": same_rng,
+            "largest_leaf_diff": max(diffs.items(), key=lambda kv: kv[1])}
+        print(json.dumps({"phase": "train_cli", "recovery":
+                          out["recovery"]}), flush=True)
+        goodput3 = out["recovery"]["goodput"]
+        if not (hook.fired and s3.step_int == CLI_STEPS
+                and goodput3["recoveries"] == 1
+                and goodput3["replayed_steps"] == CLI_PREEMPT_AT
+                - CLI_PREEMPT_AT // CLI_EVERY * CLI_EVERY) or any(n3.values()):
+            fail(f"train_cli: recovery {out['recovery']}")
+        if not out["recovery"]["bitwise_equal_to_run_1"]:
+            fail(f"train_cli: the recovered run differs from the "
+                 f"uninterrupted one (rng equal: {same_rng}; largest leaf "
+                 f"difference {out['recovery']['largest_leaf_diff']})")
+        # 4. ViT-Tiny through the CLI at full width and batch 1,024
+        (s4, f4, c4), n4, w4 = counted(cli.main, [
+            "--config=vit_tiny_cifar_flash", "--device=cuda:0",
+            f"--train_steps={CLI_VIT_STEPS}", f"--eval_every={CLI_VIT_STEPS}",
+            "--log_every=10", f"--checkpoint_dir={d2}",
+            f"--checkpoint_every_steps={CLI_VIT_EVERY}", f"--logdir={l2}"])
+        depth = 12
+        want = {"flash_attention_forward": CLI_VIT_STEPS * 2 * depth
+                + CLI_VIT_EVAL_BATCHES * depth,
+                "flash_attention_dq": CLI_VIT_STEPS * depth,
+                "flash_attention_dkv": CLI_VIT_STEPS * depth}
+        losses = [float(row.split(",")[2]) for row in
+                  Path(l2, "metrics.csv").read_text().splitlines()[1:]
+                  if row.split(",")[1] == "loss"]
+        vit_markers = sorted(int(p.name.split(".")[0])
+                             for p in Path(d2, "commits").iterdir())
+        out["vit"] = {**run_record(c4, w4, n4), "step": s4.step_int,
+                      "batch": get_config("vit_tiny_cifar_flash").batch_size,
+                      "losses": losses,
+                      "test_loss": f4["loss"], "test_acc": f4["accuracy"],
+                      "want": want, "markers": vit_markers,
+                      "save_dispatch_ms": journal_ms(
+                          Path(l2, "events.jsonl"), "span",
+                          name="checkpoint"),
+                      "commit_ms": journal_ms(Path(l2, "events.jsonl"),
+                                              "checkpoint_commit")}
+        print(json.dumps({"phase": "train_cli", "vit": out["vit"]}),
+              flush=True)
+        if {k: v for k, v in n4.items() if v} != want:
+            fail(f"train_cli: ViT-Tiny launches {n4} (want {want}, no other "
+                 "kernel)")
+        if (s4.step_int != CLI_VIT_STEPS or len(losses) != 3
+                or not np.isfinite(losses + [f4["loss"]]).all()
+                or vit_markers != [0, CLI_VIT_EVERY, CLI_VIT_STEPS]):
+            fail(f"train_cli: ViT-Tiny step {s4.step_int}, losses {losses}, "
+                 f"markers {vit_markers}")
+        # 5. that checkpoint served, with the zoo's height buckets
+        engines = []
+        real_build = serve_cli.build_zoo_engine
+        serve_cli.build_zoo_engine = (
+            lambda *a, **k: engines.append(real_build(*a, **k))
+            or engines[-1])
+        try:
+            summary, n5, w5 = counted(serve_cli.main, [
+                "--config=vit_tiny_cifar_flash", "--device=cuda:0",
+                f"--checkpoint_dir={d2}", "--seq_buckets=auto",
+                "--requests=256", "--concurrency=64"])
+        finally:
+            serve_cli.build_zoo_engine = real_build
+        engine = engines[0]
+        saved = torch.load(Path(d2, str(CLI_VIT_STEPS), "state.pt"),
+                           weights_only=True)["params"]
+        same_params = not any(leaf_diffs(engine.params, saved).values())
+        cells = engine.cache_stats()["per_cell"]
+        masked_runs = sum(n for c, n in cells.items() if c.endswith("/masked"))
+        dense_runs = sum(n for c, n in cells.items() if c.endswith("/dense"))
+        grid_cells = len(engine.buckets()) * (
+            1 + len(engine.seq_grid.heights))
+        want5 = {"masked_flash_attention": depth * masked_runs,
+                 "flash_attention_forward": depth * dense_runs}
+        out["serve"] = {
+            "checkpoint_step": summary["checkpoint_step"],
+            "restored": summary["restored"], "ok": summary["ok"],
+            "errors": summary["errors"], "p99_ms": summary["p99_ms"],
+            "wall_s": w5, "params_equal_checkpoint": same_params,
+            "masked_batches": masked_runs, "dense_batches": dense_runs,
+            "cells": len(cells), "grid_cells": grid_cells,
+            "misses": engine.misses, "launches": n5, "want": want5}
+        print(json.dumps({"phase": "train_cli", "serve": out["serve"]}),
+              flush=True)
+        if (summary["checkpoint_step"] != CLI_VIT_STEPS
+                or not summary["restored"] or summary["ok"] != 256
+                or summary["errors"] or not same_params):
+            fail(f"train_cli: serving the ViT checkpoint {out['serve']}")
+        if {k: v for k, v in n5.items() if v} != want5 or not masked_runs \
+                or not dense_runs:
+            fail(f"train_cli: serving launches {n5} (want {want5})")
+        if engine.misses != grid_cells:
+            fail(f"train_cli: {engine.misses} cells ran for the first time, "
+                 f"the prewarmed grid has {grid_cells}")
+        # 6. the restored weights under the zoo's mixed-height traffic: the
+        # CLI's loadgen sends native-height images (as the reference's
+        # does), so above only prewarm ran the masked cells
+        out["serve_varlen"] = served_checkpoint_varlen(
+            torch, dev, d2, reset_counts, read_counts)
+    finally:
+        logging.getLogger("dist_mnist_tpu_torch").removeHandler(capture)
+        shutil.rmtree(work, ignore_errors=True)
+    summary_line = {"phase": "train_cli", **{
+        k: {kk: vv for kk, vv in v.items() if kk not in ("losses",)}
+        for k, v in out.items() if k != "phase"}}
+    print(json.dumps(summary_line), flush=True)
     return out
 
 
@@ -2683,7 +3112,12 @@ def main() -> None:
     serve_counts = serve_benches(torch, dev, reset_counts, read_counts)
     zoo = zoo_flash_serve(torch, dev, reset_counts, read_counts)
 
-    # -- 11. timing at the paths' shapes -------------------------------------
+    # -- 11. the training CLI, its checkpoints, and serving one -------------
+    cli_run = train_cli(torch, dev, reset_counts, read_counts)
+    cli_vit, cli_serve = cli_run["vit"]["launches"], cli_run["serve"][
+        "launches"]
+
+    # -- 12. timing at the paths' shapes -------------------------------------
     timed = {}
     for (label, m), (x, qa) in operands.items():
         w_deq = quant_mod.dequantize(qa, x.dtype)  # the library's operand
@@ -2706,7 +3140,7 @@ def main() -> None:
                                        peaks["bfloat16"])
     flash_timed = time_flash_kernels(torch, dev, bw, peaks)
 
-    # -- 12. result ----------------------------------------------------------
+    # -- 13. result ----------------------------------------------------------
     head = timed[("lenet5/fc1", 64)]
     adam_rows = []
     for name, launches_on_path, src_line in (
@@ -2793,6 +3227,7 @@ def main() -> None:
                 "width, B=64, the height-16 bucket (S=33), bf16",
         "launches_zoo_flash_serve":
             zoo["launches"]["masked_flash_attention"],
+        "launches_train_cli": cli_serve["masked_flash_attention"],
         "max_abs_err": decode_worst["masked_flash_attention_sq_gt1"],
         "shape": f"B={VIT_B}, Sq=Sk={VIT_MASK_S}, H={VIT_H}, D={VIT_D}, "
                  "bf16, the bucket's lengths 25 and 33 (vit_masked_forward's)",
@@ -2848,8 +3283,13 @@ def main() -> None:
         })
     flash_rows[0]["launches_zoo_flash_serve"] = \
         zoo["launches"]["flash_attention_forward"]
+    flash_rows[0]["launches_train_cli"] = (
+        cli_vit["flash_attention_forward"]
+        + cli_serve["flash_attention_forward"])
     flash_rows[1].update(launches_dq=vit_counts["flash_attention_dq"],
-                         launches_dkv=vit_counts["flash_attention_dkv"])
+                         launches_dkv=vit_counts["flash_attention_dkv"],
+                         launches_train_cli=cli_vit["flash_attention_dq"]
+                         + cli_vit["flash_attention_dkv"])
     flash_rows[2]["path"] = ("none: no training path takes a token mask; "
                              "held against its plain version in "
                              "flash_parity")

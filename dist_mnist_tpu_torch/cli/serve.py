@@ -23,9 +23,10 @@ it with the seeded decode loadgen and prints the TTFT/throughput
 summary; `--config` and `--quant` do not apply there.
 
 Runs on the CUDA device by default and exits with an error when there is
-none; `--device=cpu` runs the plain CPU path. Weights are a fresh init
-seeded from the config (checkpoint restore joins with the checkpoint
-port).
+none; `--device=cpu` runs the plain CPU path. Weights are those of a
+committed step under `--checkpoint_dir` (`--step`, default the latest;
+the summary's `checkpoint_step` and `restored` say which), or a fresh
+init seeded from the config.
 """
 
 from __future__ import annotations
@@ -64,6 +65,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "(int8, f32 per-channel scale) at load time and "
                         "every quantized dense layer runs the quant_matmul "
                         "CUDA kernel; unset = full-width float serving")
+    p.add_argument("--checkpoint_dir", default=None,
+                   help="checkpoint directory to serve from (None = a "
+                        "fresh init seeded from the config)")
+    p.add_argument("--step", type=int, default=None,
+                   help="checkpoint step (None = latest)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; fails without a GPU) or cpu")
     p.add_argument("--max_batch", type=int, default=64,
@@ -148,7 +154,9 @@ def main(argv=None) -> dict:
         print(json.dumps(summary, indent=2, sort_keys=True))
         return summary
     cfg = get_config(args.config)
-    bundle = load_for_serving(cfg, device, quant=args.quant)
+    bundle = load_for_serving(cfg, device, quant=args.quant,
+                              checkpoint_dir=args.checkpoint_dir,
+                              step=args.step)
     engine = build_zoo_engine(
         bundle, device, model_name=cfg.model,
         max_bucket=max(args.max_batch, 1),

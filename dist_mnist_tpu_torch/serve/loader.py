@@ -1,17 +1,19 @@
 """Config -> servable model (port of the reference `serve/loader.py`).
 
 `load_for_serving` serves the params it is given (e.g. carried across
-from the reference with `convert.params_from_jax`), or a fresh init
-seeded from the config, then applies the load-time int8 transform
-(`quantize_for_serving`) when asked; `init_lm_for_serving` is the decode
-side's seam for a registry causal LM. Checkpoint restore joins with the
-port of `checkpoint/manager.py`.
+from the reference with `convert.params_from_jax`), or the weights of a
+committed checkpoint step (`checkpoint_dir`, `step`; restored through
+`CheckpointManager.restore_weights`, which builds no optimizer), or a
+fresh init seeded from the config, then applies the load-time int8
+transform (`quantize_for_serving`) when asked; `init_lm_for_serving` is
+the decode side's seam for a registry causal LM.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+from pathlib import Path
 from typing import Any
 
 import torch
@@ -57,22 +59,48 @@ def load_for_serving(
     *,
     quant: str | None = None,
     params=None,
+    checkpoint_dir: str | Path | None = None,
+    step: int | None = None,
 ) -> ServingBundle:
     """Everything `InferenceEngine` needs from a config. `params` (float,
-    reference layouts) are served as given; without them the model is
-    freshly initialized from `torch.Generator().manual_seed(cfg.seed)`."""
+    reference layouts) are served as given; else the weights of `step`
+    (None: the latest committed step) under `checkpoint_dir` when it
+    holds one; else a fresh init from
+    `torch.Generator().manual_seed(cfg.seed)`."""
     if isinstance(cfg, str):
         cfg = get_config(cfg)
     device = resolve_device(device)
     model = get_model(cfg.model, **cfg.model_kwargs)
     image_shape = tuple(DATASETS[cfg.dataset]["image_shape"])
+    ckpt_step, restored = 0, None
     if params is None:
         gen = torch.Generator().manual_seed(cfg.seed)
         params, model_state = model.init(gen, torch.zeros(1, *image_shape))
-        log.info("serving a FRESH init (seed %d)", cfg.seed)
+        if checkpoint_dir is not None and Path(checkpoint_dir).exists():
+            from dist_mnist_tpu_torch.checkpoint.manager import (
+                CheckpointManager,
+            )
+
+            mgr = CheckpointManager(checkpoint_dir, async_save=False)
+            try:
+                # the fresh init is the template: structure, shapes, dtypes
+                restored = mgr.restore_weights(params, model_state,
+                                               step=step, device=device)
+            finally:
+                mgr.close()
+        if restored is not None:
+            ckpt_step, params, model_state = restored
+            log.info("serving weights from step %d of %s", ckpt_step,
+                     checkpoint_dir)
+        else:
+            if checkpoint_dir is not None:
+                log.warning("no checkpoint under %s; serving a FRESH init",
+                            checkpoint_dir)
+            log.info("serving a FRESH init (seed %d)", cfg.seed)
     else:
         model_state = {}
     params = tree_map(lambda t: t.to(device), params)
+    model_state = tree_map(lambda t: t.to(device), model_state)
     quant_report = None
     if quant:
         params, quant_report = quantize_for_serving(params, mode=quant)
@@ -85,8 +113,8 @@ def load_for_serving(
         params=params,
         model_state=model_state,
         image_shape=image_shape,
-        step=0,
-        restored=False,
+        step=ckpt_step,
+        restored=restored is not None,
         quant=quant or None,
         quant_report=quant_report,
     )

@@ -1203,3 +1203,70 @@ def test_vit_remat_step_launch_counts(cuda):
     assert [fn.launches for fn in counters] == [2 * depth, depth, depth,
                                                 0, 0, 0, 0]
     assert np.isfinite(float(out["loss"]))
+
+
+def test_checkpoint_round_trip_of_a_cuda_state(cuda, tmp_path):
+    """A LeNet-5 state on the card, its CUDA generator advanced, through
+    the CheckpointManager (async write): params, Adam slots and step come
+    back on the card bit for bit, and the generator's state too, so the
+    draws after the restore are the saved generator's."""
+    from dist_mnist_tpu_torch.checkpoint import CheckpointManager
+    from dist_mnist_tpu_torch.models.registry import get_model
+    from dist_mnist_tpu_torch.train import create_train_state
+    from dist_mnist_tpu_torch.utils.tree import flatten_with_path
+
+    sample = np.zeros((1, 28, 28, 1), np.uint8)
+    model, opt = get_model("lenet5"), topt.adam(1e-3)
+    state = create_train_state(model, opt, 0, sample, cuda)
+    torch.rand(1000, generator=state.rng, device=cuda)
+    state = dataclasses.replace(
+        state, step=torch.tensor(17, dtype=torch.int32, device=cuda))
+    mgr = CheckpointManager(tmp_path)
+    mgr.save(state)
+    mgr.wait()
+    restored = CheckpointManager(tmp_path).restore(
+        create_train_state(model, opt, 1, sample, cuda))
+    assert restored.step_int == 17 and restored.step.device.type == "cuda"
+    for tree in ("params", "opt_state"):
+        for (path, got), (_, want) in zip(
+                flatten_with_path(getattr(restored, tree)),
+                flatten_with_path(getattr(state, tree))):
+            assert got.device.type == "cuda" and torch.equal(got, want), path
+    assert restored.rng.device.type == "cuda"
+    assert torch.equal(restored.rng.get_state(), state.rng.get_state())
+    assert torch.equal(torch.rand(64, generator=restored.rng, device=cuda),
+                       torch.rand(64, generator=state.rng, device=cuda))
+
+
+def test_prefetcher_on_a_side_stream_equals_the_sync_feed(cuda):
+    """100 batches through the DevicePrefetcher (pinned copies on a side
+    stream, the consumer's stream waiting on each copy's event) equal the
+    synchronous feed, each batch read by a kernel on the loop's stream."""
+    from dist_mnist_tpu_torch.data.datasets import Dataset
+    from dist_mnist_tpu_torch.data.pipeline import ShardedBatcher
+    from dist_mnist_tpu_torch.data.prefetch import DevicePrefetcher
+
+    rng = np.random.default_rng(0)
+    ds = Dataset("mnist", rng.integers(0, 256, (6000, 28, 28, 1),
+                                       dtype=np.uint8),
+                 rng.integers(0, 10, 6000).astype(np.int32),
+                 np.zeros((1, 28, 28, 1), np.uint8), np.zeros(1, np.int32))
+
+    def sums(batches):
+        out = []
+        it = iter(batches)
+        try:
+            for _ in range(100):
+                b = next(it)
+                # work on the loop's stream that reads the fresh batch
+                out.append(b["image"].to(torch.int64).sum()
+                           + b["label"].to(torch.int64).sum())
+        finally:
+            if hasattr(it, "close"):
+                it.close()
+        return torch.stack(out).cpu()
+
+    sync = sums(ShardedBatcher(ds, 200, cuda, seed=3))
+    pre = sums(DevicePrefetcher(ShardedBatcher(ds, 200, cuda, seed=3),
+                                depth=3))
+    assert torch.equal(sync, pre)
