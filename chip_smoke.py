@@ -169,7 +169,28 @@ script. Phases (any failure exits nonzero before the final `ok` line):
    engine's logits on the plain versions (`served_checkpoint_varlen`);
    it prints each run's steps/s, goodput, feed wait, prefetched bytes, checkpoint save
    and restore times and launch counts;
-12. time each kernel at the shapes its path gives it, beside its plain
+12. data parallelism (`data_parallel`): `bench --config resnet20_cifar
+   --steps 300` and `--config lenet5_fashion` on one rank at the per-chip
+   batch 128 (counters set to 0 just before each and read just after: no
+   kernel launched, the unfused Adam of the reference's configs; steps/s,
+   MFU and chunk losses printed, the last below the first), and
+   `resnet20_cifar_fsdp` there, whose `mesh_note` must say it was benched
+   as DP; then three runs of `python -m dist_mnist_tpu_torch.cli.launch
+   --num_processes=2` with both ranks on the one card (gloo over CUDA
+   tensors; each run's log under `chiprun_out/`): `lenet5_fashion` (DP,
+   `DP_STEPS` steps at 128 a rank): both ranks' final params the same
+   bits (their digests) and one all-reduce of every param and the two
+   metrics a step; `resnet20_cifar_fsdp` (FSDP, checkpoints every 25
+   steps) against the same run under `--sharding=dp`: every logged loss
+   within `DP_FSDP_LOSS_TOL` of DP's (plus the log's rounding,
+   `LOG_RESOLUTION`), per-rank params + Adam slots 0.45–0.55 of
+   DP's, and the chief's last checkpoint restored here under DP at step
+   `DP_STEPS` with the run's final params bit for bit;
+   `vit_tiny_cifar_flash` (DP, `DP_VIT_STEPS` steps at 64 a rank), each
+   rank counting its launches over its loop: exactly 24 forward, 12 dQ
+   and 12 dK/dV a step and no other kernel. Every run's startup line
+   (the backend) and its collectives' bytes per step are printed;
+13. time each kernel at the shapes its path gives it, beside its plain
    version and, where one exists, one library call computing the same
    function (for the Adam kernels `torch._fused_adam_`/`_fused_adamw_`, a
    yardstick that computes a neighbouring function in place; for
@@ -187,8 +208,10 @@ script. Phases (any failure exits nonzero before the final `ok` line):
    B = 64, S = 65 and B = 8, S = 300; H = 3, D = 64, bf16 and f32; the
    kernels line takes the first), each beside its launch floor (an empty
    kernel of the same grid, block and arguments);
-13. print the `{"kernels": [...]}` line (nine kernels: the masked forward's
-   Sq > 1 route apart from its Sq = 1 route), then, last, the `ok` line.
+14. print the `{"kernels": [...]}` line (nine kernels: the masked forward's
+   Sq > 1 route apart from its Sq = 1 route; the flash rows with their
+   launches in `data_parallel`'s ViT run, both ranks), then, last, the
+   `ok` line.
 
 A failure prints `{"phase": "fail", "error": ...}` on stdout and the
 same message on stderr, and exits 1.
@@ -198,6 +221,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -2560,6 +2584,236 @@ def train_cli(torch, dev, reset_counts, read_counts) -> dict:
 
 
 #: the CUDA body each timed flash row runs
+#: the data_parallel phase: steps of the two-rank runs through
+#: `cli.launch` (two ranks on the one card), and the limit on the FSDP
+#: run's losses against the DP run's (bf16 compute; the global-norm clip
+#: sums the slices' squares in another order): 2% of the DP loss, plus
+#: the 1e-4 the log's four decimals may round apart
+DP_STEPS = 50
+DP_VIT_STEPS = 10
+DP_FSDP_LOSS_TOL = 0.02
+LOG_RESOLUTION = 1e-4
+#: LeNet-5's and ResNet-20's param counts: a DP step all-reduces them and
+#: the two metrics in one f32 buffer; ResNet-20's 19 batch norms (688
+#: channels in all) add four f32 all-reduces each, two sums forward and
+#: their cotangents backward
+LENET_PARAMS, RESNET_PARAMS = 1_663_370, 273_066
+RESNET_BN_LAYERS, RESNET_BN_CHANNELS = 19, 688
+
+
+def _rank_lines(output: str, rank: int, marker: str) -> list[str]:
+    """The text after `marker` on each of rank `rank`'s lines with it."""
+    tag = f"[p{rank}] "
+    return [line.split(marker, 1)[1].strip()
+            for line in output.splitlines()
+            if line.startswith(tag) and marker in line]
+
+
+def _launch_ranks(args: list[str], tag: str, timeout: float = 420.0) -> list:
+    """`python -m dist_mnist_tpu_torch.cli.launch --num_processes=2 --
+    <args>` from the checkout; per rank: startup line, kernel launches,
+    collectives per step, resident bytes, final digest, logged losses.
+    Fails on a nonzero exit or a missing line."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "dist_mnist_tpu_torch.cli.launch",
+         "--num_processes=2", "--", *args],
+        cwd=ROOT, capture_output=True, text=True, timeout=timeout)
+    wall = time.perf_counter() - t0
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / f"data_parallel_{tag}.log").write_text(proc.stdout
+                                                       + proc.stderr)
+    if proc.returncode != 0:
+        fail(f"data_parallel {tag}: launch exited {proc.returncode}:\n"
+             + (proc.stdout + proc.stderr)[-4000:])
+    ranks = []
+    for r in range(2):
+        try:
+            ranks.append({
+                "startup": _rank_lines(proc.stdout, r,
+                                       "distributed init: ")[0],
+                "launches": json.loads(_rank_lines(proc.stdout, r,
+                                                   "kernel launches: ")[0]),
+                "collectives_per_step": json.loads(_rank_lines(
+                    proc.stdout, r, "collectives per step: ")[0]),
+                "state_bytes": json.loads(_rank_lines(
+                    proc.stdout, r, "resident state per rank: ")[0]),
+                "digest": _rank_lines(proc.stdout, r,
+                                      "final params digest: ")[0],
+                "losses": {int(s.split(":")[0]): float(
+                    s.split("loss=")[1].split(",")[0])
+                    for s in _rank_lines(proc.stdout, r, "INFO: step ")
+                    if "loss=" in s},
+                "done": _rank_lines(proc.stdout, r, "done: ")[0],
+            })
+        except (IndexError, ValueError) as err:
+            fail(f"data_parallel {tag}: rank {r}'s output lacks a line "
+                 f"({err}):\n{proc.stdout[-4000:]}")
+    ranks[0]["wall_s"] = wall
+    return ranks
+
+
+def data_parallel(torch, dev, reset_counts, read_counts) -> dict:
+    """Phase `data_parallel`: ResNet-20 and LeNet-5 (Fashion-MNIST) through
+    the bench's config mode on one rank, `resnet20_cifar_fsdp` there
+    (benched as DP), then three two-rank runs through `cli.launch` on the
+    one card: `lenet5_fashion` (DP), `resnet20_cifar_fsdp` against the
+    same run under `--sharding=dp` (its checkpoint restored under DP
+    here), `vit_tiny_cifar_flash` (DP, the flash kernels counted per
+    rank). Returns the phase's record."""
+    from dist_mnist_tpu_torch import bench, optim
+    from dist_mnist_tpu_torch.checkpoint import CheckpointManager
+    from dist_mnist_tpu_torch.configs import get_config
+    from dist_mnist_tpu_torch.data.datasets import load_dataset
+    from dist_mnist_tpu_torch.models.registry import get_model
+    from dist_mnist_tpu_torch.train import create_train_state
+    from dist_mnist_tpu_torch.train.state import params_digest
+
+    out = {"phase": "data_parallel", "bench": {}}
+    for name in ("resnet20_cifar", "lenet5_fashion", "resnet20_cifar_fsdp"):
+        reset_counts()
+        rec = bench.main(["--config", name, "--steps",
+                          "100" if name.endswith("fsdp") else "300",
+                          "--device=cuda:0"])
+        torch.cuda.synchronize()
+        counts = read_counts()
+        extra = rec["extra"]
+        losses = extra["chunk_losses"]
+        row = {"steps_per_sec": rec["value"], "mfu": extra["mfu"],
+               "examples_per_sec": extra["examples_per_sec"],
+               "global_batch": extra["global_batch"],
+               "chunk_losses": losses, "steps_run": extra["steps_run"],
+               "mesh_note": extra["mesh_note"],
+               "sharding": extra["sharding"],
+               "state_memory_bytes": extra["state_memory_bytes"],
+               "launches": counts}
+        out["bench"][name] = row
+        print(json.dumps({"phase": "data_parallel", "bench": name, **row}),
+              flush=True)
+        if extra["global_batch"] != 128:
+            fail(f"data_parallel {name}: batch {extra['global_batch']}, "
+                 "not the per-chip 128")
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+            fail(f"data_parallel {name}: chunk losses {losses}")
+        if any(counts.values()):
+            fail(f"data_parallel {name}: kernels launched on a path that "
+                 f"has none (unfused Adam, no attention): {counts}")
+    fsdp_note = out["bench"]["resnet20_cifar_fsdp"]
+    if "benched as DP" not in fsdp_note["mesh_note"] \
+            or fsdp_note["sharding"] != "dp":
+        fail(f"data_parallel: resnet20_cifar_fsdp on one rank: "
+             f"{fsdp_note['mesh_note']!r}, sharding {fsdp_note['sharding']}")
+
+    runs = {}
+    common = ["--mesh=data=2", "--eval_every=0", f"--train_steps={DP_STEPS}"]
+    runs["lenet5_fashion"] = _launch_ranks(
+        ["--config=lenet5_fashion", "--batch_size=256", "--log_every=10",
+         *common], "lenet5_fashion")
+    ckpt = {s: ROOT / "chiprun_out" / f"dp_ckpt_{s}" for s in ("fsdp", "dp")}
+    for s, d in ckpt.items():
+        shutil.rmtree(d, ignore_errors=True)
+        runs[f"resnet20_{s}"] = _launch_ranks(
+            ["--config=resnet20_cifar_fsdp", f"--sharding={s}",
+             "--batch_size=256", "--log_every=5", f"--checkpoint_dir={d}",
+             "--checkpoint_every_steps=25", *common], f"resnet20_{s}")
+    runs["vit_flash"] = _launch_ranks(
+        ["--config=vit_tiny_cifar_flash", "--mesh=data=2",
+         "--batch_size=128", "--eval_every=0", "--log_every=5",
+         f"--train_steps={DP_VIT_STEPS}"], "vit_flash")
+    for name, ranks in runs.items():
+        for r, rank in enumerate(ranks):
+            print(json.dumps({"phase": "data_parallel", "run": name,
+                              "rank": r, **rank}), flush=True)
+            if "backend gloo (ranks share a card)" not in rank["startup"]:
+                fail(f"data_parallel {name}: rank {r} startup "
+                     f"{rank['startup']!r}")
+        if ranks[0]["digest"] != ranks[1]["digest"]:
+            fail(f"data_parallel {name}: the ranks' final params differ")
+        if ranks[0]["losses"] != ranks[1]["losses"]:
+            fail(f"data_parallel {name}: the ranks logged other losses")
+        losses = list(ranks[0]["losses"].values())
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+            fail(f"data_parallel {name}: losses {ranks[0]['losses']}")
+    # DP moves one flat buffer a step, every param and the two metrics,
+    # and ResNet-20 the synchronized batch norms' sums
+    for name, n_params, bn in (
+            ("lenet5_fashion", LENET_PARAMS, (0, 0)),
+            ("resnet20_dp", RESNET_PARAMS,
+             (RESNET_BN_LAYERS, RESNET_BN_CHANNELS))):
+        per_step = runs[name][0]["collectives_per_step"]
+        want = {"all_reduce_bytes": 4 * (n_params + 2) + 16 * bn[1],
+                "all_reduce_calls": 1 + 4 * bn[0]}
+        if per_step != want:
+            fail(f"data_parallel {name}: collectives per step {per_step}, "
+                 f"want {want}")
+        if any(runs[name][0]["launches"].values()):
+            fail(f"data_parallel {name}: kernels launched: "
+                 f"{runs[name][0]['launches']}")
+    # FSDP against DP: trajectory, per-rank bytes, checkpoint under DP
+    f_run, d_run = runs["resnet20_fsdp"][0], runs["resnet20_dp"][0]
+    gap = max((abs(f_run["losses"][s] - d_run["losses"][s])
+               - LOG_RESOLUTION) / abs(d_run["losses"][s])
+              for s in d_run["losses"])
+    resident = {k: r["state_bytes"]["param_bytes"]
+                + r["state_bytes"]["opt_state_bytes"]
+                for k, r in (("fsdp", f_run), ("dp", d_run))}
+    ratio = resident["fsdp"] / resident["dp"]
+    cfg = get_config("resnet20_cifar")
+    model = get_model("resnet20")
+    target = create_train_state(model, optim.build_optimizer(cfg), 0,
+                                load_dataset("cifar10", seed=42)
+                                .train_images[:1], dev)
+    mgr = CheckpointManager(ckpt["fsdp"], async_save=False)
+    try:
+        restored = mgr.restore(target)
+    finally:
+        mgr.close()
+    restored_digest = params_digest(restored.params)
+    out["fsdp"] = {"max_rel_loss_gap_vs_dp": gap,
+                   "max_abs_loss_gap_vs_dp": max(
+                       abs(f_run["losses"][s] - d_run["losses"][s])
+                       for s in d_run["losses"]),
+                   "resident_param_opt_bytes": resident,
+                   "per_rank_ratio": ratio,
+                   "restored_step": restored.step_int,
+                   "restored_equals_final": restored_digest
+                   == f_run["digest"],
+                   "collectives_per_step": {
+                       k: runs[f"resnet20_{k}"][0]["collectives_per_step"]
+                       for k in ("fsdp", "dp")}}
+    print(json.dumps({"phase": "data_parallel", "fsdp": out["fsdp"]}),
+          flush=True)
+    if gap > DP_FSDP_LOSS_TOL:
+        fail(f"data_parallel: FSDP losses {f_run['losses']} vs DP "
+             f"{d_run['losses']} (gap {gap})")
+    if not 0.45 <= ratio <= 0.55:
+        fail(f"data_parallel: FSDP per-rank state {resident['fsdp']} B, "
+             f"DP {resident['dp']} B (ratio {ratio})")
+    if restored.step_int != DP_STEPS or restored_digest != f_run["digest"]:
+        fail(f"data_parallel: the FSDP checkpoint restored under DP at "
+             f"step {restored.step_int}, params equal to the run's: "
+             f"{restored_digest == f_run['digest']}")
+    # the flash ViT: per rank 24 forward, 12 dQ, 12 dK/dV a step, no other
+    depth = 12
+    want = {"flash_attention_forward": 2 * depth * DP_VIT_STEPS,
+            "flash_attention_dq": depth * DP_VIT_STEPS,
+            "flash_attention_dkv": depth * DP_VIT_STEPS}
+    for r, rank in enumerate(runs["vit_flash"]):
+        got = rank["launches"]
+        if any(got[k] != n for k, n in want.items()) or any(
+                v for k, v in got.items() if k not in want):
+            fail(f"data_parallel vit_flash: rank {r} launches {got}, want "
+                 f"{want} and no other kernel")
+    out["runs"] = {name: [{k: rank[k] for k in (
+        "startup", "launches", "collectives_per_step", "state_bytes",
+        "losses", "done")} for rank in ranks] for name, ranks in runs.items()}
+    out["vit_launches"] = {k: sum(rank["launches"][k]
+                                  for rank in runs["vit_flash"])
+                           for k in want}
+    return out
+
+
 FLASH_BODIES = {
     "flash_attention_forward": "flash_fwd_mma_onepass (bf16, S <= 128; "
                                "flash_fwd_mma_tiled above)",
@@ -3117,7 +3371,10 @@ def main() -> None:
     cli_vit, cli_serve = cli_run["vit"]["launches"], cli_run["serve"][
         "launches"]
 
-    # -- 12. timing at the paths' shapes -------------------------------------
+    # -- 12. data parallelism: benches, two ranks on the one card ----------
+    dp = data_parallel(torch, dev, reset_counts, read_counts)
+
+    # -- 13. timing at the paths' shapes -------------------------------------
     timed = {}
     for (label, m), (x, qa) in operands.items():
         w_deq = quant_mod.dequantize(qa, x.dtype)  # the library's operand
@@ -3140,7 +3397,7 @@ def main() -> None:
                                        peaks["bfloat16"])
     flash_timed = time_flash_kernels(torch, dev, bw, peaks)
 
-    # -- 13. result ----------------------------------------------------------
+    # -- 14. result ----------------------------------------------------------
     head = timed[("lenet5/fc1", 64)]
     adam_rows = []
     for name, launches_on_path, src_line in (
@@ -3283,6 +3540,12 @@ def main() -> None:
         })
     flash_rows[0]["launches_zoo_flash_serve"] = \
         zoo["launches"]["flash_attention_forward"]
+    flash_rows[0]["launches_data_parallel"] = dp["vit_launches"][
+        "flash_attention_forward"]
+    flash_rows[1]["launches_data_parallel"] = (
+        dp["vit_launches"]["flash_attention_dq"]
+        + dp["vit_launches"]["flash_attention_dkv"])
+    flash_rows[2]["launches_data_parallel"] = 0
     flash_rows[0]["launches_train_cli"] = (
         cli_vit["flash_attention_forward"]
         + cli_serve["flash_attention_forward"])

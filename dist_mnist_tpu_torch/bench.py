@@ -26,10 +26,13 @@ per second, MFU against the card's bf16 peak (`utils/flops.py`), and the
 race result, labelled synthetic when the data is the procedural twin.
 
 Ladder configs (`run_config`): the config's real training step (its
-optimizer via `optim.build_optimizer`, its loss, remat and augmentation)
-at the reference's per-chip batch (`ladder_batch`), timed over chunks of
-100 steps after one warm-up chunk; one JSON line with steps/sec/chip and
-MFU from the model's analytic FLOPs.
+optimizer via `optim.build_optimizer`, its loss, remat and augmentation,
+its sharding) on the config's mesh when the ranks exist, else on every
+rank there is (DP when the config's strategy needs more, and the
+record's `mesh_note` says so, as the reference's `bench_config`), at the
+reference's per-chip batch (`ladder_batch`), timed over chunks of 100
+steps after one warm-up chunk; one JSON line with steps/sec/chip and MFU
+from the model's analytic FLOPs.
 
 Classifier serving (`run_serve`, `run_serve_quant`, `run_serve_longctx`)
 and decode serving (`run_serve_decode`) print their JSON lines; see
@@ -59,6 +62,7 @@ from dist_mnist_tpu_torch.train import (
     evaluate,
     make_eval_step,
     make_scanned_train_fn,
+    state_memory_bytes,
 )
 from dist_mnist_tpu_torch.utils import flops
 from dist_mnist_tpu_torch.utils.device import resolve_device
@@ -173,9 +177,6 @@ def ladder_batch(cfg: Config, n_chips: int) -> tuple[int, str]:
 
 #: reference ladder configs the port cannot run yet, and what brings them
 LATER_CONFIGS = {
-    "lenet5_fashion": "the data-parallel slice (ROADMAP §1 item 12)",
-    "resnet20_cifar": "the ResNet slice (ROADMAP §1 item 10)",
-    "resnet20_cifar_fsdp": "the ResNet slice (ROADMAP §1 item 10)",
     "vit_tiny_cifar_tp": "the tensor-parallel slice (ROADMAP §1 item 12)",
     "vit_tiny_cifar_fsdp_tp": "the tensor-parallel slice (ROADMAP §1 "
                               "item 12)",
@@ -186,33 +187,60 @@ LATER_CONFIGS = {
 }
 
 
+def _bench_mesh(cfg: Config, device: torch.device):
+    """(mesh, rules, note): the config's mesh when this group has its
+    ranks; else every rank there is, under DP when the config's strategy
+    is another (a one-rank mesh cannot measure it), and the note says so
+    (the reference's fallback)."""
+    from dist_mnist_tpu_torch.cluster.mesh import (
+        MeshSpec,
+        device_count,
+        make_mesh,
+    )
+    from dist_mnist_tpu_torch.parallel.sharding import DP_RULES, resolve_rules
+
+    rules = resolve_rules(cfg.sharding_rules)
+    try:
+        return make_mesh(cfg.mesh, device=device), rules, "config"
+    except ValueError:
+        mesh = make_mesh(MeshSpec(data=-1), device=device)
+        note = f"fallback (config wants {cfg.mesh}, have {device_count()})"
+        if cfg.sharding_rules != "dp" and mesh.size == 1:
+            rules = DP_RULES
+            note += (f"; one rank: benched as DP, not "
+                     f"{cfg.sharding_rules!r}")
+        return mesh, rules, note
+
+
 def run_config(cfg: Config, device: torch.device, timed_steps: int, *,
                dataset: Dataset | None = None, data_dir=None,
                chunk: int = CHUNK) -> dict:
     """Train `cfg` on `device` and time it (the reference's
-    `bench_config`): the config's model, optimizer, loss, remat and
-    augmentation, at the per-chip batch of `ladder_batch`; one warm-up
-    chunk, then ``timed_steps // chunk`` timed chunks. Returns the JSON
-    record, which also carries every chunk's mean loss. The config is run
-    as given, so a test can pass one cut to a small width."""
-    if cfg.replicas_to_aggregate > 1 or cfg.sharding_rules != "dp":
-        raise NotImplementedError(
-            f"{cfg.name}: {cfg.sharding_rules} rules and gradient "
-            "accumulation join the port with the data-parallel slice "
-            "(ROADMAP §1 item 12)")
-    batch, batch_note = ladder_batch(cfg, 1)
+    `bench_config`): the config's model, optimizer, loss, remat,
+    augmentation and sharding on its mesh (`_bench_mesh`), at the
+    per-chip batch of `ladder_batch`; one warm-up chunk, then
+    ``timed_steps // chunk`` timed chunks. Returns the JSON record, which
+    also carries every chunk's mean loss. The config is run as given, so
+    a test can pass one cut to a small width."""
+    from dist_mnist_tpu_torch.parallel.sharding import shard_train_state
+
+    mesh, rules, mesh_note = _bench_mesh(cfg, device)
+    n_chips = mesh.size
+    batch, batch_note = ladder_batch(cfg, n_chips)
     dataset = dataset if dataset is not None else load_dataset(
         cfg.dataset, data_dir, seed=cfg.seed)
     model = get_model(cfg.model, **cfg.model_kwargs)
     optimizer = optim.build_optimizer(cfg)
     loss_fn = (losses.clipped_softmax_cross_entropy if cfg.loss == "clipped"
                else losses.softmax_cross_entropy)
-    state = create_train_state(model, optimizer, SEED,
-                               dataset.train_images[:1], device)
+    state = shard_train_state(
+        create_train_state(model, optimizer, SEED, dataset.train_images[:1],
+                           device), mesh, rules)
     inner = make_scanned_train_fn(
-        model, optimizer, DeviceDataset(dataset, device), batch, chunk,
-        loss_fn=loss_fn, remat=cfg.remat, remat_policy=cfg.remat_policy,
-        augment=cfg.augment)
+        model, optimizer, DeviceDataset(dataset, device, mesh=mesh), batch,
+        chunk, loss_fn=loss_fn, remat=cfg.remat,
+        remat_policy=cfg.remat_policy, augment=cfg.augment, mesh=mesh,
+        rules=rules)
     chunk_means = []
 
     def run(st):
@@ -224,11 +252,12 @@ def run_config(cfg: Config, device: torch.device, timed_steps: int, *,
     dt, state, _ = timed_chunks(run, state, n_chunks)
     n_timed = n_chunks * chunk
     dt_per_step = dt / n_timed
+    # per-chip basis: this rank's batch against one chip's peak
     flops_step = flops.analytic_step_flops(
-        model, dataset.train_images[:1].shape, batch)
+        model, dataset.train_images[:1].shape, batch // n_chips)
     peak = flops.device_peak_flops(device)
     chunk_losses = [float(x) for x in torch.stack(chunk_means).cpu()]
-    rate = n_timed / dt
+    rate = n_timed / dt / n_chips  # the reference's per-chip basis
     record = {
         "metric": f"{cfg.name}_steps_per_sec_per_chip",
         "value": rate,
@@ -236,11 +265,15 @@ def run_config(cfg: Config, device: torch.device, timed_steps: int, *,
         "vs_baseline": 0.0,  # no published reference numbers
         "synthetic_data": bool(dataset.synthetic),
         "extra": {
-            "chips": 1,
-            "mesh": "one device",
+            "chips": n_chips,
+            "mesh": {k: v for k, v in mesh.shape.items() if v > 1} or
+                    {"data": 1},
+            "mesh_note": mesh_note,
+            "sharding": ("fsdp" if rules.fsdp_axis else "dp"),
             "global_batch": batch,
             "batch_note": batch_note,
-            "examples_per_sec": rate * batch,
+            "examples_per_sec": n_timed / dt * batch,
+            "state_memory_bytes": state_memory_bytes(state),
             "mfu": flops.mfu(flops_step, dt_per_step, device),
             "flops_per_step": flops_step,
             "flops_basis": "analytic",

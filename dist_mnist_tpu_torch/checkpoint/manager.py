@@ -1,5 +1,5 @@
 """Checkpointing of the `TrainState` (port of the reference
-`checkpoint/manager.py`, one process), in torch's own file format.
+`checkpoint/manager.py`), in torch's own file format.
 
 Reference mapping (SURVEY.md §3.5): graph-embedded SaveV2/RestoreV2
 (saver.py:233-312, 1186), the `checkpoint` state proto that tracked the
@@ -39,6 +39,16 @@ update reaches the saved copy, and a ``SnapshotWriter-<step>`` thread
 writes the files. The reference's async write-behind layer and peer
 ring (`AsyncSnapshotter`, `PeerReplicator`) join with ROADMAP §1 item
 13.
+
+Several ranks (`cluster/coordination.py`): every rank constructs the
+manager and calls `save` at the same steps. The chief decides whether a
+save happens and every rank takes that decision (`coordination.agree`);
+each FSDP-sharded leaf is all-gathered to its full shape, so the file,
+its `meta.json` shapes and its markers are those one rank writes; only
+the chief writes, quarantines and applies retention; the others wait at
+a barrier on open and on close. Every rank restores the full file and
+re-shards it under the target's placement (`parallel/sharding.py`), so a
+DP checkpoint restores under FSDP and back.
 """
 
 from __future__ import annotations
@@ -59,7 +69,13 @@ from pathlib import Path
 
 import torch
 
+from dist_mnist_tpu_torch.cluster import coordination
 from dist_mnist_tpu_torch.obs import events
+from dist_mnist_tpu_torch.parallel.sharding import (
+    full_template,
+    shard_train_state,
+    unshard_state,
+)
 from dist_mnist_tpu_torch.train.state import TrainState
 
 log = logging.getLogger(__name__)
@@ -307,7 +323,12 @@ class CheckpointManager:
         self._written: set[int] = set()
         self._writer_error: BaseException | None = None
         self._thread: threading.Thread | None = None
-        self._adopt_legacy_steps()
+        # only the chief writes, quarantines and prunes
+        self._chief = coordination.is_chief()
+        if self._chief:
+            self._adopt_legacy_steps()
+        # the others read the directory only once its adoption is done
+        coordination.barrier()
 
     # -- the step directories -------------------------------------------------
 
@@ -379,7 +400,9 @@ class CheckpointManager:
 
     def _apply_retention(self) -> None:
         """Keep the newest `max_to_keep` committed steps; remove older
-        step directories and their markers."""
+        step directories and their markers (the chief's job)."""
+        if not self._chief:
+            return
         committed = [s for s in self.all_steps()
                      if self._marker_path(s).exists()]
         for step in committed[:max(0, len(committed) - self.max_to_keep)]:
@@ -442,11 +465,17 @@ class CheckpointManager:
         The state is copied to host memory before this returns; on the
         async path a background thread writes it. `dispatch_ts`
         (time.monotonic) backdates the dispatch→durable span on the
-        ``checkpoint_commit`` event."""
+        ``checkpoint_commit`` event. Several ranks: every rank calls it
+        (see the module docstring); only the chief writes."""
         step = state.step_int
-        if step == self._last_saved or step == self.latest_step():
+        fresh = not (step == self._last_saved or step == self.latest_step())
+        if not coordination.agree(fresh):
             return False
         t0 = dispatch_ts if dispatch_ts is not None else time.monotonic()
+        state = unshard_state(state)  # FSDP leaves gathered: a collective
+        if not self._chief:
+            self._last_saved = step
+            return True
         # one write at a time (orbax blocks a save on the previous one):
         # the previous step is durable now, so its marker can land
         self.wait()
@@ -483,7 +512,8 @@ class CheckpointManager:
 
     def restore(self, target_state):
         """Restore the latest checkpoint into `target_state`'s structure,
-        dtypes and devices. Returns None when no checkpoint exists.
+        dtypes and devices, and its placement: the full file is read, then
+        sharded as the target is. Returns None when no checkpoint exists.
 
         A structure mismatch that is exactly the ViT scanned↔unrolled
         block layout flip (``blocks`` stack vs ``block0..N-1`` — the two
@@ -505,6 +535,15 @@ class CheckpointManager:
         fallback: it never was a restore point."""
         if self._pending_commits or self._thread is not None:
             self.wait()  # our own in-flight writes: make them committed
+        # every rank reads only what the chief has finished writing
+        coordination.barrier()
+        placement = target_state.placement
+        restored = self._restore_latest(full_template(target_state))
+        if restored is None or placement is None:
+            return restored
+        return shard_train_state(restored, placement.mesh, placement.rules)
+
+    def _restore_latest(self, target_state):
         for bad in [s for s in self.all_steps() if not self._is_committed(s)]:
             log.warning("checkpoint step %d has no commit marker (writer "
                         "died mid-write?); quarantining it", bad)
@@ -551,7 +590,13 @@ class CheckpointManager:
     def _quarantine(self, step: int) -> None:
         """Move the step's directory to ``<dir>/quarantine/step_<N>`` so
         retention, latest_step and any later restore never see it again.
-        Moved, not deleted: the payload stays for post-mortem."""
+        Moved, not deleted: the payload stays for post-mortem. Only the
+        chief moves anything; another rank just stops trusting the step."""
+        self._pending_commits.pop(step, None)
+        if self._last_saved == step:
+            self._last_saved = None  # a re-save of this step must not dedupe
+        if not self._chief:
+            return
         src = self._step_dir(step)
         dst_root = self.directory / "quarantine"
         dst_root.mkdir(exist_ok=True)
@@ -561,9 +606,6 @@ class CheckpointManager:
         if src.exists():
             shutil.move(str(src), str(dst))
         self._marker_path(step).unlink(missing_ok=True)
-        self._pending_commits.pop(step, None)
-        if self._last_saved == step:
-            self._last_saved = None  # a re-save of this step must not dedupe
         events.emit("checkpoint_quarantine", step=step)
 
     def _read_meta(self, step: int) -> dict:
@@ -730,4 +772,7 @@ class CheckpointManager:
             self._pending_commits.clear()  # a failed write never commits
 
     def close(self) -> None:
+        """Wait for the chief's writes, then every rank meets at a
+        barrier: no rank leaves before the last checkpoint is durable."""
         self.wait()
+        coordination.barrier()

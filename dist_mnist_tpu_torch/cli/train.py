@@ -1,28 +1,38 @@
 """Training driver — the `dist_mnist.py` replacement (port of the reference
-`cli/train.py`, one device).
+`cli/train.py`).
 
     python -m dist_mnist_tpu_torch.cli.train --config=lenet5_mnist \\
         --checkpoint_dir=/tmp/ckpt --logdir=/tmp/logs
+    python -m dist_mnist_tpu_torch.cli.launch --num_processes=2 -- \\
+        --config=lenet5_fashion --mesh=data=2      # two ranks (cli/launch.py)
 
 Runs on the CUDA device by default and exits with an error when there is
-none; `--device=cpu` runs the plain CPU path (the counterpart of the
-reference's `--platform`). Flags keep the reference's names and absl's
-spellings (``--flag=value``, ``--flag value``, ``--noflag`` for a
-boolean), parsed with argparse. The parameter-server-era flags
-(--job_name/--task_index/--num_gpus/--existing_servers/--ps_hosts/
---worker_hosts, --nosync_replicas) are accepted and warned about, as the
-reference does. Every flag of a subsystem the port does not have yet
-(more than one device or process, fsdp/tp sharding, overlap, a PRNG
-implementation, the native loader, fault plans, the compile cache,
+none; `--device=cpu` (or `--platform=cpu`, the reference's flag) runs the
+plain CPU path. With `--num_processes=N --process_id=K
+--coordinator_address=host:port` (what `cli.launch` passes) the process
+is rank K of a group of N (`cluster/coordination.py`), one device per
+process, and trains its slice of every global batch on the config's mesh
+(`--mesh` overrides it; the data axis only) under `--sharding=dp|fsdp`;
+the startup line names the rank, the devices and the backend. Flags keep
+the reference's names and absl's spellings (``--flag=value``, ``--flag
+value``, ``--noflag`` for a boolean), parsed with argparse. The
+parameter-server-era flags (--job_name/--task_index/--num_gpus/
+--existing_servers/--ps_hosts/--worker_hosts, --nosync_replicas) are
+accepted and warned about, as the reference does. Every flag of a
+subsystem the port does not have yet (tensor-parallel sharding, overlap,
+a PRNG implementation, the native loader, fault plans, the compile cache,
 elastic resizing, async snapshots and peers, the metrics exporter,
 anomaly detection, the tuned store) exits with an error that names the
-ROADMAP §1 item it waits for.
+ROADMAP §1 item it waits for; `--host_device_count` refuses as a stated
+departure (one device per process).
 
 A run: the dataset (or its synthetic twin), a seeded init or the latest
 checkpoint, the config's step on the host batcher (`--input_pipeline=
 python`, prefetched `--prefetch_depth` batches ahead on a side CUDA
-stream) or on the device-resident dataset (`device`, optionally in
-chunks of `--scan_chunk` steps), the reference's hooks in its order, and
+stream) or on the device-resident dataset (`device`, or `device_sharded`
+with 1/N of the rows on each rank, optionally in chunks of
+`--scan_chunk` steps), the reference's hooks in its order (the ones that
+write files on the chief, the logging ones on every rank), and
 a SIGTERM/SIGINT handshake that checkpoints at the next step boundary,
 logs ``preempted@step=N`` and exits 0. It ends with ``done: step=...
 test_acc=... test_loss=... wall=...s``.
@@ -33,6 +43,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import itertools
+import json
 import logging
 import os
 import time
@@ -60,25 +71,21 @@ def _refuse(what: str, item: str):
 
 
 def check_config(cfg) -> None:
-    """Refuse what a config asks beyond the port: more than one device,
-    a sharding other than dp, gradient accumulation, the fsdp overlap,
-    and a PRNG implementation (the port draws every random number from
-    one `torch.Generator`; ROADMAP §1's closing line: `utils/prng.py`
-    has no counterpart)."""
+    """Refuse what a config asks beyond the port: a mesh axis other than
+    data, tensor-parallel sharding, the fsdp overlap, and a PRNG
+    implementation (the port draws every random number from one
+    `torch.Generator`; ROADMAP §1's closing line: `utils/prng.py` has no
+    counterpart)."""
+    from dist_mnist_tpu_torch.cluster.mesh import check_axes
+    from dist_mnist_tpu_torch.parallel.sharding import resolve_rules
+
     if cfg.prng_impl != DEFAULT_PRNG_IMPL:
         raise NotImplementedError(
             f"prng_impl={cfg.prng_impl!r}: the port draws from one "
             "torch.Generator and has no PRNG implementations to choose "
             "from (ROADMAP §1, closing line: utils/prng.py)")
-    mesh = cfg.mesh
-    if mesh.data not in (-1, 1) or (mesh.model, mesh.seq, mesh.pipe) != (
-            1, 1, 1):
-        raise _refuse(f"a mesh wider than one device ({mesh})", _PARALLEL)
-    if cfg.sharding_rules != "dp":
-        raise _refuse(f"sharding {cfg.sharding_rules!r}", _PARALLEL)
-    if (cfg.replicas_to_aggregate or 1) > 1:
-        raise _refuse("replicas_to_aggregate > 1 (gradient accumulation)",
-                      _PARALLEL)
+    check_axes(cfg.mesh)
+    resolve_rules(cfg.sharding_rules)
     if cfg.overlap:
         raise _refuse("overlap (the fsdp comm/compute overlap)", _RESILIENCE)
 
@@ -87,9 +94,11 @@ def check_config(cfg) -> None:
 def _journal_scope(cfg, journal, logdir, generation):
     """The run journal around one run, with the reference's ``run_start``
     and ``run_stop`` records. `journal` is a path or an obs.RunJournal;
-    without one the journal is <logdir>/events.jsonl, and without a logdir
-    events go wherever the process's journal already is. Yields a dict the
-    run fills with its ``loop``; ``journal`` holds the journal's path."""
+    without one the chief's journal is <logdir>/events.jsonl, and without
+    a logdir (or on another rank) events go wherever the process's journal
+    already is. Yields a dict the run fills with its ``loop``;
+    ``journal`` holds the journal's path."""
+    from dist_mnist_tpu_torch.cluster import coordination
     from dist_mnist_tpu_torch.obs import events as events_mod
 
     journal_obj, journal_owned = None, False
@@ -98,13 +107,16 @@ def _journal_scope(cfg, journal, logdir, generation):
     elif journal:
         journal_obj, journal_owned = (
             events_mod.RunJournal(journal, generation=generation), True)
-    elif logdir:
+    elif logdir and coordination.is_chief():
         journal_obj, journal_owned = (
             events_mod.RunJournal(Path(logdir) / "events.jsonl",
                                   generation=generation), True)
     prev_journal = (events_mod.set_journal(journal_obj)
                     if journal_obj is not None else None)
-    run = {"journal": journal_obj.path if journal_obj else None}
+    ctx = coordination.context()
+    run = {"journal": journal_obj.path if journal_obj else None,
+           "rank": 0 if ctx is None else ctx.rank,
+           "world": 1 if ctx is None else ctx.world}
     events_mod.emit("run_start", config=cfg.name,
                     train_steps=cfg.train_steps)
     try:
@@ -113,7 +125,8 @@ def _journal_scope(cfg, journal, logdir, generation):
         events_mod.emit("run_stop", ok=True, step=loop.state.step_int,
                         preempted_at=loop.preempted_at,
                         reason=loop.stop.reason,
-                        process=0, world=1, devices=1,
+                        process=run["rank"], world=run["world"],
+                        devices=run["world"],
                         goodput={
                             k: (round(v, 6) if isinstance(v, float) else v)
                             for k, v in loop.goodput.snapshot().items()
@@ -148,14 +161,18 @@ def run_config(
     generation: int = 0,
     checkpoint_every_steps: int = 0,
     span_steps: int = 0,
+    mesh=None,
 ):
-    """Train `cfg` on one device (tests and chip_smoke.py call this; main()
-    parses flags). Refuses a config `check_config` refuses. The run is
-    journaled (see `_journal_scope`).
+    """Train `cfg` (tests and chip_smoke.py call this; main() parses
+    flags) on `mesh`, by default the config's mesh over the ranks of the
+    process group (one rank without one). Refuses a config `check_config`
+    refuses. The run is journaled (see `_journal_scope`).
 
     Returns (final_state, final_eval_dict, context)."""
     check_config(cfg)
     from dist_mnist_tpu_torch import hooks as hooks_lib
+    from dist_mnist_tpu_torch.cluster import coordination
+    from dist_mnist_tpu_torch.cluster.mesh import make_mesh
     from dist_mnist_tpu_torch.checkpoint import CheckpointManager
     from dist_mnist_tpu_torch.data.datasets import load_dataset
     from dist_mnist_tpu_torch.data.pipeline import (
@@ -167,6 +184,16 @@ def run_config(
     from dist_mnist_tpu_torch.models.registry import get_model
     from dist_mnist_tpu_torch.obs.writers import make_default_writer
     from dist_mnist_tpu_torch.ops import losses
+    from dist_mnist_tpu_torch.parallel.collectives import collective_stats
+    from dist_mnist_tpu_torch.ops.kernels import (
+        launch_counts,
+        reset_launch_counts,
+    )
+    from dist_mnist_tpu_torch.parallel.sharding import (
+        resolve_rules,
+        shard_train_state,
+        unshard_state,
+    )
     from dist_mnist_tpu_torch.train import (
         create_train_state,
         evaluate,
@@ -176,19 +203,23 @@ def run_config(
         make_train_step,
     )
     from dist_mnist_tpu_torch.train.loop import TrainLoop
+    from dist_mnist_tpu_torch.train.state import (
+        params_digest,
+        state_memory_bytes,
+    )
     from dist_mnist_tpu_torch.utils.device import resolve_device
 
     with _journal_scope(cfg, journal, logdir, generation) as journaled:
         t0 = time.monotonic()
         # flag-combination errors fail BEFORE any expensive work (dataset
         # load, init, restore) — decidable from the arguments alone
-        if input_pipeline in ("native", "device_sharded"):
+        if input_pipeline == "native":
             raise _refuse(f"--input_pipeline={input_pipeline}", _PARALLEL)
-        if input_pipeline not in ("python", "device"):
+        if input_pipeline not in ("python", "device", "device_sharded"):
             raise ValueError(f"unknown input_pipeline {input_pipeline!r}; use "
-                             "python | device (native and device_sharded join "
+                             "python | device | device_sharded (native joins "
                              f"with {_PARALLEL})")
-        if scan_chunk and input_pipeline != "device":
+        if scan_chunk and not input_pipeline.startswith("device"):
             raise ValueError(
                 "--scan_chunk needs the in-step input path "
                 "(--input_pipeline=device): a host batcher cannot feed a "
@@ -201,6 +232,9 @@ def run_config(
                 "past the LR schedule horizon)", cfg.train_steps, scan_chunk,
                 stop_at, stop_at - cfg.train_steps)
         device = resolve_device(device)
+        rules = resolve_rules(cfg.sharding_rules)
+        if mesh is None:
+            mesh = make_mesh(cfg.mesh, device=device)
         dataset = load_dataset(cfg.dataset, data_dir, seed=cfg.seed)
         model = get_model(cfg.model, **cfg.model_kwargs)
         optimizer = build_optimizer(cfg)
@@ -215,19 +249,27 @@ def run_config(
             manager = CheckpointManager(
                 checkpoint_dir, async_save=True,
                 max_restore_fallbacks=max_restore_fallbacks)
+            # every rank reads the full file, then shards it below
             state, restored = manager.restore_or_init(state)
+        state = shard_train_state(state, mesh, rules)
         initial_step = state.step_int
-        log.info("config %s: model=%s params on 1 device (%s), restored=%s",
-                 cfg.name, cfg.model, device, restored)
+        log.info("config %s: model=%s on %s, mesh %s, sharding %s, "
+                 "restored=%s; %s", cfg.name, cfg.model, device,
+                 {k: v for k, v in mesh.shape.items() if v > 1} or "1",
+                 cfg.sharding_rules, restored,
+                 coordination.startup_line(coordination.context()))
 
         step_kw = dict(loss_fn=loss_fn, remat=cfg.remat,
-                       remat_policy=cfg.remat_policy, augment=cfg.augment)
-        if input_pipeline == "device":
+                       remat_policy=cfg.remat_policy, augment=cfg.augment,
+                       mesh=mesh, rules=rules)
+        if input_pipeline.startswith("device"):
             # the dataset lives on the device and each step samples there from
             # state.rng: no feed at all, and resume-exact because the draws
             # continue from the restored generator. Semantics: with-replacement
             # draws (vs the host path's shuffled epochs), as in the reference
-            dd = DeviceDataset(dataset, device)
+            dd = DeviceDataset(dataset, device, mesh=mesh,
+                               shard=input_pipeline == "device_sharded",
+                               seed=cfg.seed)
             if scan_chunk:
                 run = make_scanned_train_fn(model, optimizer, dd,
                                             cfg.batch_size, scan_chunk,
@@ -240,13 +282,26 @@ def run_config(
                 return run(state)
         else:
             step_fn = make_train_step(model, optimizer, **step_kw)
+        stats = collective_stats(mesh)
+        one_call: dict = {}
+
+        def counted_step(state, batch):
+            # what the collectives of one call moved (the last call's)
+            before = dict(stats)
+            out = step_fn(state, batch)
+            one_call.clear()
+            one_call.update({k: v - before.get(k, 0)
+                             for k, v in stats.items()})
+            return out
+
         eval_step = make_eval_step(model)
 
         def eval_fn(s):
             return evaluate(eval_step, s, dataset.test_images,
-                            dataset.test_labels)
+                            dataset.test_labels, mesh=mesh)
 
-        writer = make_default_writer(logdir, chief=True)
+        chief = coordination.is_chief()
+        writer = make_default_writer(logdir, chief=chief)
         hooks = [
             hooks_lib.StopAtStepHook(last_step=cfg.train_steps),
             hooks_lib.StepCounterHook(every_steps=cfg.log_every,
@@ -273,23 +328,24 @@ def run_config(
                 if checkpoint_every_steps
                 else hooks_lib.CheckpointHook(
                     manager, every_secs=cfg.checkpoint_every_secs))
-        if profile and logdir:
+        if profile and logdir and chief:
             hooks.append(hooks_lib.ProfilerHook(logdir))
             hooks.append(hooks_lib.MemoryProfileHook(logdir))
         hooks.extend(extra_hooks)
 
         # resume-aware: start the stream at the restored step so the
         # post-restore trajectory equals the uninterrupted one
-        if input_pipeline == "device":
+        if input_pipeline.startswith("device"):
             batches = itertools.repeat(None)  # sampling lives in the step
         else:
             batches = ShardedBatcher(dataset, cfg.batch_size, device,
-                                     seed=cfg.seed, start_step=initial_step)
+                                     seed=cfg.seed, start_step=initial_step,
+                                     mesh=mesh)
             if prefetch_depth:
                 # overlap the host-to-device copy with the running step
                 batches = DevicePrefetcher(batches, depth=prefetch_depth)
         loop = TrainLoop(
-            step_fn, state, batches, hooks,
+            counted_step, state, batches, hooks,
             checkpoint_manager=manager,
             max_recoveries=max_recoveries,
             steps_per_call=max(1, scan_chunk),
@@ -298,8 +354,13 @@ def run_config(
             span_steps=span_steps,
         )
         journaled["loop"] = loop
+        log.info("resident state per rank: %s",
+                 json.dumps(state_memory_bytes(state), sort_keys=True))
+        # the loop's kernel launches alone (evaluation inside it included)
+        reset_launch_counts()
         try:
             state = loop.run()
+            launches = launch_counts()
             # EvalHook.end already evaluated the final state; don't pay for a
             # second full test-set pass
             final = eval_hook.last_result if eval_hook else eval_fn(state)
@@ -308,15 +369,25 @@ def run_config(
                 manager.close()
             writer.close()
         elapsed = time.monotonic() - t0
+        per_step = {k: v / max(1, scan_chunk) for k, v in one_call.items()}
+        log.info("kernel launches: %s", json.dumps(launches, sort_keys=True))
+        if mesh.size > 1:
+            log.info("collectives per step: %s",
+                     json.dumps(per_step, sort_keys=True))
+            # a collective: every rank gathers its FSDP slices
+            log.info("final params digest: %s",
+                     params_digest(unshard_state(state).params))
         log.info("done: step=%d test_acc=%.4f test_loss=%.4f wall=%.1fs",
                  state.step_int, final["accuracy"], final["loss"], elapsed)
-        stats = getattr(loop.batches, "stats", None)
+        feed_stats = getattr(loop.batches, "stats", None)
         return state, final, {
             "model": model, "elapsed": elapsed, "dataset": dataset,
             "loop": loop, "device": device, "restored": restored,
             "initial_step": initial_step, "goodput": goodput_hook.last,
-            "prefetch": stats() if callable(stats) else None,
+            "prefetch": feed_stats() if callable(feed_stats) else None,
             "preempted_at": loop.preempted_at, "journal": journaled["journal"],
+            "mesh": mesh, "collectives_per_step": per_step,
+            "launches": launches,
         }
 
 
@@ -344,8 +415,9 @@ def build_parser() -> argparse.ArgumentParser:
 
     p = argparse.ArgumentParser(
         prog="python -m dist_mnist_tpu_torch.cli.train",
-        description="Train a config on one GPU (or the CPU with "
-                    "--device=cpu).")
+        description="Train a config on a GPU (or the CPU with "
+                    "--device=cpu); one rank of a group with "
+                    "--num_processes (see cli.launch).")
     a = p.add_argument
     # -- reference-parity flags (SURVEY.md §0.1 flag table)
     a("--data_dir", default=str(default_data_dir()),
@@ -367,14 +439,19 @@ def build_parser() -> argparse.ArgumentParser:
     _bool_flag(p, "sync_replicas", True,
                "always True; False warns (async PS is out of model)")
     a("--replicas_to_aggregate", type=int, default=None,
-      help=f"gradient accumulation; > 1 joins with {_PARALLEL}")
+      help="k > 1: accumulate k steps' gradients per update "
+           "(optim/sync.py; None = config)")
     _bool_flag(p, "existing_servers", False, "IGNORED: no servers to reuse")
     a("--ps_hosts", default="", help="IGNORED: no parameter servers")
-    a("--worker_hosts", default="", help="IGNORED: one device")
+    a("--worker_hosts", default="", help="IGNORED: workers = mesh ranks")
     # -- framework flags
     a("--config", default="mlp_mnist", help="config name (see configs.py)")
     a("--device", default="cuda",
-      help="cuda (default; fails without a GPU) or cpu")
+      help="cuda (default; fails without a GPU) or cpu; a rank of a group "
+           "takes cuda:(rank %% cards)")
+    a("--platform", default=None, choices=["cpu", "gpu"],
+      help="cpu: every rank on the CPU, gloo collectives (the reference's "
+           "flag; --device=cpu for one process); gpu = the default")
     a("--checkpoint_dir", default=None,
       help="checkpoint directory (None = off)")
     a("--logdir", default=None, help="metrics/profile output directory")
@@ -390,8 +467,8 @@ def build_parser() -> argparse.ArgumentParser:
     a("--input_pipeline", default="python",
       choices=["python", "native", "device", "device_sharded"],
       help="python (host batcher) | device (dataset resident on the "
-           f"device, sampled in the step); native and device_sharded join "
-           f"with {_PARALLEL}")
+           "device, sampled in the step) | device_sharded (1/N of the rows "
+           f"on each rank); native joins with {_PARALLEL}")
     a("--prefetch_depth", type=int, default=2,
       help="batches the host path copies ahead on a side CUDA stream "
            "(data/prefetch.py); 0 = synchronous feed")
@@ -414,13 +491,18 @@ def build_parser() -> argparse.ArgumentParser:
            "checkpoint_every_secs")
     a("--span_steps", type=int, default=0,
       help="every N steps, journal one `span` event per phase; 0 = off")
+    # -- the process group and the mesh (cluster/)
+    a("--mesh", default=None,
+      help='mesh override, e.g. "data=2" (data axis only)')
+    a("--coordinator_address", default=None, help="host:port of process 0")
+    a("--num_processes", type=int, default=1, help="total processes")
+    a("--process_id", type=int, default=0, help="this process's rank")
+    a("--sharding", default=None,
+      help=f"dp | fsdp (None = config); tp and fsdp_tp join with "
+           f"{_PARALLEL}")
     # -- refused: their subsystems are not in the port yet
-    a("--mesh", default=None, help=f"wider than one device: {_PARALLEL}")
-    a("--coordinator_address", default=None, help=_PARALLEL)
-    a("--num_processes", type=int, default=1, help=f"> 1: {_PARALLEL}")
-    a("--process_id", type=int, default=0, help=f"> 0: {_PARALLEL}")
-    a("--host_device_count", type=int, default=None, help=_PARALLEL)
-    a("--sharding", default=None, help=f"other than dp: {_PARALLEL}")
+    a("--host_device_count", type=int, default=None,
+      help="refused: one device per process")
     _bool_flag(p, "overlap", None, _RESILIENCE)
     a("--overlap_bucket_mb", type=float, default=None, help=_RESILIENCE)
     a("--overlap_chunk", default=None, help=_RESILIENCE)
@@ -451,16 +533,16 @@ def _refused_flags(args) -> list[str]:
         if cond:
             out.append(f"{flag} joins the port with {item}")
 
-    no(args.coordinator_address is not None, "--coordinator_address",
-       _PARALLEL)
-    no(args.num_processes > 1, "--num_processes > 1", _PARALLEL)
-    no(args.process_id > 0, "--process_id > 0", _PARALLEL)
-    no(args.host_device_count is not None, "--host_device_count", _PARALLEL)
+    if args.host_device_count is not None:
+        out.append("--host_device_count: the port runs one device per "
+                   "process (a stated departure of ROADMAP §1 item 12's "
+                   "data-parallel half); start more processes with "
+                   "cli.launch")
     no(args.overlap_bucket_mb is not None, "--overlap_bucket_mb",
        _RESILIENCE)
     no(args.overlap_chunk is not None, "--overlap_chunk", _RESILIENCE)
-    no(args.input_pipeline in ("native", "device_sharded"),
-       f"--input_pipeline={args.input_pipeline}", _PARALLEL)
+    no(args.input_pipeline == "native", "--input_pipeline=native",
+       _PARALLEL)
     no(args.fault_plan is not None, "--fault_plan", _RESILIENCE)
     no(args.compile_cache_dir is not None, "--compile_cache_dir",
        _RESILIENCE)
@@ -506,6 +588,11 @@ def _apply_flag_overrides(cfg, args):
     if args.hidden_units is not None:
         over["model_kwargs"] = {**cfg.model_kwargs,
                                 "hidden_units": args.hidden_units}
+    if args.sharding:
+        # validate EAGERLY (tp and fsdp_tp refuse naming their item)
+        from dist_mnist_tpu_torch.parallel.sharding import resolve_rules
+
+        resolve_rules(args.sharding)
     if args.remat_policy:
         # validate EAGERLY: resolve_remat_policy otherwise only runs when
         # remat=True, so a typo'd policy on a non-remat config would pass
@@ -521,6 +608,7 @@ def main(argv=None):
     """Parse flags and train; returns ``(state, final_eval, ctx)`` (None
     after --download_only). Refused flags, a missing card and bad flag
     combinations exit with ``error: ...``."""
+    from dist_mnist_tpu_torch.cluster import coordination
     from dist_mnist_tpu_torch.configs import get_config
     from dist_mnist_tpu_torch.data.datasets import load_dataset
     from dist_mnist_tpu_torch.faults.preemption import (
@@ -542,8 +630,8 @@ def main(argv=None):
         if getattr(args, name):
             log.warning(
                 "--%s is a parameter-server-era flag; this framework runs "
-                "one program on one device (no ps/worker jobs); it is "
-                "ignored.", name)
+                "one program on every rank of a mesh (no ps/worker jobs); "
+                "it is ignored.", name)
     for name in ("task_index", "num_gpus"):
         if getattr(args, name):
             log.warning("--%s is a parameter-server-era flag; it is "
@@ -556,13 +644,19 @@ def main(argv=None):
             "--nosync_replicas requested: async parameter-server training "
             "is out of model (SURVEY.md §2.6); training proceeds "
             "synchronously.")
-    if args.scan_chunk and args.input_pipeline != "device":
+    if args.scan_chunk and not args.input_pipeline.startswith("device"):
         raise SystemExit("error: --scan_chunk needs --input_pipeline=device "
                          "(a host batcher cannot feed a multi-step chunk)")
+    cpu = args.platform == "cpu" or args.device == "cpu"
     try:
         cfg = _apply_flag_overrides(get_config(args.config), args)
         check_config(cfg)
-        device = resolve_device(args.device)
+        if args.download_only:
+            device = None
+        elif args.num_processes > 1:
+            device = None  # the rank's, once it has joined the group
+        else:
+            device = resolve_device("cpu" if cpu else args.device)
     except (RuntimeError, KeyError, ValueError, NotImplementedError,
             TypeError) as err:
         raise SystemExit(f"error: {err}") from None
@@ -572,6 +666,14 @@ def main(argv=None):
                  ds.name, len(ds.train_labels), len(ds.test_labels),
                  ds.synthetic)
         return None
+    try:
+        ctx = coordination.initialize_distributed(
+            args.coordinator_address, args.num_processes, args.process_id,
+            platform="cpu" if cpu else None)
+    except (RuntimeError, ValueError) as err:
+        raise SystemExit(f"error: {err}") from None
+    if ctx is not None:
+        device = ctx.device
     # journal precedence: explicit flag > supervisor-injected env >
     # <logdir>/events.jsonl
     journal = args.journal or os.environ.get(events_mod.ENV_JOURNAL)
@@ -600,10 +702,11 @@ def main(argv=None):
             checkpoint_every_steps=args.checkpoint_every_steps,
             span_steps=args.span_steps,
         )
-    except NotImplementedError as err:
+    except (NotImplementedError, ValueError) as err:
         raise SystemExit(f"error: {err}") from None
     finally:
         uninstall()
+        coordination.shutdown()
     if ctx.get("preempted_at") is not None:
         # the marker line supervisors and tests key on; the exit code stays
         # 0 — a preempted-but-checkpointed run is a success

@@ -1,0 +1,199 @@
+"""Process-group bootstrap and chief election (port of the reference
+`cluster/coordination.py`).
+
+`initialize_distributed` joins this process to a `torch.distributed`
+process group over a TCP store (``tcp://<coordinator_address>``, the
+address, world size and rank taken from the flags or, when those are
+absent, from torchrun's ``MASTER_ADDR``/``MASTER_PORT``/``WORLD_SIZE``/
+``RANK``). It is a no-op for a single process. The backend follows one
+stated rule, printed on the startup line, and is never a fallback after a
+failure:
+
+- ``--platform=cpu``: gloo, every rank on the CPU;
+- each rank has a card of its own (as many cards as ranks): NCCL, rank r
+  on ``cuda:r``;
+- ranks share a card (fewer cards than ranks): gloo over CUDA tensors,
+  rank r on ``cuda:(r % cards)``, since NCCL refuses two ranks on one
+  GPU. This torch build's gloo takes CUDA tensors for every collective
+  the step runs (all_reduce, broadcast, all_gather_into_tensor,
+  reduce_scatter_tensor, barrier: `scripts/torch_gloo_cuda_probe.py` on
+  the H100 machine, torch 2.11 + CUDA 12.8), so none is staged through
+  host memory by hand; gloo copies through the host itself.
+
+Besides the group, every rank of a multi-process run gets a gloo group
+over the host for the decisions ranks must agree on (a checkpoint save,
+a barrier): with NCCL that is a second group, with gloo the same one.
+
+Chief is rank 0: it owns the host-side side effects (checkpoint writes,
+summary files). Params are initialized identically on every rank from
+the same seed, so nothing waits on the chief to start.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import datetime
+import logging
+import os
+from typing import Any
+
+import torch
+
+log = logging.getLogger(__name__)
+
+#: seconds a collective may wait for its peers before it fails
+DEFAULT_TIMEOUT_S = 600.0
+
+
+@dataclasses.dataclass(frozen=True)
+class DistContext:
+    """This process's place in the group, and the rule that chose its
+    backend."""
+
+    rank: int
+    world: int
+    backend: str
+    device: torch.device
+    rule: str
+    host_group: Any = None
+
+
+_CONTEXT: DistContext | None = None
+
+
+def context() -> DistContext | None:
+    """The context `initialize_distributed` set up, or None (one process,
+    or not initialized)."""
+    return _CONTEXT
+
+
+def backend_rule(platform: str | None, world: int,
+                 cards: int) -> tuple[str, str]:
+    """(backend, the rule's name) for `world` ranks on one host with
+    `cards` CUDA devices."""
+    if platform == "cpu":
+        return "gloo", "cpu platform"
+    if cards < 1:
+        raise RuntimeError(
+            "no CUDA device: the distributed port runs on NVIDIA GPUs; pass "
+            "--platform=cpu to run its ranks on the CPU")
+    if cards >= world:
+        return "nccl", "one card per rank"
+    return "gloo", "ranks share a card"
+
+
+def _from_env(name: str) -> str | None:
+    value = os.environ.get(name)
+    return value if value else None
+
+
+def initialize_distributed(
+    coordinator_address: str | None = None,
+    num_processes: int | None = None,
+    process_id: int | None = None,
+    *,
+    platform: str | None = None,
+    init_method: str | None = None,
+    timeout_s: float = DEFAULT_TIMEOUT_S,
+) -> DistContext | None:
+    """Join the process group (no-op single-process; returns None then).
+
+    `init_method` replaces the TCP store (a test passes a ``file://``
+    store in its own temp dir). Rank r's device is ``cuda:(r % cards)``,
+    or the CPU under ``platform="cpu"``."""
+    global _CONTEXT
+    if _CONTEXT is not None:
+        return _CONTEXT
+    if num_processes is None and _from_env("WORLD_SIZE"):
+        num_processes = int(os.environ["WORLD_SIZE"])
+    if process_id is None and _from_env("RANK"):
+        process_id = int(os.environ["RANK"])
+    if coordinator_address is None and _from_env("MASTER_ADDR"):
+        coordinator_address = (f"{os.environ['MASTER_ADDR']}:"
+                               f"{os.environ.get('MASTER_PORT', '29500')}")
+    world = num_processes or 1
+    if world <= 1:
+        log.info("single-process run; no process group")
+        return None
+    rank = process_id or 0
+    if not 0 <= rank < world:
+        raise ValueError(f"process_id {rank} outside 0..{world - 1}")
+    if init_method is None:
+        if not coordinator_address:
+            raise ValueError(f"{world} processes need --coordinator_address "
+                             "(host:port of process 0)")
+        init_method = f"tcp://{coordinator_address}"
+    cards = 0 if platform == "cpu" else torch.cuda.device_count()
+    backend, rule = backend_rule(platform, world, cards)
+    if platform == "cpu":
+        device = torch.device("cpu")
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    else:
+        device = torch.device("cuda", rank % cards)
+        torch.cuda.set_device(device)
+    timeout = datetime.timedelta(seconds=timeout_s)
+    torch.distributed.init_process_group(
+        backend, init_method=init_method, world_size=world, rank=rank,
+        timeout=timeout)
+    host_group = (torch.distributed.new_group(backend="gloo", timeout=timeout)
+                  if backend != "gloo" else torch.distributed.group.WORLD)
+    _CONTEXT = DistContext(rank=rank, world=world, backend=backend,
+                           device=device, rule=rule, host_group=host_group)
+    log.info("distributed init: %s", startup_line(_CONTEXT))
+    return _CONTEXT
+
+
+def startup_line(ctx: DistContext | None) -> str:
+    """``process K/N, 1 local / N global devices`` plus the backend and
+    the rule that chose it."""
+    if ctx is None:
+        return "process 0/1, 1 local / 1 global devices, backend none"
+    return (f"process {ctx.rank}/{ctx.world}, 1 local / {ctx.world} global "
+            f"devices, backend {ctx.backend} ({ctx.rule}), device "
+            f"{ctx.device}")
+
+
+def shutdown() -> None:
+    """Leave the process group (no-op without one)."""
+    global _CONTEXT
+    if _CONTEXT is None:
+        return
+    _CONTEXT = None
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
+
+
+def is_chief() -> bool:
+    """Rank 0 is chief: it owns checkpoint writes and summary files."""
+    return _CONTEXT is None or _CONTEXT.rank == 0
+
+
+def barrier() -> None:
+    """Every rank waits here for every other (no-op single-process)."""
+    if _CONTEXT is not None:
+        torch.distributed.barrier(group=_CONTEXT.host_group)
+
+
+def any_rank(flag: bool) -> bool:
+    """True on every rank when `flag` is true on any (one all-reduce of
+    one integer over the host group; `flag` itself single-process): a
+    decision one rank may reach alone (a preemption notice, a timer) that
+    every rank must act on at the same step."""
+    if _CONTEXT is None:
+        return bool(flag)
+    t = torch.tensor([int(bool(flag))], dtype=torch.int32)
+    torch.distributed.all_reduce(t, op=torch.distributed.ReduceOp.MAX,
+                                 group=_CONTEXT.host_group)
+    return bool(t.item())
+
+
+def agree(value):
+    """The chief's `value` on every rank (a picklable object; returned as
+    is single-process): what ranks must decide together, e.g. whether a
+    checkpoint save happens, is decided once."""
+    if _CONTEXT is None:
+        return value
+    box = [value]
+    torch.distributed.broadcast_object_list(box, src=0,
+                                            group=_CONTEXT.host_group)
+    return box[0]

@@ -1,11 +1,44 @@
-"""The logical mesh shape a config names (copy of the reference's
-`cluster/mesh.py MeshSpec`). The ported serving path runs on one card and
-reads no mesh; the field rides along so the config ladder stays equal to
-the reference's field for field."""
+"""The rank mesh (port of the reference `cluster/mesh.py`).
+
+In the reference a device of the ``data`` axis is one chip of an SPMD
+program. Here a device is one RANK of a `torch.distributed` process group,
+with one device per process (rank r drives ``cuda:(r % cards)``, or the
+CPU). A `Mesh` is that group seen from one rank: the axis sizes, this
+rank's index on the ``data`` axis, its device, and the group the
+collectives run over (None on a single rank).
+
+Only the ``data`` axis may be wider than one. A ``model``, ``seq`` or
+``pipe`` axis wider than one refuses, naming the slice that brings it.
+The reference's multislice layout (`hybrid_mesh_shapes`,
+`with_fake_slices`) and `compat_shard_map` have no counterpart.
+
+`activate(mesh)` makes a mesh ambient for the forward pass: synchronized
+batch norm (`ops/nn.batch_norm`) reads it with `ambient_mesh()`, as the
+reference's layers discover the mesh `jax.set_mesh` installs.
+"""
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
+import threading
+from typing import Any
+
+import torch
+
+DATA_AXIS = "data"
+MODEL_AXIS = "model"
+SEQ_AXIS = "seq"
+PIPE_AXIS = "pipe"
+AXES = (DATA_AXIS, MODEL_AXIS, SEQ_AXIS, PIPE_AXIS)
+
+#: the slices that bring the axes other than `data`
+_LATER_AXES = {
+    MODEL_AXIS: "ROADMAP §1 item 12 (tensor parallelism)",
+    SEQ_AXIS: "ROADMAP §1 item 11 (sequence parallelism)",
+    PIPE_AXIS: "ROADMAP §1 item 11 (pipeline parallelism)",
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -16,3 +49,153 @@ class MeshSpec:
     model: int = 1
     seq: int = 1
     pipe: int = 1
+
+    def resolve(self, n_devices: int) -> tuple[int, int, int, int]:
+        fixed = self.model * self.seq * self.pipe
+        data = self.data
+        if data == -1:
+            if n_devices % fixed != 0:
+                raise ValueError(
+                    f"{n_devices} devices not divisible by "
+                    f"model*seq*pipe={fixed}"
+                )
+            data = n_devices // fixed
+        if data * fixed != n_devices:
+            raise ValueError(
+                f"mesh {data}x{self.model}x{self.seq}x{self.pipe} != "
+                f"{n_devices} devices"
+            )
+        return (data, self.model, self.seq, self.pipe)
+
+
+@dataclasses.dataclass(frozen=True)
+class ClusterConfig:
+    """The whole-cluster topology: processes x one device each. Every
+    process runs the same program; process 0 is chief only for host-side
+    side effects (logging, checkpoint writes)."""
+
+    mesh: MeshSpec = MeshSpec()
+    coordinator_address: str | None = None  # host:port of process 0
+    num_processes: int = 1
+    process_id: int = 0
+
+    @property
+    def is_multihost(self) -> bool:
+        return self.num_processes > 1
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Mesh:
+    """One rank's view of the mesh. `group` is the process group the
+    collectives run over (None on a single rank), `backend` its backend;
+    `stats` counts what the collectives moved."""
+
+    shape: dict
+    rank: int = 0
+    device: torch.device = torch.device("cpu")
+    group: Any = None
+    backend: str = "none"
+    #: bytes and calls of each collective on this mesh
+    #: (`parallel.collectives.collective_stats`)
+    stats: collections.Counter = dataclasses.field(
+        default_factory=collections.Counter)
+
+    @property
+    def size(self) -> int:
+        """Ranks on the ``data`` axis."""
+        return self.shape[DATA_AXIS]
+
+
+def device_count() -> int:
+    """Devices of the cluster: one per rank of the default process group,
+    1 without one."""
+    if torch.distributed.is_available() and torch.distributed.is_initialized():
+        return torch.distributed.get_world_size()
+    return 1
+
+
+def check_axes(spec: MeshSpec) -> None:
+    """Refuse an axis other than ``data`` wider than one, naming the slice
+    that brings it."""
+    for axis, item in _LATER_AXES.items():
+        if getattr(spec, axis) > 1:
+            raise NotImplementedError(
+                f"a {axis!r} axis of {getattr(spec, axis)} joins the port "
+                f"with {item}; the port's mesh has the data axis only")
+
+
+def make_mesh(spec: MeshSpec | None = None, *,
+              device: torch.device | str | None = None) -> Mesh:
+    """The mesh `spec` names over the ranks of the default process group
+    (one rank when there is none).
+
+    Raises `ValueError` when the spec wants more ranks than exist (a
+    caller may fall back to ``MeshSpec(data=-1)``, as `bench.run_config`
+    does) or fewer: every rank of the group is on the mesh.
+    `NotImplementedError` for an axis other than ``data`` wider than
+    one. `device` defaults to the device `initialize_distributed` gave
+    this rank."""
+    from dist_mnist_tpu_torch.cluster import coordination
+
+    spec = spec or MeshSpec()
+    check_axes(spec)
+    n = device_count()
+    if spec.data != -1:
+        want = spec.data * spec.model * spec.seq * spec.pipe
+        if want > n:
+            raise ValueError(f"mesh needs {want} devices, only {n} visible")
+        if want < n:
+            raise ValueError(
+                f"mesh of {want} devices on a group of {n} ranks: every "
+                "rank of the group is on the port's mesh")
+    shape = dict(zip(AXES, spec.resolve(n)))
+    ctx = coordination.context()
+    if device is None:
+        device = ctx.device if ctx is not None else torch.device("cpu")
+    if n == 1:
+        return Mesh(shape=shape, device=torch.device(device))
+    return Mesh(shape=shape, rank=torch.distributed.get_rank(),
+                device=torch.device(device),
+                group=torch.distributed.group.WORLD,
+                backend=ctx.backend if ctx is not None
+                else torch.distributed.get_backend())
+
+
+def local_batch_slice(global_batch: int, mesh: Mesh) -> tuple[int, int]:
+    """(per-process batch, per-device batch) for a global batch: the
+    same number, one device per process."""
+    if global_batch % mesh.size != 0:
+        raise ValueError(f"global batch {global_batch} % data axis "
+                         f"{mesh.size} != 0")
+    per = global_batch // mesh.size
+    return per, per
+
+
+def validate_mesh(mesh: Mesh) -> None:
+    """Refuse a mesh whose ranks do not match its group."""
+    if mesh.size > 1 and (mesh.group is None
+                          or mesh.size != torch.distributed.get_world_size(
+                              mesh.group)):
+        raise ValueError(f"mesh of {mesh.size} ranks does not match its "
+                         "process group")
+    if not 0 <= mesh.rank < mesh.size:
+        raise ValueError(f"rank {mesh.rank} outside a mesh of {mesh.size}")
+
+
+_AMBIENT = threading.local()
+
+
+@contextlib.contextmanager
+def activate(mesh: Mesh | None):
+    """Make `mesh` the ambient mesh of this thread inside the block."""
+    prev = getattr(_AMBIENT, "mesh", None)
+    _AMBIENT.mesh = mesh
+    try:
+        yield mesh
+    finally:
+        _AMBIENT.mesh = prev
+
+
+def ambient_mesh() -> Mesh | None:
+    """The mesh `activate` installed on this thread, or None."""
+    return getattr(_AMBIENT, "mesh", None)

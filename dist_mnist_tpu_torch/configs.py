@@ -1,8 +1,9 @@
 """The benchmark-ladder configs, copied from the reference `configs.py`.
 
 Only the entries whose model and path the port runs are here
-(`mlp_mnist`, `lenet5_mnist`, `vit_tiny_cifar`, `vit_tiny_cifar_flash`);
-the others join with their slices. A test pins each entry field for field
+(`mlp_mnist`, `lenet5_mnist`, `lenet5_fashion`, `resnet20_cifar`,
+`resnet20_cifar_fsdp`, `vit_tiny_cifar`, `vit_tiny_cifar_flash`); the
+others join with their slices. A test pins each entry field for field
 against the reference ladder.
 """
 
@@ -69,6 +70,49 @@ CONFIGS = {
         train_steps=2000,
         learning_rate=1e-3,
         eval_every=500,
+    ),
+    # 3) LeNet-5 / Fashion-MNIST / 4-way DP
+    "lenet5_fashion": Config(
+        name="lenet5_fashion",
+        model="lenet5",
+        dataset="fashion_mnist",
+        batch_size=512,
+        train_steps=3000,
+        learning_rate=1e-3,
+        mesh=MeshSpec(data=4),
+        ladder_devices=4,
+    ),
+    # 4) ResNet-20 / CIFAR-10 / 8-way DP
+    "resnet20_cifar": Config(
+        name="resnet20_cifar",
+        model="resnet20",
+        dataset="cifar10",
+        batch_size=1024,
+        train_steps=5000,
+        learning_rate=2e-3,
+        lr_schedule="cosine",
+        warmup_steps=200,
+        grad_clip_norm=1.0,
+        augment=True,  # pad-crop-flip: standard CIFAR recipe, on device
+        mesh=MeshSpec(data=8),
+        ladder_devices=8,
+    ),
+    # 4b) config 4 under ZeRO/FSDP: same model, data and trajectory as
+    # resnet20_cifar, params + Adam slots 1/8th per rank
+    "resnet20_cifar_fsdp": Config(
+        name="resnet20_cifar_fsdp",
+        model="resnet20",
+        dataset="cifar10",
+        batch_size=1024,
+        train_steps=5000,
+        learning_rate=2e-3,
+        lr_schedule="cosine",
+        warmup_steps=200,
+        grad_clip_norm=1.0,
+        augment=True,
+        sharding_rules="fsdp",
+        mesh=MeshSpec(data=8),
+        ladder_devices=8,
     ),
     # 5) ViT-Tiny / CIFAR-10 / pod slice (stretch; attention path)
     "vit_tiny_cifar": Config(

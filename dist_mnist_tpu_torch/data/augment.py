@@ -43,13 +43,20 @@ def crop_flip(images: torch.Tensor, oy: torch.Tensor, ox: torch.Tensor,
 
 
 def random_crop_flip(gen: torch.Generator, images: torch.Tensor, *,
-                     pad: int = 4, flip: bool = True) -> torch.Tensor:
+                     pad: int = 4, flip: bool = True,
+                     global_batch: int | None = None,
+                     offset: int = 0) -> torch.Tensor:
     """`crop_flip` at origins drawn uniformly from ``[0, 2 * pad]`` and,
     with `flip`, fair coin flips, all from `gen` (a generator on the
-    images' device): the origins first, then the flips."""
+    images' device): the origins first, then the flips. The draws are
+    for `global_batch` examples (default the batch's), and the B images
+    take draws ``offset : offset + B``: a rank's slice of the global
+    batch gets the crops one rank holding the whole batch would draw."""
     b = images.shape[0]
-    oy, ox = torch.randint(0, 2 * pad + 1, (2, b), generator=gen,
-                           device=images.device)
-    flips = (torch.rand((b,), generator=gen, device=images.device) < 0.5
-             if flip else None)
+    n = b if global_batch is None else global_batch
+    rows = slice(offset, offset + b)
+    oy, ox = torch.randint(0, 2 * pad + 1, (2, n), generator=gen,
+                           device=images.device)[:, rows]
+    flips = (torch.rand((n,), generator=gen, device=images.device)[rows]
+             < 0.5 if flip else None)
     return crop_flip(images, oy, ox, flips, pad=pad)

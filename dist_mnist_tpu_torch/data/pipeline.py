@@ -1,19 +1,25 @@
 """Batching and device placement (port of the reference
-`data/pipeline.py`, one device). Two paths:
+`data/pipeline.py`). Two paths:
 
 - `ShardedBatcher`: host-side deterministic shuffled epochs; the shuffle
   order is a Philox(key=[seed, epoch]) permutation (`epoch_batches`, the
   reference's own), so both packages draw the same rows for every step,
   and a batcher positioned at a step (`at_step`) resumes exactly there.
+  On a mesh each process loads only its slice of every global batch,
+  ``idx[rank * local : (rank + 1) * local]`` of the same permutation.
 - `DeviceDataset`: the whole training split lives on the device: images
   as flat uint8 rows ``[N, H*W*C]`` (47.0 MB for MNIST) and labels as
   int32 ``[N]``. A step draws a with-replacement batch of indices from a
   generator on that device, gathers, and reshapes to NHWC, so feeding a
-  step costs the host nothing but the launches.
+  step costs the host nothing but the launches. On a mesh every rank
+  holds the whole split and draws the GLOBAL batch's indices, keeping its
+  slice; with ``shard=True`` each rank holds 1/N of the rows (after one
+  seeded global shuffle) and draws its slice from its own rows, the
+  reference's `_sample_sharded`.
 
-Images stay uint8 until the step normalizes them. More than one process
-or device (the reference's mesh-sharded batches and sharded residency)
-joins with ROADMAP §1 item 12.
+Images stay uint8 until the step normalizes them. One device per process:
+a batch split over several devices of one process is refused (a stated
+departure of the port).
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ from typing import Iterator
 import numpy as np
 import torch
 
+from dist_mnist_tpu_torch.cluster.mesh import Mesh, device_count
 from dist_mnist_tpu_torch.data.datasets import Dataset
 
 
@@ -41,42 +48,50 @@ def epoch_batches(
 
 @dataclasses.dataclass
 class ShardedBatcher:
-    """Infinite deterministic iterator of train batches on one device.
+    """Infinite deterministic iterator of train batches.
 
-    `host_batches()` yields the reference's numpy rows for each step;
-    `__iter__` moves each batch to `device`. Normalization (uint8 ->
-    [0,1] float32) happens in the step, not here."""
+    `host_batches()` yields the reference's numpy rows for each step
+    (this rank's slice on a `mesh`); `__iter__` moves each batch to
+    `device`. Normalization (uint8 -> [0,1] float32) happens in the step,
+    not here."""
 
     dataset: Dataset
     global_batch: int
     device: torch.device | str = "cuda"
     seed: int = 0
     start_step: int = 0
+    mesh: Mesh | None = None
 
     def __post_init__(self):
         if isinstance(self.device, (list, tuple)):
             raise NotImplementedError(
-                f"a batch sharded over {len(self.device)} devices joins the "
-                "port with ROADMAP §1 item 12 (data and tensor parallelism)")
+                f"a batch over {len(self.device)} devices of one process: "
+                "the port runs one device per process (ROADMAP §1 item 12's "
+                "stated departure); split the batch over ranks with a mesh")
         self.device = torch.device(self.device)
-        if (torch.distributed.is_available()
-                and torch.distributed.is_initialized()
-                and torch.distributed.get_world_size() > 1):
-            raise NotImplementedError(
-                "a batch split over processes joins the port with ROADMAP "
-                "§1 item 12 (data and tensor parallelism)")
+        if self.mesh is None and device_count() > 1:
+            raise ValueError(
+                f"{device_count()} ranks and no mesh: pass the mesh, so "
+                "each rank loads its slice of the global batch")
 
     def at_step(self, step: int) -> "ShardedBatcher":
         """A batcher positioned at `step` (TrainLoop recovery re-seek)."""
         return dataclasses.replace(self, start_step=step)
 
     def host_batches(self) -> Iterator[dict[str, np.ndarray]]:
-        """Host-side half of the stream: each step's numpy batch, BEFORE
-        device placement (`DevicePrefetcher` pulls these in its worker)."""
+        """Host-side half of the stream: this rank's numpy slice of each
+        step's global batch, BEFORE device placement (`DevicePrefetcher`
+        pulls these in its worker)."""
         n = self.dataset.train_images.shape[0]
+        ranks = 1 if self.mesh is None else self.mesh.size
+        rank = 0 if self.mesh is None else self.mesh.rank
         if self.global_batch < 1:
             raise ValueError(f"global batch must be >= 1, got "
                              f"{self.global_batch}")
+        if self.global_batch % ranks:
+            raise ValueError(f"global batch {self.global_batch} does not "
+                             f"divide evenly across {ranks} ranks")
+        local = self.global_batch // ranks
         if self.global_batch > n:
             raise ValueError(
                 f"global batch {self.global_batch} exceeds dataset size {n}: "
@@ -92,9 +107,10 @@ class ShardedBatcher:
             )):
                 if b < skip:
                     continue
+                mine = idx[rank * local:(rank + 1) * local]
                 yield {
-                    "image": self.dataset.train_images[idx],
-                    "label": self.dataset.train_labels[idx],
+                    "image": self.dataset.train_images[mine],
+                    "label": self.dataset.train_labels[mine],
                 }
             skip = 0
             epoch += 1
@@ -106,31 +122,63 @@ class ShardedBatcher:
 
 
 class DeviceDataset:
-    def __init__(self, dataset: Dataset, device: torch.device | str):
+    """The training split resident on the device (see the module
+    docstring); `mesh` splits each drawn batch over ranks, and `shard`
+    keeps 1/N of the rows on each rank (shuffled once by `seed`)."""
+
+    def __init__(self, dataset: Dataset, device: torch.device | str, *,
+                 mesh: Mesh | None = None, shard: bool = False,
+                 seed: int = 0):
         self.device = torch.device(device)
+        self.mesh = mesh
+        self.sharded = shard
+        self.ranks = 1 if mesh is None else mesh.size
+        self.rank = 0 if mesh is None else mesh.rank
         self.n = int(dataset.train_images.shape[0])
         self.image_shape = tuple(dataset.train_images.shape[1:])
-        flat = np.ascontiguousarray(dataset.train_images).reshape(self.n, -1)
-        self.images = torch.from_numpy(flat).to(self.device)
+        images = dataset.train_images.reshape(self.n, -1)
+        labels = dataset.train_labels
+        if shard:
+            # one seeded global shuffle, so that class order in the file
+            # cannot skew a shard; equal shards
+            perm = np.random.Generator(
+                np.random.Philox(key=[seed, 0xD5])).permutation(self.n)
+            per = self.n // self.ranks
+            mine = perm[self.rank * per:(self.rank + 1) * per]
+            images, labels = images[mine], labels[mine]
+            self.n = per * self.ranks
+        self.images = torch.from_numpy(np.ascontiguousarray(images)).to(
+            self.device)
         self.labels = torch.from_numpy(
-            np.ascontiguousarray(dataset.train_labels, np.int32)).to(
-                self.device)
+            np.ascontiguousarray(labels, np.int32)).to(self.device)
 
     def nbytes(self) -> int:
-        """Device bytes the resident split takes."""
+        """Device bytes the resident rows take on this rank."""
         return (self.images.numel() * self.images.element_size()
                 + self.labels.numel() * self.labels.element_size())
 
     def sample(self, gen: torch.Generator, batch: int) -> dict:
-        """A with-replacement batch drawn from `gen` (a generator on this
-        dataset's device): ``{"image": uint8 [B, H, W, C], "label": int32
-        [B]}``."""
-        idx = torch.randint(0, self.n, (batch,), generator=gen,
-                            device=self.device)
+        """This rank's slice of a with-replacement global batch of `batch`
+        rows drawn from `gen` (a generator on this dataset's device):
+        ``{"image": uint8 [B/N, H, W, C], "label": int32 [B/N]}``. Every
+        rank draws the same global indices and keeps its rows; sharded,
+        the draw is ``[N, B/N]`` indices into each rank's own rows and the
+        rank keeps its row of it."""
+        if batch % self.ranks:
+            raise ValueError(f"batch {batch} % {self.ranks} ranks != 0")
+        local = batch // self.ranks
+        if self.sharded:
+            idx = torch.randint(0, self.images.shape[0], (self.ranks, local),
+                                generator=gen, device=self.device)[self.rank]
+        else:
+            idx = torch.randint(0, self.n, (batch,), generator=gen,
+                                device=self.device)
+            idx = idx[self.rank * local:(self.rank + 1) * local]
         return self.gather(idx)
 
     def gather(self, idx: torch.Tensor) -> dict:
-        """The rows at `idx` (a test feeds the reference's indices)."""
+        """The resident rows at `idx` (a test feeds the reference's
+        indices)."""
         idx = idx.to(self.device)
         images = torch.index_select(self.images, 0, idx)
         return {"image": images.reshape(-1, *self.image_shape),

@@ -32,6 +32,7 @@ import time
 import numpy as np
 import torch
 
+from dist_mnist_tpu_torch.cluster import coordination
 from dist_mnist_tpu_torch.hooks.base import Hook, EverySteps
 from dist_mnist_tpu_torch.obs import events as obs_events
 
@@ -337,7 +338,13 @@ class CheckpointHook(Hook):
             self._mgr.save(loop.state)
 
     def after_step(self, step, state, outputs):
-        if self._timer.should_trigger(step):
+        # a seconds cadence fires on each rank's own clock; every rank
+        # must save at the same step (a host all-reduce a step, with
+        # several ranks; a steps cadence needs none)
+        due = self._timer.should_trigger(step)
+        if self._timer.every_secs is not None:
+            due = coordination.any_rank(due)
+        if due:
             self._timer.mark()
             # journal the save as a `checkpoint` span — HOST-SIDE DISPATCH
             # only (async managers return at the fork/handoff; the paired

@@ -45,6 +45,17 @@ class LeNet5:
         fc2 = 512 * self.num_classes * 2
         return float(conv1 + conv2 + fc1 + fc2)
 
+    def dropout_masks(self, gen, x, *, global_batch=None, offset=0):
+        """fc1's keep-mask ``[B, 512]`` for the batch `x`: ``uniform[0, 1)
+        < 1 - rate`` drawn from `gen` for `global_batch` rows (default
+        x's), rows ``offset : offset + B`` kept (a rank's slice of a
+        global draw; the same numbers `apply` draws from `gen`)."""
+        b = x.shape[0]
+        rows = b if global_batch is None else global_batch
+        keep = torch.rand((rows, 512), generator=gen, device=x.device) \
+            < 1.0 - self.dropout_rate
+        return keep[offset:offset + b]
+
     def apply(self, params, state, x, *, train=False, rng=None,
               dropout_mask=None):
         x = x.to(self.compute_dtype)

@@ -35,6 +35,11 @@ class MLP:
         return 2.0 * (in_dim * self.hidden_units
                       + self.hidden_units * self.num_classes)
 
+    def dropout_masks(self, gen, x, *, global_batch=None, offset=0):
+        """None: the model has no dropout."""
+        del gen, x, global_batch, offset
+        return None
+
     def apply(self, params, state, x, *, train=False, rng=None,
               dropout_mask=None):
         del train, rng, dropout_mask  # no dropout in this model

@@ -182,17 +182,22 @@ class ViTTiny:
                 params[f"block{i}"] = block
         return params, {}
 
-    def dropout_masks(self, gen: torch.Generator,
-                      x: torch.Tensor) -> torch.Tensor | None:
+    def dropout_masks(self, gen: torch.Generator, x: torch.Tensor, *,
+                      global_batch: int | None = None,
+                      offset: int = 0) -> torch.Tensor | None:
         """Every layer's keep-mask for the NHWC batch `x`, ``[depth, B,
         tokens, mlp_dim]`` bool, ``uniform[0, 1) < 1 - rate`` drawn from
-        `gen` (a generator on x's device); None without dropout."""
+        `gen` (a generator on x's device); None without dropout. Drawn for
+        `global_batch` rows (default x's), rows ``offset : offset + B``
+        kept: a rank's slice of a global draw."""
         if self.dropout_rate == 0.0:
             return None
-        shape = (self.depth, x.shape[0], self.n_tokens(x.shape),
-                 self.mlp_dim)
-        return torch.rand(shape, generator=gen, device=x.device) \
+        b = x.shape[0]
+        rows = b if global_batch is None else global_batch
+        shape = (self.depth, rows, self.n_tokens(x.shape), self.mlp_dim)
+        keep = torch.rand(shape, generator=gen, device=x.device) \
             < 1.0 - self.dropout_rate
+        return keep if rows == b else keep[:, offset:offset + b]
 
     def _attention(self, p, x, mask=None):
         if self.attention_impl == "xla":

@@ -135,6 +135,11 @@ def max_pool(x: torch.Tensor, window: int = 2,
     return y.permute(0, 2, 3, 1)
 
 
+def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
+    """NHWC -> NC: the f32 mean over H and W, back in x's dtype."""
+    return x.to(torch.float32).mean(dim=(1, 2)).to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # input scaling / regularization / activations
 
@@ -223,6 +228,60 @@ def layer_norm(p: Params, x: torch.Tensor, *,
     var = ordered_sum(torch.square(xf - mean), -1, keepdim=True) / width
     y = (xf - mean) * torch.rsqrt(var + eps)
     return (y * p["scale"] + p["bias"]).to(x.dtype)
+
+
+def init_batch_norm(dim: int) -> tuple[Params, Params]:
+    """(params, state): scale and bias, and the running statistics the
+    forward threads through (never assigned in place)."""
+    params = {"scale": torch.ones(dim), "bias": torch.zeros(dim)}
+    state = {"mean": torch.zeros(dim), "var": torch.ones(dim)}
+    return params, state
+
+
+def batch_norm(p: Params, state: Params, x: torch.Tensor, *, train: bool,
+               momentum: float = 0.9,
+               eps: float = 1e-5) -> tuple[torch.Tensor, Params]:
+    """NHWC batch norm with the reference's rule: in training, f32
+    statistics over N, H and W, the BIASED variance (the mean of the
+    squared deviations from the mean, two passes), running statistics
+    ``momentum * old + (1 - momentum) * batch``; in eval the running
+    statistics; then ``(x - mean) * rsqrt(var + eps) * scale + bias`` in
+    f32, back in x's dtype. (`F.batch_norm` updates with the unbiased
+    variance and weighs the new value by its momentum.)
+
+    Synchronized: when a mesh of more than one rank is ambient
+    (`cluster.mesh.activate`, as the training step sets it), the
+    statistics are over the GLOBAL batch, each pass's sums all-reduced by
+    an all-reduce that autograd differentiates, as XLA inserts for the
+    reference when the batch is sharded."""
+    from dist_mnist_tpu_torch.cluster.mesh import ambient_mesh
+
+    xf = x.to(torch.float32)
+    if not train:
+        mean, var = state["mean"], state["var"]
+        new_state = state
+    else:
+        dims = tuple(range(x.ndim - 1))
+        mesh = ambient_mesh()
+        if mesh is None or mesh.size == 1:
+            mean = xf.mean(dims)
+            var = torch.square(xf - mean).mean(dims)
+        else:
+            from dist_mnist_tpu_torch.parallel.collectives import (
+                all_reduce_sum,
+            )
+
+            count = torch.full((), float(xf.numel() // xf.shape[-1]
+                                         * mesh.size), device=xf.device)
+            mean = all_reduce_sum(xf.sum(dims), mesh) / count
+            var = all_reduce_sum(torch.square(xf - mean).sum(dims),
+                                 mesh) / count
+        new_state = {
+            "mean": momentum * state["mean"] + (1 - momentum) * mean.detach(),
+            "var": momentum * state["var"] + (1 - momentum) * var.detach(),
+        }
+    y = (xf - mean) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]
+    return y.to(x.dtype), new_state
 
 
 def init_attention(gen, dim: int, num_heads: int) -> Params:

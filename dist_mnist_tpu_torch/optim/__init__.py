@@ -5,9 +5,8 @@ trees of tensors, composable with `chain`. `adam(fused=True)` and
 CUDA kernel (`ops/kernels/fused_adam.py`).
 
 `build_optimizer` builds a config's optimizer as the reference's
-`cli/train.py build_optimizer` does. The reference's
-`gradient_accumulation` (`optim/sync.py`) joins with the data-parallel
-slice.
+`cli/train.py build_optimizer` does, `replicas_to_aggregate > 1` as
+`gradient_accumulation` (`sync.py`) around it.
 """
 
 from dist_mnist_tpu_torch.optim import schedules
@@ -22,20 +21,20 @@ from dist_mnist_tpu_torch.optim.base import (
     scale,
 )
 from dist_mnist_tpu_torch.optim.sgd import momentum, sgd
+from dist_mnist_tpu_torch.optim.sync import gradient_accumulation
 
 
 def build_optimizer(cfg) -> Optimizer:
     """The optimizer a `configs.Config` names: its base rule (decoupled
     weight decay folded into adamw), preceded by the global-norm clip and
-    L2 decay it asks for, on a constant or cosine learning rate."""
+    L2 decay it asks for, on a constant or cosine learning rate; with
+    ``replicas_to_aggregate = k > 1``, applied once per k steps on the
+    mean gradient (the cosine horizon counted in updates, k steps each)."""
     aggregate = max(1, cfg.replicas_to_aggregate or 1)
-    if aggregate > 1:
-        raise NotImplementedError(
-            "replicas_to_aggregate > 1 (gradient accumulation) joins the "
-            "port with the data-parallel slice")
     if cfg.lr_schedule == "cosine":
-        lr = schedules.cosine_decay(cfg.learning_rate, max(1, cfg.train_steps),
-                                    max(0, cfg.warmup_steps))
+        lr = schedules.cosine_decay(cfg.learning_rate,
+                                    max(1, cfg.train_steps // aggregate),
+                                    max(0, cfg.warmup_steps // aggregate))
     else:
         lr = cfg.learning_rate
     if cfg.optimizer == "adam" and cfg.weight_decay:
@@ -54,7 +53,8 @@ def build_optimizer(cfg) -> Optimizer:
     if cfg.weight_decay and not wd_handled:
         parts.append(add_decayed_weights(cfg.weight_decay))
     parts.append(base)
-    return chain(*parts) if len(parts) > 1 else base
+    opt = chain(*parts) if len(parts) > 1 else base
+    return gradient_accumulation(opt, aggregate) if aggregate > 1 else opt
 
 
 __all__ = [
@@ -70,6 +70,7 @@ __all__ = [
     "fused_adamw",
     "sgd",
     "momentum",
+    "gradient_accumulation",
     "schedules",
     "build_optimizer",
 ]

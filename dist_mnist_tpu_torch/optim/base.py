@@ -12,6 +12,8 @@ waits on the device.
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Any, Callable, NamedTuple
 
 import torch
@@ -58,11 +60,35 @@ def scale(factor: float) -> Optimizer:
     )
 
 
+_NORM = threading.local()
+
+
+@contextlib.contextmanager
+def sum_of_squares_over(fn: Callable[[Any], torch.Tensor]):
+    """Inside the block, `global_norm(tree)` is ``sqrt(fn(tree))``: under
+    FSDP a rank holds slices of some leaves, and the step passes the
+    function that adds the slices' sums over ranks (the norm the
+    reference's GSPMD program computes over the global arrays)."""
+    prev = getattr(_NORM, "fn", None)
+    _NORM.fn = fn
+    try:
+        yield
+    finally:
+        _NORM.fn = prev
+
+
+def sum_of_squares(tree) -> torch.Tensor:
+    """The sum over leaves of each leaf's f32 sum of squares, summed in
+    the reference's order."""
+    return sum(torch.sum(torch.square(x.to(torch.float32)))
+               for x in leaves(tree))
+
+
 def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum over leaves of each leaf's f32 sum of squares, summed
-    in the reference's order."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
-                          for x in leaves(tree)))
+    """sqrt of `sum_of_squares` (or of the function `sum_of_squares_over`
+    installed)."""
+    fn = getattr(_NORM, "fn", None)
+    return torch.sqrt(fn(tree) if fn is not None else sum_of_squares(tree))
 
 
 def clip_factor(norm: torch.Tensor, max_norm: float) -> torch.Tensor:

@@ -1,0 +1,212 @@
+"""The collectives of the data-parallel step (port of the reference
+`parallel/collectives.py`).
+
+In the reference, GSPMD inserts the gradient all-reduce, the FSDP
+all-gather and reduce-scatter, and the batch-norm statistics' all-reduce
+when the batch is sharded on the ``data`` axis. Here the step writes them
+out over the mesh's process group:
+
+- `psum_mean`: the mean of a gradient tree over the ranks, one all-reduce
+  of one flat f32 buffer (never one call per leaf);
+- `gather_leaves` / `reduce_scatter_leaves`: the FSDP pair, each one call
+  over a flat buffer laid out ``[ranks, chunk]``, rank r's chunk holding
+  its slice of every sharded leaf;
+- `all_reduce_sum`: an all-reduce that autograd differentiates (its
+  backward all-reduces the cotangent), for synchronized batch norm.
+
+Every call adds its payload bytes to ``mesh.stats`` (`collective_stats`),
+which the training CLI reports per step. `ring_shift` and
+`all_to_all_heads` join with ROADMAP §1 item 11.
+"""
+
+from __future__ import annotations
+
+import collections
+
+import torch
+import torch.distributed as dist
+
+from dist_mnist_tpu_torch.cluster.mesh import Mesh
+from dist_mnist_tpu_torch.utils.tree import flatten_with_path, map_with_path
+
+
+def collective_stats(mesh: Mesh) -> collections.Counter:
+    """Bytes each collective moved on `mesh` so far (payload per rank:
+    the tensor this rank contributes), and its call counts."""
+    return mesh.stats
+
+
+def _count(mesh: Mesh, name: str, t: torch.Tensor) -> None:
+    stats = collective_stats(mesh)
+    stats[f"{name}_bytes"] += t.numel() * t.element_size()
+    stats[f"{name}_calls"] += 1
+
+
+def all_reduce_(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """Sum `t` over the mesh's ranks, in place (no-op on one rank)."""
+    if mesh.size == 1:
+        return t
+    _count(mesh, "all_reduce", t)
+    dist.all_reduce(t, group=mesh.group)
+    return t
+
+
+def all_gather_flat(chunk: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """``[ranks * n]``: every rank's 1-D `chunk` of n elements, rank 0's
+    first."""
+    if mesh.size == 1:
+        return chunk
+    _count(mesh, "all_gather", chunk)
+    out = chunk.new_empty(mesh.size * chunk.numel())
+    dist.all_gather_into_tensor(out, chunk.contiguous(), group=mesh.group)
+    return out
+
+
+def reduce_scatter_flat(flat: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """This rank's n elements of the sum over ranks of `flat`
+    (``[ranks * n]``)."""
+    if mesh.size == 1:
+        return flat
+    _count(mesh, "reduce_scatter", flat)
+    out = flat.new_empty(flat.numel() // mesh.size)
+    dist.reduce_scatter_tensor(out, flat.contiguous(), group=mesh.group)
+    return out
+
+
+def _divide(t: torch.Tensor, n: int) -> torch.Tensor:
+    """`t / n` as an IEEE division by a tensor on t's device (the
+    reference divides; torch turns a division by a Python number into a
+    multiply on CUDA)."""
+    return t / torch.full((), float(n), dtype=t.dtype, device=t.device)
+
+
+def psum_mean(tree, mesh: Mesh, extra: torch.Tensor | None = None):
+    """The mean over ranks of every leaf of `tree` (and of the 1-D
+    `extra`, e.g. the step's metrics): one all-reduce of one flat f32
+    buffer. Returns the tree (each leaf in its own dtype), or
+    ``(tree, extra)`` when `extra` is given. The reference's
+    ``lax.psum(g) / n``."""
+    flat = flatten_with_path(tree)
+    if mesh.size == 1:
+        return tree if extra is None else (tree, extra)
+    parts = [leaf.reshape(-1).to(torch.float32) for _, leaf in flat]
+    if extra is not None:
+        parts.append(extra.reshape(-1).to(torch.float32))
+    buf = _divide(all_reduce_(torch.cat(parts), mesh), mesh.size)
+    out, off = {}, 0
+    for path, leaf in flat:
+        n = leaf.numel()
+        out[path] = buf[off:off + n].view(leaf.shape).to(leaf.dtype)
+        off += n
+    reduced = map_with_path(lambda path, _: out[path], tree)
+    if extra is None:
+        return reduced
+    return reduced, buf[off:].to(extra.dtype)
+
+
+def gather_leaves(shards: list[torch.Tensor], dims: list[int],
+                  mesh: Mesh) -> list[torch.Tensor]:
+    """The full leaves of FSDP shards: shard i holds rank r's slice of
+    leaf i along dim ``dims[i]``. One all-gather of a flat buffer per
+    dtype."""
+    if mesh.size == 1 or not shards:
+        return list(shards)
+    out: list = [None] * len(shards)
+    by_dtype: dict = {}
+    for i, s in enumerate(shards):
+        by_dtype.setdefault(s.dtype, []).append(i)
+    for idx in by_dtype.values():
+        moved = [shards[i].movedim(dims[i], 0) for i in idx]
+        chunk = torch.cat([m.reshape(-1) for m in moved])
+        full = all_gather_flat(chunk, mesh).view(mesh.size, -1)
+        off = 0
+        for i, m in zip(idx, moved):
+            n = m.numel()
+            block = full[:, off:off + n].reshape(mesh.size * m.shape[0],
+                                                 *m.shape[1:])
+            out[i] = block.movedim(0, dims[i]).contiguous()
+            off += n
+    return out
+
+
+def reduce_scatter_leaves(leaves: list[torch.Tensor], dims: list[int],
+                          mesh: Mesh) -> list[torch.Tensor]:
+    """This rank's slice (along ``dims[i]``) of the MEAN over ranks of
+    each full leaf: one reduce-scatter of a flat f32 buffer laid out
+    ``[ranks, chunk]``."""
+    if mesh.size == 1 or not leaves:
+        return list(leaves)
+    n_ranks = mesh.size
+    rows = [g.movedim(d, 0).reshape(n_ranks, -1).to(torch.float32)
+            for g, d in zip(leaves, dims)]
+    flat = torch.cat(rows, dim=1).reshape(-1)
+    mine = _divide(reduce_scatter_flat(flat, mesh), n_ranks)
+    out, off = [], 0
+    for g, d, r in zip(leaves, dims, rows):
+        n = r.shape[1]
+        moved_shape = (g.shape[d] // n_ranks,
+                       *[s for i, s in enumerate(g.shape) if i != d])
+        out.append(mine[off:off + n].reshape(moved_shape).movedim(0, d)
+                   .contiguous().to(g.dtype))
+        off += n
+    return out
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """Sum over ranks whose backward sums the cotangent over ranks: each
+    rank's loss depends on every rank's contribution, so the gradient
+    reaching a contribution is the sum of every rank's cotangent."""
+
+    @staticmethod
+    def forward(ctx, t, mesh):
+        ctx.mesh = mesh
+        return all_reduce_(t.clone(), mesh)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce_(grad.clone(), ctx.mesh), None
+
+
+def all_reduce_sum(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """Differentiable sum of `t` over the mesh's ranks (`t` on one
+    rank)."""
+    if mesh.size == 1:
+        return t
+    return _AllReduceSum.apply(t, mesh)
+
+
+def make_explicit_dp_step(model, optimizer, mesh: Mesh, *, loss_fn=None):
+    """The reference's hand-written shard_map DP step: each rank's
+    forward and batch-norm statistics over its own slice (per-replica
+    BN), the gradients mean-all-reduced before the update, the BN running
+    statistics, loss and accuracy averaged over ranks after it. The main
+    path (`train/step.make_train_step` under a mesh) is the GSPMD
+    counterpart: its batch norm is synchronized. ``step(state, batch) ->
+    (state, metrics)`` on this rank's slice of the batch."""
+    from dist_mnist_tpu_torch.ops import losses, metrics
+    from dist_mnist_tpu_torch.optim.base import apply_updates
+    from dist_mnist_tpu_torch.train.state import TrainState
+    from dist_mnist_tpu_torch.train.step import loss_and_grads
+
+    loss_fn = loss_fn or losses.softmax_cross_entropy
+
+    def step(state: TrainState, batch):
+        loss, logits, new_ms, grads = loss_and_grads(
+            model, loss_fn, state.params, state.model_state, batch,
+            rng=state.rng, split=(mesh.rank, mesh.size))
+        with torch.no_grad():
+            acc = metrics.accuracy(logits, batch["label"])
+            grads, means = psum_mean(
+                grads, mesh, torch.stack([loss.to(torch.float32),
+                                          acc.to(torch.float32)]))
+            new_ms = psum_mean(new_ms, mesh)
+            updates, new_opt = optimizer.update(grads, state.opt_state,
+                                                state.params)
+            new_state = TrainState(
+                step=state.step + 1,
+                params=apply_updates(state.params, updates),
+                model_state=new_ms, opt_state=new_opt, rng=state.rng,
+                placement=state.placement)
+        return new_state, {"loss": means[0], "accuracy": means[1]}
+
+    return step

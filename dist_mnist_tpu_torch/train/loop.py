@@ -37,6 +37,7 @@ from typing import Iterable, Sequence
 
 import torch
 
+from dist_mnist_tpu_torch.cluster import coordination
 from dist_mnist_tpu_torch.faults.goodput import GoodputClock
 from dist_mnist_tpu_torch.hooks.base import Hook
 from dist_mnist_tpu_torch.obs import events
@@ -223,7 +224,10 @@ class TrainLoop:
             while not self.stop.should_stop():
                 # preemption handshake: consumed only at step boundaries,
                 # so the saved checkpoint is always a whole-step state
-                if self.preemption is not None and self.preemption.requested():
+                # (with several ranks, a notice any rank holds stops all
+                # of them at the same boundary: one host all-reduce a step)
+                if self.preemption is not None and coordination.any_rank(
+                        self.preemption.requested()):
                     self._honor_preemption()
                     break
                 t_feed = time.monotonic()

@@ -1,5 +1,5 @@
 """TrainState — everything a training job's next step depends on (port
-of the reference `train/state.py`, one device).
+of the reference `train/state.py`).
 
 `step` is an int32 tensor on the device (the global step), `params` the
 f32 master weights, `opt_state` the optimizer's slots and counter. The
@@ -8,11 +8,17 @@ device from which every step draws its batch indices, then its dropout
 mask; ``rng.get_state()`` is the bytes a checkpoint keeps and
 ``rng.set_state()`` restores them exactly. A step returns a new
 TrainState and draws from the same generator.
+
+On a mesh, every rank holds the same state, except that under FSDP each
+sharded leaf is this rank's slice; `placement`
+(`parallel.sharding.Placement`, None for a state never placed) says
+which leaves those are and along which dim.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from typing import Any
 
 import numpy as np
@@ -28,6 +34,7 @@ class TrainState:
     model_state: Any  # {} for stateless models
     opt_state: Any  # optimizer slots (Adam m/v + count)
     rng: torch.Generator  # batch sampling and dropout, on the device
+    placement: Any = None  # parallel.sharding.Placement, or None
 
     @property
     def step_int(self) -> int:
@@ -42,8 +49,10 @@ def _nbytes(tree) -> int:
 
 
 def state_memory_bytes(state: TrainState) -> dict:
-    """Device bytes of the resident state: params, optimizer slots (and
-    counter) and model state, and their total."""
+    """Bytes this rank's device holds for the resident state under its
+    actual placement: params, optimizer slots (and counter) and model
+    state, and their total. A replicated leaf costs its full size on
+    every rank, an FSDP leaf its 1/N slice."""
     out = {
         "param_bytes": _nbytes(state.params),
         "opt_state_bytes": _nbytes(state.opt_state),
@@ -51,6 +60,15 @@ def state_memory_bytes(state: TrainState) -> dict:
     }
     out["total_bytes"] = sum(out.values())
     return out
+
+
+def params_digest(params) -> str:
+    """sha256 of every leaf's bytes in the tree's leaf order (on the
+    host): equal digests mean bit-equal params."""
+    h = hashlib.sha256()
+    for x in leaves(params):
+        h.update(x.detach().to("cpu").contiguous().numpy().tobytes())
+    return h.hexdigest()
 
 
 def _seeds(seed: int) -> tuple[int, int]:

@@ -1,5 +1,4 @@
-"""The training and evaluation steps (port of the reference `train/step.py`,
-one device).
+"""The training and evaluation steps (port of the reference `train/step.py`).
 
 A step is forward, backward (`torch.autograd.grad` over the param leaves,
 so no `.grad` accumulates between steps), the optimizer update and the
@@ -18,12 +17,28 @@ policies are in `REMAT_POLICIES`. A generator's draws are not replayed by
 a recompute, so every random number the forward needs (the crop and flip,
 every layer's dropout keep-mask, `model.dropout_masks`) is drawn before
 the checkpointed region and passed in; the region draws nothing. The
-reference's fsdp param gather, grad-norm outputs and the model-state
-`_aux`/`_metric` contracts join with the slices that use them.
+reference's grad-norm outputs and the model-state `_aux`/`_metric`
+contracts join with the slices that use them.
+
+On a mesh (`cluster/mesh.py`) of N ranks, each rank runs the step on its
+slice of the global batch: under DP the params are replicated and the
+gradients' mean is one all-reduce of a flat buffer, the loss and accuracy
+riding in it (`parallel/collectives.psum_mean`); under FSDP
+(`parallel/sharding.py`) the sharded params are all-gathered before the
+forward, their gradients reduce-scattered, and each rank's optimizer
+updates its slices, the global-norm clip adding the slices' sums of
+squares over ranks. Batch norm is synchronized over the ranks (the mesh
+is ambient during the forward, `ops/nn.batch_norm`). The metrics are
+global means, equal on every rank. Each rank draws the GLOBAL batch's
+random numbers from the same generator (the sampled indices, the crops
+and flips, the dropout masks) and takes its slice, so the trajectory
+does not depend on N, as the reference's does not. Without a mesh a step
+runs on one device, the same code with no collective.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Callable
 
@@ -35,9 +50,28 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
+from dist_mnist_tpu_torch.cluster.mesh import (
+    AXES,
+    Mesh,
+    activate,
+    validate_mesh,
+)
 from dist_mnist_tpu_torch.data.augment import random_crop_flip
 from dist_mnist_tpu_torch.ops import losses, metrics, nn
-from dist_mnist_tpu_torch.optim.base import Optimizer, apply_updates
+from dist_mnist_tpu_torch.optim.base import (
+    Optimizer,
+    apply_updates,
+    sum_of_squares,
+    sum_of_squares_over,
+)
+from dist_mnist_tpu_torch.parallel import collectives
+from dist_mnist_tpu_torch.parallel.sharding import (
+    DP_RULES,
+    ShardingRules,
+    gather_tree,
+    shard_train_state,
+    unshard_state,
+)
 from dist_mnist_tpu_torch.train.state import TrainState
 from dist_mnist_tpu_torch.utils.tree import flatten_with_path, map_with_path
 
@@ -99,38 +133,46 @@ def loss_and_grads(model, loss_fn: LossFn, params, model_state, batch, *,
                    dropout_mask: torch.Tensor | None = None,
                    remat: bool = False,
                    remat_policy: str = "dots_no_batch",
-                   augment: bool = False):
+                   augment: bool = False,
+                   split: tuple[int, int] = (0, 1)):
     """Training forward and backward of one batch.
 
     Returns ``(loss, logits, new_model_state, grads)``: loss and logits
     detached, grads a tree shaped like `params` (f32 on f32 leaves).
     `augment` crops and flips the batch from `rng`; dropout draws from
     `rng` unless `dropout_mask` is given. `remat` recomputes the forward
-    in the backward under `remat_policy`."""
+    in the backward under `remat_policy`. ``split = (rank, ranks)`` says
+    the batch is this rank's slice of a global batch ``ranks`` times as
+    large: the crops, flips and dropout masks are drawn for the global
+    batch and this rank's rows taken."""
     _check_batch(batch)
     context_fn = resolve_remat_policy(remat_policy) if remat else None
+    rank, ranks = split
+    b = batch["image"].shape[0]
+    draw_kw = ({} if ranks == 1
+               else {"global_batch": b * ranks, "offset": rank * b})
     images = batch["image"]
     if augment:
         if rng is None:
             raise ValueError("augment draws its crops from rng; got None")
-        images = random_crop_flip(rng, images)
+        images = random_crop_flip(rng, images, **draw_kw)
     x = nn.normalize_images(images)
-    if remat and dropout_mask is None and rng is not None:
+    if (remat or ranks > 1) and dropout_mask is None and rng is not None:
         draw = getattr(model, "dropout_masks", None)
         if draw is None:
             raise NotImplementedError(
-                f"remat with dropout needs {type(model).__name__}."
-                "dropout_masks to draw the masks before the checkpointed "
-                "region")
-        dropout_mask = draw(rng, x)
+                f"remat or a batch split over ranks with dropout needs "
+                f"{type(model).__name__}.dropout_masks to draw the masks "
+                "before the forward")
+        dropout_mask = draw(rng, x, **draw_kw)
+        rng = None
     flat = flatten_with_path(params)
     tracked = {path: leaf.detach().requires_grad_() for path, leaf in flat}
 
     def forward(tracked_params):
         return model.apply(
             map_with_path(lambda path, _: tracked_params[path], params),
-            model_state, x, train=True, rng=None if remat else rng,
-            dropout_mask=dropout_mask)
+            model_state, x, train=True, rng=rng, dropout_mask=dropout_mask)
 
     with torch.enable_grad():
         if remat:
@@ -151,58 +193,141 @@ def loss_and_grads(model, loss_fn: LossFn, params, model_state, batch, *,
             map_with_path(lambda path, _: by_path[path], params))
 
 
+def _state_mesh(state: TrainState) -> Mesh:
+    """The mesh of a placed state; one rank on the state's device for a
+    state never placed."""
+    if state.placement is not None:
+        return state.placement.mesh
+    return Mesh(shape={axis: 1 for axis in AXES}, device=state.step.device)
+
+
+def _place(state: TrainState, mesh, rules: ShardingRules) -> TrainState:
+    """`state` placed on `mesh` by `rules` unless it already is placed."""
+    if state.placement is not None or mesh is None:
+        return state
+    return shard_train_state(state, mesh, rules)
+
+
+def _sharded_paths(state: TrainState) -> set | None:
+    """The param paths this rank holds slices of, or None when none."""
+    placement = state.placement
+    if placement is None or not placement.sharded:
+        return None
+    return {path for path, spec in flatten_with_path(placement.specs.params)
+            if spec.dim() is not None}
+
+
+def _reduce_grads(grads, state: TrainState, mesh, extra: torch.Tensor):
+    """The global mean gradient in this rank's placement (full leaves
+    under DP, slices under FSDP) and the mean of `extra` over ranks."""
+    sharded = _sharded_paths(state)
+    if sharded is None:
+        return collectives.psum_mean(grads, mesh, extra)
+    specs = dict(flatten_with_path(state.placement.specs.params))
+    flat = flatten_with_path(grads)
+    split = [(p, g) for p, g in flat if p in sharded]
+    whole = {p: g for p, g in flat if p not in sharded}
+    mine = collectives.reduce_scatter_leaves(
+        [g for _, g in split], [specs[p].dim() for p, _ in split], mesh)
+    whole, means = collectives.psum_mean(whole, mesh, extra)
+    by_path = {**dict(zip((p for p, _ in split), mine)), **whole}
+    return map_with_path(lambda p, _: by_path[p], grads), means
+
+
+def _fsdp_sum_of_squares(sharded: set, mesh):
+    """`sum_of_squares` of a param-shaped tree whose `sharded` leaves are
+    slices: the slices' sums added over ranks, the others counted once."""
+
+    def fn(tree):
+        flat = flatten_with_path(tree)
+        dev = flat[0][1].device
+        zero = torch.zeros((), dtype=torch.float32, device=dev)
+        part = sum_of_squares([x for p, x in flat if p in sharded]) + zero
+        rest = sum_of_squares([x for p, x in flat if p not in sharded]) + zero
+        return collectives.all_reduce_(part.reshape(1), mesh)[0] + rest
+
+    return fn
+
+
 def _train_core(model, optimizer: Optimizer, loss_fn: LossFn,
                 state: TrainState, batch, *, dropout_mask=None, **step_kw):
-    loss, logits, new_model_state, grads = loss_and_grads(
-        model, loss_fn, state.params, state.model_state, batch,
-        rng=state.rng, dropout_mask=dropout_mask, **step_kw)
+    """One step on this rank's slice of the batch (module docstring)."""
+    mesh = _state_mesh(state)
+    sharded = _sharded_paths(state)
+    params = state.params
+    if sharded is not None:
+        params = gather_tree(params, state.placement.specs.params, mesh)
+    with activate(mesh):
+        loss, logits, new_model_state, grads = loss_and_grads(
+            model, loss_fn, params, state.model_state, batch,
+            rng=state.rng, dropout_mask=dropout_mask,
+            split=(mesh.rank, mesh.size), **step_kw)
+    del params
     with torch.no_grad():
-        updates, new_opt_state = optimizer.update(grads, state.opt_state,
-                                                  state.params)
+        local = torch.stack([loss.to(torch.float32),
+                             metrics.accuracy(logits, batch["label"])])
+        grads, means = _reduce_grads(grads, state, mesh, local)
+        norm = (contextlib.nullcontext() if sharded is None
+                else sum_of_squares_over(_fsdp_sum_of_squares(sharded, mesh)))
+        with norm:
+            updates, new_opt_state = optimizer.update(grads, state.opt_state,
+                                                      state.params)
         new_state = TrainState(
             step=state.step + 1,
             params=apply_updates(state.params, updates),
             model_state=new_model_state,
             opt_state=new_opt_state,
             rng=state.rng,
+            placement=state.placement,
         )
-        out = {"loss": loss.to(torch.float32),
-               "accuracy": metrics.accuracy(logits, batch["label"])}
+        out = {"loss": means[0], "accuracy": means[1]}
     return new_state, out
 
 
-def make_train_step(model, optimizer: Optimizer, *,
+def make_train_step(model, optimizer: Optimizer, *, mesh=None,
+                    rules: ShardingRules = DP_RULES,
                     loss_fn: LossFn = losses.softmax_cross_entropy,
                     remat: bool = False, remat_policy: str = "dots_no_batch",
                     augment: bool = False):
     """``step(state, batch, *, dropout_mask=None) -> (state, metrics)`` on
     an explicit batch (uint8 images and int32 labels on the state's
-    device). Augmentation and dropout draw from ``state.rng``, in that
-    order, unless a keep-mask is given."""
+    device): on a `mesh`, this rank's slice of the global batch, and a
+    state not yet placed is placed by `rules` first. Augmentation and
+    dropout draw from ``state.rng``, in that order, unless a keep-mask
+    is given."""
     resolve_remat_policy(remat_policy)  # refuse a bad name up front
+    if mesh is not None:
+        validate_mesh(mesh)
     step_kw = dict(remat=remat, remat_policy=remat_policy, augment=augment)
 
     def step(state: TrainState, batch, *, dropout_mask=None):
-        return _train_core(model, optimizer, loss_fn, state, batch,
+        return _train_core(model, optimizer, loss_fn,
+                           _place(state, mesh, rules), batch,
                            dropout_mask=dropout_mask, **step_kw)
 
     return step
 
 
 def make_fused_train_step(model, optimizer: Optimizer, device_dataset,
-                          batch_size: int, *,
+                          batch_size: int, *, mesh=None,
+                          rules: ShardingRules = DP_RULES,
                           loss_fn: LossFn = losses.softmax_cross_entropy,
                           remat: bool = False,
                           remat_policy: str = "dots_no_batch",
                           augment: bool = False):
     """``step(state) -> (state, metrics)`` drawing its batch on the device
     from the resident dataset (`data.pipeline.DeviceDataset`): with-
-    replacement sampling from ``state.rng``, then augmentation and dropout
-    from the same generator. The host does no per-step data work."""
+    replacement sampling from ``state.rng`` (`batch_size` is global; on a
+    mesh the dataset gives this rank its slice), then augmentation and
+    dropout from the same generator. The host does no per-step data
+    work."""
     resolve_remat_policy(remat_policy)
+    if mesh is not None:
+        validate_mesh(mesh)
     step_kw = dict(remat=remat, remat_policy=remat_policy, augment=augment)
 
     def step(state: TrainState):
+        state = _place(state, mesh, rules)
         batch = device_dataset.sample(state.rng, batch_size)
         return _train_core(model, optimizer, loss_fn, state, batch,
                            **step_kw)
@@ -215,9 +340,9 @@ def make_scanned_train_fn(model, optimizer: Optimizer, device_dataset,
                           loss_fn: LossFn = losses.softmax_cross_entropy,
                           **step_kw):
     """``run(state) -> (state, metrics)``: `chunk` fused steps (`step_kw`:
-    remat, remat_policy, augment); the metrics are each one's mean over
-    the chunk, computed on the device (the reference's `lax.scan` returns
-    the same means)."""
+    mesh, rules, remat, remat_policy, augment); the metrics are each
+    one's mean over the chunk, computed on the device (the reference's
+    `lax.scan` returns the same means)."""
     one_step = make_fused_train_step(model, optimizer, device_dataset,
                                      batch_size, loss_fn=loss_fn, **step_kw)
 
@@ -237,9 +362,11 @@ def make_eval_step(model):
     summable device scalars, so a whole test set streams in fixed-size
     batches. Padding rows carry label -1: they add 0 to the loss sum
     (one-hot of -1 is the zero row), never count as correct, and are not
-    counted in n."""
+    counted in n. A state whose params are FSDP slices is gathered first
+    (a collective: `evaluate` gathers once for the whole split)."""
 
     def eval_step(state: TrainState, batch):
+        state = unshard_state(state)
         with torch.inference_mode():
             x = nn.normalize_images(batch["image"])
             y = batch["label"]
@@ -255,10 +382,20 @@ def make_eval_step(model):
 
 
 def evaluate(eval_step, state: TrainState, images: np.ndarray,
-             labels: np.ndarray, batch_size: int = 1000) -> dict:
+             labels: np.ndarray, batch_size: int = 1000,
+             mesh=None) -> dict:
     """Whole-split evaluation: pads the tail batch (label -1), keeps the
-    partial sums on the device and fetches them once at the end."""
+    partial sums on the device and fetches them once at the end. On a
+    mesh (default: the state's) each rank evaluates its slice of every
+    batch (the batch rounded up to a multiple of the ranks) and the sums
+    are all-reduced, so every rank returns the same numbers."""
+    if mesh is None:
+        mesh = _state_mesh(state)
+    state = unshard_state(state)
     device = state.step.device
+    ranks = mesh.size
+    batch_size = -(-batch_size // ranks) * ranks
+    local = batch_size // ranks
     n = images.shape[0]
     totals = None
     for i in range(0, n, batch_size):
@@ -269,12 +406,17 @@ def evaluate(eval_step, state: TrainState, images: np.ndarray,
             img = np.concatenate(
                 [img, np.zeros((pad, *img.shape[1:]), img.dtype)])
             lab = np.concatenate([lab, np.full((pad,), -1, lab.dtype)])
-        batch = {"image": torch.from_numpy(np.ascontiguousarray(img)).to(device),
+        rows = slice(mesh.rank * local, (mesh.rank + 1) * local)
+        batch = {"image": torch.from_numpy(
+                     np.ascontiguousarray(img[rows])).to(device),
                  "label": torch.from_numpy(
-                     np.ascontiguousarray(lab, np.int32)).to(device)}
+                     np.ascontiguousarray(lab[rows], np.int32)).to(device)}
         part = eval_step(state, batch)
         totals = part if totals is None else tuple(
             t + p for t, p in zip(totals, part))
+    if ranks > 1:
+        packed = torch.stack([t.to(torch.float64) for t in totals])
+        totals = tuple(collectives.all_reduce_(packed, mesh))
     total_loss, total_correct, total_n = (t.item() for t in totals)
     return {"loss": float(total_loss) / int(total_n),
             "accuracy": int(total_correct) / int(total_n),

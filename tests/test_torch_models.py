@@ -56,7 +56,9 @@ def _rel_err(got, want) -> float:
                                                 + 1e-12)
 
 
-@pytest.mark.parametrize("name", ["mlp_mnist", "lenet5_mnist"])
+@pytest.mark.parametrize("name", ["mlp_mnist", "lenet5_mnist",
+                                  "lenet5_fashion", "resnet20_cifar",
+                                  "resnet20_cifar_fsdp"])
 def test_config_entries_equal_reference_field_for_field(name):
     got, want = tconfigs.get_config(name), jconfigs.get_config(name)
     assert [f.name for f in dataclasses.fields(got)] == \

@@ -180,9 +180,19 @@ def test_build_optimizer_matches_reference(name, overrides):
 
 
 def test_build_optimizer_refuses_gradient_accumulation():
-    cfg = tconfigs.get_config("lenet5_mnist", replicas_to_aggregate=2)
-    with pytest.raises(NotImplementedError, match="accumulation"):
-        topt.build_optimizer(cfg)
+    """No longer refused: ``replicas_to_aggregate=2`` builds the
+    reference's accumulation around clip + Adam on the cosine horizon in
+    updates; updates, state (buffer, calls, inner slots) and params within
+    TOL of the reference's over two boundaries."""
+    from dist_mnist_tpu.cli.train import build_optimizer as jbuild
+
+    over = dict(replicas_to_aggregate=2, grad_clip_norm=1.0,
+                lr_schedule="cosine", warmup_steps=2, train_steps=8)
+    state = _run_both(
+        topt.build_optimizer(tconfigs.get_config("lenet5_mnist", **over)),
+        jbuild(jconfigs.get_config("lenet5_mnist", **over)), ODD_SHAPES,
+        steps=4, grad_scale=3.0)
+    assert int(state["calls"]) == 4
 
 
 def _leaf(shape, seed=0, dtype=torch.float32):

@@ -298,14 +298,10 @@ def test_absl_value_spellings():
 
 
 REFUSED = [
-    (["--replicas_to_aggregate=2"], "item 12"),
-    (["--mesh=data=2"], "item 12"),
-    (["--coordinator_address=localhost:1234"], "item 12"),
-    (["--num_processes=2"], "item 12"),
+    (["--mesh=model=2"], "item 12"),
     (["--host_device_count=8"], "item 12"),
-    (["--sharding=fsdp"], "item 12"),
+    (["--sharding=tp"], "item 12"),
     (["--input_pipeline=native"], "item 12"),
-    (["--input_pipeline=device_sharded"], "item 12"),
     (["--overlap"], "item 13"),
     (["--overlap_bucket_mb=2"], "item 13"),
     (["--overlap_chunk=ring"], "item 13"),
@@ -337,12 +333,36 @@ def test_refused_flags_name_their_roadmap_item(argv, item):
 
 
 def test_refused_config_fields_name_their_roadmap_item(data_dir):
-    for over, item in (({"sharding_rules": "fsdp"}, "item 12"),
+    for over, item in (({"sharding_rules": "tp"}, "item 12"),
                        ({"prng_impl": "rbg"}, "closing line"),
                        ({"overlap": True}, "item 13")):
         cfg = dataclasses.replace(get_config("mlp_mnist"), **over)
         with pytest.raises(NotImplementedError, match=item):
             cli.run_config(cfg, device="cpu", data_dir=data_dir)
+
+
+#: flags the data-parallel slice lifted from the refusals above
+LIFTED = [
+    ["--replicas_to_aggregate=2"],
+    ["--mesh=data=1"],
+    ["--sharding=fsdp"],
+    ["--input_pipeline=device_sharded"],
+    ["--coordinator_address=localhost:1234", "--num_processes=1"],
+    ["--platform=cpu"],
+]
+
+
+@pytest.mark.parametrize("argv", LIFTED, ids=[a[0].split("=")[0] + "="
+                                              for a in LIFTED])
+def test_lifted_flags_now_run(data_dir, argv):
+    """Each flag the data-parallel slice lifted trains on one process (a
+    coordinator address with one process is no group: a no-op)."""
+    state, final, ctx = cli.main([
+        "--device=cpu", "--config=mlp_mnist", f"--data_dir={data_dir}",
+        "--train_steps=4", "--eval_every=0", *argv])
+    assert state.step_int == 4
+    assert 0.0 <= final["accuracy"] <= 1.0
+    assert ctx["mesh"].size == 1
 
 
 def test_ps_era_flags_warn_and_still_train(data_dir, caplog):

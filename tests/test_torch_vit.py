@@ -444,7 +444,7 @@ def test_bench_config_mode_runs_a_small_width_on_cpu(monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("name,match", [
-    ("resnet20_cifar", "ResNet slice"),
+    ("vit_tiny_cifar_fsdp_tp", "item 12"),
     ("vit_tiny_cifar_ring_flash", "item 11"),
     ("vit_tiny_cifar_tp", "item 12"),
     ("no_such_config", "unknown config"),
