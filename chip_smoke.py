@@ -190,6 +190,29 @@ script. Phases (any failure exits nonzero before the final `ok` line):
    rank counting its launches over its loop: exactly 24 forward, 12 dQ
    and 12 dK/dV a step and no other kernel. Every run's startup line
    (the backend) and its collectives' bytes per step are printed;
+12b. tensor parallelism (`tensor_parallel`): two spawned rank processes
+   on the one card (gloo), a model = 2 mesh: `causal_tiny`'s decode
+   engine over int8 pages and then a dense cache under the seeded decode
+   loadgen (`TP_LOAD`), the chief driving and the follower following,
+   each rank's counters set to 0 just before each engine and read just
+   after: streams equal to the one-rank engine's on the card, each
+   rank's KV bytes half of one rank's on 2 of the 4 heads, exactly
+   `depth` `paged_attention` launches a rank per int8 decode step, no
+   kernel on the dense cache and no call of the paged plain version;
+   then `flash_attention_sharded` and `masked_flash_attention_sharded`
+   at B = 64, S = 65, 4 heads of 64, bf16: out, lse, dQ, dK and dV
+   bitwise the unsharded kernels' on the same inputs, one forward and
+   one backward launch a rank; `python -m dist_mnist_tpu_torch.cli.serve
+   --decode --mesh=model=2` (`TP_SERVE_REQUESTS`, every one ok); and two
+   `cli.launch` runs, `vit_tiny_cifar_tp` on 2 ranks (data 1 x model 2,
+   global batch 128) and `vit_tiny_cifar_fsdp_tp` on 4 (data 2 x model
+   2, 256), `TP_VIT_STEPS` steps each: finite falling losses, the same
+   on every rank, the replicated leaves' digests equal, per-rank params
+   + AdamW slots within `TP_STATE_RATIO_TOL` of `TP_STATE_RATIO` of DP's,
+   the model group's collectives counted (`tp_` keys), no kernel on the
+   "xla" ViT, and the chief's checkpoint restored here under DP equal to
+   the final params; and `paged_attention` timed at the TP step's shape
+   on 2 heads and on 4;
 13. time each kernel at the shapes its path gives it, beside its plain
    version and, where one exists, one library call computing the same
    function (for the Adam kernels `torch._fused_adam_`/`_fused_adamw_`, a
@@ -210,8 +233,9 @@ script. Phases (any failure exits nonzero before the final `ok` line):
    kernel of the same grid, block and arguments);
 14. print the `{"kernels": [...]}` line (nine kernels: the masked forward's
    Sq > 1 route apart from its Sq = 1 route; the flash rows with their
-   launches in `data_parallel`'s ViT run, both ranks), then, last, the
-   `ok` line.
+   launches in `data_parallel`'s ViT run, both ranks, and each rank's in
+   `tensor_parallel`; `paged_attention` with each rank's TP launches and
+   its times at 2 and 4 heads), then, last, the `ok` line.
 
 A failure prints `{"phase": "fail", "error": ...}` on stdout and the
 same message on stderr, and exits 1.
@@ -225,6 +249,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -2609,26 +2634,27 @@ def _rank_lines(output: str, rank: int, marker: str) -> list[str]:
             if line.startswith(tag) and marker in line]
 
 
-def _launch_ranks(args: list[str], tag: str, timeout: float = 420.0) -> list:
-    """`python -m dist_mnist_tpu_torch.cli.launch --num_processes=2 --
+def _launch_ranks(args: list[str], tag: str, timeout: float = 420.0,
+                  n: int = 2, extra: tuple = ()) -> list:
+    """`python -m dist_mnist_tpu_torch.cli.launch --num_processes=<n> --
     <args>` from the checkout; per rank: startup line, kernel launches,
-    collectives per step, resident bytes, final digest, logged losses.
-    Fails on a nonzero exit or a missing line."""
+    collectives per step, resident bytes, final digest, logged losses,
+    steps/s between its first and last rate lines, and the text after
+    each marker of `extra`. Fails on a nonzero exit or a missing line."""
     t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-m", "dist_mnist_tpu_torch.cli.launch",
-         "--num_processes=2", "--", *args],
+         f"--num_processes={n}", "--", *args],
         cwd=ROOT, capture_output=True, text=True, timeout=timeout)
     wall = time.perf_counter() - t0
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
-    (out_dir / f"data_parallel_{tag}.log").write_text(proc.stdout
-                                                       + proc.stderr)
+    (out_dir / f"launch_{tag}.log").write_text(proc.stdout + proc.stderr)
     if proc.returncode != 0:
-        fail(f"data_parallel {tag}: launch exited {proc.returncode}:\n"
+        fail(f"launch {tag}: exited {proc.returncode}:\n"
              + (proc.stdout + proc.stderr)[-4000:])
     ranks = []
-    for r in range(2):
+    for r in range(n):
         try:
             ranks.append({
                 "startup": _rank_lines(proc.stdout, r,
@@ -2645,10 +2671,13 @@ def _launch_ranks(args: list[str], tag: str, timeout: float = 420.0) -> list:
                     s.split("loss=")[1].split(",")[0])
                     for s in _rank_lines(proc.stdout, r, "INFO: step ")
                     if "loss=" in s},
+                "steps_per_sec": _log_rates(proc.stdout, r),
                 "done": _rank_lines(proc.stdout, r, "done: ")[0],
+                **{marker: _rank_lines(proc.stdout, r, marker)[0]
+                   for marker in extra},
             })
         except (IndexError, ValueError) as err:
-            fail(f"data_parallel {tag}: rank {r}'s output lacks a line "
+            fail(f"launch {tag}: rank {r}'s output lacks a line "
                  f"({err}):\n{proc.stdout[-4000:]}")
     ranks[0]["wall_s"] = wall
     return ranks
@@ -2811,6 +2840,510 @@ def data_parallel(torch, dev, reset_counts, read_counts) -> dict:
     out["vit_launches"] = {k: sum(rank["launches"][k]
                                   for rank in runs["vit_flash"])
                            for k in want}
+    return out
+
+
+#: the tensor-parallel phase: causal_tiny (registry defaults: dim 64,
+#: depth 2, 4 heads of 16, max_seq 64) served over model = 2, its int8
+#: pages of 16 tokens
+TP_LM_LAYOUTS = {"int8": dict(cache_layout="paged", kv_quant="int8"),
+                 "dense": {}}
+TP_SLOTS = 8
+TP_LOAD = dict(n_requests=32, concurrency=8, seed=11)
+TP_SERVE_REQUESTS = 32
+#: the sharded flash entry's check: ViT's B and S, 4 heads of 64, bf16
+TP_FLASH_SHAPE = (64, 65, 4, 64)
+#: ViT-Tiny through cli.launch: the 16-chip ladder's per-data-rank batch
+TP_VIT_STEPS = 10
+TP_VIT_RUNS = {"vit_tp": ("vit_tiny_cifar_tp", 1, 2, 128),
+               "vit_fsdp_tp": ("vit_tiny_cifar_fsdp_tp", 2, 2, 256)}
+#: per-rank params + AdamW slots against DP's, as the rules predict
+#: (PERF.md §6, PR 15: the block matrices halved over model, every leaf
+#: the FSDP rule also splits halved again)
+TP_STATE_RATIO = {"vit_tp": 0.5035633066466305,
+                  "vit_fsdp_tp": 0.251781684401826}
+TP_STATE_RATIO_TOL = 0.02
+#: the CLI's digest of a rank's leaves that no tensor-parallel rule splits
+TP_DIGEST = "model-replicated leaves digest: "
+
+
+def _tp_rank(rank: int, world: int, store: str, out_path: str) -> None:
+    """One rank of `tensor_parallel`'s two-rank group on the card (a
+    spawned process): the decode engine over model = 2 (int8 pages, then
+    a dense cache) under the seeded loadgen, the chief driving and the
+    follower following, each rank counting its own launches; then the
+    sharded flash entries against the unsharded kernels on the same
+    inputs. Writes its record (or its traceback) to `out_path`."""
+    import pickle
+    import traceback
+
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from dist_mnist_tpu_torch.cluster import coordination
+    from dist_mnist_tpu_torch.cluster.mesh import MeshSpec, make_mesh
+    from dist_mnist_tpu_torch.ops.kernels import flash_attention as fa_mod
+    from dist_mnist_tpu_torch.ops.kernels import masked_flash as mf_mod
+    from dist_mnist_tpu_torch.ops.kernels import paged_attention as pa_mod
+    from dist_mnist_tpu_torch.parallel.flash import (
+        flash_attention_sharded,
+        masked_flash_attention_sharded,
+    )
+    from dist_mnist_tpu_torch.serve import (
+        DecodeScheduler,
+        build_decode_engine,
+        run_decode_loadgen,
+    )
+
+    counters = (pa_mod.paged_attention, mf_mod.masked_flash_attention,
+                mf_mod.masked_flash_attention_backward,
+                fa_mod.flash_attention_forward, fa_mod.flash_attention_dq,
+                fa_mod.flash_attention_dkv)
+    plain_calls = {"n": 0}
+    plain = pa_mod.paged_attention_reference
+
+    def counted_plain(*args):
+        plain_calls["n"] += 1
+        return plain(*args)
+
+    def reset():
+        plain_calls["n"] = 0
+        for fn in counters:
+            fn.launches = 0
+
+    def read():
+        return {**{fn.__name__: fn.launches for fn in counters},
+                "paged_attention_reference_calls": plain_calls["n"]}
+
+    pa_mod.paged_attention_reference = counted_plain
+    out: dict = {}
+    try:
+        coordination.initialize_distributed(
+            num_processes=world, process_id=rank,
+            init_method=f"file://{store}", timeout_s=300)
+        mesh = make_mesh(MeshSpec(data=1, model=world))
+        out["startup"] = coordination.startup_line(coordination.context())
+        for layout, kw in TP_LM_LAYOUTS.items():
+            engine = build_decode_engine(mesh.device, seed=0,
+                                         max_slots=TP_SLOTS, mesh=mesh, **kw)
+            pool = engine.kv["k"].q if layout == "int8" else engine.kv["k"]
+            reset()
+            row = {"cache_heads": int(pool.shape[3])}
+            if engine.is_follower:
+                row["calls"] = engine.follow()
+            else:
+                try:
+                    engine.prewarm()
+                    sched = DecodeScheduler(engine)
+                    try:
+                        res = run_decode_loadgen(sched, keep_streams=True,
+                                                 **TP_LOAD)
+                    finally:
+                        sched.close()
+                finally:
+                    engine.close()
+                row.update(streams=res["streams"], ok=res["ok"])
+            torch.cuda.synchronize()
+            row.update(launches=read(), decode_steps=engine.decode_steps,
+                       rank_kv_bytes=engine.rank_kv_bytes,
+                       kv_stats=engine.kv_stats())
+            out[layout] = row
+        # the sharded flash entries, forward and backward, against the
+        # unsharded kernels on the same inputs (those launches uncounted)
+        gen = torch.Generator(device=mesh.device).manual_seed(15)
+        q, k, v, g = (torch.randn(TP_FLASH_SHAPE, generator=gen,
+                                  device=mesh.device).to(torch.bfloat16)
+                      for _ in range(4))
+        b, s, h, _ = TP_FLASH_SHAPE
+        lengths = torch.linspace(2, s, b, device=mesh.device).round().to(
+            torch.int32)
+        heads = slice(mesh.model_index * h // world,
+                      (mesh.model_index + 1) * h // world)
+        flash = {}
+        for name, sharded, whole in (
+                ("flash", lambda a, b_, c: flash_attention_sharded(
+                    a, b_, c, mesh=mesh), fa_mod.flash_attention),
+                ("masked", lambda a, b_, c: masked_flash_attention_sharded(
+                    a, b_, c, lengths, mesh=mesh),
+                 lambda a, b_, c: mf_mod.masked_flash_attention(
+                     a, b_, c, lengths))):
+            res = []
+            for i, fn in enumerate((sharded, whole)):
+                leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+                reset()
+                o = fn(*leaves)
+                grads = torch.autograd.grad(o, leaves, grad_outputs=g)
+                torch.cuda.synchronize()
+                if i == 0:
+                    launches = read()
+                res.append([o.detach()] + list(grads))
+            flash[name] = {
+                "equal": [bool(torch.equal(x, y)) for x, y in zip(*res)],
+                "max_abs_err": max(float((x.float() - y.float()).abs().max())
+                                   for x, y in zip(*res)),
+                "launches": launches}
+        # the lse of this rank's heads against the unsharded call's
+        local = [t[:, :, heads].contiguous() for t in (q, k, v)]
+        _, lse_local = fa_mod.flash_attention_forward(*local)
+        _, lse_whole = fa_mod.flash_attention_forward(q, k, v)
+        flash["flash"]["lse_equal"] = bool(torch.equal(
+            lse_local, lse_whole[:, heads]))
+        _, lse_local = mf_mod.masked_flash_attention_forward(
+            *local, lengths)
+        _, lse_whole = mf_mod.masked_flash_attention_forward(q, k, v,
+                                                             lengths)
+        flash["masked"]["lse_equal"] = bool(torch.equal(
+            lse_local, lse_whole[:, heads]))
+        out["flash"] = flash
+        result = {"ok": out}
+    except BaseException:  # noqa: BLE001 — handed to the parent
+        result = {"error": traceback.format_exc()}
+    finally:
+        pa_mod.paged_attention_reference = plain
+        coordination.shutdown()
+    with open(out_path, "wb") as fh:
+        pickle.dump(result, fh)
+
+
+def _tp_group(world: int = 2, timeout: float = 400.0) -> list:
+    """`_tp_rank` on `world` spawned processes sharing the card; each
+    rank's record, rank 0's first. Fails on an error, a hang or a
+    missing record, and leaves no process behind."""
+    import multiprocessing as mp
+    import pickle
+
+    tmp = ROOT / "chiprun_out" / "tp_group"
+    shutil.rmtree(tmp, ignore_errors=True)
+    tmp.mkdir(parents=True)
+    store = str(tmp / "store")
+    outs = [str(tmp / f"rank{r}.pkl") for r in range(world)]
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_tp_rank, args=(r, world, store, outs[r]))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout
+    try:
+        for p in procs:
+            p.join(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        hung = [p for p in procs if p.is_alive()]
+        for p in hung:
+            p.kill()
+        for p in procs:
+            p.join(timeout=30)
+    if hung:
+        fail(f"tensor_parallel: {len(hung)} of {world} ranks still running "
+             f"after {timeout}s")
+    records = []
+    for r, path in enumerate(outs):
+        if not Path(path).exists():
+            fail(f"tensor_parallel: rank {r} left no record (exit code "
+                 f"{procs[r].exitcode})")
+        with open(path, "rb") as fh:
+            res = pickle.load(fh)
+        if "error" in res:
+            fail(f"tensor_parallel: rank {r} raised:\n{res['error']}")
+        records.append(res["ok"])
+    return records
+
+
+def _tp_engine_one_rank(torch, dev, layout: str) -> dict:
+    """The same traffic through the one-rank engine on the card."""
+    from dist_mnist_tpu_torch.serve import (
+        DecodeScheduler,
+        build_decode_engine,
+        run_decode_loadgen,
+    )
+
+    engine = build_decode_engine(dev, seed=0, max_slots=TP_SLOTS,
+                                 **TP_LM_LAYOUTS[layout])
+    engine.prewarm()
+    sched = DecodeScheduler(engine)
+    try:
+        res = run_decode_loadgen(sched, keep_streams=True, **TP_LOAD)
+    finally:
+        sched.close()
+    torch.cuda.synchronize()
+    return {"streams": res["streams"], "ok": res["ok"],
+            "rank_kv_bytes": engine.rank_kv_bytes,
+            "decode_steps": engine.decode_steps}
+
+
+def time_tp_paged(torch, dev, bw: float, f32_peak: float) -> dict:
+    """`paged_attention` at the TP decode step's shape (causal_tiny: 9
+    rows, heads of 16, pages of 16, the widest table of 4 pages, the
+    loadgen's lengths up to 64) on a rank's 2 heads and on all 4, beside
+    the plain version, the launch floor and the bound (`graph_ms`)."""
+    from dist_mnist_tpu_torch.ops import quant as quant_mod
+    from dist_mnist_tpu_torch.ops.kernels.paged_attention import (
+        paged_attention,
+        paged_attention_cost,
+        paged_attention_launch_floor,
+        paged_attention_reference,
+    )
+
+    rows, d, t, n = TP_SLOTS + 1, 16, 16, 4
+    lengths = [33, 47, 21, 58, 40, 64, 29, 51, 1]
+    out = {}
+    for h in (2, 4):
+        gen = torch.Generator().manual_seed(41 + h)
+        pages = rows * n + n
+
+        def pool():
+            x = torch.randn(pages, t, h, d, generator=gen)
+            qz, scale = quant_mod.quantize_kv(x.to(dev))
+            return quant_mod.QuantizedArray(qz, scale, "kv_head")
+
+        kp, vp = pool(), pool()
+        q = torch.randn(rows, 1, h, d, generator=gen).to(dev)
+        table = torch.randperm(pages, generator=gen)[:rows * n].reshape(
+            rows, n).to(torch.int32).to(dev)
+        lens = torch.tensor(lengths, dtype=torch.int32).to(dev)
+        cost = paged_attention_cost(lens.cpu().numpy(), n, t, h, d)
+        t_bytes = cost["active_bytes"] / bw * 1e3
+        t_ops = cost["flops"] / f32_peak * 1e3
+        got = paged_attention(q, kp, vp, table, lens)
+        want = paged_attention_reference(q, kp, vp, table, lens)
+        out[h] = {
+            "kernel_ms": graph_ms(torch, lambda: paged_attention(
+                q, kp, vp, table, lens)),
+            "plain_ms": graph_ms(torch, lambda: paged_attention_reference(
+                q, kp, vp, table, lens)),
+            "launch_floor_ms": graph_ms(
+                torch, lambda: paged_attention_launch_floor(
+                    q, kp, vp, table, lens)),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "max_abs_err": float((got - want).abs().max())}
+        print(json.dumps({"phase": "time", "kernel": "paged_attention",
+                          "shape": f"tensor-parallel decode step: R={rows},"
+                                   f" H={h}, D={d}, T={t}, width {n}",
+                          **out[h]}), flush=True)
+    return out
+
+
+def _log_rates(output: str, rank: int) -> float | None:
+    """Steps/s of rank `rank` between its first and last
+    `StepCounterHook` lines, from their time stamps."""
+    import datetime
+
+    marks = []
+    for line in output.splitlines():
+        if line.startswith(f"[p{rank}] ") and "steps/sec" in line:
+            stamp = line[len(f"[p{rank}] "):].split(" ", 2)
+            when = datetime.datetime.strptime(
+                f"{stamp[0]} {stamp[1]}", "%Y-%m-%d %H:%M:%S,%f")
+            step = int(line.split("step ")[1].split(":")[0])
+            marks.append((when, step))
+    if len(marks) < 2:
+        return None
+    (t0, s0), (t1, s1) = marks[0], marks[-1]
+    return (s1 - s0) / max((t1 - t0).total_seconds(), 1e-9)
+
+
+def tensor_parallel(torch, dev, reset_counts, read_counts, bw: float,
+                    f32_peak: float) -> dict:
+    """Phase `tensor_parallel`: (1) two ranks on the card serve causal_tiny
+    over model = 2 (int8 pages, then dense) under the seeded loadgen:
+    streams bitwise the one-rank engine's, half its KV bytes a rank,
+    exactly `depth` `paged_attention` launches a rank per int8 decode
+    step on 2 heads and no call of its plain version; (2) `cli.serve
+    --decode --mesh=model=2`: every request ok; (3) the same two ranks:
+    the sharded flash entries at B = 64, S = 65, 4 heads of 64, bf16,
+    out, lse and dQ/dK/dV bitwise the unsharded kernels'; (4) ViT-Tiny
+    through `cli.launch`: `vit_tiny_cifar_tp` on 2 ranks (data 1 x model
+    2, global batch 128) and `vit_tiny_cifar_fsdp_tp` on 4 (data 2 x
+    model 2, 256), finite falling losses, replicated leaves the same bits
+    on every rank, per-rank state at the rules' share of DP's, and the
+    chief's last checkpoint restored under DP equal to the final params.
+    Returns the phase's record."""
+    from dist_mnist_tpu_torch import optim
+    from dist_mnist_tpu_torch.checkpoint import CheckpointManager
+    from dist_mnist_tpu_torch.configs import get_config
+    from dist_mnist_tpu_torch.models.registry import get_model
+    from dist_mnist_tpu_torch.train import (
+        create_train_state,
+        state_memory_bytes,
+    )
+    from dist_mnist_tpu_torch.train.state import params_digest
+
+    out = {"phase": "tensor_parallel"}
+    depth = get_model("causal_tiny").depth
+    # (1) + (3): the two-rank group, then the one-rank engine
+    t0 = time.perf_counter()
+    ranks = _tp_group()
+    out["group_wall_s"] = time.perf_counter() - t0
+    chief, follower = ranks
+    decode = {}
+    for layout in TP_LM_LAYOUTS:
+        one = _tp_engine_one_rank(torch, dev, layout)
+        rows = [r[layout] for r in ranks]
+        rec = {
+            "streams_equal": chief[layout]["streams"] == one["streams"],
+            "ok": chief[layout]["ok"],
+            "rank_kv_bytes": [r["rank_kv_bytes"] for r in rows],
+            "one_rank_kv_bytes": one["rank_kv_bytes"],
+            "kv_ratio": chief[layout]["rank_kv_bytes"]
+            / one["rank_kv_bytes"],
+            "cache_heads": [r["cache_heads"] for r in rows],
+            "decode_steps": [r["decode_steps"] for r in rows],
+            "one_rank_decode_steps": one["decode_steps"],
+            "launches": [r["launches"] for r in rows]}
+        decode[layout] = rec
+        print(json.dumps({"phase": "tensor_parallel", "decode": layout,
+                          **rec}), flush=True)
+        if not rec["streams_equal"] or rec["ok"] != TP_LOAD["n_requests"]:
+            fail(f"tensor_parallel {layout}: streams equal to the one-rank "
+                 f"engine's: {rec['streams_equal']}, {rec['ok']} ok")
+        if any(b * 2 != one["rank_kv_bytes"] for b in rec["rank_kv_bytes"]) \
+                or rec["cache_heads"] != [2, 2]:
+            fail(f"tensor_parallel {layout}: KV bytes a rank "
+                 f"{rec['rank_kv_bytes']} against one rank's "
+                 f"{one['rank_kv_bytes']}, heads {rec['cache_heads']}")
+        for r, row in enumerate(rows):
+            want = depth * row["decode_steps"] if layout == "int8" else 0
+            got = row["launches"]
+            if got["paged_attention"] != want or row["decode_steps"] == 0 \
+                    or got["paged_attention_reference_calls"] != 0 \
+                    or any(v for k, v in got.items()
+                           if k != "paged_attention"):
+                fail(f"tensor_parallel {layout}: rank {r} launches {got} "
+                     f"for {row['decode_steps']} decode steps (want "
+                     f"{depth} paged_attention a step on int8 pages, none "
+                     "on a dense cache, no other kernel, no plain call)")
+    out["decode"] = decode
+    flash = {name: [r["flash"][name] for r in ranks]
+             for name in ("flash", "masked")}
+    print(json.dumps({"phase": "tensor_parallel", "flash": flash,
+                      "shape": list(TP_FLASH_SHAPE)}), flush=True)
+    want = {"flash": {"flash_attention_forward": 1, "flash_attention_dq": 1,
+                      "flash_attention_dkv": 1},
+            "masked": {"masked_flash_attention": 1,
+                       "masked_flash_attention_backward": 2}}
+    for name, rows in flash.items():
+        for r, row in enumerate(rows):
+            got = {k: v for k, v in row["launches"].items() if v}
+            if row["equal"] != [True] * 4 or not row["lse_equal"] \
+                    or got != want[name]:
+                fail(f"tensor_parallel flash {name}: rank {r} out/dq/dk/dv "
+                     f"equal {row['equal']}, lse {row['lse_equal']}, "
+                     f"launches {got} (want {want[name]})")
+    out["flash"] = flash
+    if "backend gloo (ranks share a card)" not in chief["startup"]:
+        fail(f"tensor_parallel: startup {chief['startup']!r}")
+
+    # (2) the serving CLI spawns its own two ranks
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "dist_mnist_tpu_torch.cli.serve", "--decode",
+         "--mesh=model=2", f"--requests={TP_SERVE_REQUESTS}",
+         "--concurrency=8"],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    (ROOT / "chiprun_out" / "tp_serve.log").write_text(proc.stdout
+                                                       + proc.stderr)
+    if proc.returncode != 0:
+        fail(f"tensor_parallel cli.serve: exit {proc.returncode}:\n"
+             + (proc.stdout + proc.stderr)[-4000:])
+    body = "\n".join(line[5:] for line in proc.stdout.splitlines()
+                     if line.startswith("[p0] ") and " INFO" not in line
+                     and " WARNING" not in line)
+    summary = json.loads(body[body.index("{"):])
+    serve = {k: summary[k] for k in ("ok", "errors", "n_requests",
+                                     "decode_steps", "mesh",
+                                     "rank_kv_bytes", "ttft_p99_ms")
+             if k in summary}
+    serve["wall_s"] = time.perf_counter() - t0
+    print(json.dumps({"phase": "tensor_parallel", "cli_serve": serve}),
+          flush=True)
+    if summary["ok"] != TP_SERVE_REQUESTS \
+            or summary.get("mesh") != {"model": 2}:
+        fail(f"tensor_parallel cli.serve: {serve}")
+    out["cli_serve"] = serve
+
+    # (4) ViT-Tiny: TP on 2 ranks, FSDP x TP on 4
+    runs = {}
+    for tag, (name, data, model, batch) in TP_VIT_RUNS.items():
+        # ViT-Tiny's checkpoints (~64 MB a step) stay out of chiprun_out
+        ckpt = Path(tempfile.mkdtemp(prefix=f"tp_ckpt_{tag}_"))
+        ranks_out = _launch_ranks(
+            [f"--config={name}", f"--mesh=data={data},model={model}",
+             f"--batch_size={batch}", "--eval_every=0", "--log_every=5",
+             f"--train_steps={TP_VIT_STEPS}", f"--checkpoint_dir={ckpt}",
+             f"--checkpoint_every_steps={TP_VIT_STEPS}"], tag,
+            n=data * model, timeout=600, extra=(TP_DIGEST,))
+        runs[tag] = ranks_out
+        cfg = get_config(name)
+        vit = get_model(cfg.model, **cfg.model_kwargs)
+        target = create_train_state(vit, optim.build_optimizer(cfg), 0,
+                                    np.zeros((1, 32, 32, 3), np.uint8), dev)
+        dp_bytes = state_memory_bytes(target)
+        dp_bytes = dp_bytes["param_bytes"] + dp_bytes["opt_state_bytes"]
+        mgr = CheckpointManager(ckpt, async_save=False)
+        try:
+            restored = mgr.restore(target)
+        finally:
+            mgr.close()
+            shutil.rmtree(ckpt, ignore_errors=True)
+        per_rank = [r["state_bytes"]["param_bytes"]
+                    + r["state_bytes"]["opt_state_bytes"] for r in ranks_out]
+        rec = {"config": name, "mesh": {"data": data, "model": model},
+               "global_batch": batch,
+               "steps_per_sec": [r["steps_per_sec"] for r in ranks_out],
+               "losses": ranks_out[0]["losses"],
+               "collectives_per_step": ranks_out[0]["collectives_per_step"],
+               "launches": ranks_out[0]["launches"],
+               "per_rank_state_bytes": per_rank, "dp_state_bytes": dp_bytes,
+               "ratio": per_rank[0] / dp_bytes,
+               "restored_step": restored.step_int,
+               "restored_equals_final": params_digest(restored.params)
+               == ranks_out[0]["digest"],
+               "wall_s": ranks_out[0]["wall_s"]}
+        # the leaves no tensor-parallel rule splits: the same bits on
+        # every rank of a model group (ranks d*model .. d*model+model-1)
+        groups = [{r[TP_DIGEST] for r in ranks_out[d * model:(d + 1) * model]}
+                  for d in range(data)]
+        rec["model_replicated_digests"] = [sorted(g) for g in groups]
+        for r, rank in enumerate(ranks_out):
+            print(json.dumps({"phase": "tensor_parallel", "run": tag,
+                              "rank": r, **{k: v for k, v in rank.items()
+                                            if k != "output"}}), flush=True)
+        print(json.dumps({"phase": "tensor_parallel", "vit": tag, **rec}),
+              flush=True)
+        losses = list(rec["losses"].values())
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+            fail(f"tensor_parallel {tag}: losses {rec['losses']}")
+        for key in ("digest", "losses"):
+            if len({json.dumps(r[key], sort_keys=True)
+                    for r in ranks_out}) != 1:
+                fail(f"tensor_parallel {tag}: the ranks' {key!r} differ")
+        if any(len(g) != 1 for g in groups):
+            fail(f"tensor_parallel {tag}: model-replicated leaves differ "
+                 f"within a model group: {groups}")
+        for r, rank in enumerate(ranks_out):
+            if "backend gloo (ranks share a card)" not in rank["startup"]:
+                fail(f"tensor_parallel {tag}: rank {r} startup "
+                     f"{rank['startup']!r}")
+        if len(set(per_rank)) != 1 or abs(
+                rec["ratio"] - TP_STATE_RATIO[tag]) > TP_STATE_RATIO_TOL:
+            fail(f"tensor_parallel {tag}: per-rank state {per_rank} B "
+                 f"against DP's {dp_bytes} B, ratio {rec['ratio']} (want "
+                 f"{TP_STATE_RATIO[tag]} +- {TP_STATE_RATIO_TOL})")
+        if restored.step_int != TP_VIT_STEPS \
+                or not rec["restored_equals_final"]:
+            fail(f"tensor_parallel {tag}: checkpoint restored under DP at "
+                 f"step {restored.step_int}, equal to the final params: "
+                 f"{rec['restored_equals_final']}")
+        per_step = rec["collectives_per_step"]
+        if not per_step.get("tp_all_reduce_calls") \
+                or not per_step.get("tp_all_gather_calls") \
+                or (data > 1) != bool(per_step.get("reduce_scatter_calls")):
+            fail(f"tensor_parallel {tag}: collectives per step {per_step}")
+        if any(rec["launches"].values()):
+            fail(f"tensor_parallel {tag}: kernels launched on the 'xla' "
+                 f"ViT path: {rec['launches']}")
+        out[tag] = rec
+    out["paged_h2"] = time_tp_paged(torch, dev, bw, f32_peak)
     return out
 
 
@@ -3373,6 +3906,10 @@ def main() -> None:
 
     # -- 12. data parallelism: benches, two ranks on the one card ----------
     dp = data_parallel(torch, dev, reset_counts, read_counts)
+    # -- 12b. tensor parallelism: decode and the flash entry on two ranks,
+    # TP and FSDP x TP ViT-Tiny through cli.launch -------------------------
+    tp = tensor_parallel(torch, dev, reset_counts, read_counts, bw,
+                         peaks["float32"])
 
     # -- 13. timing at the paths' shapes -------------------------------------
     timed = {}
@@ -3538,6 +4075,25 @@ def main() -> None:
                 "f32_bound_ms": f32_row["bound_ms"],
                 "f32_library_ms": f32_row["library_ms"]} if f32_row else {}),
         })
+    tp_int8 = tp["decode"]["int8"]["launches"]
+    decode_rows[0].update(
+        launches_tensor_parallel=[r["paged_attention"] for r in tp_int8],
+        tensor_parallel_decode_steps=tp["decode"]["int8"]["decode_steps"],
+        **{f"tp_h{h}_{k}": row[k] for h, row in tp["paged_h2"].items()
+           for k in ("kernel_ms", "plain_ms", "bound_ms", "launch_floor_ms",
+                     "max_abs_err")})
+    tp_flash = tp["flash"]["flash"]
+    flash_rows[0]["launches_tensor_parallel"] = [
+        r["launches"]["flash_attention_forward"] for r in tp_flash]
+    flash_rows[1]["launches_tensor_parallel"] = [
+        r["launches"]["flash_attention_dq"]
+        + r["launches"]["flash_attention_dkv"] for r in tp_flash]
+    flash_rows[2]["launches_tensor_parallel"] = [
+        r["launches"]["masked_flash_attention_backward"]
+        for r in tp["flash"]["masked"]]
+    masked_sq_row["launches_tensor_parallel"] = [
+        r["launches"]["masked_flash_attention"]
+        for r in tp["flash"]["masked"]]
     flash_rows[0]["launches_zoo_flash_serve"] = \
         zoo["launches"]["flash_attention_forward"]
     flash_rows[0]["launches_data_parallel"] = dp["vit_launches"][

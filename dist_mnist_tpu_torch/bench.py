@@ -177,9 +177,6 @@ def ladder_batch(cfg: Config, n_chips: int) -> tuple[int, str]:
 
 #: reference ladder configs the port cannot run yet, and what brings them
 LATER_CONFIGS = {
-    "vit_tiny_cifar_tp": "the tensor-parallel slice (ROADMAP §1 item 12)",
-    "vit_tiny_cifar_fsdp_tp": "the tensor-parallel slice (ROADMAP §1 "
-                              "item 12)",
     **{f"vit_tiny_cifar_{v}": "the parallel-attention and model-parallel "
                               "slice (ROADMAP §1 item 11)"
        for v in ("ulysses", "ulysses_flash", "ring", "ring_flash", "moe",
@@ -222,10 +219,13 @@ def run_config(cfg: Config, device: torch.device, timed_steps: int, *,
     ``timed_steps // chunk`` timed chunks. Returns the JSON record, which
     also carries every chunk's mean loss. The config is run as given, so
     a test can pass one cut to a small width."""
-    from dist_mnist_tpu_torch.parallel.sharding import shard_train_state
+    from dist_mnist_tpu_torch.parallel.sharding import (
+        rules_name,
+        shard_train_state,
+    )
 
     mesh, rules, mesh_note = _bench_mesh(cfg, device)
-    n_chips = mesh.size
+    n_chips = mesh.ranks
     batch, batch_note = ladder_batch(cfg, n_chips)
     dataset = dataset if dataset is not None else load_dataset(
         cfg.dataset, data_dir, seed=cfg.seed)
@@ -269,7 +269,7 @@ def run_config(cfg: Config, device: torch.device, timed_steps: int, *,
             "mesh": {k: v for k, v in mesh.shape.items() if v > 1} or
                     {"data": 1},
             "mesh_note": mesh_note,
-            "sharding": ("fsdp" if rules.fsdp_axis else "dp"),
+            "sharding": rules_name(rules),
             "global_batch": batch,
             "batch_note": batch_note,
             "examples_per_sec": n_timed / dt * batch,

@@ -43,12 +43,13 @@ ring (`AsyncSnapshotter`, `PeerReplicator`) join with ROADMAP §1 item
 Several ranks (`cluster/coordination.py`): every rank constructs the
 manager and calls `save` at the same steps. The chief decides whether a
 save happens and every rank takes that decision (`coordination.agree`);
-each FSDP-sharded leaf is all-gathered to its full shape, so the file,
-its `meta.json` shapes and its markers are those one rank writes; only
-the chief writes, quarantines and applies retention; the others wait at
-a barrier on open and on close. Every rank restores the full file and
-re-shards it under the target's placement (`parallel/sharding.py`), so a
-DP checkpoint restores under FSDP and back.
+each FSDP- or TP-sharded leaf is all-gathered to its full shape (over
+the data axis, then the model axis), so the file, its `meta.json` shapes
+and its markers are those one rank writes; only the chief writes,
+quarantines and applies retention; the others wait at a barrier on open
+and on close. Every rank restores the full file and re-shards it under
+the target's placement (`parallel/sharding.py`), so a DP checkpoint
+restores under FSDP, TP or FSDP x TP and back.
 """
 
 from __future__ import annotations

@@ -6,7 +6,9 @@
     python -m dist_mnist_tpu_torch.cli.launch --num_processes=2 \\
         --platform=cpu -- --config=lenet5_mnist --train_steps=6
 
-Spawns N identical `cli.train` children, each with the coordinator's
+Spawns N identical `cli.train` children (`launch(module=)`: the serving
+CLI's tensor-parallel decode spawns `cli.serve` ranks the same way), each
+with the coordinator's
 address (``localhost:<port>``, a port reserved so that concurrent
 launchers cannot be handed the same one), its rank and the world size;
 streams their interleaved output with a ``[pK]`` prefix through pump
@@ -14,7 +16,8 @@ threads named ``LaunchPump-pK``; and on the first abnormal exit kills the
 survivors (a dead peer would park them in a collective) and returns that
 child's exit status, a signal death normalized to 128+N. `--platform=cpu`
 runs every rank on the CPU over gloo; otherwise the children take the
-cards (`cluster/coordination.py`).
+cards (`cluster/coordination.py`). A fixed ``--mesh=data=D,model=M`` among
+the train flags must name as many ranks as `--num_processes`.
 
 The reference's supervisor (restarts, `--elastic` resizing, chaos kills,
 the warm-start compile cache, the run journal and the supervisor's HTTP
@@ -121,16 +124,18 @@ def _child_env() -> dict:
 
 
 def launch(num_processes: int, train_args: list[str], *, port: int = 0,
-           platform: str | None = None) -> int:
-    """Spawn the cluster and wait it out; returns 0 or the first abnormal
-    death's normalized exit status. Importable: tests call it."""
+           platform: str | None = None,
+           module: str = "dist_mnist_tpu_torch.cli.train") -> int:
+    """Spawn the cluster of `module` ranks and wait it out; returns 0 or
+    the first abnormal death's normalized exit status. Importable: tests
+    call it."""
     if num_processes < 1:
         raise ValueError(f"num_processes must be >= 1, got {num_processes}")
     probe, lock = None, None
     if not port:
         port, probe, lock = _reserve_port()
     env = _child_env()
-    prefix = [sys.executable, "-m", "dist_mnist_tpu_torch.cli.train"]
+    prefix = [sys.executable, "-m", module]
     procs: list[subprocess.Popen] = []
     pumps: list[threading.Thread] = []
     rc = 0
@@ -257,6 +262,25 @@ def _refused(args) -> list[str]:
     return out
 
 
+def mesh_ranks(args: list[str]) -> int | None:
+    """The ranks a ``--mesh=k=v,...`` flag among `args` names (the
+    product of its axes), or None without a fixed one (no flag, or
+    ``data=-1``)."""
+    for i, arg in enumerate(args):
+        if arg == "--mesh" and i + 1 < len(args):
+            arg = "--mesh=" + args[i + 1]
+        if arg.startswith("--mesh="):
+            axes = dict(part.split("=") for part in arg[7:].split(","))
+            sizes = [int(v) for v in axes.values()]
+            if int(axes.get("data", -1)) == -1:
+                return None
+            out = 1
+            for n in sizes:
+                out *= n
+            return out
+    return None
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     if "--" in argv:
@@ -266,6 +290,10 @@ def main(argv=None) -> int:
         own, train_args = argv, []
     args = build_parser().parse_args(own)
     refused = _refused(args)
+    want = mesh_ranks(train_args)
+    if want is not None and want != args.num_processes:
+        refused.append(f"--mesh names {want} ranks (data x model) but "
+                       f"--num_processes={args.num_processes}")
     if refused:
         raise SystemExit("error: " + "; ".join(refused))
     return launch(args.num_processes, train_args, port=args.port,

@@ -22,6 +22,15 @@ prefill/decode split with continuous batching (`--decode_mode`), drives
 it with the seeded decode loadgen and prints the TTFT/throughput
 summary; `--config` and `--quant` do not apply there.
 
+`--decode --mesh=model=M` serves it tensor-parallel, the KV cache's
+heads split over M ranks. The reference drives M devices from one
+process; the port runs a process per device (a stated departure), so
+this command spawns M ranks of itself through `cli/launch.py` (the same
+spawn, ``[pK]`` log prefix and tear-down): rank 0 runs the scheduler
+and the loadgen and prints the summary, the others follow its engine
+calls (`serve/decode.DecodeEngine.follow`). With `--device=cpu` the
+ranks run on the CPU over gloo.
+
 Runs on the CUDA device by default and exits with an error when there is
 none; `--device=cpu` runs the plain CPU path. Weights are those of a
 committed step under `--checkpoint_dir` (`--step`, default the latest;
@@ -109,34 +118,111 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--concurrency", type=int, default=64,
                    help="loadgen in-flight window")
     p.add_argument("--seed", type=int, default=0, help="loadgen input seed")
+    p.add_argument("--mesh", default=None,
+                   help='--decode: "model=M" serves over M tensor-parallel '
+                        "ranks, spawned by this command")
+    # set by the spawning command on each rank (cli/launch.py)
+    p.add_argument("--coordinator_address", default=None,
+                   help=argparse.SUPPRESS)
+    p.add_argument("--num_processes", type=int, default=None,
+                   help=argparse.SUPPRESS)
+    p.add_argument("--process_id", type=int, default=None,
+                   help=argparse.SUPPRESS)
+    p.add_argument("--platform", default=None, help=argparse.SUPPRESS)
     return p
 
 
-def _run_decode(args, device) -> dict:
+def _decode_mesh_ranks(args) -> int:
+    """The model ranks `--mesh` asks for (1 without it); refuses what the
+    decode engine cannot shard."""
+    if not args.mesh:
+        return 1
+    axes = {k: int(v) for k, v in (part.split("=")
+                                   for part in args.mesh.split(","))}
+    if not args.decode:
+        raise SystemExit(
+            "error: --mesh shards the --decode engine; the classifier "
+            "zoo's sharded placement joins the port with ROADMAP §1 item "
+            "12 (--serve_rules)")
+    extra = {k: v for k, v in axes.items()
+             if k != "model" and v not in (1, -1)}
+    if extra:
+        raise SystemExit(
+            f"error: --mesh {args.mesh}: decode serving splits heads over "
+            "the model axis only (replicas behind a router join with "
+            "ROADMAP §1 item 15)")
+    return axes.get("model", 1)
+
+
+def _run_decode(args, device, mesh=None) -> dict | None:
     """Decode mode: the LM engine and its continuous-batching scheduler,
     every grid cell run once before traffic (`--prewarm`), the seeded
-    decode loadgen, the TTFT/throughput summary."""
+    decode loadgen, the TTFT/throughput summary. On a tensor-parallel
+    `mesh` the chief does that and the other ranks follow its engine
+    calls (None there)."""
     engine = build_decode_engine(device, model_name=args.decode_model,
-                                 seed=args.seed, max_slots=args.max_slots)
-    if args.prewarm:
-        engine.prewarm()
-    scheduler = DecodeScheduler(engine, mode=args.decode_mode,
-                                max_queue=args.queue_depth)
+                                 seed=args.seed, max_slots=args.max_slots,
+                                 mesh=mesh)
+    if engine.is_follower:
+        calls = engine.follow()
+        log.info("follower rank %d ran %d engine calls, %d decode steps",
+                 mesh.model_index, calls, engine.decode_steps)
+        return None
     try:
-        summary = run_decode_loadgen(scheduler, n_requests=args.requests,
-                                     concurrency=args.concurrency,
-                                     seed=args.seed)
+        if args.prewarm:
+            engine.prewarm()
+        scheduler = DecodeScheduler(engine, mode=args.decode_mode,
+                                    max_queue=args.queue_depth)
+        try:
+            summary = run_decode_loadgen(scheduler,
+                                         n_requests=args.requests,
+                                         concurrency=args.concurrency,
+                                         seed=args.seed)
+        finally:
+            scheduler.close()
     finally:
-        scheduler.close()
+        engine.close()
     summary.pop("token_times", None)
     summary["max_slots"] = args.max_slots
     summary["model"] = args.decode_model
     summary["decode_steps"] = engine.decode_steps
     summary["kv"] = engine.kv_stats()
+    if mesh is not None:
+        summary["mesh"] = {"model": mesh.model}
+        summary["rank_kv_bytes"] = engine.rank_kv_bytes
     return summary
 
 
-def main(argv=None) -> dict:
+def _spawn_ranks(argv: list[str], args, ranks: int) -> int:
+    """Run this command on `ranks` processes (`cli/launch.py`'s spawn);
+    their exit status."""
+    from dist_mnist_tpu_torch.cli.launch import launch
+
+    return launch(ranks, list(argv), module="dist_mnist_tpu_torch.cli.serve",
+                  platform="cpu" if args.device == "cpu" else None)
+
+
+def _run_decode_rank(args) -> dict | None:
+    """One rank of a tensor-parallel decode server."""
+    from dist_mnist_tpu_torch.cluster import coordination
+    from dist_mnist_tpu_torch.cluster.mesh import MeshSpec, make_mesh
+
+    ctx = coordination.initialize_distributed(
+        args.coordinator_address, args.num_processes, args.process_id,
+        platform=args.platform)
+    try:
+        mesh = make_mesh(MeshSpec(data=1, model=args.num_processes),
+                         device=ctx.device if ctx is not None else None)
+        log.info("%s", coordination.startup_line(ctx))
+        return _run_decode(args, mesh.device, mesh)
+    finally:
+        coordination.shutdown()
+
+
+def main(argv=None) -> dict | None:
+    import sys
+
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
     logging.basicConfig(
         level=logging.INFO,
@@ -148,8 +234,19 @@ def main(argv=None) -> dict:
         raise SystemExit(f"error: {err}") from None
     device_name = (torch.cuda.get_device_name(device)
                    if device.type == "cuda" else "cpu")
+    ranks = _decode_mesh_ranks(args)
+    if ranks > 1 and args.num_processes is None:
+        rc = _spawn_ranks(argv, args, ranks)
+        if rc:
+            raise SystemExit(rc)
+        return None
     if args.decode:
-        summary = _run_decode(args, device)
+        if args.num_processes and args.num_processes > 1:
+            summary = _run_decode_rank(args)
+            if summary is None:
+                return None
+        else:
+            summary = _run_decode(args, device)
         summary["device"] = device_name
         print(json.dumps(summary, indent=2, sort_keys=True))
         return summary

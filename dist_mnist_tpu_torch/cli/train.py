@@ -12,15 +12,16 @@ plain CPU path. With `--num_processes=N --process_id=K
 --coordinator_address=host:port` (what `cli.launch` passes) the process
 is rank K of a group of N (`cluster/coordination.py`), one device per
 process, and trains its slice of every global batch on the config's mesh
-(`--mesh` overrides it; the data axis only) under `--sharding=dp|fsdp`;
-the startup line names the rank, the devices and the backend. Flags keep
+(`--mesh=data=D,model=M` overrides it: D x M ranks, ``model`` varying
+fastest) under `--sharding=dp|fsdp|tp|fsdp_tp`; the startup line names
+the rank, the devices and the backend. Flags keep
 the reference's names and absl's spellings (``--flag=value``, ``--flag
 value``, ``--noflag`` for a boolean), parsed with argparse. The
 parameter-server-era flags (--job_name/--task_index/--num_gpus/
 --existing_servers/--ps_hosts/--worker_hosts, --nosync_replicas) are
 accepted and warned about, as the reference does. Every flag of a
-subsystem the port does not have yet (tensor-parallel sharding, overlap,
-a PRNG implementation, the native loader, fault plans, the compile cache,
+subsystem the port does not have yet (a seq or pipe axis, overlap, a
+PRNG implementation, the native loader, fault plans, the compile cache,
 elastic resizing, async snapshots and peers, the metrics exporter,
 anomaly detection, the tuned store) exits with an error that names the
 ROADMAP §1 item it waits for; `--host_device_count` refuses as a stated
@@ -60,7 +61,8 @@ __all__ = ["build_optimizer", "run_config", "main"]
 DEFAULT_PRNG_IMPL = "threefry2x32"
 
 #: ROADMAP §1 items the refused flags and options wait for
-_PARALLEL = "ROADMAP §1 item 12 (data and tensor parallelism)"
+_PARALLEL = ("ROADMAP §1 item 12 (the native loader and the multislice "
+             "mesh)")
 _RESILIENCE = "ROADMAP §1 item 13 (resilience, async I/O, overlap)"
 _TELEMETRY = "ROADMAP §1 item 14 (telemetry)"
 _TUNING = "ROADMAP §1 item 16 (tuning and lint)"
@@ -71,8 +73,8 @@ def _refuse(what: str, item: str):
 
 
 def check_config(cfg) -> None:
-    """Refuse what a config asks beyond the port: a mesh axis other than
-    data, tensor-parallel sharding, the fsdp overlap, and a PRNG
+    """Refuse what a config asks beyond the port: a seq or pipe mesh
+    axis, the fsdp overlap, and a PRNG
     implementation (the port draws every random number from one
     `torch.Generator`; ROADMAP §1's closing line: `utils/prng.py` has no
     counterpart)."""
@@ -172,7 +174,7 @@ def run_config(
     check_config(cfg)
     from dist_mnist_tpu_torch import hooks as hooks_lib
     from dist_mnist_tpu_torch.cluster import coordination
-    from dist_mnist_tpu_torch.cluster.mesh import make_mesh
+    from dist_mnist_tpu_torch.cluster.mesh import MODEL_AXIS, make_mesh
     from dist_mnist_tpu_torch.checkpoint import CheckpointManager
     from dist_mnist_tpu_torch.data.datasets import load_dataset
     from dist_mnist_tpu_torch.data.pipeline import (
@@ -190,6 +192,7 @@ def run_config(
         reset_launch_counts,
     )
     from dist_mnist_tpu_torch.parallel.sharding import (
+        replicated_leaves,
         resolve_rules,
         shard_train_state,
         unshard_state,
@@ -371,10 +374,19 @@ def run_config(
         elapsed = time.monotonic() - t0
         per_step = {k: v / max(1, scan_chunk) for k, v in one_call.items()}
         log.info("kernel launches: %s", json.dumps(launches, sort_keys=True))
-        if mesh.size > 1:
+        if mesh.ranks > 1:
             log.info("collectives per step: %s",
                      json.dumps(per_step, sort_keys=True))
-            # a collective: every rank gathers its FSDP slices
+            if state.placement is not None:
+                # this rank's own copies of the leaves no tensor-parallel
+                # rule splits: the same bits on every rank of its model
+                # group (on every rank without FSDP), or an operator is
+                # wrong
+                log.info("model-replicated leaves digest: %s",
+                         params_digest(replicated_leaves(
+                             state.params, state.placement.specs.params,
+                             axes=(MODEL_AXIS,))))
+            # a collective: every rank gathers its FSDP and TP slices
             log.info("final params digest: %s",
                      params_digest(unshard_state(state).params))
         log.info("done: step=%d test_acc=%.4f test_loss=%.4f wall=%.1fs",
@@ -493,13 +505,13 @@ def build_parser() -> argparse.ArgumentParser:
       help="every N steps, journal one `span` event per phase; 0 = off")
     # -- the process group and the mesh (cluster/)
     a("--mesh", default=None,
-      help='mesh override, e.g. "data=2" (data axis only)')
+      help='mesh override, e.g. "data=2" or "data=2,model=2" (data x '
+           'model ranks)')
     a("--coordinator_address", default=None, help="host:port of process 0")
     a("--num_processes", type=int, default=1, help="total processes")
     a("--process_id", type=int, default=0, help="this process's rank")
     a("--sharding", default=None,
-      help=f"dp | fsdp (None = config); tp and fsdp_tp join with "
-           f"{_PARALLEL}")
+      help="dp | fsdp | tp | fsdp_tp (None = config)")
     # -- refused: their subsystems are not in the port yet
     a("--host_device_count", type=int, default=None,
       help="refused: one device per process")
@@ -589,7 +601,7 @@ def _apply_flag_overrides(cfg, args):
         over["model_kwargs"] = {**cfg.model_kwargs,
                                 "hidden_units": args.hidden_units}
     if args.sharding:
-        # validate EAGERLY (tp and fsdp_tp refuse naming their item)
+        # validate EAGERLY: an unknown name exits before any work
         from dist_mnist_tpu_torch.parallel.sharding import resolve_rules
 
         resolve_rules(args.sharding)

@@ -24,6 +24,13 @@ Besides the group, every rank of a multi-process run gets a gloo group
 over the host for the decisions ranks must agree on (a checkpoint save,
 a barrier): with NCCL that is a second group, with gloo the same one.
 
+A ``data x model`` mesh (`cluster/mesh.py`) adds a subgroup per row and
+per column of the rank grid, each with a host group of its own by the
+same rule (`mesh_groups`). `torch.distributed.new_group` is collective
+over the whole group, so every rank creates every subgroup, in the same
+order (the data groups by model index, then the model groups by data
+index), and keeps those it belongs to.
+
 Chief is rank 0: it owns the host-side side effects (checkpoint writes,
 summary files). Params are initialized identically on every rank from
 the same seed, so nothing waits on the chief to start.
@@ -59,6 +66,8 @@ class DistContext:
 
 
 _CONTEXT: DistContext | None = None
+#: (data, model) -> the axes' (group, host group) pairs of this rank
+_MESH_GROUPS: dict = {}
 
 
 def context() -> DistContext | None:
@@ -143,6 +152,46 @@ def initialize_distributed(
     return _CONTEXT
 
 
+def mesh_groups(data: int, model: int) -> dict:
+    """``{"data": (group, host_group), "model": (group, host_group)}`` of
+    this rank for a ``data x model`` grid of the process group's ranks
+    (rank ``d * model + m``), None where an axis is one rank wide; an axis
+    as wide as the world is the world group. Created once per shape, by
+    every rank in the same order (module docstring)."""
+    key = (data, model)
+    if key in _MESH_GROUPS:
+        return _MESH_GROUPS[key]
+    ctx = _CONTEXT
+    if ctx is None:
+        raise RuntimeError("mesh_groups needs initialize_distributed first")
+    if data * model != ctx.world:
+        raise ValueError(f"mesh {data}x{model} != {ctx.world} ranks")
+    world = torch.distributed.group.WORLD
+    timeout = datetime.timedelta(seconds=DEFAULT_TIMEOUT_S)
+    rows = {"data": [[d * model + m for d in range(data)]
+                     for m in range(model)],
+            "model": [[d * model + m for m in range(model)]
+                      for d in range(data)]}
+    out = {}
+    for axis in ("data", "model"):
+        mine = (None, None)
+        for ranks in rows[axis]:
+            if len(ranks) == 1:
+                continue
+            if len(ranks) == ctx.world:
+                group, host = world, ctx.host_group
+            else:
+                group = torch.distributed.new_group(ranks, timeout=timeout)
+                host = (torch.distributed.new_group(
+                    ranks, backend="gloo", timeout=timeout)
+                    if ctx.backend != "gloo" else group)
+            if ctx.rank in ranks:
+                mine = (group, host)
+        out[axis] = mine
+    _MESH_GROUPS[key] = out
+    return out
+
+
 def startup_line(ctx: DistContext | None) -> str:
     """``process K/N, 1 local / N global devices`` plus the backend and
     the rule that chose it."""
@@ -159,6 +208,7 @@ def shutdown() -> None:
     if _CONTEXT is None:
         return
     _CONTEXT = None
+    _MESH_GROUPS.clear()
     if torch.distributed.is_initialized():
         torch.distributed.destroy_process_group()
 

@@ -1,16 +1,20 @@
 """The rank mesh (port of the reference `cluster/mesh.py`).
 
-In the reference a device of the ``data`` axis is one chip of an SPMD
-program. Here a device is one RANK of a `torch.distributed` process group,
-with one device per process (rank r drives ``cuda:(r % cards)``, or the
-CPU). A `Mesh` is that group seen from one rank: the axis sizes, this
-rank's index on the ``data`` axis, its device, and the group the
-collectives run over (None on a single rank).
+In the reference a device of the mesh is one chip of an SPMD program.
+Here a device is one RANK of a `torch.distributed` process group, with one
+device per process (rank r drives ``cuda:(r % cards)``, or the CPU). A
+`Mesh` is that group seen from one rank: the axis sizes, this rank's
+index on the ``data`` and ``model`` axes, its device, and the groups the
+collectives run over (None where an axis is one rank wide).
 
-Only the ``data`` axis may be wider than one. A ``model``, ``seq`` or
-``pipe`` axis wider than one refuses, naming the slice that brings it.
-The reference's multislice layout (`hybrid_mesh_shapes`,
-`with_fake_slices`) and `compat_shard_map` have no counterpart.
+The ranks form a ``data x model`` grid with ``model`` varying fastest, as
+the reference lays its devices out: rank ``r = d * model + m``. The
+ranks of one model group (same d) hold one replica of the model, each
+with its share of the tensor-parallel leaves, and see the same batch; the
+ranks of one data group (same m) split the batch. A ``seq`` or ``pipe``
+axis wider than one refuses, naming the slice that brings it. The
+reference's multislice layout (`hybrid_mesh_shapes`, `with_fake_slices`)
+and `compat_shard_map` have no counterpart yet.
 
 `activate(mesh)` makes a mesh ambient for the forward pass: synchronized
 batch norm (`ops/nn.batch_norm`) reads it with `ambient_mesh()`, as the
@@ -33,9 +37,8 @@ SEQ_AXIS = "seq"
 PIPE_AXIS = "pipe"
 AXES = (DATA_AXIS, MODEL_AXIS, SEQ_AXIS, PIPE_AXIS)
 
-#: the slices that bring the axes other than `data`
+#: the slices that bring the axes other than `data` and `model`
 _LATER_AXES = {
-    MODEL_AXIS: "ROADMAP §1 item 12 (tensor parallelism)",
     SEQ_AXIS: "ROADMAP §1 item 11 (sequence parallelism)",
     PIPE_AXIS: "ROADMAP §1 item 11 (pipeline parallelism)",
 }
@@ -86,9 +89,15 @@ class ClusterConfig:
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class Mesh:
-    """One rank's view of the mesh. `group` is the process group the
-    collectives run over (None on a single rank), `backend` its backend;
-    `stats` counts what the collectives moved."""
+    """One rank's view of the mesh. `rank` is this rank's index on the
+    ``data`` axis and `group` the data group (the ranks with this rank's
+    model index: the batch splits over them); `model_index` and
+    `model_group` are the same for the ``model`` axis (the ranks with
+    this rank's data index: the tensor-parallel leaves split over them).
+    A group is None where its axis is one rank wide. `host_groups` holds
+    a gloo group per axis for host-side messages (the decode follower
+    protocol), `backend` the collectives' backend; `stats` counts what
+    the collectives moved."""
 
     shape: dict
     rank: int = 0
@@ -99,11 +108,36 @@ class Mesh:
     #: (`parallel.collectives.collective_stats`)
     stats: collections.Counter = dataclasses.field(
         default_factory=collections.Counter)
+    model_index: int = 0
+    model_group: Any = None
+    host_groups: dict = dataclasses.field(default_factory=dict)
 
     @property
     def size(self) -> int:
         """Ranks on the ``data`` axis."""
         return self.shape[DATA_AXIS]
+
+    @property
+    def model(self) -> int:
+        """Ranks on the ``model`` axis."""
+        return self.shape[MODEL_AXIS]
+
+    @property
+    def ranks(self) -> int:
+        """Every rank of the mesh."""
+        return self.size * self.model
+
+    @property
+    def model_chief(self) -> int:
+        """The process-group rank of this model group's first rank (the
+        one that drives a tensor-parallel decode engine)."""
+        return self.rank * self.model
+
+    def axis_index(self, axis: str) -> int:
+        return self.model_index if axis == MODEL_AXIS else self.rank
+
+    def axis_group(self, axis: str):
+        return self.model_group if axis == MODEL_AXIS else self.group
 
 
 def device_count() -> int:
@@ -115,26 +149,28 @@ def device_count() -> int:
 
 
 def check_axes(spec: MeshSpec) -> None:
-    """Refuse an axis other than ``data`` wider than one, naming the slice
+    """Refuse a ``seq`` or ``pipe`` axis wider than one, naming the slice
     that brings it."""
     for axis, item in _LATER_AXES.items():
         if getattr(spec, axis) > 1:
             raise NotImplementedError(
                 f"a {axis!r} axis of {getattr(spec, axis)} joins the port "
-                f"with {item}; the port's mesh has the data axis only")
+                f"with {item}; the port's mesh has the data and model axes")
 
 
 def make_mesh(spec: MeshSpec | None = None, *,
               device: torch.device | str | None = None) -> Mesh:
     """The mesh `spec` names over the ranks of the default process group
-    (one rank when there is none).
+    (one rank when there is none). Every rank of the group calls it with
+    the same spec: the first call for a shape creates the axes' subgroups
+    (`coordination.mesh_groups`).
 
     Raises `ValueError` when the spec wants more ranks than exist (a
     caller may fall back to ``MeshSpec(data=-1)``, as `bench.run_config`
     does) or fewer: every rank of the group is on the mesh.
-    `NotImplementedError` for an axis other than ``data`` wider than
-    one. `device` defaults to the device `initialize_distributed` gave
-    this rank."""
+    `NotImplementedError` for a ``seq`` or ``pipe`` axis wider than one.
+    `device` defaults to the device `initialize_distributed` gave this
+    rank."""
     from dist_mnist_tpu_torch.cluster import coordination
 
     spec = spec or MeshSpec()
@@ -154,16 +190,21 @@ def make_mesh(spec: MeshSpec | None = None, *,
         device = ctx.device if ctx is not None else torch.device("cpu")
     if n == 1:
         return Mesh(shape=shape, device=torch.device(device))
-    return Mesh(shape=shape, rank=torch.distributed.get_rank(),
+    data, model = shape[DATA_AXIS], shape[MODEL_AXIS]
+    groups = coordination.mesh_groups(data, model)
+    rank = torch.distributed.get_rank()
+    return Mesh(shape=shape, rank=rank // model, model_index=rank % model,
                 device=torch.device(device),
-                group=torch.distributed.group.WORLD,
+                group=groups[DATA_AXIS][0], model_group=groups[MODEL_AXIS][0],
+                host_groups={axis: g[1] for axis, g in groups.items()},
                 backend=ctx.backend if ctx is not None
                 else torch.distributed.get_backend())
 
 
 def local_batch_slice(global_batch: int, mesh: Mesh) -> tuple[int, int]:
     """(per-process batch, per-device batch) for a global batch: the
-    same number, one device per process."""
+    same number, one device per process. The batch splits over the
+    ``data`` axis only: the ranks of one model group get the same rows."""
     if global_batch % mesh.size != 0:
         raise ValueError(f"global batch {global_batch} % data axis "
                          f"{mesh.size} != 0")
@@ -172,14 +213,16 @@ def local_batch_slice(global_batch: int, mesh: Mesh) -> tuple[int, int]:
 
 
 def validate_mesh(mesh: Mesh) -> None:
-    """Refuse a mesh whose ranks do not match its group."""
-    if mesh.size > 1 and (mesh.group is None
-                          or mesh.size != torch.distributed.get_world_size(
-                              mesh.group)):
-        raise ValueError(f"mesh of {mesh.size} ranks does not match its "
-                         "process group")
-    if not 0 <= mesh.rank < mesh.size:
-        raise ValueError(f"rank {mesh.rank} outside a mesh of {mesh.size}")
+    """Refuse a mesh whose ranks do not match its groups."""
+    for axis in (DATA_AXIS, MODEL_AXIS):
+        n, group = mesh.shape[axis], mesh.axis_group(axis)
+        if n > 1 and (group is None
+                      or n != torch.distributed.get_world_size(group)):
+            raise ValueError(f"{axis} axis of {n} ranks does not match its "
+                             "process group")
+        if not 0 <= mesh.axis_index(axis) < n:
+            raise ValueError(f"{axis} index {mesh.axis_index(axis)} outside "
+                             f"an axis of {n}")
 
 
 _AMBIENT = threading.local()

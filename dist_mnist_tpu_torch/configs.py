@@ -2,8 +2,9 @@
 
 Only the entries whose model and path the port runs are here
 (`mlp_mnist`, `lenet5_mnist`, `lenet5_fashion`, `resnet20_cifar`,
-`resnet20_cifar_fsdp`, `vit_tiny_cifar`, `vit_tiny_cifar_flash`); the
-others join with their slices. A test pins each entry field for field
+`resnet20_cifar_fsdp`, `vit_tiny_cifar`, `vit_tiny_cifar_flash`,
+`vit_tiny_cifar_tp`, `vit_tiny_cifar_fsdp_tp`); the others join with
+their slices. A test pins each entry field for field
 against the reference ladder.
 """
 
@@ -148,6 +149,50 @@ CONFIGS = {
         augment=True,
         model_kwargs={"attention_impl": "flash", "scan_blocks": True},
         mesh=MeshSpec(data=-1),
+        ladder_devices=16,
+    ),
+    # 5e) config 5 tensor-parallel: qkv/mlp matmuls Megatron-sharded over a
+    # 2-way `model` axis (TP_RULES column/row pattern); grads for the
+    # sharded params stay sharded — the step's collectives run over the
+    # model group (models/vit.py).
+    "vit_tiny_cifar_tp": Config(
+        name="vit_tiny_cifar_tp",
+        model="vit_tiny",
+        dataset="cifar10",
+        batch_size=1024,
+        train_steps=5000,
+        learning_rate=1e-3,
+        lr_schedule="cosine",
+        warmup_steps=500,
+        grad_clip_norm=1.0,
+        weight_decay=0.05,
+        remat=True,
+        augment=True,
+        model_kwargs={"scan_blocks": True},
+        sharding_rules="tp",
+        mesh=MeshSpec(data=-1, model=2),
+        ladder_devices=16,
+    ),
+    # 5e') config 5e with FSDP composed on top of TP: the `model` axis
+    # takes the Megatron column/row split first, the FSDP shape rule then
+    # shards each leaf's largest remaining free dim over `data` — params +
+    # slots are 1/(data*model)-th per chip where both apply.
+    "vit_tiny_cifar_fsdp_tp": Config(
+        name="vit_tiny_cifar_fsdp_tp",
+        model="vit_tiny",
+        dataset="cifar10",
+        batch_size=1024,
+        train_steps=5000,
+        learning_rate=1e-3,
+        lr_schedule="cosine",
+        warmup_steps=500,
+        grad_clip_norm=1.0,
+        weight_decay=0.05,
+        remat=True,
+        augment=True,
+        model_kwargs={"scan_blocks": True},
+        sharding_rules="fsdp_tp",
+        mesh=MeshSpec(data=-1, model=2),
         ladder_devices=16,
     ),
 }

@@ -17,6 +17,11 @@
   seeded global shuffle) and draws its slice from its own rows, the
   reference's `_sample_sharded`.
 
+On a ``data x model`` mesh "rank" above is the rank's index on the
+``data`` axis and N the data axis's size: the ranks of one model group
+(the tensor-parallel shares of one replica) load, hold and draw the same
+rows.
+
 Images stay uint8 until the step normalizes them. One device per process:
 a batch split over several devices of one process is refused (a stated
 departure of the port).

@@ -39,9 +39,19 @@ Differences from the reference, all forced by eager PyTorch:
   that is harmless because no live row ever reads scratch (a live row
   overwrites position p before any mask admits it), and it is the ONLY
   place rows collide.
-- The reference's tensor-parallel `shard_map` branches (heads over a
-  model mesh axis) are one-GPU no-ops here and wait for the data/model
-  parallel slice.
+- Tensor parallelism: the reference runs its attention under
+  `shard_map` with the heads over a ``model`` mesh axis. Here, under an
+  ambient mesh (`cluster/mesh.activate`) whose model axis is wider than
+  one, each rank of the model group computes q/k/v for every head, takes
+  its contiguous head slice ``[..., m*H/M:(m+1)*H/M, :]`` (contiguous
+  before any kernel), attends over its own head slice of the KV cache
+  (`init_cache(mesh=)` holds H/M heads a rank; an int8 paged cache runs
+  the `paged_attention` kernel on those heads), and all-gathers the
+  outputs over heads; the out-projection, the MLP, the final LN and the
+  head run replicated. Every contraction is per head, so the logits are
+  the same bits on every rank and equal to the unsharded model's (the
+  reference's contract). A dense cache under TP stays on `_attend`
+  whatever `attention_impl` is, as in the reference.
 
 Bitwise decode == full forward (``attention_impl="xla"``): every
 contraction — `_attend`'s two, as in the reference, and the dense layers
@@ -61,12 +71,17 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from dist_mnist_tpu_torch.cluster.mesh import ambient_mesh
 from dist_mnist_tpu_torch.ops import nn
 from dist_mnist_tpu_torch.ops.kernels.masked_flash import (
     masked_flash_attention,
 )
 from dist_mnist_tpu_torch.ops.kernels.paged_attention import paged_attention
 from dist_mnist_tpu_torch.ops.quant import QuantizedArray, quantize_kv
+from dist_mnist_tpu_torch.parallel.collectives import (
+    gather_from_model,
+    scatter_to_model,
+)
 
 
 def _inv_sqrt(d: int) -> float:
@@ -142,6 +157,30 @@ def _paged_read(pool, page_table):
     k = pool[page_table.long()]
     r, n, t, h, d = k.shape
     return k.reshape(r, n * t, h, d)
+
+
+def _heads_spec(mesh, heads: int):
+    """The mesh whose model axis shards the heads, or None when it cannot
+    (no mesh, or a model axis of one). Raises on an indivisible head
+    count, as the reference: silently replicating a "TP" cache would
+    defeat the memory story."""
+    m = mesh.model if mesh is not None else 1
+    if m <= 1:
+        return None
+    if heads % m:
+        raise ValueError(
+            f"heads={heads} not divisible by model axis {m}; "
+            "the TP-sharded KV cache needs heads % model == 0"
+        )
+    return mesh
+
+
+def _attend_gather(q, k, v, mask, mesh, softmax_len=None):
+    """The full-sequence attention under TP: `_attend` over this rank's
+    heads (q, k, v local), then the outputs gathered over heads, so the
+    result leaves the model group replicated and bitwise the unsharded
+    `_attend`'s (every contraction is per head)."""
+    return gather_from_model(_attend(q, k, v, mask, softmax_len), mesh, 2)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -225,11 +264,15 @@ class CausalLMTiny:
             }
         return params, {}
 
-    def _qkv(self, p, x):
+    def _qkv(self, p, x, tp=None):
+        """q, k, v ``[B, S, H, D]``; under `tp` this rank's heads."""
         b, s, _ = x.shape
         qkv = _dense(p["qkv"], x).reshape(b, s, 3, self.heads,
                                             self.head_dim)
-        return qkv.unbind(2)
+        q, k, v = qkv.unbind(2)
+        if tp is None:
+            return q, k, v
+        return tuple(scatter_to_model(t, tp, 2) for t in (q, k, v))
 
     def _mlp(self, p, x):
         y = nn.layer_norm(p["ln2"], x)
@@ -237,9 +280,10 @@ class CausalLMTiny:
 
     def _forward(self, params, tokens):
         """Full-sequence causal forward: tokens ``[B,S]`` -> (logits
-        ``[B,S,V]`` f32, per-layer (k, v) list). Positions past a prompt's
-        real length give garbage logits that, by causality, never reach
-        earlier positions."""
+        ``[B,S,V]`` f32, per-layer (k, v) list; under TP this rank's
+        heads of k and v). Positions past a prompt's real length give
+        garbage logits that, by causality, never reach earlier
+        positions."""
         b, s = tokens.shape
         if s > self.max_seq:
             raise ValueError(f"sequence {s} > max_seq {self.max_seq}")
@@ -247,12 +291,17 @@ class CausalLMTiny:
         x = x + params["pos"][:, :s].to(x.dtype)
         causal = torch.tril(torch.ones((s, s), dtype=torch.bool,
                                        device=x.device))[None].expand(b, s, s)
+        tp = _heads_spec(ambient_mesh(), self.heads)
         kv = []
         for i in range(self.depth):
             p = params[f"block{i}"]
             y = nn.layer_norm(p["ln1"], x)
-            q, k, v = self._qkv(p["attn"], y)
-            o = _attend(q, k, v, causal, softmax_len=self.max_seq)
+            q, k, v = self._qkv(p["attn"], y, tp)
+            if tp is None:
+                o = _attend(q, k, v, causal, softmax_len=self.max_seq)
+            else:
+                o = _attend_gather(q, k, v, causal, tp,
+                                   softmax_len=self.max_seq)
             x = x + _dense(p["attn"]["out"], o.reshape(b, s, self.dim))
             x = self._mlp(p, x)
             kv.append((k, v))
@@ -278,15 +327,20 @@ class CausalLMTiny:
     # ---- serving surface (serve/decode.py) --------------------------------
 
     def init_cache(self, slots: int, *, num_pages: int | None = None,
-                   device=None) -> dict:
+                   device=None, mesh=None) -> dict:
         """Zero-filled KV cache on `device`. dense: ``[depth, slots,
         max_seq, heads, head_dim]`` per tensor. paged: pools ``[depth,
         num_pages, page_tokens, heads, head_dim]`` (default ``slots *
         pages_per_slot``: every row can be backed whole); int8 pools are
-        QuantizedArray nodes with ``[..., heads, 1]`` f32 scales."""
+        QuantizedArray nodes with ``[..., heads, 1]`` f32 scales. On a
+        `mesh` with a model axis of M the cache holds this rank's
+        ``heads / M`` heads (the reference places the heads axis on the
+        model axis)."""
         self._validate()
+        tp = _heads_spec(mesh, self.heads)
+        heads = self.heads if tp is None else self.heads // tp.model
         if self.cache_layout == "dense":
-            shape = (self.depth, slots, self.max_seq, self.heads,
+            shape = (self.depth, slots, self.max_seq, heads,
                      self.head_dim)
             return {"k": torch.zeros(shape, dtype=self.compute_dtype,
                                      device=device),
@@ -294,7 +348,7 @@ class CausalLMTiny:
                                      device=device)}
         if num_pages is None:
             num_pages = slots * self.pages_per_slot
-        shape = (self.depth, num_pages, self.kv_page_tokens, self.heads,
+        shape = (self.depth, num_pages, self.kv_page_tokens, heads,
                  self.head_dim)
         if self.kv_quant == "int8":
             def pool():
@@ -347,11 +401,13 @@ class CausalLMTiny:
                       lengths.long() - 1]
         return last, cache
 
-    def _decode_attn(self, i, cache, q, k_new, v_new, positions, page_table):
+    def _decode_attn(self, i, cache, q, k_new, v_new, positions, page_table,
+                     flash: bool = True):
         """Layer i's cached attention for one token per row: write the new
         K/V at each row's position (write before attend, so a freshly
         admitted row overwrites stale prefill padding before any mask
-        admits it), then attend keys ``<= pos``."""
+        admits it), then attend keys ``<= pos``. `flash` False keeps a
+        dense cache on `_attend` (the TP branch)."""
         r = q.shape[0]
         rows = torch.arange(r, device=q.device)
         pos = positions.long()
@@ -372,7 +428,7 @@ class CausalLMTiny:
             k, v = cache["k"][i], cache["v"][i]
             k[rows, pos] = k_new[:, 0].to(k.dtype)
             v[rows, pos] = v_new[:, 0].to(v.dtype)
-            if self.attention_impl == "flash":
+            if flash and self.attention_impl == "flash":
                 return masked_flash_attention(q.contiguous(), k, v,
                                               (positions + 1).to(torch.int32))
         mask = (torch.arange(k.shape[1], device=q.device)[None, None, :]
@@ -384,7 +440,8 @@ class CausalLMTiny:
         positions ``[R]`` where it goes in that row's sequence. Returns
         (next-token logits ``[R, V]`` f32, the cache, updated in place).
         Each row reads only its own cache rows, so its stream does not
-        depend on the batch around it.
+        depend on the batch around it. Under an ambient mesh with a model
+        axis the cache holds this rank's heads (module docstring).
 
         Paged layout takes ``page_table`` [R, n]: float pools at the full
         width, int8 pools at any width covering every live prefix
@@ -393,11 +450,17 @@ class CausalLMTiny:
         r = tokens.shape[0]
         x = params["tok_emb"][tokens.long()].to(self.compute_dtype)
         x = (x + params["pos"][0][positions.long()].to(x.dtype))[:, None, :]
+        tp = _heads_spec(ambient_mesh(), self.heads)
         for i in range(self.depth):
             p = params[f"block{i}"]
             y = nn.layer_norm(p["ln1"], x)
-            q, k, v = self._qkv(p["attn"], y)
-            o = self._decode_attn(i, cache, q, k, v, positions, page_table)
+            q, k, v = self._qkv(p["attn"], y, tp)
+            # under TP: this rank's heads, their cache, then the gather;
+            # a dense cache stays on _attend whatever attention_impl is
+            o = self._decode_attn(i, cache, q, k, v, positions, page_table,
+                                  flash=tp is None)
+            if tp is not None:
+                o = gather_from_model(o, tp, 2)
             x = x + _dense(p["attn"]["out"], o.reshape(r, 1, self.dim))
             x = self._mlp(p, x)
         x = nn.layer_norm(params["final_ln"], x)

@@ -21,6 +21,21 @@ draws all of them up front from the generator `rng`
 (`dropout_masks`), or takes them stacked as `dropout_mask` ``[depth, B,
 S, mlp_dim]``: a rematerialized step draws them before its checkpointed
 region and passes them in, so the recompute sees the same masks.
+
+Tensor parallelism: under an ambient mesh with a ``model`` axis wider
+than one (`train/step.py` installs it) the params are this rank's slices
+by `parallel/sharding.TP_RULES`, and each block runs the Megatron layout
+the reference's GSPMD program runs for ``vit_tiny_cifar_tp``, with the
+collectives written out (`parallel/collectives`): qkv column-parallel
+(``copy_to_model(y) @ qkv_local``, the outputs gathered on the feature
+dim, attention replicated, since 3 heads do not split over 2 ranks),
+attn/out row-parallel (this rank's feature slice of the attention output
+``@ out_local``, `reduce_from_model`, then the bias), mlp_in
+column-parallel and GELU on the sharded hidden, dropout with this rank's
+columns of the full keep-mask (every rank of a model group draws the
+same mask from the same generator), mlp_out row-parallel. Everything
+else (patch embedding, layer norms, the head) runs replicated, so the
+logits are the same bits on every rank of a model group.
 """
 
 from __future__ import annotations
@@ -30,7 +45,14 @@ import re
 
 import torch
 
+from dist_mnist_tpu_torch.cluster.mesh import ambient_mesh
 from dist_mnist_tpu_torch.ops import nn
+from dist_mnist_tpu_torch.parallel.collectives import (
+    copy_to_model,
+    gather_from_model,
+    reduce_from_model,
+    scatter_to_model,
+)
 from dist_mnist_tpu_torch.parallel.flash import (
     flash_attention_sharded,
     masked_flash_attention_sharded,
@@ -84,6 +106,14 @@ def convert_block_layout(params: dict) -> dict:
     return out
 
 
+def _row_parallel(p, y, mesh):
+    """A row-parallel dense layer: this rank's input slice times its rows
+    of the kernel, summed over the model group, then the (replicated)
+    bias."""
+    part = y @ p["w"].to(y.dtype)
+    return reduce_from_model(part, mesh) + p["b"].to(y.dtype)
+
+
 @dataclasses.dataclass(frozen=True)
 class ViTTiny:
     num_classes: int = 10
@@ -101,6 +131,9 @@ class ViTTiny:
     mlp_impl: str = "dense"  # "moe" comes with the parallel slice
     scan_blocks: bool = False  # the stacked `blocks` layout
     block_pipeline: int = 0  # the GPipe stack comes with the parallel slice
+
+    #: the blocks run on TP_RULES slices under a mesh's model axis
+    tensor_parallel = True
 
     def __post_init__(self):
         if self.attention_impl in _LATER:
@@ -199,13 +232,24 @@ class ViTTiny:
             < 1.0 - self.dropout_rate
         return keep if rows == b else keep[:, offset:offset + b]
 
-    def _attention(self, p, x, mask=None):
+    def _attention(self, p, x, mask=None, tp=None):
+        if tp is not None:
+            return self._tp_attention(p, x, tp, mask=mask)
         if self.attention_impl == "xla":
             return nn.multi_head_attention(p, x, self.heads, mask=mask)
         b, s, d = x.shape
+        qkv = nn.dense(p["qkv"], x)
+        return nn.dense(p["out"], self._attend(qkv, mask).reshape(b, s, d))
+
+    def _attend(self, qkv, mask=None):
+        """``[B, S, H, Dh]`` attention of the fused projection's output
+        ``[B, S, 3D]``."""
+        b, s, three_d = qkv.shape
         h = self.heads
-        qkv = nn.dense(p["qkv"], x).reshape(b, s, 3, h, d // h)
+        qkv = qkv.reshape(b, s, 3, h, three_d // (3 * h))
         q, k, v = qkv.unbind(2)  # strided views, read in place
+        if self.attention_impl == "xla":
+            return nn.dot_product_attention(q, k, v, mask=mask)
         if mask is not None:
             # token masks are key prefixes: the masked kernels take
             # per-row lengths and skip key tiles past them
@@ -214,17 +258,36 @@ class ViTTiny:
         else:
             # full-K tiles, the reference's rule for every ViT call
             out = flash_attention_sharded(q, k, v)
-        return nn.dense(p["out"], out.reshape(b, s, d))
+        return out
 
-    def _block(self, p, x, keep=None, mask=None):
-        """One pre-LN transformer block; `keep` is its dropout keep-mask."""
+    def _tp_attention(self, p, x, mesh, mask=None):
+        """The Megatron attention (module docstring): qkv column-parallel
+        and gathered, attention replicated, out row-parallel."""
+        b, s, d = x.shape
+        qkv = gather_from_model(nn.dense(p["qkv"], copy_to_model(x, mesh)),
+                                mesh, -1)
+        out = self._attend(qkv, mask).reshape(b, s, d)
+        return _row_parallel(p["out"], scatter_to_model(out, mesh, -1), mesh)
+
+    def _block(self, p, x, keep=None, mask=None, tp=None):
+        """One pre-LN transformer block; `keep` is its dropout keep-mask
+        (the full width: under `tp` this rank takes its columns)."""
         y = nn.layer_norm(p["ln1"], x)
-        x = x + self._attention(p["attn"], y, mask=mask)
+        x = x + self._attention(p["attn"], y, mask=mask, tp=tp)
         y = nn.layer_norm(p["ln2"], x)
-        y = nn.gelu(nn.dense(p["mlp_in"], y))
+        if tp is None:
+            y = nn.gelu(nn.dense(p["mlp_in"], y))
+        else:
+            y = nn.gelu(nn.dense(p["mlp_in"], copy_to_model(y, tp)))
+            if keep is not None:
+                width = y.shape[-1]
+                keep = keep[..., tp.model_index * width:
+                            (tp.model_index + 1) * width]
         if keep is not None:
             y = nn.dropout(y, self.dropout_rate, train=True, mask=keep)
-        return x + nn.dense(p["mlp_out"], y)
+        if tp is None:
+            return x + nn.dense(p["mlp_out"], y)
+        return x + _row_parallel(p["mlp_out"], y, tp)
 
     def apply(self, params, state, x, *, train=False, rng=None,
               dropout_mask=None, mask=None):
@@ -260,9 +323,11 @@ class ViTTiny:
         layers = (unstack_params(params["blocks"], self.depth)
                   if self.scan_blocks
                   else [params[f"block{i}"] for i in range(self.depth)])
+        mesh = ambient_mesh()
+        tp = mesh if mesh is not None and mesh.model > 1 else None
         for i, p in enumerate(layers):
             x = self._block(p, x, dropout_mask[i] if use_dropout else None,
-                            mask=tok_mask)
+                            mask=tok_mask, tp=tp)
         x = nn.layer_norm(params["final_ln"], x)
         if self.pool == "cls":
             pooled = x[:, 0]

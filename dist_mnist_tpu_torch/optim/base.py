@@ -66,9 +66,10 @@ _NORM = threading.local()
 @contextlib.contextmanager
 def sum_of_squares_over(fn: Callable[[Any], torch.Tensor]):
     """Inside the block, `global_norm(tree)` is ``sqrt(fn(tree))``: under
-    FSDP a rank holds slices of some leaves, and the step passes the
-    function that adds the slices' sums over ranks (the norm the
-    reference's GSPMD program computes over the global arrays)."""
+    FSDP or TP a rank holds slices of some leaves, and the step passes
+    the function that adds the slices' sums over ranks
+    (`sharded_sum_of_squares`; the norm the reference's GSPMD program
+    computes over the global arrays)."""
     prev = getattr(_NORM, "fn", None)
     _NORM.fn = fn
     try:
@@ -82,6 +83,47 @@ def sum_of_squares(tree) -> torch.Tensor:
     the reference's order."""
     return sum(torch.sum(torch.square(x.to(torch.float32)))
                for x in leaves(tree))
+
+
+def sharded_sum_of_squares(placement) -> Callable[[Any], torch.Tensor]:
+    """`sum_of_squares` of a param-shaped tree whose leaves are this
+    rank's slices under `placement` (`parallel/sharding.Placement`): each
+    leaf squared and summed locally, the leaves sharded over the same
+    axes summed together and all-reduced over those axes, the replicated
+    leaves counted once. Every rank gets the same bits: the replicated
+    leaves are bit-equal across ranks and each reduced part is one
+    all-reduce, the parts added in a fixed order. Equal to the unsharded
+    `sum_of_squares` to rounding."""
+    from dist_mnist_tpu_torch.cluster.mesh import DATA_AXIS, MODEL_AXIS
+    from dist_mnist_tpu_torch.parallel.collectives import all_reduce_
+    from dist_mnist_tpu_torch.utils.tree import flatten_with_path
+
+    mesh = placement.mesh
+    specs = dict(flatten_with_path(placement.specs.params))
+    order = ((DATA_AXIS,), (MODEL_AXIS,), (DATA_AXIS, MODEL_AXIS))
+
+    def axes_of(path):
+        return tuple(a for a in (DATA_AXIS, MODEL_AXIS)
+                     if specs[path].dim(a) is not None
+                     and mesh.shape[a] > 1)
+
+    def fn(tree):
+        flat = flatten_with_path(tree)
+        zero = torch.zeros((), dtype=torch.float32, device=flat[0][1].device)
+        parts: dict = {}
+        for path, x in flat:
+            parts.setdefault(axes_of(path), []).append(x)
+        total = sum_of_squares(parts.get((), [])) + zero
+        for axes in order:
+            if axes not in parts:
+                continue
+            part = (sum_of_squares(parts[axes]) + zero).reshape(1)
+            for axis in axes:
+                part = all_reduce_(part, mesh, axis)
+            total = part[0] + total
+        return total
+
+    return fn
 
 
 def global_norm(tree) -> torch.Tensor:

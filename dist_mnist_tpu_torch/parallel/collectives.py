@@ -1,10 +1,11 @@
-"""The collectives of the data-parallel step (port of the reference
-`parallel/collectives.py`).
+"""The collectives of the data- and tensor-parallel step (port of the
+reference `parallel/collectives.py`).
 
 In the reference, GSPMD inserts the gradient all-reduce, the FSDP
 all-gather and reduce-scatter, and the batch-norm statistics' all-reduce
-when the batch is sharded on the ``data`` axis. Here the step writes them
-out over the mesh's process group:
+when the batch is sharded on the ``data`` axis, and the Megatron
+reductions when weights are sharded on the ``model`` axis. Here the step
+and the models write them out over the mesh's groups:
 
 - `psum_mean`: the mean of a gradient tree over the ranks, one all-reduce
   of one flat f32 buffer (never one call per leaf);
@@ -12,10 +13,25 @@ out over the mesh's process group:
   over a flat buffer laid out ``[ranks, chunk]``, rank r's chunk holding
   its slice of every sharded leaf;
 - `all_reduce_sum`: an all-reduce that autograd differentiates (its
-  backward all-reduces the cotangent), for synchronized batch norm.
+  backward all-reduces the cotangent), for synchronized batch norm;
+- the Megatron operators over the ``model`` group, as autograd
+  functions: `copy_to_model` (identity forward, all-reduce backward: the
+  input of a column-parallel layer), `reduce_from_model` (all-reduce
+  forward, identity backward: the output of a row-parallel layer),
+  `scatter_to_model` (this rank's slice of a replicated tensor forward,
+  all-gather backward: the input of a row-parallel layer fed by
+  replicated math) and `gather_from_model` (all-gather on a dim forward;
+  its backward takes this rank's slice of the cotangent, since
+  everything downstream of the gather is replicated and every rank
+  already holds the whole, equal cotangent: a reduce-scatter there would
+  double every gradient).
 
-Every call adds its payload bytes to ``mesh.stats`` (`collective_stats`),
-which the training CLI reports per step. `ring_shift` and
+The gradient mean (`psum_mean`) and the FSDP pair run over the ``data``
+group only (``axis="data"``, the default); `gather_leaves` also takes
+``axis="model"`` for gathering a tensor-parallel leaf whole. Every call
+adds its payload bytes to ``mesh.stats`` (`collective_stats`), which the
+training CLI reports per step: the ``model`` group's under keys that
+start with ``tp_``, apart from the data group's. `ring_shift` and
 `all_to_all_heads` join with ROADMAP §1 item 11.
 """
 
@@ -26,7 +42,7 @@ import collections
 import torch
 import torch.distributed as dist
 
-from dist_mnist_tpu_torch.cluster.mesh import Mesh
+from dist_mnist_tpu_torch.cluster.mesh import DATA_AXIS, MODEL_AXIS, Mesh
 from dist_mnist_tpu_torch.utils.tree import flatten_with_path, map_with_path
 
 
@@ -36,34 +52,40 @@ def collective_stats(mesh: Mesh) -> collections.Counter:
     return mesh.stats
 
 
-def _count(mesh: Mesh, name: str, t: torch.Tensor) -> None:
+def _count(mesh: Mesh, name: str, t: torch.Tensor,
+           axis: str = DATA_AXIS) -> None:
     stats = collective_stats(mesh)
-    stats[f"{name}_bytes"] += t.numel() * t.element_size()
-    stats[f"{name}_calls"] += 1
+    key = name if axis == DATA_AXIS else f"tp_{name}"
+    stats[f"{key}_bytes"] += t.numel() * t.element_size()
+    stats[f"{key}_calls"] += 1
 
 
-def all_reduce_(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """Sum `t` over the mesh's ranks, in place (no-op on one rank)."""
-    if mesh.size == 1:
+def all_reduce_(t: torch.Tensor, mesh: Mesh,
+                axis: str = DATA_AXIS) -> torch.Tensor:
+    """Sum `t` over the ranks of `axis`, in place (no-op on one rank)."""
+    if mesh.shape[axis] == 1:
         return t
-    _count(mesh, "all_reduce", t)
-    dist.all_reduce(t, group=mesh.group)
+    _count(mesh, "all_reduce", t, axis)
+    dist.all_reduce(t, group=mesh.axis_group(axis))
     return t
 
 
-def all_gather_flat(chunk: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """``[ranks * n]``: every rank's 1-D `chunk` of n elements, rank 0's
-    first."""
-    if mesh.size == 1:
+def all_gather_flat(chunk: torch.Tensor, mesh: Mesh,
+                    axis: str = DATA_AXIS) -> torch.Tensor:
+    """``[ranks * n]``: every `axis` rank's 1-D `chunk` of n elements,
+    index 0's first."""
+    n = mesh.shape[axis]
+    if n == 1:
         return chunk
-    _count(mesh, "all_gather", chunk)
-    out = chunk.new_empty(mesh.size * chunk.numel())
-    dist.all_gather_into_tensor(out, chunk.contiguous(), group=mesh.group)
+    _count(mesh, "all_gather", chunk, axis)
+    out = chunk.new_empty(n * chunk.numel())
+    dist.all_gather_into_tensor(out, chunk.contiguous(),
+                                group=mesh.axis_group(axis))
     return out
 
 
 def reduce_scatter_flat(flat: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """This rank's n elements of the sum over ranks of `flat`
+    """This rank's n elements of the sum over the data ranks of `flat`
     (``[ranks * n]``)."""
     if mesh.size == 1:
         return flat
@@ -81,10 +103,10 @@ def _divide(t: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def psum_mean(tree, mesh: Mesh, extra: torch.Tensor | None = None):
-    """The mean over ranks of every leaf of `tree` (and of the 1-D
-    `extra`, e.g. the step's metrics): one all-reduce of one flat f32
-    buffer. Returns the tree (each leaf in its own dtype), or
-    ``(tree, extra)`` when `extra` is given. The reference's
+    """The mean over the data ranks of every leaf of `tree` (and of the
+    1-D `extra`, e.g. the step's metrics): one all-reduce of one flat f32
+    buffer over the data group. Returns the tree (each leaf in its own
+    dtype), or ``(tree, extra)`` when `extra` is given. The reference's
     ``lax.psum(g) / n``."""
     flat = flatten_with_path(tree)
     if mesh.size == 1:
@@ -105,11 +127,12 @@ def psum_mean(tree, mesh: Mesh, extra: torch.Tensor | None = None):
 
 
 def gather_leaves(shards: list[torch.Tensor], dims: list[int],
-                  mesh: Mesh) -> list[torch.Tensor]:
-    """The full leaves of FSDP shards: shard i holds rank r's slice of
-    leaf i along dim ``dims[i]``. One all-gather of a flat buffer per
-    dtype."""
-    if mesh.size == 1 or not shards:
+                  mesh: Mesh, axis: str = DATA_AXIS) -> list[torch.Tensor]:
+    """The full leaves of shards over `axis`: shard i holds this rank's
+    slice of leaf i along dim ``dims[i]``. One all-gather of a flat
+    buffer per dtype."""
+    n_ranks = mesh.shape[axis]
+    if n_ranks == 1 or not shards:
         return list(shards)
     out: list = [None] * len(shards)
     by_dtype: dict = {}
@@ -118,11 +141,11 @@ def gather_leaves(shards: list[torch.Tensor], dims: list[int],
     for idx in by_dtype.values():
         moved = [shards[i].movedim(dims[i], 0) for i in idx]
         chunk = torch.cat([m.reshape(-1) for m in moved])
-        full = all_gather_flat(chunk, mesh).view(mesh.size, -1)
+        full = all_gather_flat(chunk, mesh, axis).view(n_ranks, -1)
         off = 0
         for i, m in zip(idx, moved):
             n = m.numel()
-            block = full[:, off:off + n].reshape(mesh.size * m.shape[0],
+            block = full[:, off:off + n].reshape(n_ranks * m.shape[0],
                                                  *m.shape[1:])
             out[i] = block.movedim(0, dims[i]).contiguous()
             off += n
@@ -173,6 +196,103 @@ def all_reduce_sum(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     if mesh.size == 1:
         return t
     return _AllReduceSum.apply(t, mesh)
+
+
+def _model_slice(t: torch.Tensor, dim: int, mesh: Mesh) -> torch.Tensor:
+    n = t.shape[dim] // mesh.model
+    return t.narrow(dim, mesh.model_index * n, n)
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Identity forward; the backward sums the cotangent over the model
+    group (each rank's column-parallel slice saw the whole input)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh):
+        ctx.mesh = mesh
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce_(grad.contiguous().clone(), ctx.mesh,
+                           MODEL_AXIS), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """Sum over the model group forward (the row-parallel partial
+    products); identity backward (the sum is replicated downstream)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh):
+        return all_reduce_(t.contiguous().clone(), mesh, MODEL_AXIS)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _ScatterToModel(torch.autograd.Function):
+    """This rank's slice on `dim` of a replicated tensor forward; the
+    backward all-gathers the slices' cotangents, so the replicated
+    tensor's cotangent is whole, and equal, on every rank."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, dim):
+        ctx.mesh, ctx.dim = mesh, dim
+        return _model_slice(t, dim, mesh).contiguous()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (gather_leaves([grad.contiguous()], [ctx.dim], ctx.mesh,
+                              MODEL_AXIS)[0], None, None)
+
+
+class _GatherFromModel(torch.autograd.Function):
+    """All-gather over the model group on `dim` forward; the backward
+    keeps this rank's slice of the (replicated) cotangent."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, dim):
+        ctx.mesh, ctx.dim = mesh, dim
+        return gather_leaves([t.contiguous()], [dim], mesh, MODEL_AXIS)[0]
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (_model_slice(grad, ctx.dim, ctx.mesh).contiguous(), None,
+                None)
+
+
+def copy_to_model(t: torch.Tensor, mesh: Mesh | None) -> torch.Tensor:
+    """The input of a column-parallel layer (`t` without a model axis)."""
+    if mesh is None or mesh.model == 1:
+        return t
+    return _CopyToModel.apply(t, mesh)
+
+
+def reduce_from_model(t: torch.Tensor, mesh: Mesh | None) -> torch.Tensor:
+    """The sum over the model group of a row-parallel layer's partial
+    products (`t` without a model axis)."""
+    if mesh is None or mesh.model == 1:
+        return t
+    return _ReduceFromModel.apply(t, mesh)
+
+
+def scatter_to_model(t: torch.Tensor, mesh: Mesh | None,
+                     dim: int) -> torch.Tensor:
+    """This rank's slice on `dim` of a replicated `t` (the input of a
+    row-parallel layer; `t` without a model axis)."""
+    if mesh is None or mesh.model == 1:
+        return t
+    return _ScatterToModel.apply(t, mesh, dim % t.ndim)
+
+
+def gather_from_model(t: torch.Tensor, mesh: Mesh | None,
+                      dim: int) -> torch.Tensor:
+    """The model group's slices of `t` along `dim`, index 0's first (`t`
+    without a model axis)."""
+    if mesh is None or mesh.model == 1:
+        return t
+    return _GatherFromModel.apply(t, mesh, dim % t.ndim)
 
 
 def make_explicit_dp_step(model, optimizer, mesh: Mesh, *, loss_fn=None):

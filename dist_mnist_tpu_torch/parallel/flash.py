@@ -1,49 +1,118 @@
 """The flash kernels' entry for a mesh (port of the reference
-`parallel/flash.py`, one device).
+`parallel/flash.py`).
 
 The reference shards the kernel over heads with `shard_map` when the
-ambient mesh has a >1 `model` axis (Megatron TP attention). The port runs
-on one device: with no mesh, or a mesh whose model axis is 1, these call
-the kernels directly; a >1 model axis raises until the tensor- and
-data-parallel slice (ROADMAP §1 item 12) brings the sharded branch.
+ambient mesh has a >1 `model` axis (Megatron TP attention): a bare kernel
+call would run replicated on every device. The port does the same over
+the ranks of the mesh's model group: with no mesh, or a model axis of
+one, these call the kernels directly; with a wider model axis each rank
+takes its contiguous slice of the heads, ``[..., m*H/M:(m+1)*H/M, :]``
+(`parallel/collectives.scatter_to_model`: its backward all-gathers the
+heads' gradients, so q, k and v, replicated on the model group, get
+their whole gradient on every rank), runs the CUDA kernel on them and
+gathers the outputs over heads (`gather_from_model`: its backward takes
+this rank's slice of the replicated cotangent, so the kernels' backward
+runs on the local heads too). Every head is computed by the same kernel
+on the same inputs, so the result is the unsharded kernel's, bit for
+bit. The batch rides the ``data`` axis: a rank of
+the step already holds its data slice of the batch, so the kernel sees
+that slice. A head count the model axis cannot divide raises the
+reference's ValueError; a batch the data axis does not divide logs the
+reference's warning (in the port each rank then holds a batch that is
+not a data slice of a divisible global batch, which is the caller's
+batch as given).
+
+`flash_attention_tagged` is the reference's entry with the ``attn_out``
+remat tag; torch has no `checkpoint_name`, so here it passes through to
+`flash_attention_sharded` (the remat policies that read the tag,
+`save_attn` and `dots`, are ROADMAP §1 item 4(b)).
 """
 
 from __future__ import annotations
 
+import logging
+
 import torch
 
-from dist_mnist_tpu_torch.cluster.mesh import MeshSpec
+from dist_mnist_tpu_torch.cluster.mesh import ambient_mesh
 from dist_mnist_tpu_torch.ops.kernels.flash_attention import flash_attention
 from dist_mnist_tpu_torch.ops.kernels.masked_flash import (
     masked_flash_attention,
 )
+from dist_mnist_tpu_torch.parallel.collectives import (
+    gather_from_model,
+    scatter_to_model,
+)
+
+log = logging.getLogger(__name__)
 
 
-def _one_device(mesh: MeshSpec | None) -> None:
-    if mesh is not None and mesh.model > 1:
-        raise NotImplementedError(
-            f"flash attention over a {mesh.model}-way model axis (heads "
-            "sharded per device) joins the port with the tensor- and "
-            "data-parallel slice (ROADMAP §1 item 12); the port runs it on "
-            "one device")
+def _heads_mesh(q, mesh):
+    """The mesh whose model axis shards `q`'s heads, or None to run on
+    one device; raises on an indivisible head count."""
+    mesh = ambient_mesh() if mesh is None else mesh
+    if mesh is None or mesh.model <= 1:
+        return None
+    m, heads = mesh.model, q.shape[2]
+    if heads % m:
+        raise ValueError(
+            f"flash attention on a {m}-way model axis shards the kernel "
+            f"over heads (Megatron TP attention) and cannot split a head: "
+            f"heads={heads} % model={m} != 0. Use a head count divisible "
+            f"by {m}, or attention_impl='xla' (einsums partition without "
+            "head granularity)."
+        )
+    data = mesh.size
+    if data > 1 and q.shape[0] % data:
+        log.warning(
+            "flash attention: batch=%d %% data axis %d != 0 — the kernel "
+            "drops the data axis and every device recomputes the FULL "
+            "replicated batch (%dx redundant compute/memory); use a batch "
+            "divisible by %d to ride the data axis",
+            q.shape[0], data, data, data,
+        )
+    return mesh
 
 
-def flash_attention_sharded(q, k, v, block_k=None, *,
-                            mesh: MeshSpec | None = None):
+def _local_heads(t, mesh):
+    """This rank's contiguous head slice of ``[B, S, H, D]``, contiguous
+    (the kernels' operands)."""
+    return scatter_to_model(t, mesh, 2)
+
+
+def flash_attention_sharded(q, k, v, block_k=None, *, mesh=None):
     """``[B, S, H, D]`` flash attention (`ops/kernels/flash_attention.py`)
-    on one device; `block_k` selects the streamed rounding rule."""
-    _one_device(mesh)
-    return flash_attention(q, k, v, block_k=block_k)
+    on the ambient mesh (or `mesh`, a `cluster.mesh.Mesh`): the plain
+    kernel without a >1 model axis, this rank's heads and a gather over
+    them with one. `block_k` selects the streamed rounding rule."""
+    tp = _heads_mesh(q, mesh)
+    if tp is None:
+        return flash_attention(q, k, v, block_k=block_k)
+    out = flash_attention(_local_heads(q, tp), _local_heads(k, tp),
+                          _local_heads(v, tp), block_k=block_k)
+    return gather_from_model(out, tp, 2)
+
+
+def flash_attention_tagged(q, k, v, block_k=None, *, mesh=None):
+    """`flash_attention_sharded`; the reference's ``attn_out`` remat tag
+    has no torch counterpart (module docstring)."""
+    return flash_attention_sharded(q, k, v, block_k=block_k, mesh=mesh)
 
 
 def masked_flash_attention_sharded(q, k, v, lengths, block_k=None, *,
-                                   mesh: MeshSpec | None = None):
+                                   mesh=None):
     """Variable-length twin: row b attends keys ``[0, lengths[b])``
-    (`ops/kernels/masked_flash.py`). `block_k` is the reference's and
-    changes nothing here: the kernels skip key tiles of their own size.
-    The masked kernels take contiguous operands, so strided views (one
-    fused projection's q, k, v) are copied first."""
+    (`ops/kernels/masked_flash.py`); the same mesh policy, `lengths`
+    following the batch. `block_k` is the reference's and changes nothing
+    here: the kernels skip key tiles of their own size. The masked
+    kernels take contiguous operands, so strided views (one fused
+    projection's q, k, v) are copied first."""
     del block_k
-    _one_device(mesh)
-    return masked_flash_attention(q.contiguous(), k.contiguous(),
-                                  v.contiguous(), lengths.to(torch.int32))
+    lengths = lengths.to(torch.int32)
+    tp = _heads_mesh(q, mesh)
+    if tp is None:
+        return masked_flash_attention(q.contiguous(), k.contiguous(),
+                                      v.contiguous(), lengths)
+    out = masked_flash_attention(_local_heads(q, tp), _local_heads(k, tp),
+                                 _local_heads(v, tp), lengths)
+    return gather_from_model(out, tp, 2)

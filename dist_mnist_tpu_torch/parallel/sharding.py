@@ -1,22 +1,30 @@
-"""Placement rules, the data-parallel and FSDP half (port of the reference
-`parallel/sharding.py`).
+"""Placement rules: data parallelism, FSDP, Megatron tensor parallelism
+and FSDP composed with it (port of the reference `parallel/sharding.py`).
 
 A placement is a `P` per leaf: ``P()`` replicated on every rank,
-``P(None, "data")`` split along dim 1 over the ``data`` axis. Under DP
-every leaf is replicated. Under FSDP (ZeRO) every float param leaf is
-split along its largest dim that the number of ranks divides
-(`_fsdp_compose`, the reference's rule, picking the same dim since the
-port keeps the reference's HWIO and ``[in, out]`` layouts), and each
-optimizer slot inherits its param's placement (`derive_state_specs`),
-through `chain` and gradient accumulation. A sharded leaf keeps only its
-1/N slice on each rank: `shard_train_state` narrows a full state, and
-the state carries a `Placement` saying which leaves are slices and along
-which dim, for the step (all-gather before the forward, reduce-scatter of
-the gradients), the checkpoint manager (gathers before the chief writes)
-and `reshard_state`.
+``P(None, "data")`` split along dim 1 over the ``data`` axis,
+``P(None, "data", "model")`` split along dim 1 over ``data`` and dim 2
+over ``model``. Under DP every leaf is replicated. Under FSDP (ZeRO)
+every float param leaf is split along its largest dim that the number of
+ranks divides (`_fsdp_compose`, the reference's rule, picking the same
+dim since the port keeps the reference's HWIO and ``[in, out]``
+layouts). `TP_RULES` are the reference's regexes letter for letter: the
+column-parallel kernels and biases (``qkv``, ``mlp_in``, ``fc1``) split
+their output dim over ``model``, the row-parallel kernels (``attn/out``,
+``mlp_out``, ``fc2``) their input dim, right-aligned on stacked
+``[depth, ...]`` leaves; `FSDP_TP_RULES` put ``model`` first and then
+``data`` on the largest remaining free dim. Each optimizer slot inherits
+its param's placement (`derive_state_specs`), through `chain` and
+gradient accumulation.
 
-The tensor-parallel rules (``tp``, ``fsdp_tp``) join with ROADMAP §1 item
-12's tensor-parallel half.
+A sharded leaf keeps only its local slice on each rank (1/model of a
+tensor-parallel dim, then 1/data of an FSDP dim): `shard_train_state`
+narrows a full state, and the state carries a `Placement` saying which
+leaves are slices and along which dims, for the step (all-gather over
+``data`` before the forward, reduce-scatter of the gradients; the
+``model`` slices stay local, the model's Megatron operators handle
+them), the checkpoint manager (gathers over both axes before the chief
+writes) and `reshard_state`.
 """
 
 from __future__ import annotations
@@ -26,11 +34,13 @@ import re
 
 import torch
 
-from dist_mnist_tpu_torch.cluster.mesh import DATA_AXIS, Mesh
+from dist_mnist_tpu_torch.cluster.mesh import DATA_AXIS, MODEL_AXIS, Mesh
 from dist_mnist_tpu_torch.parallel import collectives
 from dist_mnist_tpu_torch.utils.tree import flatten_with_path, map_with_path
 
-_TP = "the tensor-parallel half of ROADMAP §1 item 12"
+#: the axes a leaf may be split over, in the order a slice is taken
+#: (model first, then data) and undone in reverse
+_AXES = (MODEL_AXIS, DATA_AXIS)
 
 
 class P:
@@ -127,20 +137,40 @@ def _fsdp_compose(spec: P, leaf, axis_size: int, axis_name: str) -> P:
 
 #: pure data parallelism: every leaf replicated
 DP_RULES = ShardingRules()
+#: Megatron TP (the reference's regexes): column-parallel qkv / mlp_in /
+#: fc1 (output dim over `model`, their biases too), row-parallel
+#: attn/out / mlp_out / fc2 (input dim over `model`; their biases stay
+#: replicated, added after the reduce)
+TP_RULES = ShardingRules(
+    rules=(
+        (r"(qkv|mlp_in|fc1)/w$", (None, MODEL_AXIS)),
+        (r"(qkv|mlp_in|fc1)/b$", (MODEL_AXIS,)),
+        (r"(attn/out|mlp_out|fc2)/w$", (MODEL_AXIS, None)),
+    )
+)
 #: ZeRO/FSDP: params and optimizer slots sharded over `data`
 FSDP_RULES = ShardingRules(fsdp_axis=DATA_AXIS)
+#: FSDP composed with Megatron TP: `model` from the regexes first, then
+#: `data` on the largest remaining free dim
+FSDP_TP_RULES = ShardingRules(rules=TP_RULES.rules, fsdp_axis=DATA_AXIS)
 
 
 def resolve_rules(name: str) -> ShardingRules:
     """Config string -> rules (`Config.sharding_rules`)."""
-    if name in ("tp", "fsdp_tp"):
-        raise NotImplementedError(f"sharding {name!r} joins the port with "
-                                  f"{_TP}; the port has 'dp' and 'fsdp'")
-    table = {"dp": DP_RULES, "fsdp": FSDP_RULES}
+    table = {"dp": DP_RULES, "tp": TP_RULES, "fsdp": FSDP_RULES,
+             "fsdp_tp": FSDP_TP_RULES}
     if name not in table:
         raise ValueError(f"unknown sharding_rules {name!r}; use 'dp' | "
-                         "'fsdp' ('tp' | 'fsdp_tp' join with " + _TP + ")")
+                         "'tp' | 'fsdp' | 'fsdp_tp'")
     return table[name]
+
+
+def rules_name(rules: ShardingRules) -> str:
+    """The config string of a rule set (`resolve_rules`'s inverse)."""
+    for name in ("dp", "tp", "fsdp", "fsdp_tp"):
+        if resolve_rules(name) == rules:
+            return name
+    return "custom"
 
 
 def _seg(k) -> str:
@@ -216,48 +246,76 @@ class Placement:
     rules: ShardingRules
     specs: StateSpecs
 
+    def sharded_on(self, axis: str) -> bool:
+        """Does any leaf hold a slice over `axis`?"""
+        return self.mesh.shape[axis] > 1 and any(
+            s.dim(axis) is not None for part in ("params", "opt_state")
+            for _, s in flatten_with_path(getattr(self.specs, part)))
+
     @property
     def sharded(self) -> bool:
         """Does any leaf hold a slice?"""
-        return self.mesh.size > 1 and any(
-            s.dim() is not None for part in ("params", "opt_state")
-            for _, s in flatten_with_path(getattr(self.specs, part)))
+        return any(self.sharded_on(axis) for axis in _AXES)
 
 
-def _sharded_leaves(tree, spec_tree):
-    """[(path, leaf, dim)] for each leaf of `tree` whose spec splits it."""
+def _sharded_leaves(tree, spec_tree, axis: str = DATA_AXIS):
+    """[(path, leaf, dim)] for each leaf of `tree` whose spec splits it
+    over `axis`."""
     specs = dict(flatten_with_path(spec_tree))
-    return [(path, leaf, specs[path].dim())
+    return [(path, leaf, specs[path].dim(axis))
             for path, leaf in flatten_with_path(tree)
-            if specs[path].dim() is not None]
+            if specs[path].dim(axis) is not None]
+
+
+def replicated_leaves(tree, spec_tree, axes=_AXES) -> dict:
+    """``{path: leaf}`` of the leaves of `tree` that no axis of `axes`
+    splits: every rank of those axes' groups holds the same bits of them
+    (``axes=("model",)``: the leaves every rank of a model group holds
+    alike, FSDP slices included)."""
+    specs = dict(flatten_with_path(spec_tree))
+    return {path: leaf for path, leaf in flatten_with_path(tree)
+            if all(specs[path].dim(a) is None for a in axes)}
 
 
 def shard_tree(tree, spec_tree, mesh: Mesh):
     """`tree` (full leaves, identical on every rank) with each sharded
-    leaf narrowed to this rank's contiguous slice (its own memory)."""
+    leaf narrowed to this rank's contiguous slice (its own memory): its
+    ``model`` dim to this rank's model index, then its ``data`` dim to
+    its data index."""
     specs = dict(flatten_with_path(spec_tree))
 
     def one(path, leaf):
-        d = specs[path].dim()
-        if d is None or mesh.size == 1:
+        out = leaf
+        for axis in _AXES:
+            d, ranks = specs[path].dim(axis), mesh.shape[axis]
+            if d is None or ranks == 1:
+                continue
+            n = out.shape[d] // ranks
+            out = out.narrow(d, mesh.axis_index(axis) * n, n)
+        if out is leaf:
             return leaf
-        n = leaf.shape[d] // mesh.size
-        return leaf.narrow(d, mesh.rank * n, n).clone(
-            memory_format=torch.contiguous_format)
+        return out.clone(memory_format=torch.contiguous_format)
 
     return map_with_path(one, tree)
 
 
-def gather_tree(tree, spec_tree, mesh: Mesh):
-    """`tree` with every sharded leaf all-gathered to its full shape (one
-    collective for the whole tree; every rank must call it)."""
-    sharded = _sharded_leaves(tree, spec_tree)
-    if mesh.size == 1 or not sharded:
-        return tree
-    full = collectives.gather_leaves([leaf for _, leaf, _ in sharded],
-                                     [d for _, _, d in sharded], mesh)
-    by_path = {path: f for (path, _, _), f in zip(sharded, full)}
-    return map_with_path(lambda p, leaf: by_path.get(p, leaf), tree)
+def gather_tree(tree, spec_tree, mesh: Mesh, axes=(DATA_AXIS, MODEL_AXIS)):
+    """`tree` with every leaf sharded over `axes` all-gathered over them,
+    ``data`` first (one collective per axis for the whole tree; every
+    rank of the axis must call it). The step gathers the ``data`` axis
+    alone: the tensor-parallel slices stay local."""
+    for axis in _AXES[::-1]:
+        if axis not in axes or mesh.shape[axis] == 1:
+            continue
+        sharded = _sharded_leaves(tree, spec_tree, axis)
+        if not sharded:
+            continue
+        full = collectives.gather_leaves([leaf for _, leaf, _ in sharded],
+                                         [d for _, _, d in sharded], mesh,
+                                         axis)
+        by_path = {path: f for (path, _, _), f in zip(sharded, full)}
+        tree = map_with_path(lambda p, leaf, b=by_path: b.get(p, leaf), tree)
+    return tree
 
 
 def _check_matches(state, mesh: Mesh, rules: ShardingRules) -> None:
@@ -314,17 +372,19 @@ def full_template(state):
     placement = state.placement
     if placement is None or not placement.sharded:
         return state
-    n = placement.mesh.size
+    mesh = placement.mesh
 
     def widen(tree, spec_tree):
         specs = dict(flatten_with_path(spec_tree))
 
         def one(path, leaf):
-            d = specs[path].dim()
-            if d is None:
-                return leaf
             shape = list(leaf.shape)
-            shape[d] *= n
+            for axis in _AXES:
+                d = specs[path].dim(axis)
+                if d is not None:
+                    shape[d] *= mesh.shape[axis]
+            if shape == list(leaf.shape):
+                return leaf
             return leaf.new_empty(shape)
 
         return map_with_path(one, tree)

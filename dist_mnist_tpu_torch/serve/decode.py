@@ -22,6 +22,22 @@ device, continuous batching (port of the reference `serve/decode.py`).
   host-side bookkeeping after a dispatch never touches the in-flight
   step's table.
 
+**Tensor parallelism** (an engine given a `cluster.mesh.Mesh` whose
+model axis is wider than one): each rank of the model group holds the
+KV cache's ``heads / M`` heads (`CausalLMTiny.init_cache(mesh=)`) and
+runs every prefill and decode call on them under the mesh
+(`models/causal_lm.py`'s TP branches); `kv_stats` reports the whole
+cache, as the reference's, and `rank_kv_bytes` this rank's share. A
+stated departure: the reference drives every device from one process,
+the port runs a process per device. The model group's first rank (the
+chief) owns the scheduler, the page table and the loadgen; for every
+prefill or decode call it broadcasts the call's host inputs (the cell,
+tokens, positions or lengths, slots, the page table) over the model
+group's host group, and the other ranks (`follow`) run the same call on
+their heads, in the chief's order, until `close` on the chief sends the
+stop message. A follower that raises leaves its loop and its process,
+which fails the chief's next collective, so nothing waits for it.
+
 What the reference has and this port does not: the reference compiles
 every grid cell through a `CompiledModelCache` and gates on zero
 recompiles during traffic (`stats()["misses"]`,
@@ -61,6 +77,7 @@ from concurrent.futures import Future
 import numpy as np
 import torch
 
+from dist_mnist_tpu_torch.cluster.mesh import MODEL_AXIS, activate
 from dist_mnist_tpu_torch.serve.admission import (
     QueueFullError,
     ShuttingDownError,
@@ -85,16 +102,21 @@ _SCHED_IDS = itertools.count()
 
 
 class DecodeEngine:
-    """Prefill/decode steps on one device + the KV cache they share.
+    """Prefill/decode steps on one device + the KV cache they share; with
+    a tensor-parallel `mesh`, this rank's heads of them (module
+    docstring).
 
     Single-owner: the in-place cache makes concurrent callers
-    meaningless; the scheduler thread is its one caller."""
+    meaningless; the scheduler thread is its one caller (the chief's,
+    under TP; a follower's caller is `follow`)."""
 
     def __init__(self, model, params, device=None, *, grid=None,
-                 max_slots: int = 8, num_pages: int | None = None):
+                 max_slots: int = 8, num_pages: int | None = None,
+                 mesh=None):
         from dist_mnist_tpu_torch.serve.zoo import default_decode_grid
 
         self.model = model
+        self.mesh = mesh if mesh is not None and mesh.model > 1 else None
         self.device = resolve_device(device)
         self.grid = grid if grid is not None else default_decode_grid(
             model, max_slots=max_slots)
@@ -119,16 +141,22 @@ class DecodeEngine:
                     f"{self.grid.decode_page_buckets[-1]} != "
                     f"pages_per_slot {model.pages_per_slot}")
             self.kv = model.init_cache(self.grid.rows, num_pages=num_pages,
-                                       device=self.device)
+                                       device=self.device, mesh=self.mesh)
         else:
             if self.grid.decode_page_buckets:
                 raise ValueError("dense model with paged decode buckets")
-            self.kv = model.init_cache(self.grid.rows, device=self.device)
-        self._kv_bytes = sum(_nbytes(t) for t in leaves(self.kv))
+            self.kv = model.init_cache(self.grid.rows, device=self.device,
+                                       mesh=self.mesh)
+        #: this rank's KV allocation (under TP its heads' share)
+        self.rank_kv_bytes = sum(_nbytes(t) for t in leaves(self.kv))
+        self._params_bytes = sum(_nbytes(t) for t in leaves(self.params))
+        # the whole cache's, as the reference counts it
+        self._kv_bytes = self.rank_kv_bytes * self.model_ranks
         #: decode steps issued, prewarm included: each launches one
         #: attention kernel per layer on the int8-paged and flash layouts
         self.decode_steps = 0
         self._served = False
+        self._closed = False
         if self.layout == "paged":
             pps = int(model.pages_per_slot)
             self.num_pages = int(leaves(self.kv)[0].shape[1])
@@ -148,6 +176,83 @@ class DecodeEngine:
                                        (self.grid.rows, 1))
             self._table_device: dict = {}
             self._peak_pinned = 0
+
+    @property
+    def model_ranks(self) -> int:
+        """Ranks the heads split over (1 without TP)."""
+        return 1 if self.mesh is None else self.mesh.model
+
+    @property
+    def is_follower(self) -> bool:
+        """A TP rank other than its model group's chief."""
+        return self.mesh is not None and self.mesh.model_index != 0
+
+    def resident_bytes_per_device(self) -> int:
+        """Params plus the resident KV bytes (dense: the allocation;
+        paged: the scratch stripe and the pinned pages) over the model
+        ranks: the reference's per-device budget floor (its
+        `set_base_bytes`)."""
+        if self.layout != "paged":
+            kv = self._kv_bytes
+        else:
+            kv = self._page_bytes * (len(self._scratch_pages)
+                                     + self._pinned())
+        return (self._params_bytes + kv) // self.model_ranks
+
+    # -- the follower protocol (tensor parallelism) -------------------------
+
+    def _broadcast(self, msg=None):
+        """The chief's `msg` on every rank of the model group."""
+        box = [msg]
+        torch.distributed.broadcast_object_list(
+            box, src=self.mesh.model_chief,
+            group=self.mesh.host_groups[MODEL_AXIS])
+        return box[0]
+
+    def _announce(self, op: str, *args) -> None:
+        """Chief: tell the followers which call comes next, with its host
+        inputs and the page table as it stands."""
+        if self.mesh is None:
+            return
+        if self.is_follower:
+            raise RuntimeError("a follower engine runs only the chief's "
+                               "calls (follow)")
+        table = self._page_table.copy() if self.layout == "paged" else None
+        self._broadcast((op, *args, table))
+
+    def follow(self) -> int:
+        """Follower: run the chief's prefill and decode calls on this
+        rank's heads until the chief's `close`; returns the calls run. An
+        error propagates: this rank's exit fails the chief's next
+        collective."""
+        if not self.is_follower:
+            raise RuntimeError("follow() runs on a TP rank other than the "
+                               "model group's chief")
+        calls = 0
+        while True:
+            op, *args = self._broadcast()
+            if op == "stop":
+                return calls
+            table = args.pop()
+            if table is not None and not np.array_equal(table,
+                                                        self._page_table):
+                self._page_table = table
+                self._table_device.clear()
+            if op == "prefill":
+                self._exec_prefill(*args)
+            elif op == "decode":
+                self._exec_decode(*args)
+            else:
+                raise RuntimeError(f"unknown follower call {op!r}")
+            calls += 1
+
+    def close(self) -> None:
+        """Chief under TP: send the followers the stop message. No-op
+        otherwise; idempotent."""
+        if self.mesh is None or self.is_follower or self._closed:
+            return
+        self._closed = True
+        self._broadcast(("stop",))
 
     # -- paged-cache page management (host-owned; no-ops for dense) ---------
 
@@ -256,10 +361,14 @@ class DecodeEngine:
         return len(self.grid.cells())
 
     def _run_prefill(self, tokens, slots, lengths) -> torch.Tensor:
+        self._announce("prefill", tokens, slots, lengths)
+        return self._exec_prefill(tokens, slots, lengths)
+
+    def _exec_prefill(self, tokens, slots, lengths) -> torch.Tensor:
         dev = self.device
         table = (self._device_table(self._page_table.shape[1])
                  if self.layout == "paged" else None)
-        with torch.no_grad():
+        with torch.no_grad(), activate(self.mesh):
             last, _ = self.model.prefill(
                 self.params, self.kv, torch.from_numpy(tokens).to(dev),
                 torch.from_numpy(slots).to(dev),
@@ -301,9 +410,14 @@ class DecodeEngine:
     def _run_decode(self, tokens, positions,
                     width: int | None) -> torch.Tensor:
         """One decode step; `width` is the page-table bucket (paged)."""
+        self._announce("decode", tokens, positions, width)
+        return self._exec_decode(tokens, positions, width)
+
+    def _exec_decode(self, tokens, positions,
+                     width: int | None) -> torch.Tensor:
         dev = self.device
         table = self._device_table(width) if width is not None else None
-        with torch.no_grad():
+        with torch.no_grad(), activate(self.mesh):
             logits, _ = self.model.decode_step(
                 self.params, self.kv, torch.from_numpy(tokens).to(dev),
                 torch.from_numpy(positions).to(dev), page_table=table)

@@ -161,7 +161,8 @@ def per_device_state_bytes(params, model_state) -> dict:
     """Bytes the device holds for the served weights: int8 leaves at one
     byte per element plus their f32 scales (`serve/engine.py _nbytes`).
     One device holds every leaf whole; the reference's sharded placements
-    divide this and come with ROADMAP §1 item 12."""
+    divide this and come with the zoo's sharded placement (ROADMAP §1
+    item 12, `--serve_rules`)."""
     out = {
         "param_bytes": sum(_nbytes(x) for x in leaves(params)),
         "model_state_bytes": sum(_nbytes(x) for x in leaves(model_state)),
@@ -194,7 +195,8 @@ def build_zoo_engine(
     Refused until their slices land: `moe_capacity_factor` (MoE blocks,
     ROADMAP §1 item 11), `memory_budget_mb` and `store` (the budgeted
     cache and the executable store, items 13 and 15), and a `mesh` of
-    more than one device (sharded placement, item 12)."""
+    more than one device (the zoo's sharded placement, item 12: the
+    decode engine's tensor parallelism is `serve/decode.py`'s)."""
     if moe_capacity_factor is not None:
         raise ValueError(
             "moe_capacity_factor: MoE serving joins the port with the "
@@ -209,8 +211,8 @@ def build_zoo_engine(
             for axis in ("data", "model", "seq", "pipe")):
         raise ValueError(
             f"sharded placement over {mesh} joins the port with the "
-            "data- and tensor-parallel slice (ROADMAP §1 item 12); the "
-            "zoo engine serves on one device")
+            "zoo's sharded placement (ROADMAP §1 item 12, --serve_rules); "
+            "the zoo engine serves on one device")
     model = bundle.model
     grid = seq_buckets
     if isinstance(seq_buckets, str):
@@ -374,9 +376,11 @@ def default_decode_grid(model, *, max_slots: int = 8,
 
 def build_decode_engine(device, *, model_name: str = "causal_tiny",
                         seed: int = 0, max_slots: int = 8,
-                        prompt_buckets=None, **model_overrides):
+                        prompt_buckets=None, mesh=None, **model_overrides):
     """A wired `serve/decode.DecodeEngine` for a registry causal model on
-    `device`, params fresh from `seed` (`loader.init_lm_for_serving`)."""
+    `device`, params fresh from `seed` (`loader.init_lm_for_serving`; the
+    same on every rank); on a `mesh` with a model axis, this rank's heads
+    of a tensor-parallel engine."""
     from dist_mnist_tpu_torch.serve.decode import DecodeEngine
     from dist_mnist_tpu_torch.serve.loader import init_lm_for_serving
 
@@ -384,4 +388,4 @@ def build_decode_engine(device, *, model_name: str = "causal_tiny",
                                         **model_overrides)
     grid = default_decode_grid(model, max_slots=max_slots,
                                prompt_buckets=prompt_buckets)
-    return DecodeEngine(model, params, device, grid=grid)
+    return DecodeEngine(model, params, device, grid=grid, mesh=mesh)

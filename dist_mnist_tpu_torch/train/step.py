@@ -20,20 +20,30 @@ the checkpointed region and passed in; the region draws nothing. The
 reference's grad-norm outputs and the model-state `_aux`/`_metric`
 contracts join with the slices that use them.
 
-On a mesh (`cluster/mesh.py`) of N ranks, each rank runs the step on its
-slice of the global batch: under DP the params are replicated and the
-gradients' mean is one all-reduce of a flat buffer, the loss and accuracy
-riding in it (`parallel/collectives.psum_mean`); under FSDP
+On a mesh (`cluster/mesh.py`) of N data ranks, each rank runs the step
+on its slice of the global batch: under DP the params are replicated and
+the gradients' mean is one all-reduce of a flat buffer, the loss and
+accuracy riding in it (`parallel/collectives.psum_mean`); under FSDP
 (`parallel/sharding.py`) the sharded params are all-gathered before the
 forward, their gradients reduce-scattered, and each rank's optimizer
 updates its slices, the global-norm clip adding the slices' sums of
-squares over ranks. Batch norm is synchronized over the ranks (the mesh
-is ambient during the forward, `ops/nn.batch_norm`). The metrics are
-global means, equal on every rank. Each rank draws the GLOBAL batch's
-random numbers from the same generator (the sampled indices, the crops
-and flips, the dropout masks) and takes its slice, so the trajectory
-does not depend on N, as the reference's does not. Without a mesh a step
-runs on one device, the same code with no collective.
+squares over ranks (`optim.base.sharded_sum_of_squares`). Batch norm is
+synchronized over the ranks (the mesh is ambient during the forward,
+`ops/nn.batch_norm`). The metrics are global means, equal on every rank.
+Each rank draws the GLOBAL batch's random numbers from the same generator
+(the sampled indices, the crops and flips, the dropout masks) and takes
+its slice, so the trajectory does not depend on N, as the reference's
+does not. Without a mesh a step runs on one device, the same code with no
+collective.
+
+With a ``model`` axis (TP, FSDP x TP) the ranks of one model group hold
+one replica: the same batch, the same generator state, and each its
+slice of the tensor-parallel leaves, which stay local through the step.
+The model's forward runs the Megatron operators over the model group
+(`models/vit.py`), so each rank's gradients come out in its own
+placement; they are averaged over the data group only. The mesh is
+installed inside the forward function itself, so a rematerialized
+forward, which autograd replays on its own thread, sees it too.
 """
 
 from __future__ import annotations
@@ -52,8 +62,11 @@ from torch.utils.checkpoint import (
 
 from dist_mnist_tpu_torch.cluster.mesh import (
     AXES,
+    DATA_AXIS,
+    MODEL_AXIS,
     Mesh,
     activate,
+    ambient_mesh,
     validate_mesh,
 )
 from dist_mnist_tpu_torch.data.augment import random_crop_flip
@@ -61,7 +74,7 @@ from dist_mnist_tpu_torch.ops import losses, metrics, nn
 from dist_mnist_tpu_torch.optim.base import (
     Optimizer,
     apply_updates,
-    sum_of_squares,
+    sharded_sum_of_squares,
     sum_of_squares_over,
 )
 from dist_mnist_tpu_torch.parallel import collectives
@@ -168,11 +181,15 @@ def loss_and_grads(model, loss_fn: LossFn, params, model_state, batch, *,
         rng = None
     flat = flatten_with_path(params)
     tracked = {path: leaf.detach().requires_grad_() for path, leaf in flat}
+    mesh = ambient_mesh()
 
     def forward(tracked_params):
-        return model.apply(
-            map_with_path(lambda path, _: tracked_params[path], params),
-            model_state, x, train=True, rng=rng, dropout_mask=dropout_mask)
+        # a recompute runs on autograd's thread: install the mesh here
+        with activate(mesh):
+            return model.apply(
+                map_with_path(lambda path, _: tracked_params[path], params),
+                model_state, x, train=True, rng=rng,
+                dropout_mask=dropout_mask)
 
     with torch.enable_grad():
         if remat:
@@ -209,17 +226,19 @@ def _place(state: TrainState, mesh, rules: ShardingRules) -> TrainState:
 
 
 def _sharded_paths(state: TrainState) -> set | None:
-    """The param paths this rank holds slices of, or None when none."""
+    """The param paths this rank holds data-axis (FSDP) slices of, or
+    None when none."""
     placement = state.placement
-    if placement is None or not placement.sharded:
+    if placement is None or not placement.sharded_on(DATA_AXIS):
         return None
     return {path for path, spec in flatten_with_path(placement.specs.params)
-            if spec.dim() is not None}
+            if spec.dim(DATA_AXIS) is not None}
 
 
 def _reduce_grads(grads, state: TrainState, mesh, extra: torch.Tensor):
     """The global mean gradient in this rank's placement (full leaves
-    under DP, slices under FSDP) and the mean of `extra` over ranks."""
+    under DP, slices under FSDP; a tensor-parallel slice stays this
+    rank's) and the mean of `extra` over the data ranks."""
     sharded = _sharded_paths(state)
     if sharded is None:
         return collectives.psum_mean(grads, mesh, extra)
@@ -228,35 +247,29 @@ def _reduce_grads(grads, state: TrainState, mesh, extra: torch.Tensor):
     split = [(p, g) for p, g in flat if p in sharded]
     whole = {p: g for p, g in flat if p not in sharded}
     mine = collectives.reduce_scatter_leaves(
-        [g for _, g in split], [specs[p].dim() for p, _ in split], mesh)
+        [g for _, g in split], [specs[p].dim(DATA_AXIS) for p, _ in split],
+        mesh)
     whole, means = collectives.psum_mean(whole, mesh, extra)
     by_path = {**dict(zip((p for p, _ in split), mine)), **whole}
     return map_with_path(lambda p, _: by_path[p], grads), means
-
-
-def _fsdp_sum_of_squares(sharded: set, mesh):
-    """`sum_of_squares` of a param-shaped tree whose `sharded` leaves are
-    slices: the slices' sums added over ranks, the others counted once."""
-
-    def fn(tree):
-        flat = flatten_with_path(tree)
-        dev = flat[0][1].device
-        zero = torch.zeros((), dtype=torch.float32, device=dev)
-        part = sum_of_squares([x for p, x in flat if p in sharded]) + zero
-        rest = sum_of_squares([x for p, x in flat if p not in sharded]) + zero
-        return collectives.all_reduce_(part.reshape(1), mesh)[0] + rest
-
-    return fn
 
 
 def _train_core(model, optimizer: Optimizer, loss_fn: LossFn,
                 state: TrainState, batch, *, dropout_mask=None, **step_kw):
     """One step on this rank's slice of the batch (module docstring)."""
     mesh = _state_mesh(state)
+    placement = state.placement
+    any_slices = placement is not None and placement.sharded
+    if (any_slices and placement.sharded_on(MODEL_AXIS)
+            and not getattr(model, "tensor_parallel", False)):
+        raise NotImplementedError(
+            f"{type(model).__name__} has no tensor-parallel forward; the "
+            "port's TP rules train ViT-Tiny (models/vit.py)")
     sharded = _sharded_paths(state)
     params = state.params
     if sharded is not None:
-        params = gather_tree(params, state.placement.specs.params, mesh)
+        params = gather_tree(params, placement.specs.params, mesh,
+                             axes=(DATA_AXIS,))
     with activate(mesh):
         loss, logits, new_model_state, grads = loss_and_grads(
             model, loss_fn, params, state.model_state, batch,
@@ -267,8 +280,8 @@ def _train_core(model, optimizer: Optimizer, loss_fn: LossFn,
         local = torch.stack([loss.to(torch.float32),
                              metrics.accuracy(logits, batch["label"])])
         grads, means = _reduce_grads(grads, state, mesh, local)
-        norm = (contextlib.nullcontext() if sharded is None
-                else sum_of_squares_over(_fsdp_sum_of_squares(sharded, mesh)))
+        norm = (sum_of_squares_over(sharded_sum_of_squares(placement))
+                if any_slices else contextlib.nullcontext())
         with norm:
             updates, new_opt_state = optimizer.update(grads, state.opt_state,
                                                       state.params)

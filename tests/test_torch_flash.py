@@ -26,7 +26,7 @@ import pytest
 import torch
 
 from dist_mnist_tpu.ops import nn as jnn
-from dist_mnist_tpu_torch.cluster.mesh import MeshSpec
+from dist_mnist_tpu_torch.cluster.mesh import AXES, Mesh
 from dist_mnist_tpu_torch.ops import nn as tnn
 from dist_mnist_tpu_torch.ops.kernels import flash_attention as tfa
 from dist_mnist_tpu_torch.ops.kernels import masked_flash as tmf
@@ -361,6 +361,12 @@ def test_block_quantization_matches_reference(block, s):
     assert tfa.quantize_block_k(None, s) is None
 
 
+def _view(**axes) -> Mesh:
+    """A rank's view of a mesh (no group: nothing may reach a
+    collective)."""
+    return Mesh(shape={**{a: 1 for a in AXES}, **axes})
+
+
 def test_one_device_entry_refuses_a_model_axis():
     q, k, v = _torch(*_arrays(11, *[(1, 5, 2, 4)] * 3))
     torch.testing.assert_close(tpflash.flash_attention_sharded(q, k, v),
@@ -369,12 +375,17 @@ def test_one_device_entry_refuses_a_model_axis():
     torch.testing.assert_close(
         tpflash.masked_flash_attention_sharded(q, k, v, lengths),
         tmf.masked_flash_attention(q, k, v, lengths))
+    # the entry shards heads over a model axis now (tests/test_torch_tp.py
+    # runs it on ranks); it refuses one that cannot split 2 heads, with
+    # the reference's ValueError, and a data axis alone is one device's
+    # work
     for fn in (lambda m: tpflash.flash_attention_sharded(q, k, v, mesh=m),
                lambda m: tpflash.masked_flash_attention_sharded(
                    q, k, v, lengths, mesh=m)):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            fn(MeshSpec(model=2))
-        fn(MeshSpec(data=4))  # a data axis alone is one device's work
+        with pytest.raises(ValueError, match="heads=2 % model=4 != 0"):
+            fn(_view(model=4))
+        torch.testing.assert_close(fn(_view(data=4)),
+                                   fn(None))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

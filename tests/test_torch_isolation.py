@@ -33,10 +33,12 @@ def _own_temp_root(tmp_path_factory):
 
 def _sources() -> list[Path]:
     # the card-only tests and the port's scripts run on the GPU machine
-    # too; the ranks the data-parallel tests spawn run the helpers
+    # too; the ranks the data- and tensor-parallel tests spawn run the
+    # helpers
     return sorted(PORT.rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "tests/test_torch_cuda.py",
         ROOT / "tests/torch_ranks.py", ROOT / "tests/torch_dp_cases.py",
+        ROOT / "tests/torch_tp_cases.py",
         *sorted((ROOT / "scripts").glob("torch_*.py"))]
 
 

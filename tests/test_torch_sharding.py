@@ -97,8 +97,10 @@ def test_make_mesh_on_one_process():
     # more ranks than exist: the bench's fallback keys on ValueError
     with pytest.raises(ValueError, match="only 1 visible"):
         make_mesh(MeshSpec(data=4))
-    for spec, item in ((MeshSpec(data=1, model=2), "item 12"),
-                       (MeshSpec(data=1, seq=2), "item 11"),
+    # a model axis is a mesh axis now: two ranks, of which one exists
+    with pytest.raises(ValueError, match="only 1 visible"):
+        make_mesh(MeshSpec(data=1, model=2))
+    for spec, item in ((MeshSpec(data=1, seq=2), "item 11"),
                        (MeshSpec(data=1, pipe=2), "item 11")):
         with pytest.raises(NotImplementedError, match=item):
             make_mesh(spec)
@@ -228,8 +230,13 @@ def test_custom_rule_ordering():
 
 @pytest.mark.parametrize("name", ["tp", "fsdp_tp"])
 def test_tensor_parallel_rules_refuse_naming_their_item(name):
-    with pytest.raises(NotImplementedError, match="item 12"):
-        resolve_rules(name)
+    # the tensor-parallel slice brought them: they resolve, to the
+    # reference's regexes, and an unknown name still refuses
+    from dist_mnist_tpu.parallel.sharding import resolve_rules as jresolve
+
+    rules = resolve_rules(name)
+    assert rules.rules == jresolve(name).rules
+    assert (rules.fsdp_axis == "data") == (name == "fsdp_tp")
     assert resolve_rules("dp") is DP_RULES
     assert resolve_rules("fsdp") is FSDP_RULES
     with pytest.raises(ValueError):

@@ -34,6 +34,7 @@ from dist_mnist_tpu.train import create_train_state as jcreate_train_state
 from dist_mnist_tpu_torch import train as ttrain
 from dist_mnist_tpu_torch.cli import serve as serve_cli
 from dist_mnist_tpu_torch.cli import train as cli
+from dist_mnist_tpu_torch.cluster.mesh import MeshSpec
 from dist_mnist_tpu_torch.configs import get_config
 from dist_mnist_tpu_torch.convert import train_state_from_jax
 from dist_mnist_tpu_torch.data import datasets
@@ -298,9 +299,9 @@ def test_absl_value_spellings():
 
 
 REFUSED = [
-    (["--mesh=model=2"], "item 12"),
+    (["--mesh=seq=2"], "item 11"),
     (["--host_device_count=8"], "item 12"),
-    (["--sharding=tp"], "item 12"),
+    (["--mesh=pipe=2"], "item 11"),
     (["--input_pipeline=native"], "item 12"),
     (["--overlap"], "item 13"),
     (["--overlap_bucket_mb=2"], "item 13"),
@@ -333,7 +334,7 @@ def test_refused_flags_name_their_roadmap_item(argv, item):
 
 
 def test_refused_config_fields_name_their_roadmap_item(data_dir):
-    for over, item in (({"sharding_rules": "tp"}, "item 12"),
+    for over, item in (({"mesh": MeshSpec(data=1, seq=2)}, "item 11"),
                        ({"prng_impl": "rbg"}, "closing line"),
                        ({"overlap": True}, "item 13")):
         cfg = dataclasses.replace(get_config("mlp_mnist"), **over)

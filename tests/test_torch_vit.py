@@ -95,7 +95,9 @@ def _jax_params(jmodel, seed=0):
 
 # -- configs, data, augmentation ----------------------------------------------
 
-@pytest.mark.parametrize("name", ["vit_tiny_cifar", "vit_tiny_cifar_flash"])
+@pytest.mark.parametrize("name", ["vit_tiny_cifar", "vit_tiny_cifar_flash",
+                                  "vit_tiny_cifar_tp",
+                                  "vit_tiny_cifar_fsdp_tp"])
 def test_vit_config_entries_equal_reference_field_for_field(name):
     got, want = tconfigs.get_config(name), jconfigs.get_config(name)
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
@@ -444,9 +446,9 @@ def test_bench_config_mode_runs_a_small_width_on_cpu(monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("name,match", [
-    ("vit_tiny_cifar_fsdp_tp", "item 12"),
+    ("vit_tiny_cifar_moe", "item 11"),
     ("vit_tiny_cifar_ring_flash", "item 11"),
-    ("vit_tiny_cifar_tp", "item 12"),
+    ("vit_tiny_cifar_pp", "item 11"),
     ("no_such_config", "unknown config"),
 ])
 def test_bench_config_mode_refuses_what_the_port_lacks(name, match):
