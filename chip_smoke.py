@@ -105,7 +105,7 @@ script. Phases (any failure exits nonzero before the final `ok` line):
    (`decode_contract`); the host wall and device time by kernel of one
    int8 decode step (`decode_profile`);
 9. ViT-Tiny training: the port's `bench --config vit_tiny_cifar_flash
-   --steps 300` entry point at full width (dim 192, depth 12, 3 heads,
+   --steps 100` entry point at full width (dim 192, depth 12, 3 heads,
    S = 65, batch 64; CIFAR-10 or its synthetic twin; remat and augment)
    with every counter set to 0 just before and read just after: per step
    24 forward, 12 dQ and 12 dK/dV launches and no other kernel, finite
@@ -170,7 +170,7 @@ script. Phases (any failure exits nonzero before the final `ok` line):
    it prints each run's steps/s, goodput, feed wait, prefetched bytes, checkpoint save
    and restore times and launch counts;
 12. data parallelism (`data_parallel`): `bench --config resnet20_cifar
-   --steps 300` and `--config lenet5_fashion` on one rank at the per-chip
+   --steps 100` and `--config lenet5_fashion` on one rank at the per-chip
    batch 128 (counters set to 0 just before each and read just after: no
    kernel launched, the unfused Adam of the reference's configs; steps/s,
    MFU and chunk losses printed, the last below the first), and
@@ -213,6 +213,29 @@ script. Phases (any failure exits nonzero before the final `ok` line):
    "xla" ViT, and the chief's checkpoint restored here under DP equal to
    the final params; and `paged_attention` timed at the TP step's shape
    on 2 heads and on 4;
+12c. sequence parallelism (`sequence_parallel`): the flash kernels at
+   the path's shapes against their plain versions (`flash_attention_lse`
+   at a ring block, B = 128, 32 tokens, 3 heads of 64, bf16, the rank's
+   own strided K/V and a shifted contiguous block, with a random nonzero
+   lse cotangent; `flash_attention` at Ulysses' local call, B = 128, S =
+   64, 2 heads of 48, bf16, the D = 64 instantiation); then two spawned
+   rank processes on the one card (gloo, data = 1 x seq = 2, ViT-Tiny at
+   full width, 64 tokens, batch 128): ring and Ulysses attention on each
+   rank's tokens against one rank's attention over the whole sequence
+   (flash in bf16 within `SP_BF16_TOL`, "xla" in f32 within
+   `SP_F32_TOL`), output and q, k, v gradients; `ring_flash` and
+   `ulysses_flash` step 1 against one rank's unsharded step on the same
+   params and batch (`SP_LOSS_TOL`, `SP_GRAD_TOL`); one `ring_flash` step
+   under each of `dots_no_batch`, `save_attn` and `dots` (the same loss;
+   flash-forward launches, `sp_` bytes and peak bytes printed); and
+   `vit_tiny_cifar_ring_flash` and `_ulysses_flash` for `SP_STEPS` steps
+   each through the training CLI's `run_config`, the counters set to 0
+   just before the loop and read just after: finite falling losses, the
+   same on both ranks, the same final params, exactly `sp_launches`
+   flash launches a rank and step and no other kernel, the `sp_`
+   collectives a step exactly `sp_bytes`, the chief's checkpoint
+   restored on one rank bit for bit; steps/s and peak allocated bytes a
+   rank against one rank at the same batch;
 13. time each kernel at the shapes its path gives it, beside its plain
    version and, where one exists, one library call computing the same
    function (for the Adam kernels `torch._fused_adam_`/`_fused_adamw_`, a
@@ -234,7 +257,8 @@ script. Phases (any failure exits nonzero before the final `ok` line):
 14. print the `{"kernels": [...]}` line (nine kernels: the masked forward's
    Sq > 1 route apart from its Sq = 1 route; the flash rows with their
    launches in `data_parallel`'s ViT run, both ranks, and each rank's in
-   `tensor_parallel`; `paged_attention` with each rank's TP launches and
+   `tensor_parallel` and in each `sequence_parallel` run;
+   `paged_attention` with each rank's TP launches and
    its times at 2 and 4 heads), then, last, the `ok` line.
 
 A failure prints `{"phase": "fail", "error": ...}` on stdout and the
@@ -2614,7 +2638,7 @@ def train_cli(torch, dev, reset_counts, read_counts) -> dict:
 #: run's losses against the DP run's (bf16 compute; the global-norm clip
 #: sums the slices' squares in another order): 2% of the DP loss, plus
 #: the 1e-4 the log's four decimals may round apart
-DP_STEPS = 50
+DP_STEPS = 25
 DP_VIT_STEPS = 10
 DP_FSDP_LOSS_TOL = 0.02
 LOG_RESOLUTION = 1e-4
@@ -2702,8 +2726,7 @@ def data_parallel(torch, dev, reset_counts, read_counts) -> dict:
     out = {"phase": "data_parallel", "bench": {}}
     for name in ("resnet20_cifar", "lenet5_fashion", "resnet20_cifar_fsdp"):
         reset_counts()
-        rec = bench.main(["--config", name, "--steps",
-                          "100" if name.endswith("fsdp") else "300",
+        rec = bench.main(["--config", name, "--steps", "100",
                           "--device=cuda:0"])
         torch.cuda.synchronize()
         counts = read_counts()
@@ -3005,49 +3028,6 @@ def _tp_rank(rank: int, world: int, store: str, out_path: str) -> None:
         pickle.dump(result, fh)
 
 
-def _tp_group(world: int = 2, timeout: float = 400.0) -> list:
-    """`_tp_rank` on `world` spawned processes sharing the card; each
-    rank's record, rank 0's first. Fails on an error, a hang or a
-    missing record, and leaves no process behind."""
-    import multiprocessing as mp
-    import pickle
-
-    tmp = ROOT / "chiprun_out" / "tp_group"
-    shutil.rmtree(tmp, ignore_errors=True)
-    tmp.mkdir(parents=True)
-    store = str(tmp / "store")
-    outs = [str(tmp / f"rank{r}.pkl") for r in range(world)]
-    ctx = mp.get_context("spawn")
-    procs = [ctx.Process(target=_tp_rank, args=(r, world, store, outs[r]))
-             for r in range(world)]
-    for p in procs:
-        p.start()
-    deadline = time.monotonic() + timeout
-    try:
-        for p in procs:
-            p.join(timeout=max(1.0, deadline - time.monotonic()))
-    finally:
-        hung = [p for p in procs if p.is_alive()]
-        for p in hung:
-            p.kill()
-        for p in procs:
-            p.join(timeout=30)
-    if hung:
-        fail(f"tensor_parallel: {len(hung)} of {world} ranks still running "
-             f"after {timeout}s")
-    records = []
-    for r, path in enumerate(outs):
-        if not Path(path).exists():
-            fail(f"tensor_parallel: rank {r} left no record (exit code "
-                 f"{procs[r].exitcode})")
-        with open(path, "rb") as fh:
-            res = pickle.load(fh)
-        if "error" in res:
-            fail(f"tensor_parallel: rank {r} raised:\n{res['error']}")
-        records.append(res["ok"])
-    return records
-
-
 def _tp_engine_one_rank(torch, dev, layout: str) -> dict:
     """The same traffic through the one-rank engine on the card."""
     from dist_mnist_tpu_torch.serve import (
@@ -3172,7 +3152,7 @@ def tensor_parallel(torch, dev, reset_counts, read_counts, bw: float,
     depth = get_model("causal_tiny").depth
     # (1) + (3): the two-rank group, then the one-rank engine
     t0 = time.perf_counter()
-    ranks = _tp_group()
+    ranks = _rank_group(_tp_rank, "tp")
     out["group_wall_s"] = time.perf_counter() - t0
     chief, follower = ranks
     decode = {}
@@ -3344,6 +3324,548 @@ def tensor_parallel(torch, dev, reset_counts, read_counts, bw: float,
                  f"ViT path: {rec['launches']}")
         out[tag] = rec
     out["paged_h2"] = time_tp_paged(torch, dev, bw, f32_peak)
+    return out
+
+
+#: sequence parallelism: the two flash configs, 10 steps each at the 16-chip
+#: ladder's 1024 / 8 = 128 a data rank, on data = 1 x seq = 2
+SP_STEPS = 10
+SP_BATCH = 128
+SP_RUNS = {"ring_flash": "vit_tiny_cifar_ring_flash",
+           "ulysses_flash": "vit_tiny_cifar_ulysses_flash"}
+#: the kernels' calls on the path: a ring block (B, S/seq, H, D) and
+#: Ulysses' local attention after the reshard (B, S, H/seq, D; D = 48 takes
+#: the D = 64 instantiation)
+SP_RING_SHAPE = (128, 32, 3, 64)
+SP_ULYSSES_SHAPE = (128, 64, 2, 48)
+#: bf16 limits, relative to the largest value: the ring rounds each block's
+#: output to bf16 before its f32 merge, so it differs from one call over
+#: every key by a rounding of the output; the gradients carry it too
+SP_BF16_TOL = 2e-2
+#: f32: the "xla" engines against the plain dense attention (out, grads)
+SP_F32_TOL = (1e-5, 1e-4)
+#: step 1 against one rank's unsharded step: the loss relative, each
+#: gradient leaf's relative L2 error (`grad_errors`), as `vit_kernel_vs_plain`
+SP_LOSS_TOL, SP_GRAD_TOL = VIT_PLAIN_TOL, VIT_GRAD_TOL
+SP_POLICIES = ("dots_no_batch", "save_attn", "dots")
+#: the two runs' checkpoints (~64 MB each), kept out of the logs' folder
+SP_CKPT = Path(tempfile.gettempdir()) / "dist_mnist_sp_ckpt"
+
+
+def sp_launches(impl: str, depth: int = 12) -> dict:
+    """The flash launches a rank and step of the SP ViT under remat
+    `dots_no_batch` (every layer's forward, its recompute, and one
+    backward): the ring runs one forward call and one backward per block
+    of seq = 2; Ulysses one of each a layer."""
+    calls = depth * (2 if impl.startswith("ring") else 1)
+    return {"flash_attention_forward": 2 * calls,
+            "flash_attention_dq": calls, "flash_attention_dkv": calls}
+
+
+def sp_bytes(impl: str, params: int, depth: int = 12) -> dict:
+    """The `sp_` collectives a rank and step (payload: what the rank
+    contributes) at B = 128, 64 tokens, bf16, seq = 2, remat: the ring
+    shifts K and V once a layer (no shift after the last block) in the
+    forward, its recompute and the backward; Ulysses all-to-alls q, k, v
+    and the output the same three times; the pool's [128, 192] f32 sum
+    forward, recompute and backward, and one all-reduce of every f32
+    gradient."""
+    b, s_local = SP_BATCH, 32
+    if impl.startswith("ring"):
+        block = b * s_local * 3 * 64 * 2
+        key, calls = "sp_ring_shift", 3 * 2 * depth
+    else:
+        block = b * s_local * 4 * 48 * 2
+        key, calls = "sp_all_to_all", 3 * 4 * depth
+    return {f"{key}_bytes": calls * block, f"{key}_calls": calls,
+            "sp_all_reduce_bytes": 3 * b * 192 * 4 + 4 * params,
+            "sp_all_reduce_calls": 4}
+
+
+def _peak(torch, dev, fn):
+    """``(fn(), peak allocated bytes while it ran, that peak less the bytes
+    allocated when it started)``: the second is the run's own."""
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = fn()
+    torch.cuda.synchronize(dev)
+    peak = torch.cuda.max_memory_allocated(dev)
+    return out, peak, peak - base
+
+
+def sp_kernel_parity(torch, dev) -> dict:
+    """The flash kernels at the sequence-parallel path's shapes, against
+    their plain versions on the same inputs: `flash_attention_lse` at a
+    ring block (B = 128, 32 tokens, 3 heads of 64, bf16; q a strided view
+    of the fused projection, K and V the rank's own strided block and a
+    shifted contiguous one), forward and backward through its autograd
+    Function with a random nonzero lse cotangent; `flash_attention` at
+    Ulysses' local call (B = 128, S = 64, 2 heads of 48, bf16). Out and
+    q, k, v gradients within `FLASH_TOL` bf16, lse within `LSE_TOL`."""
+    from dist_mnist_tpu_torch.ops.kernels import flash_attention as fa
+
+    out = {}
+    tol = FLASH_TOL["bfloat16"]
+    b, s, h, d = SP_RING_SHAPE
+    q, k_own, v_own = _fused_qkv(torch, b, s, h, d, torch.bfloat16, dev,
+                                 seed=160)
+    _, k_in, v_in = (t.contiguous() for t in _fused_qkv(
+        torch, b, s, h, d, torch.bfloat16, dev, seed=161))
+    gen = torch.Generator().manual_seed(162)
+    w_out = torch.randn(b, s, h, d, generator=gen).to(dev, torch.bfloat16)
+    w_lse = torch.randn(b, h, s, generator=gen).to(dev)
+    for label, k, v in (("own block", k_own, v_own),
+                        ("shifted block", k_in, v_in)):
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        o, lse = fa.flash_attention_lse(*leaves)
+        grads = torch.autograd.grad((o, lse), leaves,
+                                    grad_outputs=(w_out, w_lse))
+        with torch.no_grad():
+            r_out, r_lse = fa.flash_attention_forward_reference(q, k, v)
+            want = fa.flash_attention_backward_reference(
+                q, k, v, w_out, r_lse, fa.attention_delta(r_out, w_out,
+                                                          w_lse))
+        torch.cuda.synchronize()
+        errs = grad_errs(grads, want)
+        row = {"out": rel_err(o, r_out), "lse": rel_err(lse, r_lse),
+               "grads": errs}
+        out[f"ring lse {label}"] = row
+        print(json.dumps({"phase": "sequence_parallel", "kernel_parity":
+                          f"flash_attention_lse, ring {label}, nonzero dlse",
+                          "shape": list(SP_RING_SHAPE), "dtype": "bfloat16",
+                          "tol": {"out": tol[0], "lse": LSE_TOL,
+                                  "grads": tol[1]}, **row}), flush=True)
+        if row["out"][1] > tol[0] or row["lse"][1] > LSE_TOL \
+                or max(e[1] for e in errs) > tol[1]:
+            fail(f"sequence_parallel: flash_attention_lse at the ring's "
+                 f"{label}: {row}")
+    b, s, h, d = SP_ULYSSES_SHAPE
+    gen = torch.Generator().manual_seed(163)
+    q, k, v, g = (torch.randn(b, s, h, d, generator=gen).to(dev,
+                                                           torch.bfloat16)
+                  for _ in range(4))
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    o = fa.flash_attention(*leaves)
+    grads = torch.autograd.grad(o, leaves, grad_outputs=g)
+    with torch.no_grad():
+        r_out, r_lse = fa.flash_attention_forward_reference(q, k, v)
+        want = fa.flash_attention_backward_reference(
+            q, k, v, g, r_lse, fa.attention_delta(r_out, g))
+    torch.cuda.synchronize()
+    errs = grad_errs(grads, want)
+    row = {"out": rel_err(o, r_out), "grads": errs,
+           "padded_head_dim": fa.padded_head_dim(d)}
+    out["ulysses d48"] = row
+    print(json.dumps({"phase": "sequence_parallel", "kernel_parity":
+                      "flash_attention at Ulysses' D = 48",
+                      "shape": list(SP_ULYSSES_SHAPE), "dtype": "bfloat16",
+                      "tol": {"out": tol[0], "grads": tol[1]}, **row}),
+          flush=True)
+    if row["out"][1] > tol[0] or max(e[1] for e in errs) > tol[1]:
+        fail(f"sequence_parallel: flash_attention at D = 48: {row}")
+    return out
+
+
+def _sp_attention(torch, mesh) -> dict:
+    """Ring and Ulysses attention on this rank's tokens of seeded full
+    inputs (the same on both ranks): the flash engine in bf16 against one
+    `flash_attention` call over the whole sequence, the "xla" engine in
+    f32 against the plain dense attention; output and q, k, v gradients
+    of this rank's tokens."""
+    from dist_mnist_tpu_torch.ops import nn
+    from dist_mnist_tpu_torch.ops.kernels import flash_attention as fa
+    from dist_mnist_tpu_torch.parallel.ring_attention import (
+        ring_self_attention,
+    )
+    from dist_mnist_tpu_torch.parallel.ulysses import ulysses_self_attention
+
+    out = {}
+    for name, fn, (b, s, h, d) in (
+            ("ring", ring_self_attention, (128, 64, 3, 64)),
+            ("ulysses", ulysses_self_attention, (128, 64, 4, 48))):
+        gen = torch.Generator(device=mesh.device).manual_seed(170)
+        full = [torch.randn(b, s, h, d, generator=gen, device=mesh.device)
+                for _ in range(4)]
+        tok = slice(mesh.seq_index * s // 2, (mesh.seq_index + 1) * s // 2)
+        for impl, dtype, whole in (
+                ("flash", torch.bfloat16, fa.flash_attention),
+                ("xla", torch.float32, nn.dot_product_attention)):
+            q, k, v, g = (t.to(dtype) for t in full)
+            local = [t[:, tok].clone().requires_grad_() for t in (q, k, v)]
+            o = fn(*local, mesh, impl=impl)
+            grads = torch.autograd.grad(o, local, grad_outputs=g[:, tok])
+            ref = [t.clone().requires_grad_() for t in (q, k, v)]
+            o_ref = whole(*ref)
+            want = torch.autograd.grad(o_ref, ref, grad_outputs=g)
+            torch.cuda.synchronize()
+            out[f"{name}/{impl}"] = {
+                "out": rel_err(o, o_ref[:, tok]),
+                "grads": [rel_err(a, w[:, tok]) for a, w in zip(grads, want)]}
+    return out
+
+
+def _sp_rank(rank: int, world: int, store: str, out_path: str) -> None:
+    """One rank of `sequence_parallel`'s two-rank group on the card (data
+    = 1 x seq = 2): the attention parity, each flash config's first step
+    against one rank's unsharded step on the same params and batch, one
+    `ring_flash` step under each remat policy, and the two configs through
+    the training CLI's `run_config` for `SP_STEPS` steps with a
+    checkpoint at the last. Writes its record (or its traceback) to
+    `out_path`."""
+    import dataclasses
+    import pickle
+    import traceback
+
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from dist_mnist_tpu_torch import optim
+    from dist_mnist_tpu_torch.cli.train import run_config
+    from dist_mnist_tpu_torch.cluster import coordination
+    from dist_mnist_tpu_torch.cluster.mesh import MeshSpec, activate, make_mesh
+    from dist_mnist_tpu_torch.configs import get_config
+    from dist_mnist_tpu_torch.hooks import Hook
+    from dist_mnist_tpu_torch.models.registry import get_model
+    from dist_mnist_tpu_torch.ops import losses
+    from dist_mnist_tpu_torch.ops.kernels import (
+        launch_counts,
+        reset_launch_counts,
+    )
+    from dist_mnist_tpu_torch.parallel.collectives import sum_over_seq
+    from dist_mnist_tpu_torch.parallel.sharding import shard_train_state
+    from dist_mnist_tpu_torch.train import create_train_state, make_train_step
+    from dist_mnist_tpu_torch.train.state import params_digest
+    from dist_mnist_tpu_torch.train.step import loss_and_grads
+    from dist_mnist_tpu_torch.utils.tree import flatten_with_path
+
+    class Losses(Hook):
+        """Each step's loss and the time it was read."""
+
+        def __init__(self):
+            self.rows = []
+
+        def after_step(self, step, state, outputs):
+            self.rows.append((step, float(outputs["loss"]),
+                              time.perf_counter()))
+
+    def flat(tree):
+        return {"/".join(map(str, p)): x.float()
+                for p, x in flatten_with_path(tree)}
+
+    out: dict = {}
+    try:
+        coordination.initialize_distributed(
+            num_processes=world, process_id=rank,
+            init_method=f"file://{store}", timeout_s=300)
+        mesh = make_mesh(MeshSpec(data=1, seq=world))
+        dev = mesh.device
+        out["startup"] = coordination.startup_line(coordination.context())
+        t0 = time.perf_counter()
+        out["attention"] = _sp_attention(torch, mesh)
+        gen = torch.Generator().manual_seed(171)
+        batch = {"image": torch.randint(0, 256, (SP_BATCH, 32, 32, 3),
+                                        generator=gen, dtype=torch.uint8
+                                        ).to(dev),
+                 "label": torch.randint(0, 10, (SP_BATCH,), generator=gen,
+                                        dtype=torch.int32).to(dev)}
+        out["first_step"], out["remat"] = {}, {}
+        for impl, name in SP_RUNS.items():
+            cfg = get_config(name)
+            model = get_model(cfg.model, **cfg.model_kwargs)
+            opt = optim.build_optimizer(cfg)
+            state = create_train_state(model, opt, 0,
+                                       np.zeros((1, 32, 32, 3), np.uint8),
+                                       dev)
+            mask = model.dropout_masks(
+                torch.Generator(device=dev).manual_seed(172),
+                batch["image"])
+            kw = dict(dropout_mask=mask, remat=True)
+            with activate(mesh):
+                loss, _, _, grads = loss_and_grads(
+                    model, losses.softmax_cross_entropy, state.params, {},
+                    batch, **kw)
+            grads = sum_over_seq(grads, mesh)
+            one_loss, _, _, one_grads = loss_and_grads(
+                model, losses.softmax_cross_entropy, state.params, {},
+                batch, **kw)
+            torch.cuda.synchronize()
+            out["first_step"][impl] = {
+                "loss": float(loss), "one_rank_loss": float(one_loss),
+                "grad_errors": grad_errors(flat(grads), flat(one_grads))}
+            del grads, one_grads
+            if impl == "ring_flash":
+                for policy in SP_POLICIES:
+                    step = make_train_step(model, opt, mesh=mesh, remat=True,
+                                           remat_policy=policy)
+                    placed = shard_train_state(state, mesh)
+                    before = dict(mesh.stats)
+                    reset_launch_counts()
+                    metrics, peak, own = _peak(torch, dev, lambda: step(
+                        placed, batch, dropout_mask=mask)[1])
+                    out["remat"][policy] = {
+                        "loss": float(metrics["loss"]),
+                        "launches": launch_counts(),
+                        "sp": {k: v - before.get(k, 0)
+                               for k, v in mesh.stats.items()
+                               if k.startswith("sp_")},
+                        "peak_bytes": peak, "step_peak_bytes": own}
+                    del placed, metrics
+            del state, mask
+        del batch
+        out["checks_wall_s"] = time.perf_counter() - t0
+        out["runs"] = {}
+        for impl, name in SP_RUNS.items():
+            cfg = dataclasses.replace(
+                get_config(name), batch_size=SP_BATCH,
+                train_steps=SP_STEPS, eval_every=0, log_every=5)
+            hook = Losses()
+            ckpt = SP_CKPT / impl
+            t0 = time.perf_counter()
+            (state, _, ctx), peak, own = _peak(torch, dev, lambda: run_config(
+                cfg, device=dev, checkpoint_dir=str(ckpt),
+                checkpoint_every_steps=SP_STEPS, extra_hooks=[hook]))
+            wall = time.perf_counter() - t0
+            (s0, _, t_first), (s1, _, t_last) = hook.rows[0], hook.rows[-1]
+            out["runs"][impl] = {
+                "step": state.step_int, "losses": [r[1] for r in hook.rows],
+                "steps_per_sec": (s1 - s0) / max(t_last - t_first, 1e-9),
+                "launches": ctx["launches"],
+                "collectives_per_step": ctx["collectives_per_step"],
+                "digest": params_digest(state.params),
+                "params": sum(x.numel() for _, x in
+                              flatten_with_path(state.params)),
+                "peak_bytes": peak, "run_peak_bytes": own,
+                "mesh": dict(ctx["mesh"].shape), "wall_s": wall,
+                "checkpoint_dir": str(ckpt)}
+            del state, ctx
+        result = {"ok": out}
+    except BaseException:  # noqa: BLE001 — handed to the parent
+        result = {"error": traceback.format_exc()}
+    finally:
+        coordination.shutdown()
+    with open(out_path, "wb") as fh:
+        pickle.dump(result, fh)
+
+
+def _rank_group(target, tag: str, world: int = 2,
+                timeout: float = 400.0) -> list:
+    """`target(rank, world, store, out_path)` on `world` spawned processes
+    sharing the card; each rank's record, rank 0's first. Fails on an
+    error, a hang or a missing record, and leaves no process behind."""
+    import multiprocessing as mp
+    import pickle
+
+    tmp = ROOT / "chiprun_out" / f"{tag}_group"
+    shutil.rmtree(tmp, ignore_errors=True)
+    tmp.mkdir(parents=True)
+    store = str(tmp / "store")
+    outs = [str(tmp / f"rank{r}.pkl") for r in range(world)]
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=target, args=(r, world, store, outs[r]))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout
+    try:
+        for p in procs:
+            p.join(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        hung = [p for p in procs if p.is_alive()]
+        for p in hung:
+            p.kill()
+        for p in procs:
+            p.join(timeout=30)
+    phase = {"tp": "tensor_parallel", "sp": "sequence_parallel"}[tag]
+    if hung:
+        fail(f"{phase}: {len(hung)} of {world} ranks still running after "
+             f"{timeout}s")
+    records = []
+    for r, path in enumerate(outs):
+        if not Path(path).exists():
+            fail(f"{phase}: rank {r} left no record (exit code "
+                 f"{procs[r].exitcode})")
+        with open(path, "rb") as fh:
+            res = pickle.load(fh)
+        if "error" in res:
+            fail(f"{phase}: rank {r} raised:\n{res['error']}")
+        records.append(res["ok"])
+    return records
+
+
+def _one_rank_run(torch, dev, name: str) -> dict:
+    """`name` through `run_config` on one rank at the same per-data-rank
+    batch (the ring and Ulysses fall back to the flash kernels over the
+    whole sequence): steps/s and peak allocated bytes."""
+    import dataclasses
+
+    from dist_mnist_tpu_torch.cli.train import run_config
+    from dist_mnist_tpu_torch.cluster.mesh import MeshSpec
+    from dist_mnist_tpu_torch.configs import get_config
+    from dist_mnist_tpu_torch.hooks import Hook
+
+    marks = []
+
+    class Mark(Hook):
+        def after_step(self, step, state, outputs):
+            marks.append((step, float(outputs["loss"]), time.perf_counter()))
+
+    cfg = dataclasses.replace(get_config(name), batch_size=SP_BATCH,
+                              train_steps=SP_STEPS, eval_every=0,
+                              log_every=5, mesh=MeshSpec(data=1))
+    (_, _, ctx), peak, own = _peak(torch, dev, lambda: run_config(
+        cfg, device=dev, extra_hooks=[Mark()]))
+    (s0, _, t0), (s1, _, t1) = marks[0], marks[-1]
+    return {"steps_per_sec": (s1 - s0) / max(t1 - t0, 1e-9),
+            "peak_bytes": peak, "run_peak_bytes": own,
+            "launches": ctx["launches"]}
+
+
+def sequence_parallel(torch, dev) -> dict:
+    """Phase `sequence_parallel`: (1) the flash kernels at the path's
+    shapes against their plain versions (`sp_kernel_parity`); then two
+    spawned ranks on the card (gloo, data = 1 x seq = 2, ViT-Tiny at full
+    width, 64 tokens, batch 128): (2) ring and Ulysses attention on each
+    rank's tokens, flash in bf16 against one flash call over the whole
+    sequence and "xla" in f32 against the plain dense attention, within
+    `SP_BF16_TOL` and `SP_F32_TOL`; (3) `ring_flash` and `ulysses_flash`
+    step 1 within `SP_LOSS_TOL` / `SP_GRAD_TOL` of one rank's unsharded
+    step, then `SP_STEPS` steps each through `run_config` with the
+    launch counters set to 0 just before the loop and read just after:
+    finite falling losses, the same on both ranks, the same final params,
+    exactly `sp_launches` a rank and step and no other kernel (an exact
+    count also shows no call took a plain version), the `sp_` collectives
+    a step exactly `sp_bytes`, the chief's checkpoint restored here on
+    one rank bit for bit; steps/s and peak allocated bytes a rank against
+    one rank at the same batch; (4) one `ring_flash` step under each of
+    `SP_POLICIES`: the same loss, each one's flash-forward launches, `sp_`
+    bytes and peak bytes. Returns the phase's record."""
+    from dist_mnist_tpu_torch import optim
+    from dist_mnist_tpu_torch.checkpoint import CheckpointManager
+    from dist_mnist_tpu_torch.configs import get_config
+    from dist_mnist_tpu_torch.data.datasets import load_dataset
+    from dist_mnist_tpu_torch.models.registry import get_model
+    from dist_mnist_tpu_torch.train import create_train_state
+    from dist_mnist_tpu_torch.train.state import params_digest
+
+    t_phase = time.perf_counter()
+    out = {"phase": "sequence_parallel",
+           "kernel_parity": sp_kernel_parity(torch, dev)}
+    shutil.rmtree(SP_CKPT, ignore_errors=True)
+    for name in SP_RUNS.values():  # the twin is cached before the ranks
+        cfg = get_config(name)    # read it
+        load_dataset(cfg.dataset, seed=cfg.seed)
+    ranks = _rank_group(_sp_rank, "sp")
+    out["group_wall_s"] = time.perf_counter() - t_phase
+    for r, rank in enumerate(ranks):
+        if "backend gloo (ranks share a card)" not in rank["startup"]:
+            fail(f"sequence_parallel: rank {r} startup {rank['startup']!r}")
+        for key, row in rank["attention"].items():
+            impl = key.split("/")[1]
+            tol = ((SP_BF16_TOL, SP_BF16_TOL) if impl == "flash"
+                   else SP_F32_TOL)
+            print(json.dumps({"phase": "sequence_parallel", "rank": r,
+                              "attention": key, "tol": tol, **row}),
+                  flush=True)
+            if row["out"][1] > tol[0] or max(e[1] for e in row["grads"]) \
+                    > tol[1]:
+                fail(f"sequence_parallel: rank {r} {key} against one rank: "
+                     f"{row}")
+        for impl, row in rank["first_step"].items():
+            loss_err = abs(row["loss"] - row["one_rank_loss"]) / abs(
+                row["one_rank_loss"])
+            worst = max(row["grad_errors"].items(), key=lambda kv: kv[1])
+            print(json.dumps({"phase": "sequence_parallel", "rank": r,
+                              "first_step": impl, "loss": row["loss"],
+                              "one_rank_loss": row["one_rank_loss"],
+                              "loss_rel_err": loss_err,
+                              "worst_grad_leaf": worst,
+                              "tol": [SP_LOSS_TOL, SP_GRAD_TOL]}),
+                  flush=True)
+            if loss_err > SP_LOSS_TOL or worst[1] > SP_GRAD_TOL:
+                fail(f"sequence_parallel: rank {r} {impl} step 1 against "
+                     f"one rank: loss {loss_err}, worst leaf {worst}")
+    out["attention"] = [r["attention"] for r in ranks]
+    out["first_step"] = [r["first_step"] for r in ranks]
+
+    # (3) the two configs: gates on both ranks' runs
+    out["runs"] = {}
+    for impl, name in SP_RUNS.items():
+        rows = [r["runs"][impl] for r in ranks]
+        one = _one_rank_run(torch, dev, name)
+        cfg = get_config(name)
+        model = get_model(cfg.model, **cfg.model_kwargs)
+        target = create_train_state(model, optim.build_optimizer(cfg), 0,
+                                    np.zeros((1, 32, 32, 3), np.uint8), dev)
+        mgr = CheckpointManager(rows[0]["checkpoint_dir"], async_save=False)
+        try:
+            restored = mgr.restore(target)
+        finally:
+            mgr.close()
+            shutil.rmtree(rows[0]["checkpoint_dir"], ignore_errors=True)
+        want_launches = {k: v * SP_STEPS for k, v in
+                         sp_launches(impl).items()}
+        want_bytes = sp_bytes(impl, rows[0]["params"])
+        rec = {"config": name, "mesh": rows[0]["mesh"],
+               "global_batch": SP_BATCH,
+               "steps_per_sec": [r["steps_per_sec"] for r in rows],
+               "one_rank_steps_per_sec": one["steps_per_sec"],
+               "peak_bytes": [r["peak_bytes"] for r in rows],
+               "run_peak_bytes": [r["run_peak_bytes"] for r in rows],
+               "one_rank_peak_bytes": one["peak_bytes"],
+               "one_rank_run_peak_bytes": one["run_peak_bytes"],
+               "run_peak_ratio": rows[0]["run_peak_bytes"]
+               / one["run_peak_bytes"],
+               "losses": rows[0]["losses"],
+               "launches": [r["launches"] for r in rows],
+               "predicted_launches": want_launches,
+               "collectives_per_step": rows[0]["collectives_per_step"],
+               "predicted_collectives": want_bytes,
+               "restored_step": restored.step_int,
+               "restored_equals_final": params_digest(restored.params)
+               == rows[0]["digest"],
+               "wall_s": [r["wall_s"] for r in rows]}
+        out["runs"][impl] = rec
+        print(json.dumps({"phase": "sequence_parallel", "run": impl,
+                          **rec}), flush=True)
+        losses = rec["losses"]
+        if len(losses) != SP_STEPS or not (
+                np.isfinite(losses).all() and losses[-1] < losses[0]):
+            fail(f"sequence_parallel {impl}: losses {losses}")
+        if rows[1]["losses"] != losses or rows[1]["digest"] \
+                != rows[0]["digest"]:
+            fail(f"sequence_parallel {impl}: the ranks' losses or final "
+                 "params differ")
+        for r, row in enumerate(rows):
+            got = {k: v for k, v in row["launches"].items() if v}
+            if got != want_launches:
+                fail(f"sequence_parallel {impl}: rank {r} launches {got} "
+                     f"for {SP_STEPS} steps (want {want_launches})")
+            per_step = {k: v for k, v in row["collectives_per_step"].items()
+                        if k.startswith("sp_") and v}
+            if per_step != want_bytes or any(
+                    v for k, v in row["collectives_per_step"].items()
+                    if not k.startswith("sp_")):
+                fail(f"sequence_parallel {impl}: rank {r} collectives a "
+                     f"step {row['collectives_per_step']} (want "
+                     f"{want_bytes})")
+        if restored.step_int != SP_STEPS or not rec["restored_equals_final"]:
+            fail(f"sequence_parallel {impl}: checkpoint restored on one rank "
+                 f"at step {restored.step_int}, equal to the final params: "
+                 f"{rec['restored_equals_final']}")
+
+    # (4) the remat policies
+    remat = [r["remat"] for r in ranks]
+    out["remat"] = remat
+    print(json.dumps({"phase": "sequence_parallel", "remat": remat}),
+          flush=True)
+    for r, row in enumerate(remat):
+        if len({row[p]["loss"] for p in SP_POLICIES}) != 1:
+            fail(f"sequence_parallel: rank {r} remat losses differ: "
+                 f"{ {p: row[p]['loss'] for p in SP_POLICIES} }")
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(json.dumps({"phase": "sequence_parallel",
+                      "wall_s": out["wall_s"]}), flush=True)
     return out
 
 
@@ -3861,7 +4383,7 @@ def main() -> None:
     # -- 9. ViT-Tiny training, through the bench's config mode --------------
     reset_counts()
     t0 = time.perf_counter()
-    vit = bench.main(["--config", "vit_tiny_cifar_flash", "--steps", "300",
+    vit = bench.main(["--config", "vit_tiny_cifar_flash", "--steps", "100",
                       "--device=cuda:0"])
     torch.cuda.synchronize()
     vit_wall = time.perf_counter() - t0
@@ -3910,6 +4432,8 @@ def main() -> None:
     # TP and FSDP x TP ViT-Tiny through cli.launch -------------------------
     tp = tensor_parallel(torch, dev, reset_counts, read_counts, bw,
                          peaks["float32"])
+    # -- 12c. sequence parallelism: ring and Ulysses on two ranks --------
+    sp = sequence_parallel(torch, dev)
 
     # -- 13. timing at the paths' shapes -------------------------------------
     timed = {}
@@ -4094,6 +4618,18 @@ def main() -> None:
     masked_sq_row["launches_tensor_parallel"] = [
         r["launches"]["masked_flash_attention"]
         for r in tp["flash"]["masked"]]
+    for impl, run in sp["runs"].items():
+        flash_rows[0][f"launches_sequence_parallel_{impl}"] = [
+            r["flash_attention_forward"] for r in run["launches"]]
+        flash_rows[1][f"launches_sequence_parallel_{impl}"] = [
+            r["flash_attention_dq"] + r["flash_attention_dkv"]
+            for r in run["launches"]]
+    flash_rows[0]["sequence_parallel_shapes"] = (
+        f"ring_flash: flash_attention_lse on B={SP_RING_SHAPE[0]}, "
+        f"S={SP_RING_SHAPE[1]}, H={SP_RING_SHAPE[2]}, D={SP_RING_SHAPE[3]}"
+        f", bf16; ulysses_flash: B={SP_ULYSSES_SHAPE[0]}, "
+        f"S={SP_ULYSSES_SHAPE[1]}, H={SP_ULYSSES_SHAPE[2]}, "
+        f"D={SP_ULYSSES_SHAPE[3]} (the D = 64 instantiation), bf16")
     flash_rows[0]["launches_zoo_flash_serve"] = \
         zoo["launches"]["flash_attention_forward"]
     flash_rows[0]["launches_data_parallel"] = dp["vit_launches"][

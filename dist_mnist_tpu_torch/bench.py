@@ -177,10 +177,9 @@ def ladder_batch(cfg: Config, n_chips: int) -> tuple[int, str]:
 
 #: reference ladder configs the port cannot run yet, and what brings them
 LATER_CONFIGS = {
-    **{f"vit_tiny_cifar_{v}": "the parallel-attention and model-parallel "
-                              "slice (ROADMAP §1 item 11)"
-       for v in ("ulysses", "ulysses_flash", "ring", "ring_flash", "moe",
-                 "pp")},
+    **{f"vit_tiny_cifar_{v}": "the model-parallel slice (ROADMAP §1 item "
+                              "11: MoE and the block pipeline)"
+       for v in ("moe", "pp")},
 }
 
 

@@ -12,15 +12,18 @@ plain CPU path. With `--num_processes=N --process_id=K
 --coordinator_address=host:port` (what `cli.launch` passes) the process
 is rank K of a group of N (`cluster/coordination.py`), one device per
 process, and trains its slice of every global batch on the config's mesh
-(`--mesh=data=D,model=M` overrides it: D x M ranks, ``model`` varying
-fastest) under `--sharding=dp|fsdp|tp|fsdp_tp`; the startup line names
-the rank, the devices and the backend. Flags keep
+(`--mesh=data=D,model=M,seq=S` overrides it: D x M x S ranks, ``seq``
+varying fastest, then ``model``; a seq axis shards every sequence's
+tokens for the ring and Ulysses configs) under
+`--sharding=dp|fsdp|tp|fsdp_tp`; the startup line names the rank, the
+devices and the backend. Flags keep
 the reference's names and absl's spellings (``--flag=value``, ``--flag
 value``, ``--noflag`` for a boolean), parsed with argparse. The
 parameter-server-era flags (--job_name/--task_index/--num_gpus/
 --existing_servers/--ps_hosts/--worker_hosts, --nosync_replicas) are
 accepted and warned about, as the reference does. Every flag of a
-subsystem the port does not have yet (a seq or pipe axis, overlap, a
+subsystem the port does not have yet (a pipe axis, a seq axis beside a
+model axis, overlap, a
 PRNG implementation, the native loader, fault plans, the compile cache,
 elastic resizing, async snapshots and peers, the metrics exporter,
 anomaly detection, the tuned store) exits with an error that names the
@@ -73,8 +76,8 @@ def _refuse(what: str, item: str):
 
 
 def check_config(cfg) -> None:
-    """Refuse what a config asks beyond the port: a seq or pipe mesh
-    axis, the fsdp overlap, and a PRNG
+    """Refuse what a config asks beyond the port: a pipe mesh axis, a seq
+    axis beside a model axis, the fsdp overlap, and a PRNG
     implementation (the port draws every random number from one
     `torch.Generator`; ROADMAP §1's closing line: `utils/prng.py` has no
     counterpart)."""
@@ -471,7 +474,8 @@ def build_parser() -> argparse.ArgumentParser:
                "trace a window of steps (torch.profiler) to logdir")
     a("--remat_policy", default=None,
       help="remat policy override when the config sets remat: "
-           "dots_no_batch | nothing (train/step.py REMAT_POLICIES)")
+           "dots_no_batch | save_attn | dots | nothing (train/step.py "
+           "REMAT_POLICIES)")
     a("--eval_every", type=int, default=None,
       help="eval cadence in steps; 0 disables (None = config value)")
     a("--log_every", type=int, default=None,
@@ -505,8 +509,8 @@ def build_parser() -> argparse.ArgumentParser:
       help="every N steps, journal one `span` event per phase; 0 = off")
     # -- the process group and the mesh (cluster/)
     a("--mesh", default=None,
-      help='mesh override, e.g. "data=2" or "data=2,model=2" (data x '
-           'model ranks)')
+      help='mesh override, e.g. "data=2", "data=2,model=2" or '
+           '"data=1,seq=2" (data x model x seq ranks)')
     a("--coordinator_address", default=None, help="host:port of process 0")
     a("--num_processes", type=int, default=1, help="total processes")
     a("--process_id", type=int, default=0, help="this process's rank")

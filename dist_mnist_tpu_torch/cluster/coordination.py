@@ -15,21 +15,27 @@ failure:
 - ranks share a card (fewer cards than ranks): gloo over CUDA tensors,
   rank r on ``cuda:(r % cards)``, since NCCL refuses two ranks on one
   GPU. This torch build's gloo takes CUDA tensors for every collective
-  the step runs (all_reduce, broadcast, all_gather_into_tensor,
-  reduce_scatter_tensor, barrier: `scripts/torch_gloo_cuda_probe.py` on
-  the H100 machine, torch 2.11 + CUDA 12.8), so none is staged through
-  host memory by hand; gloo copies through the host itself.
+  the steps run (all_reduce, broadcast, all_gather_into_tensor,
+  reduce_scatter_tensor, barrier and all_to_all_single:
+  `scripts/torch_gloo_cuda_probe.py` on the H100 machine, torch 2.11 +
+  CUDA 12.8), so none is staged through host memory by hand; gloo copies
+  through the host itself. Its point-to-point sends (isend and irecv,
+  which the ring shift of sequence parallelism posts) refuse CUDA
+  tensors there (the transport's ``writev`` fails with "Bad address"),
+  so `parallel/collectives.ring_shift` copies them to host memory and
+  back itself under gloo.
 
 Besides the group, every rank of a multi-process run gets a gloo group
 over the host for the decisions ranks must agree on (a checkpoint save,
 a barrier): with NCCL that is a second group, with gloo the same one.
 
-A ``data x model`` mesh (`cluster/mesh.py`) adds a subgroup per row and
-per column of the rank grid, each with a host group of its own by the
-same rule (`mesh_groups`). `torch.distributed.new_group` is collective
-over the whole group, so every rank creates every subgroup, in the same
-order (the data groups by model index, then the model groups by data
-index), and keeps those it belongs to.
+A ``data x model x seq`` mesh (`cluster/mesh.py`) adds a subgroup per
+line of the rank grid along each axis, each with a host group of its own
+by the same rule (`mesh_groups`). `torch.distributed.new_group` is
+collective over the whole group, so every rank creates every subgroup,
+in the same order (the data groups by model and seq index, then the
+model groups by data and seq index, then the seq groups by data and
+model index), and keeps those it belongs to.
 
 Chief is rank 0: it owns the host-side side effects (checkpoint writes,
 summary files). Params are initialized identically on every rank from
@@ -66,7 +72,7 @@ class DistContext:
 
 
 _CONTEXT: DistContext | None = None
-#: (data, model) -> the axes' (group, host group) pairs of this rank
+#: (data, model, seq) -> the axes' (group, host group) pairs of this rank
 _MESH_GROUPS: dict = {}
 
 
@@ -152,28 +158,34 @@ def initialize_distributed(
     return _CONTEXT
 
 
-def mesh_groups(data: int, model: int) -> dict:
-    """``{"data": (group, host_group), "model": (group, host_group)}`` of
-    this rank for a ``data x model`` grid of the process group's ranks
-    (rank ``d * model + m``), None where an axis is one rank wide; an axis
-    as wide as the world is the world group. Created once per shape, by
-    every rank in the same order (module docstring)."""
-    key = (data, model)
+def mesh_groups(data: int, model: int, seq: int = 1) -> dict:
+    """``{"data": (group, host_group), "model": ..., "seq": ...}`` of this
+    rank for a ``data x model x seq`` grid of the process group's ranks
+    (rank ``(d * model + m) * seq + s``), None where an axis is one rank
+    wide; an axis as wide as the world is the world group. Created once
+    per shape, by every rank in the same order (module docstring)."""
+    key = (data, model, seq)
     if key in _MESH_GROUPS:
         return _MESH_GROUPS[key]
     ctx = _CONTEXT
     if ctx is None:
         raise RuntimeError("mesh_groups needs initialize_distributed first")
-    if data * model != ctx.world:
-        raise ValueError(f"mesh {data}x{model} != {ctx.world} ranks")
+    if data * model * seq != ctx.world:
+        raise ValueError(f"mesh {data}x{model}x{seq} != {ctx.world} ranks")
     world = torch.distributed.group.WORLD
     timeout = datetime.timedelta(seconds=DEFAULT_TIMEOUT_S)
-    rows = {"data": [[d * model + m for d in range(data)]
-                     for m in range(model)],
-            "model": [[d * model + m for m in range(model)]
-                      for d in range(data)]}
+
+    def at(d, m, s):
+        return (d * model + m) * seq + s
+
+    rows = {"data": [[at(d, m, s) for d in range(data)]
+                     for m in range(model) for s in range(seq)],
+            "model": [[at(d, m, s) for m in range(model)]
+                      for d in range(data) for s in range(seq)],
+            "seq": [[at(d, m, s) for s in range(seq)]
+                    for d in range(data) for m in range(model)]}
     out = {}
-    for axis in ("data", "model"):
+    for axis in ("data", "model", "seq"):
         mine = (None, None)
         for ranks in rows[axis]:
             if len(ranks) == 1:

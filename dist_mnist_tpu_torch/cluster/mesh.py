@@ -4,17 +4,22 @@ In the reference a device of the mesh is one chip of an SPMD program.
 Here a device is one RANK of a `torch.distributed` process group, with one
 device per process (rank r drives ``cuda:(r % cards)``, or the CPU). A
 `Mesh` is that group seen from one rank: the axis sizes, this rank's
-index on the ``data`` and ``model`` axes, its device, and the groups the
-collectives run over (None where an axis is one rank wide).
+index on the ``data``, ``model`` and ``seq`` axes, its device, and the
+groups the collectives run over (None where an axis is one rank wide).
 
-The ranks form a ``data x model`` grid with ``model`` varying fastest, as
-the reference lays its devices out: rank ``r = d * model + m``. The
-ranks of one model group (same d) hold one replica of the model, each
-with its share of the tensor-parallel leaves, and see the same batch; the
-ranks of one data group (same m) split the batch. A ``seq`` or ``pipe``
-axis wider than one refuses, naming the slice that brings it. The
-reference's multislice layout (`hybrid_mesh_shapes`, `with_fake_slices`)
-and `compat_shard_map` have no counterpart yet.
+The ranks form a ``data x model x seq`` grid in the row-major order of
+`AXES`, as the reference lays its devices out: rank ``r = (d * model + m)
+* seq + s``. The ranks of one model group (same d and s) hold one
+replica of the model, each with its share of the tensor-parallel leaves,
+and see the same batch; the ranks of one seq group (same d and m) see
+the same batch too, each holding its contiguous share of every
+sequence's tokens (sequence parallelism: `parallel/ring_attention.py`,
+`parallel/ulysses.py`); the ranks of one data group (same m and s) split
+the batch. A ``pipe`` axis wider than one refuses, naming the slice that
+brings it, and so does a ``seq`` axis beside a ``model`` axis, both wider
+than one (no reference config combines them). The reference's
+multislice layout (`hybrid_mesh_shapes`, `with_fake_slices`) and
+`compat_shard_map` have no counterpart yet.
 
 `activate(mesh)` makes a mesh ambient for the forward pass: synchronized
 batch norm (`ops/nn.batch_norm`) reads it with `ambient_mesh()`, as the
@@ -37,11 +42,12 @@ SEQ_AXIS = "seq"
 PIPE_AXIS = "pipe"
 AXES = (DATA_AXIS, MODEL_AXIS, SEQ_AXIS, PIPE_AXIS)
 
-#: the slices that bring the axes other than `data` and `model`
+#: the slices that bring the axes the port's mesh lacks
 _LATER_AXES = {
-    SEQ_AXIS: "ROADMAP §1 item 11 (sequence parallelism)",
     PIPE_AXIS: "ROADMAP §1 item 11 (pipeline parallelism)",
 }
+#: the slice that would combine a seq axis with a model axis
+_SEQ_WITH_MODEL = "ROADMAP §1 item 11 (sequence with tensor parallelism)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,10 +97,12 @@ class ClusterConfig:
 class Mesh:
     """One rank's view of the mesh. `rank` is this rank's index on the
     ``data`` axis and `group` the data group (the ranks with this rank's
-    model index: the batch splits over them); `model_index` and
+    model and seq indices: the batch splits over them); `model_index` and
     `model_group` are the same for the ``model`` axis (the ranks with
-    this rank's data index: the tensor-parallel leaves split over them).
-    A group is None where its axis is one rank wide. `host_groups` holds
+    this rank's data and seq indices: the tensor-parallel leaves split
+    over them), `seq_index` and `seq_group` for the ``seq`` axis (the
+    ranks with this rank's data and model indices: the tokens split over
+    them). A group is None where its axis is one rank wide. `host_groups` holds
     a gloo group per axis for host-side messages (the decode follower
     protocol), `backend` the collectives' backend; `stats` counts what
     the collectives moved."""
@@ -111,6 +119,8 @@ class Mesh:
     model_index: int = 0
     model_group: Any = None
     host_groups: dict = dataclasses.field(default_factory=dict)
+    seq_index: int = 0
+    seq_group: Any = None
 
     @property
     def size(self) -> int:
@@ -123,21 +133,28 @@ class Mesh:
         return self.shape[MODEL_AXIS]
 
     @property
+    def seq(self) -> int:
+        """Ranks on the ``seq`` axis."""
+        return self.shape[SEQ_AXIS]
+
+    @property
     def ranks(self) -> int:
         """Every rank of the mesh."""
-        return self.size * self.model
+        return self.size * self.model * self.seq
 
     @property
     def model_chief(self) -> int:
         """The process-group rank of this model group's first rank (the
         one that drives a tensor-parallel decode engine)."""
-        return self.rank * self.model
+        return self.rank * self.model * self.seq + self.seq_index
 
     def axis_index(self, axis: str) -> int:
-        return self.model_index if axis == MODEL_AXIS else self.rank
+        return {MODEL_AXIS: self.model_index,
+                SEQ_AXIS: self.seq_index}.get(axis, self.rank)
 
     def axis_group(self, axis: str):
-        return self.model_group if axis == MODEL_AXIS else self.group
+        return {MODEL_AXIS: self.model_group,
+                SEQ_AXIS: self.seq_group}.get(axis, self.group)
 
 
 def device_count() -> int:
@@ -149,13 +166,20 @@ def device_count() -> int:
 
 
 def check_axes(spec: MeshSpec) -> None:
-    """Refuse a ``seq`` or ``pipe`` axis wider than one, naming the slice
-    that brings it."""
+    """Refuse a ``pipe`` axis wider than one, and a ``seq`` axis beside a
+    ``model`` axis both wider than one, naming the slice that would bring
+    them."""
     for axis, item in _LATER_AXES.items():
         if getattr(spec, axis) > 1:
             raise NotImplementedError(
                 f"a {axis!r} axis of {getattr(spec, axis)} joins the port "
-                f"with {item}; the port's mesh has the data and model axes")
+                f"with {item}; the port's mesh has the data, model and seq "
+                "axes")
+    if spec.seq > 1 and spec.model > 1:
+        raise NotImplementedError(
+            f"a seq axis of {spec.seq} beside a model axis of {spec.model} "
+            f"joins the port with {_SEQ_WITH_MODEL}; the port shards "
+            "tokens over seq with model = 1")
 
 
 def make_mesh(spec: MeshSpec | None = None, *,
@@ -168,7 +192,7 @@ def make_mesh(spec: MeshSpec | None = None, *,
     Raises `ValueError` when the spec wants more ranks than exist (a
     caller may fall back to ``MeshSpec(data=-1)``, as `bench.run_config`
     does) or fewer: every rank of the group is on the mesh.
-    `NotImplementedError` for a ``seq`` or ``pipe`` axis wider than one.
+    `NotImplementedError` for what `check_axes` refuses.
     `device` defaults to the device `initialize_distributed` gave this
     rank."""
     from dist_mnist_tpu_torch.cluster import coordination
@@ -190,12 +214,14 @@ def make_mesh(spec: MeshSpec | None = None, *,
         device = ctx.device if ctx is not None else torch.device("cpu")
     if n == 1:
         return Mesh(shape=shape, device=torch.device(device))
-    data, model = shape[DATA_AXIS], shape[MODEL_AXIS]
-    groups = coordination.mesh_groups(data, model)
+    data, model, seq = shape[DATA_AXIS], shape[MODEL_AXIS], shape[SEQ_AXIS]
+    groups = coordination.mesh_groups(data, model, seq)
     rank = torch.distributed.get_rank()
-    return Mesh(shape=shape, rank=rank // model, model_index=rank % model,
+    return Mesh(shape=shape, rank=rank // (model * seq),
+                model_index=rank // seq % model, seq_index=rank % seq,
                 device=torch.device(device),
                 group=groups[DATA_AXIS][0], model_group=groups[MODEL_AXIS][0],
+                seq_group=groups[SEQ_AXIS][0],
                 host_groups={axis: g[1] for axis, g in groups.items()},
                 backend=ctx.backend if ctx is not None
                 else torch.distributed.get_backend())
@@ -204,7 +230,8 @@ def make_mesh(spec: MeshSpec | None = None, *,
 def local_batch_slice(global_batch: int, mesh: Mesh) -> tuple[int, int]:
     """(per-process batch, per-device batch) for a global batch: the
     same number, one device per process. The batch splits over the
-    ``data`` axis only: the ranks of one model group get the same rows."""
+    ``data`` axis only: the ranks of one model or seq group get the same
+    rows."""
     if global_batch % mesh.size != 0:
         raise ValueError(f"global batch {global_batch} % data axis "
                          f"{mesh.size} != 0")
@@ -214,7 +241,7 @@ def local_batch_slice(global_batch: int, mesh: Mesh) -> tuple[int, int]:
 
 def validate_mesh(mesh: Mesh) -> None:
     """Refuse a mesh whose ranks do not match its groups."""
-    for axis in (DATA_AXIS, MODEL_AXIS):
+    for axis in (DATA_AXIS, MODEL_AXIS, SEQ_AXIS):
         n, group = mesh.shape[axis], mesh.axis_group(axis)
         if n > 1 and (group is None
                       or n != torch.distributed.get_world_size(group)):

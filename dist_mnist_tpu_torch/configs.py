@@ -3,8 +3,10 @@
 Only the entries whose model and path the port runs are here
 (`mlp_mnist`, `lenet5_mnist`, `lenet5_fashion`, `resnet20_cifar`,
 `resnet20_cifar_fsdp`, `vit_tiny_cifar`, `vit_tiny_cifar_flash`,
-`vit_tiny_cifar_tp`, `vit_tiny_cifar_fsdp_tp`); the others join with
-their slices. A test pins each entry field for field
+`vit_tiny_cifar_ulysses`, `vit_tiny_cifar_ulysses_flash`,
+`vit_tiny_cifar_ring`, `vit_tiny_cifar_ring_flash`, `vit_tiny_cifar_tp`,
+`vit_tiny_cifar_fsdp_tp`); the others (`vit_tiny_cifar_moe`,
+`vit_tiny_cifar_pp`) join with their slice. A test pins each entry field for field
 against the reference ladder.
 """
 
@@ -149,6 +151,89 @@ CONFIGS = {
         augment=True,
         model_kwargs={"attention_impl": "flash", "scan_blocks": True},
         mesh=MeshSpec(data=-1),
+        ladder_devices=16,
+    ),
+    # 5b) config 5 with Ulysses sequence parallelism: the all-to-all SP
+    # alternative to ring attention. heads=4 (not ViT-Ti's 3) so heads %
+    # seq == 0, and mean pooling keeps the token count divisible by the
+    # seq axis.
+    "vit_tiny_cifar_ulysses": Config(
+        name="vit_tiny_cifar_ulysses",
+        model="vit_tiny",
+        dataset="cifar10",
+        batch_size=1024,
+        train_steps=5000,
+        learning_rate=1e-3,
+        lr_schedule="cosine",
+        warmup_steps=500,
+        grad_clip_norm=1.0,
+        weight_decay=0.05,
+        remat=True,
+        augment=True,
+        model_kwargs={"attention_impl": "ulysses", "pool": "mean",
+                      "heads": 4, "scan_blocks": True},
+        mesh=MeshSpec(data=-1, seq=2),
+        ladder_devices=16,
+    ),
+    # 5g) Ulysses with the flash kernels as the local engine: after the
+    # head reshard each rank attends over the whole sequence
+    "vit_tiny_cifar_ulysses_flash": Config(
+        name="vit_tiny_cifar_ulysses_flash",
+        model="vit_tiny",
+        dataset="cifar10",
+        batch_size=1024,
+        train_steps=5000,
+        learning_rate=1e-3,
+        lr_schedule="cosine",
+        warmup_steps=500,
+        grad_clip_norm=1.0,
+        weight_decay=0.05,
+        remat=True,
+        augment=True,
+        model_kwargs={"attention_impl": "ulysses_flash", "pool": "mean",
+                      "heads": 4, "scan_blocks": True},
+        mesh=MeshSpec(data=-1, seq=2),
+        ladder_devices=16,
+    ),
+    # 5f) config 5 with ring attention over a 2-way `seq` axis (blockwise
+    # K/V rotation around the ring: parallel/ring_attention.py)
+    "vit_tiny_cifar_ring": Config(
+        name="vit_tiny_cifar_ring",
+        model="vit_tiny",
+        dataset="cifar10",
+        batch_size=1024,
+        train_steps=5000,
+        learning_rate=1e-3,
+        lr_schedule="cosine",
+        warmup_steps=500,
+        grad_clip_norm=1.0,
+        weight_decay=0.05,
+        remat=True,
+        augment=True,
+        model_kwargs={"attention_impl": "ring", "pool": "mean",
+                      "scan_blocks": True},
+        mesh=MeshSpec(data=-1, seq=2),
+        ladder_devices=16,
+    ),
+    # 5f') config 5f with the flash kernels as the ring's local block
+    # engine (flash_attention_lse's (out, lse) pair feeding the blockwise
+    # log-sum-exp merge)
+    "vit_tiny_cifar_ring_flash": Config(
+        name="vit_tiny_cifar_ring_flash",
+        model="vit_tiny",
+        dataset="cifar10",
+        batch_size=1024,
+        train_steps=5000,
+        learning_rate=1e-3,
+        lr_schedule="cosine",
+        warmup_steps=500,
+        grad_clip_norm=1.0,
+        weight_decay=0.05,
+        remat=True,
+        augment=True,
+        model_kwargs={"attention_impl": "ring_flash", "pool": "mean",
+                      "scan_blocks": True},
+        mesh=MeshSpec(data=-1, seq=2),
         ladder_devices=16,
     ),
     # 5e) config 5 tensor-parallel: qkv/mlp matmuls Megatron-sharded over a

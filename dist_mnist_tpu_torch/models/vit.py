@@ -13,8 +13,32 @@ layout as a loop over the depth; there is nothing to compile once.
 `attention_impl` picks the attention inner loop: ``"xla"`` is the plain
 einsum path (`ops/nn.dot_product_attention`), ``"flash"`` the hand-written
 CUDA flash kernels (`parallel/flash.py` -> `ops/kernels/flash_attention.py`,
-and with a token `mask` the masked kernels). The ring and Ulysses
-variants, MoE blocks and the block pipeline raise until ROADMAP §1 item 11.
+and with a token `mask` the masked kernels), ``"ring"`` and
+``"ring_flash"`` ring attention over the mesh's ``seq`` axis
+(`parallel/ring_attention.py`, its local blocks on the einsum or on
+`flash_attention_lse`), ``"ulysses"`` and ``"ulysses_flash"`` the
+all-to-all reshard (`parallel/ulysses.py`, needing heads % seq == 0, its
+local attention plain or on the flash kernels). Without a seq axis the
+four fall back to the exact attention of their engine.
+`attention_block_k` streams K/V tiles of that many keys within the
+kernel paths (None: the full-K rule). Every attention path tags its
+output ``attn_out`` (`ops/nn.checkpoint_name`) for the ``save_attn``
+remat policy. MoE blocks and the block pipeline raise until ROADMAP §1
+item 11.
+
+Sequence parallelism: under an ambient mesh with a ``seq`` axis of n > 1
+and a ring or Ulysses `attention_impl`, each seq rank holds its
+contiguous 1/n of the tokens from the patch embedding to the pool: the
+patch embedding runs whole and keeps the rank's tokens, `pos` and every
+layer's dropout keep-mask (drawn for all S tokens) are sliced to them,
+layer norms, the MLP and the residuals run on them alone, attention
+runs over the seq group, and the mean pool is a local sum, an all-reduce
+over seq (`collectives.all_reduce_sum`, whose backward sums the
+cotangent over seq) and a division by S. So each rank's activations are
+O(S/n), and the logits are the same on every seq rank. ``pool="cls"``
+raises there (the CLS token makes S odd). The step's gradient rule for
+it is in `train/step.py`. Other impls on a seq mesh run the whole
+sequence on every seq rank.
 
 Dropout (after the MLP's GELU) takes one keep-mask per layer. `apply`
 draws all of them up front from the generator `rng`
@@ -45,9 +69,10 @@ import re
 
 import torch
 
-from dist_mnist_tpu_torch.cluster.mesh import ambient_mesh
+from dist_mnist_tpu_torch.cluster.mesh import SEQ_AXIS, ambient_mesh
 from dist_mnist_tpu_torch.ops import nn
 from dist_mnist_tpu_torch.parallel.collectives import (
+    all_reduce_sum,
     copy_to_model,
     gather_from_model,
     reduce_from_model,
@@ -57,6 +82,8 @@ from dist_mnist_tpu_torch.parallel.flash import (
     flash_attention_sharded,
     masked_flash_attention_sharded,
 )
+from dist_mnist_tpu_torch.parallel.ring_attention import ring_attention
+from dist_mnist_tpu_torch.parallel.ulysses import ulysses_attention
 from dist_mnist_tpu_torch.utils.tree import (
     flatten_with_path,
     leaves,
@@ -64,12 +91,9 @@ from dist_mnist_tpu_torch.utils.tree import (
     tree_map,
 )
 
-_LATER = {
-    "ring": "ring attention",
-    "ring_flash": "ring attention",
-    "ulysses": "Ulysses attention",
-    "ulysses_flash": "Ulysses attention",
-}
+#: the attention impls that run over a seq axis
+SEQ_IMPLS = ("ring", "ring_flash", "ulysses", "ulysses_flash")
+IMPLS = ("xla", "flash", *SEQ_IMPLS)
 
 
 def stack_stage_params(params_list):
@@ -124,10 +148,11 @@ class ViTTiny:
     mlp_ratio: int = 4
     dropout_rate: float = 0.1
     compute_dtype: torch.dtype = torch.bfloat16
-    # "xla" | "flash"; "ring" | "ring_flash" | "ulysses" | "ulysses_flash"
-    # come with the parallel-attention slice
+    # "xla" | "flash" | "ring" | "ring_flash" | "ulysses" | "ulysses_flash"
     attention_impl: str = "xla"
-    pool: str = "cls"  # "cls" | "mean"
+    # the kernel paths stream K/V tiles of this many keys; None: full-K
+    attention_block_k: int | None = None
+    pool: str = "cls"  # "cls" | "mean" (mean keeps S divisible by seq)
     mlp_impl: str = "dense"  # "moe" comes with the parallel slice
     scan_blocks: bool = False  # the stacked `blocks` layout
     block_pipeline: int = 0  # the GPipe stack comes with the parallel slice
@@ -136,12 +161,7 @@ class ViTTiny:
     tensor_parallel = True
 
     def __post_init__(self):
-        if self.attention_impl in _LATER:
-            raise NotImplementedError(
-                f"attention_impl={self.attention_impl!r}: "
-                f"{_LATER[self.attention_impl]} joins the port with the "
-                "parallel-attention slice (ROADMAP §1 item 11)")
-        if self.attention_impl not in ("xla", "flash"):
+        if self.attention_impl not in IMPLS:
             raise ValueError(
                 f"unknown attention_impl {self.attention_impl!r}; use "
                 "'xla' | 'flash' | 'ring' | 'ring_flash' | 'ulysses' | "
@@ -233,6 +253,12 @@ class ViTTiny:
         return keep if rows == b else keep[:, offset:offset + b]
 
     def _attention(self, p, x, mask=None, tp=None):
+        if mask is not None and self.attention_impl in SEQ_IMPLS:
+            # the reference's refusal: serve/zoo.py degrades these impls
+            # to the native-length-only bucket
+            raise ValueError(
+                f"attention_impl {self.attention_impl!r} does not support a "
+                "token mask; serve at native length or use 'xla'/'flash'")
         if tp is not None:
             return self._tp_attention(p, x, tp, mask=mask)
         if self.attention_impl == "xla":
@@ -248,17 +274,44 @@ class ViTTiny:
         h = self.heads
         qkv = qkv.reshape(b, s, 3, h, three_d // (3 * h))
         q, k, v = qkv.unbind(2)  # strided views, read in place
-        if self.attention_impl == "xla":
+        impl, block_k = self.attention_impl, self.attention_block_k
+        if impl == "xla":
             return nn.dot_product_attention(q, k, v, mask=mask)
+        if impl in SEQ_IMPLS:
+            # ring / ulysses over the ambient seq axis; "_flash" runs
+            # their local attention on the flash kernels. Each tags its
+            # own output
+            entry = (ring_attention if impl.startswith("ring")
+                     else ulysses_attention)
+            return entry(q, k, v, impl="flash" if impl.endswith("_flash")
+                         else "xla", block_k=block_k)
         if mask is not None:
             # token masks are key prefixes: the masked kernels take
             # per-row lengths and skip key tiles past them
             lengths = mask.to(torch.int32).sum(-1, dtype=torch.int32)
-            out = masked_flash_attention_sharded(q, k, v, lengths)
+            out = masked_flash_attention_sharded(q, k, v, lengths,
+                                                 block_k=block_k)
         else:
-            # full-K tiles, the reference's rule for every ViT call
-            out = flash_attention_sharded(q, k, v)
-        return out
+            # block_k None: full-K tiles, the reference's rule for every
+            # ViT config
+            out = flash_attention_sharded(q, k, v, block_k=block_k)
+        return nn.checkpoint_name(out, "attn_out")
+
+    def _seq_tokens(self, s: int, mesh) -> slice:
+        """This seq rank's contiguous share of `s` tokens; raises where
+        the tokens do not split evenly (module docstring)."""
+        n = mesh.seq
+        if self.pool == "cls":
+            raise ValueError(
+                f"pool='cls' on a seq axis of {n}: the CLS token makes "
+                f"S = {s} tokens, S % seq = {s % n}, and sequence "
+                "parallelism shards the tokens; use pool='mean', as the "
+                "ring and Ulysses configs do")
+        if s % n:
+            raise ValueError(f"{s} tokens % seq axis {n} = {s % n}: "
+                             "sequence parallelism needs S % seq == 0")
+        per = s // n
+        return slice(mesh.seq_index * per, (mesh.seq_index + 1) * per)
 
     def _tp_attention(self, p, x, mesh, mask=None):
         """The Megatron attention (module docstring): qkv column-parallel
@@ -319,17 +372,29 @@ class ViTTiny:
                 tok_mask = torch.cat([torch.ones((b, 1), dtype=torch.bool,
                                                  device=x.device), tok_mask],
                                      dim=1)
-        x = x + params["pos"][:, :x.shape[1]].to(x.dtype)
+        mesh = ambient_mesh()
+        tp = mesh if mesh is not None and mesh.model > 1 else None
+        sp = (mesh if mesh is not None and mesh.seq > 1
+              and self.attention_impl in SEQ_IMPLS else None)
+        tokens = slice(0, x.shape[1])
+        if sp is not None:
+            tokens = self._seq_tokens(x.shape[1], sp)
+            x = x[:, tokens]
+        x = x + params["pos"][:, tokens].to(x.dtype)
         layers = (unstack_params(params["blocks"], self.depth)
                   if self.scan_blocks
                   else [params[f"block{i}"] for i in range(self.depth)])
-        mesh = ambient_mesh()
-        tp = mesh if mesh is not None and mesh.model > 1 else None
         for i, p in enumerate(layers):
-            x = self._block(p, x, dropout_mask[i] if use_dropout else None,
-                            mask=tok_mask, tp=tp)
+            keep = dropout_mask[i][:, tokens] if use_dropout else None
+            x = self._block(p, x, keep, mask=tok_mask, tp=tp)
         x = nn.layer_norm(params["final_ln"], x)
-        if self.pool == "cls":
+        if sp is not None:
+            # the mean over all S tokens: this rank's sum, summed over seq
+            total = all_reduce_sum(x.to(torch.float32).sum(dim=1), sp,
+                                   SEQ_AXIS)
+            pooled = (total / torch.full((), float(sp.seq * x.shape[1]),
+                                         device=x.device)).to(x.dtype)
+        elif self.pool == "cls":
             pooled = x[:, 0]
         elif tok_mask is None:
             pooled = x.mean(dim=1)

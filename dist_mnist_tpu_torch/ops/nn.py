@@ -303,6 +303,42 @@ def flatten(x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# remat tags
+
+
+@torch.library.custom_op("dist_mnist_tpu_torch::checkpoint_name",
+                         mutates_args=())
+def _checkpoint_name(x: torch.Tensor, name: str) -> torch.Tensor:
+    return x.clone()
+
+
+@_checkpoint_name.register_fake
+def _checkpoint_name_fake(x, name):
+    return torch.empty_like(x)
+
+
+def _checkpoint_name_backward(ctx, grad):
+    return grad, None
+
+
+_checkpoint_name.register_autograd(_checkpoint_name_backward)
+
+#: the tag's operator, as a selective-checkpoint policy sees it
+#: (`train/step.py` REMAT_POLICIES); its second argument is the name
+CHECKPOINT_NAME = torch.ops.dist_mnist_tpu_torch.checkpoint_name.default
+
+
+def checkpoint_name(x: torch.Tensor, name: str) -> torch.Tensor:
+    """`x` tagged `name` for the remat policies: the reference's
+    ``jax.ad_checkpoint.checkpoint_name``. It is one registered operator
+    (`CHECKPOINT_NAME`, a copy forward, the identity backward), so a
+    selective-checkpoint policy sees the tag and its name, and may save
+    the tagged tensor rather than recompute it. Outside a checkpointed
+    region it is a copy of `x`."""
+    return _checkpoint_name(x, name)
+
+
+# ---------------------------------------------------------------------------
 # attention (the plain "xla" path of ViT; the kernels live in ops/kernels)
 
 
@@ -322,11 +358,14 @@ def dot_product_attention(q, k, v, mask: torch.Tensor | None = None):
     """``[B, S, H, Dh] -> [B, S, H, Dh]``, the reference's rounding: the
     scores einsum in q's dtype, then f32 times ``Dh**-0.5``; keys outside
     `mask` ``[B, S_k]`` get ``-1e30``; softmax in f32, the weights cast to
-    q's dtype, weights @ V in q's dtype."""
+    q's dtype, weights @ V in q's dtype. The result is tagged
+    ``attn_out`` (`checkpoint_name`) for the ``save_attn`` remat policy,
+    as the reference tags it."""
     scale = q.shape[-1] ** -0.5
     logits = torch.einsum("bqhd,bkhd->bhqk", q, k).to(torch.float32) * scale
     if mask is not None:
         logits = torch.where(mask[:, None, None, :].to(torch.bool), logits,
                              torch.full((), -1e30, device=logits.device))
     weights = torch.softmax(logits, dim=-1).to(q.dtype)
-    return torch.einsum("bhqk,bkhd->bqhd", weights, v)
+    return checkpoint_name(torch.einsum("bhqk,bkhd->bqhd", weights, v),
+                           "attn_out")

@@ -1,5 +1,5 @@
-"""The collectives of the data- and tensor-parallel step (port of the
-reference `parallel/collectives.py`).
+"""The collectives of the data-, tensor- and sequence-parallel step (port
+of the reference `parallel/collectives.py`).
 
 In the reference, GSPMD inserts the gradient all-reduce, the FSDP
 all-gather and reduce-scatter, and the batch-norm statistics' all-reduce
@@ -26,13 +26,27 @@ and the models write them out over the mesh's groups:
   already holds the whole, equal cotangent: a reduce-scatter there would
   double every gradient).
 
+Over the ``seq`` group (sequence parallelism), as autograd functions:
+
+- `ring_shift`: rank s sends its tensor to s+1 and receives s-1's (the
+  reference's ``ppermute`` around the ring), the two sends posted
+  together (`torch.distributed.batch_isend_irecv`) so no order of the
+  ranks can deadlock; the backward is the reverse shift;
+- `all_to_all_heads`: the tiled all-to-all of the Ulysses reshard (split
+  one dim into seq chunks, chunk j to rank j, concatenate what arrives
+  on another dim in rank order); the backward is the inverse all-to-all;
+- `all_reduce_sum(t, mesh, "seq")`: the mean pool's sum over the seq
+  ranks' tokens, whose backward sums the cotangent over them;
+- `sum_over_seq`: the step's gradient sum over the seq ranks, one
+  all-reduce of a flat f32 buffer.
+
 The gradient mean (`psum_mean`) and the FSDP pair run over the ``data``
 group only (``axis="data"``, the default); `gather_leaves` also takes
 ``axis="model"`` for gathering a tensor-parallel leaf whole. Every call
-adds its payload bytes to ``mesh.stats`` (`collective_stats`), which the
-training CLI reports per step: the ``model`` group's under keys that
-start with ``tp_``, apart from the data group's. `ring_shift` and
-`all_to_all_heads` join with ROADMAP §1 item 11.
+adds its payload bytes (the tensor this rank contributes) to
+``mesh.stats`` (`collective_stats`), which the training CLI reports per
+step: the ``model`` group's under keys that start with ``tp_``, the
+``seq`` group's under ``sp_``, apart from the data group's.
 """
 
 from __future__ import annotations
@@ -42,7 +56,12 @@ import collections
 import torch
 import torch.distributed as dist
 
-from dist_mnist_tpu_torch.cluster.mesh import DATA_AXIS, MODEL_AXIS, Mesh
+from dist_mnist_tpu_torch.cluster.mesh import (
+    DATA_AXIS,
+    MODEL_AXIS,
+    SEQ_AXIS,
+    Mesh,
+)
 from dist_mnist_tpu_torch.utils.tree import flatten_with_path, map_with_path
 
 
@@ -52,10 +71,14 @@ def collective_stats(mesh: Mesh) -> collections.Counter:
     return mesh.stats
 
 
+#: the stats key prefix of each axis's collectives
+_PREFIX = {DATA_AXIS: "", MODEL_AXIS: "tp_", SEQ_AXIS: "sp_"}
+
+
 def _count(mesh: Mesh, name: str, t: torch.Tensor,
            axis: str = DATA_AXIS) -> None:
     stats = collective_stats(mesh)
-    key = name if axis == DATA_AXIS else f"tp_{name}"
+    key = _PREFIX[axis] + name
     stats[f"{key}_bytes"] += t.numel() * t.element_size()
     stats[f"{key}_calls"] += 1
 
@@ -176,26 +199,136 @@ def reduce_scatter_leaves(leaves: list[torch.Tensor], dims: list[int],
 
 
 class _AllReduceSum(torch.autograd.Function):
-    """Sum over ranks whose backward sums the cotangent over ranks: each
-    rank's loss depends on every rank's contribution, so the gradient
-    reaching a contribution is the sum of every rank's cotangent."""
+    """Sum over the ranks of an axis whose backward sums the cotangent over
+    them: each rank's loss depends on every rank's contribution, so the
+    gradient reaching a contribution is the sum of every rank's
+    cotangent."""
 
     @staticmethod
-    def forward(ctx, t, mesh):
-        ctx.mesh = mesh
-        return all_reduce_(t.clone(), mesh)
+    def forward(ctx, t, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return all_reduce_(t.contiguous().clone(), mesh, axis)
 
     @staticmethod
     def backward(ctx, grad):
-        return all_reduce_(grad.clone(), ctx.mesh), None
+        return (all_reduce_(grad.contiguous().clone(), ctx.mesh, ctx.axis),
+                None, None)
 
 
-def all_reduce_sum(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """Differentiable sum of `t` over the mesh's ranks (`t` on one
+def all_reduce_sum(t: torch.Tensor, mesh: Mesh,
+                   axis: str = DATA_AXIS) -> torch.Tensor:
+    """Differentiable sum of `t` over the ranks of `axis` (`t` on one
     rank)."""
-    if mesh.size == 1:
+    if mesh.shape[axis] == 1:
         return t
-    return _AllReduceSum.apply(t, mesh)
+    return _AllReduceSum.apply(t, mesh, axis)
+
+
+def sum_over_seq(tree, mesh: Mesh):
+    """Every leaf of `tree` summed over the seq ranks (each leaf in its own
+    dtype): one all-reduce of one flat f32 buffer over the seq group."""
+    if mesh.seq == 1:
+        return tree
+    flat = flatten_with_path(tree)
+    buf = all_reduce_(torch.cat([leaf.reshape(-1).to(torch.float32)
+                                 for _, leaf in flat]), mesh, SEQ_AXIS)
+    out, off = {}, 0
+    for path, leaf in flat:
+        n = leaf.numel()
+        out[path] = buf[off:off + n].view(leaf.shape).to(leaf.dtype)
+        off += n
+    return map_with_path(lambda path, _: out[path], tree)
+
+
+def _stage(mesh: Mesh, t: torch.Tensor) -> bool:
+    """Whether a point-to-point send of `t` goes through host memory:
+    gloo's send and recv take CPU tensors only (module docstring of
+    `cluster/coordination.py`)."""
+    return mesh.backend == "gloo" and t.device.type != "cpu"
+
+
+def _shift(x: torch.Tensor, mesh: Mesh, step: int) -> torch.Tensor:
+    """Seq rank s's `x` sent to s + step, s - step's received (a new
+    contiguous tensor on x's device)."""
+    n, s, group = mesh.seq, mesh.seq_index, mesh.seq_group
+    send = x.contiguous()
+    _count(mesh, "ring_shift", send, SEQ_AXIS)
+    staged = _stage(mesh, send)
+    if staged:
+        send = send.cpu()
+    recv = torch.empty(send.shape, dtype=send.dtype, device=send.device)
+    ops = [dist.P2POp(dist.isend, send,
+                      dist.get_global_rank(group, (s + step) % n), group),
+           dist.P2POp(dist.irecv, recv,
+                      dist.get_global_rank(group, (s - step) % n), group)]
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    return recv.to(x.device) if staged else recv
+
+
+class _RingShift(torch.autograd.Function):
+    """`x` one step around the seq ring; the backward sends the cotangent
+    one step back."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, reverse):
+        ctx.mesh, ctx.step = mesh, -1 if reverse else 1
+        return _shift(x, mesh, ctx.step)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _shift(grad, ctx.mesh, -ctx.step), None, None
+
+
+def ring_shift(x: torch.Tensor, mesh: Mesh, *,
+               reverse: bool = False) -> torch.Tensor:
+    """Seq rank s's `x` moved to rank s+1 (s-1 with `reverse`), so each
+    rank returns its predecessor's: the building block of ring attention.
+    `x` itself on a seq axis of one."""
+    if mesh.seq == 1:
+        return x
+    return _RingShift.apply(x, mesh, reverse)
+
+
+def _all_to_all(x: torch.Tensor, mesh: Mesh, split_axis: int,
+                concat_axis: int) -> torch.Tensor:
+    n = mesh.seq
+    if x.shape[split_axis] % n:
+        raise ValueError(f"all_to_all_heads: dim {split_axis} of "
+                         f"{tuple(x.shape)} not divisible by seq axis {n}")
+    send = torch.stack(x.chunk(n, dim=split_axis)).contiguous()
+    _count(mesh, "all_to_all", send, SEQ_AXIS)
+    recv = torch.empty(send.shape, dtype=send.dtype, device=send.device)
+    dist.all_to_all_single(recv, send, group=mesh.seq_group)
+    return torch.cat(recv.unbind(0), dim=concat_axis)
+
+
+class _AllToAllHeads(torch.autograd.Function):
+    """The tiled all-to-all; the backward is the inverse all-to-all."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, split_axis, concat_axis):
+        ctx.mesh, ctx.axes = mesh, (split_axis, concat_axis)
+        return _all_to_all(x, mesh, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        split_axis, concat_axis = ctx.axes
+        return (_all_to_all(grad, ctx.mesh, concat_axis, split_axis), None,
+                None, None)
+
+
+def all_to_all_heads(x: torch.Tensor, mesh: Mesh, *, split_axis: int,
+                     concat_axis: int) -> torch.Tensor:
+    """The reference's tiled ``all_to_all`` over the seq group: `x` split
+    into seq chunks along `split_axis`, chunk j sent to seq rank j, and
+    the chunks received concatenated along `concat_axis` in rank order
+    (``[B, S/n, H, D]`` -> ``[B, S, H/n, D]`` with split 2, concat 1, the
+    Ulysses reshard). `x` itself on a seq axis of one."""
+    if mesh.seq == 1:
+        return x
+    return _AllToAllHeads.apply(x, mesh, split_axis % x.ndim,
+                                concat_axis % x.ndim)
 
 
 def _model_slice(t: torch.Tensor, dim: int, mesh: Mesh) -> torch.Tensor:

@@ -17,25 +17,25 @@ on the same inputs, so the result is the unsharded kernel's, bit for
 bit. The batch rides the ``data`` axis: a rank of
 the step already holds its data slice of the batch, so the kernel sees
 that slice. A head count the model axis cannot divide raises the
-reference's ValueError; a batch the data axis does not divide logs the
-reference's warning (in the port each rank then holds a batch that is
-not a data slice of a divisible global batch, which is the caller's
-batch as given).
+reference's ValueError. The reference also warns when the data axis does
+not divide the batch, since GSPMD then replicates the whole batch on
+every device; the port has no such case: `q` is already this rank's
+slice, and `cluster/mesh.local_batch_slice` refuses a global batch the
+data axis does not divide, so the port does not warn.
 
 `flash_attention_tagged` is the reference's entry with the ``attn_out``
-remat tag; torch has no `checkpoint_name`, so here it passes through to
-`flash_attention_sharded` (the remat policies that read the tag,
-`save_attn` and `dots`, are ROADMAP §1 item 4(b)).
+remat tag (`ops/nn.checkpoint_name`), which the ``save_attn`` policy
+saves (`train/step.py` REMAT_POLICIES); the ring and Ulysses entries
+fall back to it without a seq axis.
 """
 
 from __future__ import annotations
-
-import logging
 
 import torch
 
 from dist_mnist_tpu_torch.cluster.mesh import ambient_mesh
 from dist_mnist_tpu_torch.ops.kernels.flash_attention import flash_attention
+from dist_mnist_tpu_torch.ops.nn import checkpoint_name
 from dist_mnist_tpu_torch.ops.kernels.masked_flash import (
     masked_flash_attention,
 )
@@ -43,8 +43,6 @@ from dist_mnist_tpu_torch.parallel.collectives import (
     gather_from_model,
     scatter_to_model,
 )
-
-log = logging.getLogger(__name__)
 
 
 def _heads_mesh(q, mesh):
@@ -61,15 +59,6 @@ def _heads_mesh(q, mesh):
             f"heads={heads} % model={m} != 0. Use a head count divisible "
             f"by {m}, or attention_impl='xla' (einsums partition without "
             "head granularity)."
-        )
-    data = mesh.size
-    if data > 1 and q.shape[0] % data:
-        log.warning(
-            "flash attention: batch=%d %% data axis %d != 0 — the kernel "
-            "drops the data axis and every device recomputes the FULL "
-            "replicated batch (%dx redundant compute/memory); use a batch "
-            "divisible by %d to ride the data axis",
-            q.shape[0], data, data, data,
         )
     return mesh
 
@@ -94,9 +83,11 @@ def flash_attention_sharded(q, k, v, block_k=None, *, mesh=None):
 
 
 def flash_attention_tagged(q, k, v, block_k=None, *, mesh=None):
-    """`flash_attention_sharded`; the reference's ``attn_out`` remat tag
-    has no torch counterpart (module docstring)."""
-    return flash_attention_sharded(q, k, v, block_k=block_k, mesh=mesh)
+    """`flash_attention_sharded` tagged ``attn_out`` (module
+    docstring)."""
+    return checkpoint_name(
+        flash_attention_sharded(q, k, v, block_k=block_k, mesh=mesh),
+        "attn_out")
 
 
 def masked_flash_attention_sharded(q, k, v, lengths, block_k=None, *,

@@ -25,6 +25,11 @@ leaves are slices and along which dims, for the step (all-gather over
 ``model`` slices stay local, the model's Megatron operators handle
 them), the checkpoint manager (gathers over both axes before the chief
 writes) and `reshard_state`.
+
+No rule names the ``seq`` axis: on a mesh with one (sequence
+parallelism) every leaf is replicated over it, so each seq rank holds
+the same params and optimizer state, and the step sums their gradients
+over seq (`train/step.py`).
 """
 
 from __future__ import annotations

@@ -44,6 +44,22 @@ The model's forward runs the Megatron operators over the model group
 placement; they are averaged over the data group only. The mesh is
 installed inside the forward function itself, so a rematerialized
 forward, which autograd replays on its own thread, sees it too.
+
+With a ``seq`` axis (sequence parallelism, `models/vit.py`) the ranks of
+one seq group see the same batch and generator state, and each holds
+its share of every sequence's tokens through the block stack. A leaf
+used before the mean pool gets, on each seq rank, the part of its
+gradient that rank's tokens give; a leaf after it (the head) gets the
+whole gradient on every seq rank. The rule that makes both right: each
+seq rank differentiates its loss divided by seq (`loss_and_grads`), the
+pool's all-reduce over seq has a sum-all-reduce backward, and
+`_reduce_grads` sums every leaf's gradient over the seq ranks (one
+all-reduce of a flat f32 buffer) before the mean over the data ranks.
+The pre-pool leaves then get the sum of their tokens' parts, the head
+seq times its 1/seq share. The reported loss and accuracy are the
+undivided ones, equal on every seq rank, averaged over the data ranks.
+Params and optimizer state are replicated over seq, and the updates are
+the same bits on every seq rank.
 """
 
 from __future__ import annotations
@@ -64,6 +80,7 @@ from dist_mnist_tpu_torch.cluster.mesh import (
     AXES,
     DATA_AXIS,
     MODEL_AXIS,
+    SEQ_AXIS,
     Mesh,
     activate,
     ambient_mesh,
@@ -92,41 +109,64 @@ LossFn = Callable[..., torch.Tensor]
 
 #: the 2-D weight products: what `dots_no_batch` keeps
 _WEIGHT_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+#: every matmul product, the batched attention ones included: what `dots`
+#: keeps
+_ALL_MATMULS = _WEIGHT_MATMULS + (torch.ops.aten.bmm.default,
+                                  torch.ops.aten.baddbmm.default)
 
 
-def _save_weight_matmuls(ctx, op, *args, **kwargs):
-    return (CheckpointPolicy.MUST_SAVE if op in _WEIGHT_MATMULS
-            else CheckpointPolicy.PREFER_RECOMPUTE)
+def _saving(ops: tuple, names: tuple = ()):
+    """The `context_fn` of a selective checkpoint that saves the outputs
+    of `ops` and of the tensors tagged with one of `names`
+    (`ops/nn.checkpoint_name`), and recomputes the rest."""
+
+    def policy(ctx, op, *args, **kwargs):
+        if op in ops or (op == nn.CHECKPOINT_NAME and args[1] in names):
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+
+    return functools.partial(create_selective_checkpoint_contexts, policy)
 
 
 # The reference's named remat policies (`Config.remat_policy`), as the
-# `context_fn` of a non-reentrant `torch.utils.checkpoint`:
-#   dots_no_batch  keep the outputs of the 2-D weight matmuls (`aten.mm`,
-#                  `aten.addmm`: every dense layer), recompute the rest,
-#                  the batched attention products and the flash kernels
-#                  included (JAX's dots_with_no_batch_dims_saveable)
+# `context_fn` of a non-reentrant `torch.utils.checkpoint`. All give the
+# same numbers; they trade recompute against saved activations:
+#   dots_no_batch  save the outputs of the 2-D weight matmuls (`aten.mm`,
+#                  `aten.addmm`: every dense layer), recompute the rest
+#                  (JAX's dots_with_no_batch_dims_saveable)
+#   save_attn      dots_no_batch plus the tensors tagged ``attn_out``
+#                  (every attention path's output, one [B, S, H, Dh] a
+#                  layer)
+#   dots           every matmul output: the weight products and the
+#                  batched attention products (`aten.bmm`, the einsums of
+#                  the plain attention and of the ring's "xla" engine)
 #   nothing        recompute everything
-# `save_attn` and `dots` (ROADMAP §1 item 4) raise: no ported config uses
-# them.
+# What each recomputes: torch's recompute replays the region's forward
+# eagerly, and a saved operator returns its saved output instead of
+# running; every other operator runs again. So the einsum attention's
+# products (the "xla", "ring" and "ulysses" paths) run again under
+# dots_no_batch and save_attn, and not under dots. A custom
+# autograd.Function keeps its own saved tensors, which the recompute
+# regenerates by running it: the flash kernels (`flash`, `ring_flash`,
+# `ulysses_flash`: one more forward launch a call) and the collectives
+# inside the region (the ring's shifts, Ulysses' all-to-alls, the mean
+# pool's seq all-reduce, the TP all-gathers and all-reduces) run again
+# under every policy; `save_attn` then saves the tagged output beside
+# them and `dots` saves no kernel output.
 REMAT_POLICIES = {
-    "dots_no_batch": functools.partial(create_selective_checkpoint_contexts,
-                                       _save_weight_matmuls),
+    "dots_no_batch": _saving(_WEIGHT_MATMULS),
+    "save_attn": _saving(_WEIGHT_MATMULS, ("attn_out",)),
+    "dots": _saving(_ALL_MATMULS),
     "nothing": None,
 }
-_LATER_POLICIES = ("save_attn", "dots")
 
 
 def resolve_remat_policy(name: str):
     """The checkpoint `context_fn` for a policy name (None: the default,
     save nothing)."""
-    if name in _LATER_POLICIES:
-        raise NotImplementedError(
-            f"remat_policy {name!r} joins the port with the configs that "
-            "use it (ROADMAP §1 item 4); the port has 'dots_no_batch' and "
-            "'nothing'")
     if name not in REMAT_POLICIES:
         raise ValueError(f"unknown remat_policy {name!r}; use one of "
-                         f"{sorted(REMAT_POLICIES) + list(_LATER_POLICIES)}")
+                         f"{sorted(REMAT_POLICIES)}")
     return REMAT_POLICIES[name]
 
 
@@ -157,7 +197,10 @@ def loss_and_grads(model, loss_fn: LossFn, params, model_state, batch, *,
     in the backward under `remat_policy`. ``split = (rank, ranks)`` says
     the batch is this rank's slice of a global batch ``ranks`` times as
     large: the crops, flips and dropout masks are drawn for the global
-    batch and this rank's rows taken."""
+    batch and this rank's rows taken. Under an ambient mesh with a seq
+    axis of n > 1 the grads are this rank's share, of the loss divided by
+    n, which summed over the seq ranks give the whole (module
+    docstring); the loss returned is not divided."""
     _check_batch(batch)
     context_fn = resolve_remat_policy(remat_policy) if remat else None
     rank, ranks = split
@@ -202,7 +245,10 @@ def loss_and_grads(model, loss_fn: LossFn, params, model_state, batch, *,
         else:
             logits, new_model_state = forward(tracked)
         loss = loss_fn(logits, batch["label"])
-        grads = torch.autograd.grad(loss, list(tracked.values()))
+        seq = 1 if mesh is None else mesh.shape[SEQ_AXIS]
+        share = loss if seq == 1 else loss / torch.full(
+            (), float(seq), dtype=loss.dtype, device=loss.device)
+        grads = torch.autograd.grad(share, list(tracked.values()))
     # a conv kernel's grad comes back in the strides of its OIHW view;
     # the optimizer (and its kernels) take the params' contiguous layout
     by_path = {path: g.contiguous() for path, g in zip(tracked, grads)}
@@ -238,7 +284,9 @@ def _sharded_paths(state: TrainState) -> set | None:
 def _reduce_grads(grads, state: TrainState, mesh, extra: torch.Tensor):
     """The global mean gradient in this rank's placement (full leaves
     under DP, slices under FSDP; a tensor-parallel slice stays this
-    rank's) and the mean of `extra` over the data ranks."""
+    rank's) and the mean of `extra` over the data ranks. Each rank's
+    share is first summed over the seq ranks (module docstring)."""
+    grads = collectives.sum_over_seq(grads, mesh)
     sharded = _sharded_paths(state)
     if sharded is None:
         return collectives.psum_mean(grads, mesh, extra)

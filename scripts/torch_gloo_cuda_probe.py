@@ -4,11 +4,16 @@
 
 NCCL refuses two ranks on the same GPU, so ranks that share a card run
 gloo. This script spawns two ranks on ``cuda:0`` under gloo and runs each
-collective the data-parallel step uses (all_reduce, broadcast,
-all_gather_into_tensor, reduce_scatter_tensor, barrier) once on CUDA
-tensors, checking the result. It prints one JSON line per collective and
-a summary line ``{"cuda_ok": [...], "cuda_refused": [...]}``. The port's
-rule for shared cards (`cluster/coordination.py`) is written from it.
+collective the data- and tensor-parallel steps use (all_reduce,
+broadcast, all_gather_into_tensor, reduce_scatter_tensor, barrier) and
+those sequence parallelism uses (point-to-point sends posted together by
+``batch_isend_irecv``, as a ring shift posts them, and
+``all_to_all_single``, as the Ulysses reshard calls it) once on CUDA
+tensors, checking the result. The point-to-point sends come last: a
+rank that dies on one leaves the earlier results written. It prints one
+JSON line per collective and a summary line ``{"cuda_ok": [...],
+"cuda_refused": [...]}``. The port's rule for shared cards
+(`cluster/coordination.py`) is written from it.
 """
 
 from __future__ import annotations
@@ -79,15 +84,42 @@ def _rank(rank: int, world: int, port: int, out_dir: str) -> None:
         dist.barrier()
         return True
 
+    def all_to_all():
+        # rank r sends chunk j (values 10 r + j) to rank j
+        t = torch.cat([torch.full((1000,), 10.0 * rank + j, device=dev)
+                       for j in range(world)])
+        out = torch.empty_like(t)
+        dist.all_to_all_single(out, t)
+        torch.cuda.synchronize()
+        want = torch.cat([torch.full((1000,), 10.0 * j + rank, device=dev)
+                          for j in range(world)])
+        return torch.equal(out, want)
+
+    def ring_shift():
+        # rank r sends to r + 1 and receives from r - 1, both posted at once
+        t = torch.full((1000,), float(rank), device=dev)
+        out = torch.empty_like(t)
+        ops = [dist.P2POp(dist.isend, t, (rank + 1) % world),
+               dist.P2POp(dist.irecv, out, (rank - 1) % world)]
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+        torch.cuda.synchronize()
+        return torch.all(out == float((rank - 1) % world)).item()
+
+    def write():
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as fh:
+            json.dump(results, fh)
+
     for name, fn in (("all_reduce", all_reduce), ("broadcast", broadcast),
                      ("all_gather_into_tensor", all_gather),
                      ("reduce_scatter_tensor", reduce_scatter),
-                     ("barrier", barrier)):
+                     ("barrier", barrier),
+                     ("all_to_all_single", all_to_all),
+                     ("batch_isend_irecv", ring_shift)):
         attempt(name, fn)
+        write()
         # a failed collective can leave the peer waiting: resync on the CPU
         dist.all_reduce(torch.zeros(1))
-    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as fh:
-        json.dump(results, fh)
     dist.destroy_process_group()
 
 
@@ -120,9 +152,12 @@ def main() -> int:
             return 1
         with open(path) as fh:
             per_rank.append(json.load(fh))
+        print(json.dumps({"rank": r, "exit_code": procs[r].exitcode}),
+              flush=True)
     ok, refused = [], []
     for name in per_rank[0]:
-        rows = [pr[name] for pr in per_rank]
+        rows = [pr.get(name, {"ok": False, "error": "the rank died first"})
+                for pr in per_rank]
         print(json.dumps({"collective": name, "ranks": rows}), flush=True)
         (ok if all(r["ok"] for r in rows) else refused).append(name)
     print(json.dumps({"cuda_ok": ok, "cuda_refused": refused}), flush=True)

@@ -1120,6 +1120,64 @@ def test_flash_backward_is_bitwise_repeatable(cuda, dtype):
             assert torch.equal(a, b2) and torch.equal(a, c)
 
 
+@pytest.mark.parametrize("block", ["own", "shifted"])
+def test_flash_attention_lse_at_the_ring_block_with_dlse(cuda, block):
+    """The ring's local call (`parallel/ring_attention.py`, ViT-Tiny at
+    seq = 2: B = 128, 32 tokens, 3 heads of 64, bf16; q a strided view of
+    the fused projection, K and V the rank's own strided block or a
+    shifted contiguous one) through `flash_attention_lse`'s autograd
+    Function with a random nonzero lse cotangent, as the ring's merge
+    gives it: out, lse and the q, k, v gradients against the plain
+    versions on the same inputs."""
+    q, k, v = _qkv(128, 32, 3, 64, torch.bfloat16, cuda, seed=11)
+    if block == "shifted":
+        _, k, v = (t.contiguous() for t in _qkv(128, 32, 3, 64,
+                                                torch.bfloat16, cuda,
+                                                seed=12))
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out, lse = tflash.flash_attention_lse(*leaves)
+    rng = np.random.default_rng(13)
+    w_out = torch.from_numpy(rng.standard_normal(out.shape).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    w_lse = torch.from_numpy(rng.standard_normal(lse.shape).astype(
+        np.float32)).to(cuda)
+    grads = torch.autograd.grad((out, lse), leaves,
+                                grad_outputs=(w_out, w_lse))
+    with torch.no_grad():
+        r_out, r_lse = tflash.flash_attention_forward_reference(q, k, v)
+        want = tflash.flash_attention_backward_reference(
+            q, k, v, w_out, r_lse, tflash.attention_delta(r_out, w_out,
+                                                          w_lse))
+    fwd_tol, bwd_tol = FLASH_TOL[torch.bfloat16]
+    assert _rel_err(out, r_out) <= fwd_tol
+    assert _rel_err(lse, r_lse) <= 1e-5
+    for got, ref in zip(grads, want):
+        assert _rel_err(got, ref) <= bwd_tol
+
+
+def test_flash_attention_at_ulysses_head_dim_48(cuda):
+    """Ulysses' local call (ViT-Tiny at 4 heads over seq = 2: B = 128,
+    S = 64, 2 heads of 48, bf16), which the kernels run as their D = 64
+    instantiation: out and the q, k, v gradients against the plain
+    versions on the same inputs."""
+    assert tflash.padded_head_dim(48) == 64
+    q, k, v = (t.detach().requires_grad_() for t in _qkv(
+        128, 64, 2, 48, torch.bfloat16, cuda, seed=14, fused=False))
+    out = tflash.flash_attention(q, k, v)
+    rng = np.random.default_rng(15)
+    g = torch.from_numpy(rng.standard_normal(out.shape).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    grads = torch.autograd.grad(out, (q, k, v), grad_outputs=g)
+    with torch.no_grad():
+        r_out, r_lse = tflash.flash_attention_forward_reference(q, k, v)
+        want = tflash.flash_attention_backward_reference(
+            q, k, v, g, r_lse, tflash.attention_delta(r_out, g))
+    fwd_tol, bwd_tol = FLASH_TOL[torch.bfloat16]
+    assert _rel_err(out, r_out) <= fwd_tol
+    for got, ref in zip(grads, want):
+        assert _rel_err(got, ref) <= bwd_tol
+
+
 def test_flash_attention_lse_backward_takes_dlse_on_card(cuda):
     """The autograd Function on the card against the plain versions on
     the CPU, a nonzero lse cotangent included."""

@@ -38,7 +38,7 @@ def _sources() -> list[Path]:
     return sorted(PORT.rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "tests/test_torch_cuda.py",
         ROOT / "tests/torch_ranks.py", ROOT / "tests/torch_dp_cases.py",
-        ROOT / "tests/torch_tp_cases.py",
+        ROOT / "tests/torch_tp_cases.py", ROOT / "tests/torch_seq_cases.py",
         *sorted((ROOT / "scripts").glob("torch_*.py"))]
 
 

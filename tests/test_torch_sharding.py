@@ -100,7 +100,7 @@ def test_make_mesh_on_one_process():
     # a model axis is a mesh axis now: two ranks, of which one exists
     with pytest.raises(ValueError, match="only 1 visible"):
         make_mesh(MeshSpec(data=1, model=2))
-    for spec, item in ((MeshSpec(data=1, seq=2), "item 11"),
+    for spec, item in ((MeshSpec(data=1, model=2, seq=2), "item 11"),
                        (MeshSpec(data=1, pipe=2), "item 11")):
         with pytest.raises(NotImplementedError, match=item):
             make_mesh(spec)

@@ -299,7 +299,7 @@ def test_absl_value_spellings():
 
 
 REFUSED = [
-    (["--mesh=seq=2"], "item 11"),
+    (["--mesh=data=1,model=2,seq=2"], "item 11"),
     (["--host_device_count=8"], "item 12"),
     (["--mesh=pipe=2"], "item 11"),
     (["--input_pipeline=native"], "item 12"),
@@ -320,7 +320,6 @@ REFUSED = [
     (["--tuned=require"], "item 16"),
     (["--tuned_dir=/x"], "item 16"),
     (["--prng_impl=rbg"], "closing line"),
-    (["--remat_policy=save_attn"], "item 4"),
 ]
 
 
@@ -334,7 +333,8 @@ def test_refused_flags_name_their_roadmap_item(argv, item):
 
 
 def test_refused_config_fields_name_their_roadmap_item(data_dir):
-    for over, item in (({"mesh": MeshSpec(data=1, seq=2)}, "item 11"),
+    for over, item in (({"mesh": MeshSpec(data=1, model=2, seq=2)},
+                        "item 11"),
                        ({"prng_impl": "rbg"}, "closing line"),
                        ({"overlap": True}, "item 13")):
         cfg = dataclasses.replace(get_config("mlp_mnist"), **over)
@@ -342,7 +342,8 @@ def test_refused_config_fields_name_their_roadmap_item(data_dir):
             cli.run_config(cfg, device="cpu", data_dir=data_dir)
 
 
-#: flags the data-parallel slice lifted from the refusals above
+#: flags the data- and sequence-parallel slices lifted from the refusals
+#: above
 LIFTED = [
     ["--replicas_to_aggregate=2"],
     ["--mesh=data=1"],
@@ -350,14 +351,18 @@ LIFTED = [
     ["--input_pipeline=device_sharded"],
     ["--coordinator_address=localhost:1234", "--num_processes=1"],
     ["--platform=cpu"],
+    ["--remat_policy=save_attn"],
+    ["--remat_policy=dots"],
 ]
 
 
 @pytest.mark.parametrize("argv", LIFTED, ids=[a[0].split("=")[0] + "="
                                               for a in LIFTED])
 def test_lifted_flags_now_run(data_dir, argv):
-    """Each flag the data-parallel slice lifted trains on one process (a
-    coordinator address with one process is no group: a no-op)."""
+    """Each flag the data- and sequence-parallel slices lifted trains on
+    one process (a coordinator address with one process is no group: a
+    no-op; the remat policies are accepted, and a config without remat
+    does not use them)."""
     state, final, ctx = cli.main([
         "--device=cpu", "--config=mlp_mnist", f"--data_dir={data_dir}",
         "--train_steps=4", "--eval_every=0", *argv])

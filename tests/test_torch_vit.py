@@ -97,7 +97,11 @@ def _jax_params(jmodel, seed=0):
 
 @pytest.mark.parametrize("name", ["vit_tiny_cifar", "vit_tiny_cifar_flash",
                                   "vit_tiny_cifar_tp",
-                                  "vit_tiny_cifar_fsdp_tp"])
+                                  "vit_tiny_cifar_fsdp_tp",
+                                  "vit_tiny_cifar_ring",
+                                  "vit_tiny_cifar_ring_flash",
+                                  "vit_tiny_cifar_ulysses",
+                                  "vit_tiny_cifar_ulysses_flash"])
 def test_vit_config_entries_equal_reference_field_for_field(name):
     got, want = tconfigs.get_config(name), jconfigs.get_config(name)
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
@@ -221,6 +225,26 @@ def test_params_from_jax_carries_the_stacked_vit_tree():
         [(p, tuple(x.shape)) for p, x in flat]
 
 
+def test_params_from_jax_carries_the_ulysses_geometry():
+    """`vit_tiny_cifar_ulysses`' model at full width (dim 192, 4 heads of
+    48, mean pool, the stacked layout): the reference's init converts
+    leaf for leaf, and the port's ViT on it (no seq axis: Ulysses falls
+    back to the plain attention) gives the reference's logits, f32,
+    within 2e-4 / 2e-5."""
+    kw = dict(tconfigs.get_config("vit_tiny_cifar_ulysses").model_kwargs)
+    assert kw["heads"] == 4 and kw["pool"] == "mean"
+    jmodel = jget_model("vit_tiny", compute_dtype=jnp.float32, **kw)
+    tmodel = tget_model("vit_tiny", compute_dtype=torch.float32, **kw)
+    jparams = _jax_params(jmodel, seed=7)
+    params = params_from_jax(jparams)
+    assert params["blocks"]["attn"]["qkv"]["w"].shape == (12, 192, 576)
+    assert "cls" not in params and params["pos"].shape == (1, 64, 192)
+    x = _batch(2, seed=9)["image"].astype(np.float32) / np.float32(255)
+    want, _ = jmodel.apply(jparams, {}, jnp.asarray(x), train=False)
+    got, _ = tmodel.apply(params, {}, torch.from_numpy(x))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **LOGIT_TOL)
+
+
 def _loss_and_grads_pair(jmodel, tmodel, params_np, batch_np, mask=None):
     x = batch_np["image"].astype(np.float32) / np.float32(255)
     jmask = None if mask is None else jnp.asarray(mask)
@@ -283,8 +307,11 @@ def test_vit_token_mask_matches_reference(impl):
 
 
 @pytest.mark.parametrize("kw,err", [
-    ({"attention_impl": "ring"}, NotImplementedError),
-    ({"attention_impl": "ulysses_flash"}, NotImplementedError),
+    # ring and Ulysses build now (tests/test_torch_seq.py); MoE and the
+    # block pipeline still refuse beside them
+    ({"attention_impl": "ring", "mlp_impl": "moe"}, NotImplementedError),
+    ({"attention_impl": "ulysses_flash", "block_pipeline": 2},
+     NotImplementedError),
     ({"mlp_impl": "moe"}, NotImplementedError),
     ({"block_pipeline": 4}, NotImplementedError),
     ({"attention_impl": "sparse"}, ValueError),
@@ -335,9 +362,14 @@ class _CountOps(TorchDispatchMode):
 
 
 def test_dots_no_batch_keeps_the_weight_matmuls():
-    """`dots_no_batch` recomputes the forward but not its 2-D weight
-    products: a remat step runs as many `aten.mm` as a plain one, and one
-    more patch convolution; `nothing` recomputes the matmuls too."""
+    """What each policy saves and what its recompute runs again, counted
+    over one forward and backward (the flash path; on the CPU its plain
+    version's products are batched matmuls): `dots_no_batch` keeps the
+    2-D weight products, so a remat step runs as many `aten.mm` as a
+    plain one, and one more patch convolution, the batched products and
+    the ``attn_out`` tags again; `save_attn` keeps the tags too (one a
+    layer, not run again); `dots` keeps every matmul, the batched ones
+    included; `nothing` recomputes the matmuls too."""
     _, tmodel = _pair("flash")
     params, _ = tmodel.init(torch.Generator().manual_seed(4),
                             torch.zeros(1, 32, 32, 3))
@@ -345,24 +377,70 @@ def test_dots_no_batch_keeps_the_weight_matmuls():
     counts = {}
     for label, kw in (("plain", {}),
                       ("dots_no_batch", dict(remat=True)),
+                      ("save_attn", dict(remat=True,
+                                         remat_policy="save_attn")),
+                      ("dots", dict(remat=True, remat_policy="dots")),
                       ("nothing", dict(remat=True, remat_policy="nothing"))):
         with _CountOps() as c:
             loss_and_grads(tmodel, tlosses.softmax_cross_entropy, params, {},
                            batch, **kw)
         counts[label] = c.counts
-    mm = {k: v.get("aten.mm.default", 0) for k, v in counts.items()}
-    conv = {k: v.get("aten.convolution.default", 0)
-            for k, v in counts.items()}
-    assert mm["dots_no_batch"] == mm["plain"] > 0
+
+    def count(op):
+        return {k: v.get(op, 0) for k, v in counts.items()}
+
+    mm, bmm = count("aten.mm.default"), count("aten.bmm.default")
+    conv = count("aten.convolution.default")
+    tags = count("dist_mnist_tpu_torch.checkpoint_name.default")
+    depth = SMALL["depth"]
+    assert mm["dots_no_batch"] == mm["save_attn"] == mm["dots"] \
+        == mm["plain"] > 0
     assert mm["nothing"] > mm["plain"]
-    assert conv == {"plain": 1, "dots_no_batch": 2, "nothing": 2}
+    assert bmm["dots"] == bmm["plain"] > 0
+    assert bmm["dots_no_batch"] == bmm["save_attn"] == bmm["nothing"] \
+        > bmm["plain"]
+    assert tags == {"plain": depth, "dots_no_batch": 2 * depth,
+                    "save_attn": depth, "dots": 2 * depth,
+                    "nothing": 2 * depth}
+    assert conv == {"plain": 1, "dots_no_batch": 2, "save_attn": 2,
+                    "dots": 2, "nothing": 2}
 
 
-@pytest.mark.parametrize("policy,err", [("save_attn", NotImplementedError),
-                                        ("dots", NotImplementedError),
+@pytest.mark.parametrize("policy", ["dots_no_batch", "save_attn", "dots",
+                                    "nothing"])
+@pytest.mark.parametrize("impl", ["xla", "flash"])
+def test_remat_policies_give_the_gradients_of_no_remat_bitwise(impl,
+                                                               policy):
+    """A remat policy changes what is saved, never a number: the loss
+    and every gradient the same bits as without remat (dropout masks
+    passed, as the step draws them)."""
+    _, tmodel = _pair(impl, dropout=0.1)
+    params, _ = tmodel.init(torch.Generator().manual_seed(6),
+                            torch.zeros(1, 32, 32, 3))
+    batch = _t_batch(_batch(4, seed=11))
+    mask = tmodel.dropout_masks(torch.Generator().manual_seed(2),
+                                torch.zeros(4, 32, 32, 3))
+    base = loss_and_grads(tmodel, tlosses.softmax_cross_entropy, params, {},
+                          batch, dropout_mask=mask)
+    got = loss_and_grads(tmodel, tlosses.softmax_cross_entropy, params, {},
+                         batch, dropout_mask=mask, remat=True,
+                         remat_policy=policy)
+    assert torch.equal(got[0], base[0])
+    for a, b in zip(flatten_with_path(got[3]), flatten_with_path(base[3])):
+        assert torch.equal(a[1], b[1]), a[0]
+
+
+@pytest.mark.parametrize("policy,err", [("save_attn", None),
+                                        ("dots", None),
                                         ("everything", ValueError)])
 def test_remat_policies_the_port_lacks_raise(policy, err):
+    """Every policy of the reference builds a step (`save_attn` and `dots`
+    since the sequence-parallel slice); a name it lacks raises."""
     _, tmodel = _pair()
+    if err is None:
+        assert callable(make_train_step(tmodel, topt.adam(1e-3), remat=True,
+                                        remat_policy=policy))
+        return
     with pytest.raises(err):
         make_train_step(tmodel, topt.adam(1e-3), remat=True,
                         remat_policy=policy)
@@ -447,13 +525,40 @@ def test_bench_config_mode_runs_a_small_width_on_cpu(monkeypatch, capsys):
 
 @pytest.mark.parametrize("name,match", [
     ("vit_tiny_cifar_moe", "item 11"),
-    ("vit_tiny_cifar_ring_flash", "item 11"),
     ("vit_tiny_cifar_pp", "item 11"),
     ("no_such_config", "unknown config"),
 ])
 def test_bench_config_mode_refuses_what_the_port_lacks(name, match):
     with pytest.raises(SystemExit, match=match):
         tbench.main(["--config", name, "--device=cpu"])
+
+
+def test_bench_config_mode_runs_a_sequence_parallel_config(monkeypatch,
+                                                           capsys):
+    """`vit_tiny_cifar_ring_flash` (refused until the sequence-parallel
+    slice) at a small width on one process: its seq = 2 mesh falls back
+    to the one rank there is, as the note says, the ring runs its flash
+    engine's exact attention, at the ladder's per-chip batch 64, with a
+    finite loss per chunk."""
+    name = "vit_tiny_cifar_ring_flash"
+    cfg = tconfigs.get_config(name)
+    monkeypatch.setitem(tbench.CONFIGS, name, dataclasses.replace(
+        cfg, model_kwargs={**cfg.model_kwargs, **SMALL}))
+    ds = tdatasets.load_dataset("cifar10", "/nonexistent", seed=0,
+                                synthetic_sizes=(256, 32),
+                                cache_synthetic=False)
+    monkeypatch.setattr(tbench, "load_dataset", lambda *a, **k: ds)
+    orig = tbench.run_config
+    monkeypatch.setattr(tbench, "run_config",
+                        lambda *a, **k: orig(*a, **k, chunk=2))
+    rec = tbench.main(["--config", name, "--steps", "2", "--device=cpu"])
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) \
+        == rec
+    extra = rec["extra"]
+    assert rec["metric"] == f"{name}_steps_per_sec_per_chip"
+    assert extra["chips"] == 1 and extra["global_batch"] == 64
+    assert extra["mesh_note"].startswith("fallback (config wants")
+    assert np.isfinite(extra["chunk_losses"]).all()
 
 
 @pytest.mark.parametrize("name,chips,batch", [

@@ -137,9 +137,16 @@ def test_supports_mask_matches_reference(name, kwargs):
 @pytest.mark.parametrize("impl,pipeline", [("ring", 0), ("ulysses_flash", 0),
                                            ("xla", 2)])
 def test_supports_mask_refuses_unmaskable_attention(impl, pipeline):
-    """Ring and Ulysses attention and a block pipeline take no mask (the
-    port's ViT refuses them until their slice, so a stand-in carries the
-    fields both functions read)."""
+    """Ring and Ulysses attention and a block pipeline take no mask: the
+    port's real ring and Ulysses ViTs against the reference's, and a
+    stand-in carrying the fields both functions read for the block
+    pipeline, which the port's ViT still refuses (ROADMAP §1 item 11)."""
+    if not pipeline:
+        assert supports_mask(tget_model(
+            "vit_tiny", attention_impl=impl)) is jzoo.supports_mask(
+            jget_model("vit_tiny", attention_impl=impl)) is False
+        return
+
     def apply(params, state, x, *, mask=None):
         return x
 
