@@ -236,6 +236,25 @@ script. Phases (any failure exits nonzero before the final `ok` line):
    collectives a step exactly `sp_bytes`, the chief's checkpoint
    restored on one rank bit for bit; steps/s and peak allocated bytes a
    rank against one rank at the same batch;
+12d. model parallelism (`model_parallel`): four spawned rank processes on
+   the one card (gloo): one MoE layer at the path's shape (16,384 tokens
+   of 192, 4 experts of 768, capacity 1,280 a shard) through
+   `moe_ffn_adaptive` on data = 1 x model = 4, each rank's output within
+   `MP_EP_TOL` of `moe_ffn_dense` on its token shard with the shards'
+   mean drop fraction and ep_engaged 1; `allgather_matmul` and
+   `matmul_reducescatter` at ViT-Tiny's MLP shapes within `MP_CMM_TOL`
+   of `torch.matmul`; the pipeline's first step of `vit_tiny_cifar_pp`
+   at batch 256 on data = 1 x pipe = 4 within `MP_LOSS_TOL` /
+   `MP_GRAD_TOL` of the plain stack on one rank; then
+   `vit_tiny_cifar_moe` (model = 4) and `vit_tiny_cifar_pp` (pipe = 4)
+   through `cli.launch` on four ranks, `MP_STEPS` steps at batch 256,
+   each rank's counters set to 0 just before its loop and read just
+   after: finite falling losses, the same on every rank, the same final
+   params, every kernel counter 0 (no TPU kernel is on this path), the
+   `ep_` / `pp_` collectives a step exactly `ep_bytes` / `pp_bytes`,
+   ep_engaged 1 at every step, the chief's checkpoint restored on one
+   rank bit for bit; the drop fraction and expert load a step, steps/s
+   and peak allocated bytes a rank against one rank at the same batch;
 13. time each kernel at the shapes its path gives it, beside its plain
    version and, where one exists, one library call computing the same
    function (for the Adam kernels `torch._fused_adam_`/`_fused_adamw_`, a
@@ -3532,7 +3551,7 @@ def _sp_rank(rank: int, world: int, store: str, out_path: str) -> None:
         launch_counts,
         reset_launch_counts,
     )
-    from dist_mnist_tpu_torch.parallel.collectives import sum_over_seq
+    from dist_mnist_tpu_torch.parallel.collectives import sum_over_axis
     from dist_mnist_tpu_torch.parallel.sharding import shard_train_state
     from dist_mnist_tpu_torch.train import create_train_state, make_train_step
     from dist_mnist_tpu_torch.train.state import params_digest
@@ -3585,7 +3604,7 @@ def _sp_rank(rank: int, world: int, store: str, out_path: str) -> None:
                 loss, _, _, grads = loss_and_grads(
                     model, losses.softmax_cross_entropy, state.params, {},
                     batch, **kw)
-            grads = sum_over_seq(grads, mesh)
+            grads = sum_over_axis(grads, mesh, "seq")
             one_loss, _, _, one_grads = loss_and_grads(
                 model, losses.softmax_cross_entropy, state.params, {},
                 batch, **kw)
@@ -3676,7 +3695,8 @@ def _rank_group(target, tag: str, world: int = 2,
             p.kill()
         for p in procs:
             p.join(timeout=30)
-    phase = {"tp": "tensor_parallel", "sp": "sequence_parallel"}[tag]
+    phase = {"tp": "tensor_parallel", "sp": "sequence_parallel",
+             "mp": "model_parallel"}[tag]
     if hung:
         fail(f"{phase}: {len(hung)} of {world} ranks still running after "
              f"{timeout}s")
@@ -3866,6 +3886,438 @@ def sequence_parallel(torch, dev) -> dict:
     out["wall_s"] = time.perf_counter() - t_phase
     print(json.dumps({"phase": "sequence_parallel",
                       "wall_s": out["wall_s"]}), flush=True)
+    return out
+
+
+#: model parallelism: the two configs, `MP_STEPS` steps each at the
+#: 16-chip ladder's 1024 / 4 = 256 a data rank, data cut to 1: expert
+#: parallelism on data = 1 x model = 4, the block pipeline on data = 1 x
+#: pipe = 4, each through `cli.launch` on four ranks sharing the card
+MP_STEPS = 5
+MP_BATCH = 256
+MP_RANKS = 4
+MP_RUNS = {"moe": ("vit_tiny_cifar_moe", "model=4"),
+           "pp": ("vit_tiny_cifar_pp", "pipe=4")}
+#: ViT-Tiny's widths on the path: dim 192, the MLP's 768, 64 tokens (mean
+#: pool: the MoE config) or 65 (CLS: the pipeline config), depth 12, and
+#: the pipeline's 8 microbatches
+MP_DIM, MP_HIDDEN, MP_DEPTH, MP_MICROBATCHES = 192, 768, 12, 8
+#: EP's check at the layer: each rank's MoE output against the dense
+#: oracle on its shard, relative to the largest value (bf16 outputs of
+#: f32 sums taken in another order: one bf16 ulp); the drop fraction the
+#: mean of the shards'
+MP_EP_TOL = 1e-2
+MP_DROP_TOL = 1e-6
+#: the collective matmul in bf16 against `torch.matmul` on the gathered
+#: operands, relative to the largest value: the all-gather form sums each
+#: output once (one ulp); the reduce-scatter form adds four bf16-rounded
+#: partial sums (up to four ulps)
+MP_CMM_TOL = {"allgather_matmul": 1e-2, "matmul_reducescatter": 2e-2}
+#: the pipeline's first step against the plain stack on one rank:
+#: `vit_kernel_vs_plain`'s limits (bf16 sums over microbatches of 32 rows
+#: against one of 256)
+MP_LOSS_TOL, MP_GRAD_TOL = VIT_PLAIN_TOL, VIT_GRAD_TOL
+#: the runs' checkpoints (~64 MB each), kept out of the logs' folder
+MP_CKPT = Path(tempfile.gettempdir()) / "dist_mnist_mp_ckpt"
+
+
+def mp_shapes() -> dict:
+    """The path's token counts: a data rank's T = 256 x 64 tokens, each
+    model rank's shard of T / 4, and the capacity C of an expert on a
+    shard (`parallel/moe.capacity_of`: ceil(4096 / 4) x 1 x 1.25 =
+    1,280)."""
+    from dist_mnist_tpu_torch.parallel.moe import capacity_of
+
+    t = MP_BATCH * 64
+    shard = t // MP_RANKS
+    return {"tokens": t, "shard": shard,
+            "capacity": capacity_of(shard, MP_RANKS, 1, 1.25)}
+
+
+def ep_bytes(depth: int = MP_DEPTH) -> dict:
+    """The `ep_` collectives a rank and step of `vit_tiny_cifar_moe` on
+    data = 1 x model = 4 at batch 256, bf16, remat `dots_no_batch` (the
+    forward's collectives run again in the recompute), per MoE layer:
+    the dispatch and return all-to-alls of the f32 ``[E, C, D]`` buffer
+    in the forward, the recompute and the backward; the bf16 output
+    gathered over model (forward, recompute) and the tokens' bf16
+    cotangents gathered (backward), each rank's 4,096 x 192; the expert
+    stacks' f32 cotangents gathered (each rank's expert: w1, b1, w2, b2);
+    the packed routing statistics (3E + 1 f32) all-reduced over model
+    (forward, recompute) and the gate's f32 cotangent ``[D, E]`` (the
+    backward). Nothing over data (one data rank)."""
+    s = mp_shapes()
+    e, d, h = MP_RANKS, MP_DIM, MP_HIDDEN
+    expert = d * h + h + h * d + d
+    return {
+        "ep_all_to_all_bytes": depth * 6 * e * s["capacity"] * d * 4,
+        "ep_all_to_all_calls": depth * 6,
+        "ep_all_gather_bytes": depth * (3 * s["shard"] * d * 2
+                                        + expert * 4),
+        "ep_all_gather_calls": depth * 4,
+        "ep_all_reduce_bytes": depth * (2 * (3 * e + 1) * 4 + d * e * 4),
+        "ep_all_reduce_calls": depth * 3}
+
+
+def pp_bytes(params: int) -> dict:
+    """The `pp_` collectives a rank and step of `vit_tiny_cifar_pp` on
+    data = 1 x pipe = 4 at batch 256 (8 microbatches of 32), 65 tokens,
+    bf16, remat: a microbatch's activation ``[32, 65, 192]`` shifted one
+    stage on every tick but the last (M + S - 2 = 10 shifts) in the
+    forward, the recompute and the backward; the last stage's ``[8, 32,
+    65, 192]`` outputs broadcast (forward, recompute) and their cotangent
+    all-reduced once (backward); and the `params` f32 gradients summed
+    over the pipe ranks once."""
+    act = (MP_BATCH // MP_MICROBATCHES) * 65 * MP_DIM * 2
+    shifts = MP_MICROBATCHES + MP_RANKS - 2
+    return {"pp_ring_shift_bytes": 3 * shifts * act,
+            "pp_ring_shift_calls": 3 * shifts,
+            "pp_broadcast_bytes": 2 * MP_MICROBATCHES * act,
+            "pp_broadcast_calls": 2,
+            "pp_all_reduce_bytes": MP_MICROBATCHES * act + 4 * params,
+            "pp_all_reduce_calls": 2}
+
+
+def _mp_ep_layer(torch, mesh, dev) -> dict:
+    """One MoE layer at the path's shape on this rank: seeded tokens
+    ``[16384, 192]`` bf16 (the same on every rank) through
+    `moe_ffn_adaptive` on data = 1 x model = 4, against `moe_ffn_dense`
+    on each of the four token shards."""
+    from dist_mnist_tpu_torch.cluster.mesh import activate
+    from dist_mnist_tpu_torch.parallel import moe
+
+    s = mp_shapes()
+    params = {k: v.to(dev) for k, v in moe.init_moe(
+        torch.Generator().manual_seed(180), MP_DIM, MP_HIDDEN,
+        MP_RANKS).items()}
+    gen = torch.Generator(device=dev).manual_seed(181)
+    x = torch.randn(s["tokens"], MP_DIM, generator=gen, device=dev).to(
+        torch.bfloat16)
+    with activate(mesh), torch.no_grad():
+        out, _, stats = moe.moe_ffn_adaptive(params, x)
+    with torch.no_grad():
+        dense = [moe.moe_ffn_dense(params, x[i * s["shard"]:(i + 1)
+                                             * s["shard"]])
+                 for i in range(MP_RANKS)]
+    torch.cuda.synchronize(dev)
+    i = mesh.model_index
+    mine = slice(i * s["shard"], (i + 1) * s["shard"])
+    return {"out": rel_err(out[mine], dense[i][0]),
+            "drop_fraction": float(stats["drop_fraction"]),
+            "dense_drop_fractions": [float(d[2]["drop_fraction"])
+                                     for d in dense],
+            "expert_load": stats["expert_load"].tolist(),
+            "ep_engaged": float(stats["ep_engaged"]),
+            "capacity": s["capacity"]}
+
+
+def _mp_collective_matmul(torch, mesh, dev) -> dict:
+    """`allgather_matmul` and `matmul_reducescatter` over model = 4 at
+    ViT-Tiny's MLP shapes (the mlp_in ``[16384, 192] @ [192, 768]`` and
+    mlp_out ``[16384, 768] @ [768, 192]`` products, bf16), against
+    `torch.matmul` of the whole operands."""
+    from dist_mnist_tpu_torch.parallel.collective_matmul import (
+        allgather_matmul,
+        matmul_reducescatter,
+    )
+
+    n, i = mesh.model, mesh.model_index
+    gen = torch.Generator(device=dev).manual_seed(182)
+    t = mp_shapes()["tokens"]
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    x, w = rand(t, MP_DIM), rand(MP_DIM, MP_HIDDEN) / MP_DIM ** 0.5
+    rows, cols = t // n, MP_HIDDEN // n
+    got = allgather_matmul(x[i * rows:(i + 1) * rows],
+                           w[:, i * cols:(i + 1) * cols], mesh)
+    want = torch.matmul(x, w)[:, i * cols:(i + 1) * cols]
+    x2, w2 = rand(t, MP_HIDDEN), rand(MP_HIDDEN, MP_DIM) / MP_HIDDEN ** 0.5
+    k = MP_HIDDEN // n
+    got2 = matmul_reducescatter(x2[:, i * k:(i + 1) * k],
+                                w2[i * k:(i + 1) * k], mesh)
+    want2 = torch.matmul(x2, w2)[i * rows:(i + 1) * rows]
+    torch.cuda.synchronize(dev)
+    return {"allgather_matmul": rel_err(got, want),
+            "matmul_reducescatter": rel_err(got2, want2)}
+
+
+def _mp_pp_first_step(torch, mesh, dev) -> dict:
+    """`vit_tiny_cifar_pp` at full width: one remat forward and backward
+    of a seeded batch of 256 with seeded dropout masks through the
+    pipeline on data = 1 x pipe = 4 (the gradients summed over pipe, the
+    step's rule), against the plain stacked blocks on this one rank on
+    the same params, batch and masks."""
+    from dist_mnist_tpu_torch import optim
+    from dist_mnist_tpu_torch.cluster.mesh import activate
+    from dist_mnist_tpu_torch.configs import get_config
+    from dist_mnist_tpu_torch.models.registry import get_model
+    from dist_mnist_tpu_torch.ops import losses
+    from dist_mnist_tpu_torch.parallel.collectives import sum_over_axis
+    from dist_mnist_tpu_torch.train import create_train_state
+    from dist_mnist_tpu_torch.train.step import loss_and_grads
+    from dist_mnist_tpu_torch.utils.tree import flatten_with_path
+
+    cfg = get_config("vit_tiny_cifar_pp")
+    model = get_model(cfg.model, **cfg.model_kwargs)
+    state = create_train_state(model, optim.build_optimizer(cfg), 0,
+                               np.zeros((1, 32, 32, 3), np.uint8), dev)
+    gen = torch.Generator().manual_seed(183)
+    batch = {"image": torch.randint(0, 256, (MP_BATCH, 32, 32, 3),
+                                    generator=gen, dtype=torch.uint8
+                                    ).to(dev),
+             "label": torch.randint(0, 10, (MP_BATCH,), generator=gen,
+                                    dtype=torch.int32).to(dev)}
+    mask = model.dropout_masks(torch.Generator(device=dev).manual_seed(184),
+                               batch["image"])
+    kw = dict(dropout_mask=mask, remat=True)
+    with activate(mesh):
+        loss, _, _, grads = loss_and_grads(
+            model, losses.softmax_cross_entropy, state.params, {}, batch,
+            **kw)
+    grads = sum_over_axis(grads, mesh, "pipe")
+    one_loss, _, _, one_grads = loss_and_grads(
+        model, losses.softmax_cross_entropy, state.params, {}, batch, **kw)
+    torch.cuda.synchronize(dev)
+
+    def flat(tree):
+        return {"/".join(map(str, p)): t.float()
+                for p, t in flatten_with_path(tree)}
+
+    return {"loss": float(loss), "one_rank_loss": float(one_loss),
+            "grad_errors": grad_errors(flat(grads), flat(one_grads))}
+
+
+def _mp_rank(rank: int, world: int, store: str, out_path: str) -> None:
+    """One rank of `model_parallel`'s four-rank group on the card: the MoE
+    layer and the collective matmul on data = 1 x model = 4, then the
+    pipeline's first step on data = 1 x pipe = 4. Writes its record (or
+    its traceback) to `out_path`."""
+    import pickle
+    import traceback
+
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from dist_mnist_tpu_torch.cluster import coordination
+    from dist_mnist_tpu_torch.cluster.mesh import MeshSpec, make_mesh
+
+    out: dict = {}
+    try:
+        coordination.initialize_distributed(
+            num_processes=world, process_id=rank,
+            init_method=f"file://{store}", timeout_s=300)
+        mesh = make_mesh(MeshSpec(data=1, model=world))
+        dev = mesh.device
+        out["startup"] = coordination.startup_line(coordination.context())
+        t0 = time.perf_counter()
+        out["ep_layer"] = _mp_ep_layer(torch, mesh, dev)
+        out["cmm"] = _mp_collective_matmul(torch, mesh, dev)
+        out["pp_first_step"] = _mp_pp_first_step(
+            torch, make_mesh(MeshSpec(data=1, pipe=world)), dev)
+        out["wall_s"] = time.perf_counter() - t0
+        result = {"ok": out}
+    except BaseException:  # noqa: BLE001 — handed to the parent
+        result = {"error": traceback.format_exc()}
+    finally:
+        coordination.shutdown()
+    with open(out_path, "wb") as fh:
+        pickle.dump(result, fh)
+
+
+def _mp_one_rank(torch, dev, name: str) -> dict:
+    """`name` through `run_config` on one rank at the same batch (the MoE
+    layers all experts local, the blocks the plain stack): steps/s and
+    the run's own peak allocated bytes."""
+    import dataclasses
+
+    from dist_mnist_tpu_torch.cli.train import run_config
+    from dist_mnist_tpu_torch.cluster.mesh import MeshSpec
+    from dist_mnist_tpu_torch.configs import get_config
+    from dist_mnist_tpu_torch.hooks import Hook
+
+    marks = []
+
+    class Mark(Hook):
+        def after_step(self, step, state, outputs):
+            marks.append((step, time.perf_counter()))
+
+    cfg = dataclasses.replace(get_config(name), batch_size=MP_BATCH,
+                              train_steps=MP_STEPS, eval_every=0,
+                              log_every=MP_STEPS, mesh=MeshSpec(data=1))
+    (_, _, ctx), peak, own = _peak(torch, dev, lambda: run_config(
+        cfg, device=dev, extra_hooks=[Mark()]))
+    (s0, t0), (s1, t1) = marks[0], marks[-1]
+    return {"steps_per_sec": (s1 - s0) / max(t1 - t0, 1e-9),
+            "peak_bytes": peak, "run_peak_bytes": own,
+            "launches": ctx["launches"]}
+
+
+def _hist_lines(output: str, key: str) -> list[str]:
+    """The chief's `SummaryHook` histogram lines of `key`, one a step."""
+    return [line.split("[hist] ", 1)[1] for line in output.splitlines()
+            if line.startswith("[p0] ") and "[hist] " in line
+            and f" {key}:" in line]
+
+
+def model_parallel(torch, dev) -> dict:
+    """Phase `model_parallel`: (1) four spawned ranks on the card (gloo):
+    one MoE layer at the path's shape (16,384 tokens of 192, 4 experts of
+    768, capacity 1,280 a shard) through `moe_ffn_adaptive` on data = 1 x
+    model = 4, each rank's output within `MP_EP_TOL` of `moe_ffn_dense`
+    on its shard, the drop fraction the shards' mean, ep_engaged 1; the
+    collective matmul at the MLP's shapes within `MP_CMM_TOL` of
+    `torch.matmul`; the pipeline's first step of `vit_tiny_cifar_pp` at
+    batch 256 within `MP_LOSS_TOL` / `MP_GRAD_TOL` of the plain stack on
+    one rank; (2) `vit_tiny_cifar_moe` (model = 4) and `vit_tiny_cifar_pp`
+    (pipe = 4) through `cli.launch` on four ranks, `MP_STEPS` steps at
+    batch 256 with a checkpoint at the last, the launch counters set to 0
+    just before each rank's loop and read just after: finite falling
+    losses, the same on every rank, the same final params, every kernel
+    counter 0, the `ep_` / `pp_` collectives a step exactly `ep_bytes` /
+    `pp_bytes` and nothing else, ep_engaged 1 at every step, the chief's
+    checkpoint restored on one rank bit for bit; the drop fraction and
+    expert load a step, steps/s and peak allocated bytes a rank against
+    one rank at the same batch. Returns the phase's record."""
+    from dist_mnist_tpu_torch import optim
+    from dist_mnist_tpu_torch.checkpoint import CheckpointManager
+    from dist_mnist_tpu_torch.configs import get_config
+    from dist_mnist_tpu_torch.models.registry import get_model
+    from dist_mnist_tpu_torch.train import create_train_state
+    from dist_mnist_tpu_torch.train.state import params_digest
+    from dist_mnist_tpu_torch.utils.tree import leaves
+
+    t_phase = time.perf_counter()
+    out = {"phase": "model_parallel"}
+    ranks = _rank_group(_mp_rank, "mp", world=MP_RANKS)
+    out["group_wall_s"] = time.perf_counter() - t_phase
+    for r, rank in enumerate(ranks):
+        if "backend gloo (ranks share a card)" not in rank["startup"]:
+            fail(f"model_parallel: rank {r} startup {rank['startup']!r}")
+        ep = rank["ep_layer"]
+        mean_drop = float(np.mean(ep["dense_drop_fractions"]))
+        print(json.dumps({"phase": "model_parallel", "rank": r,
+                          "ep_layer": ep, "tol": MP_EP_TOL,
+                          "dense_mean_drop_fraction": mean_drop}),
+              flush=True)
+        if ep["out"][1] > MP_EP_TOL or ep["ep_engaged"] != 1.0 \
+                or abs(ep["drop_fraction"] - mean_drop) > MP_DROP_TOL \
+                or ep["capacity"] != mp_shapes()["capacity"]:
+            fail(f"model_parallel: rank {r} EP layer against the dense "
+                 f"oracle on its shard: {ep} (mean drop {mean_drop})")
+        print(json.dumps({"phase": "model_parallel", "rank": r,
+                          "collective_matmul": rank["cmm"],
+                          "tol": MP_CMM_TOL}), flush=True)
+        for name, err in rank["cmm"].items():
+            if err[1] > MP_CMM_TOL[name]:
+                fail(f"model_parallel: rank {r} {name} against "
+                     f"torch.matmul: {err}")
+        row = rank["pp_first_step"]
+        loss_err = abs(row["loss"] - row["one_rank_loss"]) / abs(
+            row["one_rank_loss"])
+        worst = max(row["grad_errors"].items(), key=lambda kv: kv[1])
+        print(json.dumps({"phase": "model_parallel", "rank": r,
+                          "pp_first_step": {
+                              "loss": row["loss"],
+                              "one_rank_loss": row["one_rank_loss"],
+                              "loss_rel_err": loss_err,
+                              "worst_grad_leaf": worst},
+                          "tol": [MP_LOSS_TOL, MP_GRAD_TOL]}), flush=True)
+        if loss_err > MP_LOSS_TOL or worst[1] > MP_GRAD_TOL:
+            fail(f"model_parallel: rank {r} pipeline step 1 against the "
+                 f"plain stack: loss {loss_err}, worst leaf {worst}")
+    out["group"] = ranks
+
+    # (2) the two configs through cli.launch
+    out["runs"] = {}
+    for tag, (name, axis) in MP_RUNS.items():
+        ckpt = MP_CKPT / tag
+        shutil.rmtree(ckpt, ignore_errors=True)
+        rows = _launch_ranks(
+            [f"--config={name}", f"--mesh={axis}",
+             f"--batch_size={MP_BATCH}", f"--train_steps={MP_STEPS}",
+             "--eval_every=0", "--log_every=1", f"--checkpoint_dir={ckpt}",
+             f"--checkpoint_every_steps={MP_STEPS}"], f"mp_{tag}",
+            timeout=420, n=MP_RANKS,
+            extra=("peak allocated bytes: ",))
+        output = (ROOT / "chiprun_out" / f"launch_mp_{tag}.log").read_text()
+        one = _mp_one_rank(torch, dev, name)
+        cfg = get_config(name)
+        model = get_model(cfg.model, **cfg.model_kwargs)
+        target = create_train_state(model, optim.build_optimizer(cfg), 0,
+                                    np.zeros((1, 32, 32, 3), np.uint8), dev)
+        n_params = sum(t.numel() for t in leaves(target.params))
+        mgr = CheckpointManager(ckpt, async_save=False)
+        try:
+            restored = mgr.restore(target)
+        finally:
+            mgr.close()
+            shutil.rmtree(ckpt, ignore_errors=True)
+        want = ep_bytes() if tag == "moe" else pp_bytes(n_params)
+        per_step = rows[0]["collectives_per_step"]
+        metrics = {
+            "moe_drop_fraction": [
+                float(s.split("moe_drop_fraction=")[1].split(",")[0])
+                for s in _rank_lines(output, 0, "INFO: step ")
+                if "moe_drop_fraction=" in s],
+            "moe_ep_engaged": [
+                float(s.split("moe_ep_engaged=")[1].split(",")[0])
+                for s in _rank_lines(output, 0, "INFO: step ")
+                if "moe_ep_engaged=" in s],
+            "moe_expert_load": _hist_lines(output, "moe_expert_load")}
+        rank_peaks = [int(r["peak allocated bytes: "]) for r in rows]
+        rec = {"config": name, "mesh": axis, "global_batch": MP_BATCH,
+               "steps_per_sec": [r["steps_per_sec"] for r in rows],
+               "one_rank_steps_per_sec": one["steps_per_sec"],
+               "peak_bytes": rank_peaks,
+               "one_rank_run_peak_bytes": one["run_peak_bytes"],
+               "peak_ratio": rank_peaks[0] / one["run_peak_bytes"],
+               "losses": rows[0]["losses"],
+               "launches": [r["launches"] for r in rows],
+               "one_rank_launches": one["launches"],
+               "collectives_per_step": per_step,
+               "predicted_collectives": want,
+               "restored_step": restored.step_int,
+               "restored_equals_final": params_digest(restored.params)
+               == rows[0]["digest"],
+               "wall_s": rows[0]["wall_s"], **({"per_step": metrics}
+                                               if tag == "moe" else {})}
+        out["runs"][tag] = rec
+        print(json.dumps({"phase": "model_parallel", "run": tag, **rec}),
+              flush=True)
+        losses = list(rec["losses"].values())
+        if len(losses) != MP_STEPS or not (
+                np.isfinite(losses).all() and losses[-1] < losses[0]):
+            fail(f"model_parallel {tag}: losses {rec['losses']}")
+        for key in ("digest", "losses"):
+            if len({json.dumps(r[key], sort_keys=True) for r in rows}) != 1:
+                fail(f"model_parallel {tag}: the ranks' {key!r} differ")
+        for r, row in enumerate(rows):
+            if "backend gloo (ranks share a card)" not in row["startup"]:
+                fail(f"model_parallel {tag}: rank {r} startup "
+                     f"{row['startup']!r}")
+            if any(row["launches"].values()):
+                fail(f"model_parallel {tag}: rank {r} launched kernels "
+                     f"{row['launches']} (the path runs none)")
+            got = {k: v for k, v in row["collectives_per_step"].items()
+                   if v}
+            if got != want:
+                fail(f"model_parallel {tag}: rank {r} collectives a step "
+                     f"{got} (want {want})")
+        if tag == "moe" and (metrics["moe_ep_engaged"] != [1.0] * MP_STEPS
+                             or len(metrics["moe_drop_fraction"])
+                             != MP_STEPS):
+            fail(f"model_parallel moe: per-step metrics {metrics}")
+        if restored.step_int != MP_STEPS \
+                or not rec["restored_equals_final"]:
+            fail(f"model_parallel {tag}: checkpoint restored on one rank at "
+                 f"step {restored.step_int}, equal to the final params: "
+                 f"{rec['restored_equals_final']}")
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(json.dumps({"phase": "model_parallel", "wall_s": out["wall_s"]}),
+          flush=True)
     return out
 
 
@@ -4434,6 +4886,8 @@ def main() -> None:
                          peaks["float32"])
     # -- 12c. sequence parallelism: ring and Ulysses on two ranks --------
     sp = sequence_parallel(torch, dev)
+    # -- 12d. model parallelism: EP and the pipeline on four ranks --------
+    model_parallel(torch, dev)
 
     # -- 13. timing at the paths' shapes -------------------------------------
     timed = {}

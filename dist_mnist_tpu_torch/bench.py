@@ -175,14 +175,6 @@ def ladder_batch(cfg: Config, n_chips: int) -> tuple[int, str]:
     return cfg.batch_size, "config global batch"
 
 
-#: reference ladder configs the port cannot run yet, and what brings them
-LATER_CONFIGS = {
-    **{f"vit_tiny_cifar_{v}": "the model-parallel slice (ROADMAP §1 item "
-                              "11: MoE and the block pipeline)"
-       for v in ("moe", "pp")},
-}
-
-
 def _bench_mesh(cfg: Config, device: torch.device):
     """(mesh, rules, note): the config's mesh when this group has its
     ranks; else every rank there is, under DP when the config's strategy
@@ -836,11 +828,8 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     mode = _serve_mode(args)
     if args.config is not None and args.config not in CONFIGS:
-        later = LATER_CONFIGS.get(args.config)
-        raise SystemExit(
-            f"error: config {args.config!r} joins the port with {later}"
-            if later else f"error: unknown config {args.config!r}; the port "
-            f"has {sorted(CONFIGS)}")
+        raise SystemExit(f"error: unknown config {args.config!r}; the port "
+                         f"has {sorted(CONFIGS)}")
     try:
         device = resolve_device(args.device)
     except RuntimeError as err:

@@ -16,8 +16,9 @@ threads named ``LaunchPump-pK``; and on the first abnormal exit kills the
 survivors (a dead peer would park them in a collective) and returns that
 child's exit status, a signal death normalized to 128+N. `--platform=cpu`
 runs every rank on the CPU over gloo; otherwise the children take the
-cards (`cluster/coordination.py`). A fixed ``--mesh=data=D,model=M,seq=S``
-among the train flags must name as many ranks as `--num_processes`.
+cards (`cluster/coordination.py`). A fixed
+``--mesh=data=D,model=M,seq=S,pipe=P`` among the train flags must name as
+many ranks as `--num_processes`.
 
 The reference's supervisor (restarts, `--elastic` resizing, chaos kills,
 the warm-start compile cache, the run journal and the supervisor's HTTP
@@ -292,8 +293,8 @@ def main(argv=None) -> int:
     refused = _refused(args)
     want = mesh_ranks(train_args)
     if want is not None and want != args.num_processes:
-        refused.append(f"--mesh names {want} ranks (data x model x seq) but "
-                       f"--num_processes={args.num_processes}")
+        refused.append(f"--mesh names {want} ranks (data x model x seq x "
+                       f"pipe) but --num_processes={args.num_processes}")
     if refused:
         raise SystemExit("error: " + "; ".join(refused))
     return launch(args.num_processes, train_args, port=args.port,

@@ -14,7 +14,10 @@ The classifier engine comes from `serve/zoo.build_zoo_engine`:
 `--seq_buckets` adds the height axis of its grid for a model that can
 mask tokens (the ViT; other models keep the native-only grid, with a
 warning), and the summary then carries `seq_buckets` and
-`seq_bucket_counts`.
+`seq_bucket_counts`. `--moe_capacity_factor` serves an MoE checkpoint
+(`vit_tiny_cifar_moe`) at another expert capacity than it trained with,
+all experts local on the one device; the summary then carries the
+routed drop fraction's mean and maximum over the served batches.
 
 `--decode` serves a registry causal LM (`--decode_model`, default
 `causal_tiny` at its registry defaults: dense cache) through the
@@ -99,6 +102,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "for the native-only engine. Shorter requests are "
                         "right-padded and masked; the native bucket keeps "
                         "the maskless program (serve/zoo.py)")
+    p.add_argument("--moe_capacity_factor", type=float, default=0,
+                   help="inference-time MoE expert capacity factor; 0 = "
+                   "the checkpoint's train-time factor. Overflow drops "
+                   "surface as the summary's moe drop fraction, never "
+                   "silently")
     p.add_argument("--decode", action="store_true",
                    help="autoregressive decode mode: serve a registry "
                         "causal LM through the prefill/decode split with "
@@ -257,7 +265,8 @@ def main(argv=None) -> dict | None:
     engine = build_zoo_engine(
         bundle, device, model_name=cfg.model,
         max_bucket=max(args.max_batch, 1),
-        seq_buckets=args.seq_buckets or None)
+        seq_buckets=args.seq_buckets or None,
+        moe_capacity_factor=args.moe_capacity_factor or None)
     server = InferenceServer(engine, ServeConfig(
         max_batch=args.max_batch,
         max_wait_ms=args.max_wait_ms,
@@ -273,6 +282,12 @@ def main(argv=None) -> dict | None:
             image_shape=bundle.image_shape,
             seed=args.seed,
         )
+        stats = server.stats()
+    for key in ("mean_moe_drop_fraction", "max_moe_drop_fraction"):
+        if key in stats:
+            summary[key] = stats[key]
+    if args.moe_capacity_factor:
+        summary["moe_capacity_factor"] = args.moe_capacity_factor
     summary["device"] = device_name
     summary["checkpoint_step"] = bundle.step
     summary["restored"] = bundle.restored

@@ -5,6 +5,8 @@
         --checkpoint_dir=/tmp/ckpt --logdir=/tmp/logs
     python -m dist_mnist_tpu_torch.cli.launch --num_processes=2 -- \\
         --config=lenet5_fashion --mesh=data=2      # two ranks (cli/launch.py)
+    python -m dist_mnist_tpu_torch.cli.launch --num_processes=4 -- \
+        --config=vit_tiny_cifar_moe --mesh=model=4  # expert parallelism
 
 Runs on the CUDA device by default and exits with an error when there is
 none; `--device=cpu` (or `--platform=cpu`, the reference's flag) runs the
@@ -12,18 +14,20 @@ plain CPU path. With `--num_processes=N --process_id=K
 --coordinator_address=host:port` (what `cli.launch` passes) the process
 is rank K of a group of N (`cluster/coordination.py`), one device per
 process, and trains its slice of every global batch on the config's mesh
-(`--mesh=data=D,model=M,seq=S` overrides it: D x M x S ranks, ``seq``
-varying fastest, then ``model``; a seq axis shards every sequence's
-tokens for the ring and Ulysses configs) under
-`--sharding=dp|fsdp|tp|fsdp_tp`; the startup line names the rank, the
-devices and the backend. Flags keep
+(`--mesh=data=D,model=M,seq=S,pipe=P` overrides it: D x M x S x P
+ranks, ``pipe`` varying fastest, then ``seq``, then ``model``; a model
+axis splits the TP leaves, or an MoE config's experts and their tokens;
+a seq axis shards every sequence's tokens for the ring and Ulysses
+configs; a pipe axis the block stack's stages for the pipeline config)
+under `--sharding=dp|fsdp|tp|fsdp_tp`; the startup line names the rank,
+the devices and the backend. Flags keep
 the reference's names and absl's spellings (``--flag=value``, ``--flag
 value``, ``--noflag`` for a boolean), parsed with argparse. The
 parameter-server-era flags (--job_name/--task_index/--num_gpus/
 --existing_servers/--ps_hosts/--worker_hosts, --nosync_replicas) are
 accepted and warned about, as the reference does. Every flag of a
-subsystem the port does not have yet (a pipe axis, a seq axis beside a
-model axis, overlap, a
+subsystem the port does not have yet (a seq axis beside a model axis,
+a pipe axis beside either, overlap, a
 PRNG implementation, the native loader, fault plans, the compile cache,
 elastic resizing, async snapshots and peers, the metrics exporter,
 anomaly detection, the tuned store) exits with an error that names the
@@ -76,8 +80,8 @@ def _refuse(what: str, item: str):
 
 
 def check_config(cfg) -> None:
-    """Refuse what a config asks beyond the port: a pipe mesh axis, a seq
-    axis beside a model axis, the fsdp overlap, and a PRNG
+    """Refuse what a config asks beyond the port: a seq axis beside a
+    model axis and a pipe axis beside either, the fsdp overlap, and a PRNG
     implementation (the port draws every random number from one
     `torch.Generator`; ROADMAP §1's closing line: `utils/prng.py` has no
     counterpart)."""
@@ -377,6 +381,12 @@ def run_config(
         elapsed = time.monotonic() - t0
         per_step = {k: v / max(1, scan_chunk) for k, v in one_call.items()}
         log.info("kernel launches: %s", json.dumps(launches, sort_keys=True))
+        if device.type == "cuda":
+            import torch
+
+            # this process's high-water mark of allocated device bytes
+            log.info("peak allocated bytes: %d",
+                     torch.cuda.max_memory_allocated(device))
         if mesh.ranks > 1:
             log.info("collectives per step: %s",
                      json.dumps(per_step, sort_keys=True))
@@ -510,7 +520,7 @@ def build_parser() -> argparse.ArgumentParser:
     # -- the process group and the mesh (cluster/)
     a("--mesh", default=None,
       help='mesh override, e.g. "data=2", "data=2,model=2" or '
-           '"data=1,seq=2" (data x model x seq ranks)')
+           '"data=1,seq=2", "pipe=4" (data x model x seq x pipe ranks)')
     a("--coordinator_address", default=None, help="host:port of process 0")
     a("--num_processes", type=int, default=1, help="total processes")
     a("--process_id", type=int, default=0, help="this process's rank")

@@ -29,13 +29,14 @@ Besides the group, every rank of a multi-process run gets a gloo group
 over the host for the decisions ranks must agree on (a checkpoint save,
 a barrier): with NCCL that is a second group, with gloo the same one.
 
-A ``data x model x seq`` mesh (`cluster/mesh.py`) adds a subgroup per
-line of the rank grid along each axis, each with a host group of its own
-by the same rule (`mesh_groups`). `torch.distributed.new_group` is
-collective over the whole group, so every rank creates every subgroup,
-in the same order (the data groups by model and seq index, then the
-model groups by data and seq index, then the seq groups by data and
-model index), and keeps those it belongs to.
+A ``data x model x seq x pipe`` mesh (`cluster/mesh.py`) adds a
+subgroup per line of the rank grid along each axis, each with a host
+group of its own by the same rule (`mesh_groups`).
+`torch.distributed.new_group` is collective over the whole group, so
+every rank creates every subgroup, in the same order (the data groups by
+model, seq and pipe index, then the model groups, the seq groups and the
+pipe groups, each by the other axes' indices), and keeps those it
+belongs to.
 
 Chief is rank 0: it owns the host-side side effects (checkpoint writes,
 summary files). Params are initialized identically on every rank from
@@ -158,36 +159,48 @@ def initialize_distributed(
     return _CONTEXT
 
 
-def mesh_groups(data: int, model: int, seq: int = 1) -> dict:
-    """``{"data": (group, host_group), "model": ..., "seq": ...}`` of this
-    rank for a ``data x model x seq`` grid of the process group's ranks
-    (rank ``(d * model + m) * seq + s``), None where an axis is one rank
-    wide; an axis as wide as the world is the world group. Created once
-    per shape, by every rank in the same order (module docstring)."""
-    key = (data, model, seq)
+def mesh_groups(data: int, model: int, seq: int = 1, pipe: int = 1) -> dict:
+    """``{"data": (group, host_group), "model": ..., "seq": ..., "pipe":
+    ...}`` of this rank for a ``data x model x seq x pipe`` grid of the
+    process group's ranks (rank ``((d * model + m) * seq + s) * pipe +
+    p``), None where an axis is one rank wide; an axis as wide as the
+    world is the world group. Created once per shape, by every rank in
+    the same order (module docstring)."""
+    key = (data, model, seq, pipe)
     if key in _MESH_GROUPS:
         return _MESH_GROUPS[key]
     ctx = _CONTEXT
     if ctx is None:
         raise RuntimeError("mesh_groups needs initialize_distributed first")
-    if data * model * seq != ctx.world:
-        raise ValueError(f"mesh {data}x{model}x{seq} != {ctx.world} ranks")
+    if data * model * seq * pipe != ctx.world:
+        raise ValueError(f"mesh {data}x{model}x{seq}x{pipe} != {ctx.world} "
+                         "ranks")
     world = torch.distributed.group.WORLD
     timeout = datetime.timedelta(seconds=DEFAULT_TIMEOUT_S)
+    sizes = {"data": data, "model": model, "seq": seq, "pipe": pipe}
+    axes = tuple(sizes)
 
-    def at(d, m, s):
-        return (d * model + m) * seq + s
+    def at(idx: dict) -> int:
+        r = 0
+        for axis in axes:
+            r = r * sizes[axis] + idx[axis]
+        return r
 
-    rows = {"data": [[at(d, m, s) for d in range(data)]
-                     for m in range(model) for s in range(seq)],
-            "model": [[at(d, m, s) for m in range(model)]
-                      for d in range(data) for s in range(seq)],
-            "seq": [[at(d, m, s) for s in range(seq)]
-                    for d in range(data) for m in range(model)]}
+    def lines(axis: str) -> list:
+        others = [a for a in axes if a != axis]
+        out = []
+        for flat in range(ctx.world // sizes[axis]):
+            idx = {}
+            for a in reversed(others):
+                idx[a] = flat % sizes[a]
+                flat //= sizes[a]
+            out.append([at({**idx, axis: i}) for i in range(sizes[axis])])
+        return out
+
     out = {}
-    for axis in ("data", "model", "seq"):
+    for axis in axes:
         mine = (None, None)
-        for ranks in rows[axis]:
+        for ranks in lines(axis):
             if len(ranks) == 1:
                 continue
             if len(ranks) == ctx.world:

@@ -7,19 +7,25 @@ device per process (rank r drives ``cuda:(r % cards)``, or the CPU). A
 index on the ``data``, ``model`` and ``seq`` axes, its device, and the
 groups the collectives run over (None where an axis is one rank wide).
 
-The ranks form a ``data x model x seq`` grid in the row-major order of
-`AXES`, as the reference lays its devices out: rank ``r = (d * model + m)
-* seq + s``. The ranks of one model group (same d and s) hold one
-replica of the model, each with its share of the tensor-parallel leaves,
-and see the same batch; the ranks of one seq group (same d and m) see
-the same batch too, each holding its contiguous share of every
-sequence's tokens (sequence parallelism: `parallel/ring_attention.py`,
-`parallel/ulysses.py`); the ranks of one data group (same m and s) split
-the batch. A ``pipe`` axis wider than one refuses, naming the slice that
-brings it, and so does a ``seq`` axis beside a ``model`` axis, both wider
-than one (no reference config combines them). The reference's
-multislice layout (`hybrid_mesh_shapes`, `with_fake_slices`) and
-`compat_shard_map` have no counterpart yet.
+The ranks form a ``data x model x seq x pipe`` grid in the row-major
+order of `AXES`, as the reference lays its devices out: rank ``r = ((d *
+model + m) * seq + s) * pipe + p``. The ranks of one model group (same
+d, s and p) hold one replica of the model and see the same batch, each
+with its share of the tensor-parallel leaves, or under expert
+parallelism (`parallel/moe.py`) its expert and its share of every MoE
+layer's tokens; the ranks of one seq group (same d, m and p) see the
+same batch too, each holding its contiguous share of every sequence's
+tokens (sequence parallelism: `parallel/ring_attention.py`,
+`parallel/ulysses.py`); the ranks of one pipe group (same d, m and s)
+see the same batch, each running its stages of the block stack
+(`parallel/pipeline.py`); the ranks of one data group (same m, s and p)
+split the batch. A ``seq`` axis beside a ``model`` axis, and a ``pipe``
+axis beside either, both wider than one, refuse: no reference config
+combines them. The reference's multislice layout (`hybrid_mesh_shapes`,
+`with_fake_slices`, which puts the slice factor on ``data`` when it can
+and otherwise on ``pipe``: with the pipe axis here, the port can now
+place slices there too) and `compat_shard_map` have no counterpart
+yet.
 
 `activate(mesh)` makes a mesh ambient for the forward pass: synchronized
 batch norm (`ops/nn.batch_norm`) reads it with `ambient_mesh()`, as the
@@ -42,12 +48,9 @@ SEQ_AXIS = "seq"
 PIPE_AXIS = "pipe"
 AXES = (DATA_AXIS, MODEL_AXIS, SEQ_AXIS, PIPE_AXIS)
 
-#: the slices that bring the axes the port's mesh lacks
-_LATER_AXES = {
-    PIPE_AXIS: "ROADMAP §1 item 11 (pipeline parallelism)",
-}
-#: the slice that would combine a seq axis with a model axis
-_SEQ_WITH_MODEL = "ROADMAP §1 item 11 (sequence with tensor parallelism)"
+#: the axis pairs no reference config combines, which the port refuses
+#: under the label of the slice that brought them
+_UNCOMBINED = "ROADMAP §1 item 11 (no reference config combines them)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -121,6 +124,8 @@ class Mesh:
     host_groups: dict = dataclasses.field(default_factory=dict)
     seq_index: int = 0
     seq_group: Any = None
+    pipe_index: int = 0
+    pipe_group: Any = None
 
     @property
     def size(self) -> int:
@@ -138,23 +143,29 @@ class Mesh:
         return self.shape[SEQ_AXIS]
 
     @property
+    def pipe(self) -> int:
+        """Ranks on the ``pipe`` axis."""
+        return self.shape[PIPE_AXIS]
+
+    @property
     def ranks(self) -> int:
         """Every rank of the mesh."""
-        return self.size * self.model * self.seq
+        return self.size * self.model * self.seq * self.pipe
 
     @property
     def model_chief(self) -> int:
         """The process-group rank of this model group's first rank (the
         one that drives a tensor-parallel decode engine)."""
-        return self.rank * self.model * self.seq + self.seq_index
+        return ((self.rank * self.model * self.seq + self.seq_index)
+                * self.pipe + self.pipe_index)
 
     def axis_index(self, axis: str) -> int:
-        return {MODEL_AXIS: self.model_index,
-                SEQ_AXIS: self.seq_index}.get(axis, self.rank)
+        return {MODEL_AXIS: self.model_index, SEQ_AXIS: self.seq_index,
+                PIPE_AXIS: self.pipe_index}.get(axis, self.rank)
 
     def axis_group(self, axis: str):
-        return {MODEL_AXIS: self.model_group,
-                SEQ_AXIS: self.seq_group}.get(axis, self.group)
+        return {MODEL_AXIS: self.model_group, SEQ_AXIS: self.seq_group,
+                PIPE_AXIS: self.pipe_group}.get(axis, self.group)
 
 
 def device_count() -> int:
@@ -166,20 +177,18 @@ def device_count() -> int:
 
 
 def check_axes(spec: MeshSpec) -> None:
-    """Refuse a ``pipe`` axis wider than one, and a ``seq`` axis beside a
-    ``model`` axis both wider than one, naming the slice that would bring
+    """Refuse a ``seq`` axis beside a ``model`` axis, and a ``pipe`` axis
+    beside either, both wider than one: no reference config combines
     them."""
-    for axis, item in _LATER_AXES.items():
-        if getattr(spec, axis) > 1:
-            raise NotImplementedError(
-                f"a {axis!r} axis of {getattr(spec, axis)} joins the port "
-                f"with {item}; the port's mesh has the data, model and seq "
-                "axes")
-    if spec.seq > 1 and spec.model > 1:
+    wide = [axis for axis in (MODEL_AXIS, SEQ_AXIS, PIPE_AXIS)
+            if getattr(spec, axis) > 1]
+    if len(wide) > 1:
+        pairs = " beside ".join(f"a {axis} axis of {getattr(spec, axis)}"
+                                for axis in wide)
         raise NotImplementedError(
-            f"a seq axis of {spec.seq} beside a model axis of {spec.model} "
-            f"joins the port with {_SEQ_WITH_MODEL}; the port shards "
-            "tokens over seq with model = 1")
+            f"{pairs}: {_UNCOMBINED}; the port runs tensor, expert, "
+            "sequence or pipeline parallelism one at a time beside data "
+            "parallelism")
 
 
 def make_mesh(spec: MeshSpec | None = None, *,
@@ -214,14 +223,16 @@ def make_mesh(spec: MeshSpec | None = None, *,
         device = ctx.device if ctx is not None else torch.device("cpu")
     if n == 1:
         return Mesh(shape=shape, device=torch.device(device))
-    data, model, seq = shape[DATA_AXIS], shape[MODEL_AXIS], shape[SEQ_AXIS]
-    groups = coordination.mesh_groups(data, model, seq)
+    data, model, seq, pipe = (shape[axis] for axis in AXES)
+    groups = coordination.mesh_groups(data, model, seq, pipe)
     rank = torch.distributed.get_rank()
-    return Mesh(shape=shape, rank=rank // (model * seq),
-                model_index=rank // seq % model, seq_index=rank % seq,
+    return Mesh(shape=shape, rank=rank // (model * seq * pipe),
+                model_index=rank // (seq * pipe) % model,
+                seq_index=rank // pipe % seq, pipe_index=rank % pipe,
                 device=torch.device(device),
                 group=groups[DATA_AXIS][0], model_group=groups[MODEL_AXIS][0],
                 seq_group=groups[SEQ_AXIS][0],
+                pipe_group=groups[PIPE_AXIS][0],
                 host_groups={axis: g[1] for axis, g in groups.items()},
                 backend=ctx.backend if ctx is not None
                 else torch.distributed.get_backend())
@@ -230,8 +241,8 @@ def make_mesh(spec: MeshSpec | None = None, *,
 def local_batch_slice(global_batch: int, mesh: Mesh) -> tuple[int, int]:
     """(per-process batch, per-device batch) for a global batch: the
     same number, one device per process. The batch splits over the
-    ``data`` axis only: the ranks of one model or seq group get the same
-    rows."""
+    ``data`` axis only: the ranks of one model, seq or pipe group get the
+    same rows."""
     if global_batch % mesh.size != 0:
         raise ValueError(f"global batch {global_batch} % data axis "
                          f"{mesh.size} != 0")
@@ -241,7 +252,7 @@ def local_batch_slice(global_batch: int, mesh: Mesh) -> tuple[int, int]:
 
 def validate_mesh(mesh: Mesh) -> None:
     """Refuse a mesh whose ranks do not match its groups."""
-    for axis in (DATA_AXIS, MODEL_AXIS, SEQ_AXIS):
+    for axis in AXES:
         n, group = mesh.shape[axis], mesh.axis_group(axis)
         if n > 1 and (group is None
                       or n != torch.distributed.get_world_size(group)):

@@ -1,13 +1,12 @@
 """The benchmark-ladder configs, copied from the reference `configs.py`.
 
-Only the entries whose model and path the port runs are here
-(`mlp_mnist`, `lenet5_mnist`, `lenet5_fashion`, `resnet20_cifar`,
-`resnet20_cifar_fsdp`, `vit_tiny_cifar`, `vit_tiny_cifar_flash`,
-`vit_tiny_cifar_ulysses`, `vit_tiny_cifar_ulysses_flash`,
-`vit_tiny_cifar_ring`, `vit_tiny_cifar_ring_flash`, `vit_tiny_cifar_tp`,
-`vit_tiny_cifar_fsdp_tp`); the others (`vit_tiny_cifar_moe`,
-`vit_tiny_cifar_pp`) join with their slice. A test pins each entry field for field
-against the reference ladder.
+Every entry of the reference ladder is here (`mlp_mnist`,
+`lenet5_mnist`, `lenet5_fashion`, `resnet20_cifar`, `resnet20_cifar_fsdp`,
+`vit_tiny_cifar`, `vit_tiny_cifar_flash`, `vit_tiny_cifar_ulysses`,
+`vit_tiny_cifar_ulysses_flash`, `vit_tiny_cifar_ring`,
+`vit_tiny_cifar_ring_flash`, `vit_tiny_cifar_moe`, `vit_tiny_cifar_tp`,
+`vit_tiny_cifar_pp`, `vit_tiny_cifar_fsdp_tp`). A test pins each entry
+field for field against the reference ladder.
 """
 
 from __future__ import annotations
@@ -236,6 +235,27 @@ CONFIGS = {
         mesh=MeshSpec(data=-1, seq=2),
         ladder_devices=16,
     ),
+    # 5c) config 5 with switch-MoE FFN blocks, expert-parallel over a
+    # 4-way `model` axis (one expert per rank — parallel/moe.py); the
+    # load-balance aux loss joins the objective via model_state.
+    "vit_tiny_cifar_moe": Config(
+        name="vit_tiny_cifar_moe",
+        model="vit_tiny",
+        dataset="cifar10",
+        batch_size=1024,
+        train_steps=5000,
+        learning_rate=1e-3,
+        lr_schedule="cosine",
+        warmup_steps=500,
+        grad_clip_norm=1.0,
+        weight_decay=0.05,
+        remat=True,
+        augment=True,
+        model_kwargs={"mlp_impl": "moe", "n_experts": 4, "pool": "mean",
+                      "scan_blocks": True},
+        mesh=MeshSpec(data=-1, model=4),
+        ladder_devices=16,
+    ),
     # 5e) config 5 tensor-parallel: qkv/mlp matmuls Megatron-sharded over a
     # 2-way `model` axis (TP_RULES column/row pattern); grads for the
     # sharded params stay sharded — the step's collectives run over the
@@ -256,6 +276,27 @@ CONFIGS = {
         model_kwargs={"scan_blocks": True},
         sharding_rules="tp",
         mesh=MeshSpec(data=-1, model=2),
+        ladder_devices=16,
+    ),
+    # 5d) config 5 with the block stack GPipe'd over a 4-stage `pipe` axis
+    # (3 blocks per stage, microbatched activations around the ring —
+    # parallel/pipeline.py). Trains with the default dropout 0.1 like its
+    # siblings.
+    "vit_tiny_cifar_pp": Config(
+        name="vit_tiny_cifar_pp",
+        model="vit_tiny",
+        dataset="cifar10",
+        batch_size=1024,
+        train_steps=5000,
+        learning_rate=1e-3,
+        lr_schedule="cosine",
+        warmup_steps=500,
+        grad_clip_norm=1.0,
+        weight_decay=0.05,
+        remat=True,
+        augment=True,
+        model_kwargs={"scan_blocks": True, "block_pipeline": 4},
+        mesh=MeshSpec(data=-1, pipe=4),
         ladder_devices=16,
     ),
     # 5e') config 5e with FSDP composed on top of TP: the `model` axis

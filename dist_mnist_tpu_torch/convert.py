@@ -4,7 +4,10 @@
 (e.g. from `jax.device_get(params)`) and returns the port's: the same
 nested dicts with torch tensors, in the SAME layouts (HWIO conv kernels,
 ``[in, out]`` dense kernels), so `ops.quant.quantize` reduces over the
-same axes and yields the same int8 bits. Fresh inits of the two packages
+same axes and yields the same int8 bits. Any nesting is carried leaf for
+leaf: a switch-MoE ViT block's ``moe`` tree (the gate ``[D, E]`` and the
+expert stacks ``w1``/``b1``/``w2``/``b2``, leading dim E) and the stacked
+``blocks`` layout included. Fresh inits of the two packages
 differ (different generators); every parity check starts from weights
 carried across by this function.
 

@@ -23,8 +23,34 @@ four fall back to the exact attention of their engine.
 `attention_block_k` streams K/V tiles of that many keys within the
 kernel paths (None: the full-K rule). Every attention path tags its
 output ``attn_out`` (`ops/nn.checkpoint_name`) for the ``save_attn``
-remat policy. MoE blocks and the block pipeline raise until ROADMAP §1
-item 11.
+remat policy.
+
+MoE (``mlp_impl="moe"``, `parallel/moe.py`): the block's MLP is a
+switch-routed expert FFN over the block's ``[B*S, D]`` tokens, through
+`moe_ffn_adaptive`: expert-parallel when the ambient mesh's ``model``
+axis equals `n_experts` (every model rank runs the rest of the block
+whole on the same batch, as the reference's ``dp`` rules do, and its
+share of the MoE layer's tokens), else all experts local. Its output
+takes dropout at width ``dim``. Each block's load-balance aux and
+routing stats are summed over the depth; `apply` returns the model
+state ``moe_aux`` (``moe_aux_weight`` x the depth mean: the step adds
+it to the loss, the ``_aux`` contract of `train/step.py`) and the depth
+means ``moe_drop_fraction_metric``, ``moe_expert_load_metric`` and
+``moe_ep_engaged_metric`` (step outputs, the ``_metric`` contract).
+
+The block pipeline (``block_pipeline=N``, `parallel/pipeline.py`): under
+an ambient mesh whose ``pipe`` axis equals N, the stacked blocks run as
+N GPipe stages (``pipeline_circular=v``: N*v chunks, interleaved) of
+``depth / (N*v)`` blocks over `pipeline_microbatches` microbatches
+(fewer when the batch does not divide: the reference's adaptation), the
+rest of the model on every pipe rank. On any other mesh the same model
+runs the plain stacked loop, warning when the pipe axis is wider than
+one and mismatched. The stage of microbatch m takes its rows of each of
+its layers' keep-masks, drawn for the whole batch before the forward,
+so with dropout the pipelined stack computes what the plain one does
+(the reference derives a key per (data shard, microbatch, stage)
+instead, so the two packages' masks differ). It needs the stacked
+layout, depth % (N*v) == 0, dense MLP blocks and no token mask.
 
 Sequence parallelism: under an ambient mesh with a ``seq`` axis of n > 1
 and a ring or Ulysses `attention_impl`, each seq rank holds its
@@ -65,6 +91,7 @@ logits are the same bits on every rank of a model group.
 from __future__ import annotations
 
 import dataclasses
+import logging
 import re
 
 import torch
@@ -82,6 +109,11 @@ from dist_mnist_tpu_torch.parallel.flash import (
     flash_attention_sharded,
     masked_flash_attention_sharded,
 )
+from dist_mnist_tpu_torch.parallel.moe import init_moe, moe_ffn_adaptive
+from dist_mnist_tpu_torch.parallel.pipeline import (
+    pipeline_apply,
+    stack_stage_params,
+)
 from dist_mnist_tpu_torch.parallel.ring_attention import ring_attention
 from dist_mnist_tpu_torch.parallel.ulysses import ulysses_attention
 from dist_mnist_tpu_torch.utils.tree import (
@@ -91,15 +123,14 @@ from dist_mnist_tpu_torch.utils.tree import (
     tree_map,
 )
 
+log = logging.getLogger(__name__)
+#: (block_pipeline, pipe axis) pairs the plain-stack fallback warned about
+_PIPE_WARNED: set = set()
+
 #: the attention impls that run over a seq axis
 SEQ_IMPLS = ("ring", "ring_flash", "ulysses", "ulysses_flash")
 IMPLS = ("xla", "flash", *SEQ_IMPLS)
-
-
-def stack_stage_params(params_list):
-    """Stack isomorphic param trees into one with a leading axis (a copy of
-    the reference's `parallel/pipeline.stack_stage_params`)."""
-    return tree_map(lambda *xs: torch.stack(xs, dim=0), *params_list)
+MLP_IMPLS = ("dense", "moe")
 
 
 def unstack_params(stacked, depth: int) -> list:
@@ -153,12 +184,16 @@ class ViTTiny:
     # the kernel paths stream K/V tiles of this many keys; None: full-K
     attention_block_k: int | None = None
     pool: str = "cls"  # "cls" | "mean" (mean keeps S divisible by seq)
-    mlp_impl: str = "dense"  # "moe" comes with the parallel slice
+    mlp_impl: str = "dense"  # "dense" | "moe" (parallel/moe.py)
+    n_experts: int = 4
+    moe_capacity_factor: float = 1.25
+    moe_top_k: int = 1  # 1 = Switch routing; >=2 = GShard-style top-k
+    moe_aux_weight: float = 1e-2  # the load-balance loss's weight
     scan_blocks: bool = False  # the stacked `blocks` layout
-    block_pipeline: int = 0  # the GPipe stack comes with the parallel slice
-
-    #: the blocks run on TP_RULES slices under a mesh's model axis
-    tensor_parallel = True
+    block_pipeline: int = 0  # N > 0: N GPipe stages over the pipe axis
+    pipeline_microbatches: int = 8  # GPipe M; bubble (N-1)/(M+N-1)
+    pipeline_skip_bubble: bool = False  # skip the fill/drain ticks' compute
+    pipeline_circular: int = 0  # v > 1: the circular schedule's chunks
 
     def __post_init__(self):
         if self.attention_impl not in IMPLS:
@@ -166,17 +201,23 @@ class ViTTiny:
                 f"unknown attention_impl {self.attention_impl!r}; use "
                 "'xla' | 'flash' | 'ring' | 'ring_flash' | 'ulysses' | "
                 "'ulysses_flash'")
-        if self.mlp_impl != "dense":
-            raise NotImplementedError(
-                f"mlp_impl={self.mlp_impl!r}: MoE blocks join the port with "
-                "the parallel slice (ROADMAP §1 item 11)")
-        if self.block_pipeline:
-            raise NotImplementedError(
-                "block_pipeline: the GPipe block stack joins the port with "
-                "the parallel slice (ROADMAP §1 item 11)")
+        if self.mlp_impl not in MLP_IMPLS:
+            raise ValueError(f"unknown mlp_impl {self.mlp_impl!r}; use "
+                             "'dense' | 'moe'")
         if self.pool not in ("cls", "mean"):
             raise ValueError(f"pool must be 'cls' or 'mean', got "
                              f"{self.pool!r}")
+
+    @property
+    def tensor_parallel(self) -> bool:
+        """Whether the blocks run on TP_RULES slices under a mesh's model
+        axis: dense ones do; MoE blocks run whole there, the model axis
+        carrying their experts."""
+        return self.mlp_impl == "dense"
+
+    @property
+    def is_moe(self) -> bool:
+        return self.mlp_impl == "moe"
 
     @property
     def mlp_dim(self) -> int:
@@ -219,35 +260,48 @@ class ViTTiny:
         }
         if self.pool == "cls":
             params["cls"] = torch.zeros((1, 1, d))
-        blocks = [{
-            "ln1": nn.init_layer_norm(d),
-            "attn": nn.init_attention(gen, d, self.heads),
-            "ln2": nn.init_layer_norm(d),
-            "mlp_in": nn.init_dense(gen, d, self.mlp_dim,
-                                    init=nn.xavier_uniform),
-            "mlp_out": nn.init_dense(gen, self.mlp_dim, d,
-                                     init=nn.xavier_uniform),
-        } for _ in range(self.depth)]
+        blocks = []
+        for _ in range(self.depth):
+            block = {"ln1": nn.init_layer_norm(d),
+                     "attn": nn.init_attention(gen, d, self.heads),
+                     "ln2": nn.init_layer_norm(d)}
+            if self.is_moe:
+                block["moe"] = init_moe(gen, d, self.mlp_dim, self.n_experts)
+            else:
+                block["mlp_in"] = nn.init_dense(gen, d, self.mlp_dim,
+                                                init=nn.xavier_uniform)
+                block["mlp_out"] = nn.init_dense(gen, self.mlp_dim, d,
+                                                 init=nn.xavier_uniform)
+            blocks.append(block)
         if self.scan_blocks:
             params["blocks"] = stack_stage_params(blocks)
         else:
             for i, block in enumerate(blocks):
                 params[f"block{i}"] = block
-        return params, {}
+        # the aux loss and the routing stats (the structure `apply`
+        # returns)
+        state = ({"moe_aux": torch.zeros(()),
+                  "moe_drop_fraction_metric": torch.zeros(()),
+                  "moe_expert_load_metric": torch.zeros((self.n_experts,)),
+                  "moe_ep_engaged_metric": torch.zeros(())}
+                 if self.is_moe else {})
+        return params, state
 
     def dropout_masks(self, gen: torch.Generator, x: torch.Tensor, *,
                       global_batch: int | None = None,
                       offset: int = 0) -> torch.Tensor | None:
         """Every layer's keep-mask for the NHWC batch `x`, ``[depth, B,
-        tokens, mlp_dim]`` bool, ``uniform[0, 1) < 1 - rate`` drawn from
-        `gen` (a generator on x's device); None without dropout. Drawn for
+        tokens, width]`` bool (width: the MLP's hidden dim, or ``dim``
+        for the MoE output), ``uniform[0, 1) < 1 - rate`` drawn from `gen`
+        (a generator on x's device); None without dropout. Drawn for
         `global_batch` rows (default x's), rows ``offset : offset + B``
         kept: a rank's slice of a global draw."""
         if self.dropout_rate == 0.0:
             return None
         b = x.shape[0]
         rows = b if global_batch is None else global_batch
-        shape = (self.depth, rows, self.n_tokens(x.shape), self.mlp_dim)
+        width = self.dim if self.is_moe else self.mlp_dim
+        shape = (self.depth, rows, self.n_tokens(x.shape), width)
         keep = torch.rand(shape, generator=gen, device=x.device) \
             < 1.0 - self.dropout_rate
         return keep if rows == b else keep[:, offset:offset + b]
@@ -323,11 +377,22 @@ class ViTTiny:
         return _row_parallel(p["out"], scatter_to_model(out, mesh, -1), mesh)
 
     def _block(self, p, x, keep=None, mask=None, tp=None):
-        """One pre-LN transformer block; `keep` is its dropout keep-mask
+        """One pre-LN transformer block: ``(x, moe_aux, moe_stats)``, the
+        last two None for a dense block. `keep` is its dropout keep-mask
         (the full width: under `tp` this rank takes its columns)."""
         y = nn.layer_norm(p["ln1"], x)
         x = x + self._attention(p["attn"], y, mask=mask, tp=tp)
         y = nn.layer_norm(p["ln2"], x)
+        if self.is_moe:
+            b, s, d = y.shape
+            y, aux, stats = moe_ffn_adaptive(
+                p["moe"], y.reshape(b * s, d),
+                capacity_factor=self.moe_capacity_factor,
+                top_k=self.moe_top_k)
+            y = y.reshape(b, s, d)
+            if keep is not None:
+                y = nn.dropout(y, self.dropout_rate, train=True, mask=keep)
+            return x + y, aux, stats
         if tp is None:
             y = nn.gelu(nn.dense(p["mlp_in"], y))
         else:
@@ -339,8 +404,69 @@ class ViTTiny:
         if keep is not None:
             y = nn.dropout(y, self.dropout_rate, train=True, mask=keep)
         if tp is None:
-            return x + nn.dense(p["mlp_out"], y)
-        return x + _row_parallel(p["mlp_out"], y, tp)
+            return x + nn.dense(p["mlp_out"], y), None, None
+        return x + _row_parallel(p["mlp_out"], y, tp), None, None
+
+    def _pipe_axis_matches(self, mesh) -> bool:
+        """True only when the ambient mesh's pipe axis equals the
+        configured stage count; a wider-than-one but mismatched axis runs
+        the plain stack, with the reference's warning (once per process
+        and pair)."""
+        axis = mesh.pipe if mesh is not None else 1
+        if axis > 1 and axis == self.block_pipeline:
+            return True
+        if axis > 1 and (self.block_pipeline, axis) not in _PIPE_WARNED:
+            _PIPE_WARNED.add((self.block_pipeline, axis))
+            log.warning(
+                "block_pipeline=%d != pipe axis %d — running the plain "
+                "scanned stack (no pipeline); size the pipe axis to the "
+                "stage count for pipeline parallelism",
+                self.block_pipeline, axis)
+        return False
+
+    def _pipelined_blocks(self, params, x, mesh, dropout_mask=None):
+        """The block stack as GPipe stages over the mesh's pipe axis
+        (module docstring): stage g runs blocks ``[g*depth/(N*v),
+        (g+1)*depth/(N*v))`` on each microbatch, with its rows of those
+        blocks' keep-masks."""
+        n = mesh.pipe
+        v = max(1, self.pipeline_circular)
+        if not self.scan_blocks or self.depth % (n * v):
+            raise ValueError(
+                "block_pipeline needs scan_blocks=True and depth % "
+                "(stages * circular_chunks) == 0")
+        if self.is_moe:
+            raise ValueError("block_pipeline supports dense MLP blocks only")
+        per_stage = self.depth // (n * v)
+        stage_params = tree_map(
+            lambda a: a.reshape((n * v, per_stage) + tuple(a.shape[1:])),
+            params["blocks"])
+        # the output does not depend on M, so M adapts down to the largest
+        # count this batch supports (B % M == 0 and, circular, M % stages
+        # == 0: the reference's rule on its global batch, which the data
+        # axis divides as this rank's batch)
+        b = x.shape[0]
+        m = min(self.pipeline_microbatches, b)
+        while m > 1 and (b % m or (v > 1 and m % n)):
+            m -= 1
+        if v > 1 and m % n:
+            raise ValueError(
+                f"pipeline_circular={v} needs a microbatch count divisible "
+                f"by the {n}-way pipe axis; none fits batch {b}")
+        rows = b // m
+
+        def stage_fn(p, xx, mb, g):
+            for i, layer in enumerate(unstack_params(p, per_stage)):
+                keep = None
+                if dropout_mask is not None:
+                    keep = dropout_mask[g * per_stage + i][
+                        mb * rows:(mb + 1) * rows]
+                xx, _, _ = self._block(layer, xx, keep)
+            return xx
+
+        return pipeline_apply(stage_fn, stage_params, x, m, mesh,
+                              circular_chunks=v, positions=True,
+                              skip_bubble=self.pipeline_skip_bubble)
 
     def apply(self, params, state, x, *, train=False, rng=None,
               dropout_mask=None, mask=None):
@@ -373,7 +499,8 @@ class ViTTiny:
                                                  device=x.device), tok_mask],
                                      dim=1)
         mesh = ambient_mesh()
-        tp = mesh if mesh is not None and mesh.model > 1 else None
+        tp = (mesh if mesh is not None and mesh.model > 1
+              and self.tensor_parallel else None)
         sp = (mesh if mesh is not None and mesh.seq > 1
               and self.attention_impl in SEQ_IMPLS else None)
         tokens = slice(0, x.shape[1])
@@ -381,12 +508,23 @@ class ViTTiny:
             tokens = self._seq_tokens(x.shape[1], sp)
             x = x[:, tokens]
         x = x + params["pos"][:, tokens].to(x.dtype)
-        layers = (unstack_params(params["blocks"], self.depth)
-                  if self.scan_blocks
-                  else [params[f"block{i}"] for i in range(self.depth)])
-        for i, p in enumerate(layers):
-            keep = dropout_mask[i][:, tokens] if use_dropout else None
-            x = self._block(p, x, keep, mask=tok_mask, tp=tp)
+        if tok_mask is not None and self.block_pipeline:
+            raise ValueError("mask is not supported with block_pipeline")
+        aux_total, stats_total = None, None
+        if self.block_pipeline and self._pipe_axis_matches(mesh):
+            x = self._pipelined_blocks(
+                params, x, mesh, dropout_mask if use_dropout else None)
+        else:
+            layers = (unstack_params(params["blocks"], self.depth)
+                      if self.scan_blocks
+                      else [params[f"block{i}"] for i in range(self.depth)])
+            for i, p in enumerate(layers):
+                keep = dropout_mask[i][:, tokens] if use_dropout else None
+                x, aux, stats = self._block(p, x, keep, mask=tok_mask, tp=tp)
+                if aux is not None:
+                    aux_total = aux if aux_total is None else aux_total + aux
+                    stats_total = stats if stats_total is None else {
+                        k: stats_total[k] + stats[k] for k in stats}
         x = nn.layer_norm(params["final_ln"], x)
         if sp is not None:
             # the mean over all S tokens: this rank's sum, summed over seq
@@ -402,4 +540,20 @@ class ViTTiny:
             m = tok_mask.to(x.dtype)[..., None]
             pooled = (x * m).sum(dim=1) / m.sum(dim=1)
         logits = nn.dense(params["head"], pooled)
+        if self.is_moe:
+            state = self._moe_state(aux_total, stats_total)
         return logits.to(torch.float32), state
+
+    def _moe_state(self, aux_total, stats_total) -> dict:
+        """The model state of an MoE forward: the weighted depth-mean aux
+        and the depth means of the routing stats."""
+        depth = torch.full((), float(self.depth), device=aux_total.device)
+        return {
+            "moe_aux": self.moe_aux_weight * aux_total / depth,
+            "moe_drop_fraction_metric":
+                stats_total["drop_fraction"] / depth,
+            "moe_expert_load_metric": stats_total["expert_load"] / depth,
+            # 1.0: every block dispatched over the expert axis; 0.0: the
+            # dense fallback
+            "moe_ep_engaged_metric": stats_total["ep_engaged"] / depth,
+        }

@@ -36,7 +36,7 @@ _EPS = 1e-12
 _QMAX = 127.0
 
 #: param leaf names the default rule quantizes (dense/conv kernels, and
-#: the MoE expert stacks of later slices)
+#: the MoE expert stacks `w1`, `w2`)
 QUANT_LEAF_NAMES = ("w", "w1", "w2")
 
 

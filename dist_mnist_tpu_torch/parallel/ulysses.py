@@ -2,7 +2,7 @@
 (port of the reference `parallel/ulysses.py`).
 
 The alternative to ring attention: one all-to-all over the seq group
-(`parallel/collectives.all_to_all_heads`) turns each rank's
+(`parallel/collectives.all_to_all` over ``seq``) turns each rank's
 sequence-sharded ``[B, S/n, H, D]`` into a head-sharded ``[B, S, H/n,
 D]``; attention then runs whole on each rank's heads, exact with no
 streamed softmax, and a second all-to-all restores the sequence
@@ -27,10 +27,10 @@ kernels are not instantiated for take the next instantiation
 
 from __future__ import annotations
 
-from dist_mnist_tpu_torch.cluster.mesh import Mesh, ambient_mesh
+from dist_mnist_tpu_torch.cluster.mesh import SEQ_AXIS, Mesh, ambient_mesh
 from dist_mnist_tpu_torch.ops.kernels.flash_attention import flash_attention
 from dist_mnist_tpu_torch.ops.nn import checkpoint_name, dot_product_attention
-from dist_mnist_tpu_torch.parallel.collectives import all_to_all_heads
+from dist_mnist_tpu_torch.parallel.collectives import all_to_all
 
 IMPLS = ("xla", "flash")
 
@@ -51,7 +51,8 @@ def ulysses_attention_inner(q, k, v, mesh: Mesh, impl: str = "xla",
         raise ValueError(f"heads {q.shape[2]} not divisible by seq axis {n}")
 
     def reshard(t):  # scatter heads, gather the sequence
-        return all_to_all_heads(t, mesh, split_axis=2, concat_axis=1)
+        return all_to_all(t, mesh, axis=SEQ_AXIS, split_axis=2,
+                          concat_axis=1)
 
     if impl == "flash":
         out = checkpoint_name(
@@ -59,7 +60,8 @@ def ulysses_attention_inner(q, k, v, mesh: Mesh, impl: str = "xla",
                             block_k=block_k), "attn_out")
     else:
         out = dot_product_attention(reshard(q), reshard(k), reshard(v))
-    return all_to_all_heads(out, mesh, split_axis=1, concat_axis=2)
+    return all_to_all(out, mesh, axis=SEQ_AXIS, split_axis=1,
+                      concat_axis=2)
 
 
 def ulysses_self_attention(q, k, v, mesh: Mesh, impl: str = "xla",

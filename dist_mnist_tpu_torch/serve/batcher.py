@@ -116,9 +116,11 @@ class DynamicBatcher:
                 req.future.set_exception(err)
             return
         done = time.monotonic()
-        self.metrics.record_batch(len(reqs),
-                                  self.engine.bucket_for(len(reqs)),
-                                  seq_occupancy=self._seq_occupancy(images))
+        self.metrics.record_batch(
+            len(reqs), self.engine.bucket_for(len(reqs)),
+            seq_occupancy=self._seq_occupancy(images),
+            moe_drop_fraction=getattr(self.engine, "last_moe_drop_fraction",
+                                      None))
         for req, row in zip(reqs, logits):
             latency_ms = (done - req.t_submit) * 1e3
             self.metrics.record_latency(latency_ms)

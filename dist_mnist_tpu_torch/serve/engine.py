@@ -109,6 +109,12 @@ class InferenceEngine:
         #: batches `predict` ran per height bucket (the benches' routing
         #: counts; prewarm's runs are not traffic)
         self.seq_bucket_counts: dict[int, int] = {}
+        # an MoE model returns its routed drop fraction beside the logits
+        # (never silent truncation); the last batch's is kept here for the
+        # batcher to record
+        self._moe = (isinstance(model_state, dict)
+                     and "moe_drop_fraction_metric" in model_state)
+        self.last_moe_drop_fraction: float | None = None
 
     def state_bytes_per_device(self) -> dict:
         """Resident bytes of the SERVED weights (int8 leaves at 1 byte per
@@ -168,19 +174,28 @@ class InferenceEngine:
 
     def _run(self, images: np.ndarray, mask: np.ndarray | None) -> np.ndarray:
         """One padded cell through the model. The execute clock stops on
-        the `.cpu()` of the logits, which waits for the device."""
+        the `.cpu()` of the logits (and an MoE model's drop fraction, in
+        the same copy), which waits for the device."""
         t0 = time.monotonic()
         x = torch.from_numpy(np.ascontiguousarray(images, dtype=np.uint8))
         with torch.inference_mode():
             x = normalize_images(x.to(self.device))
             if mask is None:
-                logits, _ = self.model.apply(self.params, self.model_state, x)
+                logits, state = self.model.apply(self.params,
+                                                 self.model_state, x)
             else:
                 m = torch.from_numpy(np.ascontiguousarray(mask)).to(
                     self.device)
-                logits, _ = self.model.apply(self.params, self.model_state,
-                                             x, mask=m)
-            out = logits.cpu().numpy()
+                logits, state = self.model.apply(
+                    self.params, self.model_state, x, mask=m)
+            if self._moe:
+                drop = state["moe_drop_fraction_metric"].to(logits.dtype)
+                flat = torch.cat([logits.reshape(-1),
+                                  drop.reshape(1)]).cpu().numpy()
+                out = flat[:-1].reshape(logits.shape)
+                self.last_moe_drop_fraction = float(flat[-1])
+            else:
+                out = logits.cpu().numpy()
         dt = time.monotonic() - t0
         cell = (images.shape[0], images.shape[1],
                 "dense" if mask is None else "masked")

@@ -41,6 +41,7 @@ class ServeMetrics:
         self.batch_size = StreamingHistogram()
         self.batch_occupancy = StreamingHistogram()
         self.seq_occupancy = StreamingHistogram()
+        self.moe_drop_fraction = StreamingHistogram()
         self.quant_error_max: float | None = None
 
     def record_quant_report(self, report: dict) -> None:
@@ -73,14 +74,18 @@ class ServeMetrics:
             self.cancelled += n
 
     def record_batch(self, n_real: int, bucket: int,
-                     seq_occupancy: float | None = None):
+                     seq_occupancy: float | None = None,
+                     moe_drop_fraction: float | None = None):
         """One executed batch: `n_real` genuine requests padded to `bucket`;
         `seq_occupancy` (real tokens / padded tokens, serve/zoo.py seq
-        buckets) when the engine has a seq grid."""
+        buckets) when the engine has a seq grid, and `moe_drop_fraction`
+        (routed-overflow drops of an MoE forward) when it serves one."""
         self.batch_size.observe(n_real)
         self.batch_occupancy.observe(n_real / bucket)
         if seq_occupancy is not None:
             self.seq_occupancy.observe(seq_occupancy)
+        if moe_drop_fraction is not None:
+            self.moe_drop_fraction.observe(moe_drop_fraction)
 
     def record_latency(self, ms: float, n: int = 1):
         self.latency_ms.observe(ms)
@@ -117,6 +122,10 @@ class ServeMetrics:
         seq = self.seq_occupancy.snapshot()
         if seq["count"]:
             out["mean_seq_occupancy"] = seq["mean"]
+        drop = self.moe_drop_fraction.snapshot()
+        if drop["count"]:
+            out["mean_moe_drop_fraction"] = drop["mean"]
+            out["max_moe_drop_fraction"] = drop.get("max", drop["mean"])
         if self.quant_error_max is not None:
             out["quant_error_max"] = self.quant_error_max
         return out

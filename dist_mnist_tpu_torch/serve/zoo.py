@@ -18,10 +18,15 @@ The native bucket keeps the maskless program. With
 forward at Sq > 1 (`ops/kernels/masked_flash.py`), the dense native
 cell the flash forward.
 
-The reference's zoo also serves MoE checkpoints at an inference-time
-capacity, sharded weights and a memory budget over a compiled-model
-cache; `build_zoo_engine` refuses those arguments, naming the ROADMAP
-item each waits for.
+An MoE checkpoint serves at an inference-time capacity factor
+(`moe_capacity_factor`: the model's field replaced, the weights
+unchanged, since the factor only sizes the routing buffers), all experts
+local on the one device, and the engine returns each batch's routed drop
+fraction beside the logits (`InferenceEngine.last_moe_drop_fraction`,
+recorded by the batcher). The reference's zoo also serves sharded
+weights and a memory budget over a compiled-model cache;
+`build_zoo_engine` refuses those arguments, naming the ROADMAP item each
+waits for.
 """
 
 from __future__ import annotations
@@ -192,15 +197,24 @@ def build_zoo_engine(
     grid, with a warning when buckets were asked for) and the bundle's
     quant mode. With every knob at its default this is the plain engine.
 
-    Refused until their slices land: `moe_capacity_factor` (MoE blocks,
-    ROADMAP §1 item 11), `memory_budget_mb` and `store` (the budgeted
-    cache and the executable store, items 13 and 15), and a `mesh` of
-    more than one device (the zoo's sharded placement, item 12: the
-    decode engine's tensor parallelism is `serve/decode.py`'s)."""
+    `moe_capacity_factor` replaces an MoE model's capacity factor (a
+    model without the field refuses, as in the reference).
+
+    Refused until their slices land: `memory_budget_mb` and `store` (the
+    budgeted cache and the executable store, ROADMAP §1 items 13 and 15),
+    and a `mesh` of more than one device (the zoo's sharded placement,
+    item 12: the decode engine's tensor parallelism is
+    `serve/decode.py`'s)."""
+    model = bundle.model
     if moe_capacity_factor is not None:
-        raise ValueError(
-            "moe_capacity_factor: MoE serving joins the port with the "
-            "parallel slice (ROADMAP §1 item 11)")
+        if not (dataclasses.is_dataclass(model)
+                and any(f.name == "moe_capacity_factor"
+                        for f in dataclasses.fields(model))):
+            raise ValueError(
+                f"--moe_capacity_factor given but model {model_name!r} has "
+                "no moe_capacity_factor field")
+        model = dataclasses.replace(
+            model, moe_capacity_factor=float(moe_capacity_factor))
     if memory_budget_mb is not None or store is not None:
         raise ValueError(
             "a serve memory budget and an executable store join the port "
@@ -213,7 +227,6 @@ def build_zoo_engine(
             f"sharded placement over {mesh} joins the port with the "
             "zoo's sharded placement (ROADMAP §1 item 12, --serve_rules); "
             "the zoo engine serves on one device")
-    model = bundle.model
     grid = seq_buckets
     if isinstance(seq_buckets, str):
         grid = parse_seq_buckets(

@@ -17,8 +17,18 @@ policies are in `REMAT_POLICIES`. A generator's draws are not replayed by
 a recompute, so every random number the forward needs (the crop and flip,
 every layer's dropout keep-mask, `model.dropout_masks`) is drawn before
 the checkpointed region and passed in; the region draws nothing. The
-reference's grad-norm outputs and the model-state `_aux`/`_metric`
-contracts join with the slices that use them.
+reference's grad-norm outputs join with the slice that uses them.
+
+The model-state contracts, the reference's: a top-level scalar entry of
+the model state whose key ends in ``_aux`` (the MoE load-balance term
+``moe_aux``, `models/vit.py`) is an auxiliary loss, already weighted,
+added to the loss inside the gradient by every step implementation (they
+all differentiate through `loss_and_grads`, the explicit DP step
+included; `model_aux_loss`), and reported in it; an entry whose key
+ends in ``_metric`` (the MoE routing stats) is a health statistic copied
+into the step outputs without the suffix, averaged over the data ranks,
+where `LoggingHook` prints the scalars and `SummaryHook` histograms the
+vectors.
 
 On a mesh (`cluster/mesh.py`) of N data ranks, each rank runs the step
 on its slice of the global batch: under DP the params are replicated and
@@ -60,6 +70,24 @@ seq times its 1/seq share. The reported loss and accuracy are the
 undivided ones, equal on every seq rank, averaged over the data ranks.
 Params and optimizer state are replicated over seq, and the updates are
 the same bits on every seq rank.
+
+With a ``pipe`` axis (the block pipeline, `parallel/pipeline.py`) the
+ranks of one pipe group see the same batch and generator state and
+compute the same loss from the last stage's broadcast outputs; each runs
+its stages of the stacked blocks. The seq rule serves here too: each
+pipe rank differentiates its loss divided by pipe, the broadcast's
+backward sums the cotangents into the last stage, and `_reduce_grads`
+sums every leaf over the pipe ranks, which gives the stacked blocks the
+sum of their stages' parts, the leaves before the pipeline rank 0's
+whole gradient and those after it pipe times their 1/pipe share.
+
+Expert parallelism (`parallel/moe.py`, a ``model`` axis under the ``dp``
+rules) needs no rule here: every model rank computes the same loss, and
+the MoE layer's operators give each its whole gradient (the
+tensor-parallel convention), so the gradients are averaged over the data
+ranks only, as under TP. The expert stacks are whole on every rank and
+each rank runs its expert's slice; the operators sum the slices'
+gradients over the model group.
 """
 
 from __future__ import annotations
@@ -80,6 +108,7 @@ from dist_mnist_tpu_torch.cluster.mesh import (
     AXES,
     DATA_AXIS,
     MODEL_AXIS,
+    PIPE_AXIS,
     SEQ_AXIS,
     Mesh,
     activate,
@@ -103,7 +132,11 @@ from dist_mnist_tpu_torch.parallel.sharding import (
     unshard_state,
 )
 from dist_mnist_tpu_torch.train.state import TrainState
-from dist_mnist_tpu_torch.utils.tree import flatten_with_path, map_with_path
+from dist_mnist_tpu_torch.utils.tree import (
+    flatten_with_path,
+    map_with_path,
+    tree_map,
+)
 
 LossFn = Callable[..., torch.Tensor]
 
@@ -170,6 +203,26 @@ def resolve_remat_policy(name: str):
     return REMAT_POLICIES[name]
 
 
+def model_aux_loss(model_state):
+    """The aux-objective contract: the sum of the model state's top-level
+    scalar entries whose key ends in ``_aux``, or None when there are
+    none."""
+    if not isinstance(model_state, dict):
+        return None
+    terms = [v for k, v in model_state.items()
+             if k.endswith("_aux") and getattr(v, "ndim", None) == 0]
+    return sum(terms[1:], terms[0]) if terms else None
+
+
+def model_metrics(model_state) -> dict:
+    """The metric contract: the model state's top-level ``_metric``
+    entries, keyed without the suffix."""
+    if not isinstance(model_state, dict):
+        return {}
+    return {k[:-len("_metric")]: v for k, v in model_state.items()
+            if k.endswith("_metric")}
+
+
 def _check_batch(batch) -> None:
     img, lab = batch["image"], batch["label"]
     if img.ndim != 4 or lab.ndim != 1:
@@ -190,16 +243,17 @@ def loss_and_grads(model, loss_fn: LossFn, params, model_state, batch, *,
                    split: tuple[int, int] = (0, 1)):
     """Training forward and backward of one batch.
 
-    Returns ``(loss, logits, new_model_state, grads)``: loss and logits
-    detached, grads a tree shaped like `params` (f32 on f32 leaves).
+    Returns ``(loss, logits, new_model_state, grads)``: loss (with the
+    model's ``_aux`` terms), logits and the model state detached, grads a
+    tree shaped like `params` (f32 on f32 leaves).
     `augment` crops and flips the batch from `rng`; dropout draws from
     `rng` unless `dropout_mask` is given. `remat` recomputes the forward
     in the backward under `remat_policy`. ``split = (rank, ranks)`` says
     the batch is this rank's slice of a global batch ``ranks`` times as
     large: the crops, flips and dropout masks are drawn for the global
-    batch and this rank's rows taken. Under an ambient mesh with a seq
-    axis of n > 1 the grads are this rank's share, of the loss divided by
-    n, which summed over the seq ranks give the whole (module
+    batch and this rank's rows taken. Under an ambient mesh with seq x
+    pipe = n > 1 ranks the grads are this rank's share, of the loss
+    divided by n, which summed over those ranks give the whole (module
     docstring); the loss returned is not divided."""
     _check_batch(batch)
     context_fn = resolve_remat_policy(remat_policy) if remat else None
@@ -245,10 +299,16 @@ def loss_and_grads(model, loss_fn: LossFn, params, model_state, batch, *,
         else:
             logits, new_model_state = forward(tracked)
         loss = loss_fn(logits, batch["label"])
-        seq = 1 if mesh is None else mesh.shape[SEQ_AXIS]
-        share = loss if seq == 1 else loss / torch.full(
-            (), float(seq), dtype=loss.dtype, device=loss.device)
+        aux = model_aux_loss(new_model_state)
+        if aux is not None:
+            loss = loss + aux
+        n = 1 if mesh is None else mesh.seq * mesh.pipe
+        share = loss if n == 1 else loss / torch.full(
+            (), float(n), dtype=loss.dtype, device=loss.device)
         grads = torch.autograd.grad(share, list(tracked.values()))
+    new_model_state = tree_map(
+        lambda t: t.detach() if isinstance(t, torch.Tensor) else t,
+        new_model_state)
     # a conv kernel's grad comes back in the strides of its OIHW view;
     # the optimizer (and its kernels) take the params' contiguous layout
     by_path = {path: g.contiguous() for path, g in zip(tracked, grads)}
@@ -285,8 +345,10 @@ def _reduce_grads(grads, state: TrainState, mesh, extra: torch.Tensor):
     """The global mean gradient in this rank's placement (full leaves
     under DP, slices under FSDP; a tensor-parallel slice stays this
     rank's) and the mean of `extra` over the data ranks. Each rank's
-    share is first summed over the seq ranks (module docstring)."""
-    grads = collectives.sum_over_seq(grads, mesh)
+    share is first summed over the seq and the pipe ranks (module
+    docstring)."""
+    for axis in (SEQ_AXIS, PIPE_AXIS):
+        grads = collectives.sum_over_axis(grads, mesh, axis)
     sharded = _sharded_paths(state)
     if sharded is None:
         return collectives.psum_mean(grads, mesh, extra)
@@ -325,8 +387,11 @@ def _train_core(model, optimizer: Optimizer, loss_fn: LossFn,
             split=(mesh.rank, mesh.size), **step_kw)
     del params
     with torch.no_grad():
-        local = torch.stack([loss.to(torch.float32),
-                             metrics.accuracy(logits, batch["label"])])
+        extra = model_metrics(new_model_state)
+        local = torch.cat([
+            torch.stack([loss.to(torch.float32),
+                         metrics.accuracy(logits, batch["label"])]),
+            *(v.reshape(-1).to(torch.float32) for v in extra.values())])
         grads, means = _reduce_grads(grads, state, mesh, local)
         norm = (sum_of_squares_over(sharded_sum_of_squares(placement))
                 if any_slices else contextlib.nullcontext())
@@ -342,6 +407,10 @@ def _train_core(model, optimizer: Optimizer, loss_fn: LossFn,
             placement=state.placement,
         )
         out = {"loss": means[0], "accuracy": means[1]}
+        off = 2
+        for k, v in extra.items():
+            out[k] = means[off:off + v.numel()].reshape(v.shape)
+            off += v.numel()
     return new_state, out
 
 

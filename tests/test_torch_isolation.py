@@ -33,13 +33,23 @@ def _own_temp_root(tmp_path_factory):
 
 def _sources() -> list[Path]:
     # the card-only tests and the port's scripts run on the GPU machine
-    # too; the ranks the data- and tensor-parallel tests spawn run the
-    # helpers
+    # too; the ranks the data-, tensor-, sequence- and model-parallel
+    # tests spawn run the helpers
     return sorted(PORT.rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "tests/test_torch_cuda.py",
         ROOT / "tests/torch_ranks.py", ROOT / "tests/torch_dp_cases.py",
         ROOT / "tests/torch_tp_cases.py", ROOT / "tests/torch_seq_cases.py",
+        ROOT / "tests/torch_mp_cases.py",
         *sorted((ROOT / "scripts").glob("torch_*.py"))]
+
+
+@pytest.mark.parametrize("name", ["parallel/moe.py", "parallel/pipeline.py",
+                                  "parallel/collective_matmul.py"])
+def test_model_parallel_modules_are_checked(name):
+    """The model-parallel slice's modules are among the sources the
+    import check reads (and `torch_mp_cases.py` beside them)."""
+    assert PORT / name in _sources()
+    assert ROOT / "tests/torch_mp_cases.py" in _sources()
 
 
 def _forbidden(module: str) -> bool:

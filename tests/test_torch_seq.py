@@ -269,11 +269,15 @@ def test_cls_pool_refuses_on_a_seq_mesh(runs, n):
 
 
 def test_seq_beside_model_and_pipe_still_refuse():
+    """Seq beside model, and pipe beside seq, still refuse (no reference
+    config combines them); a pipe axis beside data alone is the pipeline
+    slice's (tests/test_torch_pp.py)."""
     with pytest.raises(NotImplementedError, match="item 11"):
         check_axes(MeshSpec(data=1, model=2, seq=2))
     with pytest.raises(NotImplementedError, match="item 11"):
-        check_axes(MeshSpec(data=1, pipe=2))
+        check_axes(MeshSpec(data=1, seq=2, pipe=2))
     check_axes(MeshSpec(data=2, seq=4))
+    check_axes(MeshSpec(data=2, pipe=4))
 
 
 # -- the ViT ------------------------------------------------------------------

@@ -100,8 +100,12 @@ def test_make_mesh_on_one_process():
     # a model axis is a mesh axis now: two ranks, of which one exists
     with pytest.raises(ValueError, match="only 1 visible"):
         make_mesh(MeshSpec(data=1, model=2))
+    # a pipe axis is a mesh axis now (two ranks, of which one exists);
+    # beside a model axis it refuses, as seq beside model does
+    with pytest.raises(ValueError, match="only 1 visible"):
+        make_mesh(MeshSpec(data=1, pipe=2))
     for spec, item in ((MeshSpec(data=1, model=2, seq=2), "item 11"),
-                       (MeshSpec(data=1, pipe=2), "item 11")):
+                       (MeshSpec(data=1, model=2, pipe=2), "item 11")):
         with pytest.raises(NotImplementedError, match=item):
             make_mesh(spec)
 
@@ -458,4 +462,4 @@ def test_bench_runs_the_fsdp_config_on_one_rank_as_dp():
     assert extra["flops_per_step"] == 3 * 128 * model.flops_per_example(
         (1, 32, 32, 3))
     assert len(extra["chunk_losses"]) == 2
-    assert "resnet20_cifar" not in bench.LATER_CONFIGS
+    assert "resnet20_cifar" in bench.CONFIGS

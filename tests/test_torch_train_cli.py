@@ -301,7 +301,7 @@ def test_absl_value_spellings():
 REFUSED = [
     (["--mesh=data=1,model=2,seq=2"], "item 11"),
     (["--host_device_count=8"], "item 12"),
-    (["--mesh=pipe=2"], "item 11"),
+    (["--mesh=data=1,model=2,pipe=2"], "item 11"),
     (["--input_pipeline=native"], "item 12"),
     (["--overlap"], "item 13"),
     (["--overlap_bucket_mb=2"], "item 13"),

@@ -101,7 +101,9 @@ def _jax_params(jmodel, seed=0):
                                   "vit_tiny_cifar_ring",
                                   "vit_tiny_cifar_ring_flash",
                                   "vit_tiny_cifar_ulysses",
-                                  "vit_tiny_cifar_ulysses_flash"])
+                                  "vit_tiny_cifar_ulysses_flash",
+                                  "vit_tiny_cifar_moe",
+                                  "vit_tiny_cifar_pp"])
 def test_vit_config_entries_equal_reference_field_for_field(name):
     got, want = tconfigs.get_config(name), jconfigs.get_config(name)
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
@@ -307,20 +309,34 @@ def test_vit_token_mask_matches_reference(impl):
 
 
 @pytest.mark.parametrize("kw,err", [
-    # ring and Ulysses build now (tests/test_torch_seq.py); MoE and the
-    # block pipeline still refuse beside them
-    ({"attention_impl": "ring", "mlp_impl": "moe"}, NotImplementedError),
-    ({"attention_impl": "ulysses_flash", "block_pipeline": 2},
-     NotImplementedError),
-    ({"mlp_impl": "moe"}, NotImplementedError),
-    ({"block_pipeline": 4}, NotImplementedError),
+    # ring and Ulysses build (tests/test_torch_seq.py), and since the
+    # model-parallel slice MoE blocks and the block pipeline beside them
+    # (tests/test_torch_moe.py, tests/test_torch_pp.py): off an expert or
+    # pipe mesh they run all experts local and the plain stack
+    ({"attention_impl": "ring", "mlp_impl": "moe"}, None),
+    ({"attention_impl": "ulysses_flash", "block_pipeline": 2}, None),
+    ({"mlp_impl": "moe"}, None),
+    ({"block_pipeline": 4}, None),
     ({"attention_impl": "sparse"}, ValueError),
     ({"pool": "max"}, ValueError),
 ])
 def test_vit_refuses_what_later_slices_bring(kw, err):
-    with pytest.raises(err, match="item 11" if err is NotImplementedError
-                       else None):
-        tget_model("vit_tiny", **kw)
+    """What the ViT still refuses raises; what the later slices brought
+    builds and runs a finite forward on one process (an MoE model's state
+    holding its aux loss and stats, the dense fallback's ep_engaged 0)."""
+    if err is not None:
+        with pytest.raises(err):
+            tget_model("vit_tiny", **kw)
+        return
+    model = tget_model("vit_tiny", **{**SMALL, "depth": 4, **kw})
+    x = torch.rand(2, 32, 32, 3)
+    params, state = model.init(torch.Generator().manual_seed(0), x)
+    logits, new_state = model.apply(params, state, x)
+    assert torch.isfinite(logits).all() and logits.shape == (2, 10)
+    assert set(new_state) == set(state)
+    if kw.get("mlp_impl") == "moe":
+        assert float(new_state["moe_aux"]) > 0
+        assert float(new_state["moe_ep_engaged_metric"]) == 0.0
 
 
 # -- training: remat, three steps, the bench ---------------------------------
@@ -524,13 +540,40 @@ def test_bench_config_mode_runs_a_small_width_on_cpu(monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("name,match", [
-    ("vit_tiny_cifar_moe", "item 11"),
-    ("vit_tiny_cifar_pp", "item 11"),
+    ("vit_tiny_cifar_moe", None),
+    ("vit_tiny_cifar_pp", None),
     ("no_such_config", "unknown config"),
 ])
-def test_bench_config_mode_refuses_what_the_port_lacks(name, match):
-    with pytest.raises(SystemExit, match=match):
-        tbench.main(["--config", name, "--device=cpu"])
+def test_bench_config_mode_refuses_what_the_port_lacks(name, match,
+                                                       monkeypatch, capsys):
+    """An unknown config exits naming the port's configs; the MoE and
+    pipeline configs (refused until the model-parallel slice) run at a
+    small width on one process: their model = 4 and pipe = 4 meshes fall
+    back to the one rank there is, as the note says, the MoE layers all
+    experts local and the blocks the plain stack, with a finite loss per
+    chunk. `LATER_CONFIGS` is gone."""
+    assert not hasattr(tbench, "LATER_CONFIGS")
+    if match is not None:
+        with pytest.raises(SystemExit, match=match):
+            tbench.main(["--config", name, "--device=cpu"])
+        return
+    cfg = tconfigs.get_config(name)
+    monkeypatch.setitem(tbench.CONFIGS, name, dataclasses.replace(
+        cfg, model_kwargs={**cfg.model_kwargs, **SMALL, "depth": 4}))
+    ds = tdatasets.load_dataset("cifar10", "/nonexistent", seed=0,
+                                synthetic_sizes=(256, 32),
+                                cache_synthetic=False)
+    monkeypatch.setattr(tbench, "load_dataset", lambda *a, **k: ds)
+    orig = tbench.run_config
+    monkeypatch.setattr(tbench, "run_config",
+                        lambda *a, **k: orig(*a, **k, chunk=2))
+    rec = tbench.main(["--config", name, "--steps", "2", "--device=cpu"])
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) \
+        == rec
+    extra = rec["extra"]
+    assert extra["chips"] == 1 and extra["global_batch"] == 64
+    assert extra["mesh_note"].startswith("fallback (config wants")
+    assert np.isfinite(extra["chunk_losses"]).all()
 
 
 def test_bench_config_mode_runs_a_sequence_parallel_config(monkeypatch,

@@ -138,21 +138,14 @@ def test_supports_mask_matches_reference(name, kwargs):
                                            ("xla", 2)])
 def test_supports_mask_refuses_unmaskable_attention(impl, pipeline):
     """Ring and Ulysses attention and a block pipeline take no mask: the
-    port's real ring and Ulysses ViTs against the reference's, and a
-    stand-in carrying the fields both functions read for the block
-    pipeline, which the port's ViT still refuses (ROADMAP §1 item 11)."""
-    if not pipeline:
-        assert supports_mask(tget_model(
-            "vit_tiny", attention_impl=impl)) is jzoo.supports_mask(
-            jget_model("vit_tiny", attention_impl=impl)) is False
-        return
-
-    def apply(params, state, x, *, mask=None):
-        return x
-
-    model = types.SimpleNamespace(apply=apply, attention_impl=impl,
-                                  block_pipeline=pipeline)
-    assert supports_mask(model) is jzoo.supports_mask(model) is False
+    port's real ViTs against the reference's (the block pipeline's since
+    the model-parallel slice; it was a stand-in carrying the fields both
+    functions read)."""
+    kw = ({"attention_impl": impl} if not pipeline
+          else {"attention_impl": impl, "block_pipeline": pipeline,
+                "scan_blocks": True})
+    assert supports_mask(tget_model("vit_tiny", **kw)) is \
+        jzoo.supports_mask(jget_model("vit_tiny", **kw)) is False
 
 
 @pytest.mark.parametrize("quantized", [False, True])
@@ -284,7 +277,7 @@ def test_variant_contract_and_refusals():
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    ({"moe_capacity_factor": 1.5}, "item 11"),
+    ({"moe_capacity_factor": 1.5}, "no moe_capacity_factor field"),
     ({"memory_budget_mb": 64.0}, "items 13 and 15"),
     ({"store": object()}, "items 13 and 15"),
     ({"mesh": MeshSpec(data=4)}, "item 12"),

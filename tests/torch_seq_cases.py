@@ -115,7 +115,7 @@ def _rows(n: int, mesh) -> slice:
 
 def _reduce(grads, mesh, loss):
     """The step's rule (train/step.py): the seq sum, then the data mean."""
-    grads = collectives.sum_over_seq(grads, mesh)
+    grads = collectives.sum_over_axis(grads, mesh, "seq")
     return collectives.psum_mean(grads, mesh, loss.reshape(1))
 
 
