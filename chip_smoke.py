@@ -255,6 +255,33 @@ script. Phases (any failure exits nonzero before the final `ok` line):
    ep_engaged 1 at every step, the chief's checkpoint restored on one
    rank bit for bit; the drop fraction and expert load a step, steps/s
    and peak allocated bytes a rank against one rank at the same batch;
+12e. the native layer (`native`): both C++ libraries built with g++ from
+   the checkout's sources into `build/torch_native/`; `lenet5_mnist`
+   through `cli.train`'s `run_config` for `NATIVE_STEPS` steps with
+   `--input_pipeline=native` and then `python` (steps/s and feed wait,
+   figures); the native run preempted and recovered through the C++
+   batcher's `at_step` equal to the straight run bit for bit; two
+   spawned ranks at data = 2 whose rows of each global batch, joined,
+   are the one-rank stream's; the parameter-server demo on the card, sync
+   and async, above the reference test's accuracy floors;
+12f. multislice (`multislice`): `make_mesh(..., slices=with_fake_slices(
+   ...))` on spawned ranks: four ranks of `lenet5_fashion` at data = 4
+   over two slices (each rank's coordinates and groups the hybrid
+   layout's; losses and params the row-major mesh's bit for bit), then
+   eight ranks of `vit_tiny_cifar_pp` at data 2 x pipe 4 over four
+   slices, where the layout is not row-major (coordinates and groups
+   gated the same way; losses within `MS_PP_TOL` of the row-major
+   mesh's);
+12g. the zoo's sharded placement (`zoo_sharded`): `vit_tiny_cifar_flash`
+   served by two ranks under `--serve_rules=tp` through `cli.serve`'s
+   classifier mode with the zoo grid and mixed heights (every request
+   ok; each rank's launches, from 0 just before, exactly 12 of the flash
+   forward a dense batch and 12 of the masked forward a masked batch the
+   chief ran; fixed batches within `ZOO_LOGIT_TOL` of the one-rank "xla"
+   engine), then `vit_tiny_cifar_fsdp_tp` by four ranks (data 2 x model
+   2: every request ok, each rank's resident bytes the rules' share, and
+   a checkpoint trained under dp served under fsdp_tp within
+   `ZS_RESTORE_TOL` of serving it unsharded);
 13. time each kernel at the shapes its path gives it, beside its plain
    version and, where one exists, one library call computing the same
    function (for the Adam kernels `torch._fused_adam_`/`_fused_adamw_`, a
@@ -276,7 +303,8 @@ script. Phases (any failure exits nonzero before the final `ok` line):
 14. print the `{"kernels": [...]}` line (nine kernels: the masked forward's
    Sq > 1 route apart from its Sq = 1 route; the flash rows with their
    launches in `data_parallel`'s ViT run, both ranks, and each rank's in
-   `tensor_parallel` and in each `sequence_parallel` run;
+   `tensor_parallel`, in each `sequence_parallel` run and (the flash
+   forward and the masked forward's Sq > 1 route) in `zoo_sharded`;
    `paged_attention` with each rank's TP launches and
    its times at 2 and 4 heads), then, last, the `ok` line.
 
@@ -3696,7 +3724,9 @@ def _rank_group(target, tag: str, world: int = 2,
         for p in procs:
             p.join(timeout=30)
     phase = {"tp": "tensor_parallel", "sp": "sequence_parallel",
-             "mp": "model_parallel"}[tag]
+             "mp": "model_parallel", "native": "native",
+             "ms": "multislice", "ms8": "multislice", "zoo": "zoo_sharded",
+             "zoo4": "zoo_sharded"}[tag]
     if hung:
         fail(f"{phase}: {len(hung)} of {world} ranks still running after "
              f"{timeout}s")
@@ -4321,6 +4351,614 @@ def model_parallel(torch, dev) -> dict:
     return out
 
 
+#: the `native` phase: LeNet-5 steps through `cli.train` on each input
+#: path, the checkpoint cadence and the step at which the recovery run is
+#: preempted, and the steps of the two-rank slice check
+NATIVE_STEPS, NATIVE_EVERY, NATIVE_PREEMPT_AT = 200, 100, 130
+NATIVE_SLICE_STEPS = 5
+#: the parameter-server demo on the card: workers, steps, and the
+#: reference test's accuracy floors
+PS_WORKERS, PS_STEPS = 2, 200
+PS_FLOORS = {"sync": 0.8, "async": 0.6}
+#: `multislice`: lenet5_fashion's steps at data = 4 over two fake slices;
+#: vit_tiny_cifar_pp's steps and batch a data rank at data 2 x pipe 4 over
+#: four, and its loss limit against the row-major mesh
+MS_FASHION_STEPS = 5
+MS_PP_STEPS, MS_PP_BATCH = 2, 64
+MS_PP_TOL = 1e-2
+#: a small CIFAR-10 twin (2,048 train / 256 test images) for the runs
+#: that evaluate or train a ViT a few steps in these phases
+SMALL_CIFAR = Path(tempfile.gettempdir()) / "dist_mnist_small_cifar"
+#: `zoo_sharded`: the tp serve's traffic, the fsdp_tp serve's, the
+#: cross-strategy restore's logit limit, and the rules' share of a
+#: replicated rank's bytes under FSDP x TP (PR 15's measured state share)
+ZS_REQUESTS, ZS_CONCURRENCY = 64, 32
+ZS_FSDP_TP_REQUESTS = 64
+ZS_RESTORE_TOL = 2e-4
+ZS_FSDP_TP_SHARE, ZS_SHARE_TOL = 0.25178, 0.02
+ZS_CKPT = Path(tempfile.gettempdir()) / "dist_mnist_zs_ckpt"
+
+
+def _small_cifar() -> str:
+    """`SMALL_CIFAR`, written once."""
+    from dist_mnist_tpu_torch.data import datasets
+
+    if not (SMALL_CIFAR / "cifar10_synth.npz").exists():
+        datasets._write_synth_cache(SMALL_CIFAR, "cifar10", datasets._synth(
+            "cifar10", 2048, 256, 0))
+    return str(SMALL_CIFAR)
+
+
+def _rank_init(torch, rank: int, world: int, store: str):
+    """Join the group of a spawned rank on the card, with cuDNN
+    deterministic and TF32 off (bitwise comparisons across processes)."""
+    sys.path.insert(0, str(ROOT))
+    from dist_mnist_tpu_torch.cluster import coordination
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    coordination.initialize_distributed(
+        num_processes=world, process_id=rank,
+        init_method=f"file://{store}", timeout_s=300)
+    return coordination
+
+
+def _run_rank_body(body, rank: int, world: int, store: str,
+                   out_path: str) -> None:
+    """`body(torch, coordination)` on a spawned rank; its record (or its
+    traceback) pickled to `out_path`."""
+    import pickle
+    import traceback
+
+    import torch
+
+    coordination = None
+    try:
+        coordination = _rank_init(torch, rank, world, store)
+        out = body(torch, coordination)
+        out["startup"] = coordination.startup_line(coordination.context())
+        result = {"ok": out}
+    except BaseException:  # noqa: BLE001 — handed to the parent
+        result = {"error": traceback.format_exc()}
+    finally:
+        if coordination is not None:
+            coordination.shutdown()
+    with open(out_path, "wb") as fh:
+        pickle.dump(result, fh)
+
+
+def _native_rank(rank: int, world: int, store: str, out_path: str) -> None:
+    """One rank of `native`'s two-rank group: its slices of the first
+    `NATIVE_SLICE_STEPS` batches of LeNet-5's native stream at data = 2."""
+    def body(torch, coordination):
+        from dist_mnist_tpu_torch.cluster.mesh import MeshSpec, make_mesh
+        from dist_mnist_tpu_torch.configs import get_config
+        from dist_mnist_tpu_torch.data.datasets import load_dataset
+        from dist_mnist_tpu_torch.data.native import NativeBatcher
+
+        cfg = get_config("lenet5_mnist")
+        mesh = make_mesh(MeshSpec(data=world))
+        nb = NativeBatcher(load_dataset(cfg.dataset, seed=cfg.seed),
+                           cfg.batch_size, mesh, seed=cfg.seed)
+        try:
+            rows = [nb.next_local() for _ in range(NATIVE_SLICE_STEPS)]
+        finally:
+            nb.close()
+        return {"data": mesh.rank, "rows": rows}
+
+    _run_rank_body(body, rank, world, store, out_path)
+
+
+def native(torch, dev) -> dict:
+    """Phase `native`: (1) both C++ libraries built from the port's
+    sources with g++ (`build/torch_native/`); (2) `lenet5_mnist` through
+    `cli.train`'s `run_config` for `NATIVE_STEPS` steps with
+    `--input_pipeline=native`, then `python` (prefetch depth 2, the CLI's
+    default): steps/s and the loop's feed wait, figures and no gate; (3)
+    the native run preempted at step `NATIVE_PREEMPT_AT` and recovered
+    from its step-`NATIVE_EVERY` checkpoint through the batcher's
+    `at_step`: its params and optimizer state the straight run's bit for
+    bit (cuDNN deterministic); (4) two spawned ranks at data = 2: their
+    rows of each of `NATIVE_SLICE_STEPS` global batches, joined, the
+    one-rank stream's rows; (5) `run_demo` sync and async on the card
+    (`PS_WORKERS` workers, `PS_STEPS` steps, the synthetic MNIST twin):
+    test accuracy above `PS_FLOORS`, with steps/s, stale drops and
+    per-worker applies. Returns the phase's record."""
+    from torch.backends import cudnn
+
+    from dist_mnist_tpu_torch.cli.train import run_config
+    from dist_mnist_tpu_torch.configs import get_config
+    from dist_mnist_tpu_torch.data.datasets import load_dataset
+    from dist_mnist_tpu_torch.data.native import NativeBatcher, build_library
+    from dist_mnist_tpu_torch.hooks import Hook
+    from dist_mnist_tpu_torch.parallel.ps_demo import build_library as build_ps
+    from dist_mnist_tpu_torch.parallel.ps_demo import run_demo
+    from dist_mnist_tpu_torch.train.loop import PreemptionError
+    from dist_mnist_tpu_torch.utils.tree import flatten_with_path
+
+    t_phase = time.perf_counter()
+    out = {"phase": "native"}
+    t0 = time.perf_counter()
+    libs = {"loader": build_library(force=True),
+            "ps_server": build_ps(force=True)}
+    out["build_s"] = time.perf_counter() - t0
+    out["libraries"] = {k: str(v.relative_to(ROOT)) for k, v in libs.items()}
+    print(json.dumps(out), flush=True)
+
+    class Mark(Hook):
+        def __init__(self):
+            self.marks = []
+
+        def after_step(self, step, state, outputs):
+            self.marks.append((step, time.perf_counter()))
+
+    class PreemptOnce(Hook):
+        def __init__(self, at):
+            self.at, self.fired = at, False
+
+        def after_step(self, step, state, outputs):
+            if step == self.at and not self.fired:
+                self.fired = True
+                raise PreemptionError(f"injected at step {step}")
+
+    cfg = get_config("lenet5_mnist", train_steps=NATIVE_STEPS, eval_every=0,
+                     log_every=NATIVE_STEPS)
+    prev = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        runs, states = {}, {}
+        for pipeline in ("native", "python"):
+            mark = Mark()
+            state, _, ctx = run_config(cfg, device=dev,
+                                       input_pipeline=pipeline,
+                                       prefetch_depth=2, extra_hooks=[mark])
+            torch.cuda.synchronize()
+            (s0, t0), (s1, t1) = mark.marks[0], mark.marks[-1]
+            runs[pipeline] = {
+                "steps_per_sec": (s1 - s0) / max(t1 - t0, 1e-9),
+                "feed_wait_s": ctx["loop"].feed_wait_s,
+                "prefetch": ctx["prefetch"], "elapsed_s": ctx["elapsed"],
+                "batcher": type(getattr(ctx["loop"].batches, "inner",
+                                        ctx["loop"].batches)).__name__}
+            states[pipeline] = state
+        ckpt = Path(tempfile.gettempdir()) / "dist_mnist_native_ckpt"
+        shutil.rmtree(ckpt, ignore_errors=True)
+        hook = PreemptOnce(NATIVE_PREEMPT_AT)
+        recovered, _, ctx = run_config(
+            cfg, device=dev, input_pipeline="native", prefetch_depth=2,
+            checkpoint_dir=str(ckpt), checkpoint_every_steps=NATIVE_EVERY,
+            max_recoveries=1, extra_hooks=[hook])
+        shutil.rmtree(ckpt, ignore_errors=True)
+    finally:
+        cudnn.deterministic, cudnn.benchmark = prev
+    straight = states["native"]
+    same = all(torch.equal(x, y) for tree in ("params", "opt_state")
+               for (_, x), (_, y) in zip(
+                   flatten_with_path(getattr(recovered, tree)),
+                   flatten_with_path(getattr(straight, tree))))
+    out.update(runs=runs, recovery={
+        "preempted_at": NATIVE_PREEMPT_AT, "fired": hook.fired,
+        "recoveries": ctx["loop"].goodput.snapshot()["recoveries"],
+        "step": recovered.step_int, "bitwise_equal_to_straight": same})
+    print(json.dumps({"phase": "native", "runs": runs,
+                      "recovery": out["recovery"]}), flush=True)
+    if runs["native"]["batcher"] != "NativeBatcher":
+        fail(f"native: the native run's batches came from "
+             f"{runs['native']['batcher']}")
+    if not (hook.fired and same and recovered.step_int == NATIVE_STEPS):
+        fail(f"native: the recovered run {out['recovery']} is not the "
+             "straight run bit for bit")
+
+    ranks = _rank_group(_native_rank, "native", world=2, timeout=240)
+    one = NativeBatcher(load_dataset(cfg.dataset, seed=cfg.seed),
+                        cfg.batch_size, None, seed=cfg.seed)
+    try:
+        whole = [one.next_local() for _ in range(NATIVE_SLICE_STEPS)]
+    finally:
+        one.close()
+    by_data = {r["data"]: r["rows"] for r in ranks}
+    joined = all(
+        np.array_equal(np.concatenate([by_data[0][i][0], by_data[1][i][0]]),
+                       img)
+        and np.array_equal(np.concatenate([by_data[0][i][1],
+                                           by_data[1][i][1]]), lab)
+        and by_data[0][i][2] == by_data[1][i][2] == step
+        for i, (img, lab, step) in enumerate(whole))
+    out["two_ranks"] = {"startup": [r["startup"] for r in ranks],
+                        "rows_per_rank": int(by_data[0][0][1].shape[0]),
+                        "joined_equals_one_rank": joined}
+    print(json.dumps({"phase": "native", "two_ranks": out["two_ranks"]}),
+          flush=True)
+    if not joined or sorted(by_data) != [0, 1]:
+        fail("native: the two data ranks' rows, joined, are not the "
+             "one-rank stream's")
+
+    out["ps_demo"] = {}
+    for mode in ("sync", "async"):
+        rec = run_demo(mode=mode, num_workers=PS_WORKERS,
+                       train_steps=PS_STEPS, device=dev)
+        out["ps_demo"][mode] = rec
+        print(json.dumps({"phase": "native", "ps_demo": rec,
+                          "floor": PS_FLOORS[mode]}), flush=True)
+        if rec["test_accuracy"] <= PS_FLOORS[mode] \
+                or rec["global_step"] < PS_STEPS:
+            fail(f"native: ps demo {mode} {rec} (floor {PS_FLOORS[mode]})")
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(json.dumps({"phase": "native", "wall_s": out["wall_s"]}),
+          flush=True)
+    return out
+
+
+def ms_expected_grid(shape: tuple, n_slices: int) -> np.ndarray:
+    """The rank at each (d, m, s, p) that `mesh_utils.
+    create_hybrid_device_mesh` gives over `n_slices` contiguous blocks of
+    ranks, from `hybrid_mesh_shapes`' ICI and DCN shapes: a coordinate's
+    slice is its DCN block in row-major order, its place in the slice its
+    row-major ICI offset (written here apart from the port's layout)."""
+    from dist_mnist_tpu_torch.cluster.mesh import hybrid_mesh_shapes
+
+    ici, dcn = hybrid_mesh_shapes(shape, n_slices)
+    grid = np.empty(shape, dtype=np.int64)
+    per = int(np.prod(ici))
+    for idx in np.ndindex(*shape):
+        outer = [i // c for i, c in zip(idx, ici)]
+        inner = [i % c for i, c in zip(idx, ici)]
+        grid[idx] = (np.ravel_multi_index(outer, dcn) * per
+                     + np.ravel_multi_index(inner, ici))
+    return grid
+
+
+def _ms_layout(torch, mesh) -> dict:
+    """This rank's coordinates and each wide axis's group ranks."""
+    from dist_mnist_tpu_torch.cluster.mesh import AXES
+
+    return {"coords": [mesh.rank, mesh.model_index, mesh.seq_index,
+                       mesh.pipe_index],
+            "groups": {axis: torch.distributed.get_process_group_ranks(
+                mesh.axis_group(axis)) for axis in AXES
+                if mesh.axis_group(axis) is not None}}
+
+
+def _ms_rank(rank: int, world: int, store: str, out_path: str) -> None:
+    """One rank of `multislice`'s groups: on four ranks `lenet5_fashion`
+    at data = 4, on eight `vit_tiny_cifar_pp` at data 2 x pipe 4, each
+    through `run_config` on the fake-slice mesh and on the row-major one:
+    the losses a step, the final params digest, the sliced mesh's layout
+    and steps/s."""
+    def body(torch, coordination):
+        import dataclasses
+
+        from dist_mnist_tpu_torch.cli.train import run_config
+        from dist_mnist_tpu_torch.cluster.mesh import (
+            MeshSpec,
+            make_mesh,
+            with_fake_slices,
+        )
+        from dist_mnist_tpu_torch.configs import get_config
+        from dist_mnist_tpu_torch.hooks import Hook
+        from dist_mnist_tpu_torch.parallel.sharding import unshard_state
+        from dist_mnist_tpu_torch.train.state import params_digest
+
+        class Mark(Hook):
+            def __init__(self):
+                self.marks = []
+
+            def after_step(self, step, state, outputs):
+                self.marks.append((step, float(outputs["loss"]),
+                                   time.perf_counter()))
+
+        if world == 4:
+            spec, slices = MeshSpec(data=4), 2
+            cfg = get_config("lenet5_fashion", train_steps=MS_FASHION_STEPS,
+                             eval_every=0, log_every=MS_FASHION_STEPS)
+            data_dir = None
+        else:
+            spec, slices = MeshSpec(data=2, pipe=4), 4
+            cfg = dataclasses.replace(
+                get_config("vit_tiny_cifar_pp"), train_steps=MS_PP_STEPS,
+                batch_size=2 * MS_PP_BATCH, eval_every=0,
+                log_every=MS_PP_STEPS, mesh=spec)
+            data_dir = str(SMALL_CIFAR)
+        out = {}
+        for layout in ("sliced", "row_major"):
+            tags = (with_fake_slices(range(world), slices)
+                    if layout == "sliced" else None)
+            mesh = make_mesh(spec, slices=tags)
+            mark = Mark()
+            state, _, _ = run_config(cfg, device=mesh.device, mesh=mesh,
+                                     data_dir=data_dir, extra_hooks=[mark])
+            (s0, _, t0), (s1, _, t1) = mark.marks[0], mark.marks[-1]
+            out[layout] = {
+                "losses": [loss for _, loss, _ in mark.marks],
+                "digest": params_digest(unshard_state(state).params),
+                "grid": mesh.grid.tolist(), **_ms_layout(torch, mesh),
+                "steps_per_sec": (s1 - s0) / max(t1 - t0, 1e-9)}
+        return out
+
+    _run_rank_body(body, rank, world, store, out_path)
+
+
+def _ms_check(ranks: list, shape: tuple, n_slices: int, tag: str) -> dict:
+    """Gate each rank's coordinates and axis groups on the sliced mesh
+    against `ms_expected_grid`; the grid's record."""
+    from dist_mnist_tpu_torch.cluster.mesh import AXES
+
+    want = ms_expected_grid(shape, n_slices)
+    for r, rank in enumerate(ranks):
+        got = rank["sliced"]
+        d, m, s, p = got["coords"]
+        coords = tuple(int(i) for i in np.argwhere(want == r)[0])
+        groups = {}
+        for i, axis in enumerate(AXES):
+            if shape[i] > 1:
+                line = list(coords)
+                members = []
+                for k in range(shape[i]):
+                    line[i] = k
+                    members.append(int(want[tuple(line)]))
+                groups[axis] = sorted(members)
+        if (d, m, s, p) != coords or got["groups"] != groups \
+                or np.asarray(got["grid"]).tolist() != want.tolist():
+            fail(f"multislice {tag}: rank {r} at {(d, m, s, p)} with groups "
+                 f"{got['groups']} (want {coords}, {groups})")
+    row_major = np.arange(want.size).reshape(shape)
+    return {"grid": want.reshape(shape[0], -1).tolist(),
+            "layouts_coincide": bool(np.array_equal(want, row_major))}
+
+
+def multislice(torch, dev) -> dict:
+    """Phase `multislice`: gloo ranks sharing the card, `make_mesh(...,
+    slices=with_fake_slices(...))`. (1) four ranks, `lenet5_fashion` at
+    data = 4 over two fake slices (the DCN factor on data) for
+    `MS_FASHION_STEPS` steps: each rank's coordinates and groups the
+    hybrid layout's, and losses and final params the row-major mesh's bit
+    for bit (the two layouts coincide here; printed); (2) eight ranks,
+    `vit_tiny_cifar_pp` at full width, data 2 x pipe 4 over four fake
+    slices (slice k = pipe k, not row-major), `MS_PP_STEPS` steps at
+    `MS_PP_BATCH` a data rank on a small CIFAR-10 twin: the layout gated
+    as in (1), the losses within `MS_PP_TOL` of the row-major mesh's.
+    Returns the phase's record."""
+    t_phase = time.perf_counter()
+    out = {"phase": "multislice"}
+    four = _rank_group(_ms_rank, "ms", world=4, timeout=300)
+    out["fashion"] = _ms_check(four, (4, 1, 1, 1), 2, "fashion")
+    same = all(r["sliced"]["losses"] == r["row_major"]["losses"]
+               and r["sliced"]["digest"] == r["row_major"]["digest"]
+               for r in four) and len({r["sliced"]["digest"]
+                                       for r in four}) == 1
+    out["fashion"].update(
+        losses=four[0]["sliced"]["losses"], bitwise_equal_to_row_major=same,
+        steps_per_sec=[r["sliced"]["steps_per_sec"] for r in four],
+        row_major_steps_per_sec=[r["row_major"]["steps_per_sec"]
+                                 for r in four],
+        wall_s=time.perf_counter() - t_phase)
+    print(json.dumps({"phase": "multislice", "fashion": out["fashion"]}),
+          flush=True)
+    if not same or len(four[0]["sliced"]["losses"]) != MS_FASHION_STEPS:
+        fail(f"multislice fashion: the sliced mesh's run is not the "
+             f"row-major one's bit for bit: {out['fashion']}")
+    _small_cifar()
+    t0 = time.perf_counter()
+    eight = _rank_group(_ms_rank, "ms8", world=8, timeout=420)
+    out["pp"] = _ms_check(eight, (2, 1, 1, 4), 4, "pp")
+    got, want = eight[0]["sliced"]["losses"], eight[0]["row_major"]["losses"]
+    errs = [abs(a - b) / abs(b) for a, b in zip(got, want)]
+    out["pp"].update(
+        losses=got, row_major_losses=want, loss_rel_err=errs, tol=MS_PP_TOL,
+        steps_per_sec=[r["sliced"]["steps_per_sec"] for r in eight],
+        row_major_steps_per_sec=[r["row_major"]["steps_per_sec"]
+                                 for r in eight],
+        wall_s=time.perf_counter() - t0)
+    print(json.dumps({"phase": "multislice", "pp": out["pp"]}), flush=True)
+    if out["pp"]["layouts_coincide"]:
+        fail("multislice pp: the hybrid layout should differ from row-major")
+    if len(got) != MS_PP_STEPS or not np.isfinite(got).all() \
+            or max(errs) > MS_PP_TOL \
+            or len({json.dumps(r["sliced"]["losses"]) for r in eight}) != 1:
+        fail(f"multislice pp: losses {got} against row-major {want} "
+             f"(limit {MS_PP_TOL}), or the ranks' losses differ")
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(json.dumps({"phase": "multislice", "wall_s": out["wall_s"]}),
+          flush=True)
+    return out
+
+
+def _zs_fixed_native(seed: int = 12) -> list:
+    """Two fixed batches of 32 native-height CIFAR images."""
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, 256, size=(32, 32, 32, 3), dtype=np.uint8)
+            for _ in range(2)]
+
+
+def _zs_f32_config(name: str):
+    import dataclasses
+
+    import torch
+
+    from dist_mnist_tpu_torch.configs import get_config
+
+    cfg = get_config(name)
+    return dataclasses.replace(cfg, model_kwargs={
+        **cfg.model_kwargs, "compute_dtype": torch.float32})
+
+
+def _zs_rank(rank: int, world: int, store: str, out_path: str) -> None:
+    """One rank of `zoo_sharded`'s groups, through `cli.serve`'s
+    classifier mode (`serve_classifier`, what `cli.serve --mesh` runs on
+    each rank): on two ranks `vit_tiny_cifar_flash` under
+    `--serve_rules=tp` with the zoo grid and the mixed-height loadgen
+    (launch counters zeroed just before, read just after), then the fixed
+    zoo batches through the same placement; on four
+    `vit_tiny_cifar_fsdp_tp` over data 2 x model 2, then the `dp`
+    checkpoint restored under fsdp_tp (f32 compute) and the fixed native
+    batches."""
+    def body(torch, coordination):
+        from dist_mnist_tpu_torch.cli import serve as serve_cli
+        from dist_mnist_tpu_torch.cluster.mesh import MeshSpec, make_mesh
+        from dist_mnist_tpu_torch.ops.kernels import (
+            launch_counts,
+            reset_launch_counts,
+        )
+        from dist_mnist_tpu_torch.serve import (
+            build_zoo_engine,
+            load_for_serving,
+            run_longctx_loadgen,
+        )
+
+        out = {}
+        if world == 2:
+            mesh = make_mesh(MeshSpec(data=1, model=2))
+            args = serve_cli.build_parser().parse_args([
+                "--config=vit_tiny_cifar_flash", "--serve_rules=tp",
+                "--seq_buckets=auto", "--max_batch=32",
+                f"--requests={ZS_REQUESTS}",
+                f"--concurrency={ZS_CONCURRENCY}"])
+            reset_launch_counts()
+            out["summary"] = serve_cli.serve_classifier(
+                args, mesh.device, mesh, loadgen=run_longctx_loadgen)
+            torch.cuda.synchronize()
+            out["launches"] = launch_counts()
+            bundle = load_for_serving("vit_tiny_cifar_flash", mesh.device,
+                                      mesh=mesh, sharding_rules="tp")
+            engine = build_zoo_engine(bundle, mesh.device,
+                                      model_name="vit_tiny", max_bucket=32,
+                                      seq_buckets="auto")
+            batches = zoo_fixed_batches(engine.seq_grid)
+        else:
+            mesh = make_mesh(MeshSpec(data=2, model=2))
+            args = serve_cli.build_parser().parse_args([
+                "--config=vit_tiny_cifar_fsdp_tp", "--max_batch=32",
+                f"--requests={ZS_FSDP_TP_REQUESTS}", "--concurrency=16"])
+            out["summary"] = serve_cli.serve_classifier(args, mesh.device,
+                                                        mesh)
+            bundle = load_for_serving(
+                _zs_f32_config("vit_tiny_cifar_fsdp_tp"), mesh.device,
+                checkpoint_dir=str(ZS_CKPT), mesh=mesh,
+                sharding_rules="fsdp_tp")
+            engine = build_zoo_engine(bundle, mesh.device,
+                                      model_name="vit_tiny", max_bucket=32)
+            out["restored"] = bundle.restored
+            batches = [("native", x, None) for x in _zs_fixed_native()]
+        out["bytes"] = engine.state_bytes_per_device()
+        if engine.is_follower:
+            engine.follow()
+        else:
+            try:
+                out["fixed"] = [engine.predict(x, heights=r)
+                                for _, x, r in batches]
+            finally:
+                engine.close()
+        return out
+
+    _run_rank_body(body, rank, world, store, out_path)
+
+
+def zoo_sharded(torch, dev) -> dict:
+    """Phase `zoo_sharded`: the zoo's sharded placement on ranks sharing
+    the card. (1) `vit_tiny_cifar_flash` (bf16, full width) served by two
+    ranks under `--serve_rules=tp` through `cli.serve`'s classifier mode
+    with the zoo grid and `run_longctx_loadgen`'s mixed heights
+    (`ZS_REQUESTS` requests): every request ok; each rank's launches, from
+    0 just before, exactly 12 `flash_attention_forward` a dense batch the
+    chief's engine ran and 12 `masked_flash_attention` a masked one, no
+    other kernel (the follower runs the chief's cells); the fixed zoo
+    batches within `ZOO_LOGIT_TOL` of the largest logit of the one-rank
+    "xla" engine on the same seeded weights. (2) `vit_tiny_cifar_fsdp_tp`
+    served by four ranks (data 2 x model 2, xla attention): every request
+    ok; each rank's resident bytes `ZS_FSDP_TP_SHARE` +- `ZS_SHARE_TOL`
+    of the one-rank engine's; a checkpoint trained by `cli.train`'s
+    `run_config` under dp and served under fsdp_tp (f32 compute, TF32
+    off) gives the unsharded engine's logits within `ZS_RESTORE_TOL` of
+    the largest. Prints p50/p99 and the bytes a rank. Returns the
+    phase's record."""
+    import dataclasses
+
+    from dist_mnist_tpu_torch.cli.train import run_config
+    from dist_mnist_tpu_torch.cluster.mesh import MeshSpec
+    from dist_mnist_tpu_torch.configs import get_config
+    from dist_mnist_tpu_torch.serve import build_zoo_engine, load_for_serving
+
+    t_phase = time.perf_counter()
+    out = {"phase": "zoo_sharded"}
+    two = _rank_group(_zs_rank, "zoo", world=2, timeout=300)
+    summary = two[0]["summary"]
+    cells = summary["cells"]
+    dense = sum(n for c, n in cells.items() if c.endswith("/dense"))
+    masked = sum(n for c, n in cells.items() if c.endswith("/masked"))
+    want = {"flash_attention_forward": 12 * dense,
+            "masked_flash_attention": 12 * masked}
+    launches = [{k: v for k, v in r["launches"].items() if v} for r in two]
+    plain = build_zoo_engine(load_for_serving("vit_tiny_cifar", dev), dev,
+                             model_name="vit_tiny", max_bucket=32,
+                             seq_buckets="auto")
+    batches = zoo_fixed_batches(plain.seq_grid)
+    ref = [plain.predict(x, heights=r) for _, x, r in batches]
+    diffs = rel_logit_diffs(two[0]["fixed"], ref)
+    out["tp"] = {
+        "ok": summary["ok"], "n_requests": summary["n_requests"],
+        "p50_ms": summary["p50_ms"], "p99_ms": summary["p99_ms"],
+        "seq_bucket_counts": summary.get("seq_bucket_counts"),
+        "dense_batches": dense, "masked_batches": masked, "want": want,
+        "launches": launches, "bytes": [r["bytes"] for r in two],
+        "one_rank_bytes": plain.state_bytes_per_device(),
+        "max_rel_logit_diff_vs_xla": max(diffs), "tol": ZOO_LOGIT_TOL,
+        "wall_s": time.perf_counter() - t_phase}
+    print(json.dumps({"phase": "zoo_sharded", "tp": out["tp"]}), flush=True)
+    if summary["ok"] != ZS_REQUESTS:
+        fail(f"zoo_sharded tp: {summary['ok']} of {ZS_REQUESTS} ok")
+    if any(got != want for got in launches) or not dense or not masked:
+        fail(f"zoo_sharded tp: launches {launches} a rank (want {want})")
+    if max(diffs) > ZOO_LOGIT_TOL:
+        fail(f"zoo_sharded tp: fixed-batch logits {diffs} of the largest "
+             f"from the one-rank xla engine's (limit {ZOO_LOGIT_TOL})")
+
+    t0 = time.perf_counter()
+    shutil.rmtree(ZS_CKPT, ignore_errors=True)
+    cfg = dataclasses.replace(
+        get_config("vit_tiny_cifar_fsdp_tp"), sharding_rules="dp",
+        mesh=MeshSpec(data=1), batch_size=64, train_steps=2, eval_every=0)
+    run_config(cfg, device=dev, data_dir=_small_cifar(),
+               checkpoint_dir=str(ZS_CKPT), checkpoint_every_steps=2)
+    four = _rank_group(_zs_rank, "zoo4", world=4, timeout=300)
+    f32 = _zs_f32_config("vit_tiny_cifar_fsdp_tp")
+    whole = build_zoo_engine(load_for_serving(f32, dev,
+                                              checkpoint_dir=str(ZS_CKPT)),
+                             dev, model_name="vit_tiny", max_bucket=32)
+    shutil.rmtree(ZS_CKPT, ignore_errors=True)
+    ref = [whole.predict(x) for x in _zs_fixed_native()]
+    restore_diffs = rel_logit_diffs(four[0]["fixed"], ref)
+    replicated = whole.state_bytes_per_device()["total_bytes"]
+    shares = [r["bytes"]["total_bytes"] / replicated for r in four]
+    summary = four[0]["summary"]
+    out["fsdp_tp"] = {
+        "ok": summary["ok"], "n_requests": summary["n_requests"],
+        "p50_ms": summary["p50_ms"], "p99_ms": summary["p99_ms"],
+        "bytes": [r["bytes"] for r in four], "one_rank_bytes": replicated,
+        "shares": shares, "share_want": ZS_FSDP_TP_SHARE,
+        "share_tol": ZS_SHARE_TOL, "restored": [r["restored"] for r in four],
+        "restore_rel_logit_diff": restore_diffs, "tol": ZS_RESTORE_TOL,
+        "wall_s": time.perf_counter() - t0}
+    print(json.dumps({"phase": "zoo_sharded", "fsdp_tp": out["fsdp_tp"]}),
+          flush=True)
+    if summary["ok"] != ZS_FSDP_TP_REQUESTS:
+        fail(f"zoo_sharded fsdp_tp: {summary['ok']} of "
+             f"{ZS_FSDP_TP_REQUESTS} ok")
+    if any(abs(s - ZS_FSDP_TP_SHARE) > ZS_SHARE_TOL for s in shares):
+        fail(f"zoo_sharded fsdp_tp: resident shares {shares} (want "
+             f"{ZS_FSDP_TP_SHARE} +- {ZS_SHARE_TOL})")
+    if not all(out["fsdp_tp"]["restored"]) \
+            or max(restore_diffs) > ZS_RESTORE_TOL:
+        fail(f"zoo_sharded fsdp_tp: the dp checkpoint under fsdp_tp gives "
+             f"{restore_diffs} of the largest logit from the unsharded "
+             f"engine's (limit {ZS_RESTORE_TOL})")
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(json.dumps({"phase": "zoo_sharded", "wall_s": out["wall_s"]}),
+          flush=True)
+    return out
+
+
 FLASH_BODIES = {
     "flash_attention_forward": "flash_fwd_mma_onepass (bf16, S <= 128; "
                                "flash_fwd_mma_tiled above)",
@@ -4888,6 +5526,13 @@ def main() -> None:
     sp = sequence_parallel(torch, dev)
     # -- 12d. model parallelism: EP and the pipeline on four ranks --------
     model_parallel(torch, dev)
+    # -- 12e. the native layer: the C++ loader through cli.train, the PS
+    # demo ------------------------------------------------------------------
+    native(torch, dev)
+    # -- 12f. the multislice rank layout over fake slices -------------------
+    multislice(torch, dev)
+    # -- 12g. the zoo's sharded placement (tp, fsdp_tp) ----------------------
+    zs = zoo_sharded(torch, dev)
 
     # -- 13. timing at the paths' shapes -------------------------------------
     timed = {}
@@ -5086,6 +5731,10 @@ def main() -> None:
         f"D={SP_ULYSSES_SHAPE[3]} (the D = 64 instantiation), bf16")
     flash_rows[0]["launches_zoo_flash_serve"] = \
         zoo["launches"]["flash_attention_forward"]
+    flash_rows[0]["launches_zoo_sharded"] = [
+        r.get("flash_attention_forward", 0) for r in zs["tp"]["launches"]]
+    masked_sq_row["launches_zoo_sharded"] = [
+        r.get("masked_flash_attention", 0) for r in zs["tp"]["launches"]]
     flash_rows[0]["launches_data_parallel"] = dp["vit_launches"][
         "flash_attention_forward"]
     flash_rows[1]["launches_data_parallel"] = (

@@ -34,6 +34,16 @@ and the loadgen and prints the summary, the others follow its engine
 calls (`serve/decode.DecodeEngine.follow`). With `--device=cpu` the
 ranks run on the CPU over gloo.
 
+Without `--decode`, `--mesh=data=D,model=M` serves the classifier
+resident-sharded over D x M ranks, spawned the same way:
+`--serve_rules=dp|fsdp|tp|fsdp_tp` places the weights (default the
+config's training strategy; a checkpoint trained under one re-lands in
+another's layout), a bucket's rows split over ``data``, and rank 0 runs
+the server, the batcher and the loadgen while the others follow its
+cells (`serve/engine.InferenceEngine.follow`). Each rank logs its kernel
+launches and the cells it ran, and its resident bytes. `--quant` over
+more than one rank refuses (ROADMAP §1 item 12's rest).
+
 Runs on the CUDA device by default and exits with an error when there is
 none; `--device=cpu` runs the plain CPU path. Weights are those of a
 committed step under `--checkpoint_dir` (`--step`, default the latest;
@@ -127,8 +137,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="loadgen in-flight window")
     p.add_argument("--seed", type=int, default=0, help="loadgen input seed")
     p.add_argument("--mesh", default=None,
-                   help='--decode: "model=M" serves over M tensor-parallel '
-                        "ranks, spawned by this command")
+                   help='"data=D,model=M": serve over D x M ranks, spawned '
+                        "by this command (--decode: model=M only, "
+                        "head-sharded)")
+    p.add_argument("--serve_rules", default=None,
+                   help="serve-time placement over --mesh: dp | fsdp | tp | "
+                        "fsdp_tp (None = the config's training strategy)")
     # set by the spawning command on each rank (cli/launch.py)
     p.add_argument("--coordinator_address", default=None,
                    help=argparse.SUPPRESS)
@@ -140,18 +154,28 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _decode_mesh_ranks(args) -> int:
-    """The model ranks `--mesh` asks for (1 without it); refuses what the
-    decode engine cannot shard."""
+def _mesh_axes(args) -> dict:
+    """``{axis: ranks}`` of `--mesh` ({} without it)."""
     if not args.mesh:
-        return 1
-    axes = {k: int(v) for k, v in (part.split("=")
+        return {}
+    return {k: int(v) for k, v in (part.split("=")
                                    for part in args.mesh.split(","))}
+
+
+def _mesh_ranks(args) -> int:
+    """The ranks `--mesh` asks for (1 without it); refuses what the
+    engine cannot shard."""
+    axes = _mesh_axes(args)
+    if not axes:
+        return 1
     if not args.decode:
-        raise SystemExit(
-            "error: --mesh shards the --decode engine; the classifier "
-            "zoo's sharded placement joins the port with ROADMAP §1 item "
-            "12 (--serve_rules)")
+        spec = _zoo_spec(axes)
+        if args.quant and spec.data * spec.model > 1:
+            raise SystemExit(
+                "error: --quant over more than one rank joins the port with "
+                "ROADMAP §1 item 12's rest (a row-parallel slice's "
+                "per-channel scales are not the whole leaf's)")
+        return spec.data * spec.model
     extra = {k: v for k, v in axes.items()
              if k != "model" and v not in (1, -1)}
     if extra:
@@ -160,6 +184,21 @@ def _decode_mesh_ranks(args) -> int:
             "the model axis only (replicas behind a router join with "
             "ROADMAP §1 item 15)")
     return axes.get("model", 1)
+
+
+def _zoo_spec(axes: dict):
+    """The classifier mesh of `--mesh`'s axes: data and model only."""
+    from dist_mnist_tpu_torch.cluster.mesh import MeshSpec
+
+    extra = {k: v for k, v in axes.items()
+             if k not in ("data", "model") and v not in (1, -1)}
+    if extra:
+        raise SystemExit(
+            f"error: --mesh {axes}: the zoo serves over the data and model "
+            "axes (a seq or pipe axis shards a training step)")
+    data = axes.get("data", 1)
+    return MeshSpec(data=1 if data == -1 else data,
+                    model=axes.get("model", 1))
 
 
 def _run_decode(args, device, mesh=None) -> dict | None:
@@ -210,8 +249,9 @@ def _spawn_ranks(argv: list[str], args, ranks: int) -> int:
                   platform="cpu" if args.device == "cpu" else None)
 
 
-def _run_decode_rank(args) -> dict | None:
-    """One rank of a tensor-parallel decode server."""
+def _run_rank(args) -> dict | None:
+    """One rank of a sharded server: the decode engine's heads, or the
+    classifier zoo's shards; the summary on the chief, None elsewhere."""
     from dist_mnist_tpu_torch.cluster import coordination
     from dist_mnist_tpu_torch.cluster.mesh import MeshSpec, make_mesh
 
@@ -219,12 +259,94 @@ def _run_decode_rank(args) -> dict | None:
         args.coordinator_address, args.num_processes, args.process_id,
         platform=args.platform)
     try:
-        mesh = make_mesh(MeshSpec(data=1, model=args.num_processes),
-                         device=ctx.device if ctx is not None else None)
+        spec = (MeshSpec(data=1, model=args.num_processes) if args.decode
+                else _zoo_spec(_mesh_axes(args)))
+        mesh = make_mesh(spec, device=ctx.device if ctx is not None
+                         else None)
         log.info("%s", coordination.startup_line(ctx))
-        return _run_decode(args, mesh.device, mesh)
+        if args.decode:
+            return _run_decode(args, mesh.device, mesh)
+        return serve_classifier(args, mesh.device, mesh)
     finally:
         coordination.shutdown()
+
+
+def serve_classifier(args, device, mesh=None, *, loadgen=None) -> dict | None:
+    """The classifier mode: the bundle (sharded by `--serve_rules` on a
+    `mesh` of several ranks), the zoo engine, the server and the seeded
+    loadgen (`loadgen(server, n_requests=, concurrency=, seed=)`, default
+    `run_loadgen` at the native image shape); the summary JSON's dict on
+    the chief, None on a follower rank, which runs the chief's cells
+    until it closes the engine. Every rank logs the kernel launches and
+    the cells it ran."""
+    from dist_mnist_tpu_torch.ops.kernels import launch_counts
+
+    cfg = get_config(args.config)
+    bundle = load_for_serving(cfg, device, quant=args.quant,
+                              checkpoint_dir=args.checkpoint_dir,
+                              step=args.step, mesh=mesh,
+                              sharding_rules=args.serve_rules)
+    engine = build_zoo_engine(
+        bundle, device, model_name=cfg.model,
+        max_bucket=max(args.max_batch, 1),
+        seq_buckets=args.seq_buckets or None,
+        moe_capacity_factor=args.moe_capacity_factor or None)
+    state_bytes = engine.state_bytes_per_device()
+    log.info("resident serve state per rank: %s",
+             json.dumps(state_bytes, sort_keys=True))
+
+    def log_rank():
+        log.info("kernel launches: %s",
+                 json.dumps(launch_counts(), sort_keys=True))
+        log.info("served cells: %s",
+                 json.dumps(engine.runs_per_cell(), sort_keys=True))
+
+    if engine.is_follower:
+        log.info("follower ran %d cells", engine.follow())
+        log_rank()
+        return None
+    if loadgen is None:
+        def loadgen(server, **kw):
+            return run_loadgen(server, image_shape=bundle.image_shape, **kw)
+    server = InferenceServer(engine, ServeConfig(
+        max_batch=args.max_batch,
+        max_wait_ms=args.max_wait_ms,
+        queue_depth=args.queue_depth,
+        default_deadline_ms=args.deadline_ms or None,
+        prewarm=args.prewarm,
+    ))
+    try:
+        with server:
+            summary = loadgen(server, n_requests=args.requests,
+                              concurrency=args.concurrency, seed=args.seed)
+            stats = server.stats()
+    finally:
+        engine.close()
+    log_rank()
+    for key in ("mean_moe_drop_fraction", "max_moe_drop_fraction"):
+        if key in stats:
+            summary[key] = stats[key]
+    if args.moe_capacity_factor:
+        summary["moe_capacity_factor"] = args.moe_capacity_factor
+    summary["checkpoint_step"] = bundle.step
+    summary["restored"] = bundle.restored
+    summary["serve_state_bytes_per_device"] = state_bytes
+    summary["cells"] = engine.runs_per_cell()
+    if mesh is not None and mesh.ranks > 1:
+        from dist_mnist_tpu_torch.parallel.sharding import rules_name
+
+        summary["mesh"] = {k: v for k, v in mesh.shape.items() if v > 1}
+        summary["serve_rules"] = rules_name(bundle.rules)
+    if bundle.quant:
+        summary["quant"] = bundle.quant
+        summary["quant_error_max"] = bundle.quant_report["max_abs_err"]
+        summary["quant_rel_err_max"] = bundle.quant_report["max_rel_err"]
+        summary["quant_leaves"] = bundle.quant_report["n_quantized"]
+    if engine.seq_grid is not None:
+        summary["seq_buckets"] = list(engine.seq_grid.heights)
+        summary["seq_bucket_counts"] = {
+            str(k): v for k, v in sorted(engine.seq_bucket_counts.items())}
+    return summary
 
 
 def main(argv=None) -> dict | None:
@@ -242,65 +364,21 @@ def main(argv=None) -> dict | None:
         raise SystemExit(f"error: {err}") from None
     device_name = (torch.cuda.get_device_name(device)
                    if device.type == "cuda" else "cpu")
-    ranks = _decode_mesh_ranks(args)
+    ranks = _mesh_ranks(args)
     if ranks > 1 and args.num_processes is None:
         rc = _spawn_ranks(argv, args, ranks)
         if rc:
             raise SystemExit(rc)
         return None
-    if args.decode:
-        if args.num_processes and args.num_processes > 1:
-            summary = _run_decode_rank(args)
-            if summary is None:
-                return None
-        else:
-            summary = _run_decode(args, device)
-        summary["device"] = device_name
-        print(json.dumps(summary, indent=2, sort_keys=True))
-        return summary
-    cfg = get_config(args.config)
-    bundle = load_for_serving(cfg, device, quant=args.quant,
-                              checkpoint_dir=args.checkpoint_dir,
-                              step=args.step)
-    engine = build_zoo_engine(
-        bundle, device, model_name=cfg.model,
-        max_bucket=max(args.max_batch, 1),
-        seq_buckets=args.seq_buckets or None,
-        moe_capacity_factor=args.moe_capacity_factor or None)
-    server = InferenceServer(engine, ServeConfig(
-        max_batch=args.max_batch,
-        max_wait_ms=args.max_wait_ms,
-        queue_depth=args.queue_depth,
-        default_deadline_ms=args.deadline_ms or None,
-        prewarm=args.prewarm,
-    ))
-    with server:
-        summary = run_loadgen(
-            server,
-            n_requests=args.requests,
-            concurrency=args.concurrency,
-            image_shape=bundle.image_shape,
-            seed=args.seed,
-        )
-        stats = server.stats()
-    for key in ("mean_moe_drop_fraction", "max_moe_drop_fraction"):
-        if key in stats:
-            summary[key] = stats[key]
-    if args.moe_capacity_factor:
-        summary["moe_capacity_factor"] = args.moe_capacity_factor
+    if args.num_processes and args.num_processes > 1:
+        summary = _run_rank(args)
+    elif args.decode:
+        summary = _run_decode(args, device)
+    else:
+        summary = serve_classifier(args, device)
+    if summary is None:
+        return None
     summary["device"] = device_name
-    summary["checkpoint_step"] = bundle.step
-    summary["restored"] = bundle.restored
-    summary["serve_state_bytes_per_device"] = engine.state_bytes_per_device()
-    if bundle.quant:
-        summary["quant"] = bundle.quant
-        summary["quant_error_max"] = bundle.quant_report["max_abs_err"]
-        summary["quant_rel_err_max"] = bundle.quant_report["max_rel_err"]
-        summary["quant_leaves"] = bundle.quant_report["n_quantized"]
-    if engine.seq_grid is not None:
-        summary["seq_buckets"] = list(engine.seq_grid.heights)
-        summary["seq_bucket_counts"] = {
-            str(k): v for k, v in sorted(engine.seq_bucket_counts.items())}
     print(json.dumps(summary, indent=2, sort_keys=True))
     return summary
 

@@ -28,7 +28,7 @@ parameter-server-era flags (--job_name/--task_index/--num_gpus/
 accepted and warned about, as the reference does. Every flag of a
 subsystem the port does not have yet (a seq axis beside a model axis,
 a pipe axis beside either, overlap, a
-PRNG implementation, the native loader, fault plans, the compile cache,
+PRNG implementation, fault plans, the compile cache,
 elastic resizing, async snapshots and peers, the metrics exporter,
 anomaly detection, the tuned store) exits with an error that names the
 ROADMAP §1 item it waits for; `--host_device_count` refuses as a stated
@@ -36,8 +36,10 @@ departure (one device per process).
 
 A run: the dataset (or its synthetic twin), a seeded init or the latest
 checkpoint, the config's step on the host batcher (`--input_pipeline=
-python`, prefetched `--prefetch_depth` batches ahead on a side CUDA
-stream) or on the device-resident dataset (`device`, or `device_sharded`
+python`) or the C++ one (`native`, `data/native`: its rows assembled on a
+producer thread; g++ builds it, and a missing g++ fails the run), either
+prefetched `--prefetch_depth` batches ahead on a side CUDA stream, or on
+the device-resident dataset (`device`, or `device_sharded`
 with 1/N of the rows on each rank, optionally in chunks of
 `--scan_chunk` steps), the reference's hooks in its order (the ones that
 write files on the chief, the logging ones on every rank), and
@@ -68,8 +70,6 @@ __all__ = ["build_optimizer", "run_config", "main"]
 DEFAULT_PRNG_IMPL = "threefry2x32"
 
 #: ROADMAP §1 items the refused flags and options wait for
-_PARALLEL = ("ROADMAP §1 item 12 (the native loader and the multislice "
-             "mesh)")
 _RESILIENCE = "ROADMAP §1 item 13 (resilience, async I/O, overlap)"
 _TELEMETRY = "ROADMAP §1 item 14 (telemetry)"
 _TUNING = "ROADMAP §1 item 16 (tuning and lint)"
@@ -223,12 +223,10 @@ def run_config(
         t0 = time.monotonic()
         # flag-combination errors fail BEFORE any expensive work (dataset
         # load, init, restore) — decidable from the arguments alone
-        if input_pipeline == "native":
-            raise _refuse(f"--input_pipeline={input_pipeline}", _PARALLEL)
-        if input_pipeline not in ("python", "device", "device_sharded"):
+        if input_pipeline not in ("python", "native", "device",
+                                  "device_sharded"):
             raise ValueError(f"unknown input_pipeline {input_pipeline!r}; use "
-                             "python | device | device_sharded (native joins "
-                             f"with {_PARALLEL})")
+                             "python | native | device | device_sharded")
         if scan_chunk and not input_pipeline.startswith("device"):
             raise ValueError(
                 "--scan_chunk needs the in-step input path "
@@ -348,9 +346,16 @@ def run_config(
         if input_pipeline.startswith("device"):
             batches = itertools.repeat(None)  # sampling lives in the step
         else:
-            batches = ShardedBatcher(dataset, cfg.batch_size, device,
-                                     seed=cfg.seed, start_step=initial_step,
-                                     mesh=mesh)
+            if input_pipeline == "native":
+                from dist_mnist_tpu_torch.data.native import NativeBatcher
+
+                batches = NativeBatcher(dataset, cfg.batch_size, mesh,
+                                        seed=cfg.seed,
+                                        start_step=initial_step)
+            else:
+                batches = ShardedBatcher(dataset, cfg.batch_size, device,
+                                         seed=cfg.seed,
+                                         start_step=initial_step, mesh=mesh)
             if prefetch_depth:
                 # overlap the host-to-device copy with the running step
                 batches = DevicePrefetcher(batches, depth=prefetch_depth)
@@ -378,6 +383,9 @@ def run_config(
             if manager:
                 manager.close()
             writer.close()
+            if input_pipeline == "native":
+                # the C++ producer of the stream the loop ended on
+                getattr(loop.batches, "inner", loop.batches).close()
         elapsed = time.monotonic() - t0
         per_step = {k: v / max(1, scan_chunk) for k, v in one_call.items()}
         log.info("kernel launches: %s", json.dumps(launches, sort_keys=True))
@@ -492,11 +500,11 @@ def build_parser() -> argparse.ArgumentParser:
       help="log/summary cadence in steps")
     a("--input_pipeline", default="python",
       choices=["python", "native", "device", "device_sharded"],
-      help="python (host batcher) | device (dataset resident on the "
-           "device, sampled in the step) | device_sharded (1/N of the rows "
-           f"on each rank); native joins with {_PARALLEL}")
+      help="python (host batcher) | native (the C++ batcher, "
+           "data/native) | device (dataset resident on the device, sampled "
+           "in the step) | device_sharded (1/N of the rows on each rank)")
     a("--prefetch_depth", type=int, default=2,
-      help="batches the host path copies ahead on a side CUDA stream "
+      help="batches the host paths copy ahead on a side CUDA stream "
            "(data/prefetch.py); 0 = synchronous feed")
     a("--runahead", type=int, default=0,
       help="wait on the k-th oldest in-flight step before dispatching the "
@@ -567,8 +575,6 @@ def _refused_flags(args) -> list[str]:
     no(args.overlap_bucket_mb is not None, "--overlap_bucket_mb",
        _RESILIENCE)
     no(args.overlap_chunk is not None, "--overlap_chunk", _RESILIENCE)
-    no(args.input_pipeline == "native", "--input_pipeline=native",
-       _PARALLEL)
     no(args.fault_plan is not None, "--fault_plan", _RESILIENCE)
     no(args.compile_cache_dir is not None, "--compile_cache_dir",
        _RESILIENCE)

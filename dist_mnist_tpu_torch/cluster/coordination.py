@@ -30,8 +30,9 @@ over the host for the decisions ranks must agree on (a checkpoint save,
 a barrier): with NCCL that is a second group, with gloo the same one.
 
 A ``data x model x seq x pipe`` mesh (`cluster/mesh.py`) adds a
-subgroup per line of the rank grid along each axis, each with a host
-group of its own by the same rule (`mesh_groups`).
+subgroup per line of its rank grid along each axis (row-major, or the
+hybrid multislice layout), each with a host group of its own by the same
+rule (`mesh_groups`).
 `torch.distributed.new_group` is collective over the whole group, so
 every rank creates every subgroup, in the same order (the data groups by
 model, seq and pipe index, then the model groups, the seq groups and the
@@ -73,7 +74,8 @@ class DistContext:
 
 
 _CONTEXT: DistContext | None = None
-#: (data, model, seq) -> the axes' (group, host group) pairs of this rank
+#: (rank grid's shape and ranks) -> the axes' (group, host group) pairs
+#: of this rank
 _MESH_GROUPS: dict = {}
 
 
@@ -159,48 +161,46 @@ def initialize_distributed(
     return _CONTEXT
 
 
-def mesh_groups(data: int, model: int, seq: int = 1, pipe: int = 1) -> dict:
+def mesh_groups(grid) -> dict:
     """``{"data": (group, host_group), "model": ..., "seq": ..., "pipe":
-    ...}`` of this rank for a ``data x model x seq x pipe`` grid of the
-    process group's ranks (rank ``((d * model + m) * seq + s) * pipe +
-    p``), None where an axis is one rank wide; an axis as wide as the
-    world is the world group. Created once per shape, by every rank in
-    the same order (module docstring)."""
-    key = (data, model, seq, pipe)
+    ...}`` of this rank for `grid`, the ``data x model x seq x pipe``
+    array of the process group's ranks (`Mesh.grid`: row-major, rank
+    ``((d * model + m) * seq + s) * pipe + p``, or the hybrid multislice
+    layout): each axis's groups are the grid's lines along it, the ranks
+    that share the other three coordinates. None where an axis is one
+    rank wide; an axis as wide as the world is the world group. Created
+    once per grid, by every rank in the same order (module docstring)."""
+    import numpy as np
+
+    grid = np.asarray(grid)
+    shape = grid.shape
+    key = (shape, grid.tobytes())
     if key in _MESH_GROUPS:
         return _MESH_GROUPS[key]
     ctx = _CONTEXT
     if ctx is None:
         raise RuntimeError("mesh_groups needs initialize_distributed first")
-    if data * model * seq * pipe != ctx.world:
-        raise ValueError(f"mesh {data}x{model}x{seq}x{pipe} != {ctx.world} "
-                         "ranks")
+    if grid.size != ctx.world:
+        raise ValueError(f"mesh grid {shape} != {ctx.world} ranks")
     world = torch.distributed.group.WORLD
     timeout = datetime.timedelta(seconds=DEFAULT_TIMEOUT_S)
-    sizes = {"data": data, "model": model, "seq": seq, "pipe": pipe}
-    axes = tuple(sizes)
-
-    def at(idx: dict) -> int:
-        r = 0
-        for axis in axes:
-            r = r * sizes[axis] + idx[axis]
-        return r
+    axes = ("data", "model", "seq", "pipe")
 
     def lines(axis: str) -> list:
-        others = [a for a in axes if a != axis]
-        out = []
-        for flat in range(ctx.world // sizes[axis]):
-            idx = {}
-            for a in reversed(others):
-                idx[a] = flat % sizes[a]
-                flat //= sizes[a]
-            out.append([at({**idx, axis: i}) for i in range(sizes[axis])])
-        return out
+        # the other axes in order, the last varying fastest
+        i = axes.index(axis)
+        return np.moveaxis(grid, i, -1).reshape(-1, shape[i]).tolist()
 
     out = {}
     for axis in axes:
         mine = (None, None)
         for ranks in lines(axis):
+            if ranks != sorted(ranks):
+                # torch orders a group's ranks by global rank; the
+                # collectives take a rank's group index for its axis index
+                raise ValueError(
+                    f"{axis} line {ranks} of the rank grid is not "
+                    "ascending: a group's ranks must be in axis order")
             if len(ranks) == 1:
                 continue
             if len(ranks) == ctx.world:

@@ -78,7 +78,8 @@ by `parallel/sharding.TP_RULES`, and each block runs the Megatron layout
 the reference's GSPMD program runs for ``vit_tiny_cifar_tp``, with the
 collectives written out (`parallel/collectives`): qkv column-parallel
 (``copy_to_model(y) @ qkv_local``, the outputs gathered on the feature
-dim, attention replicated, since 3 heads do not split over 2 ranks),
+dim, attention replicated, since 3 heads do not split over 2 ranks: with
+``"flash"`` every rank launches the kernels on all heads),
 attn/out row-parallel (this rank's feature slice of the attention output
 ``@ out_local``, `reduce_from_model`, then the bias), mlp_in
 column-parallel and GELU on the sharded hidden, dropout with this rank's
@@ -96,7 +97,7 @@ import re
 
 import torch
 
-from dist_mnist_tpu_torch.cluster.mesh import SEQ_AXIS, ambient_mesh
+from dist_mnist_tpu_torch.cluster.mesh import SEQ_AXIS, activate, ambient_mesh
 from dist_mnist_tpu_torch.ops import nn
 from dist_mnist_tpu_torch.parallel.collectives import (
     all_reduce_sum,
@@ -373,7 +374,12 @@ class ViTTiny:
         b, s, d = x.shape
         qkv = gather_from_model(nn.dense(p["qkv"], copy_to_model(x, mesh)),
                                 mesh, -1)
-        out = self._attend(qkv, mask).reshape(b, s, d)
+        # every rank runs the whole attention on the gathered qkv: the
+        # flash entries see no mesh here, so they launch the kernels on
+        # all heads rather than split them over model (3 heads do not
+        # split over 2 ranks)
+        with activate(None):
+            out = self._attend(qkv, mask).reshape(b, s, d)
         return _row_parallel(p["out"], scatter_to_model(out, mesh, -1), mesh)
 
     def _block(self, p, x, keep=None, mask=None, tp=None):

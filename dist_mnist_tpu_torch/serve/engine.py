@@ -1,5 +1,6 @@
 """The inference engine: a (batch, height) grid of cells over one device
-(port of the reference `serve/engine.py InferenceEngine`).
+or a mesh of ranks (port of the reference `serve/engine.py
+InferenceEngine`).
 
 Why buckets: a continuous batcher produces a different batch size every
 tick. Rounding up to a power of two caps the distinct shapes the device
@@ -16,6 +17,22 @@ out of live traffic — `prewarm()` does here by running every cell once
 `cache_stats()` counts, per cell, that first run as a miss and every
 later run as a hit, so the serve summary keeps the reference's shape,
 and sums the runs' host-clock seconds as the reference's `execute_secs`.
+
+On a mesh of ranks (`mesh`, one device per process) the weights are
+resident-sharded by the serve rules (`parallel/sharding.py`: a TP leaf
+keeps this rank's model slice, an FSDP leaf its data slice), the batch
+rides the ``data`` axis as in training (a bucket of B runs B/data rows a
+rank, so the smallest bucket is the least power of two at or above the
+data axis), FSDP leaves are all-gathered over ``data`` before each
+forward (`train/step.py` does the same), and the forward runs under
+`activate(mesh)`, so the ViT's TP block and an MoE block's expert
+parallelism run as in the step. Rank 0 (the chief) owns the server, the
+batcher and the loadgen: for each cell it runs it broadcasts the cell's
+host inputs (the padded images and the mask) to every rank, and every
+other rank runs `follow()` until the chief's `close()`, so every
+collective runs on every rank in the same order (the decode engine's
+protocol, `serve/decode.py`). The data ranks' logits are all-gathered,
+and the chief returns them.
 """
 
 from __future__ import annotations
@@ -27,11 +44,19 @@ import time
 import numpy as np
 import torch
 
+from dist_mnist_tpu_torch.cluster.mesh import DATA_AXIS, MODEL_AXIS, activate
 from dist_mnist_tpu_torch.ops.nn import normalize_images
 from dist_mnist_tpu_torch.ops.quant import (
     QuantizedArray,
     is_quantized,
     quantize_tree,
+)
+from dist_mnist_tpu_torch.parallel.collectives import all_gather_flat
+from dist_mnist_tpu_torch.parallel.sharding import (
+    DP_RULES,
+    derive_state_specs,
+    gather_tree,
+    shard_tree,
 )
 from dist_mnist_tpu_torch.utils.device import resolve_device
 from dist_mnist_tpu_torch.utils.tree import leaves, tree_map
@@ -72,9 +97,19 @@ class InferenceEngine:
         seq_grid=None,
         quant: str | None = None,
         quant_report: dict | None = None,
+        mesh=None,
+        rules=None,
+        specs=None,
     ):
+        """`mesh` (several ranks): serve sharded by `rules` (default DP).
+        `params` and `model_state` are then this rank's shards as `specs`
+        (a `parallel.sharding.StateSpecs`: `serve/loader.py` restores and
+        shards them), or, without `specs`, full leaves this engine
+        shards."""
         self.model = model
-        self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None and mesh.ranks > 1 else None
+        self.device = (self.mesh.device if self.mesh is not None
+                       else resolve_device(device))
         self.image_shape = tuple(image_shape)
         #: serve/zoo.SeqGrid (or None): the height axis of the 2-D
         #: (batch, height) grid; None = the 1-D batch grid at the native
@@ -95,13 +130,30 @@ class InferenceEngine:
         if quant is not None and quant != "int8":
             raise ValueError(f"unsupported quant mode {quant!r} "
                              "(supported: 'int8')")
+        if quant and self.mesh is not None:
+            raise ValueError(
+                "--quant over more than one rank joins the port with ROADMAP "
+                "§1 item 12's rest: a per-channel scale of a row-parallel "
+                "slice is not the whole leaf's, so the sharded int8 forward "
+                "would not be the one-rank one")
         if quant and not is_quantized(params):
             params = quantize_tree(params)
         self.quant = quant
         self.quant_report = quant_report
+        self.specs = None
+        if self.mesh is not None:
+            params, model_state = self._place(model, params, model_state,
+                                              rules, specs)
         self.params = tree_map(lambda t: t.to(self.device), params)
         self.model_state = tree_map(lambda t: t.to(self.device), model_state)
-        self.max_bucket = max(max_bucket, 1)
+        # buckets must divide over the data axis; the least power of two
+        # at or above the axis always does
+        self._data = 1 if self.mesh is None else self.mesh.size
+        self.min_bucket = _pow2_at_least(self._data)
+        if self.mesh is not None and self.min_bucket % self._data:
+            raise ValueError(f"a data axis of {self._data} ranks divides no "
+                             "power-of-two bucket")
+        self.max_bucket = max(max_bucket, self.min_bucket)
         self._lock = threading.Lock()
         # (batch bucket, height bucket, "dense" | "masked") -> batches run
         self._runs: dict[tuple[int, int, str], int] = {}
@@ -115,10 +167,48 @@ class InferenceEngine:
         self._moe = (isinstance(model_state, dict)
                      and "moe_drop_fraction_metric" in model_state)
         self.last_moe_drop_fraction: float | None = None
+        self._closed = False
+
+    def _place(self, model, params, model_state, rules, specs):
+        """This rank's shards and their specs under `rules` on the mesh;
+        refuses a placement the model's forward cannot run."""
+        from types import SimpleNamespace
+
+        mesh = self.mesh
+        if mesh.seq > 1 or mesh.pipe > 1:
+            raise ValueError(
+                f"mesh {mesh.shape}: the zoo serves over the data and model "
+                "axes (a seq or pipe axis shards a training step)")
+        if specs is None:
+            specs = derive_state_specs(SimpleNamespace(
+                params=params, model_state=model_state, opt_state={}),
+                mesh, rules if rules is not None else DP_RULES)
+            params = shard_tree(params, specs.params, mesh)
+            model_state = shard_tree(model_state, specs.model_state, mesh)
+        self.specs = specs
+        tp_placed = any(spec.dim(MODEL_AXIS) is not None
+                        for spec in leaves(specs.params))
+        tp_forward = getattr(model, "tensor_parallel", False)
+        if mesh.model > 1 and tp_placed and not tp_forward:
+            raise ValueError(
+                f"{type(model).__name__} has no tensor-parallel forward; "
+                "the port's TP rules serve ViT-Tiny (models/vit.py)")
+        if mesh.model > 1 and tp_forward and not tp_placed:
+            raise ValueError(
+                f"{type(model).__name__} runs its TP block on a model axis "
+                "of the mesh: serve it under TP rules (--serve_rules=tp or "
+                "fsdp_tp)")
+        return params, model_state
+
+    @property
+    def is_follower(self) -> bool:
+        """A rank of a sharded engine other than the chief (rank 0)."""
+        return self.mesh is not None and torch.distributed.get_rank() != 0
 
     def state_bytes_per_device(self) -> dict:
-        """Resident bytes of the SERVED weights (int8 leaves at 1 byte per
-        element plus their f32 scales)."""
+        """Resident bytes of the SERVED weights on this rank (its shards
+        on a mesh; int8 leaves at 1 byte per element plus their f32
+        scales)."""
         out = {
             "param_bytes": sum(_nbytes(x) for x in leaves(self.params)),
             "model_state_bytes": sum(_nbytes(x)
@@ -131,7 +221,7 @@ class InferenceEngine:
     def bucket_for(self, n: int) -> int:
         if n < 1:
             raise ValueError("empty batch")
-        b = _pow2_at_least(n)
+        b = max(_pow2_at_least(n), self.min_bucket)
         if b > self.max_bucket:
             raise ValueError(
                 f"batch {n} needs bucket {b} > max_bucket {self.max_bucket}; "
@@ -152,7 +242,7 @@ class InferenceEngine:
 
     def buckets(self) -> list[int]:
         """Every batch bucket this engine can execute, smallest first."""
-        out, b = [], 1
+        out, b = [], self.min_bucket
         while b <= self.max_bucket:
             out.append(b)
             b *= 2
@@ -173,29 +263,55 @@ class InferenceEngine:
     # still needs its padding masked.
 
     def _run(self, images: np.ndarray, mask: np.ndarray | None) -> np.ndarray:
-        """One padded cell through the model. The execute clock stops on
-        the `.cpu()` of the logits (and an MoE model's drop fraction, in
-        the same copy), which waits for the device."""
+        """One padded cell through the model; on a mesh the chief first
+        sends the cell to the followers."""
+        if self.mesh is not None:
+            if self.is_follower:
+                raise RuntimeError("a follower engine runs only the chief's "
+                                   "cells (follow)")
+            self._broadcast(("run", images, mask))
+        return self._execute(images, mask)
+
+    def _execute(self, images: np.ndarray,
+                 mask: np.ndarray | None) -> np.ndarray:
+        """One padded cell on this rank (its data slice of the rows on a
+        mesh). The execute clock stops on the `.cpu()` of the logits (and
+        an MoE model's drop fraction, in the same copy), which waits for
+        the device."""
         t0 = time.monotonic()
-        x = torch.from_numpy(np.ascontiguousarray(images, dtype=np.uint8))
-        with torch.inference_mode():
+        rows, rows_mask = images, mask
+        if self._data > 1:
+            per = images.shape[0] // self._data
+            mine = slice(self.mesh.rank * per, (self.mesh.rank + 1) * per)
+            rows = images[mine]
+            rows_mask = None if mask is None else mask[mine]
+        x = torch.from_numpy(np.ascontiguousarray(rows, dtype=np.uint8))
+        with torch.inference_mode(), activate(self.mesh):
             x = normalize_images(x.to(self.device))
-            if mask is None:
-                logits, state = self.model.apply(self.params,
-                                                 self.model_state, x)
+            params = self._forward_params()
+            if rows_mask is None:
+                logits, state = self.model.apply(params, self.model_state, x)
             else:
-                m = torch.from_numpy(np.ascontiguousarray(mask)).to(
+                m = torch.from_numpy(np.ascontiguousarray(rows_mask)).to(
                     self.device)
                 logits, state = self.model.apply(
-                    self.params, self.model_state, x, mask=m)
+                    params, self.model_state, x, mask=m)
+            del params
+            cols = [logits]
             if self._moe:
                 drop = state["moe_drop_fraction_metric"].to(logits.dtype)
-                flat = torch.cat([logits.reshape(-1),
-                                  drop.reshape(1)]).cpu().numpy()
-                out = flat[:-1].reshape(logits.shape)
-                self.last_moe_drop_fraction = float(flat[-1])
-            else:
-                out = logits.cpu().numpy()
+                cols.append(drop.reshape(1, 1).expand(logits.shape[0], 1))
+            table = torch.cat(cols, dim=1)
+            if self._data > 1:
+                table = all_gather_flat(table.reshape(-1), self.mesh,
+                                        DATA_AXIS).reshape(
+                    images.shape[0], -1)
+            flat = table.cpu().numpy()
+        out = flat[:, :logits.shape[1]]
+        if self._moe:
+            # the mean of the data ranks' drop fractions
+            self.last_moe_drop_fraction = float(
+                np.mean(flat[::flat.shape[0] // self._data, -1]))
         dt = time.monotonic() - t0
         cell = (images.shape[0], images.shape[1],
                 "dense" if mask is None else "masked")
@@ -203,6 +319,51 @@ class InferenceEngine:
             self._runs[cell] = self._runs.get(cell, 0) + 1
             self._execute_secs += dt
         return out
+
+    def _forward_params(self):
+        """The params a forward takes: FSDP slices gathered over
+        ``data`` (the TP slices stay this rank's)."""
+        if self.specs is None or self._data == 1:
+            return self.params
+        return gather_tree(self.params, self.specs.params, self.mesh,
+                           axes=(DATA_AXIS,))
+
+    # -- the follower protocol (a mesh of ranks) -----------------------------
+
+    def _broadcast(self, msg=None):
+        """The chief's `msg` on every rank (the host group: the images
+        and mask are host arrays)."""
+        from dist_mnist_tpu_torch.cluster import coordination
+
+        box = [msg]
+        torch.distributed.broadcast_object_list(
+            box, src=0, group=coordination.context().host_group)
+        return box[0]
+
+    def follow(self) -> int:
+        """Follower: run the chief's cells on this rank's shards until the
+        chief's `close`; returns the cells run. An error propagates: this
+        rank's exit fails the chief's next collective."""
+        if not self.is_follower:
+            raise RuntimeError("follow() runs on a rank of a sharded engine "
+                               "other than the chief")
+        calls = 0
+        while True:
+            op, *args = self._broadcast()
+            if op == "stop":
+                return calls
+            if op != "run":
+                raise RuntimeError(f"unknown follower call {op!r}")
+            self._execute(*args)
+            calls += 1
+
+    def close(self) -> None:
+        """Chief of a sharded engine: send the followers the stop message.
+        No-op otherwise; idempotent."""
+        if self.mesh is None or self.is_follower or self._closed:
+            return
+        self._closed = True
+        self._broadcast(("stop",))
 
     def _warm(self, bucket: int, height: int | None) -> int:
         """Run cell (bucket, height) once on zero images if it never ran:
@@ -307,6 +468,12 @@ class InferenceEngine:
             "execute_count": sum(runs.values()),
         }
         if self.seq_grid is not None:
-            out["per_cell"] = {f"{b}x{h}/{v}": runs[(b, h, v)]
-                               for b, h, v in sorted(runs)}
+            out["per_cell"] = self.runs_per_cell()
         return out
+
+    def runs_per_cell(self) -> dict:
+        """Runs per cell, ``"<bucket>x<height>/<dense|masked>"``, prewarm
+        included (on a follower: the chief's cells it ran)."""
+        with self._lock:
+            runs = dict(self._runs)
+        return {f"{b}x{h}/{v}": runs[(b, h, v)] for b, h, v in sorted(runs)}

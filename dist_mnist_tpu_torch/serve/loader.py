@@ -7,6 +7,13 @@ committed checkpoint step (`checkpoint_dir`, `step`; restored through
 fresh init seeded from the config, then applies the load-time int8
 transform (`quantize_for_serving`) when asked; `init_lm_for_serving` is
 the decode side's seam for a registry causal LM.
+
+On a `mesh` of several ranks the weights are placed by the serve rules,
+the config's unless `sharding_rules` overrides them (a cross-strategy
+restore: an fsdp-trained checkpoint served under tp, say). The port's
+checkpoints hold full-shape leaves, so each rank restores them whole and
+keeps only its shard (`parallel/sharding.derive_state_specs` and
+`shard_tree`); the bundle carries the rules, the mesh and the specs.
 """
 
 from __future__ import annotations
@@ -14,6 +21,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 from pathlib import Path
+from types import SimpleNamespace
 from typing import Any
 
 import torch
@@ -22,6 +30,12 @@ from dist_mnist_tpu_torch.configs import Config, get_config
 from dist_mnist_tpu_torch.data.datasets import DATASETS
 from dist_mnist_tpu_torch.models.registry import get_model
 from dist_mnist_tpu_torch.ops.quant import error_report, quantize_tree
+from dist_mnist_tpu_torch.parallel.sharding import (
+    ShardingRules,
+    derive_state_specs,
+    resolve_rules,
+    shard_tree,
+)
 from dist_mnist_tpu_torch.utils.device import resolve_device
 from dist_mnist_tpu_torch.utils.tree import tree_map
 
@@ -41,6 +55,11 @@ class ServingBundle:
     quant: str | None = None
     #: ops/quant.error_report of the conversion
     quant_report: dict | None = None
+    #: the serve placement: rules, mesh and per-leaf specs (None: every
+    #: leaf whole on one device)
+    rules: Any = None
+    mesh: Any = None
+    specs: Any = None
 
 
 def quantize_for_serving(params, *, mode: str = "int8"):
@@ -61,15 +80,22 @@ def load_for_serving(
     params=None,
     checkpoint_dir: str | Path | None = None,
     step: int | None = None,
+    mesh=None,
+    sharding_rules=None,
 ) -> ServingBundle:
     """Everything `InferenceEngine` needs from a config. `params` (float,
     reference layouts) are served as given; else the weights of `step`
     (None: the latest committed step) under `checkpoint_dir` when it
     holds one; else a fresh init from
-    `torch.Generator().manual_seed(cfg.seed)`."""
+    `torch.Generator().manual_seed(cfg.seed)`. On a `mesh` of several
+    ranks each keeps its shard under `sharding_rules` (a name or a
+    `ShardingRules`; default the config's) on the mesh's device."""
     if isinstance(cfg, str):
         cfg = get_config(cfg)
-    device = resolve_device(device)
+    rules = sharding_rules if isinstance(sharding_rules, ShardingRules) \
+        else resolve_rules(sharding_rules or cfg.sharding_rules)
+    sharded = mesh is not None and mesh.ranks > 1
+    device = mesh.device if sharded else resolve_device(device)
     model = get_model(cfg.model, **cfg.model_kwargs)
     image_shape = tuple(DATASETS[cfg.dataset]["image_shape"])
     ckpt_step, restored = 0, None
@@ -99,6 +125,14 @@ def load_for_serving(
             log.info("serving a FRESH init (seed %d)", cfg.seed)
     else:
         model_state = {}
+    specs = None
+    if sharded:
+        # every rank holds the same full leaves here; keep this rank's
+        specs = derive_state_specs(SimpleNamespace(
+            params=params, model_state=model_state, opt_state={}), mesh,
+            rules)
+        params = shard_tree(params, specs.params, mesh)
+        model_state = shard_tree(model_state, specs.model_state, mesh)
     params = tree_map(lambda t: t.to(device), params)
     model_state = tree_map(lambda t: t.to(device), model_state)
     quant_report = None
@@ -117,6 +151,9 @@ def load_for_serving(
         restored=restored is not None,
         quant=quant or None,
         quant_report=quant_report,
+        rules=rules,
+        mesh=mesh if sharded else None,
+        specs=specs,
     )
 
 

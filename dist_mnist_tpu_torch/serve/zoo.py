@@ -23,10 +23,16 @@ An MoE checkpoint serves at an inference-time capacity factor
 unchanged, since the factor only sizes the routing buffers), all experts
 local on the one device, and the engine returns each batch's routed drop
 fraction beside the logits (`InferenceEngine.last_moe_drop_fraction`,
-recorded by the batcher). The reference's zoo also serves sharded
-weights and a memory budget over a compiled-model cache;
-`build_zoo_engine` refuses those arguments, naming the ROADMAP item each
-waits for.
+recorded by the batcher). On a mesh the experts are expert-parallel over
+the ``model`` axis, as in the step.
+
+Sharded placement: a TP, FSDP or FSDP x TP checkpoint serves
+resident-sharded over a mesh of ranks (`build_zoo_engine(mesh=...)`;
+the loader's `sharding_rules`, `--serve_rules`, re-lands a checkpoint
+trained under one strategy in another's layout), the chief rank serving
+and the others following (`serve/engine.py`). The reference's zoo also
+holds a memory budget over a compiled-model cache; `build_zoo_engine`
+refuses it, naming the ROADMAP items it waits for.
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ import logging
 
 import numpy as np
 
+from dist_mnist_tpu_torch.cluster.mesh import MeshSpec, make_mesh
 from dist_mnist_tpu_torch.serve.engine import InferenceEngine, _nbytes
 from dist_mnist_tpu_torch.utils.tree import leaves
 
@@ -163,11 +170,10 @@ def supports_mask(model) -> bool:
 
 
 def per_device_state_bytes(params, model_state) -> dict:
-    """Bytes the device holds for the served weights: int8 leaves at one
-    byte per element plus their f32 scales (`serve/engine.py _nbytes`).
-    One device holds every leaf whole; the reference's sharded placements
-    divide this and come with the zoo's sharded placement (ROADMAP §1
-    item 12, `--serve_rules`)."""
+    """Bytes this rank's device holds for the served weights `params` and
+    `model_state` as placed (a sharded restore's shards: an FSDP one about
+    1/data of the replicated bytes): int8 leaves at one byte per element
+    plus their f32 scales (`serve/engine.py _nbytes`)."""
     out = {
         "param_bytes": sum(_nbytes(x) for x in leaves(params)),
         "model_state_bytes": sum(_nbytes(x) for x in leaves(model_state)),
@@ -192,19 +198,21 @@ def build_zoo_engine(
     store=None,
     mesh=None,
 ) -> InferenceEngine:
-    """An `InferenceEngine` for a `loader.ServingBundle` on one device:
-    the seq grid when the model can honor masks (else the native-only
-    grid, with a warning when buckets were asked for) and the bundle's
-    quant mode. With every knob at its default this is the plain engine.
+    """An `InferenceEngine` for a `loader.ServingBundle`: the seq grid when
+    the model can honor masks (else the native-only grid, with a warning
+    when buckets were asked for) and the bundle's quant mode, on one
+    device or sharded over `mesh` (default the bundle's: a loader given a
+    mesh has already kept each rank's shard under its rules; a bundle of
+    whole leaves is sharded here by its rules; a `MeshSpec` is made a
+    mesh over the process group's ranks). With every knob at its
+    default this is the plain engine.
 
     `moe_capacity_factor` replaces an MoE model's capacity factor (a
     model without the field refuses, as in the reference).
 
     Refused until their slices land: `memory_budget_mb` and `store` (the
-    budgeted cache and the executable store, ROADMAP §1 items 13 and 15),
-    and a `mesh` of more than one device (the zoo's sharded placement,
-    item 12: the decode engine's tensor parallelism is
-    `serve/decode.py`'s)."""
+    budgeted cache and the executable store, ROADMAP §1 items 13 and
+    15)."""
     model = bundle.model
     if moe_capacity_factor is not None:
         if not (dataclasses.is_dataclass(model)
@@ -220,13 +228,14 @@ def build_zoo_engine(
             "a serve memory budget and an executable store join the port "
             "with ROADMAP §1 items 13 and 15; the port's engine runs each "
             "cell eagerly and holds no executables")
-    if mesh is not None and any(
-            getattr(mesh, axis, 1) not in (1, -1)
-            for axis in ("data", "model", "seq", "pipe")):
-        raise ValueError(
-            f"sharded placement over {mesh} joins the port with the "
-            "zoo's sharded placement (ROADMAP §1 item 12, --serve_rules); "
-            "the zoo engine serves on one device")
+    bundle_mesh = getattr(bundle, "mesh", None)
+    if isinstance(mesh, MeshSpec):
+        # a spec names a mesh over the process group's ranks
+        mesh = make_mesh(mesh, device=device)
+    if mesh is None:
+        mesh = bundle_mesh
+    elif bundle_mesh is not None and bundle_mesh is not mesh:
+        raise ValueError("the bundle was sharded over another mesh")
     grid = seq_buckets
     if isinstance(seq_buckets, str):
         grid = parse_seq_buckets(
@@ -247,6 +256,9 @@ def build_zoo_engine(
         max_bucket=max_bucket, seq_grid=grid,
         quant=getattr(bundle, "quant", None),
         quant_report=getattr(bundle, "quant_report", None),
+        mesh=mesh, rules=getattr(bundle, "rules", None),
+        specs=getattr(bundle, "specs", None) if bundle_mesh is not None
+        else None,
     )
 
 

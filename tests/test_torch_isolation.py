@@ -39,7 +39,9 @@ def _sources() -> list[Path]:
         ROOT / "chip_smoke.py", ROOT / "tests/test_torch_cuda.py",
         ROOT / "tests/torch_ranks.py", ROOT / "tests/torch_dp_cases.py",
         ROOT / "tests/torch_tp_cases.py", ROOT / "tests/torch_seq_cases.py",
-        ROOT / "tests/torch_mp_cases.py",
+        ROOT / "tests/torch_mp_cases.py", ROOT / "tests/torch_native_cases.py",
+        ROOT / "tests/torch_multislice_cases.py",
+        ROOT / "tests/torch_zoo_cases.py",
         *sorted((ROOT / "scripts").glob("torch_*.py"))]
 
 
@@ -50,6 +52,35 @@ def test_model_parallel_modules_are_checked(name):
     import check reads (and `torch_mp_cases.py` beside them)."""
     assert PORT / name in _sources()
     assert ROOT / "tests/torch_mp_cases.py" in _sources()
+
+
+@pytest.mark.parametrize("name", [
+    "utils/native_build.py", "data/native/batcher.py",
+    "parallel/ps_demo/bindings.py", "parallel/ps_demo/demo.py"])
+def test_native_layer_modules_are_checked(name):
+    """The native layer's modules are among the sources the import check
+    reads (and the rank cases of its tests beside them)."""
+    assert PORT / name in _sources()
+    for cases in ("torch_native_cases.py", "torch_multislice_cases.py",
+                  "torch_zoo_cases.py"):
+        assert ROOT / "tests" / cases in _sources()
+
+
+@pytest.mark.parametrize("name", ["data/native/loader.cc",
+                                  "parallel/ps_demo/ps_server.cc"])
+def test_native_sources_are_the_ports_own_copies(name):
+    """The port builds its own copy of each C++ source (a byte copy of the
+    reference's), never the reference's file, and includes nothing but
+    the C++ standard library."""
+    ours = PORT / name
+    assert ours.read_bytes() == (ROOT / "dist_mnist_tpu" / name).read_bytes()
+    includes = [line.split()[1] for line in ours.read_text().splitlines()
+                if line.startswith("#include")]
+    assert includes and all(i.startswith("<") for i in includes)
+    users = [p for p in PORT.rglob("*.py") if name.split("/")[-1]
+             in p.read_text()]
+    assert users and all("dist_mnist_tpu/" not in p.read_text()
+                         for p in users)
 
 
 def _forbidden(module: str) -> bool:

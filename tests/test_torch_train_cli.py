@@ -208,6 +208,29 @@ def test_stopped_and_resumed_lenet_run_equals_the_straight_one(
     _assert_same_bits(state, lenet_uninterrupted)
 
 
+def test_native_pipeline_resumes_and_recovers_bit_for_bit(
+        tmp_path, lenet_data_dir):
+    """`--input_pipeline=native` (the C++ batcher, prefetched): a run
+    stopped and resumed, and a run preempted and recovered through the
+    batcher's `at_step`, each end with the straight run's bits."""
+    straight, _, ctx = _run_lenet(lenet_data_dir, 24,
+                                  input_pipeline="native")
+    assert straight.step_int == 24
+    assert type(ctx["loop"].batches.inner).__name__ == "NativeBatcher"
+    ckpt = str(tmp_path / "ck")
+    _run_lenet(lenet_data_dir, 12, ckpt, input_pipeline="native")
+    resumed, _, ctx = _run_lenet(lenet_data_dir, 24, ckpt,
+                                 input_pipeline="native")
+    assert ctx["restored"] and ctx["initial_step"] == 12
+    _assert_same_bits(resumed, straight)
+    hook = _PreemptOnce(13)
+    recovered, _, ctx = _run_lenet(
+        lenet_data_dir, 24, str(tmp_path / "ck2"), max_recoveries=1,
+        extra_hooks=[hook], input_pipeline="native")
+    assert hook.fired and ctx["loop"].goodput.snapshot()["recoveries"] == 1
+    _assert_same_bits(recovered, straight)
+
+
 def test_cli_checkpoint_resume_flow_and_serving_it(tmp_path, data_dir,
                                                    caplog, capsys):
     ckpt, logdir = str(tmp_path / "ck"), str(tmp_path / "logs")
@@ -302,7 +325,6 @@ REFUSED = [
     (["--mesh=data=1,model=2,seq=2"], "item 11"),
     (["--host_device_count=8"], "item 12"),
     (["--mesh=data=1,model=2,pipe=2"], "item 11"),
-    (["--input_pipeline=native"], "item 12"),
     (["--overlap"], "item 13"),
     (["--overlap_bucket_mb=2"], "item 13"),
     (["--overlap_chunk=ring"], "item 13"),
@@ -342,9 +364,10 @@ def test_refused_config_fields_name_their_roadmap_item(data_dir):
             cli.run_config(cfg, device="cpu", data_dir=data_dir)
 
 
-#: flags the data- and sequence-parallel slices lifted from the refusals
-#: above
+#: flags the data- and sequence-parallel slices and the native layer
+#: lifted from the refusals above
 LIFTED = [
+    ["--input_pipeline=native"],
     ["--replicas_to_aggregate=2"],
     ["--mesh=data=1"],
     ["--sharding=fsdp"],

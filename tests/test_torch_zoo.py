@@ -279,13 +279,27 @@ def test_variant_contract_and_refusals():
 @pytest.mark.parametrize("kwargs,item", [
     ({"moe_capacity_factor": 1.5}, "no moe_capacity_factor field"),
     ({"memory_budget_mb": 64.0}, "items 13 and 15"),
-    ({"store": object()}, "items 13 and 15"),
-    ({"mesh": MeshSpec(data=4)}, "item 12"),
-    ({"mesh": MeshSpec(data=1, model=2)}, "item 12")])
+    ({"store": object()}, "items 13 and 15")])
 def test_build_zoo_engine_refuses_later_arguments(kwargs, item):
     bundle = load_for_serving("mlp_mnist", "cpu")
     with pytest.raises(ValueError, match=item):
         build_zoo_engine(bundle, "cpu", model_name="mlp", **kwargs)
+
+
+@pytest.mark.parametrize("mesh", [MeshSpec(data=1),
+                                  MeshSpec(data=1, model=1)])
+def test_build_zoo_engine_on_a_one_rank_mesh_serves_the_plain_engine(mesh):
+    """A mesh spec of the one process's rank (the sharded placement's
+    tests spawn ranks: tests/test_torch_zoo_sharded.py) serves the plain
+    engine's logits, unsharded."""
+    bundle = load_for_serving("mlp_mnist", "cpu")
+    eng = build_zoo_engine(bundle, "cpu", model_name="mlp", max_bucket=8,
+                           mesh=mesh)
+    plain = build_zoo_engine(bundle, "cpu", model_name="mlp", max_bucket=8)
+    images = np.random.default_rng(1).integers(0, 256, (3, 28, 28, 1),
+                                               dtype=np.uint8)
+    assert eng.mesh is None and eng.buckets() == plain.buckets()
+    np.testing.assert_array_equal(eng.predict(images), plain.predict(images))
 
 
 def test_unmaskable_model_collapses_to_native_grid(caplog):
