@@ -282,6 +282,20 @@ script. Phases (any failure exits nonzero before the final `ok` line):
    2: every request ok, each rank's resident bytes the rules' share, and
    a checkpoint trained under dp served under fsdp_tp within
    `ZS_RESTORE_TOL` of serving it unsharded);
+12h. resilience (`resilience`): `bench.run_faults` at the reference's
+   `--faults` geometry with blocking saves and through the
+   `AsyncSnapshotter` (each recovered loss trajectory the clean one's
+   bit for bit; recovery latency, goodput buckets, save stall per step,
+   fork ms); `vit_tiny_cifar_flash` at full width, batch 64, through
+   `cli.train.run_config` for `RES_VIT_STEPS` steps, clean and with
+   `--async_snapshot` under a preemption whose checkpoint is corrupted
+   (losses and final params bit for bit; the loop's launches, from 0 just
+   before, exactly 24 forward and 12 + 12 backward a step, the replayed
+   steps included); and two gloo ranks of `mlp_mnist` on the card under
+   a planned host loss, supervised through `cli.launch` elastic through
+   the peer ring, elastic through the store, and restart-the-world, the
+   three side by side (each finishes; the journals show the shrink, the
+   ring restore, the restart);
 13. time each kernel at the shapes its path gives it, beside its plain
    version and, where one exists, one library call computing the same
    function (for the Adam kernels `torch._fused_adam_`/`_fused_adamw_`, a
@@ -304,7 +318,8 @@ script. Phases (any failure exits nonzero before the final `ok` line):
    Sq > 1 route apart from its Sq = 1 route; the flash rows with their
    launches in `data_parallel`'s ViT run, both ranks, and each rank's in
    `tensor_parallel`, in each `sequence_parallel` run and (the flash
-   forward and the masked forward's Sq > 1 route) in `zoo_sharded`;
+   forward and the masked forward's Sq > 1 route) in `zoo_sharded`, and
+   the flash rows' `launches_resilience`;
    `paged_attention` with each rank's TP launches and
    its times at 2 and 4 heads), then, last, the `ok` line.
 
@@ -4975,6 +4990,219 @@ FLASH_BODIES = {
 }
 
 
+#: the resilience phase's ViT-Tiny leg: the CIFAR twin at batch 64,
+#: checkpoints every RES_VIT_EVERY steps, a preemption at RES_VIT_PREEMPT
+#: whose checkpoint is corrupted (the restore falls back one interval)
+RES_VIT_STEPS = 20
+RES_VIT_BATCH = 64
+RES_VIT_EVERY = 5
+RES_VIT_PREEMPT = 15
+
+
+def _res_vit_leg(torch, dev, reset_counts, read_counts, cfg) -> dict:
+    """The ViT-Tiny flash leg of `resilience`: `cfg` through
+    `cli.train.run_config` twice from one seed, clean and under the plan
+    (preempt + corrupt at `RES_VIT_PREEMPT`, `--async_snapshot`), every
+    counter set to 0 just before each run and read just after (run_config
+    also reads its loop's own counts, without the final evaluation)."""
+    from dist_mnist_tpu_torch.bench import LossTrajectory, same_trajectory
+    from dist_mnist_tpu_torch.cli import train as cli
+    from dist_mnist_tpu_torch.faults.plan import Fault, FaultPlan
+    from dist_mnist_tpu_torch.train.state import params_digest
+
+    runs = {}
+    work = Path(tempfile.mkdtemp(prefix="resilience_vit_"))
+    try:
+        for tag in ("clean", "faulted"):
+            traj = LossTrajectory()
+            kw = {}
+            if tag == "faulted":
+                kw = dict(checkpoint_dir=str(work / "ckpt"),
+                          checkpoint_every_steps=RES_VIT_EVERY,
+                          max_recoveries=3, max_restore_fallbacks=2,
+                          async_snapshot=True,
+                          fault_plan=FaultPlan([
+                              Fault.preempt(RES_VIT_PREEMPT),
+                              Fault.corrupt_checkpoint(RES_VIT_PREEMPT)]))
+            reset_counts()
+            t0 = time.perf_counter()
+            state, _, ctx = cli.run_config(cfg, device=dev,
+                                           extra_hooks=[traj], **kw)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            runs[tag] = {"loss": traj.loss, "digest": params_digest(
+                state.params), "loop_launches": ctx["launches"],
+                "launches": read_counts(), "wall_s": wall,
+                "goodput": ctx["loop"].goodput.snapshot(),
+                "fired": [f.kind for f in kw.get("fault_plan",
+                                                 FaultPlan()).fired()]}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    clean, faulted = runs["clean"], runs["faulted"]
+    replayed = faulted["goodput"]["replayed_steps"]
+    depth = cfg.model_kwargs.get("depth", 12)
+    steps = RES_VIT_STEPS + replayed
+    want = {"flash_attention_forward": 2 * depth * steps,
+            "flash_attention_dq": depth * steps,
+            "flash_attention_dkv": depth * steps}
+    out = {"steps": RES_VIT_STEPS, "replayed_steps": replayed,
+           "launches_loop": faulted["loop_launches"],
+           "launches_with_eval": faulted["launches"],
+           "want_launches": want, "clean_wall_s": clean["wall_s"],
+           "faulted_wall_s": faulted["wall_s"],
+           "recovery_latency_ms": faulted["goodput"]["recovery_latency_ms"],
+           "goodput": faulted["goodput"], "faults_fired": faulted["fired"],
+           "losses_equal": same_trajectory(clean["loss"], faulted["loss"]),
+           "params_equal": clean["digest"] == faulted["digest"],
+           "final_loss": float(faulted["loss"][max(faulted["loss"])])}
+    if not (out["losses_equal"] and out["params_equal"]):
+        fail(f"resilience vit: the recovered run differs from the clean "
+             f"one (losses equal {out['losses_equal']}, params equal "
+             f"{out['params_equal']})")
+    # the save at the preemption step is the corrupted one: the restore
+    # falls back one interval, and that interval is replayed
+    if sorted(out["faults_fired"]) != ["corrupt_checkpoint", "preempt"] \
+            or replayed != RES_VIT_EVERY:
+        fail(f"resilience vit: fired {out['faults_fired']}, replayed "
+             f"{replayed} steps (want a fallback of one interval)")
+    if dev.type == "cuda":
+        got = {k: faulted["loop_launches"][k] for k in want}
+        others = {k: v for k, v in faulted["loop_launches"].items()
+                  if k not in want and v}
+        if got != want or others:
+            fail(f"resilience vit: launches {faulted['loop_launches']}, "
+                 f"want {want} for {RES_VIT_STEPS} + {replayed} steps")
+    return out
+
+
+def resilience(torch, dev, reset_counts, read_counts,
+               vit_overrides: dict | None = None) -> dict:
+    """Phase 12h: the resilience path on the card. (a) `bench.run_faults`
+    at the reference's `--faults` geometry (the MLP, batch 256, 60 steps,
+    preempt + corrupt at 40, checkpoints every 10), blocking saves then
+    the `AsyncSnapshotter`: each recovered trajectory the clean one's bit
+    for bit (the bench's gate); recovery latency, goodput buckets, save
+    stall per step and fork ms. (b) ViT-Tiny flash at full width
+    (`_res_vit_leg`; `vit_overrides` cuts it for a CPU rehearsal). (c) the
+    supervisor: two gloo ranks of `mlp_mnist` sharing the card under
+    kill_host(1, step=35), elastic through the peer ring, elastic through
+    the store, and the restart-the-world baseline, the three side by side
+    through `cli.launch` (`bench.start_supervised`): every run finishes,
+    the journals show the shrink / ring / restart each must; the speed
+    orderings are fields, not gates (the runs share the card and the host
+    cores). Fails on any miss; prints and returns the record."""
+    import dataclasses
+
+    from dist_mnist_tpu_torch import bench
+    from dist_mnist_tpu_torch.configs import get_config
+    from dist_mnist_tpu_torch.data.datasets import (
+        default_data_dir,
+        load_dataset,
+    )
+    from dist_mnist_tpu_torch.faults.plan import Fault, FaultPlan
+
+    t_phase = time.perf_counter()
+    out = {"phase": "resilience"}
+    # (a) in-process recovery
+    mnist = load_dataset("mnist", seed=bench.SEED)
+    for tag, async_save in (("sync", False), ("async", True)):
+        t0 = time.perf_counter()
+        try:
+            rec = bench.run_faults(dev, dataset=mnist, async_save=async_save)
+        except bench.ResilienceGateError as err:
+            fail(f"resilience faults ({tag}): {err}")
+        x = rec["extra"]
+        out[f"faults_{tag}"] = {
+            "recovery_latency_ms": rec["value"],
+            "save_stall_ms_per_step": x["save_stall_ms_per_step"],
+            "fork_ms_mean": x["fork_ms_mean"],
+            "trajectory_identical": x["trajectory_identical"],
+            "replayed_steps": x["replayed_steps"],
+            **{k: x[k] for k in ("goodput_fraction", "productive_s",
+                                 "restore_s", "replay_s", "stall_s",
+                                 "save_s", "total_wall_s")},
+            "seconds": time.perf_counter() - t0}
+    out["async_stall_below_sync"] = (
+        out["faults_async"]["save_stall_ms_per_step"]
+        < out["faults_sync"]["save_stall_ms_per_step"])
+    # (b) ViT-Tiny flash at full width, the CIFAR twin
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(
+        get_config("vit_tiny_cifar_flash"), train_steps=RES_VIT_STEPS,
+        batch_size=RES_VIT_BATCH, eval_every=0, log_every=RES_VIT_EVERY,
+        **(vit_overrides or {}))
+    out["vit"] = _res_vit_leg(torch, dev, reset_counts, read_counts, cfg)
+    out["vit"]["seconds"] = time.perf_counter() - t0
+    # (c) the supervisor: two ranks on the card, a planned host loss; the
+    # three supervised runs side by side (each its own dirs and port)
+    t0 = time.perf_counter()
+    plan = FaultPlan([Fault.kill_host(1, step=bench.ELASTIC_KILL_STEP)])
+    platform = "cpu" if dev.type == "cpu" else None
+    sides = {}
+    legs = (("elastic_peer", True, True), ("elastic_store", True, False),
+            ("restart", False, False))
+    root = Path(tempfile.mkdtemp(prefix="resilience_supervised_"))
+    runs = []
+    try:
+        for tag, elastic, peer in legs:
+            runs.append(bench.start_supervised(
+                str(root), tag, str(default_data_dir()), platform, plan=plan,
+                elastic=elastic, peer=peer))
+        for run, (tag, elastic, peer) in zip(runs, legs):
+            try:
+                s = bench.finish_supervised(run, timeout=600)
+            except bench.ResilienceGateError as err:
+                fail(f"resilience supervisor ({tag}): {err}")
+            recs = s["records"]
+            names = s["journal_events"]
+            restores = {k: [r for r in recs if r.get("event") == k]
+                        for k in ("peer_restore", "checkpoint_restore")}
+            sides[tag] = {
+                **{k: s[k] for k in ("goodput_fraction",
+                                     "recovery_latency_s", "total_wall_s",
+                                     "final_step", "resizes")},
+                "restarts": names.count("supervisor_restart"),
+                "peer_restore_ms": [r["dur_ms"] for r in
+                                    restores["peer_restore"]],
+                "store_restore_ms": [r["dur_ms"] for r in
+                                     restores["checkpoint_restore"]],
+                "seconds": s["wall_s"]}
+            bad = []
+            if s["final_step"] != bench.ELASTIC_STEPS:
+                bad.append(f"ended at step {s['final_step']}")
+            shrank = any(r["kind"] == "shrink" for r in s["resizes"])
+            if elastic and not (shrank and "supervisor_restart" not in
+                                names):
+                bad.append("no shrink, or a restart")
+            if not elastic and (s["resizes"] or "supervisor_restart"
+                                not in names):
+                bad.append("a resize, or no restart")
+            if peer and (not restores["peer_restore"]
+                         or restores["checkpoint_restore"]):
+                bad.append("no peer_restore, or a store restore")
+            if bad:
+                fail(f"resilience supervisor ({tag}): {'; '.join(bad)}")
+    finally:
+        for run in runs:
+            if run.proc.poll() is None:
+                run.proc.kill()
+                run.proc.wait()
+        shutil.rmtree(root, ignore_errors=True)
+    out["supervisor"] = sides
+    out["supervisor_seconds"] = time.perf_counter() - t0
+    peer_ms = sides["elastic_peer"]["peer_restore_ms"]
+    store_ms = sides["elastic_store"]["store_restore_ms"]
+    out["peer_restore_below_store"] = bool(
+        peer_ms and store_ms and peer_ms[-1] < store_ms[-1])
+    out["elastic_goodput_above_restart"] = (
+        sides["elastic_store"]["goodput_fraction"]
+        > sides["restart"]["goodput_fraction"])
+    out["seconds"] = time.perf_counter() - t_phase
+    print(json.dumps(out), flush=True)
+    return out
+
+
 def time_flash_kernels(torch, dev, bw: float, peaks: dict) -> dict:
     """The three new kernels at the ViT path's shape (B = 64, S = 65, H =
     3, D = 64, bf16, q/k/v the strided views of the fused projection),
@@ -5533,6 +5761,8 @@ def main() -> None:
     multislice(torch, dev)
     # -- 12g. the zoo's sharded placement (tp, fsdp_tp) ----------------------
     zs = zoo_sharded(torch, dev)
+    # -- 12h. resilience: fault recovery, the snapshotter, the supervisor ---
+    res = resilience(torch, dev, reset_counts, read_counts)
 
     # -- 13. timing at the paths' shapes -------------------------------------
     timed = {}
@@ -5748,6 +5978,12 @@ def main() -> None:
                          launches_dkv=vit_counts["flash_attention_dkv"],
                          launches_train_cli=cli_vit["flash_attention_dq"]
                          + cli_vit["flash_attention_dkv"])
+    res_launches = res["vit"]["launches_loop"]
+    flash_rows[0]["launches_resilience"] = res_launches[
+        "flash_attention_forward"]
+    flash_rows[1]["launches_resilience"] = (
+        res_launches["flash_attention_dq"]
+        + res_launches["flash_attention_dkv"])
     flash_rows[2]["path"] = ("none: no training path takes a token mask; "
                              "held against its plain version in "
                              "flash_parity")

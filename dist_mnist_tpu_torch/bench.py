@@ -1,8 +1,9 @@
 """The port's benchmarks: the headline training run (the reference
 `bench.py` with no flags), one ladder config's training throughput
 (`bench.py --config NAME`), classifier serving (`bench.py --serve`,
-`--serve --quant`, `--serve --longctx`) and decode serving (`bench.py
---serve --decode`).
+`--serve --quant`, `--serve --longctx`), decode serving (`bench.py
+--serve --decode`) and resilience (`bench.py --faults [--async-save]`,
+`--ckpt`, `--faults --elastic`).
 
     python -m dist_mnist_tpu_torch.bench                # on the GPU
     python -m dist_mnist_tpu_torch.bench --device=cpu --race_rounds=1 \\
@@ -14,6 +15,9 @@
     python -m dist_mnist_tpu_torch.bench --serve --longctx  # ViT zoo grid
     python -m dist_mnist_tpu_torch.bench --serve --decode \\
         --requests 64 --concurrency 16                  # decode serving
+    python -m dist_mnist_tpu_torch.bench --faults [--async-save]
+    python -m dist_mnist_tpu_torch.bench --ckpt
+    python -m dist_mnist_tpu_torch.bench --faults --elastic
 
 Headline: LeNet-5 on MNIST, global batch 200, Adam 1e-3, the training
 split resident on the device, steps in chunks of 100.
@@ -36,7 +40,13 @@ from the model's analytic FLOPs.
 
 Classifier serving (`run_serve`, `run_serve_quant`, `run_serve_longctx`)
 and decode serving (`run_serve_decode`) print their JSON lines; see
-their docstrings. A failed hard gate prints an `error` line and exits 1.
+their docstrings. So do the resilience modes (`run_faults`, `run_ckpt`,
+`run_faults_elastic`): the reference's geometry (the MLP, Adam 1e-3,
+60 steps, checkpoints every 10; two ranks of `mlp_mnist` at batch 64
+under the supervisors), its headline metric and its gates; what the
+reference's also run of its telemetry (the anomaly hook, the `/metrics`
+exporter, the fleet scraper, the fleet trace) is ROADMAP §1 item 14, and
+each record says so in its `observability` field. A failed hard gate prints an `error` line and exits 1.
 Without a CUDA device and without ``--device=cpu`` every mode exits 1.
 """
 
@@ -766,6 +776,522 @@ def run_serve_decode(device: torch.device, n_requests: int,
     }]
 
 
+# -- resilience: --faults, --ckpt, --faults --elastic -------------------------
+
+#: the reference's resilience geometry (`bench.py --faults` / `--ckpt` /
+#: `--faults --elastic`): mlp_mnist's model, Adam 1e-3, seed 0
+FAULTS_STEPS = 60
+FAULTS_PREEMPT_AT = 40
+FAULTS_CKPT_EVERY = 10
+FAULTS_BATCH = 256
+ELASTIC_STEPS = 60
+ELASTIC_KILL_STEP = 35
+ELASTIC_BATCH = 64
+ELASTIC_PROCS = 2
+#: what the reference's resilience benches also run (the AnomalyHook, the
+#: /metrics exporter, the FleetScraper, fleet_trace) joins the port with
+OBSERVABILITY = "ROADMAP §1 item 14"
+
+
+class ResilienceGateError(RuntimeError):
+    """A resilience bench's hard gate failed (the reference's assert)."""
+
+
+def _gate(ok: bool, message: str) -> None:
+    if not ok:
+        raise ResilienceGateError(message)
+
+
+class LossTrajectory:
+    """Per-step loss recorder: the step's device scalar is kept, and all
+    of them come to the host once, at `end` (no sync a step)."""
+
+    def __init__(self):
+        self.loss = {}
+
+    def begin(self, loop):
+        pass
+
+    def before_step(self, step):
+        pass
+
+    def after_step(self, step, state, outputs):
+        self.loss[step] = outputs["loss"].detach().clone()
+
+    def end(self, state):
+        self.loss = {k: v.cpu().numpy() for k, v in self.loss.items()}
+
+
+def same_trajectory(a: dict, b: dict) -> bool:
+    """Bit-equal losses at the same steps."""
+    return set(a) == set(b) and all(a[s].tobytes() == b[s].tobytes()
+                                    for s in a)
+
+
+def faults_state(device: torch.device, dataset: Dataset) -> TrainState:
+    """The resilience benches' initial state: the MLP under Adam 1e-3,
+    seeded with `SEED`."""
+    return create_train_state(get_model("mlp"), optim.adam(1e-3), SEED,
+                              dataset.train_images[:1], device)
+
+
+def faults_run(device: torch.device, dataset: Dataset, state0: TrainState, *,
+               n_steps: int = FAULTS_STEPS, batch: int = FAULTS_BATCH,
+               ckpt_every: int = FAULTS_CKPT_EVERY, plan=None,
+               ckpt_dir: str | None = None, async_save: bool = False,
+               journal: str | None = None) -> dict:
+    """One short MLP training run from a fork of `state0` (so every run
+    starts from the same bits) through the loop and its hooks, optionally
+    under a fault plan and with cadence checkpoints (blocking, or through
+    the `AsyncSnapshotter`), with a run journal at `journal`. Returns the
+    trajectory, the loop and the write-behind counters."""
+    from dist_mnist_tpu_torch import hooks as hooks_lib
+    from dist_mnist_tpu_torch.checkpoint import (
+        AsyncSnapshotter,
+        CheckpointManager,
+        fork_state,
+    )
+    from dist_mnist_tpu_torch.data.pipeline import ShardedBatcher
+    from dist_mnist_tpu_torch.obs import events as events_mod
+    from dist_mnist_tpu_torch.train import make_train_step
+    from dist_mnist_tpu_torch.train.loop import TrainLoop
+
+    model, optimizer = get_model("mlp"), optim.adam(1e-3)
+    traj = LossTrajectory()
+    hooks = [hooks_lib.StopAtStepHook(last_step=n_steps), traj]
+    manager = None
+    if ckpt_dir:
+        manager = CheckpointManager(ckpt_dir, async_save=False,
+                                    max_restore_fallbacks=2)
+        if plan is not None:
+            manager = plan.wrap_checkpoint_manager(manager)
+        if async_save:
+            # the write-behind layer OUTSIDE the fault wrapper: the injected
+            # corruption still hits the durable store
+            manager = AsyncSnapshotter(manager)
+        hooks.append(hooks_lib.CheckpointHook(manager,
+                                              every_steps=ckpt_every))
+    batches = ShardedBatcher(dataset, batch, device, seed=SEED)
+    if plan is not None:
+        hooks.append(plan.hook())
+        batches = plan.wrap_batches(batches)
+    loop = TrainLoop(make_train_step(model, optimizer), fork_state(state0),
+                     batches, hooks, checkpoint_manager=manager,
+                     max_recoveries=3)
+    prev = (events_mod.set_journal(events_mod.RunJournal(journal))
+            if journal else None)
+    try:
+        loop.run()
+    finally:
+        if journal:
+            events_mod.set_journal(prev).close()
+    writer = None
+    if manager is not None:
+        if async_save:
+            writer = {"dropped": manager.dropped,
+                      "write_behind_stall_s": manager.consume_save_stall_s()}
+        manager.close()
+    return {"loss": traj.loss, "loop": loop, "writer": writer}
+
+
+def run_faults(device: torch.device, *, dataset: Dataset | None = None,
+               async_save: bool = False, n_steps: int = FAULTS_STEPS,
+               preempt_at: int = FAULTS_PREEMPT_AT,
+               ckpt_every: int = FAULTS_CKPT_EVERY,
+               batch: int = FAULTS_BATCH) -> dict:
+    """`--faults [--async-save]`: the same short MLP run twice — clean,
+    then under a preemption at `preempt_at` with that step's checkpoint
+    corrupted, so the restore quarantines it and falls back one more
+    interval — and the headline `recovery_latency_ms`: failure to the
+    first step past the old frontier (restore + replay;
+    faults/goodput.py). Gates (the reference's): the recovered loss
+    trajectory equals the clean one bit for bit, every fault fired, and
+    the journal's restores equal the loop's recoveries. `async_save` runs
+    the fault run's checkpoints through the `AsyncSnapshotter`."""
+    import tempfile
+
+    from dist_mnist_tpu_torch.faults.plan import Fault, FaultPlan
+    from dist_mnist_tpu_torch.obs import events as events_mod
+
+    metric = "recovery_latency_ms"
+    dataset = dataset if dataset is not None else load_dataset("mnist",
+                                                               seed=SEED)
+    state0 = faults_state(device, dataset)
+    geom = dict(n_steps=n_steps, batch=batch, ckpt_every=ckpt_every)
+    clean = faults_run(device, dataset, state0, **geom)
+    plan = FaultPlan([Fault.preempt(preempt_at),
+                      Fault.corrupt_checkpoint(preempt_at)])
+    with tempfile.TemporaryDirectory(prefix="bench_faults_") as root:
+        journal_path = f"{root}/journal.jsonl"
+        fault = faults_run(device, dataset, state0, plan=plan,
+                           ckpt_dir=f"{root}/ckpt", async_save=async_save,
+                           journal=journal_path, **geom)
+        journal = events_mod.read_journal(journal_path)
+    identical = same_trajectory(clean["loss"], fault["loss"])
+    _gate(identical, "recovered loss trajectory diverged from the "
+                     "fault-free run")
+    _gate(all(f.fired for f in plan.faults),
+          f"planned faults did not all fire: {plan.to_json()}")
+    loop = fault["loop"]
+    snap = loop.goodput.snapshot()
+    journal_events = [r.get("event") for r in journal]
+    journal_restores = journal_events.count("restore")
+    _gate(journal_restores == snap["recoveries"],
+          f"journal restore events ({journal_restores}) != goodput "
+          f"recoveries ({snap['recoveries']}); journal saw: "
+          f"{journal_events}")
+    return {
+        "metric": metric,
+        "value": snap["recovery_latency_ms"],
+        "unit": "ms",
+        "vs_baseline": 0.0,  # resilience metric: no published reference
+        "synthetic_data": bool(dataset.synthetic),
+        "extra": {
+            "device": str(device),
+            "chips": 1,
+            "global_batch": batch,
+            "steps": n_steps,
+            "preempt_at_step": preempt_at,
+            "ckpt_every": ckpt_every,
+            "goodput_fraction": snap["goodput_fraction"],
+            "recoveries": snap["recoveries"],
+            "replayed_steps": snap["replayed_steps"],
+            **{k: snap[k] for k in ("productive_s", "restore_s", "replay_s",
+                                    "stall_s", "save_s", "total_wall_s")},
+            "save_stall_ms_per_step": snap["save_s"] * 1e3 / n_steps,
+            "async_save": async_save,
+            "fork_ms_mean": _mean([r["fork_ms"] for r in journal
+                                   if r.get("event") == "snapshot_fork"]),
+            "trajectory_identical": identical,
+            "faults_fired": [f.kind for f in plan.fired()],
+            "step_time_ms": loop.step_time_hist.percentiles(),
+            "journal_events": journal_events,
+            "journal_restores": journal_restores,
+            "observability": OBSERVABILITY,
+        },
+    }
+
+
+def _mean(values) -> float | None:
+    return sum(values) / len(values) if values else None
+
+
+def _events(records, name):
+    return [r for r in records if r.get("event") == name]
+
+
+class Supervised:
+    """A supervised run under way (`start_supervised`)."""
+
+    def __init__(self, tag: str, proc, log_path: str, journal: str,
+                 t0: float):
+        self.tag, self.proc, self.log_path = tag, proc, log_path
+        self.journal, self.t0 = journal, t0
+
+
+def start_supervised(root: str, tag: str, data_dir: str, platform, *,
+                     plan, elastic: bool, peer: bool = False,
+                     n_steps: int = ELASTIC_STEPS,
+                     batch: int = ELASTIC_BATCH,
+                     ckpt_every: int = FAULTS_CKPT_EVERY,
+                     procs: int = ELASTIC_PROCS) -> Supervised:
+    """Start one supervised `mlp_mnist` run of `procs` ranks through the
+    launcher's entry point (``python -m dist_mnist_tpu_torch.cli.launch
+    --max_restarts=procs-1 [--elastic] --fault_plan=...``), its output in
+    ``<root>/<tag>.log`` and its journal ``<root>/journal_<tag>.jsonl``;
+    several may run at once. `finish_supervised` waits for it."""
+    import subprocess
+    import sys
+
+    from dist_mnist_tpu_torch.cli.launch import _child_env
+
+    journal = f"{root}/journal_{tag}.jsonl"
+    train_args = ["--config=mlp_mnist", f"--data_dir={data_dir}",
+                  f"--checkpoint_dir={root}/ckpt_{tag}",
+                  f"--train_steps={n_steps}", f"--batch_size={batch}",
+                  "--eval_every=0", "--log_every=10",
+                  f"--checkpoint_every_steps={ckpt_every}"]
+    if peer:
+        train_args += ["--async_snapshot", f"--peer_dir={root}/peer_{tag}"]
+    cmd = [sys.executable, "-m", "dist_mnist_tpu_torch.cli.launch",
+           f"--num_processes={procs}", f"--max_restarts={procs - 1}",
+           "--restart_backoff_s=1.0", "--min_processes=1",
+           f"--journal={journal}", f"--fault_plan={plan.to_json()}",
+           *(["--elastic"] if elastic else []),
+           *([f"--platform={platform}"] if platform else []),
+           "--", *train_args]
+    log_path = f"{root}/{tag}.log"
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
+                                env=_child_env())
+    return Supervised(tag, proc, log_path, journal, time.monotonic())
+
+
+def finish_supervised(run: Supervised, timeout: float = 900.0) -> dict:
+    """Wait for `run` (killed past `timeout`) and summarize its journal
+    with `faults.goodput.elastic_summary`; raises `ResilienceGateError`
+    when the supervisor exits nonzero."""
+    import subprocess
+    from pathlib import Path
+
+    from dist_mnist_tpu_torch.faults.goodput import elastic_summary
+    from dist_mnist_tpu_torch.obs import events as events_mod
+
+    try:
+        rc = run.proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        run.proc.kill()
+        rc = run.proc.wait()
+    wall = time.monotonic() - run.t0
+    if rc != 0:
+        tail = Path(run.log_path).read_text()[-3000:]
+        raise ResilienceGateError(f"{run.tag} supervised run failed rc={rc}"
+                                  f":\n{tail}")
+    records = events_mod.read_journal(run.journal)
+    summary = elastic_summary(records)
+    summary.update(records=records, wall_s=wall,
+                   journal_events=[r.get("event") for r in records])
+    return summary
+
+
+def supervised_mlp(root: str, tag: str, data_dir: str, platform, *,
+                   plan, elastic: bool, peer: bool = False, **kw) -> dict:
+    """One supervised `mlp_mnist` run (`start_supervised`), waited for
+    and summarized (`finish_supervised`)."""
+    return finish_supervised(start_supervised(
+        root, tag, data_dir, platform, plan=plan, elastic=elastic, peer=peer,
+        **kw))
+
+
+def _supervised_side(s: dict) -> dict:
+    return {k: s[k] for k in ("goodput_fraction", "recovery_latency_s",
+                              "total_wall_s", "productive_s", "generations",
+                              "recoveries", "resizes", "final_step")}
+
+
+def _data_dir_for_children(data_dir) -> str:
+    from dist_mnist_tpu_torch.data.datasets import default_data_dir
+
+    return str(data_dir or default_data_dir())
+
+
+def run_ckpt(device: torch.device, *, dataset: Dataset | None = None,
+             data_dir: str | None = None, n_steps: int = FAULTS_STEPS,
+             ckpt_every: int = FAULTS_CKPT_EVERY, batch: int = FAULTS_BATCH,
+             elastic_steps: int = ELASTIC_STEPS,
+             kill_step: int = ELASTIC_KILL_STEP,
+             elastic_batch: int = ELASTIC_BATCH,
+             procs: int = ELASTIC_PROCS) -> dict:
+    """`--ckpt`, two legs. LEG 1, in process: the same MLP run with
+    cadence checkpoints saved synchronously, then through the
+    `AsyncSnapshotter`; headline `save_stall_ms_per_step` is the async
+    run's goodput `save` bucket per step. Gates: the trajectories equal
+    bit for bit, every ``checkpoint_commit`` paired with its
+    ``snapshot_fork``, the async stall below the sync one. LEG 2: the
+    seeded `kill_host` plan under the elastic supervisor, checkpointing
+    through ``--async_snapshot --peer_dir`` and through the plain store.
+    Gates: both shrink and finish, the peer side restores from the ring
+    (a ``peer_restore`` event, no store restore), both resume at the last
+    cadence save before the kill, the peer restore below the store's, and
+    whole-run recovery and goodput within the reference's rails of the
+    store's."""
+    import tempfile
+
+    from dist_mnist_tpu_torch.faults.plan import Fault, FaultPlan
+    from dist_mnist_tpu_torch.obs import events as events_mod
+
+    metric = "save_stall_ms_per_step"
+    dataset = dataset if dataset is not None else load_dataset(
+        "mnist", data_dir, seed=SEED)
+    state0 = faults_state(device, dataset)
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="bench_ckpt_") as root:
+        for mode in ("sync", "async"):
+            journal = f"{root}/journal_{mode}.jsonl"
+            run = faults_run(device, dataset, state0, n_steps=n_steps,
+                             batch=batch, ckpt_every=ckpt_every,
+                             ckpt_dir=f"{root}/ckpt_{mode}",
+                             async_save=mode == "async", journal=journal)
+            run["journal"] = events_mod.read_journal(journal)
+            run["snap"] = run["loop"].goodput.snapshot()
+            runs[mode] = run
+    sync, asyn = runs["sync"], runs["async"]
+    identical = same_trajectory(sync["loss"], asyn["loss"])
+    _gate(identical, "async-snapshot trajectory diverged from the "
+                     "synchronous-save run")
+    forks = _events(asyn["journal"], "snapshot_fork")
+    commits = _events(asyn["journal"], "checkpoint_commit")
+    _gate(bool(forks), "async run forked no snapshots")
+    _gate(len(commits) == len(forks),
+          f"{len(forks)} snapshot forks but {len(commits)} "
+          "checkpoint_commit events: a dispatched save never became "
+          "durable")
+    _gate(all(isinstance(c.get("dur_ms"), (int, float)) and c["dur_ms"] >= 0
+              for c in commits), f"bad commit spans: {commits}")
+    sync_save_s, async_save_s = sync["snap"]["save_s"], asyn["snap"]["save_s"]
+    _gate(async_save_s < sync_save_s,
+          f"async save stall {async_save_s:.4f}s/run is not below the "
+          f"synchronous baseline {sync_save_s:.4f}s/run")
+    sync_ms = sync_save_s * 1e3 / n_steps
+    async_ms = async_save_s * 1e3 / n_steps
+
+    # -- leg 2: elastic peer-vs-store restore under the same kill plan
+    plan = FaultPlan([Fault.kill_host(1, step=kill_step)])
+    children_data = _data_dir_for_children(data_dir)
+    platform = "cpu" if device.type == "cpu" else None
+    with tempfile.TemporaryDirectory(prefix="bench_ckpt_elastic_") as root:
+        common = dict(plan=plan, elastic=True, n_steps=elastic_steps,
+                      batch=elastic_batch, ckpt_every=ckpt_every, procs=procs)
+        pr = supervised_mlp(root, "peer", children_data, platform, peer=True,
+                            **common)
+        st = supervised_mlp(root, "store", children_data, platform, **common)
+    for tag, s in (("peer", pr), ("store", st)):
+        _gate(any(r["kind"] == "shrink" for r in s["resizes"]),
+              f"{tag} run never shrank: {s['resizes']}")
+        _gate(s["final_step"] == elastic_steps,
+              f"{tag} run ended at step {s['final_step']}")
+    peer_restores = _events(pr["records"], "peer_restore")
+    _gate(bool(peer_restores), "peer run restored without a peer_restore "
+                               "event: the ring never engaged")
+    _gate(not _events(pr["records"], "checkpoint_restore"),
+          "peer run fell back to the store ladder")
+    store_restores = _events(st["records"], "checkpoint_restore")
+    _gate(bool(store_restores), "store run journal shows no "
+                                "checkpoint_restore")
+    # both sides resume at the LAST cadence save before the kill: a
+    # commit marker that lands late would roll back a further interval
+    expected = (kill_step // ckpt_every) * ckpt_every
+    for tag, ev in (("peer", peer_restores[-1]),
+                    ("store", store_restores[-1])):
+        _gate(ev["step"] == expected,
+              f"{tag} run restored step {ev['step']}, expected {expected}")
+    peer_ms, store_ms = peer_restores[-1]["dur_ms"], store_restores[-1][
+        "dur_ms"]
+    _gate(peer_ms < store_ms, f"peer restore ({peer_ms:.1f} ms) is not "
+                              f"below the store restore ({store_ms:.1f} ms)")
+    # coarse rails (the reference's): respawn and startup dominate both
+    _gate(pr["recovery_latency_s"] <= st["recovery_latency_s"] + 1.5,
+          f"peer recovery ({pr['recovery_latency_s']:.3f} s) is well above "
+          f"the store's ({st['recovery_latency_s']:.3f} s)")
+    _gate(pr["goodput_fraction"] >= st["goodput_fraction"] - 0.08,
+          f"async+peer elastic goodput {pr['goodput_fraction']:.4f} fell "
+          f"well below the store's {st['goodput_fraction']:.4f}")
+    return {
+        "metric": metric,
+        "value": async_ms,
+        "unit": "ms/step",
+        "vs_baseline": sync_ms / async_ms if async_ms > 0 else 0.0,
+        "synthetic_data": bool(dataset.synthetic),
+        "extra": {
+            "device": str(device),
+            "chips": 1,
+            "global_batch": batch,
+            "steps": n_steps,
+            "ckpt_every_steps": ckpt_every,
+            "sync_save_ms_per_step": sync_ms,
+            "async_save_ms_per_step": async_ms,
+            "save_removed_ms_per_step": sync_ms - async_ms,
+            "saves_per_run": len(commits),
+            "trajectory_identical": identical,
+            "fork_ms_mean": _mean([f["fork_ms"] for f in forks]),
+            "sync_commit_ms_mean": _mean([
+                c["dur_ms"] for c in _events(sync["journal"],
+                                             "checkpoint_commit")]),
+            "async_commit_ms_mean": _mean([c["dur_ms"] for c in commits]),
+            "write_behind": asyn["writer"],
+            "elastic": {
+                "processes": procs,
+                "devices_per_process": 1,
+                "global_batch": elastic_batch,
+                "steps": elastic_steps,
+                "kill_step": kill_step,
+                "peer_restore_ms": peer_ms,
+                "store_restore_ms": store_ms,
+                "restore_speedup": store_ms / peer_ms if peer_ms > 0 else 0.0,
+                "peer_restore_sources": peer_restores[-1].get("sources"),
+                "peer": _supervised_side(pr),
+                "store_baseline": _supervised_side(st),
+                "goodput_vs_store": (
+                    pr["goodput_fraction"] / st["goodput_fraction"]
+                    if st["goodput_fraction"] > 0 else 0.0),
+            },
+            "observability": OBSERVABILITY,
+        },
+    }
+
+
+def run_faults_elastic(device: torch.device, *, data_dir: str | None = None,
+                       n_steps: int = ELASTIC_STEPS,
+                       kill_step: int = ELASTIC_KILL_STEP,
+                       ckpt_every: int = FAULTS_CKPT_EVERY,
+                       batch: int = ELASTIC_BATCH,
+                       procs: int = ELASTIC_PROCS) -> dict:
+    """`--faults --elastic`: the seeded permanent loss of a non-chief host
+    (`kill_host`: the victim SIGKILLs itself at `kill_step`) under two
+    supervisors, and whole-run goodput (`elastic_summary`): ELASTIC
+    (exclude the host, re-form at the surviving world, no backoff) against
+    the restart-the-world baseline (the kill fires in generation 0 only,
+    so the baseline models a host that comes back at once). Headline
+    `elastic_goodput_fraction`; vs_baseline is elastic/restart. Gates
+    (the reference's): both finish every step, the elastic journal shows
+    one shrink and no restart, the baseline a restart and no resize, and
+    the elastic fraction is above the restart one."""
+    import tempfile
+
+    from dist_mnist_tpu_torch.faults.plan import Fault, FaultPlan
+
+    metric = "elastic_goodput_fraction"
+    plan = FaultPlan([Fault.kill_host(1, step=kill_step)])
+    dataset = load_dataset("mnist", data_dir, seed=SEED)  # cache the twin
+    children_data = _data_dir_for_children(data_dir)
+    platform = "cpu" if device.type == "cpu" else None
+    common = dict(plan=plan, n_steps=n_steps, batch=batch,
+                  ckpt_every=ckpt_every, procs=procs)
+    with tempfile.TemporaryDirectory(prefix="bench_elastic_") as root:
+        el = supervised_mlp(root, "elastic", children_data, platform,
+                            elastic=True, **common)
+        rs = supervised_mlp(root, "restart", children_data, platform,
+                            elastic=False, **common)
+    _gate(any(r["kind"] == "shrink" and r["old_world"] == procs
+              and r["new_world"] == procs - 1 for r in el["resizes"]),
+          f"elastic run never shrank {procs} -> {procs - 1}: "
+          f"{el['resizes']}")
+    _gate("supervisor_restart" not in el["journal_events"],
+          "elastic run fell back to a full-world restart")
+    _gate("supervisor_restart" in rs["journal_events"],
+          "baseline never restarted: the fault did not engage")
+    _gate(not rs["resizes"], f"baseline resized: {rs['resizes']}")
+    for tag, s in (("elastic", el), ("restart", rs)):
+        _gate(s["final_step"] == n_steps,
+              f"{tag} run ended at step {s['final_step']}")
+    el_frac, rs_frac = el["goodput_fraction"], rs["goodput_fraction"]
+    _gate(el_frac > rs_frac, f"elastic goodput {el_frac:.4f} did not beat "
+                             f"the restart baseline {rs_frac:.4f}")
+    return {
+        "metric": metric,
+        "value": el_frac,
+        "unit": "fraction",
+        "vs_baseline": el_frac / rs_frac if rs_frac > 0 else 0.0,
+        "synthetic_data": bool(dataset.synthetic),
+        "extra": {
+            "device": str(device),
+            "chips": 1,
+            "processes": procs,
+            "devices_per_process": 1,
+            "global_batch": batch,
+            "steps": n_steps,
+            "kill_step": kill_step,
+            "ckpt_every_steps": ckpt_every,
+            "elastic": _supervised_side(el),
+            "restart_baseline": _supervised_side(rs),
+            "recovery_speedup": (
+                rs["recovery_latency_s"] / el["recovery_latency_s"]
+                if el["recovery_latency_s"] > 0 else 0.0),
+            "observability": OBSERVABILITY,
+        },
+    }
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m dist_mnist_tpu_torch.bench",
@@ -805,6 +1331,21 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--data_dir", default=None,
                    help="the dataset's files, or where its synthetic twin "
                         "is cached (default: <temp dir>/mnist-data)")
+    p.add_argument("--faults", action="store_true",
+                   help="resilience: recovery_latency_ms of the MLP under a "
+                        "preemption and a corrupted checkpoint (one JSON "
+                        "line); with --elastic, elastic_goodput_fraction of "
+                        "a supervised two-rank run losing a host")
+    p.add_argument("--async-save", dest="async_save", action="store_true",
+                   help="with --faults: checkpoint through the "
+                        "AsyncSnapshotter")
+    p.add_argument("--elastic", action="store_true",
+                   help="with --faults: the elastic supervisor against the "
+                        "restart-the-world one")
+    p.add_argument("--ckpt", action="store_true",
+                   help="checkpoint cost: save_stall_ms_per_step, sync vs "
+                        "the AsyncSnapshotter, then the peer ring against "
+                        "the store under the elastic supervisor")
     return p
 
 
@@ -822,11 +1363,34 @@ def _serve_mode(args) -> str | None:
     return modes[0] if modes else "serve"
 
 
+def _resilience_mode(args) -> str | None:
+    """The resilience benchmark the flags name, or None; exits on a
+    modifier without its mode or on two modes at once."""
+    if args.async_save and not args.faults:
+        raise SystemExit("error: --async-save takes --faults")
+    if args.elastic and not args.faults:
+        raise SystemExit("error: --elastic takes --faults")
+    if args.faults and args.ckpt:
+        raise SystemExit("error: one of --faults, --ckpt at a time")
+    if args.faults and args.elastic and args.async_save:
+        raise SystemExit("error: --async-save is not a mode of --faults "
+                         "--elastic")
+    if args.ckpt:
+        return "ckpt"
+    if args.faults:
+        return "elastic" if args.elastic else "faults"
+    return None
+
+
 def main(argv=None):
     """Runs the mode the flags name and prints its JSON line(s); returns
     the headline or config record, or the list of serving records."""
     args = build_parser().parse_args(argv)
     mode = _serve_mode(args)
+    resilience = _resilience_mode(args)
+    if resilience is not None and (mode is not None
+                                   or args.config is not None):
+        raise SystemExit("error: a resilience mode runs alone")
     if args.config is not None and args.config not in CONFIGS:
         raise SystemExit(f"error: unknown config {args.config!r}; the port "
                          f"has {sorted(CONFIGS)}")
@@ -834,6 +1398,25 @@ def main(argv=None):
         device = resolve_device(args.device)
     except RuntimeError as err:
         raise SystemExit(f"error: {err}") from None
+    if resilience is not None:
+        metric = {"faults": "recovery_latency_ms",
+                  "ckpt": "save_stall_ms_per_step",
+                  "elastic": "elastic_goodput_fraction"}[resilience]
+        try:
+            if resilience == "faults":
+                record = run_faults(device, dataset=load_dataset(
+                    "mnist", args.data_dir, seed=SEED),
+                    async_save=args.async_save)
+            elif resilience == "ckpt":
+                record = run_ckpt(device, data_dir=args.data_dir)
+            else:
+                record = run_faults_elastic(device, data_dir=args.data_dir)
+        except ResilienceGateError as err:
+            print(json.dumps({"metric": metric, "value": 0.0,
+                              "error": str(err)}), flush=True)
+            raise SystemExit(1) from None
+        print(json.dumps(record), flush=True)
+        return record
     if mode is not None:
         run, metric = {
             "serve": (run_serve, "serve_p99_latency_ms"),

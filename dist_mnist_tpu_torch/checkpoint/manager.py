@@ -36,9 +36,11 @@ predates the protocol (steps, no ``commits/``) is adopted on open.
 Async save: `save()` first waits for the previous write (as orbax does),
 then copies the state to host memory before it returns, so no later
 update reaches the saved copy, and a ``SnapshotWriter-<step>`` thread
-writes the files. The reference's async write-behind layer and peer
-ring (`AsyncSnapshotter`, `PeerReplicator`) join with ROADMAP §1 item
-13.
+writes the files. The write-behind layer over this manager
+(`checkpoint/snapshot.py` `AsyncSnapshotter`, with the peer ring of
+`checkpoint/peer.py`) keeps the collective half of `save` (`agree`, the
+gather) on the loop thread and calls the collective-free half,
+`write_full`, from its writer thread.
 
 Several ranks (`cluster/coordination.py`): every rank constructs the
 manager and calls `save` at the same steps. The chief decides whether a
@@ -459,9 +461,15 @@ class CheckpointManager:
         with self._lock:
             self._written.add(step)
 
+    def is_fresh(self, step: int) -> bool:
+        """Would a save of `step` write anything? Not when this manager
+        saved it last or it is already the latest on disk (re-saving an
+        identical step is never useful — e.g. save-on-create right after a
+        restore). The chief's answer is the one that counts."""
+        return not (step == self._last_saved or step == self.latest_step())
+
     def save(self, state, *, dispatch_ts: float | None = None) -> bool:
-        """Save if this step isn't already on disk (re-saving an identical
-        step is never useful — e.g. save-on-create right after a restore).
+        """Save if this step isn't already on disk (`is_fresh`).
 
         The state is copied to host memory before this returns; on the
         async path a background thread writes it. `dispatch_ts`
@@ -469,14 +477,23 @@ class CheckpointManager:
         ``checkpoint_commit`` event. Several ranks: every rank calls it
         (see the module docstring); only the chief writes."""
         step = state.step_int
-        fresh = not (step == self._last_saved or step == self.latest_step())
-        if not coordination.agree(fresh):
+        if not coordination.agree(self.is_fresh(step)):
             return False
         t0 = dispatch_ts if dispatch_ts is not None else time.monotonic()
         state = unshard_state(state)  # FSDP leaves gathered: a collective
+        self.write_full(step, state, dispatch_ts=t0)
+        return True
+
+    def write_full(self, step: int, state, *,
+                   dispatch_ts: float | None = None) -> None:
+        """The collective-free half of `save`: every rank has agreed that
+        `step` is saved, and `state` is the FULL state (gathered; None on
+        a rank other than the chief, which only records the step). The
+        chief writes it. `AsyncSnapshotter`'s writer thread calls this."""
+        t0 = dispatch_ts if dispatch_ts is not None else time.monotonic()
         if not self._chief:
             self._last_saved = step
-            return True
+            return
         # one write at a time (orbax blocks a save on the previous one):
         # the previous step is durable now, so its marker can land
         self.wait()
@@ -507,7 +524,6 @@ class CheckpointManager:
         self._last_saved = step
         log.info("checkpoint saved at step %d -> %s", step, self.directory)
         events.emit("checkpoint_save", step=step)
-        return True
 
     # -- restore --------------------------------------------------------------
 

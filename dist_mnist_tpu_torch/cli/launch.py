@@ -1,29 +1,58 @@
-"""Local multi-process launcher (port of the core of the reference
+"""Local multi-process launcher and supervisor (port of the reference
 `cli/launch.py`).
 
     python -m dist_mnist_tpu_torch.cli.launch --num_processes=2 -- \\
         --config=lenet5_fashion --mesh=data=2 --train_steps=500
     python -m dist_mnist_tpu_torch.cli.launch --num_processes=2 \\
         --platform=cpu -- --config=lenet5_mnist --train_steps=6
+    python -m dist_mnist_tpu_torch.cli.launch --num_processes=2 \\
+        --max_restarts=2 --elastic --journal=/tmp/j.jsonl \\
+        --fault_plan='{"faults": [{"kind": "kill_host", "process": 1,
+                                   "step": 35, "recover_after_s": 5}]}' \\
+        -- --config=mlp_mnist --checkpoint_dir=/tmp/ckpt
 
 Spawns N identical `cli.train` children (`launch(module=)`: the serving
 CLI's tensor-parallel decode spawns `cli.serve` ranks the same way), each
-with the coordinator's
-address (``localhost:<port>``, a port reserved so that concurrent
-launchers cannot be handed the same one), its rank and the world size;
-streams their interleaved output with a ``[pK]`` prefix through pump
-threads named ``LaunchPump-pK``; and on the first abnormal exit kills the
-survivors (a dead peer would park them in a collective) and returns that
-child's exit status, a signal death normalized to 128+N. `--platform=cpu`
-runs every rank on the CPU over gloo; otherwise the children take the
-cards (`cluster/coordination.py`). A fixed
+with the coordinator's address (``localhost:<port>``, a port reserved so
+that concurrent launchers cannot be handed the same one), its rank and
+the world size; streams their interleaved output with a ``[pK]`` prefix
+through pump threads named ``LaunchPump-pK``; and on the first abnormal
+exit kills the survivors (a dead peer would park them in a collective)
+and returns that child's exit status, a signal death normalized to
+128+N. `--platform=cpu` runs every rank on the CPU over gloo; otherwise
+the children take the cards (`cluster/coordination.py`). A fixed
 ``--mesh=data=D,model=M,seq=S,pipe=P`` among the train flags must name as
 many ranks as `--num_processes`.
 
-The reference's supervisor (restarts, `--elastic` resizing, chaos kills,
-the warm-start compile cache, the run journal and the supervisor's HTTP
-endpoint, with `cluster/membership.py`) refuses, naming ROADMAP §1 item
-13. One device per process: `--devices_per_process` above 1 refuses.
+The supervisor (`launch(max_restarts=...)`): an abnormal NON-CHIEF death
+relaunches the whole world from the checkpoint, with exponential backoff
+and jitter, up to `--max_restarts` times; a chief death is fatal; an
+operator interrupt is never restarted. `--fault_plan` (forwarded to the
+children too) gives it the plan's ``kill_process`` chaos kill, which it
+lands in generation 0. A supervised run keeps ONE run journal
+(``supervisor_*`` and ``generation_*`` events; the children's own events
+land in it through ``DIST_MNIST_TPU_JOURNAL``, with
+``DIST_MNIST_TPU_GENERATION`` their generation). `--elastic` turns the
+restarts into membership changes (`cluster/membership.py`): a lost
+non-chief host is excluded and the next generation re-forms at once
+(no backoff, a fresh coordinator port) on the surviving hosts, each
+child told its stable ``DIST_MNIST_TPU_HOST_ID`` and the generation's
+``DIST_MNIST_TPU_ALIVE_HOSTS``; a shrink below `--min_processes` is
+fatal; when a lost host's recovery comes due (a ``kill_host`` fault's
+``recover_after_s``, or `--regrow_after_s`) an ``ElasticGrowTimer``
+thread drains the generation with SIGTERM (the children checkpoint at a
+step boundary and exit 0) and the mesh grows back. Every shrink or grow
+is a ``generation_resize`` event.
+
+Stated departures: one device per process (`--devices_per_process`
+above 1 refuses), so the elastic supervisor passes
+``--elastic_baseline_devices=<num_processes>`` to every child; without
+`--journal` a supervised run's journal lives in a temp dir of the
+supervisor's own, ``dist_mnist_torch_supervisor_*`` under
+`tempfile.gettempdir()`, removed at the end (the reference's holds its
+warm-start compile cache too, which joins with ROADMAP §1 item 13(b), as
+`--compile_cache_dir` does). `--supervisor_port` (the supervisor's
+`/healthz`, `obs/exporter.HealthState`) joins with ROADMAP §1 item 14.
 """
 
 from __future__ import annotations
@@ -39,7 +68,11 @@ import threading
 import time
 from pathlib import Path
 
-_RESILIENCE = "ROADMAP §1 item 13 (resilience, async I/O, overlap)"
+_OVERLAP = "ROADMAP §1 item 13(b) (the warm-start compile cache)"
+_TELEMETRY = "ROADMAP §1 item 14 (telemetry: the supervisor's /healthz)"
+
+#: the temp dir a supervised run without --journal keeps its journal in
+SUPERVISOR_DIR_PREFIX = "dist_mnist_torch_supervisor_"
 
 #: children of the running launch; a test asserts it holds no live
 #: process after `launch` returns
@@ -124,22 +157,55 @@ def _child_env() -> dict:
     return env
 
 
-def launch(num_processes: int, train_args: list[str], *, port: int = 0,
-           platform: str | None = None,
-           module: str = "dist_mnist_tpu_torch.cli.train") -> int:
-    """Spawn the cluster of `module` ranks and wait it out; returns 0 or
-    the first abnormal death's normalized exit status. Importable: tests
-    call it."""
-    if num_processes < 1:
-        raise ValueError(f"num_processes must be >= 1, got {num_processes}")
+def _launch_once(
+    num_processes: int,
+    train_args: list[str],
+    *,
+    port: int = 0,
+    platform: str | None = None,
+    module: str = "dist_mnist_tpu_torch.cli.train",
+    env_extra: dict[str, str] | None = None,
+    kill_spec: tuple[int, float] | None = None,
+    child_command: list[str] | None = None,
+    journal=None,
+    generation: int = 0,
+    hosts: list[int] | None = None,
+    grow_after_s: float | None = None,
+) -> tuple[int, str | None, int | None, bool]:
+    """Spawn ONE cluster generation and wait it out.
+
+    Returns ``(rc, failure, first_dead, grew)``: rc is 0 or the normalized
+    exit status of the first abnormal death; `failure` describes that
+    death (None on success and on operator interrupt — the supervisor
+    must not "restart" a Ctrl-C); `first_dead` is the failing HOST id;
+    `grew` is True when the generation was drained on purpose because an
+    excluded host's recovery came due.
+
+    `hosts` maps the generation's ranks to stable host ids (rank i is
+    host hosts[i], exported as ``DIST_MNIST_TPU_HOST_ID``). `kill_spec` =
+    (host id, delay seconds) SIGKILLs that child `delay` seconds after
+    spawn (faults/plan.py kill_process). `grow_after_s` arms the elastic
+    regrow drain: after that many seconds every child gets SIGTERM.
+    `child_command` replaces the ``python -m <module>`` prefix (the
+    supervisor tests' stub children)."""
+    from dist_mnist_tpu_torch.cluster.membership import ENV_HOST_ID
+
+    if hosts is None:
+        hosts = list(range(num_processes))
+    assert len(hosts) == num_processes
     probe, lock = None, None
     if not port:
         port, probe, lock = _reserve_port()
     env = _child_env()
-    prefix = [sys.executable, "-m", module]
+    if env_extra:
+        env.update(env_extra)
+    prefix = child_command or [sys.executable, "-m", module]
     procs: list[subprocess.Popen] = []
     pumps: list[threading.Thread] = []
-    rc = 0
+    timers: list[threading.Thread] = []
+    timer_stop = threading.Event()
+    grew = threading.Event()
+    rc, failure, first_dead = 0, None, None
     try:
         for i in range(num_processes):
             cmd = [*prefix,
@@ -148,14 +214,58 @@ def launch(num_processes: int, train_args: list[str], *, port: int = 0,
                    f"--process_id={i}",
                    *([f"--platform={platform}"] if platform else []),
                    *train_args]
-            p = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+            p = subprocess.Popen(cmd, env={**env, ENV_HOST_ID: str(hosts[i])},
+                                 stdout=subprocess.PIPE,
                                  stderr=subprocess.STDOUT)
             procs.append(p)
             _LIVE_CHILDREN.append(p)
-            t = threading.Thread(target=_pump, args=(p, f"p{i}"),
-                                 name=f"LaunchPump-p{i}", daemon=True)
+            t = threading.Thread(target=_pump, args=(p, f"p{hosts[i]}"),
+                                 name=f"LaunchPump-p{hosts[i]}", daemon=True)
             t.start()
             pumps.append(t)
+        if kill_spec is not None and kill_spec[0] in hosts:
+            k, delay = kill_spec
+            victim = procs[hosts.index(k)]
+
+            def _chaos_kill():
+                if timer_stop.wait(delay):
+                    return  # the generation ended first
+                if victim.poll() is None:
+                    _say(f"[launcher] fault injected: SIGKILL p{k} after "
+                         f"{delay:.1f}s")
+                    if journal is not None:
+                        journal.emit("fault_injected", kind="kill_process",
+                                     process=k, delay_s=delay, gen=generation)
+                    victim.kill()
+
+            timers.append(threading.Thread(
+                target=_chaos_kill, name=f"FaultKillTimer-p{k}", daemon=True))
+        if grow_after_s is not None:
+            g_delay = max(0.05, grow_after_s)
+
+            def _grow_drain():
+                if timer_stop.wait(g_delay):
+                    return
+                live = [p for p in procs if p.poll() is None]
+                if not live:
+                    return
+                # the graceful preemption handshake, not a kill: children
+                # checkpoint at a step boundary and exit 0, so the grown
+                # generation restores the freshest state
+                grew.set()
+                _say(f"[launcher] host recovery due: draining generation "
+                     f"{generation} ({len(live)} children, SIGTERM) to grow "
+                     "the mesh")
+                if journal is not None:
+                    journal.emit("grow_drain", gen=generation,
+                                 children=len(live))
+                for p in live:
+                    p.send_signal(signal.SIGTERM)
+
+            timers.append(threading.Thread(
+                target=_grow_drain, name="ElasticGrowTimer", daemon=True))
+        for t in timers:
+            t.start()
         # every child exists: release the port for rank 0's store
         if probe is not None:
             probe.close()
@@ -175,8 +285,12 @@ def launch(num_processes: int, train_args: list[str], *, port: int = 0,
                 # non-chief death of the same poll first
                 i, code = next(((j, c) for j, c in dead if j != 0), dead[0])
                 rc = _normalize_rc(code)
-                _say(f"[launcher] {_describe_exit(f'p{i}', code)}; killing "
-                     f"{len(alive)} peer(s)")
+                failure = _describe_exit(f"p{hosts[i]}", code)
+                first_dead = hosts[i]
+                # SIGKILL, not SIGTERM: the survivors are parked in a
+                # collective with a dead peer, and every graceful exit
+                # path crosses another one
+                _say(f"[launcher] {failure}; killing {len(alive)} peer(s)")
                 for j in sorted(alive):
                     procs[j].kill()
             if alive:
@@ -194,10 +308,13 @@ def launch(num_processes: int, train_args: list[str], *, port: int = 0,
                 p.wait(timeout=deadline)
             except subprocess.TimeoutExpired:
                 deadline = 0.1
-        rc = 130
+        rc, failure, first_dead = 130, None, None
     finally:
         if probe is not None:
             probe.close()
+        timer_stop.set()
+        for t in timers:
+            t.join(timeout=5)
         for p in procs:
             if p.poll() is None:
                 p.kill()
@@ -212,7 +329,177 @@ def launch(num_processes: int, train_args: list[str], *, port: int = 0,
                 lock.unlink()
             except OSError:
                 pass
-    return rc
+    return rc, failure, first_dead, grew.is_set()
+
+
+def launch(num_processes: int, train_args: list[str], *, port: int = 0,
+           platform: str | None = None,
+           module: str = "dist_mnist_tpu_torch.cli.train",
+           env_extra: dict[str, str] | None = None,
+           max_restarts: int = 0, restart_backoff_s: float = 1.0,
+           kill_spec: tuple[int, float] | None = None,
+           child_command: list[str] | None = None,
+           journal: str | None = None, elastic: bool = False,
+           min_processes: int = 1, regrow_after_s: float = 0.0,
+           host_kill: tuple[int, float | None] | None = None) -> int:
+    """Spawn the cluster of `module` ranks and wait it out; returns 0 or
+    the first abnormal death's normalized exit status. Importable: tests
+    call it.
+
+    With ``max_restarts > 0`` (or `elastic`, which implies a budget of
+    one resize per host that could be lost) this is the SUPERVISOR of the
+    module docstring: restarts with backoff ``restart_backoff_s * 2^k *
+    (1 + jitter)`` (a seeded jitter), the chief's death fatal, a Ctrl-C
+    never restarted, `kill_spec` landed in generation 0, one run journal
+    (`journal`, else one in a temp dir of its own), and under `elastic`
+    the membership state machine: a shrink at once on a non-chief death,
+    a fatal floor at `min_processes`, and a grow back through a SIGTERM
+    drain when a lost host's recovery comes due (``host_kill=(host,
+    recover_after_s)`` from a kill_host fault, or `regrow_after_s` for
+    any other death). A shrink consumes one of `max_restarts`; a grow
+    none."""
+    import random
+    import shutil
+
+    from dist_mnist_tpu_torch.cluster.membership import (
+        ENV_ALIVE_HOSTS,
+        Membership,
+    )
+    from dist_mnist_tpu_torch.obs import events as events_mod
+
+    if num_processes < 1:
+        raise ValueError(f"num_processes must be >= 1, got {num_processes}")
+    if elastic and max_restarts <= 0:
+        max_restarts = max(1, num_processes - 1)
+    owned_dir = None
+    if journal is None and max_restarts > 0:
+        owned_dir = tempfile.mkdtemp(prefix=SUPERVISOR_DIR_PREFIX,
+                                     dir=tempfile.gettempdir())
+        journal = str(Path(owned_dir) / "journal.jsonl")
+    if elastic and child_command is None and not any(
+            a.startswith("--elastic_baseline_devices") for a in train_args):
+        # the pre-shrink world, so that every (resized) generation resolves
+        # the global-batch policy against it: one device per process
+        train_args = [*train_args,
+                      f"--elastic_baseline_devices={num_processes}"]
+    jrnl = events_mod.RunJournal(journal) if journal else None
+    if jrnl is not None:
+        _say(f"[supervisor] run journal: {journal}")
+        jrnl.emit("supervisor_start", num_processes=num_processes,
+                  max_restarts=max_restarts, elastic=elastic)
+    membership = Membership(num_processes) if elastic else None
+    rng = random.Random(0)  # deterministic jitter (tests time the backoff)
+    attempt = 0  # failure restarts/resizes consumed (bounded)
+    gen = 0  # journal generation number (grows advance it too)
+
+    def _stop(rc: int) -> int:
+        if jrnl is not None:
+            jrnl.emit("supervisor_stop", rc=rc, restarts=attempt)
+        return rc
+
+    try:
+        while True:
+            hosts = None
+            grow_after = None
+            if membership is not None:
+                now = time.monotonic()
+                recovered = membership.restore_due(now)
+                if recovered:
+                    _say(f"[supervisor] host(s) {recovered} recovered; "
+                         f"growing mesh to {membership.world_size}")
+                hosts = membership.alive()
+                grow_after = membership.next_recovery_in(now)
+            world = len(hosts) if hosts is not None else num_processes
+            env_gen = dict(env_extra or {})
+            if journal:
+                env_gen[events_mod.ENV_JOURNAL] = journal
+                env_gen[events_mod.ENV_GENERATION] = str(gen)
+            # this generation's membership: children read it to decide which
+            # peer-ring replica dirs are still reachable after a shrink
+            env_gen[ENV_ALIVE_HOSTS] = ",".join(
+                str(h) for h in (hosts if hosts is not None
+                                 else range(world)))
+            if jrnl is not None:
+                jrnl.emit("generation_start", gen=gen, world=world,
+                          hosts=hosts)
+            rc, failure, first_dead, grew = _launch_once(
+                world, train_args, port=port, platform=platform,
+                module=module, env_extra=env_gen,
+                kill_spec=kill_spec if gen == 0 else None,
+                child_command=child_command, journal=jrnl, generation=gen,
+                hosts=hosts, grow_after_s=grow_after)
+            if jrnl is not None:
+                jrnl.emit("generation_end", gen=gen, rc=rc, failure=failure,
+                          first_dead=first_dead)
+            if rc == 130 and failure is None:
+                return _stop(rc)  # operator interrupt: never re-formed
+            if grew and membership is not None:
+                # a planned drain to regrow: no failure, no backoff, no
+                # restart budget consumed
+                due = membership.restore_due(time.monotonic())
+                old_world, new_world = world, membership.world_size
+                gen += 1
+                _say(f"[supervisor] generation resized {old_world} -> "
+                     f"{new_world} (grow: host(s) {due} back)")
+                if jrnl is not None:
+                    jrnl.emit("generation_resize", gen=gen, kind="grow",
+                              old_world=old_world, new_world=new_world,
+                              host=(due[0] if len(due) == 1 else due))
+                continue
+            if rc == 0 or failure is None or max_restarts <= 0:
+                return _stop(rc)
+            if first_dead == 0:
+                _say(f"[supervisor] chief died ({failure}); fatal — not "
+                     f"restarting, rc={rc}")
+                return _stop(rc)
+            if attempt >= max_restarts:
+                _say(f"[supervisor] {failure}; giving up after {attempt} "
+                     f"restart(s), rc={rc}")
+                return _stop(rc)
+            if membership is not None and first_dead is not None:
+                # elastic shrink: the lost host is out of the next world,
+                # so it re-forms at once (backoff would only add downtime)
+                recover = None
+                if host_kill is not None and first_dead == host_kill[0]:
+                    recover = host_kill[1]
+                elif regrow_after_s and regrow_after_s > 0:
+                    recover = regrow_after_s
+                membership.fail(first_dead, now=time.monotonic(),
+                                recover_after_s=recover)
+                old_world, new_world = world, membership.world_size
+                if new_world < max(1, min_processes):
+                    _say(f"[supervisor] {failure}; surviving world size "
+                         f"{new_world} below min_processes={min_processes}; "
+                         f"fatal, rc={rc}")
+                    return _stop(rc)
+                attempt += 1
+                gen += 1
+                _say(f"[supervisor] {failure}; generation resized "
+                     f"{old_world} -> {new_world} (shrink: host {first_dead}"
+                     f" out"
+                     + (f", recovery in {recover:.1f}s" if recover else "")
+                     + f") — resize {attempt}/{max_restarts}, no backoff")
+                if jrnl is not None:
+                    jrnl.emit("generation_resize", gen=gen, kind="shrink",
+                              old_world=old_world, new_world=new_world,
+                              host=first_dead, recover_after_s=recover,
+                              failure=failure)
+                continue
+            delay = (restart_backoff_s * (2 ** attempt)
+                     * (1.0 + 0.5 * rng.random()))
+            attempt += 1
+            gen += 1
+            _say(f"[supervisor] {failure}; restarting cluster (attempt "
+                 f"{attempt}/{max_restarts}) in {delay:.2f}s")
+            if jrnl is not None:
+                jrnl.emit("supervisor_restart", attempt=attempt,
+                          delay_s=round(delay, 3), failure=failure)
+            time.sleep(delay)
+    finally:
+        if jrnl is not None:
+            jrnl.close()
+        if owned_dir is not None:
+            shutil.rmtree(owned_dir, ignore_errors=True)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -227,40 +514,60 @@ def build_parser() -> argparse.ArgumentParser:
       help="cpu: every rank on the CPU (gloo); default: the cards")
     a("--devices_per_process", type=int, default=1,
       help="refused above 1: one device per process")
-    # the reference's supervisor: refused
-    a("--max_restarts", type=int, default=0, help=_RESILIENCE)
-    a("--restart_backoff_s", type=float, default=None, help=_RESILIENCE)
-    a("--elastic", action="store_true", help=_RESILIENCE)
-    a("--min_processes", type=int, default=None, help=_RESILIENCE)
-    a("--regrow_after_s", type=float, default=None, help=_RESILIENCE)
-    a("--supervisor_port", type=int, default=None, help=_RESILIENCE)
-    a("--fault_plan", default=None, help=_RESILIENCE)
-    a("--compile_cache_dir", default=None, help=_RESILIENCE)
-    a("--journal", default=None, help=_RESILIENCE)
+    # the supervisor
+    a("--max_restarts", type=int, default=0,
+      help="on an abnormal NON-CHIEF death, relaunch the world from the "
+           "checkpoint with exponential backoff and jitter, up to this many "
+           "times; 0 = fail fast")
+    a("--restart_backoff_s", type=float, default=1.0,
+      help="restart backoff base: attempt k sleeps base * 2^k * "
+           "(1 + jitter)")
+    a("--elastic", action="store_true",
+      help="shrink to survive: exclude a lost non-chief host and re-form "
+           "at the surviving world size (no backoff); recovered hosts grow "
+           "the mesh back at the next generation boundary")
+    a("--min_processes", type=int, default=1,
+      help="elastic: the smallest world worth forming; below it is fatal")
+    a("--regrow_after_s", type=float, default=0.0,
+      help="elastic: re-admit a lost host with no planned recovery this "
+           "many seconds after its failure (0 = never)")
+    a("--fault_plan", default=None,
+      help="fault plan (inline JSON or a path, faults/plan.py): the "
+           "launcher lands its kill_process, the supervisor attributes its "
+           "kill_host, and the plan goes on to every child")
+    a("--journal", default=None,
+      help="the run journal (JSONL) of the supervisor and every child; "
+           "default: one in a temp dir of the supervisor's own")
+    # refused
+    a("--supervisor_port", type=int, default=None, help=_TELEMETRY)
+    a("--compile_cache_dir", default=None, help=_OVERLAP)
     return p
 
 
 def _refused(args) -> list[str]:
     out = []
-    for flag, on in (
-            ("--max_restarts (supervisor restarts)", args.max_restarts > 0),
-            ("--restart_backoff_s", args.restart_backoff_s is not None),
-            ("--elastic (resizing)", args.elastic),
-            ("--min_processes", args.min_processes is not None),
-            ("--regrow_after_s", args.regrow_after_s is not None),
-            ("--supervisor_port (the supervisor endpoint)",
-             args.supervisor_port is not None),
-            ("--fault_plan (chaos kills)", args.fault_plan is not None),
-            ("--compile_cache_dir (the warm-start cache)",
-             args.compile_cache_dir is not None),
-            ("--journal (the supervisor's run journal)",
-             args.journal is not None)):
-        if on:
-            out.append(f"{flag} joins the port with {_RESILIENCE}")
+    if args.supervisor_port is not None:
+        out.append("--supervisor_port (the supervisor's endpoint) joins the "
+                   f"port with {_TELEMETRY}")
+    if args.compile_cache_dir is not None:
+        out.append("--compile_cache_dir (the warm-start cache) joins the "
+                   f"port with {_OVERLAP}")
     if args.devices_per_process != 1:
         out.append("--devices_per_process: the port runs one device per "
                    "process (a stated departure)")
     return out
+
+
+def _flag_value(args: list[str], name: str) -> str | None:
+    """The value of ``--name=v`` / ``--name v`` among `args` (the last
+    one wins, as in the child's parse), or None."""
+    value = None
+    for i, arg in enumerate(args):
+        if arg.startswith(f"--{name}="):
+            value = arg.split("=", 1)[1]
+        elif arg == f"--{name}" and i + 1 < len(args):
+            value = args[i + 1]
+    return value
 
 
 def mesh_ranks(args: list[str]) -> int | None:
@@ -295,10 +602,30 @@ def main(argv=None) -> int:
     if want is not None and want != args.num_processes:
         refused.append(f"--mesh names {want} ranks (data x model x seq x "
                        f"pipe) but --num_processes={args.num_processes}")
+    kill_spec = host_kill = None
+    spec = args.fault_plan or _flag_value(train_args, "fault_plan")
+    if spec:
+        from dist_mnist_tpu_torch.faults.plan import FaultPlan
+
+        try:
+            plan = FaultPlan.from_spec(spec)
+        except (OSError, ValueError, TypeError) as err:
+            refused.append(f"--fault_plan: {err}")
+        else:
+            # one plan, two layers: the launcher lands the process kill and
+            # attributes the host loss; the children take the in-loop kinds
+            kill_spec = plan.kill_spec()
+            host_kill = plan.host_kill_spec()
+            if _flag_value(train_args, "fault_plan") is None:
+                train_args = [*train_args, f"--fault_plan={plan.to_json()}"]
     if refused:
         raise SystemExit("error: " + "; ".join(refused))
     return launch(args.num_processes, train_args, port=args.port,
-                  platform=args.platform)
+                  platform=args.platform, max_restarts=args.max_restarts,
+                  restart_backoff_s=args.restart_backoff_s,
+                  kill_spec=kill_spec, journal=args.journal,
+                  elastic=args.elastic, min_processes=args.min_processes,
+                  regrow_after_s=args.regrow_after_s, host_kill=host_kill)
 
 
 if __name__ == "__main__":

@@ -7,6 +7,9 @@
         --config=lenet5_fashion --mesh=data=2      # two ranks (cli/launch.py)
     python -m dist_mnist_tpu_torch.cli.launch --num_processes=4 -- \
         --config=vit_tiny_cifar_moe --mesh=model=4  # expert parallelism
+    python -m dist_mnist_tpu_torch.cli.train --checkpoint_dir=/tmp/ckpt \
+        --fault_plan='{"faults": [{"kind": "preempt", "step": 40}]}' \
+        --async_snapshot --peer_dir=/tmp/peer       # resilience
 
 Runs on the CUDA device by default and exits with an error when there is
 none; `--device=cpu` (or `--platform=cpu`, the reference's flag) runs the
@@ -27,12 +30,23 @@ parameter-server-era flags (--job_name/--task_index/--num_gpus/
 --existing_servers/--ps_hosts/--worker_hosts, --nosync_replicas) are
 accepted and warned about, as the reference does. Every flag of a
 subsystem the port does not have yet (a seq axis beside a model axis,
-a pipe axis beside either, overlap, a
-PRNG implementation, fault plans, the compile cache,
-elastic resizing, async snapshots and peers, the metrics exporter,
-anomaly detection, the tuned store) exits with an error that names the
-ROADMAP §1 item it waits for; `--host_device_count` refuses as a stated
-departure (one device per process).
+a pipe axis beside either, overlap, a PRNG implementation, the compile
+cache, the metrics exporter, anomaly detection, the tuned store) exits
+with an error that names the ROADMAP §1 item it waits for;
+`--host_device_count` refuses as a stated departure (one device per
+process).
+
+Resilience (`faults/`, `checkpoint/snapshot.py`, `checkpoint/peer.py`):
+`--fault_plan` (inline JSON or a path; `faults/plan.py`) injects planned
+preemptions, corrupted checkpoints, input stalls and host losses into
+this run (the launcher takes the plan's process kills); `--async_snapshot`
+checkpoints through the write-behind `AsyncSnapshotter`
+(`--snapshot_window`, `--snapshot_policy`); `--peer_dir` (which implies
+it) replicates each rank's shards to its ring peer and restores from
+the ring first; `--elastic_batch_policy` and `--elastic_baseline_devices`
+(the elastic supervisor passes the pre-shrink world) resolve a resized
+world's learning rate (`configs.apply_elastic_policy`, journaled as
+``elastic_policy``).
 
 A run: the dataset (or its synthetic twin), a seeded init or the latest
 checkpoint, the config's step on the host batcher (`--input_pipeline=
@@ -70,7 +84,7 @@ __all__ = ["build_optimizer", "run_config", "main"]
 DEFAULT_PRNG_IMPL = "threefry2x32"
 
 #: ROADMAP §1 items the refused flags and options wait for
-_RESILIENCE = "ROADMAP §1 item 13 (resilience, async I/O, overlap)"
+_OVERLAP = "ROADMAP §1 item 13(b) (overlap, the compile cache)"
 _TELEMETRY = "ROADMAP §1 item 14 (telemetry)"
 _TUNING = "ROADMAP §1 item 16 (tuning and lint)"
 
@@ -96,7 +110,7 @@ def check_config(cfg) -> None:
     check_axes(cfg.mesh)
     resolve_rules(cfg.sharding_rules)
     if cfg.overlap:
-        raise _refuse("overlap (the fsdp comm/compute overlap)", _RESILIENCE)
+        raise _refuse("overlap (the fsdp comm/compute overlap)", _OVERLAP)
 
 
 @contextlib.contextmanager
@@ -150,6 +164,29 @@ def _journal_scope(cfg, journal, logdir, generation):
                 journal_obj.close()
 
 
+def _snapshotter(manager, window: int, policy: str, peer_dir: str | None):
+    """`manager` behind the write-behind `AsyncSnapshotter`, with this
+    host's `PeerReplicator` when `peer_dir` is set: the host is the
+    supervisor's stable ``DIST_MNIST_TPU_HOST_ID`` (else the rank), its
+    ring the generation's alive hosts (else every rank)."""
+    from dist_mnist_tpu_torch.checkpoint import AsyncSnapshotter
+    from dist_mnist_tpu_torch.checkpoint.peer import (
+        PeerReplicator,
+        alive_hosts_from_env,
+    )
+    from dist_mnist_tpu_torch.cluster import coordination
+    from dist_mnist_tpu_torch.cluster.membership import ENV_HOST_ID
+
+    peer = None
+    if peer_dir:
+        ctx = coordination.context()
+        rank, world = (0, 1) if ctx is None else (ctx.rank, ctx.world)
+        host_id = int(os.environ.get(ENV_HOST_ID, rank))
+        hosts = alive_hosts_from_env(default=list(range(world)))
+        peer = PeerReplicator(peer_dir, host_id, hosts)
+    return AsyncSnapshotter(manager, window=window, policy=policy, peer=peer)
+
+
 def run_config(
     cfg,
     *,
@@ -171,11 +208,21 @@ def run_config(
     checkpoint_every_steps: int = 0,
     span_steps: int = 0,
     mesh=None,
+    fault_plan=None,
+    elastic_baseline_devices: int = 0,
+    async_snapshot: bool = False,
+    snapshot_window: int = 1,
+    snapshot_policy: str = "block",
+    peer_dir: str | None = None,
 ):
     """Train `cfg` (tests and chip_smoke.py call this; main() parses
     flags) on `mesh`, by default the config's mesh over the ranks of the
     process group (one rank without one). Refuses a config `check_config`
-    refuses. The run is journaled (see `_journal_scope`).
+    refuses. The run is journaled (see `_journal_scope`). `fault_plan` (a
+    `faults.FaultPlan`) injects its in-process faults; `async_snapshot` /
+    `peer_dir` checkpoint through `AsyncSnapshotter` (with the peer ring);
+    `elastic_baseline_devices` resolves the config's elastic batch policy
+    against this run's world.
 
     Returns (final_state, final_eval_dict, context)."""
     check_config(cfg)
@@ -243,6 +290,23 @@ def run_config(
         rules = resolve_rules(cfg.sharding_rules)
         if mesh is None:
             mesh = make_mesh(cfg.mesh, device=device)
+        if elastic_baseline_devices:
+            # the resized world's batch/LR policy, resolved BEFORE the
+            # optimizer is built so the decision lives in the config
+            from dist_mnist_tpu_torch.configs import apply_elastic_policy
+            from dist_mnist_tpu_torch.obs import events as events_mod
+
+            n_dev = mesh.ranks  # one device per rank
+            cfg = apply_elastic_policy(cfg, elastic_baseline_devices, n_dev)
+            events_mod.emit(
+                "elastic_policy", policy=cfg.elastic_batch_policy,
+                baseline_devices=elastic_baseline_devices, devices=n_dev,
+                batch_size=cfg.batch_size, learning_rate=cfg.learning_rate)
+            if n_dev != elastic_baseline_devices:
+                log.info("elastic mesh: %d devices (baseline %d); policy=%s "
+                         "-> global batch %d, lr %g", n_dev,
+                         elastic_baseline_devices, cfg.elastic_batch_policy,
+                         cfg.batch_size, cfg.learning_rate)
         dataset = load_dataset(cfg.dataset, data_dir, seed=cfg.seed)
         model = get_model(cfg.model, **cfg.model_kwargs)
         optimizer = build_optimizer(cfg)
@@ -254,12 +318,25 @@ def run_config(
         manager = None
         restored = False
         if checkpoint_dir:
+            # --peer_dir implies the async snapshot path: peer replication
+            # runs on the snapshot writer thread, and the inner manager
+            # goes sync under the snapshotter (which owns the asyncness)
+            wrap_async = bool(async_snapshot or peer_dir)
             manager = CheckpointManager(
-                checkpoint_dir, async_save=True,
+                checkpoint_dir, async_save=not wrap_async,
                 max_restore_fallbacks=max_restore_fallbacks)
-            # every rank reads the full file, then shards it below
-            state, restored = manager.restore_or_init(state)
+            if fault_plan is not None:
+                # wrapped BEFORE the startup restore, so a corrupt fault
+                # on a step already on disk fires on restore_or_init too
+                manager = fault_plan.wrap_checkpoint_manager(manager)
+            if wrap_async:
+                manager = _snapshotter(manager, snapshot_window,
+                                       snapshot_policy, peer_dir)
         state = shard_train_state(state, mesh, rules)
+        if manager is not None:
+            # the store restores the full file and shards it as `state`
+            # is; the peer ring assembles the shards and does the same
+            state, restored = manager.restore_or_init(state)
         initial_step = state.step_int
         log.info("config %s: model=%s on %s, mesh %s, sharding %s, "
                  "restored=%s; %s", cfg.name, cfg.model, device,
@@ -324,6 +401,8 @@ def run_config(
         ]
         goodput_hook = GoodputHook(writer, every_steps=cfg.log_every)
         hooks.append(goodput_hook)
+        if fault_plan is not None:
+            hooks.append(fault_plan.hook())
         eval_hook = None
         if cfg.eval_every:
             eval_hook = hooks_lib.EvalHook(eval_fn, every_steps=cfg.eval_every,
@@ -359,6 +438,10 @@ def run_config(
             if prefetch_depth:
                 # overlap the host-to-device copy with the running step
                 batches = DevicePrefetcher(batches, depth=prefetch_depth)
+        if fault_plan is not None:
+            # outermost wrapper: an injected stall lands in the loop's feed
+            # wait (goodput stall bucket), like any real input outage
+            batches = fault_plan.wrap_batches(batches)
         loop = TrainLoop(
             counted_step, state, batches, hooks,
             checkpoint_manager=manager,
@@ -525,6 +608,28 @@ def build_parser() -> argparse.ArgumentParser:
            "checkpoint_every_secs")
     a("--span_steps", type=int, default=0,
       help="every N steps, journal one `span` event per phase; 0 = off")
+    # -- resilience (faults/, checkpoint/snapshot.py, checkpoint/peer.py)
+    a("--fault_plan", default=None,
+      help="fault-injection plan: inline JSON or a path to a JSON file "
+           "(faults/plan.py); the same plan drives the launcher's process "
+           "kills (cli/launch.py) and the in-process faults here")
+    _bool_flag(p, "async_snapshot", False,
+               "checkpoint through the write-behind AsyncSnapshotter: the "
+               "loop pays a device fork, a writer thread the write")
+    a("--snapshot_window", type=int, default=1,
+      help="async snapshots forked but not yet durable at most")
+    a("--snapshot_policy", default="block", choices=["block", "drop_oldest"],
+      help="what a save does when the window is full")
+    a("--peer_dir", default=None,
+      help="peer-ring replica root (checkpoint/peer.py): each rank's "
+           "shards also go to its ring peer's dir, and restore tries the "
+           "ring before the store; implies --async_snapshot")
+    a("--elastic_batch_policy", default=None,
+      help="keep_global | scale_lr: the global batch / LR policy of a "
+           "resized world (None = config)")
+    a("--elastic_baseline_devices", type=int, default=0,
+      help="devices of the pre-shrink world (cli.launch --elastic passes "
+           "it); 0 = no elastic policy")
     # -- the process group and the mesh (cluster/)
     a("--mesh", default=None,
       help='mesh override, e.g. "data=2", "data=2,model=2" or '
@@ -537,19 +642,12 @@ def build_parser() -> argparse.ArgumentParser:
     # -- refused: their subsystems are not in the port yet
     a("--host_device_count", type=int, default=None,
       help="refused: one device per process")
-    _bool_flag(p, "overlap", None, _RESILIENCE)
-    a("--overlap_bucket_mb", type=float, default=None, help=_RESILIENCE)
-    a("--overlap_chunk", default=None, help=_RESILIENCE)
+    _bool_flag(p, "overlap", None, _OVERLAP)
+    a("--overlap_bucket_mb", type=float, default=None, help=_OVERLAP)
+    a("--overlap_chunk", default=None, help=_OVERLAP)
     a("--prng_impl", default=None,
       help=f"only {DEFAULT_PRNG_IMPL} (one torch.Generator)")
-    a("--fault_plan", default=None, help=_RESILIENCE)
-    a("--compile_cache_dir", default=None, help=_RESILIENCE)
-    a("--elastic_batch_policy", default=None, help=_RESILIENCE)
-    a("--elastic_baseline_devices", type=int, default=0, help=_RESILIENCE)
-    _bool_flag(p, "async_snapshot", False, _RESILIENCE)
-    a("--snapshot_window", type=int, default=None, help=_RESILIENCE)
-    a("--snapshot_policy", default=None, help=_RESILIENCE)
-    a("--peer_dir", default=None, help=_RESILIENCE)
+    a("--compile_cache_dir", default=None, help=_OVERLAP)
     a("--metrics_port", type=int, default=0, help=_TELEMETRY)
     _bool_flag(p, "anomaly", False, _TELEMETRY)
     a("--anomaly_every", type=int, default=None, help=_TELEMETRY)
@@ -573,19 +671,9 @@ def _refused_flags(args) -> list[str]:
                    "data-parallel half); start more processes with "
                    "cli.launch")
     no(args.overlap_bucket_mb is not None, "--overlap_bucket_mb",
-       _RESILIENCE)
-    no(args.overlap_chunk is not None, "--overlap_chunk", _RESILIENCE)
-    no(args.fault_plan is not None, "--fault_plan", _RESILIENCE)
-    no(args.compile_cache_dir is not None, "--compile_cache_dir",
-       _RESILIENCE)
-    no(args.elastic_batch_policy is not None, "--elastic_batch_policy",
-       _RESILIENCE)
-    no(args.elastic_baseline_devices != 0, "--elastic_baseline_devices",
-       _RESILIENCE)
-    no(bool(args.async_snapshot), "--async_snapshot", _RESILIENCE)
-    no(args.snapshot_window is not None, "--snapshot_window", _RESILIENCE)
-    no(args.snapshot_policy is not None, "--snapshot_policy", _RESILIENCE)
-    no(args.peer_dir is not None, "--peer_dir", _RESILIENCE)
+       _OVERLAP)
+    no(args.overlap_chunk is not None, "--overlap_chunk", _OVERLAP)
+    no(args.compile_cache_dir is not None, "--compile_cache_dir", _OVERLAP)
     no(args.metrics_port != 0, "--metrics_port", _TELEMETRY)
     no(bool(args.anomaly), "--anomaly", _TELEMETRY)
     no(args.anomaly_every is not None, "--anomaly_every", _TELEMETRY)
@@ -611,7 +699,8 @@ def _apply_flag_overrides(cfg, args):
                         ("replicas_to_aggregate", "replicas_to_aggregate"),
                         ("prng_impl", "prng_impl"),
                         ("sharding", "sharding_rules"),
-                        ("overlap", "overlap")):
+                        ("overlap", "overlap"),
+                        ("elastic_batch_policy", "elastic_batch_policy")):
         if getattr(args, name) is not None:
             over[field] = getattr(args, name)
     if args.mesh:
@@ -643,6 +732,7 @@ def main(argv=None):
     from dist_mnist_tpu_torch.cluster import coordination
     from dist_mnist_tpu_torch.configs import get_config
     from dist_mnist_tpu_torch.data.datasets import load_dataset
+    from dist_mnist_tpu_torch.faults.plan import FaultPlan
     from dist_mnist_tpu_torch.faults.preemption import (
         PreemptionNotice,
         install_preemption_handlers,
@@ -683,6 +773,12 @@ def main(argv=None):
     try:
         cfg = _apply_flag_overrides(get_config(args.config), args)
         check_config(cfg)
+        plan = FaultPlan.from_spec(args.fault_plan) if args.fault_plan \
+            else None
+        if args.elastic_batch_policy is not None:
+            from dist_mnist_tpu_torch.configs import apply_elastic_policy
+
+            apply_elastic_policy(cfg, 0, 0)  # an unknown policy exits here
         if args.download_only:
             device = None
         elif args.num_processes > 1:
@@ -690,7 +786,7 @@ def main(argv=None):
         else:
             device = resolve_device("cpu" if cpu else args.device)
     except (RuntimeError, KeyError, ValueError, NotImplementedError,
-            TypeError) as err:
+            TypeError, OSError) as err:
         raise SystemExit(f"error: {err}") from None
     if args.download_only:
         ds = load_dataset(cfg.dataset, args.data_dir, seed=cfg.seed)
@@ -733,6 +829,12 @@ def main(argv=None):
             generation=generation,
             checkpoint_every_steps=args.checkpoint_every_steps,
             span_steps=args.span_steps,
+            fault_plan=plan,
+            elastic_baseline_devices=args.elastic_baseline_devices,
+            async_snapshot=args.async_snapshot,
+            snapshot_window=args.snapshot_window,
+            snapshot_policy=args.snapshot_policy,
+            peer_dir=args.peer_dir,
         )
     except (NotImplementedError, ValueError) as err:
         raise SystemExit(f"error: {err}") from None

@@ -329,3 +329,34 @@ def get_config(name: str, **overrides) -> Config:
         raise KeyError(f"unknown config {name!r}; have {sorted(CONFIGS)}")
     cfg = CONFIGS[name]
     return dataclasses.replace(cfg, **overrides) if overrides else cfg
+
+
+ELASTIC_BATCH_POLICIES = ("keep_global", "scale_lr")
+
+
+def apply_elastic_policy(
+    cfg: Config, baseline_devices: int, current_devices: int
+) -> Config:
+    """Resolve the global-batch policy for an elastically resized mesh
+    (the reference's, letter for letter).
+
+    `batch_size` is GLOBAL everywhere, so under keep_global (the default)
+    a shrink needs no config change at all — the batcher slices the same
+    global batch across fewer ranks and the optimizer sees an identical
+    gradient estimate. scale_lr returns a config whose learning_rate is
+    scaled by current/baseline, so the decision is IN the config object
+    the run logs, not an untracked runtime side effect.
+    """
+    if cfg.elastic_batch_policy not in ELASTIC_BATCH_POLICIES:
+        raise ValueError(
+            f"unknown elastic_batch_policy {cfg.elastic_batch_policy!r}; "
+            f"one of {ELASTIC_BATCH_POLICIES}"
+        )
+    if baseline_devices <= 0 or current_devices == baseline_devices:
+        return cfg
+    if cfg.elastic_batch_policy == "keep_global":
+        return cfg
+    return dataclasses.replace(
+        cfg,
+        learning_rate=cfg.learning_rate * current_devices / baseline_devices,
+    )

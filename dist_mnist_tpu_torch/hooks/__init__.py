@@ -6,7 +6,7 @@ returned metrics dict instead of injecting fetches into a feed/fetch merge
 (there is no session to merge into).
 
 Port of the reference's `hooks/`: every hook but `OverlapHook`, which
-refuses (`hooks.builtin.OverlapHook`; ROADMAP §1 item 13).
+refuses (`hooks.builtin.OverlapHook`; ROADMAP §1 item 13(b)).
 """
 
 from dist_mnist_tpu_torch.hooks.base import Hook

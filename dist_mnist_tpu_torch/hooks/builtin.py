@@ -18,7 +18,7 @@ What the reference does with JAX, these do with torch:
 On the CPU the memory hooks report what the reference reports for a
 device without allocator stats: no live stats, and a snapshot with no
 segments. `OverlapHook` refuses: the fsdp overlap plan joins with
-ROADMAP §1 item 13.
+ROADMAP §1 item 13(b).
 """
 
 from __future__ import annotations
@@ -315,7 +315,13 @@ class NaNGuardHook(Hook):
 
 class CheckpointHook(Hook):
     """≙ CheckpointSaverHook (:524-670): save at begin (save-on-create,
-    :585-602), on a step/secs cadence (:607-616), and at end (:618-623)."""
+    :585-602), on a step/secs cadence (:607-616), and at end (:618-623).
+
+    Its manager may be the write-behind `checkpoint.AsyncSnapshotter`:
+    a save is then a fork and a handoff, and a write-behind stall (the
+    window full) blocks inside `save`, so the hook's clock charges it to
+    the goodput `save` bucket with the fork (the snapshotter's
+    `consume_save_stall_s` reads the stalled seconds apart)."""
 
     def __init__(self, manager, every_steps: int | None = None,
                  every_secs: float | None = 600.0):
@@ -676,13 +682,13 @@ class MemoryHook(Hook):
 class OverlapHook(Hook):
     """The fsdp comm/compute-overlap plan's ``overlap/*`` scalars. The
     overlap schedule (`parallel/overlap.py`) joins the port with ROADMAP
-    §1 item 13, so this hook refuses to be built."""
+    §1 item 13(b), so this hook refuses to be built."""
 
     def __init__(self, writer=None, stats: dict | None = None):
         raise NotImplementedError(
             "OverlapHook: the fsdp overlap plan (parallel/overlap.py) joins "
-            "the port with ROADMAP §1 item 13 (resilience, async I/O, "
-            "overlap)")
+            "the port with ROADMAP §1 item 13(b) (overlap, the compile "
+            "cache)")
 
 
 class GlobalStepWaiterHook(Hook):

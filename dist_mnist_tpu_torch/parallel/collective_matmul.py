@@ -8,7 +8,7 @@ the collective as its ring steps (one `collectives.ring_shift` hop a
 step) and matmuls the chunk already resident beside each hop. Here each
 hop is a blocking point-to-point exchange, so nothing overlaps yet: the
 two functions are the schedule and its arithmetic, the library that the
-reference's `parallel/overlap.py` (ROADMAP §1 item 13) builds on. No
+reference's `parallel/overlap.py` (ROADMAP §1 item 13(b)) builds on. No
 config calls them.
 
 Both use one counter-clockwise ring (`ring_shift(..., reverse=True)`: rank

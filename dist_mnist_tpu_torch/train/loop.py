@@ -307,8 +307,9 @@ class TrainLoop:
                         # faults.goodput.elastic_summary measures across
                         # generations
                         self._first_step_emitted = True
+                        ctx = coordination.context()
                         events.emit("first_step", step=self._host_step,
-                                    process=0)
+                                    process=0 if ctx is None else ctx.rank)
                 except Exception as exc:  # noqa: BLE001 — classified below
                     # in-flight events mark pre-failure work; waiting on
                     # them after a restore could resurface the same error

@@ -1328,3 +1328,43 @@ def test_prefetcher_on_a_side_stream_equals_the_sync_feed(cuda):
     pre = sums(DevicePrefetcher(ShardedBatcher(ds, 200, cuda, seed=3),
                                 depth=3))
     assert torch.equal(sync, pre)
+
+
+def test_fork_state_on_card_survives_in_place_updates(cuda, tmp_path):
+    """`fork_state` of a state on the card, then in-place updates of the
+    originals on the same stream (the optimizer's kind) and a generator
+    draw: the fork keeps the values it was taken with, and the
+    snapshotter writes exactly those (its writer waits on the fork's
+    event before the copy to the host)."""
+    from dist_mnist_tpu_torch.checkpoint import (
+        AsyncSnapshotter,
+        CheckpointManager,
+        fork_state,
+    )
+    from dist_mnist_tpu_torch.models.registry import get_model
+    from dist_mnist_tpu_torch.train import create_train_state
+    from dist_mnist_tpu_torch.utils.tree import flatten_with_path
+
+    sample = np.zeros((1, 28, 28, 1), np.uint8)
+    model, opt = get_model("lenet5"), topt.adam(1e-3)
+    state = create_train_state(model, opt, 0, sample, cuda)
+    want = {path: leaf.cpu() for path, leaf in
+            flatten_with_path(state.params)}
+    want_rng = state.rng.get_state()
+    fork = fork_state(state)
+    snap = AsyncSnapshotter(CheckpointManager(tmp_path, async_save=False))
+    assert snap.save(state)
+    for _ in range(20):
+        for _, leaf in flatten_with_path(state.params):
+            leaf.mul_(3.0).add_(1.0)
+    torch.rand(1000, generator=state.rng, device=cuda)
+    snap.wait()
+    snap.close()
+    for path, leaf in flatten_with_path(fork.params):
+        assert leaf.device.type == "cuda" and torch.equal(leaf.cpu(),
+                                                          want[path]), path
+    assert torch.equal(fork.rng.get_state(), want_rng)
+    restored = CheckpointManager(tmp_path).restore(
+        create_train_state(model, opt, 1, sample, cuda))
+    for path, leaf in flatten_with_path(restored.params):
+        assert torch.equal(leaf.cpu(), want[path]), path

@@ -42,6 +42,7 @@ def _sources() -> list[Path]:
         ROOT / "tests/torch_mp_cases.py", ROOT / "tests/torch_native_cases.py",
         ROOT / "tests/torch_multislice_cases.py",
         ROOT / "tests/torch_zoo_cases.py",
+        ROOT / "tests/torch_resilience_cases.py",
         *sorted((ROOT / "scripts").glob("torch_*.py"))]
 
 
@@ -64,6 +65,16 @@ def test_native_layer_modules_are_checked(name):
     for cases in ("torch_native_cases.py", "torch_multislice_cases.py",
                   "torch_zoo_cases.py"):
         assert ROOT / "tests" / cases in _sources()
+
+
+@pytest.mark.parametrize("name", [
+    "faults/plan.py", "faults/inject.py", "checkpoint/snapshot.py",
+    "checkpoint/peer.py", "cluster/membership.py", "cli/launch.py"])
+def test_resilience_modules_are_checked(name):
+    """The resilience slice's modules are among the sources the import
+    check reads (and the rank cases of its tests beside them)."""
+    assert PORT / name in _sources()
+    assert ROOT / "tests/torch_resilience_cases.py" in _sources()
 
 
 @pytest.mark.parametrize("name", ["data/native/loader.cc",

@@ -103,18 +103,44 @@ def test_two_process_fsdp_checkpoint_resume(data_dir, tmp_path):
 
 
 @pytest.mark.parametrize("argv,what", [
-    (["--max_restarts=2"], "item 13"),
-    (["--elastic"], "item 13"),
-    (["--fault_plan={}"], "item 13"),
-    (["--compile_cache_dir=/x"], "item 13"),
-    (["--journal=/x"], "item 13"),
-    (["--supervisor_port=0"], "item 13"),
+    (["--compile_cache_dir=/x"], "item 13(b)"),
+    (["--supervisor_port=0"], "item 14"),
     (["--devices_per_process=2"], "one device per process"),
 ])
 def test_refused_launcher_flags_name_their_reason(argv, what):
     with pytest.raises(SystemExit) as info:
         launch_mod.main(argv + ["--", "--config=mlp_mnist"])
     assert what in str(info.value.code)
+
+
+_KILL = '{"faults": [{"kind": "kill_process", "process": 1, "after_s": 2.0}]}'
+
+
+@pytest.mark.parametrize("argv,want", [
+    (["--max_restarts=2", "--restart_backoff_s=0.5"],
+     {"max_restarts": 2, "restart_backoff_s": 0.5}),
+    (["--elastic", "--min_processes=2", "--regrow_after_s=3"],
+     {"elastic": True, "min_processes": 2, "regrow_after_s": 3.0}),
+    ([f"--fault_plan={_KILL}"], {"kill_spec": (1, 2.0), "host_kill": None}),
+    (["--journal=/x/j.jsonl"], {"journal": "/x/j.jsonl"}),
+], ids=["max_restarts", "elastic", "fault_plan", "journal"])
+def test_supervisor_flags_reach_the_supervisor(monkeypatch, argv, want):
+    """The supervisor's flags (ROADMAP §1 item 13(a)) now run: each
+    reaches `launch`, and a fault plan goes on to the children too (the
+    supervised runs themselves: tests/test_torch_faults.py and
+    tests/test_torch_elastic.py)."""
+    seen = {}
+
+    def fake(n, train_args, **kw):
+        seen.update(kw, n=n, train_args=train_args)
+        return 0
+
+    monkeypatch.setattr(launch_mod, "launch", fake)
+    assert launch_mod.main(argv + ["--", "--config=mlp_mnist"]) == 0
+    assert {k: seen[k] for k in want} == want
+    assert seen["train_args"][0] == "--config=mlp_mnist"
+    if "kill_spec" in want:
+        assert seen["train_args"][1].startswith("--fault_plan=")
 
 
 def test_exit_status_normalization():

@@ -45,7 +45,7 @@ from dist_mnist_tpu_torch.utils.tree import flatten_with_path
 ROOT = Path(__file__).resolve().parents[1]
 
 #: journal events of subsystems the port has not ported: the compile
-#: cache and the cold-start clock (compilecache/, ROADMAP §1 item 13)
+#: cache and the cold-start clock (compilecache/, ROADMAP §1 item 13(b))
 UNPORTED_EVENTS = {"compile_cache", "compile_cache_hit", "compile_cache_miss",
                    "compile_cache_store", "startup"}
 
@@ -328,14 +328,7 @@ REFUSED = [
     (["--overlap"], "item 13"),
     (["--overlap_bucket_mb=2"], "item 13"),
     (["--overlap_chunk=ring"], "item 13"),
-    (["--fault_plan={}"], "item 13"),
     (["--compile_cache_dir=/x"], "item 13"),
-    (["--elastic_batch_policy=scale_lr"], "item 13"),
-    (["--elastic_baseline_devices=4"], "item 13"),
-    (["--async_snapshot"], "item 13"),
-    (["--snapshot_window=2"], "item 13"),
-    (["--snapshot_policy=drop_oldest"], "item 13"),
-    (["--peer_dir=/x"], "item 13"),
     (["--metrics_port=9000"], "item 14"),
     (["--anomaly"], "item 14"),
     (["--anomaly_every=5"], "item 14"),
@@ -392,6 +385,66 @@ def test_lifted_flags_now_run(data_dir, argv):
     assert state.step_int == 4
     assert 0.0 <= final["accuracy"] <= 1.0
     assert ctx["mesh"].size == 1
+
+
+#: the resilience flags (ROADMAP §1 item 13(a)) lifted from the
+#: refusals above, each with what it must show in the run
+RESILIENCE = [
+    (["--fault_plan={}"], "plan"),
+    (["--elastic_batch_policy=scale_lr", "--elastic_baseline_devices=4"],
+     "scale_lr"),
+    (["--elastic_baseline_devices=4"], "keep_global"),
+    (["--async_snapshot"], "snapshotter"),
+    (["--async_snapshot", "--snapshot_window=2"], "window"),
+    (["--async_snapshot", "--snapshot_policy=drop_oldest"], "policy"),
+    (["--peer_dir=PEER"], "peer"),
+]
+
+
+@pytest.mark.parametrize("argv,what", RESILIENCE, ids=[
+    "fault_plan", "elastic_batch_policy", "elastic_baseline_devices",
+    "async_snapshot", "snapshot_window", "snapshot_policy", "peer_dir"])
+def test_resilience_flags_now_run(tmp_path, data_dir, argv, what):
+    """Each resilience flag trains (4 steps, a checkpoint every 2) and
+    does what it says: an empty plan changes nothing, the elastic policy
+    is journaled (scale_lr scales the LR by 1/4 on one device), the
+    snapshot flags put the `AsyncSnapshotter` (with its window and
+    policy) in front of the store, and --peer_dir adds the ring."""
+    from dist_mnist_tpu_torch.checkpoint import AsyncSnapshotter
+
+    argv = [a.replace("PEER", str(tmp_path / "peer")) for a in argv]
+    journal = tmp_path / "j.jsonl"
+    state, final, ctx = cli.main([
+        "--device=cpu", "--config=mlp_mnist", f"--data_dir={data_dir}",
+        "--train_steps=4", "--eval_every=0", f"--journal={journal}",
+        f"--checkpoint_dir={tmp_path / 'ck'}", "--checkpoint_every_steps=2",
+        *argv])
+    assert state.step_int == 4 and 0.0 <= final["accuracy"] <= 1.0
+    mgr = ctx["loop"].checkpoint_manager
+    records = events.read_journal(journal)
+    policy = [r for r in records if r["event"] == "elastic_policy"]
+    if what in ("scale_lr", "keep_global"):
+        assert [(r["policy"], r["baseline_devices"], r["devices"])
+                for r in policy] == [(what, 4, 1)]
+        lr = get_config("mlp_mnist").learning_rate
+        assert policy[0]["learning_rate"] == (lr / 4 if what == "scale_lr"
+                                              else lr)
+    else:
+        assert policy == []
+    assert isinstance(mgr, AsyncSnapshotter) == (what not in (
+        "plan", "scale_lr", "keep_global"))
+    if what == "window":
+        assert mgr._window == 2
+    if what == "policy":
+        assert mgr._policy == "drop_oldest"
+    if what == "peer":
+        assert mgr._peer is not None
+        assert sorted(p.name for p in (tmp_path / "peer" / "h0" / "s0")
+                      .iterdir()) == ["step_0.peer", "step_2.peer",
+                                      "step_4.peer"]
+    assert sorted(p.name for p in (tmp_path / "ck" / "commits")
+                  .iterdir()) == ["0.committed", "2.committed",
+                                  "4.committed"]
 
 
 def test_ps_era_flags_warn_and_still_train(data_dir, caplog):
