@@ -2,8 +2,9 @@
 `bench.py` with no flags), one ladder config's training throughput
 (`bench.py --config NAME`), classifier serving (`bench.py --serve`,
 `--serve --quant`, `--serve --longctx`), decode serving (`bench.py
---serve --decode`) and resilience (`bench.py --faults [--async-save]`,
-`--ckpt`, `--faults --elastic`).
+--serve --decode`), resilience (`bench.py --faults [--async-save]`,
+`--ckpt`, `--faults --elastic`) and the attribution modes (`--input`,
+`--coldstart`, `--memory`, `--overlap`).
 
     python -m dist_mnist_tpu_torch.bench                # on the GPU
     python -m dist_mnist_tpu_torch.bench --device=cpu --race_rounds=1 \\
@@ -18,6 +19,10 @@
     python -m dist_mnist_tpu_torch.bench --faults [--async-save]
     python -m dist_mnist_tpu_torch.bench --ckpt
     python -m dist_mnist_tpu_torch.bench --faults --elastic
+    python -m dist_mnist_tpu_torch.bench --input [--prefetch-depth 2]
+    python -m dist_mnist_tpu_torch.bench --coldstart [--coldstart-steps 20]
+    python -m dist_mnist_tpu_torch.bench --memory [--config lenet5_mnist]
+    python -m dist_mnist_tpu_torch.bench --overlap [--bucket-mb 1.0]
 
 Headline: LeNet-5 on MNIST, global batch 200, Adam 1e-3, the training
 split resident on the device, steps in chunks of 100.
@@ -48,6 +53,32 @@ reference's also run of its telemetry (the anomaly hook, the `/metrics`
 exporter, the fleet scraper, the fleet trace) is ROADMAP §1 item 14, and
 each record says so in its `observability` field. A failed hard gate prints an `error` line and exits 1.
 Without a CUDA device and without ``--device=cpu`` every mode exits 1.
+
+The attribution modes keep the reference's metric names, geometry and
+gates. `--input` (`run_input`): the MLP at batch 1,024 fed by the
+synchronous host batcher and by `DevicePrefetcher`, the residual
+`input_stall_ms_per_step`, the two trajectories bit for bit.
+`--coldstart` (`run_coldstart`): two fresh processes share a fresh store
+directory (`compilecache/`), the cold one building the kernels and the
+warm one loading them; `time_to_first_step_ms` (warm) with both
+`StartupClock` snapshots. Its child trains LeNet-5 at batch 16 with
+``optim.adam(1e-3, fused=True)`` so that on the card the step builds and
+loads the `fused_adam` kernel (the reference's child compiles its
+unfused Adam's XLA step; a stated departure); on the CPU nothing is
+built, the record says ``builds: 0`` and the store gates read "not
+applicable". `--memory` (`run_memory`) and `--overlap` (`run_overlap`)
+run on the ranks of the world they run in: alone one rank, and under
+`cli.launch.launch(module="dist_mnist_tpu_torch.bench")` N, the chief
+printing the record. `--memory` gives per-rank `state_memory_bytes` under
+dp and fsdp and their ratio, and one step's peak allocated bytes
+(`step_peak`: `torch.cuda.max_memory_allocated` after
+`reset_peak_memory_stats`, where the reference reads XLA's compiled
+memory analysis; a stated departure). `--overlap` times the serial twin
+against the overlapped FSDP schedule (`parallel/overlap.py`):
+`comm_exposed_ms_per_step`, the two trajectories bit for bit, and each
+variant's collective calls a step from `collective_stats` in place of
+the reference's HLO counts; on one rank it reports the reference's
+honest zero.
 """
 
 from __future__ import annotations
@@ -57,8 +88,13 @@ import dataclasses
 import json
 import time
 
-import numpy as np
-import torch
+#: process-start anchor for the --coldstart-child startup attribution
+#: (`compilecache.StartupClock`): the imports below, torch's among them,
+#: land in its ``import`` bucket
+_T0 = time.monotonic()
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 from dist_mnist_tpu_torch import optim
 from dist_mnist_tpu_torch.configs import CONFIGS, Config
@@ -797,9 +833,9 @@ class ResilienceGateError(RuntimeError):
     """A resilience bench's hard gate failed (the reference's assert)."""
 
 
-def _gate(ok: bool, message: str) -> None:
+def _gate(ok: bool, message: str, error=ResilienceGateError) -> None:
     if not ok:
-        raise ResilienceGateError(message)
+        raise error(message)
 
 
 class LossTrajectory:
@@ -1292,6 +1328,502 @@ def run_faults_elastic(device: torch.device, *, data_dir: str | None = None,
     }
 
 
+#: the attribution modes' geometry, the reference's (`bench.py --input`,
+#: `--coldstart`, `--memory`, `--overlap`)
+INPUT_BATCH, INPUT_WARMUP = 1024, 5
+COLDSTART_STEPS, COLDSTART_BATCH = 20, 16
+#: the prefix of `--coldstart`'s pair directory (the test suite's stray
+#: temp-dir check globs the reference's own ``bench_coldstart_``)
+COLDSTART_PREFIX = "dist_mnist_torch_coldstart_"
+OVERLAP_BATCH, OVERLAP_WARMUP, OVERLAP_BUCKET_MB = 512, 3, 1.0
+#: what a store gate reads where nothing was built (the CPU)
+NOT_APPLICABLE = "not applicable: nothing was built (no kernel on the cpu)"
+
+
+class AttributionGateError(RuntimeError):
+    """An attribution bench's hard gate failed (the reference's assert)."""
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _hex(losses) -> list[str]:
+    """Device loss scalars as exact float32 hex (one host transfer)."""
+    vals = torch.stack([x.detach().to(torch.float32) for x in losses]).cpu()
+    return [np.float32(v).tobytes().hex() for v in vals.numpy()]
+
+
+def _unhex(h: str) -> float:
+    """The float32 a `_hex` string holds."""
+    return float(np.frombuffer(bytes.fromhex(h), np.float32)[0])
+
+
+def run_input(device: torch.device, n_timed: int, *, depth: int = 2,
+              batch: int = INPUT_BATCH, warmup: int = INPUT_WARMUP,
+              dataset: Dataset | None = None) -> dict:
+    """`--input`: the same model and stream timed twice, fed by the
+    synchronous host batcher (each batch's copy to the device issued in
+    the loop) and through `DevicePrefetcher` (`depth` copies ahead on a
+    side stream): `input_stall_ms_per_step`, the prefetched feed's
+    residual wait, with both feeds' numbers. Both runs start from the
+    same state bits over the same stream, so their trajectories are bit
+    for bit the same (a gate)."""
+    from dist_mnist_tpu_torch.checkpoint.snapshot import fork_state
+    from dist_mnist_tpu_torch.data.pipeline import ShardedBatcher
+    from dist_mnist_tpu_torch.data.prefetch import DevicePrefetcher
+    from dist_mnist_tpu_torch.train import make_train_step
+
+    metric = "input_stall_ms_per_step"
+    dataset = dataset if dataset is not None else load_dataset("mnist",
+                                                               seed=SEED)
+    model, optimizer = get_model("mlp"), optim.adam(1e-3)
+    state0 = create_train_state(model, optimizer, SEED,
+                                dataset.train_images[:1], device)
+    step = make_train_step(model, optimizer)
+
+    def timed_feed(batches) -> dict:
+        it = iter(batches)
+        state = fork_state(state0)
+        try:
+            for _ in range(warmup):
+                state, out = step(state, next(it))
+            out["loss"].item()  # fence: the warm-up off the clock
+            feed_s, losses = 0.0, []
+            t0 = time.monotonic()
+            for _ in range(n_timed):
+                f0 = time.monotonic()
+                b = next(it)
+                feed_s += time.monotonic() - f0
+                state, out = step(state, b)
+                losses.append(out["loss"])
+            traj = _hex(losses)  # the stop-clock fetch
+            wall_s = time.monotonic() - t0
+        finally:
+            if hasattr(it, "close"):
+                it.close()
+        return {"wall_s": wall_s, "feed_s": feed_s, "losses": traj,
+                "loss": _unhex(traj[-1])}
+
+    sync = timed_feed(ShardedBatcher(dataset, batch, device, seed=0))
+    pre_src = DevicePrefetcher(ShardedBatcher(dataset, batch, device,
+                                              seed=0), depth=depth)
+    try:
+        pre = timed_feed(pre_src)
+        pre_stats = pre_src.stats()
+    finally:
+        pre_src.close()
+    identical = sync["losses"] == pre["losses"]
+    _gate(identical, "the prefetched feed's trajectory is not the "
+                     "synchronous one's: the prefetcher reordered or "
+                     "dropped a batch", AttributionGateError)
+
+    def ms(sec):
+        return sec / n_timed * 1e3
+
+    return {
+        "metric": metric,
+        "value": ms(pre["feed_s"]),
+        "unit": "ms/step",
+        "vs_baseline": 0.0,  # attribution metric: no published reference
+        "synthetic_data": bool(dataset.synthetic),
+        "extra": {
+            "device": str(device),
+            "chips": 1,
+            "global_batch": batch,
+            "depth": depth,
+            "timed_steps": n_timed,
+            "sync_stall_ms_per_step": ms(sync["feed_s"]),
+            "prefetched_stall_ms_per_step": ms(pre["feed_s"]),
+            "stall_reduction_ms_per_step": ms(sync["feed_s"]
+                                              - pre["feed_s"]),
+            "sync_steps_per_sec": n_timed / sync["wall_s"],
+            "prefetched_steps_per_sec": n_timed / pre["wall_s"],
+            "mean_ring_occupancy": pre_stats["mean_occupancy"],
+            "h2d_mbytes_per_step": pre_stats["h2d_bytes"] / max(
+                1, pre_stats["batches"]) / 2**20,
+            "loss_sync": sync["loss"],
+            "loss_prefetched": pre["loss"],
+            "trajectory_identical": identical,
+        },
+    }
+
+
+def coldstart_child(cache_dir: str, n_steps: int, device: torch.device,
+                    data_dir: str | None = None) -> dict:
+    """One measured process of the cold/warm pair (`--coldstart-child`):
+    LeNet-5 under ``optim.adam(1e-3, fused=True)`` with the store in
+    `cache_dir` enabled, `n_steps` steps at batch 16 from the seeded init;
+    time to first step, the `StartupClock` buckets, the store's stats,
+    the fused Adam's launches and the loss trajectory as exact float32
+    hex (the parent compares the pair's bits)."""
+    from dist_mnist_tpu_torch.compilecache import (
+        StartupClock,
+        enable_persistent_cache,
+    )
+    from dist_mnist_tpu_torch.data.pipeline import ShardedBatcher
+    from dist_mnist_tpu_torch.ops.kernels import (
+        launch_counts,
+        reset_launch_counts,
+    )
+    from dist_mnist_tpu_torch.train import make_train_step
+
+    clock = StartupClock(t0=_T0)
+    clock.note("import", time.monotonic() - _T0)
+    with clock.phase("init"):
+        cache = enable_persistent_cache(cache_dir)
+        dataset = load_dataset("mnist", data_dir, seed=SEED)
+        model = get_model("lenet5")
+        optimizer = optim.adam(1e-3, fused=True)
+        state = create_train_state(model, optimizer, SEED,
+                                   dataset.train_images[:1], device)
+        step = make_train_step(model, optimizer)
+        it = iter(ShardedBatcher(dataset, COLDSTART_BATCH, device, seed=0))
+    reset_launch_counts()
+    losses = []
+    state, out = step(state, next(it))
+    out["loss"].item()  # fence: the first step finished
+    clock.first_step_done()
+    # the build or load the first step paid, attributed after the freeze:
+    # first_step is the residual at snapshot time
+    clock.note("compile", step.consume_compile_s())
+    losses.append(out["loss"])
+    for _ in range(n_steps - 1):
+        state, out = step(state, next(it))
+        losses.append(out["loss"])
+    traj = _hex(losses)
+    snap = clock.snapshot()
+    stats = cache.stats()
+    return {"time_to_first_step_ms": snap["time_to_first_step_ms"],
+            "startup": snap, "cache": stats, "builds": stats["builds"],
+            "launches": launch_counts()["fused_adam_update"],
+            "losses": traj}
+
+
+def run_coldstart_child(pair_dir: str, n_steps: int, device: torch.device,
+                        data_dir: str | None = None,
+                        timeout_s: float = 600.0) -> dict:
+    """`coldstart_child` in a fresh process (``python -m
+    dist_mnist_tpu_torch.bench --coldstart-child=<pair_dir>``); its JSON
+    record. Raises `AttributionGateError` when it fails."""
+    import subprocess
+    import sys
+
+    from dist_mnist_tpu_torch.cli.launch import _child_env
+
+    cmd = [sys.executable, "-m", "dist_mnist_tpu_torch.bench",
+           f"--coldstart-child={pair_dir}", f"--coldstart-steps={n_steps}",
+           f"--device={device}",
+           *([f"--data_dir={data_dir}"] if data_dir else [])]
+    out = subprocess.run(cmd, capture_output=True, text=True,
+                         timeout=timeout_s, env=_child_env())
+    if out.returncode != 0:
+        raise AttributionGateError(
+            f"coldstart child rc={out.returncode}: "
+            f"{out.stderr.strip()[-2000:]}")
+    for line in reversed(out.stdout.strip().splitlines()):
+        try:
+            return json.loads(line)
+        except ValueError:
+            continue
+    raise AttributionGateError("coldstart child printed no JSON line")
+
+
+def run_coldstart(device: torch.device, n_steps: int = COLDSTART_STEPS, *,
+                  data_dir: str | None = None, pair_dir: str | None = None,
+                  timeout_s: float = 600.0) -> dict:
+    """`--coldstart`: the same short run in two fresh processes sharing
+    one store directory, the first cold (builds, saves), the second warm
+    (loads what the first saved): `time_to_first_step_ms` (warm, what a
+    supervisor's restart pays) with the cold one, the build ms the warm
+    process did not pay and both `StartupClock` snapshots. Gates: the
+    warm process hit the store, beat the cold time, and trained the same
+    bits. Without a build (the CPU) the store gates are not applicable
+    and say so. `pair_dir` (a fresh one named `COLDSTART_PREFIX`...
+    when None, removed at the end) holds the store."""
+    import shutil
+    import tempfile
+
+    metric = "time_to_first_step_ms"
+    load_dataset("mnist", data_dir, seed=SEED)  # the children read its cache
+    owned = pair_dir is None
+    if owned:
+        pair_dir = tempfile.mkdtemp(prefix=COLDSTART_PREFIX)
+    try:
+        cold = run_coldstart_child(pair_dir, n_steps, device, data_dir,
+                                   timeout_s)
+        warm = run_coldstart_child(pair_dir, n_steps, device, data_dir,
+                                   timeout_s)
+    finally:
+        if owned:
+            shutil.rmtree(pair_dir, ignore_errors=True)
+    identical = warm["losses"] == cold["losses"]
+    _gate(identical, "the warm trajectory diverged from the cold one: the "
+                     "loaded library is not the one that was built",
+          AttributionGateError)
+    cold_ms = cold["time_to_first_step_ms"]
+    warm_ms = warm["time_to_first_step_ms"]
+    built = cold["builds"] > 0
+    if built:
+        _gate(warm["cache"]["hits"] > 0,
+              f"the warm process missed the store: {warm['cache']}",
+              AttributionGateError)
+        _gate(warm_ms < cold_ms, f"warm start ({warm_ms:.0f} ms) not faster "
+                                 f"than cold ({cold_ms:.0f} ms)",
+              AttributionGateError)
+    return {
+        "metric": metric,
+        "value": warm_ms,
+        "unit": "ms",
+        "vs_baseline": 0.0,  # startup metric: no published reference
+        "extra": {
+            "device": str(device),
+            "cold_ms": cold_ms,
+            "warm_ms": warm_ms,
+            # build wall time the warm process did not pay, as the cold
+            # process recorded it when it saved the entry
+            "restart_compile_saved_ms": warm["cache"]["compile_ms_saved"],
+            "ttfs_saved_ms": cold_ms - warm_ms,
+            "steps": n_steps,
+            "builds": cold["builds"],
+            "warm_hits": warm["cache"]["hits"],
+            "hit_gate": "passed" if built else NOT_APPLICABLE,
+            "warm_beats_cold_gate": "passed" if built else NOT_APPLICABLE,
+            "trajectory_identical": identical,
+            "losses": cold["losses"],  # float32 hex, the pair's shared bits
+            "launches_fused_adam_update": [cold["launches"],
+                                           warm["launches"]],
+            "cold_startup": cold["startup"],
+            "warm_startup": warm["startup"],
+            "cold_cache": cold["cache"],
+            "warm_cache": warm["cache"],
+            "departure": "the child trains with the fused Adam kernel "
+                         "(the reference's child compiles its unfused "
+                         "Adam's XLA step)",
+        },
+    }
+
+
+def _rank_mesh(device: torch.device):
+    """The data mesh over every rank of the process group (one rank
+    without one)."""
+    from dist_mnist_tpu_torch.cluster.mesh import MeshSpec, make_mesh
+
+    return make_mesh(MeshSpec(data=-1), device=device)
+
+
+def run_memory(device: torch.device, name: str | None = None, *,
+               data_dir: str | None = None, mesh=None) -> dict | None:
+    """`--memory`: per-rank resident state under dp and under fsdp on
+    this world's ranks (`state_memory_bytes` from the shard shapes), and
+    one training step's peak allocated bytes under each (`step_peak`,
+    the card only). The headline is fsdp's param + optimizer bytes a
+    rank; `reduction_x` the dp/fsdp ratio. The chief returns the record,
+    the other ranks None."""
+    from dist_mnist_tpu_torch.checkpoint.snapshot import fork_state
+    from dist_mnist_tpu_torch.cluster import coordination
+    from dist_mnist_tpu_torch.parallel.sharding import (
+        DP_RULES,
+        FSDP_RULES,
+        shard_train_state,
+    )
+    from dist_mnist_tpu_torch.train import make_train_step
+
+    cfg = CONFIGS[name or "lenet5_mnist"]
+    mesh = mesh if mesh is not None else _rank_mesh(device)
+    n = mesh.size
+    dataset = load_dataset(cfg.dataset, data_dir, seed=cfg.seed)
+    model = get_model(cfg.model, **cfg.model_kwargs)
+    optimizer = optim.build_optimizer(cfg)
+    loss_fn = (losses.clipped_softmax_cross_entropy if cfg.loss == "clipped"
+               else losses.softmax_cross_entropy)
+    # state bytes do not depend on the batch: keep the step small but the
+    # batch divisible over the data ranks
+    batch_size = max(1, min(cfg.batch_size, 512) // n) * n
+    local = batch_size // n
+    rows = slice(mesh.rank * local, (mesh.rank + 1) * local)
+    batch = {"image": torch.from_numpy(np.ascontiguousarray(
+                 dataset.train_images[:batch_size][rows])).to(device),
+             "label": torch.from_numpy(np.ascontiguousarray(
+                 dataset.train_labels[:batch_size][rows],
+                 np.int32)).to(device)}
+    base = create_train_state(model, optimizer, 0, dataset.train_images[:1],
+                              device)
+    per = {}
+    for label, rules in (("dp", DP_RULES), ("fsdp", FSDP_RULES)):
+        state = shard_train_state(fork_state(base), mesh, rules)
+        step = make_train_step(model, optimizer, mesh=mesh, rules=rules,
+                               loss_fn=loss_fn, remat=cfg.remat,
+                               remat_policy=cfg.remat_policy)
+        entry = dict(state_memory_bytes(state))
+        if device.type == "cuda":
+            _sync(device)
+            torch.cuda.reset_peak_memory_stats(device)
+            state, out = step(state, batch)
+            out["loss"].item()
+            entry["step_peak"] = {
+                "peak_allocated_bytes": torch.cuda.max_memory_allocated(
+                    device)}
+        per[label] = entry
+    if not coordination.is_chief():
+        return None
+
+    def resident(e):
+        return e["param_bytes"] + e["opt_state_bytes"]
+
+    value = resident(per["fsdp"])
+    return {
+        "metric": "fsdp_per_device_state_bytes",
+        "value": float(value),
+        "unit": "bytes/device",
+        "vs_baseline": 0.0,  # attribution metric: no published reference
+        "synthetic_data": bool(dataset.synthetic),
+        "extra": {
+            "device": str(device),
+            "chips": n,
+            "config": cfg.name,
+            "global_batch": batch_size,
+            "dp": per["dp"],
+            "fsdp": per["fsdp"],
+            "reduction_x": resident(per["dp"]) / max(1, value),
+            "fsdp_over_dp": value / max(1, resident(per["dp"])),
+            "note": "param_bytes/opt_state_bytes are per-rank RESIDENT "
+                    "state from shard shapes; 'step_peak' is one training "
+                    "step's torch.cuda.max_memory_allocated after "
+                    "reset_peak_memory_stats (the reference reads XLA's "
+                    "compiled memory analysis; a stated departure)",
+        },
+    }
+
+
+#: the collective counters `--overlap` reports a step
+_OVERLAP_CALLS = ("all_gather_calls", "reduce_scatter_calls",
+                  "all_reduce_calls", "ring_shift_calls")
+
+
+def run_overlap(device: torch.device, n_timed: int, *,
+                bucket_mb: float = OVERLAP_BUCKET_MB,
+                batch: int = OVERLAP_BATCH, warmup: int = OVERLAP_WARMUP,
+                data_dir: str | None = None, mesh=None) -> dict | None:
+    """`--overlap`: the same FSDP model timed twice on this world's ranks,
+    through the serial twin (every gather before the forward, every flush
+    after the whole backward: all communication exposed) and through the
+    overlapped bucket schedule (`parallel/overlap.py`):
+    `comm_exposed_ms_per_step` = serial - overlapped step time. Both are
+    the same values moved through the same collectives, so their
+    trajectories are asserted bit for bit; each variant's collective
+    calls a step (`collective_stats`) are the chunk-structure evidence
+    (`chunked`: gathers >= buckets and a gradient reduction). On one rank
+    it reports the reference's honest zero. The chief returns the record,
+    the other ranks None."""
+    from dist_mnist_tpu_torch.checkpoint.snapshot import fork_state
+    from dist_mnist_tpu_torch.cluster import coordination
+    from dist_mnist_tpu_torch.data.pipeline import ShardedBatcher
+    from dist_mnist_tpu_torch.parallel.collectives import collective_stats
+    from dist_mnist_tpu_torch.parallel.overlap import (
+        OverlapConfig,
+        plan_stats,
+    )
+    from dist_mnist_tpu_torch.parallel.sharding import (
+        FSDP_RULES,
+        shard_train_state,
+    )
+    from dist_mnist_tpu_torch.train import make_train_step
+    from dist_mnist_tpu_torch.train.state import params_digest
+
+    metric = "comm_exposed_ms_per_step"
+    mesh = mesh if mesh is not None else _rank_mesh(device)
+    n = mesh.size
+    if n < 2:
+        # one rank moves no FSDP communication: the honest report is 0
+        return {
+            "metric": metric,
+            "value": 0.0,
+            "unit": "ms/step",
+            "vs_baseline": 0.0,
+            "extra": {"device": str(device), "chips": n,
+                      "single_chip": True,
+                      "note": "no fsdp communication exists on one rank; "
+                              "nothing to overlap"},
+        }
+    dataset = load_dataset("mnist", data_dir, seed=SEED)
+    # a hidden width the data ranks divide, so the fsdp rule splits both
+    # matrices
+    hidden = max(64, 64 * n)
+    model, optimizer = get_model("mlp", hidden_units=hidden), optim.adam(1e-3)
+    state0 = shard_train_state(
+        create_train_state(model, optimizer, SEED, dataset.train_images[:1],
+                           device), mesh, FSDP_RULES)
+    stats = plan_stats(state0.params, mesh, FSDP_RULES,
+                       OverlapConfig(bucket_mb=bucket_mb),
+                       specs=state0.placement.specs.params)
+    counters = collective_stats(mesh)
+
+    def timed_variant(cfg) -> dict:
+        step = make_train_step(model, optimizer, mesh=mesh, rules=FSDP_RULES,
+                               overlap=cfg)
+        it = iter(ShardedBatcher(dataset, batch, device, seed=0, mesh=mesh))
+        state = fork_state(state0)
+        for _ in range(warmup):
+            state, out = step(state, next(it))
+        out["loss"].item()  # fence: the warm-up off the clock
+        before = dict(counters)
+        losses_ = []
+        t0 = time.monotonic()
+        for _ in range(n_timed):
+            state, out = step(state, next(it))
+            losses_.append(out["loss"])
+        traj = _hex(losses_)  # the stop-clock fetch
+        wall_s = time.monotonic() - t0
+        return {"ms": wall_s / n_timed * 1e3, "losses": traj,
+                "digest": params_digest(state.params),
+                "collectives": {k: (counters[k] - before.get(k, 0)) / n_timed
+                                for k in _OVERLAP_CALLS}}
+
+    serial = timed_variant(OverlapConfig(bucket_mb=bucket_mb, serial=True))
+    over = timed_variant(OverlapConfig(bucket_mb=bucket_mb))
+    identical = (serial["losses"] == over["losses"]
+                 and serial["digest"] == over["digest"])
+    _gate(identical, "the overlapped trajectory is not the serial twin's "
+                     "bit for bit: the schedule changed the math",
+          AttributionGateError)
+    oc, n_buckets = over["collectives"], stats["buckets"]
+    # chunk structure: the overlapped step gathers bucket by bucket (at
+    # least one gather a bucket) and reduces the gradients collectively
+    chunked = (oc["all_gather_calls"] + oc["ring_shift_calls"] >= n_buckets
+               and oc["reduce_scatter_calls"] + oc["all_reduce_calls"] > 0)
+    if not coordination.is_chief():
+        return None
+    return {
+        "metric": metric,
+        "value": max(0.0, serial["ms"] - over["ms"]),
+        "unit": "ms/step",
+        "vs_baseline": 0.0,  # attribution metric: no published reference
+        "synthetic_data": bool(dataset.synthetic),
+        "extra": {
+            "device": str(device),
+            "chips": n,
+            "global_batch": batch,
+            "timed_steps": n_timed,
+            "hidden_units": hidden,
+            "bucket_mb": bucket_mb,
+            "n_buckets": n_buckets,
+            "plan": stats,
+            "gathered_mbytes_per_step": stats["gathered_bytes"] / 2**20,
+            "serial_ms_per_step": serial["ms"],
+            "overlapped_ms_per_step": over["ms"],
+            "serial_collectives": serial["collectives"],
+            "overlapped_collectives": oc,
+            "chunked": chunked,
+            "timing_resolves_overlap": serial["ms"] > over["ms"],
+            "loss_serial": _unhex(serial["losses"][-1]),
+            "loss_overlapped": _unhex(over["losses"][-1]),
+            "trajectory_identical": identical,
+        },
+    }
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m dist_mnist_tpu_torch.bench",
@@ -1346,7 +1878,103 @@ def build_parser() -> argparse.ArgumentParser:
                    help="checkpoint cost: save_stall_ms_per_step, sync vs "
                         "the AsyncSnapshotter, then the peer ring against "
                         "the store under the elastic supervisor")
+    # -- the attribution modes
+    p.add_argument("--input", action="store_true",
+                   help="input-stall attribution: the synchronous feed vs "
+                        "the device-prefetched one on the same model and "
+                        "stream (input_stall_ms_per_step)")
+    p.add_argument("--prefetch-depth", dest="prefetch_depth", type=int,
+                   default=2, help="prefetch ring depth in --input mode")
+    p.add_argument("--coldstart", action="store_true",
+                   help="cold start: the same short run in a cold process "
+                        "then a warm one sharing a kernel store "
+                        "(time_to_first_step_ms)")
+    p.add_argument("--coldstart-child", dest="coldstart_child", default=None,
+                   metavar="STORE_DIR", help=argparse.SUPPRESS)
+    p.add_argument("--coldstart-steps", dest="coldstart_steps", type=int,
+                   default=COLDSTART_STEPS,
+                   help="steps per process in --coldstart mode")
+    p.add_argument("--memory", action="store_true",
+                   help="per-rank resident state, dp vs fsdp, and one "
+                        "step's peak bytes (fsdp_per_device_state_bytes); "
+                        "--config picks the config (default lenet5_mnist)")
+    p.add_argument("--overlap", action="store_true",
+                   help="the serial fsdp schedule vs the overlapped bucket "
+                        "schedule on the same model and stream "
+                        "(comm_exposed_ms_per_step)")
+    p.add_argument("--bucket-mb", dest="bucket_mb", type=float,
+                   default=OVERLAP_BUCKET_MB,
+                   help="overlap bucket size (MiB) in --overlap mode")
+    # -- what cli.launch passes each rank (--memory, --overlap)
+    p.add_argument("--coordinator_address", default=None,
+                   help=argparse.SUPPRESS)
+    p.add_argument("--num_processes", type=int, default=None,
+                   help=argparse.SUPPRESS)
+    p.add_argument("--process_id", type=int, default=None,
+                   help=argparse.SUPPRESS)
+    p.add_argument("--platform", default=None, choices=["cpu", "gpu"],
+                   help=argparse.SUPPRESS)
     return p
+
+
+def _attribution_mode(args) -> str | None:
+    """The attribution benchmark the flags name, or None; exits on two
+    at once or on a modifier without its mode."""
+    modes = [m for m in ("input", "coldstart", "memory", "overlap")
+             if getattr(args, m)]
+    if len(modes) > 1:
+        raise SystemExit(f"error: one of --input, --coldstart, --memory, "
+                         f"--overlap at a time, got "
+                         f"{', '.join('--' + m for m in modes)}")
+    if args.num_processes and args.num_processes > 1 and modes[:1] not in (
+            ["memory"], ["overlap"]):
+        raise SystemExit("error: only --memory and --overlap run on the "
+                         "ranks of a launch")
+    return modes[0] if modes else None
+
+
+def _run_attribution(args, mode: str):
+    """Run an attribution mode on this process's device (a launched
+    rank's when --num_processes > 1) and print its record (the chief's
+    only); a failed gate prints an `error` line and exits 1."""
+    from dist_mnist_tpu_torch.cluster import coordination
+
+    metric = {"input": "input_stall_ms_per_step",
+              "coldstart": "time_to_first_step_ms",
+              "memory": "fsdp_per_device_state_bytes",
+              "overlap": "comm_exposed_ms_per_step"}[mode]
+    cpu = args.platform == "cpu" or args.device == "cpu"
+    try:
+        ctx = coordination.initialize_distributed(
+            args.coordinator_address, args.num_processes, args.process_id,
+            platform="cpu" if cpu else None)
+        device = (ctx.device if ctx is not None
+                  else resolve_device("cpu" if cpu else args.device))
+    except (RuntimeError, ValueError) as err:
+        raise SystemExit(f"error: {err}") from None
+    try:
+        if mode == "input":
+            record = run_input(device, args.steps, depth=args.prefetch_depth,
+                               dataset=load_dataset("mnist", args.data_dir,
+                                                    seed=SEED))
+        elif mode == "coldstart":
+            record = run_coldstart(device, args.coldstart_steps,
+                                   data_dir=args.data_dir)
+        elif mode == "memory":
+            record = run_memory(device, args.config, data_dir=args.data_dir)
+        else:
+            record = run_overlap(device, min(args.steps, 60),
+                                 bucket_mb=args.bucket_mb,
+                                 data_dir=args.data_dir)
+    except AttributionGateError as err:
+        print(json.dumps({"metric": metric, "value": 0.0,
+                          "error": str(err)}), flush=True)
+        raise SystemExit(1) from None
+    finally:
+        coordination.shutdown()
+    if record is not None:
+        print(json.dumps(record), flush=True)
+    return record
 
 
 def _serve_mode(args) -> str | None:
@@ -1386,11 +2014,31 @@ def main(argv=None):
     """Runs the mode the flags name and prints its JSON line(s); returns
     the headline or config record, or the list of serving records."""
     args = build_parser().parse_args(argv)
+    if args.coldstart_child:
+        # one measured process of --coldstart's pair
+        try:
+            device = resolve_device(args.device)
+        except RuntimeError as err:
+            raise SystemExit(f"error: {err}") from None
+        record = coldstart_child(args.coldstart_child, args.coldstart_steps,
+                                 device, args.data_dir)
+        print(json.dumps(record), flush=True)
+        return record
     mode = _serve_mode(args)
     resilience = _resilience_mode(args)
+    attribution = _attribution_mode(args)
     if resilience is not None and (mode is not None
                                    or args.config is not None):
         raise SystemExit("error: a resilience mode runs alone")
+    if attribution is not None:
+        if mode is not None or resilience is not None or (
+                args.config is not None and attribution != "memory"):
+            raise SystemExit("error: an attribution mode runs alone "
+                             "(--memory takes --config)")
+        if args.config is not None and args.config not in CONFIGS:
+            raise SystemExit(f"error: unknown config {args.config!r}; the "
+                             f"port has {sorted(CONFIGS)}")
+        return _run_attribution(args, attribution)
     if args.config is not None and args.config not in CONFIGS:
         raise SystemExit(f"error: unknown config {args.config!r}; the port "
                          f"has {sorted(CONFIGS)}")

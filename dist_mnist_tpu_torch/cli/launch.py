@@ -44,15 +44,21 @@ thread drains the generation with SIGTERM (the children checkpoint at a
 step boundary and exit 0) and the mesh grows back. Every shrink or grow
 is a ``generation_resize`` event.
 
+`--compile_cache_dir=DIR` goes on to every child of every generation,
+elastic ones included, so a restarted child loads the kernel libraries
+its predecessor built (`compilecache/store.py`).
+
 Stated departures: one device per process (`--devices_per_process`
 above 1 refuses), so the elastic supervisor passes
 ``--elastic_baseline_devices=<num_processes>`` to every child; without
 `--journal` a supervised run's journal lives in a temp dir of the
 supervisor's own, ``dist_mnist_torch_supervisor_*`` under
-`tempfile.gettempdir()`, removed at the end (the reference's holds its
-warm-start compile cache too, which joins with ROADMAP §1 item 13(b), as
-`--compile_cache_dir` does). `--supervisor_port` (the supervisor's
-`/healthz`, `obs/exporter.HealthState`) joins with ROADMAP §1 item 14.
+`tempfile.gettempdir()`, removed at the end. The supervisor injects no
+temp compile cache (the reference's ``dist_mnist_warmstart_*``): without
+`--compile_cache_dir` the checkout's `build/` already outlives every
+generation, warm, and a fresh temp dir would make generation 0 rebuild
+every kernel. `--supervisor_port` (the supervisor's `/healthz`,
+`obs/exporter.HealthState`) joins with ROADMAP §1 item 14.
 """
 
 from __future__ import annotations
@@ -68,7 +74,6 @@ import threading
 import time
 from pathlib import Path
 
-_OVERLAP = "ROADMAP §1 item 13(b) (the warm-start compile cache)"
 _TELEMETRY = "ROADMAP §1 item 14 (telemetry: the supervisor's /healthz)"
 
 #: the temp dir a supervised run without --journal keeps its journal in
@@ -341,7 +346,8 @@ def launch(num_processes: int, train_args: list[str], *, port: int = 0,
            child_command: list[str] | None = None,
            journal: str | None = None, elastic: bool = False,
            min_processes: int = 1, regrow_after_s: float = 0.0,
-           host_kill: tuple[int, float | None] | None = None) -> int:
+           host_kill: tuple[int, float | None] | None = None,
+           compile_cache_dir: str | None = None) -> int:
     """Spawn the cluster of `module` ranks and wait it out; returns 0 or
     the first abnormal death's normalized exit status. Importable: tests
     call it.
@@ -357,7 +363,9 @@ def launch(num_processes: int, train_args: list[str], *, port: int = 0,
     drain when a lost host's recovery comes due (``host_kill=(host,
     recover_after_s)`` from a kill_host fault, or `regrow_after_s` for
     any other death). A shrink consumes one of `max_restarts`; a grow
-    none."""
+    none. `compile_cache_dir` is forwarded to every child of every
+    generation (unless `train_args` already name one); without it
+    nothing is injected."""
     import random
     import shutil
 
@@ -369,6 +377,9 @@ def launch(num_processes: int, train_args: list[str], *, port: int = 0,
 
     if num_processes < 1:
         raise ValueError(f"num_processes must be >= 1, got {num_processes}")
+    if compile_cache_dir is not None and _flag_value(
+            train_args, "compile_cache_dir") is None:
+        train_args = [*train_args, f"--compile_cache_dir={compile_cache_dir}"]
     if elastic and max_restarts <= 0:
         max_restarts = max(1, num_processes - 1)
     owned_dir = None
@@ -538,9 +549,11 @@ def build_parser() -> argparse.ArgumentParser:
     a("--journal", default=None,
       help="the run journal (JSONL) of the supervisor and every child; "
            "default: one in a temp dir of the supervisor's own")
+    a("--compile_cache_dir", default=None,
+      help="the kernel-library store (compilecache/), forwarded to every "
+           "child of every generation")
     # refused
     a("--supervisor_port", type=int, default=None, help=_TELEMETRY)
-    a("--compile_cache_dir", default=None, help=_OVERLAP)
     return p
 
 
@@ -549,9 +562,6 @@ def _refused(args) -> list[str]:
     if args.supervisor_port is not None:
         out.append("--supervisor_port (the supervisor's endpoint) joins the "
                    f"port with {_TELEMETRY}")
-    if args.compile_cache_dir is not None:
-        out.append("--compile_cache_dir (the warm-start cache) joins the "
-                   f"port with {_OVERLAP}")
     if args.devices_per_process != 1:
         out.append("--devices_per_process: the port runs one device per "
                    "process (a stated departure)")
@@ -625,7 +635,8 @@ def main(argv=None) -> int:
                   restart_backoff_s=args.restart_backoff_s,
                   kill_spec=kill_spec, journal=args.journal,
                   elastic=args.elastic, min_processes=args.min_processes,
-                  regrow_after_s=args.regrow_after_s, host_kill=host_kill)
+                  regrow_after_s=args.regrow_after_s, host_kill=host_kill,
+                  compile_cache_dir=args.compile_cache_dir)
 
 
 if __name__ == "__main__":

@@ -44,6 +44,11 @@ cells (`serve/engine.InferenceEngine.follow`). Each rank logs its kernel
 launches and the cells it ran, and its resident bytes. `--quant` over
 more than one rank refuses (ROADMAP §1 item 12's rest).
 
+`--compile_cache_dir=DIR` sends the serving kernels' libraries
+(`quant_matmul`, the flash forwards, `paged_attention`) through the store
+under DIR (`compilecache/store.py`; every spawned rank too), and the
+summary gains the store's `compile_cache` stats.
+
 Runs on the CUDA device by default and exits with an error when there is
 none; `--device=cpu` runs the plain CPU path. Weights are those of a
 committed step under `--checkpoint_dir` (`--step`, default the latest;
@@ -151,6 +156,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--process_id", type=int, default=None,
                    help=argparse.SUPPRESS)
     p.add_argument("--platform", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--compile_cache_dir", default=None,
+                   help="store for the built kernel libraries "
+                        "(compilecache/): a warm process loads what a cold "
+                        "one built")
     return p
 
 
@@ -370,14 +379,19 @@ def main(argv=None) -> dict | None:
         if rc:
             raise SystemExit(rc)
         return None
-    if args.num_processes and args.num_processes > 1:
-        summary = _run_rank(args)
-    elif args.decode:
-        summary = _run_decode(args, device)
-    else:
-        summary = serve_classifier(args, device)
+    from dist_mnist_tpu_torch.compilecache.store import persistent_cache
+
+    with persistent_cache(args.compile_cache_dir) as cache:
+        if args.num_processes and args.num_processes > 1:
+            summary = _run_rank(args)
+        elif args.decode:
+            summary = _run_decode(args, device)
+        else:
+            summary = serve_classifier(args, device)
     if summary is None:
         return None
+    if cache is not None:
+        summary["compile_cache"] = cache.stats()
     summary["device"] = device_name
     print(json.dumps(summary, indent=2, sort_keys=True))
     return summary

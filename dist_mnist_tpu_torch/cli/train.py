@@ -30,11 +30,23 @@ parameter-server-era flags (--job_name/--task_index/--num_gpus/
 --existing_servers/--ps_hosts/--worker_hosts, --nosync_replicas) are
 accepted and warned about, as the reference does. Every flag of a
 subsystem the port does not have yet (a seq axis beside a model axis,
-a pipe axis beside either, overlap, a PRNG implementation, the compile
-cache, the metrics exporter, anomaly detection, the tuned store) exits
-with an error that names the ROADMAP §1 item it waits for;
-`--host_device_count` refuses as a stated departure (one device per
-process).
+a pipe axis beside either, a PRNG implementation, the metrics exporter,
+anomaly detection, the tuned store) exits with an error that names the
+ROADMAP §1 item it waits for; `--host_device_count` refuses as a stated
+departure (one device per process).
+
+Overlap and the compile cache: `--overlap` (or a config's ``overlap``)
+runs the FSDP gather and gradient flush bucket by bucket
+(`parallel/overlap.py`; `--overlap_bucket_mb`, `--overlap_chunk=ring`),
+the same trajectory bit for bit, and refuses without an FSDP rule set;
+`OverlapHook` publishes the plan as ``overlap/*``.
+`--compile_cache_dir=DIR` sends the kernel and native libraries through
+the store under DIR (`compilecache/store.py`: a warm process loads what
+a cold one built; a corrupt entry is quarantined and rebuilt), and the
+run's result carries the store's ``compile_cache`` stats. A
+`StartupClock` anchored at this module's import attributes the time to
+the first step (import, init, restore, compile, first step), which
+`StartupHook` publishes as ``startup/*`` at the first step.
 
 Resilience (`faults/`, `checkpoint/snapshot.py`, `checkpoint/peer.py`):
 `--fault_plan` (inline JSON or a path; `faults/plan.py`) injects planned
@@ -73,32 +85,34 @@ import os
 import time
 from pathlib import Path
 
-from dist_mnist_tpu_torch.optim import build_optimizer
+#: the cold-start clock's origin: this module's import
+_MODULE_T0 = time.monotonic()
+
+from dist_mnist_tpu_torch.compilecache.key_fields import (  # noqa: E402
+    compile_cache_key_fields,
+)
+from dist_mnist_tpu_torch.optim import build_optimizer  # noqa: E402
 
 log = logging.getLogger(__name__)
 
-__all__ = ["build_optimizer", "run_config", "main"]
+__all__ = ["build_optimizer", "compile_cache_key_fields", "run_config",
+           "main"]
 
 #: the reference's default PRNG implementation: the only one the port
 #: has (it draws from one torch.Generator)
 DEFAULT_PRNG_IMPL = "threefry2x32"
 
 #: ROADMAP §1 items the refused flags and options wait for
-_OVERLAP = "ROADMAP §1 item 13(b) (overlap, the compile cache)"
 _TELEMETRY = "ROADMAP §1 item 14 (telemetry)"
 _TUNING = "ROADMAP §1 item 16 (tuning and lint)"
 
 
-def _refuse(what: str, item: str):
-    return NotImplementedError(f"{what} joins the port with {item}")
-
-
 def check_config(cfg) -> None:
-    """Refuse what a config asks beyond the port: a seq axis beside a
-    model axis and a pipe axis beside either, the fsdp overlap, and a PRNG
-    implementation (the port draws every random number from one
-    `torch.Generator`; ROADMAP §1's closing line: `utils/prng.py` has no
-    counterpart)."""
+    """Refuse what a config asks beyond the port (a seq axis beside a
+    model axis and a pipe axis beside either, a PRNG implementation: the
+    port draws every random number from one `torch.Generator`; ROADMAP
+    §1's closing line: `utils/prng.py` has no counterpart) and the
+    overlap without an FSDP rule set, with the reference's message."""
     from dist_mnist_tpu_torch.cluster.mesh import check_axes
     from dist_mnist_tpu_torch.parallel.sharding import resolve_rules
 
@@ -108,9 +122,22 @@ def check_config(cfg) -> None:
             "torch.Generator and has no PRNG implementations to choose "
             "from (ROADMAP §1, closing line: utils/prng.py)")
     check_axes(cfg.mesh)
-    resolve_rules(cfg.sharding_rules)
-    if cfg.overlap:
-        raise _refuse("overlap (the fsdp comm/compute overlap)", _OVERLAP)
+    rules = resolve_rules(cfg.sharding_rules)
+    if cfg.overlap and rules.fsdp_axis is None:
+        raise ValueError(
+            f"--overlap needs an fsdp sharding strategy (got "
+            f"{cfg.sharding_rules!r}): there are no parameter shards "
+            f"to gather — use --sharding=fsdp or fsdp_tp")
+
+
+def _overlap_config(cfg):
+    """The config's `OverlapConfig`, or None without ``overlap``."""
+    if not cfg.overlap:
+        return None
+    from dist_mnist_tpu_torch.parallel.overlap import OverlapConfig
+
+    return OverlapConfig(bucket_mb=cfg.overlap_bucket_mb,
+                         chunk=cfg.overlap_chunk)
 
 
 @contextlib.contextmanager
@@ -214,6 +241,8 @@ def run_config(
     snapshot_window: int = 1,
     snapshot_policy: str = "block",
     peer_dir: str | None = None,
+    compile_cache_dir: str | None = None,
+    startup=None,
 ):
     """Train `cfg` (tests and chip_smoke.py call this; main() parses
     flags) on `mesh`, by default the config's mesh over the ranks of the
@@ -222,11 +251,16 @@ def run_config(
     `faults.FaultPlan`) injects its in-process faults; `async_snapshot` /
     `peer_dir` checkpoint through `AsyncSnapshotter` (with the peer ring);
     `elastic_baseline_devices` resolves the config's elastic batch policy
-    against this run's world.
+    against this run's world. `compile_cache_dir` sends the kernel and
+    native libraries through the store there for this run; `startup` (a
+    `compilecache.StartupClock`, by default one started here) attributes
+    the time to the first step.
 
     Returns (final_state, final_eval_dict, context)."""
     check_config(cfg)
     from dist_mnist_tpu_torch import hooks as hooks_lib
+    from dist_mnist_tpu_torch.compilecache import StartupClock, StartupHook
+    from dist_mnist_tpu_torch.compilecache.store import persistent_cache
     from dist_mnist_tpu_torch.cluster import coordination
     from dist_mnist_tpu_torch.cluster.mesh import MODEL_AXIS, make_mesh
     from dist_mnist_tpu_torch.checkpoint import CheckpointManager
@@ -266,8 +300,10 @@ def run_config(
     )
     from dist_mnist_tpu_torch.utils.device import resolve_device
 
-    with _journal_scope(cfg, journal, logdir, generation) as journaled:
+    with persistent_cache(compile_cache_dir) as cache, \
+            _journal_scope(cfg, journal, logdir, generation) as journaled:
         t0 = time.monotonic()
+        startup = startup if startup is not None else StartupClock(t0=t0)
         # flag-combination errors fail BEFORE any expensive work (dataset
         # load, init, restore) — decidable from the arguments alone
         if input_pipeline not in ("python", "native", "device",
@@ -286,10 +322,12 @@ def run_config(
                 "loop stops at the chunk boundary, step %d (%d extra steps, "
                 "past the LR schedule horizon)", cfg.train_steps, scan_chunk,
                 stop_at, stop_at - cfg.train_steps)
-        device = resolve_device(device)
-        rules = resolve_rules(cfg.sharding_rules)
-        if mesh is None:
-            mesh = make_mesh(cfg.mesh, device=device)
+        with startup.phase("init"):
+            device = resolve_device(device)
+            rules = resolve_rules(cfg.sharding_rules)
+            overlap_cfg = _overlap_config(cfg)
+            if mesh is None:
+                mesh = make_mesh(cfg.mesh, device=device)
         if elastic_baseline_devices:
             # the resized world's batch/LR policy, resolved BEFORE the
             # optimizer is built so the decision lives in the config
@@ -307,13 +345,15 @@ def run_config(
                          "-> global batch %d, lr %g", n_dev,
                          elastic_baseline_devices, cfg.elastic_batch_policy,
                          cfg.batch_size, cfg.learning_rate)
-        dataset = load_dataset(cfg.dataset, data_dir, seed=cfg.seed)
-        model = get_model(cfg.model, **cfg.model_kwargs)
-        optimizer = build_optimizer(cfg)
-        loss_fn = (losses.clipped_softmax_cross_entropy
-                   if cfg.loss == "clipped" else losses.softmax_cross_entropy)
-        state = create_train_state(model, optimizer, cfg.seed,
-                                   dataset.train_images[:1], device)
+        with startup.phase("init"):
+            dataset = load_dataset(cfg.dataset, data_dir, seed=cfg.seed)
+            model = get_model(cfg.model, **cfg.model_kwargs)
+            optimizer = build_optimizer(cfg)
+            loss_fn = (losses.clipped_softmax_cross_entropy
+                       if cfg.loss == "clipped"
+                       else losses.softmax_cross_entropy)
+            state = create_train_state(model, optimizer, cfg.seed,
+                                       dataset.train_images[:1], device)
 
         manager = None
         restored = False
@@ -332,11 +372,13 @@ def run_config(
             if wrap_async:
                 manager = _snapshotter(manager, snapshot_window,
                                        snapshot_policy, peer_dir)
-        state = shard_train_state(state, mesh, rules)
+        with startup.phase("init"):
+            state = shard_train_state(state, mesh, rules)
         if manager is not None:
             # the store restores the full file and shards it as `state`
             # is; the peer ring assembles the shards and does the same
-            state, restored = manager.restore_or_init(state)
+            with startup.phase("restore"):
+                state, restored = manager.restore_or_init(state)
         initial_step = state.step_int
         log.info("config %s: model=%s on %s, mesh %s, sharding %s, "
                  "restored=%s; %s", cfg.name, cfg.model, device,
@@ -346,7 +388,7 @@ def run_config(
 
         step_kw = dict(loss_fn=loss_fn, remat=cfg.remat,
                        remat_policy=cfg.remat_policy, augment=cfg.augment,
-                       mesh=mesh, rules=rules)
+                       mesh=mesh, rules=rules, overlap=overlap_cfg)
         if input_pipeline.startswith("device"):
             # the dataset lives on the device and each step samples there from
             # state.rng: no feed at all, and resume-exact because the draws
@@ -365,6 +407,8 @@ def run_config(
 
             def step_fn(state, _batch):
                 return run(state)
+
+            step_fn.consume_compile_s = run.consume_compile_s
         else:
             step_fn = make_train_step(model, optimizer, **step_kw)
         stats = collective_stats(mesh)
@@ -378,6 +422,10 @@ def run_config(
             one_call.update({k: v - before.get(k, 0)
                              for k, v in stats.items()})
             return out
+
+        # the kernel builds and loads the first call paid: the loop
+        # charges them to its goodput compile bucket
+        counted_step.consume_compile_s = step_fn.consume_compile_s
 
         eval_step = make_eval_step(model)
 
@@ -399,8 +447,19 @@ def run_config(
             hooks_lib.MemoryHook(writer, every_steps=cfg.log_every),
             hooks_lib.NaNGuardHook(),
         ]
+        if overlap_cfg is not None:
+            from dist_mnist_tpu_torch.parallel.overlap import plan_stats
+
+            plan = plan_stats(state.params, mesh, rules, overlap_cfg,
+                              specs=(state.placement.specs.params
+                                     if state.placement is not None
+                                     else None))
+            log.info("overlap plan: %s", json.dumps(plan, sort_keys=True))
+            hooks.append(hooks_lib.OverlapHook(writer, plan))
         goodput_hook = GoodputHook(writer, every_steps=cfg.log_every)
         hooks.append(goodput_hook)
+        startup_hook = StartupHook(writer, startup, store=cache)
+        hooks.append(startup_hook)
         if fault_plan is not None:
             hooks.append(fault_plan.hook())
         eval_hook = None
@@ -495,6 +554,12 @@ def run_config(
                      params_digest(unshard_state(state).params))
         log.info("done: step=%d test_acc=%.4f test_loss=%.4f wall=%.1fs",
                  state.step_int, final["accuracy"], final["loss"], elapsed)
+        cache_stats = cache.stats() if cache is not None else None
+        if cache_stats is not None:
+            log.info("compile cache: %s", json.dumps(cache_stats,
+                                                     sort_keys=True))
+        log.info("startup: %s", json.dumps(startup_hook.last,
+                                           sort_keys=True))
         feed_stats = getattr(loop.batches, "stats", None)
         return state, final, {
             "model": model, "elapsed": elapsed, "dataset": dataset,
@@ -503,7 +568,8 @@ def run_config(
             "prefetch": feed_stats() if callable(feed_stats) else None,
             "preempted_at": loop.preempted_at, "journal": journaled["journal"],
             "mesh": mesh, "collectives_per_step": per_step,
-            "launches": launches,
+            "launches": launches, "startup": startup_hook.last,
+            "compile_cache": cache_stats,
         }
 
 
@@ -639,15 +705,25 @@ def build_parser() -> argparse.ArgumentParser:
     a("--process_id", type=int, default=0, help="this process's rank")
     a("--sharding", default=None,
       help="dp | fsdp | tp | fsdp_tp (None = config)")
+    # -- overlap and the compile cache (parallel/overlap.py, compilecache/)
+    _bool_flag(p, "overlap", None,
+               "fsdp comm/compute overlap (parallel/overlap.py): gather the "
+               "sharded params bucket by bucket as the forward reads them "
+               "and flush their gradients as the backward makes them; "
+               "needs --sharding=fsdp|fsdp_tp (None = config)")
+    a("--overlap_bucket_mb", type=float, default=None,
+      help="overlap bucket size in MiB of full leaves (None = config)")
+    a("--overlap_chunk", default=None,
+      help="all_gather (one gather a bucket) | ring (n-1 ring_shift hops "
+           "a leaf) (None = config)")
+    a("--compile_cache_dir", default=None,
+      help="store for the built kernel and native libraries "
+           "(compilecache/): a warm process loads what a cold one built")
     # -- refused: their subsystems are not in the port yet
     a("--host_device_count", type=int, default=None,
       help="refused: one device per process")
-    _bool_flag(p, "overlap", None, _OVERLAP)
-    a("--overlap_bucket_mb", type=float, default=None, help=_OVERLAP)
-    a("--overlap_chunk", default=None, help=_OVERLAP)
     a("--prng_impl", default=None,
       help=f"only {DEFAULT_PRNG_IMPL} (one torch.Generator)")
-    a("--compile_cache_dir", default=None, help=_OVERLAP)
     a("--metrics_port", type=int, default=0, help=_TELEMETRY)
     _bool_flag(p, "anomaly", False, _TELEMETRY)
     a("--anomaly_every", type=int, default=None, help=_TELEMETRY)
@@ -670,10 +746,6 @@ def _refused_flags(args) -> list[str]:
                    "process (a stated departure of ROADMAP §1 item 12's "
                    "data-parallel half); start more processes with "
                    "cli.launch")
-    no(args.overlap_bucket_mb is not None, "--overlap_bucket_mb",
-       _OVERLAP)
-    no(args.overlap_chunk is not None, "--overlap_chunk", _OVERLAP)
-    no(args.compile_cache_dir is not None, "--compile_cache_dir", _OVERLAP)
     no(args.metrics_port != 0, "--metrics_port", _TELEMETRY)
     no(bool(args.anomaly), "--anomaly", _TELEMETRY)
     no(args.anomaly_every is not None, "--anomaly_every", _TELEMETRY)
@@ -700,6 +772,8 @@ def _apply_flag_overrides(cfg, args):
                         ("prng_impl", "prng_impl"),
                         ("sharding", "sharding_rules"),
                         ("overlap", "overlap"),
+                        ("overlap_bucket_mb", "overlap_bucket_mb"),
+                        ("overlap_chunk", "overlap_chunk"),
                         ("elastic_batch_policy", "elastic_batch_policy")):
         if getattr(args, name) is not None:
             over[field] = getattr(args, name)
@@ -722,6 +796,15 @@ def _apply_flag_overrides(cfg, args):
 
         resolve_remat_policy(args.remat_policy)
         over["remat_policy"] = args.remat_policy
+    if (over.get("overlap", cfg.overlap) or args.overlap_chunk
+            or args.overlap_bucket_mb is not None):
+        # validate EAGERLY: a typo'd chunk mode or a bucket <= 0 fails at
+        # flag-parse depth, not deep inside step construction
+        from dist_mnist_tpu_torch.parallel.overlap import OverlapConfig
+
+        OverlapConfig(
+            bucket_mb=over.get("overlap_bucket_mb", cfg.overlap_bucket_mb),
+            chunk=over.get("overlap_chunk", cfg.overlap_chunk))
     return dataclasses.replace(cfg, **over) if over else cfg
 
 
@@ -730,6 +813,7 @@ def main(argv=None):
     after --download_only). Refused flags, a missing card and bad flag
     combinations exit with ``error: ...``."""
     from dist_mnist_tpu_torch.cluster import coordination
+    from dist_mnist_tpu_torch.compilecache import StartupClock
     from dist_mnist_tpu_torch.configs import get_config
     from dist_mnist_tpu_torch.data.datasets import load_dataset
     from dist_mnist_tpu_torch.faults.plan import FaultPlan
@@ -740,6 +824,10 @@ def main(argv=None):
     from dist_mnist_tpu_torch.obs import events as events_mod
     from dist_mnist_tpu_torch.utils.device import resolve_device
 
+    # cold-start attribution anchored at this module's import: everything
+    # up to here is the ``import`` bucket, the rest run_config fills in
+    clock = StartupClock(t0=_MODULE_T0)
+    clock.note("import", time.monotonic() - _MODULE_T0)
     args = build_parser().parse_args(argv)
     logging.basicConfig(
         level=logging.INFO,
@@ -795,9 +883,10 @@ def main(argv=None):
                  ds.synthetic)
         return None
     try:
-        ctx = coordination.initialize_distributed(
-            args.coordinator_address, args.num_processes, args.process_id,
-            platform="cpu" if cpu else None)
+        with clock.phase("init"):
+            ctx = coordination.initialize_distributed(
+                args.coordinator_address, args.num_processes,
+                args.process_id, platform="cpu" if cpu else None)
     except (RuntimeError, ValueError) as err:
         raise SystemExit(f"error: {err}") from None
     if ctx is not None:
@@ -835,6 +924,8 @@ def main(argv=None):
             snapshot_window=args.snapshot_window,
             snapshot_policy=args.snapshot_policy,
             peer_dir=args.peer_dir,
+            compile_cache_dir=args.compile_cache_dir,
+            startup=clock,
         )
     except (NotImplementedError, ValueError) as err:
         raise SystemExit(f"error: {err}") from None

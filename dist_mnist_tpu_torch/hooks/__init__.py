@@ -5,8 +5,8 @@ shape (begin / before-step / after-step / end), but hooks receive the step's
 returned metrics dict instead of injecting fetches into a feed/fetch merge
 (there is no session to merge into).
 
-Port of the reference's `hooks/`: every hook but `OverlapHook`, which
-refuses (`hooks.builtin.OverlapHook`; ROADMAP §1 item 13(b)).
+Port of the reference's `hooks/`, every hook; `StartupHook` lives in
+`compilecache/startup.py`, where the reference keeps it.
 """
 
 from dist_mnist_tpu_torch.hooks.base import Hook
@@ -26,6 +26,7 @@ from dist_mnist_tpu_torch.hooks.builtin import (
     FinalOpsHook,
     MemoryProfileHook,
     MemoryHook,
+    OverlapHook,
 )
 
 __all__ = [
@@ -45,4 +46,5 @@ __all__ = [
     "FinalOpsHook",
     "MemoryProfileHook",
     "MemoryHook",
+    "OverlapHook",
 ]

@@ -17,8 +17,8 @@ What the reference does with JAX, these do with torch:
 
 On the CPU the memory hooks report what the reference reports for a
 device without allocator stats: no live stats, and a snapshot with no
-segments. `OverlapHook` refuses: the fsdp overlap plan joins with
-ROADMAP §1 item 13(b).
+segments. `OverlapHook` publishes the FSDP overlap plan
+(`parallel/overlap.plan_stats`).
 """
 
 from __future__ import annotations
@@ -680,15 +680,50 @@ class MemoryHook(Hook):
 
 
 class OverlapHook(Hook):
-    """The fsdp comm/compute-overlap plan's ``overlap/*`` scalars. The
-    overlap schedule (`parallel/overlap.py`) joins the port with ROADMAP
-    §1 item 13(b), so this hook refuses to be built."""
+    """Publishes the fsdp comm/compute-overlap plan (parallel/overlap.py
+    plan_stats) as `overlap/*` scalars at `begin` — the registry face of
+    `bench --overlap`. The plan is static for a run (pure metadata from
+    shard shapes), so one write at the initial step is the honest cadence:
+
+      overlap/buckets            all-gather flush groups in the plan
+      overlap/sharded_leaves     leaves actually gathered (fsdp-sharded)
+      overlap/total_leaves       all param leaves (context for the above)
+      overlap/gathered_bytes     unsharded bytes materialized per step
+      overlap/bucket_mb          configured bucket granularity
+      overlap/serial             1.0 = ablation twin (comm exposed on purpose)
+
+    `last` keeps the values for bench harnesses."""
 
     def __init__(self, writer=None, stats: dict | None = None):
-        raise NotImplementedError(
-            "OverlapHook: the fsdp overlap plan (parallel/overlap.py) joins "
-            "the port with ROADMAP §1 item 13(b) (overlap, the compile "
-            "cache)")
+        self._writer = writer
+        self._stats = dict(stats or {})
+        self.last: dict[str, float] = {}
+
+    def begin(self, loop):
+        vals = {}
+        for k, v in self._stats.items():
+            if isinstance(v, bool):
+                vals[f"overlap/{k}"] = 1.0 if v else 0.0
+            elif isinstance(v, (int, float)):
+                vals[f"overlap/{k}"] = v
+        log.info(
+            "fsdp overlap plan: %d buckets over %d sharded leaves "
+            "(%.2f MiB gathered per step, bucket_mb=%.1f, chunk=%s)",
+            self._stats.get("buckets", 0),
+            self._stats.get("sharded_leaves", 0),
+            self._stats.get("gathered_bytes", 0) / 2**20,
+            self._stats.get("bucket_mb", 0.0),
+            self._stats.get("chunk", "?"),
+        )
+        self.last.update(vals)
+        if self._writer is None:
+            return
+        batch_write = getattr(self._writer, "scalars", None)
+        if callable(batch_write):
+            batch_write(vals, loop.initial_step)
+        else:
+            for k, v in vals.items():
+                self._writer.scalar(k, v, loop.initial_step)
 
 
 class GlobalStepWaiterHook(Hook):

@@ -46,7 +46,8 @@ __all__ = [
 ]
 
 # Env vars the supervisor sets so every child generation lands in the
-# supervisor-owned journal (mirrors the --compile_cache_dir injection).
+# supervisor-owned journal (as an explicit --compile_cache_dir is
+# forwarded to each of them).
 ENV_JOURNAL = "DIST_MNIST_TPU_JOURNAL"
 ENV_GENERATION = "DIST_MNIST_TPU_GENERATION"
 # Stable host identity across generations. Defined (with the same

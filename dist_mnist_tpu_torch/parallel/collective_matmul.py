@@ -6,10 +6,11 @@ parallel matmul and a reduce(-scatter) after the row-parallel one. Done
 as one collective and one matmul they serialize. The decomposition runs
 the collective as its ring steps (one `collectives.ring_shift` hop a
 step) and matmuls the chunk already resident beside each hop. Here each
-hop is a blocking point-to-point exchange, so nothing overlaps yet: the
-two functions are the schedule and its arithmetic, the library that the
-reference's `parallel/overlap.py` (ROADMAP §1 item 13(b)) builds on. No
-config calls them.
+hop is a blocking point-to-point exchange, so nothing overlaps: the two
+functions are the schedule and its arithmetic. The FSDP overlap
+(`parallel/overlap.py`) takes the same ring for its ``chunk="ring"``
+gathers and overlaps the asynchronous all-gathers instead. No config
+calls them.
 
 Both use one counter-clockwise ring (`ring_shift(..., reverse=True)`: rank
 i receives rank i+1's block); `axis` is any mesh axis. Autograd

@@ -11,7 +11,10 @@ and the models write them out over the mesh's groups:
   of one flat f32 buffer (never one call per leaf);
 - `gather_leaves` / `reduce_scatter_leaves`: the FSDP pair, each one call
   over a flat buffer laid out ``[ranks, chunk]``, rank r's chunk holding
-  its slice of every sharded leaf;
+  its slice of every sharded leaf; `all_gather_flat` and
+  `reduce_scatter_flat` also issue asynchronously (``async_op=True``,
+  counted at issue), which the bucketed schedule of `parallel/overlap.py`
+  builds on;
 - `all_reduce_sum`: an all-reduce that autograd differentiates (its
   backward all-reduces the cotangent), for synchronized batch norm;
 - the Megatron operators over the ``model`` group, as autograd
@@ -110,28 +113,34 @@ def all_reduce_(t: torch.Tensor, mesh: Mesh, axis: str = DATA_AXIS, *,
 
 def all_gather_flat(chunk: torch.Tensor, mesh: Mesh,
                     axis: str = DATA_AXIS, *,
-                    prefix: str | None = None) -> torch.Tensor:
+                    prefix: str | None = None, async_op: bool = False):
     """``[ranks * n]``: every `axis` rank's 1-D `chunk` of n elements,
-    index 0's first."""
+    index 0's first. With `async_op`, ``(out, work)``: the call is
+    issued (and counted) now, and `out` holds the result once
+    ``work.wait()`` returned (work None on an axis of one)."""
     n = mesh.shape[axis]
     if n == 1:
-        return chunk
+        return (chunk, None) if async_op else chunk
     _count(mesh, "all_gather", chunk, axis, prefix)
     out = chunk.new_empty(n * chunk.numel())
-    dist.all_gather_into_tensor(out, chunk.contiguous(),
-                                group=mesh.axis_group(axis))
-    return out
+    work = dist.all_gather_into_tensor(out, chunk.contiguous(),
+                                       group=mesh.axis_group(axis),
+                                       async_op=async_op)
+    return (out, work) if async_op else out
 
 
-def reduce_scatter_flat(flat: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+def reduce_scatter_flat(flat: torch.Tensor, mesh: Mesh, *,
+                        async_op: bool = False):
     """This rank's n elements of the sum over the data ranks of `flat`
-    (``[ranks * n]``)."""
+    (``[ranks * n]``). With `async_op`, ``(out, work)`` as
+    `all_gather_flat` gives."""
     if mesh.size == 1:
-        return flat
+        return (flat, None) if async_op else flat
     _count(mesh, "reduce_scatter", flat)
     out = flat.new_empty(flat.numel() // mesh.size)
-    dist.reduce_scatter_tensor(out, flat.contiguous(), group=mesh.group)
-    return out
+    work = dist.reduce_scatter_tensor(out, flat.contiguous(),
+                                      group=mesh.group, async_op=async_op)
+    return (out, work) if async_op else out
 
 
 def _divide(t: torch.Tensor, n: int) -> torch.Tensor:

@@ -37,7 +37,12 @@ accuracy riding in it (`parallel/collectives.psum_mean`); under FSDP
 (`parallel/sharding.py`) the sharded params are all-gathered before the
 forward, their gradients reduce-scattered, and each rank's optimizer
 updates its slices, the global-norm clip adding the slices' sums of
-squares over ranks (`optim.base.sharded_sum_of_squares`). Batch norm is
+squares over ranks (`optim.base.sharded_sum_of_squares`). With
+``overlap`` (`parallel/overlap.py`) the gather and the reduce-scatter
+run bucket by bucket instead: the gathers issued at the step's start and
+waited on at the forward's first read of a bucket's leaves, each
+bucket's reduce-scatter issued as soon as the backward has its
+gradients; the same values, so the same trajectory bit for bit. Batch norm is
 synchronized over the ranks (the mesh is ambient during the forward,
 `ops/nn.batch_norm`). The metrics are global means, equal on every rank.
 Each rank draws the GLOBAL batch's random numbers from the same generator
@@ -240,7 +245,8 @@ def loss_and_grads(model, loss_fn: LossFn, params, model_state, batch, *,
                    remat: bool = False,
                    remat_policy: str = "dots_no_batch",
                    augment: bool = False,
-                   split: tuple[int, int] = (0, 1)):
+                   split: tuple[int, int] = (0, 1),
+                   gathered=None):
     """Training forward and backward of one batch.
 
     Returns ``(loss, logits, new_model_state, grads)``: loss (with the
@@ -254,7 +260,12 @@ def loss_and_grads(model, loss_fn: LossFn, params, model_state, batch, *,
     batch and this rank's rows taken. Under an ambient mesh with seq x
     pipe = n > 1 ranks the grads are this rank's share, of the loss
     divided by n, which summed over those ranks give the whole (module
-    docstring); the loss returned is not divided."""
+    docstring); the loss returned is not divided. `gathered` (a
+    `parallel.overlap.StepGather` over `params`, this rank's FSDP slices)
+    gathers the params bucket by bucket as the forward reads them and
+    flushes their gradients as the backward produces them; the grads
+    returned are then still the full leaves' (the caller takes the
+    slices from `gathered.finish`)."""
     _check_batch(batch)
     context_fn = resolve_remat_policy(remat_policy) if remat else None
     rank, ranks = split
@@ -276,17 +287,22 @@ def loss_and_grads(model, loss_fn: LossFn, params, model_state, batch, *,
                 "before the forward")
         dropout_mask = draw(rng, x, **draw_kw)
         rng = None
-    flat = flatten_with_path(params)
-    tracked = {path: leaf.detach().requires_grad_() for path, leaf in flat}
+    if gathered is None:
+        flat = flatten_with_path(params)
+        tracked = {path: leaf.detach().requires_grad_()
+                   for path, leaf in flat}
+    else:
+        tracked = gathered
     mesh = ambient_mesh()
 
     def forward(tracked_params):
         # a recompute runs on autograd's thread: install the mesh here
         with activate(mesh):
-            return model.apply(
-                map_with_path(lambda path, _: tracked_params[path], params),
-                model_state, x, train=True, rng=rng,
-                dropout_mask=dropout_mask)
+            tree = (tracked_params.params() if gathered is not None
+                    else map_with_path(lambda path, _: tracked_params[path],
+                                       params))
+            return model.apply(tree, model_state, x, train=True, rng=rng,
+                               dropout_mask=dropout_mask)
 
     with torch.enable_grad():
         if remat:
@@ -305,6 +321,8 @@ def loss_and_grads(model, loss_fn: LossFn, params, model_state, batch, *,
         n = 1 if mesh is None else mesh.seq * mesh.pipe
         share = loss if n == 1 else loss / torch.full(
             (), float(n), dtype=loss.dtype, device=loss.device)
+        if gathered is not None:
+            tracked = dict(zip(gathered.paths, gathered.leaves()))
         grads = torch.autograd.grad(share, list(tracked.values()))
     new_model_state = tree_map(
         lambda t: t.detach() if isinstance(t, torch.Tensor) else t,
@@ -341,12 +359,24 @@ def _sharded_paths(state: TrainState) -> set | None:
             if spec.dim(DATA_AXIS) is not None}
 
 
-def _reduce_grads(grads, state: TrainState, mesh, extra: torch.Tensor):
+def _reduce_grads(grads, state: TrainState, mesh, extra: torch.Tensor,
+                  gathered=None):
     """The global mean gradient in this rank's placement (full leaves
     under DP, slices under FSDP; a tensor-parallel slice stays this
     rank's) and the mean of `extra` over the data ranks. Each rank's
     share is first summed over the seq and the pipe ranks (module
-    docstring)."""
+    docstring). With `gathered` (the overlap schedule's `StepGather`)
+    the FSDP leaves' slices come from its bucketed flush, and only the
+    other leaves go through here."""
+    if gathered is not None:
+        flat = flatten_with_path(grads)
+        mine = gathered.finish([g for _, g in flat])
+        whole = {p: g for p, g in flat if p not in mine}
+        for axis in (SEQ_AXIS, PIPE_AXIS):
+            whole = collectives.sum_over_axis(whole, mesh, axis)
+        whole, means = collectives.psum_mean(whole, mesh, extra)
+        by_path = {**mine, **whole}
+        return map_with_path(lambda p, _: by_path[p], grads), means
     for axis in (SEQ_AXIS, PIPE_AXIS):
         grads = collectives.sum_over_axis(grads, mesh, axis)
     sharded = _sharded_paths(state)
@@ -365,8 +395,11 @@ def _reduce_grads(grads, state: TrainState, mesh, extra: torch.Tensor):
 
 
 def _train_core(model, optimizer: Optimizer, loss_fn: LossFn,
-                state: TrainState, batch, *, dropout_mask=None, **step_kw):
-    """One step on this rank's slice of the batch (module docstring)."""
+                state: TrainState, batch, *, dropout_mask=None,
+                param_gather=None, **step_kw):
+    """One step on this rank's slice of the batch (module docstring).
+    `param_gather` (`parallel.overlap.build_param_gather`'s) replaces the
+    flat FSDP gather and reduce-scatter by its bucketed schedule."""
     mesh = _state_mesh(state)
     placement = state.placement
     any_slices = placement is not None and placement.sharded
@@ -376,15 +409,18 @@ def _train_core(model, optimizer: Optimizer, loss_fn: LossFn,
             f"{type(model).__name__} has no tensor-parallel forward; the "
             "port's TP rules train ViT-Tiny (models/vit.py)")
     sharded = _sharded_paths(state)
-    params = state.params
+    params, gathered = state.params, None
     if sharded is not None:
-        params = gather_tree(params, placement.specs.params, mesh,
-                             axes=(DATA_AXIS,))
+        if param_gather is not None:
+            gathered = param_gather(params, placement.specs.params, mesh)
+        else:
+            params = gather_tree(params, placement.specs.params, mesh,
+                                 axes=(DATA_AXIS,))
     with activate(mesh):
         loss, logits, new_model_state, grads = loss_and_grads(
             model, loss_fn, params, state.model_state, batch,
             rng=state.rng, dropout_mask=dropout_mask,
-            split=(mesh.rank, mesh.size), **step_kw)
+            split=(mesh.rank, mesh.size), gathered=gathered, **step_kw)
     del params
     with torch.no_grad():
         extra = model_metrics(new_model_state)
@@ -392,7 +428,7 @@ def _train_core(model, optimizer: Optimizer, loss_fn: LossFn,
             torch.stack([loss.to(torch.float32),
                          metrics.accuracy(logits, batch["label"])]),
             *(v.reshape(-1).to(torch.float32) for v in extra.values())])
-        grads, means = _reduce_grads(grads, state, mesh, local)
+        grads, means = _reduce_grads(grads, state, mesh, local, gathered)
         norm = (sum_of_squares_over(sharded_sum_of_squares(placement))
                 if any_slices else contextlib.nullcontext())
         with norm:
@@ -414,27 +450,54 @@ def _train_core(model, optimizer: Optimizer, loss_fn: LossFn,
     return new_state, out
 
 
+def _overlap_gather(mesh, rules: ShardingRules, overlap):
+    """`OverlapConfig` -> the bucketed gather (None passes through).
+    Validation (overlap needs an FSDP rule set) happens here, at
+    step-build time, before any data work."""
+    if overlap is None:
+        return None
+    from dist_mnist_tpu_torch.parallel.overlap import build_param_gather
+
+    return build_param_gather(mesh, rules, overlap)
+
+
+def _consume_compile_s() -> float:
+    """The seconds spent building or loading kernel and native libraries
+    since the last call: what the step wrapper's `consume_compile_s`
+    reports (the first call pays the loads; `train/loop.py` charges them
+    to the goodput compile bucket)."""
+    from dist_mnist_tpu_torch.ops.kernels import build
+    from dist_mnist_tpu_torch.utils import native_build
+
+    return build.consume_build_s() + native_build.consume_build_s()
+
+
 def make_train_step(model, optimizer: Optimizer, *, mesh=None,
                     rules: ShardingRules = DP_RULES,
                     loss_fn: LossFn = losses.softmax_cross_entropy,
                     remat: bool = False, remat_policy: str = "dots_no_batch",
-                    augment: bool = False):
+                    augment: bool = False, overlap=None):
     """``step(state, batch, *, dropout_mask=None) -> (state, metrics)`` on
     an explicit batch (uint8 images and int32 labels on the state's
     device): on a `mesh`, this rank's slice of the global batch, and a
     state not yet placed is placed by `rules` first. Augmentation and
     dropout draw from ``state.rng``, in that order, unless a keep-mask
-    is given."""
+    is given. `overlap` (`parallel.overlap.OverlapConfig`, needs `rules`
+    with an FSDP axis) runs the FSDP gather and gradient flush bucket by
+    bucket: the same trajectory bit for bit on two data ranks. The step
+    has `consume_compile_s()` (`_consume_compile_s`)."""
     resolve_remat_policy(remat_policy)  # refuse a bad name up front
     if mesh is not None:
         validate_mesh(mesh)
-    step_kw = dict(remat=remat, remat_policy=remat_policy, augment=augment)
+    step_kw = dict(remat=remat, remat_policy=remat_policy, augment=augment,
+                   param_gather=_overlap_gather(mesh, rules, overlap))
 
     def step(state: TrainState, batch, *, dropout_mask=None):
         return _train_core(model, optimizer, loss_fn,
                            _place(state, mesh, rules), batch,
                            dropout_mask=dropout_mask, **step_kw)
 
+    step.consume_compile_s = _consume_compile_s
     return step
 
 
@@ -444,17 +507,18 @@ def make_fused_train_step(model, optimizer: Optimizer, device_dataset,
                           loss_fn: LossFn = losses.softmax_cross_entropy,
                           remat: bool = False,
                           remat_policy: str = "dots_no_batch",
-                          augment: bool = False):
+                          augment: bool = False, overlap=None):
     """``step(state) -> (state, metrics)`` drawing its batch on the device
     from the resident dataset (`data.pipeline.DeviceDataset`): with-
     replacement sampling from ``state.rng`` (`batch_size` is global; on a
     mesh the dataset gives this rank its slice), then augmentation and
     dropout from the same generator. The host does no per-step data
-    work."""
+    work. `overlap` as in `make_train_step`."""
     resolve_remat_policy(remat_policy)
     if mesh is not None:
         validate_mesh(mesh)
-    step_kw = dict(remat=remat, remat_policy=remat_policy, augment=augment)
+    step_kw = dict(remat=remat, remat_policy=remat_policy, augment=augment,
+                   param_gather=_overlap_gather(mesh, rules, overlap))
 
     def step(state: TrainState):
         state = _place(state, mesh, rules)
@@ -462,6 +526,7 @@ def make_fused_train_step(model, optimizer: Optimizer, device_dataset,
         return _train_core(model, optimizer, loss_fn, state, batch,
                            **step_kw)
 
+    step.consume_compile_s = _consume_compile_s
     return step
 
 
@@ -470,9 +535,9 @@ def make_scanned_train_fn(model, optimizer: Optimizer, device_dataset,
                           loss_fn: LossFn = losses.softmax_cross_entropy,
                           **step_kw):
     """``run(state) -> (state, metrics)``: `chunk` fused steps (`step_kw`:
-    mesh, rules, remat, remat_policy, augment); the metrics are each
-    one's mean over the chunk, computed on the device (the reference's
-    `lax.scan` returns the same means)."""
+    mesh, rules, remat, remat_policy, augment, overlap); the metrics are
+    each one's mean over the chunk, computed on the device (the
+    reference's `lax.scan` returns the same means)."""
     one_step = make_fused_train_step(model, optimizer, device_dataset,
                                      batch_size, loss_fn=loss_fn, **step_kw)
 
@@ -484,6 +549,7 @@ def make_scanned_train_fn(model, optimizer: Optimizer, device_dataset,
         return state, {k: torch.stack([o[k] for o in outs]).mean()
                        for k in outs[0]}
 
+    run.consume_compile_s = _consume_compile_s
     return run
 
 

@@ -546,9 +546,25 @@ def test_checkpoint_hook_saves_at_begin_cadence_and_end():
     assert loop.goodput.save_s > 0
 
 
-def test_overlap_hook_refuses_naming_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 13"):
-        builtin.OverlapHook(None, {"buckets": 1})
+def test_overlap_hook_publishes_the_plan():
+    """`overlap/*` once at begin, at the initial step: numbers as they
+    are, booleans as 1.0 / 0.0, the chunk mode (a string) left out; the
+    same values the reference's hook publishes for the same plan."""
+    plan = {"buckets": 4, "sharded_leaves": 82, "total_leaves": 82,
+            "gathered_bytes": 1_092_264, "bucket_mb": 0.25, "serial": True,
+            "chunk": "ring"}
+    w = _RecWriter()
+    hook = builtin.OverlapHook(w, plan)
+    loop = TrainLoop(_fake_step, _state(step=3), iter([1.0] * 2), [hook])
+    loop.run()
+    want = {"overlap/buckets": 4, "overlap/sharded_leaves": 82,
+            "overlap/total_leaves": 82, "overlap/gathered_bytes": 1_092_264,
+            "overlap/bucket_mb": 0.25, "overlap/serial": 1.0}
+    assert hook.last == want
+    assert sorted(w.scalars) == sorted((3, k, v) for k, v in want.items())
+    ref = jhooks.OverlapHook(None, plan)
+    ref.begin(type("L", (), {"initial_step": 3})())
+    assert ref.last == hook.last
 
 
 # -- both packages' loops, one script -----------------------------------------

@@ -43,6 +43,7 @@ def _sources() -> list[Path]:
         ROOT / "tests/torch_multislice_cases.py",
         ROOT / "tests/torch_zoo_cases.py",
         ROOT / "tests/torch_resilience_cases.py",
+        ROOT / "tests/torch_overlap_cases.py",
         *sorted((ROOT / "scripts").glob("torch_*.py"))]
 
 
@@ -75,6 +76,19 @@ def test_resilience_modules_are_checked(name):
     check reads (and the rank cases of its tests beside them)."""
     assert PORT / name in _sources()
     assert ROOT / "tests/torch_resilience_cases.py" in _sources()
+
+
+@pytest.mark.parametrize("name", [
+    "compilecache/__init__.py", "compilecache/key_fields.py",
+    "compilecache/startup.py", "compilecache/store.py",
+    "parallel/overlap.py"])
+def test_overlap_and_compile_cache_modules_are_checked(name):
+    """The overlap and compile-cache slice's modules are among the
+    sources the import check reads (and the rank cases of its tests
+    beside them); the two copies of import-pure or stdlib-only
+    reference modules are copies, not imports."""
+    assert PORT / name in _sources()
+    assert ROOT / "tests/torch_overlap_cases.py" in _sources()
 
 
 @pytest.mark.parametrize("name", ["data/native/loader.cc",

@@ -103,7 +103,6 @@ def test_two_process_fsdp_checkpoint_resume(data_dir, tmp_path):
 
 
 @pytest.mark.parametrize("argv,what", [
-    (["--compile_cache_dir=/x"], "item 13(b)"),
     (["--supervisor_port=0"], "item 14"),
     (["--devices_per_process=2"], "one device per process"),
 ])
@@ -123,12 +122,15 @@ _KILL = '{"faults": [{"kind": "kill_process", "process": 1, "after_s": 2.0}]}'
      {"elastic": True, "min_processes": 2, "regrow_after_s": 3.0}),
     ([f"--fault_plan={_KILL}"], {"kill_spec": (1, 2.0), "host_kill": None}),
     (["--journal=/x/j.jsonl"], {"journal": "/x/j.jsonl"}),
-], ids=["max_restarts", "elastic", "fault_plan", "journal"])
+    (["--compile_cache_dir=/x"], {"compile_cache_dir": "/x"}),
+], ids=["max_restarts", "elastic", "fault_plan", "journal",
+        "compile_cache_dir"])
 def test_supervisor_flags_reach_the_supervisor(monkeypatch, argv, want):
-    """The supervisor's flags (ROADMAP §1 item 13(a)) now run: each
-    reaches `launch`, and a fault plan goes on to the children too (the
-    supervised runs themselves: tests/test_torch_faults.py and
-    tests/test_torch_elastic.py)."""
+    """The supervisor's flags (ROADMAP §1 items 13(a) and 13(b)) now run:
+    each reaches `launch`, and a fault plan goes on to the children too
+    (the supervised runs themselves: tests/test_torch_faults.py and
+    tests/test_torch_elastic.py; the compile cache's forwarding to every
+    generation: tests/test_torch_compilecache.py)."""
     seen = {}
 
     def fake(n, train_args, **kw):

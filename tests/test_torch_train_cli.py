@@ -44,10 +44,12 @@ from dist_mnist_tpu_torch.utils.tree import flatten_with_path
 
 ROOT = Path(__file__).resolve().parents[1]
 
-#: journal events of subsystems the port has not ported: the compile
-#: cache and the cold-start clock (compilecache/, ROADMAP §1 item 13(b))
-UNPORTED_EVENTS = {"compile_cache", "compile_cache_hit", "compile_cache_miss",
-                   "compile_cache_store", "startup"}
+#: journal event names the reference's journals once used and neither
+#: package emits now; the compile cache's `compile_cache` events are
+#: compared in tests/test_torch_compilecache.py (neither run here has a
+#: store, so neither journal has one)
+UNPORTED_EVENTS = {"compile_cache_hit", "compile_cache_miss",
+                   "compile_cache_store"}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -325,10 +327,6 @@ REFUSED = [
     (["--mesh=data=1,model=2,seq=2"], "item 11"),
     (["--host_device_count=8"], "item 12"),
     (["--mesh=data=1,model=2,pipe=2"], "item 11"),
-    (["--overlap"], "item 13"),
-    (["--overlap_bucket_mb=2"], "item 13"),
-    (["--overlap_chunk=ring"], "item 13"),
-    (["--compile_cache_dir=/x"], "item 13"),
     (["--metrics_port=9000"], "item 14"),
     (["--anomaly"], "item 14"),
     (["--anomaly_every=5"], "item 14"),
@@ -350,11 +348,68 @@ def test_refused_flags_name_their_roadmap_item(argv, item):
 def test_refused_config_fields_name_their_roadmap_item(data_dir):
     for over, item in (({"mesh": MeshSpec(data=1, model=2, seq=2)},
                         "item 11"),
-                       ({"prng_impl": "rbg"}, "closing line"),
-                       ({"overlap": True}, "item 13")):
+                       ({"prng_impl": "rbg"}, "closing line")):
         cfg = dataclasses.replace(get_config("mlp_mnist"), **over)
         with pytest.raises(NotImplementedError, match=item):
             cli.run_config(cfg, device="cpu", data_dir=data_dir)
+    # a config's overlap under dp: the reference's refusal, not an item
+    cfg = dataclasses.replace(get_config("mlp_mnist"), overlap=True)
+    with pytest.raises(ValueError, match="needs an fsdp sharding strategy"):
+        cli.run_config(cfg, device="cpu", data_dir=data_dir)
+
+
+#: the overlap and compile-cache flags (ROADMAP §1 item 13(b)) lifted
+#: from the refusals above
+OVERLAP_FLAGS = [
+    ["--sharding=fsdp", "--overlap"],
+    ["--sharding=fsdp", "--overlap", "--overlap_bucket_mb=2"],
+    ["--sharding=fsdp", "--overlap", "--overlap_chunk=ring"],
+    ["--compile_cache_dir=CACHE"],
+]
+
+
+@pytest.mark.parametrize("argv", OVERLAP_FLAGS, ids=[
+    "overlap", "overlap_bucket_mb", "overlap_chunk", "compile_cache_dir"])
+def test_overlap_and_compile_cache_flags_now_run(tmp_path, data_dir, argv):
+    """Each trains 4 steps on one rank: the overlap flags set the
+    config's knobs and publish the plan (the reference's rule places
+    every float leaf on the data axis of one rank too; nothing is split,
+    so the step is the plain one), and the store's stats and the startup
+    buckets come back in the result."""
+    argv = [a.replace("CACHE", str(tmp_path / "cache")) for a in argv]
+    state, final, ctx = cli.main([
+        "--device=cpu", "--config=mlp_mnist", f"--data_dir={data_dir}",
+        "--train_steps=4", "--eval_every=0", *argv])
+    assert state.step_int == 4 and 0.0 <= final["accuracy"] <= 1.0
+    assert {"import_ms", "init_ms", "restore_ms", "compile_ms",
+            "first_step_ms", "time_to_first_step_ms"} <= set(ctx["startup"])
+    if "--overlap" in argv:
+        hook = [h for h in ctx["loop"].hooks
+                if type(h).__name__ == "OverlapHook"][0]
+        assert hook.last["overlap/sharded_leaves"] == 4
+        assert hook.last["overlap/total_leaves"] == 4
+        assert hook.last["overlap/buckets"] >= 1
+        if "--overlap_bucket_mb=2" in argv:
+            assert hook.last["overlap/bucket_mb"] == 2.0
+        assert ctx["compile_cache"] is None
+    else:
+        assert ctx["compile_cache"]["builds"] == 0  # no kernel on the CPU
+        assert (tmp_path / "cache" / "kernels").is_dir()
+
+
+@pytest.mark.parametrize("argv,match", [
+    (["--overlap"], "needs an fsdp sharding strategy"),
+    (["--sharding=fsdp", "--overlap", "--overlap_chunk=tree"],
+     "unknown overlap chunk mode"),
+    (["--sharding=fsdp", "--overlap_bucket_mb=0"], "bucket_mb must be > 0"),
+], ids=["dp", "chunk", "bucket_mb"])
+def test_overlap_flags_refuse_what_the_reference_refuses(argv, match):
+    """On mlp_mnist (dp) `--overlap` exits with the reference's fsdp
+    message; a bad chunk mode or bucket fails at flag-parse depth."""
+    with pytest.raises(SystemExit) as info:
+        cli.main(["--device=cpu", "--config=mlp_mnist", *argv])
+    assert str(info.value.code).startswith("error: ")
+    assert match in str(info.value.code)
 
 
 #: flags the data- and sequence-parallel slices and the native layer
