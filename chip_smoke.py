@@ -284,9 +284,10 @@ script. Phases (any failure exits nonzero before the final `ok` line):
    `ZS_RESTORE_TOL` of serving it unsharded);
 12h. resilience (`resilience`): `bench.run_faults` at the reference's
    `--faults` geometry with blocking saves and through the
-   `AsyncSnapshotter` (each recovered loss trajectory the clean one's
-   bit for bit; recovery latency, goodput buckets, save stall per step,
-   fork ms); `vit_tiny_cifar_flash` at full width, batch 64, through
+   `AsyncSnapshotter` (each recovered loss trajectory, which carries the
+   journal, the anomaly hook and a live fleet of one, the clean one's
+   bit for bit, and the scraper reached the exporter; recovery latency,
+   goodput buckets, save stall per step, fork ms); `vit_tiny_cifar_flash` at full width, batch 64, through
    `cli.train.run_config` for `RES_VIT_STEPS` steps, clean and with
    `--async_snapshot` under a preemption whose checkpoint is corrupted
    (losses and final params bit for bit; the loop's launches, from 0 just
@@ -295,12 +296,14 @@ script. Phases (any failure exits nonzero before the final `ok` line):
    a planned host loss, supervised through `cli.launch` elastic through
    the peer ring, elastic through the store, and restart-the-world, the
    three side by side (each finishes; the journals show the shrink, the
-   ring restore, the restart);
+   ring restore, the restart; the elastic store side runs the fleet
+   observability path, and its merged fleet trace holds a track per
+   host, the resize marker and spans in both generations);
 12i. overlap and the compile cache (`overlap_startup`): ResNet-20 FSDP
-   on two ranks through `cli.launch` (the batch and steps of
-   `data_parallel`'s FSDP run, which is the plain one of the three)
-   with `--overlap --overlap_bucket_mb=0.25` and with
-   `--overlap_chunk=ring`: final params bit for bit, the same logged
+   on two ranks through `cli.launch` (the flags of `data_parallel`'s
+   FSDP run), plain, with `--overlap --overlap_bucket_mb=0.25` and with
+   `--overlap_chunk=ring`, the three side by side: final params bit for
+   bit, the same logged
    losses, the logged plan `plan_stats`' and the reference's (82 leaves,
    1,092,264 B, 4 buckets), 4 reduce-scatters and >= 4 gathers a step
    (ring: one `ring_shift` a leaf), no kernel; `bench --overlap` and
@@ -311,6 +314,26 @@ script. Phases (any failure exits nonzero before the final `ok` line):
    faster, the same bits), then the entry truncated and a third child:
    one quarantine, one rebuild, the cold child's bits; `bench --input`
    (the trajectory gate);
+12j. telemetry (`telemetry`): (a) ViT-Tiny flash (batch 64, bf16, 20
+   steps) through `cli.train.run_config` twice, plain and with the
+   exporter on a free port, `anomaly` every 5 steps, span records every
+   5, a logdir and a `ProfilerHook` window of 3 steps, a thread GETting
+   /metrics, /healthz and /events meanwhile: losses and final params bit
+   for bit, 24 / 12 / 12 flash launches a step in both, /healthz
+   ``training`` mid-run and ``stopped`` after, the step-time histogram's
+   count the steps, `timeline-h0-*.json` written with the three flash
+   kernels among `summarize_trace`'s rows; then a third run with a 0.5 s
+   stall inside step 16 and the anomaly check every step: an ``anomaly``
+   event and /healthz 200 ``degraded`` at the end of step 17; (b) `lenet5_mnist --quant=int8`
+   served through `cli.serve`'s functions with and without the exporter:
+   the serve ladders on /metrics under the reference's names, /healthz
+   ``serving`` during and 503 ``stopped`` after, ``serve_start`` /
+   ``serve_stop`` in the journal, 2 `quant_matmul` launches a batch;
+   (c) decode on the paged int8 cache with a journal: a ``decode_admit``
+   a request, the pages allocated the pages reclaimed, 2
+   `paged_attention` launches a decode step; the resilience phase's
+   `bench.run_faults` records carry the fleet-of-one gate and its
+   elastic leg the fleet trace's;
 13. time each kernel at the shapes its path gives it, beside its plain
    version and, where one exists, one library call computing the same
    function (for the Adam kernels `torch._fused_adam_`/`_fused_adamw_`, a
@@ -2802,6 +2825,17 @@ def _launch_ranks(args: list[str], tag: str, timeout: float = 420.0,
     return ranks
 
 
+def _launch_side_by_side(specs: dict) -> dict:
+    """`_launch_ranks` of each ``{tag: (args, kwargs)}`` at once, each in a
+    thread of its own (the launches share the card and the host cores,
+    as `resilience`'s supervised runs do): ``{tag: ranks}``. A launch that
+    fails exits the script as `_launch_ranks` does."""
+    with ThreadPoolExecutor(len(specs)) as pool:
+        futures = {tag: pool.submit(_launch_ranks, args, tag, **kw)
+                   for tag, (args, kw) in specs.items()}
+        return {tag: f.result() for tag, f in futures.items()}
+
+
 def data_parallel(torch, dev, reset_counts, read_counts) -> dict:
     """Phase `data_parallel`: ResNet-20 and LeNet-5 (Fashion-MNIST) through
     the bench's config mode on one rank, `resnet20_cifar_fsdp` there
@@ -2852,20 +2886,20 @@ def data_parallel(torch, dev, reset_counts, read_counts) -> dict:
         fail(f"data_parallel: resnet20_cifar_fsdp on one rank: "
              f"{fsdp_note['mesh_note']!r}, sharding {fsdp_note['sharding']}")
 
-    runs = {}
     common = ["--mesh=data=2", "--eval_every=0", f"--train_steps={DP_STEPS}"]
-    runs["lenet5_fashion"] = _launch_ranks(
+    specs = {"lenet5_fashion": (
         ["--config=lenet5_fashion", "--batch_size=256", "--log_every=10",
-         *common], "lenet5_fashion")
+         *common], {})}
     ckpt = {s: ROOT / "chiprun_out" / f"dp_ckpt_{s}" for s in ("fsdp", "dp")}
     for s, d in ckpt.items():
         shutil.rmtree(d, ignore_errors=True)
-        runs[f"resnet20_{s}"] = _launch_ranks(
-            resnet_fsdp_args(s, d), f"resnet20_{s}")
-    runs["vit_flash"] = _launch_ranks(
+        specs[f"resnet20_{s}"] = (resnet_fsdp_args(s, d), {})
+    specs["vit_flash"] = (
         ["--config=vit_tiny_cifar_flash", "--mesh=data=2",
          "--batch_size=128", "--eval_every=0", "--log_every=5",
-         f"--train_steps={DP_VIT_STEPS}"], "vit_flash")
+         f"--train_steps={DP_VIT_STEPS}"], {})
+    # the four two-rank runs side by side (their steps/s are fields)
+    runs = _launch_side_by_side(specs)
     for name, ranks in runs.items():
         for r, rank in enumerate(ranks):
             print(json.dumps({"phase": "data_parallel", "run": name,
@@ -2956,8 +2990,6 @@ def data_parallel(torch, dev, reset_counts, read_counts) -> dict:
     out["vit_launches"] = {k: sum(rank["launches"][k]
                                   for rank in runs["vit_flash"])
                            for k in want}
-    # the plain FSDP run of `overlap_startup`'s three (digests included)
-    out["resnet20_fsdp_ranks"] = runs["resnet20_fsdp"]
     return out
 
 
@@ -2967,8 +2999,8 @@ def data_parallel(torch, dev, reset_counts, read_counts) -> dict:
 TP_LM_LAYOUTS = {"int8": dict(cache_layout="paged", kv_quant="int8"),
                  "dense": {}}
 TP_SLOTS = 8
-TP_LOAD = dict(n_requests=32, concurrency=8, seed=11)
-TP_SERVE_REQUESTS = 32
+TP_LOAD = dict(n_requests=16, concurrency=8, seed=11)
+TP_SERVE_REQUESTS = 16
 #: the sharded flash entry's check: ViT's B and S, 4 heads of 64, bf16
 TP_FLASH_SHAPE = (64, 65, 4, 64)
 #: ViT-Tiny through cli.launch: the 16-chip ladder's per-data-rank batch
@@ -3336,18 +3368,20 @@ def tensor_parallel(torch, dev, reset_counts, read_counts, bw: float,
         fail(f"tensor_parallel cli.serve: {serve}")
     out["cli_serve"] = serve
 
-    # (4) ViT-Tiny: TP on 2 ranks, FSDP x TP on 4
-    runs = {}
+    # (4) ViT-Tiny: TP on 2 ranks, FSDP x TP on 4, side by side
+    specs, ckpts = {}, {}
     for tag, (name, data, model, batch) in TP_VIT_RUNS.items():
         # ViT-Tiny's checkpoints (~64 MB a step) stay out of chiprun_out
-        ckpt = Path(tempfile.mkdtemp(prefix=f"tp_ckpt_{tag}_"))
-        ranks_out = _launch_ranks(
+        ckpts[tag] = ckpt = Path(tempfile.mkdtemp(prefix=f"tp_ckpt_{tag}_"))
+        specs[tag] = (
             [f"--config={name}", f"--mesh=data={data},model={model}",
              f"--batch_size={batch}", "--eval_every=0", "--log_every=5",
              f"--train_steps={TP_VIT_STEPS}", f"--checkpoint_dir={ckpt}",
-             f"--checkpoint_every_steps={TP_VIT_STEPS}"], tag,
-            n=data * model, timeout=600, extra=(TP_DIGEST,))
-        runs[tag] = ranks_out
+             f"--checkpoint_every_steps={TP_VIT_STEPS}"],
+            dict(n=data * model, timeout=600, extra=(TP_DIGEST,)))
+    runs = _launch_side_by_side(specs)
+    for tag, (name, data, model, batch) in TP_VIT_RUNS.items():
+        ckpt, ranks_out = ckpts[tag], runs[tag]
         cfg = get_config(name)
         vit = get_model(cfg.model, **cfg.model_kwargs)
         target = create_train_state(vit, optim.build_optimizer(cfg), 0,
@@ -4308,18 +4342,22 @@ def model_parallel(torch, dev) -> dict:
                  f"plain stack: loss {loss_err}, worst leaf {worst}")
     out["group"] = ranks
 
-    # (2) the two configs through cli.launch
+    # (2) the two configs through cli.launch, side by side
     out["runs"] = {}
+    specs = {}
     for tag, (name, axis) in MP_RUNS.items():
         ckpt = MP_CKPT / tag
         shutil.rmtree(ckpt, ignore_errors=True)
-        rows = _launch_ranks(
+        specs[f"mp_{tag}"] = (
             [f"--config={name}", f"--mesh={axis}",
              f"--batch_size={MP_BATCH}", f"--train_steps={MP_STEPS}",
              "--eval_every=0", "--log_every=1", f"--checkpoint_dir={ckpt}",
-             f"--checkpoint_every_steps={MP_STEPS}"], f"mp_{tag}",
-            timeout=420, n=MP_RANKS,
-            extra=("peak allocated bytes: ",))
+             f"--checkpoint_every_steps={MP_STEPS}"],
+            dict(timeout=420, n=MP_RANKS, extra=("peak allocated bytes: ",)))
+    launched = _launch_side_by_side(specs)
+    for tag, (name, axis) in MP_RUNS.items():
+        ckpt = MP_CKPT / tag
+        rows = launched[f"mp_{tag}"]
         output = (ROOT / "chiprun_out" / f"launch_mp_{tag}.log").read_text()
         one = _mp_one_rank(torch, dev, name)
         cfg = get_config(name)
@@ -4421,7 +4459,7 @@ SMALL_CIFAR = Path(tempfile.gettempdir()) / "dist_mnist_small_cifar"
 #: cross-strategy restore's logit limit, and the rules' share of a
 #: replicated rank's bytes under FSDP x TP (PR 15's measured state share)
 ZS_REQUESTS, ZS_CONCURRENCY = 64, 32
-ZS_FSDP_TP_REQUESTS = 64
+ZS_FSDP_TP_REQUESTS = 32
 ZS_RESTORE_TOL = 2e-4
 ZS_FSDP_TP_SHARE, ZS_SHARE_TOL = 0.25178, 0.02
 ZS_CKPT = Path(tempfile.gettempdir()) / "dist_mnist_zs_ckpt"
@@ -5122,9 +5160,11 @@ def resilience(torch, dev, reset_counts, read_counts,
     kill_host(1, step=35), elastic through the peer ring, elastic through
     the store, and the restart-the-world baseline, the three side by side
     through `cli.launch` (`bench.start_supervised`): every run finishes,
-    the journals show the shrink / ring / restart each must; the speed
-    orderings are fields, not gates (the runs share the card and the host
-    cores). Fails on any miss; prints and returns the record."""
+    the journals show the shrink / ring / restart each must, and the
+    elastic store side (`fleet_obs`) gives the fleet trace the bench's
+    gates; the speed orderings are fields, not gates (the runs share the
+    card and the host cores). Fails on any miss; prints and returns the
+    record."""
     import dataclasses
 
     from dist_mnist_tpu_torch import bench
@@ -5151,6 +5191,7 @@ def resilience(torch, dev, reset_counts, read_counts,
             "save_stall_ms_per_step": x["save_stall_ms_per_step"],
             "fork_ms_mean": x["fork_ms_mean"],
             "trajectory_identical": x["trajectory_identical"],
+            "fleet": x["fleet"],
             "replayed_steps": x["replayed_steps"],
             **{k: x[k] for k in ("goodput_fraction", "productive_s",
                                  "restore_s", "replay_s", "stall_s",
@@ -5179,9 +5220,12 @@ def resilience(torch, dev, reset_counts, read_counts,
     runs = []
     try:
         for tag, elastic, peer in legs:
+            # the elastic store side runs the fleet observability path,
+            # as `bench --faults --elastic`'s elastic side does
             runs.append(bench.start_supervised(
                 str(root), tag, str(default_data_dir()), platform, plan=plan,
-                elastic=elastic, peer=peer))
+                elastic=elastic, peer=peer,
+                fleet_obs=tag == "elastic_store"))
         for run, (tag, elastic, peer) in zip(runs, legs):
             try:
                 s = bench.finish_supervised(run, timeout=600)
@@ -5220,6 +5264,15 @@ def resilience(torch, dev, reset_counts, read_counts,
             if peer and (not restores["peer_restore"]
                          or restores["checkpoint_restore"]):
                 bad.append("no peer_restore, or a store restore")
+            if tag == "elastic_store":
+                # the bench's fleet-trace gates: a track per host, the
+                # shrink's marker, spans on both sides of the resize
+                trace = bench.fleet_trace_stats(run.journal)
+                sides[tag]["fleet_trace"] = trace
+                if trace["host_tracks"] < bench.ELASTIC_PROCS or \
+                        not trace["resize_markers"] or \
+                        len(trace["span_generations"]) < 2:
+                    bad.append(f"fleet trace {trace}")
             if bad:
                 fail(f"resilience supervisor ({tag}): {'; '.join(bad)}")
     finally:
@@ -5250,7 +5303,7 @@ OS_PLAN = {"buckets": 4, "sharded_leaves": 82, "total_leaves": 82,
 OS_COLDSTART_STEPS = 20
 #: `bench --input`'s timed steps here (the bench's default is --steps
 #: 2000): a cut of time, not of shape
-OS_INPUT_STEPS = 500
+OS_INPUT_STEPS = 200
 OS_OVERLAP_STEPS = 60
 #: per-rank state over dp's: within this of the rules' share (PR 14-15)
 OS_SHARE_TOL = 0.02
@@ -5309,10 +5362,11 @@ def _fsdp_share(torch, n: int) -> float:
     return mine / total
 
 
-def overlap_startup(torch, dev, plain_fsdp: list) -> dict:
+def overlap_startup(torch, dev) -> dict:
     """Phase 12i: overlap and the compile cache on the card. (a) ResNet-20
     FSDP on two ranks through `cli.launch` at the per-chip batch 128,
-    `DP_STEPS` steps: `data_parallel`'s plain run (`plain_fsdp`) against
+    `DP_STEPS` steps, three launches side by side (one load for the three
+    steps/s): the plain run (`data_parallel`'s FSDP flags) against
     `--overlap --overlap_bucket_mb=0.25` and the same with
     `--overlap_chunk=ring` (the same flags otherwise): final params bit
     for bit (the digests) and the same logged losses, the logged
@@ -5359,14 +5413,20 @@ def overlap_startup(torch, dev, plain_fsdp: list) -> dict:
     if {k: plan[k] for k in OS_PLAN} != OS_PLAN:
         fail(f"overlap_startup: ResNet-20's plan {plan}, the reference's "
              f"{OS_PLAN}")
-    runs = {"plain": plain_fsdp}
-    for tag, extra in (("overlapped", []), ("ring", ["--overlap_chunk=ring"])):
+    specs = {}
+    for tag, extra in (("plain", None), ("overlapped", []),
+                       ("ring", ["--overlap_chunk=ring"])):
         d = ROOT / "chiprun_out" / f"os_ckpt_{tag}"
         shutil.rmtree(d, ignore_errors=True)
-        runs[tag] = _launch_ranks(
-            [*resnet_fsdp_args("fsdp", d), "--overlap",
-             f"--overlap_bucket_mb={OS_BUCKET_MB}", *extra], f"os_{tag}",
-            extra=("overlap plan: ",))
+        specs[f"os_{tag}"] = (resnet_fsdp_args("fsdp", d), {}) \
+            if extra is None \
+            else ([*resnet_fsdp_args("fsdp", d), "--overlap",
+                   f"--overlap_bucket_mb={OS_BUCKET_MB}", *extra],
+                  dict(extra=("overlap plan: ",)))
+    # the three side by side, so that their steps/s share one load; the
+    # digest and collective gates hold whatever the timing
+    runs = {tag[3:]: ranks
+            for tag, ranks in _launch_side_by_side(specs).items()}
     rows = {}
     for tag, ranks in runs.items():
         rows[tag] = {
@@ -5494,6 +5554,422 @@ def overlap_startup(torch, dev, plain_fsdp: list) -> dict:
     print(json.dumps({"phase": "overlap_startup", **{
         k: v for k, v in out.items() if k.endswith("seconds")}}),
           flush=True)
+    return out
+
+
+#: the telemetry phase: ViT-Tiny flash at batch 64 for TEL_STEPS steps,
+#: the anomaly check and the span records every TEL_EVERY steps, a
+#: profiler window of 3 steps from step TEL_TRACE_AT; the injected run's
+#: stall (TEL_STALL_S inside step TEL_STALL_AT + 1, read by the anomaly
+#: check, every step there, at the end of the next); the served int8
+#: classifier's requests; the decode run's
+TEL_STEPS, TEL_BATCH, TEL_EVERY, TEL_TRACE_AT = 20, 64, 5, 10
+TEL_STALL_AT, TEL_STALL_S = 15, 0.5
+TEL_SERVE_REQUESTS, TEL_DECODE_REQUESTS = 256, 16
+#: the hand-written kernels a ViT step's trace must name
+TEL_TRACE_KERNELS = ("flash_fwd_mma_onepass", "flash_dq_mma",
+                     "flash_dkv_mma")
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _http_get(url: str, timeout: float = 5.0) -> tuple[int, str, float]:
+    """(status, body, ms) of a GET, 4xx/5xx included."""
+    import urllib.error
+    import urllib.request
+
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(url, timeout=timeout) as resp:
+            code, body = resp.status, resp.read().decode()
+    except urllib.error.HTTPError as e:
+        code, body = e.code, e.read().decode()
+    return code, body, (time.perf_counter() - t0) * 1e3
+
+
+#: the probing thread's cadence: ten scrapes of each endpoint a second
+TEL_PROBE_S = 0.1
+
+
+class _Prober:
+    """A thread GETting `paths` of `base` every `every_s` until `stop`:
+    each path's (status, body) by time, and each GET's latency."""
+
+    def __init__(self, base: str, paths, every_s: float = TEL_PROBE_S):
+        import threading
+
+        self.base, self.paths, self.every_s = base, tuple(paths), every_s
+        self.seen = {p: [] for p in self.paths}
+        self.ms = {p: [] for p in self.paths}
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run,
+                                        name="ChipSmokeProbe", daemon=True)
+
+    def _run(self):
+        while not self._stop.is_set():
+            for p in self.paths:
+                try:
+                    code, body, ms = _http_get(self.base + p)
+                except OSError:
+                    continue
+                self.seen[p].append((code, body))
+                self.ms[p].append(ms)
+            self._stop.wait(self.every_s)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=10)
+
+
+class _StallAt:
+    """A hook that sleeps `seconds` in `before_step(step)`: a stall inside
+    the loop's step clock, which the anomaly hook's step-time detector
+    reads (an input stall lands in the feed wait, which it does not)."""
+
+    def __init__(self, step: int, seconds: float):
+        self.step, self.seconds = step, seconds
+
+    def begin(self, loop):
+        pass
+
+    def before_step(self, step):
+        if step == self.step:
+            time.sleep(self.seconds)
+
+    def after_step(self, step, state, outputs):
+        pass
+
+    def end(self, state):
+        pass
+
+
+class _HealthAt:
+    """A hook that GETs /healthz at the end of step `step`."""
+
+    def __init__(self, step: int):
+        self.step, self.url, self.seen = step, None, None
+
+    def begin(self, loop):
+        pass
+
+    def before_step(self, step):
+        pass
+
+    def after_step(self, step, state, outputs):
+        if step == self.step and self.url:
+            code, body, _ = _http_get(self.url)
+            self.seen = (code, json.loads(body))
+
+    def end(self, state):
+        pass
+
+
+def _tel_vit(torch, dev, reset_counts, read_counts, cfg, work: Path) -> dict:
+    """Phase 12j (a): `cfg` (ViT-Tiny flash) through `cli.train.run_config`
+    plain, instrumented, and with a stall (see `telemetry`)."""
+    import os
+
+    from dist_mnist_tpu_torch.bench import LossTrajectory, same_trajectory
+    from dist_mnist_tpu_torch.cli import train as cli
+    from dist_mnist_tpu_torch.hooks.builtin import ProfilerHook
+    from dist_mnist_tpu_torch.obs import events as events_mod
+    from dist_mnist_tpu_torch.obs import summarize_trace
+    from dist_mnist_tpu_torch.train.state import params_digest
+
+    depth = cfg.model_kwargs.get("depth", 12)
+    want = {"flash_attention_forward": 2 * depth * TEL_STEPS,
+            "flash_attention_dq": depth * TEL_STEPS,
+            "flash_attention_dkv": depth * TEL_STEPS}
+    runs, probe = {}, None
+    os.environ[events_mod.ENV_HOST_ID] = "0"  # the exports' host stamp
+    try:
+        for tag in ("plain", "instrumented"):
+            traj, kw = LossTrajectory(), {}
+            if tag == "instrumented":
+                port = _free_port()
+                logdir = work / "logs"
+                kw = dict(metrics_port=port, anomaly=True,
+                          anomaly_every=TEL_EVERY, span_steps=TEL_EVERY,
+                          logdir=str(logdir),
+                          extra_hooks=[traj, ProfilerHook(
+                              str(logdir), start_step=TEL_TRACE_AT,
+                              num_steps=3)])
+                probe = _Prober(f"http://127.0.0.1:{port}",
+                                ("/metrics", "/healthz", "/events?n=20"))
+            reset_counts()
+            t0 = time.perf_counter()
+            with (probe if tag == "instrumented"
+                  else contextlib.nullcontext()):
+                state, _, ctx = cli.run_config(
+                    cfg, device=dev, **{"extra_hooks": [traj], **kw})
+                if dev.type == "cuda":
+                    torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            loop = ctx["loop"]
+            runs[tag] = {
+                "loss": traj.loss, "digest": params_digest(state.params),
+                "launches": ctx["launches"], "wall_s": wall,
+                # the median step's rate: the first steps' warm-up aside
+                "steps_per_s": 1e3 / loop.step_time_hist.percentiles()[
+                    "p50"],
+                "health": ctx["health"].state,
+                "hist_count": ctx["registry"].histograms()[
+                    "train/step_time_ms"].count,
+                "loop_hist_count": loop.step_time_hist.count,
+                "anomalies": sum(len(h.anomalies) for h in loop.hooks
+                                 if hasattr(h, "anomalies"))}
+        # the injected stall: the anomaly check every step
+        port = _free_port()
+        # the loop files a step's time after its after_step hooks, so the
+        # check at the end of the next step is the one that reads it
+        health_at = _HealthAt(TEL_STALL_AT + 2)
+        health_at.url = f"http://127.0.0.1:{port}/healthz"
+        journal = work / "stall.jsonl"
+        state, _, ctx = cli.run_config(
+            cfg, device=dev, metrics_port=port, anomaly=True,
+            anomaly_every=1, journal=str(journal),
+            extra_hooks=[_StallAt(TEL_STALL_AT, TEL_STALL_S), health_at])
+        stall_events = [r for r in events_mod.read_journal(journal)
+                        if r["event"] == "anomaly"]
+    finally:
+        os.environ.pop(events_mod.ENV_HOST_ID, None)
+    plain, inst = runs["plain"], runs["instrumented"]
+    timelines = sorted((work / "logs").glob("timeline-h0-*.json"))
+    rows = summarize_trace(timelines[-1], top=10_000) if timelines else []
+    found = {k: any(k in r["name"] for r in rows) for k in TEL_TRACE_KERNELS}
+    mid = [json.loads(b)["state"] for c, b in probe.seen["/healthz"]
+           if c == 200]
+    counts = []
+    for code, body in probe.seen["/metrics"]:
+        line = [ln for ln in body.splitlines()
+                if ln.startswith("train_step_time_ms_count ")]
+        if code == 200 and line:
+            counts.append(int(line[0].split()[1]))
+    events_seen = sum(1 for c, b in probe.seen["/events?n=20"]
+                      if c == 200 and b.strip())
+    ms = sorted(probe.ms["/metrics"])
+    out = {
+        "steps": TEL_STEPS, "batch": TEL_BATCH,
+        "losses_equal": same_trajectory(plain["loss"], inst["loss"]),
+        "params_equal": plain["digest"] == inst["digest"],
+        "launches": {"plain": plain["launches"],
+                     "instrumented": inst["launches"]},
+        "want_launches": want,
+        "steps_per_s": {"plain": plain["steps_per_s"],
+                        "instrumented": inst["steps_per_s"]},
+        "wall_s": {"plain": plain["wall_s"],
+                   "instrumented": inst["wall_s"]},
+        "healthz_states_mid_run": sorted(set(mid)),
+        "health_final": inst["health"],
+        "hist_count": inst["hist_count"],
+        "loop_hist_count": inst["loop_hist_count"],
+        "scraped_counts": [min(counts), max(counts)] if counts else [],
+        "scrapes": len(probe.ms["/metrics"]),
+        "events_tails": events_seen,
+        "metrics_get_ms": {"p50": ms[len(ms) // 2],
+                           "max": ms[-1]} if ms else None,
+        "timelines": [p.name for p in timelines],
+        "trace_kernels": found,
+        "clean_anomalies": inst["anomalies"],
+        "stall_anomalies": [{k: r[k] for k in ("kind", "step", "zscore")}
+                            for r in stall_events],
+        "stall_healthz": health_at.seen,
+    }
+    bad = []
+    if not (out["losses_equal"] and out["params_equal"]):
+        bad.append("the instrumented run's losses or params differ")
+    if dev.type == "cuda":
+        for tag, got in out["launches"].items():
+            if {k: got[k] for k in want} != want or any(
+                    v for k, v in got.items() if k not in want):
+                bad.append(f"{tag} launches {got}, want {want}")
+    if "training" not in mid or inst["health"] != "stopped":
+        bad.append(f"healthz mid-run {sorted(set(mid))}, final "
+                   f"{inst['health']}")
+    if not (inst["hist_count"] == inst["loop_hist_count"] == TEL_STEPS):
+        bad.append(f"step-time histogram count {inst['hist_count']}")
+    if not counts or max(counts) > TEL_STEPS:
+        bad.append(f"scraped train_step_time_ms counts {counts[-3:]}")
+    if not timelines or (dev.type == "cuda" and not all(found.values())):
+        bad.append(f"timeline {out['timelines']}, kernels {found}")
+    if not any(r["kind"] == "step_time" for r in stall_events) or \
+            health_at.seen is None or health_at.seen[0] != 200 or \
+            health_at.seen[1]["state"] != "degraded":
+        bad.append(f"stall: anomalies {out['stall_anomalies']}, healthz "
+                   f"{health_at.seen}")
+    if bad:
+        fail("telemetry vit: " + "; ".join(bad))
+    return out
+
+
+def telemetry(torch, dev, reset_counts, read_counts,
+              vit_overrides: dict | None = None) -> dict:
+    """Phase 12j: the telemetry on the card. (a) `_tel_vit`; (b)
+    `lenet5_mnist --quant=int8` through `cli.serve`'s `telemetry` scope
+    and `serve_classifier` (`TEL_SERVE_REQUESTS` requests), without the
+    exporter and with it, a thread probing /metrics and /healthz; (c)
+    decode on the paged int8 cache (`causal_tiny`, 8 slots) with the
+    journal of `cli.serve --journal`. Every counter is set to 0 just
+    before each run and read just after. `vit_overrides` cuts the ViT for
+    a CPU rehearsal. Fails on any miss; prints and returns the record."""
+    import dataclasses
+
+    from dist_mnist_tpu_torch.cli import serve as serve_cli
+    from dist_mnist_tpu_torch.configs import get_config
+    from dist_mnist_tpu_torch.obs import events as events_mod
+    from dist_mnist_tpu_torch.serve import (
+        DecodeScheduler,
+        build_decode_engine,
+        run_decode_loadgen,
+    )
+
+    t_phase = time.perf_counter()
+    out = {"phase": "telemetry"}
+    work = Path(tempfile.mkdtemp(prefix="telemetry_"))
+    try:
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(
+            get_config("vit_tiny_cifar_flash"), train_steps=TEL_STEPS,
+            batch_size=TEL_BATCH, eval_every=0, log_every=TEL_EVERY,
+            **(vit_overrides or {}))
+        out["vit"] = _tel_vit(torch, dev, reset_counts, read_counts, cfg,
+                              work)
+        out["vit"]["seconds"] = time.perf_counter() - t0
+        # (b) the int8 classifier, without and with the exporter, after a
+        # warm-up run (the process's first served batches pay the kernel
+        # library's load and the library handles)
+        t0 = time.perf_counter()
+        serve = {}
+        for tag in ("warmup", "plain", "exporter"):
+            port = _free_port() if tag == "exporter" else 0
+            jpath = work / f"serve_{tag}.jsonl"
+            args = serve_cli.build_parser().parse_args([
+                "--config=lenet5_mnist", "--quant=int8",
+                f"--requests={TEL_SERVE_REQUESTS}", "--concurrency=32",
+                "--max_batch=32", f"--metrics_port={port}",
+                f"--logdir={work / ('serve_' + tag)}",
+                f"--journal={jpath}"])
+            base = f"http://127.0.0.1:{port}"
+            at_start = []
+
+            def loadgen(server, **kw):
+                # the server is up: /healthz at the start of the traffic
+                if port:
+                    code, body, _ = _http_get(base + "/healthz")
+                    at_start.append((code, json.loads(body)["state"]))
+                return serve_cli.run_loadgen(server, image_shape=(28, 28, 1),
+                                             **kw)
+
+            reset_counts()
+            with serve_cli.telemetry(args) as (registry, health):
+                with _Prober(base, ("/healthz", "/metrics")) \
+                        if port else contextlib.nullcontext() as probe:
+                    summary = serve_cli.serve_classifier(
+                        args, dev, registry=registry, health=health,
+                        loadgen=loadgen)
+                if port:
+                    after = _http_get(base + "/healthz")
+                    final_metrics = _http_get(base + "/metrics")[1]
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            launches = read_counts()
+            batches = sum(summary["cells"].values())
+            names = [r["event"] for r in events_mod.read_journal(jpath)]
+            row = {"p99_ms": summary["p99_ms"], "p50_ms": summary["p50_ms"],
+                   "ok": summary["ok"], "batches": batches,
+                   "quant_matmul": launches["quant_matmul"],
+                   "serve_start": names.count("serve_start"),
+                   "serve_stop": names.count("serve_stop")}
+            if probe is not None:
+                mid = [json.loads(b)["state"] for c, b in probe.seen[
+                    "/healthz"] if c == 200]
+                row.update(
+                    healthz_at_traffic=at_start,
+                    healthz_mid_run=sorted(set(mid)),
+                    healthz_after=[after[0], json.loads(after[1])["state"]],
+                    metrics_families=sorted(
+                        {ln.split()[2] for ln in final_metrics.splitlines()
+                         if ln.startswith("# TYPE serve_")}),
+                    metrics_get_ms_p50=sorted(probe.ms["/metrics"])[
+                        len(probe.ms["/metrics"]) // 2])
+            serve[tag] = row
+        out["serve"] = serve
+        out["serve"]["seconds"] = time.perf_counter() - t0
+        bad = []
+        exp = serve["exporter"]
+        want_hists = {"serve_latency_ms", "serve_batch_size",
+                      "serve_batch_occupancy", "serve_quant_error"}
+        if not want_hists <= set(exp["metrics_families"]):
+            bad.append(f"/metrics families {exp['metrics_families']}")
+        if exp["healthz_at_traffic"] != [(200, "serving")] or \
+                exp["healthz_after"] != [503, "stopped"]:
+            bad.append(f"healthz {exp['healthz_at_traffic']} then "
+                       f"{exp['healthz_after']}")
+        for tag, row in serve.items():
+            if not isinstance(row, dict):
+                continue
+            if row["ok"] != TEL_SERVE_REQUESTS or row["serve_start"] != 1 \
+                    or row["serve_stop"] != 1:
+                bad.append(f"{tag}: ok {row['ok']}, serve_start/stop "
+                           f"{row['serve_start']}/{row['serve_stop']}")
+            if dev.type == "cuda" and row["quant_matmul"] != \
+                    2 * row["batches"]:
+                bad.append(f"{tag}: {row['quant_matmul']} quant_matmul "
+                           f"launches for {row['batches']} batches")
+        if bad:
+            fail("telemetry serve: " + "; ".join(bad))
+        # (c) decode on the paged int8 cache, journaled
+        t0 = time.perf_counter()
+        jpath = work / "decode.jsonl"
+        args = serve_cli.build_parser().parse_args([
+            "--decode", f"--journal={jpath}"])
+        reset_counts()
+        with serve_cli.telemetry(args):
+            engine = build_decode_engine(dev, max_slots=8,
+                                         cache_layout="paged",
+                                         kv_quant="int8")
+            engine.prewarm()
+            with DecodeScheduler(engine) as sched:
+                dsum = run_decode_loadgen(sched,
+                                          n_requests=TEL_DECODE_REQUESTS,
+                                          concurrency=8, seed=0)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        launches = read_counts()
+        recs = events_mod.read_journal(jpath)
+
+        def total(name, field):
+            return sum(r[field] for r in recs if r["event"] == name)
+
+        depth = engine.model.depth
+        out["decode"] = {
+            "ok": dsum["ok"], "decode_steps": engine.decode_steps,
+            "paged_attention": launches["paged_attention"], "depth": depth,
+            "decode_admit": sum(r["event"] == "decode_admit" for r in recs),
+            "pages_alloc": total("kv_page_alloc", "pages"),
+            "pages_reclaim": total("kv_page_reclaim", "pages"),
+            "events": sorted({r["event"] for r in recs}),
+            "seconds": time.perf_counter() - t0}
+        d = out["decode"]
+        if d["decode_admit"] != TEL_DECODE_REQUESTS or d["pages_alloc"] != \
+                d["pages_reclaim"] or not d["pages_alloc"] or \
+                (dev.type == "cuda" and d["paged_attention"]
+                 != depth * d["decode_steps"]):
+            fail(f"telemetry decode: {d}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(json.dumps(out), flush=True)
     return out
 
 
@@ -6065,7 +6541,10 @@ def main() -> None:
     res = resilience(torch, dev, reset_counts, read_counts)
     # -- 12i. overlap and the compile cache: the bucketed FSDP schedule,
     # the kernel-library store, the attribution benches ----------------------
-    ovs = overlap_startup(torch, dev, dp["resnet20_fsdp_ranks"])
+    ovs = overlap_startup(torch, dev)
+    # -- 12j. telemetry: the instrumented ViT run, the served classifier's
+    # and the decode path's exposition and journals ------------------------
+    tel = telemetry(torch, dev, reset_counts, read_counts)
 
     # -- 13. timing at the paths' shapes -------------------------------------
     timed = {}
@@ -6293,6 +6772,13 @@ def main() -> None:
     flash_rows[1]["launches_resilience"] = (
         res_launches["flash_attention_dq"]
         + res_launches["flash_attention_dkv"])
+    # the telemetry phase's instrumented ViT run, its served classifier
+    # (with the exporter) and its decode run
+    tel_vit = tel["vit"]["launches"]["instrumented"]
+    flash_rows[0]["launches_telemetry"] = tel_vit["flash_attention_forward"]
+    flash_rows[1]["launches_telemetry"] = (tel_vit["flash_attention_dq"]
+                                           + tel_vit["flash_attention_dkv"])
+    decode_rows[0]["launches_telemetry"] = tel["decode"]["paged_attention"]
     flash_rows[2]["path"] = ("none: no training path takes a token mask; "
                              "held against its plain version in "
                              "flash_parity")
@@ -6318,6 +6804,7 @@ def main() -> None:
         "f32_launches_mlp_serve": mlp["quant_matmul_f32_launches"],
         "f32_launches_serve_quant":
             serve_counts["serve_quant"]["quant_matmul"],
+        "launches_telemetry": tel["serve"]["exporter"]["quant_matmul"],
         **{f"f32_{key}_m{m}": row[key] for m, row in mlp_hid.items()
            for key in ("kernel_ms", "plain_ms", "library_ms", "bound_ms")},
     }, *adam_rows, *decode_rows, masked_sq_row, *flash_rows], "gpu": gpu}),

@@ -48,10 +48,13 @@ and decode serving (`run_serve_decode`) print their JSON lines; see
 their docstrings. So do the resilience modes (`run_faults`, `run_ckpt`,
 `run_faults_elastic`): the reference's geometry (the MLP, Adam 1e-3,
 60 steps, checkpoints every 10; two ranks of `mlp_mnist` at batch 64
-under the supervisors), its headline metric and its gates; what the
-reference's also run of its telemetry (the anomaly hook, the `/metrics`
-exporter, the fleet scraper, the fleet trace) is ROADMAP §1 item 14, and
-each record says so in its `observability` field. A failed hard gate prints an `error` line and exits 1.
+under the supervisors), its headline metric and its gates, with the
+telemetry the reference's run beside them: `--faults` trains its fault
+run under the journal, the anomaly hook and a live fleet of one (its
+record's ``fleet``), and `--faults --elastic` gives the elastic side's
+children `/metrics` and span records, the supervisor its fleet scraper,
+and merges the journal into a fleet trace (its record's
+``fleet_trace``). A failed hard gate prints an `error` line and exits 1.
 Without a CUDA device and without ``--device=cpu`` every mode exits 1.
 
 The attribution modes keep the reference's metric names, geometry and
@@ -824,9 +827,6 @@ ELASTIC_STEPS = 60
 ELASTIC_KILL_STEP = 35
 ELASTIC_BATCH = 64
 ELASTIC_PROCS = 2
-#: what the reference's resilience benches also run (the AnomalyHook, the
-#: /metrics exporter, the FleetScraper, fleet_trace) joins the port with
-OBSERVABILITY = "ROADMAP §1 item 14"
 
 
 class ResilienceGateError(RuntimeError):
@@ -875,12 +875,17 @@ def faults_run(device: torch.device, dataset: Dataset, state0: TrainState, *,
                n_steps: int = FAULTS_STEPS, batch: int = FAULTS_BATCH,
                ckpt_every: int = FAULTS_CKPT_EVERY, plan=None,
                ckpt_dir: str | None = None, async_save: bool = False,
-               journal: str | None = None) -> dict:
+               journal: str | None = None,
+               instrumented: bool = False) -> dict:
     """One short MLP training run from a fork of `state0` (so every run
     starts from the same bits) through the loop and its hooks, optionally
     under a fault plan and with cadence checkpoints (blocking, or through
-    the `AsyncSnapshotter`), with a run journal at `journal`. Returns the
-    trajectory, the loop and the write-behind counters."""
+    the `AsyncSnapshotter`), with a run journal at `journal`.
+    `instrumented` adds the observability stack: `AnomalyHook(every_steps
+    =10)` and a live fleet of one, an exporter serving the loop's
+    step-time histogram that a `FleetScraper(interval_s=0.05)` polls while
+    the run trains. Returns the trajectory, the loop, the write-behind
+    counters and the scrape stats (``obs``, None uninstrumented)."""
     from dist_mnist_tpu_torch import hooks as hooks_lib
     from dist_mnist_tpu_torch.checkpoint import (
         AsyncSnapshotter,
@@ -895,6 +900,12 @@ def faults_run(device: torch.device, dataset: Dataset, state0: TrainState, *,
     model, optimizer = get_model("mlp"), optim.adam(1e-3)
     traj = LossTrajectory()
     hooks = [hooks_lib.StopAtStepHook(last_step=n_steps), traj]
+    anomaly = None
+    if instrumented:
+        from dist_mnist_tpu_torch.obs.anomaly import AnomalyHook
+
+        anomaly = AnomalyHook(every_steps=10)
+        hooks.append(anomaly)
     manager = None
     if ckpt_dir:
         manager = CheckpointManager(ckpt_dir, async_save=False,
@@ -914,6 +925,23 @@ def faults_run(device: torch.device, dataset: Dataset, state0: TrainState, *,
     loop = TrainLoop(make_train_step(model, optimizer), fork_state(state0),
                      batches, hooks, checkpoint_manager=manager,
                      max_recoveries=3)
+    exporter = scraper = obs = None
+    if instrumented:
+        # a fleet of one scraping the live run: the exporter serves the
+        # loop's step-time histogram and the scraper polls it while the
+        # loop trains — the supervisor's fleet path, pointed at one host
+        from dist_mnist_tpu_torch.obs import MetricRegistry, MetricsExporter
+        from dist_mnist_tpu_torch.obs.fleet import FleetScraper
+
+        registry = MetricRegistry()
+        registry.attach_histogram("train/step_time_ms", loop.step_time_hist)
+        exporter = MetricsExporter(
+            registry, port=0,
+            info={"host_id": "0", "generation": "0", "role": "train"},
+        ).start()
+        scraper = FleetScraper(interval_s=0.05)
+        scraper.set_targets({0: exporter.url("")})
+        scraper.start()
     prev = (events_mod.set_journal(events_mod.RunJournal(journal))
             if journal else None)
     try:
@@ -921,13 +949,23 @@ def faults_run(device: torch.device, dataset: Dataset, state0: TrainState, *,
     finally:
         if journal:
             events_mod.set_journal(prev).close()
+        if scraper is not None:
+            scraper.scrape_once()  # a final deterministic pass
+            snap = scraper.snapshot()
+            obs = {"scrapes": snap["scrapes"],
+                   "scrape_errors": snap["scrape_errors"],
+                   "host_reachable": snap["hosts"][0]["reachable"],
+                   "anomalies": len(anomaly.anomalies)}
+            scraper.close()
+        if exporter is not None:
+            exporter.close()
     writer = None
     if manager is not None:
         if async_save:
             writer = {"dropped": manager.dropped,
                       "write_behind_stall_s": manager.consume_save_stall_s()}
         manager.close()
-    return {"loss": traj.loss, "loop": loop, "writer": writer}
+    return {"loss": traj.loss, "loop": loop, "writer": writer, "obs": obs}
 
 
 def run_faults(device: torch.device, *, dataset: Dataset | None = None,
@@ -943,7 +981,14 @@ def run_faults(device: torch.device, *, dataset: Dataset | None = None,
     faults/goodput.py). Gates (the reference's): the recovered loss
     trajectory equals the clean one bit for bit, every fault fired, and
     the journal's restores equal the loop's recoveries. `async_save` runs
-    the fault run's checkpoints through the `AsyncSnapshotter`."""
+    the fault run's checkpoints through the `AsyncSnapshotter`.
+
+    The FAULT run also carries the whole observability stack — the
+    journal, `AnomalyHook` and a live fleet of one (`faults_run(
+    instrumented=True)`) — while the clean run has none, so the bitwise
+    trajectory gate doubles as the proof that observability does not
+    perturb the math; a further gate holds that the scraper reached the
+    live exporter, and the scrape stats ride along as ``fleet``."""
     import tempfile
 
     from dist_mnist_tpu_torch.faults.plan import Fault, FaultPlan
@@ -961,13 +1006,18 @@ def run_faults(device: torch.device, *, dataset: Dataset | None = None,
         journal_path = f"{root}/journal.jsonl"
         fault = faults_run(device, dataset, state0, plan=plan,
                            ckpt_dir=f"{root}/ckpt", async_save=async_save,
-                           journal=journal_path, **geom)
+                           journal=journal_path, instrumented=True, **geom)
         journal = events_mod.read_journal(journal_path)
     identical = same_trajectory(clean["loss"], fault["loss"])
     _gate(identical, "recovered loss trajectory diverged from the "
-                     "fault-free run")
+                     "fault-free run (the fault run carried the whole obs "
+                     "stack — journal, AnomalyHook, live fleet scraper: "
+                     "observability must not perturb the math)")
     _gate(all(f.fired for f in plan.faults),
           f"planned faults did not all fire: {plan.to_json()}")
+    obs = fault["obs"]
+    _gate(obs is not None and obs["host_reachable"] and obs["scrapes"] >= 1,
+          f"fleet-of-one scraper never reached the live exporter: {obs}")
     loop = fault["loop"]
     snap = loop.goodput.snapshot()
     journal_events = [r.get("event") for r in journal]
@@ -1003,7 +1053,8 @@ def run_faults(device: torch.device, *, dataset: Dataset | None = None,
             "step_time_ms": loop.step_time_hist.percentiles(),
             "journal_events": journal_events,
             "journal_restores": journal_restores,
-            "observability": OBSERVABILITY,
+            # fleet-of-one scrape stats (obs/fleet.py polled the live run)
+            "fleet": obs,
         },
     }
 
@@ -1030,12 +1081,18 @@ def start_supervised(root: str, tag: str, data_dir: str, platform, *,
                      n_steps: int = ELASTIC_STEPS,
                      batch: int = ELASTIC_BATCH,
                      ckpt_every: int = FAULTS_CKPT_EVERY,
-                     procs: int = ELASTIC_PROCS) -> Supervised:
+                     procs: int = ELASTIC_PROCS, fleet_obs: bool = False
+                     ) -> Supervised:
     """Start one supervised `mlp_mnist` run of `procs` ranks through the
     launcher's entry point (``python -m dist_mnist_tpu_torch.cli.launch
     --max_restarts=procs-1 [--elastic] --fault_plan=...``), its output in
     ``<root>/<tag>.log`` and its journal ``<root>/journal_<tag>.jsonl``;
-    several may run at once. `finish_supervised` waits for it."""
+    several may run at once. `finish_supervised` waits for it.
+    `fleet_obs` (elastic) runs the fleet observability path: the children
+    serve `/metrics` on a probed block of free ports (``--metrics_port``;
+    a lost race warns in the child and it trains unexposed) and journal
+    span records every `ckpt_every` steps (``--span_steps``), and the
+    supervisor scrapes them (``--supervisor_port=0``)."""
     import subprocess
     import sys
 
@@ -1049,11 +1106,18 @@ def start_supervised(root: str, tag: str, data_dir: str, platform, *,
                   f"--checkpoint_every_steps={ckpt_every}"]
     if peer:
         train_args += ["--async_snapshot", f"--peer_dir={root}/peer_{tag}"]
+    supervisor = []
+    if fleet_obs:
+        base = _free_port_block(procs)
+        if base is not None:
+            train_args.append(f"--metrics_port={base}")
+        train_args.append(f"--span_steps={ckpt_every}")
+        supervisor = ["--supervisor_port=0"]
     cmd = [sys.executable, "-m", "dist_mnist_tpu_torch.cli.launch",
            f"--num_processes={procs}", f"--max_restarts={procs - 1}",
            "--restart_backoff_s=1.0", "--min_processes=1",
            f"--journal={journal}", f"--fault_plan={plan.to_json()}",
-           *(["--elastic"] if elastic else []),
+           *(["--elastic"] if elastic else []), *supervisor,
            *([f"--platform={platform}"] if platform else []),
            "--", *train_args]
     log_path = f"{root}/{tag}.log"
@@ -1061,6 +1125,60 @@ def start_supervised(root: str, tag: str, data_dir: str, platform, *,
         proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
                                 env=_child_env())
     return Supervised(tag, proc, log_path, journal, time.monotonic())
+
+
+def _free_port_block(n: int) -> int | None:
+    """A base port with `n` consecutive free ports (the children bind
+    ``--metrics_port`` base + rank). Best effort: probed, then released,
+    so a race is possible — a child that loses it warns and trains on
+    unexposed."""
+    import socket
+
+    for _ in range(20):
+        with socket.socket() as probe:
+            probe.bind(("127.0.0.1", 0))
+            base = probe.getsockname()[1]
+        if base + n >= 65535:
+            continue
+        held = []
+        try:
+            for i in range(n):
+                s = socket.socket()
+                held.append(s)
+                s.bind(("127.0.0.1", base + i))
+            return base
+        except OSError:
+            continue
+        finally:
+            for s in held:
+                s.close()
+    return None
+
+
+def fleet_trace_stats(journal: str) -> dict:
+    """Merge a supervised run's host-stamped journal into one chrome trace
+    (`scripts/fleet_trace.build_fleet_trace`, the standard library only)
+    and count what the gates read: events, host tracks (pid >= 1), the
+    generations that hold span records, resize markers."""
+    import sys
+    from pathlib import Path
+
+    scripts = str(Path(__file__).resolve().parents[1] / "scripts")
+    sys.path.insert(0, scripts)
+    try:
+        from fleet_trace import build_fleet_trace
+    finally:
+        sys.path.remove(scripts)
+    trace = build_fleet_trace(journal)["traceEvents"]
+    return {
+        "events": len(trace),
+        "host_tracks": len({ev["pid"] for ev in trace
+                            if ev.get("ph") != "M" and ev.get("pid", 0) >= 1}),
+        "span_generations": sorted({ev.get("tid") for ev in trace
+                                    if ev.get("cat") == "span"}),
+        "resize_markers": sum(ev.get("name") == "generation_resize"
+                              for ev in trace),
+    }
 
 
 def finish_supervised(run: Supervised, timeout: float = 900.0) -> dict:
@@ -1086,7 +1204,8 @@ def finish_supervised(run: Supervised, timeout: float = 900.0) -> dict:
     records = events_mod.read_journal(run.journal)
     summary = elastic_summary(records)
     summary.update(records=records, wall_s=wall,
-                   journal_events=[r.get("event") for r in records])
+                   journal_events=[r.get("event") for r in records],
+                   journal_path=run.journal)
     return summary
 
 
@@ -1251,7 +1370,6 @@ def run_ckpt(device: torch.device, *, dataset: Dataset | None = None,
                     pr["goodput_fraction"] / st["goodput_fraction"]
                     if st["goodput_fraction"] > 0 else 0.0),
             },
-            "observability": OBSERVABILITY,
         },
     }
 
@@ -1271,7 +1389,16 @@ def run_faults_elastic(device: torch.device, *, data_dir: str | None = None,
     `elastic_goodput_fraction`; vs_baseline is elastic/restart. Gates
     (the reference's): both finish every step, the elastic journal shows
     one shrink and no restart, the baseline a restart and no resize, and
-    the elastic fraction is above the restart one."""
+    the elastic fraction is above the restart one.
+
+    The elastic side also runs the fleet observability path
+    (`start_supervised(fleet_obs=True)`: the children's `/metrics` and
+    span records, the supervisor's fleet scraper), and its journal is
+    merged into a chrome trace (`fleet_trace_stats`), gated as the
+    reference's: a track per host (>= procs), the shrink's resize marker,
+    and span records in two generations or more, i.e. correlated step
+    tracing survives the resize. The trace's counts ride along as
+    ``fleet_trace``."""
     import tempfile
 
     from dist_mnist_tpu_torch.faults.plan import Fault, FaultPlan
@@ -1285,9 +1412,10 @@ def run_faults_elastic(device: torch.device, *, data_dir: str | None = None,
                   ckpt_every=ckpt_every, procs=procs)
     with tempfile.TemporaryDirectory(prefix="bench_elastic_") as root:
         el = supervised_mlp(root, "elastic", children_data, platform,
-                            elastic=True, **common)
+                            elastic=True, fleet_obs=True, **common)
         rs = supervised_mlp(root, "restart", children_data, platform,
                             elastic=False, **common)
+        trace = fleet_trace_stats(el["journal_path"])
     _gate(any(r["kind"] == "shrink" and r["old_world"] == procs
               and r["new_world"] == procs - 1 for r in el["resizes"]),
           f"elastic run never shrank {procs} -> {procs - 1}: "
@@ -1303,6 +1431,15 @@ def run_faults_elastic(device: torch.device, *, data_dir: str | None = None,
     el_frac, rs_frac = el["goodput_fraction"], rs["goodput_fraction"]
     _gate(el_frac > rs_frac, f"elastic goodput {el_frac:.4f} did not beat "
                              f"the restart baseline {rs_frac:.4f}")
+    # correlated step tracing must survive the resize
+    _gate(trace["host_tracks"] >= procs,
+          f"fleet trace holds {trace['host_tracks']} host tracks, wanted "
+          f">= {procs}")
+    _gate(trace["resize_markers"] >= 1,
+          "no resize marker in the merged fleet trace")
+    _gate(len(trace["span_generations"]) >= 2,
+          f"span records did not straddle the resize: generations "
+          f"{trace['span_generations']}")
     return {
         "metric": metric,
         "value": el_frac,
@@ -1323,7 +1460,8 @@ def run_faults_elastic(device: torch.device, *, data_dir: str | None = None,
             "recovery_speedup": (
                 rs["recovery_latency_s"] / el["recovery_latency_s"]
                 if el["recovery_latency_s"] > 0 else 0.0),
-            "observability": OBSERVABILITY,
+            # the merged chrome trace of the elastic run
+            "fleet_trace": trace,
         },
     }
 

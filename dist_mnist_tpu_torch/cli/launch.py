@@ -19,8 +19,12 @@ the world size; streams their interleaved output with a ``[pK]`` prefix
 through pump threads named ``LaunchPump-pK``; and on the first abnormal
 exit kills the survivors (a dead peer would park them in a collective)
 and returns that child's exit status, a signal death normalized to
-128+N. `--platform=cpu` runs every rank on the CPU over gloo; otherwise
-the children take the cards (`cluster/coordination.py`). A fixed
+128+N. `--platform=cpu` runs every rank on the CPU over gloo, each with
+one intra-op thread (``OMP_NUM_THREADS=1`` unless the environment sets
+it, as torchrun does: N ranks with a pool of every core each would
+oversubscribe the host, and under load every op's parallel region then
+waits on descheduled threads); otherwise the children take the cards
+(`cluster/coordination.py`). A fixed
 ``--mesh=data=D,model=M,seq=S,pipe=P`` among the train flags must name as
 many ranks as `--num_processes`.
 
@@ -44,6 +48,22 @@ thread drains the generation with SIGTERM (the children checkpoint at a
 step boundary and exit 0) and the mesh grows back. Every shrink or grow
 is a ``generation_resize`` event.
 
+Every rank of a module launch starts as a stand-by process
+(`cli/standby.py`, ``python -m dist_mnist_tpu_torch.cli.standby
+<module>``) that imports the rank module and then reads its arguments
+and environment on stdin; a rank of generation 0 or of an unsupervised
+launch is handed them at once. A supervised run also starts each next
+generation's ranks ahead (generation 0's at once, a re-formed
+generation's once it has taken its first step: they do not import
+inside its recovery window), so a re-formed generation starts at `main`
+and does not pay the interpreter's and torch's import inside the
+recovery window: the rank's startup clock counts from the hand-off, and
+the import it paid before that is the startup record's
+``standby_import_ms``. A drained
+generation whose every rank has already trained its last step (its
+``run_stop`` in the journal, not preempted) ends the run: it is not
+grown. Unused stand-bys are killed at the end.
+
 `--compile_cache_dir=DIR` goes on to every child of every generation,
 elastic ones included, so a restarted child loads the kernel libraries
 its predecessor built (`compilecache/store.py`).
@@ -57,13 +77,25 @@ supervisor's own, ``dist_mnist_torch_supervisor_*`` under
 temp compile cache (the reference's ``dist_mnist_warmstart_*``): without
 `--compile_cache_dir` the checkout's `build/` already outlives every
 generation, warm, and a fresh temp dir would make generation 0 rebuild
-every kernel. `--supervisor_port` (the supervisor's `/healthz`,
-`obs/exporter.HealthState`) joins with ROADMAP §1 item 14.
+every kernel.
+
+`--supervisor_port=P` (with `--elastic`; 0 = a free port) serves the
+SUPERVISOR's own `/healthz`, `/metrics` and `/events`
+(`obs/exporter.py`): its `HealthState` reads ``training`` while a
+generation runs, ``resizing`` (503) during a re-formation, and
+``stopped``/``failed`` at the end. Where the forwarded train args carry
+``--metrics_port=B`` (rank i of a generation then serves its own
+endpoint on B + i), a `FleetScraper` (`obs/fleet.py`) polls every
+child, re-targeted at each generation start so the view follows the
+resizes: merged ``fleet_*`` histograms and ``fleet/*`` gauges
+(straggler detection included) join the supervisor's `/metrics`, and
+`/fleet` serves the per-host JSON view.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import signal
 import socket
@@ -73,8 +105,6 @@ import tempfile
 import threading
 import time
 from pathlib import Path
-
-_TELEMETRY = "ROADMAP §1 item 14 (telemetry: the supervisor's /healthz)"
 
 #: the temp dir a supervised run without --journal keeps its journal in
 SUPERVISOR_DIR_PREFIX = "dist_mnist_torch_supervisor_"
@@ -162,6 +192,91 @@ def _child_env() -> dict:
     return env
 
 
+def _base_env(platform: str | None) -> dict:
+    """Every rank's environment before its generation's variables."""
+    env = _child_env()
+    if platform == "cpu":
+        # one intra-op thread a rank (torchrun's default; module docstring)
+        env.setdefault("OMP_NUM_THREADS", "1")
+    return env
+
+
+def _spawn_standbys(n: int, module: str,
+                    platform: str | None) -> list[subprocess.Popen]:
+    """`n` stand-by ranks of `module` (`cli/standby.py`), importing."""
+    procs = []
+    for _ in range(n):
+        p = subprocess.Popen(
+            [sys.executable, "-m", "dist_mnist_tpu_torch.cli.standby",
+             module], env=_base_env(platform), stdin=subprocess.PIPE,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        procs.append(p)
+        _LIVE_CHILDREN.append(p)
+    return procs
+
+
+def _start_standby(p: subprocess.Popen, argv: list[str],
+                   env: dict) -> bool:
+    """Hand a stand-by its rank's arguments and environment, stamped with
+    the wall time of the hand-off; False when it is gone (the caller
+    spawns the rank afresh)."""
+    if p.poll() is not None:
+        return False
+    msg = {"argv": argv, "env": env, "sent": time.time()}
+    try:
+        p.stdin.write((json.dumps(msg) + "\n").encode())
+        p.stdin.close()
+    except OSError:
+        return False
+    return True
+
+
+def _retire(procs: list[subprocess.Popen]) -> None:
+    """Kill and reap processes of this launch, and drop them from
+    `_LIVE_CHILDREN`."""
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+    for p in procs:
+        p.wait()
+        for pipe in (p.stdin, p.stdout):
+            if pipe is not None and not pipe.closed:
+                try:
+                    pipe.close()
+                except OSError:
+                    pass
+        if p in _LIVE_CHILDREN:
+            _LIVE_CHILDREN.remove(p)
+
+
+class _FirstStepWatch:
+    """Tail a run journal for generation `gen`'s ``first_step`` record."""
+
+    def __init__(self, path: str, gen: int):
+        self._path, self._gen, self._pos = path, gen, 0
+
+    def seen(self) -> bool:
+        try:
+            with open(self._path, "rb") as fh:
+                fh.seek(self._pos)
+                chunk = fh.read()
+        except OSError:
+            return False
+        end = chunk.rfind(b"\n") + 1  # whole lines only
+        self._pos += end
+        for line in chunk[:end].splitlines():
+            if b'"first_step"' not in line:
+                continue
+            try:
+                rec = json.loads(line)
+            except ValueError:
+                continue
+            if rec.get("event") == "first_step" and \
+                    rec.get("gen") == self._gen:
+                return True
+        return False
+
+
 def _launch_once(
     num_processes: int,
     train_args: list[str],
@@ -176,6 +291,9 @@ def _launch_once(
     generation: int = 0,
     hosts: list[int] | None = None,
     grow_after_s: float | None = None,
+    standbys: list[subprocess.Popen] | None = None,
+    prepare_next=None,
+    prepare_at_first_step: bool = False,
 ) -> tuple[int, str | None, int | None, bool]:
     """Spawn ONE cluster generation and wait it out.
 
@@ -191,8 +309,14 @@ def _launch_once(
     (host id, delay seconds) SIGKILLs that child `delay` seconds after
     spawn (faults/plan.py kill_process). `grow_after_s` arms the elastic
     regrow drain: after that many seconds every child gets SIGTERM.
-    `child_command` replaces the ``python -m <module>`` prefix (the
-    supervisor tests' stub children)."""
+    `child_command` replaces the stand-by start with a plain ``<command>
+    <argv>`` (the supervisor tests' stub children). `standbys`
+    (`_spawn_standbys`, spawned ahead) are started as the generation's
+    ranks in order, a rank without a live one started through a fresh
+    stand-by; `prepare_next()` is called once every rank exists, or with
+    `prepare_at_first_step` once `journal` holds this generation's
+    ``first_step`` (the supervisor spawns the next generation's stand-bys
+    there)."""
     from dist_mnist_tpu_torch.cluster.membership import ENV_HOST_ID
 
     if hosts is None:
@@ -201,10 +325,7 @@ def _launch_once(
     probe, lock = None, None
     if not port:
         port, probe, lock = _reserve_port()
-    env = _child_env()
-    if env_extra:
-        env.update(env_extra)
-    prefix = child_command or [sys.executable, "-m", module]
+    standbys = list(standbys or [])
     procs: list[subprocess.Popen] = []
     pumps: list[threading.Thread] = []
     timers: list[threading.Thread] = []
@@ -213,17 +334,28 @@ def _launch_once(
     rc, failure, first_dead = 0, None, None
     try:
         for i in range(num_processes):
-            cmd = [*prefix,
-                   f"--coordinator_address=localhost:{port}",
-                   f"--num_processes={num_processes}",
-                   f"--process_id={i}",
-                   *([f"--platform={platform}"] if platform else []),
-                   *train_args]
-            p = subprocess.Popen(cmd, env={**env, ENV_HOST_ID: str(hosts[i])},
-                                 stdout=subprocess.PIPE,
-                                 stderr=subprocess.STDOUT)
+            argv = [f"--coordinator_address=localhost:{port}",
+                    f"--num_processes={num_processes}",
+                    f"--process_id={i}",
+                    *([f"--platform={platform}"] if platform else []),
+                    *train_args]
+            rank_env = {**(env_extra or {}), ENV_HOST_ID: str(hosts[i])}
+            if child_command is not None:
+                p = subprocess.Popen([*child_command, *argv],
+                                     env={**_base_env(platform), **rank_env},
+                                     stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT)
+                _LIVE_CHILDREN.append(p)
+            else:
+                p = standbys.pop(0) if standbys else None
+                if p is None or not _start_standby(p, argv, rank_env):
+                    if p is not None:
+                        _retire([p])
+                    (p,) = _spawn_standbys(1, module, platform)
+                    # a fresh stand-by that dies at once shows as this
+                    # rank's death below
+                    _start_standby(p, argv, rank_env)
             procs.append(p)
-            _LIVE_CHILDREN.append(p)
             t = threading.Thread(target=_pump, args=(p, f"p{hosts[i]}"),
                                  name=f"LaunchPump-p{hosts[i]}", daemon=True)
             t.start()
@@ -275,8 +407,18 @@ def _launch_once(
         if probe is not None:
             probe.close()
             probe = None
+        _retire(standbys)  # more stand-bys than ranks (a shrink)
+        watch = None
+        if prepare_next is not None:
+            if prepare_at_first_step and journal is not None:
+                watch = _FirstStepWatch(journal.path, generation)
+            else:
+                prepare_next()
         alive = set(range(num_processes))
         while alive:
+            if watch is not None and watch.seen():
+                prepare_next()
+                watch = None
             dead = []
             for i in sorted(alive):
                 code = procs[i].poll()
@@ -329,12 +471,41 @@ def _launch_once(
             p.wait()
             if p in _LIVE_CHILDREN:
                 _LIVE_CHILDREN.remove(p)
+        _retire(standbys)
         if lock is not None:
             try:
                 lock.unlink()
             except OSError:
                 pass
     return rc, failure, first_dead, grew.is_set()
+
+
+def _generation_finished(journal: str | None, gen: int,
+                         world: int) -> bool:
+    """Whether every rank of generation `gen` journaled a ``run_stop``
+    that is ok and not preempted: the ranks trained the last step (a
+    drained rank's ``run_stop`` carries its ``preempted_at``)."""
+    from dist_mnist_tpu_torch.obs.events import read_journal
+
+    if not journal:
+        return False
+    stops = [r for r in read_journal(journal)
+             if r.get("event") == "run_stop" and r.get("gen") == gen]
+    return len(stops) == world and all(
+        r.get("ok") and r.get("preempted_at") is None for r in stops)
+
+
+def _metrics_port_base(train_args: list[str]) -> int | None:
+    """The children's ``--metrics_port`` base from forwarded train args
+    (rank i then listens on base + i — cli/train.py main), or None when
+    the run exposes no per-process metrics. The last one wins, as in the
+    child's parse."""
+    value = _flag_value(train_args, "metrics_port")
+    try:
+        base = int(value) if value is not None else None
+    except ValueError:
+        return None
+    return base if base else None
 
 
 def launch(num_processes: int, train_args: list[str], *, port: int = 0,
@@ -347,7 +518,9 @@ def launch(num_processes: int, train_args: list[str], *, port: int = 0,
            journal: str | None = None, elastic: bool = False,
            min_processes: int = 1, regrow_after_s: float = 0.0,
            host_kill: tuple[int, float | None] | None = None,
-           compile_cache_dir: str | None = None) -> int:
+           compile_cache_dir: str | None = None, health=None,
+           supervisor_port: int | None = None,
+           fleet_interval_s: float = 1.0) -> int:
     """Spawn the cluster of `module` ranks and wait it out; returns 0 or
     the first abnormal death's normalized exit status. Importable: tests
     call it.
@@ -365,7 +538,11 @@ def launch(num_processes: int, train_args: list[str], *, port: int = 0,
     any other death). A shrink consumes one of `max_restarts`; a grow
     none. `compile_cache_dir` is forwarded to every child of every
     generation (unless `train_args` already name one); without it
-    nothing is injected."""
+    nothing is injected. Under `elastic`, `supervisor_port` (0 = a free
+    port) serves the supervisor's `health` (an `obs.HealthState`, by
+    default one made here) and, with ``--metrics_port`` among the train
+    args, a `FleetScraper` polling every child each `fleet_interval_s`
+    (module docstring)."""
     import random
     import shutil
 
@@ -399,13 +576,48 @@ def launch(num_processes: int, train_args: list[str], *, port: int = 0,
         jrnl.emit("supervisor_start", num_processes=num_processes,
                   max_restarts=max_restarts, elastic=elastic)
     membership = Membership(num_processes) if elastic else None
+    exporter = scraper = None
+    metrics_base = _metrics_port_base(train_args)
+    if supervisor_port is not None and supervisor_port >= 0 and elastic:
+        from dist_mnist_tpu_torch.obs.exporter import (
+            HealthState,
+            MetricsExporter,
+        )
+
+        if health is None:
+            health = HealthState()
+        if metrics_base:
+            # children expose /metrics on metrics_base + rank: the fleet
+            # scraper merges them and the supervisor endpoint serves the
+            # fleet-wide view (/metrics merged series + /fleet JSON)
+            from dist_mnist_tpu_torch.obs.fleet import FleetScraper
+
+            scraper = FleetScraper(journal=jrnl,
+                                   interval_s=fleet_interval_s).start()
+        exporter = MetricsExporter(
+            registry=scraper.registry if scraper is not None else None,
+            health=health, journal_path=journal, port=supervisor_port,
+            info={"role": "supervisor", "generation": 0},
+            fleet=scraper,
+        ).start()
+        _say(f"[supervisor] health endpoint: {exporter.url('/healthz')}"
+             + (f" (fleet view: {exporter.url('/fleet')})"
+                if scraper is not None else ""))
     rng = random.Random(0)  # deterministic jitter (tests time the backoff)
     attempt = 0  # failure restarts/resizes consumed (bounded)
     gen = 0  # journal generation number (grows advance it too)
+    # the next generation's ranks, importing while this one runs
+    spares: list[subprocess.Popen] = []
+
+    def prepare_next() -> None:
+        if max_restarts > 0 and child_command is None:
+            spares.extend(_spawn_standbys(num_processes, module, platform))
 
     def _stop(rc: int) -> int:
         if jrnl is not None:
             jrnl.emit("supervisor_stop", rc=rc, restarts=attempt)
+        if health is not None:
+            health.set("stopped" if rc == 0 else "failed", f"rc={rc}")
         return rc
 
     try:
@@ -433,17 +645,41 @@ def launch(num_processes: int, train_args: list[str], *, port: int = 0,
             if jrnl is not None:
                 jrnl.emit("generation_start", gen=gen, world=world,
                           hosts=hosts)
+            if health is not None:
+                health.set("training", f"gen={gen} world={world}")
+            if scraper is not None:
+                # rank i listens on metrics_base + i and IS host hosts[i]
+                gen_hosts = hosts if hosts is not None else range(world)
+                scraper.set_targets({
+                    h: f"http://127.0.0.1:{metrics_base + i}"
+                    for i, h in enumerate(gen_hosts)})
+            if exporter is not None and exporter.info is not None:
+                exporter.info["generation"] = gen
+            ready, spares[:] = list(spares), []
             rc, failure, first_dead, grew = _launch_once(
                 world, train_args, port=port, platform=platform,
                 module=module, env_extra=env_gen,
                 kill_spec=kill_spec if gen == 0 else None,
                 child_command=child_command, journal=jrnl, generation=gen,
-                hosts=hosts, grow_after_s=grow_after)
+                hosts=hosts, grow_after_s=grow_after, standbys=ready,
+                prepare_next=prepare_next,
+                # a re-formed generation's restore and first step are the
+                # recovery window: the next stand-bys import after it
+                prepare_at_first_step=gen > 0)
             if jrnl is not None:
                 jrnl.emit("generation_end", gen=gen, rc=rc, failure=failure,
                           first_dead=first_dead)
             if rc == 130 and failure is None:
                 return _stop(rc)  # operator interrupt: never re-formed
+            if grew and membership is not None and \
+                    rc in (0, 128 + signal.SIGTERM) and \
+                    _generation_finished(journal, gen, world):
+                # the drain reached ranks that had already trained the
+                # last step (its SIGTERM may land in a rank's teardown):
+                # the job is done, nothing is left to grow for
+                _say(f"[supervisor] generation {gen} finished the run "
+                     "before its drain; not growing")
+                return _stop(0)
             if grew and membership is not None:
                 # a planned drain to regrow: no failure, no backoff, no
                 # restart budget consumed
@@ -456,6 +692,8 @@ def launch(num_processes: int, train_args: list[str], *, port: int = 0,
                     jrnl.emit("generation_resize", gen=gen, kind="grow",
                               old_world=old_world, new_world=new_world,
                               host=(due[0] if len(due) == 1 else due))
+                if health is not None:
+                    health.set("resizing", f"grow {old_world}->{new_world}")
                 continue
             if rc == 0 or failure is None or max_restarts <= 0:
                 return _stop(rc)
@@ -495,6 +733,9 @@ def launch(num_processes: int, train_args: list[str], *, port: int = 0,
                               old_world=old_world, new_world=new_world,
                               host=first_dead, recover_after_s=recover,
                               failure=failure)
+                if health is not None:
+                    health.set("resizing",
+                               f"shrink {old_world}->{new_world}")
                 continue
             delay = (restart_backoff_s * (2 ** attempt)
                      * (1.0 + 0.5 * rng.random()))
@@ -507,6 +748,11 @@ def launch(num_processes: int, train_args: list[str], *, port: int = 0,
                           delay_s=round(delay, 3), failure=failure)
             time.sleep(delay)
     finally:
+        _retire(spares)
+        if scraper is not None:
+            scraper.close()
+        if exporter is not None:
+            exporter.close()
         if jrnl is not None:
             jrnl.close()
         if owned_dir is not None:
@@ -552,16 +798,16 @@ def build_parser() -> argparse.ArgumentParser:
     a("--compile_cache_dir", default=None,
       help="the kernel-library store (compilecache/), forwarded to every "
            "child of every generation")
-    # refused
-    a("--supervisor_port", type=int, default=None, help=_TELEMETRY)
+    a("--supervisor_port", type=int, default=None,
+      help="elastic: serve the SUPERVISOR's own /healthz, /metrics and "
+           "/events on this port (0 = a free one); `resizing` (503) during "
+           "a mesh re-formation, and the fleet view (/fleet) when the "
+           "train args carry --metrics_port. Unset = no endpoint")
     return p
 
 
 def _refused(args) -> list[str]:
     out = []
-    if args.supervisor_port is not None:
-        out.append("--supervisor_port (the supervisor's endpoint) joins the "
-                   f"port with {_TELEMETRY}")
     if args.devices_per_process != 1:
         out.append("--devices_per_process: the port runs one device per "
                    "process (a stated departure)")
@@ -636,7 +882,8 @@ def main(argv=None) -> int:
                   kill_spec=kill_spec, journal=args.journal,
                   elastic=args.elastic, min_processes=args.min_processes,
                   regrow_after_s=args.regrow_after_s, host_kill=host_kill,
-                  compile_cache_dir=args.compile_cache_dir)
+                  compile_cache_dir=args.compile_cache_dir,
+                  supervisor_port=args.supervisor_port)
 
 
 if __name__ == "__main__":

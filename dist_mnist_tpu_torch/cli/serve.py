@@ -44,6 +44,18 @@ cells (`serve/engine.InferenceEngine.follow`). Each rank logs its kernel
 launches and the cells it ran, and its resident bytes. `--quant` over
 more than one rank refuses (ROADMAP §1 item 12's rest).
 
+Telemetry (`obs/`): `--metrics_port=P` serves the live serve ladders
+(latency, batch size and occupancy; decode's TTFT, tokens/s and active
+slots) on ``http://127.0.0.1:P/metrics``, the process's `HealthState` on
+``/healthz`` (``serving`` while the server runs, then ``draining`` and
+503 ``stopped``) and the journal's tail on ``/events``; a port already
+taken logs a warning and serving goes on. `--journal` (default
+``$DIST_MNIST_TPU_JOURNAL``, else ``<logdir>/events.jsonl``) records
+``serve_start``/``serve_stop``, the engine's first runs
+(``compile_cache``) and decode's ``decode_*`` and ``kv_page_*`` events;
+`--logdir` gets the final serve metrics (CSV, TensorBoard). Over
+`--mesh`, the chief serves the endpoint.
+
 `--compile_cache_dir=DIR` sends the serving kernels' libraries
 (`quant_matmul`, the flash forwards, `paged_attention`) through the store
 under DIR (`compilecache/store.py`; every spawned rank too), and the
@@ -59,8 +71,10 @@ init seeded from the config.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import logging
+import os
 
 import torch
 
@@ -160,7 +174,66 @@ def build_parser() -> argparse.ArgumentParser:
                    help="store for the built kernel libraries "
                         "(compilecache/): a warm process loads what a cold "
                         "one built")
+    # -- telemetry (obs/)
+    p.add_argument("--logdir", default=None,
+                   help="serve-metrics output directory")
+    p.add_argument("--metrics_port", type=int, default=0,
+                   help="serve /metrics (Prometheus text, incl. the live "
+                        "latency/batch histograms), /healthz (serving -> "
+                        "draining -> stopped) and /events on this port "
+                        "(obs/exporter.py); 0 = off")
+    p.add_argument("--journal", default=None,
+                   help="append-only JSONL run-journal path (obs/events.py); "
+                        "defaults to $DIST_MNIST_TPU_JOURNAL, else "
+                        "<logdir>/events.jsonl when --logdir is set")
     return p
+
+
+@contextlib.contextmanager
+def telemetry(args):
+    """The serving run's telemetry: yields ``(registry, health)``, a
+    `MetricRegistry` and a `HealthState`, with the run journal installed
+    (`--journal`, ``$DIST_MNIST_TPU_JOURNAL`` or ``<logdir>/events.jsonl``)
+    and, on the chief with `--metrics_port`, the exporter serving both
+    (a taken port warns and serving goes on). Both close on exit."""
+    from dist_mnist_tpu_torch.obs import (
+        HealthState,
+        MetricRegistry,
+        MetricsExporter,
+        RunJournal,
+    )
+    from dist_mnist_tpu_torch.obs import events as events_mod
+
+    registry = MetricRegistry()
+    health = HealthState(
+        generation=int(os.environ.get(events_mod.ENV_GENERATION, "0")))
+    journal_path = (args.journal or os.environ.get(events_mod.ENV_JOURNAL)
+                    or (args.logdir and f"{args.logdir}/events.jsonl"))
+    journal = (RunJournal(journal_path, generation=health.generation)
+               if journal_path else None)
+    prev = events_mod.set_journal(journal) if journal is not None else None
+    exporter = None
+    if args.metrics_port and not args.process_id:
+        try:
+            exporter = MetricsExporter(
+                registry, health=health, journal_path=journal_path,
+                port=args.metrics_port,
+                info={"host_id": os.environ.get(events_mod.ENV_HOST_ID, "0"),
+                      "generation": str(health.generation),
+                      "role": "serve"},
+            ).start()
+        except OSError as e:
+            log.warning("metrics exporter: could not bind port %d (%s); "
+                        "continuing without exposition", args.metrics_port,
+                        e)
+    try:
+        yield registry, health
+    finally:
+        if exporter is not None:
+            exporter.close()
+        if journal is not None:
+            events_mod.set_journal(prev)
+            journal.close()
 
 
 def _mesh_axes(args) -> dict:
@@ -210,12 +283,17 @@ def _zoo_spec(axes: dict):
                     model=axes.get("model", 1))
 
 
-def _run_decode(args, device, mesh=None) -> dict | None:
+def _run_decode(args, device, mesh=None, *, registry=None,
+                health=None) -> dict | None:
     """Decode mode: the LM engine and its continuous-batching scheduler,
     every grid cell run once before traffic (`--prewarm`), the seeded
     decode loadgen, the TTFT/throughput summary. On a tensor-parallel
     `mesh` the chief does that and the other ranks follow its engine
-    calls (None there)."""
+    calls (None there). The scheduler's ladders go on `registry`, its
+    final metrics to `--logdir`; `health` reads ``serving`` from the
+    end of the prewarm to the scheduler's close."""
+    from dist_mnist_tpu_torch.obs.writers import make_default_writer
+
     engine = build_decode_engine(device, model_name=args.decode_model,
                                  seed=args.seed, max_slots=args.max_slots,
                                  mesh=mesh)
@@ -227,15 +305,27 @@ def _run_decode(args, device, mesh=None) -> dict | None:
     try:
         if args.prewarm:
             engine.prewarm()
+        writer = make_default_writer(args.logdir, registry=registry)
         scheduler = DecodeScheduler(engine, mode=args.decode_mode,
-                                    max_queue=args.queue_depth)
+                                    max_queue=args.queue_depth,
+                                    writer=writer)
+        if registry is not None:
+            # live TTFT/throughput/occupancy ladders on /metrics
+            scheduler.metrics.attach_to(registry)
+        if health is not None:
+            health.set("serving")
         try:
             summary = run_decode_loadgen(scheduler,
                                          n_requests=args.requests,
                                          concurrency=args.concurrency,
                                          seed=args.seed)
         finally:
+            if health is not None:
+                health.set("draining")
             scheduler.close()
+            writer.close()
+            if health is not None:
+                health.set("stopped")
     finally:
         engine.close()
     summary.pop("token_times", None)
@@ -258,7 +348,7 @@ def _spawn_ranks(argv: list[str], args, ranks: int) -> int:
                   platform="cpu" if args.device == "cpu" else None)
 
 
-def _run_rank(args) -> dict | None:
+def _run_rank(args, registry, health) -> dict | None:
     """One rank of a sharded server: the decode engine's heads, or the
     classifier zoo's shards; the summary on the chief, None elsewhere."""
     from dist_mnist_tpu_torch.cluster import coordination
@@ -274,20 +364,26 @@ def _run_rank(args) -> dict | None:
                          else None)
         log.info("%s", coordination.startup_line(ctx))
         if args.decode:
-            return _run_decode(args, mesh.device, mesh)
-        return serve_classifier(args, mesh.device, mesh)
+            return _run_decode(args, mesh.device, mesh, registry=registry,
+                               health=health)
+        return serve_classifier(args, mesh.device, mesh, registry=registry,
+                                health=health)
     finally:
         coordination.shutdown()
 
 
-def serve_classifier(args, device, mesh=None, *, loadgen=None) -> dict | None:
+def serve_classifier(args, device, mesh=None, *, loadgen=None,
+                     registry=None, health=None) -> dict | None:
     """The classifier mode: the bundle (sharded by `--serve_rules` on a
     `mesh` of several ranks), the zoo engine, the server and the seeded
     loadgen (`loadgen(server, n_requests=, concurrency=, seed=)`, default
     `run_loadgen` at the native image shape); the summary JSON's dict on
     the chief, None on a follower rank, which runs the chief's cells
     until it closes the engine. Every rank logs the kernel launches and
-    the cells it ran."""
+    the cells it ran. The server's ladders go on `registry` (None = a
+    registry of its own), its `health` and final metrics (`--logdir`)
+    through the server."""
+    from dist_mnist_tpu_torch.obs.writers import make_default_writer
     from dist_mnist_tpu_torch.ops.kernels import launch_counts
 
     cfg = get_config(args.config)
@@ -317,13 +413,17 @@ def serve_classifier(args, device, mesh=None, *, loadgen=None) -> dict | None:
     if loadgen is None:
         def loadgen(server, **kw):
             return run_loadgen(server, image_shape=bundle.image_shape, **kw)
+    writer = make_default_writer(args.logdir, registry=registry)
     server = InferenceServer(engine, ServeConfig(
         max_batch=args.max_batch,
         max_wait_ms=args.max_wait_ms,
         queue_depth=args.queue_depth,
         default_deadline_ms=args.deadline_ms or None,
         prewarm=args.prewarm,
-    ))
+    ), writer=writer, health=health)
+    if registry is not None:
+        # live full-distribution exposition of the serve ladders (/metrics)
+        server.metrics.attach_to(registry)
     try:
         with server:
             summary = loadgen(server, n_requests=args.requests,
@@ -331,6 +431,7 @@ def serve_classifier(args, device, mesh=None, *, loadgen=None) -> dict | None:
             stats = server.stats()
     finally:
         engine.close()
+        writer.close()
     log_rank()
     for key in ("mean_moe_drop_fraction", "max_moe_drop_fraction"):
         if key in stats:
@@ -381,13 +482,16 @@ def main(argv=None) -> dict | None:
         return None
     from dist_mnist_tpu_torch.compilecache.store import persistent_cache
 
-    with persistent_cache(args.compile_cache_dir) as cache:
+    with persistent_cache(args.compile_cache_dir) as cache, \
+            telemetry(args) as (registry, health):
         if args.num_processes and args.num_processes > 1:
-            summary = _run_rank(args)
+            summary = _run_rank(args, registry, health)
         elif args.decode:
-            summary = _run_decode(args, device)
+            summary = _run_decode(args, device, registry=registry,
+                                  health=health)
         else:
-            summary = serve_classifier(args, device)
+            summary = serve_classifier(args, device, registry=registry,
+                                       health=health)
     if summary is None:
         return None
     if cache is not None:

@@ -30,10 +30,21 @@ parameter-server-era flags (--job_name/--task_index/--num_gpus/
 --existing_servers/--ps_hosts/--worker_hosts, --nosync_replicas) are
 accepted and warned about, as the reference does. Every flag of a
 subsystem the port does not have yet (a seq axis beside a model axis,
-a pipe axis beside either, a PRNG implementation, the metrics exporter,
-anomaly detection, the tuned store) exits with an error that names the
-ROADMAP §1 item it waits for; `--host_device_count` refuses as a stated
-departure (one device per process).
+a pipe axis beside either, a PRNG implementation, the tuned store) exits
+with an error that names the ROADMAP §1 item it waits for;
+`--host_device_count` refuses as a stated departure (one device per
+process).
+
+Telemetry (`obs/`): every run holds a metric registry (the writers' live
+sink, with the loop's step-time histogram attached as
+``train/step_time_ms``) and a `HealthState` (starting, training,
+degraded, preempted, stopped, failed). `--metrics_port=P` serves them on
+``http://127.0.0.1:<P + process_id>`` (`/metrics`, `/healthz`,
+`/events`) from a background thread, labelled with the host id, the
+generation and the role; a port already taken logs a warning and the run
+goes on without it. `--anomaly` adds `AnomalyHook` (one loss fetch every
+`--anomaly_every` steps; journals ``anomaly`` events and shades
+``training`` to ``degraded``).
 
 Overlap and the compile cache: `--overlap` (or a config's ``overlap``)
 runs the FSDP gather and gradient flush bucket by bucket
@@ -85,8 +96,10 @@ import os
 import time
 from pathlib import Path
 
-#: the cold-start clock's origin: this module's import
+#: the cold-start clock's origin: this module's import, or a stand-by's
+#: hand-off (`cli/standby.py`), which also sets the import it paid before
 _MODULE_T0 = time.monotonic()
+_STANDBY_IMPORT_S: float | None = None
 
 from dist_mnist_tpu_torch.compilecache.key_fields import (  # noqa: E402
     compile_cache_key_fields,
@@ -102,8 +115,7 @@ __all__ = ["build_optimizer", "compile_cache_key_fields", "run_config",
 #: has (it draws from one torch.Generator)
 DEFAULT_PRNG_IMPL = "threefry2x32"
 
-#: ROADMAP §1 items the refused flags and options wait for
-_TELEMETRY = "ROADMAP §1 item 14 (telemetry)"
+#: ROADMAP §1 item the refused flags and options wait for
 _TUNING = "ROADMAP §1 item 16 (tuning and lint)"
 
 
@@ -141,16 +153,27 @@ def _overlap_config(cfg):
 
 
 @contextlib.contextmanager
-def _journal_scope(cfg, journal, logdir, generation):
-    """The run journal around one run, with the reference's ``run_start``
-    and ``run_stop`` records. `journal` is a path or an obs.RunJournal;
-    without one the chief's journal is <logdir>/events.jsonl, and without
-    a logdir (or on another rank) events go wherever the process's journal
-    already is. Yields a dict the run fills with its ``loop``;
-    ``journal`` holds the journal's path."""
+def _obs_scope(cfg, journal, logdir, generation, metrics_port):
+    """The observability spine around one run: the metric registry, the
+    process's `HealthState`, the /metrics + /healthz exporter on
+    `metrics_port` (0 = none; a taken port warns and the run goes on) and
+    the run journal, with the reference's ``run_start`` and ``run_stop``
+    records. `journal` is a path or an obs.RunJournal; without one the
+    chief's journal is <logdir>/events.jsonl, and without a logdir (or on
+    another rank) events go wherever the process's journal already is.
+    Yields a dict the run fills with its ``loop``; ``journal`` holds the
+    journal's path, ``registry``, ``health`` and ``metrics_url`` the
+    rest."""
     from dist_mnist_tpu_torch.cluster import coordination
+    from dist_mnist_tpu_torch.obs import (
+        HealthState,
+        MetricRegistry,
+        MetricsExporter,
+    )
     from dist_mnist_tpu_torch.obs import events as events_mod
 
+    registry = MetricRegistry()
+    health = HealthState(generation=generation)
     journal_obj, journal_owned = None, False
     if isinstance(journal, events_mod.RunJournal):
         journal_obj = journal
@@ -163,10 +186,28 @@ def _journal_scope(cfg, journal, logdir, generation):
                                   generation=generation), True)
     prev_journal = (events_mod.set_journal(journal_obj)
                     if journal_obj is not None else None)
+    exporter = None
+    if metrics_port:
+        # identity labels: merged fleet series stay attributable to this
+        # process (the host id is the supervisor's stable one; a plain
+        # single-host run is host 0)
+        info = {"host_id": os.environ.get(events_mod.ENV_HOST_ID, "0"),
+                "generation": str(generation), "role": "train"}
+        try:
+            exporter = MetricsExporter(
+                registry, health=health,
+                journal_path=journal_obj.path if journal_obj else None,
+                port=metrics_port, info=info).start()
+        except OSError as e:
+            # exposition is an aid; a taken port must not kill training
+            log.warning("metrics exporter: could not bind port %d (%s); "
+                        "continuing without exposition", metrics_port, e)
     ctx = coordination.context()
     run = {"journal": journal_obj.path if journal_obj else None,
            "rank": 0 if ctx is None else ctx.rank,
-           "world": 1 if ctx is None else ctx.world}
+           "world": 1 if ctx is None else ctx.world,
+           "registry": registry, "health": health,
+           "metrics_url": exporter.url() if exporter else None}
     events_mod.emit("run_start", config=cfg.name,
                     train_steps=cfg.train_steps)
     try:
@@ -183,8 +224,12 @@ def _journal_scope(cfg, journal, logdir, generation):
                         })
     except BaseException as exc:
         events_mod.emit("run_stop", ok=False, error=type(exc).__name__)
+        if health.state != "preempted":
+            health.set("failed", type(exc).__name__)
         raise
     finally:
+        if exporter is not None:
+            exporter.close()
         if journal_obj is not None:
             events_mod.set_journal(prev_journal)
             if journal_owned:
@@ -243,6 +288,9 @@ def run_config(
     peer_dir: str | None = None,
     compile_cache_dir: str | None = None,
     startup=None,
+    metrics_port: int = 0,
+    anomaly: bool = False,
+    anomaly_every: int = 25,
 ):
     """Train `cfg` (tests and chip_smoke.py call this; main() parses
     flags) on `mesh`, by default the config's mesh over the ranks of the
@@ -254,9 +302,12 @@ def run_config(
     against this run's world. `compile_cache_dir` sends the kernel and
     native libraries through the store there for this run; `startup` (a
     `compilecache.StartupClock`, by default one started here) attributes
-    the time to the first step.
+    the time to the first step. The run's telemetry (`_obs_scope`): the
+    metric registry, the `HealthState`, the exporter on `metrics_port`
+    (0 = none); `anomaly` adds `AnomalyHook(every_steps=anomaly_every)`.
 
-    Returns (final_state, final_eval_dict, context)."""
+    Returns (final_state, final_eval_dict, context); the context carries
+    the ``registry``, the ``health`` and the ``metrics_url``."""
     check_config(cfg)
     from dist_mnist_tpu_torch import hooks as hooks_lib
     from dist_mnist_tpu_torch.compilecache import StartupClock, StartupHook
@@ -301,7 +352,8 @@ def run_config(
     from dist_mnist_tpu_torch.utils.device import resolve_device
 
     with persistent_cache(compile_cache_dir) as cache, \
-            _journal_scope(cfg, journal, logdir, generation) as journaled:
+            _obs_scope(cfg, journal, logdir, generation,
+                       metrics_port) as journaled:
         t0 = time.monotonic()
         startup = startup if startup is not None else StartupClock(t0=t0)
         # flag-combination errors fail BEFORE any expensive work (dataset
@@ -434,7 +486,8 @@ def run_config(
                             dataset.test_labels, mesh=mesh)
 
         chief = coordination.is_chief()
-        writer = make_default_writer(logdir, chief=chief)
+        registry, health = journaled["registry"], journaled["health"]
+        writer = make_default_writer(logdir, chief=chief, registry=registry)
         hooks = [
             hooks_lib.StopAtStepHook(last_step=cfg.train_steps),
             hooks_lib.StepCounterHook(every_steps=cfg.log_every,
@@ -447,6 +500,14 @@ def run_config(
             hooks_lib.MemoryHook(writer, every_steps=cfg.log_every),
             hooks_lib.NaNGuardHook(),
         ]
+        if anomaly:
+            from dist_mnist_tpu_torch.obs.anomaly import AnomalyHook
+
+            # read-only by construction: journals anomalies and shades
+            # /healthz to degraded; the trajectory stays bit for bit
+            # (bench --faults pins it)
+            hooks.append(AnomalyHook(every_steps=anomaly_every,
+                                     health=health))
         if overlap_cfg is not None:
             from dist_mnist_tpu_torch.parallel.overlap import plan_stats
 
@@ -508,9 +569,12 @@ def run_config(
             steps_per_call=max(1, scan_chunk),
             runahead=runahead,
             preemption=preemption,
+            health=health,
             span_steps=span_steps,
         )
         journaled["loop"] = loop
+        # live full-distribution exposition of per-step wall time
+        registry.attach_histogram("train/step_time_ms", loop.step_time_hist)
         log.info("resident state per rank: %s",
                  json.dumps(state_memory_bytes(state), sort_keys=True))
         # the loop's kernel launches alone (evaluation inside it included)
@@ -569,7 +633,8 @@ def run_config(
             "preempted_at": loop.preempted_at, "journal": journaled["journal"],
             "mesh": mesh, "collectives_per_step": per_step,
             "launches": launches, "startup": startup_hook.last,
-            "compile_cache": cache_stats,
+            "compile_cache": cache_stats, "registry": registry,
+            "health": health, "metrics_url": journaled["metrics_url"],
         }
 
 
@@ -674,6 +739,19 @@ def build_parser() -> argparse.ArgumentParser:
            "checkpoint_every_secs")
     a("--span_steps", type=int, default=0,
       help="every N steps, journal one `span` event per phase; 0 = off")
+    # -- telemetry (obs/)
+    a("--metrics_port", type=int, default=0,
+      help="serve /metrics (Prometheus text), /healthz (the process state "
+           "machine) and /events (the journal's tail) on this port from a "
+           "background thread (obs/exporter.py); rank K binds port + K; "
+           "0 = off")
+    _bool_flag(p, "anomaly", False,
+               "in-loop anomaly detection (obs/anomaly.py): robust "
+               "median/MAD detectors over loss and step time journal "
+               "`anomaly` events and shade /healthz to degraded; never "
+               "alters the trajectory")
+    a("--anomaly_every", type=int, default=25,
+      help="anomaly-check cadence in steps (one loss fetch a check)")
     # -- resilience (faults/, checkpoint/snapshot.py, checkpoint/peer.py)
     a("--fault_plan", default=None,
       help="fault-injection plan: inline JSON or a path to a JSON file "
@@ -724,9 +802,6 @@ def build_parser() -> argparse.ArgumentParser:
       help="refused: one device per process")
     a("--prng_impl", default=None,
       help=f"only {DEFAULT_PRNG_IMPL} (one torch.Generator)")
-    a("--metrics_port", type=int, default=0, help=_TELEMETRY)
-    _bool_flag(p, "anomaly", False, _TELEMETRY)
-    a("--anomaly_every", type=int, default=None, help=_TELEMETRY)
     a("--tuned", default="auto", choices=["auto", "off", "require"],
       help=f"auto/off: no store to consult; require: {_TUNING}")
     a("--tuned_dir", default=None, help=_TUNING)
@@ -746,9 +821,6 @@ def _refused_flags(args) -> list[str]:
                    "process (a stated departure of ROADMAP §1 item 12's "
                    "data-parallel half); start more processes with "
                    "cli.launch")
-    no(args.metrics_port != 0, "--metrics_port", _TELEMETRY)
-    no(bool(args.anomaly), "--anomaly", _TELEMETRY)
-    no(args.anomaly_every is not None, "--anomaly_every", _TELEMETRY)
     no(args.tuned == "require", "--tuned=require (the tuned store)",
        _TUNING)
     no(args.tuned_dir is not None, "--tuned_dir", _TUNING)
@@ -828,6 +900,7 @@ def main(argv=None):
     # up to here is the ``import`` bucket, the rest run_config fills in
     clock = StartupClock(t0=_MODULE_T0)
     clock.note("import", time.monotonic() - _MODULE_T0)
+    clock.standby_import_s = _STANDBY_IMPORT_S
     args = build_parser().parse_args(argv)
     logging.basicConfig(
         level=logging.INFO,
@@ -895,6 +968,10 @@ def main(argv=None):
     # <logdir>/events.jsonl
     journal = args.journal or os.environ.get(events_mod.ENV_JOURNAL)
     generation = int(os.environ.get(events_mod.ENV_GENERATION, "0"))
+    # one exporter per process: offset by the rank so that the ranks of one
+    # host do not race for one port
+    metrics_port = (args.metrics_port + args.process_id
+                    if args.metrics_port else 0)
     # the handshake is installed before the expensive work: a SIGTERM
     # that lands during setup is honored at the first step boundary
     notice = PreemptionNotice()
@@ -926,6 +1003,9 @@ def main(argv=None):
             peer_dir=args.peer_dir,
             compile_cache_dir=args.compile_cache_dir,
             startup=clock,
+            metrics_port=metrics_port,
+            anomaly=args.anomaly,
+            anomaly_every=args.anomaly_every,
         )
     except (NotImplementedError, ValueError) as err:
         raise SystemExit(f"error: {err}") from None

@@ -18,6 +18,11 @@ caller anchors) into:
                    completed step not attributed above (first dispatch,
                    hook bring-up).
 
+A rank that the launcher started as a stand-by (`cli/standby.py`) has
+`t0` at its hand-off when it had finished importing by then; the import
+it paid before is ``standby_import_ms``, outside every bucket and the
+headline (a field the reference lacks: its ranks start cold).
+
 ``time_to_first_step_ms`` is the headline (`bench.py --coldstart`);
 ``unattributed_ms`` is wall time AFTER the first step not covered by the
 buckets — by construction 0 until then, it exists so the snapshot always
@@ -43,6 +48,9 @@ class StartupClock:
         self.t0 = time.monotonic() if t0 is None else t0
         self.buckets = {b: 0.0 for b in self.BUCKETS}
         self.time_to_first_step_s: float | None = None
+        #: import a stand-by rank paid before its hand-off (`t0`), outside
+        #: every bucket (`cli/standby.py`); None for a rank started cold
+        self.standby_import_s: float | None = None
 
     def note(self, bucket: str, seconds: float) -> None:
         self.buckets[bucket] += max(0.0, seconds)
@@ -70,6 +78,8 @@ class StartupClock:
         if ttfs is not None:
             out["first_step_ms"] = max(0.0, ttfs - attributed) * 1e3
             out["time_to_first_step_ms"] = ttfs * 1e3
+        if self.standby_import_s is not None:
+            out["standby_import_ms"] = self.standby_import_s * 1e3
         return out
 
 

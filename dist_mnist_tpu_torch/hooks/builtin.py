@@ -465,9 +465,12 @@ class SummaryHook(Hook):
 class ProfilerHook(Hook):
     """≙ ProfilerHook (:1013-1095): Chrome-trace a window of steps. Uses
     `torch.profiler` (host ops, and the device's kernels on a CUDA state)
-    instead of RunMetadata/Timeline, and writes
-    ``<logdir>/trace-steps<start>-<stop>.json``. `start_step`/`num_steps`
-    are relative to THIS run's first step (resume-aware)."""
+    instead of RunMetadata/Timeline, writes
+    ``<logdir>/trace-steps<start>-<stop>.json`` and exports it as
+    ``timeline-[h<host>-]steps<start>-<stop>.json``
+    (`obs/timeline.export_chrome_trace`; an export error is logged, never
+    raised). `start_step`/`num_steps` are relative to THIS run's first
+    step (resume-aware)."""
 
     def __init__(self, logdir: str, start_step: int = 10, num_steps: int = 3):
         self._logdir = logdir
@@ -524,6 +527,13 @@ class ProfilerHook(Hook):
             self.trace_path = str(out)
             log.info("profile (window [%d, %d)) -> chrome trace %s",
                      self._start, self._stop, out)
+            # reference UX parity: the host-stamped timeline-*.json next
+            # to the trace (obs/timeline.py), which fleet_trace merges
+            from dist_mnist_tpu_torch.obs.timeline import export_chrome_trace
+
+            exported = export_chrome_trace(self._logdir)
+            if exported is not None:
+                log.info("chrome trace -> %s", exported)
         except Exception:  # noqa: BLE001 — triage aid must not kill training
             log.exception("chrome trace export failed")
 

@@ -8,9 +8,6 @@ plain host-side objects fed by hooks; TensorBoard output goes through
 (mirroring chief-only summary hooks, monitored_session.py:517-532).
 
 Port of the reference's `obs/writers.py` (numpy and the standard library).
-`RegistryWriter`, the live ``/metrics`` sink, joins with the telemetry
-slice (ROADMAP §1 item 14), so `make_default_writer(registry=...)`
-refuses.
 """
 
 from __future__ import annotations
@@ -201,14 +198,15 @@ class MultiWriter:
 def make_default_writer(logdir: str | Path | None, *, chief: bool = True,
                         registry=None):
     """Stdout always (chief only); CSV + TensorBoard when a logdir is given.
-    A ``MetricRegistry`` (the reference's live ``/metrics`` sink) is
-    refused: it joins with ROADMAP §1 item 14."""
-    if registry is not None:
-        raise NotImplementedError(
-            "make_default_writer(registry=...): the metric registry and its "
-            "RegistryWriter join the port with ROADMAP §1 item 14 "
-            "(telemetry)")
+
+    When a ``MetricRegistry`` is passed, a ``RegistryWriter`` joins the
+    fan-out on EVERY process (chief or not) so the local ``/metrics``
+    endpoint stays live even where the disk sinks are chief-gated."""
     live: list[MetricWriter] = []
+    if registry is not None:
+        from dist_mnist_tpu_torch.obs.registry import RegistryWriter
+
+        live.append(RegistryWriter(registry))
     if not chief:
         return MultiWriter(*live)
     writers: list[MetricWriter] = live + [StdoutWriter()]

@@ -44,8 +44,10 @@ recompiles during traffic (`stats()["misses"]`,
 `recompiles_during_traffic`). Eager PyTorch compiles nothing, so those
 are gone; the grid still fixes every shape, and `prewarm` runs each cell
 once so first-use costs (the kernels' build, cuBLAS handles, the
-allocator) fall before traffic. A CUDA graph per cell is later work, as
-are the journal events (`kv_page_alloc`, `decode_admit`, ...).
+allocator) fall before traffic. A CUDA graph per cell is later work.
+The run journal gets the reference's events: ``decode_prewarm``,
+``decode_start``, ``decode_admit``, ``kv_page_alloc``,
+``kv_page_reclaim``, ``decode_evict`` and ``decode_stop``.
 
 `DecodeScheduler` — **continuous batching** over the engine's slots (one
 daemon thread, name prefix ``DecodeScheduler``): between any two decode
@@ -78,6 +80,7 @@ import numpy as np
 import torch
 
 from dist_mnist_tpu_torch.cluster.mesh import MODEL_AXIS, activate
+from dist_mnist_tpu_torch.obs import events
 from dist_mnist_tpu_torch.serve.admission import (
     QueueFullError,
     ShuttingDownError,
@@ -86,6 +89,7 @@ from dist_mnist_tpu_torch.serve.engine import _nbytes
 from dist_mnist_tpu_torch.serve.metrics import DecodeMetrics
 from dist_mnist_tpu_torch.serve.router import (
     BEST_EFFORT,
+    DECODE_SLO_TARGETS,
     LATENCY_SENSITIVE,
     REQUEST_CLASSES,
 )
@@ -285,6 +289,8 @@ class DecodeEngine:
         self._slot_pages[slot] = pages
         self._table_device.clear()
         self._peak_pinned = max(self._peak_pinned, self._pinned())
+        events.emit("kv_page_alloc", slot=int(slot), pages=n,
+                    free=len(self._free_pages))
         return True
 
     def release_slot(self, slot: int) -> None:
@@ -298,6 +304,8 @@ class DecodeEngine:
         self._free_pages.extend(pages)
         self._page_table[slot] = self._scratch_pages
         self._table_device.clear()
+        events.emit("kv_page_reclaim", slot=int(slot), pages=len(pages),
+                    free=len(self._free_pages))
 
     def reset_pages(self) -> None:
         """Reclaim EVERY slot's pages (the scheduler's crash recovery)."""
@@ -358,7 +366,9 @@ class DecodeEngine:
                 self.decode_harvest(self._run_decode(zeros, zeros, width))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        return len(self.grid.cells())
+        cells = len(self.grid.cells())
+        events.emit("decode_prewarm", programs=cells, compiled=cells)
+        return cells
 
     def _run_prefill(self, tokens, slots, lengths) -> torch.Tensor:
         self._announce("prefill", tokens, slots, lengths)
@@ -493,7 +503,7 @@ class DecodeScheduler:
 
     def __init__(self, engine: DecodeEngine, *, mode: str = "continuous",
                  max_queue: int = 256, metrics: DecodeMetrics | None = None,
-                 runahead: int = 1):
+                 writer=None, runahead: int = 1):
         if mode not in ("continuous", "static"):
             raise ValueError(f"unknown mode {mode!r}; "
                              "use 'continuous' | 'static'")
@@ -505,6 +515,8 @@ class DecodeScheduler:
         self.runahead = runahead
         self.max_queue = max_queue
         self.metrics = metrics if metrics is not None else DecodeMetrics()
+        # obs MetricWriter: the final DecodeMetrics.emit at close()
+        self.writer = writer
         self._lock = threading.Lock()
         self._work = threading.Event()
         self._stop = threading.Event()
@@ -518,6 +530,9 @@ class DecodeScheduler:
         #: admission order as (submit_seq, request_class)
         self.admit_log: list = []
         self._seq = itertools.count()
+        self._emit_step = itertools.count()
+        events.emit("decode_start", mode=mode, max_slots=engine.max_slots,
+                    max_seq=engine.max_seq)
         self._thread = threading.Thread(
             target=self._loop,
             name=f"DecodeScheduler-{next(_SCHED_IDS)}", daemon=True)
@@ -613,6 +628,13 @@ class DecodeScheduler:
                 req.future.set_exception(
                     ShuttingDownError("decode scheduler closed"))
                 self.metrics.record_failed()
+        events.emit("decode_stop", completed=self.metrics.completed,
+                    failed=self.metrics.failed)
+        if self.writer is not None:
+            # no compiled-cell cache to report (eager: see the module
+            # docstring), so no serve/cache_* gauges
+            self.metrics.emit(self.writer, next(self._emit_step),
+                              queue_depth=0, kv=self.engine.kv_stats())
 
     def __enter__(self):
         return self
@@ -657,6 +679,10 @@ class DecodeScheduler:
                 r.token_times.append(now)
                 self.metrics.record_admitted((now - r.t_submit) * 1e3,
                                              r.request_class)
+                events.emit("decode_admit", slot=r.slot,
+                            request_class=r.request_class,
+                            slo_target=DECODE_SLO_TARGETS[r.request_class],
+                            prompt_len=int(r.prompt.size))
                 self._active[r.slot] = r
                 self._tokens[r.slot] = int(tok)
                 self._positions[r.slot] = r.prompt.size
@@ -676,6 +702,8 @@ class DecodeScheduler:
         wall = max(now - r.t_submit, 1e-9)
         self.metrics.record_completed(latency_ms, len(r.tokens),
                                       len(r.tokens) / wall)
+        events.emit("decode_evict", slot=slot, tokens=len(r.tokens),
+                    request_class=r.request_class)
         r.future.set_result(DecodeResult(
             tokens=list(r.tokens),
             ttft_ms=(r.token_times[0] - r.t_submit) * 1e3,

@@ -17,6 +17,10 @@ out of live traffic — `prewarm()` does here by running every cell once
 `cache_stats()` counts, per cell, that first run as a miss and every
 later run as a hit, so the serve summary keeps the reference's shape,
 and sums the runs' host-clock seconds as the reference's `execute_secs`.
+A cell's first run is journaled as the reference's fresh compile
+(``compile_cache`` with ``outcome="compile"`` and its ``compile_ms``);
+the cell cache holds no memory budget, so it never evicts (the serve
+memory budget joins with ROADMAP §1 item 15).
 
 On a mesh of ranks (`mesh`, one device per process) the weights are
 resident-sharded by the serve rules (`parallel/sharding.py`: a TP leaf
@@ -45,6 +49,7 @@ import numpy as np
 import torch
 
 from dist_mnist_tpu_torch.cluster.mesh import DATA_AXIS, MODEL_AXIS, activate
+from dist_mnist_tpu_torch.obs import events
 from dist_mnist_tpu_torch.ops.nn import normalize_images
 from dist_mnist_tpu_torch.ops.quant import (
     QuantizedArray,
@@ -316,8 +321,12 @@ class InferenceEngine:
         cell = (images.shape[0], images.shape[1],
                 "dense" if mask is None else "masked")
         with self._lock:
+            first = cell not in self._runs
             self._runs[cell] = self._runs.get(cell, 0) + 1
             self._execute_secs += dt
+        if first:
+            events.emit("compile_cache", outcome="compile", key=str(cell),
+                        compile_ms=round(dt * 1e3, 3))
         return out
 
     def _forward_params(self):

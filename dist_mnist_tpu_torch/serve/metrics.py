@@ -3,14 +3,19 @@ counters (port of the reference `serve/metrics.py`: `ServeMetrics` for
 the classifier server, `DecodeMetrics` for the decode scheduler).
 
 Host-side and lock-guarded (the batcher thread and every client thread
-record concurrently); nothing here touches a device. Percentiles come
-from `obs.hist.StreamingHistogram` ladders. Metric writers and the
-`/metrics` registry join with the telemetry slice; `snapshot()` is the
-whole read surface for now.
+record concurrently); nothing here touches a device. Emission goes through
+the `obs.writers.MetricWriter` protocol (`emit`) so serve metrics land in
+the same CSV/TensorBoard sinks as training metrics.
+
+Percentiles come from `obs.hist.StreamingHistogram` ladders: O(buckets)
+memory forever, mergeable across replicas, and attachable to a
+`MetricRegistry` (`attach_to`) so a live `/metrics` scrape sees the same
+distribution the final snapshot reports.
 """
 
 from __future__ import annotations
 
+import math
 import threading
 
 from dist_mnist_tpu_torch.obs.hist import StreamingHistogram
@@ -25,7 +30,7 @@ class ServeMetrics:
                 (real rows), bucket occupancy (real rows / padded bucket),
                 sequence occupancy (real tokens / padded tokens, seq-grid
                 engines).
-    Gauge:      the largest per-leaf int8 quantization error.
+                The per-leaf int8 quantization errors, and their max.
     """
 
     def __init__(self):
@@ -42,13 +47,34 @@ class ServeMetrics:
         self.batch_occupancy = StreamingHistogram()
         self.seq_occupancy = StreamingHistogram()
         self.moe_drop_fraction = StreamingHistogram()
+        # int8 weight-only serving (ops/quant.py): per-leaf max-abs
+        # quantization errors of the load-time conversion, recorded once
+        # per report; empty forever on a float engine
+        self.quant_error = StreamingHistogram()
         self.quant_error_max: float | None = None
 
+    def attach_to(self, registry) -> None:
+        """Expose the live ladders on a MetricRegistry (-> /metrics)."""
+        registry.attach_histogram("serve/latency_ms", self.latency_ms)
+        registry.attach_histogram("serve/batch_size", self.batch_size)
+        registry.attach_histogram("serve/batch_occupancy",
+                                  self.batch_occupancy)
+        registry.attach_histogram("serve/seq_occupancy", self.seq_occupancy)
+        registry.attach_histogram("serve/moe_drop_fraction",
+                                  self.moe_drop_fraction)
+        registry.attach_histogram("serve/quant_error", self.quant_error)
+
     def record_quant_report(self, report: dict) -> None:
-        """Fold an `ops.quant.error_report` in: its max abs error."""
+        """Fold an `ops.quant.error_report` in: one histogram observation
+        per quantized leaf (max abs error), plus the scalar max. Called at
+        server construction."""
+        leaves = (report or {}).get("leaves", {})
         with self._lock:
-            self.quant_error_max = max(self.quant_error_max or 0.0,
-                                       report["max_abs_err"])
+            for stats in leaves.values():
+                self.quant_error.observe(stats["max_abs_err"])
+            m = (report or {}).get("max_abs_err")
+            if m is not None:
+                self.quant_error_max = max(self.quant_error_max or 0.0, m)
 
     def record_admitted(self):
         with self._lock:
@@ -130,6 +156,60 @@ class ServeMetrics:
             out["quant_error_max"] = self.quant_error_max
         return out
 
+    def emit(self, writer, step: int, *, queue_depth: int | None = None,
+             cache: dict | None = None) -> None:
+        """Write the snapshot through an obs MetricWriter. `serve/` prefix
+        keeps the tags clear of training scalars in a shared logdir. All
+        scalars go out as ONE batched `scalars()` call (the hook
+        convention — one writer call per cadence, not ~12)."""
+        snap = self.snapshot()
+        vals: dict[str, float] = {}
+        for tag in ("p50_ms", "p95_ms", "p99_ms", "mean_ms"):
+            v = snap[tag]
+            if not math.isnan(v):
+                vals[f"serve/latency_{tag}"] = v
+        for tag in ("admitted", "completed", "rejected_queue_full",
+                    "rejected_deadline", "rejected_shutdown", "failed",
+                    "cancelled"):
+            vals[f"serve/{tag}"] = snap[tag]
+        vals["serve/mean_batch_size"] = snap["mean_batch_size"]
+        vals["serve/mean_occupancy"] = snap["mean_occupancy"]
+        if "mean_seq_occupancy" in snap:
+            vals["serve/mean_seq_occupancy"] = snap["mean_seq_occupancy"]
+        if "mean_moe_drop_fraction" in snap:
+            vals["serve/mean_moe_drop_fraction"] = \
+                snap["mean_moe_drop_fraction"]
+        if "quant_error_max" in snap:
+            vals["serve/quant_error_max"] = snap["quant_error_max"]
+        if queue_depth is not None:
+            vals["serve/queue_depth"] = queue_depth
+        if cache:
+            vals["serve/cache_hits"] = cache.get("hits", 0)
+            vals["serve/cache_misses"] = cache.get("misses", 0)
+            if cache.get("evictions"):
+                vals["serve/cache_evictions"] = cache["evictions"]
+            if cache.get("resident_bytes"):
+                vals["serve/resident_bytes"] = cache["resident_bytes"]
+                # which tier the budget is spending on: the weights floor
+                # vs the evictable executable set
+                vals["serve/resident_bytes_weights"] = \
+                    cache.get("resident_bytes_weights", 0)
+                vals["serve/resident_bytes_executables"] = \
+                    cache.get("resident_bytes_executables", 0)
+        batch_write = getattr(writer, "scalars", None)
+        if callable(batch_write):
+            batch_write(vals, step)
+        else:
+            for k, v in vals.items():
+                writer.scalar(k, v, step)
+        if self.batch_size.count:
+            writer.histogram("serve/batch_size",
+                             self.batch_size.representative_values(), step)
+            writer.histogram("serve/batch_occupancy",
+                             self.batch_occupancy.representative_values(),
+                             step)
+        writer.flush()
+
 
 class DecodeMetrics:
     """Thread-safe accumulator for one `serve.decode.DecodeScheduler`.
@@ -154,6 +234,14 @@ class DecodeMetrics:
         self.ttft_ms = StreamingHistogram()
         self.tokens_per_s = StreamingHistogram()
         self.active_slots = StreamingHistogram()
+
+    def attach_to(self, registry) -> None:
+        """Expose the live ladders on a MetricRegistry (-> /metrics)."""
+        registry.attach_histogram("serve/decode_ttft_ms", self.ttft_ms)
+        registry.attach_histogram("serve/decode_tokens_per_s",
+                                  self.tokens_per_s)
+        registry.attach_histogram("serve/decode_active_slots",
+                                  self.active_slots)
 
     def record_submitted(self, request_class: str):
         with self._lock:
@@ -216,3 +304,47 @@ class DecodeMetrics:
             out["tokens_per_s_mean"] = tps["mean"]
         out["mean_active_slots"] = act["mean"] if act["count"] else 0.0
         return out
+
+    def emit(self, writer, step: int, *, queue_depth: int | None = None,
+             cache: dict | None = None, kv: dict | None = None) -> None:
+        """Write the snapshot through an obs MetricWriter — one batched
+        `scalars()` call, same cadence convention as `ServeMetrics.emit`.
+        `kv` is a `DecodeEngine.kv_stats()` dict; when given, the paged
+        KV residency gauges (`serve/decode_kv_*`) ride along."""
+        snap = self.snapshot()
+        vals: dict[str, float] = {}
+        vals["serve/decode_submitted"] = snap["submitted"]
+        vals["serve/decode_completed"] = snap["completed"]
+        vals["serve/decode_rejected_queue_full"] = \
+            snap["rejected_queue_full"]
+        vals["serve/decode_rejected_shutdown"] = snap["rejected_shutdown"]
+        vals["serve/decode_failed"] = snap["failed"]
+        vals["serve/decode_steps"] = snap["steps"]
+        vals["serve/decode_tokens_out"] = snap["tokens_out"]
+        vals["serve/decode_mean_active_slots"] = snap["mean_active_slots"]
+        if "ttft_p50_ms" in snap:
+            vals["serve/decode_ttft_p50_ms"] = snap["ttft_p50_ms"]
+            vals["serve/decode_ttft_p99_ms"] = snap["ttft_p99_ms"]
+        if "tokens_per_s_mean" in snap:
+            vals["serve/decode_tokens_per_s"] = snap["tokens_per_s_mean"]
+        if queue_depth is not None:
+            vals["serve/decode_queue_depth"] = queue_depth
+        if cache:
+            vals["serve/cache_hits"] = cache.get("hits", 0)
+            vals["serve/cache_misses"] = cache.get("misses", 0)
+        if kv:
+            vals["serve/decode_kv_pages_pinned"] = kv["kv_pages_pinned"]
+            vals["serve/decode_kv_bytes_pinned"] = kv["kv_bytes_pinned"]
+            vals["serve/decode_kv_bytes_pool"] = kv["kv_bytes_pool"]
+        batch_write = getattr(writer, "scalars", None)
+        if callable(batch_write):
+            batch_write(vals, step)
+        else:
+            for k, v in vals.items():
+                writer.scalar(k, v, step)
+        if self.ttft_ms.count:
+            writer.histogram("serve/decode_ttft_ms",
+                             self.ttft_ms.representative_values(), step)
+            writer.histogram("serve/decode_active_slots",
+                             self.active_slots.representative_values(), step)
+        writer.flush()

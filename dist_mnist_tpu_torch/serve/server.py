@@ -12,9 +12,14 @@ Lifecycle contract:
               Admission only; raises QueueFullError / ShuttingDownError
               rather than ever blocking a client.
     close():  (1) close admission; (2) drain — the batcher finishes every
-              already-admitted request; (3) join the batcher thread.
+              already-admitted request; (3) join the batcher thread;
+              (4) emit the final metrics through `writer`.
               A client holding a Future from a successful submit() WILL
               get a result (or an engine error).
+
+`health` (an `obs.HealthState`) reads ``serving`` after start(),
+``draining`` during close() and ``stopped`` after it; the journal gets
+``serve_start`` and ``serve_stop``.
 """
 
 from __future__ import annotations
@@ -42,12 +47,20 @@ class ServeConfig:
 
 class InferenceServer:
     def __init__(self, engine: InferenceEngine,
-                 config: ServeConfig | None = None):
+                 config: ServeConfig | None = None, *, writer=None,
+                 health=None):
         self.engine = engine
         self.config = config or ServeConfig()
         self.metrics = ServeMetrics()
+        # a quantized engine's load-time error report becomes the
+        # serve/quant_error* metrics surface right away
         if engine.quant_report:
             self.metrics.record_quant_report(engine.quant_report)
+        self.writer = writer
+        # live /healthz state machine (obs/exporter.HealthState or None):
+        # serving after start(), draining during close() — so a router can
+        # stop sending to this replica before it disappears
+        self.health = health
         self._admission = AdmissionQueue(self.config.queue_depth, self.metrics)
         self._batcher = DynamicBatcher(
             engine, self._admission, self.metrics,
@@ -68,17 +81,33 @@ class InferenceServer:
             log.info("prewarmed %d cell(s) over buckets %s", n, buckets)
         self._batcher.start()
         self._started = True
+        if self.health is not None:
+            self.health.set("serving")
+        from dist_mnist_tpu_torch.obs import events
+
+        events.emit("serve_start", prewarm=self.config.prewarm,
+                    max_batch=self.config.max_batch)
         return self
 
     def close(self, *, timeout: float = 30.0) -> bool:
         """Reject-new, finish-old; idempotent. Returns drain success."""
         if self._closed:
             return True
+        from dist_mnist_tpu_torch.obs import events
+
+        if self.health is not None:
+            self.health.set("draining")
         self._admission.close()
         ok = self._batcher.drain(timeout=timeout) if self._started else True
         if not ok:
             log.error("batcher did not drain within %.1fs", timeout)
         self._closed = True
+        if self.writer is not None:
+            self.emit_metrics(self.writer)
+        if self.health is not None:
+            self.health.set("stopped", "drained" if ok else "drain timeout")
+        events.emit("serve_stop", drained=ok,
+                    completed=self.metrics.completed)
         return ok
 
     def __enter__(self):
@@ -109,3 +138,7 @@ class InferenceServer:
         if self.engine.quant:
             out["quant"] = self.engine.quant
         return out
+
+    def emit_metrics(self, writer, step: int = 0) -> None:
+        self.metrics.emit(writer, step, queue_depth=self.queue_depth,
+                          cache=self.engine.cache_stats())

@@ -210,9 +210,8 @@ def build_zoo_engine(
     `moe_capacity_factor` replaces an MoE model's capacity factor (a
     model without the field refuses, as in the reference).
 
-    Refused until their slices land: `memory_budget_mb` and `store` (the
-    budgeted cache and the executable store, ROADMAP §1 items 13 and
-    15)."""
+    Refused until their slice lands: `memory_budget_mb` and `store` (the
+    budgeted cache and the executable store, ROADMAP §1 item 15)."""
     model = bundle.model
     if moe_capacity_factor is not None:
         if not (dataclasses.is_dataclass(model)
@@ -226,8 +225,8 @@ def build_zoo_engine(
     if memory_budget_mb is not None or store is not None:
         raise ValueError(
             "a serve memory budget and an executable store join the port "
-            "with ROADMAP §1 items 13 and 15; the port's engine runs each "
-            "cell eagerly and holds no executables")
+            "with ROADMAP §1 item 15; the port's engine runs each cell "
+            "eagerly and holds no executables")
     bundle_mesh = getattr(bundle, "mesh", None)
     if isinstance(mesh, MeshSpec):
         # a spec names a mesh over the process group's ranks

@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import collections
 import logging
+import sys
 import time
 from typing import Iterable, Sequence
 
@@ -118,6 +119,7 @@ class TrainLoop:
         steps_per_call: int = 1,
         runahead: int = 0,
         preemption=None,
+        health=None,
         span_steps: int = 0,
     ):
         self.step_fn = step_fn
@@ -135,6 +137,10 @@ class TrainLoop:
         # goodput attribution (faults/goodput.py): every second of run()'s
         # wall clock lands in a productive/restore/replay/stall bucket.
         self.goodput = GoodputClock()
+        # live /healthz state machine (obs/exporter.HealthState or None):
+        # training while the loop runs, preempted on a consumed notice,
+        # stopped/failed on exit.
+        self.health = health
         # per-step wall time in ms, scrape-able live via the registry and
         # summarized by StepTimeHook / bench.py --faults
         self.step_time_hist = StreamingHistogram()
@@ -211,6 +217,8 @@ class TrainLoop:
             reason=getattr(self.preemption, "reason", None),
             checkpoint_saved=self.checkpoint_manager is not None,
         )
+        if self.health is not None:
+            self.health.set("preempted", f"step={step}")
         self.request_stop(f"preempted@step={step}")
 
     def run(self) -> TrainState:
@@ -220,6 +228,8 @@ class TrainLoop:
         it = iter(self.batches)
         g = self.goodput
         g.start()
+        if self.health is not None:
+            self.health.set("training")
         try:
             while not self.stop.should_stop():
                 # preemption handshake: consumed only at step boundaries,
@@ -354,6 +364,11 @@ class TrainLoop:
                         recovery=recoveries,
                     )
         finally:
+            if self.health is not None and self.health.state != "preempted":
+                if sys.exc_info()[0] is not None:
+                    self.health.set("failed")
+                else:
+                    self.health.set("stopped", self.stop.reason)
             g.close()
             self._inflight.clear()
             # generators (incl. DevicePrefetcher streams) drain their

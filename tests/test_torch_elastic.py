@@ -324,6 +324,39 @@ def test_elastic_grow_back_after_recovery(elastic_stub, tmp_path):
     assert stop["rc"] == 0 and stop["restarts"] == 1
 
 
+def test_elastic_generation_finished_before_its_drain_is_not_grown(
+        elastic_stub, tmp_path):
+    """The grow drain lands on a generation whose ranks have already
+    trained the last step (each journaled an ok, unpreempted
+    ``run_stop``): it exits 0 as a drained one does, and the supervisor
+    ends the run there instead of growing a generation with nothing left
+    to train."""
+    stub_log, jpath = tmp_path / "stub.log", tmp_path / "journal.jsonl"
+    finished = tmp_path / "finished_stub.py"
+    finished.write_text(ELASTIC_STUB.replace(
+        "time.sleep(float(", textwrap.dedent("""\
+            if gen == "1":
+                import json
+                with open(journal, "a") as f:
+                    f.write(json.dumps({"event": "run_stop", "gen": 1,
+                                        "ok": True, "preempted_at": None,
+                                        "step": 60}) + "\\n")
+            time.sleep(float(""")))
+    rc, log = _supervise_elastic(
+        2, [sys.executable, str(finished)],
+        [f"--stub_log={stub_log}", "--stub_sleep_g0=5.0",
+         "--stub_sleep_g1=10.0"],
+        kill_spec=(1, 0.3), host_kill=(1, 0.9), journal=str(jpath))
+    assert rc == 0, log
+    assert "host recovery due: draining generation 1" in log
+    assert "generation 1 finished the run before its drain; not growing" \
+        in log
+    assert "grow" not in [r.get("kind") for r in _records(jpath)]
+    assert not [line for line in _stub_lines(stub_log) if line["gen"] == "2"]
+    (stop,) = [r for r in _records(jpath) if r["event"] == "supervisor_stop"]
+    assert stop["rc"] == 0
+
+
 def test_elastic_chief_death_still_fatal(elastic_stub, tmp_path):
     rc, log = _supervise_elastic(
         2, elastic_stub,
@@ -396,11 +429,18 @@ def test_launch_elastic_shrinks_finishes_and_grows_back(data_dir, tmp_path):
     """`cli.launch --elastic` with kill_host(1, step=35,
     recover_after_s=1): host 1 SIGKILLs itself at step 35, the world
     shrinks to host 0 alone, the host's recovery comes due one second
-    into that generation (its drain lands while the rank still starts),
-    the mesh grows back, and the grown generation restores the last
-    checkpoint and finishes every step on both ranks. (That a one-rank
-    generation trains to the end is `bench --faults --elastic`'s, below.)"""
-    plan = FaultPlan([Fault.kill_host(1, step=35, recover_after_s=1.0)])
+    into that generation, the mesh grows back, and the grown generation
+    restores the last checkpoint and finishes every step on both ranks.
+    The shrunken rank is a stand-by that imported torch during
+    generation 0 and could train the steps left inside that second, so
+    an input stall of 2 s at a process's 25th batch (step 25 in
+    generation 0, step 55 in generation 1, which restores step 30) holds
+    it there and the drain lands while it trains. (That a one-rank
+    generation trains to the end is `bench --faults --elastic`'s, below;
+    a generation that finished before its drain is not grown: the stub
+    test above.)"""
+    plan = FaultPlan([Fault.kill_host(1, step=35, recover_after_s=1.0),
+                      Fault.stall_input(25, 2.0)])
     jpath = tmp_path / "journal.jsonl"
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
@@ -432,7 +472,8 @@ def test_launch_elastic_shrinks_finishes_and_grows_back(data_dir, tmp_path):
     assert {(0, 2, 2), (2, 2, 2)} <= policy
     restored = [r for r in records if r.get("gen") == 2 and r["event"] in (
         "peer_restore", "checkpoint_restore")]
-    assert restored and all(r["step"] >= 30 for r in restored)
+    # the grown generation restored below the last step: it trained
+    assert restored and all(30 <= r["step"] < 60 for r in restored)
     finals = [r for r in records if r["event"] == "run_stop"
               and r["gen"] == 2]
     assert sorted(r["process"] for r in finals) == [0, 1]
@@ -457,4 +498,8 @@ def test_bench_faults_elastic_prints_its_line_and_holds_its_gates(
         "final_step"] == 60
     assert record["value"] > extra["restart_baseline"]["goodput_fraction"]
     assert record["vs_baseline"] > 1.0
-    assert extra["observability"] == "ROADMAP §1 item 14"
+    # the elastic side's fleet trace: a track per host, the shrink's
+    # marker, spans on both sides of the resize
+    trace = extra["fleet_trace"]
+    assert trace["host_tracks"] >= 2 and trace["resize_markers"] >= 1
+    assert trace["span_generations"] == [0, 1]

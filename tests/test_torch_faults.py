@@ -540,7 +540,10 @@ def test_bench_faults_prints_its_line_and_holds_its_gates(flags, data_dir,
     assert extra["recoveries"] == extra["journal_restores"] == 1
     assert extra["replayed_steps"] == 10  # fell back from 40 to 30
     assert extra["async_save"] is bool(flags)
-    assert extra["observability"] == "ROADMAP §1 item 14"
+    # the fault run carried the obs stack: the scraper reached it live
+    fleet = extra["fleet"]
+    assert fleet["host_reachable"] is True and fleet["scrapes"] >= 1
+    assert fleet["scrape_errors"] == 0 and fleet["anomalies"] >= 0
 
 
 def test_bench_refuses_mixed_modes():

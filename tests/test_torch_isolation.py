@@ -91,6 +91,30 @@ def test_overlap_and_compile_cache_modules_are_checked(name):
     assert ROOT / "tests/torch_overlap_cases.py" in _sources()
 
 
+@pytest.mark.parametrize("name", [
+    "obs/__init__.py", "obs/registry.py", "obs/exporter.py",
+    "obs/anomaly.py", "obs/timeline.py", "obs/fleet.py"])
+def test_telemetry_modules_are_checked(name):
+    """The telemetry slice's modules are among the sources the import
+    check reads."""
+    assert PORT / name in _sources()
+
+
+def test_fleet_trace_script_the_bench_loads_is_standard_library_only():
+    """`bench --faults --elastic` loads scripts/fleet_trace.py (no part
+    of the JAX package) by path: it imports the standard library only."""
+    import sys
+
+    path = ROOT / "scripts" / "fleet_trace.py"
+    tree = ast.parse(path.read_text(), filename=str(path))
+    names = [a.name for node in ast.walk(tree) if isinstance(node, ast.Import)
+             for a in node.names]
+    names += [node.module for node in ast.walk(tree)
+              if isinstance(node, ast.ImportFrom) and node.level == 0]
+    top = {n.split(".")[0] for n in names}
+    assert top and top <= set(sys.stdlib_module_names) | {"__future__"}
+
+
 @pytest.mark.parametrize("name", ["data/native/loader.cc",
                                   "parallel/ps_demo/ps_server.cc"])
 def test_native_sources_are_the_ports_own_copies(name):

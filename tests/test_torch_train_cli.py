@@ -112,7 +112,7 @@ def test_mlp_mnist_matches_the_jax_cli_from_one_init(tmp_path, data_dir,
                                                              seed=tcfg.seed))
     jl, tl = _Losses(), _Losses()
     common = dict(data_dir=data_dir, checkpoint_every_steps=20)
-    _, jfinal, _ = jrun_config(jcfg, mesh=mesh1, extra_hooks=[jl],
+    _, jfinal, jctx = jrun_config(jcfg, mesh=mesh1, extra_hooks=[jl],
                                checkpoint_dir=str(tmp_path / "jck"),
                                journal=str(tmp_path / "j.jsonl"), **common)
     tstate, tfinal, ctx = cli.run_config(
@@ -129,6 +129,9 @@ def test_mlp_mnist_matches_the_jax_cli_from_one_init(tmp_path, data_dir,
     assert got == want
     assert {"run_start", "first_step", "checkpoint_save",
             "checkpoint_commit", "run_stop"} <= set(got)
+    # the live registry (what /metrics serves) holds the reference's tags
+    assert ctx["registry"].tags() == jctx["registry"].tags()
+    assert ctx["health"].state == jctx["health"].state == "stopped"
 
 
 @pytest.fixture(scope="module")
@@ -327,9 +330,6 @@ REFUSED = [
     (["--mesh=data=1,model=2,seq=2"], "item 11"),
     (["--host_device_count=8"], "item 12"),
     (["--mesh=data=1,model=2,pipe=2"], "item 11"),
-    (["--metrics_port=9000"], "item 14"),
-    (["--anomaly"], "item 14"),
-    (["--anomaly_every=5"], "item 14"),
     (["--tuned=require"], "item 16"),
     (["--tuned_dir=/x"], "item 16"),
     (["--prng_impl=rbg"], "closing line"),
@@ -343,6 +343,47 @@ def test_refused_flags_name_their_roadmap_item(argv, item):
         cli.main(["--device=cpu", "--config=mlp_mnist", *argv])
     msg = str(info.value.code)
     assert msg.startswith("error: ") and "ROADMAP §1" in msg and item in msg
+
+
+#: the telemetry flags (ROADMAP §1 item 14) lifted from the refusals above
+TELEMETRY = [
+    ["--metrics_port=PORT"],
+    ["--anomaly"],
+    ["--anomaly", "--anomaly_every=2"],
+]
+
+
+@pytest.mark.parametrize("argv", TELEMETRY,
+                         ids=["metrics_port", "anomaly", "anomaly_every"])
+def test_telemetry_flags_now_run(data_dir, argv):
+    """Each trains 4 steps: --metrics_port serves the run's registry on
+    the port (the run's result carries its URL; the exporter is closed
+    when the run returns), --anomaly adds the hook at its cadence (the
+    reference's default 25, or --anomaly_every), and the health ends in
+    ``stopped``."""
+    import socket
+
+    from dist_mnist_tpu_torch.obs.anomaly import AnomalyHook
+
+    with socket.socket() as probe:
+        probe.bind(("127.0.0.1", 0))
+        port = probe.getsockname()[1]
+    argv = [a.replace("PORT", str(port)) for a in argv]
+    state, final, ctx = cli.main([
+        "--device=cpu", "--config=mlp_mnist", f"--data_dir={data_dir}",
+        "--train_steps=4", "--eval_every=0", *argv])
+    assert state.step_int == 4
+    assert ctx["health"].state == "stopped"
+    assert "train/step_time_ms" in ctx["registry"].tags()
+    assert ctx["registry"].histograms()["train/step_time_ms"].count == 4
+    anomaly = [h for h in ctx["loop"].hooks if isinstance(h, AnomalyHook)]
+    if "--anomaly" in argv:
+        assert [h._every for h in anomaly] == [
+            2 if "--anomaly_every=2" in argv else 25]
+        assert ctx["metrics_url"] is None
+    else:
+        assert anomaly == []
+        assert ctx["metrics_url"] == f"http://127.0.0.1:{port}/metrics"
 
 
 def test_refused_config_fields_name_their_roadmap_item(data_dir):

@@ -278,8 +278,8 @@ def test_variant_contract_and_refusals():
 
 @pytest.mark.parametrize("kwargs,item", [
     ({"moe_capacity_factor": 1.5}, "no moe_capacity_factor field"),
-    ({"memory_budget_mb": 64.0}, "items 13 and 15"),
-    ({"store": object()}, "items 13 and 15")])
+    ({"memory_budget_mb": 64.0}, "item 15"),
+    ({"store": object()}, "item 15")])
 def test_build_zoo_engine_refuses_later_arguments(kwargs, item):
     bundle = load_for_serving("mlp_mnist", "cpu")
     with pytest.raises(ValueError, match=item):
