@@ -334,6 +334,25 @@ script. Phases (any failure exits nonzero before the final `ok` line):
    `paged_attention` launches a decode step; the resilience phase's
    `bench.run_faults` records carry the fleet-of-one gate and its
    elastic leg the fleet trace's;
+12k. the serving fleet (`fleet`): (a) `bench --serve --fleet` (three
+   in-process float `mlp_mnist` replicas, the reference's stall + kill
+   plan, a live roll 100 -> 200 under load; its gates: zero
+   latency-sensitive errors or sheds, nothing dropped, a replica down
+   with its recovery, swaps >= 2, every serving replica on step 200; no
+   kernel launched, the weights being float); (b) the int8 fleet through
+   `cli.router`'s in-process path (`--quant=int8 --watch`, two replicas,
+   the counters reset just before and read just after): a commit of
+   step 200 rolls it, 2 `quant_matmul` launches a batch run, each
+   replica's logits on fixed images bit for bit a fresh int8 engine of
+   step 200, and that engine within 1e-4 of the largest logit of its
+   plain version; (c) `--noinprocess`: two `cli.serve --serve_forever
+   --quant=int8` children on the card, one roll through the router
+   (POST /swap), the scraper's merged /metrics with both replicas, a
+   POST /predict bit for bit the in-process engine; (d) `bench --serve
+   --autoscale` with its gates; (e) `q_einsum("bsk,kh->bsh")` on
+   mlp/hid's int8 weight against its plain version (2e-5 relative), and
+   a serve memory budget between the MLP's int8 and float weights:
+   int8 admitted, float refused;
 13. time each kernel at the shapes its path gives it, beside its plain
    version and, where one exists, one library call computing the same
    function (for the Adam kernels `torch._fused_adam_`/`_fused_adamw_`, a
@@ -357,7 +376,8 @@ script. Phases (any failure exits nonzero before the final `ok` line):
    launches in `data_parallel`'s ViT run, both ranks, and each rank's in
    `tensor_parallel`, in each `sequence_parallel` run and (the flash
    forward and the masked forward's Sq > 1 route) in `zoo_sharded`, and
-   the flash rows' `launches_resilience`;
+   the flash rows' `launches_resilience`; `quant_matmul`'s
+   `launches_fleet` from the fleet phase's (b);
    `paged_attention` with each rank's TP launches and
    its times at 2 and 4 heads), then, last, the `ok` line.
 
@@ -368,6 +388,7 @@ same message on stderr, and exits 1.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import shutil
 import statistics
@@ -5871,7 +5892,7 @@ def telemetry(torch, dev, reset_counts, read_counts,
                                              **kw)
 
             reset_counts()
-            with serve_cli.telemetry(args) as (registry, health):
+            with serve_cli.telemetry(args) as (registry, health, _):
                 with _Prober(base, ("/healthz", "/metrics")) \
                         if port else contextlib.nullcontext() as probe:
                     summary = serve_cli.serve_classifier(
@@ -5966,6 +5987,380 @@ def telemetry(torch, dev, reset_counts, read_counts,
                 (dev.type == "cuda" and d["paged_attention"]
                  != depth * d["decode_steps"]):
             fail(f"telemetry decode: {d}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(json.dumps(out), flush=True)
+    return out
+
+
+#: the fleet phase: (b) the int8 in-process fleet through `cli.router`
+#: (`FLEET_REPLICAS` replicas, `FLEET_B_REQUESTS` requests at concurrency
+#: 64, max batch 64), (c) `--noinprocess` (`FLEET_C_REQUESTS`), the
+#: fixed images each replica is held to after its swap
+FLEET_REPLICAS = 2
+FLEET_B_REQUESTS = 1024
+FLEET_C_REQUESTS = 128
+FLEET_IMAGES = 64
+#: (e) `q_einsum`'s operand: mlp/hid's int8 weight under `bsk,kh->bsh`
+FLEET_EINSUM_SHAPE = (4, 16, 784)
+
+
+def _fleet_args(*argv):
+    from dist_mnist_tpu_torch.cli import router as router_cli
+
+    return router_cli.build_parser().parse_args(list(argv))
+
+
+def _fleet_int8(torch, dev, reset_counts, read_counts, work: Path) -> dict:
+    """Phase 12k (b): `mlp_mnist --quant=int8 --watch` through
+    `cli.router.run`'s in-process path, two replicas sharing one cell
+    cache; a commit of step 200 lands as the traffic starts and the
+    watcher rolls the fleet (under load when the traffic outlasts a poll
+    and a roll: `rolled_under_load`), each replica's drain (quiesce),
+    swap (the reload and the copy) and rewarm timed from the commit's
+    save (`roll_ms`; the watcher may start the roll before the save has
+    returned, so the traffic's start, `traffic_at_ms`, is on the same
+    clock); then each replica's logits on fixed images against
+    a fresh int8 engine built from step 200 (bit for bit), and that
+    engine against its plain `quant_matmul` (`MLP_LOGIT_TOL` of the
+    largest)."""
+    from dist_mnist_tpu_torch import bench
+    from dist_mnist_tpu_torch.cli import router as router_cli
+    from dist_mnist_tpu_torch.ops import quant as quant_mod
+    from dist_mnist_tpu_torch.ops.kernels.quant_matmul import (
+        quant_matmul,
+        quant_matmul_reference,
+    )
+    from dist_mnist_tpu_torch.serve import (
+        InferenceEngine,
+        load_for_serving,
+        make_images,
+    )
+    from dist_mnist_tpu_torch.utils.tree import tree_map
+
+    ckpt = work / "ckpt_b"
+    state, mgr = bench._fleet_checkpoint(dev, str(ckpt),
+                                         bench.FLEET_BASE_STEP)
+    args = _fleet_args(
+        "--config=mlp_mnist", "--quant=int8", "--watch",
+        "--watch_interval_s=0.01", f"--checkpoint_dir={ckpt}",
+        f"--replicas={FLEET_REPLICAS}", f"--requests={FLEET_B_REQUESTS}",
+        "--concurrency=64", "--max_batch=64", "--health_interval_s=0.05",
+        f"--device={dev}")
+    images = make_images((28, 28, 1), seed=123, n=FLEET_IMAGES)
+    out: dict = {"roll_ms": {}}
+    clock = {}
+
+    def timed(replica, name):
+        inner = getattr(replica, name)
+
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return inner(*args, **kwargs)
+            finally:
+                out["roll_ms"].setdefault(str(replica.id), {}).update({
+                    f"{name}_at_ms": (t0 - clock["commit"]) * 1e3,
+                    f"{name}_ms": (time.perf_counter() - t0) * 1e3})
+
+        setattr(replica, name, call)
+
+    def on_router(router, replicas):
+        for r in replicas:
+            for name in ("quiesce", "swap_to", "rewarm"):
+                timed(r, name)
+        # the commit lands as the traffic starts; the watcher (10 ms
+        # polls, already running) rolls the fleet under it
+        clock["commit"] = time.perf_counter()
+        mgr.save(dataclasses.replace(
+            state, step=torch.tensor(bench.FLEET_NEW_STEP,
+                                     dtype=torch.int32, device=dev),
+            params=tree_map(lambda p: p + 1.0, state.params)))
+        mgr.wait()
+        clock["traffic"] = time.perf_counter()
+        out["traffic_at_ms"] = (clock["traffic"] - clock["commit"]) * 1e3
+
+    def on_done(router, replicas, summary):
+        out["traffic_ms"] = (time.perf_counter() - clock["traffic"]) * 1e3
+        deadline = time.monotonic() + 30
+        while router.serving_step != bench.FLEET_NEW_STEP \
+                and time.monotonic() < deadline:
+            time.sleep(0.05)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        out["launches"] = read_counts()
+        out["batches_run"] = sum(sum(r.server.engine.runs_per_cell().values())
+                                 for r in replicas)
+        out["weights_versions"] = [r.server.engine.weights_version
+                                   for r in replicas]
+        out["serving_step"] = router.serving_step
+        out["logits"] = [r.server.engine.predict(images) for r in replicas]
+
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        summary = router_cli.run(args, dev, on_router=on_router,
+                                 on_done=on_done)
+    finally:
+        mgr.close()
+    out["seconds"] = time.perf_counter() - t0
+    bundle = load_for_serving("mlp_mnist", dev, quant="int8",
+                              checkpoint_dir=str(ckpt),
+                              step=bench.FLEET_NEW_STEP)
+    fresh = InferenceEngine(bundle.model, bundle.params, bundle.model_state,
+                            device=dev, image_shape=bundle.image_shape,
+                            max_bucket=64)
+    want = fresh.predict(images)
+    quant_mod.quant_matmul = quant_matmul_reference
+    try:
+        plain = fresh.predict(images)
+    finally:
+        quant_mod.quant_matmul = quant_matmul
+    top = float(np.max(np.abs(plain)))
+    diff = float(np.max(np.abs(want - plain)))
+    logits = out.pop("logits")
+    rec = {
+        "ok": summary["total_ok"], "errors": summary["errors"],
+        "dropped": summary["dropped"], "shed": summary["shed"],
+        "rejected": summary["rejected"],
+        "deadline_expired": summary["deadline_expired"],
+        "watcher": summary["watcher"],
+        "rolled_under_load": summary["serving_step"] is not None,
+        "cache": summary["cache"], "restored": bundle.restored,
+        "ls_p99_ms": summary["latency_latency_sensitive"]["p99_ms"],
+        "ls_latency": summary["latency_latency_sensitive"],
+        "bitwise_fresh_engine": [bool(np.array_equal(got, want))
+                                 for got in logits],
+        "max_abs_diff_vs_plain": diff, "max_abs_logit": top,
+        "tol": MLP_LOGIT_TOL, **out}
+    bad = []
+    # the router contract (the fleet bench's gates): latency-sensitive
+    # requests neither fail nor shed, nothing in flight is dropped
+    ls = "latency_sensitive"
+    if rec["errors"][ls] or rec["shed"][ls] or rec["rejected"][ls] or \
+            sum(rec["dropped"].values()):
+        bad.append(f"ok {rec['ok']}, errors {rec['errors']}, shed "
+                   f"{rec['shed']}, rejected {rec['rejected']}, dropped "
+                   f"{rec['dropped']}")
+    if rec["serving_step"] != bench.FLEET_NEW_STEP or \
+            rec["weights_versions"] != [bench.FLEET_NEW_STEP] * \
+            FLEET_REPLICAS or not bundle.restored:
+        bad.append(f"roll: serving_step {rec['serving_step']}, versions "
+                   f"{rec['weights_versions']}")
+    if not all(rec["bitwise_fresh_engine"]):
+        bad.append(f"replicas vs a fresh step-{bench.FLEET_NEW_STEP} "
+                   f"engine: {rec['bitwise_fresh_engine']}")
+    if not diff <= MLP_LOGIT_TOL * top or not np.isfinite(want).all():
+        bad.append(f"kernel vs plain: {diff} (largest {top})")
+    n = rec["launches"]["quant_matmul"]
+    if dev.type == "cuda" and (n == 0 or n != 2 * rec["batches_run"]):
+        bad.append(f"{n} quant_matmul launches for {rec['batches_run']} "
+                   "batches (want 2 a batch, hid and sm)")
+    others = {k: v for k, v in rec["launches"].items()
+              if k != "quant_matmul" and v}
+    if others:
+        bad.append(f"other kernels launched: {others}")
+    if bad:
+        fail("fleet (b) int8 in-process: " + "; ".join(bad))
+    return rec
+
+
+def _fleet_http(torch, dev, work: Path) -> dict:
+    """Phase 12k (c): `cli.router.run --noinprocess`: two `cli.serve
+    --serve_forever --quant=int8` children on the card, booted on step
+    100 of a checkpoint that holds 200 too; one roll to 200 through the
+    router (POST /swap on each child); the router exporter's /metrics,
+    the `FleetScraper`'s merge, holds both replicas' series; then one
+    POST /predict a replica, each image alone, against the in-process
+    int8 engine of step 200 on the same images (batch 1), bit for bit."""
+    from dist_mnist_tpu_torch import bench
+    from dist_mnist_tpu_torch.cli import router as router_cli
+    from dist_mnist_tpu_torch.serve import (
+        InferenceEngine,
+        load_for_serving,
+        make_images,
+    )
+    from dist_mnist_tpu_torch.utils.tree import tree_map
+
+    ckpt = work / "ckpt_c"
+    state, mgr = bench._fleet_checkpoint(dev, str(ckpt),
+                                         bench.FLEET_BASE_STEP)
+    try:
+        mgr.save(dataclasses.replace(
+            state, step=torch.tensor(bench.FLEET_NEW_STEP,
+                                     dtype=torch.int32, device=dev),
+            params=tree_map(lambda p: p + 1.0, state.params)))
+        mgr.wait()
+    finally:
+        mgr.close()
+    port = _free_port()
+    args = _fleet_args(
+        "--config=mlp_mnist", "--quant=int8", "--noinprocess",
+        f"--checkpoint_dir={ckpt}", f"--step={bench.FLEET_BASE_STEP}",
+        f"--replicas={FLEET_REPLICAS}", f"--requests={FLEET_C_REQUESTS}",
+        "--concurrency=16", "--max_batch=16", "--health_interval_s=0.05",
+        f"--metrics_port={port}", f"--device={dev}")
+    images = make_images((28, 28, 1), seed=7, n=4)
+    out: dict = {}
+
+    def on_router(router, replicas):
+        t0 = time.perf_counter()
+        out["roll"] = router.roll_weights(bench.FLEET_NEW_STEP)
+        out["roll_ms"] = (time.perf_counter() - t0) * 1e3
+
+    def on_done(router, replicas, summary):
+        deadline = time.monotonic() + 10
+        text = ""
+        while time.monotonic() < deadline:
+            text = _http_get(f"http://127.0.0.1:{port}/metrics")[1]
+            counts = [ln for ln in text.splitlines()
+                      if ln.startswith("fleet_serve_latency_ms_count")]
+            if counts and float(counts[0].split()[-1]) >= FLEET_C_REQUESTS:
+                break
+            time.sleep(0.25)
+        out["hosts_up"] = sorted(
+            ln.split()[0] for ln in text.splitlines()
+            if ln.startswith("fleet_host_up") and ln.endswith(" 1"))
+        out["merged_latency_count"] = [
+            float(ln.split()[-1]) for ln in text.splitlines()
+            if ln.startswith("fleet_serve_latency_ms_count")]
+        logits, ms = [], []
+        for r in replicas:
+            rows = []
+            for im in images:
+                t0 = time.perf_counter()
+                rows.append(r.submit(im).result(timeout=60).logits)
+                ms.append((time.perf_counter() - t0) * 1e3)
+            logits.append(np.stack(rows))
+        out["logits"] = logits
+        out["predict_ms"] = ms
+
+    t0 = time.perf_counter()
+    summary = router_cli.run(args, dev, on_router=on_router,
+                             on_done=on_done)
+    out["seconds"] = time.perf_counter() - t0
+    bundle = load_for_serving("mlp_mnist", dev, quant="int8",
+                              checkpoint_dir=str(ckpt),
+                              step=bench.FLEET_NEW_STEP)
+    fresh = InferenceEngine(bundle.model, bundle.params, bundle.model_state,
+                            device=dev, image_shape=bundle.image_shape,
+                            max_bucket=64)
+    want = np.stack([fresh.predict(im[None])[0] for im in images])
+    logits = out.pop("logits")
+    ms = sorted(out.pop("predict_ms"))
+    rec = {"ok": summary["total_ok"], "errors": summary["errors"],
+           "dropped": summary["dropped"],
+           "serving_step": summary["serving_step"],
+           "bitwise_in_process": [bool(np.array_equal(got, want))
+                                  for got in logits],
+           "predict_round_trip_ms_p50": ms[len(ms) // 2],
+           "predict_round_trip_ms_max": ms[-1], **out}
+    bad = []
+    if rec["ok"] != FLEET_C_REQUESTS or sum(rec["errors"].values()):
+        bad.append(f"ok {rec['ok']}, errors {rec['errors']}")
+    if rec["roll"]["swapped"] != list(range(FLEET_REPLICAS)) or \
+            rec["serving_step"] != bench.FLEET_NEW_STEP:
+        bad.append(f"roll {rec['roll']}")
+    if rec["hosts_up"] != [f'fleet_host_up{{host="{i}"}}'
+                           for i in range(FLEET_REPLICAS)] or \
+            not rec["merged_latency_count"] or \
+            rec["merged_latency_count"][0] < FLEET_C_REQUESTS:
+        bad.append(f"merged /metrics: hosts {rec['hosts_up']}, latency "
+                   f"count {rec['merged_latency_count']}")
+    if not all(rec["bitwise_in_process"]):
+        bad.append(f"/predict vs in-process: {rec['bitwise_in_process']}")
+    if bad:
+        fail("fleet (c) --noinprocess: " + "; ".join(bad))
+    return rec
+
+
+def _fleet_einsum_budget(torch, dev) -> dict:
+    """Phase 12k (e): `q_einsum("bsk,kh->bsh")` on mlp/hid's int8 weight,
+    the kernel against its plain version (`QMM_TOL` f32); and the serve
+    memory budget between the MLP's int8 and float weight bytes: the
+    int8 engine admitted, the float one refused at construction."""
+    from dist_mnist_tpu_torch.ops import quant as quant_mod
+    from dist_mnist_tpu_torch.ops.kernels.quant_matmul import (
+        quant_matmul,
+        quant_matmul_reference,
+    )
+    from dist_mnist_tpu_torch.serve import (
+        ServeMemoryBudgetError,
+        build_zoo_engine,
+        load_for_serving,
+    )
+
+    int8 = load_for_serving("mlp_mnist", dev, quant="int8")
+    w = int8.params["hid"]["w"]
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn(*FLEET_EINSUM_SHAPE, generator=gen, device=dev)
+    n0 = quant_matmul.launches
+    got = quant_mod.q_einsum("bsk,kh->bsh", x, w)
+    launched = quant_matmul.launches - n0
+    quant_mod.quant_matmul = quant_matmul_reference
+    try:
+        want = quant_mod.q_einsum("bsk,kh->bsh", x, w)
+    finally:
+        quant_mod.quant_matmul = quant_matmul
+    err, rel = rel_err(got, want)
+    float_b = load_for_serving("mlp_mnist", dev)
+    sizes = {}
+    for tag, bundle in (("int8", int8), ("float", float_b)):
+        eng = build_zoo_engine(bundle, dev, model_name="mlp", max_bucket=1)
+        sizes[tag] = eng.state_bytes_per_device()["total_bytes"]
+    budget_mb = (sizes["int8"] + sizes["float"]) / 2 / 2**20
+    admitted = {}
+    for tag, bundle in (("int8", int8), ("float", float_b)):
+        try:
+            build_zoo_engine(bundle, dev, model_name="mlp", max_bucket=64,
+                             memory_budget_mb=budget_mb)
+            admitted[tag] = True
+        except ServeMemoryBudgetError:
+            admitted[tag] = False
+    rec = {"einsum_shape": [*FLEET_EINSUM_SHAPE, w.shape[1]],
+           "einsum_launches": launched, "max_abs_err": err,
+           "max_rel_err": rel, "tol": QMM_TOL["float32"],
+           "weight_bytes": sizes, "budget_mb": budget_mb,
+           "admitted": admitted}
+    if dev.type == "cuda" and launched != 1:
+        fail(f"fleet (e) q_einsum: {launched} quant_matmul launches")
+    if not rel <= QMM_TOL["float32"]:
+        fail(f"fleet (e) q_einsum vs plain: rel {rel}")
+    if admitted != {"int8": True, "float": False}:
+        fail(f"fleet (e) budget {budget_mb} MiB: admitted {admitted}")
+    return rec
+
+
+def fleet(torch, dev, reset_counts, read_counts) -> dict:
+    """Phase 12k: the serving fleet on the card. (a) `bench --serve
+    --fleet` (three in-process float `mlp_mnist` replicas, the
+    reference's stall + kill plan, a live roll under load: its gates,
+    and no hand-written kernel launched, the weights being float); (b)
+    `_fleet_int8`; (c) `_fleet_http`; (d) `bench --serve --autoscale`
+    with its gates; (e) `_fleet_einsum_budget`. Every counter is set to
+    0 just before each leg and read just after. Fails on any miss;
+    prints and returns the record."""
+    from dist_mnist_tpu_torch import bench
+
+    t_phase = time.perf_counter()
+    out = {"phase": "fleet"}
+    work = Path(tempfile.mkdtemp(prefix="fleet_"))
+    try:
+        t0 = time.perf_counter()
+        reset_counts()
+        rec = bench.main(["--serve", "--fleet", f"--device={dev}"])[0]
+        launches = read_counts()
+        out["a"] = {"record": rec, "launches": launches,
+                    "seconds": time.perf_counter() - t0}
+        if any(launches.values()):
+            fail(f"fleet (a): float replicas launched kernels: {launches}")
+        out["b"] = _fleet_int8(torch, dev, reset_counts, read_counts, work)
+        out["c"] = _fleet_http(torch, dev, work)
+        t0 = time.perf_counter()
+        rec = bench.main(["--serve", "--autoscale", f"--device={dev}"])[0]
+        out["d"] = {"record": rec, "seconds": time.perf_counter() - t0}
+        out["e"] = _fleet_einsum_budget(torch, dev)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     out["seconds"] = time.perf_counter() - t_phase
@@ -6545,6 +6940,10 @@ def main() -> None:
     # -- 12j. telemetry: the instrumented ViT run, the served classifier's
     # and the decode path's exposition and journals ------------------------
     tel = telemetry(torch, dev, reset_counts, read_counts)
+    # -- 12k. the serving fleet: the router under faults and a live roll,
+    # the int8 fleet through cli.router in and out of process, the
+    # autoscaler, q_einsum and the serve memory budget ---------------------
+    flt = fleet(torch, dev, reset_counts, read_counts)
 
     # -- 13. timing at the paths' shapes -------------------------------------
     timed = {}
@@ -6805,6 +7204,8 @@ def main() -> None:
         "f32_launches_serve_quant":
             serve_counts["serve_quant"]["quant_matmul"],
         "launches_telemetry": tel["serve"]["exporter"]["quant_matmul"],
+        # the fleet phase's int8 in-process fleet through cli.router (b)
+        "launches_fleet": flt["b"]["launches"]["quant_matmul"],
         **{f"f32_{key}_m{m}": row[key] for m, row in mlp_hid.items()
            for key in ("kernel_ms", "plain_ms", "library_ms", "bound_ms")},
     }, *adam_rows, *decode_rows, masked_sq_row, *flash_rows], "gpu": gpu}),

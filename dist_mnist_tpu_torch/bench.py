@@ -2,7 +2,8 @@
 `bench.py` with no flags), one ladder config's training throughput
 (`bench.py --config NAME`), classifier serving (`bench.py --serve`,
 `--serve --quant`, `--serve --longctx`), decode serving (`bench.py
---serve --decode`), resilience (`bench.py --faults [--async-save]`,
+--serve --decode`), the serving fleet (`bench.py --serve --fleet
+[--fleet-replicas N]`, `--serve --autoscale`), resilience (`bench.py --faults [--async-save]`,
 `--ckpt`, `--faults --elastic`) and the attribution modes (`--input`,
 `--coldstart`, `--memory`, `--overlap`).
 
@@ -16,6 +17,8 @@
     python -m dist_mnist_tpu_torch.bench --serve --longctx  # ViT zoo grid
     python -m dist_mnist_tpu_torch.bench --serve --decode \\
         --requests 64 --concurrency 16                  # decode serving
+    python -m dist_mnist_tpu_torch.bench --serve --fleet  # router, faults
+    python -m dist_mnist_tpu_torch.bench --serve --autoscale  # economics
     python -m dist_mnist_tpu_torch.bench --faults [--async-save]
     python -m dist_mnist_tpu_torch.bench --ckpt
     python -m dist_mnist_tpu_torch.bench --faults --elastic
@@ -43,9 +46,10 @@ reference's per-chip batch (`ladder_batch`), timed over chunks of 100
 steps after one warm-up chunk; one JSON line with steps/sec/chip and MFU
 from the model's analytic FLOPs.
 
-Classifier serving (`run_serve`, `run_serve_quant`, `run_serve_longctx`)
-and decode serving (`run_serve_decode`) print their JSON lines; see
-their docstrings. So do the resilience modes (`run_faults`, `run_ckpt`,
+Classifier serving (`run_serve`, `run_serve_quant`, `run_serve_longctx`),
+decode serving (`run_serve_decode`) and the fleet (`run_serve_fleet`,
+`run_serve_autoscale`: the reference's plans, seeds, request counts,
+trace and gates) print their JSON lines; see their docstrings. So do the resilience modes (`run_faults`, `run_ckpt`,
 `run_faults_elastic`): the reference's geometry (the MLP, Adam 1e-3,
 60 steps, checkpoints every 10; two ranks of `mlp_mnist` at batch 64
 under the supervisors), its headline metric and its gates, with the
@@ -87,6 +91,7 @@ honest zero.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import time
@@ -114,7 +119,10 @@ from dist_mnist_tpu_torch.train import (
     state_memory_bytes,
 )
 from dist_mnist_tpu_torch.utils import flops
-from dist_mnist_tpu_torch.utils.device import resolve_device
+from dist_mnist_tpu_torch.utils.device import (
+    one_intra_op_thread,
+    resolve_device,
+)
 from dist_mnist_tpu_torch.utils.timing import timed_chunks
 
 HEADLINE_METRIC = "lenet5_mnist_steps_per_sec_per_chip"
@@ -604,6 +612,529 @@ def run_serve_longctx(device: torch.device, n_requests: int,
             "mean_batch_size": summary["mean_batch_size"],
         },
     }
+
+
+#: the fleet benches' checkpoint steps (the reference's): the fleet boots
+#: on `FLEET_BASE_STEP`, the commit of `FLEET_NEW_STEP` mid-load rolls it
+FLEET_BASE_STEP, FLEET_NEW_STEP = 100, 200
+
+
+def _fleet_checkpoint(device: torch.device, ckpt_dir: str, step: int):
+    """A committed `mlp_mnist` checkpoint at `step` (Adam 1e-3, the
+    config's seed): the swap source of the fleet benches. Returns the
+    state and its manager (the caller closes it)."""
+    from dist_mnist_tpu_torch.checkpoint.manager import CheckpointManager
+    from dist_mnist_tpu_torch.configs import get_config
+
+    cfg = get_config("mlp_mnist")
+    state = create_train_state(
+        get_model(cfg.model, **cfg.model_kwargs), optim.adam(1e-3),
+        cfg.seed, np.zeros((1, 28, 28, 1), np.float32), device)
+    state = dataclasses.replace(state, step=torch.tensor(
+        step, dtype=torch.int32, device=device))
+    mgr = CheckpointManager(ckpt_dir, async_save=False)
+    if not mgr.save(state):
+        raise ServeGateError(f"fleet: the step {step} checkpoint was not "
+                             "saved")
+    mgr.wait()
+    return state, mgr
+
+
+def _timed_replica_class():
+    """`InProcessReplica` that records each roll's drain (quiesce) and
+    swap ms by replica: the journal's ``weights_swap`` carries the whole
+    step and the rewarm only."""
+    from dist_mnist_tpu_torch.serve import InProcessReplica
+
+    class TimedReplica(InProcessReplica):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.roll_ms: dict = {}
+
+        def quiesce(self, timeout: float = 30.0) -> bool:
+            t0 = time.perf_counter()
+            try:
+                return super().quiesce(timeout)
+            finally:
+                self.roll_ms["drain_ms"] = (time.perf_counter() - t0) * 1e3
+
+        def swap_to(self, step: int) -> None:
+            t0 = time.perf_counter()
+            super().swap_to(step)
+            self.roll_ms["swap_ms"] = (time.perf_counter() - t0) * 1e3
+
+        def rewarm(self) -> float:
+            ms = super().rewarm()
+            self.roll_ms["rewarm_ms"] = ms
+            return ms
+
+    return TimedReplica
+
+
+def run_serve_fleet(device: torch.device, n_requests: int, concurrency: int,
+                    *, replicas: int = 3) -> dict:
+    """Fleet-serving robustness (the reference `bench.py --serve --fleet`):
+    two-class traffic through a `replicas`-replica `serve/router.py`
+    Router while a seeded fault plan stalls replica 0 and kills replica 1,
+    then a new checkpoint commit rolls the fleet replica by replica UNDER
+    load. Reports the latency-sensitive p99 across both events
+    (`fleet_p99_latency_sensitive_ms`) and gates the router contract:
+    zero latency-sensitive requests failed or shed (only best-effort may
+    shed), zero in-flight requests dropped, at least one replica down
+    with its failover recovery (`replica_down` -> first rerouted
+    response, `recovery_ms`), at least `replicas - 1` swaps, and every
+    serving replica on the new step. Float `mlp_mnist` weights: the path
+    launches no hand-written kernel."""
+    import shutil
+    import tempfile
+    import threading
+
+    from dist_mnist_tpu_torch.configs import get_config
+    from dist_mnist_tpu_torch.faults import Fault, FaultPlan
+    from dist_mnist_tpu_torch.obs import HealthState, RunJournal
+    from dist_mnist_tpu_torch.obs import events as events_mod
+    from dist_mnist_tpu_torch.serve import (
+        BEST_EFFORT,
+        LATENCY_SENSITIVE,
+        CheckpointWatcher,
+        CompiledModelCache,
+        InferenceEngine,
+        InferenceServer,
+        Router,
+        RouterConfig,
+        ServeConfig,
+        load_for_serving,
+        run_fleet_loadgen,
+    )
+    from dist_mnist_tpu_torch.utils.flops import device_kind
+    from dist_mnist_tpu_torch.utils.tree import tree_map
+
+    metric = "fleet_p99_latency_sensitive_ms"
+    tmp = tempfile.mkdtemp(prefix="bench_fleet_")
+    journal = RunJournal(f"{tmp}/events.jsonl")
+    prev_journal = events_mod.set_journal(journal)
+    cfg = get_config("mlp_mnist")
+    ckpt_dir = f"{tmp}/ckpt"
+    fleet: list = []
+    router = watcher = mgr = None
+    try:
+        # a real committed checkpoint as the swap SOURCE: the base weights
+        # now, perturbed weights at the new step mid-run
+        state, mgr = _fleet_checkpoint(device, ckpt_dir, FLEET_BASE_STEP)
+        bundle = load_for_serving(cfg, device, checkpoint_dir=ckpt_dir,
+                                  step=FLEET_BASE_STEP)
+        if not bundle.restored:
+            raise ServeGateError("fleet: the base checkpoint did not restore")
+        # the seeded incident plan, per-replica predict-call ordinals:
+        # replica 0 straggles once early (hedge territory), replica 1 dies
+        # for good (failover territory); replica 2 is never touched
+        plan = FaultPlan([
+            Fault.serve_replica_stall(replica=0, seconds=0.25, request=2),
+            Fault.serve_replica_kill(replica=1, request=3),
+        ])
+        shared_cache = CompiledModelCache()
+
+        def make_server_factory(rid: int):
+            def make_server():
+                engine = InferenceEngine(
+                    bundle.model, bundle.params, bundle.model_state,
+                    device=device, model_name="mlp",
+                    image_shape=bundle.image_shape, max_bucket=32,
+                    cache=shared_cache)
+                return InferenceServer(
+                    plan.wrap_engine(engine, replica_id=rid),
+                    ServeConfig(max_batch=32, max_wait_ms=1.0,
+                                queue_depth=4 * concurrency),
+                    health=HealthState()).start()
+
+            return make_server
+
+        def load_weights(step: int):
+            new = load_for_serving(cfg, device, checkpoint_dir=ckpt_dir,
+                                   step=step)
+            if not new.restored:
+                raise FileNotFoundError(f"no committed checkpoint at {step}")
+            return new.params, new.model_state
+
+        timed_replica = _timed_replica_class()
+        fleet.extend(timed_replica(i, make_server_factory(i),
+                                   load_weights=load_weights).start()
+                     for i in range(replicas))
+        router = Router(fleet, RouterConfig(hedge_after_ms=50.0,
+                                            health_interval_s=0.05)).start()
+        watcher = CheckpointWatcher(ckpt_dir, router.roll_weights,
+                                    poll_interval_s=0.05,
+                                    initial_step=FLEET_BASE_STEP)
+
+        def run_phase(n, seed):
+            return run_fleet_loadgen(
+                router, n_requests=n, concurrency=concurrency,
+                image_shape=bundle.image_shape, seed=seed, ls_fraction=0.8,
+                keep_latencies=True)
+
+        # -- phase 1: the stall and the kill land under steady load
+        phase1 = run_phase(n_requests, seed=0)
+        extra_rounds = 0
+        while any(not f.fired for f in plan.faults) and extra_rounds < 5:
+            # ordinals are per replica; a small fleet can need a little
+            # more traffic before the victim's own call clock reaches them
+            extra_rounds += 1
+            run_phase(max(concurrency * 2, 64), seed=10 + extra_rounds)
+        if not all(f.fired for f in plan.faults):
+            raise ServeGateError(
+                f"fleet: fault plan did not fully fire: {plan.to_json()}")
+
+        # -- phase 2: commit new weights mid-load; the watcher rolls
+        watcher.start()
+        phase2: dict = {}
+
+        def phase2_run():
+            phase2.update(run_phase(n_requests, seed=1))
+
+        t_load = threading.Thread(target=phase2_run, name="fleet-phase2")
+        t_load.start()
+        time.sleep(0.15)  # the roll must overlap live traffic
+        state2 = dataclasses.replace(
+            state, step=torch.tensor(FLEET_NEW_STEP, dtype=torch.int32,
+                                     device=device),
+            params=tree_map(lambda p: p + 1.0, state.params))
+        if not mgr.save(state2):
+            raise ServeGateError("fleet: the new step was not saved")
+        mgr.wait()
+        t_load.join(timeout=180)
+        if t_load.is_alive():
+            raise ServeGateError("fleet: the phase-2 loadgen hung")
+        deadline = time.monotonic() + 30
+        while router.serving_step != FLEET_NEW_STEP:
+            if time.monotonic() > deadline:
+                raise ServeGateError("fleet: the weight roll never "
+                                     "completed")
+            time.sleep(0.05)
+
+        # -- the router contract
+        for phase, name in ((phase1, "phase1"), (phase2, "phase2")):
+            if phase["errors"][LATENCY_SENSITIVE]:
+                raise ServeGateError(
+                    f"fleet {name}: LS errors {phase['errors']}")
+            if phase["shed"][LATENCY_SENSITIVE]:
+                raise ServeGateError(f"fleet {name}: LS shed {phase['shed']}")
+            if sum(phase["dropped"].values()):
+                raise ServeGateError(
+                    f"fleet {name}: dropped in-flight {phase['dropped']}")
+        rsnap = router.metrics.snapshot()
+        if rsnap["replica_downs"] < 1:
+            raise ServeGateError("fleet: the kill never surfaced")
+        if not rsnap["recovery_ms"]:
+            raise ServeGateError("fleet: no failover recovery latency "
+                                 "recorded")
+        if rsnap["swaps"] < replicas - 1:
+            raise ServeGateError(f"fleet: expected >= {replicas - 1} "
+                                 f"live-replica swaps, got {rsnap}")
+        states = router.replica_states()
+        for r in fleet:
+            if states[r.id] == "serving" and \
+                    r.server.engine.weights_version != FLEET_NEW_STEP:
+                raise ServeGateError(
+                    f"fleet: replica {r.id} serves version "
+                    f"{r.server.engine.weights_version}, not "
+                    f"{FLEET_NEW_STEP}")
+        recs = events_mod.read_journal(f"{tmp}/events.jsonl")
+        kinds = [r.get("event") for r in recs]
+        if "replica_down" not in kinds or \
+                "failover_first_response" not in kinds:
+            raise ServeGateError("fleet: the journal lacks replica_down or "
+                                 "failover_first_response")
+        swap_events = [r for r in recs if r.get("event") == "weights_swap"
+                       and r.get("ok")]
+        if len(swap_events) < replicas - 1:
+            raise ServeGateError(f"fleet: {len(swap_events)} ok "
+                                 "weights_swap events")
+        ls_lat = (phase1["raw_latencies"][LATENCY_SENSITIVE]
+                  + phase2["raw_latencies"][LATENCY_SENSITIVE])
+        p99 = float(np.percentile(np.asarray(ls_lat), 99))
+        return {
+            "metric": metric,
+            "value": round(p99, 2),
+            "unit": "ms",
+            "vs_baseline": 0.0,
+            "extra": {
+                "device_kind": device_kind(device),
+                "chips": 1,
+                "replicas": replicas,
+                "recovery_ms": round(rsnap["recovery_ms"][0], 2),
+                "phase1_ls": phase1[f"latency_{LATENCY_SENSITIVE}"],
+                "phase2_ls": phase2[f"latency_{LATENCY_SENSITIVE}"],
+                "be_shed": {"phase1": phase1["shed"][BEST_EFFORT],
+                            "phase2": phase2["shed"][BEST_EFFORT]},
+                "hedges": rsnap["hedges"],
+                "requeues": rsnap["requeues"],
+                "swaps": rsnap["swaps"],
+                "swap_ok_events": len(swap_events),
+                # the roll's per-replica ms: drain (quiesce), the swap
+                # (the reload and the copy), the rewarm, and the whole
+                "roll_ms": [{"replica": r["replica"], "dur_ms": r["dur_ms"],
+                             **{k: round(v, 3) for k, v in next(
+                                 f for f in fleet
+                                 if f.id == r["replica"]).roll_ms.items()}}
+                            for r in swap_events
+                            if r.get("step") == FLEET_NEW_STEP],
+                "serving_step": router.serving_step,
+                "cache": shared_cache.stats()["hits_memory"],
+            },
+        }
+    finally:
+        if watcher is not None:
+            watcher.close()
+        if router is not None:
+            router.close()
+        for r in fleet:
+            r.close(timeout=10)
+        if mgr is not None:
+            mgr.close()
+        events_mod.set_journal(prev_journal)
+        journal.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def run_serve_autoscale(device: torch.device, *, min_replicas: int = 1,
+                        max_replicas: int = 4) -> dict:
+    """Chip economics of traffic-driven scaling (the reference `bench.py
+    --serve --autoscale`): ONE seeded 10x flash-crowd trace replayed
+    through two otherwise identical fleets — `max_replicas` for the whole
+    run against a `serve/autoscale.py` Autoscaler growing the fleet from
+    `min_replicas` at the spike and shrinking it after. Reports
+    `chip_seconds_per_1k_ok` (replica-seconds integrated over the
+    membership timeline x chips per replica, per thousand OK responses)
+    under autoscaling, static's as the baseline, and gates the three
+    promises: the latency-sensitive p99 within the SLO through the spike,
+    the autoscaled cost strictly below static, and every scale-up a warm
+    start (its receipt: zero misses of the shared cell cache, under 1 ms
+    of first-run ("compile") time).
+
+    Each predict carries a fixed modeled service floor (a paced engine
+    proxy, the FaultyEngine idiom), so a replica's capacity, and how hard
+    the spike bites, is independent of the host."""
+    import shutil
+    import tempfile
+
+    from dist_mnist_tpu_torch.configs import get_config
+    from dist_mnist_tpu_torch.obs import HealthState, RunJournal
+    from dist_mnist_tpu_torch.obs import events as events_mod
+    from dist_mnist_tpu_torch.serve import (
+        LATENCY_SENSITIVE,
+        Autoscaler,
+        CompiledModelCache,
+        FleetSignalSource,
+        InferenceEngine,
+        InferenceServer,
+        InProcessReplica,
+        Router,
+        RouterConfig,
+        ScalePolicy,
+        ServeConfig,
+        flash_crowd_trace,
+        load_for_serving,
+        run_trace_loadgen,
+    )
+    from dist_mnist_tpu_torch.utils.flops import device_kind
+
+    metric = "chip_seconds_per_1k_ok"
+    slo_p99_ms = 1000.0
+    service_floor_s = 0.02  # modeled per-batch accelerator time
+    tmp = tempfile.mkdtemp(prefix="bench_autoscale_")
+    journal = RunJournal(f"{tmp}/events.jsonl")
+    prev_journal = events_mod.set_journal(journal)
+    cfg = get_config("mlp_mnist")
+    ckpt_dir = f"{tmp}/ckpt"
+    mgr = None
+    try:
+        # a real committed checkpoint: scale-ups restore the SAME weights
+        # the seed fleet serves
+        _, mgr = _fleet_checkpoint(device, ckpt_dir, FLEET_BASE_STEP)
+        bundle = load_for_serving(cfg, device, checkpoint_dir=ckpt_dir,
+                                  step=FLEET_BASE_STEP)
+        if not bundle.restored:
+            raise ServeGateError("autoscale: the checkpoint did not restore")
+        # the shared cell cache: the warm-start lane under test
+        shared_cache = CompiledModelCache()
+
+        class _PacedEngine:
+            """Engine proxy adding the fixed modeled service time."""
+
+            def __init__(self, inner):
+                self._inner = inner
+
+            def predict(self, *args, **kwargs):
+                time.sleep(service_floor_s)
+                return self._inner.predict(*args, **kwargs)
+
+            def __getattr__(self, name):
+                return getattr(self._inner, name)
+
+        max_batch = 4  # a replica's capacity ~ max_batch / service floor
+
+        def make_replica(rid: int, startup=None):
+            def make_server():
+                with (startup.phase("restore") if startup is not None
+                      else contextlib.nullcontext()):
+                    engine = InferenceEngine(
+                        bundle.model, bundle.params, bundle.model_state,
+                        device=device, model_name="mlp",
+                        image_shape=bundle.image_shape,
+                        max_bucket=max_batch, cache=shared_cache)
+                    server = InferenceServer(
+                        _PacedEngine(engine),
+                        ServeConfig(max_batch=max_batch, max_wait_ms=1.0,
+                                    queue_depth=64),
+                        health=HealthState())
+                with (startup.phase("compile") if startup is not None
+                      else contextlib.nullcontext()):
+                    return server.start()
+
+            return InProcessReplica(rid, make_server).start()
+
+        # one seeded 10x flash crowd, replayed verbatim in both runs: a
+        # ~25 rps baseline one paced replica absorbs (~200 rps), a 250 rps
+        # spike only >= 2 can
+        duration_s = 12.0
+        arrivals = flash_crowd_trace(duration_s=duration_s, base_rps=25.0,
+                                     spike_at_s=3.0, spike_len_s=2.5,
+                                     spike_mult=10.0, decay_s=1.5, seed=0)
+
+        def run_trace(router):
+            return run_trace_loadgen(
+                router, arrivals=arrivals, image_shape=bundle.image_shape,
+                seed=0, ls_fraction=0.8)
+
+        chips_per_replica = 1  # a replica is one engine on one device
+
+        def chip_secs_per_1k(replica_seconds: float, total_ok: int) -> float:
+            return replica_seconds * chips_per_replica / max(total_ok, 1) \
+                * 1e3
+
+        # -- static: max_replicas provisioned for the whole trace
+        static_fleet = [make_replica(i) for i in range(max_replicas)]
+        static_router = Router(
+            static_fleet, RouterConfig(health_interval_s=0.05)).start()
+        try:
+            t0 = time.monotonic()
+            static = run_trace(static_router)
+            static_wall_s = time.monotonic() - t0
+        finally:
+            static_router.close()
+            for r in static_fleet:
+                r.close(timeout=10)
+        static_rs = max_replicas * static_wall_s
+
+        # -- autoscaled: min_replicas and the control loop
+        auto_fleet = [make_replica(i) for i in range(min_replicas)]
+        auto_router = Router(
+            auto_fleet, RouterConfig(health_interval_s=0.05)).start()
+
+        def spawn(rid, startup):
+            replica = make_replica(rid, startup)
+            auto_fleet.append(replica)
+            return replica
+
+        def reap(replica):
+            replica.close(timeout=10)
+            if replica in auto_fleet:
+                auto_fleet.remove(replica)
+
+        scaler = Autoscaler(
+            auto_router, FleetSignalSource(auto_router), spawn, reap=reap,
+            policy=ScalePolicy(min_replicas=min_replicas,
+                               max_replicas=max_replicas,
+                               slo_p99_ms=slo_p99_ms,
+                               backlog_up=0.25, idle_backlog=0.05,
+                               idle_window_s=1.5, up_cooldown_s=0.4,
+                               down_cooldown_s=2.0),
+            interval_s=0.1, cache=shared_cache, warmup_timeout_s=30.0,
+        ).start()
+        try:
+            auto = run_trace(auto_router)
+            auto_rs = scaler.replica_seconds(floor=min_replicas)
+        finally:
+            scaler.close()
+            auto_router.close()
+            for r in list(auto_fleet):
+                r.close(timeout=10)
+
+        # -- the subsystem's promises
+        if scaler.scale_ups < 1:
+            raise ServeGateError("autoscale: the 10x flash crowd never "
+                                 "triggered a scale-up")
+        ups = [h for h in scaler.history if h["action"] == "up"]
+        for receipt in ups:
+            if receipt.get("cache_misses", 0) != 0:
+                raise ServeGateError(
+                    f"autoscale: a scale-up ran cells for the first time "
+                    f"(cache misses): {receipt}")
+            if receipt.get("cache_compile_ms", 0.0) >= 1.0:
+                raise ServeGateError(
+                    f"autoscale: a scale-up spent first-run time: {receipt}")
+        auto_p99 = auto[f"latency_{LATENCY_SENSITIVE}"]["p99_ms"]
+        if not (np.isfinite(auto_p99) and auto_p99 <= slo_p99_ms):
+            raise ServeGateError(
+                f"autoscale: LS p99 {auto_p99:.1f} ms broke the "
+                f"{slo_p99_ms:.0f} ms SLO through the spike")
+        if auto["errors"][LATENCY_SENSITIVE]:
+            raise ServeGateError(
+                f"autoscale: LS errors {auto['errors']}")
+        if sum(auto["dropped"].values()):
+            raise ServeGateError(
+                f"autoscale: dropped in-flight {auto['dropped']}")
+        cs_static = chip_secs_per_1k(static_rs, static["total_ok"])
+        cs_auto = chip_secs_per_1k(auto_rs, auto["total_ok"])
+        if not cs_auto < cs_static:
+            raise ServeGateError(
+                f"autoscale: autoscaling did not beat static provisioning: "
+                f"{cs_auto:.1f} vs {cs_static:.1f} chip-s/1k ok")
+        recs = events_mod.read_journal(f"{tmp}/events.jsonl")
+        kinds = [r.get("event") for r in recs]
+        if "autoscale_decision" not in kinds or \
+                "replica_scale_up" not in kinds:
+            raise ServeGateError("autoscale: the journal lacks "
+                                 "autoscale_decision or replica_scale_up")
+        return {
+            "metric": metric,
+            "value": round(cs_auto, 2),
+            "unit": "chip_s/1k_ok",
+            "vs_baseline": round(cs_static / max(cs_auto, 1e-9), 3),
+            "extra": {
+                "device_kind": device_kind(device),
+                "chips": chips_per_replica,
+                "static_chip_seconds_per_1k_ok": round(cs_static, 2),
+                "min_replicas": min_replicas,
+                "max_replicas": max_replicas,
+                "scale_ups": scaler.scale_ups,
+                "scale_downs": scaler.scale_downs,
+                "replica_seconds": {"static": round(static_rs, 2),
+                                    "autoscaled": round(auto_rs, 2)},
+                "ok": {"static": static["total_ok"],
+                       "autoscaled": auto["total_ok"]},
+                "ls_p99_ms": {
+                    "static": round(
+                        static[f"latency_{LATENCY_SENSITIVE}"]["p99_ms"], 2),
+                    "autoscaled": round(auto_p99, 2)},
+                "slo_p99_ms": slo_p99_ms,
+                "warm_start": {
+                    "scale_up_total_ms": [u["total_ms"] for u in ups],
+                    "scale_up_compile_ms": [u["compile_ms"] for u in ups],
+                    "cache_misses": [u.get("cache_misses") for u in ups],
+                    "cache_compile_ms": [u.get("cache_compile_ms")
+                                         for u in ups],
+                },
+                "trace": {"kind": "flash_crowd", "arrivals": len(arrivals),
+                          "duration_s": duration_s, "spike_mult": 10.0},
+            },
+        }
+    finally:
+        if mgr is not None:
+            mgr.close()
+        events_mod.set_journal(prev_journal)
+        journal.close()
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 class DecodeGateError(RuntimeError):
@@ -1977,8 +2508,24 @@ def build_parser() -> argparse.ArgumentParser:
                         f"; the port has {sorted(CONFIGS)}")
     p.add_argument("--serve", action="store_true",
                    help="a serving benchmark: alone, mlp_mnist's p99 "
-                        "latency (one JSON line); the reference's --fleet "
-                        "and --autoscale join with ROADMAP §1 item 15")
+                        "latency (one JSON line)")
+    p.add_argument("--fleet", action="store_true",
+                   help="with --serve: fleet robustness — two-class "
+                        "traffic through a multi-replica router under a "
+                        "seeded replica-kill + replica-stall plan and a "
+                        "live weight hot swap; gates zero "
+                        "latency-sensitive failures and reports their p99 "
+                        "(fleet_p99_latency_sensitive_ms)")
+    p.add_argument("--fleet-replicas", dest="fleet_replicas", type=int,
+                   default=3, help="fleet size in --serve --fleet mode")
+    p.add_argument("--autoscale", action="store_true",
+                   help="with --serve: chip economics — one seeded 10x "
+                        "flash-crowd trace replayed under static "
+                        "max-replica provisioning and under the "
+                        "serve/autoscale.py control loop; gates the "
+                        "latency-sensitive p99 through the spike, warm "
+                        "scale-ups (zero first runs) and a strictly lower "
+                        "autoscaled cost (chip_seconds_per_1k_ok)")
     p.add_argument("--quant", action="store_true",
                    help="with --serve: a float and an int8 mlp_mnist engine "
                         "on one stream (two JSON lines)")
@@ -2118,7 +2665,8 @@ def _run_attribution(args, mode: str):
 def _serve_mode(args) -> str | None:
     """The serving benchmark the flags name, or None without --serve;
     exits on a mode flag without --serve or on two modes."""
-    modes = [m for m in ("quant", "longctx", "decode") if getattr(args, m)]
+    modes = [m for m in ("quant", "longctx", "decode", "fleet", "autoscale")
+             if getattr(args, m)]
     if not args.serve:
         if modes:
             raise SystemExit(f"error: --{modes[0]} takes --serve")
@@ -2209,9 +2757,18 @@ def main(argv=None):
             "quant": (run_serve_quant, "quant_p99_ms"),
             "longctx": (run_serve_longctx, "longctx_p99_ms"),
             "decode": (run_serve_decode, "decode_ttft_p99_ms"),
+            "fleet": (lambda d, n, c: run_serve_fleet(
+                d, n, c, replicas=args.fleet_replicas),
+                "fleet_p99_latency_sensitive_ms"),
+            "autoscale": (lambda d, n, c: run_serve_autoscale(d),
+                          "chip_seconds_per_1k_ok"),
         }[mode]
         try:
-            records = run(device, args.requests, args.concurrency)
+            # the fleet modes' replicas share this process
+            with (one_intra_op_thread(device)
+                  if mode in ("fleet", "autoscale")
+                  else contextlib.nullcontext()):
+                records = run(device, args.requests, args.concurrency)
         except (ServeGateError, DecodeGateError) as err:
             print(json.dumps({"metric": metric, "value": 0.0,
                               "error": str(err)}), flush=True)

@@ -61,6 +61,25 @@ taken logs a warning and serving goes on. `--journal` (default
 under DIR (`compilecache/store.py`; every spawned rank too), and the
 summary gains the store's `compile_cache` stats.
 
+`--serve_memory_budget_mb` bounds the classifier engine's per-device
+weights and warmed cells (`serve/engine.py`): weights over it refuse,
+a grid that cannot stay resident refuses at prewarm, live traffic
+evicts the coldest cell. `--prewarm_async` warms the grid on a
+background thread while traffic is already served. `--fault_plan`
+(inline JSON or a path, `faults/plan.py`) wraps the engine in
+`faults/inject.FaultyEngine`: ``serve_error`` fails one batch,
+``serve_replica_kill``/``serve_replica_stall`` target `--replica_id`.
+
+`--serve_forever` runs this process as one FLEET REPLICA until SIGTERM
+or SIGINT, with no loadgen (`cli/router.py` drives the traffic): the
+exporter of `--metrics_port` (required) doubles as the data plane —
+POST ``/predict`` runs one request through `InferenceServer.submit`,
+POST ``/swap?step=N`` quiesces the pipeline, reloads committed step N
+from `--checkpoint_dir` through `load_for_serving` and hot-swaps it in
+(`InferenceEngine.swap_weights`) — beside ``/healthz`` and ``/metrics``.
+The summary printed at exit is the server's stats and the served
+`weights_version`.
+
 Runs on the CUDA device by default and exits with an error when there is
 none; `--device=cpu` runs the plain CPU path. Weights are those of a
 committed step under `--checkpoint_dir` (`--step`, default the latest;
@@ -124,6 +143,32 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--prewarm", action=argparse.BooleanOptionalAction,
                    default=True, help="run every (batch, height) cell once "
                                       "before serving")
+    p.add_argument("--prewarm_async", action=argparse.BooleanOptionalAction,
+                   default=False,
+                   help="warm the grid on a background ZooPrewarm thread "
+                        "while already serving (first requests may pay a "
+                        "cell's first run; startup stays flat as the zoo "
+                        "grid grows)")
+    p.add_argument("--serve_memory_budget_mb", type=float, default=0,
+                   help="per-device budget (MiB) for the weights and the "
+                        "warmed cells: prewarm REFUSES a grid that cannot "
+                        "stay resident; live traffic evicts the coldest "
+                        "cell (LRU). 0 = unbounded")
+    p.add_argument("--fault_plan", default=None,
+                   help="inline JSON or file path of a faults/plan.py "
+                        "FaultPlan: serve_error fails one batch and the "
+                        "server keeps serving; serve_replica_kill / "
+                        "serve_replica_stall target --replica_id")
+    p.add_argument("--serve_forever", action="store_true",
+                   help="run as a fleet replica until SIGTERM/SIGINT: the "
+                        "metrics exporter serves POST /predict and /swap "
+                        "next to /healthz and /metrics (requires "
+                        "--metrics_port); no loadgen runs (cli/router.py "
+                        "drives the traffic)")
+    p.add_argument("--replica_id", type=int, default=None,
+                   help="this replica's id in the fleet (scopes "
+                        "serve_replica_* faults in --fault_plan); defaults "
+                        "to $DIST_MNIST_TPU_HOST_ID, else 0")
     p.add_argument("--seq_buckets", default=None,
                    help='variable-length serving: "auto" for the '
                         "power-of-two height ladder, \"h1,h2,...\" for "
@@ -191,11 +236,13 @@ def build_parser() -> argparse.ArgumentParser:
 
 @contextlib.contextmanager
 def telemetry(args):
-    """The serving run's telemetry: yields ``(registry, health)``, a
-    `MetricRegistry` and a `HealthState`, with the run journal installed
-    (`--journal`, ``$DIST_MNIST_TPU_JOURNAL`` or ``<logdir>/events.jsonl``)
-    and, on the chief with `--metrics_port`, the exporter serving both
-    (a taken port warns and serving goes on). Both close on exit."""
+    """The serving run's telemetry: yields ``(registry, health,
+    exporter)``, a `MetricRegistry`, a `HealthState` and the exporter or
+    None, with the run journal installed (`--journal`,
+    ``$DIST_MNIST_TPU_JOURNAL`` or ``<logdir>/events.jsonl``) and, on the
+    chief with `--metrics_port`, the exporter serving both (a taken port
+    warns and serving goes on; with `--serve_forever` it raises, the
+    exporter being the replica's data plane). All close on exit."""
     from dist_mnist_tpu_torch.obs import (
         HealthState,
         MetricRegistry,
@@ -223,11 +270,13 @@ def telemetry(args):
                       "role": "serve"},
             ).start()
         except OSError as e:
+            if getattr(args, "serve_forever", False):
+                raise
             log.warning("metrics exporter: could not bind port %d (%s); "
                         "continuing without exposition", args.metrics_port,
                         e)
     try:
-        yield registry, health
+        yield registry, health, exporter
     finally:
         if exporter is not None:
             exporter.close()
@@ -261,10 +310,16 @@ def _mesh_ranks(args) -> int:
     extra = {k: v for k, v in axes.items()
              if k != "model" and v not in (1, -1)}
     if extra:
+        # the reference replicates its decode engine over a data axis
+        # (params and KV cache placed P(): every data device runs the same
+        # step); the port runs a process per device and serves decode over
+        # the model axis only (ROADMAP §3, the tensor-parallel decode
+        # departure)
         raise SystemExit(
             f"error: --mesh {args.mesh}: decode serving splits heads over "
-            "the model axis only (replicas behind a router join with "
-            "ROADMAP §1 item 15)")
+            "the model axis only; a data axis would replicate the whole "
+            "decode engine on every data rank (ROADMAP §3, the "
+            "tensor-parallel decode departure)")
     return axes.get("model", 1)
 
 
@@ -348,7 +403,7 @@ def _spawn_ranks(argv: list[str], args, ranks: int) -> int:
                   platform="cpu" if args.device == "cpu" else None)
 
 
-def _run_rank(args, registry, health) -> dict | None:
+def _run_rank(args, registry, health, exporter=None) -> dict | None:
     """One rank of a sharded server: the decode engine's heads, or the
     classifier zoo's shards; the summary on the chief, None elsewhere."""
     from dist_mnist_tpu_torch.cluster import coordination
@@ -367,13 +422,76 @@ def _run_rank(args, registry, health) -> dict | None:
             return _run_decode(args, mesh.device, mesh, registry=registry,
                                health=health)
         return serve_classifier(args, mesh.device, mesh, registry=registry,
-                                health=health)
+                                health=health, exporter=exporter)
     finally:
         coordination.shutdown()
 
 
+def _replica_id(args) -> int:
+    """`--replica_id`, else ``$DIST_MNIST_TPU_HOST_ID``, else 0."""
+    from dist_mnist_tpu_torch.obs import events as events_mod
+
+    if args.replica_id is not None:
+        return args.replica_id
+    return int(os.environ.get(events_mod.ENV_HOST_ID, "0") or 0)
+
+
+def _serve_forever(server, exporter, cfg, args, device) -> dict:
+    """Replica mode: wire the exporter's data plane to this server and
+    block until SIGTERM/SIGINT. `predict_fn` maps one POST to one
+    submit(); `swap_fn` quiesces the pipeline (the router already stopped
+    routing here), reloads the committed step through `load_for_serving`
+    (the path the process booted through) and swaps it in."""
+    import signal
+    import threading
+
+    def predict_fn(image, deadline_ms):
+        fut = server.submit(image, deadline_ms=deadline_ms)
+        # bound the HTTP worker's wait: the request's own deadline plus
+        # slack for the batch in front of it, or a generous idle ceiling
+        wait_s = (deadline_ms / 1e3 + 30.0) if deadline_ms else 60.0
+        return fut.result(timeout=wait_s)
+
+    swap_lock = threading.Lock()
+
+    def swap_fn(step: int) -> dict:
+        with swap_lock:
+            if not server.quiesce(timeout=30.0):
+                raise TimeoutError("pipeline did not quiesce for swap")
+            # full trees: a sharded engine keeps its own slices of them
+            new = load_for_serving(cfg, device, quant=args.quant,
+                                   checkpoint_dir=args.checkpoint_dir,
+                                   step=step)
+            if not new.restored:
+                raise FileNotFoundError(
+                    f"no committed checkpoint at step {step}")
+            server.engine.swap_weights(new.params, new.model_state,
+                                       version=step)
+            if new.quant_report:
+                # the /metrics quant-error surface of the NEW weights
+                server.metrics.record_quant_report(new.quant_report)
+            return {"swapped": True, "step": step, "quant": new.quant}
+
+    exporter.predict_fn = predict_fn
+    exporter.swap_fn = swap_fn
+    stop = threading.Event()
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        signal.signal(sig, lambda *_: stop.set())
+    with server:
+        log.info("replica serving on %s (SIGTERM to stop)",
+                 exporter.url("/predict"))
+        stop.wait()
+        # stop accepting POSTs before the pipeline drains
+        exporter.predict_fn = None
+        exporter.swap_fn = None
+    summary = server.stats()
+    summary["weights_version"] = server.engine.weights_version
+    return summary
+
+
 def serve_classifier(args, device, mesh=None, *, loadgen=None,
-                     registry=None, health=None) -> dict | None:
+                     registry=None, health=None,
+                     exporter=None) -> dict | None:
     """The classifier mode: the bundle (sharded by `--serve_rules` on a
     `mesh` of several ranks), the zoo engine, the server and the seeded
     loadgen (`loadgen(server, n_requests=, concurrency=, seed=)`, default
@@ -382,7 +500,8 @@ def serve_classifier(args, device, mesh=None, *, loadgen=None,
     until it closes the engine. Every rank logs the kernel launches and
     the cells it ran. The server's ladders go on `registry` (None = a
     registry of its own), its `health` and final metrics (`--logdir`)
-    through the server."""
+    through the server. With `--serve_forever` the chief serves through
+    `exporter`'s POST routes until a signal instead of a loadgen."""
     from dist_mnist_tpu_torch.obs.writers import make_default_writer
     from dist_mnist_tpu_torch.ops.kernels import launch_counts
 
@@ -391,11 +510,16 @@ def serve_classifier(args, device, mesh=None, *, loadgen=None,
                               checkpoint_dir=args.checkpoint_dir,
                               step=args.step, mesh=mesh,
                               sharding_rules=args.serve_rules)
+    from dist_mnist_tpu_torch.compilecache import store as store_mod
+
+    active = store_mod.active()
     engine = build_zoo_engine(
         bundle, device, model_name=cfg.model,
         max_bucket=max(args.max_batch, 1),
         seq_buckets=args.seq_buckets or None,
-        moe_capacity_factor=args.moe_capacity_factor or None)
+        moe_capacity_factor=args.moe_capacity_factor or None,
+        memory_budget_mb=args.serve_memory_budget_mb or None,
+        store=active.kernels if active is not None else None)
     state_bytes = engine.state_bytes_per_device()
     log.info("resident serve state per rank: %s",
              json.dumps(state_bytes, sort_keys=True))
@@ -410,6 +534,12 @@ def serve_classifier(args, device, mesh=None, *, loadgen=None,
         log.info("follower ran %d cells", engine.follow())
         log_rank()
         return None
+    zoo_engine = engine  # the engine itself, for the summary's fields
+    if args.fault_plan:
+        from dist_mnist_tpu_torch.faults import FaultPlan
+
+        engine = FaultPlan.from_spec(args.fault_plan).wrap_engine(
+            engine, replica_id=_replica_id(args))
     if loadgen is None:
         def loadgen(server, **kw):
             return run_loadgen(server, image_shape=bundle.image_shape, **kw)
@@ -420,17 +550,23 @@ def serve_classifier(args, device, mesh=None, *, loadgen=None,
         queue_depth=args.queue_depth,
         default_deadline_ms=args.deadline_ms or None,
         prewarm=args.prewarm,
+        prewarm_async=args.prewarm_async,
     ), writer=writer, health=health)
     if registry is not None:
         # live full-distribution exposition of the serve ladders (/metrics)
         server.metrics.attach_to(registry)
     try:
-        with server:
-            summary = loadgen(server, n_requests=args.requests,
-                              concurrency=args.concurrency, seed=args.seed)
-            stats = server.stats()
+        if args.serve_forever:
+            summary = _serve_forever(server, exporter, cfg, args, device)
+            stats = summary
+        else:
+            with server:
+                summary = loadgen(server, n_requests=args.requests,
+                                  concurrency=args.concurrency,
+                                  seed=args.seed)
+                stats = server.stats()
     finally:
-        engine.close()
+        zoo_engine.close()
         writer.close()
     log_rank()
     for key in ("mean_moe_drop_fraction", "max_moe_drop_fraction"):
@@ -441,7 +577,7 @@ def serve_classifier(args, device, mesh=None, *, loadgen=None,
     summary["checkpoint_step"] = bundle.step
     summary["restored"] = bundle.restored
     summary["serve_state_bytes_per_device"] = state_bytes
-    summary["cells"] = engine.runs_per_cell()
+    summary["cells"] = zoo_engine.runs_per_cell()
     if mesh is not None and mesh.ranks > 1:
         from dist_mnist_tpu_torch.parallel.sharding import rules_name
 
@@ -452,10 +588,11 @@ def serve_classifier(args, device, mesh=None, *, loadgen=None,
         summary["quant_error_max"] = bundle.quant_report["max_abs_err"]
         summary["quant_rel_err_max"] = bundle.quant_report["max_rel_err"]
         summary["quant_leaves"] = bundle.quant_report["n_quantized"]
-    if engine.seq_grid is not None:
-        summary["seq_buckets"] = list(engine.seq_grid.heights)
+    if zoo_engine.seq_grid is not None:
+        summary["seq_buckets"] = list(zoo_engine.seq_grid.heights)
         summary["seq_bucket_counts"] = {
-            str(k): v for k, v in sorted(engine.seq_bucket_counts.items())}
+            str(k): v
+            for k, v in sorted(zoo_engine.seq_bucket_counts.items())}
     return summary
 
 
@@ -474,6 +611,10 @@ def main(argv=None) -> dict | None:
         raise SystemExit(f"error: {err}") from None
     device_name = (torch.cuda.get_device_name(device)
                    if device.type == "cuda" else "cpu")
+    if args.serve_forever and (args.decode or not args.metrics_port):
+        raise SystemExit("error: --serve_forever serves the classifier and "
+                         "requires --metrics_port (the exporter is the "
+                         "replica's data plane)")
     ranks = _mesh_ranks(args)
     if ranks > 1 and args.num_processes is None:
         rc = _spawn_ranks(argv, args, ranks)
@@ -483,15 +624,15 @@ def main(argv=None) -> dict | None:
     from dist_mnist_tpu_torch.compilecache.store import persistent_cache
 
     with persistent_cache(args.compile_cache_dir) as cache, \
-            telemetry(args) as (registry, health):
+            telemetry(args) as (registry, health, exporter):
         if args.num_processes and args.num_processes > 1:
-            summary = _run_rank(args, registry, health)
+            summary = _run_rank(args, registry, health, exporter)
         elif args.decode:
             summary = _run_decode(args, device, registry=registry,
                                   health=health)
         else:
             summary = serve_classifier(args, device, registry=registry,
-                                       health=health)
+                                       health=health, exporter=exporter)
     if summary is None:
         return None
     if cache is not None:

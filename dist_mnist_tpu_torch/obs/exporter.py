@@ -30,8 +30,8 @@ its server.
 
 A copy of the reference package's `obs/exporter.py`. The POST
 ``/predict`` and ``/swap`` routes answer 404 until a serve replica wires
-``predict_fn``/``swap_fn``; the port's replica mode (`cli.serve
---serve_forever`) joins with ROADMAP §1 item 15.
+``predict_fn``/``swap_fn``: `cli.serve --serve_forever` does, and
+`serve/router.HttpReplica` calls them.
 """
 
 from __future__ import annotations

@@ -142,6 +142,33 @@ def q_dot(x: torch.Tensor, w) -> torch.Tensor:
     return quant_matmul(x, w.q, w.scale)
 
 
+def _matmul_spec(spec: str) -> bool:
+    """True when an einsum spec is exactly a last-axis matmul
+    (``...k,kh->...h`` shapes, any labels): the second operand is 2-D, its
+    first axis contracts with the first operand's last, and the output is
+    the first operand's leading labels then the second's output label."""
+    spec = spec.replace(" ", "")
+    if "->" not in spec or spec.count(",") != 1:
+        return False
+    lhs, out = spec.split("->")
+    a, b = lhs.split(",")
+    if len(b) != 2 or "." in b or len(set(a)) != len(a):
+        return False
+    k, h = b
+    return bool(a) and a[-1] == k and h not in a and out == a[:-1] + h
+
+
+def q_einsum(spec: str, x: torch.Tensor, w) -> torch.Tensor:
+    """einsum twin of `q_dot`. A spec that is a last-axis matmul with a
+    2-D `QuantizedArray` runs the `quant_matmul` kernel (its plain version
+    for CPU tensors); every other contraction takes ``torch.einsum`` over
+    the weight dequantized into `x`'s dtype, as the reference does."""
+    if (isinstance(w, QuantizedArray) and w.ndim == 2
+            and _matmul_spec(spec)):
+        return quant_matmul(x, w.q, w.scale)
+    return torch.einsum(spec, x, materialize(w, x.dtype))
+
+
 # ---------------------------------------------------------------------------
 # tree-level transform
 

@@ -23,6 +23,7 @@ import time
 from concurrent.futures import CancelledError
 
 import numpy as np
+import torch
 
 from dist_mnist_tpu_torch.serve.admission import (
     AdmissionQueue,
@@ -137,6 +138,10 @@ class DynamicBatcher:
         return grid.n_tokens(h) / grid.n_tokens(self.engine.seq_bucket_for(h))
 
     def _loop(self) -> None:
+        # this thread's OpenMP and MKL teams take the process's intra-op
+        # count: a new thread starts from the runtime's default, whatever
+        # `torch.set_num_threads` set
+        torch.set_num_threads(torch.get_num_threads())
         while True:
             batch = self._collect()
             if batch:

@@ -67,7 +67,7 @@ class ServeMetrics:
     def record_quant_report(self, report: dict) -> None:
         """Fold an `ops.quant.error_report` in: one histogram observation
         per quantized leaf (max abs error), plus the scalar max. Called at
-        server construction."""
+        server construction and again on each quantized hot swap."""
         leaves = (report or {}).get("leaves", {})
         with self._lock:
             for stats in leaves.values():
@@ -98,6 +98,16 @@ class ServeMetrics:
     def record_cancelled(self, n: int = 1):
         with self._lock:
             self.cancelled += n
+
+    @property
+    def inflight(self) -> int:
+        """Admitted requests whose futures have not settled yet (queued or
+        mid-batch): what `InferenceServer.quiesce` waits on. Admission
+        rejections never count as admitted, so the four settle paths
+        (completed, expired, failed, cancelled) are exhaustive."""
+        with self._lock:
+            return self.admitted - (self.completed + self.rejected_deadline
+                                    + self.failed + self.cancelled)
 
     def record_batch(self, n_real: int, bucket: int,
                      seq_occupancy: float | None = None,

@@ -5,7 +5,9 @@ Lifecycle contract:
 
     start():  prewarm every cell of the (batch, height) grid up to
               max_batch (default — a first run inside live traffic is a
-              latency hole), then start the batcher thread.
+              latency hole), then start the batcher thread. With
+              `prewarm_async` the grid warms on a ``ZooPrewarm`` thread
+              while traffic is already served (close() joins it).
     submit(): an image of any height the engine serves (its native one,
               or any up to it with a seq grid); the batcher groups a
               window's requests by shape.
@@ -19,13 +21,18 @@ Lifecycle contract:
 
 `health` (an `obs.HealthState`) reads ``serving`` after start(),
 ``draining`` during close() and ``stopped`` after it; the journal gets
-``serve_start`` and ``serve_stop``.
+``serve_start`` and ``serve_stop``. `quiesce()` waits for every admitted
+request to settle while the server stays open (a hot swap's drain step,
+`serve/router.py`), and `capacity` is the admission bound a router's
+backlog fraction divides by.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import threading
+import time
 
 from dist_mnist_tpu_torch.serve.admission import AdmissionQueue
 from dist_mnist_tpu_torch.serve.batcher import DynamicBatcher
@@ -43,6 +50,11 @@ class ServeConfig:
     queue_depth: int = 256  # admission bound; beyond it -> QueueFullError
     default_deadline_ms: float | None = None  # per-request override wins
     prewarm: bool = True  # run every (batch, height) cell once first
+    prewarm_async: bool = False  # warm the grid on a background
+    # "ZooPrewarm" thread while traffic is already served: first requests
+    # may pay a cell's first run, but startup stays flat as the 2-D zoo
+    # grid multiplies the cells. close() joins the thread; a budget
+    # refusal surfaces in stats()["prewarm_error"]
 
 
 class InferenceServer:
@@ -69,16 +81,35 @@ class InferenceServer:
         )
         self._started = False
         self._closed = False
+        self._prewarm_thread: threading.Thread | None = None
+        self._prewarm_error: Exception | None = None
 
     # -- lifecycle -----------------------------------------------------------
+    def _prewarm_buckets(self) -> list[int]:
+        return [b for b in self.engine.buckets()
+                if b <= max(self.config.max_batch, self.engine.min_bucket)]
+
+    def _prewarm(self) -> None:
+        try:
+            buckets = self._prewarm_buckets()
+            n = self.engine.prewarm(buckets)
+            log.info("prewarmed %d cell(s) over buckets %s", n, buckets)
+        except Exception as err:  # surface via stats(); keep serving
+            log.exception("background prewarm failed")
+            self._prewarm_error = err
+
     def start(self) -> "InferenceServer":
         if self._started:
             return self
         if self.config.prewarm:
-            buckets = [b for b in self.engine.buckets()
-                       if b <= max(self.config.max_batch, 1)]
-            n = self.engine.prewarm(buckets)
-            log.info("prewarmed %d cell(s) over buckets %s", n, buckets)
+            if self.config.prewarm_async:
+                self._prewarm_thread = threading.Thread(
+                    target=self._prewarm, name="ZooPrewarm", daemon=True)
+                self._prewarm_thread.start()
+            else:
+                buckets = self._prewarm_buckets()
+                n = self.engine.prewarm(buckets)
+                log.info("prewarmed %d cell(s) over buckets %s", n, buckets)
         self._batcher.start()
         self._started = True
         if self.health is not None:
@@ -101,6 +132,11 @@ class InferenceServer:
         ok = self._batcher.drain(timeout=timeout) if self._started else True
         if not ok:
             log.error("batcher did not drain within %.1fs", timeout)
+        if self._prewarm_thread is not None:
+            # bounded join: a cell's first run in flight finishes, then the
+            # thread exits; close() never leaks a ZooPrewarm thread
+            self._prewarm_thread.join(timeout=timeout)
+            self._prewarm_thread = None
         self._closed = True
         if self.writer is not None:
             self.emit_metrics(self.writer)
@@ -126,10 +162,31 @@ class InferenceServer:
         return self._admission.submit(image, deadline_ms=deadline_ms,
                                       cancel_event=cancel_event)
 
+    def quiesce(self, timeout: float = 30.0) -> bool:
+        """Wait (bounded) until every ADMITTED request has settled, without
+        closing anything: the hot swap's drain step (serve/router.py's
+        drain -> swap -> rewarm) needs an empty pipeline while the server
+        stays open for the traffic that resumes after the swap. The caller
+        stops submitting first (a router stops routing to a `swapping`
+        replica); otherwise new admissions keep the pipeline busy and this
+        times out. Returns True when idle."""
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            if self.metrics.inflight == 0 and self.queue_depth == 0:
+                return True
+            time.sleep(0.002)
+        return False
+
     # -- observability -------------------------------------------------------
     @property
     def queue_depth(self) -> int:
         return self._admission.depth
+
+    @property
+    def capacity(self) -> int:
+        """Admission bound: the denominator of a router's backlog
+        fraction."""
+        return self._admission.maxsize
 
     def stats(self) -> dict:
         out = self.metrics.snapshot()
@@ -137,6 +194,8 @@ class InferenceServer:
         out["cache"] = self.engine.cache_stats()
         if self.engine.quant:
             out["quant"] = self.engine.quant
+        if self._prewarm_error is not None:
+            out["prewarm_error"] = repr(self._prewarm_error)
         return out
 
     def emit_metrics(self, writer, step: int = 0) -> None:

@@ -196,6 +196,7 @@ def build_zoo_engine(
     moe_capacity_factor: float | None = None,
     memory_budget_mb: float | None = None,
     store=None,
+    cache=None,
     mesh=None,
 ) -> InferenceEngine:
     """An `InferenceEngine` for a `loader.ServingBundle`: the seq grid when
@@ -210,8 +211,14 @@ def build_zoo_engine(
     `moe_capacity_factor` replaces an MoE model's capacity factor (a
     model without the field refuses, as in the reference).
 
-    Refused until their slice lands: `memory_budget_mb` and `store` (the
-    budgeted cache and the executable store, ROADMAP §1 item 15)."""
+    `memory_budget_mb` arms the per-device budget of weights and warmed
+    cells (`serve/engine.py`: weights over it refuse here, a grid that
+    cannot stay resident refuses at `prewarm`); `store` (a
+    `compilecache.ExecutableStore`, the kernel store of the persistent
+    cache the caller entered, through which a cell's first-run kernel
+    builds go) is reported in the cell cache's stats; `cache` shares one
+    `CompiledModelCache` between in-process replicas (it keeps its own
+    store)."""
     model = bundle.model
     if moe_capacity_factor is not None:
         if not (dataclasses.is_dataclass(model)
@@ -222,11 +229,8 @@ def build_zoo_engine(
                 "no moe_capacity_factor field")
         model = dataclasses.replace(
             model, moe_capacity_factor=float(moe_capacity_factor))
-    if memory_budget_mb is not None or store is not None:
-        raise ValueError(
-            "a serve memory budget and an executable store join the port "
-            "with ROADMAP §1 item 15; the port's engine runs each cell "
-            "eagerly and holds no executables")
+    budget_bytes = (int(memory_budget_mb * 1024 * 1024)
+                    if memory_budget_mb else None)
     bundle_mesh = getattr(bundle, "mesh", None)
     if isinstance(mesh, MeshSpec):
         # a spec names a mesh over the process group's ranks
@@ -258,6 +262,8 @@ def build_zoo_engine(
         mesh=mesh, rules=getattr(bundle, "rules", None),
         specs=getattr(bundle, "specs", None) if bundle_mesh is not None
         else None,
+        model_name=model_name, store=store, cache=cache,
+        memory_budget_bytes=budget_bytes,
     )
 
 

@@ -8,6 +8,8 @@ the CPU, so a run that claims the GPU path never measured the CPU one.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -29,3 +31,23 @@ def resolve_device(name: str | torch.device | None = None) -> torch.device:
             f"{device} requested but only {torch.cuda.device_count()} CUDA "
             "device(s) are visible")
     return device
+
+
+@contextlib.contextmanager
+def one_intra_op_thread(device: torch.device):
+    """On the CPU, one intra-op thread for the block, the previous count
+    restored after; nothing on a card. In-process replicas run their
+    batches on threads of one process at once, and a pool of every core
+    behind each turns a loaded host's batches from milliseconds into
+    hundreds (`cli/launch.py` gives CPU ranks, and `cli.router` its CPU
+    children, one thread for the same reason). The batcher threads
+    started in the block take the count (`serve/batcher.py`)."""
+    if device.type != "cpu":
+        yield
+        return
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(prev)

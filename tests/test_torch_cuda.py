@@ -245,6 +245,33 @@ def test_quantize_on_card_bitwise_equal_to_cpu(cuda, shape, zero_channel):
                        want.scale.view(torch.int32))
 
 
+@pytest.mark.parametrize("spec,x_shape,dtype", [
+    ("bsk,kh->bsh", (4, 16, 784), torch.float32),
+    ("bk,kh->bh", (64, 784), torch.float32),
+    ("bsk,kh->bsh", (2, 33, 784), torch.bfloat16)])
+def test_q_einsum_matmul_spec_runs_the_kernel(cuda, spec, x_shape, dtype):
+    """`q_einsum` on a last-axis matmul spec with mlp/hid's int8 weight
+    launches `quant_matmul` once and agrees with the plain version on the
+    same inputs (2e-5 of the largest output in f32, 1e-2 in bf16); a
+    non-matmul spec takes the dequantized einsum and launches nothing."""
+    rng = np.random.default_rng(11)
+    w = tquant.quantize(torch.from_numpy(
+        (0.05 * rng.standard_normal((784, 100))).astype(np.float32)).to(cuda))
+    x = torch.from_numpy(rng.standard_normal(x_shape).astype(np.float32)).to(
+        cuda, dtype)
+    before = quant_matmul.launches
+    got = tquant.q_einsum(spec, x, w)
+    assert quant_matmul.launches - before == 1
+    want = quant_matmul_reference(x, w.q, w.scale)
+    assert got.shape == want.shape == (*x_shape[:-1], 100)
+    tol = 2e-5 if dtype == torch.float32 else 1e-2
+    assert _rel_err(got, want) <= tol
+    before = quant_matmul.launches
+    outer = tquant.q_einsum("bk,kh->hb", x.reshape(-1, 784), w)
+    assert quant_matmul.launches == before
+    assert _rel_err(outer.t(), want.reshape(-1, 100)) <= tol
+
+
 def test_engine_on_card_matches_cpu_engine(cuda):
     """The served path on the card (kernel) against the same weights on
     the CPU (plain version): bf16 logits within the bound the JAX

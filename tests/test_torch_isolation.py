@@ -100,6 +100,16 @@ def test_telemetry_modules_are_checked(name):
     assert PORT / name in _sources()
 
 
+@pytest.mark.parametrize("name", [
+    "serve/router.py", "serve/autoscale.py", "serve/loadgen.py",
+    "serve/engine.py", "cli/router.py", "cli/serve.py"])
+def test_fleet_modules_are_checked(name):
+    """The serving fleet's modules are among the sources the import check
+    reads; the router and the autoscaler are copies of the reference's
+    stdlib-and-numpy modules, not imports of them."""
+    assert PORT / name in _sources()
+
+
 def test_fleet_trace_script_the_bench_loads_is_standard_library_only():
     """`bench --faults --elastic` loads scripts/fleet_trace.py (no part
     of the JAX package) by path: it imports the standard library only."""

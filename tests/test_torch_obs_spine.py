@@ -296,12 +296,15 @@ def test_exporter_bind_conflict_raises_oserror():
 
 
 def test_exporter_post_routes_answer_404_without_a_replica():
-    """The copied serve data plane: without `predict_fn`/`swap_fn` (the
-    replica mode joins with ROADMAP §1 item 15) POST /predict and /swap
-    answer 404 as the reference's do; wired, a typed admission error maps
-    to its status (504 deadline, 429 queue full, 503 shutting down)."""
+    """The copied serve data plane: without `predict_fn`/`swap_fn` POST
+    /predict and /swap answer 404 as the reference's do; wired (as
+    `cli.serve --serve_forever` wires them), /predict answers the
+    replica's logits and label, /swap its result, and a typed admission
+    error maps to its status (504 deadline, 429 queue full, 503 shutting
+    down)."""
     from dist_mnist_tpu_torch.serve.admission import (
         DeadlineExceededError,
+        InferenceResult,
         QueueFullError,
         ShuttingDownError,
     )
@@ -317,6 +320,19 @@ def test_exporter_post_routes_answer_404_without_a_replica():
     with MetricsExporter(MetricRegistry(), port=0) as exp:
         assert post(exp.url("/predict"))[0] == 404
         assert post(exp.url("/swap?step=3"))[0] == 404
+        exp.predict_fn = lambda image, deadline_ms: InferenceResult(
+            logits=np.full(10, float(image.sum()), np.float32), label=4,
+            latency_ms=1.0)
+        exp.swap_fn = lambda step: {"swapped": True, "step": step}
+        buf = io.BytesIO()
+        np.save(buf, np.ones((28, 28, 1), np.uint8))
+        req = urllib.request.Request(exp.url("/predict"),
+                                     data=buf.getvalue(), method="POST")
+        with urllib.request.urlopen(req, timeout=10) as resp:
+            body = json.loads(resp.read())
+        assert body["label"] == 4 and body["logits"] == [784.0] * 10
+        got, body = post(exp.url("/swap?step=3"))
+        assert got == 200 and json.loads(body)["result"]["step"] == 3
         for err, code in ((DeadlineExceededError("late"), 504),
                           (QueueFullError("full"), 429),
                           (ShuttingDownError("bye"), 503),

@@ -43,6 +43,7 @@ from dist_mnist_tpu_torch.serve import (
     InferenceServer,
     SeqGrid,
     ServeConfig,
+    ServeMemoryBudgetError,
     ServingBundle,
     build_zoo_engine,
     default_seq_grid,
@@ -276,14 +277,21 @@ def test_variant_contract_and_refusals():
     assert "per_cell" not in plain.cache_stats()
 
 
-@pytest.mark.parametrize("kwargs,item", [
-    ({"moe_capacity_factor": 1.5}, "no moe_capacity_factor field"),
-    ({"memory_budget_mb": 64.0}, "item 15"),
-    ({"store": object()}, "item 15")])
-def test_build_zoo_engine_refuses_later_arguments(kwargs, item):
+@pytest.mark.parametrize("kwargs,error,item", [
+    ({"moe_capacity_factor": 1.5}, ValueError,
+     "no moe_capacity_factor field"),
+    ({"memory_budget_mb": 0.25}, ServeMemoryBudgetError, "weights alone")])
+def test_build_zoo_engine_refuses_later_arguments(kwargs, error, item):
+    """What `build_zoo_engine` refuses: an MoE capacity for a model
+    without one, and a serve memory budget below the weights (the MLP's
+    318,040 B against 0.25 MiB); a budget over them serves."""
     bundle = load_for_serving("mlp_mnist", "cpu")
-    with pytest.raises(ValueError, match=item):
+    with pytest.raises(error, match=item):
         build_zoo_engine(bundle, "cpu", model_name="mlp", **kwargs)
+    if "memory_budget_mb" in kwargs:
+        eng = build_zoo_engine(bundle, "cpu", model_name="mlp",
+                               memory_budget_mb=0.5, max_bucket=2)
+        assert eng.prewarm() == 2
 
 
 @pytest.mark.parametrize("mesh", [MeshSpec(data=1),
@@ -404,8 +412,8 @@ def test_bench_serve_flags(capsys):
         bench.main(["--quant", "--device=cpu"])
     with pytest.raises(SystemExit, match="one serving mode"):
         bench.main(["--serve", "--quant", "--longctx", "--device=cpu"])
-    with pytest.raises(SystemExit):  # argparse: not a flag of the port's
-        bench.main(["--serve", "--fleet", "--device=cpu"])
+    with pytest.raises(SystemExit, match="one serving mode"):
+        bench.main(["--serve", "--quant", "--fleet", "--device=cpu"])
     records = bench.main(["--serve", "--quant", "--device=cpu",
                           "--requests=32", "--concurrency=8"])
     lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()

@@ -45,6 +45,7 @@ from dist_mnist_tpu_torch.configs import get_config
 from dist_mnist_tpu_torch.convert import params_from_jax
 from dist_mnist_tpu_torch.data import datasets as tdatasets
 from dist_mnist_tpu_torch.serve import build_zoo_engine, load_for_serving
+from dist_mnist_tpu_torch.utils.tree import tree_map
 
 import torch_ranks
 import torch_zoo_cases as cases
@@ -162,6 +163,8 @@ def groups(reference, moe_params, dp_checkpoint, tmp_path_factory):
         ((vit, {"data": 2, "model": 2}, "fsdp_tp", batches),
          {"params": params}),
         ((vit, {"data": 4}, "fsdp", batches), {"params": params}),
+        ((vit, {"model": 2}, "tp", batches),
+         {"params": params, "swap_shift": 0.25}),
     ]
     out: dict = {}
 
@@ -185,7 +188,7 @@ def groups(reference, moe_params, dp_checkpoint, tmp_path_factory):
     two, four = out[2], out[4]
     return {"tp": [r[0] for r in two], "fsdp2": [r[1] for r in two],
             "tp_from_dp": [r[2] for r in two], "moe": [r[3] for r in two],
-            "flash3": [r[4] for r in two],
+            "flash3": [r[4] for r in two], "tp_swap": [r[5] for r in two],
             "fsdp_tp": [r[0] for r in four], "fsdp4": [r[1] for r in four]}
 
 
@@ -258,6 +261,37 @@ def test_flash_tp_with_indivisible_heads_runs_attention_replicated(
     chief, follower = groups["flash3"]
     one = _one_rank(_cfg(**FLASH3_KW), reference["batches"])
     assert _max_rel(chief["logits"], one) < LOGIT_TOL
+    assert follower["cells"] == chief["cells"]
+
+
+def test_tp_hot_swap_reaches_every_rank(reference, groups):
+    """`swap_weights` on a TP engine: the chief sends the full trees
+    through the follower protocol, every rank keeps its slices and both
+    serve version 5; the chief's logits then equal one rank's serving
+    the same shifted weights."""
+    chief, follower = groups["tp_swap"]
+    assert chief["version"] == follower["version"] == 5
+    assert _max_rel(chief["logits"], reference["tp"]) < LOGIT_TOL
+    one = _one_rank(_cfg(**VIT_KW), reference["batches"],
+                    params=tree_map(lambda p: p + 0.25,
+                                    params_from_jax(reference["params"])))
+    assert _max_rel(chief["logits_swapped"], one) < LOGIT_TOL
+    # two batches before the swap, two after, and the concurrent thread's
+    assert follower["calls"] == 4 + len(chief["under_load"])
+
+
+def test_tp_hot_swap_under_concurrent_predicts(groups):
+    """A swap sent while another thread keeps predicting on the chief
+    (the batcher beside a POST /swap): every rank runs the same messages
+    in the same order, so each of that thread's answers is the old
+    weights' or the new ones' bit for bit, and the last is the new."""
+    chief, follower = groups["tp_swap"]
+    seen = chief["under_load"]
+    old, new = chief["logits"][0], chief["logits_swapped"][0]
+    assert len(seen) >= 3
+    assert all(np.array_equal(g, old) or np.array_equal(g, new)
+               for g in seen)
+    assert np.array_equal(seen[0], old) and np.array_equal(seen[-1], new)
     assert follower["cells"] == chief["cells"]
 
 
